@@ -34,3 +34,8 @@ jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
 @pytest.fixture
 def rng():
     return np.random.default_rng(0)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skips when torch.cuda.is_available() is false")

@@ -1,0 +1,236 @@
+"""Port kernels (beyondff_tpu_torch.kernels) vs the JAX package's kernels.
+
+On the CPU the port's wrappers take their plain PyTorch versions; the JAX
+side runs its Pallas kernels in interpret mode, as tests/test_kernels.py and
+tests/test_deform_window.py do. The same numpy inputs feed both. Tests that
+need the card carry the ``cuda`` marker and compare each Hopper kernel with
+its plain version there; they import nothing of JAX, so on a machine with a
+card and no JAX they run with
+``python -m pytest --noconftest -m cuda tests/test_torch_kernels.py``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from beyondff_tpu_torch.kernels import deform_window as tdw
+from beyondff_tpu_torch.kernels import dispatch
+from beyondff_tpu_torch.kernels import flash_attention as tfa
+from beyondff_tpu_torch.models.gdino import deformable as tdeform
+
+torch.set_num_threads(2)
+
+
+@pytest.fixture
+def jx():
+    """The JAX package's kernels, imported only by the tests that compare
+    against them."""
+    import types
+
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+
+    from beyondff_tpu.kernels import deform_window as jdw
+    from beyondff_tpu.kernels import flash_attention as jfa
+    from beyondff_tpu.models.gdino import deformable as jdeform
+
+    return types.SimpleNamespace(jnp=jnp, dw=jdw, fa=jfa, deform=jdeform)
+
+
+@pytest.fixture
+def rng():
+    return np.random.default_rng(0)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU; on the card run "
+                    "python -m pytest --noconftest -m cuda tests/test_torch_kernels.py")
+    return torch.device("cuda")
+
+
+def _qkv(rng, shape):
+    return [rng.normal(size=shape).astype(np.float32) for _ in range(3)]
+
+
+# ------------------------------------------------------------------ flash
+def test_flash_plain_matches_attend_padded_masked(rng, jx):
+    """(2, 600, 32): the JAX attend pads S to 1024 and masks keys >= 600."""
+    q, k, v = _qkv(rng, (2, 600, 32))
+    want = np.asarray(jx.fa.attend(*map(jx.jnp.asarray, (q, k, v)), interpret=True))
+    got = tfa.flash_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                              valid_len=600, scale=32 ** -0.5).numpy()
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-5)
+    got_attend = tfa.attend(*map(torch.from_numpy, (q, k, v))).numpy()
+    np.testing.assert_allclose(got_attend, want, rtol=2e-4, atol=2e-5)
+
+
+def test_flash_plain_matches_flash_attention(rng, jx):
+    q, k, v = _qkv(rng, (2, 512, 64))
+    want = np.asarray(jx.fa.flash_attention(*map(jx.jnp.asarray, (q, k, v)), interpret=True))
+    got = tfa.flash_attention(*map(torch.from_numpy, (q, k, v))).numpy()
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-5)
+
+
+def test_flash_plain_mask_drops_keys(rng):
+    """Keys >= valid_len change nothing: same output as attention over the
+    valid prefix alone."""
+    q, k, v = map(torch.from_numpy, _qkv(rng, (1, 300, 16)))
+    full = tfa.flash_attention(q, k, v, valid_len=200)
+    k2, v2 = k.clone(), v.clone()
+    k2[:, 200:] = 1e3
+    v2[:, 200:] = -1e3
+    np.testing.assert_allclose(tfa.flash_attention(q, k2, v2, valid_len=200).numpy(),
+                               full.numpy(), rtol=1e-6, atol=1e-6)
+
+
+def test_attend_dense_path_matches_jax(rng, jx):
+    q, k, v = _qkv(rng, (3, 100, 16))
+    want = np.asarray(jx.fa.attend(*map(jx.jnp.asarray, (q, k, v))))
+    got = tfa.attend(*map(torch.from_numpy, (q, k, v))).numpy()
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-5)
+
+
+# ------------------------------------------------------------- deformable
+SHAPES3 = ((12, 16), (6, 8), (3, 4))
+
+
+def _raster(shapes):
+    cs = []
+    for h, w in shapes:
+        ys = (np.arange(h) + 0.5) / h
+        xs = (np.arange(w) + 0.5) / w
+        cs.append(np.stack(np.meshgrid(xs, ys, indexing="xy"), -1).reshape(-1, 2))
+    return np.concatenate(cs, 0)
+
+
+def _deform_inputs(rng, shapes, b=1, heads=2, hd=8, p=3, max_off=3.0):
+    q = sum(h * w for h, w in shapes)
+    centers = _raster(shapes)
+    value = rng.normal(size=(b, q, heads, hd)).astype(np.float32)
+    locs = np.zeros((b, q, heads, len(shapes), p, 2), np.float32)
+    for li, (h, w) in enumerate(shapes):
+        off = rng.uniform(-max_off, max_off, (b, q, heads, p, 2))
+        locs[:, :, :, li, :, 0] = centers[None, :, None, None, 0] + off[..., 0] / w
+        locs[:, :, :, li, :, 1] = centers[None, :, None, None, 1] + off[..., 1] / h
+    aw = rng.uniform(0.1, 1.0, (b, q, heads, len(shapes), p)).astype(np.float32)
+    return value, locs, aw
+
+
+def test_deform_exact_matches_ms_deform_attn(rng, jx):
+    """3-level raster with samples inside, on the edge of and outside the map."""
+    value, locs, aw = _deform_inputs(rng, SHAPES3)
+    locs[:, ::7, :, :, 0] = 0.0                       # on the left edge
+    locs[:, 1::7, :, :, 1] = 1.0                      # on the bottom edge
+    locs[:, 2::7, :, :, 0] = -0.3                     # outside
+    locs[:, 3::7, :, :, 1] = 1.7                      # outside
+    locs[:, 4::7, :, :, 0] = -1.0 / 32                # half a cell outside
+    want = np.asarray(jx.deform.ms_deform_attn(
+        jx.jnp.asarray(value), SHAPES3, jx.jnp.asarray(locs), jx.jnp.asarray(aw)))
+    got = tdw.ms_deform_sample(torch.from_numpy(value), SHAPES3, torch.from_numpy(locs),
+                               torch.from_numpy(aw)).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-4)
+
+
+SHAPES4 = ((20, 30), (10, 15), (5, 8), (3, 4))
+
+
+@pytest.mark.parametrize("tile,radius", [(8, 8), (16, 8)])
+def test_deform_clamp_matches_sample_level_windowed(rng, jx, tile, radius):
+    """One level in clamp mode vs the Pallas kernel in interpret mode, with
+    samples beyond the window and outside the map."""
+    level = 0
+    value, locs, aw = _deform_inputs(rng, SHAPES4, max_off=2.5 * radius)
+    locs[:, ::5, :, level, :, 0] += 3.0                # far outside the map
+    h, w = SHAPES4[level]
+    v = value[:, :h * w]
+    gx = locs[:, :, :, level, :, 0] * w - 0.5
+    gy = locs[:, :, :, level, :, 1] * h - 0.5
+    assign = jx.dw.build_assignment(SHAPES4, level, tile)
+    want = np.asarray(jx.dw.sample_level_windowed(
+        *map(jx.jnp.asarray, (v, gx, gy, aw[:, :, :, level])),
+        assign, h, w, radius=radius, interpret=True))
+    only = np.zeros_like(aw)
+    only[:, :, :, level] = aw[:, :, :, level]
+    modes = [(tile, radius)] + [None] * (len(SHAPES4) - 1)
+    got = tdw.ms_deform_sample(torch.from_numpy(value), SHAPES4, torch.from_numpy(locs),
+                               torch.from_numpy(only), modes).numpy()
+    np.testing.assert_allclose(got, want.reshape(got.shape), atol=1e-5, rtol=1e-4)
+    assert np.abs(want).max() > 0
+
+
+def test_build_assignment_matches_jax(jx):
+    for level, tile in [(0, 16), (1, 8), (2, 8)]:
+        a = jx.dw.build_assignment(SHAPES4, level, tile)
+        b = tdw.build_assignment(SHAPES4, level, tile)
+        for name in ("idx", "valid", "inv"):
+            np.testing.assert_array_equal(getattr(a, name), getattr(b, name))
+        assert (a.nty, a.ntx, a.s_pad) == (b.nty, b.ntx, b.s_pad)
+
+
+def test_ms_deform_attn_windowed_matches_jax(rng, jx, monkeypatch):
+    """The per-level tile/radius selection: the full windowed call on a
+    raster whose largest level exceeds the small-level threshold, JAX
+    (Pallas interpret) vs port (plain clamp), and decoder-style queries
+    staying exact."""
+    shapes = ((36, 40), (18, 20), (9, 10))
+    value, locs, aw = _deform_inputs(rng, shapes, p=2, max_off=12.0)
+    monkeypatch.setenv("BFF_DEFORM_WINDOWED", "1")
+    want = np.asarray(jx.deform.ms_deform_attn(
+        jx.jnp.asarray(value), shapes, jx.jnp.asarray(locs), jx.jnp.asarray(aw), windowed=True))
+    assert tdeform.level_modes(shapes) == ((16, 8), (8, 8), (8, 8))
+    tv, tl, ta = map(torch.from_numpy, (value, locs, aw))
+    got = tdeform.ms_deform_attn(tv, shapes, tl, ta, windowed=True).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-4)
+    exact = tdeform.ms_deform_attn(tv, shapes, tl, ta, windowed=False).numpy()
+    assert np.abs(got - exact).max() > 1e-3  # clamp mode really engaged
+    dec = tdeform.ms_deform_attn(tv, shapes, tl[:, :32], ta[:, :32], windowed=True).numpy()
+    np.testing.assert_allclose(dec, exact[:, :32], rtol=1e-6, atol=1e-7)
+
+
+def test_windowing_off_cpu_needs_the_env(monkeypatch):
+    v = torch.zeros(1, 4, 1, 1)
+    monkeypatch.delenv("BFF_DEFORM_WINDOWED", raising=False)
+    assert not tdeform._use_windowed(True, v)
+    monkeypatch.setenv("BFF_DEFORM_WINDOWED", "1")
+    assert tdeform._use_windowed(True, v) and not tdeform._use_windowed(False, v)
+    monkeypatch.setenv("BFF_DEFORM_WINDOWED", "0")
+    assert not tdeform._use_windowed(True, v)
+
+
+def test_wrappers_reject_other_devices():
+    meta = torch.empty(1, 4, 8, device="meta")
+    with pytest.raises(ValueError):
+        tfa.flash_attention(meta, meta, meta)
+    with pytest.raises(ValueError):
+        dispatch.kernel_device(torch.zeros(1), meta)
+
+
+# --------------------------------------------------------------- on the card
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_matches_plain_on_card(cuda_device, dtype):
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    q, k, v = (torch.randn(8, 900, 32, generator=g, device=cuda_device).to(dtype)
+               for _ in range(3))
+    got = tfa.flash_attention(q, k, v, valid_len=900)
+    want = tfa.flash_attention_plain(q, k, v, valid_len=900)
+    tol = 2e-3 if dtype == torch.float32 else 2e-2
+    assert (got.float() - want.float()).abs().max().item() < tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_deform_kernel_matches_plain_on_card(cuda_device, dtype):
+    rng = np.random.default_rng(0)
+    value, locs, aw = _deform_inputs(rng, SHAPES4, heads=8, hd=32, p=4, max_off=12.0)
+    tv = torch.from_numpy(value).to(cuda_device, dtype)
+    tl = torch.from_numpy(locs).to(cuda_device)
+    ta = torch.from_numpy(aw).to(cuda_device, dtype)
+    modes = tdeform.level_modes(SHAPES4)
+    for m in (modes, (None,) * len(SHAPES4)):
+        got = tdw.ms_deform_sample(tv, SHAPES4, tl, ta, m)
+        want = tdw.ms_deform_sample_plain(tv, SHAPES4, tl, ta, m)
+        tol = 1e-4 if dtype == torch.float32 else 3e-2
+        assert (got.float() - want.float()).abs().max().item() < tol

@@ -1,0 +1,211 @@
+"""Port models (beyondff_tpu_torch.models) vs the JAX package's models.
+
+Weights cross in both directions: a port module's ``state_dict`` saved with
+``torch.save`` goes through the JAX package's checkpoint converter and comes
+back through ``*_from_jax`` unchanged; a JAX model's parameters load into the
+port module, and the two forwards agree at float32 within atol 5e-4, rtol
+1e-3 (the bar of tests/test_full_model_parity.py). The full presets are
+checked on ``meta`` against the official checkpoints' key listings.
+"""
+
+import os
+import re
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from beyondff_tpu.models import clip as jclip
+from beyondff_tpu.models import sam as jsam
+from beyondff_tpu.models.gdino import GroundingDINO as JGroundingDINO
+from beyondff_tpu.models.gdino import convert as jgconvert
+from beyondff_tpu.models.layers import Attention as JAttention
+from beyondff_tpu_torch.models import clip as tclip
+from beyondff_tpu_torch.models import convert
+from beyondff_tpu_torch.models import layers as tlayers
+from beyondff_tpu_torch.models import sam as tsam
+from beyondff_tpu_torch.models.gdino import model as tgdino
+
+torch.set_num_threads(2)
+ATOL, RTOL = 5e-4, 1e-3
+_FIX = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures")
+
+
+def _np_tree(params):
+    return jax.tree_util.tree_map(np.asarray, params)
+
+
+def _port(kind, preset, device="cpu"):
+    make = {"gdino": lambda: tgdino.GDINOModule(tgdino.PRESETS[preset]),
+            "sam": lambda: tsam.SAMModule(tsam.PRESETS[preset]),
+            "clip": lambda: tclip.CLIPModule(tclip.PRESETS[preset])}[kind]
+    return tlayers.build(make, torch.device(device), seed=3)
+
+
+def _jax_convert(kind, path, cfg):
+    if kind == "gdino":
+        return jgconvert.convert_torch_checkpoint(path, cfg)
+    if kind == "sam":
+        return jsam.convert_torch_checkpoint(path, cfg)
+    return jclip.convert_torch_checkpoint(path, cfg)
+
+
+_FROM_JAX = {"gdino": convert.gdino_from_jax, "sam": convert.sam_from_jax,
+             "clip": convert.clip_from_jax}
+
+
+@pytest.mark.parametrize("kind", ["gdino", "sam", "clip"])
+def test_weights_round_trip_through_jax_converter(tmp_path, kind):
+    module = _port(kind, "test")
+    sd = module.state_dict()
+    path = str(tmp_path / f"{kind}.pth")
+    torch.save({k: v.clone() for k, v in sd.items()}, path)
+    params = _jax_convert(kind, path, module.cfg)
+    back = _FROM_JAX[kind](_np_tree(params), module.cfg)
+    assert set(back) == set(sd)
+    for key, val in sd.items():
+        assert torch.equal(back[key], val), key
+    module.load_state_dict(back)
+
+
+_IGNORE = {
+    "gdino": jgconvert.IGNORED_CHECKPOINT_KEYS,
+    "sam": (r"^prompt_encoder\.mask_downscaling\.", r"num_batches_tracked$"),
+    "clip": (r"^input_resolution$", r"^context_length$", r"^vocab_size$"),
+}
+_FULL = {"gdino": ("swinb", "gdino_swinb"), "sam": ("vit_h", "sam_vit_h"),
+         "clip": ("ViT-L/14", "clip_vit_l14")}
+
+
+@pytest.mark.parametrize("kind", ["gdino", "sam", "clip"])
+def test_full_preset_keys_match_official_checkpoint(kind):
+    preset, fixture = _FULL[kind]
+    make = {"gdino": lambda: tgdino.GDINOModule(tgdino.PRESETS[preset]),
+            "sam": lambda: tsam.SAMModule(tsam.PRESETS[preset]),
+            "clip": lambda: tclip.CLIPModule(tclip.PRESETS[preset])}[kind]
+    with torch.device("meta"):
+        keys = set(make().state_dict())
+    with open(os.path.join(_FIX, f"{fixture}_keys.txt")) as f:
+        official = {k for k in f.read().splitlines() if k}
+    pats = [re.compile(p) for p in _IGNORE[kind]]
+    official = {k for k in official if not any(p.search(k) for p in pats)}
+    assert keys == official, (sorted(keys - official)[:10], sorted(official - keys)[:10])
+
+
+def _loaded(kind, jmodel):
+    module = _port(kind, "test")
+    module.load_state_dict(_FROM_JAX[kind](_np_tree(jmodel.params), module.cfg))
+    return module
+
+
+@pytest.mark.parametrize("windowed", ["0", "1"])
+def test_gdino_forward_matches_jax(rng, monkeypatch, windowed):
+    """Logits and boxes of the ``"test"`` preset, with the encoder's
+    deformable sampling exact and (BFF_DEFORM_WINDOWED=1) in clamp mode."""
+    monkeypatch.setenv("BFF_DEFORM_WINDOWED", windowed)
+    jm = JGroundingDINO.create("test", seed=7)
+    tm = _loaded("gdino", jm)
+    gh, gw = jm.cfg.image_size
+    img = rng.normal(size=(2, gh, gw, 3)).astype(np.float32)
+    t = 7
+    ids = rng.integers(5, jm.cfg.bert.vocab_size, (2, t)).astype(np.int32)
+    ids[:, 0], ids[:, 3], ids[:, -1] = 2, 4, 3
+    pad = np.ones((2, t), bool)
+    pad[1, -2:] = False
+    from beyondff_tpu.models.gdino import bert as jbert
+
+    sm, pos = jbert.subsentence_masks(ids, [4], 2, 3)
+    jl, jb = jm.module.apply(jm.params, jnp.asarray(img), jnp.asarray(ids), jnp.asarray(sm),
+                             jnp.asarray(pad), jnp.asarray(pos))
+    with torch.inference_mode():
+        tl, tb = tm(torch.from_numpy(img), torch.from_numpy(ids).long(), torch.from_numpy(sm),
+                    torch.from_numpy(pad), torch.from_numpy(pos).long())
+    jl, tl = np.asarray(jl), tl.numpy()
+    valid = np.broadcast_to(pad[:, None, :], jl.shape)
+    np.testing.assert_allclose(tl[valid], jl[valid], atol=ATOL, rtol=RTOL)
+    np.testing.assert_array_equal(tl[~valid], jl[~valid])
+    np.testing.assert_allclose(tb.numpy(), np.asarray(jb), atol=ATOL, rtol=RTOL)
+
+
+def test_gdino_wrapper_predict_matches_jax(rng):
+    """The device-frames entry (on-device bilinear resize, normalize, forward,
+    top-K packing) against the JAX wrapper's same path."""
+    jm = JGroundingDINO.create("test", seed=5)
+    tm = tgdino.GroundingDINO(jm.cfg, _loaded("gdino", jm))
+    frames = rng.integers(0, 255, (2, 48, 64, 3), dtype=np.uint8)
+    jh = jm.predict_batch_frames_async(jnp.asarray(frames), "a red chair . clothes")
+    th = tm.predict_batch_frames_async(torch.from_numpy(frames), "a red chair . clothes")
+    np.testing.assert_allclose(th[0].numpy(), np.asarray(jh[0]), atol=ATOL, rtol=RTOL)
+    for (jb, js, jp), (tb, ts, tp) in zip(jm.predict_finalize(jh, 0.0, 0.5),
+                                          tm.predict_finalize(th, 0.0, 0.5)):
+        np.testing.assert_allclose(tb, jb, atol=ATOL, rtol=RTOL)
+        np.testing.assert_allclose(ts, js, atol=ATOL, rtol=RTOL)
+        assert tp == jp
+
+
+def test_stable_topk_orders_ties_like_lax_top_k():
+    scores = np.array([[0.5, 0.9, 0.5, 0.1, 0.9, 0.5, 0.9]], np.float32)
+    jv, ji = jax.lax.top_k(jnp.asarray(scores), 5)
+    tv, ti = tgdino.stable_topk(torch.from_numpy(scores), 5)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+
+
+def test_sam_encode_and_decode_match_jax(rng):
+    jm = jsam.SAM.create("test", seed=5)
+    tm = tsam.SAM(jm.cfg, _loaded("sam", jm))
+    s = jm.cfg.img_size
+    x = rng.normal(size=(2, s, s, 3)).astype(np.float32)
+    je = np.asarray(jm.encode_image(x))
+    with torch.inference_mode():
+        te = tm.module.encode(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(te, je, atol=ATOL, rtol=RTOL)
+    boxes = np.array([[3, 4, 40, 50], [10, 0, 63, 30], [0, 0, 64, 64]], np.float32)
+    jmask, jiou = jm.decode_boxes(jnp.asarray(je[1]), boxes)
+    tmask, tiou = tm.decode_boxes(torch.from_numpy(je[1].copy()), boxes)
+    np.testing.assert_allclose(tmask.numpy(), np.asarray(jmask), atol=ATOL, rtol=RTOL)
+    np.testing.assert_allclose(tiou.numpy(), np.asarray(jiou), atol=ATOL, rtol=RTOL)
+
+
+def test_sam_encode_frames_matches_jax(rng):
+    """uint8 frames smaller than the square: pad + normalize + mask on device."""
+    jm = jsam.SAM.create("test", seed=2)
+    tm = tsam.SAM(jm.cfg, _loaded("sam", jm))
+    frames = rng.integers(0, 255, (2, 48, 64, 3), dtype=np.uint8)
+    je = np.asarray(jm.encode_frames(jnp.asarray(frames)))
+    te = tm.encode_frames(torch.from_numpy(frames)).numpy()
+    np.testing.assert_allclose(te, je, atol=ATOL, rtol=RTOL)
+
+
+def test_clip_image_and_text_features_match_jax(rng):
+    jm = jclip.CLIP.create("test", seed=4)
+    tm = tclip.CLIP(jm.cfg, _loaded("clip", jm))
+    n = jm.cfg.image_resolution
+    crops = rng.integers(0, 255, (3, n, n, 3), dtype=np.uint8)
+    np.testing.assert_allclose(tm.encode_image(crops).numpy(),
+                               np.asarray(jm.encode_image(crops)), atol=ATOL, rtol=RTOL)
+    toks = rng.integers(1, jm.cfg.vocab_size - 1, (4, jm.cfg.context_length)).astype(np.int32)
+    toks[:, 5] = jm.cfg.vocab_size - 1  # EOT
+    np.testing.assert_allclose(tm.encode_text(toks).numpy(),
+                               np.asarray(jm.encode_text(toks)), atol=ATOL, rtol=RTOL)
+
+
+def test_attention_long_sequence_matches_jax(rng):
+    """layers.Attention at S = 600 (the length class that routes to the
+    flash kernel on the card), separate query/key/value inputs."""
+    dim, heads = 32, 4
+    q = rng.normal(size=(2, 600, dim)).astype(np.float32)
+    v = rng.normal(size=(2, 600, dim)).astype(np.float32)
+    jmod = JAttention(heads)
+    params = jmod.init(jax.random.PRNGKey(0), jnp.asarray(q), kv=jnp.asarray(q),
+                       v=jnp.asarray(v))
+    want = np.asarray(jmod.apply(params, jnp.asarray(q), kv=jnp.asarray(q), v=jnp.asarray(v)))
+    w = convert._Writer()
+    w.mha("attn", _np_tree(params)["params"])
+    tmod = tlayers.Attention(dim, heads)
+    tmod.load_state_dict({k[len("attn."):]: val for k, val in w.sd.items()})
+    with torch.inference_mode():
+        got = tmod(torch.from_numpy(q), kv=torch.from_numpy(q), v=torch.from_numpy(v)).numpy()
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL)
