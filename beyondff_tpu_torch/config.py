@@ -45,7 +45,9 @@ class FramesConfig:
     downsample_ratio: int = 10  # keep 1 frame in every N
     depth_scale: float = 1000.0  # raw depth png units -> meters
     depth_thresh: float = 0.08  # visibility |z - depth| tolerance in meters
-    # projection-stage options (not in the port yet; see ROADMAP.md)
+    # projection: resize raw uint16 depth on the device (False: OpenCV on the
+    # host); keep every k-th depth pixel before that resize (accuracy-
+    # affecting, off at 1); cache decoded depth under paths.checkpoint_dir
     device_depth_resize: bool = True
     depth_decimation: int = 1
     depth_cache: bool = True

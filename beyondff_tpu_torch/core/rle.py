@@ -53,6 +53,17 @@ def rle_decode(rle: Dict) -> np.ndarray:
     return (np.cumsum(delta[:-1]) > 0).astype(np.uint8)
 
 
+def rle_bounds(rle: Dict) -> "tuple":
+    """0-based half-open run bounds (starts, ends) of an RLE dict — the
+    device lift consumes these directly (geometry.lift_frames_rle) so dense
+    bitmaps never have to be materialized or uploaded."""
+    counts = np.asarray(rle["counts"], dtype=np.int64)
+    if counts.size % 2:
+        raise ValueError(f"malformed RLE: odd counts length {counts.size}")
+    starts = counts[0::2] - 1
+    return starts, starts + counts[1::2]
+
+
 def rle_encode_batch(masks: np.ndarray) -> List[Dict]:
     """Encode (M, L) binary masks to a list of RLE dicts."""
     masks = np.asarray(masks)
@@ -79,4 +90,23 @@ def encode_frame_masks(results: List[Dict]) -> List[Dict]:
         masks = np.asarray(raw)
         flat = masks.reshape(masks.shape[0], -1)
         rec["segmented_frame_masks"] = rle_encode_batch(flat)
+    return results
+
+
+def decode_frame_masks(results: List[Dict], image_shape=(968, 1296)) -> List[Dict]:
+    """Inverse of :func:`encode_frame_masks`: RLEs -> (M, 1, H, W) uint8.
+
+    Also accepts records whose masks are already dense arrays/tensors: the
+    reference's YOLO-World stage saves raw (M, 1, H, W) bool tensors without
+    RLE-encoding them (segmentation_2d_yolo_world.py:634-638), and those
+    files must remain consumable here."""
+    for rec in results:
+        raw = rec["segmented_frame_masks"]
+        if not (isinstance(raw, (list, tuple)) and raw and isinstance(raw[0], dict)) \
+                and not isinstance(raw, dict):
+            masks = np.asarray(raw, dtype=np.uint8)  # torch tensors coerce too
+            rec["segmented_frame_masks"] = masks.reshape(masks.shape[0], 1, *image_shape)
+            continue
+        masks = rle_decode_batch(raw)
+        rec["segmented_frame_masks"] = masks.reshape(masks.shape[0], 1, *image_shape)
     return results

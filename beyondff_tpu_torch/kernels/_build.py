@@ -19,7 +19,7 @@ import subprocess
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("flash_attention.cu", "ms_deform_sample.cu")
+SOURCES = ("flash_attention.cu", "mask_iou.cu", "ms_deform_sample.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
@@ -84,4 +84,6 @@ def library() -> ctypes.CDLL:
     lib.bff_ms_deform_sample.argtypes = [i, p, p, p, p, p, i, i, i, i, i, i, i,
                                          ctypes.POINTER(ctypes.c_int), p]
     lib.bff_ms_deform_sample.restype = i
+    lib.bff_mask_iou.argtypes = [p, p, i, i, ctypes.c_longlong, p, p, p]
+    lib.bff_mask_iou.restype = i
     return lib

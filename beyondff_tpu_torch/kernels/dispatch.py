@@ -15,7 +15,7 @@ import torch
 
 # Launches of each hand-written kernel since the last reset: a wrapper adds
 # one where it launches its kernel and nowhere else.
-launch_counts: Dict[str, int] = {"flash_attention": 0, "ms_deform_sample": 0}
+launch_counts: Dict[str, int] = {"flash_attention": 0, "mask_iou": 0, "ms_deform_sample": 0}
 
 
 def reset_launch_counts() -> None:

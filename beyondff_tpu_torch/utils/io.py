@@ -1,15 +1,18 @@
-"""On-disk stage contracts and frame IO for the 2D stage.
+"""On-disk stage contracts and frame IO.
 
-The port's copy of the parts of beyondff_tpu/utils/io.py that the 2D stage
-uses. The 2D-stage output is a per-scene list of records
-{frame_id, segmented_frame_masks (RLE), confidences, labels}, serialized as
-``.pth`` (torch pickle, byte-compatible with the reference) or ``.npz``.
+The port's copy of beyondff_tpu/utils/io.py. Stage outputs are per-scene:
+  * 2D stage:   list of {frame_id, segmented_frame_masks (RLE), confidences, labels}
+  * 3D stages:  {"ins": (I, N) bool | list[RLE], "conf": (I,), "final_class": list[str]}
+serialized as ``.pth`` (torch pickle, byte-compatible with the reference) or
+``.npz``. Frame IO (depth PNGs, poses, intrinsics, point clouds) matches the
+reference's loaders; depth decodes and resizes with OpenCV (the JAX
+package's optional C++ decoder, ``native/``, stays on its side).
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -23,6 +26,25 @@ def _tree_to_numpy(obj):
     if isinstance(obj, torch.Tensor):
         return obj.detach().cpu().numpy()
     return obj
+
+
+def load_stage_dict(path: str) -> Dict:
+    """Load a 3D-stage output ({"ins","conf","final_class"}) from .pth or .npz."""
+    if path.endswith(".npz"):
+        with np.load(path, allow_pickle=True) as z:
+            return {"ins": z["ins"], "conf": z["conf"], "final_class": list(z["final_class"])}
+    return _tree_to_numpy(torch.load(path, map_location="cpu", weights_only=False))
+
+
+def save_stage_dict(path: str, ins, conf, final_class: Sequence[str]) -> None:
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    if path.endswith(".npz"):
+        np.savez_compressed(path, ins=np.asarray(ins), conf=np.asarray(conf, dtype=np.float32),
+                            final_class=np.asarray(list(final_class), dtype=object))
+        return
+    torch.save({"ins": torch.from_numpy(np.ascontiguousarray(np.asarray(ins))),
+                "conf": torch.from_numpy(np.asarray(conf, dtype=np.float32)),
+                "final_class": list(final_class)}, path)
 
 
 def load_frame_records(path: str) -> List[Dict]:
@@ -45,6 +67,28 @@ def save_frame_records(path: str, records: List[Dict]) -> None:
             np.asarray(r.get("confidences", []), dtype=np.float32))
         out.append(r)
     torch.save(out, path)
+
+
+def load_pose(path: str) -> np.ndarray:
+    return np.loadtxt(path).astype(np.float64)
+
+
+def load_intrinsic(path: str) -> np.ndarray:
+    return np.loadtxt(path)[:3, :3].astype(np.float64)
+
+
+def load_depth(path: str, depth_scale: float = 1000.0, size: Optional[tuple] = None) -> np.ndarray:
+    """Metric depth map; optionally resized to (width, height) with OpenCV's
+    bilinear (reference: projection_2d_to_3d.py:431-436)."""
+    import cv2
+
+    depth = cv2.imread(path, cv2.IMREAD_UNCHANGED)
+    if depth is None:
+        raise FileNotFoundError(path)
+    depth = depth.astype(np.float32) / depth_scale
+    if size is not None and (depth.shape[1], depth.shape[0]) != size:
+        depth = cv2.resize(depth, size)  # INTER_LINEAR, like the reference
+    return depth
 
 
 def load_image(path: str, size: Optional[tuple] = None) -> np.ndarray:
@@ -72,3 +116,9 @@ def list_scene_frames(scene_2d_dir: str, scene_id: str, downsample_ratio: int = 
     files = [f for f in os.listdir(color_dir) if f.endswith(".jpg")]
     files.sort(key=lambda x: int(x.split(".")[0]))
     return [f[:-4] for f in files[::downsample_ratio]]
+
+
+def load_point_cloud(scene_npy_dir: str, scene_id: str) -> np.ndarray:
+    """(N, 3) xyz from the preprocessed per-scene .npy
+    (reference: projection_2d_to_3d.py:385-387)."""
+    return np.load(os.path.join(scene_npy_dir, f"{scene_id}.npy"))[:, :3]

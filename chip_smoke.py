@@ -18,7 +18,21 @@ Phases (each one's failure ends the run with a non-zero exit):
    8-frame 968x1296 scene, with launch counts reset just before it; reload
    and check the written ``.pth``;
 5. run the scene once more under ``torch.profiler`` for the device's busy
-   share and the kernels that take its time.
+   share and the kernels that take its time;
+6. drive the 3D half — ``projection.run`` -> ``refinement.run`` ->
+   ``evaluate.run`` — at full width for one (class, scene): 250 000 points,
+   300 frames with 640x480 depth, 600 lifted 968x1296 masks, 150 stage-1
+   masks, CLIP ViT-L/14 text similarity; the scene is ray-cast from a seed
+   (a room with twelve boxes, four of the query class) and written to disk
+   before the timed run. Launch counts are set to 0 before each stage and
+   read after it; the outputs are reloaded and checked, and the projection
+   runs once more under ``torch.profiler``.
+
+Phase 2 also holds the mask-IoU kernel bit for bit against its plain version
+at the aggregation's (600, 250 000) self-IoU and refinement's (20 x 150,
+250 000) cross IoU, and at 250 007 points (rows off 16-byte boundaries);
+phase 3 also runs the 3D half on a small scene on the
+card and on the CPU and requires equal outputs and an equal AP row.
 
 The last two lines are the kernel table and ``{"ok": true, "device": ...}``;
 every JSON line also goes to ``chiprun_out/chip_smoke.json``. Exits non-zero
@@ -30,12 +44,14 @@ import os
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense bf16 tensor; f32 non-tensor
+PEAK_INT8_OPS = 1979e12  # dense int8 tensor
 SEED = 0
 N_FRAMES = 8
 FRAME_BATCH = 4  # detector.frame_batch, the config default
@@ -242,17 +258,290 @@ def small_reference(torch, mods, work):
 
 def profile_scene(torch, seg2d, seg, cfg, scene, timed_scene_s):
     """The same scene once more under ``torch.profiler`` (device activity
-    only): the device's busy share of the ``scene`` span (union of kernel,
-    copy and set intervals over the span) and the kernels that take the
-    device's time. The timed run above stays unprofiled."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    only): the device's busy share of the ``scene`` span and the kernels
+    that take the device's time. The timed run above stays unprofiled."""
     from beyondff_tpu_torch.utils.profiling import StageProfiler
 
     prof = StageProfiler("segmentation_2d")
+    busy_us, events, by_name = device_activity(torch, lambda: seg2d.run(
+        cfg, "clothes", scenes=[scene], segmentor=seg, resume=False, profiler=prof))
+    scene_s = prof.durations["scene"]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
+    ours = {k: v for k, v in by_name.items()
+            if "ms_deform_sample_kernel" in k or "flash_fwd_kernel" in k}
+    emit({"phase": "device_profile", "scene_seconds_profiled": scene_s,
+          "scene_seconds_timed": timed_scene_s, "device_busy_ms": busy_us / 1e3,
+          "device_busy_share": busy_us / 1e6 / scene_s, "device_events": events,
+          "top_device_ms": [[name[:120], n, us / 1e3] for name, (n, us) in top],
+          "port_kernels_ms": {name[:120]: [n, us / 1e3] for name, (n, us) in ours.items()}})
+
+
+# ------------------------------------------------------------ the 3D half
+ROOM = np.array([6.0, 5.0, 3.0])  # a bedroom-living room, metres
+OBJECTS = (  # (ScanNet200 class, box centre, box size): four of the query class
+    ("clothes", (0.8, 0.9, 0.25), (0.7, 0.5, 0.5)),
+    ("chair", (1.9, 0.7, 0.45), (0.5, 0.5, 0.9)),
+    ("table", (3.2, 0.8, 0.4), (1.2, 0.7, 0.8)),
+    ("clothes", (4.6, 0.6, 0.15), (0.6, 0.6, 0.3)),
+    ("cabinet", (5.5, 1.8, 0.6), (0.7, 0.9, 1.2)),
+    ("bed", (5.0, 3.6, 0.3), (1.6, 1.4, 0.6)),
+    ("clothes", (4.9, 3.6, 0.7), (0.6, 0.5, 0.2)),
+    ("desk", (3.0, 4.5, 0.4), (1.2, 0.6, 0.8)),
+    ("shelf", (1.2, 4.7, 1.0), (1.0, 0.4, 2.0)),
+    ("couch", (0.5, 2.8, 0.4), (0.8, 1.8, 0.8)),
+    ("clothes", (0.5, 2.8, 0.9), (0.5, 0.6, 0.2)),
+    ("lamp", (2.4, 3.9, 0.5), (0.3, 0.3, 1.0)),
+)
+QUERY = "clothes"
+# ScanNet's color camera (968x1296); the depth camera is the same one at 480x640
+COLOR_K = np.array([[1169.6, 0.0, 646.3], [0.0, 1167.1, 489.9], [0.0, 0.0, 1.0]])
+STAGE1_CLASSES = ("chair", "table", "door", "cabinet", "shelf", "desk", "bed", "pillow",
+                  "window", "picture", "lamp", "towel", "box", "bag", "clothes", "trash can")
+
+
+def box_surface(rng, lo, hi, n):
+    """``n`` points uniform on the surface of the box [lo, hi]."""
+    s = hi - lo
+    areas = np.array([s[1] * s[2]] * 2 + [s[0] * s[2]] * 2 + [s[0] * s[1]] * 2)
+    face = rng.choice(6, n, p=areas / areas.sum())
+    p = lo + rng.random((n, 3)) * s
+    axis = face // 2
+    p[np.arange(n), axis] = np.where(face % 2 == 1, hi[axis], lo[axis])
+    return p
+
+
+def camera_poses(n, yaw_span):
+    """Camera-to-world poses on a loop around the room's centre, looking out
+    and 20 degrees down, turning by ``yaw_span`` radians over ``n`` frames."""
+    poses = []
+    for k in range(n):
+        a = yaw_span * k / n
+        c = np.array([3.0 + 0.6 * np.cos(a), 2.5 + 0.5 * np.sin(a), 1.4 + 0.1 * np.sin(3 * a)])
+        pitch = -0.35
+        f = np.array([np.cos(a) * np.cos(pitch), np.sin(a) * np.cos(pitch), np.sin(pitch)])
+        r = np.cross(f, [0.0, 0.0, 1.0])
+        r /= np.linalg.norm(r)
+        pose = np.eye(4)
+        pose[:3, :3] = np.column_stack([r, np.cross(f, r), f])
+        pose[:3, 3] = c
+        poses.append(pose)
+    return poses
+
+
+def ray_cast(torch, dev, pose, k, hw):
+    """Dense (depth along the optical axis, hit object id; -1 = room) of
+    the room and its boxes, seen by a pinhole camera at pixel centres."""
+    h, w = hw
+    v, u = torch.meshgrid(torch.arange(h, device=dev, dtype=torch.float64),
+                          torch.arange(w, device=dev, dtype=torch.float64), indexing="ij")
+    d_cam = torch.stack([(u - k[0, 2]) / k[0, 0], (v - k[1, 2]) / k[1, 1],
+                         torch.ones_like(u)], -1)
+    rot = torch.as_tensor(pose[:3, :3], device=dev)
+    c = torch.as_tensor(pose[:3, 3], device=dev)
+    d = d_cam @ rot.T  # t along d is the camera-space depth
+
+    def slab(lo, hi):
+        t1 = (torch.as_tensor(lo, device=dev) - c) / d
+        t2 = (torch.as_tensor(hi, device=dev) - c) / d
+        return torch.minimum(t1, t2).amax(-1), torch.maximum(t1, t2).amin(-1)
+
+    depth = slab(np.zeros(3), ROOM)[1]  # inside the room: its far wall
+    hit = torch.full((h, w), -1, dtype=torch.int64, device=dev)
+    for i, (_, centre, size) in enumerate(OBJECTS):
+        c0, s0 = np.asarray(centre), np.asarray(size)
+        near, far = slab(c0 - s0 / 2, c0 + s0 / 2)
+        closer = (near <= far) & (near > 0) & (near < depth)
+        depth = torch.where(closer, near, depth)
+        hit = torch.where(closer, i, hit)
+    return depth, hit
+
+
+def make_3d_scene(torch, dev, root, scene_id, n_points, n_frames, yaw_span, color_hw,
+                  depth_hw, det_every, masks_per_frame, n_stage1, seed):
+    """A ScanNet200-layout scene for projection -> refinement -> evaluation:
+    points on a room's surfaces and on twelve boxes (the GT instances),
+    depth PNGs and 2D-stage RLE records ray-cast from posed frames, a
+    stage-1 file and the GT tuple. Returns the config dict."""
+    from beyondff_tpu_torch.core import rle
+    from beyondff_tpu_torch.data import scannet200
+    from beyondff_tpu_torch.utils import io
+
+    import cv2
+
+    rng = np.random.default_rng(seed)
+    n_obj = int(0.4 * n_points) // len(OBJECTS)
+    pts, sem, inst = [], [], []
+    for i, (cls, centre, size) in enumerate(OBJECTS):
+        c0, s0 = np.asarray(centre), np.asarray(size)
+        pts.append(box_surface(rng, c0 - s0 / 2, c0 + s0 / 2, n_obj))
+        sem.append(np.full(n_obj, scannet200.raw_semantic_id(cls)))
+        inst.append(np.full(n_obj, i))
+    n_room = n_points - n_obj * len(OBJECTS)
+    pts.append(box_surface(rng, np.zeros(3), ROOM, n_room))
+    sem.append(np.zeros(n_room))
+    inst.append(np.full(n_room, -100))
+    pts = np.concatenate(pts).astype(np.float32)
+    sem, inst = np.concatenate(sem), np.concatenate(inst)
+
+    d2 = os.path.join(root, "2D", scene_id)
+    for sub in ("color", "depth", "pose", "intrinsic"):
+        os.makedirs(os.path.join(d2, sub), exist_ok=True)
+    ch, cw = color_hw
+    kc = COLOR_K * np.array([[cw / 1296], [ch / 968], [1.0]])
+    kc[:2, 2] = (COLOR_K[:2, 2] + 0.5) * [cw / 1296, ch / 968] - 0.5
+    kd = kc * np.array([[depth_hw[1] / cw], [depth_hw[0] / ch], [1.0]])
+    kd[:2, 2] = (kc[:2, 2] + 0.5) * [depth_hw[1] / cw, depth_hw[0] / ch] - 0.5
+    k4 = np.eye(4)
+    k4[:3, :3] = kc
+    np.savetxt(os.path.join(d2, "intrinsic", "intrinsic_color.txt"), k4)
+    records = []
+    for i, pose in enumerate(camera_poses(n_frames, yaw_span)):
+        open(os.path.join(d2, "color", f"{i}.jpg"), "wb").close()
+        np.savetxt(os.path.join(d2, "pose", f"{i}.txt"), pose)
+        depth, _ = ray_cast(torch, dev, pose, kd, depth_hw)
+        cv2.imwrite(os.path.join(d2, "depth", f"{i}.png"),
+                    torch.round(depth * 1000).clamp(0, 65535).cpu().numpy().astype(np.uint16))
+        if i % det_every:
+            continue
+        _, hit = ray_cast(torch, dev, pose, kc, color_hw)
+        ids, area = torch.unique(hit[hit >= 0], return_counts=True)
+        order = ids[torch.argsort(area, descending=True)].tolist()
+        masks = [hit == j for j in order[:masks_per_frame]]
+        while len(masks) < masks_per_frame:  # false positives: boxes on whatever is there
+            y0, x0 = rng.integers(0, ch // 2), rng.integers(0, cw // 2)
+            m = torch.zeros(color_hw, dtype=torch.bool, device=dev)
+            m[y0:y0 + rng.integers(ch // 10, ch // 3), x0:x0 + rng.integers(cw // 10, cw // 3)] = True
+            masks.append(m)
+        flat = torch.stack(masks).reshape(len(masks), -1).cpu().numpy()
+        records.append({"frame_id": f"{i}.jpg",
+                        "segmented_frame_masks": rle.rle_encode_batch(flat),
+                        "confidences": rng.uniform(0.35, 0.95, len(masks)).tolist(),
+                        "labels": [QUERY] * len(masks)})
+    io.save_frame_records(os.path.join(root, "mask_2d", QUERY, f"{scene_id}.pth"), records)
+
+    d3 = os.path.join(root, "3D")
+    for sub in ("npy", "gt", "stage1"):
+        os.makedirs(os.path.join(d3, sub), exist_ok=True)
+    np.save(os.path.join(d3, "npy", f"{scene_id}.npy"),
+            np.concatenate([pts, np.zeros_like(pts)], 1))
+    torch.save((pts, np.zeros_like(pts), sem.astype(np.float64), inst.astype(np.float64)),
+               os.path.join(d3, "gt", f"{scene_id}.pth"))
+    # stage 1: the GT instances with 6% of their points dropped, and segments
+    # of the room's surfaces with random labels
+    s1_masks, s1_labels = [], []
+    for i, (cls, _, _) in enumerate(OBJECTS):
+        m = inst == i
+        on = np.flatnonzero(m)
+        m[on[rng.random(on.size) < 0.06]] = False
+        s1_masks.append(m)
+        s1_labels.append(scannet200.instance_index(cls))
+    room = np.flatnonzero(inst == -100)
+    tp = torch.as_tensor(pts, device=dev)
+    for _ in range(n_stage1 - len(OBJECTS)):
+        centre = tp[rng.choice(room)]
+        s1_masks.append(((tp - centre).norm(dim=1) < rng.uniform(0.2, 0.6)).cpu().numpy())
+        s1_labels.append(scannet200.instance_index(STAGE1_CLASSES[rng.integers(
+            len(STAGE1_CLASSES))]))
+    torch.save({"ins": rle.rle_encode_batch(np.stack(s1_masks)),
+                "conf": torch.from_numpy(rng.uniform(0.3, 0.9, len(s1_masks)).astype(np.float32)),
+                "final_class": s1_labels},
+               os.path.join(d3, "stage1", f"{scene_id}.pth"))
+    return {
+        "paths": {"dataset": "scannet200", "root_dir": root,
+                  "scene_npy_dir": os.path.join(d3, "npy"),
+                  "scene_2d_dir": os.path.join(root, "2D"),
+                  "gt_dir": os.path.join(d3, "gt"),
+                  "mask_2d_dir": os.path.join(root, "mask_2d"),
+                  "stage_1_results_dir": os.path.join(d3, "stage1")},
+        "frames": {"height_2d": ch, "width_2d": cw, "downsample_ratio": 1},
+        "base_prompt": QUERY,
+    }
+
+
+def config_3d(Config, fixture, out):
+    d = {**fixture, "paths": {**fixture["paths"],
+                              "mask_3d_dir": os.path.join(out, "mask_3d"),
+                              "final_output_dir": os.path.join(out, "final"),
+                              "checkpoint_dir": os.path.join(out, "ckpt"),
+                              "results_dir": os.path.join(out, "results")}}
+    return Config.from_dict(d)
+
+
+def run_3d(mods, cfg, dev, sim=None, prof=None):
+    """projection.run -> refinement.run -> evaluate.run for the query on one
+    device; per stage: host seconds and mask-IoU launches (counts set to 0
+    just before each stage, read just after)."""
+    torch, dispatch, projection, refinement, evaluate = mods
+    out = {"seconds": {}, "mask_iou_launches": {}}
+    for name, call in (
+            ("projection", lambda: projection.run(cfg, QUERY, resume=False, device=dev,
+                                                  profiler=prof)),
+            ("refinement", lambda: refinement.run(cfg, QUERY, sim=sim, device=dev)),
+            ("evaluation", lambda: evaluate.run(cfg, QUERY, verbose=False,
+                                                plot_pr_curves=False))):
+        dispatch.reset_launch_counts()
+        t0 = time.perf_counter()
+        result = call()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        out["seconds"][name] = time.perf_counter() - t0
+        out["mask_iou_launches"][name] = dispatch.launch_counts["mask_iou"]
+        out[name] = result
+    return out
+
+
+def same_ap(a, b):
+    """AP dicts equal, nan where the other has nan."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(same_ap(a[k], b[k]) for k in a)
+    if isinstance(a, float) and np.isnan(a):
+        return isinstance(b, float) and np.isnan(b)
+    return a == b
+
+
+def stage_outputs(torch, cfg, scene_id):
+    return [torch.load(os.path.join(d, QUERY, f"{scene_id}.pth"), map_location="cpu",
+                       weights_only=False)
+            for d in (cfg.paths.mask_3d_dir, cfg.paths.final_output_dir)]
+
+
+def small_reference_3d(torch, mods, Config, work, dev):
+    """The 3D half on the card against the port's CPU path (the path the CPU
+    tests hold against the JAX package): a 5 000-point scene, 6 frames at
+    242x324 with 121x162 depth (so the device resize runs), equal stage
+    outputs and an equal AP row."""
+    fixture = make_3d_scene(torch, dev, os.path.join(work, "small3d"), "scene0000_00", 5000,
+                            6, 1.2, (242, 324), (121, 162), 1, 4, 20, SEED)
+    runs, outputs, rows = {}, {}, {}
+    for name, d in (("cpu", torch.device("cpu")), ("cuda", dev)):
+        cfg = config_3d(Config, fixture, os.path.join(work, "small3d", name))
+        runs[name] = run_3d(mods, cfg, d)
+        outputs[name] = stage_outputs(torch, cfg, "scene0000_00")
+        with open(os.path.join(cfg.paths.results_dir, "overall_results.txt")) as f:
+            rows[name] = [ln for ln in f if ln.startswith(f"{QUERY},")]
+    for a, b in zip(outputs["cpu"], outputs["cuda"]):
+        check(torch.equal(a["ins"], b["ins"]) and torch.equal(a["conf"], b["conf"])
+              and a["final_class"] == b["final_class"], "small 3D scene: stage outputs differ")
+    ap_cpu, ap_gpu = runs["cpu"]["evaluation"], runs["cuda"]["evaluation"]
+    check(same_ap(ap_cpu, ap_gpu) and rows["cpu"] == rows["cuda"],
+          "small 3D scene: AP differs between CUDA and CPU")
+    emit({"phase": "small_reference_3d", "instances": [int(o["ins"].shape[0])
+                                                       for o in outputs["cuda"]],
+          "ap": ap_gpu["classes"][QUERY], "mask_iou_launches": runs["cuda"]["mask_iou_launches"],
+          "equal": True})
+    check(runs["cuda"]["mask_iou_launches"]["projection"] > 0,
+          "small 3D scene: the mask-IoU kernel was not launched")
+
+
+def device_activity(torch, fn):
+    """Run ``fn`` under ``torch.profiler`` (device activity only); returns
+    (busy microseconds: the union of kernel, copy and set intervals; number
+    of device events; {name: (count, microseconds)})."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     with profile(activities=[ProfilerActivity.CUDA]) as p:
-        seg2d.run(cfg, "clothes", scenes=[scene], segmentor=seg, resume=False, profiler=prof)
+        fn()
         torch.cuda.synchronize()
     spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in p.events()
                    if e.device_type == DeviceType.CUDA)
@@ -264,15 +553,128 @@ def profile_scene(torch, seg2d, seg, cfg, scene, timed_scene_s):
         end = max(end, e)
         n, us = by_name.get(name, (0, 0.0))
         by_name[name] = (n + 1, us + e - s)
-    scene_s = prof.durations["scene"]
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
-    ours = {k: v for k, v in by_name.items()
-            if "ms_deform_sample_kernel" in k or "flash_fwd_kernel" in k}
-    emit({"phase": "device_profile", "scene_seconds_profiled": scene_s,
-          "scene_seconds_timed": timed_scene_s, "device_busy_ms": busy_us / 1e3,
-          "device_busy_share": busy_us / 1e6 / scene_s, "device_events": len(spans),
-          "top_device_ms": [[name[:120], n, us / 1e3] for name, (n, us) in top],
-          "port_kernels_ms": {name[:120]: [n, us / 1e3] for name, (n, us) in ours.items()}})
+    return busy_us, len(spans), by_name
+
+
+def mask_iou_case(torch, kiou, name, ia, ib, n, dev):
+    """One mask-IoU comparison and timing at the main path's shapes; ``ib``
+    None is a self-IoU. A share of rows is empty (nan against empty rows)."""
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    dens = torch.rand(ia, 1, device=dev, generator=g) * 0.3
+    dens[::17] = 0.0
+    a = torch.rand(ia, n, device=dev, generator=g) < dens
+    b = None
+    if ib is not None:
+        dens_b = torch.rand(ib, 1, device=dev, generator=g) * 0.3
+        dens_b[::13] = 0.0
+        b = torch.rand(ib, n, device=dev, generator=g) < dens_b
+    got = kiou.pairwise_iou(a, b)
+    want = kiou.pairwise_iou_plain(a, b)
+    torch.cuda.synchronize()
+    nan_eq = bool(torch.equal(torch.isnan(got), torch.isnan(want)))
+    fin = ~torch.isnan(want)
+    err = float((got[fin] - want[fin]).abs().max()) if bool(fin.any()) else 0.0
+    bits_eq = bool(torch.equal(got[fin].view(torch.int32), want[fin].view(torch.int32)))
+    ib_n = ia if ib is None else ib
+    # intersections only, as torch._int_mm takes them: int8 copies made
+    # outside the timing, rows and points padded with zeros to its multiples
+    # of 8
+    a8 = torch.nn.functional.pad(a.to(torch.int8), (0, -n % 8))
+    b8 = a8 if b is None else torch.nn.functional.pad(b.to(torch.int8), (0, -n % 8, 0, -ib_n % 8))
+    nbytes = ia * n + (0 if b is None else ib_n * n) + 4 * ia * ib_n
+    # a self-IoU needs each distinct pair once: ia (ia + 1) / 2 intersections
+    ops = ia * (ia + 1) * n if b is None else 2 * ia * ib_n * n
+    bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ops = ops / PEAK_INT8_OPS * 1e3
+    rec = {"case": name, "kernel": "mask_iou", "shape": [ia, ib_n, n], "self": b is None,
+           "max_abs_err": err, "bit_equal": bits_eq, "nan_positions_equal": nan_eq,
+           "nan_share": float(torch.isnan(want).float().mean()), "tol": 0.0,
+           "ms": cuda_ms(torch, lambda: kiou.pairwise_iou(a, b), 20),
+           "plain_ms": cuda_ms(torch, lambda: kiou.pairwise_iou_plain(a, b), 5),
+           "bound_ms": max(bound_bytes, bound_ops),
+           "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
+           "library_ms": cuda_ms(torch, lambda: torch._int_mm(a8, b8.t()), 20),
+           "library_call": "torch._int_mm on int8 copies (intersections only)"}
+    emit(rec)
+    check(nan_eq and bits_eq and err == 0.0, f"mask_iou {name}: differs from the plain version")
+    return rec
+
+
+def full_width_3d(torch, mods, Config, work, dev, clip):
+    """The 3D half at full width through its entry points, one (class, scene):
+    250 000 points, 300 frames (a ScanNet scene's ~3000 at the default
+    downsample ratio of 10, run at ratio 1), 640x480 depth PNGs, every 4th
+    frame with 8 RLE masks at 968x1296 (600 lifted rows), 150 stage-1
+    masks, text similarity from ``clip``'s ViT-L/14 text tower on the card."""
+    from beyondff_tpu_torch.models.tokenizers import HashTokenizer
+    from beyondff_tpu_torch.pipeline import text_sim
+    from beyondff_tpu_torch.utils.profiling import StageProfiler
+
+    t0 = time.perf_counter()
+    fixture = make_3d_scene(torch, dev, os.path.join(work, "full3d"), "scene0000_00", 250_000,
+                            300, 2 * np.pi, FRAME_HW, (480, 640), 4, 8, 150, SEED)
+    emit({"phase": "fixture_3d", "seconds": time.perf_counter() - t0})
+    def similarity():  # a fresh per-string cache for each run
+        return text_sim.ClipTextSimilarity(clip, HashTokenizer(clip.cfg.vocab_size,
+                                                               clip.cfg.context_length))
+
+    cfg = config_3d(Config, fixture, os.path.join(work, "full3d", "out"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # cold: the scene's first visit decodes the depth PNGs and fills the
+    # depth cache; warm: the visit of every later class of a sweep
+    prof = StageProfiler("projection")
+    run = run_3d(mods, cfg, dev, sim=similarity(), prof=prof)
+    peak = torch.cuda.max_memory_allocated()
+    prof_warm = StageProfiler("projection")
+    warm = run_3d(mods, cfg, dev, sim=similarity(), prof=prof_warm)
+    launches = run["mask_iou_launches"]
+    for r in (run, warm):
+        for stage in ("projection", "refinement"):
+            check(r["mask_iou_launches"][stage] > 0, f"mask_iou was not launched in the {stage}")
+
+    outs = stage_outputs(torch, cfg, "scene0000_00")
+    for d in outs:
+        check(d["ins"].dtype == torch.bool and d["ins"].dim() == 2
+              and d["ins"].shape[1] == 250_000, f"ins {d['ins'].dtype} {tuple(d['ins'].shape)}")
+        check(d["conf"].dtype == torch.float32 and len(d["conf"]) == d["ins"].shape[0],
+              "conf is not float32 of one value per mask")
+        check(isinstance(d["final_class"], list)
+              and all(isinstance(c, str) for c in d["final_class"]), "final_class")
+    ap = run["evaluation"]["classes"][QUERY]
+    check(all(np.isfinite(ap[k]) for k in ("ap", "ap50%", "ap25%")), f"AP not finite: {ap}")
+    check(same_ap(ap, warm["evaluation"]["classes"][QUERY]), "the warm run's AP differs")
+    check(outs[1]["ins"].shape[0] > 0, "refinement wrote no masks")
+
+    # the same projection once more under the profiler: the device's busy
+    # share of the projection span
+    span = {}
+
+    def project():
+        t = time.perf_counter()
+        mods[2].run(cfg, QUERY, resume=False, device=dev)
+        torch.cuda.synchronize()
+        span["s"] = time.perf_counter() - t
+
+    busy_us, events, by_name = device_activity(torch, project)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
+    emit({"phase": "stage3d_full_width", "points": 250_000, "frames": 300,
+          "lifted_masks": int(prof.items["aggregate.instances"]),
+          "seconds_per_class_scene": {"cold": sum(run["seconds"].values()),
+                                      "warm": sum(warm["seconds"].values())},
+          "scenes_per_min": {k: 60.0 / sum(r["seconds"].values())
+                             for k, r in (("cold", run), ("warm", warm))},
+          "stage_seconds": {"cold": run["seconds"], "warm": warm["seconds"]},
+          "projection_spans_s": {"cold": dict(prof.durations), "warm": dict(prof_warm.durations)},
+          "mask_iou_launches": launches, "max_memory_allocated_bytes": peak,
+          "instances": {"projection": int(outs[0]["ins"].shape[0]),
+                        "refinement": int(outs[1]["ins"].shape[0])},
+          "ap_row": {k: ap[k] for k in ("ap", "ap50%", "ap25%", "rc", "rc50%", "rc25%")}})
+    emit({"phase": "device_profile_projection", "projection_seconds_profiled": span["s"],
+          "device_busy_ms": busy_us / 1e3, "device_busy_share": busy_us / 1e6 / span["s"],
+          "device_events": events,
+          "top_device_ms": [[name[:120], n, us / 1e3] for name, (n, us) in top]})
+    return launches["projection"] + launches["refinement"]
 
 
 def main() -> int:
@@ -286,9 +688,11 @@ def main() -> int:
     from beyondff_tpu_torch.kernels import _build, dispatch
     from beyondff_tpu_torch.kernels import deform_window as dw
     from beyondff_tpu_torch.kernels import flash_attention as fa
+    from beyondff_tpu_torch.kernels import mask_iou as kiou
     from beyondff_tpu_torch.models import clip as clip_mod
     from beyondff_tpu_torch.models import sam as sam_mod
     from beyondff_tpu_torch.models.gdino import deformable, model as gd
+    from beyondff_tpu_torch.pipeline import evaluate, projection, refinement
     from beyondff_tpu_torch.pipeline import segmentation_2d as seg2d
     from beyondff_tpu_torch.utils import io
     from beyondff_tpu_torch.utils.profiling import StageProfiler
@@ -327,12 +731,25 @@ def main() -> int:
                                                         (8 * b, 900, 32), 900, dtype, dev)
             cases[("flash_1024", dname, b)] = flash_case(torch, fa, "unmasked_1024",
                                                          (8 * b, 1024, 32), 1024, dtype, dev)
+    # the aggregation's self-IoU and refinement's stage-2 x stage-1 IoU
+    cases["iou_self"] = mask_iou_case(torch, kiou, "aggregation_self", 600, None, 250_000, dev)
+    cases["iou_cross"] = mask_iou_case(torch, kiou, "refinement_cross", 20, 150, 250_000, dev)
+    # a scene's point count is arbitrary: rows that start off 16-byte boundaries
+    cases["iou_self_ragged"] = mask_iou_case(torch, kiou, "aggregation_self_ragged", 600, None,
+                                             250_007, dev)
+    cases["iou_cross_ragged"] = mask_iou_case(torch, kiou, "refinement_cross_ragged", 20, 150,
+                                              250_007, dev)
 
     work = os.path.join(REPO, "chiprun_out", "chip_smoke")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
     # ---------------------------------------------------------------- 3
     small_reference(torch, (Config, seg2d, gd, sam_mod, clip_mod, io), work)
+    mods3d = (torch, dispatch, projection, refinement, evaluate)
+    # the 3D scenes (~200 MB at full width) go to a temporary directory, not
+    # to chiprun_out
+    work3d = tempfile.mkdtemp(prefix="chip_smoke_3d_")
+    small_reference_3d(torch, mods3d, Config, work3d, dev)
 
     # ---------------------------------------------------------------- 4
     t0 = time.perf_counter()
@@ -397,13 +814,22 @@ def main() -> int:
     # ---------------------------------------------------------------- 5
     profile_scene(torch, seg2d, seg, cfg, "scene0000_00", scene_s)
 
+    # ---------------------------------------------------------------- 6
+    del seg, det, sam
+    torch.cuda.empty_cache()
+    # the 2D stage's launches, and the 3D half's mask-IoU launches
+    launches = {**launches, "mask_iou": full_width_3d(torch, mods3d, Config, work3d, dev, clip)}
+    shutil.rmtree(work3d)
+
     table = []
     for key, src, replaces in (
             ("deform_clamp", "beyondff_tpu_torch/csrc/ms_deform_sample.cu",
              "beyondff_tpu/kernels/deform_window.py:170"),
             ("flash_900", "beyondff_tpu_torch/csrc/flash_attention.cu",
-             "beyondff_tpu/kernels/flash_attention.py:270")):
-        c = cases[(key, "bfloat16", FRAME_BATCH)]
+             "beyondff_tpu/kernels/flash_attention.py:270"),
+            ("iou_self", "beyondff_tpu_torch/csrc/mask_iou.cu",
+             "beyondff_tpu/kernels/mask_iou.py:55")):
+        c = cases[key] if key.startswith("iou") else cases[(key, "bfloat16", FRAME_BATCH)]
         table.append({"name": c["kernel"], "route": "cuda", "source": src, "replaces": replaces,
                       "launches": launches[c["kernel"]], "max_abs_err": c["max_abs_err"],
                       "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],

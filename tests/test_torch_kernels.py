@@ -16,6 +16,7 @@ import torch
 from beyondff_tpu_torch.kernels import deform_window as tdw
 from beyondff_tpu_torch.kernels import dispatch
 from beyondff_tpu_torch.kernels import flash_attention as tfa
+from beyondff_tpu_torch.kernels import mask_iou as tiou
 from beyondff_tpu_torch.models.gdino import deformable as tdeform
 
 torch.set_num_threads(2)
@@ -31,10 +32,13 @@ def jx():
     import jax.numpy as jnp
 
     from beyondff_tpu.kernels import deform_window as jdw
+    from beyondff_tpu.core import masks as jmasks
     from beyondff_tpu.kernels import flash_attention as jfa
+    from beyondff_tpu.kernels import mask_iou as jiou
     from beyondff_tpu.models.gdino import deformable as jdeform
 
-    return types.SimpleNamespace(jnp=jnp, dw=jdw, fa=jfa, deform=jdeform)
+    return types.SimpleNamespace(jnp=jnp, dw=jdw, fa=jfa, deform=jdeform, iou=jiou,
+                                 masks=jmasks)
 
 
 @pytest.fixture
@@ -199,6 +203,49 @@ def test_windowing_off_cpu_needs_the_env(monkeypatch):
     assert not tdeform._use_windowed(True, v)
 
 
+# ---------------------------------------------------------------- mask IoU
+def _iou_masks(rng, ia, ib, n):
+    a = rng.random((ia, n)) < rng.uniform(0.05, 0.6, (ia, 1))
+    b = rng.random((ib, n)) < rng.uniform(0.05, 0.6, (ib, 1))
+    a[::6] = False  # empty rows: 0/0 = nan against empty rows of b
+    b[1::4] = False
+    b[min(2, ib - 1)] = a[min(1, ia - 1)]  # a pair with IoU exactly 1
+    return a, b
+
+
+def _assert_bit_equal(got, want):
+    assert got.dtype == np.float32 and got.shape == want.shape
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    np.testing.assert_array_equal(got.view(np.int32)[~np.isnan(got)],
+                                  want.view(np.int32)[~np.isnan(want)])
+
+
+@pytest.mark.parametrize("ia,ib,n", [(37, 5, 3001), (130, 129, 2049), (1, 1, 1)])
+def test_mask_iou_plain_matches_pallas_bit_for_bit(rng, jx, ia, ib, n):
+    """Ragged shapes, empty rows: the plain version against the Pallas kernel
+    in interpret mode and the JAX package's XLA version, cross and self."""
+    a, b = _iou_masks(rng, ia, ib, n)
+    for bb in (b, None):
+        got = tiou.pairwise_iou(torch.from_numpy(a),
+                                None if bb is None else torch.from_numpy(bb)).numpy()
+        _assert_bit_equal(got, np.asarray(jx.iou.pad_and_iou(a, bb, interpret=True)))
+        _assert_bit_equal(got, np.asarray(jx.masks.pairwise_iou(
+            jx.jnp.asarray(a), None if bb is None else jx.jnp.asarray(bb))))
+        _assert_bit_equal(tiou.pairwise_iou_plain(
+            torch.from_numpy(a), None if bb is None else torch.from_numpy(bb)).numpy(), got)
+    assert np.isnan(got).any()
+
+
+def test_mask_iou_wrapper_checks_on_cpu():
+    a = torch.zeros(3, 10, dtype=torch.bool)
+    before = dispatch.launch_counts["mask_iou"]
+    assert tiou.pairwise_iou(a, torch.zeros(0, 10, dtype=torch.bool)).shape == (3, 0)
+    assert torch.isnan(tiou.pairwise_iou(a)).all()
+    assert dispatch.launch_counts["mask_iou"] == before  # the plain version counts nothing
+    with pytest.raises(ValueError):
+        tiou.pairwise_iou(a.to("meta"))
+
+
 def test_wrappers_reject_other_devices():
     meta = torch.empty(1, 4, 8, device="meta")
     with pytest.raises(ValueError):
@@ -234,3 +281,39 @@ def test_deform_kernel_matches_plain_on_card(cuda_device, dtype):
         want = tdw.ms_deform_sample_plain(tv, SHAPES4, tl, ta, m)
         tol = 1e-4 if dtype == torch.float32 else 3e-2
         assert (got.float() - want.float()).abs().max().item() < tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ia,ib,n", [(37, 5, 3001), (600, None, 250_000), (20, 150, 250_000),
+                                     (65, 130, 4096), (200, None, 10_007)])
+def test_mask_iou_kernel_matches_plain_on_card(cuda_device, ia, ib, n):
+    """Bit for bit, nan where the plain version puts it; ``ib`` None is a
+    self-IoU. With N not a multiple of 16, rows start off 16-byte
+    boundaries and the kernel cuts them out of aligned loads."""
+    rng = np.random.default_rng(0)
+    a, b = _iou_masks(rng, ia, ib or 8, n)
+    ta = torch.from_numpy(a).to(cuda_device)
+    tb = None if ib is None else torch.from_numpy(b).to(cuda_device)
+    before = dispatch.launch_counts["mask_iou"]
+    got = tiou.pairwise_iou(ta, tb)
+    want = tiou.pairwise_iou_plain(ta, tb)
+    torch.cuda.synchronize()
+    assert dispatch.launch_counts["mask_iou"] == before + 1
+    _assert_bit_equal(got.cpu().numpy(), want.cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shift", [1, 3, 8, 13])
+def test_mask_iou_kernel_takes_masks_at_any_address(cuda_device, shift):
+    """Masks that start ``shift`` bytes into their storage (a contiguous
+    view), so no row lies on a 16-byte boundary of its own."""
+    rng = np.random.default_rng(shift)
+    a, b = _iou_masks(rng, 70, 9, 4099)
+    ta = torch.zeros(shift + a.size, dtype=torch.bool, device=cuda_device)
+    ta[shift:] = torch.from_numpy(a.reshape(-1)).to(cuda_device)
+    ta = ta[shift:].view(a.shape)
+    tb = torch.from_numpy(b).to(cuda_device)
+    for other in (None, tb):
+        got = tiou.pairwise_iou(ta, other)
+        want = tiou.pairwise_iou_plain(ta, other)
+        _assert_bit_equal(got.cpu().numpy(), want.cpu().numpy())
