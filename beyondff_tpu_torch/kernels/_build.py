@@ -19,7 +19,7 @@ import subprocess
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("flash_attention.cu", "mask_iou.cu", "ms_deform_sample.cu")
+SOURCES = ("flash_attention.cu", "mask_iou.cu", "ms_deform_sample.cu", "relpos_attention.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
@@ -86,4 +86,8 @@ def library() -> ctypes.CDLL:
     lib.bff_ms_deform_sample.restype = i
     lib.bff_mask_iou.argtypes = [p, p, i, i, ctypes.c_longlong, p, p, p]
     lib.bff_mask_iou.restype = i
+    for name in ("bff_flash_attention_relpos", "bff_window_attention_relpos"):
+        fn = getattr(lib, name)
+        fn.argtypes = [i, p, p, p, p, p, p, i, i, i, i, i, f, p]
+        fn.restype = i
     return lib

@@ -402,32 +402,120 @@ class GroundingDINO:
                                                         self._sep_id())
         return ids, pad, self_mask, pos_ids
 
-    @torch.inference_mode()
-    def _forward_packed(self, images_u8: torch.Tensor, caption: str, resize: bool):
-        ids, pad, self_mask, pos_ids = self._text(caption)
-        b = images_u8.shape[0]
+    def _normalize(self, images_u8: torch.Tensor, resize: bool) -> torch.Tensor:
         x = images_u8.permute(0, 3, 1, 2).float()
         if resize:
             # the JAX jax.image.resize(..., "bilinear", antialias=False)
             x = F.interpolate(x, size=self.cfg.image_size, mode="bilinear",
                               align_corners=False, antialias=False)
-        img = ((x.permute(0, 2, 3, 1) / 255.0 - self._mean) / self._std).to(self.dtype)
+        return ((x.permute(0, 2, 3, 1) / 255.0 - self._mean) / self._std).to(self.dtype)
+
+    @torch.inference_mode()
+    def _forward_packed(self, images_u8: torch.Tensor, caption: str, resize: bool,
+                        feats_cache=None):
+        ids, pad, self_mask, pos_ids = self._text(caption)
+        b = images_u8.shape[0]
 
         def tile(a, dtype):
             return torch.as_tensor(np.broadcast_to(a, (b, *a.shape[1:])).copy(), dtype=dtype,
                                    device=self.device)
 
-        logits, boxes = self.module(img, tile(ids, torch.long), tile(self_mask, torch.bool),
-                                    tile(pad, torch.bool), tile(pos_ids, torch.long))
+        text = (tile(ids, torch.long), tile(self_mask, torch.bool), tile(pad, torch.bool),
+                tile(pos_ids, torch.long))
+        if feats_cache is None:
+            logits, boxes = self.module(self._normalize(images_u8, resize), *text)
+        else:
+            bank, key = feats_cache
+            feats = bank.get(key)
+            if feats is None:
+                feats = self.module.backbone_forward(self._normalize(images_u8, resize))
+                bank[key] = feats
+            logits, boxes = self.module.detect(feats, *text)
         k = min(self.TOP_K, self.cfg.num_queries)
         return pack_topk(logits, boxes, k), ids, b
 
-    def predict_batch_frames_async(self, frames_dev: torch.Tensor, caption: str):
+    # the seg2d stage may bank the text-independent backbone pyramid
+    supports_feats_cache = True
+
+    def predict_batch_frames_async(self, frames_dev: torch.Tensor, caption: str,
+                                   feats_cache=None):
         """Detection on an uploaded uint8 frame buffer (B, h, w, 3) of any
         resolution, resized to the detector input on the device. Returns a
         handle for :meth:`predict_finalize`; the work is queued on the
-        current stream."""
-        return self._forward_packed(frames_dev, caption, resize=True)
+        current stream.
+
+        ``feats_cache``: optional ``(bank, key)``, the multi-class sweep's
+        per-scene bank. The text-independent half (resize, normalize, Swin,
+        input projections) runs once and is stored under ``key``; every
+        later caption on the same frames runs only :meth:`GDINOModule.detect`
+        (the JAX package's ``backbone``/``detect`` split)."""
+        return self._forward_packed(frames_dev, caption, resize=True, feats_cache=feats_cache)
+
+    def caption_spans(self, classes):
+        """Fused multi-phrase caption and each class's token span.
+
+        The classes join with " . " into one caption, Grounding-DINO's own
+        multi-phrase protocol; subsentence masks and per-phrase position ids
+        keep each phrase's text features apart. Returns ``(caption, spans)``
+        with ``spans[i] = (start, end)`` the half-open token range of
+        ``classes[i]``; raises ``ValueError`` when the caption overflows
+        ``max_text_len`` (fewer spans than classes)."""
+        caption = self.preprocess_caption(
+            " . ".join(c.lower().strip().strip(".").strip() for c in classes))
+        enc = self.tokenizer([caption])
+        ids = np.asarray(enc["input_ids"][0][:self.cfg.max_text_len]).tolist()
+        seps = set(self._special_ids())
+        cls_id, sep_id = self._cls_id(), self._sep_id()
+        spans, start = [], None
+        for i, t in enumerate(ids):
+            if t == cls_id:
+                continue
+            if t in seps or t == sep_id or t == 0:
+                if start is not None:
+                    spans.append((start, i))
+                    start = None
+                if t == sep_id or t == 0:
+                    break
+            elif start is None:
+                start = i
+        if start is not None:
+            spans.append((start, len(ids)))
+        if len(spans) != len(classes):
+            raise ValueError(
+                f"fused caption tokenized into {len(spans)} spans for {len(classes)} classes "
+                f"(max_text_len={self.cfg.max_text_len}: shrink the caption group)")
+        return caption, spans
+
+    def predict_finalize_demux(self, handle, spans, box_threshold=0.35,
+                               text_threshold: float = 0.25):
+        """Host half of a fused multi-class detection: the same packed download
+        as :meth:`predict_finalize`, split per class by token span. A box's
+        score for a class is its largest token probability inside the span;
+        one span over the whole caption gives :meth:`predict_finalize`'s
+        result. ``box_threshold`` is a scalar or one value per span.
+
+        Returns, per frame, a list over classes of (boxes, scores, phrases)."""
+        packed_d, ids, b = handle
+        packed = packed_d.float().cpu().numpy()
+        top_boxes, top_probs = packed[..., 1:5], packed[..., 5:]
+        thresholds = (list(box_threshold) if np.ndim(box_threshold)
+                      else [box_threshold] * len(spans))
+        if len(thresholds) != len(spans):
+            raise ValueError(f"{len(thresholds)} box thresholds for {len(spans)} spans")
+        out = []
+        for i in range(b):
+            per_class = []
+            for (s, e), thr in zip(spans, thresholds):
+                sc = top_probs[i][:, s:e].max(axis=1)
+                keep = sc > thr
+                phrases = []
+                for p in top_probs[i][keep]:
+                    pos = np.zeros(p.shape, bool)
+                    pos[s:e] = p[s:e] > text_threshold
+                    phrases.append(self._phrase_from_posmap(pos, ids[0]))
+                per_class.append((top_boxes[i][keep], sc[keep], phrases))
+            out.append(per_class)
+        return out
 
     def predict_batch(self, images, caption: str, box_threshold: float = 0.35,
                       text_threshold: float = 0.25):

@@ -5,11 +5,16 @@ official ``sam_vit_h_4b8939.pth`` layout (``image_encoder.blocks.{i}``,
 ``prompt_encoder``, ``mask_decoder.transformer.layers.{i}``); the mask-prompt
 downscaling stack is left out, as the stage prompts with boxes only. The
 encoder runs windowed and global blocks with the decomposed relative-position
-bias; its attention stays plain in this slice, as in the JAX default.
+bias. On the card its attention takes the JAX package's kernel branches
+(``ViTAttention.forward``): a grid of 512 tokens or more without rel-pos goes
+through the flash kernel, and with rel-pos through the rel-pos flash kernel
+when ``BFF_SAM_RELPOS_FLASH`` is set; everything else stays plain, as in the
+JAX default.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import Tuple
 
@@ -19,6 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from beyondff_tpu_torch.core import resize as _resize
+from beyondff_tpu_torch.kernels import flash_attention as fa
 from beyondff_tpu_torch.kernels.dispatch import resolve_device
 from beyondff_tpu_torch.models.layers import (MLP, MLPHead, PatchEmbed, build, conv_nhwc,
                                               gelu_exact, window_partition, window_unpartition)
@@ -90,6 +96,12 @@ def _rel_pos_bias(q_hw, k_hw, rel_h, rel_w, q):
     return bias.reshape(q.shape[0], q_hw[0] * q_hw[1], kh * kw)
 
 
+def _kernel_path(t: torch.Tensor) -> bool:
+    """Whether attention over ``t`` takes the JAX package's kernel branches:
+    on the card, where the JAX package asks ``on_tpu()``."""
+    return t.is_cuda
+
+
 class ViTAttention(nn.Module):
     """SAM ViT attention: fused qkv, per-head decomposed rel-pos bias."""
 
@@ -111,16 +123,25 @@ class ViTAttention(nn.Module):
         hd = c // nh
         qkv = self.qkv(x.reshape(b, h * w, c)).reshape(b, h * w, 3, nh, hd)
         q, k, v = (qkv[:, :, i].transpose(1, 2).reshape(b * nh, h * w, hd) for i in range(3))
-        logits = (q * hd ** -0.5) @ k.transpose(1, 2)
-        if self.use_rel_pos:
-            logits = logits + _rel_pos_bias((h, w), (h, w), self.rel_pos_h.to(x.dtype),
-                                            self.rel_pos_w.to(x.dtype), q)
-        if self.softmax_f32:
-            attn = torch.softmax(logits.float(), dim=-1).to(x.dtype)
-        else:
-            attn = torch.softmax(logits, dim=-1)
-        out = (attn @ v).reshape(b, nh, h * w, hd).transpose(1, 2).reshape(b, h, w, c)
-        return self.proj(out)
+        out = None
+        if h * w >= 512 and _kernel_path(q):
+            if not self.use_rel_pos:
+                out = fa.attend(q, k, v)
+            elif os.environ.get("BFF_SAM_RELPOS_FLASH") and fa.relpos_shapes_ok(h, w):
+                bias_h, bias_w = _rel_pos_factors((h, w), (h, w), self.rel_pos_h.to(x.dtype),
+                                                  self.rel_pos_w.to(x.dtype), q)
+                out = fa.attend_relpos(q, k, v, bias_h, bias_w, w)
+        if out is None:
+            logits = (q * hd ** -0.5) @ k.transpose(1, 2)
+            if self.use_rel_pos:
+                logits = logits + _rel_pos_bias((h, w), (h, w), self.rel_pos_h.to(x.dtype),
+                                                self.rel_pos_w.to(x.dtype), q)
+            if self.softmax_f32:
+                attn = torch.softmax(logits.float(), dim=-1).to(x.dtype)
+            else:
+                attn = torch.softmax(logits, dim=-1)
+            out = attn @ v
+        return self.proj(out.reshape(b, nh, h * w, hd).transpose(1, 2).reshape(b, h, w, c))
 
 
 class Block(nn.Module):

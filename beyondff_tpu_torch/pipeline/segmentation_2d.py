@@ -10,13 +10,19 @@ through
   3. box-prompted SAM mask decoding,
 
 and the per-frame results are RLE-encoded into the 2D-mask stage contract.
+:func:`run` takes one class; :func:`run_classes` takes a class list scene by
+scene with a per-scene frame bank (frames, detector backbone pyramids, SAM
+embeddings) and, with ``detector.fused_captions``, one fused multi-phrase
+detection pass per group of classes.
 
 With ``detector.device_frames`` (the default) each frame uploads once as a
 SAM-scaled dense uint8 RGB buffer; the detector input derives from it on the
 device and SAM encodes it directly (the JAX package with
-``BFF_SEG2D_YUV=0``). Batches run one after another: the JAX package's
-three-stage deferred flush gives identical records, and the port's device
-calls queue asynchronously on the CUDA stream anyway.
+``BFF_SEG2D_YUV=0``). CLIP crops come from that buffer through the
+bit-exact lookup-table chain (the JAX package with
+``BFF_CLIP_DEVICE_CROPS=0``). Batches run one after another: the JAX
+package's three-stage deferred flush gives identical records, and the port's
+device calls queue asynchronously on the CUDA stream anyway.
 """
 
 from __future__ import annotations
@@ -164,16 +170,17 @@ class Segmentor2D:
             crops.append(lut[src[y0:y1, x0:x1].long(), chans])
         return crops
 
-    def _clip_sims(self, crops: List[np.ndarray], query: str) -> np.ndarray:
+    def _clip_feats(self, crops: List[torch.Tensor]) -> np.ndarray:
+        """L2-normalized CLIP image features of the crops, on the host."""
         with self._span("clip", crops=len(crops)):
             feats = self.clip.encode_image(self.clip.preprocess(crops)).float().cpu().numpy()
         feats /= np.linalg.norm(feats, axis=-1, keepdims=True)
-        return feats @ self.query_embedding(query)
+        return feats
 
     def filter_boxes_with_clip(self, image: np.ndarray, boxes_xyxy: np.ndarray, query: str):
         """Keep boxes whose crop's CLIP similarity >= threshold. Returns
         (keep_mask, similarities)."""
-        sims = self._clip_sims(self._clip_crops(image, boxes_xyxy), query)
+        sims = self._clip_feats(self._clip_crops(image, boxes_xyxy)) @ self.query_embedding(query)
         return sims >= self.cfg.detector.similarity_threshold, sims
 
     # --------------------------------------------------------- detection
@@ -202,16 +209,18 @@ class Segmentor2D:
             phrases = [phrases[i] for i in order]
         return boxes_xyxy, np.asarray(scores), phrases
 
-    def _detect_and_filter_batch(self, images, raw_dets, query: str, frame_hw=None,
-                                 pre=None):
+    def _detect_and_filter_batch(self, images, raw_dets, query, frame_hw=None, pre=None):
         """Per-frame phrase filter + one batched CLIP crop scoring for the
         frame batch + per-frame top-K. Returns (boxes_xyxy, scores, phrases)
         or None per frame; CLIP similarities replace the detector scores.
-        ``pre``: phrase-filter results already computed by the caller."""
+        ``query``: one query for the batch, or one per frame (a fused
+        replay's mixed-class batch). ``pre``: phrase-filter results already
+        computed by the caller."""
         d = self.cfg.detector
+        queries = [query] * len(images) if isinstance(query, str) else list(query)
         if pre is None:
-            pre = [self._phrase_filter(im, query, det, frame_hw)
-                   for im, det in zip(images, raw_dets)]
+            pre = [self._phrase_filter(im, q, det, frame_hw)
+                   for im, q, det in zip(images, queries, raw_dets)]
         if self.clip is None or not d.filter_with_clip:
             return [None if p is None else self._cap_detections(p) for p in pre]
         crops, counts = [], []
@@ -222,14 +231,17 @@ class Segmentor2D:
                 counts.append(len(c))
         if not crops:
             return [None] * len(images)
-        sims_all = self._clip_sims(crops, query)
+        feats = self._clip_feats(crops)
+        # one product per distinct query over the whole batch
+        sims_by_query = {q: feats @ self.query_embedding(q)
+                         for q, p in zip(queries, pre) if p is not None}
         out, off = [], 0
-        for p, n in zip(pre, counts):
+        for p, n, q in zip(pre, counts, queries):
             if p is None:
                 out.append(None)
                 continue
             boxes_xyxy, _scores, phrases = p
-            sims = sims_all[off:off + n]
+            sims = sims_by_query[q][off:off + n]
             off += n
             keep = sims >= d.similarity_threshold
             out.append(None if not keep.any() else self._cap_detections(
@@ -256,62 +268,225 @@ class Segmentor2D:
     # ------------------------------------------------------------ per frame
     def process_frame(self, image: np.ndarray, query: str) -> Optional[Dict]:
         """One RGB frame -> detection record or None (no boxes)."""
-        dets, masks = self._host_batch([image], query)[0]
+        dets, masks = self._host_batch([image], query, self.cfg.detector.box_threshold)[0]
         return None if dets is None else _record(dets, masks)
 
     # ------------------------------------------------------------ per scene
-    def process_scene(self, scene_id: str, query: str) -> List[Dict]:
-        """All frames of a scene, ``detector.frame_batch`` at a time."""
+    def process_scene(self, scene_id: str, query: str, frame_bank: Optional[Dict] = None,
+                      demux: Optional[tuple] = None,
+                      detections_override: Optional[Dict] = None,
+                      override_groups: Optional[Dict] = None,
+                      box_threshold: Optional[float] = None):
+        """All frames of a scene, ``detector.frame_batch`` at a time.
+
+        ``frame_bank``: a dict shared by the classes of one scene
+        (:func:`run_classes`). It holds each frame's SAM-scaled device buffer
+        (``("sam", fid)``; ``("img", fid)``, the host frame, on the
+        ``device_frames: false`` path), the detector's text-independent
+        backbone pyramid per frame chunk (``("det_feats", fids)``, up to
+        ``BFF_SEG2D_BANK_FEATS_CAP`` frames, default 256;
+        ``BFF_SEG2D_BANK_FEATS=0`` opts out) and SAM's embedding of each hit
+        frame (``("sam_emb", fid)``, up to ``BFF_SEG2D_BANK_EMB_CAP``, default
+        256; ``BFF_SEG2D_BANK_EMB=0`` opts out), so a multi-class sweep loads,
+        uploads and encodes each frame once per scene.
+
+        Fused-caption hooks (:func:`run_classes`):
+        ``demux=(classes, spans, out[, thresholds])`` runs a detection-only
+        pass with ``query`` the fused caption: per-class detections split by
+        token span into ``out[(class, frame_id)]``, hit frames' SAM
+        embeddings go to the bank, and no records are made.
+        ``detections_override={frame_id: (boxes, scores, phrases)}`` skips
+        the detector and sends the recorded detections through the CLIP
+        filter and SAM decode; frames absent from the table are skipped.
+        ``override_groups={class: {frame_id: dets}}`` replays a whole class
+        group in one pass over (frame, class) entries, frame-major: each
+        frame loads and encodes once (``frame_bank`` required), each entry's
+        crops score against its own class. Returns ``{class: [records]}``.
+
+        ``box_threshold`` overrides ``detector.box_threshold`` for this pass."""
         p = self.cfg.paths
         d = self.cfg.detector
+        box_thr = d.box_threshold if box_threshold is None else box_threshold
         size = (self.cfg.frames.width_2d, self.cfg.frames.height_2d)
         frame_hw = (self.cfg.frames.height_2d, self.cfg.frames.width_2d)
         frame_ids = bio.list_scene_frames(p.scene_2d_dir, scene_id,
                                           self.cfg.frames.downsample_ratio)
+        group = override_groups is not None
+        replay = group or detections_override is not None
+        if (demux is not None or replay) and not d.device_frames:
+            raise ValueError("fused-caption passes require the device-frames detector path")
+        if group:
+            if frame_bank is None:
+                raise ValueError("override_groups requires a frame_bank "
+                                 "(frames are shared across entries)")
+            entries = [(f, c) for f in frame_ids for c in override_groups
+                       if f in override_groups[c]]
+        elif detections_override is not None:
+            entries = [f for f in frame_ids if f in detections_override]
+        else:
+            entries = frame_ids
+        by_class: Dict[str, List[Dict]] = {c: [] for c in override_groups} if group else {}
         records: List[Dict] = []
+        bank_emb = (frame_bank is not None and d.device_frames
+                    and os.environ.get("BFF_SEG2D_BANK_EMB", "1") != "0")
         bsz = max(1, d.frame_batch)
-        for i in range(0, len(frame_ids), bsz):
-            fids = frame_ids[i:i + bsz]
-            with self._span("load", frames=len(fids)):
-                images = [self.frame_loader(
-                    os.path.join(p.scene_2d_dir, scene_id, "color", f"{fid}.jpg"), size)
-                    for fid in fids]
-            batch = (self._device_batch(images, query, frame_hw) if d.device_frames
-                     else self._host_batch(images, query))
-            records.extend({"frame_id": f"{fid}.jpg", **_record(dets, masks)}
-                           for fid, (dets, masks) in zip(fids, batch) if dets is not None)
-        return records
+        for i in range(0, len(entries), bsz):
+            chunk = entries[i:i + bsz]
+            fids = [e[0] for e in chunk] if group else chunk
+            queries = [e[1] for e in chunk] if group else query
+            if not d.device_frames:
+                images = self._host_frames(scene_id, fids, size, frame_bank)
+                batch = self._host_batch(images, query, box_thr)
+            else:
+                frames = self._device_frames(scene_id, fids, size, frame_bank)
 
-    def _device_batch(self, images, query, frame_hw):
-        """Single-upload path: frames upload once and scale to the SAM input
-        on the device; detection resizes that buffer, SAM encodes it (before
-        the CLIP filter, as the JAX package's eager encode) and the CLIP crops
-        come from it. Returns (detections, masks) per frame."""
-        d = self.cfg.detector
-        with self._span("upload", frames=len(images)):
-            frames, input_hw = self.sam.scale_frames(
-                torch.as_tensor(np.stack(images)).to(self.device))
-            smalls = list(frames)
-        with self._span("detect", frames=len(images)):
-            handle = self.detector.predict_batch_frames_async(frames, query)
-            raw = self.detector.predict_finalize(handle, box_threshold=d.box_threshold,
-                                                 text_threshold=d.text_threshold)
-        pre = [self._phrase_filter(im, query, det, frame_hw) for im, det in zip(smalls, raw)]
+                def encode(indices, fids=fids, frames=frames):
+                    return self._encode(fids, indices, frames, frame_bank, bank_emb, group)
+
+                if replay:
+                    raw = [override_groups[c][f] for f, c in chunk] if group else \
+                        [detections_override[f] for f in fids]
+                else:
+                    with self._span("detect", frames=len(fids)):
+                        handle = self._detect(frames, query, fids, frame_bank)
+                        if demux is not None:
+                            hits = self._demux(handle, fids, demux, box_thr)
+                        else:
+                            raw = self.detector.predict_finalize(
+                                handle, box_threshold=box_thr, text_threshold=d.text_threshold)
+                    if demux is not None:
+                        if hits and bank_emb:
+                            with self._span("sam_encode", frames=len(hits)):
+                                encode(hits)
+                        continue
+                batch = self._device_batch(frames, raw, queries, frame_hw, encode)
+            for e, f, (dets, masks) in zip(chunk, fids, batch):
+                if dets is not None:
+                    (by_class[e[1]] if group else records).append(
+                        {"frame_id": f"{f}.jpg", **_record(dets, masks)})
+        return by_class if group else records
+
+    def _frame_path(self, scene_id: str, fid: str) -> str:
+        return os.path.join(self.cfg.paths.scene_2d_dir, scene_id, "color", f"{fid}.jpg")
+
+    def _host_frames(self, scene_id, fids, size, bank) -> List[np.ndarray]:
+        """Host frames for the ``device_frames: false`` path, banked by frame."""
+        out = []
+        with self._span("load", frames=len(fids)):
+            for f in fids:
+                img = None if bank is None else bank.get(("img", f))
+                if img is None:
+                    img = self.frame_loader(self._frame_path(scene_id, f), size)
+                    if bank is not None:
+                        bank[("img", f)] = img
+                out.append(img)
+        return out
+
+    def _device_frames(self, scene_id, fids, size, bank) -> torch.Tensor:
+        """(B, nh, nw, 3) uint8 SAM-scaled frames on the device, one per fid
+        (repeats allowed). With a bank each frame loads and uploads once per
+        scene."""
+        have = {} if bank is None else {f: bank[("sam", f)] for f in fids if ("sam", f) in bank}
+        todo = list(dict.fromkeys(f for f in fids if f not in have))
+        if todo:
+            with self._span("load", frames=len(todo)):
+                images = [self.frame_loader(self._frame_path(scene_id, f), size) for f in todo]
+            with self._span("upload", frames=len(todo)):
+                fresh, _hw = self.sam.scale_frames(
+                    torch.as_tensor(np.stack(images)).to(self.device))
+            if bank is not None:
+                for f, t in zip(todo, fresh):
+                    bank[("sam", f)] = t
+            if todo == list(fids):
+                return fresh
+            have.update(zip(todo, fresh))
+        return torch.stack([have[f] for f in fids])
+
+    def _detect(self, frames, caption: str, fids, bank):
+        """Dispatch detection on the frame batch; with a bank, the detector's
+        text-independent pyramid is banked per frame chunk (the chunks are
+        the same for every class of a scene)."""
+        kw = {}
+        if (bank is not None and getattr(self.detector, "supports_feats_cache", False)
+                and os.environ.get("BFF_SEG2D_BANK_FEATS", "1") != "0"):
+            cap = int(os.environ.get("BFF_SEG2D_BANK_FEATS_CAP", "256"))
+            key = ("det_feats", tuple(fids))
+            n_banked = sum(len(k[1]) for k in bank if k[0] == "det_feats")
+            if key in bank or n_banked + len(fids) <= cap:
+                kw["feats_cache"] = (bank, key)
+        return self.detector.predict_batch_frames_async(frames, caption, **kw)
+
+    def _demux(self, handle, fids, demux, box_thr) -> List[int]:
+        """A fused detection batch split per class into the demux table;
+        returns the batch positions of frames any class hit."""
+        classes, spans, out = demux[:3]
+        # optional 4th element: per-class box thresholds
+        thr = demux[3] if len(demux) > 3 else box_thr
+        per_frame = self.detector.predict_finalize_demux(
+            handle, spans, box_threshold=thr, text_threshold=self.cfg.detector.text_threshold)
+        hits = []
+        for i, per_class in enumerate(per_frame):
+            for c, det in zip(classes, per_class):
+                if det[0].shape[0]:
+                    out[(c, fids[i])] = det
+            if any(det[0].shape[0] for det in per_class):
+                hits.append(i)
+        return hits
+
+    def _encode(self, fids, indices, frames, bank, bank_emb: bool, dedupe: bool) -> torch.Tensor:
+        """SAM embeddings of the batch positions ``indices``. With
+        ``bank_emb`` banked frames are not encoded again and fresh ones are
+        banked (up to the cap); ``dedupe`` encodes a frame that appears
+        under several classes of a replay batch once."""
+        if not bank_emb and not dedupe:
+            return self.sam.encode_frames(frames[indices])
+        cached = {i: bank.get(("sam_emb", fids[i])) if bank_emb else None for i in indices}
+        missing, seen = [], set()
+        for i in indices:
+            if cached[i] is None and fids[i] not in seen:
+                seen.add(fids[i])
+                missing.append(i)
+        if missing:
+            fresh = self.sam.encode_frames(frames[missing])
+            by_fid = {fids[i]: fresh[j] for j, i in enumerate(missing)}
+            if bank_emb:
+                cap = int(os.environ.get("BFF_SEG2D_BANK_EMB_CAP", "256"))
+                n_banked = sum(1 for k in bank if k[0] == "sam_emb")
+                for i in missing:
+                    if n_banked < cap:
+                        bank[("sam_emb", fids[i])] = by_fid[fids[i]]
+                        n_banked += 1
+            for i in indices:
+                if cached[i] is None:
+                    cached[i] = by_fid[fids[i]]
+            if len(missing) == len(indices):
+                return fresh
+        return torch.stack([cached[i] for i in indices])
+
+    def _device_batch(self, frames, raw, queries, frame_hw, encode):
+        """Single-upload path for one batch of detections: phrase filter,
+        SAM encode of the frames with boxes (before the CLIP filter, as the
+        JAX package's eager encode), CLIP filter on crops of the SAM-scaled
+        frames, SAM decode. Returns (detections, masks) per frame."""
+        smalls = list(frames)
+        input_hw = tuple(frames.shape[1:3])
+        qs = [queries] * len(smalls) if isinstance(queries, str) else queries
+        pre = [self._phrase_filter(im, q, det, frame_hw) for im, q, det in zip(smalls, qs, raw)]
         idx = [i for i, pr in enumerate(pre) if pr is not None]
         if not idx:
-            return [(None, None)] * len(images)
+            return [(None, None)] * len(smalls)
         with self._span("sam_encode", frames=len(idx)):
-            embs = self.sam.encode_frames(frames[idx])
-        dets = self._detect_and_filter_batch(smalls, raw, query, frame_hw, pre=pre)
+            embs = encode(idx)
+        dets = self._detect_and_filter_batch(smalls, raw, queries, frame_hw, pre=pre)
         pos = [j for j, i in enumerate(idx) if dets[i] is not None]
         return self._with_masks(dets, embs[pos], input_hw, frame_hw)
 
-    def _host_batch(self, images, query):
+    def _host_batch(self, images, query, box_threshold):
         """``detector.device_frames: false``: the reference's per-model host
         resize chain (detector input from the full-resolution frame)."""
         d = self.cfg.detector
         with self._span("detect", frames=len(images)):
-            raw = self.detector.predict_batch(images, query, box_threshold=d.box_threshold,
+            raw = self.detector.predict_batch(images, query, box_threshold=box_threshold,
                                               text_threshold=d.text_threshold)
         dets = self._detect_and_filter_batch(images, raw, query)
         kept = [i for i, f in enumerate(dets) if f is not None]
@@ -342,9 +517,7 @@ def run(cfg: Config, class_name: str, scenes: Optional[Sequence[str]] = None,
     (reference scene discovery: segmentation_2d.py:453-454). ``profiler``
     receives the per-stage spans; one is made when none is given."""
     p = cfg.paths
-    if scenes is None:
-        scenes = sorted(f.rsplit(".", 1)[0] for f in os.listdir(p.stage_1_results_dir)
-                        if f.endswith((".pth", ".npz")))
+    scenes = _scene_list(cfg, scenes)
     prof = profiler or StageProfiler("segmentation_2d")
     seg = segmentor or Segmentor2D(cfg)
     seg.profiler = prof
@@ -369,5 +542,138 @@ def run(cfg: Config, class_name: str, scenes: Optional[Sequence[str]] = None,
     finally:
         seg.profiler = None
     if results:
+        print(prof.report())
+    return results
+
+
+def _scene_list(cfg: Config, scenes: Optional[Sequence[str]]) -> List[str]:
+    if scenes is not None:
+        return list(scenes)
+    return sorted(f.rsplit(".", 1)[0] for f in os.listdir(cfg.paths.stage_1_results_dir)
+                  if f.endswith((".pth", ".npz")))
+
+
+def bank_sizes(bank: Dict) -> Dict[str, int]:
+    """Entries of each kind in a frame bank and the device bytes they hold."""
+    out = {"frames": 0, "det_feats_frames": 0, "sam_emb": 0, "bytes": 0}
+    for (kind, key), val in bank.items():
+        if kind in ("sam", "img"):
+            out["frames"] += 1
+        elif kind == "det_feats":
+            out["det_feats_frames"] += len(key)
+        elif kind == "sam_emb":
+            out["sam_emb"] += 1
+        for t in val if isinstance(val, (list, tuple)) else (val,):
+            if isinstance(t, torch.Tensor) and t.device.type != "cpu":
+                out["bytes"] += t.numel() * t.element_size()
+    return out
+
+
+def _fused_groups(detector, classes: Sequence[str], group_size: int):
+    """Split ``classes`` into fused-caption groups: greedy ``group_size``
+    chunks, bisected while a chunk overflows the detector's text budget
+    (``caption_spans`` raises). Returns ``[(group_classes, caption, spans),
+    ...]`` in class order."""
+    out = []
+
+    def fit(group):
+        try:
+            caption, spans = detector.caption_spans(group)
+        except ValueError:
+            if len(group) == 1:
+                raise
+            mid = len(group) // 2
+            fit(group[:mid])
+            fit(group[mid:])
+            return
+        out.append((group, caption, spans))
+
+    for i in range(0, len(classes), max(1, group_size)):
+        fit(list(classes[i:i + group_size]))
+    return out
+
+
+def run_classes(cfg: Config, class_names: Sequence[str],
+                scenes: Optional[Sequence[str]] = None, resume: bool = True,
+                segmentor: Optional[Segmentor2D] = None,
+                class_thresholds: Optional[Dict[str, float]] = None,
+                profiler: Optional[StageProfiler] = None) -> Dict[str, List[Dict]]:
+    """Multi-class 2D stage, scene-outer: each scene's frames load and
+    upload once into a per-scene frame bank that every class reuses, with
+    the detector's backbone pyramids and SAM's embeddings of hit frames
+    (:meth:`Segmentor2D.process_scene`). Checkpoints stay per (class, scene),
+    interchangeable with :func:`run`.
+
+    ``detector.fused_captions`` (``BFF_SEG2D_FUSED=1``/``0`` overrides):
+    each scene runs one detection pass per ``fused_group`` classes on a
+    " . "-joined caption, split per class by token span, and one combined
+    replay of the CLIP filter and SAM decode for the group. Fused detections
+    are close to, not byte-identical with, per-class captions (shared image
+    pathway and top-K), so the mode is opt-in.
+
+    ``class_thresholds``: per-class ``box_threshold`` overrides, kept on both
+    paths (absent classes use ``detector.box_threshold``). ``profiler``
+    receives the spans and, per scene, a ``bank`` span whose items are the
+    bank's sizes."""
+    p = cfg.paths
+    scenes = _scene_list(cfg, scenes)
+    prof = profiler or StageProfiler("segmentation_2d")
+    seg = segmentor or Segmentor2D(cfg)
+    env = os.environ.get("BFF_SEG2D_FUSED")
+    fused = ((cfg.detector.fused_captions if env is None else env == "1")
+             and len(class_names) > 1 and cfg.detector.device_frames
+             and all(hasattr(seg.detector, a) for a in
+                     ("caption_spans", "predict_finalize_demux", "predict_batch_frames_async"))
+             and hasattr(seg.sam, "encode_frames"))
+    ckpts = {c: SceneCheckpoint(p.checkpoint_dir, "segmentation_2d", c) for c in class_names}
+    results: Dict[str, List[Dict]] = {c: [] for c in class_names}
+    seg.profiler = prof
+    try:
+        for scene_id in scenes:
+            todo = [c for c in class_names if not (resume and ckpts[c].done(scene_id))]
+            if not todo:
+                continue
+            frame_bank: Dict = {}  # lives for this scene only
+            n_frames = len(bio.list_scene_frames(p.scene_2d_dir, scene_id,
+                                                 cfg.frames.downsample_ratio))
+
+            def finish(c, records):
+                with prof.span("encode_write"):
+                    rle.encode_frame_masks(records)
+                    bio.save_frame_records(
+                        os.path.join(p.mask_2d_dir, c, f"{scene_id}.{cfg.output_format}"),
+                        records)
+                ckpts[c].mark(scene_id)
+                results[c].append({"scene_id": scene_id, "frames_with_boxes": len(records)})
+
+            if fused and len(todo) > 1:
+                for group, caption, spans in _fused_groups(seg.detector, todo,
+                                                           cfg.detector.fused_group):
+                    dets: Dict = {}
+                    dmx = (group, spans, dets)
+                    if class_thresholds:
+                        dmx += ([class_thresholds.get(c, cfg.detector.box_threshold)
+                                 for c in group],)
+                    with prof.span("fused_detect", frames=n_frames):
+                        seg.process_scene(scene_id, caption, frame_bank=frame_bank, demux=dmx)
+                    tables = {c: {fid: det for (cc, fid), det in dets.items() if cc == c}
+                              for c in group}
+                    with prof.span("scene", frames=n_frames * len(group)):
+                        by_class = seg.process_scene(scene_id, caption, frame_bank=frame_bank,
+                                                     override_groups=tables)
+                    for c in group:
+                        finish(c, by_class[c])
+            else:
+                for c in todo:
+                    with prof.span("scene", frames=n_frames):
+                        records = seg.process_scene(
+                            scene_id, c, frame_bank=frame_bank,
+                            box_threshold=(class_thresholds or {}).get(c))
+                    finish(c, records)
+            with prof.span("bank", **bank_sizes(frame_bank)):
+                pass
+    finally:
+        seg.profiler = None
+    if any(results.values()):
         print(prof.report())
     return results

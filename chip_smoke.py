@@ -19,7 +19,15 @@ Phases (each one's failure ends the run with a non-zero exit):
    and check the written ``.pth``;
 5. run the scene once more under ``torch.profiler`` for the device's busy
    share and the kernels that take its time;
-6. drive the 3D half — ``projection.run`` -> ``refinement.run`` ->
+6. drive the class sweep at full width with the phase-4 models:
+   ``SweepRunner.run(amortize_segmentation=True)`` over three classes of a
+   ray-cast scene (50 000 points, 16 frames at 968x1296, 640x480 depth),
+   fused captions, ``BFF_SAM_RELPOS_FLASH=1``, after three timed 2D passes
+   (per-class ``run()``, ``run_classes`` unfused and fused, whose banked
+   records must equal the per-class ones); launch counts are set to 0 just
+   before the sweep and read after it; then the ``sam_encode`` span with
+   the rel-pos flash kernel off, on, on, off;
+7. drive the 3D half — ``projection.run`` -> ``refinement.run`` ->
    ``evaluate.run`` — at full width for one (class, scene): 250 000 points,
    300 frames with 640x480 depth, 600 lifted 968x1296 masks, 150 stage-1
    masks, CLIP ViT-L/14 text similarity; the scene is ray-cast from a seed
@@ -30,9 +38,12 @@ Phases (each one's failure ends the run with a non-zero exit):
 
 Phase 2 also holds the mask-IoU kernel bit for bit against its plain version
 at the aggregation's (600, 250 000) self-IoU and refinement's (20 x 150,
-250 000) cross IoU, and at 250 007 points (rows off 16-byte boundaries);
-phase 3 also runs the 3D half on a small scene on the
-card and on the CPU and requires equal outputs and an equal AP row.
+250 000) cross IoU, and at 250 007 points (rows off 16-byte boundaries), and
+the rel-pos attention kernels at SAM ViT-H's global (16 B, 4096, 80) and
+windowed (400 B, 196, 80) shapes; phase 3 also runs the 3D half on a small
+scene on the card and on the CPU and requires equal outputs and an equal AP
+row, and the class sweep at the "test" presets on both, with equal 3D
+outputs and results rows.
 
 The last two lines are the kernel table and ``{"ok": true, "device": ...}``;
 every JSON line also goes to ``chiprun_out/chip_smoke.json``. Exits non-zero
@@ -168,6 +179,66 @@ def flash_case(torch, fa, name, shape, valid_len, dtype, dev):
     return rec
 
 
+def relpos_case(torch, fa, wa, sam_mod, name, g, grid, dtype, dev):
+    """One rel-pos attention comparison + timing: K4 (``flash_attention_relpos``)
+    over a global grid, K5 (``window_attention_relpos``) when ``name`` is a
+    window case. q, k, v from a seeded generator; the factors are real q . R
+    products (``sam._rel_pos_factors``) of rel-pos tables at 0.1 scale, so
+    the bias moves the softmax as a trained table does."""
+    import torch.nn.functional as F
+
+    hh, ww = grid
+    s, d = hh * ww, 80
+    window = name.startswith("window")
+    gen = torch.Generator(device=dev).manual_seed(SEED + g + s)
+    q, k, v = (torch.randn(g, s, d, device=dev, generator=gen).to(dtype) for _ in range(3))
+    rel_h = (0.1 * torch.randn(2 * hh - 1, d, device=dev, generator=gen)).to(dtype)
+    rel_w = (0.1 * torch.randn(2 * ww - 1, d, device=dev, generator=gen)).to(dtype)
+    bias_h, bias_w = sam_mod._rel_pos_factors((hh, ww), (hh, ww), rel_h, rel_w, q)
+    if window:
+        kernel = lambda: wa.window_attention_relpos(q, k, v, bias_h, bias_w, hh, ww)
+        plain = lambda: wa.window_attention_relpos_plain(q, k, v, bias_h, bias_w, hh, ww)
+    else:
+        kernel = lambda: fa.attend_relpos(q, k, v, bias_h, bias_w, ww)
+        plain = lambda: fa.attend_relpos_plain(q, k, v, bias_h, bias_w, ww)
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    diff = (got.float() - want.float()).abs()
+    # f32: 1e-4; bf16: one bf16 rounding of the plain value (2^-7 of its
+    # magnitude) plus the f32 tolerance for values near 0
+    rel = 0.0 if dtype == torch.float32 else 2.0 ** -7
+    excess = float((diff - rel * want.float().abs() - 1e-4).max())
+    err = float(diff.max())
+    del got, want, diff
+    dname = str(dtype).split(".")[-1]
+    es = q.element_size()
+    nbytes = (4 * g * s * d + g * s * (hh + ww)) * es
+    flops = 4 * g * s * s * d
+    bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ops = flops / PEAK_FLOPS[dname] * 1e3
+    # the yardstick: SDPA with the bias as a dense float mask, built outside
+    # the timing
+    mask = fa.relpos_bias(bias_h, bias_w, dtype).to(dtype)[None]
+    q4, k4, v4 = (t[None] for t in (q, k, v))
+    library_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(q4, k4, v4,
+                                                                       attn_mask=mask), 5)
+    del mask
+    rec = {"case": name, "kernel": "window_attention_relpos" if window
+           else "flash_attention_relpos", "dtype": dname, "shape": [g, s, d],
+           "grid": [hh, ww], "max_abs_err": err, "tol_excess": excess,
+           "tol": "1e-4" if dtype == torch.float32 else "2^-7 |plain| + 1e-4",
+           "ms": cuda_ms(torch, kernel, 5 if s > 1024 else 20),
+           "plain_ms": cuda_ms(torch, plain, 3),
+           "bound_ms": max(bound_bytes, bound_ops),
+           "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
+           "library_ms": library_ms,
+           "library_call": "scaled_dot_product_attention with the bias as a float mask"}
+    emit(rec)
+    torch.cuda.empty_cache()
+    check(excess <= 0.0, f"{rec['kernel']} {name} {dname}: max abs err {err} beyond tolerance")
+    return rec
+
+
 def synthetic_frame(path, size):
     """Deterministic 'photo' for a frame file: smooth shading, a few flat
     boxes and sensor noise, from the seed and the frame number (the frame
@@ -185,6 +256,32 @@ def synthetic_frame(path, size):
         base[y0:y0 + dh, x0:x0 + dw] = rng.uniform(0, 255, 3)
     base += rng.integers(-12, 13, base.shape, dtype=np.int16)
     return np.clip(base, 0, 255).astype(np.uint8)
+
+
+def check_records(torch, cfg, cls, scene_id, n_frames):
+    """The 2D stage's ``.pth`` contract, read with plain ``torch.load``: one
+    record per frame (the hit regime), float32 confidences, string labels,
+    one full-frame RLE mask per box."""
+    recs = torch.load(os.path.join(cfg.paths.mask_2d_dir, cls, f"{scene_id}.pth"),
+                      map_location="cpu", weights_only=False)
+    check(len(recs) == n_frames, f"{cls}: {len(recs)} records for {n_frames} frames")
+    n = cfg.frames.height_2d * cfg.frames.width_2d
+    for r in recs:
+        fid = r["frame_id"]
+        check(isinstance(fid, str) and fid.endswith(".jpg"), f"frame id {fid!r}")
+        conf = r["confidences"]
+        check(conf.dtype == torch.float32 and conf.ndim == 1 and len(conf) > 0,
+              f"{fid}: confidences {conf.dtype} {tuple(conf.shape)}")
+        check(bool(torch.isfinite(conf).all()) and float(conf.abs().max()) <= 1.0 + 1e-3,
+              f"{fid}: confidences outside [-1, 1]")
+        check(len(r["labels"]) == len(conf) and all(isinstance(x, str) for x in r["labels"]),
+              f"{fid}: labels")
+        masks = r["segmented_frame_masks"]
+        check(len(masks) == len(conf), f"{fid}: {len(masks)} masks for {len(conf)} boxes")
+        for m in masks:
+            check(m["length"] == n and m["counts"].dtype == np.int64
+                  and m["counts"].size % 2 == 0, f"{fid}: malformed RLE")
+    return recs
 
 
 def make_scene(root, scene_id, n):
@@ -209,7 +306,7 @@ def stage_config(Config, work, tag, hw, frame_batch, dtype):
 def small_reference(torch, mods, work):
     """Port on CUDA vs port on the CPU (plain versions) at the "test" presets,
     f32, one 4-frame 48x64 scene, encoder in clamp mode on both sides."""
-    Config, seg2d, gd, sam_mod, clip_mod, io = mods
+    Config, seg2d, gd, sam_mod, clip_mod, io, rle = mods
     make_scene(os.path.join(work, "scenes"), "small", 4)
 
     def loader(path, size):
@@ -226,34 +323,21 @@ def small_reference(torch, mods, work):
         b.module.load_state_dict(a.module.state_dict())
     os.environ["BFF_DEFORM_WINDOWED"] = "1"
     try:
-        out = {}
+        cfgs = {}
         for dev, (det, sam, clip) in (("cpu", cpu_models), ("cuda", gpu_models)):
-            cfg = stage_config(Config, work, f"small_{dev}", (48, 64), 2, "float32")
+            cfg = cfgs[dev] = stage_config(Config, work, f"small_{dev}", (48, 64), 2, "float32")
             seg = seg2d.Segmentor2D(cfg, detector=det, sam=sam, clip_model=clip,
                                     frame_loader=loader)
             seg2d.run(cfg, "clothes", scenes=["small"], segmentor=seg, resume=False)
-            out[dev] = io.load_frame_records(
-                os.path.join(cfg.paths.mask_2d_dir, "clothes", "small.pth"))
     finally:
         del os.environ["BFF_DEFORM_WINDOWED"]
-    cpu, gpu = out["cpu"], out["cuda"]
-    check(bool(cpu) and [r["frame_id"] for r in cpu] == [r["frame_id"] for r in gpu],
-          "small scene: frame ids differ")
-    worst_conf, worst_iou = 0.0, 1.0
-    from beyondff_tpu_torch.core import rle
-
-    for a, b in zip(cpu, gpu):
-        check(a["labels"] == b["labels"], f"small scene {a['frame_id']}: labels differ")
-        worst_conf = max(worst_conf, float(np.abs(np.asarray(a["confidences"])
-                                                  - np.asarray(b["confidences"])).max()))
-        for ra, rb in zip(a["segmented_frame_masks"], b["segmented_frame_masks"]):
-            ma, mb = rle.rle_decode(ra).astype(bool), rle.rle_decode(rb).astype(bool)
-            union = (ma | mb).sum()
-            worst_iou = min(worst_iou, 1.0 if union == 0 else (ma & mb).sum() / union)
-    rec = {"phase": "small_reference", "frames": len(gpu), "max_conf_diff": worst_conf,
+    worst_conf, worst_iou, n = records_diff(io, rle, cfgs["cpu"], cfgs["cuda"], ["clothes"],
+                                            "small")
+    rec = {"phase": "small_reference", "masks": n, "max_conf_diff": worst_conf,
            "min_mask_iou": worst_iou, "conf_tol": 1e-4, "iou_min": 0.99}
     emit(rec)
-    check(worst_conf <= 1e-4 and worst_iou >= 0.99, f"CUDA path disagrees with the CPU path: {rec}")
+    check(n > 0 and worst_conf <= 1e-4 and worst_iou >= 0.99,
+          f"CUDA path disagrees with the CPU path: {rec}")
 
 
 def profile_scene(torch, seg2d, seg, cfg, scene, timed_scene_s):
@@ -677,6 +761,312 @@ def full_width_3d(torch, mods, Config, work, dev, clip):
     return launches["projection"] + launches["refinement"]
 
 
+# ------------------------------------------------------------ the class sweep
+SWEEP_CLASSES = ("clothes", "chair", "table")  # all three in the room's ground truth
+SWEEP_FRAMES = 16
+SWEEP_POINTS = 50_000
+
+
+def sweep_config(Config, fixture, out, frame_batch, dtype, fused):
+    """The fixture's scene with every output under ``out`` (a fresh 2D mask
+    directory too: the 2D masks come from the sweep's own 2D stage), in the
+    hit regime."""
+    outs = ("mask_2d_dir", "mask_3d_dir", "final_output_dir", "checkpoint_dir", "results_dir")
+    return Config.from_dict({
+        **fixture,
+        "paths": {**fixture["paths"], **{k: os.path.join(out, k) for k in outs}},
+        "detector": {"box_threshold": 0.0, "must_match_query": False,
+                     "similarity_threshold": -1.0, "frame_batch": frame_batch,
+                     "dtype": dtype, "fused_captions": fused}})
+
+
+def records_diff(io, rle, cfg_a, cfg_b, classes, scene_id="scene0000_00"):
+    """Largest confidence difference and smallest mask IoU between two runs'
+    2D records of ``classes`` (frame ids and labels must be equal)."""
+    worst_conf, worst_iou, n = 0.0, 1.0, 0
+    for c in classes:
+        a, b = (io.load_frame_records(os.path.join(cfg.paths.mask_2d_dir, c, f"{scene_id}.pth"))
+                for cfg in (cfg_a, cfg_b))
+        check([r["frame_id"] for r in a] == [r["frame_id"] for r in b], f"{c}: frame ids differ")
+        for ra, rb in zip(a, b):
+            check(list(ra["labels"]) == list(rb["labels"]), f"{c} {ra['frame_id']}: labels")
+            worst_conf = max(worst_conf, float(np.abs(np.asarray(ra["confidences"])
+                                                      - np.asarray(rb["confidences"])).max()))
+            for ma, mb in zip(ra["segmented_frame_masks"], rb["segmented_frame_masks"]):
+                n += 1
+                if np.array_equal(ma["counts"], mb["counts"]):
+                    continue
+                da, db = rle.rle_decode(ma).astype(bool), rle.rle_decode(mb).astype(bool)
+                union = (da | db).sum()
+                worst_iou = min(worst_iou, 1.0 if union == 0 else (da & db).sum() / union)
+    return worst_conf, worst_iou, n
+
+
+def sweep_outputs(torch, cfg, classes, scene_id="scene0000_00"):
+    """Per class: the 3D stage dicts (projection, refinement) and the
+    class's row of the results table."""
+    with open(os.path.join(cfg.paths.results_dir, "overall_results.txt")) as f:
+        rows = {ln.split(",")[0]: ln for ln in f if "," in ln}
+    out = {}
+    for c in classes:
+        dicts = [torch.load(os.path.join(d, c, f"{scene_id}.pth"), map_location="cpu",
+                            weights_only=False)
+                 for d in (cfg.paths.mask_3d_dir, cfg.paths.final_output_dir)]
+        for d in dicts:
+            check(d["ins"].dtype == torch.bool and d["ins"].dim() == 2
+                  and d["conf"].dtype == torch.float32 and len(d["conf"]) == d["ins"].shape[0]
+                  and all(isinstance(x, str) for x in d["final_class"]),
+                  f"{c}: malformed 3D stage output")
+        check(not rows[c].startswith(f"{c},-"), f"{c}: results table row not written")
+        out[c] = (dicts, rows[c])
+    return out
+
+
+def small_sweep(torch, mods, Config, work, dev):
+    """The class sweep (``SweepRunner.run(amortize_segmentation=True)`` with
+    fused captions) at the "test" presets on the card against the same sweep
+    on the CPU: a 5 000-point scene, 6 frames at 242x324, three classes. The
+    2D records agree within the phase's tolerances and the results table
+    rows are equal. A few mask pixels may flip between the two devices' f32
+    sums, and the lift carries a flip into the 3D outputs, so the 3D stages
+    run once more on the CPU from the card's 2D masks (``skip_segmentation``)
+    and those outputs must equal the card's."""
+    Config, seg2d, gd, sam_mod, clip_mod, io, sweep, rle = mods
+    root = os.path.join(work, "sweep_small")
+    fixture = make_3d_scene(torch, dev, root, "scene0000_00", 5000, 6, 1.2, (242, 324),
+                            (121, 162), 6, 1, 20, SEED)
+    cpu_models = (gd.GroundingDINO.create("test", seed=1, device="cpu"),
+                  sam_mod.SAM.create("test", seed=2, device="cpu"),
+                  clip_mod.CLIP.create("test", seed=3, device="cpu"))
+    gpu_models = (gd.GroundingDINO.create("test", device="cuda"),
+                  sam_mod.SAM.create("test", device="cuda"),
+                  clip_mod.CLIP.create("test", device="cuda"))
+    for a, b in zip(cpu_models, gpu_models):
+        b.module.load_state_dict(a.module.state_dict())
+    classes = list(SWEEP_CLASSES)
+    cpu = torch.device("cpu")
+    cfgs, outs = {}, {}
+
+    def drive(name, d, cfg, models, skip_segmentation=False):
+        det, sam, clip = models
+        seg = seg2d.Segmentor2D(cfg, detector=det, sam=sam, clip_model=clip,
+                                frame_loader=synthetic_frame)
+        runner = sweep.SweepRunner(cfg, checkpoint_path=os.path.join(root, name, "sweep.yaml"),
+                                   device=d, segmentor=seg, plot_pr_curves=False,
+                                   skip_segmentation=skip_segmentation)
+        status = runner.run(classes, skip=(), amortize_segmentation=True)
+        check(all(all(st.values()) for st in status.values()), f"small sweep {name}: {status}")
+        want = {"segmentation": [] if skip_segmentation else classes, "projection": classes}
+        check(runner.amortized == want, f"small sweep {name}: amortized {runner.amortized}")
+        cfgs[name], outs[name] = cfg, sweep_outputs(torch, cfg, classes)
+
+    def same(a, b):
+        return {c: all(torch.equal(x["ins"], y["ins"]) and torch.equal(x["conf"], y["conf"])
+                       and x["final_class"] == y["final_class"]
+                       for x, y in zip(outs[a][c][0], outs[b][c][0]))
+                and outs[a][c][1] == outs[b][c][1] for c in classes}
+
+    os.environ["BFF_DEFORM_WINDOWED"] = "1"
+    try:
+        for name, d, models in (("cpu", cpu, cpu_models), ("cuda", dev, gpu_models)):
+            drive(name, d, sweep_config(Config, fixture, os.path.join(root, name), 2, "float32",
+                                        True), models)
+        cfg = sweep_config(Config, fixture, os.path.join(root, "cpu_3d"), 2, "float32", True)
+        cfg = cfg.override(**{"paths.mask_2d_dir": cfgs["cuda"].paths.mask_2d_dir})
+        drive("cpu_3d", cpu, cfg, cpu_models, skip_segmentation=True)
+    finally:
+        del os.environ["BFF_DEFORM_WINDOWED"]
+    worst_conf, worst_iou, n = records_diff(io, rle, cfgs["cpu"], cfgs["cuda"], classes)
+    rows_equal = all(outs["cpu"][c][1] == outs["cuda"][c][1] for c in classes)
+    rec = {"phase": "small_sweep", "classes": classes, "masks_2d": n,
+           "max_conf_diff": worst_conf, "min_mask_iou": worst_iou, "conf_tol": 1e-4,
+           "iou_min": 0.99, "table_rows_equal": rows_equal,
+           "outputs_equal_from_the_same_2d_masks": same("cpu_3d", "cuda"),
+           "outputs_equal_end_to_end": same("cpu", "cuda"),
+           "rows": {c: outs["cuda"][c][1].strip() for c in classes}}
+    emit(rec)
+    check(n > 0 and worst_conf <= 1e-4 and worst_iou >= 0.99 and rows_equal
+          and all(rec["outputs_equal_from_the_same_2d_masks"].values()),
+          f"the sweep on the card disagrees with the CPU sweep: {rec}")
+
+
+def counting_runner(sweep, dispatch, torch):
+    class CountingRunner(sweep.SweepRunner):
+        """The port's runner, logging each stage call's seconds and kernel
+        launches (the amortized passes and the per-class stages)."""
+
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            self.log = []
+
+        def _logged(self, name, fn, *args):
+            before = dict(dispatch.launch_counts)
+            t0 = time.perf_counter()
+            try:
+                return fn(*args)
+            finally:
+                torch.cuda.synchronize()
+                self.log.append({"call": name, "seconds": time.perf_counter() - t0,
+                                 "launches": {k: v - before[k] for k, v in
+                                              dispatch.launch_counts.items() if v > before[k]}})
+
+        def _amortized_segmentation(self, classes):
+            return self._logged("segmentation (amortized)", super()._amortized_segmentation,
+                                classes)
+
+        def _amortized_projection(self, classes):
+            return self._logged("projection (amortized)", super()._amortized_projection,
+                                classes)
+
+        def _run_stage(self, stage, class_name):
+            return self._logged(f"{stage} / {class_name}", super()._run_stage, stage,
+                                class_name)
+
+    return CountingRunner
+
+
+def full_width_sweep(torch, mods, Config, work, dev, models):
+    """The class sweep at full width: Grounding-DINO Swin-B, CLIP ViT-L/14,
+    SAM ViT-H in bf16 (the phase-4 models) on a ray-cast scene of 50 000
+    points and 16 frames at 968x1296 with 640x480 depth, three classes of its
+    ground truth, hit regime, fused captions, ``BFF_SAM_RELPOS_FLASH=1``.
+    First three timed 2D passes on clean checkpoints (per-class ``run()``,
+    ``run_classes`` unfused, ``run_classes`` fused); the banked records must
+    equal the per-class ones. Then ``SweepRunner.run(amortize_segmentation=
+    True)`` with launch counts set to 0 just before it, and the
+    ``sam_encode`` span with the flag off, on, on, off. Returns the sweep's
+    launch counts."""
+    seg2d, sweep, projection, dispatch, io, rle, StageProfiler = mods
+    det, clip, sam = models
+    t0 = time.perf_counter()
+    root = os.path.join(work, "sweep")
+    fixture = make_3d_scene(torch, dev, root, "scene0000_00", SWEEP_POINTS, SWEEP_FRAMES,
+                            2 * np.pi, FRAME_HW, (480, 640), SWEEP_FRAMES, 1, 40, SEED)
+    emit({"phase": "fixture_sweep", "seconds": time.perf_counter() - t0})
+    classes = list(SWEEP_CLASSES)
+    class_frames = SWEEP_FRAMES * len(classes)
+
+    def segmentor(cfg):
+        return seg2d.Segmentor2D(cfg, detector=det, sam=sam, clip_model=clip,
+                                 frame_loader=synthetic_frame)
+
+    def timed(fn):
+        prof = StageProfiler("segmentation_2d")
+        dispatch.reset_launch_counts()
+        t = time.perf_counter()
+        fn(prof)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        return {"seconds": secs, "class_frames_per_sec": class_frames / secs,
+                "launches": dict(dispatch.launch_counts),
+                "spans_s": dict(prof.durations), "items": dict(prof.items)}
+
+    os.environ["BFF_SAM_RELPOS_FLASH"] = "1"
+    try:
+        cfgs = {name: sweep_config(Config, fixture, os.path.join(root, name), FRAME_BATCH,
+                                   "bfloat16", name in ("run_classes_fused", "sweep"))
+                for name in ("run_per_class", "run_classes", "run_classes_fused", "sweep")}
+        passes = {}
+        cfg = cfgs["run_per_class"]
+        seg = segmentor(cfg)
+        passes["run_per_class"] = timed(lambda prof: [
+            seg2d.run(cfg, c, segmentor=seg, profiler=prof) for c in classes])
+        for name, fused in (("run_classes", "0"), ("run_classes_fused", "1")):
+            os.environ["BFF_SEG2D_FUSED"] = fused
+            c_cfg = cfgs[name]
+            passes[name] = timed(lambda prof: seg2d.run_classes(
+                c_cfg, classes, segmentor=segmentor(c_cfg), profiler=prof))
+        del os.environ["BFF_SEG2D_FUSED"]
+        for name, p in passes.items():
+            check(p["launches"]["flash_attention_relpos"] > 0,
+                  f"{name}: the rel-pos flash kernel was not launched")
+        worst_conf, worst_iou, n = records_diff(io, rle, cfgs["run_per_class"],
+                                                cfgs["run_classes"], classes)
+        emit({"phase": "sweep_2d_passes", "classes": classes, "frames": SWEEP_FRAMES,
+              "class_frames": class_frames, "passes": passes,
+              "banked_vs_run": {"masks": n, "max_conf_diff": worst_conf,
+                                "min_mask_iou": worst_iou, "conf_tol": 1e-4,
+                                "iou_min": 0.999}})
+        check(n > 0 and worst_conf <= 1e-4 and worst_iou >= 0.999,
+              f"banked run_classes records differ from per-class run(): {worst_conf} {worst_iou}")
+
+        cfg = cfgs["sweep"]
+        runner = counting_runner(sweep, dispatch, torch)(
+            cfg, checkpoint_path=os.path.join(root, "sweep", "sweep.yaml"), device=dev,
+            segmentor=segmentor(cfg), plot_pr_curves=False)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        dispatch.reset_launch_counts()
+        t = time.perf_counter()
+        status = runner.run(classes, skip=(), amortize_segmentation=True)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        launches = dict(dispatch.launch_counts)
+        peak = torch.cuda.max_memory_allocated()
+        check(all(all(st.values()) for st in status.values()), f"sweep stages: {status}")
+        check(runner.amortized == {"segmentation": classes, "projection": classes},
+              f"amortized passes did not run for every class: {runner.amortized}")
+        for name in ("flash_attention_relpos", "ms_deform_sample", "flash_attention",
+                     "mask_iou"):
+            check(launches[name] > 0, f"{name} was not launched in the sweep")
+        masks_2d = 0
+        for c in classes:
+            masks_2d += sum(len(r["segmented_frame_masks"])
+                            for r in check_records(torch, cfg, c, "scene0000_00", SWEEP_FRAMES))
+        outs = sweep_outputs(torch, cfg, classes)
+        emit({"phase": "sweep_full_width", "classes": classes, "frames": SWEEP_FRAMES,
+              "points": SWEEP_POINTS, "seconds": secs, "seconds_per_class": secs / len(classes),
+              "status": status, "amortized": runner.amortized, "launches": launches,
+              "stage_calls": runner.log, "masks_2d": masks_2d,
+              "instances": {c: [int(d["ins"].shape[0]) for d in outs[c][0]] for c in classes},
+              "rows": {c: outs[c][1].strip() for c in classes},
+              "max_memory_allocated_bytes": peak})
+
+        # one class's projection once more under the profiler: the device's
+        # busy share of the sweep's slowest stage
+        span = {}
+
+        def project():
+            t = time.perf_counter()
+            projection.run(cfg, classes[0], resume=False, device=dev)
+            torch.cuda.synchronize()
+            span["s"] = time.perf_counter() - t
+
+        busy_us, events, by_name = device_activity(torch, project)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+        emit({"phase": "device_profile_sweep_projection", "class": classes[0],
+              "projection_seconds_profiled": span["s"], "device_busy_ms": busy_us / 1e3,
+              "device_busy_share": busy_us / 1e6 / span["s"], "device_events": events,
+              "top_device_ms": [[name[:120], n, us / 1e3] for name, (n, us) in top]})
+
+        # the SAM encode with the rel-pos flash kernel off and on, in turns
+        cfg = cfgs["run_per_class"]
+        seg = segmentor(cfg)
+        ab = []
+        for flag in ("0", "1", "1", "0"):
+            if flag == "1":
+                os.environ["BFF_SAM_RELPOS_FLASH"] = "1"
+            else:
+                os.environ.pop("BFF_SAM_RELPOS_FLASH", None)
+            prof = StageProfiler("segmentation_2d")
+            seg.profiler = prof
+            dispatch.reset_launch_counts()
+            try:
+                seg.process_scene("scene0000_00", "clothes")
+            finally:
+                seg.profiler = None
+            ab.append({"BFF_SAM_RELPOS_FLASH": flag, "sam_encode_s": prof.durations["sam_encode"],
+                       "frames": prof.items["sam_encode.frames"],
+                       "relpos_launches": dispatch.launch_counts["flash_attention_relpos"]})
+            check((ab[-1]["relpos_launches"] > 0) == (flag == "1"),
+                  f"rel-pos launches {ab[-1]['relpos_launches']} with the flag {flag}")
+        emit({"phase": "sam_encode_ab", "runs": ab})
+    finally:
+        os.environ.pop("BFF_SAM_RELPOS_FLASH", None)
+        os.environ.pop("BFF_SEG2D_FUSED", None)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -689,9 +1079,12 @@ def main() -> int:
     from beyondff_tpu_torch.kernels import deform_window as dw
     from beyondff_tpu_torch.kernels import flash_attention as fa
     from beyondff_tpu_torch.kernels import mask_iou as kiou
+    from beyondff_tpu_torch.kernels import window_attention as wa
     from beyondff_tpu_torch.models import clip as clip_mod
     from beyondff_tpu_torch.models import sam as sam_mod
+    from beyondff_tpu_torch.core import rle
     from beyondff_tpu_torch.models.gdino import deformable, model as gd
+    from beyondff_tpu_torch.orchestration import sweep
     from beyondff_tpu_torch.pipeline import evaluate, projection, refinement
     from beyondff_tpu_torch.pipeline import segmentation_2d as seg2d
     from beyondff_tpu_torch.utils import io
@@ -731,6 +1124,16 @@ def main() -> int:
                                                         (8 * b, 900, 32), 900, dtype, dev)
             cases[("flash_1024", dname, b)] = flash_case(torch, fa, "unmasked_1024",
                                                          (8 * b, 1024, 32), 1024, dtype, dev)
+    # SAM ViT-H's global blocks (K4: 16 heads x B of the 64 x 64 grid) and
+    # windowed blocks (K5: 25 windows of 14 x 14 x 16 heads x B), for one
+    # frame and the main path's batch of FRAME_BATCH frames
+    for b in (1, FRAME_BATCH):
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = str(dtype).split(".")[-1]
+            cases[("relpos_global", dname, b)] = relpos_case(
+                torch, fa, wa, sam_mod, "sam_global", 16 * b, (64, 64), dtype, dev)
+            cases[("relpos_window", dname, b)] = relpos_case(
+                torch, fa, wa, sam_mod, "window_sam", 400 * b, (14, 14), dtype, dev)
     # the aggregation's self-IoU and refinement's stage-2 x stage-1 IoU
     cases["iou_self"] = mask_iou_case(torch, kiou, "aggregation_self", 600, None, 250_000, dev)
     cases["iou_cross"] = mask_iou_case(torch, kiou, "refinement_cross", 20, 150, 250_000, dev)
@@ -744,12 +1147,14 @@ def main() -> int:
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
     # ---------------------------------------------------------------- 3
-    small_reference(torch, (Config, seg2d, gd, sam_mod, clip_mod, io), work)
+    small_reference(torch, (Config, seg2d, gd, sam_mod, clip_mod, io, rle), work)
     mods3d = (torch, dispatch, projection, refinement, evaluate)
     # the 3D scenes (~200 MB at full width) go to a temporary directory, not
     # to chiprun_out
     work3d = tempfile.mkdtemp(prefix="chip_smoke_3d_")
     small_reference_3d(torch, mods3d, Config, work3d, dev)
+    small_sweep(torch, (Config, seg2d, gd, sam_mod, clip_mod, io, sweep, rle), Config, work3d,
+                dev)
 
     # ---------------------------------------------------------------- 4
     t0 = time.perf_counter()
@@ -788,26 +1193,7 @@ def main() -> int:
     for name in ("ms_deform_sample", "flash_attention"):
         check(launches[name] > 0, f"{name} was not launched on the main path")
 
-    # the .pth contract: plain torch.load
-    recs = torch.load(os.path.join(cfg.paths.mask_2d_dir, "clothes", "scene0000_00.pth"),
-                      map_location="cpu", weights_only=False)
-    check(len(recs) == N_FRAMES, f"{len(recs)} records for {N_FRAMES} frames")
-    n = FRAME_HW[0] * FRAME_HW[1]
-    for r in recs:
-        fid = r["frame_id"]
-        check(isinstance(fid, str) and fid.endswith(".jpg"), f"frame id {fid!r}")
-        conf = r["confidences"]
-        check(conf.dtype == torch.float32 and conf.ndim == 1 and len(conf) > 0,
-              f"{fid}: confidences {conf.dtype} {tuple(conf.shape)}")
-        check(bool(torch.isfinite(conf).all()) and float(conf.abs().max()) <= 1.0 + 1e-3,
-              f"{fid}: confidences outside [-1, 1]")
-        check(len(r["labels"]) == len(conf) and all(isinstance(x, str) for x in r["labels"]),
-              f"{fid}: labels")
-        masks = r["segmented_frame_masks"]
-        check(len(masks) == len(conf), f"{fid}: {len(masks)} masks for {len(conf)} boxes")
-        for m in masks:
-            check(m["length"] == n and m["counts"].dtype == np.int64
-                  and m["counts"].size % 2 == 0, f"{fid}: malformed RLE")
+    recs = check_records(torch, cfg, "clothes", "scene0000_00", N_FRAMES)
     emit({"phase": "output_check", "records": len(recs),
           "masks": sum(len(r["segmented_frame_masks"]) for r in recs)})
 
@@ -815,10 +1201,18 @@ def main() -> int:
     profile_scene(torch, seg2d, seg, cfg, "scene0000_00", scene_s)
 
     # ---------------------------------------------------------------- 6
+    sweep_launches = full_width_sweep(
+        torch, (seg2d, sweep, projection, dispatch, io, rle, StageProfiler), Config, work3d, dev,
+        (det, clip, sam))
+
+    # ---------------------------------------------------------------- 7
     del seg, det, sam
     torch.cuda.empty_cache()
-    # the 2D stage's launches, and the 3D half's mask-IoU launches
-    launches = {**launches, "mask_iou": full_width_3d(torch, mods3d, Config, work3d, dev, clip)}
+    # the 2D stage's launches, the sweep's rel-pos launches (K5 is wired into
+    # no path: 0) and the 3D half's mask-IoU launches
+    launches = {**launches, "mask_iou": full_width_3d(torch, mods3d, Config, work3d, dev, clip),
+                "flash_attention_relpos": sweep_launches["flash_attention_relpos"],
+                "window_attention_relpos": sweep_launches["window_attention_relpos"]}
     shutil.rmtree(work3d)
 
     table = []
@@ -827,6 +1221,10 @@ def main() -> int:
              "beyondff_tpu/kernels/deform_window.py:170"),
             ("flash_900", "beyondff_tpu_torch/csrc/flash_attention.cu",
              "beyondff_tpu/kernels/flash_attention.py:270"),
+            ("relpos_global", "beyondff_tpu_torch/csrc/relpos_attention.cu",
+             "beyondff_tpu/kernels/flash_attention.py:193"),
+            ("relpos_window", "beyondff_tpu_torch/csrc/relpos_attention.cu",
+             "beyondff_tpu/kernels/window_attention.py:51"),
             ("iou_self", "beyondff_tpu_torch/csrc/mask_iou.cu",
              "beyondff_tpu/kernels/mask_iou.py:55")):
         c = cases[key] if key.startswith("iou") else cases[(key, "bfloat16", FRAME_BATCH)]

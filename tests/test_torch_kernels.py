@@ -17,6 +17,7 @@ from beyondff_tpu_torch.kernels import deform_window as tdw
 from beyondff_tpu_torch.kernels import dispatch
 from beyondff_tpu_torch.kernels import flash_attention as tfa
 from beyondff_tpu_torch.kernels import mask_iou as tiou
+from beyondff_tpu_torch.kernels import window_attention as twa
 from beyondff_tpu_torch.models.gdino import deformable as tdeform
 
 torch.set_num_threads(2)
@@ -35,10 +36,11 @@ def jx():
     from beyondff_tpu.core import masks as jmasks
     from beyondff_tpu.kernels import flash_attention as jfa
     from beyondff_tpu.kernels import mask_iou as jiou
+    from beyondff_tpu.kernels import window_attention as jwa
     from beyondff_tpu.models.gdino import deformable as jdeform
 
     return types.SimpleNamespace(jnp=jnp, dw=jdw, fa=jfa, deform=jdeform, iou=jiou,
-                                 masks=jmasks)
+                                 masks=jmasks, wa=jwa)
 
 
 @pytest.fixture
@@ -94,6 +96,71 @@ def test_attend_dense_path_matches_jax(rng, jx):
     want = np.asarray(jx.fa.attend(*map(jx.jnp.asarray, (q, k, v))))
     got = tfa.attend(*map(torch.from_numpy, (q, k, v))).numpy()
     np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-5)
+
+
+# ---------------------------------------------------- rel-pos attention
+def _relpos_inputs(rng, g, rows, cols, d, scale=1.0):
+    q, k, v = _qkv(rng, (g, rows * cols, d))
+    bias_h = (rng.normal(size=(g, rows * cols, rows)) * scale).astype(np.float32)
+    bias_w = (rng.normal(size=(g, rows * cols, cols)) * scale).astype(np.float32)
+    return q, k, v, bias_h, bias_w
+
+
+@pytest.mark.parametrize("bh,rows,cols,d", [(3, 8, 64, 32), (2, 8, 64, 80)])
+def test_relpos_plain_matches_attend_relpos(rng, jx, bh, rows, cols, d):
+    """K4: the plain version and the CPU wrapper against the JAX
+    ``attend_relpos`` in interpret mode, at tests/test_kernels.py's grid and
+    at SAM ViT-H's head dim 80 (the JAX wrapper pads it to 128)."""
+    q, k, v, bias_h, bias_w = _relpos_inputs(rng, bh, rows, cols, d)
+    want = np.asarray(jx.fa.attend_relpos(*map(jx.jnp.asarray, (q, k, v, bias_h, bias_w)),
+                                          cols, interpret=True))
+    args = list(map(torch.from_numpy, (q, k, v, bias_h, bias_w)))
+    before = dispatch.launch_counts["flash_attention_relpos"]
+    for got in (tfa.attend_relpos_plain(*args, cols), tfa.attend_relpos(*args, cols)):
+        np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-5)
+    assert dispatch.launch_counts["flash_attention_relpos"] == before
+
+
+@pytest.mark.parametrize("g,wh,ww,d", [(3, 4, 5, 16), (2, 14, 14, 80)])
+def test_window_relpos_plain_matches_pallas(rng, jx, g, wh, ww, d):
+    """K5: the plain version and the CPU wrapper against the JAX
+    ``window_attention_relpos`` in interpret mode, at tests/test_kernels.py's
+    (3, 4 x 5, 16) and at SAM ViT-H's 14 x 14 window with head dim 80."""
+    q, k, v, bias_h, bias_w = _relpos_inputs(rng, g, wh, ww, d, scale=0.5)
+    want = np.asarray(jx.wa.window_attention_relpos(
+        *map(jx.jnp.asarray, (q, k, v, bias_h, bias_w)), wh, ww, interpret=True))
+    args = list(map(torch.from_numpy, (q, k, v, bias_h, bias_w)))
+    for got in (twa.window_attention_relpos_plain(*args, wh, ww),
+                twa.window_attention_relpos(*args, wh, ww)):
+        np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=2e-5)
+
+
+def test_relpos_shapes_ok_matches_jax(jx):
+    grids = [(h, w) for h in (1, 4, 8, 14, 16, 24, 32, 48, 64, 70, 96)
+             for w in (1, 8, 14, 16, 24, 32, 48, 64, 70, 128, 512)]
+    assert [tfa.relpos_shapes_ok(h, w) for h, w in grids] == \
+        [jx.fa.relpos_shapes_ok(h, w) for h, w in grids]
+    assert tfa.relpos_shapes_ok(64, 64) and not tfa.relpos_shapes_ok(14, 14)
+
+
+def test_relpos_plain_rounds_factors_to_the_inputs_dtype(rng):
+    """bf16 inputs: the factors round to bf16 and add in f32, as the JAX
+    wrapper casts them to the inputs' dtype before its f32 selector dot."""
+    q, k, v, bias_h, bias_w = (torch.from_numpy(a) for a in _relpos_inputs(rng, 1, 4, 8, 16))
+    lo = [t.bfloat16() for t in (q, k, v)]
+    got = tfa.attend_relpos_plain(*lo, bias_h, bias_w, 8)
+    want = tfa.attend_relpos_plain(*lo, bias_h.bfloat16(), bias_w.bfloat16(), 8)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, want)
+
+
+def test_relpos_wrappers_check_on_cpu():
+    meta = torch.empty(1, 16, 8, device="meta")
+    with pytest.raises(ValueError):
+        tfa.flash_attention_relpos(meta, meta, meta, meta[..., :4], meta[..., :4], 4)
+    with pytest.raises(ValueError):
+        twa.window_attention_relpos_plain(*(torch.zeros(1, 15, 8),) * 3,
+                                          torch.zeros(1, 15, 4), torch.zeros(1, 15, 4), 4, 4)
 
 
 # ------------------------------------------------------------- deformable
@@ -317,3 +384,44 @@ def test_mask_iou_kernel_takes_masks_at_any_address(cuda_device, shift):
         got = tiou.pairwise_iou(ta, other)
         want = tiou.pairwise_iou_plain(ta, other)
         _assert_bit_equal(got.cpu().numpy(), want.cpu().numpy())
+
+
+def _assert_within_one_rounding(got, want):
+    """f32: within 1e-4. bf16: within one bf16 rounding of the plain value
+    (2 ** -7 of its magnitude), plus the f32 tolerance for values near 0."""
+    diff = (got.float() - want.float()).abs()
+    rel = 0.0 if got.dtype == torch.float32 else 2.0 ** -7
+    assert bool((diff <= rel * want.float().abs() + 1e-4).all()), diff.max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh,rows,cols,d", [(2, 64, 64, 80), (3, 10, 37, 48), (1, 16, 32, 128)])
+def test_flash_relpos_kernel_matches_plain_on_card(cuda_device, dtype, bh, rows, cols, d):
+    """K4 against its plain version: SAM ViT-H's 64 x 64 global grid, a
+    ragged grid (S = 370, not a multiple of the 64-row tiles) and head dim
+    128. f32 within 1e-4, bf16 within one output rounding."""
+    q, k, v, bias_h, bias_w = (torch.from_numpy(a).to(cuda_device) for a in
+                               _relpos_inputs(np.random.default_rng(rows), bh, rows, cols, d))
+    q, k, v = (t.to(dtype) for t in (q, k, v))
+    before = dispatch.launch_counts["flash_attention_relpos"]
+    got = tfa.attend_relpos(q, k, v, bias_h, bias_w, cols)
+    want = tfa.attend_relpos_plain(q, k, v, bias_h, bias_w, cols)
+    torch.cuda.synchronize()
+    assert dispatch.launch_counts["flash_attention_relpos"] == before + 1
+    _assert_within_one_rounding(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("g,wh,ww,d", [(6, 14, 14, 80), (5, 4, 5, 16), (2, 16, 16, 64)])
+def test_window_relpos_kernel_matches_plain_on_card(cuda_device, dtype, g, wh, ww, d):
+    q, k, v, bias_h, bias_w = (torch.from_numpy(a).to(cuda_device) for a in
+                               _relpos_inputs(np.random.default_rng(wh), g, wh, ww, d))
+    q, k, v = (t.to(dtype) for t in (q, k, v))
+    before = dispatch.launch_counts["window_attention_relpos"]
+    got = twa.window_attention_relpos(q, k, v, bias_h, bias_w, wh, ww)
+    want = twa.window_attention_relpos_plain(q, k, v, bias_h, bias_w, wh, ww)
+    torch.cuda.synchronize()
+    assert dispatch.launch_counts["window_attention_relpos"] == before + 1
+    _assert_within_one_rounding(got, want)

@@ -209,3 +209,102 @@ def test_attention_long_sequence_matches_jax(rng):
     with torch.inference_mode():
         got = tmod(torch.from_numpy(q), kv=torch.from_numpy(q), v=torch.from_numpy(v)).numpy()
     np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL)
+
+
+# ------------------------------------------------ SAM attention kernel branches
+def _vit_attention_pair(rng, use_rel_pos, hw, dim=64, heads=2):
+    """A JAX ``ViTAttention`` with random parameters (rel-pos tables too:
+    zeros would hide bias errors) and the port's, carrying the same weights."""
+    jattn = jsam.ViTAttention(num_heads=heads, use_rel_pos=use_rel_pos, input_hw=hw,
+                              dtype=jnp.float32)
+    x = rng.normal(size=(1, *hw, dim)).astype(np.float32)
+    params = jattn.init(jax.random.PRNGKey(0), jnp.asarray(x))
+    params = jax.tree_util.tree_map(
+        lambda p: jnp.asarray(rng.normal(size=p.shape, scale=0.1).astype(np.float32)), params)
+    p = _np_tree(params)["params"]
+    w = convert._Writer()
+    w.dense("qkv", p["qkv"])
+    w.dense("proj", p["proj"])
+    if use_rel_pos:
+        w.raw("rel_pos_h", p["rel_pos_h"])
+        w.raw("rel_pos_w", p["rel_pos_w"])
+    tattn = tsam.ViTAttention(dim, heads, use_rel_pos, hw, softmax_f32=True)
+    tattn.load_state_dict(w.sd)
+    return jattn, params, tattn, x
+
+
+def _force_kernel_branches(monkeypatch, calls):
+    """Both packages take their kernel branches on the CPU: the JAX side with
+    ``on_tpu`` forced and its Pallas kernels in interpret mode, the port with
+    its card test forced (its wrappers then take the plain versions)."""
+    from beyondff_tpu.kernels import dispatch as jdispatch
+    from beyondff_tpu.kernels import flash_attention as jfa
+
+    monkeypatch.setattr(jdispatch, "on_tpu", lambda: True)
+    for name in ("attend", "attend_relpos"):
+        real = getattr(jfa, name)
+        monkeypatch.setattr(jfa, name, lambda *a, _f=real, **k: _f(*a, interpret=True, **k))
+        port = getattr(tsam.fa, name)
+        monkeypatch.setattr(tsam.fa, name,
+                            lambda *a, _f=port, _n=name, **k: calls.append(_n) or _f(*a, **k))
+    monkeypatch.setattr(tsam, "_kernel_path", lambda t: True)
+
+
+@pytest.mark.parametrize("use_rel_pos", [True, False])
+def test_sam_attention_kernel_branches_match_jax(rng, monkeypatch, use_rel_pos):
+    """The port's ``ViTAttention`` kernel branches, forced on the CPU,
+    against the JAX branches forced in interpret mode on a 16 x 32 global
+    grid (512 tokens): with rel-pos and ``BFF_SAM_RELPOS_FLASH`` the
+    rel-pos flash kernel (K4), without rel-pos the flash kernel (K2/K3)."""
+    monkeypatch.setenv("BFF_SAM_RELPOS_FLASH", "1")
+    jattn, params, tattn, x = _vit_attention_pair(rng, use_rel_pos, (16, 32))
+    calls = []
+    _force_kernel_branches(monkeypatch, calls)
+    want = np.asarray(jattn.apply(params, jnp.asarray(x)))
+    with torch.inference_mode():
+        got = tattn(torch.from_numpy(x)).numpy()
+    assert calls == ["attend_relpos" if use_rel_pos else "attend"]
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-5)
+
+
+def test_sam_attention_takes_no_kernel_branch_by_default(rng, monkeypatch):
+    """On the CPU (no forcing) and, on the card, without
+    ``BFF_SAM_RELPOS_FLASH``, rel-pos attention stays dense."""
+    monkeypatch.delenv("BFF_SAM_RELPOS_FLASH", raising=False)
+    jattn, params, tattn, x = _vit_attention_pair(rng, True, (16, 32))
+    calls = []
+    monkeypatch.setattr(tsam.fa, "attend_relpos", lambda *a, **k: calls.append(1))
+    with torch.inference_mode():
+        got = tattn(torch.from_numpy(x)).numpy()
+    monkeypatch.setattr(tsam, "_kernel_path", lambda t: True)
+    with torch.inference_mode():
+        tattn(torch.from_numpy(x))
+    assert calls == []
+    np.testing.assert_allclose(got, np.asarray(jattn.apply(params, jnp.asarray(x))),
+                               rtol=2e-4, atol=2e-5)
+
+
+def test_sam_encoder_with_relpos_flash_matches_jax(rng, monkeypatch):
+    """A small SAM whose global block runs a 32 x 32 grid (1024 tokens, where
+    ``relpos_shapes_ok`` holds) with ``BFF_SAM_RELPOS_FLASH`` set: the port's
+    encoder with its kernel branches forced against the JAX encoder with its
+    Pallas branch forced in interpret mode."""
+    cfg = jsam.SAMConfig(img_size=256, patch_size=8, encoder_dim=32, encoder_depth=2,
+                         encoder_heads=2, window_size=8, global_attn_indexes=(1,),
+                         prompt_dim=32, decoder_mlp_dim=64)
+    jm = jsam.SAM.create(cfg, seed=9)
+    jm.params = jax.tree_util.tree_map_with_path(
+        lambda path, p: (jnp.asarray(rng.normal(size=p.shape, scale=0.1).astype(np.float32))
+                         if "rel_pos" in jax.tree_util.keystr(path) else p), jm.params)
+    module = tlayers.build(lambda: tsam.SAMModule(tsam.SAMConfig(**vars(cfg))),
+                           torch.device("cpu"))
+    module.load_state_dict(convert.sam_from_jax(_np_tree(jm.params), module.cfg))
+    monkeypatch.setenv("BFF_SAM_RELPOS_FLASH", "1")
+    calls = []
+    _force_kernel_branches(monkeypatch, calls)
+    x = rng.normal(size=(1, 256, 256, 3)).astype(np.float32)
+    want = np.asarray(jm.encode_image(x))
+    with torch.inference_mode():
+        got = module.encode(torch.from_numpy(x)).numpy()
+    assert calls == ["attend_relpos"]
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL)
