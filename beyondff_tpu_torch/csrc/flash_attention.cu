@@ -4,28 +4,39 @@
 // _flash_masked (keys >= valid_len masked, reached through attend) and
 // flash_attention (the same function with valid_len = S): softmax(Q K^T *
 // scale) V with an online max and denominator, the (S, S) score matrix never
-// written to device memory.
-//
-// Layout: one block of 256 threads per (bh, 64-query tile). The block walks
-// 64-key tiles of K and V through shared memory (f32, rows padded by one to
-// keep the Q K^T reads free of bank conflicts), keeps the running max and
-// denominator of each query row in f32 registers, and masks keys >= valid_len
-// (tiles wholly past valid_len are skipped). Unlike the TPU kernel it pads
-// neither the head dim to 128 (a TPU lane constraint) nor S beyond the 64-row
-// tiling: ragged rows and keys are masked in the kernel. The head dim is a
-// template bound DP in {32, 64, 128}; features D..DP read as zero. The scale
-// is the caller's, d ** -0.5 of the true head dim.
+// written to device memory. The scale is the caller's, d ** -0.5 of the true
+// head dim. Unlike the TPU kernel it pads neither the head dim to 128 (a TPU
+// lane constraint) nor S beyond the 64-row tiling: ragged rows and keys are
+// masked in the kernel, and key tiles wholly past valid_len are skipped.
 //
 // Bound on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16): at the Grounding-DINO
-// decoder's shape (8 x 900 x 32, bf16) the function moves 1.8 MB (~0.6 us)
-// and does 4*8*900*900*32 = 0.83 GFLOP (~0.8 us on the tensor cores), so it
-// is bound by operations. This first version computes both products with
-// plain f32 FMAs from shared memory (67 TFLOP/s f32 peak, ~12 us floor), no
-// tensor cores; mma.sync / wgmma and a K/V double buffer are later work.
+// decoder's shape (8 B x 900 x 32, bf16) the function moves 1.8 MB per frame
+// (~0.6 us) and does 4*8*900*900*32 = 0.83 GFLOP (~0.8 us on the tensor
+// cores), so it is bound by operations.
+//
+// Two kernels, chosen by dtype inside bff_flash_attention:
+// * bf16 (the main path): flash_tc_kernel, the tensor-core block of
+//   csrc/attention_tc.cuh (mma.sync m16n8k16 bf16 -> f32 for Q K^T and P V,
+//   scores and P in registers, K/V tiles bf16 in a 2-stage cp.async ring)
+//   with a key mask as its score modifier. D is padded to DP in {32, 64,
+//   80, 128} in shared memory only. 4 warps of 16 query rows a block (a
+//   64-query tile): 25 600 B of shared memory at DP = 32 and about 100
+//   registers a thread, so four blocks share an SM. At (32, 900, 32) the
+//   grid is 15 x 32 = 480 blocks walking 15 key tiles each, under one wave,
+//   so the time is the latency of one block's 15 steps, not a bandwidth.
+//   bf16 inputs with D % 8 != 0 or bases off 16 bytes (no 16-byte cp.async
+//   rows) take the f32-FMA kernel below.
+// * f32 (the CPU-parity runs): flash_fwd_kernel, one block of 256 threads
+//   per (bh, 64-query tile), K and V through shared memory as f32 (rows
+//   padded by one against bank conflicts), both products as plain f32 FMAs
+//   (67 TFLOP/s f32 peak): TF32 tensor cores would not hold the 1e-4 bar.
+//   Head dim bound DP in {32, 64, 128}; features D..DP read as zero.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "attention_tc.cuh"
 
 namespace {
 
@@ -190,6 +201,46 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int BH, int S
   return launch<T, 128>(q, k, v, o, BH, S, D, valid_len, scale, stream);
 }
 
+constexpr int kTcWarps = 4, kTcMT = 1;  // 4 warps x 1 m16 tile: a 64-query tile
+constexpr int kTcRows = 16 * kTcWarps * kTcMT;
+
+template <int DP>
+__global__ void __launch_bounds__(32 * kTcWarps) flash_tc_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int S, int D,
+    int valid_len, float scale) {
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  const long long base = (long long)blockIdx.y * S * D;
+  bff_tc::KeyMask mod{valid_len};
+  bff_tc::attend_block<DP, kTcWarps, kTcMT>(q + base, k + base, v + base, o + base,
+                                            blockIdx.x * kTcRows, S, D,
+                                            (valid_len + bff_tc::kBK - 1) / bff_tc::kBK, scale,
+                                            mod, reinterpret_cast<__nv_bfloat16*>(tc_smem));
+}
+
+template <int DP>
+int launch_tc(const void* q, const void* k, const void* v, void* o, int BH, int S, int D,
+              int valid_len, float scale, cudaStream_t stream) {
+  static int configured = 48 * 1024;
+  constexpr int bytes = bff_tc::smem_bytes<DP, kTcRows>();
+  cudaError_t err = bff_tc::allow_smem(flash_tc_kernel<DP>, bytes, &configured);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((S + kTcRows - 1) / kTcRows, BH);
+  flash_tc_kernel<DP><<<grid, 32 * kTcWarps, bytes, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), S, D, valid_len,
+      scale);
+  return (int)cudaGetLastError();
+}
+
+int dispatch_tc(const void* q, const void* k, const void* v, void* o, int BH, int S, int D,
+                int valid_len, float scale, cudaStream_t stream) {
+  if (D <= 32) return launch_tc<32>(q, k, v, o, BH, S, D, valid_len, scale, stream);
+  if (D <= 64) return launch_tc<64>(q, k, v, o, BH, S, D, valid_len, scale, stream);
+  if (D <= 80) return launch_tc<80>(q, k, v, o, BH, S, D, valid_len, scale, stream);
+  return launch_tc<128>(q, k, v, o, BH, S, D, valid_len, scale, stream);
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. q, k, v, o: contiguous (BH, S, D).
@@ -201,6 +252,10 @@ extern "C" int bff_flash_attention(int dtype, const void* q, const void* k, cons
   if (BH < 1 || S < 1 || D < 1 || D > 128 || valid_len < 1 || valid_len > S) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return dispatch<float>(q, k, v, o, BH, S, D, valid_len, scale, s);
-  if (dtype == 1) return dispatch<__nv_bfloat16>(q, k, v, o, BH, S, D, valid_len, scale, s);
+  if (dtype == 1) {
+    if (bff_tc::tile_takes(D, q, k, v, o))
+      return dispatch_tc(q, k, v, o, BH, S, D, valid_len, scale, s);
+    return dispatch<__nv_bfloat16>(q, k, v, o, BH, S, D, valid_len, scale, s);
+  }
   return -1;
 }

@@ -1,5 +1,5 @@
 // Attention with SAM's decomposed relative-position bias on Hopper (sm_90a),
-// CUDA C++. Two kernels share the score tile and the bias lookup:
+// CUDA C++. Two functions:
 //
 // * bff_flash_attention_relpos replaces the TPU kernel
 //   beyondff_tpu/kernels/flash_attention.py flash_attention_relpos (body
@@ -16,30 +16,49 @@
 // bias[q, k] = bias_h[q, k / kw] + bias_w[q, k % kw]. The TPU kernels rebuild
 // the (BQ, BKV) bias with a one-hot selector matmul because Mosaic has no
 // gather; here each block loads its query tile's thin factors (64 x (kh + kw))
-// into shared memory once and indexes them per score. Factors arrive in the
-// inputs' dtype and are added in f32, as the TPU kernels' f32-accumulated
-// selector products add them.
-//
-// Layout: one block of 256 threads per (bh or window, 64-query tile); K and V
-// go through shared memory in 64-key tiles as f32 (rows padded by one against
-// bank conflicts). The flash kernel keeps each row's running max and
-// denominator in registers (K2's scheme, csrc/flash_attention.cu); the window
-// kernel keeps the whole (64, S) score tile of its window in shared memory
-// and normalises it in one pass. Ragged query rows and keys are masked; the
-// head dim is a template bound DP in {32, 64, 80, 128} (80 is SAM ViT-H's),
-// features D..DP read as zero.
+// into shared memory once. Factors arrive in the inputs' dtype and are added
+// in f32, as the TPU kernels' f32-accumulated selector products add them.
 //
 // Bound on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16): the global blocks at
 // B = 4, (64, 4096, 80) bf16, do 4 * 64 * 4096^2 * 80 = 3.4e11 operations
 // (0.35 ms) and move about 235 MB (0.07 ms): bound by operations. The
 // windowed blocks at B = 4, (1600, 196, 80), do 2.0e10 operations (0.02 ms)
-// and move about 218 MB (0.065 ms): bound by bytes. This first version
-// computes both products with f32 FMAs from shared memory (67 TFLOP/s f32
-// peak), no tensor cores; mma.sync / wgmma on bf16 tiles is later work.
+// and move about 218 MB (0.065 ms): bound by bytes.
+//
+// K4 in bf16 (the SAM path): flash_relpos_tc_kernel, the tensor-core block
+// of csrc/attention_tc.cuh (mma.sync m16n8k16 bf16 -> f32 for both
+// products, scores and P in registers, K/V bf16 in a 2-stage cp.async
+// ring) with the bias as its score modifier, from a bf16 factor table
+// appended to the block's shared memory. 4 warps of 2 m16 tiles each (a
+// 128-query tile): each K and V fragment a warp reads from shared memory
+// feeds 32 query rows, and each K/V tile a block loads serves 128: half
+// the shared-memory and L2 bytes per operation of 16-row warps, which is
+// what bounds this tile. Where kw % 64 == 0 (SAM's 64 x 64 grid) every key
+// tile lies in one grid row: a lane reads its 2 rows x 16 columns of
+// bias_w as bf16 pairs and bias_h[q, ky], constant over the tile, shifts
+// the row's max instead of every score (GridRowBias: one FMA a score, no
+// divide); other grids look the table up per score (FactorBias). At DP = 80
+// and kh + kw = 128 a block holds 67 584 + 34 816 = 102 400 B of shared
+// memory and about 240 registers a thread, so two blocks share an SM;
+// (64, 4096, 80) is 32 x 64 = 2048 blocks of 64 key tiles each. bf16
+// inputs with D % 8 != 0 or bases off 16 bytes take the FMA kernel below.
+//
+// f32 inputs (the CPU-parity runs) and K5: one block of 256 threads per (bh
+// or window, 64-query tile); K and V go through shared memory in 64-key
+// tiles as f32 (rows padded by one against bank conflicts), both products
+// as f32 FMAs (67 TFLOP/s f32 peak; TF32 would not hold the 1e-4 bar), the
+// bias looked up per score from an f32 factor table. The flash kernel keeps
+// each row's running max and denominator in registers (K2's scheme,
+// csrc/flash_attention.cu); the window kernel keeps the whole (64, S) score
+// tile of its window in shared memory and normalises it in one pass. Ragged
+// query rows and keys are masked; the head dim is a template bound DP in
+// {32, 64, 80, 128} (80 is SAM ViT-H's), features D..DP read as zero.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "attention_tc.cuh"
 
 namespace {
 
@@ -309,14 +328,64 @@ __global__ void __launch_bounds__(kThreads) window_relpos_kernel(
   }
 }
 
-// Raises a kernel's dynamic shared memory limit to at least ``bytes`` once.
-template <typename K>
-cudaError_t allow_smem(K kernel, int bytes, int* configured) {
-  if (bytes <= *configured) return cudaSuccess;
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err == cudaSuccess) *configured = bytes;
-  return err;
+using bff_tc::allow_smem;
+
+// ------------------------------------------------------ K4: tensor cores
+constexpr int kTcWarps = 4, kTcMT = 2;  // 4 warps x 2 m16 tiles: a 128-query tile
+constexpr int kTcRows = 16 * kTcWarps * kTcMT;
+
+template <int DP, bool kGridRows>
+__global__ void __launch_bounds__(32 * kTcWarps) flash_relpos_tc_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ bh,
+    const __nv_bfloat16* __restrict__ bw, __nv_bfloat16* __restrict__ o, int S, int D, int kh,
+    int kw, float scale) {
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(tc_smem);
+  __nv_bfloat16* table =
+      reinterpret_cast<__nv_bfloat16*>(tc_smem + bff_tc::smem_bytes<DP, kTcRows>());
+  const int q0 = blockIdx.x * kTcRows;
+  const long long base = (long long)blockIdx.y * S * D;
+  bff_tc::load_factor_table<kTcRows, 32 * kTcWarps>(
+      table, bh + (long long)blockIdx.y * S * kh, bw + (long long)blockIdx.y * S * kw, q0, S, kh,
+      kw);
+  const int n_tiles = (S + bff_tc::kBK - 1) / bff_tc::kBK;
+  if constexpr (kGridRows) {
+    const bff_tc::GridRowBias mod{table, kh, kw};
+    bff_tc::attend_block<DP, kTcWarps, kTcMT>(q + base, k + base, v + base, o + base, q0, S, D,
+                                              n_tiles, scale, mod, smem);
+  } else {
+    const bff_tc::FactorBias mod{table, kh, kw, S};
+    bff_tc::attend_block<DP, kTcWarps, kTcMT>(q + base, k + base, v + base, o + base, q0, S, D,
+                                              n_tiles, scale, mod, smem);
+  }
+}
+
+template <int DP, bool kGridRows>
+int launch_flash_tc(const void* q, const void* k, const void* v, const void* bh, const void* bw,
+                    void* o, int BH, int S, int D, int kh, int kw, float scale,
+                    cudaStream_t stream) {
+  static int configured = 48 * 1024;
+  const int bytes = bff_tc::smem_bytes<DP, kTcRows>() +
+                    kTcRows * bff_tc::table_ld(kh, kw) * (int)sizeof(__nv_bfloat16);
+  cudaError_t err = allow_smem(flash_relpos_tc_kernel<DP, kGridRows>, bytes, &configured);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((S + kTcRows - 1) / kTcRows, BH);
+  flash_relpos_tc_kernel<DP, kGridRows><<<grid, 32 * kTcWarps, bytes, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(bh),
+      static_cast<const __nv_bfloat16*>(bw), static_cast<__nv_bfloat16*>(o), S, D, kh, kw, scale);
+  return (int)cudaGetLastError();
+}
+
+// bf16 only; the type parameter fits BFF_BY_HEAD_DIM's shape.
+template <typename, int DP>
+int launch_flash_tc_grid(const void* q, const void* k, const void* v, const void* bh,
+                         const void* bw, void* o, int BH, int S, int D, int kh, int kw,
+                         float scale, cudaStream_t stream) {
+  if (kw % bff_tc::kBK == 0)
+    return launch_flash_tc<DP, true>(q, k, v, bh, bw, o, BH, S, D, kh, kw, scale, stream);
+  return launch_flash_tc<DP, false>(q, k, v, bh, bw, o, BH, S, D, kh, kw, scale, stream);
 }
 
 template <typename T, int DP>
@@ -375,6 +444,9 @@ extern "C" int bff_flash_attention_relpos(int dtype, const void* q, const void* 
   if (dtype == 0)
     return BFF_BY_HEAD_DIM(launch_flash, float, q, k, v, bias_h, bias_w, o, BH, S, D, kh, kw,
                            scale, s);
+  if (dtype == 1 && bff_tc::tile_takes(D, q, k, v, o))
+    return BFF_BY_HEAD_DIM(launch_flash_tc_grid, __nv_bfloat16, q, k, v, bias_h, bias_w, o, BH,
+                           S, D, kh, kw, scale, s);
   if (dtype == 1)
     return BFF_BY_HEAD_DIM(launch_flash, __nv_bfloat16, q, k, v, bias_h, bias_w, o, BH, S, D,
                            kh, kw, scale, s);

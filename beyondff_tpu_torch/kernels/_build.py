@@ -3,8 +3,10 @@
 Each ``.cu`` file compiles with its own ``nvcc`` process, all started
 together, for ``sm_90a``; the objects link into one shared library with a
 plain C interface, loaded through ``ctypes``. The library's name carries a
-hash of the sources, so an edited source never loads a stale build. The
-build directory, ``beyondff_tpu_torch/_build``, is listed in ``.gitignore``.
+hash of every file under ``csrc`` (sources and the headers they share,
+which compile with ``-I csrc``), so an edited source or header never loads
+a stale build. The build directory, ``beyondff_tpu_torch/_build``, is
+listed in ``.gitignore``.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import subprocess
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("flash_attention.cu", "mask_iou.cu", "ms_deform_sample.cu", "relpos_attention.cu")
+_EXTENSIONS = (".cu", ".cuh", ".h")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
@@ -32,9 +34,14 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+def _files() -> list:
+    """The names of the sources and headers under ``CSRC``, sorted."""
+    return sorted(n for n in os.listdir(CSRC) if n.endswith(_EXTENSIONS))
+
+
 def _digest() -> str:
     h = hashlib.sha256()
-    for name in SOURCES:
+    for name in _files():
         with open(os.path.join(CSRC, name), "rb") as f:
             h.update(name.encode() + b"\0" + f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -50,9 +57,9 @@ def build() -> str:
         return lib
     nvcc = _nvcc()
     procs = []
-    for name in SOURCES:
+    for name in (n for n in _files() if n.endswith(".cu")):
         obj = os.path.join(BUILD_DIR, f"{name[:-3]}_{tag}_{os.getpid()}.o")
-        cmd = [nvcc, *NVCC_FLAGS, "-c", os.path.join(CSRC, name), "-o", obj]
+        cmd = [nvcc, *NVCC_FLAGS, "-I", CSRC, "-c", os.path.join(CSRC, name), "-o", obj]
         procs.append((name, obj, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     failed = []

@@ -28,18 +28,44 @@ BLOCK_KV = 512
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def _plain_probs(q: torch.Tensor, k: torch.Tensor, scale: float,
+                 valid_len: Optional[int] = None,
+                 bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The plain versions' f32 softmax probabilities (BH, S, S)."""
+    logits = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
+    if bias is not None:
+        logits = logits + bias
+    if valid_len is not None and valid_len < k.shape[1]:
+        logits[..., valid_len:] = float("-inf")
+    return torch.softmax(logits, dim=-1)
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           valid_len: Optional[int] = None,
                           scale: Optional[float] = None) -> torch.Tensor:
     """Explicit-softmax attention with keys >= ``valid_len`` masked, in f32;
     the same function as the kernel. q, k, v: (BH, S, D)."""
-    d = q.shape[-1]
-    scale = d ** -0.5 if scale is None else scale
-    logits = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
-    if valid_len is not None and valid_len < k.shape[1]:
-        logits[..., valid_len:] = float("-inf")
-    w = torch.softmax(logits, dim=-1)
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    w = _plain_probs(q, k, scale, valid_len)
     return torch.einsum("bqk,bkd->bqd", w, v.float()).to(q.dtype)
+
+
+def bf16_error_bound(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, plain: torch.Tensor,
+                     valid_len: Optional[int] = None, scale: Optional[float] = None,
+                     bias_h: Optional[torch.Tensor] = None,
+                     bias_w: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """How far a bf16 flash kernel (the TPU's or the port's) may lie from the
+    plain version ``plain`` of the same inputs, element by element:
+    2^-8 (|P| @ |V|) + 2^-7 |plain| + 1e-4. The kernels round P to bf16
+    before P V (``p.astype(v.dtype)`` in the TPU kernels), one bf16 unit of
+    each term, and round the output once; |P| @ |V| comes from the plain
+    version's f32 probabilities. For tests and ``chip_smoke.py``: rel-pos
+    attention passes its factors, plain attention ``valid_len``."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    bias = None if bias_h is None else relpos_bias(bias_h, bias_w, q.dtype)
+    pv = torch.einsum("bqk,bkd->bqd", _plain_probs(q, k, scale, valid_len, bias),
+                      v.float().abs())
+    return 2.0 ** -8 * pv + 2.0 ** -7 * plain.float().abs() + 1e-4
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -108,8 +134,7 @@ def attend_relpos_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if bias_w.shape[-1] != kw:
         raise ValueError(f"bias_w has {bias_w.shape[-1]} columns for kw={kw}")
     scale = q.shape[-1] ** -0.5 if scale is None else scale
-    logits = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
-    w = torch.softmax(logits + relpos_bias(bias_h, bias_w, q.dtype), dim=-1)
+    w = _plain_probs(q, k, scale, bias=relpos_bias(bias_h, bias_w, q.dtype))
     return torch.einsum("bqk,bkd->bqd", w, v.float()).to(q.dtype)
 
 

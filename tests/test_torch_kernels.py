@@ -163,6 +163,69 @@ def test_relpos_wrappers_check_on_cpu():
                                           torch.zeros(1, 15, 4), torch.zeros(1, 15, 4), 4, 4)
 
 
+def _bf16_excess(got, want, bound):
+    """The largest amount by which |got - want| exceeds ``bound`` (<= 0 when
+    every element is within it)."""
+    return float(((got.float() - want.float()).abs() - bound).max())
+
+
+def test_relpos_bf16_pallas_within_derived_bound(rng, jx):
+    """The JAX ``attend_relpos`` in bf16 (interpret mode) rounds P to bf16
+    before P V, as the Hopper kernel does; it lies within the derived bound
+    2^-8 (|P| @ |V|) + 2^-7 |plain| + 1e-4 of the port's plain version in
+    bf16, the bound the card holds the CUDA kernel to."""
+    q, k, v, bias_h, bias_w = _relpos_inputs(rng, 2, 8, 64, 80)
+    jb = jx.jnp.bfloat16
+    want = jx.fa.attend_relpos(*(jx.jnp.asarray(a, jb) for a in (q, k, v)),
+                               jx.jnp.asarray(bias_h), jx.jnp.asarray(bias_w), 64,
+                               interpret=True)
+    jax_out = torch.from_numpy(np.array(want.astype(jx.jnp.float32)))
+    tq, tk, tv = (torch.from_numpy(a).bfloat16() for a in (q, k, v))
+    th, tw = torch.from_numpy(bias_h), torch.from_numpy(bias_w)
+    plain = tfa.attend_relpos_plain(tq, tk, tv, th, tw, 64)
+    bound = tfa.bf16_error_bound(tq, tk, tv, plain, bias_h=th, bias_w=tw)
+    assert _bf16_excess(jax_out, plain, bound) <= 0.0
+    # P's rounding is what the bound's first term covers: the output
+    # rounding alone (2^-7 |plain| + 1e-4) does not hold the TPU kernel
+    assert _bf16_excess(jax_out, plain, 2.0 ** -7 * plain.float().abs() + 1e-4) > 0.0
+
+
+def test_flash_bf16_pallas_within_derived_bound(rng, jx):
+    """K2: the JAX ``attend`` in bf16 (interpret mode; S = 600 padded to
+    1024, keys >= 600 masked) within the derived bound of the port's plain
+    version, and within K2's 1.6e-2."""
+    q, k, v = _qkv(rng, (2, 600, 32))
+    want = jx.fa.attend(*(jx.jnp.asarray(a, jx.jnp.bfloat16) for a in (q, k, v)),
+                        interpret=True)
+    jax_out = torch.from_numpy(np.array(want.astype(jx.jnp.float32)))
+    tq, tk, tv = (torch.from_numpy(a).bfloat16() for a in (q, k, v))
+    plain = tfa.flash_attention_plain(tq, tk, tv, valid_len=600)
+    assert _bf16_excess(jax_out, plain, tfa.bf16_error_bound(tq, tk, tv, plain, 600)) <= 0.0
+    assert _bf16_excess(jax_out, plain, 2.0 ** -7 * plain.float().abs() + 1e-4) > 0.0
+    assert float((jax_out - plain.float()).abs().max()) <= 1.6e-2
+
+
+@pytest.mark.parametrize("change", ["edit", "add"])
+def test_build_digest_covers_headers(tmp_path, monkeypatch, change):
+    """The library's hash covers every file under csrc: editing a shared
+    header, or adding one, names a new library (no stale build loads)."""
+    import shutil
+
+    from beyondff_tpu_torch.kernels import _build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, "CSRC", str(csrc))
+    assert "attention_tc.cuh" in _build._files()
+    before = _build._digest()
+    if change == "edit":
+        header = csrc / "attention_tc.cuh"
+        header.write_bytes(header.read_bytes() + b"\n")
+    else:
+        (csrc / "extra.h").write_text("#pragma once\n")
+    assert _build._digest() != before
+
+
 # ------------------------------------------------------------- deformable
 SHAPES3 = ((12, 16), (6, 8), (3, 4))
 
@@ -322,16 +385,38 @@ def test_wrappers_reject_other_devices():
 
 
 # --------------------------------------------------------------- on the card
+def _assert_within_bound(got, want, bound):
+    """f32: within 1e-4. bf16: within ``bound`` (``tfa.bf16_error_bound``)."""
+    if got.dtype == torch.float32:
+        assert float((got - want).abs().max()) <= 1e-4
+    else:
+        excess = _bf16_excess(got, want, bound)
+        assert excess <= 0.0, float((got.float() - want.float()).abs().max())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_kernel_matches_plain_on_card(cuda_device, dtype):
-    g = torch.Generator(device=cuda_device).manual_seed(0)
-    q, k, v = (torch.randn(8, 900, 32, generator=g, device=cuda_device).to(dtype)
+@pytest.mark.parametrize("bh,s,valid,d", [
+    (8, 900, 900, 32), (2, 600, 517, 32), (2, 1000, 900, 32), (2, 1023, 1000, 32),
+    (2, 300, 300, 16), (2, 300, 251, 64), (2, 300, 300, 80), (2, 300, 290, 128),
+    (2, 300, 280, 20)])
+def test_flash_kernel_matches_plain_on_card(cuda_device, dtype, bh, s, valid, d):
+    """K2/K3 against the plain version: the decoder's (8, 900, 32), keys
+    masked in the last partial tile at S = 600, 1000 and 1023, and head dims
+    16 to 128 (bf16 pads them to whole k16 steps in shared memory; D = 20 is
+    no whole 16-byte row and takes the FMA kernel). f32 within 1e-4; bf16
+    within the derived bound and K2's 1.6e-2."""
+    g = torch.Generator(device=cuda_device).manual_seed(s + d)
+    q, k, v = (torch.randn(bh, s, d, generator=g, device=cuda_device).to(dtype)
                for _ in range(3))
-    got = tfa.flash_attention(q, k, v, valid_len=900)
-    want = tfa.flash_attention_plain(q, k, v, valid_len=900)
-    tol = 2e-3 if dtype == torch.float32 else 2e-2
-    assert (got.float() - want.float()).abs().max().item() < tol
+    before = dispatch.launch_counts["flash_attention"]
+    got = tfa.flash_attention(q, k, v, valid_len=valid)
+    want = tfa.flash_attention_plain(q, k, v, valid_len=valid)
+    torch.cuda.synchronize()
+    assert dispatch.launch_counts["flash_attention"] == before + 1
+    _assert_within_bound(got, want, tfa.bf16_error_bound(q, k, v, want, valid))
+    if dtype == torch.bfloat16:
+        assert float((got.float() - want.float()).abs().max()) <= 1.6e-2
 
 
 @pytest.mark.cuda
@@ -396,20 +481,25 @@ def _assert_within_one_rounding(got, want):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("bh,rows,cols,d", [(2, 64, 64, 80), (3, 10, 37, 48), (1, 16, 32, 128)])
-def test_flash_relpos_kernel_matches_plain_on_card(cuda_device, dtype, bh, rows, cols, d):
-    """K4 against its plain version: SAM ViT-H's 64 x 64 global grid, a
-    ragged grid (S = 370, not a multiple of the 64-row tiles) and head dim
-    128. f32 within 1e-4, bf16 within one output rounding."""
-    q, k, v, bias_h, bias_w = (torch.from_numpy(a).to(cuda_device) for a in
-                               _relpos_inputs(np.random.default_rng(rows), bh, rows, cols, d))
+@pytest.mark.parametrize("bh,rows,cols,d,scale", [
+    (2, 64, 64, 80, 1.0), (3, 10, 37, 48, 1.0), (1, 16, 32, 128, 1.0), (1, 32, 128, 64, 1.0),
+    (2, 64, 64, 80, 3.0)])
+def test_flash_relpos_kernel_matches_plain_on_card(cuda_device, dtype, bh, rows, cols, d, scale):
+    """K4 against its plain version: SAM ViT-H's 64 x 64 global grid (one
+    grid row per key tile: bias_h as a row shift), a ragged grid (S = 370, not
+    a multiple of the 64-row tiles), head dim 128, a 32 x 128 grid (two key
+    tiles per grid row) and the 64 x 64 grid with factors at scale 3 (a
+    peaked softmax). f32 within 1e-4, bf16 within the derived bound."""
+    q, k, v, bias_h, bias_w = (torch.from_numpy(a).to(cuda_device) for a in _relpos_inputs(
+        np.random.default_rng(rows), bh, rows, cols, d, scale))
     q, k, v = (t.to(dtype) for t in (q, k, v))
     before = dispatch.launch_counts["flash_attention_relpos"]
     got = tfa.attend_relpos(q, k, v, bias_h, bias_w, cols)
     want = tfa.attend_relpos_plain(q, k, v, bias_h, bias_w, cols)
     torch.cuda.synchronize()
     assert dispatch.launch_counts["flash_attention_relpos"] == before + 1
-    _assert_within_one_rounding(got, want)
+    _assert_within_bound(got, want, tfa.bf16_error_bound(q, k, v, want, bias_h=bias_h,
+                                                         bias_w=bias_w))
 
 
 @pytest.mark.cuda
