@@ -1,12 +1,19 @@
 // One flash-attention block for bf16 inputs on Hopper's tensor cores
 // (sm_90a), shared by bff_flash_attention (csrc/flash_attention.cu: K2/K3,
-// a key mask) and bff_flash_attention_relpos (csrc/relpos_attention.cu: K4,
-// SAM's decomposed rel-pos bias). The two differ only in a score modifier
-// passed as a functor: ``mod.apply(s, k0, r0, scale, shift)`` turns the raw
-// Q K^T fragment of block rows r0 (+ 8) and the key tile at k0 into logits
-// in place, scaled and biased or masked; a per-row constant of the tile may
-// stay out of the scores and come back in ``shift`` (it moves the row's
-// max, not its softmax).
+// a key mask) and csrc/relpos_attention.cu (K4, SAM's decomposed rel-pos
+// bias over the global grid, and K5, the same bias over G windows of at
+// most 256 tokens). They differ only in a score modifier passed as a
+// functor: ``mod.tile(k0)`` says what a lane needs of the key tile at k0
+// (once per tile), and ``mod.apply(s, tile, r0, scale, shift)`` turns the
+// raw Q K^T fragment of block rows r0 (+ 8) into logits in place, scaled
+// and biased or masked; a per-row constant of the tile may stay out of the
+// scores and come back in ``shift`` (it moves the row's max, not its
+// softmax).
+//
+// Ragged edges: a key tile that holds fewer than 64 keys runs only the k16
+// steps (16 keys each) that hold any (SAM's 14 x 14 windows: S = 196 is
+// three whole tiles and one of 4 keys, one k16 step of four), and a warp
+// whose query rows all lie at or past S skips the tile.
 //
 // Design (a block of WARPS warps, each warp MT m16 tiles = 16 MT query rows):
 // * Both products on the tensor cores: mma.sync.m16n8k16.row.col, bf16 in,
@@ -87,6 +94,13 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) 
                "r"(in ? 16 : 0)
                : "memory");
 }
+// 4 bytes by cp.async (through L1), zero-filled where ``in`` is false.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool in) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
+               "r"(in ? 4 : 0)
+               : "memory");
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -144,6 +158,179 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat1
   }
 }
 
+// A warp's output rows before the first key tile: no keys, max below all.
+template <int DP, int MT>
+__device__ __forceinline__ void init_rows(float (&acc)[MT][DP / 8][4], float (&m)[MT][2],
+                                          float (&l)[MT][2]) {
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    m[mt][0] = m[mt][1] = kInitMax;
+    l[mt][0] = l[mt][1] = 0.f;
+#pragma unroll
+    for (int n = 0; n < DP / 8; ++n)
+      acc[mt][n][0] = acc[mt][n][1] = acc[mt][n][2] = acc[mt][n][3] = 0.f;
+  }
+}
+
+// A warp's 16 MT output rows from row0 on, divided by their denominators
+// in f32 and rounded once; rows >= S and features >= D are not written.
+template <int DP, int MT>
+__device__ __forceinline__ void store_rows(const float (&acc)[MT][DP / 8][4],
+                                           const float (&l)[MT][2], __nv_bfloat16* __restrict__ o,
+                                           int row0, int S, int D) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float lsum = l[mt][h];
+      lsum += __shfl_xor_sync(0xffffffffu, lsum, 1);
+      lsum += __shfl_xor_sync(0xffffffffu, lsum, 2);
+      const int row = row0 + mt * 16 + lane / 4 + 8 * h;
+      if (row < S) {
+        __nv_bfloat16* orow = o + (long long)row * D;
+#pragma unroll
+        for (int n = 0; n < DP / 8; ++n) {
+          const int c = 8 * n + col0();
+          if (c < D)
+            *reinterpret_cast<uint32_t*>(orow + c) =
+                pack_bf16(acc[mt][n][2 * h] / lsum, acc[mt][n][2 * h + 1] / lsum);
+        }
+      }
+    }
+}
+
+// One key tile for one warp: S = Q K^T, the modifier, the online softmax,
+// O += P V, over the tile's first NK k16 steps (16 keys each) only: the
+// last tile of a ragged S runs the steps that hold keys (SAM's windows, S =
+// 196: one step of four). Scores past them stay 0 and the modifier masks
+// them (the modifier touches only the first 2 NK n8 tiles); their P is 0.
+// NK is a template argument so that no branch stands between the ldmatrix
+// and mma of the loops: guards there, tried first, made K5 slower than
+// computing the padding (PERF.md). Likewise a warp computes all its MT m16
+// tiles; only a warp whose rows all lie past S skips the tile.
+template <int DP, int MT, int NK, class Mod>
+__device__ __forceinline__ void tile_step(float (&acc)[MT][DP / 8][4], float (&m)[MT][2],
+                                          float (&l)[MT][2], const __nv_bfloat16* sQw,
+                                          const __nv_bfloat16* kt, const __nv_bfloat16* vt,
+                                          int k0, int wrow, float scale, const Mod& mod) {
+  constexpr int LD = DP + 8;
+  constexpr int KS = DP / 16;  // k16 steps of Q K^T
+  constexpr int NO = DP / 8;   // n8 tiles of an output row
+  const int lane = threadIdx.x & 31;
+  // S = Q K^T: each K fragment feeds all MT m16 tiles
+  float s[MT][NS][4];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int j = 0; j < NS; ++j) s[mt][j][0] = s[mt][j][1] = s[mt][j][2] = s[mt][j][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    uint32_t a[MT][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+      ldsm_x4(a[mt], sQw + (mt * 16 + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8);
+#pragma unroll
+    for (int jp = 0; jp < NK; ++jp) {
+      uint32_t b[4];
+      ldsm_x4(b, kt + (jp * 16 + (lane & 7) + (lane >> 4) * 8) * LD + kk * 16 +
+                     ((lane >> 3) & 1) * 8);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        mma_bf16(s[mt][2 * jp], a[mt], b[0], b[1]);
+        mma_bf16(s[mt][2 * jp + 1], a[mt], b[2], b[3]);
+      }
+    }
+  }
+
+  // the online softmax of each m16 tile; P in bf16 as the A fragments of
+  // P V (k16 step kk takes n8 tiles 2 kk and 2 kk + 1 of the scores)
+  uint32_t pa[MT][NS / 2][4];
+  const typename Mod::Tile cols = mod.tile(k0);
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    float shift[2];
+    mod.template apply<2 * NK>(s[mt], cols, wrow + mt * 16 + lane / 4, scale, shift);
+    float mx[2] = {kInitMax, kInitMax};
+#pragma unroll
+    for (int j = 0; j < 2 * NK; ++j) {
+      mx[0] = fmaxf(mx[0], fmaxf(s[mt][j][0], s[mt][j][1]));
+      mx[1] = fmaxf(mx[1], fmaxf(s[mt][j][2], s[mt][j][3]));
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2)) + shift[h];
+    }
+    // raise the running max only where a row outgrows it by kLazyMax
+    if (__any_sync(0xffffffffu, mx[0] > m[mt][0] + kLazyMax || mx[1] > m[mt][1] + kLazyMax)) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float m_new = fmaxf(m[mt][h], mx[h]);
+        const float corr = exp2_approx((m[mt][h] - m_new) * kLog2e);
+        m[mt][h] = m_new;
+        l[mt][h] *= corr;
+#pragma unroll
+        for (int n = 0; n < NO; ++n) {
+          acc[mt][n][2 * h] *= corr;
+          acc[mt][n][2 * h + 1] *= corr;
+        }
+      }
+    }
+    // p = 2^((s - (m - shift)) log2(e)): one FMA and one ex2
+    const float b0 = (shift[0] - m[mt][0]) * kLog2e, b1 = (shift[1] - m[mt][1]) * kLog2e;
+#pragma unroll
+    for (int j = 0; j < 2 * NK; ++j) {
+      const float p0 = exp2_approx(fmaf(s[mt][j][0], kLog2e, b0));
+      const float p1 = exp2_approx(fmaf(s[mt][j][1], kLog2e, b0));
+      const float p2 = exp2_approx(fmaf(s[mt][j][2], kLog2e, b1));
+      const float p3 = exp2_approx(fmaf(s[mt][j][3], kLog2e, b1));
+      l[mt][0] += p0 + p1;
+      l[mt][1] += p2 + p3;
+      pa[mt][j / 2][(j & 1) * 2] = pack_bf16(p0, p1);
+      pa[mt][j / 2][(j & 1) * 2 + 1] = pack_bf16(p2, p3);
+    }
+  }
+
+  // O += P V: each V fragment feeds all MT m16 tiles
+#pragma unroll
+  for (int kk = 0; kk < NK; ++kk) {
+#pragma unroll
+    for (int np = 0; np < NO / 2; ++np) {
+      uint32_t b[4];
+      ldsm_x4_trans(b, vt + (kk * 16 + (lane & 15)) * LD + np * 16 + (lane >> 4) * 8);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        mma_bf16(acc[mt][2 * np], pa[mt][kk], b[0], b[1]);
+        mma_bf16(acc[mt][2 * np + 1], pa[mt][kk], b[2], b[3]);
+      }
+    }
+  }
+}
+
+// A key tile holding kn keys (from k0 on) by the tile_step instance that
+// runs its k16 steps.
+template <int DP, int MT, class Mod>
+__device__ __forceinline__ void key_tile(float (&acc)[MT][DP / 8][4], float (&m)[MT][2],
+                                         float (&l)[MT][2], const __nv_bfloat16* sQw,
+                                         const __nv_bfloat16* kt, const __nv_bfloat16* vt,
+                                         int k0, int kn, int wrow, float scale,
+                                         const Mod& mod) {
+  switch (kn >= kBK ? NS / 2 : (kn + 15) / 16) {
+    case 1:
+      tile_step<DP, MT, 1>(acc, m, l, sQw, kt, vt, k0, wrow, scale, mod);
+      break;
+    case 2:
+      tile_step<DP, MT, 2>(acc, m, l, sQw, kt, vt, k0, wrow, scale, mod);
+      break;
+    case 3:
+      tile_step<DP, MT, 3>(acc, m, l, sQw, kt, vt, k0, wrow, scale, mod);
+      break;
+    default:
+      tile_step<DP, MT, NS / 2>(acc, m, l, sQw, kt, vt, k0, wrow, scale, mod);
+  }
+}
+
 // The 16 * WARPS * MT query rows [q0, q0 + ROWS) of one (S, D) head attend
 // to the key tiles [0, n_tiles) of k and v; out rows >= S are not written.
 // Every thread of the block calls it. The block synchronises before the
@@ -159,7 +346,6 @@ __device__ __forceinline__ void attend_block(const __nv_bfloat16* __restrict__ q
                                              __nv_bfloat16* smem) {
   static_assert(DP % 16 == 0 && DP <= 128, "head dim bound: a multiple of 16 up to 128");
   constexpr int LD = DP + 8;
-  constexpr int KS = DP / 16;  // k16 steps of Q K^T
   constexpr int NO = DP / 8;   // n8 tiles of an output row
   constexpr int ROWS = 16 * WARPS * MT;
   constexpr int kThreads = 32 * WARPS;
@@ -167,7 +353,6 @@ __device__ __forceinline__ void attend_block(const __nv_bfloat16* __restrict__ q
   __nv_bfloat16* sQ = smem;
   __nv_bfloat16* sK = smem + ROWS * LD;  // K(t) at sK + (t & 1) kTile
   __nv_bfloat16* sV = sK + 2 * kTile;    // V(t) at sV + (t & 1) kTile
-  const int lane = threadIdx.x & 31;
   const int wrow = (threadIdx.x / 32) * 16 * MT;  // the warp's first row
   const __nv_bfloat16* sQw = sQ + wrow * LD;
 
@@ -178,14 +363,7 @@ __device__ __forceinline__ void attend_block(const __nv_bfloat16* __restrict__ q
 
   float acc[MT][NO][4];
   float m[MT][2], l[MT][2];  // running max; this lane's share of the denominator
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-    m[mt][0] = m[mt][1] = kInitMax;
-    l[mt][0] = l[mt][1] = 0.f;
-#pragma unroll
-    for (int n = 0; n < NO; ++n)
-      acc[mt][n][0] = acc[mt][n][1] = acc[mt][n][2] = acc[mt][n][3] = 0.f;
-  }
+  init_rows<DP, MT>(acc, m, l);
 
   for (int t = 0; t < n_tiles; ++t) {
     cp_async_wait<0>();
@@ -198,130 +376,34 @@ __device__ __forceinline__ void attend_block(const __nv_bfloat16* __restrict__ q
     const __nv_bfloat16* kt = sK + (t & 1) * kTile;
     const __nv_bfloat16* vt = sV + (t & 1) * kTile;
 
-    // S = Q K^T: each K fragment feeds all MT m16 tiles
-    float s[MT][NS][4];
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int j = 0; j < NS; ++j) s[mt][j][0] = s[mt][j][1] = s[mt][j][2] = s[mt][j][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-      uint32_t a[MT][4];
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-        ldsm_x4(a[mt], sQw + (mt * 16 + (lane & 15)) * LD + kk * 16 + (lane >> 4) * 8);
-#pragma unroll
-      for (int jp = 0; jp < NS / 2; ++jp) {
-        uint32_t b[4];
-        ldsm_x4(b, kt + (jp * 16 + (lane & 7) + (lane >> 4) * 8) * LD + kk * 16 +
-                       ((lane >> 3) & 1) * 8);
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          mma_bf16(s[mt][2 * jp], a[mt], b[0], b[1]);
-          mma_bf16(s[mt][2 * jp + 1], a[mt], b[2], b[3]);
-        }
-      }
-    }
-
-    // the online softmax of each m16 tile; P in bf16 as the A fragments of
-    // P V (k16 step kk takes n8 tiles 2 kk and 2 kk + 1 of the scores)
-    uint32_t pa[MT][NS / 2][4];
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt) {
-      float shift[2];
-      mod.apply(s[mt], t * kBK, wrow + mt * 16 + lane / 4, scale, shift);
-      float mx[2] = {kInitMax, kInitMax};
-#pragma unroll
-      for (int j = 0; j < NS; ++j) {
-        mx[0] = fmaxf(mx[0], fmaxf(s[mt][j][0], s[mt][j][1]));
-        mx[1] = fmaxf(mx[1], fmaxf(s[mt][j][2], s[mt][j][3]));
-      }
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
-        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2)) + shift[h];
-      }
-      // raise the running max only where a row outgrows it by kLazyMax
-      if (__any_sync(0xffffffffu, mx[0] > m[mt][0] + kLazyMax || mx[1] > m[mt][1] + kLazyMax)) {
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const float m_new = fmaxf(m[mt][h], mx[h]);
-          const float corr = exp2_approx((m[mt][h] - m_new) * kLog2e);
-          m[mt][h] = m_new;
-          l[mt][h] *= corr;
-#pragma unroll
-          for (int n = 0; n < NO; ++n) {
-            acc[mt][n][2 * h] *= corr;
-            acc[mt][n][2 * h + 1] *= corr;
-          }
-        }
-      }
-      // p = 2^((s - (m - shift)) log2(e)): one FMA and one ex2
-      const float b0 = (shift[0] - m[mt][0]) * kLog2e, b1 = (shift[1] - m[mt][1]) * kLog2e;
-#pragma unroll
-      for (int j = 0; j < NS; ++j) {
-        const float p0 = exp2_approx(fmaf(s[mt][j][0], kLog2e, b0));
-        const float p1 = exp2_approx(fmaf(s[mt][j][1], kLog2e, b0));
-        const float p2 = exp2_approx(fmaf(s[mt][j][2], kLog2e, b1));
-        const float p3 = exp2_approx(fmaf(s[mt][j][3], kLog2e, b1));
-        l[mt][0] += p0 + p1;
-        l[mt][1] += p2 + p3;
-        pa[mt][j / 2][(j & 1) * 2] = pack_bf16(p0, p1);
-        pa[mt][j / 2][(j & 1) * 2 + 1] = pack_bf16(p2, p3);
-      }
-    }
-
-    // O += P V: each V fragment feeds all MT m16 tiles
-#pragma unroll
-    for (int kk = 0; kk < NS / 2; ++kk) {
-#pragma unroll
-      for (int np = 0; np < NO / 2; ++np) {
-        uint32_t b[4];
-        ldsm_x4_trans(b, vt + (kk * 16 + (lane & 15)) * LD + np * 16 + (lane >> 4) * 8);
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          mma_bf16(acc[mt][2 * np], pa[mt][kk], b[0], b[1]);
-          mma_bf16(acc[mt][2 * np + 1], pa[mt][kk], b[2], b[3]);
-        }
-      }
-    }
+    if (q0 + wrow < S)  // a warp whose rows all lie past S computes nothing
+      key_tile<DP, MT>(acc, m, l, sQw, kt, vt, t * kBK, S - t * kBK, wrow, scale, mod);
   }
 
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float lsum = l[mt][h];
-      lsum += __shfl_xor_sync(0xffffffffu, lsum, 1);
-      lsum += __shfl_xor_sync(0xffffffffu, lsum, 2);
-      const int row = q0 + wrow + mt * 16 + lane / 4 + 8 * h;
-      if (row < S) {
-        __nv_bfloat16* orow = o + (long long)row * D;
-#pragma unroll
-        for (int n = 0; n < NO; ++n) {
-          const int c = 8 * n + col0();
-          if (c < D)
-            *reinterpret_cast<uint32_t*>(orow + c) =
-                pack_bf16(acc[mt][n][2 * h] / lsum, acc[mt][n][2 * h + 1] / lsum);
-        }
-      }
-    }
+  store_rows<DP, MT>(acc, l, o, q0 + wrow, S, D);
 }
+
+// A score modifier has a ``Tile`` (what a lane knows of a key tile's
+// columns, computed once per tile by ``tile(k0)`` and shared by all the
+// warp's rows and m16 tiles) and ``apply(s, tile, r0, scale, shift)``.
 
 // K2/K3: keys >= valid_len are masked (only the last tile holds any).
 struct KeyMask {
   int valid_len;
+  using Tile = int;  // the tile's first key
+  __device__ __forceinline__ Tile tile(int k0) const { return k0; }
+  template <int NJ>
   __device__ __forceinline__ void apply(float (&s)[NS][4], int k0, int, float scale,
                                         float (&shift)[2]) const {
     shift[0] = shift[1] = 0.f;
 #pragma unroll
-    for (int j = 0; j < NS; ++j)
+    for (int j = 0; j < NJ; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[j][e] *= scale;
     if (k0 + kBK <= valid_len) return;
     const int c = k0 + col0();
 #pragma unroll
-    for (int j = 0; j < NS; ++j)
+    for (int j = 0; j < NJ; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
         if (c + 8 * j + (e & 1) >= valid_len) s[j][e] = masked_score();
@@ -332,22 +414,40 @@ struct KeyMask {
 // memory: bias_h (S, kh) at columns [0, kh), bias_w (S, kw) at
 // [table_w0(kh), table_w0(kh) + kw), rows table_ld(kh, kw) elements apart.
 // Both are even, so a lane reads its pairs of bias_w as one 4-byte word,
-// and the row stride is 4 words past a multiple of 32: the eight rows of a
-// warp's reads fall in eight distinct groups of 4 banks.
+// and the row stride is the least that holds a row and is 4 words past a
+// multiple of 8 words: the eight rows of a warp's reads (lane / 4) start in
+// eight distinct groups of 4 banks. SAM's 64 x 64 grid: 136 elements a
+// row; a 14 x 14 window: 40.
 __host__ __device__ constexpr int table_w0(int kh) { return (kh + 1) & ~1; }
 __host__ __device__ constexpr int table_ld(int kh, int kw) {
-  return (table_w0(kh) + kw + 55) / 64 * 64 + 8;
+  return (table_w0(kh) + kw + 7) / 16 * 16 + 8;
 }
 
 // Fills the table of query rows [q0, q0 + ROWS) from THREADS threads; rows
-// >= S read as zero. Plain loads: attend_block synchronises before the
-// modifiers read it.
+// >= S read as zero. Even kh and kw with 4-byte aligned factors (SAM's)
+// copy by 4-byte cp.async, which joins attend_block's first group of
+// copies, so a short block (K5: 4 key tiles) does not wait on a chain of
+// scalar loads; others take plain loads. attend_block waits for its copies
+// and synchronises before the modifiers read the table.
 template <int ROWS, int THREADS>
 __device__ __forceinline__ void load_factor_table(__nv_bfloat16* dst,
                                                   const __nv_bfloat16* __restrict__ bh,
                                                   const __nv_bfloat16* __restrict__ bw, int q0,
                                                   int S, int kh, int kw) {
   const int w0 = table_w0(kh), ld = table_ld(kh, kw);
+  const bool words = ((kh | kw) & 1) == 0 &&
+                     ((reinterpret_cast<uintptr_t>(bh) | reinterpret_cast<uintptr_t>(bw)) & 3) == 0;
+  if (words) {
+    const int wh = kh / 2, ww = kw / 2;  // words of a row of each factor
+    for (int i = threadIdx.x; i < ROWS * (wh + ww); i += THREADS) {
+      const int r = i / (wh + ww), c = 2 * (i % (wh + ww)), gr = q0 + r;
+      const bool in = gr < S;
+      const __nv_bfloat16* src = c < kh ? bh + (long long)gr * kh + c
+                                        : bw + (long long)gr * kw + c - kh;
+      cp_async4(dst + r * ld + (c < kh ? c : w0 + c - kh), in ? src : bh, in);
+    }
+    return;
+  }
   for (int r = threadIdx.x / 32; r < ROWS; r += THREADS / 32) {
     const int gr = q0 + r;
     for (int c = threadIdx.x & 31; c < kh + kw; c += 32)
@@ -365,7 +465,10 @@ __device__ __forceinline__ void load_factor_table(__nv_bfloat16* dst,
 struct GridRowBias {
   const __nv_bfloat16* table;
   int kh, kw;
+  using Tile = int;  // the tile's first key
+  __device__ __forceinline__ Tile tile(int k0) const { return k0; }
 
+  template <int NJ>
   __device__ __forceinline__ void apply(float (&s)[NS][4], int k0, int r0, float scale,
                                         float (&shift)[2]) const {
     const int ky = k0 / kw, ld = table_ld(kh, kw);
@@ -376,7 +479,7 @@ struct GridRowBias {
     const __nv_bfloat16* w0 = f0 + table_w0(kh) + (k0 - ky * kw) + col0();
     const __nv_bfloat16* w1 = w0 + 8 * ld;
 #pragma unroll
-    for (int j = 0; j < NS; ++j) {
+    for (int j = 0; j < NJ; ++j) {
       const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(w0 + 8 * j));
       const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(w1 + 8 * j));
       s[j][0] = fmaf(s[j][0], scale, a.x);
@@ -387,32 +490,84 @@ struct GridRowBias {
   }
 };
 
-// K4 on any other grid (kw % 64 != 0, S not a multiple of 64): the factor
-// table looked up per score, keys >= S masked.
-struct FactorBias {
+// K5's windows and K4 on any other grid (kw % 64 != 0): the factor table
+// read through each key's grid coordinates. ``tile`` takes the lane's 16
+// columns of the key tile (8 j + col0() + {0, 1}) to their (ky, kx) once,
+// by steps of 8 from one divide (kw >= 8), and every row and m16 tile of the warp
+// reuses them: a score costs two table reads and one FMA. Where kw is even
+// (SAM's 14 x 14 windows) the two keys of a lane's pair lie in one grid row
+// (the first has an even kx), so one read of bias_h and one 4-byte read of
+// the bias_w pair serve both. Keys >= S are masked.
+template <bool kPairs>
+struct WindowBias {
+  static constexpr int kCols = kPairs ? NS : 2 * NS;
+  static constexpr uint32_t kMasked = 0xffffffffu;
   const __nv_bfloat16* table;
   int kh, kw, S;
+  // per column (pair): ky | (table_w0(kh) + kx) << 16, or kMasked
+  struct Tile {
+    uint32_t off[kCols];
+  };
 
-  __device__ __forceinline__ void apply(float (&s)[NS][4], int k0, int r0, float scale,
+  __device__ __forceinline__ Tile tile(int k0) const {
+    Tile c;
+    const int w0 = table_w0(kh);
+    int key = k0 + col0();
+    int ky = key / kw, kx = key - ky * kw;
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+#pragma unroll
+      for (int e = 0; e < (kPairs ? 1 : 2); ++e) {
+        const bool wrap = kx + e == kw;
+        const uint32_t y = ky + wrap, x = wrap ? 0 : kx + e;
+        c.off[kPairs ? j : 2 * j + e] = key + e < S ? (y | (w0 + x) << 16) : kMasked;
+      }
+      key += 8;
+      if (kw >= 8) {  // one wrap at most
+        kx += 8;
+        const bool wrap = kx >= kw;
+        kx -= wrap ? kw : 0;
+        ky += wrap;
+      } else {
+        ky = key / kw;
+        kx = key - ky * kw;
+      }
+    }
+    return c;
+  }
+
+  template <int NJ>
+  __device__ __forceinline__ void apply(float (&s)[NS][4], const Tile& c, int r0, float scale,
                                         float (&shift)[2]) const {
     shift[0] = shift[1] = 0.f;
-    const int ld = table_ld(kh, kw), w0 = table_w0(kh);
-    const __nv_bfloat16* f0 = table + r0 * ld;
-    const __nv_bfloat16* f1 = f0 + 8 * ld;
+    const int ld = table_ld(kh, kw);
+    // masked columns read the row's first entry and are set to -inf after:
+    // no branch, so the table reads of all columns issue together
 #pragma unroll
-    for (int j = 0; j < NS; ++j)
+    for (int h = 0; h < 2; ++h) {
+      const __nv_bfloat16* f = table + (r0 + 8 * h) * ld;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = k0 + 8 * j + col0() + (e & 1);
-        if (key >= S) {
-          s[j][e] = masked_score();
+      for (int j = 0; j < NJ; ++j) {
+        if (kPairs) {
+          const uint32_t u = c.off[j] == kMasked ? 0u : c.off[j];
+          const float bh = __bfloat162float(f[u & 0xffffu]);
+          const float2 bw =
+              __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(f + (u >> 16)));
+          const float x0 = fmaf(s[j][2 * h], scale, bh + bw.x);
+          const float x1 = fmaf(s[j][2 * h + 1], scale, bh + bw.y);
+          s[j][2 * h] = c.off[j] == kMasked ? masked_score() : x0;
+          s[j][2 * h + 1] = c.off[j] == kMasked ? masked_score() : x1;
         } else {
-          const __nv_bfloat16* f = e < 2 ? f0 : f1;
-          const int ky = key / kw;
-          s[j][e] = fmaf(s[j][e], scale,
-                         __bfloat162float(f[ky]) + __bfloat162float(f[w0 + key - ky * kw]));
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const uint32_t u = c.off[2 * j + e] == kMasked ? 0u : c.off[2 * j + e];
+            const float x = fmaf(s[j][2 * h + e], scale,
+                                 __bfloat162float(f[u & 0xffffu]) + __bfloat162float(f[u >> 16]));
+            s[j][2 * h + e] = c.off[2 * j + e] == kMasked ? masked_score() : x;
+          }
         }
       }
+    }
   }
 };
 

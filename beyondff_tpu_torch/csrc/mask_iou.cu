@@ -12,186 +12,325 @@
 // result is exact and bit-equal to any float32 formulation whose sums stay
 // below 2^24: the quotient of two exact integers, correctly rounded.
 //
-// Design (a simple first version): one block of 256 threads owns a 64 x 64
-// tile of the output and one slice of N (split-K, so that a few hundred rows
-// still fill the card's 132 SMs). It streams its slice through shared memory
-// in chunks of 128 bytes per row; each thread keeps a 4 x 4 sub-tile of counts
-// in registers and adds four points per `__dp4a` on 32-bit words (the bytes
-// are 0/1, so the byte dot product is the count of common points). The row
-// areas accumulate in the same pass, in the blocks of the first tile column
-// (of the diagonal for a self-IoU). Partial counts of the slices meet with
-// int32 atomics in a workspace (order-free: integers); a second small kernel
-// turns counts into IoU. For a self-IoU (b absent) only the tiles on and above
-// the diagonal are counted and the epilogue fills both triangles. Ragged Ia,
-// Ib and N are masked in the kernel: no padding to tile multiples. Rows are
-// read with aligned 16-byte loads whatever N and the base address are: a row
-// that starts off a 16-byte boundary is cut from the aligned words around it
-// in registers.
-//
 // Bound on an H100 SXM (3.35 TB/s; 1,979 TOP/s dense int8 on the tensor
 // cores): at the aggregation's self-IoU, Ia = 600 and N = 250,000, the
 // function reads 150 MB (~45 us) and, counting each distinct pair once, does
-// 600*601*250,000 = 9.0e10 integer operations (~46 us at the int8
-// tensor-core rate), so operations bound it, barely. This version counts on
-// the integer ALUs with __dp4a, far below the tensor-core rate; int8
-// mma.sync / wgmma with s32 accumulation and TMA loads are later work.
+// 600*601*250,000 = 9.0e10 integer operations (~46 us), so operations bound
+// it, barely. Refinement's cross IoU, (20 x 150, 250,000), reads 42.5 MB
+// (~13 us) for 1.5e9 operations: bound by bytes.
+//
+// Design: the intersections are a product over N of 0/1 bytes, so they go
+// to the int8 tensor cores, mma.sync.m16n8k32.row.col.s32.s8.s8.s32, on the
+// bool bytes themselves: A = a (Ia, N) row-major is the row operand, B = b
+// (Ib, N) row-major is the col operand (as K^T is in attention_tc.cuh's
+// Q K^T), counts in s32 (exact). Fragments come by ldmatrix from shared
+// tiles whose row stride, 144 bytes (9 granules of 16), puts the eight rows
+// of an ldmatrix phase on eight distinct groups of banks.
+// * A block of 8 warps owns a 128 x 128 output tile (each warp 64 x 32: 4 x
+//   4 m16n8 tiles, 16 mma for 4 A and 2 B fragments per k32 step) and one
+//   slice of N (split-K). For a self-IoU only the tiles on and above the
+//   diagonal are counted: 15 tiles at Ia = 600. N is split until the grid
+//   is one wave of two blocks per SM (255 blocks for the self-IoU, 264 for
+//   the cross IoU), and partial counts meet in int32 atomics (order-free:
+//   integers). A warp whose rows or columns all lie past Ia or Ib skips its
+//   mma; the others run every tile, with no branch between ldmatrix and
+//   mma (rows past the end are zeros).
+// * Rows on 16-byte boundaries (N % 16 == 0 and 16-byte aligned bases)
+//   stream in by cp.async 16-byte copies, 128 bytes a row per step, through
+//   a ring of 3 stages. Other rows, which real scenes have (any N), cannot
+//   take cp.async at their own addresses. For them each thread owns one
+//   stage row: it loads the 5 aligned 16-byte granules around the row's
+//   64-byte chunk from global memory into registers, cuts the chunk out of
+//   them there (a funnel shift, bytes past the slice zeroed) and stores the
+//   4 cut granules into a ring of 2 cut stages. The loads of chunk c + 1
+//   are issued before the mma of chunk c and cut after it, with one barrier
+//   a step; no load leaves the granules that hold the tensor. Shared memory
+//   sees the same bytes as on the aligned path. It takes 1.7-1.8x the
+//   aligned time (PERF.md section 6): loads after the mma, four lanes a row
+//   side by side, and L1 prefetches were each measured slower.
+// * Areas: a self-IoU's |a_i| is its diagonal count inter[i, i]; there is
+//   no area pass. A cross IoU counts row areas from the shared tile with
+//   __dp4a (the blocks of the first tile column for a, of the first tile
+//   row for b).
+// * A second small kernel turns counts into IoU: the quotient of exact
+//   integers, correctly rounded, nan at 0 / 0; for a self-IoU it fills the
+//   lower triangle from the upper.
+// Shared memory: 3 x 256 x 144 = 110,592 bytes a block (aligned) or 2 x 256
+// x 80 = 40,960 (cut); at most 128 registers a thread (__launch_bounds__(256,
+// 2)): two blocks per SM.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <algorithm>
 
+#include "attention_tc.cuh"
+
 namespace {
 
-constexpr int kTile = 64;          // output rows and columns per block
-constexpr int kChunk = 128;        // bytes of N per row per step
-constexpr int kWords = kChunk / 4;
-constexpr int kStride = kWords + 1;  // shared row stride in words (bank-conflict pad)
+constexpr int kTile = 128;            // output rows and columns per block
+constexpr int kChunk = 128;           // bytes of N per row per stage
+constexpr int kSegs = kChunk / 16;    // 16-byte segments of a chunk row
+constexpr int kLd = kChunk + 16;      // shared row stride: 9 granules
+constexpr int kRows = 2 * kTile;      // a stage: A's 128 rows, then B's 128
+constexpr int kStages = 3;            // the aligned ring
+constexpr int kCut = 64;              // bytes of a row per step, unaligned rows
+constexpr int kGran = kCut / 16 + 1;  // aligned granules around a cut chunk
+// shared memory: 3 stages of 256 rows x 144 bytes (aligned), or 2 cut
+// stages of 256 x 80 (unaligned)
+constexpr int kSmemAligned = kStages * kRows * kLd;  // 110,592
+constexpr int kSmemCut = 2 * kRows * (kCut + 16);    // 40,960
 constexpr int kThreads = 256;
+constexpr int kMT = 4, kNT = 4;       // a warp's m16 and n8 tiles: 64 x 32
 
-// The 16 bytes from byte `off` (0..15) of the aligned 16 at `base` on, as four
-// words, where only the first `valid` (> 0) belong to the range and the rest
-// read as 0. They are cut out of a 32-byte window (word selects and a funnel
-// shift, in registers); the second aligned 16 is read only where the range
-// reaches it.
-__device__ __forceinline__ void cut_segment(const uint4* base, unsigned off, long long valid,
-                                            uint32_t* w) {
-  const uint4 lo = base[0];
-  uint32_t v[8] = {lo.x, lo.y, lo.z, lo.w, 0u, 0u, 0u, 0u};
-  if (valid > 16 - (long long)off) {
-    const uint4 hi = base[1];
-    v[4] = hi.x;
-    v[5] = hi.y;
-    v[6] = hi.z;
-    v[7] = hi.w;
-  }
-  // move the window down by off / 4 words (as 2 + 1), then by off % 4 bytes
+using bff_tc::cp_async16;
+using bff_tc::cp_async_commit;
+using bff_tc::cp_async_wait;
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const uint8_t* p) {
+  bff_tc::ldsm_x4(r, reinterpret_cast<const __nv_bfloat16*>(p));
+}
+
+// c += a b for one m16n8k32 tile of 0/1 bytes.
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Sum of the 16 0/1 bytes of a granule.
+__device__ __forceinline__ unsigned count16(uint4 v, unsigned acc) {
+  acc = __dp4a(v.x, 0x01010101u, acc);
+  acc = __dp4a(v.y, 0x01010101u, acc);
+  acc = __dp4a(v.z, 0x01010101u, acc);
+  return __dp4a(v.w, 0x01010101u, acc);
+}
+
+// The 16 bytes from byte ``off`` (0..15) of lo on, lo's tail followed by
+// hi's head, where only the first ``valid`` belong to the slice and the rest
+// read as 0: word selects and a funnel shift, in registers.
+__device__ __forceinline__ uint4 cut16(uint4 lo, uint4 hi, unsigned off, int valid) {
+  uint32_t v[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
   const bool by2 = off & 8u, by1 = off & 4u;
 #pragma unroll
   for (int k = 0; k < 6; ++k) v[k] = by2 ? v[k + 2] : v[k];
 #pragma unroll
   for (int k = 0; k < 5; ++k) v[k] = by1 ? v[k + 1] : v[k];
   const unsigned sh = (off & 3u) * 8u;
+  uint32_t w[4];
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
     const uint32_t x = __funnelshift_r(v[k], v[k + 1], sh);
-    const long long left = valid - 4 * k;  // bytes of word k inside the range
+    const int left = valid - 4 * k;  // bytes of word k inside the slice
     w[k] = left >= 4 ? x : left <= 0 ? 0u : x & ((1u << (8 * left)) - 1u);
   }
+  return make_uint4(w[0], w[1], w[2], w[3]);
 }
 
-// Rows [row0, row0 + 64) x bytes [n0, n0 + 128) of a (rows, N) byte matrix
-// into shared memory; rows >= rows and bytes >= n_end read as 0. Each thread
-// takes 16-byte segments: one aligned 16-byte load where the segment is
-// aligned and wholly inside the range (the cut would cost about a tenth of
-// the kernel's time there), else cut_segment. So every N and base address
-// read through aligned 16-byte loads, and no load leaves the 16-byte granules
-// that hold the tensor.
-__device__ __forceinline__ void load_tile(const uint8_t* __restrict__ m, uint32_t* s, int rows,
-                                          long long N, int row0, long long n0,
-                                          long long n_end) {
+struct Slice {
+  const uint8_t* a;
+  const uint8_t* b;
+  int Ia, Ib, row0, col0;
+  long long N, n_end;
+
+  // Row r of a stage: A's row row0 + r (r < 128) or B's row col0 + r - 128;
+  // null past Ia or Ib.
+  __device__ __forceinline__ const uint8_t* row(int r) const {
+    if (r < kTile) return row0 + r < Ia ? a + (long long)(row0 + r) * N : nullptr;
+    return col0 + r - kTile < Ib ? b + (long long)(col0 + r - kTile) * N : nullptr;
+  }
+};
+
+// Chunk [n0, n0 + 128) of the stage's rows by cp.async, for rows on 16-byte
+// boundaries (n_end then is a multiple of 16 too); zero-filled past the
+// slice and past Ia or Ib.
+__device__ __forceinline__ void load_aligned(uint8_t* st, const Slice& sl, long long n0) {
 #pragma unroll
-  for (int q = 0; q < kTile * kChunk / 16 / kThreads; ++q) {
-    const int idx = threadIdx.x + q * kThreads;
-    const int r = idx / (kChunk / 16), seg = idx % (kChunk / 16);
-    const long long n = n0 + seg * 16;
-    uint32_t w[4] = {0u, 0u, 0u, 0u};
-    if (row0 + r < rows && n < n_end) {
-      const uint8_t* p = m + (long long)(row0 + r) * N + n;
-      const long long valid = n_end - n;
-      const unsigned off = (unsigned)(reinterpret_cast<uintptr_t>(p) & 15u);
-      if (off == 0 && valid >= 16) {
-        const uint4 v = *reinterpret_cast<const uint4*>(p);
-        w[0] = v.x;
-        w[1] = v.y;
-        w[2] = v.z;
-        w[3] = v.w;
-      } else {
-        cut_segment(reinterpret_cast<const uint4*>(p - off), off, valid, w);
+  for (int it = 0; it < kRows * kSegs / kThreads; ++it) {
+    const int idx = it * kThreads + threadIdx.x;
+    const int r = idx / kSegs, seg = idx % kSegs;
+    const uint8_t* src = sl.row(r);
+    const bool in = src != nullptr && n0 + 16 * seg < sl.n_end;
+    cp_async16(st + r * kLd + seg * 16, in ? src + n0 + 16 * seg : sl.a, in);
+  }
+}
+
+// One thread's stage row of an unaligned slice: the row's aligned granules
+// from the slice's start on (``gp``, null past Ia or Ib), the row's offset
+// in its first granule and the slice's bytes.
+struct CutRow {
+  const uint4* gp;
+  unsigned off;
+  long long len;
+
+  // The granules around chunk c, [c kCut, (c + 1) kCut) of the slice, by
+  // 16-byte global loads into registers; granules that hold no byte of the
+  // slice read as zero.
+  __device__ __forceinline__ void load(uint4 (&g)[kGran], int c) const {
+    const long long rem = len - (long long)c * kCut;  // slice bytes from the chunk on
+#pragma unroll
+    for (int k = 0; k < kGran; ++k)
+      g[k] = gp != nullptr && 16 * k < (long long)off + rem ? __ldg(gp + c * (kCut / 16) + k)
+                                                             : make_uint4(0u, 0u, 0u, 0u);
+  }
+
+  // Chunk c cut out of its granules into the stage row ``dst``, bytes past
+  // the slice zeroed.
+  __device__ __forceinline__ void cut(const uint4 (&g)[kGran], int c, uint8_t* dst) const {
+    const int valid = (int)min((long long)kCut, len - (long long)c * kCut);
+    uint4* d = reinterpret_cast<uint4*>(dst);
+#pragma unroll
+    for (int seg = 0; seg < kCut / 16; ++seg)
+      d[seg] = cut16(g[seg], g[seg + 1], off, valid - 16 * seg);
+  }
+};
+
+// Rows on 16-byte boundaries stream in chunks of 128 bytes through a ring of
+// 3 cp.async stages. Other rows stream in chunks of 64 bytes through
+// registers into a ring of 2 cut stages: in step c the block loads chunk
+// c + 1, multiplies chunk c, then cuts chunk c + 1 into the other stage,
+// with one barrier a step.
+template <bool kAligned>
+__global__ void __launch_bounds__(kThreads, 2)
+iou_count_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b, int Ia, int Ib,
+                 long long N, int self, int tiles_j, long long split_len,
+                 int* __restrict__ inter, int* __restrict__ area_a, int* __restrict__ area_b) {
+  constexpr int CH = kAligned ? kChunk : kCut;  // bytes of a row per step
+  constexpr int LD = CH + 16;                   // stage row stride
+  constexpr int STAGE = kRows * LD;
+  extern __shared__ __align__(16) uint8_t smem[];
+  // the output tile: the upper triangle by rows for a self-IoU
+  int ti = 0, tj = blockIdx.x;
+  if (self) {
+    for (int len = tiles_j; tj >= len; --len) {
+      tj -= len;
+      ++ti;
+    }
+    tj += ti;
+  } else {
+    ti = blockIdx.x / tiles_j;
+    tj = blockIdx.x % tiles_j;
+  }
+  const long long n_begin = (long long)blockIdx.y * split_len;
+  const Slice sl{a, b, Ia, Ib, ti * kTile, tj * kTile, N, min(N, n_begin + split_len)};
+  const int chunks = (int)((sl.n_end - n_begin + CH - 1) / CH);
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x / 32;
+  const int wr = warp / 4, wc = warp % 4;  // rows wr * 64, columns wc * 32
+  // a warp whose rows or columns all lie past Ia or Ib skips its mma (the
+  // cross IoU's 20 rows leave warp row 1 idle); the others run all their
+  // m16 and n8 tiles (rows past the end are zeros), with no branch between
+  // ldmatrix and mma
+  const bool live = sl.row0 + wr * 64 < Ia && sl.col0 + wc * 32 < Ib;
+  // cross-IoU areas: a's rows in the first tile column, b's in the first
+  // tile row; thread t counts stage row t
+  const bool do_area = !self && (threadIdx.x < kTile ? tj == 0 : ti == 0);
+  unsigned area = 0;
+
+  int acc[kMT][kNT][4];
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < kNT; ++nt) acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] = acc[mt][nt][3] = 0;
+
+  // unaligned rows: thread t owns stage row t
+  CutRow cr{nullptr, 0u, sl.n_end - n_begin};
+  uint4 g[kGran];
+  if (kAligned) {
+#pragma unroll
+    for (int s = 0; s < kStages - 1; ++s) {
+      if (s < chunks) load_aligned(smem + s * STAGE, sl, n_begin + (long long)s * CH);
+      cp_async_commit();
+    }
+  } else {
+    const uint8_t* src = sl.row(threadIdx.x);
+    if (src != nullptr) {
+      cr.off = (unsigned)(reinterpret_cast<uintptr_t>(src + n_begin) & 15u);
+      cr.gp = reinterpret_cast<const uint4*>(src + n_begin - cr.off);
+    }
+    cr.load(g, 0);
+    cr.cut(g, 0, smem + threadIdx.x * LD);
+    __syncthreads();  // cut chunk 0 is whole
+  }
+
+  for (int c = 0; c < chunks; ++c) {
+    const uint8_t* st;
+    if (kAligned) {
+      cp_async_wait<kStages - 2>();
+      __syncthreads();  // chunk c landed; every warp is past chunk c - 1
+      const int nxt = c + kStages - 1;
+      if (nxt < chunks)
+        load_aligned(smem + (nxt % kStages) * STAGE, sl, n_begin + (long long)nxt * CH);
+      cp_async_commit();
+      st = smem + (c % kStages) * STAGE;
+    } else {
+      if (c + 1 < chunks) cr.load(g, c + 1);  // in flight during the mma
+      st = smem + (c & 1) * STAGE;
+    }
+    if (do_area) {
+      const uint4* row = reinterpret_cast<const uint4*>(st + threadIdx.x * LD);
+#pragma unroll
+      for (int seg = 0; seg < CH / 16; ++seg) area = count16(row[seg], area);
+    }
+
+    const uint8_t* sA = st + (wr * 64) * LD;
+    const uint8_t* sB = st + (kTile + wc * 32) * LD;
+    if (live) {
+      // one k32 step at a time: with the 64 accumulators, the fragments of
+      // one step are what 128 registers hold
+#pragma unroll 1
+      for (int kk = 0; kk < CH / 32; ++kk) {
+        uint32_t af[kMT][4];
+#pragma unroll
+        for (int mt = 0; mt < kMT; ++mt)
+          ldsm_x4(af[mt], sA + (mt * 16 + (lane & 15)) * LD + kk * 32 + (lane >> 4) * 16);
+#pragma unroll
+        for (int np = 0; np < kNT / 2; ++np) {
+          uint32_t bf[4];
+          ldsm_x4(bf, sB + (np * 16 + (lane & 7) + (lane >> 4) * 8) * LD + kk * 32 +
+                          ((lane >> 3) & 1) * 16);
+#pragma unroll
+          for (int mt = 0; mt < kMT; ++mt) {
+            mma_s8(acc[mt][2 * np], af[mt], bf[0], bf[1]);
+            mma_s8(acc[mt][2 * np + 1], af[mt], bf[2], bf[3]);
+          }
+        }
       }
     }
-    uint32_t* d = s + r * kStride + seg * 4;
-    d[0] = w[0];
-    d[1] = w[1];
-    d[2] = w[2];
-    d[3] = w[3];
-  }
-}
 
-// Sum of the four 0/1 bytes of each word of one shared row segment.
-__device__ __forceinline__ unsigned row_part(const uint32_t* s, int r, int w0) {
-  unsigned acc = 0;
-#pragma unroll
-  for (int k = 0; k < kWords / 4; ++k) acc = __dp4a(s[r * kStride + w0 + k], 0x01010101u, acc);
-  return acc;
-}
-
-__global__ void __launch_bounds__(kThreads)
-iou_count_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b, int Ia, int Ib,
-                 long long N, int self, long long split_len, int* __restrict__ inter,
-                 int* __restrict__ area_a, int* __restrict__ area_b) {
-  const int ti = blockIdx.x, tj = blockIdx.y;
-  if (self && tj < ti) return;
-  __shared__ uint32_t As[kTile * kStride];
-  __shared__ uint32_t Bs[kTile * kStride];
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const int row0 = ti * kTile, col0 = tj * kTile;
-  const long long n_begin = (long long)blockIdx.z * split_len;
-  const long long n_end = min(N, n_begin + split_len);
-  // areas: a's rows in the first tile column (the diagonal for a self-IoU),
-  // b's rows in the first tile row; one (row, quarter) per thread
-  const bool do_a = self ? (ti == tj) : (tj == 0);
-  const bool do_b = !self && ti == 0;
-  const int ar = threadIdx.x / 4, aq = (threadIdx.x % 4) * (kWords / 4);
-  unsigned part_a = 0, part_b = 0;
-
-  unsigned acc[4][4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[r][c] = 0u;
-
-  for (long long n0 = n_begin; n0 < n_end; n0 += kChunk) {
-    load_tile(a, As, Ia, N, row0, n0, n_end);
-    load_tile(b, Bs, Ib, N, col0, n0, n_end);
-    __syncthreads();
-#pragma unroll 4
-    for (int k = 0; k < kWords; ++k) {
-      uint32_t av[4], bv[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) av[r] = As[(ty + 16 * r) * kStride + k];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) bv[c] = Bs[(tx + 16 * c) * kStride + k];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[r][c] = __dp4a(av[r], bv[c], acc[r][c]);
-    }
-    if (do_a) part_a += row_part(As, ar, aq);
-    if (do_b) part_b += row_part(Bs, ar, aq);
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int i = row0 + ty + 16 * r;
-    if (i >= Ia) continue;
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int j = col0 + tx + 16 * c;
-      if (j < Ib && acc[r][c]) atomicAdd(inter + (long long)i * Ib + j, (int)acc[r][c]);
+    if (!kAligned) {
+      // stage (c + 1) & 1 was last read in step c - 1, behind its barrier
+      if (c + 1 < chunks) cr.cut(g, c + 1, smem + ((c + 1) & 1) * STAGE + threadIdx.x * LD);
+      __syncthreads();  // cut chunk c + 1 is whole; every warp is past chunk c
     }
   }
-  // the four threads of one row are neighbouring lanes of one warp
-  if (do_a) {
-    part_a += __shfl_xor_sync(0xffffffffu, part_a, 1);
-    part_a += __shfl_xor_sync(0xffffffffu, part_a, 2);
-    if (threadIdx.x % 4 == 0 && row0 + ar < Ia && part_a) atomicAdd(area_a + row0 + ar, (int)part_a);
-  }
-  if (do_b) {
-    part_b += __shfl_xor_sync(0xffffffffu, part_b, 1);
-    part_b += __shfl_xor_sync(0xffffffffu, part_b, 2);
-    if (threadIdx.x % 4 == 0 && col0 + ar < Ib && part_b) atomicAdd(area_b + col0 + ar, (int)part_b);
+
+  // partial counts of the slice: c0, c1 at (lane / 4, 2 (lane % 4) + {0, 1})
+  // of the m16n8 tile, c2, c3 eight rows down
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = sl.row0 + wr * 64 + mt * 16 + lane / 4 + 8 * h;
+      if (i >= Ia) continue;
+#pragma unroll
+      for (int nt = 0; nt < kNT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int j = sl.col0 + wc * 32 + nt * 8 + 2 * (lane & 3) + e;
+          const int x = acc[mt][nt][2 * h + e];
+          if (j < Ib && x) atomicAdd(inter + (long long)i * Ib + j, x);
+        }
+    }
+  if (do_area && area) {
+    const int r = threadIdx.x;
+    if (r < kTile) {
+      if (sl.row0 + r < Ia) atomicAdd(area_a + sl.row0 + r, (int)area);
+    } else if (sl.col0 + r - kTile < Ib) {
+      atomicAdd(area_b + sl.col0 + r - kTile, (int)area);
+    }
   }
 }
 
@@ -201,10 +340,30 @@ __global__ void iou_finish_kernel(const int* __restrict__ inter, const int* __re
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= (long long)Ia * Ib) return;
   const int i = (int)(idx / Ib), j = (int)(idx % Ib);
-  // a self-IoU counted only the tiles on and above the diagonal
-  const int n = (self && j / kTile < i / kTile) ? inter[(long long)j * Ib + i] : inter[idx];
-  const int u = area_a[i] + (self ? area_a[j] : area_b[j]) - n;
+  int n, u;
+  if (self) {
+    // only the tiles on and above the diagonal were counted; |a_i| is the
+    // diagonal count
+    n = j / kTile < i / kTile ? inter[(long long)j * Ib + i] : inter[idx];
+    u = inter[(long long)i * Ib + i] + inter[(long long)j * Ib + j] - n;
+  } else {
+    n = inter[idx];
+    u = area_a[i] + area_b[j] - n;
+  }
   out[idx] = (float)n / (float)u;  // IEEE division: 0 / 0 = nan
+}
+
+template <bool kAligned>
+cudaError_t launch_count(dim3 grid, cudaStream_t s, const uint8_t* pa, const uint8_t* pb, int Ia,
+                         int Ib, long long N, int self, int tiles_j, long long split_len,
+                         int* inter, int* area_a, int* area_b) {
+  static int configured = 48 * 1024;
+  const int bytes = kAligned ? kSmemAligned : kSmemCut;
+  cudaError_t err = bff_tc::allow_smem(iou_count_kernel<kAligned>, bytes, &configured);
+  if (err != cudaSuccess) return err;
+  iou_count_kernel<kAligned><<<grid, kThreads, bytes, s>>>(pa, pb, Ia, Ib, N, self, tiles_j,
+                                                           split_len, inter, area_a, area_b);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -226,20 +385,26 @@ extern "C" int bff_mask_iou(const void* a, const void* b, int Ia, int Ib, long l
   cudaError_t err = cudaMemsetAsync(workspace, 0, sizeof(int) * ((long long)Ia * Ib + Ia + Ib), s);
   if (err != cudaSuccess) return (int)err;
 
-  const int tiles_i = (Ia + kTile - 1) / kTile, tiles_j = (Ib + kTile - 1) / kTile;
-  const long long tiles = self ? (long long)tiles_i * (tiles_i + 1) / 2 : (long long)tiles_i * tiles_j;
-  const long long chunks = (N + kChunk - 1) / kChunk;
-  // split N until about 8 blocks per SM are in flight, keeping >= 8 chunks a slice
-  long long splits = (8LL * 132 + tiles - 1) / tiles;
-  splits = std::max(1LL, std::min(splits, (chunks + 7) / 8));
-  splits = std::min(splits, 65535LL);
-  const long long split_len = ((chunks + splits - 1) / splits) * kChunk;
-  splits = std::max(1LL, (N + split_len - 1) / split_len);
   if (N > 0) {
-    dim3 grid(tiles_i, self ? tiles_i : tiles_j, (unsigned)splits);
-    iou_count_kernel<<<grid, kThreads, 0, s>>>(pa, pb, Ia, Ib, N, self, split_len, inter,
-                                                area_a, area_b);
-    err = cudaGetLastError();
+    int dev = 0, sms = 132;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    const int tiles_i = (Ia + kTile - 1) / kTile, tiles_j = (Ib + kTile - 1) / kTile;
+    const long long tiles =
+        self ? (long long)tiles_i * (tiles_i + 1) / 2 : (long long)tiles_i * tiles_j;
+    const long long chunks = (N + kChunk - 1) / kChunk;
+    // split N into one wave of two blocks per SM, at least 4 chunks a slice
+    long long splits = std::max(1LL, 2LL * sms / tiles);
+    splits = std::max(1LL, std::min({splits, chunks / 4, 65535LL}));
+    const long long split_len = ((chunks + splits - 1) / splits) * kChunk;
+    splits = (N + split_len - 1) / split_len;
+    const bool aligned = N % 16 == 0 && ((reinterpret_cast<uintptr_t>(pa) |
+                                          reinterpret_cast<uintptr_t>(pb)) & 15u) == 0;
+    const dim3 grid((unsigned)tiles, (unsigned)splits);
+    err = aligned ? launch_count<true>(grid, s, pa, pb, Ia, Ib, N, self, tiles_j, split_len,
+                                       inter, area_a, area_b)
+                  : launch_count<false>(grid, s, pa, pb, Ia, Ib, N, self, tiles_j, split_len,
+                                        inter, area_a, area_b);
     if (err != cudaSuccess) return (int)err;
   }
   const long long total = (long long)Ia * Ib;

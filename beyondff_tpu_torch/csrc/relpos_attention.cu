@@ -37,17 +37,50 @@
 // tile lies in one grid row: a lane reads its 2 rows x 16 columns of
 // bias_w as bf16 pairs and bias_h[q, ky], constant over the tile, shifts
 // the row's max instead of every score (GridRowBias: one FMA a score, no
-// divide); other grids look the table up per score (FactorBias). At DP = 80
-// and kh + kw = 128 a block holds 67 584 + 34 816 = 102 400 B of shared
-// memory and about 240 registers a thread, so two blocks share an SM;
-// (64, 4096, 80) is 32 x 64 = 2048 blocks of 64 key tiles each. bf16
-// inputs with D % 8 != 0 or bases off 16 bytes take the FMA kernel below.
+// divide); other grids take WindowBias (below). At DP = 80 and kh + kw =
+// 128 a block holds 67 584 + 34 816 = 102 400 B of shared memory and about
+// 240 registers a thread, so two blocks share an SM; (64, 4096, 80) is
+// 32 x 64 = 2048 blocks of 64 key tiles each. bf16 inputs with D % 8 != 0
+// or bases off 16 bytes take the FMA kernels below.
 //
-// f32 inputs (the CPU-parity runs) and K5: one block of 256 threads per (bh
-// or window, 64-query tile); K and V go through shared memory in 64-key
-// tiles as f32 (rows padded by one against bank conflicts), both products
-// as f32 FMAs (67 TFLOP/s f32 peak; TF32 would not hold the 1e-4 bar), the
-// bias looked up per score from an f32 factor table. The flash kernel keeps
+// K5 in bf16: window_relpos_tc_kernel, the same tensor-core tile over G
+// windows, one (wh, ww) grid each: a window's online softmax over its few
+// key tiles equals its plain softmax up to rounding, and the bf16 error
+// bound the port holds K4 to (kernels/flash_attention.bf16_error_bound)
+// covers both. What bounds it is bytes (SAM ViT-H at B = 4, (1600, 196,
+// 80): 218 MB against 2.0e10 operations). The design:
+// * WindowBias (attention_tc.cuh) maps each lane's 16 key columns of a
+//   tile to (ky, kx) once per tile, shared by its rows and both m16 tiles;
+//   with an even ww (SAM's 14) a lane's column pair shares one bias_h read
+//   and one 4-byte bias_w read. No divide and no branch per score.
+// * S = 196 is three whole key tiles and one of 4 keys: the last runs one
+//   k16 step of four in Q K^T and in P V (key_tile's NK = 1 instance). The
+//   196 rows are two 128-row items; in the second, the last warp (rows 224
+//   on) skips its tiles and the third computes one m16 tile past S, so 224
+//   rows of 256 reach the tensor cores: skipping single m16 tiles by
+//   branches inside the products, tried first, cost more than the work.
+// * Persistent blocks, two per SM, each walking items b, b + grid, ...: the
+//   two row blocks of a window are neighbours and run side by side, so the
+//   second reads the window's K and V from L2; and at an item's last key
+//   tile the block already loads the next item's Q, factor table and first
+//   K/V tile (Q and the table double-buffered), so a 4-tile window does not
+//   wait on its own prologue. This item loop drives the tile's cp.async ring
+//   itself, beside attend_block, which K2/K3 and K4 keep: their items are
+//   15-64 key tiles long, where one prologue an item weighs little, and
+//   the second Q buffer and table would take the shared memory that lets
+//   K4 keep two blocks on an SM. A change to the ring's protocol (slots,
+//   waits, barriers) is made in both.
+// * Shared memory: 2 Q buffers and the K/V ring, 90 112 B, and 2 factor
+//   tables with the least conflict-free stride (40 elements for a 14 x 14
+//   window), 20 480 B: 110 592 B a block. 255 registers a thread, no
+//   spills (ptxas, DP = 80, even ww): two blocks per SM.
+//
+// f32 inputs (the CPU-parity runs), and K5 in bf16 off the tile's
+// alignment: one block of 256 threads per (bh or window, 64-query tile);
+// K and V go through shared memory in 64-key tiles as f32 (rows padded by
+// one against bank conflicts), both products as f32 FMAs (67 TFLOP/s f32
+// peak; TF32 would not hold the 1e-4 bar), the bias looked up per score
+// from an f32 factor table. The flash kernel keeps
 // each row's running max and denominator in registers (K2's scheme,
 // csrc/flash_attention.cu); the window kernel keeps the whole (64, S) score
 // tile of its window in shared memory and normalises it in one pass. Ragged
@@ -57,6 +90,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 #include "attention_tc.cuh"
 
@@ -334,7 +369,11 @@ using bff_tc::allow_smem;
 constexpr int kTcWarps = 4, kTcMT = 2;  // 4 warps x 2 m16 tiles: a 128-query tile
 constexpr int kTcRows = 16 * kTcWarps * kTcMT;
 
-template <int DP, bool kGridRows>
+// The bias modifier: kw % 64 == 0 (SAM's global grid) takes GridRowBias,
+// other grids and K5's windows WindowBias, by pairs where kw is even.
+enum BiasKind { kGridRows, kPairs, kSingles };
+
+template <int DP, int kBias>
 __global__ void __launch_bounds__(32 * kTcWarps) flash_relpos_tc_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ bh,
@@ -350,28 +389,28 @@ __global__ void __launch_bounds__(32 * kTcWarps) flash_relpos_tc_kernel(
       table, bh + (long long)blockIdx.y * S * kh, bw + (long long)blockIdx.y * S * kw, q0, S, kh,
       kw);
   const int n_tiles = (S + bff_tc::kBK - 1) / bff_tc::kBK;
-  if constexpr (kGridRows) {
+  if constexpr (kBias == kGridRows) {
     const bff_tc::GridRowBias mod{table, kh, kw};
     bff_tc::attend_block<DP, kTcWarps, kTcMT>(q + base, k + base, v + base, o + base, q0, S, D,
                                               n_tiles, scale, mod, smem);
   } else {
-    const bff_tc::FactorBias mod{table, kh, kw, S};
+    const bff_tc::WindowBias<kBias == kPairs> mod{table, kh, kw, S};
     bff_tc::attend_block<DP, kTcWarps, kTcMT>(q + base, k + base, v + base, o + base, q0, S, D,
                                               n_tiles, scale, mod, smem);
   }
 }
 
-template <int DP, bool kGridRows>
+template <int DP, int kBias>
 int launch_flash_tc(const void* q, const void* k, const void* v, const void* bh, const void* bw,
                     void* o, int BH, int S, int D, int kh, int kw, float scale,
                     cudaStream_t stream) {
   static int configured = 48 * 1024;
   const int bytes = bff_tc::smem_bytes<DP, kTcRows>() +
                     kTcRows * bff_tc::table_ld(kh, kw) * (int)sizeof(__nv_bfloat16);
-  cudaError_t err = allow_smem(flash_relpos_tc_kernel<DP, kGridRows>, bytes, &configured);
+  cudaError_t err = allow_smem(flash_relpos_tc_kernel<DP, kBias>, bytes, &configured);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((S + kTcRows - 1) / kTcRows, BH);
-  flash_relpos_tc_kernel<DP, kGridRows><<<grid, 32 * kTcWarps, bytes, stream>>>(
+  flash_relpos_tc_kernel<DP, kBias><<<grid, 32 * kTcWarps, bytes, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(bh),
       static_cast<const __nv_bfloat16*>(bw), static_cast<__nv_bfloat16*>(o), S, D, kh, kw, scale);
@@ -384,8 +423,113 @@ int launch_flash_tc_grid(const void* q, const void* k, const void* v, const void
                          const void* bw, void* o, int BH, int S, int D, int kh, int kw,
                          float scale, cudaStream_t stream) {
   if (kw % bff_tc::kBK == 0)
-    return launch_flash_tc<DP, true>(q, k, v, bh, bw, o, BH, S, D, kh, kw, scale, stream);
-  return launch_flash_tc<DP, false>(q, k, v, bh, bw, o, BH, S, D, kh, kw, scale, stream);
+    return launch_flash_tc<DP, kGridRows>(q, k, v, bh, bw, o, BH, S, D, kh, kw, scale, stream);
+  if (kw % 2 == 0)
+    return launch_flash_tc<DP, kPairs>(q, k, v, bh, bw, o, BH, S, D, kh, kw, scale, stream);
+  return launch_flash_tc<DP, kSingles>(q, k, v, bh, bw, o, BH, S, D, kh, kw, scale, stream);
+}
+
+// ------------------------------------------------------ K5: tensor cores
+template <int DP>
+constexpr int window_tc_smem_bytes(int table_elems) {
+  return (2 * kTcRows + 4 * bff_tc::kBK) * (DP + 8) * (int)sizeof(__nv_bfloat16) +
+         2 * table_elems * (int)sizeof(__nv_bfloat16);
+}
+
+template <int DP, bool kPairsW>
+__global__ void __launch_bounds__(32 * kTcWarps) window_relpos_tc_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ bh,
+    const __nv_bfloat16* __restrict__ bw, __nv_bfloat16* __restrict__ o, int G, int S, int D,
+    int wh, int ww, float scale) {
+  constexpr int LD = DP + 8, kQ = kTcRows * LD, kKV = bff_tc::kBK * LD;
+  constexpr int kThreads = 32 * kTcWarps, kBK = bff_tc::kBK;
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(tc_smem);  // 2 Q buffers
+  __nv_bfloat16* sK = sQ + 2 * kQ;                                 // K ring of 2
+  __nv_bfloat16* sV = sK + 2 * kKV;                                // V ring of 2
+  __nv_bfloat16* sT = sV + 2 * kKV;                                // 2 factor tables
+  const int tsz = kTcRows * bff_tc::table_ld(wh, ww);
+  const int n_rb = (S + kTcRows - 1) / kTcRows, n_items = G * n_rb;
+  const int n_tiles = (S + kBK - 1) / kBK;
+  const int wrow = (threadIdx.x / 32) * 16 * kTcMT;
+  const long long SD = (long long)S * D;
+
+  // item i's Q rows and factor table into buffer b, and its K/V tile 0
+  // into ring slot ``slot``
+  auto issue_item = [&](int i, int b, int slot) {
+    const int g = i / n_rb, q0 = (i % n_rb) * kTcRows;
+    bff_tc::load_tile<DP, kTcRows, kThreads>(sQ + b * kQ, q + g * SD, q0, S, D);
+    bff_tc::load_factor_table<kTcRows, kThreads>(sT + b * tsz, bh + (long long)g * S * wh,
+                                                 bw + (long long)g * S * ww, q0, S, wh, ww);
+    bff_tc::load_tile<DP, kBK, kThreads>(sK + slot * kKV, k + g * SD, 0, S, D);
+    bff_tc::load_tile<DP, kBK, kThreads>(sV + slot * kKV, v + g * SD, 0, S, D);
+  };
+
+  int i = blockIdx.x;
+  if (i >= n_items) return;
+  issue_item(i, 0, 0);
+  bff_tc::cp_async_commit();
+  int u = 0;  // key tiles done by the block: ring slot u & 1
+  for (int b = 0; i < n_items; i += gridDim.x, b ^= 1) {
+    const int g = i / n_rb, q0 = (i % n_rb) * kTcRows, nxt = i + gridDim.x;
+    const bff_tc::WindowBias<kPairsW> mod{sT + b * tsz, wh, ww, S};
+    const __nv_bfloat16* sQw = sQ + b * kQ + wrow * LD;
+    float acc[kTcMT][DP / 8][4];
+    float m[kTcMT][2], l[kTcMT][2];
+    bff_tc::init_rows<DP, kTcMT>(acc, m, l);
+    for (int t = 0; t < n_tiles; ++t, ++u) {
+      bff_tc::cp_async_wait<0>();
+      __syncthreads();  // tile t landed; every warp is past the step before
+      const int slot = (u + 1) & 1;
+      if (t + 1 < n_tiles) {
+        bff_tc::load_tile<DP, kBK, kThreads>(sK + slot * kKV, k + g * SD, (t + 1) * kBK, S, D);
+        bff_tc::load_tile<DP, kBK, kThreads>(sV + slot * kKV, v + g * SD, (t + 1) * kBK, S, D);
+      } else if (nxt < n_items) {
+        issue_item(nxt, b ^ 1, slot);
+      }
+      bff_tc::cp_async_commit();
+      const __nv_bfloat16* kt = sK + (u & 1) * kKV;
+      const __nv_bfloat16* vt = sV + (u & 1) * kKV;
+      if (q0 + wrow < S)  // a warp whose rows all lie past S computes nothing
+        bff_tc::key_tile<DP, kTcMT>(acc, m, l, sQw, kt, vt, t * kBK, S - t * kBK, wrow, scale,
+                                    mod);
+    }
+    bff_tc::store_rows<DP, kTcMT>(acc, l, o + g * SD, q0 + wrow, S, D);
+  }
+}
+
+template <int DP, bool kPairsW>
+int launch_window_tc_kind(const void* q, const void* k, const void* v, const void* bh,
+                          const void* bw, void* o, int G, int S, int D, int wh, int ww,
+                          float scale, cudaStream_t stream) {
+  static int configured = 48 * 1024, sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  const int bytes = window_tc_smem_bytes<DP>(kTcRows * bff_tc::table_ld(wh, ww));
+  cudaError_t err = allow_smem(window_relpos_tc_kernel<DP, kPairsW>, bytes, &configured);
+  if (err != cudaSuccess) return (int)err;
+  const int items = G * ((S + kTcRows - 1) / kTcRows);
+  window_relpos_tc_kernel<DP, kPairsW><<<std::min(items, 2 * sms), 32 * kTcWarps, bytes, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(bh),
+      static_cast<const __nv_bfloat16*>(bw), static_cast<__nv_bfloat16*>(o), G, S, D, wh, ww,
+      scale);
+  return (int)cudaGetLastError();
+}
+
+// bf16 only; the type parameter fits BFF_BY_HEAD_DIM's shape. Two blocks
+// per SM, each walking its share of the items.
+template <typename, int DP>
+int launch_window_tc(const void* q, const void* k, const void* v, const void* bh, const void* bw,
+                     void* o, int G, int S, int D, int wh, int ww, float scale,
+                     cudaStream_t stream) {
+  if (ww % 2 == 0)
+    return launch_window_tc_kind<DP, true>(q, k, v, bh, bw, o, G, S, D, wh, ww, scale, stream);
+  return launch_window_tc_kind<DP, false>(q, k, v, bh, bw, o, G, S, D, wh, ww, scale, stream);
 }
 
 template <typename T, int DP>
@@ -465,6 +609,9 @@ extern "C" int bff_window_attention_relpos(int dtype, const void* q, const void*
   if (dtype == 0)
     return BFF_BY_HEAD_DIM(launch_window, float, q, k, v, bias_h, bias_w, o, G, S, D, wh, ww,
                            scale, s);
+  if (dtype == 1 && bff_tc::tile_takes(D, q, k, v, o))
+    return BFF_BY_HEAD_DIM(launch_window_tc, __nv_bfloat16, q, k, v, bias_h, bias_w, o, G, S, D,
+                           wh, ww, scale, s);
   if (dtype == 1)
     return BFF_BY_HEAD_DIM(launch_window, __nv_bfloat16, q, k, v, bias_h, bias_w, o, G, S, D,
                            wh, ww, scale, s);

@@ -4,8 +4,9 @@ version.
 Port of beyondff_tpu/kernels/mask_iou.py (``pairwise_iou_pallas`` and
 ``pad_and_iou``). (Ia, N) x (Ib, N) ``torch.bool`` masks -> (Ia, Ib) float32
 ``inter / (area_a + area_b - inter)``, 0/0 = nan. The CUDA kernel
-(``csrc/mask_iou.cu``) reads the bool bytes as they are, with ragged Ia, Ib
-and N; counts are exact integers, so kernel, plain version and the JAX
+(``csrc/mask_iou.cu``) counts intersections on the int8 tensor cores from
+the bool bytes as they are, with ragged Ia, Ib and N and rows at any
+address; counts are exact integers, so kernel, plain version and the JAX
 package agree bit for bit. The wrapper launches the kernel for CUDA tensors
 and raises on what it does not take; CPU tensors take
 :func:`pairwise_iou_plain`.

@@ -2,10 +2,14 @@
 Hopper kernel and its plain version.
 
 Port of beyondff_tpu/kernels/window_attention.py ``window_attention_relpos``.
-The CUDA kernel (``csrc/relpos_attention.cu``, beside the global-block
-kernel) computes softmax(Q K^T * d ** -0.5 + bias) V for each of G
+The CUDA kernels (``csrc/relpos_attention.cu``, beside the global-block
+kernel) compute softmax(Q K^T * d ** -0.5 + bias) V for each of G
 independent windows of S = win_h * win_w tokens, bias[q, (ky, kx)] =
-bias_h[q, ky] + bias_w[q, kx], with a plain softmax over the window's keys.
+bias_h[q, ky] + bias_w[q, kx]: bf16 inputs on the tensor-core tile of
+``csrc/attention_tc.cuh`` (an online softmax over the window's few key
+tiles, P rounded to bf16 before P V as the TPU kernel rounds it; within
+``flash_attention.bf16_error_bound``), f32 inputs with a plain softmax on
+f32 FMAs.
 A window's zero-padded tokens (``window_partition``) are real keys; only the
 TPU's lane padding beyond S was masked there. Like the JAX kernel it is not
 wired into the SAM encoder.

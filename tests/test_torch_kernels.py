@@ -190,6 +190,26 @@ def test_relpos_bf16_pallas_within_derived_bound(rng, jx):
     assert _bf16_excess(jax_out, plain, 2.0 ** -7 * plain.float().abs() + 1e-4) > 0.0
 
 
+@pytest.mark.parametrize("g,wh,ww,d", [(4, 14, 14, 80), (3, 5, 7, 16)])
+def test_window_relpos_bf16_pallas_within_derived_bound(rng, jx, g, wh, ww, d):
+    """K5: the JAX ``window_attention_relpos`` in bf16 (interpret mode)
+    rounds its softmax to bf16 before P V, so it lies within the derived
+    bound 2^-8 (|P| @ |V|) + 2^-7 |plain| + 1e-4 of the port's plain
+    version, the bound the card holds the bf16 Hopper kernel to; at SAM
+    ViT-H's 14 x 14 x 80 window and at a ragged 5 x 7 x 16 one."""
+    q, k, v, bias_h, bias_w = _relpos_inputs(rng, g, wh, ww, d, scale=0.5)
+    jb = jx.jnp.bfloat16
+    want = jx.wa.window_attention_relpos(*(jx.jnp.asarray(a, jb) for a in (q, k, v)),
+                                         jx.jnp.asarray(bias_h), jx.jnp.asarray(bias_w), wh, ww,
+                                         interpret=True)
+    jax_out = torch.from_numpy(np.array(want.astype(jx.jnp.float32)))
+    tq, tk, tv = (torch.from_numpy(a).bfloat16() for a in (q, k, v))
+    th, tw = torch.from_numpy(bias_h), torch.from_numpy(bias_w)
+    plain = twa.window_attention_relpos_plain(tq, tk, tv, th, tw, wh, ww)
+    bound = tfa.bf16_error_bound(tq, tk, tv, plain, bias_h=th, bias_w=tw)
+    assert _bf16_excess(jax_out, plain, bound) <= 0.0
+
+
 def test_flash_bf16_pallas_within_derived_bound(rng, jx):
     """K2: the JAX ``attend`` in bf16 (interpret mode; S = 600 padded to
     1024, keys >= 600 masked) within the derived bound of the port's plain
@@ -376,6 +396,24 @@ def test_mask_iou_wrapper_checks_on_cpu():
         tiou.pairwise_iou(a.to("meta"))
 
 
+@pytest.mark.parametrize("name", ["singles", "plain_table", "load_after_mma", "cut128",
+                                  "singles_plain_table"])
+def test_kernel_variant_edits_match_the_sources(name):
+    """Each variant ``tools/kernel_variants.py`` builds is a set of edits
+    that must each match its source once: they go stale with the kernels."""
+    import os
+
+    from beyondff_tpu_torch.kernels import _build
+    from beyondff_tpu_torch.tools import kernel_variants as kv
+
+    sources, edits = kv.VARIANTS[name]
+    assert edits and set(sources) <= {kv.RELPOS, kv.IOU}
+    for fname, old, new in edits:
+        with open(os.path.join(_build.CSRC, fname)) as f:
+            assert f.read().count(old) == 1, (fname, old)
+        assert new != old
+
+
 def test_wrappers_reject_other_devices():
     meta = torch.empty(1, 4, 8, device="meta")
     with pytest.raises(ValueError):
@@ -437,11 +475,15 @@ def test_deform_kernel_matches_plain_on_card(cuda_device, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("ia,ib,n", [(37, 5, 3001), (600, None, 250_000), (20, 150, 250_000),
-                                     (65, 130, 4096), (200, None, 10_007)])
+                                     (65, 130, 4096), (200, None, 10_007), (5, 3, 17),
+                                     (33, None, 31), (17, 15, 4112), (129, 127, 1000),
+                                     (127, None, 4112), (129, None, 250_007)])
 def test_mask_iou_kernel_matches_plain_on_card(cuda_device, ia, ib, n):
     """Bit for bit, nan where the plain version puts it; ``ib`` None is a
     self-IoU. With N not a multiple of 16, rows start off 16-byte
-    boundaries and the kernel cuts them out of aligned loads."""
+    boundaries and the kernel cuts them out of aligned granules; N below
+    32 and N % 32 != 0 leave part of a k32 step, and Ia, Ib of 16 k +- 1
+    part of an m16 tile and of a 128-row block."""
     rng = np.random.default_rng(0)
     a, b = _iou_masks(rng, ia, ib or 8, n)
     ta = torch.from_numpy(a).to(cuda_device)
@@ -455,12 +497,32 @@ def test_mask_iou_kernel_matches_plain_on_card(cuda_device, ia, ib, n):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n", [4099, 4096])
+def test_mask_iou_kernel_self_empty_and_full_rows(cuda_device, n):
+    """A self-IoU takes |a_i| from its diagonal count: an all-empty row is
+    nan against itself and against other empty rows and 0 against the rest;
+    an all-full row's IoU with row j is |a_j| / N."""
+    rng = np.random.default_rng(n)
+    a, _ = _iou_masks(rng, 140, 1, n)
+    a[3] = False
+    a[130] = True
+    ta = torch.from_numpy(a).to(cuda_device)
+    got = tiou.pairwise_iou(ta)
+    want = tiou.pairwise_iou_plain(ta)
+    torch.cuda.synchronize()
+    _assert_bit_equal(got.cpu().numpy(), want.cpu().numpy())
+    assert bool(torch.isnan(got[3, 3])) and float(got[130, 130]) == 1.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [4099, 4096])
 @pytest.mark.parametrize("shift", [1, 3, 8, 13])
-def test_mask_iou_kernel_takes_masks_at_any_address(cuda_device, shift):
+def test_mask_iou_kernel_takes_masks_at_any_address(cuda_device, shift, n):
     """Masks that start ``shift`` bytes into their storage (a contiguous
-    view), so no row lies on a 16-byte boundary of its own."""
+    view), so no row lies on a 16-byte boundary of its own (at N = 4096
+    every row is off by the same ``shift``), self and cross."""
     rng = np.random.default_rng(shift)
-    a, b = _iou_masks(rng, 70, 9, 4099)
+    a, b = _iou_masks(rng, 70, 9, n)
     ta = torch.zeros(shift + a.size, dtype=torch.bool, device=cuda_device)
     ta[shift:] = torch.from_numpy(a.reshape(-1)).to(cuda_device)
     ta = ta[shift:].view(a.shape)
@@ -469,14 +531,6 @@ def test_mask_iou_kernel_takes_masks_at_any_address(cuda_device, shift):
         got = tiou.pairwise_iou(ta, other)
         want = tiou.pairwise_iou_plain(ta, other)
         _assert_bit_equal(got.cpu().numpy(), want.cpu().numpy())
-
-
-def _assert_within_one_rounding(got, want):
-    """f32: within 1e-4. bf16: within one bf16 rounding of the plain value
-    (2 ** -7 of its magnitude), plus the f32 tolerance for values near 0."""
-    diff = (got.float() - want.float()).abs()
-    rel = 0.0 if got.dtype == torch.float32 else 2.0 ** -7
-    assert bool((diff <= rel * want.float().abs() + 1e-4).all()), diff.max().item()
 
 
 @pytest.mark.cuda
@@ -504,8 +558,13 @@ def test_flash_relpos_kernel_matches_plain_on_card(cuda_device, dtype, bh, rows,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("g,wh,ww,d", [(6, 14, 14, 80), (5, 4, 5, 16), (2, 16, 16, 64)])
+@pytest.mark.parametrize("g,wh,ww,d", [(6, 14, 14, 80), (5, 4, 5, 16), (2, 16, 16, 64),
+                                       (64, 14, 14, 80), (3, 5, 7, 16)])
 def test_window_relpos_kernel_matches_plain_on_card(cuda_device, dtype, g, wh, ww, d):
+    """K5 against its plain version: SAM ViT-H's 14 x 14 x 80 window (S =
+    196: a last key tile of 4 keys, m16 tiles past S), odd window widths (no
+    bias_w pairs), a whole 16 x 16 window. f32 within 1e-4; bf16, on the
+    tensor-core tile, within the derived bound."""
     q, k, v, bias_h, bias_w = (torch.from_numpy(a).to(cuda_device) for a in
                                _relpos_inputs(np.random.default_rng(wh), g, wh, ww, d))
     q, k, v = (t.to(dtype) for t in (q, k, v))
@@ -514,4 +573,5 @@ def test_window_relpos_kernel_matches_plain_on_card(cuda_device, dtype, g, wh, w
     want = twa.window_attention_relpos_plain(q, k, v, bias_h, bias_w, wh, ww)
     torch.cuda.synchronize()
     assert dispatch.launch_counts["window_attention_relpos"] == before + 1
-    _assert_within_one_rounding(got, want)
+    _assert_within_bound(got, want, tfa.bf16_error_bound(q, k, v, want, bias_h=bias_h,
+                                                         bias_w=bias_w))
