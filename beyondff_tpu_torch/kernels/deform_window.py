@@ -33,6 +33,9 @@ import torch
 from beyondff_tpu_torch.kernels import dispatch
 
 TILE = 16  # default target-level cells per tile side, as in the JAX package
+# Grounding-DINO's four levels (h, w) at its 800x1072 input (Swin-B): the
+# main path's raster of 17 821 queries
+ENC_SHAPES = ((100, 134), (50, 67), (25, 34), (13, 17))
 
 Mode = Optional[Tuple[int, int]]  # None = exact, (tile, radius) = clamp
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -112,6 +115,63 @@ def window_origins(shapes: Tuple[Tuple[int, int], ...], modes: Tuple[Mode, ...],
         tile, radius = mode
         out[li] = build_assignment(shapes, li, tile).tile_yx() * tile - radius
     return torch.from_numpy(out).to(device)
+
+
+def raster_centers(shapes: Sequence[Tuple[int, int]]) -> np.ndarray:
+    """(Q, 2) float32 (x, y) centres in [0, 1] of the all-level raster's
+    cells, level after level: the encoder's reference points."""
+    cs = []
+    for h, w in shapes:
+        ys = (np.arange(h) + 0.5) / h
+        xs = (np.arange(w) + 0.5) / w
+        cs.append(np.stack(np.meshgrid(xs, ys, indexing="xy"), -1).reshape(-1, 2))
+    return np.concatenate(cs, 0).astype(np.float32)
+
+
+def sample_inputs(rng: np.random.Generator, anchors: np.ndarray, b: int, dtype: torch.dtype,
+                  device, shapes: Sequence[Tuple[int, int]] = ENC_SHAPES, heads: int = 8,
+                  hd: int = 32, p: int = 4):
+    """Inputs of one call at the main path's widths, as the card checks and
+    the A/B tool make them: locations at ``anchors`` ((Q, 2) x, y in [0, 1])
+    plus offsets uniform within 12 cells of each level, every 17th query
+    shifted by 1.5 (off the map at the large levels), and softmax weights
+    over (level, point),
+    all from ``rng``; ``value`` standard normal from torch's generator.
+    Returns (value (b, S, heads, hd), locs (b, Q, heads, L, p, 2) f32,
+    aw (b, Q, heads, L, p)) on ``device``, value and aw in ``dtype``."""
+    s = sum(h * w for h, w in shapes)
+    q, lv = anchors.shape[0], len(shapes)
+    wh = np.array([[w, h] for h, w in shapes], np.float32)
+    off = rng.uniform(-12.0, 12.0, (b, q, heads, lv, p, 2)).astype(np.float32) / wh[:, None, :]
+    locs = anchors[None, :, None, None, None, :] + off
+    locs[:, ::17] += 1.5
+    logits = rng.normal(size=(b, q, heads, lv * p)).astype(np.float32)
+    aw = np.exp(logits) / np.exp(logits).sum(-1, keepdims=True)
+    value = torch.randn(b, s, heads, hd, device=device, dtype=torch.float32).to(dtype)
+    return (value, torch.from_numpy(locs).to(device),
+            torch.from_numpy(aw.reshape(b, q, heads, lv, p)).to(device, dtype))
+
+
+def sample_bytes(value: torch.Tensor, locs: torch.Tensor, aw: torch.Tensor) -> int:
+    """Bytes one call must move: each input read once and the (B, Q, H * D)
+    output, in value's type, written once."""
+    b, q, heads = locs.shape[:3]
+    es = value.element_size()
+    return (value.numel() * es + locs.numel() * locs.element_size() + aw.numel() * es
+            + b * q * heads * value.shape[-1] * es)
+
+
+def level_table(shapes: Tuple[Tuple[int, int], ...], modes: Tuple[Mode, ...]) -> ctypes.Array:
+    """The kernel's per-level rows (h, w, start, w3): ``start`` is the
+    level's first row of ``value``, ``w3`` 0 for an exact level and
+    ``tile + 2 * radius`` for a clamp one."""
+    levels = (ctypes.c_int * (4 * len(shapes)))()
+    start = 0
+    for li, (h, w) in enumerate(shapes):
+        w3 = 0 if modes[li] is None else modes[li][0] + 2 * modes[li][1]
+        levels[4 * li:4 * li + 4] = [h, w, start, w3]
+        start += h * w
+    return levels
 
 
 def _check_modes(shapes, modes, q):
@@ -201,12 +261,7 @@ def ms_deform_sample(value: torch.Tensor, shapes: Sequence[Tuple[int, int]],
     if hd > 128 or n_levels > 8:
         raise ValueError(f"head dim {hd} > 128 or {n_levels} levels > 8")
     modes = _check_modes(shapes, modes or (None,) * n_levels, q)
-    levels = (ctypes.c_int * (4 * n_levels))()
-    start = 0
-    for li, (h, w) in enumerate(shapes):
-        w3 = 0 if modes[li] is None else modes[li][0] + 2 * modes[li][1]
-        levels[4 * li:4 * li + 4] = [h, w, start, w3]
-        start += h * w
+    levels = level_table(shapes, modes)
     origins = (window_origins(shapes, modes, value.device)
                if any(m is not None for m in modes) else None)
     from beyondff_tpu_torch.kernels import _build

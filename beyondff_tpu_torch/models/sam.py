@@ -415,9 +415,12 @@ class SAM:
         embs (B, g, g, d); frame_idx (M,) frame of each box; boxes (M, 4)
         padded-square pixels. Returns (packed uint8 (M, ceil(H*W/8)), iou
         (M,)); unpack with ``np.unpackbits(..., bitorder="little")``. The two
-        upsamples are bilinear with half-pixel centres (the JAX
-        ``jax.image.resize``; its antialias does nothing when upsampling,
-        which this path does for frames at or above the SAM input size)."""
+        resizes are bilinear with half-pixel centres, as the JAX package's
+        ``jax.image.resize(..., "bilinear")``, which antialiases. Antialias
+        changes nothing where a resize grows an axis (the first one always,
+        the second for frames at or above the SAM input size), but where the
+        second shrinks one (a frame's long side below ``img_size``) it widens
+        the triangle filter to the shrink factor, so it is on there."""
         idx = torch.as_tensor(np.asarray(frame_idx, np.int64), device=self.device)
         bx = torch.as_tensor(np.asarray(boxes, np.float32), device=self.device)
         low, iou = self.module.decode_boxes(embs.index_select(0, idx), bx)
@@ -426,7 +429,9 @@ class SAM:
         sq = (embs.shape[1] * self.cfg.patch_size, embs.shape[2] * self.cfg.patch_size)
         x = F.interpolate(low[:, None].float(), size=sq, mode="bilinear", align_corners=False)
         x = x[:, :, :input_hw[0], :input_hw[1]]
-        x = F.interpolate(x, size=(hh, ww), mode="bilinear", align_corners=False)
+        shrinks = hh < x.shape[2] or ww < x.shape[3]
+        x = F.interpolate(x, size=(hh, ww), mode="bilinear", align_corners=False,
+                          antialias=shrinks)
         return pack_bits((x[:, 0] > 0).reshape(-1, hh * ww)), iou
 
 

@@ -10,6 +10,10 @@ Usage:
     with prof.span("scene", frames=len(frame_ids)):
         ...
     print(prof.report())
+
+On the card, ``device_spans`` and ``device_ms`` read the device's own events
+from ``torch.profiler``; the peak rates below give the bounds a kernel's
+time is held against.
 """
 
 from __future__ import annotations
@@ -17,7 +21,13 @@ from __future__ import annotations
 import contextlib
 import time
 from collections import defaultdict
-from typing import Dict, Iterator
+from typing import Callable, Dict, Iterator, List, Tuple
+
+# H100 SXM peaks (data sheet): the memory rate, dense bf16 and f32 (non-tensor)
+# FLOP/s, and dense int8 tensor OP/s
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_INT8_OPS = 1979e12
 
 
 class StageProfiler:
@@ -50,3 +60,43 @@ class StageProfiler:
                     line += f" | {n} {item} ({n / max(self.durations[name], 1e-9):.1f}/s)"
             lines.append(line)
         return "\n".join(lines)
+
+
+def device_spans(fn: Callable[[], object]) -> List[Tuple[float, float, str]]:
+    """Run ``fn`` under ``torch.profiler`` (device activity only), then
+    synchronize; returns the sorted (start us, end us, name) of its device
+    events (kernels, copies, sets)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as p:
+        fn()
+        torch.cuda.synchronize()
+    return sorted((e.time_range.start, e.time_range.end, e.name) for e in p.events()
+                  if e.device_type == DeviceType.CUDA)
+
+
+def device_ms(fn: Callable[[], object], iters: int = 5, windows: int = 3) -> float:
+    """Device time per call of ``fn``: the summed durations of the device
+    events of ``iters`` calls under ``torch.profiler``, over ``iters``, after
+    one call outside it. Unlike CUDA events around a loop it leaves out the
+    host work around each launch, which a kernel of a few microseconds would
+    hide. CUPTI now and then drops events from a window, all of them or a
+    share (one window read 0.214 ms of a 0.280 ms kernel), and never adds
+    any, so the largest of ``windows`` non-empty windows is taken, from at
+    most four times as many tries; raises if every try is empty."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    readings = []
+    for _ in range(4 * windows):
+        spans = device_spans(lambda: [fn() for _ in range(iters)])
+        if spans:
+            readings.append(sum(e - s for s, e, _name in spans) / iters / 1e3)
+            if len(readings) == windows:
+                break
+    if not readings:
+        raise RuntimeError(f"torch.profiler recorded no device activity in {4 * windows} tries")
+    return max(readings)

@@ -71,14 +71,10 @@ import time
 
 import numpy as np
 
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense bf16 tensor; f32 non-tensor
-PEAK_INT8_OPS = 1979e12  # dense int8 tensor
 SEED = 0
 N_FRAMES = 8
 FRAME_BATCH = 4  # detector.frame_batch, the config default
 FRAME_HW = (968, 1296)
-ENC_SHAPES = ((100, 134), (50, 67), (25, 34), (13, 17))  # 800x1072 input, Swin-B
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -108,66 +104,33 @@ def cuda_ms(torch, fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(torch, fn, iters=5):
-    """Device time per call of ``fn``: the summed durations of the device
-    events (kernels, copies, sets) of ``iters`` calls under
-    ``torch.profiler``, over ``iters``, after one call outside it. Unlike
-    ``cuda_ms`` it leaves out the host work around each launch (argument
-    checks, allocation, the ctypes call), which a kernel of a few
-    microseconds would hide. CUPTI now and then hands back an empty trace
-    for a window of a few microseconds: up to three windows are taken, and
-    the run fails if every one is empty."""
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(3):
-        spans = device_spans(torch, lambda: [fn() for _ in range(iters)])
-        if spans:
-            return sum(e - s for s, e, _name in spans) / iters / 1e3
-    check(False, "torch.profiler recorded no device activity in three windows")
-
-
 TC_DESIGN = "bf16 mma.sync m16n8k16 + ldmatrix, cp.async 2-stage ring, S and P in registers"
 FMA_DESIGN = "f32 FMA from shared memory"
 
 
-def raster_centers(shapes):
-    cs = []
-    for h, w in shapes:
-        ys = (np.arange(h) + 0.5) / h
-        xs = (np.arange(w) + 0.5) / w
-        cs.append(np.stack(np.meshgrid(xs, ys, indexing="xy"), -1).reshape(-1, 2))
-    return np.concatenate(cs, 0).astype(np.float32)
+def deform_case(torch, dw, name, q_locs, dtype, modes, dev, rng, b):
+    """One ms_deform_sample comparison + timing at the encoder's levels;
+    q_locs (Q, 2) query anchors, ``b`` frames in the batch (inputs from
+    ``dw.sample_inputs``: offsets within 12 cells, every 17th query shifted
+    off the map)."""
+    from beyondff_tpu_torch.utils.profiling import HBM_BYTES_PER_S, PEAK_FLOPS, device_ms
 
-
-def deform_case(torch, dw, name, shapes, q_locs, dtype, modes, dev, rng, b):
-    """One ms_deform_sample comparison + timing; q_locs (Q, 2) query anchors,
-    ``b`` frames in the batch."""
-    heads, hd, p = 8, 32, 4
-    s = sum(h * w for h, w in shapes)
-    q = q_locs.shape[0]
-    lv = len(shapes)
-    wh = np.array([[w, h] for h, w in shapes], np.float32)
-    off = rng.uniform(-12.0, 12.0, (b, q, heads, lv, p, 2)).astype(np.float32) / wh[:, None, :]
-    locs = q_locs[None, :, None, None, None, :] + off
-    locs[:, ::17] += 1.5  # a share of samples wholly outside the map
-    logits = rng.normal(size=(b, q, heads, lv * p)).astype(np.float32)
-    aw = np.exp(logits) / np.exp(logits).sum(-1, keepdims=True)
-    value = torch.randn(b, s, heads, hd, device=dev, dtype=torch.float32).to(dtype)
-    tl = torch.from_numpy(locs).to(dev)
-    ta = torch.from_numpy(aw.reshape(b, q, heads, lv, p)).to(dev, dtype)
+    shapes = dw.ENC_SHAPES
+    value, tl, ta = dw.sample_inputs(rng, q_locs, b, dtype, dev)
+    q, heads, lv, p = ta.shape[1:]
+    hd = value.shape[-1]
     got = dw.ms_deform_sample(value, shapes, tl, ta, modes)
     want = dw.ms_deform_sample_plain(value, shapes, tl, ta, modes)
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
     tol = 1e-4 if dtype == torch.float32 else 3e-2
-    es = value.element_size()
-    nbytes = value.numel() * es + tl.numel() * 4 + ta.numel() * es + got.numel() * es
+    nbytes = dw.sample_bytes(value, tl, ta)
     flops = b * q * heads * lv * p * 4 * hd * 2  # four corners, one FMA per channel
     dname = str(dtype).split(".")[-1]
     bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     bound_ops = flops / PEAK_FLOPS["float32"] * 1e3  # interpolation runs on the f32 units
     kernel = lambda: dw.ms_deform_sample(value, shapes, tl, ta, modes)
-    dev_ms = device_ms(torch, kernel)
+    dev_ms = device_ms(kernel)
     rec = {
         "case": name, "kernel": "ms_deform_sample", "dtype": dname, "batch": b, "queries": q,
         "max_abs_err": err, "tol": tol,
@@ -178,7 +141,9 @@ def deform_case(torch, dw, name, shapes, q_locs, dtype, modes, dev, rng, b):
         "bound_ms": max(bound_bytes, bound_ops),
         "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
         "library_ms": None,
-        "design": "per-sample bilinear gather with f32 FMAs, all levels in one launch",
+        "design": "bilinear gather, a lane per 16-byte chunk of a head row (4 lanes a bf16 "
+                  "row of 32), a level's 16 corner loads in flight, L and P unrolled, "
+                  "f32 FMAs, all levels in one launch",
     }
     emit(rec)
     check(err <= tol, f"ms_deform_sample {name} {dname}: max abs err {err} > {tol}")
@@ -190,6 +155,8 @@ def flash_case(torch, fa, name, shape, valid_len, dtype, dev):
     ``fa.bf16_error_bound`` (P rounded to bf16 before P V, as the TPU kernel
     does, plus one output rounding); f32 within 1e-4."""
     import torch.nn.functional as F
+
+    from beyondff_tpu_torch.utils.profiling import HBM_BYTES_PER_S, PEAK_FLOPS, device_ms
 
     bh, s, d = shape
     q, k, v = (torch.randn(bh, s, d, device=dev, dtype=torch.float32).to(dtype)
@@ -210,7 +177,7 @@ def flash_case(torch, fa, name, shape, valid_len, dtype, dev):
     q4, k4, v4 = (t.view(1, bh, s, d) for t in (q, k, v))
     kernel = lambda: fa.flash_attention(q, k, v, valid_len=valid_len)
     library = lambda: F.scaled_dot_product_attention(q4, k4, v4)
-    dev_ms = device_ms(torch, kernel)
+    dev_ms = device_ms(kernel)
     rec = {
         "case": name, "kernel": "flash_attention", "dtype": dname, "shape": list(shape),
         "valid_len": valid_len, "max_abs_err": err, "tol": tol, "tol_excess": excess,
@@ -222,7 +189,7 @@ def flash_case(torch, fa, name, shape, valid_len, dtype, dev):
         "bound_ms": max(bound_bytes, bound_ops),
         "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
         "library_ms": cuda_ms(torch, library, 50),
-        "library_device_ms": device_ms(torch, library),
+        "library_device_ms": device_ms(library),
     }
     emit(rec)
     check(err <= tol and excess <= 0.0,
@@ -237,6 +204,8 @@ def relpos_case(torch, fa, wa, sam_mod, name, g, grid, dtype, dev):
     products (``sam._rel_pos_factors``) of rel-pos tables at 0.1 scale, so
     the bias moves the softmax as a trained table does."""
     import torch.nn.functional as F
+
+    from beyondff_tpu_torch.utils.profiling import HBM_BYTES_PER_S, PEAK_FLOPS, device_ms
 
     hh, ww = grid
     s, d = hh * ww, 80
@@ -282,9 +251,9 @@ def relpos_case(torch, fa, wa, sam_mod, name, g, grid, dtype, dev):
     extra = {"design": FMA_DESIGN + (", whole-window softmax" if window else "")}
     if bf16:
         # device time per launch of the kernel and of its yardstick
-        dev_ms = device_ms(torch, kernel)
+        dev_ms = device_ms(kernel)
         extra = {"device_ms": dev_ms, "tflops": flops / dev_ms / 1e9,
-                 "library_device_ms": device_ms(torch, library),
+                 "library_device_ms": device_ms(library),
                  "design": TC_DESIGN + ", 4 warps x 32 rows, " + (
                      "bias_h as a row shift" if ww % 64 == 0 else
                      "key coordinates once per tile, the last tile's k16 steps only")
@@ -299,7 +268,7 @@ def relpos_case(torch, fa, wa, sam_mod, name, g, grid, dtype, dev):
             return torch.softmax(logits.float(), dim=-1).to(dtype) @ v
         extra["dense_path_ms"] = cuda_ms(torch, dense, 5)
         if bf16:
-            extra["dense_path_device_ms"] = device_ms(torch, dense)
+            extra["dense_path_device_ms"] = device_ms(dense)
     del mask
     rec = {"case": name, "kernel": "window_attention_relpos" if window
            else "flash_attention_relpos", "dtype": dname, "shape": [g, s, d],
@@ -694,24 +663,13 @@ def small_reference_3d(torch, mods, Config, work, dev):
           "small 3D scene: the mask-IoU kernel was not launched")
 
 
-def device_spans(torch, fn):
-    """Run ``fn`` under ``torch.profiler`` (device activity only); returns
-    the sorted (start us, end us, name) of its device events."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as p:
-        fn()
-        torch.cuda.synchronize()
-    return sorted((e.time_range.start, e.time_range.end, e.name) for e in p.events()
-                  if e.device_type == DeviceType.CUDA)
-
-
 def device_activity(torch, fn):
     """Run ``fn`` under ``torch.profiler`` (device activity only); returns
     (busy microseconds: the union of kernel, copy and set intervals; number
     of device events; {name: (count, microseconds)})."""
-    spans = device_spans(torch, fn)
+    from beyondff_tpu_torch.utils.profiling import device_spans
+
+    spans = device_spans(fn)
     check(spans, "torch.profiler recorded no device activity")
     busy_us, end = 0.0, float("-inf")
     by_name = {}
@@ -726,6 +684,8 @@ def device_activity(torch, fn):
 def mask_iou_case(torch, kiou, name, ia, ib, n, dev):
     """One mask-IoU comparison and timing at the main path's shapes; ``ib``
     None is a self-IoU. A share of rows is empty (nan against empty rows)."""
+    from beyondff_tpu_torch.utils.profiling import HBM_BYTES_PER_S, PEAK_INT8_OPS, device_ms
+
     g = torch.Generator(device=dev).manual_seed(SEED)
     dens = torch.rand(ia, 1, device=dev, generator=g) * 0.3
     dens[::17] = 0.0
@@ -755,8 +715,8 @@ def mask_iou_case(torch, kiou, name, ia, ib, n, dev):
     bound_ops = ops / PEAK_INT8_OPS * 1e3
     kernel = lambda: kiou.pairwise_iou(a, b)
     library = lambda: torch._int_mm(a8, b8.t())
-    dev_ms = device_ms(torch, kernel)
-    lib_dev_ms = device_ms(torch, library)
+    dev_ms = device_ms(kernel)
+    lib_dev_ms = device_ms(library)
     lib_ops = 2 * a8.shape[0] * b8.shape[0] * a8.shape[1]  # _int_mm counts every pair
     rec = {"case": name, "kernel": "mask_iou", "shape": [ia, ib_n, n], "self": b is None,
            "max_abs_err": err, "bit_equal": bits_eq, "nan_positions_equal": nan_eq,
@@ -1200,7 +1160,7 @@ def main() -> int:
 
     # ---------------------------------------------------------------- 2
     rng = np.random.default_rng(SEED)
-    enc_modes = deformable.level_modes(ENC_SHAPES)
+    enc_modes = deformable.level_modes(dw.ENC_SHAPES)
     dec_anchor = rng.uniform(0.0, 1.0, (900, 2)).astype(np.float32)
     cases = {}
     # one frame, and the main path's batch of FRAME_BATCH frames
@@ -1208,13 +1168,13 @@ def main() -> int:
         for dtype in (torch.bfloat16, torch.float32):
             dname = str(dtype).split(".")[-1]
             cases[("deform_clamp", dname, b)] = deform_case(
-                torch, dw, "encoder_clamp", ENC_SHAPES, raster_centers(ENC_SHAPES), dtype,
+                torch, dw, "encoder_clamp", dw.raster_centers(dw.ENC_SHAPES), dtype,
                 enc_modes, dev, rng, b)
             cases[("deform_exact", dname, b)] = deform_case(
-                torch, dw, "encoder_exact", ENC_SHAPES, raster_centers(ENC_SHAPES), dtype,
+                torch, dw, "encoder_exact", dw.raster_centers(dw.ENC_SHAPES), dtype,
                 (None,) * 4, dev, rng, b)
             cases[("deform_dec", dname, b)] = deform_case(
-                torch, dw, "decoder_exact", ENC_SHAPES, dec_anchor, dtype, (None,) * 4, dev,
+                torch, dw, "decoder_exact", dec_anchor, dtype, (None,) * 4, dev,
                 rng, b)
             cases[("flash_900", dname, b)] = flash_case(torch, fa, "decoder_self_attn",
                                                         (8 * b, 900, 32), 900, dtype, dev)

@@ -323,6 +323,53 @@ def test_build_assignment_matches_jax(jx):
         assert (a.nty, a.ntx, a.s_pad) == (b.nty, b.ntx, b.s_pad)
 
 
+@pytest.mark.parametrize("shapes,tile", [(tdw.ENC_SHAPES, 16), (SHAPES3, 16), (SHAPES4, 8)])
+def test_query_order_is_a_permutation(shapes, tile):
+    """The level-0 tile order the A/B tool's ``tile_order`` variant walks the
+    raster in: every query once, in level-0 tiles, raster order inside a
+    tile."""
+    from beyondff_tpu_torch.tools import kernel_variants as kv
+
+    order = kv.tile_order(shapes, tile, torch.device("cpu")).numpy()
+    q = sum(h * w for h, w in shapes)
+    assert order.dtype == np.int32 and order.shape == (q,)
+    np.testing.assert_array_equal(np.sort(order), np.arange(q))
+    tile_yx = tdw.build_assignment(shapes, 0, tile).tile_yx()[order]
+    tid = tile_yx[:, 0] * 1000 + tile_yx[:, 1]
+    assert np.all(np.diff(tid) >= 0)
+    for t_ in np.unique(tid):
+        assert np.all(np.diff(order[tid == t_]) > 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("decoder", [False, True])
+def test_sample_inputs_and_bytes(dtype, decoder):
+    """The inputs the card checks and the A/B tool share: the main path's
+    widths, weights summing to 1 over (level, point), offsets within 12
+    cells, every 17th query shifted by 1.5 (off the map at the large
+    levels); and the bytes a call moves. Small shapes here."""
+    shapes = SHAPES3
+    rng = np.random.default_rng(7)
+    anchors = (rng.uniform(0.0, 1.0, (40, 2)).astype(np.float32) if decoder
+               else tdw.raster_centers(shapes))
+    value, locs, aw = tdw.sample_inputs(rng, anchors, 2, dtype, "cpu", shapes=shapes, heads=3,
+                                        hd=8, p=4)
+    q, s = anchors.shape[0], sum(h * w for h, w in shapes)
+    assert value.shape == (2, s, 3, 8) and value.dtype == dtype
+    assert locs.shape == (2, q, 3, 3, 4, 2) and locs.dtype == torch.float32
+    assert aw.shape == (2, q, 3, 3, 4) and aw.dtype == dtype
+    np.testing.assert_allclose(aw.float().sum((-2, -1)).numpy(), 1.0, atol=1e-2)
+    wh = torch.tensor([[w, h] for h, w in shapes], dtype=torch.float32).view(1, 1, 1, 3, 1, 2)
+    shift = torch.zeros(1, q, 1, 1, 1, 1)
+    shift[:, ::17] = 1.5
+    off = (locs - torch.from_numpy(anchors).view(1, q, 1, 1, 1, 2) - shift) * wh
+    assert float(off.abs().max()) <= 12.0 + 1e-3 and float(off.abs().max()) > 6.0
+    es = value.element_size()
+    out = tdw.ms_deform_sample(value, shapes, locs, aw)
+    assert tdw.sample_bytes(value, locs, aw) == (value.numel() * es + locs.numel() * 4
+                                                  + aw.numel() * es + out.numel() * es)
+
+
 def test_ms_deform_attn_windowed_matches_jax(rng, jx, monkeypatch):
     """The per-level tile/radius selection: the full windowed call on a
     raster whose largest level exceeds the small-level threshold, JAX
@@ -397,7 +444,9 @@ def test_mask_iou_wrapper_checks_on_cpu():
 
 
 @pytest.mark.parametrize("name", ["singles", "plain_table", "load_after_mma", "cut128",
-                                  "singles_plain_table"])
+                                  "singles_plain_table", "head_run_warp", "head_run_block",
+                                  "tile_order", "min_blocks_2", "min_blocks_4",
+                                  "point_at_a_time", "two_points"])
 def test_kernel_variant_edits_match_the_sources(name):
     """Each variant ``tools/kernel_variants.py`` builds is a set of edits
     that must each match its source once: they go stale with the kernels."""
@@ -407,7 +456,7 @@ def test_kernel_variant_edits_match_the_sources(name):
     from beyondff_tpu_torch.tools import kernel_variants as kv
 
     sources, edits = kv.VARIANTS[name]
-    assert edits and set(sources) <= {kv.RELPOS, kv.IOU}
+    assert edits and set(sources) <= {kv.RELPOS, kv.IOU, kv.MSD}
     for fname, old, new in edits:
         with open(os.path.join(_build.CSRC, fname)) as f:
             assert f.read().count(old) == 1, (fname, old)
@@ -471,6 +520,91 @@ def test_deform_kernel_matches_plain_on_card(cuda_device, dtype):
         want = tdw.ms_deform_sample_plain(tv, SHAPES4, tl, ta, m)
         tol = 1e-4 if dtype == torch.float32 else 3e-2
         assert (got.float() - want.float()).abs().max().item() < tol
+
+
+def _edge_locs(locs, shapes):
+    """Samples on every map edge, half a cell beyond it and wholly outside."""
+    locs[:, ::9, :, :, :, 0] = 0.0                      # left edge
+    locs[:, 1::9, :, :, :, 0] = 1.0                     # right edge
+    locs[:, 2::9, :, :, :, 1] = 0.0                     # top edge
+    locs[:, 3::9, :, :, :, 1] = 1.0                     # bottom edge
+    locs[:, 4::9, :, :, :, 0] = -0.3                    # outside
+    locs[:, 5::9, :, :, :, 1] = 1.7                     # outside
+    for li, (h, w) in enumerate(shapes):
+        locs[:, 6::9, :, li, :, 0] = -0.5 / w           # half a cell outside
+        locs[:, 7::9, :, li, :, 1] = 1.0 + 0.5 / h
+    return locs
+
+
+def _deform_on_card(dev, dtype, shapes, value, locs, aw, shift=0):
+    """The kernel against the plain version in clamp and exact mode; value
+    ``shift`` elements past an aligned address. f32 within 1e-4, bf16 3e-2."""
+    buf = torch.empty(value.size + shift, dtype=dtype, device=dev)
+    tv = buf[shift:].view(value.shape)
+    tv.copy_(torch.from_numpy(value))
+    tl = torch.from_numpy(locs).to(dev)
+    ta = torch.from_numpy(aw).to(dev, dtype)
+    q, raster = locs.shape[1], sum(h * w for h, w in shapes)
+    tol = 1e-4 if dtype == torch.float32 else 3e-2
+    for modes in ((tdeform.level_modes(shapes),) if q == raster else ()) + ((None,) * len(shapes),):
+        before = dispatch.launch_counts["ms_deform_sample"]
+        got = tdw.ms_deform_sample(tv, shapes, tl, ta, modes)
+        assert dispatch.launch_counts["ms_deform_sample"] == before + 1
+        want = tdw.ms_deform_sample_plain(tv, shapes, tl, ta, modes)
+        torch.cuda.synchronize()
+        assert got.shape == want.shape and got.dtype == dtype
+        err = (got.float() - want.float()).abs().max().item()
+        assert err <= tol, (modes, err)
+        assert want.float().abs().max().item() > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shapes,heads,hd,p,q", [
+    (SHAPES3, 2, 16, 4, None),      # the "test" preset: 3 levels, 2 heads of 16
+    (SHAPES4, 8, 8, 4, None), (SHAPES4, 8, 16, 4, None), (SHAPES4, 2, 64, 4, None),
+    (SHAPES4, 2, 128, 4, None),     # head dims 8 to 128 in 16-byte chunks
+    (SHAPES4, 3, 32, 1, None), (SHAPES4, 3, 32, 3, None),   # P 1 and 3: run-time loops
+    (SHAPES3, 3, 32, 4, 37),        # 111 rows: the last warp not filled
+    (SHAPES3, 2, 20, 4, None),      # 40- or 80-byte rows: 8- or 16-byte chunks
+    (SHAPES3, 2, 13, 3, None),      # 26- or 52-byte rows: 2- or 4-byte chunks
+    (((7, 9), (4, 5)), 5, 24, 2, None)])
+def test_deform_kernel_shapes_on_card(cuda_device, dtype, shapes, heads, hd, p, q):
+    """K1 at the test preset's shapes, head dims 8 to 128, P in {1, 3, 4},
+    a ragged last warp and rows that take narrow loads, with samples on
+    every edge of the map and outside it."""
+    rng = np.random.default_rng(hd * 10 + p)
+    value, locs, aw = _deform_inputs(rng, shapes, b=2, heads=heads, hd=hd, p=p, max_off=12.0)
+    if q is not None:
+        locs, aw = locs[:, :q].copy(), aw[:, :q].copy()
+    _deform_on_card(cuda_device, dtype, shapes, value, _edge_locs(locs, shapes), aw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shift", [1, 2, 4])
+def test_deform_kernel_takes_misaligned_values(cuda_device, dtype, shift):
+    """A value tensor off a 16-byte boundary takes the narrow loads."""
+    rng = np.random.default_rng(shift)
+    value, locs, aw = _deform_inputs(rng, SHAPES4, heads=8, hd=32, p=4, max_off=12.0)
+    _deform_on_card(cuda_device, dtype, SHAPES4, value, locs, aw, shift=shift)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_deform_kernel_main_path_shapes_on_card(cuda_device, dtype):
+    """The main path's encoder raster at batch 4 (8 heads of 32, 4 levels,
+    4 points) and 900 decoder queries.
+    The weights sum to 1 over (level, point), as the model's softmax gives
+    them, so outputs stay within a few units where 3e-2 exceeds a bf16
+    rounding step."""
+    rng = np.random.default_rng(4)
+    value, locs, aw = _deform_inputs(rng, tdw.ENC_SHAPES, b=4, heads=8, hd=32, p=4, max_off=12.0)
+    aw /= aw.sum((-2, -1), keepdims=True)
+    locs[:, ::17] += 1.5
+    _deform_on_card(cuda_device, dtype, tdw.ENC_SHAPES, value, locs, aw)
+    dec = rng.uniform(0.0, 1.0, (4, 900, 8, 4, 4, 2)).astype(np.float32)
+    _deform_on_card(cuda_device, dtype, tdw.ENC_SHAPES, value, dec, aw[:, :900].copy())
 
 
 @pytest.mark.cuda

@@ -179,6 +179,32 @@ def test_sam_encode_frames_matches_jax(rng):
     np.testing.assert_allclose(te, je, atol=ATOL, rtol=RTOL)
 
 
+@pytest.mark.parametrize("orig_hw", [(40, 56), (24, 30), (30, 24), (48, 64), (80, 100)],
+                         ids=lambda hw: f"{hw[0]}x{hw[1]}")
+def test_sam_decode_boxes_packed_matches_jax(rng, orig_hw):
+    """The packed masks of a frame batch, bit for bit. A frame whose long
+    side is below ``img_size`` (64) shrinks in the second resize, where
+    ``jax.image.resize`` antialiases; 48x64 keeps its size, 80x100 grows."""
+    jm = jsam.SAM.create("test", seed=5)
+    tm = tsam.SAM(jm.cfg, _loaded("sam", jm))
+    h, w = orig_hw
+    s = jm.cfg.img_size
+    input_hw = (int(h * s / max(h, w) + 0.5), int(w * s / max(h, w) + 0.5))
+    frames = rng.integers(0, 255, (2, *input_hw, 3), dtype=np.uint8)
+    embs = np.asarray(jm.encode_frames(jnp.asarray(frames)))
+    boxes = np.array([[3, 4, 40, 50], [10, 0, 63, 30], [0, 0, 64, 64]], np.float32)
+    jpacked, jiou = jm.decode_boxes_packed(jnp.asarray(embs), np.stack([boxes, boxes[::-1]]),
+                                           input_hw, orig_hw)
+    tpacked, tiou = tm.decode_boxes_packed(torch.from_numpy(embs), [0, 0, 0, 1, 1, 1],
+                                           np.concatenate([boxes, boxes[::-1]]), input_hw,
+                                           orig_hw)
+    jbits = np.unpackbits(np.asarray(jpacked).reshape(6, -1), axis=-1, bitorder="little")
+    tbits = np.unpackbits(tpacked.numpy(), axis=-1, bitorder="little")
+    assert 0 < jbits[:, :h * w].sum() < jbits[:, :h * w].size
+    np.testing.assert_array_equal(tbits, jbits)
+    np.testing.assert_allclose(tiou.numpy(), np.asarray(jiou).reshape(-1), atol=ATOL, rtol=RTOL)
+
+
 def test_clip_image_and_text_features_match_jax(rng):
     jm = jclip.CLIP.create("test", seed=4)
     tm = tclip.CLIP(jm.cfg, _loaded("clip", jm))

@@ -1,10 +1,11 @@
 """The port's 2D stage (beyondff_tpu_torch.pipeline.segmentation_2d) vs the
 JAX package's, plus the host-side pieces the stage carries across.
 
-The slice test runs both packages' ``run()`` on one 4-frame 48x64 scene at
-the ``"test"`` presets with the same weights (JAX parameters carried into
-the port), the JAX side with dense RGB frame uploads (``BFF_SEG2D_YUV=0``),
-and compares the written ``.pth`` records through the JAX package's loader.
+The slice tests run both packages' ``run()`` on one 4-frame scene (48x64,
+and 30x40, below SAM's input size) at the ``"test"`` presets with the same
+weights (JAX parameters carried into the port), the JAX side with dense
+RGB frame uploads (``BFF_SEG2D_YUV=0``), and compare the written ``.pth``
+records through the JAX package's loader.
 """
 
 import ast
@@ -77,18 +78,21 @@ def _iou(a, b):
     return 1.0 if union == 0 else inter / union
 
 
-def test_run_matches_jax_run(tmp_path, monkeypatch, opencv_own_cubic):
+def _run_both(tmp_path, monkeypatch, hw):
+    """Both packages' ``run()`` on one 4-frame scene of ``hw`` frames; the
+    records compared through the JAX package's loader."""
+    h, w = hw
     rng = np.random.default_rng(6)
     scene = tmp_path / "scene0000_00" / "color"
     scene.mkdir(parents=True)
     for i in range(4):
-        cv2.imwrite(str(scene / f"{i}.jpg"), rng.integers(0, 255, (48, 64, 3), dtype=np.uint8))
+        cv2.imwrite(str(scene / f"{i}.jpg"), rng.integers(0, 255, (h, w, 3), dtype=np.uint8))
 
     def cfg_dict(tag):
         return {
             "paths": {"scene_2d_dir": str(tmp_path), "mask_2d_dir": str(tmp_path / f"out_{tag}"),
                       "checkpoint_dir": str(tmp_path / f"ckpt_{tag}")},
-            "frames": {"width_2d": 64, "height_2d": 48, "downsample_ratio": 1},
+            "frames": {"width_2d": w, "height_2d": h, "downsample_ratio": 1},
             "detector": {"box_threshold": -1.0, "must_match_query": False,
                          "similarity_threshold": -10.0, "dtype": "float32",
                          "frame_batch": 2},
@@ -110,8 +114,8 @@ def test_run_matches_jax_run(tmp_path, monkeypatch, opencv_own_cubic):
         assert t["labels"] == j["labels"]
         assert t["confidences"].dtype == np.float32
         np.testing.assert_allclose(t["confidences"], j["confidences"], atol=1e-4, rtol=0)
-    tdec = jrle.decode_frame_masks(trec, image_shape=(48, 64))
-    jdec = jrle.decode_frame_masks(jrec, image_shape=(48, 64))
+    tdec = jrle.decode_frame_masks(trec, image_shape=(h, w))
+    jdec = jrle.decode_frame_masks(jrec, image_shape=(h, w))
     n_masks = 0
     for t, j in zip(tdec, jdec):
         tm, jm = t["segmented_frame_masks"], j["segmented_frame_masks"]
@@ -121,6 +125,17 @@ def test_run_matches_jax_run(tmp_path, monkeypatch, opencv_own_cubic):
             assert _iou(a, b) >= 0.999, f"{flipped} flipped pixels"
             n_masks += 1
     assert n_masks > 0
+
+
+def test_run_matches_jax_run(tmp_path, monkeypatch, opencv_own_cubic):
+    _run_both(tmp_path, monkeypatch, (48, 64))
+
+
+def test_run_matches_jax_run_frames_below_sam_size(tmp_path, monkeypatch, opencv_own_cubic):
+    """Frames whose long side (40) is below SAM's ``img_size`` (64): the
+    masks shrink from SAM's input to the frame, where the JAX package's
+    resize antialiases."""
+    _run_both(tmp_path, monkeypatch, (30, 40))
 
 
 def test_process_frame_host_path_matches_jax(opencv_own_cubic):
