@@ -11,7 +11,7 @@ filter and ``encode_text`` for the query embedding. ViT-L/14 at 224 px runs
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -19,7 +19,9 @@ from torch import nn
 
 from beyondff_tpu_torch.core import resize as _resize
 from beyondff_tpu_torch.kernels.dispatch import resolve_device
+from beyondff_tpu_torch.models.convert_util import load_module, require_file
 from beyondff_tpu_torch.models.layers import TransformerBlock, build, quick_gelu
+from beyondff_tpu_torch.models.tokenizers import ClipTokenizer, HashTokenizer
 
 # image preprocessing constants (reference: segmentation_2d.py:315-322)
 IMAGE_MEAN = np.array([0.48145466, 0.4578275, 0.40821073], np.float32)
@@ -165,3 +167,51 @@ class CLIP:
     def encode_text(self, tokens) -> torch.Tensor:
         t = torch.as_tensor(np.asarray(tokens), dtype=torch.long, device=self.device)
         return self.module.encode_text(t)
+
+
+# the scalars OpenAI's TorchScript archives carry beside the weights
+IGNORED_CHECKPOINT_KEYS = (r"^input_resolution$", r"^context_length$", r"^vocab_size$")
+
+
+def read_checkpoint(path: str) -> Dict[str, torch.Tensor]:
+    """OpenAI CLIP weights: the TorchScript archive (``ViT-L-14.pt``, fp16
+    tensors) or a plain ``torch.save`` file of a state dict or a module."""
+    require_file(path, "CLIP")
+    try:
+        return torch.jit.load(path, map_location="cpu").state_dict()
+    except RuntimeError:
+        sd = torch.load(path, map_location="cpu", weights_only=False)
+        return sd.state_dict() if hasattr(sd, "state_dict") else sd
+
+
+def save_torchscript_archive(state: Dict[str, torch.Tensor], path: str) -> None:
+    """Write ``state`` as a TorchScript archive whose ``state_dict()`` gives
+    it back under the same dotted names: the container format of OpenAI's
+    released ``.pt`` files, for tests and smoke runs that have no download."""
+    root = nn.Module()
+    for key, val in state.items():
+        *path_names, leaf = key.split(".")
+        mod = root
+        for name in path_names:
+            if not hasattr(mod, name):
+                mod.add_module(name, nn.Module())
+            mod = getattr(mod, name)
+        mod.register_buffer(leaf, val)
+    torch.jit.save(torch.jit.script(root), path)
+
+
+def load(model_size: str, checkpoint_path: str, bpe_path: Optional[str] = None,
+         dtype=torch.float32, device=None) -> Tuple[CLIP, object]:
+    """CLIP from an OpenAI checkpoint, and its tokenizer: ``(model,
+    tokenizer)``. fp16 archive tensors widen to float32 and then cast to
+    ``dtype``; the tokenizer is :class:`ClipTokenizer` over ``bpe_path``, or
+    :class:`HashTokenizer` without one (the JAX package's ``clip.load``)."""
+    cfg = PRESETS[model_size]
+    module = load_module(lambda: CLIPModule(cfg), read_checkpoint(checkpoint_path),
+                         IGNORED_CHECKPOINT_KEYS, resolve_device(device), dtype,
+                         context="CLIP checkpoint")
+    if bpe_path:
+        tokenizer = ClipTokenizer(bpe_path, context_length=cfg.context_length)
+    else:
+        tokenizer = HashTokenizer(cfg.vocab_size, cfg.context_length)
+    return CLIP(cfg, module), tokenizer

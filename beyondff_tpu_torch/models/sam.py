@@ -26,6 +26,7 @@ from torch import nn
 from beyondff_tpu_torch.core import resize as _resize
 from beyondff_tpu_torch.kernels import flash_attention as fa
 from beyondff_tpu_torch.kernels.dispatch import resolve_device
+from beyondff_tpu_torch.models.convert_util import load_module, require_file
 from beyondff_tpu_torch.models.layers import (MLP, MLPHead, PatchEmbed, build, conv_nhwc,
                                               gelu_exact, window_partition, window_unpartition)
 
@@ -433,6 +434,26 @@ class SAM:
         x = F.interpolate(x, size=(hh, ww), mode="bilinear", align_corners=False,
                           antialias=shrinks)
         return pack_bits((x[:, 0] > 0).reshape(-1, hh * ww)), iou
+
+
+# checkpoint keys the box-prompted stage has no module for: the mask-prompt
+# downscaling stack (the reference prompts with boxes only,
+# segmentation_2d.py:183-188) and batch-norm counters
+IGNORED_CHECKPOINT_KEYS = (r"^prompt_encoder\.mask_downscaling\.", r"num_batches_tracked$")
+
+
+def load_torch_checkpoint(path: str, cfg: SAMConfig, dtype=torch.float32,
+                          device=None) -> SAMModule:
+    """An official SAM checkpoint (``sam_vit_{b,l,h}_*.pth``, plain or
+    wrapped in ``{"model": ...}`` as EfficientSAM's are) -> :class:`SAMModule`
+    on ``device`` (``cuda`` unless named) in ``dtype``; every key loaded or
+    ignored (:data:`IGNORED_CHECKPOINT_KEYS`), the port's counterpart of
+    the JAX package's ``sam.convert_torch_checkpoint``."""
+    sd = torch.load(require_file(path, "SAM"), map_location="cpu", weights_only=False)
+    if isinstance(sd, dict) and "model" in sd and hasattr(sd["model"], "items"):
+        sd = sd["model"]
+    return load_module(lambda: SAMModule(cfg), sd, IGNORED_CHECKPOINT_KEYS,
+                       resolve_device(device), dtype, context="SAM checkpoint")
 
 
 def pack_bits(flat: torch.Tensor) -> torch.Tensor:

@@ -3,10 +3,12 @@
 Rebuild of the reference generator (reference: tools/descriptor_generator.py):
 the free-text query is expanded into N prompt variants whose CLIP text
 embeddings are averaged for robust box scoring. Methods: ``toy`` (fixed mock
-descriptors) and ``waffle`` (random word pairs + random character pairs from
-the WaffleCLIP word list, the port's own copy of ``waffle_words.json``). The
-port's copy of beyondff_tpu/pipeline/descriptors.py without the ``gpt``
-backends.
+descriptors), ``waffle`` (random word pairs + random character pairs from
+the WaffleCLIP word list, the port's own copy of ``waffle_words.json``),
+``gpt`` (descriptors from an LLM, through an injected ``prompt -> text``
+callable such as :class:`pipeline.llm_client.ChatCompletionClient`) and
+``waffle_and_gpt`` (both). The port's copy of
+beyondff_tpu/pipeline/descriptors.py.
 
 Unlike the reference (bare ``np.random`` calls, descriptor_generator.py:66-105)
 all randomness flows through an explicit seeded generator so evaluation runs
@@ -19,11 +21,11 @@ import functools
 import json
 import os
 import string
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
-METHODS = ("toy", "waffle")
+METHODS = ("toy", "waffle", "gpt", "waffle_and_gpt")
 
 _CHARSET = list(string.ascii_letters + string.digits + string.punctuation)
 
@@ -84,10 +86,31 @@ def waffle_descriptors(
     return {query: [build_prompt(d, query) for d in descriptors]}
 
 
-def generate(query: str, method: str = "waffle", seed: int = 0) -> Dict[str, List[str]]:
+def gpt_descriptors(query: str, llm: Optional[Callable[[str], str]] = None) -> Dict[str, List[str]]:
+    """Visual descriptors from an LLM. ``llm`` maps prompt -> completion text;
+    this build takes it as an injectable instead of a hard OpenAI dependency
+    (reference: descriptor_generator.py:107-130)."""
+    if llm is None:
+        raise ValueError("gpt descriptor method needs an `llm` callable (prompt -> text)")
+    prompt = (
+        f"Q: What are useful visual features for distinguishing a {query} in a photo?\n"
+        f"A: There are several useful visual features to tell there is a {query} in a photo:\n-"
+    )
+    text = llm(prompt)
+    descriptors = [d[2:] for d in text.split("\n") if d.startswith("- ")]
+    return {query: [build_prompt(d, query) for d in descriptors]}
+
+
+def generate(query: str, method: str = "waffle", seed: int = 0,
+             llm: Optional[Callable[[str], str]] = None) -> Dict[str, List[str]]:
     if method == "toy":
         return toy_descriptors(query)
     if method == "waffle":
         return waffle_descriptors(query, seed=seed)
-    raise ValueError(f"unknown descriptor method {method!r}; choose from {METHODS} "
-                     "(the gpt backends are not ported yet)")
+    if method == "gpt":
+        return gpt_descriptors(query, llm)
+    if method == "waffle_and_gpt":
+        out = gpt_descriptors(query, llm)
+        out[query] = out[query] + waffle_descriptors(query, seed=seed)[query]
+        return out
+    raise ValueError(f"unknown descriptor method {method!r}; choose from {METHODS}")

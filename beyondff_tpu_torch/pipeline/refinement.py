@@ -51,7 +51,7 @@ def run(
     ext = cfg.output_format
     query = class_name
     query_underscore = query.replace(" ", "_")
-    sim = sim or build_text_similarity(cfg)
+    sim = sim or build_text_similarity(cfg, device=dev)
     from beyondff_tpu_torch.pipeline.evaluate import class_table
 
     labels_table, _ = class_table(p.dataset)
@@ -118,7 +118,7 @@ def run_multi(
     """
     dev = resolve_device(device)
     p = cfg.paths
-    sim = sim or build_text_similarity(cfg)
+    sim = sim or build_text_similarity(cfg, device=dev)
     from beyondff_tpu_torch.pipeline.evaluate import class_table
 
     labels_table, _ = class_table(p.dataset)

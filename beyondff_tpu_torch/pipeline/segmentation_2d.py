@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import contextlib
 import os
+import time
 from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -38,7 +39,7 @@ from beyondff_tpu_torch.config import Config
 from beyondff_tpu_torch.core import resize as _resize
 from beyondff_tpu_torch.core import rle
 from beyondff_tpu_torch.kernels.dispatch import resolve_device
-from beyondff_tpu_torch.pipeline import descriptors
+from beyondff_tpu_torch.pipeline import descriptors, llm_client
 from beyondff_tpu_torch.utils import io as bio
 from beyondff_tpu_torch.utils.checkpoint import SceneCheckpoint
 from beyondff_tpu_torch.utils.profiling import StageProfiler
@@ -62,9 +63,14 @@ def _record(dets, masks) -> Dict:
 class Segmentor2D:
     """Holds the model stack; processes scenes batch by batch.
 
-    Models may be injected (full-width random models in a smoke run);
-    otherwise the ``"test"`` presets are created randomly, as in the JAX
-    package. ``frame_loader(path, size)`` returns a uint8 RGB frame; it
+    Models not injected are loaded from the configured checkpoints
+    (``detector.{gdino,sam,clip}_checkpoint``: Grounding-DINO Swin-B, SAM
+    ViT-H, CLIP at ``detector.clip_model_size``, in ``detector.dtype``), as
+    in the JAX package; with no checkpoint configured the ``"test"``
+    presets are created randomly. A configured file that does not exist
+    raises ``FileNotFoundError`` (the JAX package builds a random SAM
+    instead). ``load_seconds`` holds each loaded model's time from file to
+    device. ``frame_loader(path, size)`` returns a uint8 RGB frame; it
     defaults to :func:`utils.io.load_image` (OpenCV)."""
 
     def __init__(self, cfg: Config, detector=None, sam=None, clip_model=None,
@@ -74,39 +80,73 @@ class Segmentor2D:
         d = cfg.detector
         if d.kind != "grounding_dino":
             raise NotImplementedError(f"detector kind {d.kind!r} is not ported yet")
-        if d.gdino_checkpoint or d.sam_checkpoint or d.clip_checkpoint:
-            raise NotImplementedError("checkpoint loading is not ported yet; inject models "
-                                      "built from state dicts instead")
         injected = next((m for m in (detector, sam, clip_model) if m is not None), None)
         self.device = injected.device if injected is not None and device is None \
             else resolve_device(device)
-        dtype = {"bfloat16": torch.bfloat16, "float32": torch.float32}.get(d.dtype, torch.float32)
+        self.dtype = {"bfloat16": torch.bfloat16, "float32": torch.float32}.get(
+            d.dtype, torch.float32)
+        self.load_seconds: Dict[str, float] = {}
         self.clip = self.clip_tokenizer = None
         if d.filter_with_clip:
             if clip_model is not None:
                 self.clip, self.clip_tokenizer = clip_model, clip_tokenizer
             else:
-                from beyondff_tpu_torch.models import clip as clip_mod
-
-                self.clip = clip_mod.CLIP.create("test", dtype=dtype, device=self.device)
+                self.clip, self.clip_tokenizer = self._load_clip()
             if self.clip_tokenizer is None:
                 from beyondff_tpu_torch.models.tokenizers import HashTokenizer
 
                 self.clip_tokenizer = HashTokenizer(self.clip.cfg.vocab_size,
                                                     self.clip.cfg.context_length)
-        if detector is None:
-            from beyondff_tpu_torch.models.gdino import GroundingDINO
-
-            detector = GroundingDINO.create("test", dtype=dtype, device=self.device)
-        self.detector = detector
-        if sam is None:
-            from beyondff_tpu_torch.models import sam as sam_mod
-
-            sam = sam_mod.SAM.create("test", dtype=dtype, device=self.device)
-        self.sam = sam
+        self.detector = detector if detector is not None else self._load_detector()
+        self.sam = sam if sam is not None else self._load_sam()
         self.frame_loader = frame_loader or bio.load_image
         self.profiler: Optional[StageProfiler] = None
         self._query_embedding_cache: Dict[str, np.ndarray] = {}
+
+    # ------------------------------------------------------------- loading
+    def _timed(self, name: str, load: Callable):
+        t0 = time.perf_counter()
+        out = load()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.load_seconds[name] = time.perf_counter() - t0
+        return out
+
+    def _load_detector(self):
+        from beyondff_tpu_torch.models.gdino import GroundingDINO
+        from beyondff_tpu_torch.models.gdino import model as gdino_model
+
+        d = self.cfg.detector
+        if not d.gdino_checkpoint:
+            return GroundingDINO.create("test", dtype=self.dtype, device=self.device)
+        from beyondff_tpu_torch.models.gdino import convert
+        from beyondff_tpu_torch.models.tokenizers import BertTokenizer
+
+        cfg = gdino_model.PRESETS["swinb"]
+        module = self._timed("gdino", lambda: convert.load_torch_checkpoint(
+            d.gdino_checkpoint, cfg, self.dtype, self.device))
+        tok = BertTokenizer(d.bert_vocab_path) if d.bert_vocab_path else None
+        return GroundingDINO(cfg, module, tok)
+
+    def _load_sam(self):
+        from beyondff_tpu_torch.models import sam as sam_mod
+
+        d = self.cfg.detector
+        if not d.sam_checkpoint:
+            return sam_mod.SAM.create("test", dtype=self.dtype, device=self.device)
+        cfg = sam_mod.PRESETS["vit_h"]
+        return sam_mod.SAM(cfg, self._timed("sam", lambda: sam_mod.load_torch_checkpoint(
+            d.sam_checkpoint, cfg, self.dtype, self.device)))
+
+    def _load_clip(self):
+        from beyondff_tpu_torch.models import clip as clip_mod
+
+        d = self.cfg.detector
+        if not d.clip_checkpoint:
+            return clip_mod.CLIP.create("test", dtype=self.dtype, device=self.device), None
+        return self._timed("clip", lambda: clip_mod.load(
+            d.clip_model_size, d.clip_checkpoint, bpe_path=d.clip_bpe_path or None,
+            dtype=self.dtype, device=self.device))
 
     def _span(self, name: str, **items):
         """A profiler span when a profiler is attached; device work queued
@@ -131,9 +171,8 @@ class Segmentor2D:
         if query in self._query_embedding_cache:
             return self._query_embedding_cache[query]
         method = self.cfg.detector.descriptor_generator
-        if "gpt" in method:
-            raise NotImplementedError("the gpt descriptor backend is not ported yet")
-        variants = descriptors.generate(query, method, seed=self.cfg.seed)[query]
+        llm = llm_client.from_config(self.cfg.detector) if "gpt" in method else None
+        variants = descriptors.generate(query, method, seed=self.cfg.seed, llm=llm)[query]
         feats = self.clip.encode_text(self.clip_tokenizer(variants)).float().cpu().numpy()
         feats /= np.linalg.norm(feats, axis=-1, keepdims=True)
         mean = feats.mean(axis=0)

@@ -54,15 +54,18 @@ class ClipTextSimilarity:
         return float(np.dot(self._encode(text_a), self._encode(text_b)))
 
 
-def build_text_similarity(cfg: Config) -> TextSimilarity:
-    """Exact match when no CLIP checkpoint is configured. A configured
-    checkpoint raises: the port cannot load one yet (ROADMAP Queue A, item 2,
-    checkpoint loading), and exact match in its place would change the
-    refinement's keep/drop decisions. Pass a :class:`ClipTextSimilarity` over
-    a CLIP model built in code instead."""
+def build_text_similarity(cfg: Config, device=None) -> TextSimilarity:
+    """CLIP over ``detector.clip_checkpoint`` (float32, on ``device``:
+    ``cuda`` unless named) when one is configured, exact match otherwise
+    (the JAX package's ``build_text_similarity``)."""
     if cfg.detector.clip_checkpoint:
-        raise NotImplementedError(
-            f"detector.clip_checkpoint={cfg.detector.clip_checkpoint!r}: loading CLIP from a "
-            "checkpoint is not ported yet (ROADMAP.md Queue A, item 2); pass "
-            "sim=ClipTextSimilarity(model, tokenizer) to refinement.run instead")
+        from beyondff_tpu_torch.models import clip as clip_mod
+
+        model, tokenizer = clip_mod.load(
+            cfg.detector.clip_model_size,
+            cfg.detector.clip_checkpoint,
+            bpe_path=cfg.detector.clip_bpe_path or None,
+            device=device,
+        )
+        return ClipTextSimilarity(model, tokenizer)
     return ExactMatchSimilarity()

@@ -4,8 +4,8 @@
 
 Phases (each one's failure ends the run with a non-zero exit):
 
-1. build the CUDA kernels from ``beyondff_tpu_torch/csrc`` (nvcc, sm_90a)
-   and print the card's name and power limit;
+1. read the card's name and power limit (``nvidia-smi``) and build the
+   CUDA kernels from ``beyondff_tpu_torch/csrc`` (nvcc, sm_90a);
 2. hold each kernel against its plain PyTorch version at the main path's
    shapes (the 800x1072 Grounding-DINO encoder raster and the 900-query
    decoder, for one frame and for the main path's batch of 4), in bf16 and
@@ -20,13 +20,21 @@ Phases (each one's failure ends the run with a non-zero exit):
    every record names its kernel's ``design``;
 3. check the port on a small input against its own plain CPU path (the path
    the CPU tests hold against the JAX package);
-4. drive the 2D stage's ``run()`` at full width — Grounding-DINO Swin-B,
-   CLIP ViT-L/14, SAM ViT-H in bf16 with seeded random weights — on one
-   8-frame 968x1296 scene, with launch counts reset just before it; reload
-   and check the written ``.pth``;
+4. write Grounding-DINO Swin-B, CLIP ViT-L/14 and SAM ViT-H (seeded
+   random weights, built in bf16) to their official checkpoint layouts in a
+   temporary directory (``{"model": {"module." + key}}`` f32 with the
+   ignored extra keys, a plain f32 dict with the mask-prompt stack, an fp16
+   TorchScript archive with OpenAI's scalars), plus a BERT ``vocab.txt``
+   and a CLIP merges file; build ``Segmentor2D(cfg)`` from those paths with
+   no model injected, check every loaded tensor against the written one
+   after the same cast, bit for bit, and print each model's load seconds,
+   the GB read and the peak device memory during the load; then drive the
+   2D stage's ``run()`` on the loaded models, in bf16, on one 8-frame
+   968x1296 scene, with launch counts reset just before it; reload and
+   check the written ``.pth``;
 5. run the scene once more under ``torch.profiler`` for the device's busy
    share and the kernels that take its time;
-6. drive the class sweep at full width with the phase-4 models:
+6. drive the class sweep at full width with the phase-4 (loaded) models:
    ``SweepRunner.run(amortize_segmentation=True)`` over three classes of a
    ray-cast scene (50 000 points, 16 frames at 968x1296, 640x480 depth),
    fused captions, ``BFF_SAM_RELPOS_FLASH=1``, after three timed 2D passes
@@ -37,7 +45,8 @@ Phases (each one's failure ends the run with a non-zero exit):
 7. drive the 3D half — ``projection.run`` -> ``refinement.run`` ->
    ``evaluate.run`` — at full width for one (class, scene): 250 000 points,
    300 frames with 640x480 depth, 600 lifted 968x1296 masks, 150 stage-1
-   masks, CLIP ViT-L/14 text similarity; the scene is ray-cast from a seed
+   masks, CLIP ViT-L/14 text similarity from ``build_text_similarity``
+   over phase 4's archive; the scene is ray-cast from a seed
    (a room with twelve boxes, four of the query class) and written to disk
    before the timed run. Launch counts are set to 0 before each stage and
    read after it; the outputs are reloaded and checked, and the projection
@@ -56,7 +65,8 @@ on a small scene on the card and on the CPU and requires equal outputs and
 an equal AP row, and the class sweep at the "test" presets on both, with
 equal 3D outputs and results rows.
 
-The last two lines are the kernel table and ``{"ok": true, "device": ...}``;
+The last three lines are the card's name and power limit, the kernel table
+and ``{"ok": true, "device": ...}``;
 every JSON line also goes to ``chiprun_out/chip_smoke.json``. Exits non-zero
 without a result when no CUDA device is present.
 """
@@ -337,7 +347,7 @@ def make_scene(root, scene_id, n):
         open(os.path.join(color, f"{i}.jpg"), "wb").close()
 
 
-def stage_config(Config, work, tag, hw, frame_batch, dtype):
+def stage_config(Config, work, tag, hw, frame_batch, dtype, detector=None):
     return Config.from_dict({
         "paths": {"scene_2d_dir": os.path.join(work, "scenes"),
                   "mask_2d_dir": os.path.join(work, f"masks_{tag}"),
@@ -345,7 +355,7 @@ def stage_config(Config, work, tag, hw, frame_batch, dtype):
         "frames": {"height_2d": hw[0], "width_2d": hw[1], "downsample_ratio": 1},
         "detector": {"box_threshold": 0.0, "must_match_query": False,
                      "similarity_threshold": -1.0, "frame_batch": frame_batch,
-                     "dtype": dtype},
+                     "dtype": dtype, **(detector or {})},
     })
 
 
@@ -404,6 +414,137 @@ def profile_scene(torch, seg2d, seg, cfg, scene, timed_scene_s):
           "device_busy_share": busy_us / 1e6 / scene_s, "device_events": events,
           "top_device_ms": [[name[:120], n, us / 1e3] for name, (n, us) in top],
           "port_kernels_ms": {name[:120]: [n, us / 1e3] for name, (n, us) in ours.items()}})
+
+
+
+# ------------------------------------------------------- official checkpoints
+VOCAB_WORDS = ("a", "photo", "of", "which", "has", "is", "clothes", "chair", "table")
+
+
+def write_vocabularies(root):
+    """A BERT ``vocab.txt`` and a CLIP merges file that cover the queries and
+    the descriptor sentences: whole words, single characters and, for BERT,
+    ``##`` continuations and ``[UNK]`` for the rest. CLIP's byte-level BPE
+    spells any other word out in bytes; both keep their ids far below the
+    full-width vocabularies (30 522 and 49 408)."""
+    letters = "abcdefghijklmnopqrstuvwxyz"
+    bert = os.path.join(root, "vocab.txt")
+    with open(bert, "w") as f:
+        f.write("\n".join(["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]", *VOCAB_WORDS,
+                           *".,!?'-", *letters, *("##" + c for c in letters)]) + "\n")
+    merges = []
+    for w in VOCAB_WORDS:
+        syms = list(w[:-1]) + [w[-1] + "</w>"]
+        for i in range(1, len(syms)):
+            merges.append(f"{''.join(syms[:i])} {syms[i]}")
+    bpe = os.path.join(root, "merges.txt")
+    with open(bpe, "w") as f:
+        f.write("#version: 0.2\n" + "\n".join(dict.fromkeys(merges)) + "\n")
+    return bert, bpe
+
+
+def write_checkpoints(torch, clip_mod, root, models):
+    """The phase-4 models in the official file layouts, with the keys the
+    loaders ignore: Grounding-DINO Swin-B as ``{"model": {"module." + key:
+    f32}}`` plus the BERT pooler, the duplicate ``bbox_embed`` heads and
+    ``position_ids``; SAM ViT-H as a plain f32 dict plus the mask-prompt
+    stack; CLIP ViT-L/14 as an fp16 TorchScript archive with OpenAI's three
+    scalars. Returns the paths and the state dicts as written (host)."""
+    det, clip, sam = models
+    g = torch.Generator().manual_seed(SEED)
+    paths, written = {}, {}
+
+    sd = {k: v.float().cpu() for k, v in det.module.state_dict().items()}
+    extra = {"bert.pooler.dense.weight": torch.randn(768, 768, generator=g),
+             "bert.pooler.dense.bias": torch.randn(768, generator=g),
+             "bert.embeddings.position_ids": torch.arange(512)[None]}
+    head = {k[len("bbox_embed.0."):]: v for k, v in sd.items() if k.startswith("bbox_embed.0.")}
+    for i in range(det.cfg.dec_layers):
+        for k, v in head.items():
+            if i:
+                extra[f"bbox_embed.{i}.{k}"] = v.clone()
+            extra[f"transformer.decoder.bbox_embed.{i}.{k}"] = v.clone()
+    paths["gdino"] = os.path.join(root, "groundingdino_swinb_cogcoor.pth")
+    torch.save({"model": {"module." + k: v for k, v in {**sd, **extra}.items()}},
+               paths["gdino"])
+    written["gdino"] = sd
+
+    sd = {k: v.float().cpu() for k, v in sam.module.state_dict().items()}
+    extra = {"prompt_encoder.mask_downscaling.0.weight": torch.randn(4, 1, 2, 2, generator=g),
+             "prompt_encoder.mask_downscaling.0.bias": torch.randn(4, generator=g),
+             "prompt_encoder.mask_downscaling.1.weight": torch.ones(4),
+             "prompt_encoder.mask_downscaling.1.bias": torch.zeros(4),
+             "prompt_encoder.mask_downscaling.3.weight": torch.randn(16, 4, 2, 2, generator=g),
+             "prompt_encoder.mask_downscaling.3.bias": torch.randn(16, generator=g),
+             "prompt_encoder.mask_downscaling.4.weight": torch.ones(16),
+             "prompt_encoder.mask_downscaling.4.bias": torch.zeros(16),
+             "prompt_encoder.mask_downscaling.6.weight": torch.randn(256, 16, 1, 1, generator=g),
+             "prompt_encoder.mask_downscaling.6.bias": torch.randn(256, generator=g)}
+    paths["sam"] = os.path.join(root, "sam_vit_h_4b8939.pth")
+    torch.save({**sd, **extra}, paths["sam"])
+    written["sam"] = sd
+
+    sd = {k: v.half().cpu() for k, v in clip.module.state_dict().items()}
+    c = clip.cfg
+    extra = {"input_resolution": torch.tensor(c.image_resolution),
+             "context_length": torch.tensor(c.context_length),
+             "vocab_size": torch.tensor(c.vocab_size)}
+    paths["clip"] = os.path.join(root, "ViT-L-14.pt")
+    clip_mod.save_torchscript_archive({**sd, **extra}, paths["clip"])
+    written["clip"] = sd
+    return paths, written
+
+
+def check_loaded(torch, module, written):
+    """Every parameter and buffer of a loaded module equals the written
+    tensor after the same cast (widened to f32, then the module's dtype),
+    bit for bit. Returns the tensors compared."""
+    state = module.state_dict()
+    unwritten = sorted(set(state) - set(written))
+    check(not unwritten, f"loaded keys that were not written: {unwritten[:5]}")
+    for key, t in state.items():
+        ref = written[key].to(t.device).float().to(t.dtype)
+        check(torch.equal(t, ref), f"{key}: the loaded weights differ from the written ones")
+    return len(state)
+
+
+def load_from_checkpoints(torch, mods, Config, work, models):
+    """Phase 4's models through the checkpoint files: written in the official
+    layouts to a temporary directory, loaded by ``Segmentor2D(cfg)`` with no
+    model injected, and checked bit for bit. Returns the segmentor's
+    config, the segmentor, and the directory holding the files."""
+    seg2d, clip_mod = mods
+    root = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    t0 = time.perf_counter()
+    bert_vocab, clip_bpe = write_vocabularies(root)
+    paths, written = write_checkpoints(torch, clip_mod, root, models)
+    emit({"phase": "write_checkpoints", "seconds": time.perf_counter() - t0,
+          "bytes": {k: os.path.getsize(v) for k, v in paths.items()}})
+    cfg = stage_config(Config, work, "full", FRAME_HW, FRAME_BATCH, "bfloat16", {
+        "gdino_checkpoint": paths["gdino"], "sam_checkpoint": paths["sam"],
+        "clip_checkpoint": paths["clip"], "bert_vocab_path": bert_vocab,
+        "clip_bpe_path": clip_bpe})
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    seg = seg2d.Segmentor2D(cfg, frame_loader=synthetic_frame)
+    total_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    resident = torch.cuda.memory_allocated() - base
+    tensors = {name: check_loaded(torch, m.module, written[name])
+               for name, m in (("gdino", seg.detector), ("sam", seg.sam), ("clip", seg.clip))}
+    for name, m in (("gdino", seg.detector), ("sam", seg.sam), ("clip", seg.clip)):
+        check(m.device.type == "cuda" and m.dtype == torch.bfloat16,
+              f"{name} loaded on {m.device} in {m.dtype}")
+    check(type(seg.detector.tokenizer).__name__ == "BertTokenizer"
+          and type(seg.clip_tokenizer).__name__ == "ClipTokenizer", "tokenizers")
+    emit({"phase": "checkpoint_load", "dtype": "bfloat16", "seconds": total_s,
+          "load_seconds": seg.load_seconds,
+          "gb_read": {k: os.path.getsize(v) / 1e9 for k, v in paths.items()},
+          "tensors_checked": tensors, "bit_exact": True,
+          "peak_memory_during_load_bytes": peak, "resident_bytes_after_load": resident})
+    return cfg, seg, root
 
 
 # ------------------------------------------------------------ the 3D half
@@ -740,13 +881,13 @@ def mask_iou_case(torch, kiou, name, ia, ib, n, dev):
     return rec
 
 
-def full_width_3d(torch, mods, Config, work, dev, clip):
+def full_width_3d(torch, mods, Config, work, dev, detector):
     """The 3D half at full width through its entry points, one (class, scene):
     250 000 points, 300 frames (a ScanNet scene's ~3000 at the default
     downsample ratio of 10, run at ratio 1), 640x480 depth PNGs, every 4th
     frame with 8 RLE masks at 968x1296 (600 lifted rows), 150 stage-1
-    masks, text similarity from ``clip``'s ViT-L/14 text tower on the card."""
-    from beyondff_tpu_torch.models.tokenizers import HashTokenizer
+    masks, text similarity from ``build_text_similarity`` over phase 4's
+    CLIP ViT-L/14 archive and merges file (``detector``: their config)."""
     from beyondff_tpu_torch.pipeline import text_sim
     from beyondff_tpu_torch.utils.profiling import StageProfiler
 
@@ -754,9 +895,17 @@ def full_width_3d(torch, mods, Config, work, dev, clip):
     fixture = make_3d_scene(torch, dev, os.path.join(work, "full3d"), "scene0000_00", 250_000,
                             300, 2 * np.pi, FRAME_HW, (480, 640), 4, 8, 150, SEED)
     emit({"phase": "fixture_3d", "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    loaded = text_sim.build_text_similarity(Config.from_dict({"detector": {
+        "clip_checkpoint": detector.clip_checkpoint, "clip_bpe_path": detector.clip_bpe_path}}))
+    torch.cuda.synchronize()
+    check(isinstance(loaded, text_sim.ClipTextSimilarity)
+          and loaded.model.device.type == "cuda", "build_text_similarity did not load CLIP")
+    emit({"phase": "text_similarity_load", "seconds": time.perf_counter() - t0,
+          "dtype": str(loaded.model.dtype), "tokenizer": type(loaded.tokenizer).__name__})
+
     def similarity():  # a fresh per-string cache for each run
-        return text_sim.ClipTextSimilarity(clip, HashTokenizer(clip.cfg.vocab_size,
-                                                               clip.cfg.context_length))
+        return text_sim.ClipTextSimilarity(loaded.model, loaded.tokenizer)
 
     cfg = config_3d(Config, fixture, os.path.join(work, "full3d", "out"))
     torch.cuda.synchronize()
@@ -993,7 +1142,7 @@ def full_width_sweep(torch, mods, Config, work, dev, models):
     ``sam_encode`` span with the flag off, on, on, off. Returns the sweep's
     launch counts."""
     seg2d, sweep, projection, dispatch, io, rle, StageProfiler = mods
-    det, clip, sam = models
+    det, clip, sam, clip_tokenizer = models
     t0 = time.perf_counter()
     root = os.path.join(work, "sweep")
     fixture = make_3d_scene(torch, dev, root, "scene0000_00", SWEEP_POINTS, SWEEP_FRAMES,
@@ -1004,7 +1153,7 @@ def full_width_sweep(torch, mods, Config, work, dev, models):
 
     def segmentor(cfg):
         return seg2d.Segmentor2D(cfg, detector=det, sam=sam, clip_model=clip,
-                                 frame_loader=synthetic_frame)
+                                 clip_tokenizer=clip_tokenizer, frame_loader=synthetic_frame)
 
     def timed(fn):
         prof = StageProfiler("segmentation_2d")
@@ -1150,11 +1299,11 @@ def main() -> int:
     # ---------------------------------------------------------------- 1
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    card = smi.stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
     _build.library()
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "torch": torch.__version__,
-          "cuda": torch.version.cuda, "device": torch.cuda.get_device_name(0)})
+          "cuda": torch.version.cuda, "device": torch.cuda.get_device_name(0), "card": card})
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -1224,9 +1373,13 @@ def main() -> int:
     scenes = os.path.join(work, "scenes")
     make_scene(scenes, "warmup", 2)
     make_scene(scenes, "scene0000_00", N_FRAMES)
-    cfg = stage_config(Config, work, "full", FRAME_HW, FRAME_BATCH, "bfloat16")
-    seg = seg2d.Segmentor2D(cfg, detector=det, sam=sam, clip_model=clip,
-                            frame_loader=synthetic_frame)
+    # the models go through their official checkpoint files: from here on
+    # every phase runs the loaded ones
+    cfg, seg, ckpt_dir = load_from_checkpoints(torch, (seg2d, clip_mod), Config, work,
+                                               (det, clip, sam))
+    del det, clip, sam
+    torch.cuda.empty_cache()
+    det, clip, sam = seg.detector, seg.clip, seg.sam
     t0 = time.perf_counter()
     seg2d.run(cfg, "clothes", scenes=["warmup"], segmentor=seg)
     torch.cuda.synchronize()
@@ -1259,17 +1412,19 @@ def main() -> int:
     # ---------------------------------------------------------------- 6
     sweep_launches = full_width_sweep(
         torch, (seg2d, sweep, projection, dispatch, io, rle, StageProfiler), Config, work3d, dev,
-        (det, clip, sam))
+        (det, clip, sam, seg.clip_tokenizer))
 
     # ---------------------------------------------------------------- 7
-    del seg, det, sam
+    del seg, det, clip, sam
     torch.cuda.empty_cache()
     # the 2D stage's launches, the sweep's rel-pos launches (K5 is wired into
     # no path: 0) and the 3D half's mask-IoU launches
-    launches = {**launches, "mask_iou": full_width_3d(torch, mods3d, Config, work3d, dev, clip),
+    launches = {**launches,
+                "mask_iou": full_width_3d(torch, mods3d, Config, work3d, dev, cfg.detector),
                 "flash_attention_relpos": sweep_launches["flash_attention_relpos"],
                 "window_attention_relpos": sweep_launches["window_attention_relpos"]}
     shutil.rmtree(work3d)
+    shutil.rmtree(ckpt_dir)
 
     table = []
     for key, src, replaces in (
@@ -1296,6 +1451,7 @@ def main() -> int:
     shutil.rmtree(work)
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(_LINES + [{"kernels": table}], f, indent=1)
+    print(card, flush=True)
     emit({"kernels": table})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

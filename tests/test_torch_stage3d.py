@@ -426,8 +426,10 @@ def test_build_text_similarity(tmp_path):
     cfg = TConfig.from_dict({})
     assert isinstance(ttext_sim.build_text_similarity(cfg), ttext_sim.ExactMatchSimilarity)
     assert ttext_sim.ExactMatchSimilarity()("Office_Chair", "office chair") == 1.0
-    with pytest.raises(NotImplementedError, match="Queue A, item 2"):
-        ttext_sim.build_text_similarity(cfg.override(**{"detector.clip_checkpoint": "x.pt"}))
+    missing = str(tmp_path / "ViT-L-14.pt")
+    with pytest.raises(FileNotFoundError, match="ViT-L-14.pt"):
+        ttext_sim.build_text_similarity(cfg.override(**{"detector.clip_checkpoint": missing}),
+                                        device=CPU)
 
 
 # --------------------------------------------------------------- evaluation
