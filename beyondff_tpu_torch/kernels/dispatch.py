@@ -16,7 +16,8 @@ import torch
 # Launches of each hand-written kernel since the last reset: a wrapper adds
 # one where it launches its kernel and nowhere else.
 launch_counts: Dict[str, int] = {"flash_attention": 0, "flash_attention_relpos": 0, "mask_iou": 0,
-                                 "ms_deform_sample": 0, "window_attention_relpos": 0}
+                                 "ms_deform_sample": 0, "nms_fixed": 0,
+                                 "window_attention_relpos": 0}
 
 
 def reset_launch_counts() -> None:

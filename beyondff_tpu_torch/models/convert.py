@@ -1,11 +1,13 @@
 """Weights carried across from the JAX package's parameter trees.
 
-``gdino_from_jax``, ``sam_from_jax`` and ``clip_from_jax`` turn a JAX
-package parameter tree (nested dicts of arrays, ``{"params": {...}}``) into
-the port module's ``state_dict``. The port's modules use the official
-checkpoint key names, so these are the inverses of the JAX package's
-checkpoint converters (beyondff_tpu/models/gdino/convert.py,
-``sam.convert_torch_checkpoint``, ``clip.convert_torch_checkpoint``): they
+``gdino_from_jax``, ``sam_from_jax``, ``clip_from_jax``,
+``efficientsam_from_jax`` and ``yolo_world_from_jax`` turn a JAX package
+parameter tree (nested dicts of arrays, ``{"params": {...}}``, with
+``batch_stats`` for YOLO-World) into the port module's ``state_dict``. The
+port's modules use the official checkpoint key names, so these are the
+inverses of the JAX package's checkpoint converters
+(beyondff_tpu/models/gdino/convert.py, the ``convert_torch_checkpoint`` of
+``sam``, ``clip``, ``efficientsam`` and ``yolo_world``): they
 undo the kernel transposes (flax Dense ``(in, out)`` -> torch ``(out, in)``,
 flax conv ``(kh, kw, in, out)`` -> torch ``(out, in, kh, kw)``) and re-fuse
 the split q/k/v projections of ``nn.MultiheadAttention``.
@@ -246,4 +248,80 @@ def gdino_from_jax(params, cfg) -> StateDict:
     w.dense("transformer.decoder.ref_point_head.layers.1", p["ref_point_fc2"])
     for i in range(3):
         w.dense(f"bbox_embed.0.layers.{i}", p["bbox_head"][f"fc{i}"])
+    return w.sd
+
+
+def efficientsam_from_jax(params, cfg) -> StateDict:
+    """JAX EfficientSAM params -> state dict of the port's ``SAMModule``
+    (EfficientSAM's parameter tree is SAM's without rel-pos tables; the
+    position embedding is the grid the JAX converter keeps)."""
+    return sam_from_jax(params, cfg)
+
+
+# the JAX YOLO-World's submodule per ultralytics layer index (None: the layer
+# holds no weights), and its C2f depths at depth multiplier 1
+_YOLO_LAYERS = [
+    ("stem", "conv"), ("down1", "conv"), ("c2f1", "c2f"), ("down2", "conv"),
+    ("c2f2", "c2f"), ("down3", "conv"), ("c2f3", "c2f"), ("down4", "conv"),
+    ("c2f4", "c2f"), ("sppf", "sppf"), (None, None), (None, None),
+    ("t4", "c2fattn"), (None, None), (None, None), ("t3", "c2fattn"),
+    ("pan_d3", "conv"), (None, None), ("t4b", "c2fattn"), ("pan_d4", "conv"),
+    (None, None), ("t5", "c2fattn"), (None, "detect"),
+]
+_YOLO_DEPTHS = {"c2f1": 3, "c2f2": 6, "c2f3": 6, "c2f4": 3,
+                "t4": 3, "t3": 3, "t4b": 3, "t5": 3}
+
+
+def yolo_world_from_jax(variables, cfg) -> StateDict:
+    """JAX YOLO-World variables (``params`` and ``batch_stats``) ->
+    ultralytics-layout state dict of ``YOLOWorldModule``: the inverse of the
+    JAX ``yolo_world.convert_torch_checkpoint``."""
+    p, st = variables["params"], variables.get("batch_stats", {})
+    w = _Writer()
+
+    def bn(prefix, pp, ss):
+        w.sd[f"{prefix}.weight"] = _t(pp["scale"])
+        w.sd[f"{prefix}.bias"] = _t(pp["bias"])
+        w.sd[f"{prefix}.running_mean"] = _t(ss["mean"])
+        w.sd[f"{prefix}.running_var"] = _t(ss["var"])
+
+    def conv_bn(prefix, pp, ss):
+        w.conv(f"{prefix}.conv", pp["conv"], bias=False)
+        bn(f"{prefix}.bn", pp["bn"], ss["bn"])
+
+    def c2f(prefix, pp, ss, n):
+        conv_bn(f"{prefix}.cv1", pp["cv1"], ss["cv1"])
+        conv_bn(f"{prefix}.cv2", pp["cv2"], ss["cv2"])
+        for j in range(n):
+            for cv in ("cv1", "cv2"):
+                conv_bn(f"{prefix}.m.{j}.{cv}", pp[f"m{j}"][cv], ss[f"m{j}"][cv])
+
+    def depth(n):
+        return max(1, round(n * cfg.depth))
+
+    for i, (name, kind) in enumerate(_YOLO_LAYERS):
+        pfx = f"model.{i}"
+        if kind == "conv":
+            conv_bn(pfx, p[name], st[name])
+        elif kind == "sppf":
+            conv_bn(f"{pfx}.cv1", p[name]["cv1"], st[name]["cv1"])
+            conv_bn(f"{pfx}.cv2", p[name]["cv2"], st[name]["cv2"])
+        elif kind in ("c2f", "c2fattn"):
+            c2f(pfx, p[name], st[name], depth(_YOLO_DEPTHS[name]))
+            if kind == "c2fattn":
+                att = p[name]["attn"]
+                w.dense(f"{pfx}.attn.gl", att["gl"], bias=False)
+                w.raw(f"{pfx}.attn.bias", att["bias"])
+                conv_bn(f"{pfx}.attn.proj_conv", att["proj_conv"],
+                        st[name]["attn"]["proj_conv"])
+        elif kind == "detect":
+            for s in range(3):
+                for branch, ours in (("cv2", "reg"), ("cv3", "cls")):
+                    for j in range(2):
+                        conv_bn(f"{pfx}.{branch}.{s}.{j}", p[f"{ours}{s}_{j}"],
+                                st[f"{ours}{s}_{j}"])
+                    w.conv(f"{pfx}.{branch}.{s}.2", p[f"{ours}{s}_2"])
+                w.raw(f"{pfx}.cv4.{s}.bias", p[f"head{s}_bias"])
+                w.raw(f"{pfx}.cv4.{s}.logit_scale", p[f"head{s}_logit_scale"])
+                bn(f"{pfx}.cv4.{s}.norm", p[f"head{s}_norm"], st[f"head{s}_norm"])
     return w.sd

@@ -186,7 +186,8 @@ def init_weights(module: nn.Module, seed: int = 0) -> nn.Module:
     scales 1 and biases 0; matrices and embeddings N(0, 1/fan_in) (fan_in =
     product of all but the first dim, at least 1); other vectors N(0, 0.02).
     Parameters named in ``module.init_overrides`` (name -> (mean, std)) take
-    those instead."""
+    those instead. Batch-norm statistics (``running_mean``/``running_var``
+    buffers) start at 0 and 1."""
     overrides = getattr(module, "init_overrides", {})
     dev = next(module.parameters()).device
     gen = torch.Generator(device=dev)
@@ -209,6 +210,11 @@ def init_weights(module: nn.Module, seed: int = 0) -> nn.Module:
                 std = fan_in ** -0.5 if fan_in else 0.02
                 p.copy_(torch.randn(p.shape, generator=gen, device=dev, dtype=torch.float32)
                         * std)
+        for name, b in module.named_buffers():
+            if name.endswith("running_mean"):
+                b.zero_()
+            elif name.endswith("running_var"):
+                b.fill_(1.0)
     return module
 
 

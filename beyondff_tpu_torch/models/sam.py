@@ -376,11 +376,14 @@ class SAM:
         """uint8 RGB (B, H, W, 3) -> long-side-scaled unpadded uint8
         (B, nh, nw, 3) on the frames' device (OpenCV-exact INTER_LINEAR,
         core/resize.py); padding happens in :meth:`encode_frames`."""
-        s = self.cfg.img_size
-        h, w = frames.shape[1:3]
-        scale = s / max(h, w)
-        nh, nw = int(h * scale + 0.5), int(w * scale + 0.5)
-        return _resize.resize_linear(frames, (nh, nw)), (nh, nw)
+        hw = self.scaled_hw(frames.shape[1:3])
+        return _resize.resize_linear(frames, hw), hw
+
+    def scaled_hw(self, hw) -> Tuple[int, int]:
+        """The long-side-scaled size of an (h, w) frame."""
+        h, w = hw
+        scale = self.cfg.img_size / max(h, w)
+        return int(h * scale + 0.5), int(w * scale + 0.5)
 
     @torch.inference_mode()
     def encode_frames(self, frames: torch.Tensor) -> torch.Tensor:
@@ -407,6 +410,12 @@ class SAM:
         bx = torch.as_tensor(np.asarray(boxes, np.float32), device=self.device)
         return self.module.decode_boxes(embedding[None].expand(bx.shape[0], -1, -1, -1), bx)
 
+    def _box_decode(self, embs: torch.Tensor, boxes: torch.Tensor):
+        """The packed decode's per-prompt decode: SAM's single-mask output
+        (EfficientSAM overrides it with its best-of-multimask selection, as
+        the JAX package's ``_box_decode_method``)."""
+        return self.module.decode_boxes(embs, boxes)
+
     @torch.inference_mode()
     def decode_boxes_packed(self, embs: torch.Tensor, frame_idx, boxes,
                             input_hw: Tuple[int, int], orig_hw: Tuple[int, int]):
@@ -424,7 +433,7 @@ class SAM:
         the triangle filter to the shrink factor, so it is on there."""
         idx = torch.as_tensor(np.asarray(frame_idx, np.int64), device=self.device)
         bx = torch.as_tensor(np.asarray(boxes, np.float32), device=self.device)
-        low, iou = self.module.decode_boxes(embs.index_select(0, idx), bx)
+        low, iou = self._box_decode(embs.index_select(0, idx), bx)
         hh, ww = orig_hw
         # the upsample target follows the embedding grid: g * patch rows
         sq = (embs.shape[1] * self.cfg.patch_size, embs.shape[2] * self.cfg.patch_size)

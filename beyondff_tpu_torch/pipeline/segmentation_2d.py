@@ -1,10 +1,11 @@
 """Stage 1 driver: open-vocabulary 2D detection + promptable segmentation.
 
-Port of beyondff_tpu/pipeline/segmentation_2d.py on its Grounding-DINO
-classic path. Per scene, frames go in batches of ``detector.frame_batch``
-through
+Port of beyondff_tpu/pipeline/segmentation_2d.py: the classic variant
+(``detector.kind: grounding_dino``: Grounding-DINO, SAM ViT-H) and the fast
+one (``yolo_world``: YOLO-World, EfficientSAM). Per scene, frames go in
+batches of ``detector.frame_batch`` through
 
-  1. Grounding-DINO detection with phrase filtering against the query,
+  1. open-vocabulary detection with phrase filtering against the query,
   2. CLIP supervision: box crops scored against the ensembled descriptor
      embedding of the query, low-similarity boxes dropped,
   3. box-prompted SAM mask decoding,
@@ -16,10 +17,14 @@ embeddings) and, with ``detector.fused_captions``, one fused multi-phrase
 detection pass per group of classes.
 
 With ``detector.device_frames`` (the default) each frame uploads once as a
-SAM-scaled dense uint8 RGB buffer; the detector input derives from it on the
-device and SAM encodes it directly (the JAX package with
-``BFF_SEG2D_YUV=0``). CLIP crops come from that buffer through the
-bit-exact lookup-table chain (the JAX package with
+dense uint8 RGB buffer (the JAX package with ``BFF_SEG2D_YUV=0``). Where the
+detector's input is smaller than the SAM-scaled frame (YOLO-World's 640x640;
+the JAX package's two-tier rule, ``BFF_SEG2D_TWO_TIER`` auto/1/0) the frame
+uploads at its own size, the detector input is one OpenCV-exact resize of it
+on the device, and only frames with boxes are scaled for SAM. Otherwise the
+upload is the SAM-scaled frame, the detector input derives from it on the
+device and SAM encodes it directly. CLIP crops come from the uploaded buffer
+through the bit-exact lookup-table chain (the JAX package with
 ``BFF_CLIP_DEVICE_CROPS=0``). Batches run one after another: the JAX
 package's three-stage deferred flush gives identical records, and the port's
 device calls queue asynchronously on the CUDA stream anyway.
@@ -63,23 +68,29 @@ def _record(dets, masks) -> Dict:
 class Segmentor2D:
     """Holds the model stack; processes scenes batch by batch.
 
-    Models not injected are loaded from the configured checkpoints
-    (``detector.{gdino,sam,clip}_checkpoint``: Grounding-DINO Swin-B, SAM
-    ViT-H, CLIP at ``detector.clip_model_size``, in ``detector.dtype``), as
-    in the JAX package; with no checkpoint configured the ``"test"``
-    presets are created randomly. A configured file that does not exist
-    raises ``FileNotFoundError`` (the JAX package builds a random SAM
-    instead). ``load_seconds`` holds each loaded model's time from file to
-    device. ``frame_loader(path, size)`` returns a uint8 RGB frame; it
-    defaults to :func:`utils.io.load_image` (OpenCV)."""
+    Models not injected are loaded from the configured checkpoints, as in
+    the JAX package: ``detector.{gdino,sam,clip}_checkpoint`` (Grounding-DINO
+    Swin-B, SAM ViT-H) or, with ``detector.kind: yolo_world``,
+    ``detector.{yolo_world,efficientsam}_checkpoint`` (YOLO-World-L, which
+    runs in float32 as the JAX package loads it, and EfficientSAM-S), with
+    CLIP at ``detector.clip_model_size``, in ``detector.dtype``. With no
+    checkpoint configured the ``"test"`` presets are created randomly. A
+    configured file that does not exist raises ``FileNotFoundError`` (the
+    JAX package builds a random SAM instead). YOLO-World takes its class
+    embeddings from CLIP's text tower when that tower's width is its
+    ``text_dim``, else from ``hash()``-seeded normals, as the JAX package.
+    ``load_seconds`` holds each loaded model's time from file to device.
+    ``frame_loader(path, size)`` returns a uint8 RGB frame; it defaults to
+    :func:`utils.io.load_image` (OpenCV)."""
 
     def __init__(self, cfg: Config, detector=None, sam=None, clip_model=None,
                  clip_tokenizer=None, device=None,
                  frame_loader: Optional[Callable] = None):
         self.cfg = cfg
         d = cfg.detector
-        if d.kind != "grounding_dino":
-            raise NotImplementedError(f"detector kind {d.kind!r} is not ported yet")
+        if d.kind not in ("grounding_dino", "yolo_world"):
+            raise NotImplementedError(f"detector kind {d.kind!r} is not ported")
+        self.yolo = d.kind == "yolo_world"
         injected = next((m for m in (detector, sam, clip_model) if m is not None), None)
         self.device = injected.device if injected is not None and device is None \
             else resolve_device(device)
@@ -87,7 +98,7 @@ class Segmentor2D:
             d.dtype, torch.float32)
         self.load_seconds: Dict[str, float] = {}
         self.clip = self.clip_tokenizer = None
-        if d.filter_with_clip:
+        if d.filter_with_clip or self.yolo:
             if clip_model is not None:
                 self.clip, self.clip_tokenizer = clip_model, clip_tokenizer
             else:
@@ -98,6 +109,15 @@ class Segmentor2D:
                 self.clip_tokenizer = HashTokenizer(self.clip.cfg.vocab_size,
                                                     self.clip.cfg.context_length)
         self.detector = detector if detector is not None else self._load_detector()
+        if self.yolo and getattr(self.detector, "clip", None) is None:
+            # only a CLIP tower of YOLO-World's guide width is attached (the
+            # official guides are CLIP-base, 512-d; the crop filter's
+            # ViT-L/14 is 768-d): the detector falls back to hash embeddings
+            det_dim = getattr(getattr(self.detector, "cfg", None), "text_dim", None)
+            clip_dim = getattr(getattr(self.clip, "cfg", None), "embed_dim", None)
+            if det_dim is None or clip_dim == det_dim:
+                self.detector.clip = self.clip
+                self.detector.clip_tokenizer = self.clip_tokenizer
         self.sam = sam if sam is not None else self._load_sam()
         self.frame_loader = frame_loader or bio.load_image
         self.profiler: Optional[StageProfiler] = None
@@ -113,10 +133,20 @@ class Segmentor2D:
         return out
 
     def _load_detector(self):
+        d = self.cfg.detector
+        if self.yolo:
+            from beyondff_tpu_torch.models import yolo_world
+
+            if not d.yolo_world_checkpoint:
+                return yolo_world.YOLOWorld.create("test", dtype=self.dtype, device=self.device)
+            cfg = yolo_world.PRESETS["l"]
+            # float32 whatever detector.dtype says: the JAX package loads it so
+            return yolo_world.YOLOWorld(cfg, self._timed(
+                "yolo_world", lambda: yolo_world.load_torch_checkpoint(
+                    d.yolo_world_checkpoint, cfg, torch.float32, self.device)))
         from beyondff_tpu_torch.models.gdino import GroundingDINO
         from beyondff_tpu_torch.models.gdino import model as gdino_model
 
-        d = self.cfg.detector
         if not d.gdino_checkpoint:
             return GroundingDINO.create("test", dtype=self.dtype, device=self.device)
         from beyondff_tpu_torch.models.gdino import convert
@@ -129,9 +159,18 @@ class Segmentor2D:
         return GroundingDINO(cfg, module, tok)
 
     def _load_sam(self):
+        d = self.cfg.detector
+        if self.yolo:
+            from beyondff_tpu_torch.models import efficientsam as esam
+
+            if not d.efficientsam_checkpoint:
+                return esam.EfficientSAM.create("test", dtype=self.dtype, device=self.device)
+            cfg = esam.PRESETS["vits"]
+            return esam.EfficientSAM(cfg, self._timed("efficientsam", lambda: (
+                esam.load_torch_checkpoint(d.efficientsam_checkpoint, cfg, self.dtype,
+                                           self.device))))
         from beyondff_tpu_torch.models import sam as sam_mod
 
-        d = self.cfg.detector
         if not d.sam_checkpoint:
             return sam_mod.SAM.create("test", dtype=self.dtype, device=self.device)
         cfg = sam_mod.PRESETS["vit_h"]
@@ -181,32 +220,42 @@ class Segmentor2D:
         return mean
 
     def _clip_crops(self, image, boxes_xyxy: np.ndarray, frame_hw=None) -> List[torch.Tensor]:
-        """Box crops for CLIP scoring from the detector-transformed frame, as
-        the reference crops: the ImageNet-normalized resized tensor cast back
-        with ``* 255`` into uint8, wraparound included (bbox_filter,
-        segmentation_2d.py:345-380), applied per channel through a 256-entry
-        lookup table built with the identical float expression. ``image``:
-        uint8 (H, W, 3), host array or device tensor; crops stay on the
-        device."""
-        from beyondff_tpu_torch.models.gdino.model import IMAGE_MEAN, IMAGE_STD
-
+        """Box crops for CLIP scoring, cut as the reference cuts them and cast
+        back to uint8 with ``* 255``, wraparound included, through a
+        256-entry lookup table built with the identical expression. The
+        Grounding-DINO variant crops the ImageNet-normalized detector-size
+        frame (bbox_filter, segmentation_2d.py:345-380; one table per
+        channel), the YOLO-World variant the uint8 frame itself, where
+        ``x * 255`` wraps to ``-x mod 256`` (segmentation_2d_yolo_world.py:
+        505-515). ``image``: uint8 (H, W, 3), host array or device tensor, the
+        frame or a scaled copy of it (``frame_hw``: the boxes' frame); crops
+        stay on the device."""
         image = torch.as_tensor(image, device=self.device)
         h, w = frame_hw if frame_hw is not None else image.shape[:2]
-        gh, gw = self.detector.cfg.image_size
-        src = _resize.resize_linear(image, (gh, gw))
-        sx, sy = gw / w, gh / h
-        lut = (((np.arange(256, dtype=np.float32)[:, None] / 255.0 - IMAGE_MEAN) / IMAGE_STD)
-               * 255).astype(np.uint8)
-        lut = torch.as_tensor(lut, device=self.device)
-        chans = torch.arange(3, device=self.device)
+        if self.yolo:
+            src = image
+            lut = torch.as_tensor((np.arange(256, dtype=np.uint8) * 255).astype(np.uint8),
+                                  device=self.device)
+            chans = None
+        else:
+            from beyondff_tpu_torch.models.gdino.model import IMAGE_MEAN, IMAGE_STD
+
+            src = _resize.resize_linear(image, tuple(self.detector.cfg.image_size))
+            lut = torch.as_tensor(
+                (((np.arange(256, dtype=np.float32)[:, None] / 255.0 - IMAGE_MEAN) / IMAGE_STD)
+                 * 255).astype(np.uint8), device=self.device)
+            chans = torch.arange(3, device=self.device)
+        sh, sw = src.shape[:2]
+        sx, sy = sw / w, sh / h
         crops = []
         for bx0, by0, bx1, by1 in boxes_xyxy:
             x0, y0 = max(0, int(bx0 * sx)), max(0, int(by0 * sy))
-            x1, y1 = min(gw, int(bx1 * sx)), min(gh, int(by1 * sy))
+            x1, y1 = min(sw, int(bx1 * sx)), min(sh, int(by1 * sy))
             if x1 <= x0 or y1 <= y0:
                 crops.append(torch.zeros((2, 2, 3), dtype=torch.uint8, device=self.device))
                 continue
-            crops.append(lut[src[y0:y1, x0:x1].long(), chans])
+            crop = src[y0:y1, x0:x1].long()
+            crops.append(lut[crop] if chans is None else lut[crop, chans])
         return crops
 
     def _clip_feats(self, crops: List[torch.Tensor]) -> np.ndarray:
@@ -320,8 +369,10 @@ class Segmentor2D:
 
         ``frame_bank``: a dict shared by the classes of one scene
         (:func:`run_classes`). It holds each frame's SAM-scaled device buffer
-        (``("sam", fid)``; ``("img", fid)``, the host frame, on the
-        ``device_frames: false`` path), the detector's text-independent
+        (``("sam", fid)``; on the two-tier path also the frame-size upload,
+        ``("raw", fid)``, and SAM-scaled buffers of frames with boxes only;
+        ``("img", fid)``, the host frame, on the ``device_frames: false``
+        path), the detector's text-independent
         backbone pyramid per frame chunk (``("det_feats", fids)``, up to
         ``BFF_SEG2D_BANK_FEATS_CAP`` frames, default 256;
         ``BFF_SEG2D_BANK_FEATS=0`` opts out) and SAM's embedding of each hit
@@ -368,6 +419,7 @@ class Segmentor2D:
         records: List[Dict] = []
         bank_emb = (frame_bank is not None and d.device_frames
                     and os.environ.get("BFF_SEG2D_BANK_EMB", "1") != "0")
+        two_tier = d.device_frames and self._two_tier(frame_hw)
         bsz = max(1, d.frame_batch)
         for i in range(0, len(entries), bsz):
             chunk = entries[i:i + bsz]
@@ -377,17 +429,28 @@ class Segmentor2D:
                 images = self._host_frames(scene_id, fids, size, frame_bank)
                 batch = self._host_batch(images, query, box_thr)
             else:
-                frames = self._device_frames(scene_id, fids, size, frame_bank)
+                frames = self._device_frames(scene_id, fids, size, frame_bank, two_tier)
+                if two_tier:
+                    input_hw = self.sam.scaled_hw(frame_hw)
 
-                def encode(indices, fids=fids, frames=frames):
-                    return self._encode(fids, indices, frames, frame_bank, bank_emb, group)
+                    def sam_input(indices, fids=fids, frames=frames):
+                        return self._sam_frames(fids, indices, frames, frame_bank)
+                else:
+                    input_hw = tuple(frames.shape[1:3])
+
+                    def sam_input(indices, frames=frames):
+                        return frames[indices]
+
+                def encode(indices, fids=fids, sam_input=sam_input):
+                    return self._encode(fids, indices, sam_input, frame_bank, bank_emb, group)
 
                 if replay:
                     raw = [override_groups[c][f] for f, c in chunk] if group else \
                         [detections_override[f] for f in fids]
                 else:
                     with self._span("detect", frames=len(fids)):
-                        handle = self._detect(frames, query, fids, frame_bank)
+                        det_in = self._detector_input(frames) if two_tier else frames
+                        handle = self._detect(det_in, query, fids, frame_bank)
                         if demux is not None:
                             hits = self._demux(handle, fids, demux, box_thr)
                         else:
@@ -398,7 +461,7 @@ class Segmentor2D:
                             with self._span("sam_encode", frames=len(hits)):
                                 encode(hits)
                         continue
-                batch = self._device_batch(frames, raw, queries, frame_hw, encode)
+                batch = self._device_batch(frames, input_hw, raw, queries, frame_hw, encode)
             for e, f, (dets, masks) in zip(chunk, fids, batch):
                 if dets is not None:
                     (by_class[e[1]] if group else records).append(
@@ -421,21 +484,65 @@ class Segmentor2D:
                 out.append(img)
         return out
 
-    def _device_frames(self, scene_id, fids, size, bank) -> torch.Tensor:
+    def _two_tier(self, frame_hw) -> bool:
+        """The JAX package's two-tier rule: upload frames at their own size
+        when the detector's input has fewer pixels than the SAM-scaled frame
+        (``BFF_SEG2D_TWO_TIER=1``/``0`` forces it either way)."""
+        mode = os.environ.get("BFF_SEG2D_TWO_TIER", "auto")
+        if mode != "auto":
+            return mode == "1"
+        det_hw = self._det_hw()
+        if det_hw is None:
+            return False
+        scale = self.sam.cfg.img_size / max(frame_hw)
+        sam_px = round(frame_hw[0] * scale) * round(frame_hw[1] * scale)
+        return det_hw[0] * det_hw[1] < sam_px
+
+    def _det_hw(self):
+        """The detector's input size (YOLO-World's ``img_size``,
+        Grounding-DINO's ``image_size``)."""
+        dcfg = getattr(self.detector, "cfg", None)
+        return getattr(dcfg, "img_size", None) or getattr(dcfg, "image_size", None)
+
+    def _detector_input(self, frames: torch.Tensor) -> torch.Tensor:
+        """Frame-size uploads -> the detector input: one OpenCV-exact
+        INTER_LINEAR resize, the JAX package's host ``cv2.resize``."""
+        return _resize.resize_linear(frames, tuple(self._det_hw()))
+
+    def _sam_frames(self, fids, indices, frames, bank) -> torch.Tensor:
+        """SAM-scaled buffers of the batch positions ``indices`` of a
+        two-tier batch, scaled on the device from the frame-size uploads
+        when first needed (only frames with boxes), banked per frame."""
+        have = {} if bank is None else {i: bank[("sam", fids[i])] for i in indices
+                                        if ("sam", fids[i]) in bank}
+        todo = [i for i in indices if i not in have]
+        if todo:
+            fresh, _hw = self.sam.scale_frames(frames[todo])
+            for i, t in zip(todo, fresh):
+                have[i] = t
+                if bank is not None:
+                    bank[("sam", fids[i])] = t
+            if todo == list(indices):
+                return fresh
+        return torch.stack([have[i] for i in indices])
+
+    def _device_frames(self, scene_id, fids, size, bank, two_tier=False) -> torch.Tensor:
         """(B, nh, nw, 3) uint8 SAM-scaled frames on the device, one per fid
-        (repeats allowed). With a bank each frame loads and uploads once per
-        scene."""
-        have = {} if bank is None else {f: bank[("sam", f)] for f in fids if ("sam", f) in bank}
+        (repeats allowed), or with ``two_tier`` the frames at their own size.
+        With a bank each frame loads and uploads once per scene."""
+        kind = "raw" if two_tier else "sam"
+        have = {} if bank is None else {f: bank[(kind, f)] for f in fids if (kind, f) in bank}
         todo = list(dict.fromkeys(f for f in fids if f not in have))
         if todo:
             with self._span("load", frames=len(todo)):
                 images = [self.frame_loader(self._frame_path(scene_id, f), size) for f in todo]
             with self._span("upload", frames=len(todo)):
-                fresh, _hw = self.sam.scale_frames(
-                    torch.as_tensor(np.stack(images)).to(self.device))
+                fresh = torch.as_tensor(np.stack(images)).to(self.device)
+                if not two_tier:
+                    fresh, _hw = self.sam.scale_frames(fresh)
             if bank is not None:
                 for f, t in zip(todo, fresh):
-                    bank[("sam", f)] = t
+                    bank[(kind, f)] = t
             if todo == list(fids):
                 return fresh
             have.update(zip(todo, fresh))
@@ -472,13 +579,15 @@ class Segmentor2D:
                 hits.append(i)
         return hits
 
-    def _encode(self, fids, indices, frames, bank, bank_emb: bool, dedupe: bool) -> torch.Tensor:
-        """SAM embeddings of the batch positions ``indices``. With
-        ``bank_emb`` banked frames are not encoded again and fresh ones are
-        banked (up to the cap); ``dedupe`` encodes a frame that appears
-        under several classes of a replay batch once."""
+    def _encode(self, fids, indices, sam_input, bank, bank_emb: bool,
+                dedupe: bool) -> torch.Tensor:
+        """SAM embeddings of the batch positions ``indices``; ``sam_input``
+        gives their SAM-scaled frames. With ``bank_emb`` banked frames are
+        not encoded again and fresh ones are banked (up to the cap);
+        ``dedupe`` encodes a frame that appears under several classes of a
+        replay batch once."""
         if not bank_emb and not dedupe:
-            return self.sam.encode_frames(frames[indices])
+            return self.sam.encode_frames(sam_input(indices))
         cached = {i: bank.get(("sam_emb", fids[i])) if bank_emb else None for i in indices}
         missing, seen = [], set()
         for i in indices:
@@ -486,7 +595,7 @@ class Segmentor2D:
                 seen.add(fids[i])
                 missing.append(i)
         if missing:
-            fresh = self.sam.encode_frames(frames[missing])
+            fresh = self.sam.encode_frames(sam_input(missing))
             by_fid = {fids[i]: fresh[j] for j, i in enumerate(missing)}
             if bank_emb:
                 cap = int(os.environ.get("BFF_SEG2D_BANK_EMB_CAP", "256"))
@@ -502,13 +611,13 @@ class Segmentor2D:
                 return fresh
         return torch.stack([cached[i] for i in indices])
 
-    def _device_batch(self, frames, raw, queries, frame_hw, encode):
-        """Single-upload path for one batch of detections: phrase filter,
+    def _device_batch(self, frames, input_hw, raw, queries, frame_hw, encode):
+        """Device-frames path for one batch of detections: phrase filter,
         SAM encode of the frames with boxes (before the CLIP filter, as the
-        JAX package's eager encode), CLIP filter on crops of the SAM-scaled
-        frames, SAM decode. Returns (detections, masks) per frame."""
+        JAX package's eager encode), CLIP filter on crops of the uploaded
+        frames, SAM decode at ``input_hw``. Returns (detections, masks) per
+        frame."""
         smalls = list(frames)
-        input_hw = tuple(frames.shape[1:3])
         qs = [queries] * len(smalls) if isinstance(queries, str) else queries
         pre = [self._phrase_filter(im, q, det, frame_hw) for im, q, det in zip(smalls, qs, raw)]
         idx = [i for i, pr in enumerate(pre) if pr is not None]
@@ -594,11 +703,10 @@ def _scene_list(cfg: Config, scenes: Optional[Sequence[str]]) -> List[str]:
 
 def bank_sizes(bank: Dict) -> Dict[str, int]:
     """Entries of each kind in a frame bank and the device bytes they hold."""
-    out = {"frames": 0, "det_feats_frames": 0, "sam_emb": 0, "bytes": 0}
+    out = {"frames": len({key for kind, key in bank if kind in ("sam", "img", "raw")}),
+           "det_feats_frames": 0, "sam_emb": 0, "bytes": 0}
     for (kind, key), val in bank.items():
-        if kind in ("sam", "img"):
-            out["frames"] += 1
-        elif kind == "det_feats":
+        if kind == "det_feats":
             out["det_feats_frames"] += len(key)
         elif kind == "sam_emb":
             out["sam_emb"] += 1

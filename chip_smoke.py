@@ -50,20 +50,36 @@ Phases (each one's failure ends the run with a non-zero exit):
    (a room with twelve boxes, four of the query class) and written to disk
    before the timed run. Launch counts are set to 0 before each stage and
    read after it; the outputs are reloaded and checked, and the projection
-   runs once more under ``torch.profiler``.
+   runs once more under ``torch.profiler``;
+8. drive the fast variant at full width: write YOLO-World-L (the
+   ultralytics layout, f32, with the batch-norm counters and the DFL conv)
+   and EfficientSAM-S (``{"model": ...}`` f32, a class-token slot in its
+   position embedding) from seeded random weights, build
+   ``Segmentor2D(cfg)`` with ``detector.kind: yolo_world`` from those paths
+   and phase 4's CLIP archive with no model injected, check every loaded
+   tensor bit for bit, run ``run()`` on the 8-frame 968x1296 scene in the
+   hit regime (two-tier uploads, YOLO-World in f32, EfficientSAM in bf16,
+   hash guide embeddings) with launch counts set to 0 just before it: K3
+   must run 12 times per SAM encode batch and the NMS kernel once per
+   detection batch; then a profiled pass and banked ``run_classes`` over
+   three classes against per-class ``run()``.
 
 Phase 2 also holds the mask-IoU kernel bit for bit against its plain version
 at the aggregation's (600, 250 000) self-IoU and refinement's (20 x 150,
 250 000) cross IoU, and at 250 007 points (rows off 16-byte boundaries), and
 the rel-pos attention kernels at SAM ViT-H's global (16 B, 4096, 80) and
-windowed (400 B, 196, 80) shapes. Tolerances: f32 within 1e-4; bf16 K2/K3,
+windowed (400 B, 196, 80) shapes, K3 at EfficientSAM-S's global blocks
+(6 B, 4096, 64) in bf16, and the NMS kernel index for index at YOLO-World-L's
+8 400 anchors for a batch of 4 (top_k 100). Tolerances: f32 within 1e-4; bf16 K2/K3,
 K4 and K5, whose tensor-core tile rounds P to bf16 before P V as the TPU
 kernels do, within 2^-8 |P|@|V| + 2^-7 |plain| + 1e-4
 (``flash_attention.bf16_error_bound``; K2 also within 1.6e-2); K1 within
 3e-2. Phase 3 also runs the 3D half
 on a small scene on the card and on the CPU and requires equal outputs and
-an equal AP row, and the class sweep at the "test" presets on both, with
-equal 3D outputs and results rows.
+an equal AP row, the class sweep at the "test" presets on both, with
+equal 3D outputs and results rows, and the fast variant at the "test"
+presets on both (f32, cuDNN TF32 off) with two-tier uploads on auto and
+forced on: confidences within 1e-4, masks at IoU >= 0.99.
 
 The last three lines are the card's name and power limit, the kernel table
 and ``{"ok": true, "device": ...}``;
@@ -396,7 +412,11 @@ def small_reference(torch, mods, work):
           f"CUDA path disagrees with the CPU path: {rec}")
 
 
-def profile_scene(torch, seg2d, seg, cfg, scene, timed_scene_s):
+PORT_KERNELS = ("ms_deform_sample_kernel", "flash_fwd_kernel", "flash_tc_kernel",
+                "nms_fixed_kernel")
+
+
+def profile_scene(torch, seg2d, seg, cfg, scene, timed_scene_s, phase="device_profile"):
     """The same scene once more under ``torch.profiler`` (device activity
     only): the device's busy share of the ``scene`` span and the kernels
     that take the device's time. The timed run above stays unprofiled."""
@@ -407,9 +427,8 @@ def profile_scene(torch, seg2d, seg, cfg, scene, timed_scene_s):
         cfg, "clothes", scenes=[scene], segmentor=seg, resume=False, profiler=prof))
     scene_s = prof.durations["scene"]
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
-    ours = {k: v for k, v in by_name.items()
-            if "ms_deform_sample_kernel" in k or "flash_fwd_kernel" in k}
-    emit({"phase": "device_profile", "scene_seconds_profiled": scene_s,
+    ours = {k: v for k, v in by_name.items() if any(n in k for n in PORT_KERNELS)}
+    emit({"phase": phase, "scene_seconds_profiled": scene_s,
           "scene_seconds_timed": timed_scene_s, "device_busy_ms": busy_us / 1e3,
           "device_busy_share": busy_us / 1e6 / scene_s, "device_events": events,
           "top_device_ms": [[name[:120], n, us / 1e3] for name, (n, us) in top],
@@ -443,6 +462,21 @@ def write_vocabularies(root):
     return bert, bpe
 
 
+def mask_prompt_stack(torch, g):
+    """SAM's mask-prompt downscaling stack (256-d prompts), which the
+    box-prompted stage's loaders ignore."""
+    return {"prompt_encoder.mask_downscaling.0.weight": torch.randn(4, 1, 2, 2, generator=g),
+            "prompt_encoder.mask_downscaling.0.bias": torch.randn(4, generator=g),
+            "prompt_encoder.mask_downscaling.1.weight": torch.ones(4),
+            "prompt_encoder.mask_downscaling.1.bias": torch.zeros(4),
+            "prompt_encoder.mask_downscaling.3.weight": torch.randn(16, 4, 2, 2, generator=g),
+            "prompt_encoder.mask_downscaling.3.bias": torch.randn(16, generator=g),
+            "prompt_encoder.mask_downscaling.4.weight": torch.ones(16),
+            "prompt_encoder.mask_downscaling.4.bias": torch.zeros(16),
+            "prompt_encoder.mask_downscaling.6.weight": torch.randn(256, 16, 1, 1, generator=g),
+            "prompt_encoder.mask_downscaling.6.bias": torch.randn(256, generator=g)}
+
+
 def write_checkpoints(torch, clip_mod, root, models):
     """The phase-4 models in the official file layouts, with the keys the
     loaders ignore: Grounding-DINO Swin-B as ``{"model": {"module." + key:
@@ -470,18 +504,8 @@ def write_checkpoints(torch, clip_mod, root, models):
     written["gdino"] = sd
 
     sd = {k: v.float().cpu() for k, v in sam.module.state_dict().items()}
-    extra = {"prompt_encoder.mask_downscaling.0.weight": torch.randn(4, 1, 2, 2, generator=g),
-             "prompt_encoder.mask_downscaling.0.bias": torch.randn(4, generator=g),
-             "prompt_encoder.mask_downscaling.1.weight": torch.ones(4),
-             "prompt_encoder.mask_downscaling.1.bias": torch.zeros(4),
-             "prompt_encoder.mask_downscaling.3.weight": torch.randn(16, 4, 2, 2, generator=g),
-             "prompt_encoder.mask_downscaling.3.bias": torch.randn(16, generator=g),
-             "prompt_encoder.mask_downscaling.4.weight": torch.ones(16),
-             "prompt_encoder.mask_downscaling.4.bias": torch.zeros(16),
-             "prompt_encoder.mask_downscaling.6.weight": torch.randn(256, 16, 1, 1, generator=g),
-             "prompt_encoder.mask_downscaling.6.bias": torch.randn(256, generator=g)}
     paths["sam"] = os.path.join(root, "sam_vit_h_4b8939.pth")
-    torch.save({**sd, **extra}, paths["sam"])
+    torch.save({**sd, **mask_prompt_stack(torch, g)}, paths["sam"])
     written["sam"] = sd
 
     sd = {k: v.half().cpu() for k, v in clip.module.state_dict().items()}
@@ -1272,6 +1296,367 @@ def full_width_sweep(torch, mods, Config, work, dev, models):
     return launches
 
 
+# ------------------------------------------------------------ the fast variant
+NMS_ANCHORS = 80 * 80 + 40 * 40 + 20 * 20  # YOLO-World-L's anchors at 640x640
+NMS_TOP_K = 100  # YOLO-World-L's max_dets
+IOU_OPS = 16  # f32 operations of one IoU test (4 min/max, 2 clamps, 2 products, 8 +-/)
+
+
+def iou_tests(torch, keep, valid, scores):
+    """The IoU tests the greedy scan makes for these results: each kept box
+    against every box after it in score order (what this run's data needs,
+    for the bound)."""
+    order = torch.sort(scores.neg(), dim=-1, stable=True).indices
+    rank = torch.empty_like(order)
+    rank.scatter_(1, order, torch.arange(order.shape[1], device=order.device).expand_as(order))
+    pos = torch.gather(rank, 1, keep.long())
+    return int(((scores.shape[1] - 1 - pos) * valid).sum())
+
+
+def nms_case(torch, nms, dev):
+    """The NMS kernel against its plain version, index for index, at the
+    main path's batch: 4 frames of 8 400 clustered boxes (as the detector's
+    output), top_k 100, IoU 0.5. The bound counts the IoU tests this data
+    needs (each kept box against every box after it) at the f32 peak, and
+    the boxes and scores read once."""
+    from beyondff_tpu_torch.utils.profiling import HBM_BYTES_PER_S, PEAK_FLOPS, device_ms
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    b, a = FRAME_BATCH, NMS_ANCHORS
+    centers = torch.rand(b, 60, 2, generator=gen, device=dev) * 640
+    pick = torch.randint(0, 60, (b, a), generator=gen, device=dev)
+    c = torch.gather(centers, 1, pick[..., None].expand(-1, -1, 2))
+    c = c + torch.randn(b, a, 2, generator=gen, device=dev) * 10
+    half = torch.rand(b, a, 2, generator=gen, device=dev) * 60 + 8
+    boxes = torch.cat([c - half, c + half], -1)
+    scores = torch.rand(b, a, generator=gen, device=dev)
+    keep, valid = nms.nms_fixed(boxes, scores, 0.5, NMS_TOP_K)
+    want_keep, want_valid = nms.nms_fixed_plain(boxes, scores, 0.5, NMS_TOP_K)
+    torch.cuda.synchronize()
+    err = float((keep.long() - want_keep.long()).abs().max())
+    equal = bool(torch.equal(keep, want_keep) and torch.equal(valid, want_valid))
+    n_iou = iou_tests(torch, keep, valid, scores)
+    nbytes = b * a * (16 + 4) + b * NMS_TOP_K * (4 + 1)
+    bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ops = IOU_OPS * n_iou / PEAK_FLOPS["float32"] * 1e3
+    kernel = lambda: nms.nms_fixed(boxes, scores, 0.5, NMS_TOP_K)
+    rec = {"case": "yolo_world_l_batch", "kernel": "nms_fixed", "shape": [b, a],
+           "top_k": NMS_TOP_K, "kept": int(valid.sum()), "iou_evaluations": n_iou,
+           "max_abs_err": err, "index_equal": equal, "tol": "indices equal",
+           "ms": cuda_ms(torch, kernel, 50), "device_ms": device_ms(kernel),
+           "plain_ms": cuda_ms(torch, lambda: nms.nms_fixed_plain(boxes, scores, 0.5,
+                                                                   NMS_TOP_K), 3),
+           "bound_ms": max(bound_bytes, bound_ops),
+           "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
+           "library_ms": None,
+           "design": "a block per frame, the suppression bitmask in shared memory, the next "
+                     "survivor found a word at a time, warp ballots over 32 later boxes, "
+                     "stops at top_k; ms includes the wrapper's stable sort and gather"}
+    emit(rec)
+    check(equal, f"nms_fixed kernel disagrees with its plain version: {rec}")
+    return rec
+
+
+def spread_weights(torch, module, seed):
+    """Seeded non-degenerate weights for a random YOLO-World: batch-norm
+    scales and variances in [0.5, 1.5], means and biases N(0, 0.1), the
+    contrastive heads' logit scale e^2. With the default random init the
+    class logits barely leave 0, so scores tie to the last f32 unit and the
+    NMS order turns on rounding that differs between devices."""
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for name, t in module.state_dict(keep_vars=True).items():
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf == "logit_scale":
+                vals = np.full(t.shape, 2.0)
+            elif leaf == "running_var" or (leaf == "weight" and t.dim() == 1):
+                vals = rng.uniform(0.5, 1.5, t.shape)
+            elif leaf in ("running_mean", "bias"):
+                vals = rng.normal(0.0, 0.1, t.shape)
+            else:
+                continue
+            t.copy_(torch.as_tensor(vals, dtype=t.dtype))
+
+
+def small_reference_fast(torch, mods, work):
+    """The fast variant (YOLO-World with spread weights, EfficientSAM and
+    CLIP at the "test" presets, f32) on the card against the port's CPU
+    path on one 4-frame 48x64 scene, with two-tier uploads on auto (off at
+    this size) and forced on:
+
+    1. the detector's boxes (over the 64-px input) and class logits on the
+       frames as each upload mode feeds them, within 1e-4 (f32; cuDNN's
+       TF32 is off, phase 1);
+    2. the NMS kernel on the card's own detector outputs against its plain
+       version, index for index;
+    3. the stage from the same detections (the CPU run's, replayed with
+       ``detections_override``: frames, crops, CLIP filter, SAM): confidences
+       within 1e-4, masks at IoU >= 0.99;
+    4. ``run()`` end to end on both, recorded but not required to agree:
+       random weights leave scores a few f32 units apart, so the two
+       devices' roundings may order the NMS differently."""
+    Config, seg2d, yw, esam, clip_mod, nms, io, rle = mods
+    make_scene(os.path.join(work, "scenes"), "small_fast", 4)
+
+    def loader(path, size):
+        rng = np.random.default_rng(10 + int(os.path.basename(path).split(".")[0]))
+        return rng.integers(0, 255, (size[1], size[0], 3), dtype=np.uint8)
+
+    cpu_models = (yw.YOLOWorld.create("test", seed=1, device="cpu"),
+                  esam.EfficientSAM.create("test", seed=2, device="cpu"),
+                  clip_mod.CLIP.create("test", seed=3, device="cpu"))
+    spread_weights(torch, cpu_models[0].module, SEED + 1)
+    gpu_models = (yw.YOLOWorld.create("test", device="cuda"),
+                  esam.EfficientSAM.create("test", device="cuda"),
+                  clip_mod.CLIP.create("test", device="cuda"))
+    for a, b in zip(cpu_models, gpu_models):
+        b.module.load_state_dict(a.module.state_dict())
+    frames = torch.as_tensor(np.stack([loader(f"{i}.jpg", (64, 48)) for i in range(4)]))
+    fids = io.list_scene_frames(os.path.join(work, "scenes"), "small_fast", 1)
+    out = {}
+    for mode in ("auto", "1"):
+        os.environ["BFF_SEG2D_TWO_TIER"] = mode
+        try:
+            segs, cfgs = {}, {}
+            for dev, (det, sam, clip) in (("cpu", cpu_models), ("cuda", gpu_models)):
+                cfgs[dev] = stage_config(Config, work, f"small_fast_{mode}_{dev}", (48, 64), 2,
+                                         "float32", {"kind": "yolo_world"})
+                segs[dev] = seg2d.Segmentor2D(cfgs[dev], detector=det, sam=sam,
+                                              clip_model=clip, frame_loader=loader)
+                check(segs[dev]._two_tier((48, 64)) == (mode == "1"), "two-tier switch")
+            txt = torch.as_tensor(cpu_models[0].class_embeddings(["clothes"]))
+            raw = {}
+            for dev, seg in segs.items():
+                t = frames.to(seg.device)
+                x = seg._detector_input(t) if mode == "1" else seg.sam.scale_frames(t)[0]
+                det = seg.detector
+                with torch.inference_mode():
+                    raw[dev] = det.module.detect(*det.module.backbone(det._detector_input(x)),
+                                                 txt.to(seg.device))
+            box_err = float((raw["cuda"][0].cpu() - raw["cpu"][0]).abs().max()) / 64
+            logit_err = float((raw["cuda"][1].cpu() - raw["cpu"][1]).abs().max())
+            scores = torch.sigmoid(raw["cuda"][1].float()).amax(-1)
+            got = nms.nms_fixed(raw["cuda"][0], scores, 0.5, cpu_models[0].cfg.max_dets)
+            want = nms.nms_fixed_plain(raw["cuda"][0], scores, 0.5, cpu_models[0].cfg.max_dets)
+            nms_equal = all(bool(torch.equal(a, b)) for a, b in zip(got, want))
+
+            # the CPU run's detections, replayed through both devices' stage
+            captured = []
+            det = segs["cpu"].detector
+            finalize = det.predict_finalize
+
+            def capture(*a, finalize=finalize, **k):
+                dets = finalize(*a, **k)
+                captured.extend(dets)
+                return dets
+
+            det.predict_finalize = capture
+            try:
+                segs["cpu"].process_scene("small_fast", "clothes")
+            finally:
+                del det.predict_finalize
+            table = dict(zip(fids, captured))
+            replay = {dev: seg.process_scene("small_fast", "clothes", detections_override=table)
+                      for dev, seg in segs.items()}
+            conf, iou, n = 0.0, 1.0, 0
+            check([r["frame_id"] for r in replay["cpu"]] == [r["frame_id"] for r in replay["cuda"]],
+                  "replayed frame ids")
+            for a, b in zip(replay["cpu"], replay["cuda"]):
+                check(a["labels"] == b["labels"], "replayed labels")
+                conf = max(conf, float(np.abs(np.subtract(a["confidences"],
+                                                          b["confidences"])).max()))
+                for ma, mb in zip(a["segmented_frame_masks"], b["segmented_frame_masks"]):
+                    union = (ma | mb).sum()
+                    iou = min(iou, 1.0 if union == 0 else float((ma & mb).sum() / union))
+                    n += 1
+            for dev, seg in segs.items():
+                seg2d.run(cfgs[dev], "clothes", scenes=["small_fast"], segmentor=seg,
+                          resume=False)
+            recs = [io.load_frame_records(os.path.join(cfgs[d].paths.mask_2d_dir, "clothes",
+                                                       "small_fast.pth")) for d in segs]
+            same_boxes = [(r["frame_id"], len(r["labels"])) for r in recs[0]] == \
+                [(r["frame_id"], len(r["labels"])) for r in recs[1]]
+            e2e = records_diff(io, rle, cfgs["cpu"], cfgs["cuda"], ["clothes"],
+                               "small_fast") if same_boxes else None
+        finally:
+            del os.environ["BFF_SEG2D_TWO_TIER"]
+        out[mode] = {"box_err_over_64px": box_err, "logit_err": logit_err,
+                     "nms_kernel_equal_plain": nms_equal,
+                     "replayed": {"masks": n, "max_conf_diff": conf, "min_mask_iou": iou},
+                     "run_end_to_end": None if e2e is None else
+                     {"max_conf_diff": e2e[0], "min_mask_iou": e2e[1], "masks": e2e[2]}}
+    rec = {"phase": "small_reference_fast", "two_tier": out, "detector_tol": 1e-4,
+           "conf_tol": 1e-4, "iou_min": 0.99, "cudnn_tf32": False}
+    emit(rec)
+    check(all(o["box_err_over_64px"] <= 1e-4 and o["logit_err"] <= 1e-4
+              and o["nms_kernel_equal_plain"] and o["replayed"]["masks"] > 0
+              and o["replayed"]["max_conf_diff"] <= 1e-4
+              and o["replayed"]["min_mask_iou"] >= 0.99 for o in out.values()),
+          f"the fast variant on the card disagrees with the CPU path: {rec}")
+
+
+def write_fast_checkpoints(torch, yw, esam, root, dev):
+    """YOLO-World-L (a full YOLO wrapper's ``{"model": {"model.model.N...":
+    f32}}`` with the batch-norm counters and the DFL arange conv) and
+    EfficientSAM-S (``{"model": ...}`` f32, its position embedding with a
+    class-token slot, the mask-prompt stack) from seeded random weights.
+    Returns the paths and the state dicts in the modules' form (host)."""
+    g = torch.Generator().manual_seed(SEED + 5)
+    det = yw.YOLOWorld.create("l", seed=SEED + 3, device=dev)
+    ysd = {k: v.float().cpu() for k, v in det.module.state_dict().items()}
+    del det
+    extra = {k[:-len("weight")] + "num_batches_tracked": torch.tensor(1000)
+             for k in ysd if k.endswith(".bn.weight")}
+    reg_max = yw.PRESETS["l"].reg_max
+    extra["model.22.dfl.conv.weight"] = torch.arange(reg_max, dtype=torch.float32).reshape(
+        1, reg_max, 1, 1)
+    paths = {"yolo_world": os.path.join(root, "yolov8l-worldv2.pt"),
+             "efficientsam": os.path.join(root, "efficient_sam_vits.pt")}
+    torch.save({"model": {"model." + k: v for k, v in {**ysd, **extra}.items()}},
+               paths["yolo_world"])
+    sam = esam.EfficientSAM.create("vits", seed=SEED + 4, device=dev)
+    ssd = {k: v.float().cpu() for k, v in sam.module.state_dict().items()}
+    del sam
+    pos = ssd["image_encoder.pos_embed"]
+    pos = torch.cat([torch.randn(1, 1, pos.shape[-1], generator=g),
+                     pos.reshape(1, -1, pos.shape[-1])], 1)
+    torch.save({"model": {**ssd, "image_encoder.pos_embed": pos, **mask_prompt_stack(torch, g)}},
+               paths["efficientsam"])
+    torch.cuda.empty_cache()
+    return paths, {"yolo_world": ysd, "efficientsam": ssd}
+
+
+def fast_variant(torch, mods, Config, work, dev, clip_files):
+    """The fast variant at full width through ``Segmentor2D(cfg)`` with no
+    model injected: YOLO-World-L (float32, as loaded), EfficientSAM-S in
+    bf16 and phase 4's CLIP ViT-L/14 archive (768-d, so YOLO-World guides on
+    hash embeddings), from their official files. ``run()`` on the 8-frame
+    968x1296 scene in the hit regime with launch counts set to 0 just before
+    it, a profiled pass, and banked ``run_classes`` over three classes
+    against per-class ``run()``. Returns the run's launch counts."""
+    seg2d, yw, esam, dispatch, io, rle, StageProfiler = mods
+    root = tempfile.mkdtemp(prefix="chip_smoke_fast_")
+    try:
+        t0 = time.perf_counter()
+        paths, written = write_fast_checkpoints(torch, yw, esam, root, dev)
+        emit({"phase": "write_checkpoints_fast", "seconds": time.perf_counter() - t0,
+              "bytes": {k: os.path.getsize(v) for k, v in paths.items()}})
+        detector = {"kind": "yolo_world", "yolo_world_checkpoint": paths["yolo_world"],
+                    "efficientsam_checkpoint": paths["efficientsam"],
+                    "clip_checkpoint": clip_files[0], "clip_bpe_path": clip_files[1]}
+        cfg = stage_config(Config, work, "fast", FRAME_HW, FRAME_BATCH, "bfloat16", detector)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        seg = seg2d.Segmentor2D(cfg, frame_loader=synthetic_frame)
+        total_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        tensors = {name: check_loaded(torch, m.module, written[name])
+                   for name, m in (("yolo_world", seg.detector), ("efficientsam", seg.sam))}
+        check(seg.detector.dtype == torch.float32 and seg.sam.dtype == torch.bfloat16
+              and seg.clip.dtype == torch.bfloat16, "fast variant dtypes")
+        check(seg.detector.clip is None, "a 768-d CLIP tower was attached to YOLO-World")
+        two_tier = seg._two_tier(FRAME_HW)
+        check(two_tier, "two-tier uploads are off at 968x1296")
+        from torch.utils.flop_counter import FlopCounterMode
+
+        h, w = seg.detector.cfg.img_size
+        with FlopCounterMode(display=False) as flops, torch.inference_mode():
+            seg.detector.module(torch.zeros(1, h, w, 3, device=dev),
+                                torch.zeros(1, seg.detector.cfg.text_dim, device=dev))
+        emit({"phase": "checkpoint_load_fast", "seconds": total_s,
+              "parameters": {name: sum(p.numel() for p in m.module.parameters())
+                             for name, m in (("yolo_world", seg.detector),
+                                             ("efficientsam", seg.sam))},
+              "detector_gflop_per_frame": flops.get_total_flops() / 1e9,
+              "load_seconds": seg.load_seconds,
+              "gb_read": {k: os.path.getsize(v) / 1e9
+                          for k, v in {**paths, "clip": clip_files[0]}.items()},
+              "tensors_checked": tensors, "bit_exact": True,
+              "detector_dtype": "float32", "sam_dtype": "bfloat16",
+              "guide_embeddings": "hash (CLIP ViT-L/14 is 768-d, YOLO-World's text_dim 512)",
+              "peak_memory_during_load_bytes": peak,
+              "resident_bytes_after_load": torch.cuda.memory_allocated() - base})
+
+        scenes = os.path.join(work, "scenes")
+        make_scene(scenes, "warmup_fast", 2)
+        make_scene(scenes, "scene_fast", N_FRAMES)
+        t0 = time.perf_counter()
+        seg2d.run(cfg, "clothes", scenes=["warmup_fast"], segmentor=seg)
+        torch.cuda.synchronize()
+        emit({"phase": "warmup_fast", "frames": 2, "seconds": time.perf_counter() - t0})
+
+        torch.cuda.reset_peak_memory_stats()
+        prof = StageProfiler("segmentation_2d")
+        dispatch.reset_launch_counts()
+        results = seg2d.run(cfg, "clothes", scenes=["scene_fast"], segmentor=seg, profiler=prof)
+        torch.cuda.synchronize()
+        launches = dict(dispatch.launch_counts)
+        scene_s = prof.durations["scene"]
+        encodes = prof.counts["sam_encode"]
+        emit({"phase": "seg2d_fast_full_width", "frames": N_FRAMES,
+              "frames_per_sec": N_FRAMES / scene_s, "scene_seconds": scene_s,
+              "stage_ms": {k: v * 1e3 for k, v in prof.durations.items()},
+              "stage_counts": dict(prof.counts), "stage_items": dict(prof.items),
+              "two_tier": two_tier, "launches": launches,
+              "flash_attention_per_encode_batch": launches["flash_attention"] / max(encodes, 1),
+              "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+              "frames_with_boxes": results[0]["frames_with_boxes"]})
+        blocks = len(seg.sam.cfg.global_attn_indexes)  # 12: every block is global
+        check(encodes > 0 and launches["flash_attention"] == blocks * encodes,
+              f"K3: {launches['flash_attention']} launches for {encodes} encode batches")
+        check(launches["nms_fixed"] == prof.counts["detect"] and launches["nms_fixed"] > 0,
+              f"nms_fixed: {launches['nms_fixed']} launches for {prof.counts['detect']} batches")
+        recs = check_records(torch, cfg, "clothes", "scene_fast", N_FRAMES)
+        emit({"phase": "output_check_fast", "records": len(recs),
+              "masks": sum(len(r["segmented_frame_masks"]) for r in recs)})
+
+        profile_scene(torch, seg2d, seg, cfg, "scene_fast", scene_s, "device_profile_fast")
+
+        # banked run_classes against per-class run(), three classes
+        classes = list(SWEEP_CLASSES)
+        cfgs = {name: cfg.override(**{
+            "paths.mask_2d_dir": os.path.join(work, f"masks_fast_{name}"),
+            "paths.checkpoint_dir": os.path.join(work, f"ckpt_fast_{name}")})
+            for name in ("run_per_class", "run_classes")}
+        passes = {}
+        for name in cfgs:
+            c_cfg = cfgs[name]
+            p = StageProfiler("segmentation_2d")
+            dispatch.reset_launch_counts()
+            t = time.perf_counter()
+            if name == "run_per_class":
+                for c in classes:
+                    seg2d.run(c_cfg, c, scenes=["scene_fast"], segmentor=seg, profiler=p)
+            else:
+                os.environ["BFF_SEG2D_FUSED"] = "0"
+                try:
+                    seg2d.run_classes(c_cfg, classes, scenes=["scene_fast"], segmentor=seg,
+                                      profiler=p)
+                finally:
+                    del os.environ["BFF_SEG2D_FUSED"]
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t
+            passes[name] = {"seconds": secs, "class_frames_per_sec": N_FRAMES * len(classes) / secs,
+                            "launches": dict(dispatch.launch_counts),
+                            "spans_s": dict(p.durations)}
+        worst_conf, worst_iou, n = records_diff(io, rle, cfgs["run_per_class"],
+                                                cfgs["run_classes"], classes, "scene_fast")
+        emit({"phase": "fast_run_classes", "classes": classes, "frames": N_FRAMES,
+              "passes": passes, "banked_vs_run": {
+                  "masks": n, "max_conf_diff": worst_conf, "min_mask_iou": worst_iou,
+                  "conf_tol": 1e-4, "iou_min": 0.999}})
+        check(n > 0 and worst_conf <= 1e-4 and worst_iou >= 0.999,
+              f"fast variant: banked run_classes differs from run(): {worst_conf} {worst_iou}")
+        check(passes["run_classes"]["launches"]["nms_fixed"] > 0, "run_classes: no NMS launch")
+        del seg
+        torch.cuda.empty_cache()
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -1284,9 +1669,12 @@ def main() -> int:
     from beyondff_tpu_torch.kernels import deform_window as dw
     from beyondff_tpu_torch.kernels import flash_attention as fa
     from beyondff_tpu_torch.kernels import mask_iou as kiou
+    from beyondff_tpu_torch.kernels import nms
     from beyondff_tpu_torch.kernels import window_attention as wa
     from beyondff_tpu_torch.models import clip as clip_mod
+    from beyondff_tpu_torch.models import efficientsam as esam
     from beyondff_tpu_torch.models import sam as sam_mod
+    from beyondff_tpu_torch.models import yolo_world as yw
     from beyondff_tpu_torch.core import rle
     from beyondff_tpu_torch.models.gdino import deformable, model as gd
     from beyondff_tpu_torch.orchestration import sweep
@@ -1347,6 +1735,13 @@ def main() -> int:
                                              250_007, dev)
     cases["iou_cross_ragged"] = mask_iou_case(torch, kiou, "refinement_cross_ragged", 20, 150,
                                               250_007, dev)
+    # the fast variant: EfficientSAM-S's global blocks (K3: 6 heads x B of
+    # the 64 x 64 grid, head dim 64, every key valid) for one frame and the
+    # main path's batch, and YOLO-World-L's NMS over the batch
+    for b in (1, FRAME_BATCH):
+        cases[("k3_efficientsam", "bfloat16", b)] = flash_case(
+            torch, fa, "efficientsam_global", (6 * b, 4096, 64), 4096, torch.bfloat16, dev)
+    cases["nms"] = nms_case(torch, nms, dev)
 
     work = os.path.join(REPO, "chiprun_out", "chip_smoke")
     shutil.rmtree(work, ignore_errors=True)
@@ -1360,6 +1755,7 @@ def main() -> int:
     small_reference_3d(torch, mods3d, Config, work3d, dev)
     small_sweep(torch, (Config, seg2d, gd, sam_mod, clip_mod, io, sweep, rle), Config, work3d,
                 dev)
+    small_reference_fast(torch, (Config, seg2d, yw, esam, clip_mod, nms, io, rle), work)
 
     # ---------------------------------------------------------------- 4
     t0 = time.perf_counter()
@@ -1424,7 +1820,14 @@ def main() -> int:
                 "flash_attention_relpos": sweep_launches["flash_attention_relpos"],
                 "window_attention_relpos": sweep_launches["window_attention_relpos"]}
     shutil.rmtree(work3d)
+
+    # ---------------------------------------------------------------- 8
+    fast_launches = fast_variant(
+        torch, (seg2d, yw, esam, dispatch, io, rle, StageProfiler), Config, work, dev,
+        (cfg.detector.clip_checkpoint, cfg.detector.clip_bpe_path))
     shutil.rmtree(ckpt_dir)
+    launches = {**launches, "flash_attention_unmasked": fast_launches["flash_attention"],
+                "nms_fixed": fast_launches["nms_fixed"]}
 
     table = []
     for key, src, replaces in (
@@ -1437,10 +1840,17 @@ def main() -> int:
             ("relpos_window", "beyondff_tpu_torch/csrc/relpos_attention.cu",
              "beyondff_tpu/kernels/window_attention.py:51"),
             ("iou_self", "beyondff_tpu_torch/csrc/mask_iou.cu",
-             "beyondff_tpu/kernels/mask_iou.py:55")):
-        c = cases[key] if key.startswith("iou") else cases[(key, "bfloat16", FRAME_BATCH)]
-        table.append({"name": c["kernel"], "route": "cuda", "source": src, "replaces": replaces,
-                      "launches": launches[c["kernel"]], "max_abs_err": c["max_abs_err"],
+             "beyondff_tpu/kernels/mask_iou.py:55"),
+            ("k3_efficientsam", "beyondff_tpu_torch/csrc/flash_attention.cu",
+             "beyondff_tpu/kernels/flash_attention.py:68"),
+            ("nms", "beyondff_tpu_torch/csrc/nms_fixed.cu",
+             "beyondff_tpu/models/yolo_world.py:313")):
+        c = cases[key] if key in ("iou_self", "nms") else cases[(key, "bfloat16", FRAME_BATCH)]
+        # K3 is K2's kernel with every key valid; its row counts the fast
+        # variant's launches (EfficientSAM's global blocks)
+        name = "flash_attention_unmasked" if key == "k3_efficientsam" else c["kernel"]
+        table.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
+                      "launches": launches[name], "max_abs_err": c["max_abs_err"],
                       "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
                       "bound_by": c["bound_by"], "library_ms": c["library_ms"],
                       # device time per launch (and of the library call), and rates

@@ -17,6 +17,7 @@ from beyondff_tpu_torch.kernels import deform_window as tdw
 from beyondff_tpu_torch.kernels import dispatch
 from beyondff_tpu_torch.kernels import flash_attention as tfa
 from beyondff_tpu_torch.kernels import mask_iou as tiou
+from beyondff_tpu_torch.kernels import nms as tnms
 from beyondff_tpu_torch.kernels import window_attention as twa
 from beyondff_tpu_torch.models.gdino import deformable as tdeform
 
@@ -709,3 +710,78 @@ def test_window_relpos_kernel_matches_plain_on_card(cuda_device, dtype, g, wh, w
     assert dispatch.launch_counts["window_attention_relpos"] == before + 1
     _assert_within_bound(got, want, tfa.bf16_error_bound(q, k, v, want, bias_h=bias_h,
                                                          bias_w=bias_w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bh", [6, 24])
+def test_flash_kernel_at_efficientsam_global_blocks_on_card(cuda_device, dtype, bh):
+    """K3 at EfficientSAM-S's global blocks: head dim 64 over the 64 x 64
+    grid (S 4096, every key valid), 6 heads for one frame and 24 for the
+    main path's batch of 4; f32 within 1e-4, bf16 within the derived bound."""
+    g = torch.Generator(device=cuda_device).manual_seed(bh)
+    q, k, v = (torch.randn(bh, 4096, 64, generator=g, device=cuda_device).to(dtype)
+               for _ in range(3))
+    before = dispatch.launch_counts["flash_attention"]
+    got = tfa.attend(q, k, v)
+    assert dispatch.launch_counts["flash_attention"] == before + 1
+    want = tfa.flash_attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    _assert_within_bound(got, want, tfa.bf16_error_bound(q, k, v, want))
+
+
+def _nms_frames(gen, dev, b, a, spread):
+    """Clustered boxes (8 400 anchors a frame at YOLO-World-L's input) with
+    uniform scores, as the detector's NMS input."""
+    centers = torch.rand(b, 40, 2, generator=gen, device=dev) * 640
+    pick = torch.randint(0, 40, (b, a), generator=gen, device=dev)
+    c = torch.gather(centers, 1, pick[..., None].expand(-1, -1, 2))
+    c = c + torch.randn(b, a, 2, generator=gen, device=dev) * spread
+    half = torch.rand(b, a, 2, generator=gen, device=dev) * 60 + 5
+    return torch.cat([c - half, c + half], -1), torch.rand(b, a, generator=gen, device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("top_k", [1, 5, 100, 9000])
+def test_nms_kernel_matches_plain_on_card(cuda_device, top_k):
+    """The NMS kernel against its plain version, index for index: four
+    frames of 8 400 anchors, the scan stopping early at top_k 1, 5 and 100,
+    and every survivor with the padding at top_k 9 000."""
+    gen = torch.Generator(device=cuda_device).manual_seed(top_k)
+    boxes, scores = _nms_frames(gen, cuda_device, 4, 8400, 8.0)
+    before = dispatch.launch_counts["nms_fixed"]
+    keep, valid = tnms.nms_fixed(boxes, scores, 0.5, top_k)
+    assert dispatch.launch_counts["nms_fixed"] == before + 1
+    want_keep, want_valid = tnms.nms_fixed_plain(boxes, scores, 0.5, top_k)
+    torch.cuda.synchronize()
+    assert torch.equal(keep, want_keep) and torch.equal(valid, want_valid)
+    assert int(valid.sum()) > 0
+    if top_k == 9000:
+        assert not bool(valid.all())  # padding rows: index 0, not valid
+        assert int(keep[~valid].abs().sum()) == 0
+
+
+@pytest.mark.cuda
+def test_nms_kernel_on_the_threshold_on_card(cuda_device):
+    """Thresholds set to IoUs the plain version computes for pairs of the
+    input, so those pairs sit exactly on the threshold (``>`` keeps them):
+    the kernel's unfused f32 arithmetic decides every one as the plain
+    version does, at several thresholds, with tied scores in the mix."""
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    boxes, scores = _nms_frames(gen, cuda_device, 2, 2000, 3.0)
+    scores = torch.round(scores * 8) / 8  # ties, kept in index order
+    bs = boxes[0]
+    area = (bs[:, 2] - bs[:, 0]).clamp_min(0) * (bs[:, 3] - bs[:, 1]).clamp_min(0)
+    x1 = torch.maximum(bs[0, 0], bs[1:, 0])
+    y1 = torch.maximum(bs[0, 1], bs[1:, 1])
+    x2 = torch.minimum(bs[0, 2], bs[1:, 2])
+    y2 = torch.minimum(bs[0, 3], bs[1:, 3])
+    inter = (x2 - x1).clamp_min(0) * (y2 - y1).clamp_min(0)
+    iou = inter / (area[0] + area[1:] - inter + 1e-9)
+    on = iou[(iou > 0.2) & (iou < 0.8)][:6].tolist()
+    assert len(on) == 6
+    for thr in on:
+        keep, valid = tnms.nms_fixed(boxes, scores, thr, 300)
+        want_keep, want_valid = tnms.nms_fixed_plain(boxes, scores, thr, 300)
+        torch.cuda.synchronize()
+        assert torch.equal(keep, want_keep) and torch.equal(valid, want_valid), thr

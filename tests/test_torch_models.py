@@ -18,14 +18,18 @@ import pytest
 import torch
 
 from beyondff_tpu.models import clip as jclip
+from beyondff_tpu.models import efficientsam as jesam
 from beyondff_tpu.models import sam as jsam
+from beyondff_tpu.models import yolo_world as jyw
 from beyondff_tpu.models.gdino import GroundingDINO as JGroundingDINO
 from beyondff_tpu.models.gdino import convert as jgconvert
 from beyondff_tpu.models.layers import Attention as JAttention
 from beyondff_tpu_torch.models import clip as tclip
 from beyondff_tpu_torch.models import convert
+from beyondff_tpu_torch.models import efficientsam as tesam
 from beyondff_tpu_torch.models import layers as tlayers
 from beyondff_tpu_torch.models import sam as tsam
+from beyondff_tpu_torch.models import yolo_world as tyw
 from beyondff_tpu_torch.models.gdino import model as tgdino
 
 torch.set_num_threads(2)
@@ -37,26 +41,32 @@ def _np_tree(params):
     return jax.tree_util.tree_map(np.asarray, params)
 
 
-def _port(kind, preset, device="cpu"):
-    make = {"gdino": lambda: tgdino.GDINOModule(tgdino.PRESETS[preset]),
+def _make(kind, preset):
+    return {"gdino": lambda: tgdino.GDINOModule(tgdino.PRESETS[preset]),
             "sam": lambda: tsam.SAMModule(tsam.PRESETS[preset]),
-            "clip": lambda: tclip.CLIPModule(tclip.PRESETS[preset])}[kind]
-    return tlayers.build(make, torch.device(device), seed=3)
+            "clip": lambda: tclip.CLIPModule(tclip.PRESETS[preset]),
+            "yolo_world": lambda: tyw.YOLOWorldModule(tyw.PRESETS[preset]),
+            "efficientsam": lambda: tsam.SAMModule(tesam.PRESETS[preset])}[kind]
+
+
+def _port(kind, preset, device="cpu"):
+    return tlayers.build(_make(kind, preset), torch.device(device), seed=3)
 
 
 def _jax_convert(kind, path, cfg):
     if kind == "gdino":
         return jgconvert.convert_torch_checkpoint(path, cfg)
-    if kind == "sam":
-        return jsam.convert_torch_checkpoint(path, cfg)
-    return jclip.convert_torch_checkpoint(path, cfg)
+    return {"sam": jsam, "clip": jclip, "yolo_world": jyw,
+            "efficientsam": jesam}[kind].convert_torch_checkpoint(path, cfg)
 
 
 _FROM_JAX = {"gdino": convert.gdino_from_jax, "sam": convert.sam_from_jax,
-             "clip": convert.clip_from_jax}
+             "clip": convert.clip_from_jax, "yolo_world": convert.yolo_world_from_jax,
+             "efficientsam": convert.efficientsam_from_jax}
+KINDS = ["gdino", "sam", "clip", "yolo_world", "efficientsam"]
 
 
-@pytest.mark.parametrize("kind", ["gdino", "sam", "clip"])
+@pytest.mark.parametrize("kind", KINDS)
 def test_weights_round_trip_through_jax_converter(tmp_path, kind):
     module = _port(kind, "test")
     sd = module.state_dict()
@@ -74,19 +84,19 @@ _IGNORE = {
     "gdino": jgconvert.IGNORED_CHECKPOINT_KEYS,
     "sam": (r"^prompt_encoder\.mask_downscaling\.", r"num_batches_tracked$"),
     "clip": (r"^input_resolution$", r"^context_length$", r"^vocab_size$"),
+    "yolo_world": tyw.IGNORED_CHECKPOINT_KEYS,
+    "efficientsam": (r"^prompt_encoder\.mask_downscaling\.", r"num_batches_tracked$"),
 }
 _FULL = {"gdino": ("swinb", "gdino_swinb"), "sam": ("vit_h", "sam_vit_h"),
-         "clip": ("ViT-L/14", "clip_vit_l14")}
+         "clip": ("ViT-L/14", "clip_vit_l14"), "yolo_world": ("l", "yolo_world_l"),
+         "efficientsam": ("vits", "efficientsam_vits")}
 
 
-@pytest.mark.parametrize("kind", ["gdino", "sam", "clip"])
+@pytest.mark.parametrize("kind", KINDS)
 def test_full_preset_keys_match_official_checkpoint(kind):
     preset, fixture = _FULL[kind]
-    make = {"gdino": lambda: tgdino.GDINOModule(tgdino.PRESETS[preset]),
-            "sam": lambda: tsam.SAMModule(tsam.PRESETS[preset]),
-            "clip": lambda: tclip.CLIPModule(tclip.PRESETS[preset])}[kind]
     with torch.device("meta"):
-        keys = set(make().state_dict())
+        keys = set(_make(kind, preset)().state_dict())
     with open(os.path.join(_FIX, f"{fixture}_keys.txt")) as f:
         official = {k for k in f.read().splitlines() if k}
     pats = [re.compile(p) for p in _IGNORE[kind]]
