@@ -242,6 +242,7 @@ def ms_deform_sample(value: torch.Tensor, shapes: Sequence[Tuple[int, int]],
     module docstring for the modes. Same arguments as the plain version."""
     if not dispatch.kernel_device(value, locs, aw):
         return ms_deform_sample_plain(value, shapes, locs, aw, modes)
+    dispatch.refuse_autograd("ms_deform_sample", value, locs, aw)
     shapes = tuple((int(h), int(w)) for h, w in shapes)
     if value.dim() != 4 or locs.dim() != 6 or aw.dim() != 5:
         raise ValueError("value (B, S, heads, hd), locs (B, Q, heads, L, P, 2) and "

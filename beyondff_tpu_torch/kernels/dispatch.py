@@ -35,6 +35,17 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
     return dev
 
 
+def refuse_autograd(name: str, *tensors: Optional[torch.Tensor]) -> None:
+    """Raise ``RuntimeError`` before a kernel launch that autograd would
+    have to record: the kernels have no backward, so their output would
+    silently cut the graph, leave the parameters upstream without a
+    gradient, and ``AdamW`` would skip them. The JAX package raises in the
+    same place, when it differentiates a ``pallas_call`` that has no VJP."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name}: the CUDA kernel has no backward; run it under "
+                           "torch.no_grad() or on inputs that do not require grad")
+
+
 def kernel_device(*tensors: torch.Tensor) -> bool:
     """True when the tensors lie on a CUDA device (launch the kernel), False
     when they lie on the CPU (plain version); raises for anything else."""

@@ -74,6 +74,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """(BH, S, D) -> (BH, S, D); scale defaults to D ** -0.5."""
     if not dispatch.kernel_device(q, k, v):
         return flash_attention_plain(q, k, v, valid_len, scale)
+    dispatch.refuse_autograd("flash_attention", q, k, v)
     if q.dim() != 3 or q.shape != k.shape or q.shape != v.shape:
         raise ValueError(f"q, k, v must share one (BH, S, D) shape, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -180,6 +181,7 @@ def flash_attention_relpos(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     S = kh * kw, kh + kw <= 256, D <= 128; scale defaults to D ** -0.5."""
     if not dispatch.kernel_device(q, k, v, bias_h, bias_w):
         return attend_relpos_plain(q, k, v, bias_h, bias_w, kw, scale)
+    dispatch.refuse_autograd("flash_attention_relpos", q, k, v, bias_h, bias_w)
     kh = bias_h.shape[-1]
     _check_relpos("flash_attention_relpos", q, k, v, bias_h, bias_w, kh, kw)
     if kh + kw > 256:

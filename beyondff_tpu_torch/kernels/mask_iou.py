@@ -35,6 +35,7 @@ def pairwise_iou(a: torch.Tensor, b: Optional[torch.Tensor] = None) -> torch.Ten
     """(Ia, N) x (Ib, N) bool -> (Ia, Ib) float32 IoU; ``b`` None is a vs a."""
     if not dispatch.kernel_device(*((a,) if b is None else (a, b))):
         return pairwise_iou_plain(a, b)
+    dispatch.refuse_autograd("mask_iou", a, b)
     for t in (a,) if b is None else (a, b):
         if t.dtype != torch.bool or t.dim() != 2 or not t.is_contiguous():
             raise ValueError(f"pairwise_iou takes contiguous 2-D bool masks, got "

@@ -71,6 +71,7 @@ def nms_fixed(boxes: torch.Tensor, scores: torch.Tensor, iou_thres: float, top_k
     (B, top_k) bool)."""
     if not dispatch.kernel_device(boxes, scores):
         return nms_fixed_plain(boxes, scores, iou_thres, top_k)
+    dispatch.refuse_autograd("nms_fixed", boxes, scores)
     if boxes.dim() != 3 or boxes.shape[-1] != 4 or scores.shape != boxes.shape[:2]:
         raise ValueError(f"nms_fixed takes (B, A, 4) boxes and (B, A) scores, got "
                          f"{tuple(boxes.shape)} and {tuple(scores.shape)}")

@@ -39,6 +39,7 @@ def window_attention_relpos(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """(G, S, D) -> (G, S, D) with S = win_h * win_w <= 256 and D <= 128."""
     if not dispatch.kernel_device(q, k, v, bias_h, bias_w):
         return window_attention_relpos_plain(q, k, v, bias_h, bias_w, win_h, win_w)
+    dispatch.refuse_autograd("window_attention_relpos", q, k, v, bias_h, bias_w)
     fa._check_relpos("window_attention_relpos", q, k, v, bias_h, bias_w, win_h, win_w)
     if q.shape[1] > 256:
         raise ValueError(f"window_attention_relpos: {q.shape[1]} tokens > 256")

@@ -121,6 +121,23 @@ class CLIPModule(nn.Module):
         x = x[torch.arange(x.shape[0], device=x.device), eot]
         return x @ self.text_projection.to(x.dtype)
 
+    def embed(self, images, tokens):
+        """Both towers' features, L2-normalised in the towers' dtype."""
+        img = self.encode_image(images)
+        txt = self.encode_text(tokens)
+        return (img / torch.linalg.vector_norm(img, dim=-1, keepdim=True),
+                txt / torch.linalg.vector_norm(txt, dim=-1, keepdim=True))
+
+    def logits(self, img, txt):
+        """Scaled cosine similarities of normalised features: (Bi, Bt)."""
+        return self.logit_scale.exp() * img @ txt.T
+
+    def forward(self, images, tokens):
+        """(B, H, W, 3) normalized images, (B, L) tokens -> (B, B) scaled
+        cosine similarities (the JAX ``CLIPModule.__call__``), the logits
+        the contrastive loss reads."""
+        return self.logits(*self.embed(images, tokens))
+
 
 class CLIP:
     """Inference wrapper: crop preprocessing + both encoders on one device."""

@@ -62,7 +62,24 @@ Phases (each one's failure ends the run with a non-zero exit):
    hash guide embeddings) with launch counts set to 0 just before it: K3
    must run 12 times per SAM encode batch and the NMS kernel once per
    detection batch; then a profiled pass and banked ``run_classes`` over
-   three classes against per-class ``run()``.
+   three classes against per-class ``run()``;
+9. drive the training path and the parallel layer on a one-rank NCCL group
+   and a 1 x 1 mesh, launch counts set to 0 just before and read after
+   (no kernel lies on this path: all must stay 0): ``attend`` on CUDA
+   inputs that require grad must raise (line ``autograd_guard``); CLIP
+   ViT-L/14 contrastive steps in f32 at batch 32, 224 px, context 77
+   through ``make_sharded_train_step`` (a warm-up step counted by
+   ``mfu.program_cost``, three steps timed with CUDA events; losses, step
+   ms, ``mfu.summarize`` of the median step, the f32 and bf16 bounds, peak
+   memory); the state
+   through ``training.checkpoint`` and back, the next step bit-equal with
+   and without the round trip; SAM ViT-H decoder fine-tuning on 64 x 64 x
+   256 embeddings of 8 synthetic 1024 x 1024 frames from the port's f32
+   encoder, one box a frame with its rectangle as the target, five steps
+   (the first counted by ``mfu.program_cost``, four timed): the loss falls, image-encoder leaves move only by AdamW's decay (the
+   JAX step's behaviour), every decoder-transformer leaf moves beyond it;
+   the sharded RLE and packed lifts over phase 7's 250 000-point,
+   300-frame fixture, equal to ``core.geometry``'s.
 
 Phase 2 also holds the mask-IoU kernel bit for bit against its plain version
 at the aggregation's (600, 250 000) self-IoU and refinement's (20 x 150,
@@ -1657,6 +1674,334 @@ def fast_variant(torch, mods, Config, work, dev, clip_files):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ------------------------------------------ the training path and parallel layer
+TRAIN_BATCH = 32  # CLIP (image, text) pairs a contrastive step
+SAM_TRAIN_FRAMES = 8
+
+
+def local(torch, t):
+    """A parameter's own tensor (the local shard of a tensor-parallel one)."""
+    from torch.distributed.tensor import DTensor
+
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
+def process_group(torch):
+    """A one-rank NCCL group on a free port of this host."""
+    import socket
+    import datetime
+
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    torch.distributed.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                                         world_size=1, rank=0,
+                                         timeout=datetime.timedelta(seconds=120))
+
+
+def autograd_guard(torch, fa, dispatch, dev):
+    """``attend`` on CUDA inputs that require grad must raise before it
+    launches (the kernels have no backward); under ``no_grad`` it launches."""
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    q = torch.randn(8, 512, 64, device=dev, generator=g).requires_grad_(True)
+    before = dispatch.launch_counts["flash_attention"]
+    raised = None
+    try:
+        fa.attend(q, q, q)
+    except RuntimeError as e:
+        raised = str(e)
+    check(raised is not None and "no backward" in raised,
+          "attend on inputs that require grad did not raise")
+    check(dispatch.launch_counts["flash_attention"] == before, "the refused call launched")
+    with torch.no_grad():
+        fa.attend(q, q, q)
+    torch.cuda.synchronize()
+    check(dispatch.launch_counts["flash_attention"] == before + 1, "attend under no_grad")
+    dispatch.launch_counts["flash_attention"] = before  # a check, not a path launch
+    emit({"phase": "autograd_guard", "raised": raised})
+
+
+def clip_step_flops(cfg, b):
+    """FLOPs of a contrastive step by the shapes: each tower's matmuls
+    (weights and attention), the patch embedding, both projections and the
+    (B, B) logits forward, x 3 for the backward (x 2 for the patch
+    embedding, whose input needs no gradient)."""
+    def tower(tokens, width, layers):
+        return layers * (2 * tokens * 12 * width * width + 4 * tokens * tokens * width)
+
+    grid = (cfg.image_resolution // cfg.vision_patch) ** 2
+    patch = 2 * grid * 3 * cfg.vision_patch ** 2 * cfg.vision_width
+    pair = (tower(grid + 1, cfg.vision_width, cfg.vision_layers)
+            + tower(cfg.context_length, cfg.text_width, cfg.text_layers)
+            + 2 * cfg.embed_dim * (cfg.vision_width + cfg.text_width))
+    return 3 * (b * pair + 2 * b * b * cfg.embed_dim) + 2 * b * patch
+
+
+def train_clip_full_width(torch, mods, mesh, dev, work):
+    """CLIP ViT-L/14 contrastive steps in f32 (TF32 off, phase 1) at 224 px
+    and context 77 through ``make_sharded_train_step`` on the 1 x 1 mesh:
+    a warm-up step counted by ``mfu.program_cost``, three timed steps, then
+    the checkpoint round trip of the state."""
+    from beyondff_tpu_torch.utils.profiling import PEAK_FLOPS
+
+    clip_mod, layers, trainer, ckpt, mfu = mods
+    cfg = clip_mod.PRESETS["ViT-L/14"]
+    t0 = time.perf_counter()
+    module = layers.build(lambda: clip_mod.CLIPModule(cfg), dev, torch.float32, SEED + 6)
+    init_state, step = trainer.make_sharded_train_step(module, mesh, lr=1e-5)
+    state = init_state()
+    n_params = sum(p.numel() for p in module.parameters())
+    del module
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    b, n = TRAIN_BATCH, cfg.image_resolution
+    images = torch.randn(b, n, n, 3, device=dev, generator=g)
+    tokens = torch.randint(1, cfg.vocab_size - 1, (b, cfg.context_length), device=dev,
+                           generator=g)
+    tokens[:, cfg.context_length // 4] = cfg.vocab_size - 1  # EOT
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    first = {}
+
+    def warm():
+        _, first["loss"] = step(state, images, tokens)
+        torch.cuda.synchronize()
+
+    cost = mfu.program_cost(warm)
+    losses, step_ms = [float(first["loss"])], []
+    retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+    for _ in range(3):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        _, loss = step(state, images, tokens)
+        end.record()
+        torch.cuda.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        losses.append(float(loss))
+    peak = torch.cuda.max_memory_allocated()
+    # allocations that had to free the allocator's cache and try again
+    retries = torch.cuda.memory_stats().get("num_alloc_retries", 0) - retries
+    median_s = float(np.median(step_ms)) / 1e3
+    analytic = clip_step_flops(cfg, b)
+    check(cost is not None and all(np.isfinite(losses)), f"CLIP step: losses {losses}")
+    check(state.step == 4, "CLIP step count")
+    emit({"phase": "train_clip_full_width", "model": "ViT-L/14", "dtype": "float32",
+          "tf32": False, "batch": b, "image": n, "context": cfg.context_length,
+          "parameters": n_params, "mesh": list(mesh.shape), "build_s": build_s,
+          "losses": losses, "step_ms": step_ms,
+          "mfu": mfu.summarize("clip_train_step", cost, median_s, dev),  # the median step
+          "counted_tflop": cost.flops / 1e12, "analytic_tflop": analytic / 1e12,
+          "bound_f32_ms": cost.flops / PEAK_FLOPS["float32"] * 1e3,
+          "bound_bf16_ms": cost.flops / PEAK_FLOPS["bfloat16"] * 1e3,
+          "share_of_f32_peak": cost.flops / median_s / PEAK_FLOPS["float32"],
+          "share_of_bf16_peak": cost.flops / median_s / PEAK_FLOPS["bfloat16"],
+          "max_memory_allocated_bytes": peak, "alloc_retries_in_timed_steps": retries})
+    check(abs(cost.flops / analytic - 1) < 0.05,
+          f"counted {cost.flops:.4g} FLOPs against {analytic:.4g} by the shapes")
+
+    # the state (module, AdamW moments, step) through a file and back; the
+    # next step must be bit-equal with and without the round trip
+    path = os.path.join(work, "clip_state.pt")
+    t0 = time.perf_counter()
+    ckpt.save_params(path, state)
+    save_s = time.perf_counter() - t0
+    size = os.path.getsize(path)
+    like = init_state()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loaded = ckpt.load_params(path, like)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    os.remove(path)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        _, la = step(state, images, tokens)
+        _, lb = step(loaded, images, tokens)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    torch.cuda.synchronize()
+    sa, sb = state.module.state_dict(), loaded.module.state_dict()
+    differ = [k for k in sa if not torch.equal(local(torch, sa[k]), local(torch, sb[k]))]
+    moments = all(torch.equal(local(torch, x[k]), local(torch, y[k]))
+                  for x, y in zip(state.optimizer.state.values(), loaded.optimizer.state.values())
+                  for k in ("exp_avg", "exp_avg_sq"))
+    emit({"phase": "checkpoint_roundtrip", "bytes": size, "save_s": save_s, "load_s": load_s,
+          "step": loaded.step, "loss_equal": bool(torch.equal(la, lb)),
+          "params_differing": len(differ), "moments_equal": moments})
+    check(not differ and moments and torch.equal(la, lb) and loaded.step == state.step == 5,
+          f"the step after the checkpoint round trip differs: {differ[:5]}")
+
+
+def train_sam_decoder_full_width(torch, mods, mesh, dev):
+    """SAM ViT-H decoder fine-tuning in f32: 8 synthetic 1024 x 1024 frames
+    encoded by the port's ViT-H (``SAM.encode_frames``; its inference
+    tensors cloned for autograd), one box a frame, the box's rectangle on
+    the 256 x 256 grid as the target, five ``make_sam_finetune_step`` steps."""
+    sam_mod, layers, ft, mfu = mods
+    cfg = sam_mod.PRESETS["vit_h"]
+    lr, wd = 1e-4, 0.01
+    os.environ.pop("BFF_SAM_RELPOS_FLASH", None)  # the JAX default: no kernel on the encoder
+    module = layers.build(lambda: sam_mod.SAMModule(cfg), dev, torch.float32, SEED + 7)
+    sam = sam_mod.SAM(cfg, module)
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    s = cfg.img_size
+    frames = torch.randint(0, 256, (SAM_TRAIN_FRAMES, s, s, 3), dtype=torch.uint8, device=dev,
+                           generator=g)
+    t0 = time.perf_counter()
+    embs = torch.cat([sam.encode_frames(frames[i:i + 4]) for i in range(0, len(frames), 4)])
+    torch.cuda.synchronize()
+    encode_s = time.perf_counter() - t0
+    embs = embs.clone()  # out of inference mode, so autograd may save it
+    lo = torch.rand(SAM_TRAIN_FRAMES, 2, device=dev, generator=g) * 600
+    wh = 128 + torch.rand(SAM_TRAIN_FRAMES, 2, device=dev, generator=g) * 296
+    boxes = torch.cat([lo, lo + wh], 1)
+    grid = 4 * embs.shape[1]
+    centre = (torch.arange(grid, device=dev, dtype=torch.float32) + 0.5) * (s / grid)
+    inside_x = (centre >= boxes[:, None, 0:1]) & (centre < boxes[:, None, 2:3])
+    inside_y = (centre >= boxes[:, None, 1:2]) & (centre < boxes[:, None, 3:4])
+    targets = (inside_y.transpose(1, 2) & inside_x).float()  # (B, grid, grid)
+    init_state, step = ft.make_sam_finetune_step(module, mesh, lr=lr)
+    state = init_state()
+    start = {k: v.clone() for k, v in module.state_dict().items()}
+    del sam
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    first = {}
+
+    def counted():
+        _, first["loss"] = step(state, embs, boxes, targets)
+        torch.cuda.synchronize()
+
+    cost = mfu.program_cost(counted)  # the first of the five steps, not timed
+    losses, step_ms = [float(first["loss"])], []
+    for _ in range(4):
+        a, z = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        _, loss = step(state, embs, boxes, targets)
+        z.record()
+        torch.cuda.synchronize()
+        step_ms.append(a.elapsed_time(z))
+        losses.append(float(loss))
+    peak = torch.cuda.max_memory_allocated()
+    decay = (1 - lr * wd) ** 5
+    enc_dev, enc_moved, dec_leaves, dec_moved, dec_move = 0.0, 0, 0, 0, 0.0
+    for k, v in state.module.state_dict().items():
+        want = start[k] * decay
+        dev_k = float((v - want).abs().max())
+        scale = float(want.abs().max())
+        if ft.frozen(k):
+            enc_dev = max(enc_dev, dev_k / max(scale, 1e-30))
+            enc_moved += not torch.equal(v, start[k])
+        elif k.startswith("mask_decoder.transformer."):
+            # moved beyond the decay and its float rounding
+            dec_leaves += 1
+            dec_moved += dev_k > 1e-6 * scale
+            dec_move = max(dec_move, dev_k)
+    n_enc = sum(ft.frozen(k) for k in start)
+    emit({"phase": "train_sam_decoder_full_width", "model": "vit_h", "dtype": "float32",
+          "frames": SAM_TRAIN_FRAMES, "embedding": list(embs.shape[1:]), "encode_s": encode_s,
+          "parameters": sum(v.numel() for v in start.values()), "lr": lr, "losses": losses,
+          "step_ms": step_ms,
+          "mfu": mfu.summarize("sam_decoder_step", cost, float(np.median(step_ms)) / 1e3, dev),
+          "encoder_leaves": n_enc, "encoder_leaves_moved": enc_moved,
+          "encoder_max_rel_dev_from_decay": enc_dev,
+          "decoder_transformer_leaves": dec_leaves, "decoder_transformer_leaves_moved": dec_moved,
+          "decoder_max_abs_move": dec_move, "max_memory_allocated_bytes": peak})
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0], f"SAM losses {losses}")
+    check(enc_dev <= 1e-6, f"encoder leaves moved beyond the decay: {enc_dev}")
+    check(enc_moved > 0, "no encoder leaf decayed (the JAX step decays them)")
+    check(dec_leaves and dec_moved == dec_leaves,
+          f"{dec_leaves - dec_moved} of the decoder transformer's {dec_leaves} leaves did not move")
+
+
+def lift_fixture(torch, dispatch_mods, root, dev):
+    """The full-width 3D fixture's lift inputs on the card: its 250 000
+    points, the 300 frames' fused projections and depth (prepared to
+    968 x 1296 as the projection stage prepares it) and every frame's RLE
+    run bounds (frames without records: pad runs only)."""
+    geometry, rle, io, readers = dispatch_mods
+    scene = os.path.join(root, "2D", "scene0000_00")
+    reader = readers.build_dataset("scannet200", scene)
+    intr = reader.intrinsic()
+    pts = np.load(os.path.join(root, "3D", "npy", "scene0000_00.npy"))[:, :3]
+    records = io.load_frame_records(os.path.join(root, "mask_2d", QUERY, "scene0000_00.pth"))
+    by_frame = {str(r["frame_id"]).rsplit(".", 1)[0]: r for r in records}
+    ids = reader.frame_ids
+    hw = FRAME_HW[0] * FRAME_HW[1]
+    m = max(len(r["segmented_frame_masks"]) for r in records)
+    bounds = [[rle.rle_bounds(x) for x in by_frame[f]["segmented_frame_masks"]]
+              if f in by_frame else [] for f in ids]
+    r = max(len(s0) for fr in bounds for s0, _ in fr)
+    st = np.full((len(ids), m, r), hw + 1, np.int64)
+    en = np.zeros((len(ids), m, r), np.int64)
+    for i, fr in enumerate(bounds):
+        for j, (s0, e0) in enumerate(fr):
+            st[i, j, :len(s0)] = s0
+            en[i, j, :len(e0)] = e0
+    raw = torch.from_numpy(np.stack([reader.depth_raw(f) for f in ids]).view(np.int16)).to(dev)
+    return (torch.from_numpy(geometry.homogenize(pts)).to(dev),
+            torch.from_numpy(np.stack([geometry.fuse_projection(intr, reader.pose(f))
+                                       .astype(np.float32) for f in ids])).to(dev),
+            geometry.prepare_depth(raw, FRAME_HW, 1000.0),
+            torch.from_numpy(st).to(dev), torch.from_numpy(en).to(dev), m)
+
+
+def sharded_lift_full_width(torch, mods, mesh, root, dev):
+    """The sharded RLE and packed lifts over the full-width 3D fixture on
+    the one-rank mesh, against ``core.geometry``'s, exactly."""
+    geometry, plift, fixture_mods = mods
+    t0 = time.perf_counter()
+    pcd_h, projs, depths, st, en, m = lift_fixture(torch, fixture_mods, root, dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    packed = geometry.rle_runs_to_packed(st, en, FRAME_HW[0] * FRAME_HW[1])
+    rec = {"phase": "sharded_lift_full_width", "points": pcd_h.shape[1],
+           "frames": projs.shape[0], "masks_per_frame": m, "runs_per_mask": st.shape[2],
+           "mesh": list(mesh.shape), "fixture_load_s": load_s}
+    for name, sharded, plain, args in (
+            ("rle", plift.make_sharded_lift_rle(mesh), geometry.lift_frames_rle, (st, en)),
+            ("packed", plift.make_sharded_lift_packed(mesh, n_masks=m),
+             lambda *a: geometry.lift_frames_packed(*a, n_masks=m), (packed,))):
+        t0 = time.perf_counter()
+        got = sharded(pcd_h, projs, depths, *args)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        want = plain(pcd_h, projs, depths, *args)
+        equal = all(torch.equal(a, b) for a, b in zip(got, want))
+        rec[name] = {"equal": equal, "ms": ms, "members": int(got[0].sum()),
+                     "viewed": int(got[2].sum())}
+        check(equal and int(got[2].sum()) > 0 and int(got[0].sum()) > 0,
+              f"sharded {name} lift differs from core.geometry's")
+    emit(rec)
+
+
+def training_and_parallel(torch, mods, work, root3d, dev):
+    """Phase 9: the training path and the parallel layer on a one-rank NCCL
+    group and a 1 x 1 mesh, with every kernel's launch count held at 0."""
+    (fa, dispatch, clip_mod, sam_mod, layers, trainer, ft, ckpt, mfu, mesh_lib, plift,
+     geometry, fixture_mods) = mods
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()  # the earlier phases' cached blocks
+    dispatch.reset_launch_counts()
+    autograd_guard(torch, fa, dispatch, dev)
+    process_group(torch)
+    try:
+        mesh = mesh_lib.make_mesh(data=1, model=1)
+        train_clip_full_width(torch, (clip_mod, layers, trainer, ckpt, mfu), mesh, dev, work)
+        torch.cuda.empty_cache()
+        train_sam_decoder_full_width(torch, (sam_mod, layers, ft, mfu), mesh, dev)
+        torch.cuda.empty_cache()
+        sharded_lift_full_width(torch, (geometry, plift, fixture_mods), mesh, root3d, dev)
+    finally:
+        torch.distributed.destroy_process_group()
+    torch.cuda.empty_cache()
+    launches = dict(dispatch.launch_counts)
+    emit({"phase": "training_launches", "launches": launches,
+          "phase_seconds": time.perf_counter() - t0})
+    check(not any(launches.values()), f"a kernel was launched on the training path: {launches}")
+
+
 def main() -> int:
     import torch
 
@@ -1680,8 +2025,13 @@ def main() -> int:
     from beyondff_tpu_torch.orchestration import sweep
     from beyondff_tpu_torch.pipeline import evaluate, projection, refinement
     from beyondff_tpu_torch.pipeline import segmentation_2d as seg2d
-    from beyondff_tpu_torch.utils import io
+    from beyondff_tpu_torch.utils import io, mfu
     from beyondff_tpu_torch.utils.profiling import StageProfiler
+    from beyondff_tpu_torch.core import geometry
+    from beyondff_tpu_torch.data import readers
+    from beyondff_tpu_torch.models import layers
+    from beyondff_tpu_torch.parallel import lift as plift, mesh as mesh_lib
+    from beyondff_tpu_torch.training import checkpoint as ckpt, sam_finetune, trainer
 
     dev = torch.device("cuda")
     # ---------------------------------------------------------------- 1
@@ -1819,7 +2169,6 @@ def main() -> int:
                 "mask_iou": full_width_3d(torch, mods3d, Config, work3d, dev, cfg.detector),
                 "flash_attention_relpos": sweep_launches["flash_attention_relpos"],
                 "window_attention_relpos": sweep_launches["window_attention_relpos"]}
-    shutil.rmtree(work3d)
 
     # ---------------------------------------------------------------- 8
     fast_launches = fast_variant(
@@ -1828,6 +2177,13 @@ def main() -> int:
     shutil.rmtree(ckpt_dir)
     launches = {**launches, "flash_attention_unmasked": fast_launches["flash_attention"],
                 "nms_fixed": fast_launches["nms_fixed"]}
+
+    # ---------------------------------------------------------------- 9
+    training_and_parallel(torch, (fa, dispatch, clip_mod, sam_mod, layers, trainer, sam_finetune,
+                                  ckpt, mfu, mesh_lib, plift, geometry,
+                                  (geometry, rle, io, readers)),
+                          work3d, os.path.join(work3d, "full3d"), dev)
+    shutil.rmtree(work3d)
 
     table = []
     for key, src, replaces in (

@@ -785,3 +785,37 @@ def test_nms_kernel_on_the_threshold_on_card(cuda_device):
         want_keep, want_valid = tnms.nms_fixed_plain(boxes, scores, thr, 300)
         torch.cuda.synchronize()
         assert torch.equal(keep, want_keep) and torch.equal(valid, want_valid), thr
+
+
+# ---------------------------------------------------------------- autograd
+@pytest.mark.cuda
+def test_kernels_refuse_autograd_on_card(cuda_device):
+    """No kernel has a backward, so a wrapper given a CUDA input that
+    requires grad, with grad mode on, raises before it launches (the JAX
+    package raises when it differentiates a ``pallas_call`` without a VJP);
+    under ``no_grad`` the same call launches."""
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+
+    def leaf(*shape):
+        return torch.randn(*shape, generator=gen, device=cuda_device).requires_grad_(True)
+
+    q = leaf(2, 512, 32)
+    bias_h, bias_w = leaf(2, 512, 16), leaf(2, 512, 32)
+    shapes = ((8, 8),)
+    value, locs, aw = leaf(1, 64, 2, 16), leaf(1, 4, 2, 1, 4, 2).detach(), leaf(1, 4, 2, 1, 4)
+    boxes, scores = leaf(1, 40, 4), leaf(1, 40)
+    calls = {"flash_attention": lambda: tfa.attend(q, q, q),
+             "flash_attention_relpos": lambda: tfa.attend_relpos(q, q, q, bias_h, bias_w, 32),
+             "window_attention_relpos": lambda: twa.window_attention_relpos(
+                 q[:, :64], q[:, :64], q[:, :64], bias_h[:, :64, :8], bias_w[:, :64, :8], 8, 8),
+             "ms_deform_sample": lambda: tdw.ms_deform_sample(value, shapes, locs, aw),
+             "nms_fixed": lambda: tnms.nms_fixed(boxes, scores, 0.5, 5)}
+    dispatch.reset_launch_counts()
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="no backward"):
+            call()
+        assert dispatch.launch_counts[name] == 0, name
+    with torch.no_grad():
+        out = tfa.attend(q, q, q)
+    torch.cuda.synchronize()
+    assert dispatch.launch_counts["flash_attention"] == 1 and out.requires_grad is False
