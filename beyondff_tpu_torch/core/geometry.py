@@ -27,11 +27,12 @@ summation order (see :func:`prepare_depth`).
 
 from __future__ import annotations
 
-import functools
 from typing import Tuple
 
 import numpy as np
 import torch
+
+from beyondff_tpu_torch.core import resize as _resize
 
 
 def fuse_projection(cam_intr: np.ndarray, cam_pose: np.ndarray) -> np.ndarray:
@@ -101,54 +102,6 @@ def project_and_test(
     return torch.where(visible, flat, -1), visible
 
 
-@functools.lru_cache(maxsize=16)
-def _resize_taps(n_in: int, n_out: int):
-    """``jax.image.resize(..., "linear")`` weights along one axis, as XLA
-    computes them: the sample position ``(i + 0.5) * inv_scale - 0.5`` is one
-    fused multiply-add, the triangle weights are normalised by their column
-    sum in float32. Returns (index, weight) of shape (taps, n_out) each, the
-    taps of every output in ascending input order (zero-weight padded)."""
-    inv = np.float32(1.0 / (n_out / n_in))
-    kernel_scale = np.float32(max(1.0 / (n_out / n_in), 1.0))
-    ar = np.arange(n_out, dtype=np.float32) + np.float32(0.5)
-    s = (ar.astype(np.float64) * np.float64(inv) - 0.5).astype(np.float32)
-    x = np.abs(s[None, :] - np.arange(n_in, dtype=np.float32)[:, None]) / kernel_scale
-    wts = np.maximum(np.float32(0), np.float32(1) - x).astype(np.float32)
-    tot = wts.sum(0, keepdims=True, dtype=np.float32)
-    wts = np.where(np.abs(tot) > 1000.0 * float(np.finfo(np.float32).eps),
-                   wts / np.where(tot != 0, tot, np.float32(1)), np.float32(0)).astype(np.float32)
-    inside = (s >= -0.5) & (s <= n_in - 0.5)
-    wts = np.where(inside[None, :], wts, np.float32(0)).astype(np.float32)
-    nz = wts != 0
-    taps = max(1, int(nz.sum(0).max()))
-    first = np.where(nz.any(0), nz.argmax(0), 0)
-    idx = np.minimum(first[None, :] + np.arange(taps)[:, None], n_in - 1)
-    wt = np.take_along_axis(wts, idx, 0)
-    wt[first[None, :] + np.arange(taps)[:, None] > n_in - 1] = 0  # past the edge
-    return idx.astype(np.int64), wt.astype(np.float32)
-
-
-def _resize_axis(x: torch.Tensor, n_out: int, axis: int, fused: bool) -> torch.Tensor:
-    """Contract one axis with its resize taps, summing taps in input order;
-    ``fused``: each step after the first is a fused multiply-add."""
-    idx, wt = _resize_taps(x.shape[axis], n_out)
-    idx = torch.from_numpy(idx).to(x.device)
-    wt = torch.from_numpy(wt).to(x.device)
-    shape = [1] * x.dim()
-    shape[axis] = n_out
-    acc = None
-    for t in range(idx.shape[0]):
-        term_w = wt[t].view(shape)
-        tap = x.index_select(axis, idx[t])
-        if acc is None:
-            acc = term_w * tap
-        elif fused:
-            acc = (acc.double() + term_w.double() * tap.double()).float()
-        else:
-            acc = acc + term_w * tap
-    return acc
-
-
 def prepare_depth(depth_u16: torch.Tensor, out_hw: Tuple[int, int],
                   depth_scale: float = 1000.0) -> torch.Tensor:
     """(F, h0, w0) raw uint16 depth -> (F, H, W) metric float32 on its device.
@@ -168,9 +121,9 @@ def prepare_depth(depth_u16: torch.Tensor, out_hw: Tuple[int, int],
     f, h0, w0 = metric.shape
     h, w = out_hw
     if w != w0:
-        metric = _resize_axis(metric, w, 2, fused=True)
+        metric = _resize.linear_axis(metric, w, 2, fused=True)
     if h != h0:
-        metric = _resize_axis(metric, h, 1, fused=False)
+        metric = _resize.linear_axis(metric, h, 1, fused=False)
     return metric
 
 

@@ -148,3 +148,87 @@ def resize_linear(img, size_hw: Tuple[int, int]):
 def resize_cubic(img, size_hw: Tuple[int, int]):
     """``cv2.resize(img, (w, h), interpolation=cv2.INTER_CUBIC)`` for uint8."""
     return _resize(img, size_hw, cubic=True)
+
+
+
+# ------------------------------------------------ the JAX package's device resize
+@functools.lru_cache(maxsize=64)
+def linear_taps(n_in: int, n_out: int, antialias: bool = True):
+    """``jax.image.resize(..., "linear", antialias=antialias)`` weights along
+    one axis, as XLA computes them: the sample position ``(i + 0.5) *
+    inv_scale - 0.5`` is one fused multiply-add, the triangle (widened by
+    the downscale factor under ``antialias``) weights are normalised
+    by their column sum in float32 (so the edge rows of an exact 2x
+    upsample equal the edge pixel), samples outside the input are zeroed.
+    Returns (index, weight) of shape (taps, n_out) each, the taps of every
+    output in ascending input order (zero-weight padded)."""
+    inv = np.float32(1.0 / (n_out / n_in))
+    ar = np.arange(n_out, dtype=np.float32) + np.float32(0.5)
+    s = (ar.astype(np.float64) * np.float64(inv) - 0.5).astype(np.float32)
+    kernel_scale = np.float32(max(1.0 / (n_out / n_in), 1.0) if antialias else 1.0)
+    x = np.abs(s[None, :] - np.arange(n_in, dtype=np.float32)[:, None]) / kernel_scale
+    wts = np.maximum(np.float32(0), np.float32(1) - x).astype(np.float32)
+    tot = wts.sum(0, keepdims=True, dtype=np.float32)
+    wts = np.where(np.abs(tot) > 1000.0 * float(np.finfo(np.float32).eps),
+                   wts / np.where(tot != 0, tot, np.float32(1)), np.float32(0)).astype(np.float32)
+    inside = (s >= -0.5) & (s <= n_in - 0.5)
+    wts = np.where(inside[None, :], wts, np.float32(0)).astype(np.float32)
+    nz = wts != 0
+    taps = max(1, int(nz.sum(0).max()))
+    first = np.where(nz.any(0), nz.argmax(0), 0)
+    idx = np.minimum(first[None, :] + np.arange(taps)[:, None], n_in - 1)
+    wt = np.take_along_axis(wts, idx, 0)
+    wt[first[None, :] + np.arange(taps)[:, None] > n_in - 1] = 0  # past the edge
+    return idx, wt
+
+
+def taps_axis(x: torch.Tensor, idx, wt, axis: int, fused: bool) -> torch.Tensor:
+    """Contract one axis of float32 ``x`` with (taps, n_out) ``idx`` and
+    ``wt``, summing taps in their order; ``fused``: each step after the
+    first is a fused multiply-add (XLA:CPU's GEMM accumulation), else the
+    products round on their own before the sum."""
+    idx = torch.as_tensor(idx).to(x.device)
+    wt = torch.as_tensor(wt).to(x.device)
+    shape = [1] * x.dim()
+    shape[axis] = idx.shape[1]
+    acc = None
+    for t in range(idx.shape[0]):
+        term_w = wt[t].view(shape)
+        tap = x.index_select(axis, idx[t])
+        if acc is None:
+            acc = term_w * tap
+        elif fused:
+            acc = fma(term_w, tap, acc)
+        else:
+            acc = acc + term_w * tap
+    return acc
+
+
+def linear_axis(x: torch.Tensor, n_out: int, axis: int, fused: bool,
+                antialias: bool = True) -> torch.Tensor:
+    """One axis of ``jax.image.resize(..., "linear")``: :func:`taps_axis`
+    with :func:`linear_taps`."""
+    idx, wt = linear_taps(x.shape[axis], n_out, antialias)
+    return taps_axis(x, idx, wt, axis, fused)
+
+
+def resize_bilinear(x: torch.Tensor, out_hw: Tuple[int, int], h_dim: int) -> torch.Tensor:
+    """float32 ``x`` resized along dims ``h_dim`` and ``h_dim + 1`` to
+    ``out_hw`` as ``jax.image.resize(..., "bilinear", antialias=False)``
+    computes it on XLA:CPU: one einsum over both axes, whose contraction
+    order takes the cheaper axis first, each a fused multiply-add
+    accumulation. An axis whose size does not change is left alone."""
+    (h, w), (oh, ow) = x.shape[h_dim:h_dim + 2], out_hw
+    axes = [(n, d) for n, d in ((oh, h_dim), (ow, h_dim + 1)) if x.shape[d] != n]
+    if len(axes) == 2 and h * ow * (w + oh) < oh * w * (h + ow):
+        axes.reverse()  # the width axis first costs fewer operations
+    for n, d in axes:
+        x = linear_axis(x, n, d, fused=True, antialias=False)
+    return x
+
+
+def fma(a, b, c) -> torch.Tensor:
+    """float32 ``a * b + c`` rounded once, as XLA:CPU's fused multiply-add
+    computes it (the product of two float32 values is exact in float64)."""
+    a, b, c = (torch.as_tensor(v).double() for v in (a, b, c))
+    return (a * b + c).float()

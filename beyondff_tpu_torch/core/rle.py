@@ -71,9 +71,17 @@ def rle_encode_batch(masks: np.ndarray) -> List[Dict]:
 
 
 def rle_decode_batch(rles: Sequence[Dict]) -> np.ndarray:
-    """Decode a list of RLE dicts to an (M, L) uint8 array."""
+    """Decode a list of RLE dicts to an (M, L) uint8 array: the native batch
+    decoder (utils/native.py) for same-length masks with array counts, numpy
+    otherwise and under ``BFF_NO_NATIVE``."""
     if not rles:
         return np.zeros((0, 0), dtype=np.uint8)
+    if not any(isinstance(r["counts"], str) for r in rles):
+        from beyondff_tpu_torch.utils import native
+
+        out = native.rle_decode_batch_native(rles)
+        if out is not None:
+            return out
     return np.stack([rle_decode(r) for r in rles])
 
 

@@ -4,7 +4,9 @@ Port of beyondff_tpu/models/clip.py. Module and parameter names are the
 OpenAI checkpoint's (``visual.conv1``, ``visual.transformer.resblocks.{i}``,
 ``token_embedding``, ...), so ``ViT-L-14.pt``'s state dict loads with
 ``load_state_dict``. The seg2d stage uses ``encode_image`` for the box-crop
-filter and ``encode_text`` for the query embedding. ViT-L/14 at 224 px runs
+filter (``encode_image_packed_yuv`` for crops that cross as YCrCb,
+``encode_image_boxes`` for crops cut on the device) and ``encode_text`` for
+the query embedding. ViT-L/14 at 224 px runs
 257 tokens, below the flash cutoff, so its attention stays plain.
 """
 
@@ -175,10 +177,51 @@ class CLIP:
 
     @torch.inference_mode()
     def encode_image(self, images) -> torch.Tensor:
-        """(B, H, W, 3) uint8 crops (host or device) -> (B, embed_dim)."""
+        """(B, H, W, 3) uint8 crops, or float32 holding uint8 values (host or
+        device) -> (B, embed_dim)."""
         x = torch.as_tensor(images, device=self.device).float()
         x = (x / 255.0 - self._mean) / self._std
         return self.module.encode_image(x.to(self.dtype))
+
+    @torch.inference_mode()
+    def encode_image_packed_yuv(self, packed) -> torch.Tensor:
+        """(B, 1.5*n*n) uint8 YCrCb 4:2:0 buffers (``core.color.pack_ycrcb420``
+        of n x n uint8 RGB crops) -> (B, embed_dim): the crops unpack on the
+        device, then normalise and encode as :meth:`encode_image`. Half the
+        bytes of the dense crops cross to the device."""
+        from beyondff_tpu_torch.core import color
+
+        n = self.cfg.image_resolution
+        buf = torch.as_tensor(np.asarray(packed, np.uint8)).to(self.device)
+        return self.encode_image(color.unpack(buf, n, n))
+
+    @torch.inference_mode()
+    def encode_image_boxes(self, frames: torch.Tensor, frame_idx, boxes, mode: str, frame_hw,
+                           det_hw=None, det_mean=None, det_std=None) -> Tuple[torch.Tensor, int]:
+        """Device-crop CLIP features: each box's crop is cut and resized on
+        the device from the (B, H, W, 3) uint8 ``frames`` already there
+        (``core/crop_resize``) and encoded; only the box coordinates cross.
+        ``frame_idx``: (K,) frame of each box; ``boxes``: (K, 4) xyxy in
+        ``frame_hw`` coordinates; ``mode``: ``"yolo"`` or ``"gdino"`` (the
+        detector resize to ``det_hw`` and its ``det_mean`` / ``det_std``
+        normalise). The crop count pads to the next power of two with zero
+        crops, as in the JAX package. Returns (features of the padded rows,
+        the count of real ones)."""
+        from beyondff_tpu_torch.core import crop_resize
+
+        n = len(boxes)
+        k = 1
+        while k < n:
+            k *= 2
+        boxes_p = np.zeros((k, 4), np.float32)
+        boxes_p[:n] = np.asarray(boxes, np.float32)
+        idx_p = np.zeros(k, np.int64)
+        idx_p[:n] = np.asarray(frame_idx, np.int64)
+        valid = np.arange(k) < n
+        crops = crop_resize.clip_crop_batch(frames, idx_p, boxes_p, valid, mode, tuple(frame_hw),
+                                            det_hw=det_hw, mean=det_mean, std=det_std,
+                                            n=self.cfg.image_resolution)
+        return self.encode_image(crops), n
 
     @torch.inference_mode()
     def encode_text(self, tokens) -> torch.Tensor:

@@ -13,12 +13,17 @@ tools/projection_2d_to_3d.py:336-634). As in the JAX package:
     aggregation; only the (I, I) IoU and the merged (C, N) masks come down;
   * the resume checkpoint is written after the scene's output lands on disk.
 
+  * depth frames cross to the device through the depth-pack transport
+    (``BFF_DEPTH_PACK``, default on; core/depth_pack.py): packed in the
+    prefetch thread, decoded on the device to the exact uint16 frame; a
+    frame the spill guard rejects uploads raw.
+
 Left out, each specific to JAX or the TPU and without effect on the
-outputs: the sharded lift over a device mesh (``parallel/lift.py``), the
-depth-pack transport, the ``BFF_MEMBERSHIP_HBM_MB`` host spill (a full
-scene's membership, hundreds of MB, fits an 80 GB card many times over) and
-the padding of frames, masks, runs and points to bucket sizes (it served
-XLA's compile cache).
+outputs: this stage's own sharded lift over a device mesh (the sharded lifts
+themselves are ``parallel/lift.py``), the ``BFF_MEMBERSHIP_HBM_MB`` host
+spill (a full scene's membership, hundreds of MB, fits an 80 GB card many
+times over) and the padding of frames, masks, runs and points to bucket
+sizes (it served XLA's compile cache).
 
 On-disk contracts are unchanged: input 2D RLE ``.pth`` records per scene,
 output ``{"ins", "conf", "final_class"}`` per scene.
@@ -33,7 +38,7 @@ import numpy as np
 import torch
 
 from beyondff_tpu_torch.config import Config
-from beyondff_tpu_torch.core import aggregation, filtering, geometry, rle
+from beyondff_tpu_torch.core import aggregation, depth_pack, filtering, geometry, rle
 from beyondff_tpu_torch.data.readers import build_dataset
 from beyondff_tpu_torch.kernels.dispatch import resolve_device
 from beyondff_tpu_torch.utils import io as bio
@@ -313,6 +318,8 @@ def project_scene(cfg: Config, class_name: str, scene_id: str, ext: Optional[str
             os.replace(tmp, path)  # atomic: concurrent readers see old or new
         return raw
 
+    use_dpack = os.environ.get("BFF_DEPTH_PACK", "1") == "1"
+
     def load_frame(fid: str) -> Dict:
         f: Dict = {"frame_id": fid, "pose": reader.pose(fid)}
         rec = by_frame.get(fid)
@@ -320,8 +327,12 @@ def project_scene(cfg: Config, class_name: str, scene_id: str, ext: Optional[str
             if device_resize:
                 buf = depth_bank.get(fid) if depth_bank is not None else None
                 if buf is None:
-                    # the upload starts here, in the prefetch thread
-                    buf = upload_depth_raw(_depth_raw(fid), dev)
+                    # the upload starts here, in the prefetch thread: packed
+                    # (bit-lossless) unless the frame spills, then raw
+                    raw = _depth_raw(fid)
+                    pk = depth_pack.pack_cached(raw) if use_dpack else None
+                    buf = upload_depth_raw(raw, dev) if pk is None else \
+                        depth_pack.upload_frame(pk, dev)
                     if depth_bank is not None:
                         depth_bank[fid] = buf
                 f["depth_dev"] = buf

@@ -16,18 +16,34 @@ scene with a per-scene frame bank (frames, detector backbone pyramids, SAM
 embeddings) and, with ``detector.fused_captions``, one fused multi-phrase
 detection pass per group of classes.
 
-With ``detector.device_frames`` (the default) each frame uploads once as a
-dense uint8 RGB buffer (the JAX package with ``BFF_SEG2D_YUV=0``). Where the
-detector's input is smaller than the SAM-scaled frame (YOLO-World's 640x640;
-the JAX package's two-tier rule, ``BFF_SEG2D_TWO_TIER`` auto/1/0) the frame
-uploads at its own size, the detector input is one OpenCV-exact resize of it
-on the device, and only frames with boxes are scaled for SAM. Otherwise the
-upload is the SAM-scaled frame, the detector input derives from it on the
-device and SAM encodes it directly. CLIP crops come from the uploaded buffer
-through the bit-exact lookup-table chain (the JAX package with
-``BFF_CLIP_DEVICE_CROPS=0``). Batches run one after another: the JAX
-package's three-stage deferred flush gives identical records, and the port's
-device calls queue asynchronously on the CUDA stream anyway.
+With ``detector.device_frames`` (the default) frames reach the device
+through the JAX package's transports, under its switches and defaults:
+
+* ``BFF_SEG2D_YUV`` (default on): frames are scaled on the host (OpenCV's
+  INTER_LINEAR) and cross as YCrCb 4:2:0 (core/color.py), 1.5 bytes a
+  pixel; ``0`` uploads dense RGB at the frame's own size and scales on the
+  device (core/resize.py, bit-exact to OpenCV: the same pixels);
+* ``BFF_SEG2D_TWO_TIER`` (auto: the detector's input has fewer pixels than
+  the SAM-scaled frame, YOLO-World's 640x640): detector-scale buffers for
+  every frame, SAM-scale buffers only for frames with boxes;
+* ``BFF_SEG2D_BATCH_UPLOAD`` (auto: where two-tier is on): one host-to-device
+  copy per detection batch instead of one per frame;
+* ``BFF_CLIP_DEVICE_CROPS`` (auto: YOLO-World, fused replays and
+  ``detections_override``): CLIP crops are cut and resized on the device
+  from the SAM-scale buffers (core/crop_resize.py); otherwise they are cut
+  from the host frames through the bit-exact lookup-table chain, and with
+  ``BFF_CLIP_YUV`` (auto: YOLO-World with ``BFF_SEG2D_YUV`` on) cross as
+  YCrCb;
+* ``BFF_SEG2D_JXT`` (auto: YOLO-World; needs device crops): a frame whose
+  file is a baseline JPEG at the configured size crosses as its quantized
+  DCT coefficients (core/jxt.py, the native entropy decoder) and decodes on
+  the device; its detector- and SAM-scale buffers both derive from that one
+  upload. A frame the spill guard or the runtime rejects takes YCrCb (with
+  batched uploads, its whole batch does), and ``upload_stats`` counts it.
+
+Batches run one after another: the JAX package's three-stage deferred flush
+gives identical records, and the port's device calls queue asynchronously on
+the CUDA stream anyway.
 """
 
 from __future__ import annotations
@@ -35,14 +51,16 @@ from __future__ import annotations
 import contextlib
 import os
 import time
-from typing import Callable, Dict, List, Optional, Sequence
+from collections import Counter
+from dataclasses import dataclass, field
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from beyondff_tpu_torch.config import Config
+from beyondff_tpu_torch.core import color, jxt, rle
 from beyondff_tpu_torch.core import resize as _resize
-from beyondff_tpu_torch.core import rle
 from beyondff_tpu_torch.kernels.dispatch import resolve_device
 from beyondff_tpu_torch.pipeline import descriptors, llm_client
 from beyondff_tpu_torch.utils import io as bio
@@ -65,6 +83,38 @@ def _record(dets, masks) -> Dict:
             "labels": list(dets[2])}
 
 
+@dataclass
+class _Transport:
+    """One ``process_scene`` call's frame transport: the JAX package's
+    switches resolved, and the state its batches share."""
+
+    scene_id: str
+    size: Tuple[int, int]  # (width, height) for the frame loader
+    frame_hw: Tuple[int, int]
+    sam_hw: Tuple[int, int]
+    det_hw: Optional[Tuple[int, int]]
+    bank: Optional[Dict]
+    two_tier: bool
+    yuv: bool
+    batch_upload: bool
+    device_crops: bool
+    jxt: bool
+    # fid -> the native-resolution JXT frame, kept until its batch's SAM-scale
+    # buffers are derived from it
+    native: Dict = field(default_factory=dict)
+
+    @property
+    def key(self) -> str:
+        """The bank key of the frames the detector reads."""
+        if not (self.yuv or self.jxt):
+            return "raw" if self.two_tier else "sam"
+        return "det" if self.two_tier else "sam"
+
+    @property
+    def target_hw(self) -> Tuple[int, int]:
+        return self.det_hw if self.two_tier else self.sam_hw
+
+
 class Segmentor2D:
     """Holds the model stack; processes scenes batch by batch.
 
@@ -81,7 +131,13 @@ class Segmentor2D:
     ``text_dim``, else from ``hash()``-seeded normals, as the JAX package.
     ``load_seconds`` holds each loaded model's time from file to device.
     ``frame_loader(path, size)`` returns a uint8 RGB frame; it defaults to
-    :func:`utils.io.load_image` (OpenCV)."""
+    :func:`utils.io.load_image` (OpenCV). The JXT transport reads the frame
+    files themselves. ``upload_stats`` counts the frames of each transport
+    (``jxt``, ``ycrcb``, ``rgb``), the frames JXT did not take
+    (``jxt_spill``) and the bytes of every host-to-device frame copy
+    (``bytes``)."""
+
+    _jxt_forced_warned = False  # the forced-JXT warning prints once a process
 
     def __init__(self, cfg: Config, detector=None, sam=None, clip_model=None,
                  clip_tokenizer=None, device=None,
@@ -121,6 +177,7 @@ class Segmentor2D:
         self.sam = sam if sam is not None else self._load_sam()
         self.frame_loader = frame_loader or bio.load_image
         self.profiler: Optional[StageProfiler] = None
+        self.upload_stats: Counter = Counter()
         self._query_embedding_cache: Dict[str, np.ndarray] = {}
 
     # ------------------------------------------------------------- loading
@@ -228,8 +285,10 @@ class Segmentor2D:
         channel), the YOLO-World variant the uint8 frame itself, where
         ``x * 255`` wraps to ``-x mod 256`` (segmentation_2d_yolo_world.py:
         505-515). ``image``: uint8 (H, W, 3), host array or device tensor, the
-        frame or a scaled copy of it (``frame_hw``: the boxes' frame); crops
-        stay on the device."""
+        frame or a scaled copy of it (``frame_hw``: the boxes' frame). A host
+        frame is copied to the device dense and cut there, with the same
+        bytes as the JAX package's OpenCV chain on the host; crops stay on
+        the device."""
         image = torch.as_tensor(image, device=self.device)
         h, w = frame_hw if frame_hw is not None else image.shape[:2]
         if self.yolo:
@@ -258,10 +317,51 @@ class Segmentor2D:
             crops.append(lut[crop] if chans is None else lut[crop, chans])
         return crops
 
+    def _crop_yuv(self) -> bool:
+        """The JAX package's ``BFF_CLIP_YUV`` rule (auto/1/0): host crops
+        cross as YCrCb in YOLO-World mode with ``BFF_SEG2D_YUV`` on (raw
+        image content; Grounding-DINO's crops are normalize-wrapped
+        sawtooths that chroma subsampling would smear)."""
+        mode = os.environ.get("BFF_CLIP_YUV", "auto")
+        if mode != "auto":
+            return mode == "1"
+        return self.yolo and os.environ.get("BFF_SEG2D_YUV", "1") != "0"
+
     def _clip_feats(self, crops: List[torch.Tensor]) -> np.ndarray:
-        """L2-normalized CLIP image features of the crops, on the host."""
+        """L2-normalized CLIP image features of uint8 crops, on the host.
+        Under :meth:`_crop_yuv` the preprocessed crops go through the
+        YCrCb round trip of the JAX package's crop upload (packed on the
+        host, unpacked on the device), so the encoder sees its pixels."""
         with self._span("clip", crops=len(crops)):
-            feats = self.clip.encode_image(self.clip.preprocess(crops)).float().cpu().numpy()
+            batch = self.clip.preprocess(crops)
+            if self._crop_yuv():
+                packed = np.stack([color.pack_ycrcb420(c) for c in batch.cpu().numpy()])
+                feats = self.clip.encode_image_packed_yuv(packed)
+            else:
+                feats = self.clip.encode_image(batch)
+            feats = feats.float().cpu().numpy()
+        feats /= np.linalg.norm(feats, axis=-1, keepdims=True)
+        return feats
+
+    def _device_crop_feats(self, frames: torch.Tensor, boxes: List[np.ndarray],
+                           frame_hw) -> np.ndarray:
+        """L2-normalized CLIP features of device crops (``BFF_CLIP_DEVICE_
+        CROPS``): ``boxes[i]`` cut from ``frames[i]``, the SAM-scale
+        buffers."""
+        counts = [len(bx) for bx in boxes]
+        fpos = np.repeat(np.arange(len(boxes)), counts)
+        boxes_cat = np.concatenate(boxes).astype(np.float32)
+        with self._span("clip", crops=len(boxes_cat)):
+            if self.yolo:
+                feats, n = self.clip.encode_image_boxes(frames, fpos, boxes_cat, "yolo", frame_hw)
+            else:
+                from beyondff_tpu_torch.models.gdino.model import IMAGE_MEAN, IMAGE_STD
+
+                feats, n = self.clip.encode_image_boxes(
+                    frames, fpos, boxes_cat, "gdino", frame_hw,
+                    det_hw=tuple(self.detector.cfg.image_size), det_mean=IMAGE_MEAN,
+                    det_std=IMAGE_STD)
+            feats = feats[:n].float().cpu().numpy()
         feats /= np.linalg.norm(feats, axis=-1, keepdims=True)
         return feats
 
@@ -297,13 +397,16 @@ class Segmentor2D:
             phrases = [phrases[i] for i in order]
         return boxes_xyxy, np.asarray(scores), phrases
 
-    def _detect_and_filter_batch(self, images, raw_dets, query, frame_hw=None, pre=None):
+    def _detect_and_filter_batch(self, images, raw_dets, query, frame_hw=None, pre=None,
+                                 crop_frames: Optional[Callable] = None):
         """Per-frame phrase filter + one batched CLIP crop scoring for the
         frame batch + per-frame top-K. Returns (boxes_xyxy, scores, phrases)
         or None per frame; CLIP similarities replace the detector scores.
         ``query``: one query for the batch, or one per frame (a fused
         replay's mixed-class batch). ``pre``: phrase-filter results already
-        computed by the caller."""
+        computed by the caller. ``crop_frames(indices)``: the SAM-scale
+        device buffers of those frames, for device crops; without it crops
+        are cut from ``images``."""
         d = self.cfg.detector
         queries = [query] * len(images) if isinstance(query, str) else list(query)
         if pre is None:
@@ -311,15 +414,18 @@ class Segmentor2D:
                    for im, q, det in zip(images, queries, raw_dets)]
         if self.clip is None or not d.filter_with_clip:
             return [None if p is None else self._cap_detections(p) for p in pre]
-        crops, counts = [], []
-        with self._span("clip_crops", frames=sum(p is not None for p in pre)):
-            for im, p in zip(images, pre):
-                c = [] if p is None else self._clip_crops(im, p[0], frame_hw)
-                crops.extend(c)
-                counts.append(len(c))
-        if not crops:
+        hit = [i for i, p in enumerate(pre) if p is not None]
+        counts = [0 if p is None else len(p[0]) for p in pre]
+        if not sum(counts):
             return [None] * len(images)
-        feats = self._clip_feats(crops)
+        if crop_frames is not None:
+            feats = self._device_crop_feats(crop_frames(hit), [pre[i][0] for i in hit], frame_hw)
+        else:
+            crops = []
+            with self._span("clip_crops", frames=len(hit)):
+                for i in hit:
+                    crops.extend(self._clip_crops(images[i], pre[i][0], frame_hw))
+            feats = self._clip_feats(crops)
         # one product per distinct query over the whole batch
         sims_by_query = {q: feats @ self.query_embedding(q)
                          for q, p in zip(queries, pre) if p is not None}
@@ -368,11 +474,13 @@ class Segmentor2D:
         """All frames of a scene, ``detector.frame_batch`` at a time.
 
         ``frame_bank``: a dict shared by the classes of one scene
-        (:func:`run_classes`). It holds each frame's SAM-scaled device buffer
-        (``("sam", fid)``; on the two-tier path also the frame-size upload,
-        ``("raw", fid)``, and SAM-scaled buffers of frames with boxes only;
-        ``("img", fid)``, the host frame, on the ``device_frames: false``
-        path), the detector's text-independent
+        (:func:`run_classes`). It holds each frame's device buffers: the
+        SAM-scaled one (``("sam", fid)``, with ``("sam_host", fid)``: the
+        host-scaled frame, or ``None`` after JXT, and its size), on the
+        two-tier path the detector-scale one (``("det", fid)``; under
+        ``BFF_SEG2D_YUV=0`` the frame-size upload, ``("raw", fid)``) and
+        SAM-scaled ones of frames with boxes only; the host frame
+        (``("img", fid)``) where the host decoded it; the detector's text-independent
         backbone pyramid per frame chunk (``("det_feats", fids)``, up to
         ``BFF_SEG2D_BANK_FEATS_CAP`` frames, default 256;
         ``BFF_SEG2D_BANK_FEATS=0`` opts out) and SAM's embedding of each hit
@@ -419,7 +527,8 @@ class Segmentor2D:
         records: List[Dict] = []
         bank_emb = (frame_bank is not None and d.device_frames
                     and os.environ.get("BFF_SEG2D_BANK_EMB", "1") != "0")
-        two_tier = d.device_frames and self._two_tier(frame_hw)
+        tp = self._transport(scene_id, size, frame_hw, frame_bank, replay) \
+            if d.device_frames else None
         bsz = max(1, d.frame_batch)
         for i in range(0, len(entries), bsz):
             chunk = entries[i:i + bsz]
@@ -429,12 +538,17 @@ class Segmentor2D:
                 images = self._host_frames(scene_id, fids, size, frame_bank)
                 batch = self._host_batch(images, query, box_thr)
             else:
-                frames = self._device_frames(scene_id, fids, size, frame_bank, two_tier)
-                if two_tier:
-                    input_hw = self.sam.scaled_hw(frame_hw)
+                frames, hosts = self._device_frames(fids, tp)
+                if tp.two_tier:
+                    input_hw = tp.sam_hw
+                    sam_bufs: Dict[str, torch.Tensor] = {}
 
-                    def sam_input(indices, fids=fids, frames=frames):
-                        return self._sam_frames(fids, indices, frames, frame_bank)
+                    def sam_input(indices, fids=fids, frames=frames, hosts=hosts,
+                                  sam_bufs=sam_bufs):
+                        todo = [i for i in indices if fids[i] not in sam_bufs]
+                        if todo:
+                            sam_bufs.update(self._sam_frames(fids, todo, frames, hosts, tp))
+                        return torch.stack([sam_bufs[fids[i]] for i in indices])
                 else:
                     input_hw = tuple(frames.shape[1:3])
 
@@ -449,7 +563,7 @@ class Segmentor2D:
                         [detections_override[f] for f in fids]
                 else:
                     with self._span("detect", frames=len(fids)):
-                        det_in = self._detector_input(frames) if two_tier else frames
+                        det_in = self._detector_input(frames) if tp.key == "raw" else frames
                         handle = self._detect(det_in, query, fids, frame_bank)
                         if demux is not None:
                             hits = self._demux(handle, fids, demux, box_thr)
@@ -460,8 +574,12 @@ class Segmentor2D:
                         if hits and bank_emb:
                             with self._span("sam_encode", frames=len(hits)):
                                 encode(hits)
+                        tp.native.clear()
                         continue
-                batch = self._device_batch(frames, input_hw, raw, queries, frame_hw, encode)
+                batch = self._device_batch(hosts, input_hw, raw, queries, frame_hw, encode,
+                                           sam_input if tp.device_crops else None)
+                # native-resolution JXT frames serve only their own batch
+                tp.native.clear()
             for e, f, (dets, masks) in zip(chunk, fids, batch):
                 if dets is not None:
                     (by_class[e[1]] if group else records).append(
@@ -485,8 +603,8 @@ class Segmentor2D:
         return out
 
     def _two_tier(self, frame_hw) -> bool:
-        """The JAX package's two-tier rule: upload frames at their own size
-        when the detector's input has fewer pixels than the SAM-scaled frame
+        """The JAX package's two-tier rule: detector-scale uploads when the
+        detector's input has fewer pixels than the SAM-scaled frame
         (``BFF_SEG2D_TWO_TIER=1``/``0`` forces it either way)."""
         mode = os.environ.get("BFF_SEG2D_TWO_TIER", "auto")
         if mode != "auto":
@@ -504,49 +622,261 @@ class Segmentor2D:
         dcfg = getattr(self.detector, "cfg", None)
         return getattr(dcfg, "img_size", None) or getattr(dcfg, "image_size", None)
 
+    def _transport(self, scene_id, size, frame_hw, bank, replay: bool) -> _Transport:
+        """The JAX package's transport switches for one ``process_scene``
+        call (see the module docstring), with their auto rules."""
+        env = os.environ.get
+        two_tier = self._two_tier(frame_hw)
+        bu = env("BFF_SEG2D_BATCH_UPLOAD", "auto")
+        dc = env("BFF_CLIP_DEVICE_CROPS", "auto")
+        device_crops = self.clip is not None and (
+            (self.yolo or replay) if dc == "auto" else dc == "1")
+        jm = env("BFF_SEG2D_JXT", "auto")
+        use_jxt = device_crops and (jm == "1" or (jm == "auto" and self.yolo))
+        if jm == "1" and not use_jxt and not Segmentor2D._jxt_forced_warned:
+            # a forced A/B that silently measured YCrCb would compare one
+            # configuration with itself
+            Segmentor2D._jxt_forced_warned = True
+            print("[seg2d] warning: BFF_SEG2D_JXT=1 has no effect without device crops "
+                  f"(device_crops={device_crops}); set BFF_CLIP_DEVICE_CROPS=1 to engage the "
+                  "coefficient transport")
+        det_hw = self._det_hw()
+        return _Transport(scene_id=scene_id, size=size, frame_hw=frame_hw,
+                          sam_hw=self.sam.scaled_hw(frame_hw),
+                          det_hw=tuple(det_hw) if det_hw is not None else None, bank=bank,
+                          two_tier=two_tier, yuv=env("BFF_SEG2D_YUV", "1") != "0",
+                          batch_upload=two_tier if bu == "auto" else bu == "1",
+                          device_crops=device_crops, jxt=use_jxt)
+
     def _detector_input(self, frames: torch.Tensor) -> torch.Tensor:
         """Frame-size uploads -> the detector input: one OpenCV-exact
         INTER_LINEAR resize, the JAX package's host ``cv2.resize``."""
         return _resize.resize_linear(frames, tuple(self._det_hw()))
 
-    def _sam_frames(self, fids, indices, frames, bank) -> torch.Tensor:
-        """SAM-scaled buffers of the batch positions ``indices`` of a
-        two-tier batch, scaled on the device from the frame-size uploads
-        when first needed (only frames with boxes), banked per frame."""
-        have = {} if bank is None else {i: bank[("sam", fids[i])] for i in indices
-                                        if ("sam", fids[i]) in bank}
-        todo = [i for i in indices if i not in have]
-        if todo:
-            fresh, _hw = self.sam.scale_frames(frames[todo])
-            for i, t in zip(todo, fresh):
-                have[i] = t
-                if bank is not None:
-                    bank[("sam", fids[i])] = t
-            if todo == list(indices):
-                return fresh
-        return torch.stack([have[i] for i in indices])
+    def _device_frames(self, fids, tp: _Transport):
+        """The batch's device buffers the detector reads, (B, h, w, 3) uint8,
+        one per fid (repeats allowed), and each frame's host crop source
+        (``None`` where the frame never reached the host as pixels). With a
+        bank each frame loads and uploads once per scene."""
+        uniq = list(dict.fromkeys(fids))
+        if tp.yuv or tp.jxt:
+            frames, hosts = self._transport_frames(uniq, tp)
+        else:
+            frames = self._dense_frames(uniq, tp)
+            hosts = dict(zip(uniq, frames))
+        if uniq != list(fids):
+            pos = {f: i for i, f in enumerate(uniq)}
+            frames = frames[[pos[f] for f in fids]]
+        return frames, [hosts[f] for f in fids]
 
-    def _device_frames(self, scene_id, fids, size, bank, two_tier=False) -> torch.Tensor:
-        """(B, nh, nw, 3) uint8 SAM-scaled frames on the device, one per fid
-        (repeats allowed), or with ``two_tier`` the frames at their own size.
-        With a bank each frame loads and uploads once per scene."""
-        kind = "raw" if two_tier else "sam"
-        have = {} if bank is None else {f: bank[(kind, f)] for f in fids if (kind, f) in bank}
-        todo = list(dict.fromkeys(f for f in fids if f not in have))
+    def _load_imgs(self, fids, tp: _Transport, bank_img: bool = True) -> List[np.ndarray]:
+        """Host frames from their files, banked as ``("img", fid)``."""
+        bank = tp.bank if bank_img else None
+        out = []
+        with self._span("load", frames=len(fids)):
+            for f in fids:
+                img = bank.get(("img", f)) if bank is not None else None
+                if img is None:
+                    img = self.frame_loader(self._frame_path(tp.scene_id, f), tp.size)
+                    if bank is not None:
+                        bank[("img", f)] = img
+                out.append(img)
+        return out
+
+    def _dense_frames(self, fids, tp: _Transport) -> torch.Tensor:
+        """``BFF_SEG2D_YUV=0`` (and no JXT): each frame uploads dense at its
+        own size (one copy per batch under batched uploads, else one per
+        frame); SAM-scaled on the device, or kept at frame size (``"raw"``)
+        for two-tier. The same pixels as scaling on the host first."""
+        bank = tp.bank
+        have = {} if bank is None else {f: bank[(tp.key, f)] for f in fids if (tp.key, f) in bank}
+        todo = [f for f in fids if f not in have]
         if todo:
-            with self._span("load", frames=len(todo)):
-                images = [self.frame_loader(self._frame_path(scene_id, f), size) for f in todo]
+            images = self._load_imgs(todo, tp, bank_img=False)
             with self._span("upload", frames=len(todo)):
-                fresh = torch.as_tensor(np.stack(images)).to(self.device)
-                if not two_tier:
+                if tp.batch_upload:
+                    fresh = torch.from_numpy(np.stack(images)).to(self.device)
+                else:
+                    fresh = torch.stack([torch.from_numpy(im).to(self.device) for im in images])
+                if not tp.two_tier:
                     fresh, _hw = self.sam.scale_frames(fresh)
+            self.upload_stats.update(rgb=len(todo), bytes=sum(im.nbytes for im in images))
             if bank is not None:
                 for f, t in zip(todo, fresh):
-                    bank[(kind, f)] = t
+                    bank[(tp.key, f)] = t
             if todo == list(fids):
                 return fresh
             have.update(zip(todo, fresh))
         return torch.stack([have[f] for f in fids])
+
+    def _transport_frames(self, fids, tp: _Transport):
+        """The JAX package's loaders under YCrCb and JXT: per batch with
+        batched uploads (one spilled frame sends the whole batch to YCrCb),
+        else per frame. Returns the stacked buffers and {fid: host source}."""
+        bank = tp.bank
+        if tp.batch_upload:
+            if bank is not None and all((tp.key, f) in bank for f in fids):
+                return (torch.stack([bank[(tp.key, f)] for f in fids]),
+                        {f: self._banked_host(f, tp) for f in fids})
+            if tp.jxt:
+                packs = self._jxt_packs(fids, tp)
+                if all(pk is not None for pk in packs):
+                    return self._jxt_frames(fids, packs, tp), dict.fromkeys(fids)
+                self.upload_stats.update(jxt_spill=len(fids))
+            return self._host_frames_up(fids, self._load_imgs(fids, tp), tp)
+        devs, hosts = [], {}
+        for f in fids:
+            if bank is not None and (tp.key, f) in bank:
+                devs.append(bank[(tp.key, f)])
+                hosts[f] = self._banked_host(f, tp)
+                continue
+            pk = self._jxt_packs([f], tp)[0] if tp.jxt else None
+            if pk is not None:
+                devs.append(self._jxt_frames([f], [pk], tp)[0])
+                hosts[f] = None
+                continue
+            if tp.jxt:
+                self.upload_stats.update(jxt_spill=1)
+            dev, host = self._host_frames_up([f], self._load_imgs([f], tp), tp)
+            devs.append(dev[0])
+            hosts.update(host)
+        return torch.stack(devs), hosts
+
+    def _banked_host(self, f, tp: _Transport):
+        """The host crop source of a frame whose device buffer is banked."""
+        if not tp.two_tier:
+            return tp.bank[("sam_host", f)][0]
+        return None if tp.jxt else self._load_imgs([f], tp)[0]
+
+    def _host_frames_up(self, fids, imgs, tp: _Transport):
+        """Host frames -> the detector's buffers through YCrCb (dense under
+        ``BFF_SEG2D_YUV=0``), banked; returns them and {fid: host source}."""
+        dev, scaled = self._scale_upload(imgs, tp.target_hw, tp)
+        if tp.bank is not None:
+            for i, f in enumerate(fids):
+                tp.bank[(tp.key, f)] = dev[i]
+                if not tp.two_tier:
+                    tp.bank[("sam_host", f)] = (scaled[i], tp.sam_hw)
+        return dev, dict(zip(fids, imgs if tp.two_tier else scaled))
+
+    def _scale_upload(self, imgs, hw, tp: _Transport):
+        """Host frames scaled to ``hw`` on the host (OpenCV's INTER_LINEAR,
+        as the JAX package) and uploaded as YCrCb, one copy per batch under
+        batched uploads; under ``BFF_SEG2D_YUV=0`` uploaded dense at their
+        own size and scaled on the device (``core/resize.py``, the same
+        pixels). Returns the device batch and the host-scaled frames
+        (``None`` for dense)."""
+        import cv2
+
+        with self._span("upload", frames=len(imgs)):
+            if tp.yuv:
+                scaled = [img if img.shape[:2] == tuple(hw) else
+                          cv2.resize(img, (hw[1], hw[0]), interpolation=cv2.INTER_LINEAR)
+                          for img in imgs]
+                groups = [scaled] if tp.batch_upload else [[im] for im in scaled]
+                dev = torch.cat([color.upload_frames(g, self.device) for g in groups])
+                self.upload_stats.update(ycrcb=len(imgs),
+                                         bytes=len(imgs) * color.wire_bytes(*hw))
+            else:
+                scaled = [None] * len(imgs)
+                dev = _resize.resize_linear(torch.from_numpy(np.stack(imgs)).to(self.device),
+                                            tuple(hw))
+                self.upload_stats.update(rgb=len(imgs), bytes=sum(im.nbytes for im in imgs))
+        return dev, scaled
+
+    def _jxt_packs(self, fids, tp: _Transport) -> List[Optional[jxt.JxtPacked]]:
+        """Each frame's file sparse-packed for the JXT transport, or ``None``
+        (the spill guard, a file the native runtime does not take, or pixel
+        dims other than the configured frame size)."""
+        out = []
+        with self._span("load", frames=len(fids)):
+            for f in fids:
+                try:
+                    with open(self._frame_path(tp.scene_id, f), "rb") as fh:
+                        pk = jxt.pack_file(fh.read())
+                except (OSError, ValueError):
+                    pk = None
+                if pk is not None and (pk.geometry.h, pk.geometry.w) != tuple(tp.frame_hw):
+                    pk = None
+                out.append(pk)
+        return out
+
+    def _jxt_upload(self, packs) -> torch.Tensor:
+        """Packed frames -> native-resolution device frames, one copy."""
+        with self._span("upload", frames=len(packs)):
+            natives = jxt.upload_frames(packs, self.device)
+        self.upload_stats.update(jxt=len(packs), bytes=jxt.wire_bytes(packs))
+        return natives
+
+    def _jxt_frames(self, fids, packs, tp: _Transport) -> torch.Tensor:
+        """JXT frames decoded on the device and resized there to the
+        detector's buffers (banked); two-tier keeps each native frame for its
+        batch's SAM-scale buffers."""
+        natives = self._jxt_upload(packs)
+        with self._span("upload", frames=len(fids)):
+            dev = jxt.resize_frames(natives, tp.target_hw)
+        for i, f in enumerate(fids):
+            if tp.two_tier:
+                tp.native[f] = natives[i]
+            if tp.bank is not None:
+                tp.bank[(tp.key, f)] = dev[i]
+                if not tp.two_tier:
+                    tp.bank[("sam_host", f)] = (None, tp.sam_hw)
+        return dev
+
+    def _sam_frames(self, fids, indices, frames, hosts, tp: _Transport) -> Dict:
+        """SAM-scaled buffers of the batch positions ``indices`` of a
+        two-tier batch, made when first needed (frames with boxes only),
+        banked per frame: {fid: (nh, nw, 3) uint8}. Dense uploads scale on
+        the device from the frame-size buffers; JXT derives them from the
+        batch's native frames (no second upload), re-packs a frame whose
+        native is gone, and sends spilled frames the YCrCb way, as YCrCb
+        frames go: scaled on the host, packed, uploaded."""
+        bank = tp.bank
+        out, todo = {}, {}  # todo: fid -> its first batch position
+        for i in indices:
+            f = fids[i]
+            if bank is not None and ("sam", f) in bank:
+                out[f] = bank[("sam", f)]
+            else:
+                todo.setdefault(f, i)
+        todo = list(todo.values())
+        if not todo:
+            return out
+        if tp.key == "raw":
+            fresh, _hw = self.sam.scale_frames(frames[todo])
+            fresh = dict(zip((fids[i] for i in todo), fresh))
+        else:
+            fresh, jx, host_missing = {}, [], []
+            for i in todo:
+                f = fids[i]
+                if f in tp.native:
+                    jx.append(f)
+                    continue
+                pk = self._jxt_packs([f], tp)[0] if tp.jxt else None
+                if pk is not None:
+                    tp.native[f] = self._jxt_upload([pk])[0]
+                    jx.append(f)
+                else:
+                    self.upload_stats.update(jxt_spill=int(tp.jxt))
+                    host_missing.append(i)
+            if jx:
+                with self._span("upload", frames=len(jx)):
+                    res = jxt.resize_frames(torch.stack([tp.native[f] for f in jx]), tp.sam_hw)
+                fresh.update(zip(jx, res))
+            if host_missing:
+                imgs = [hosts[i] if hosts[i] is not None
+                        else self._load_imgs([fids[i]], tp)[0] for i in host_missing]
+                dev, scaled = self._scale_upload(imgs, tp.sam_hw, tp)
+                for j, i in enumerate(host_missing):
+                    fresh[fids[i]] = dev[j]
+                    if bank is not None:
+                        bank[("sam_host", fids[i])] = (scaled[j], tp.sam_hw)
+        for f, t in fresh.items():
+            out[f] = t
+            if bank is not None:
+                bank[("sam", f)] = t
+        return out
 
     def _detect(self, frames, caption: str, fids, bank):
         """Dispatch detection on the frame batch; with a bank, the detector's
@@ -611,21 +941,21 @@ class Segmentor2D:
                 return fresh
         return torch.stack([cached[i] for i in indices])
 
-    def _device_batch(self, frames, input_hw, raw, queries, frame_hw, encode):
+    def _device_batch(self, hosts, input_hw, raw, queries, frame_hw, encode, crop_frames):
         """Device-frames path for one batch of detections: phrase filter,
         SAM encode of the frames with boxes (before the CLIP filter, as the
-        JAX package's eager encode), CLIP filter on crops of the uploaded
-        frames, SAM decode at ``input_hw``. Returns (detections, masks) per
-        frame."""
-        smalls = list(frames)
-        qs = [queries] * len(smalls) if isinstance(queries, str) else queries
-        pre = [self._phrase_filter(im, q, det, frame_hw) for im, q, det in zip(smalls, qs, raw)]
+        JAX package's eager encode), CLIP filter on crops of ``hosts`` or,
+        with ``crop_frames``, of the SAM-scale device buffers, SAM decode at
+        ``input_hw``. Returns (detections, masks) per frame."""
+        qs = [queries] * len(hosts) if isinstance(queries, str) else queries
+        pre = [self._phrase_filter(None, q, det, frame_hw) for q, det in zip(qs, raw)]
         idx = [i for i, pr in enumerate(pre) if pr is not None]
         if not idx:
-            return [(None, None)] * len(smalls)
+            return [(None, None)] * len(hosts)
         with self._span("sam_encode", frames=len(idx)):
             embs = encode(idx)
-        dets = self._detect_and_filter_batch(smalls, raw, queries, frame_hw, pre=pre)
+        dets = self._detect_and_filter_batch(hosts, raw, queries, frame_hw, pre=pre,
+                                             crop_frames=crop_frames)
         pos = [j for j, i in enumerate(idx) if dets[i] is not None]
         return self._with_masks(dets, embs[pos], input_hw, frame_hw)
 
@@ -703,7 +1033,7 @@ def _scene_list(cfg: Config, scenes: Optional[Sequence[str]]) -> List[str]:
 
 def bank_sizes(bank: Dict) -> Dict[str, int]:
     """Entries of each kind in a frame bank and the device bytes they hold."""
-    out = {"frames": len({key for kind, key in bank if kind in ("sam", "img", "raw")}),
+    out = {"frames": len({key for kind, key in bank if kind in ("sam", "det", "img", "raw")}),
            "det_feats_frames": 0, "sam_emb": 0, "bytes": 0}
     for (kind, key), val in bank.items():
         if kind == "det_feats":

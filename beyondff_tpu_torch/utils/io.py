@@ -5,8 +5,9 @@ The port's copy of beyondff_tpu/utils/io.py. Stage outputs are per-scene:
   * 3D stages:  {"ins": (I, N) bool | list[RLE], "conf": (I,), "final_class": list[str]}
 serialized as ``.pth`` (torch pickle, byte-compatible with the reference) or
 ``.npz``. Frame IO (depth PNGs, poses, intrinsics, point clouds) matches the
-reference's loaders; depth decodes and resizes with OpenCV (the JAX
-package's optional C++ decoder, ``native/``, stays on its side).
+reference's loaders; a depth map resized on the host decodes through the
+native runtime (utils/native.py), as in the JAX package, and through OpenCV
+without a size or under ``BFF_NO_NATIVE``.
 """
 
 from __future__ import annotations
@@ -79,7 +80,14 @@ def load_intrinsic(path: str) -> np.ndarray:
 
 def load_depth(path: str, depth_scale: float = 1000.0, size: Optional[tuple] = None) -> np.ndarray:
     """Metric depth map; optionally resized to (width, height) with OpenCV's
-    bilinear (reference: projection_2d_to_3d.py:431-436)."""
+    bilinear convention (reference: projection_2d_to_3d.py:431-436), by the
+    native decoder when it runs."""
+    if size is not None:
+        from beyondff_tpu_torch.utils import native
+
+        out = native.decode_depth_native(path, depth_scale, (size[1], size[0]))
+        if out is not None:
+            return out
     import cv2
 
     depth = cv2.imread(path, cv2.IMREAD_UNCHANGED)

@@ -328,10 +328,11 @@ def relpos_case(torch, fa, wa, sam_mod, name, g, grid, dtype, dev):
     return rec
 
 
-def synthetic_frame(path, size):
+def synthetic_frame(path, size, noise=12):
     """Deterministic 'photo' for a frame file: smooth shading, a few flat
-    boxes and sensor noise, from the seed and the frame number (the frame
-    files themselves are empty markers: no image codec is needed)."""
+    boxes and +-``noise`` levels of uniform sensor noise, from the seed and
+    the frame number (the frame files themselves are empty markers: no
+    image codec is needed)."""
     idx = int(os.path.basename(path).split(".")[0])
     rng = np.random.default_rng(SEED * 1000 + idx)
     w, h = size
@@ -343,7 +344,7 @@ def synthetic_frame(path, size):
         y0, x0 = rng.integers(0, h - 200), rng.integers(0, w - 200)
         dh, dw = rng.integers(60, 200, 2)
         base[y0:y0 + dh, x0:x0 + dw] = rng.uniform(0, 255, 3)
-    base += rng.integers(-12, 13, base.shape, dtype=np.int16)
+    base += rng.integers(-noise, noise + 1, base.shape, dtype=np.int16)
     return np.clip(base, 0, 255).astype(np.uint8)
 
 
@@ -1004,7 +1005,7 @@ def full_width_3d(torch, mods, Config, work, dev, detector):
           "device_busy_ms": busy_us / 1e3, "device_busy_share": busy_us / 1e6 / span["s"],
           "device_events": events,
           "top_device_ms": [[name[:120], n, us / 1e3] for name, (n, us) in top]})
-    return launches["projection"] + launches["refinement"]
+    return launches["projection"] + launches["refinement"], fixture
 
 
 # ------------------------------------------------------------ the class sweep
@@ -1550,7 +1551,8 @@ def fast_variant(torch, mods, Config, work, dev, clip_files):
     hash embeddings), from their official files. ``run()`` on the 8-frame
     968x1296 scene in the hit regime with launch counts set to 0 just before
     it, a profiled pass, and banked ``run_classes`` over three classes
-    against per-class ``run()``. Returns the run's launch counts."""
+    against per-class ``run()``. Returns the run's launch counts, the
+    segmentor (phase 10 runs it again) and its config."""
     seg2d, yw, esam, dispatch, io, rle, StageProfiler = mods
     root = tempfile.mkdtemp(prefix="chip_smoke_fast_")
     try:
@@ -1667,9 +1669,7 @@ def fast_variant(torch, mods, Config, work, dev, clip_files):
         check(n > 0 and worst_conf <= 1e-4 and worst_iou >= 0.999,
               f"fast variant: banked run_classes differs from run(): {worst_conf} {worst_iou}")
         check(passes["run_classes"]["launches"]["nms_fixed"] > 0, "run_classes: no NMS launch")
-        del seg
-        torch.cuda.empty_cache()
-        return launches
+        return launches, seg, cfg
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -2002,6 +2002,389 @@ def training_and_parallel(torch, mods, work, root3d, dev):
     check(not any(launches.values()), f"a kernel was launched on the training path: {launches}")
 
 
+# ------------------------------------------------------------ the transports
+TRANSPORTS_OFF = {"BFF_SEG2D_YUV": "0", "BFF_CLIP_DEVICE_CROPS": "0", "BFF_SEG2D_JXT": "0",
+                  "BFF_SEG2D_BATCH_UPLOAD": "0"}
+JPEG_NOISE = 4  # levels of noise in phase 10's JPEG frames (JXT's guard takes them)
+N_CROPS = 512
+
+
+def with_env(env, fn):
+    """``fn()`` with the environment variables ``env`` set, then restored."""
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        return fn()
+    finally:
+        for k, v in old.items():
+            if v is None:
+                del os.environ[k]
+            else:
+                os.environ[k] = v
+
+
+def timed(torch, fn, warm=False):
+    """(result, seconds) of ``fn()`` with the card synchronized after it;
+    ``warm``: after one untimed call (allocations, first launches)."""
+    if warm:
+        fn()
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def native_checks(torch, native, rle, io, fixture):
+    """The native runtime: a cold build into an empty directory, then each
+    entry point against the numpy / OpenCV path on phase 7's fixture, bit
+    for bit: the RLE batch decode and the encode of its 2D masks, the depth
+    decode (single and batched) of its 300 PNGs at their own size; at the
+    stage's 968x1296 the runtime's own bilinear (single against batched bit
+    for bit, against OpenCV's INTER_LINEAR within 1e-3 m)."""
+    import cv2
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_native_")
+    old, native.BUILD_DIR = native.BUILD_DIR, tmp
+    try:
+        t0 = time.perf_counter()
+        path = native.build()
+        cold_s = time.perf_counter() - t0
+    finally:
+        native.BUILD_DIR = old
+        shutil.rmtree(tmp)
+    recs = io.load_frame_records(os.path.join(fixture["paths"]["mask_2d_dir"], QUERY,
+                                              "scene0000_00.pth"))
+    rles = [m for r in recs for m in r["segmented_frame_masks"]]
+    t0 = time.perf_counter()
+    got = native.rle_decode_batch_native(rles)
+    nat_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    want = np.stack([rle.rle_decode(r) for r in rles])
+    np_ms = (time.perf_counter() - t0) * 1e3
+    check(np.array_equal(got, want), "native RLE batch decode differs from numpy")
+    t0 = time.perf_counter()
+    enc = [native.rle_encode_native(m) for m in got]
+    enc_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    enc_np = [rle.rle_encode(m) for m in got]
+    enc_np_ms = (time.perf_counter() - t0) * 1e3
+    check(all(a["length"] == b["length"] and np.array_equal(a["counts"], b["counts"])
+              for a, b in zip(enc, enc_np)), "native RLE encode differs from numpy")
+    del got, want
+    depth_dir = os.path.join(fixture["paths"]["scene_2d_dir"], "scene0000_00", "depth")
+    pngs = sorted((os.path.join(depth_dir, f) for f in os.listdir(depth_dir)),
+                  key=lambda p: int(os.path.basename(p).split(".")[0]))
+    t0 = time.perf_counter()
+    cv = np.stack([cv2.imread(p, cv2.IMREAD_UNCHANGED).astype(np.float32) / 1000.0
+                   for p in pngs])
+    cv_ms = (time.perf_counter() - t0) * 1e3
+    hw = cv.shape[1:]
+    t0 = time.perf_counter()
+    single = np.stack([native.decode_depth_native(p, 1000.0, hw) for p in pngs])
+    single_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    batch = native.decode_depth_batch_native(pngs, 1000.0, hw)
+    batch_ms = (time.perf_counter() - t0) * 1e3
+    check(np.array_equal(single, cv) and np.array_equal(batch, cv),
+          "native depth decode differs from OpenCV")
+    big_single = np.stack([native.decode_depth_native(p, 1000.0, FRAME_HW) for p in pngs[:8]])
+    big_batch = native.decode_depth_batch_native(pngs[:8], 1000.0, FRAME_HW)
+    big_cv = np.stack([cv2.resize(d, FRAME_HW[::-1]) for d in cv[:8]])
+    resize_err = float(np.abs(big_single - big_cv).max())
+    check(np.array_equal(big_single, big_batch) and resize_err <= 1e-3,
+          f"native depth resize: batch differs or {resize_err} m from OpenCV")
+    return {"library": path, "cold_build_s": cold_s,
+            "rle": {"masks": len(rles), "decode_ms": {"native": nat_ms, "numpy": np_ms},
+                    "encode_ms": {"native": enc_ms, "numpy": enc_np_ms}, "bit_equal": True},
+            "depth": {"frames": len(pngs), "hw": list(hw),
+                      "decode_ms": {"opencv": cv_ms, "native": single_ms,
+                                    "native_batch": batch_ms},
+                      "bit_equal": True, "resize_968x1296_max_err_m": resize_err}}
+
+
+def jpeg_scene(root, scene_id, n, quality=95):
+    """``n`` of ``synthetic_frame``'s frames at 968x1296 with +-JPEG_NOISE
+    levels of noise, written as baseline JPEGs (OpenCV, quality 95).
+    Returns the RGB frames and the files' bytes."""
+    import cv2
+
+    color = os.path.join(root, scene_id, "color")
+    os.makedirs(color, exist_ok=True)
+    frames, blobs = [], []
+    for i in range(n):
+        path = os.path.join(color, f"{i}.jpg")
+        img = synthetic_frame(path, FRAME_HW[::-1], noise=JPEG_NOISE)
+        check(cv2.imwrite(path, img[..., ::-1], [cv2.IMWRITE_JPEG_QUALITY, quality]),
+              f"writing {path}")
+        frames.append(img)
+        with open(path, "rb") as f:
+            blobs.append(f.read())
+    return frames, blobs
+
+
+def host_crops(frame, boxes, mode, frame_hw, det_hw, mean, std, n=224):
+    """The host lookup-table chain (``Segmentor2D._clip_crops`` and
+    ``CLIP.preprocess``) in OpenCV with its own arithmetic (IPP off):
+    INTER_LINEAR to the detector size and the normalise table (gdino), or
+    the ``* 255`` wrap (yolo), the crop, INTER_CUBIC short side to n and the
+    centre crop."""
+    import cv2
+
+    if mode == "gdino":
+        src = cv2.resize(frame, det_hw[::-1], interpolation=cv2.INTER_LINEAR)
+        lut = (((np.arange(256, dtype=np.float32)[:, None] / 255.0 - mean) / std)
+               * 255).astype(np.uint8).reshape(1, 256, 3)
+    else:
+        src = frame
+        lut = (np.arange(256, dtype=np.uint8) * 255).astype(np.uint8)
+    sh, sw = src.shape[:2]
+    sx, sy = sw / frame_hw[1], sh / frame_hw[0]
+    out = []
+    for bx0, by0, bx1, by1 in boxes:
+        x0, y0 = max(0, int(bx0 * sx)), max(0, int(by0 * sy))
+        x1, y1 = min(sw, int(bx1 * sx)), min(sh, int(by1 * sy))
+        c = cv2.LUT(np.ascontiguousarray(src[y0:y1, x0:x1]), lut)
+        h, w = c.shape[:2]
+        scale = n / min(h, w)
+        nh, nw = round(h * scale), round(w * scale)
+        r = cv2.resize(c, (nw, nh), interpolation=cv2.INTER_CUBIC)
+        top, left = (nh - n) // 2, (nw - n) // 2
+        out.append(r[top:top + n, left:left + n])
+    return np.stack(out)
+
+
+def transport_checks(torch, mods, fixture, dev, seg, frames, blobs):
+    """Each transport against its dense path on the card, with the wire
+    bytes a pixel and the ms of each side (host clock, card synchronized):
+    YCrCb against ``roundtrip_host`` (within one level), JXT against
+    ``cv2.imdecode`` of the same files (the JAX package's bar: at most 5
+    levels, mean about 0.4), device crops against the host chain at 512
+    crops in both modes, and depth-pack over phase 7's 300 depth frames
+    against the raw upload (bit for bit, spills counted)."""
+    import cv2
+
+    color, jxt, crop_resize, depth_pack, readers = mods
+    from beyondff_tpu_torch.models.gdino.model import IMAGE_MEAN, IMAGE_STD, PRESETS
+
+    out = {}
+    n_px = FRAME_HW[0] * FRAME_HW[1]
+    # YCrCb
+    dense, dense_s = timed(torch, lambda: torch.from_numpy(np.stack(frames)).to(dev), warm=True)
+    packed, pack_s = timed(torch, lambda: np.stack([color.pack_ycrcb420(f) for f in frames]))
+    ycc, up_s = timed(torch, lambda: color.unpack(torch.from_numpy(packed).to(dev), *FRAME_HW),
+                      warm=True)
+    err = max(int(np.abs(ycc[i].cpu().numpy().astype(int)
+                         - color.roundtrip_host(f).astype(int)).max())
+              for i, f in enumerate(frames))
+    check(err <= 1, f"YCrCb device unpack {err} levels from roundtrip_host")
+    out["ycrcb"] = {"frames": len(frames), "bytes_per_px": packed.shape[1] / n_px,
+                    "max_err_vs_roundtrip_host": err,
+                    "ms": {"dense_upload": dense_s * 1e3, "host_pack": pack_s * 1e3,
+                           "upload_unpack": up_s * 1e3}}
+    # JXT
+    t0 = time.perf_counter()
+    packs = [jxt.pack_file(b) for b in blobs]
+    jpack_s = time.perf_counter() - t0
+    spills = sum(p is None for p in packs)
+    check(spills == 0, f"JXT spilled {spills} of {len(blobs)} JPEG frames")
+    t0 = time.perf_counter()
+    ref = [cv2.imdecode(np.frombuffer(b, np.uint8), cv2.IMREAD_COLOR)[..., ::-1] for b in blobs]
+    imdecode_s = time.perf_counter() - t0
+    native_frames, dec_s = timed(torch, lambda: jxt.upload_frames(packs, dev), warm=True)
+    diff = np.abs(native_frames.cpu().numpy().astype(int) - np.stack(ref).astype(int))
+    check(diff.max() <= 5 and diff.mean() < 1.0,
+          f"JXT decode vs cv2.imdecode: max {diff.max()}, mean {diff.mean()}")
+    out["jxt"] = {"frames": len(blobs), "spills": spills, "quality": 95, "noise": JPEG_NOISE,
+                  "bytes_per_px": jxt.wire_bytes(packs) / len(packs) / n_px,
+                  "file_bytes_per_px": float(np.mean([len(b) for b in blobs])) / n_px,
+                  "max_err_vs_imdecode": int(diff.max()), "mean_err_vs_imdecode": float(diff.mean()),
+                  "ms_per_frame": {"host_pack": jpack_s * 1e3 / len(blobs),
+                                   "cv2_imdecode": imdecode_s * 1e3 / len(blobs),
+                                   "upload_decode": dec_s * 1e3 / len(blobs)}}
+    # device crops, both modes, from the SAM-scale buffers JXT gives
+    sam_hw = seg.sam.scaled_hw(FRAME_HW)
+    bufs = jxt.resize_frames(native_frames, sam_hw)
+    host = bufs.cpu().numpy()
+    rng = np.random.default_rng(SEED + 10)
+    fpos = np.repeat(np.arange(len(frames)), N_CROPS // len(frames))
+    xy0 = rng.uniform(0, 1, (N_CROPS, 2)) * [FRAME_HW[1] - 40, FRAME_HW[0] - 40]
+    wh = rng.uniform(40, 600, (N_CROPS, 2))
+    boxes = np.concatenate([xy0, np.minimum(xy0 + wh, FRAME_HW[::-1])], 1).astype(np.float32)
+    det_hw = tuple(PRESETS["swinb"].image_size)
+    crops = {}
+    cv2.ipp.setUseIPP(False)
+    try:
+        for mode in ("yolo", "gdino"):
+            kw = {"det_hw": det_hw, "mean": IMAGE_MEAN, "std": IMAGE_STD}
+            got, dev_s = timed(torch, lambda: crop_resize.clip_crop_batch(
+                bufs, fpos, boxes, np.ones(N_CROPS, bool), mode, FRAME_HW, **kw), warm=True)
+            t0 = time.perf_counter()
+            want = np.concatenate([host_crops(host[f], boxes[fpos == f], mode, FRAME_HW,
+                                              **kw) for f in range(len(frames))])
+            host_s = time.perf_counter() - t0
+            d = np.abs(got.cpu().numpy() - want)
+            if mode == "gdino":
+                d = np.minimum(d, 256 - d)  # the normalise table wraps
+            crops[mode] = {"max_diff": float(d.max()), "mean_diff": float(d.mean()),
+                           "share_within_1": float((d <= 1).mean()),
+                           "p95": float(np.percentile(d, 95)),
+                           "ms": {"device": dev_s * 1e3, "host_chain": host_s * 1e3},
+                           "bytes": {"device": boxes.nbytes, "host": want.nbytes}}
+            # the JAX package's bars (tests/test_crop_resize.py)
+            bar = (1.0, 2.0) if mode == "yolo" else (1.5, 6.0)
+            check(d.mean() < bar[0] and np.percentile(d, 95) <= bar[1],
+                  f"device crops ({mode}) vs the host chain: {crops[mode]}")
+            del got
+    finally:
+        cv2.ipp.setUseIPP(True)
+    out["device_crops"] = {"crops": N_CROPS, "source_hw": list(sam_hw), **crops}
+    # depth-pack over phase 7's 300 frames
+    reader = readers.build_dataset("scannet200", os.path.join(fixture["paths"]["scene_2d_dir"],
+                                                              "scene0000_00"))
+    raws = [reader.depth_raw(f) for f in reader.frame_ids]
+    depth_pack._PACK_CACHE.clear()
+    t0 = time.perf_counter()
+    dpk = [depth_pack.pack_cached(r) for r in raws]
+    dpack_s = time.perf_counter() - t0
+    d_spills = sum(p is None for p in dpk)
+    ok = [i for i, p in enumerate(dpk) if p is not None]
+    packed_dev, dpk_up_s = timed(torch, lambda: torch.cat([
+        depth_pack.upload_frames([dpk[i] for i in ok[j:j + 8]], dev) for j in range(0, len(ok), 8)]),
+        warm=True)
+    raw_dev, raw_up_s = timed(torch, lambda: torch.cat([
+        torch.from_numpy(np.stack([raws[i] for i in ok[j:j + 8]]).view(np.int16)).to(dev)
+        for j in range(0, len(ok), 8)]), warm=True)
+    check(bool(torch.equal(packed_dev, raw_dev)), "depth-pack decode differs from the raw upload")
+    wire = sum(dpk[i].nbytes for i in ok)
+    out["depth_pack"] = {"frames": len(raws), "spills": d_spills,
+                         "bytes_per_px": wire / sum(raws[i].size for i in ok),
+                         "bit_equal": True,
+                         "ms_per_frame": {"host_pack": dpack_s * 1e3 / len(raws),
+                                          "upload_decode": dpk_up_s * 1e3 / max(len(ok), 1),
+                                          "raw_upload": raw_up_s * 1e3 / max(len(ok), 1)}}
+    return out
+
+
+def seg2d_ab(torch, mods, dev, seg, cfg, work):
+    """The fast variant's ``run()`` on the JPEG scene with the JAX package's
+    defaults against every transport off, hit and miss regimes
+    (``box_threshold`` 0 and 1.01), alternating over two rounds after one
+    warm-up of each. Launch counts are summed over the defaults' runs."""
+    seg2d, dispatch, io, StageProfiler = mods
+    seg.frame_loader = io.load_image  # the JPEG files themselves
+    variants = {"defaults": {}, "all_off": TRANSPORTS_OFF}
+    regimes = {"hit": 0.0, "miss": 1.01}
+    runs = {f"{v}_{r}": [] for v in variants for r in regimes}
+    launches = {}
+
+    def one(variant, regime):
+        c = cfg.override(**{"detector.box_threshold": regimes[regime],
+                            "paths.mask_2d_dir": os.path.join(work, f"masks_ab_{variant}"),
+                            "paths.checkpoint_dir": os.path.join(work, f"ckpt_ab_{variant}")})
+        seg.upload_stats.clear()
+        prof = StageProfiler("segmentation_2d")
+        dispatch.reset_launch_counts()
+        old, seg.cfg = seg.cfg, c  # the segmentor reads its thresholds from its config
+        try:
+            res = with_env(variants[variant], lambda: seg2d.run(
+                c, "clothes", scenes=["scene_jpeg"], segmentor=seg, profiler=prof, resume=False))
+        finally:
+            seg.cfg = old
+        torch.cuda.synchronize()
+        if variant == "defaults":
+            for k, v in dispatch.launch_counts.items():
+                launches[k] = launches.get(k, 0) + v
+        scene_s = prof.durations["scene"]
+        return {"frames_per_sec": N_FRAMES / scene_s, "scene_seconds": scene_s,
+                "spans_s": {k: prof.durations.get(k, 0.0)
+                            for k in ("load", "upload", "clip_crops", "clip", "detect",
+                                      "sam_encode", "sam_decode", "encode_write")},
+                "upload_bytes": seg.upload_stats["bytes"],
+                "frames": {k: seg.upload_stats[k] for k in ("jxt", "ycrcb", "rgb", "jxt_spill")},
+                "frames_with_boxes": res[0]["frames_with_boxes"] if res else 0}
+
+    for v in variants:  # warm-up
+        one(v, "hit")
+    launches.clear()
+    for rnd in range(2):
+        order = list(variants) if rnd == 0 else list(variants)[::-1]
+        for regime in regimes:
+            for v in order:
+                runs[f"{v}_{regime}"].append(one(v, regime))
+    for r in runs["defaults_hit"] + runs["defaults_miss"]:
+        check(r["frames"]["jxt"] >= N_FRAMES and r["frames"]["jxt_spill"] == 0
+              and r["frames"]["ycrcb"] == 0, f"the defaults did not run JXT: {r['frames']}")
+    for r in runs["all_off_hit"] + runs["all_off_miss"]:
+        check(r["frames"]["rgb"] == N_FRAMES and r["frames"]["jxt"] == 0,
+              f"all-off ran a transport: {r['frames']}")
+    for v in variants:
+        for r in runs[f"{v}_hit"] + runs[f"{v}_miss"]:
+            want = N_FRAMES if r in runs[f"{v}_hit"] else 0
+            check(r["frames_with_boxes"] == want, f"{v}: {r['frames_with_boxes']} frames with "
+                  f"boxes, {want} expected")
+    return runs, launches
+
+
+def projection_ab(torch, mods, Config, fixture, dev, work):
+    """``projection.run`` at phase 7's fixture with ``BFF_DEPTH_PACK=1``
+    against ``0``: cold (empty depth and pack caches) then warm, outputs
+    bit-equal. Returns the times and the launch counts of the
+    ``BFF_DEPTH_PACK=1`` (default) runs."""
+    projection, depth_pack, dispatch, io, StageProfiler = mods
+    out, dicts, launches = {}, {}, {}
+    for v in ("1", "0"):
+        cfg = config_3d(Config, fixture, os.path.join(work, f"dpack_{v}"))
+        depth_pack._PACK_CACHE.clear()
+        for temp in ("cold", "warm"):
+            prof = StageProfiler("projection")
+            dispatch.reset_launch_counts()
+            _res, secs = timed(torch, lambda: with_env({"BFF_DEPTH_PACK": v}, lambda: projection.run(
+                cfg, QUERY, resume=False, device=dev, profiler=prof)))
+            if v == "1":
+                for k, n in dispatch.launch_counts.items():
+                    launches[k] = launches.get(k, 0) + n
+            out[f"dpack_{v}_{temp}"] = {"seconds": secs, "lift_s": prof.durations["lift"]}
+        dicts[v] = io.load_stage_dict(os.path.join(cfg.paths.mask_3d_dir, QUERY,
+                                                   "scene0000_00.pth"))
+    same = all(np.array_equal(np.asarray(dicts["1"][k]), np.asarray(dicts["0"][k]))
+               for k in ("ins", "conf")) and \
+        list(dicts["1"]["final_class"]) == list(dicts["0"]["final_class"])
+    check(same and np.asarray(dicts["1"]["ins"]).shape[0] > 0,
+          "projection outputs differ between BFF_DEPTH_PACK=1 and 0")
+    return out, launches
+
+
+def transports(torch, mods, Config, work, fixture, dev, seg, cfg, card):
+    """Phase 10: the native runtime and the JAX package's transports on the
+    card with the fast variant's full-width models (phase 8, with phase 4's
+    CLIP archive) and phase 7's fixture. The JPEG scene's 8 frames carry
+    +-4 levels of noise (``JPEG_NOISE``; ``synthetic_frame``'s +-12 sits at
+    the edge of JXT's spill guard). The last line of the phase holds the
+    paired seg2d and projection A/Bs with the card's name and power
+    limit."""
+    from beyondff_tpu_torch.core import color, crop_resize, depth_pack, jxt
+    from beyondff_tpu_torch.data import readers
+    from beyondff_tpu_torch.utils import native
+
+    seg2d, projection, dispatch, io, rle, StageProfiler = mods
+    t_phase = time.perf_counter()
+    emit({"phase": "native_runtime", **native_checks(torch, native, rle, io, fixture)})
+    frames, blobs = jpeg_scene(os.path.join(work, "scenes"), "scene_jpeg", N_FRAMES)
+    emit({"phase": "transports_vs_dense", "card": card, **transport_checks(
+        torch, (color, jxt, crop_resize, depth_pack, readers), fixture, dev, seg, frames,
+        blobs)})
+    runs, launches = seg2d_ab(torch, (seg2d, dispatch, io, StageProfiler), dev, seg, cfg, work)
+    proj, proj_launches = projection_ab(
+        torch, (projection, depth_pack, dispatch, io, StageProfiler), Config, fixture, dev, work)
+    emit({"phase": "transports_ab", "card": card, "frames": N_FRAMES, "env_off": TRANSPORTS_OFF,
+          "seg2d": runs, "projection": proj,
+          "launches_over_defaults": {"seg2d": launches, "projection": proj_launches},
+          "seconds": time.perf_counter() - t_phase})
+    check(launches["flash_attention"] > 0 and launches["nms_fixed"] > 0
+          and proj_launches["mask_iou"] > 0, f"phase 10 launched no kernel: {launches}")
+
+
 def main() -> int:
     import torch
 
@@ -2032,6 +2415,7 @@ def main() -> int:
     from beyondff_tpu_torch.models import layers
     from beyondff_tpu_torch.parallel import lift as plift, mesh as mesh_lib
     from beyondff_tpu_torch.training import checkpoint as ckpt, sam_finetune, trainer
+    from beyondff_tpu_torch.utils import native
 
     dev = torch.device("cuda")
     # ---------------------------------------------------------------- 1
@@ -2040,8 +2424,13 @@ def main() -> int:
     card = smi.stdout.strip().splitlines()[0]
     t0 = time.perf_counter()
     _build.library()
-    emit({"phase": "build", "seconds": time.perf_counter() - t0, "torch": torch.__version__,
-          "cuda": torch.version.cuda, "device": torch.cuda.get_device_name(0), "card": card})
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    native_lib = native.build()
+    native.load_library()
+    emit({"phase": "build", "seconds": build_s, "torch": torch.__version__,
+          "cuda": torch.version.cuda, "device": torch.cuda.get_device_name(0), "card": card,
+          "native_seconds": time.perf_counter() - t0, "native_library": native_lib})
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -2165,13 +2554,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     # the 2D stage's launches, the sweep's rel-pos launches (K5 is wired into
     # no path: 0) and the 3D half's mask-IoU launches
-    launches = {**launches,
-                "mask_iou": full_width_3d(torch, mods3d, Config, work3d, dev, cfg.detector),
+    iou_launches, fixture3d = full_width_3d(torch, mods3d, Config, work3d, dev, cfg.detector)
+    launches = {**launches, "mask_iou": iou_launches,
                 "flash_attention_relpos": sweep_launches["flash_attention_relpos"],
                 "window_attention_relpos": sweep_launches["window_attention_relpos"]}
 
     # ---------------------------------------------------------------- 8
-    fast_launches = fast_variant(
+    fast_launches, fast_seg, fast_cfg = fast_variant(
         torch, (seg2d, yw, esam, dispatch, io, rle, StageProfiler), Config, work, dev,
         (cfg.detector.clip_checkpoint, cfg.detector.clip_bpe_path))
     shutil.rmtree(ckpt_dir)
@@ -2183,6 +2572,12 @@ def main() -> int:
                                   ckpt, mfu, mesh_lib, plift, geometry,
                                   (geometry, rle, io, readers)),
                           work3d, os.path.join(work3d, "full3d"), dev)
+
+    # ---------------------------------------------------------------- 10
+    transports(torch, (seg2d, projection, dispatch, io, rle, StageProfiler), Config, work,
+               fixture3d, dev, fast_seg, fast_cfg, card)
+    del fast_seg
+    torch.cuda.empty_cache()
     shutil.rmtree(work3d)
 
     table = []
