@@ -323,5 +323,6 @@ def yolo_world_from_jax(variables, cfg) -> StateDict:
                     w.conv(f"{pfx}.{branch}.{s}.2", p[f"{ours}{s}_2"])
                 w.raw(f"{pfx}.cv4.{s}.bias", p[f"head{s}_bias"])
                 w.raw(f"{pfx}.cv4.{s}.logit_scale", p[f"head{s}_logit_scale"])
-                bn(f"{pfx}.cv4.{s}.norm", p[f"head{s}_norm"], st[f"head{s}_norm"])
+                if cfg.bn_head:
+                    bn(f"{pfx}.cv4.{s}.norm", p[f"head{s}_norm"], st[f"head{s}_norm"])
     return w.sd

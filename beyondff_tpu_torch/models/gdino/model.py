@@ -34,6 +34,7 @@ from beyondff_tpu_torch.models.gdino import bert as bert_mod
 from beyondff_tpu_torch.models.gdino import swin as swin_mod
 from beyondff_tpu_torch.models.gdino.deformable import MSDeformAttn
 from beyondff_tpu_torch.models.layers import Attention, MLPHead, build
+from beyondff_tpu_torch.parallel.frames import data_parallel_slice, gather_frames
 
 IMAGE_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGE_STD = np.array([0.229, 0.224, 0.225], np.float32)
@@ -415,23 +416,33 @@ class GroundingDINO:
                         feats_cache=None):
         ids, pad, self_mask, pos_ids = self._text(caption)
         b = images_u8.shape[0]
+        # data-parallel detection inside parallel.frames.shard_frames over a
+        # group of more than one rank whose size divides the batch: each rank
+        # runs its slice of the frames and the packed results are gathered
+        # (the JAX package's frame sharding; like it, the banked split path
+        # stays whole)
+        sliced = data_parallel_slice(b) if feats_cache is None else None
+        if sliced is not None:
+            images_u8 = images_u8[sliced]
+        n = images_u8.shape[0]
 
         def tile(a, dtype):
-            return torch.as_tensor(np.broadcast_to(a, (b, *a.shape[1:])).copy(), dtype=dtype,
+            return torch.as_tensor(np.broadcast_to(a, (n, *a.shape[1:])).copy(), dtype=dtype,
                                    device=self.device)
 
         text = (tile(ids, torch.long), tile(self_mask, torch.bool), tile(pad, torch.bool),
                 tile(pos_ids, torch.long))
+        k = min(self.TOP_K, self.cfg.num_queries)
         if feats_cache is None:
             logits, boxes = self.module(self._normalize(images_u8, resize), *text)
-        else:
-            bank, key = feats_cache
-            feats = bank.get(key)
-            if feats is None:
-                feats = self.module.backbone_forward(self._normalize(images_u8, resize))
-                bank[key] = feats
-            logits, boxes = self.module.detect(feats, *text)
-        k = min(self.TOP_K, self.cfg.num_queries)
+            packed = pack_topk(logits, boxes, k)
+            return (packed if sliced is None else gather_frames(packed)), ids, b
+        bank, key = feats_cache
+        feats = bank.get(key)
+        if feats is None:
+            feats = self.module.backbone_forward(self._normalize(images_u8, resize))
+            bank[key] = feats
+        logits, boxes = self.module.detect(feats, *text)
         return pack_topk(logits, boxes, k), ids, b
 
     # the seg2d stage may bank the text-independent backbone pyramid

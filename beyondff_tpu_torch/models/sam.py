@@ -29,6 +29,7 @@ from beyondff_tpu_torch.kernels.dispatch import resolve_device
 from beyondff_tpu_torch.models.convert_util import load_module, require_file
 from beyondff_tpu_torch.models.layers import (MLP, MLPHead, PatchEmbed, build, conv_nhwc,
                                               gelu_exact, window_partition, window_unpartition)
+from beyondff_tpu_torch.parallel.frames import data_parallel_slice, gather_frames
 
 PIXEL_MEAN = np.array([123.675, 116.28, 103.53], np.float32)
 PIXEL_STD = np.array([58.395, 57.12, 57.375], np.float32)
@@ -385,18 +386,37 @@ class SAM:
         scale = self.cfg.img_size / max(h, w)
         return int(h * scale + 0.5), int(w * scale + 0.5)
 
+    def padded_hw(self, hw) -> Tuple[int, int]:
+        """The encoder's input size for an (nh, nw) scaled frame: the full
+        square, or under ``BFF_SAM_RECT=1`` only the patch multiple, capped
+        at ``img_size`` (ScanNet's 765 x 1024 frames then encode 48 x 64
+        patches instead of 64 x 64). The variable is read on every call; the
+        JAX package reads it when it traces ``encode_frames_u8``."""
+        s = self.cfg.img_size
+        if os.environ.get("BFF_SAM_RECT") != "1":
+            return s, s
+        patch = self.cfg.patch_size
+        return tuple(min(-(-n // patch) * patch, s) for n in hw)
+
     @torch.inference_mode()
     def encode_frames(self, frames: torch.Tensor) -> torch.Tensor:
-        """(B, nh, nw, 3) uint8 device frames -> (B, g, g, d) embeddings; pad
-        to the square and normalize on the device (the pad is exactly 0
-        after normalization)."""
+        """(B, nh, nw, 3) uint8 device frames -> (B, gh, gw, d) embeddings;
+        pad to :meth:`padded_hw` and normalize on the device (the pad is
+        exactly 0 after normalization). Inside ``parallel.frames.shard_frames``
+        over a group of more than one rank whose size divides B, each rank
+        encodes its slice of the frames and the slices are gathered, so every
+        rank returns the whole batch (the JAX package's data-parallel encode)."""
         b, nh, nw, _ = frames.shape
-        s = self.cfg.img_size
-        x = F.pad(frames, (0, 0, 0, s - nw, 0, s - nh)).float()
+        ph, pw = self.padded_hw((nh, nw))
+        sliced = data_parallel_slice(b)
+        if sliced is not None:
+            frames = frames[sliced]
+        x = F.pad(frames, (0, 0, 0, pw - nw, 0, ph - nh)).float()
         x = (x - self._mean) / self._std
-        valid = torch.zeros(s, s, 1, dtype=x.dtype, device=x.device)
+        valid = torch.zeros(ph, pw, 1, dtype=x.dtype, device=x.device)
         valid[:nh, :nw] = 1.0
-        return self.module.encode((x * valid).to(self.dtype))
+        out = self.module.encode((x * valid).to(self.dtype))
+        return out if sliced is None else gather_frames(out)
 
     def transform_boxes(self, boxes_xyxy: np.ndarray, orig_hw: Tuple[int, int]) -> np.ndarray:
         """Boxes in original pixels -> padded-square pixels."""

@@ -5,9 +5,10 @@ Module and parameter names are the released ultralytics ``yolov8*-world(v2)``
 layout (``model.{N}.cv1.conv.weight``, ``model.22.cv4.{i}.logit_scale``), so
 an official state dict loads with ``load_state_dict``: a YOLOv8 CSP backbone
 (layers 0-9), a PAN neck whose CSP layers carry max-sigmoid text attention
-(layers 12/15/18/21) and the ``WorldDetect`` head (DFL box regression, the
-v2 checkpoints' BN contrastive head scoring pixel embeddings against the
-guide embeddings). Convolutions run channels-first; the public functions
+(layers 12/15/18/21) and the ``WorldDetect`` head (DFL box regression, a
+contrastive head scoring pixel embeddings against the guide embeddings:
+batch-normed in the v2 checkpoints, L2-normalized in the v1 ones,
+``bn_head=False``). Convolutions run channels-first; the public functions
 keep the JAX package's layout (images (B, H, W, 3), anchors
 raster-ordered per stride). BatchNorm runs in eval mode with flax's eps 1e-5, as the JAX
 package does (ultralytics trains with 1e-3).
@@ -196,14 +197,28 @@ class BNContrastiveHead(nn.Module):
         return logits * torch.exp(self.logit_scale.float()) + self.bias.float()
 
 
+class ContrastiveHead(nn.Module):
+    """``WorldDetect.cv4[i]`` of the v1 checkpoints: logits = <x / |x|, txt>
+    * exp(logit_scale) + bias, the pixel embedding L2-normalized over its
+    channels (no batch norm)."""
+
+    def __init__(self):
+        super().__init__()
+        self.bias = nn.Parameter(torch.empty(1))
+        self.logit_scale = nn.Parameter(torch.empty(()))
+
+    def forward(self, x, txt):  # x (B, E, H, W); txt (K, E) f32, L2-normed
+        norm = torch.linalg.vector_norm(x.float(), dim=1, keepdim=True) + 1e-12
+        logits = torch.einsum("bchw,kc->bhwk", (x / norm.to(x.dtype)).float(), txt)
+        return logits * torch.exp(self.logit_scale.float()) + self.bias.float()
+
+
 class WorldDetect(nn.Module):
     """Layer 22: box branches (``cv2``), class-embedding branches (``cv3``)
     and contrastive heads (``cv4``) for strides 8/16/32."""
 
     def __init__(self, c: YOLOWorldConfig, chans: Sequence[int]):
         super().__init__()
-        if not c.bn_head:
-            raise NotImplementedError("the v1 (L2 ContrastiveHead) checkpoints are not ported")
         c2h = max(16, chans[0] // 4, 4 * c.reg_max)
         c3 = max(chans[0], min(c.nc, 100))
         self.cv2 = nn.ModuleList(nn.Sequential(ConvBN(ch, c2h, 3), ConvBN(c2h, c2h, 3),
@@ -212,7 +227,8 @@ class WorldDetect(nn.Module):
         self.cv3 = nn.ModuleList(nn.Sequential(ConvBN(ch, c3, 3), ConvBN(c3, c3, 3),
                                                nn.Conv2d(c3, c.embed_dim, 1))
                                  for ch in chans)
-        self.cv4 = nn.ModuleList(BNContrastiveHead(c.embed_dim) for _ in chans)
+        self.cv4 = nn.ModuleList((BNContrastiveHead(c.embed_dim) if c.bn_head
+                                  else ContrastiveHead()) for _ in chans)
 
 
 def _nearest(x: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
@@ -495,8 +511,9 @@ IGNORED_CHECKPOINT_KEYS = (r"num_batches_tracked$", r"^model\.22\.dfl\.conv\.wei
 
 def load_torch_checkpoint(path_or_sd, cfg: YOLOWorldConfig, dtype=torch.float32,
                           device=None) -> YOLOWorldModule:
-    """An ultralytics ``yolov8*-worldv2`` checkpoint (path or state dict) ->
-    :class:`YOLOWorldModule` on ``device`` (``cuda`` unless named); every
+    """An ultralytics ``yolov8*-world(v2)`` checkpoint (path or state dict;
+    a v1 file with ``cfg.bn_head`` False) -> :class:`YOLOWorldModule` on
+    ``device`` (``cuda`` unless named); every
     key loaded or ignored, the DFL conv checked to be ``arange(reg_max)``.
     The port's counterpart of the JAX ``convert_torch_checkpoint``."""
     if isinstance(path_or_sd, dict):

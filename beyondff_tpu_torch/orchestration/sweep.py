@@ -272,6 +272,12 @@ class SweepRunner:
         classes = classes if classes is not None else default_class_list()
         todo = [c for c in classes if c not in skip]
         if self.hosts > 1:
+            from beyondff_tpu_torch.parallel.frames import frame_group
+
+            if frame_group() is not None:
+                raise RuntimeError("a sweep over several hosts gives each rank its own "
+                                   "classes; it cannot run inside shard_frames, whose "
+                                   "ranks must make the same calls")
             todo = host_partition(todo, self.hosts, self.host)
             print(f"[sweep] host {self.host}/{self.hosts}: {len(todo)} classes of the partition")
         if not self.use_subprocess:

@@ -63,6 +63,17 @@ def replicated(mesh: DeviceMesh) -> Tuple:
     return (Replicate(),) * mesh.ndim
 
 
+def data_mesh(device_type: Optional[str] = None, data_axis: str = "data") -> DeviceMesh:
+    """A one-axis ``data`` mesh over every rank of the default process group
+    (the stages' frame sharding). Its group is the default group itself, so
+    building one per scene creates no process group; ``device_type`` as in
+    :func:`make_mesh`."""
+    if not dist.is_initialized():
+        raise RuntimeError("data_mesh needs an initialized default process group")
+    dev = resolve_device(device_type)
+    return init_device_mesh(dev.type, (dist.get_world_size(),), mesh_dim_names=(data_axis,))
+
+
 # ------------------------------------------------------------ TP param rules
 # The JAX rule shards dense kernels by their flax parent name: q, k, v, qkv,
 # fc1, mlp_fc1 and value_proj by column, proj, fc2, mlp_fc2, attn_out,

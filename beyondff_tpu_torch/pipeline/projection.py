@@ -18,9 +18,16 @@ tools/projection_2d_to_3d.py:336-634). As in the JAX package:
     prefetch thread, decoded on the device to the exact uint16 frame; a
     frame the spill guard rejects uploads raw.
 
+  * inside ``parallel.frames.shard_frames`` over a process group of more
+    than one rank whose size divides ``FRAME_CHUNK`` and ``VIEW_CHUNK``,
+    the view counts, the packed lift and the RLE lift shard each chunk's
+    frames over the ranks (``parallel/lift.py``; counts summed with
+    ``all_reduce``, membership gathered), as the JAX package shards them
+    over its devices. Every rank makes the same calls and gets the same
+    outputs.
+
 Left out, each specific to JAX or the TPU and without effect on the
-outputs: this stage's own sharded lift over a device mesh (the sharded lifts
-themselves are ``parallel/lift.py``), the ``BFF_MEMBERSHIP_HBM_MB`` host
+outputs: the ``BFF_MEMBERSHIP_HBM_MB`` host
 spill (a full scene's membership, hundreds of MB, fits an 80 GB card many
 times over) and the padding of frames, masks, runs and points to bucket
 sizes (it served XLA's compile cache).
@@ -36,6 +43,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from beyondff_tpu_torch.config import Config
 from beyondff_tpu_torch.core import aggregation, depth_pack, filtering, geometry, rle
@@ -56,6 +64,54 @@ def upload_depth_raw(raw: np.ndarray, device: torch.device) -> torch.Tensor:
     """Raw uint16 depth to the device as its int16 bit pattern (2 bytes a
     pixel; :func:`geometry.prepare_depth` reads it back as uint16)."""
     return torch.from_numpy(np.ascontiguousarray(raw).view(np.int16)).to(device)
+
+
+def sharded_lifts(dev: torch.device, depth_thresh: float) -> Optional[Dict]:
+    """The frame-sharded view counts, packed lift and RLE lift
+    (``parallel/lift.py``) inside ``parallel.frames.shard_frames`` over a
+    group of more than one rank whose size divides ``FRAME_CHUNK`` and
+    ``VIEW_CHUNK`` (the JAX package's rule for its devices), else ``None``."""
+    from beyondff_tpu_torch.parallel.frames import frame_group
+
+    group = frame_group()
+    if group is None:
+        return None
+    n = dist.get_world_size(group)
+    if FRAME_CHUNK % n or VIEW_CHUNK % n:
+        return None
+    from beyondff_tpu_torch.parallel import lift as plift
+    from beyondff_tpu_torch.parallel.mesh import data_mesh
+
+    mesh = data_mesh(dev.type)
+    return {"ranks": n, "view": plift.make_sharded_view_counts(mesh, depth_thresh),
+            "packed": lambda m: plift.make_sharded_lift_packed(mesh, m, depth_thresh),
+            "rle": plift.make_sharded_lift_rle(mesh, depth_thresh)}
+
+
+def _pad_frames(n_ranks: int, projs: torch.Tensor, depths: torch.Tensor, *per_frame):
+    """Pad a chunk to a multiple of ``n_ranks`` frames with frames that see
+    nothing (zero depth, no mask, empty runs: ``per_frame`` tensors padded
+    with their ``fill``), for the sharded lifts. Returns the padded tensors."""
+    pad = -projs.shape[0] % n_ranks
+    if not pad:
+        return (projs, depths, *(t for t, _fill in per_frame))
+
+    def grow(t, fill):
+        return torch.cat([t, torch.full((pad, *t.shape[1:]), fill, dtype=t.dtype,
+                                        device=t.device)])
+
+    return (torch.cat([projs, projs[-1:].expand(pad, -1, -1)]), grow(depths, 0),
+            *(grow(t, fill) for t, fill in per_frame))
+
+
+def _lift_sharded(lift, n_ranks: int, pcd_h, projs, depths, *per_frame):
+    """A sharded lift over a chunk padded to split over the ranks; the
+    ranks' membership slices gathered and the padding cut: the outputs of
+    the one-rank lift."""
+    from beyondff_tpu_torch.parallel.frames import gather_frames
+
+    member, masked, viewed = lift(pcd_h, *_pad_frames(n_ranks, projs, depths, *per_frame))
+    return gather_frames(member)[:projs.shape[0]], masked, viewed
 
 
 def lift_scene(
@@ -99,6 +155,7 @@ def lift_scene_streamed(
     dev = resolve_device(device)
     n = pcd.shape[0]
     pcd_dev = torch.from_numpy(geometry.homogenize(pcd)).to(dev)
+    sharded = sharded_lifts(dev, depth_thresh)
     chunks: List[tuple] = []  # (device (F, m, N) bool, [m_i per frame])
     confs: List[float] = []
     labels: List[str] = []
@@ -162,8 +219,12 @@ def lift_scene_streamed(
                     s0, e0 = rle.rle_bounds(x)
                     st[i, j, :len(s0)] = s0
                     en[i, j, :len(e0)] = e0
-            out = geometry.lift_frames_rle(pcd_dev, projs, depths, torch.from_numpy(st).to(dev),
-                                           torch.from_numpy(en).to(dev), depth_thresh)
+            st, en = torch.from_numpy(st).to(dev), torch.from_numpy(en).to(dev)
+            if sharded is None:
+                out = geometry.lift_frames_rle(pcd_dev, projs, depths, st, en, depth_thresh)
+            else:
+                out = _lift_sharded(sharded["rle"], sharded["ranks"], pcd_dev, projs, depths,
+                                    (st, hw + 1), (en, 0))
             keep(*out, [len(f["rles"]) for f in chunk], chunk)
             return
         m = max(dense_masks(f).shape[0] for f in chunk)
@@ -172,9 +233,13 @@ def lift_scene_streamed(
             # bit-packed path: one word gather per point
             packed = np.stack([geometry.pack_masks(
                 f["masks"].reshape(f["masks"].shape[0], -1).astype(bool)) for f in chunk])
-            out = geometry.lift_frames_packed(pcd_dev, projs, depths,
-                                              torch.from_numpy(packed.astype(np.int64)).to(dev),
-                                              depth_thresh, n_masks=m)
+            packed = torch.from_numpy(packed.astype(np.int64)).to(dev)
+            if sharded is None:
+                out = geometry.lift_frames_packed(pcd_dev, projs, depths, packed, depth_thresh,
+                                                  n_masks=m)
+            else:
+                out = _lift_sharded(sharded["packed"](m), sharded["ranks"], pcd_dev, projs,
+                                    depths, (packed, 0))
         else:
             masks = np.zeros((len(chunk), m, h * w), bool)
             valid = np.zeros((len(chunk), m), bool)
@@ -187,8 +252,12 @@ def lift_scene_streamed(
         keep(*out, [f["masks"].shape[0] for f in chunk], chunk)
 
     def flush_view(chunk: List[Dict]) -> None:
-        acc["v"] += geometry.view_counts(pcd_dev, projections(chunk), chunk_depths(chunk),
-                                         depth_thresh)
+        if sharded is None:
+            acc["v"] += geometry.view_counts(pcd_dev, projections(chunk), chunk_depths(chunk),
+                                             depth_thresh)
+        else:
+            acc["v"] += sharded["view"](pcd_dev, *_pad_frames(
+                sharded["ranks"], projections(chunk), chunk_depths(chunk)))
 
     det_buf: List[Dict] = []
     view_buf: List[Dict] = []

@@ -41,18 +41,28 @@ through the JAX package's transports, under its switches and defaults:
   upload. A frame the spill guard or the runtime rejects takes YCrCb (with
   batched uploads, its whole batch does), and ``upload_stats`` counts it.
 
+Frame loading runs ahead of the batches through :func:`utils.prefetch.
+prefetch_map`, as in the JAX package: ``BFF_SEG2D_PREFETCH`` frames (default
+three detection batches) in flight on ``BFF_SEG2D_WORKERS`` loader threads
+(default 1). A loader thread decodes the JPEGs, packs the YCrCb or JXT wire and starts the upload
+and device decode on the caller's current stream, so the batch's kernels
+queue behind its copies on that one stream and need no cross-stream event.
+The records are the same with any depth and any number of workers.
+
 Batches run one after another: the JAX package's three-stage deferred flush
 gives identical records, and the port's device calls queue asynchronously on
-the CUDA stream anyway.
+the CUDA stream anyway. ``BFF_SEG2D_TRACE=1`` prints each scene's
+host-blocking seconds per phase under the JAX package's phase names.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
+import threading
 import time
 from collections import Counter
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -65,6 +75,7 @@ from beyondff_tpu_torch.kernels.dispatch import resolve_device
 from beyondff_tpu_torch.pipeline import descriptors, llm_client
 from beyondff_tpu_torch.utils import io as bio
 from beyondff_tpu_torch.utils.checkpoint import SceneCheckpoint
+from beyondff_tpu_torch.utils.prefetch import prefetch_map
 from beyondff_tpu_torch.utils.profiling import StageProfiler
 
 
@@ -100,7 +111,8 @@ class _Transport:
     device_crops: bool
     jxt: bool
     # fid -> the native-resolution JXT frame, kept until its batch's SAM-scale
-    # buffers are derived from it
+    # buffers are derived from it (each loaded batch has its own copy of the
+    # transport, so a batch loaded ahead keeps its frames apart)
     native: Dict = field(default_factory=dict)
 
     @property
@@ -135,7 +147,8 @@ class Segmentor2D:
     files themselves. ``upload_stats`` counts the frames of each transport
     (``jxt``, ``ycrcb``, ``rgb``), the frames JXT did not take
     (``jxt_spill``) and the bytes of every host-to-device frame copy
-    (``bytes``)."""
+    (``bytes``); with several loader threads a frame shared by two batches
+    of a replay may load, and count, twice."""
 
     _jxt_forced_warned = False  # the forced-JXT warning prints once a process
 
@@ -178,6 +191,9 @@ class Segmentor2D:
         self.frame_loader = frame_loader or bio.load_image
         self.profiler: Optional[StageProfiler] = None
         self.upload_stats: Counter = Counter()
+        self._stats_lock = threading.Lock()
+        self._loader = threading.local()  # .active: a prefetch thread's load
+        self._trace: Optional[StageProfiler] = None  # BFF_SEG2D_TRACE phases
         self._query_embedding_cache: Dict[str, np.ndarray] = {}
 
     # ------------------------------------------------------------- loading
@@ -246,10 +262,14 @@ class Segmentor2D:
 
     def _span(self, name: str, **items):
         """A profiler span when a profiler is attached; device work queued
-        inside it is synchronized at its end so the span holds it."""
+        inside it is synchronized at its end so the span holds it. In a
+        loader thread the span holds the loader's host time only: waiting
+        there for the device would wait for the batches in flight."""
         if self.profiler is None:
             return contextlib.nullcontext()
         prof, dev = self.profiler, self.device
+        if getattr(self._loader, "active", False):
+            return prof.span(name, **items)
 
         @contextlib.contextmanager
         def cm():
@@ -259,6 +279,17 @@ class Segmentor2D:
                     torch.cuda.synchronize(dev)
 
         return cm()
+
+    def _phase(self, name: str):
+        """A ``BFF_SEG2D_TRACE`` phase: a span of the scene's own trace
+        profiler, whose durations are the host seconds the scene's loop
+        spends in each phase (the JAX package's phase names)."""
+        return contextlib.nullcontext() if self._trace is None else self._trace.span(name)
+
+    def _count(self, **items):
+        """Add to ``upload_stats`` (loader threads count too)."""
+        with self._stats_lock:
+            self.upload_stats.update(items)
 
     # ------------------------------------------------------- CLIP filtering
     def query_embedding(self, query: str) -> np.ndarray:
@@ -333,13 +364,15 @@ class Segmentor2D:
         YCrCb round trip of the JAX package's crop upload (packed on the
         host, unpacked on the device), so the encoder sees its pixels."""
         with self._span("clip", crops=len(crops)):
-            batch = self.clip.preprocess(crops)
-            if self._crop_yuv():
-                packed = np.stack([color.pack_ycrcb420(c) for c in batch.cpu().numpy()])
-                feats = self.clip.encode_image_packed_yuv(packed)
-            else:
-                feats = self.clip.encode_image(batch)
-            feats = feats.float().cpu().numpy()
+            with self._phase("clip_dispatch"):
+                batch = self.clip.preprocess(crops)
+                if self._crop_yuv():
+                    packed = np.stack([color.pack_ycrcb420(c) for c in batch.cpu().numpy()])
+                    feats = self.clip.encode_image_packed_yuv(packed)
+                else:
+                    feats = self.clip.encode_image(batch)
+            with self._phase("clip_wait"):
+                feats = feats.float().cpu().numpy()
         feats /= np.linalg.norm(feats, axis=-1, keepdims=True)
         return feats
 
@@ -348,20 +381,24 @@ class Segmentor2D:
         """L2-normalized CLIP features of device crops (``BFF_CLIP_DEVICE_
         CROPS``): ``boxes[i]`` cut from ``frames[i]``, the SAM-scale
         buffers."""
-        counts = [len(bx) for bx in boxes]
-        fpos = np.repeat(np.arange(len(boxes)), counts)
-        boxes_cat = np.concatenate(boxes).astype(np.float32)
+        with self._phase("crop_build"):
+            counts = [len(bx) for bx in boxes]
+            fpos = np.repeat(np.arange(len(boxes)), counts)
+            boxes_cat = np.concatenate(boxes).astype(np.float32)
         with self._span("clip", crops=len(boxes_cat)):
-            if self.yolo:
-                feats, n = self.clip.encode_image_boxes(frames, fpos, boxes_cat, "yolo", frame_hw)
-            else:
-                from beyondff_tpu_torch.models.gdino.model import IMAGE_MEAN, IMAGE_STD
+            with self._phase("clip_dispatch"):
+                if self.yolo:
+                    feats, n = self.clip.encode_image_boxes(frames, fpos, boxes_cat, "yolo",
+                                                            frame_hw)
+                else:
+                    from beyondff_tpu_torch.models.gdino.model import IMAGE_MEAN, IMAGE_STD
 
-                feats, n = self.clip.encode_image_boxes(
-                    frames, fpos, boxes_cat, "gdino", frame_hw,
-                    det_hw=tuple(self.detector.cfg.image_size), det_mean=IMAGE_MEAN,
-                    det_std=IMAGE_STD)
-            feats = feats[:n].float().cpu().numpy()
+                    feats, n = self.clip.encode_image_boxes(
+                        frames, fpos, boxes_cat, "gdino", frame_hw,
+                        det_hw=tuple(self.detector.cfg.image_size), det_mean=IMAGE_MEAN,
+                        det_std=IMAGE_STD)
+            with self._phase("clip_wait"):
+                feats = feats[:n].float().cpu().numpy()
         feats /= np.linalg.norm(feats, axis=-1, keepdims=True)
         return feats
 
@@ -410,8 +447,9 @@ class Segmentor2D:
         d = self.cfg.detector
         queries = [query] * len(images) if isinstance(query, str) else list(query)
         if pre is None:
-            pre = [self._phrase_filter(im, q, det, frame_hw)
-                   for im, q, det in zip(images, queries, raw_dets)]
+            with self._phase("phrase_filter"):
+                pre = [self._phrase_filter(im, q, det, frame_hw)
+                       for im, q, det in zip(images, queries, raw_dets)]
         if self.clip is None or not d.filter_with_clip:
             return [None if p is None else self._cap_detections(p) for p in pre]
         hit = [i for i, p in enumerate(pre) if p is not None]
@@ -422,24 +460,25 @@ class Segmentor2D:
             feats = self._device_crop_feats(crop_frames(hit), [pre[i][0] for i in hit], frame_hw)
         else:
             crops = []
-            with self._span("clip_crops", frames=len(hit)):
+            with self._span("clip_crops", frames=len(hit)), self._phase("crop_build"):
                 for i in hit:
                     crops.extend(self._clip_crops(images[i], pre[i][0], frame_hw))
             feats = self._clip_feats(crops)
-        # one product per distinct query over the whole batch
-        sims_by_query = {q: feats @ self.query_embedding(q)
-                         for q, p in zip(queries, pre) if p is not None}
-        out, off = [], 0
-        for p, n, q in zip(pre, counts, queries):
-            if p is None:
-                out.append(None)
-                continue
-            boxes_xyxy, _scores, phrases = p
-            sims = sims_by_query[q][off:off + n]
-            off += n
-            keep = sims >= d.similarity_threshold
-            out.append(None if not keep.any() else self._cap_detections(
-                (boxes_xyxy[keep], sims[keep], [ph for ph, k in zip(phrases, keep) if k])))
+        with self._phase("filter_apply"):
+            # one product per distinct query over the whole batch
+            sims_by_query = {q: feats @ self.query_embedding(q)
+                             for q, p in zip(queries, pre) if p is not None}
+            out, off = [], 0
+            for p, n, q in zip(pre, counts, queries):
+                if p is None:
+                    out.append(None)
+                    continue
+                boxes_xyxy, _scores, phrases = p
+                sims = sims_by_query[q][off:off + n]
+                off += n
+                keep = sims >= d.similarity_threshold
+                out.append(None if not keep.any() else self._cap_detections(
+                    (boxes_xyxy[keep], sims[keep], [ph for ph, k in zip(phrases, keep) if k])))
         return out
 
     def _decode_masks(self, embs, dets: List, input_hw, orig_hw) -> List[np.ndarray]:
@@ -450,13 +489,17 @@ class Segmentor2D:
         frame_idx = np.repeat(np.arange(len(dets)), sizes)
         boxes = np.concatenate([self.sam.transform_boxes(bx, orig_hw) for bx, _s, _p in dets])
         with self._span("sam_decode", boxes=len(boxes)):
-            packed, _iou = self.sam.decode_boxes_packed(embs, frame_idx, boxes, input_hw, orig_hw)
-            flat = packed.cpu().numpy()
-        masks = np.unpackbits(flat, axis=-1, bitorder="little")[:, :h * w]
-        out, off = [], 0
-        for m in sizes:
-            out.append(masks[off:off + m].reshape(m, h, w).astype(bool))
-            off += m
+            with self._phase("decode_dispatch"):
+                packed, _iou = self.sam.decode_boxes_packed(embs, frame_idx, boxes, input_hw,
+                                                            orig_hw)
+            with self._phase("decode_wait"):
+                flat = packed.cpu().numpy()
+        with self._phase("decode_wait"):
+            masks = np.unpackbits(flat, axis=-1, bitorder="little")[:, :h * w]
+            out, off = [], 0
+            for m in sizes:
+                out.append(masks[off:off + m].reshape(m, h, w).astype(bool))
+                off += m
         return out
 
     # ------------------------------------------------------------ per frame
@@ -530,24 +573,28 @@ class Segmentor2D:
         tp = self._transport(scene_id, size, frame_hw, frame_bank, replay) \
             if d.device_frames else None
         bsz = max(1, d.frame_batch)
-        for i in range(0, len(entries), bsz):
-            chunk = entries[i:i + bsz]
+        chunks = [entries[i:i + bsz] for i in range(0, len(entries), bsz)]
+        self._trace = StageProfiler("seg2d_trace") if os.environ.get("BFF_SEG2D_TRACE") \
+            else None
+        for chunk, loaded, ctp in self._prefetched(chunks, group, tp, scene_id, size,
+                                                   frame_bank):
             fids = [e[0] for e in chunk] if group else chunk
             queries = [e[1] for e in chunk] if group else query
             if not d.device_frames:
-                images = self._host_frames(scene_id, fids, size, frame_bank)
-                batch = self._host_batch(images, query, box_thr)
+                batch = self._host_batch(loaded, query, box_thr)
             else:
-                frames, hosts = self._device_frames(fids, tp)
-                if tp.two_tier:
-                    input_hw = tp.sam_hw
+                frames, hosts = loaded
+                if ctp.two_tier:
+                    input_hw = ctp.sam_hw
                     sam_bufs: Dict[str, torch.Tensor] = {}
 
                     def sam_input(indices, fids=fids, frames=frames, hosts=hosts,
-                                  sam_bufs=sam_bufs):
+                                  sam_bufs=sam_bufs, ctp=ctp):
                         todo = [i for i in indices if fids[i] not in sam_bufs]
                         if todo:
-                            sam_bufs.update(self._sam_frames(fids, todo, frames, hosts, tp))
+                            with self._phase("sam_upload"):
+                                sam_bufs.update(self._sam_frames(fids, todo, frames, hosts,
+                                                                 ctp))
                         return torch.stack([sam_bufs[fids[i]] for i in indices])
                 else:
                     input_hw = tuple(frames.shape[1:3])
@@ -556,35 +603,86 @@ class Segmentor2D:
                         return frames[indices]
 
                 def encode(indices, fids=fids, sam_input=sam_input):
-                    return self._encode(fids, indices, sam_input, frame_bank, bank_emb, group)
+                    with self._phase("sam_encode_dispatch"):
+                        return self._encode(fids, indices, sam_input, frame_bank, bank_emb,
+                                            group)
 
                 if replay:
                     raw = [override_groups[c][f] for f, c in chunk] if group else \
                         [detections_override[f] for f in fids]
                 else:
                     with self._span("detect", frames=len(fids)):
-                        det_in = self._detector_input(frames) if tp.key == "raw" else frames
-                        handle = self._detect(det_in, query, fids, frame_bank)
-                        if demux is not None:
-                            hits = self._demux(handle, fids, demux, box_thr)
-                        else:
-                            raw = self.detector.predict_finalize(
-                                handle, box_threshold=box_thr, text_threshold=d.text_threshold)
+                        with self._phase("det_dispatch"):
+                            det_in = self._detector_input(frames) if ctp.key == "raw" \
+                                else frames
+                            handle = self._detect(det_in, query, fids, frame_bank)
+                        with self._phase("det_finalize"):
+                            if demux is not None:
+                                hits = self._demux(handle, fids, demux, box_thr)
+                            else:
+                                raw = self.detector.predict_finalize(
+                                    handle, box_threshold=box_thr,
+                                    text_threshold=d.text_threshold)
                     if demux is not None:
                         if hits and bank_emb:
                             with self._span("sam_encode", frames=len(hits)):
                                 encode(hits)
-                        tp.native.clear()
                         continue
                 batch = self._device_batch(hosts, input_hw, raw, queries, frame_hw, encode,
-                                           sam_input if tp.device_crops else None)
-                # native-resolution JXT frames serve only their own batch
-                tp.native.clear()
-            for e, f, (dets, masks) in zip(chunk, fids, batch):
-                if dets is not None:
-                    (by_class[e[1]] if group else records).append(
-                        {"frame_id": f"{f}.jpg", **_record(dets, masks)})
+                                           sam_input if ctp.device_crops else None)
+            with self._phase("emit"):
+                for e, f, (dets, masks) in zip(chunk, fids, batch):
+                    if dets is not None:
+                        (by_class[e[1]] if group else records).append(
+                            {"frame_id": f"{f}.jpg", **_record(dets, masks)})
+        if self._trace is not None:
+            phases = self._trace.durations
+            total = sum(phases.values())
+            parts = " ".join(f"{k}={v * 1000:.0f}ms" for k, v in
+                             sorted(phases.items(), key=lambda kv: -kv[1]))
+            print(f"# seg2d host trace [{scene_id}] total={total * 1000:.0f}ms "
+                  f"({len(frame_ids)} frames): {parts}", flush=True)
+        self._trace = None
         return by_class if group else records
+
+    def _prefetched(self, chunks, group: bool, tp: Optional[_Transport], scene_id, size,
+                    frame_bank):
+        """``(chunk, loaded, transport)`` per detection batch, loaded ahead
+        by :func:`utils.prefetch.prefetch_map` (the JAX package's
+        ``BFF_SEG2D_PREFETCH`` frames in flight, default three batches, on
+        ``BFF_SEG2D_WORKERS`` threads, default 1).
+        ``loaded`` is the host frames (``device_frames: false``) or the
+        device buffers and host crop sources; each batch gets its own copy
+        of the transport (its native JXT frames). Loader threads queue their
+        copies and decodes on the caller's current stream."""
+        bsz = max(1, self.cfg.detector.frame_batch)
+        depth = int(os.environ.get("BFF_SEG2D_PREFETCH", "0")) or 3 * bsz
+        workers = int(os.environ.get("BFF_SEG2D_WORKERS", "1"))
+        stream = torch.cuda.current_stream(self.device) if self.device.type == "cuda" else None
+
+        def load(chunk):
+            fids = [e[0] for e in chunk] if group else chunk
+            self._loader.active = True
+            try:
+                with (torch.cuda.stream(stream) if stream is not None
+                      else contextlib.nullcontext()):
+                    if tp is None:
+                        return chunk, self._host_frames(scene_id, fids, size, frame_bank), None
+                    ctp = replace(tp, native={})
+                    return chunk, self._device_frames(fids, ctp), ctp
+            finally:
+                self._loader.active = False
+
+        it = prefetch_map(load, chunks, depth=max(1, depth // bsz), workers=workers)
+        try:
+            while True:
+                with self._phase("prefetch_wait"):
+                    item = next(it, None)
+                if item is None:
+                    return
+                yield item
+        finally:
+            it.close()  # stops the loader threads when the scene loop ends early
 
     def _frame_path(self, scene_id: str, fid: str) -> str:
         return os.path.join(self.cfg.paths.scene_2d_dir, scene_id, "color", f"{fid}.jpg")
@@ -700,7 +798,7 @@ class Segmentor2D:
                     fresh = torch.stack([torch.from_numpy(im).to(self.device) for im in images])
                 if not tp.two_tier:
                     fresh, _hw = self.sam.scale_frames(fresh)
-            self.upload_stats.update(rgb=len(todo), bytes=sum(im.nbytes for im in images))
+            self._count(rgb=len(todo), bytes=sum(im.nbytes for im in images))
             if bank is not None:
                 for f, t in zip(todo, fresh):
                     bank[(tp.key, f)] = t
@@ -722,7 +820,7 @@ class Segmentor2D:
                 packs = self._jxt_packs(fids, tp)
                 if all(pk is not None for pk in packs):
                     return self._jxt_frames(fids, packs, tp), dict.fromkeys(fids)
-                self.upload_stats.update(jxt_spill=len(fids))
+                self._count(jxt_spill=len(fids))
             return self._host_frames_up(fids, self._load_imgs(fids, tp), tp)
         devs, hosts = [], {}
         for f in fids:
@@ -736,7 +834,7 @@ class Segmentor2D:
                 hosts[f] = None
                 continue
             if tp.jxt:
-                self.upload_stats.update(jxt_spill=1)
+                self._count(jxt_spill=1)
             dev, host = self._host_frames_up([f], self._load_imgs([f], tp), tp)
             devs.append(dev[0])
             hosts.update(host)
@@ -775,13 +873,13 @@ class Segmentor2D:
                           for img in imgs]
                 groups = [scaled] if tp.batch_upload else [[im] for im in scaled]
                 dev = torch.cat([color.upload_frames(g, self.device) for g in groups])
-                self.upload_stats.update(ycrcb=len(imgs),
+                self._count(ycrcb=len(imgs),
                                          bytes=len(imgs) * color.wire_bytes(*hw))
             else:
                 scaled = [None] * len(imgs)
                 dev = _resize.resize_linear(torch.from_numpy(np.stack(imgs)).to(self.device),
                                             tuple(hw))
-                self.upload_stats.update(rgb=len(imgs), bytes=sum(im.nbytes for im in imgs))
+                self._count(rgb=len(imgs), bytes=sum(im.nbytes for im in imgs))
         return dev, scaled
 
     def _jxt_packs(self, fids, tp: _Transport) -> List[Optional[jxt.JxtPacked]]:
@@ -805,7 +903,7 @@ class Segmentor2D:
         """Packed frames -> native-resolution device frames, one copy."""
         with self._span("upload", frames=len(packs)):
             natives = jxt.upload_frames(packs, self.device)
-        self.upload_stats.update(jxt=len(packs), bytes=jxt.wire_bytes(packs))
+        self._count(jxt=len(packs), bytes=jxt.wire_bytes(packs))
         return natives
 
     def _jxt_frames(self, fids, packs, tp: _Transport) -> torch.Tensor:
@@ -858,7 +956,7 @@ class Segmentor2D:
                     tp.native[f] = self._jxt_upload([pk])[0]
                     jx.append(f)
                 else:
-                    self.upload_stats.update(jxt_spill=int(tp.jxt))
+                    self._count(jxt_spill=int(tp.jxt))
                     host_missing.append(i)
             if jx:
                 with self._span("upload", frames=len(jx)):
@@ -887,7 +985,8 @@ class Segmentor2D:
                 and os.environ.get("BFF_SEG2D_BANK_FEATS", "1") != "0"):
             cap = int(os.environ.get("BFF_SEG2D_BANK_FEATS_CAP", "256"))
             key = ("det_feats", tuple(fids))
-            n_banked = sum(len(k[1]) for k in bank if k[0] == "det_feats")
+            # list(): loader threads may add frames to the bank meanwhile
+            n_banked = sum(len(k[1]) for k in list(bank) if k[0] == "det_feats")
             if key in bank or n_banked + len(fids) <= cap:
                 kw["feats_cache"] = (bank, key)
         return self.detector.predict_batch_frames_async(frames, caption, **kw)
@@ -929,7 +1028,7 @@ class Segmentor2D:
             by_fid = {fids[i]: fresh[j] for j, i in enumerate(missing)}
             if bank_emb:
                 cap = int(os.environ.get("BFF_SEG2D_BANK_EMB_CAP", "256"))
-                n_banked = sum(1 for k in bank if k[0] == "sam_emb")
+                n_banked = sum(1 for k in list(bank) if k[0] == "sam_emb")
                 for i in missing:
                     if n_banked < cap:
                         bank[("sam_emb", fids[i])] = by_fid[fids[i]]
@@ -948,7 +1047,8 @@ class Segmentor2D:
         with ``crop_frames``, of the SAM-scale device buffers, SAM decode at
         ``input_hw``. Returns (detections, masks) per frame."""
         qs = [queries] * len(hosts) if isinstance(queries, str) else queries
-        pre = [self._phrase_filter(None, q, det, frame_hw) for q, det in zip(qs, raw)]
+        with self._phase("phrase_filter"):
+            pre = [self._phrase_filter(None, q, det, frame_hw) for q, det in zip(qs, raw)]
         idx = [i for i, pr in enumerate(pre) if pr is not None]
         if not idx:
             return [(None, None)] * len(hosts)

@@ -9,7 +9,11 @@ Usage:
     prof = StageProfiler("segmentation_2d")
     with prof.span("scene", frames=len(frame_ids)):
         ...
-    print(prof.report())
+    print(prof.report(), prof.rate("scene", "frames"))
+
+    with trace("/tmp/tb"):          # torch.profiler capture, a Chrome trace
+        with annotate("lift"):      # a named range in it (and NVTX on the card)
+            run_heavy_thing()
 
 On the card, ``device_spans`` and ``device_ms`` read the device's own events
 from ``torch.profiler``; the peak rates below give the bounds a kernel's
@@ -19,9 +23,11 @@ time is held against.
 from __future__ import annotations
 
 import contextlib
+import json
+import threading
 import time
 from collections import defaultdict
-from typing import Callable, Dict, Iterator, List, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 # H100 SXM peaks (data sheet): the memory rate, dense bf16 and f32 (non-tensor)
 # FLOP/s, and dense int8 tensor OP/s
@@ -37,6 +43,7 @@ class StageProfiler:
         self.counts: Dict[str, int] = defaultdict(int)
         self.items: Dict[str, int] = defaultdict(int)
         self._t0 = time.time()
+        self._lock = threading.Lock()  # spans may close on loader threads
 
     @contextlib.contextmanager
     def span(self, name: str, **items: int) -> Iterator[None]:
@@ -44,10 +51,20 @@ class StageProfiler:
         try:
             yield
         finally:
-            self.durations[name] += time.perf_counter() - t0
-            self.counts[name] += 1
-            for key, n in items.items():
-                self.items[f"{name}.{key}"] += int(n)
+            dt = time.perf_counter() - t0
+            with self._lock:
+                self.durations[name] += dt
+                self.counts[name] += 1
+                for key, n in items.items():
+                    self.items[f"{name}.{key}"] += int(n)
+
+    def rate(self, name: str, item: str) -> Optional[float]:
+        """items/sec for a span, e.g. rate("lift", "frames")."""
+        dur = self.durations.get(name)
+        n = self.items.get(f"{name}.{item}")
+        if not dur or n is None:
+            return None
+        return n / dur
 
     def report(self) -> str:
         total = time.time() - self._t0
@@ -60,6 +77,47 @@ class StageProfiler:
                     line += f" | {n} {item} ({n / max(self.durations[name], 1e-9):.1f}/s)"
             lines.append(line)
         return "\n".join(lines)
+
+    def to_json(self) -> str:
+        return json.dumps(
+            {
+                "stage": self.stage,
+                "durations_s": dict(self.durations),
+                "counts": dict(self.counts),
+                "items": dict(self.items),
+            }
+        )
+
+
+@contextlib.contextmanager
+def trace(log_dir: str) -> Iterator[object]:
+    """``torch.profiler`` capture around a region (host ops, and the card's
+    kernels and copies when there is one), written to ``log_dir`` as a
+    Chrome trace (``*.pt.trace.json``; chrome://tracing, Perfetto or
+    TensorBoard's profiler plugin). Yields the profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(log_dir)) as p:
+        yield p
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+
+
+@contextlib.contextmanager
+def annotate(name: str) -> Iterator[None]:
+    """A named range inside a profiler trace, and an NVTX range on the
+    card."""
+    import torch
+
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(torch.profiler.record_function(name))
+        if torch.cuda.is_available():
+            stack.enter_context(torch.cuda.nvtx.range(name))
+        yield
 
 
 def device_spans(fn: Callable[[], object]) -> List[Tuple[float, float, str]]:

@@ -79,7 +79,25 @@ Phases (each one's failure ends the run with a non-zero exit):
    (the first counted by ``mfu.program_cost``, four timed): the loss falls, image-encoder leaves move only by AdamW's decay (the
    JAX step's behaviour), every decoder-transformer leaf moves beyond it;
    the sharded RLE and packed lifts over phase 7's 250 000-point,
-   300-frame fixture, equal to ``core.geometry``'s.
+   300-frame fixture, equal to ``core.geometry``'s;
+10. the native runtime against numpy / OpenCV, each transport against its
+   dense path, and the fast variant's ``run()`` with the JAX package's
+   transport defaults against every transport off (hit and miss, two
+   rounds), and projection with ``BFF_DEPTH_PACK`` 1 and 0;
+11. the rect encode (``tools/measure_sam_rect.py`` on SAM ViT-H with
+   ``BFF_SAM_RELPOS_FLASH=1`` and on EfficientSAM-S, bf16, a batch of 4
+   968x1296 frames: encoder ms square against rect, embedding deviation,
+   mask IoU, launch counts; K4 at (64, 3072, 80) and K3 at (24, 3072, 64)
+   against their plain versions and SDPA); YOLO-World-L with the v1 head
+   from a v1-layout file, card against CPU, NMS index for index; the
+   fast variant's hit regime with the frame prefetch off, on with one
+   loader thread and with four (records byte-equal); the port's
+   ``make_synthetic_scene`` and ``single_scene`` on the card at full width
+   from phase 4's checkpoint files, under ``utils/profiling.trace`` (the
+   PLYs and the viewer parse, K1, K2 and K6 launch, and the trace names
+   every kernel launched); projection, ``predict_batch`` and
+   ``encode_frames`` inside ``shard_frames`` over a one-rank NCCL group
+   against no group.
 
 Phase 2 also holds the mask-IoU kernel bit for bit against its plain version
 at the aggregation's (600, 250 000) self-IoU and refinement's (20 x 150,
@@ -98,8 +116,9 @@ equal 3D outputs and results rows, and the fast variant at the "test"
 presets on both (f32, cuDNN TF32 off) with two-tier uploads on auto and
 forced on: confidences within 1e-4, masks at IoU >= 0.99.
 
-The last three lines are the card's name and power limit, the kernel table
-and ``{"ok": true, "device": ...}``;
+A ``phase_seconds`` line gives each phase's host seconds. The last three
+lines are the card's name and power limit, the kernel table and
+``{"ok": true, "device": ...}``;
 every JSON line also goes to ``chiprun_out/chip_smoke.json``. Exits non-zero
 without a result when no CUDA device is present.
 """
@@ -2270,7 +2289,8 @@ def seg2d_ab(torch, mods, dev, seg, cfg, work):
     """The fast variant's ``run()`` on the JPEG scene with the JAX package's
     defaults against every transport off, hit and miss regimes
     (``box_threshold`` 0 and 1.01), alternating over two rounds after one
-    warm-up of each. Launch counts are summed over the defaults' runs."""
+    warm-up of each; each round's seconds are printed. Launch counts are
+    summed over the defaults' runs."""
     seg2d, dispatch, io, StageProfiler = mods
     seg.frame_loader = io.load_image  # the JPEG files themselves
     variants = {"defaults": {}, "all_off": TRANSPORTS_OFF}
@@ -2307,11 +2327,15 @@ def seg2d_ab(torch, mods, dev, seg, cfg, work):
     for v in variants:  # warm-up
         one(v, "hit")
     launches.clear()
+    round_s = []
     for rnd in range(2):
+        t_round = time.perf_counter()
         order = list(variants) if rnd == 0 else list(variants)[::-1]
         for regime in regimes:
             for v in order:
                 runs[f"{v}_{regime}"].append(one(v, regime))
+        round_s.append(time.perf_counter() - t_round)
+    emit({"phase": "seg2d_ab_rounds", "seconds": round_s})
     for r in runs["defaults_hit"] + runs["defaults_miss"]:
         check(r["frames"]["jxt"] >= N_FRAMES and r["frames"]["jxt_spill"] == 0
               and r["frames"]["ycrcb"] == 0, f"the defaults did not run JXT: {r['frames']}")
@@ -2385,6 +2409,281 @@ def transports(torch, mods, Config, work, fixture, dev, seg, cfg, card):
           and proj_launches["mask_iou"] > 0, f"phase 10 launched no kernel: {launches}")
 
 
+# ------------------------------------------------------------ phase 11
+RECT_GRID = (48, 64)  # SAM's patch grid of a 968x1296 frame under BFF_SAM_RECT=1
+# the CUDA functions behind each launch counter, for reading a profiler trace
+KERNEL_SYMBOLS = {"ms_deform_sample": ("ms_deform_sample_kernel",),
+                  "flash_attention": ("flash_tc_kernel", "flash_fwd_kernel"),
+                  "flash_attention_relpos": ("flash_relpos_tc_kernel", "flash_relpos_kernel"),
+                  "window_attention_relpos": ("window_relpos_tc_kernel", "window_relpos_kernel"),
+                  "mask_iou": ("iou_count_kernel",), "nms_fixed": ("nms_fixed_kernel",)}
+
+
+def rect_phase(torch, mods, dev, card):
+    """``measure_sam_rect`` on SAM ViT-H (bf16, ``BFF_SAM_RELPOS_FLASH=1``)
+    and EfficientSAM-S (bf16) for the main path's batch of 968x1296 frames,
+    launch counts set to 0 before each; then K4 and K3 at the rect grid's
+    shapes against their plain versions. Returns SAM ViT-H (the one-rank
+    part encodes with it)."""
+    fa, wa, sam_mod, esam, dispatch, measure = mods
+    out = {}
+    for name, build in (("sam_vit_h", lambda: sam_mod.SAM.create(
+            "vit_h", seed=SEED + 2, dtype=torch.bfloat16, device=dev)),
+                        ("efficientsam_s", lambda: esam.EfficientSAM.create(
+                            "vits", seed=SEED + 4, dtype=torch.bfloat16, device=dev))):
+        model = build()
+        nh, nw = model.scaled_hw(FRAME_HW)
+        frames = torch.from_numpy(np.stack([synthetic_frame(f"{i}.jpg", (nw, nh))
+                                            for i in range(FRAME_BATCH)])).to(dev)
+        dispatch.reset_launch_counts()
+        rec = with_env({"BFF_SAM_RELPOS_FLASH": "1"}, lambda: measure.measure(
+            model, frames, measure.BOXES_1024, FRAME_HW, iters=8))
+        rec["launches"] = dict(dispatch.launch_counts)
+        emit({"phase": "sam_rect", "model": name, "card": card, **rec})
+        check(rec["grid_rect"] == list(RECT_GRID) and rec["grid_square"] == [64, 64],
+              f"{name}: rect grid {rec['grid_rect']}")
+        kernel = "flash_attention_relpos" if name == "sam_vit_h" else "flash_attention"
+        check(rec["launches"].get(kernel, 0) > 0, f"{name}: {kernel} not launched")
+        check(np.isfinite(rec["emb_rel_l2"]) and min(rec["mask_iou"]) > 0.0,
+              f"{name}: rect outputs {rec['emb_rel_l2']} {rec['mask_iou']}")
+        out[name] = model if name == "sam_vit_h" else None
+        del model, frames
+        torch.cuda.empty_cache()
+    g = FRAME_BATCH
+    relpos_case(torch, fa, wa, sam_mod, "sam_global_rect", 16 * g, RECT_GRID, torch.bfloat16,
+                dev)
+    s = RECT_GRID[0] * RECT_GRID[1]
+    flash_case(torch, fa, "efficientsam_global_rect", (6 * g, s, 64), s, torch.bfloat16, dev)
+    return out["sam_vit_h"]
+
+
+def v1_head_phase(torch, mods, dev, work):
+    """YOLO-World-L with the v1 head (``bn_head=False``, the L2 contrastive
+    head) from an official-layout file written here: loaded on the card and
+    on the CPU, every tensor as written; its boxes and class logits on two
+    968x1296 frames on the card against the CPU path (f32, TF32 off; within
+    1e-3 of the logits' range and 1e-2 px); then NMS on the card's own
+    boxes and scores, the kernel against the plain version on the CPU, index
+    for index."""
+    import dataclasses
+
+    yw, nms, resize = mods
+    cfg = dataclasses.replace(yw.PRESETS["l"], bn_head=False)
+    det = yw.YOLOWorld.create(cfg, seed=SEED + 7, device=dev)
+    spread_weights(torch, det.module, SEED + 7)
+    sd = {k: v.float().cpu() for k, v in det.module.state_dict().items()}
+    del det
+    check(not any(".cv4." in k and ".norm." in k for k in sd), "a v1 head has no norm")
+    reg_max = cfg.reg_max
+    extra = {"model.22.dfl.conv.weight": torch.arange(reg_max, dtype=torch.float32).reshape(
+        1, reg_max, 1, 1)}
+    path = os.path.join(work, "yolov8l-world.pt")
+    torch.save({"model": {"model." + k: v for k, v in {**sd, **extra}.items()}}, path)
+    card_m = yw.load_torch_checkpoint(path, cfg, torch.float32, dev)
+    cpu_m = yw.load_torch_checkpoint(path, cfg, torch.float32, "cpu")
+    for m in (card_m, cpu_m):
+        for k, v in m.state_dict().items():
+            check(torch.equal(v.cpu(), sd[k]), f"v1 head: {k} not as written")
+    frames = np.stack([synthetic_frame(f"{i}.jpg", FRAME_HW[::-1]) for i in range(2)])
+    txt = np.random.default_rng(SEED).normal(size=(3, cfg.text_dim)).astype(np.float32)
+    txt /= np.linalg.norm(txt, axis=-1, keepdims=True)
+    outs = {}
+    for name, m, d in (("card", card_m, dev), ("cpu", cpu_m, torch.device("cpu"))):
+        x = resize.resize_linear(torch.from_numpy(frames).to(d), cfg.img_size).float() / 255.0
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            boxes, logits = m.detect(*m.backbone(x), torch.from_numpy(txt).to(d))
+            if d.type == "cuda":
+                torch.cuda.synchronize()
+            outs[name] = (boxes.cpu(), logits.cpu(), time.perf_counter() - t0)
+    (cb, cl, card_s), (pb, pl, cpu_s) = outs["card"], outs["cpu"]
+    logit_err = float((cl - pl).abs().max())
+    logit_range = float(pl.abs().max())
+    box_err = float((cb - pb).abs().max())
+    scores_card = torch.sigmoid(cl).max(-1).values
+    keep_k, valid_k = nms.nms_fixed(cb.to(dev), scores_card.to(dev), 0.5, cfg.max_dets)
+    keep_p, valid_p = nms.nms_fixed_plain(cb, scores_card, 0.5, cfg.max_dets)
+    same = torch.equal(keep_k.cpu(), keep_p) and torch.equal(valid_k.cpu(), valid_p)
+    rec = {"phase": "yolo_world_v1_head", "anchors": int(cl.shape[1]), "frames": 2,
+           "logit_max_abs_err": logit_err, "logit_range": logit_range,
+           "box_max_abs_err_px": box_err, "kept": int(valid_p.sum()),
+           "nms_index_for_index": same, "card_s": card_s, "cpu_s": cpu_s}
+    emit(rec)
+    check(logit_err <= 1e-3 * max(1.0, logit_range) and box_err <= 1e-2,
+          f"v1 head card vs CPU: logits {logit_err}, boxes {box_err}")
+    check(same and rec["kept"] > 0, "v1 head: NMS kernel and plain version disagree")
+
+
+def prefetch_phase(torch, mods, seg, cfg, work, card):
+    """The fast variant's ``run()`` in the hit regime on phase 10's JPEG
+    scene with the frame prefetch off (``prefetch_map`` replaced by in-order
+    loads in the scene loop's thread), on with one loader thread and on with
+    four (``BFF_SEG2D_WORKERS``), over two rounds in turns after a warm-up:
+    the ``.pth`` bytes equal across every run, frames/s each."""
+    seg2d, dispatch, StageProfiler = mods
+    runs, blobs = {"off": [], "1": [], "4": []}, set()
+    prefetch_map = seg2d.prefetch_map
+
+    def one(workers):
+        c = cfg.override(**{"detector.box_threshold": 0.0,
+                            "paths.mask_2d_dir": os.path.join(work, f"masks_pf_{workers}"),
+                            "paths.checkpoint_dir": os.path.join(work, f"ckpt_pf_{workers}")})
+        prof = StageProfiler("segmentation_2d")
+        old, seg.cfg = seg.cfg, c
+        if workers == "off":
+            seg2d.prefetch_map = lambda fn, items, depth, workers: (fn(x) for x in items)
+        try:
+            with_env({"BFF_SEG2D_WORKERS": "1" if workers == "off" else workers},
+                     lambda: seg2d.run(c, "clothes", scenes=["scene_jpeg"], segmentor=seg,
+                                       profiler=prof, resume=False))
+        finally:
+            seg.cfg, seg2d.prefetch_map = old, prefetch_map
+        torch.cuda.synchronize()
+        with open(os.path.join(c.paths.mask_2d_dir, "clothes", "scene_jpeg.pth"), "rb") as f:
+            blobs.add(f.read())
+        return {"frames_per_sec": prof.rate("scene", "frames"),
+                "load_s": prof.durations.get("load", 0.0),
+                "upload_s": prof.durations.get("upload", 0.0)}
+
+    one("1")
+    for order in (("off", "1", "4"), ("4", "1", "off")):
+        for w in order:
+            runs[w].append(one(w))
+    emit({"phase": "seg2d_prefetch", "card": card, "frames": N_FRAMES,
+          "workers": runs, "records_byte_equal": len(blobs) == 1})
+    check(len(blobs) == 1, f"the records differ with the prefetch: {len(blobs)} versions")
+
+
+def single_scene_phase(torch, mods, work, tmp, dev, card, detector):
+    """The port's ``make_synthetic_scene``, then ``single_scene`` on the card
+    at full width: Grounding-DINO Swin-B, SAM ViT-H and CLIP ViT-L/14 in
+    bf16 from phase 4's official-layout files (``detector``'s paths;
+    thresholds at their floor and no phrase match, so every frame has
+    boxes), under ``profiling.trace`` (the Chrome trace goes to ``tmp``),
+    with launch counts set to 0 just before it. Its PLY and HTML files must
+    parse, K1, K2 and K6 must have launched, and the trace must name every
+    kernel the loop launched. Returns the scene's config path."""
+    gen, single, ply, profiling, dispatch = mods
+    root = os.path.join(work, "single")
+    cfg_path = gen.generate(root, query="clothes", seed=SEED + 9)
+    out = os.path.join(work, "single_viz")
+    sets = {"detector.dtype": "bfloat16", "detector.box_threshold": 0.0,
+            "detector.similarity_threshold": -1.0, "detector.must_match_query": "false",
+            **{f"detector.{k}": getattr(detector, k) for k in (
+                "gdino_checkpoint", "sam_checkpoint", "clip_checkpoint", "bert_vocab_path",
+                "clip_bpe_path")}}
+    argv = ["--config", cfg_path, "--cls", "clothes", "--scene", "scene0000_00",
+            "--device", "cuda", "--out", out]
+    for k, v in sets.items():
+        argv += ["--set", f"{k}={v}"]
+    trace_dir = os.path.join(tmp, "single_trace")
+    dispatch.reset_launch_counts()
+    t0 = time.perf_counter()
+    with profiling.trace(trace_dir):
+        single.main(argv)
+    secs = time.perf_counter() - t0
+    launches = dict(dispatch.launch_counts)
+    n_points = len(np.load(os.path.join(root, "Scannet200_3D", "original_npy_files",
+                                        "scene0000_00.npy")))
+    for name in ("mask3d_clothes", "refined_clothes"):
+        v = ply.read_ply_vertices(os.path.join(out, "scene0000_00", f"{name}.ply"))
+        check(len(v["x"]) == n_points, f"{name}.ply: {len(v['x'])} vertices")
+    with open(os.path.join(out, "scene0000_00", "web", "index.html")) as f:
+        html = f.read()
+    import re
+
+    layers = json.loads(re.search(r"const LAYERS = (\[.*?\]);", html, re.S).group(1))
+    check(len(layers) >= 3, f"viewer layers {[x['name'] for x in layers]}")
+    files = [f for f in os.listdir(trace_dir) if f.endswith(".pt.trace.json")]
+    check(len(files) == 1, f"trace files {files}")
+    trace_bytes = os.path.getsize(os.path.join(trace_dir, files[0]))
+    with open(os.path.join(trace_dir, files[0])) as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]
+                 if e.get("cat") == "kernel"}
+    shutil.rmtree(trace_dir)
+    named = {k: any(sym in n for n in names for sym in KERNEL_SYMBOLS[k])
+             for k, v in launches.items() if v}
+    emit({"phase": "single_scene", "card": card, "seconds_traced": secs,
+          "launches": launches, "ply_vertices": n_points,
+          "viewer_layers": [x["name"] for x in layers], "trace_names_kernels": named,
+          "trace_kernel_names": len(names), "trace_bytes": trace_bytes})
+    for k in ("ms_deform_sample", "flash_attention", "mask_iou"):
+        check(launches.get(k, 0) > 0, f"single_scene launched no {k}: {launches}")
+    check(all(named.values()), f"the trace misses a launched kernel: {named}")
+    return cfg_path
+
+
+def one_rank_phase(torch, mods, sam, cfg_path, work, dev):
+    """``projection.run``, Grounding-DINO's ``predict_batch`` and SAM
+    ViT-H's ``encode_frames`` inside ``shard_frames`` over a one-rank NCCL
+    group against the same calls with no group: equal outputs (a group of
+    one rank shards nothing)."""
+    Config, projection, gd, io, shard_frames = mods
+    frames = np.random.default_rng(SEED + 8).integers(0, 255, (FRAME_BATCH, 48, 64, 3),
+                                                       dtype=np.uint8)
+    det = gd.GroundingDINO.create("test", seed=SEED + 8, device=dev)
+    nh, nw = sam.scaled_hw(FRAME_HW)
+    sam_frames = torch.from_numpy(np.stack([synthetic_frame(f"{i}.jpg", (nw, nh))
+                                            for i in range(FRAME_BATCH)])).to(dev)
+
+    def calls(tag):
+        cfg = Config.from_yaml(cfg_path).override(**{
+            "paths.mask_3d_dir": os.path.join(work, f"m3d_{tag}"),
+            "paths.checkpoint_dir": os.path.join(work, f"ck_{tag}")})
+        projection.run(cfg, "clothes", resume=False, device=dev)
+        d = io.load_stage_dict(os.path.join(cfg.paths.mask_3d_dir, "clothes",
+                                            "scene0000_00.pth"))
+        dets = det.predict_batch(list(frames), "chair . towel", box_threshold=0.0,
+                                 text_threshold=0.0)
+        return d, dets, sam.encode_frames(sam_frames).float().cpu()
+
+    solo = calls("solo")
+    process_group(torch)
+    try:
+        with shard_frames():
+            grouped = calls("group")
+            sharded = projection.sharded_lifts(dev, 0.08) is not None
+    finally:
+        torch.distributed.destroy_process_group()
+    same_proj = all(np.array_equal(np.asarray(solo[0][k]), np.asarray(grouped[0][k]))
+                    for k in ("ins", "conf"))
+    same_det = all(a[2] == b[2] and np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+                   for a, b in zip(solo[1], grouped[1]))
+    same_emb = torch.equal(solo[2], grouped[2])
+    emit({"phase": "one_rank", "world_size": 1, "sharded": sharded,
+          "projection_equal": same_proj, "predict_batch_equal": same_det,
+          "encode_frames_equal": same_emb,
+          "instances": int(np.asarray(solo[0]["ins"]).shape[0]),
+          "detections": sum(len(x[2]) for x in solo[1])})
+    check(same_proj and same_det and same_emb and not sharded,
+          "a call differs with a one-rank group up")
+
+
+def phase11(torch, mods, Config, work, tmp, dev, fast_seg, fast_cfg, card, detector):
+    """Phase 11: the rect encode (SAM ViT-H and EfficientSAM-S, K4 and K3 at
+    the rect shapes), the YOLO-World v1 head, the seg2d frame prefetch, the
+    full-width single-scene loop under a trace (phase 4's checkpoint files,
+    ``detector``), and the one-rank branches."""
+    (fa, wa, sam_mod, esam, yw, nms, resize, gd, dispatch, seg2d, projection, io,
+     StageProfiler) = mods
+    from beyondff_tpu_torch.parallel.frames import shard_frames
+    from beyondff_tpu_torch.tools import make_synthetic_scene, measure_sam_rect, single_scene
+    from beyondff_tpu_torch.utils import ply, profiling
+
+    t0 = time.perf_counter()
+    sam = rect_phase(torch, (fa, wa, sam_mod, esam, dispatch, measure_sam_rect), dev, card)
+    v1_head_phase(torch, (yw, nms, resize), dev, work)
+    prefetch_phase(torch, (seg2d, dispatch, StageProfiler), fast_seg, fast_cfg, work, card)
+    cfg_path = single_scene_phase(
+        torch, (make_synthetic_scene, single_scene, ply, profiling, dispatch), work, tmp, dev,
+        card, detector)
+    one_rank_phase(torch, (Config, projection, gd, io, shard_frames), sam, cfg_path, work,
+                   dev)
+    del sam
+    torch.cuda.empty_cache()
+    emit({"phase": "phase11", "seconds": time.perf_counter() - t0})
+
+
 def main() -> int:
     import torch
 
@@ -2418,7 +2717,9 @@ def main() -> int:
     from beyondff_tpu_torch.utils import native
 
     dev = torch.device("cuda")
+    marks = []  # (phase, start on the host clock)
     # ---------------------------------------------------------------- 1
+    marks.append((1, time.perf_counter()))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, check=True)
     card = smi.stdout.strip().splitlines()[0]
@@ -2435,13 +2736,16 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     # ---------------------------------------------------------------- 2
+    marks.append((2, time.perf_counter()))
     rng = np.random.default_rng(SEED)
     enc_modes = deformable.level_modes(dw.ENC_SHAPES)
     dec_anchor = rng.uniform(0.0, 1.0, (900, 2)).astype(np.float32)
     cases = {}
+    f32_one_frame_s = 0.0  # the f32 cases at one frame (PERF.md: the run's budget)
     # one frame, and the main path's batch of FRAME_BATCH frames
     for b in (1, FRAME_BATCH):
         for dtype in (torch.bfloat16, torch.float32):
+            t_case = time.perf_counter()
             dname = str(dtype).split(".")[-1]
             cases[("deform_clamp", dname, b)] = deform_case(
                 torch, dw, "encoder_clamp", dw.raster_centers(dw.ENC_SHAPES), dtype,
@@ -2456,16 +2760,22 @@ def main() -> int:
                                                         (8 * b, 900, 32), 900, dtype, dev)
             cases[("flash_1024", dname, b)] = flash_case(torch, fa, "unmasked_1024",
                                                          (8 * b, 1024, 32), 1024, dtype, dev)
+            if b == 1 and dtype == torch.float32:
+                f32_one_frame_s += time.perf_counter() - t_case
     # SAM ViT-H's global blocks (K4: 16 heads x B of the 64 x 64 grid) and
     # windowed blocks (K5: 25 windows of 14 x 14 x 16 heads x B), for one
     # frame and the main path's batch of FRAME_BATCH frames
     for b in (1, FRAME_BATCH):
         for dtype in (torch.bfloat16, torch.float32):
+            t_case = time.perf_counter()
             dname = str(dtype).split(".")[-1]
             cases[("relpos_global", dname, b)] = relpos_case(
                 torch, fa, wa, sam_mod, "sam_global", 16 * b, (64, 64), dtype, dev)
             cases[("relpos_window", dname, b)] = relpos_case(
                 torch, fa, wa, sam_mod, "window_sam", 400 * b, (14, 14), dtype, dev)
+            if b == 1 and dtype == torch.float32:
+                f32_one_frame_s += time.perf_counter() - t_case
+    emit({"phase": "kernel_cases", "f32_one_frame_seconds": f32_one_frame_s})
     # the aggregation's self-IoU and refinement's stage-2 x stage-1 IoU
     cases["iou_self"] = mask_iou_case(torch, kiou, "aggregation_self", 600, None, 250_000, dev)
     cases["iou_cross"] = mask_iou_case(torch, kiou, "refinement_cross", 20, 150, 250_000, dev)
@@ -2486,6 +2796,7 @@ def main() -> int:
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
     # ---------------------------------------------------------------- 3
+    marks.append((3, time.perf_counter()))
     small_reference(torch, (Config, seg2d, gd, sam_mod, clip_mod, io, rle), work)
     mods3d = (torch, dispatch, projection, refinement, evaluate)
     # the 3D scenes (~200 MB at full width) go to a temporary directory, not
@@ -2497,6 +2808,7 @@ def main() -> int:
     small_reference_fast(torch, (Config, seg2d, yw, esam, clip_mod, nms, io, rle), work)
 
     # ---------------------------------------------------------------- 4
+    marks.append((4, time.perf_counter()))
     t0 = time.perf_counter()
     det = gd.GroundingDINO.create("swinb", seed=SEED, dtype=torch.bfloat16, device=dev)
     clip = clip_mod.CLIP.create("ViT-L/14", seed=SEED + 1, dtype=torch.bfloat16, device=dev)
@@ -2542,14 +2854,17 @@ def main() -> int:
           "masks": sum(len(r["segmented_frame_masks"]) for r in recs)})
 
     # ---------------------------------------------------------------- 5
+    marks.append((5, time.perf_counter()))
     profile_scene(torch, seg2d, seg, cfg, "scene0000_00", scene_s)
 
     # ---------------------------------------------------------------- 6
+    marks.append((6, time.perf_counter()))
     sweep_launches = full_width_sweep(
         torch, (seg2d, sweep, projection, dispatch, io, rle, StageProfiler), Config, work3d, dev,
         (det, clip, sam, seg.clip_tokenizer))
 
     # ---------------------------------------------------------------- 7
+    marks.append((7, time.perf_counter()))
     del seg, det, clip, sam
     torch.cuda.empty_cache()
     # the 2D stage's launches, the sweep's rel-pos launches (K5 is wired into
@@ -2560,24 +2875,35 @@ def main() -> int:
                 "window_attention_relpos": sweep_launches["window_attention_relpos"]}
 
     # ---------------------------------------------------------------- 8
+    marks.append((8, time.perf_counter()))
     fast_launches, fast_seg, fast_cfg = fast_variant(
         torch, (seg2d, yw, esam, dispatch, io, rle, StageProfiler), Config, work, dev,
         (cfg.detector.clip_checkpoint, cfg.detector.clip_bpe_path))
-    shutil.rmtree(ckpt_dir)
     launches = {**launches, "flash_attention_unmasked": fast_launches["flash_attention"],
                 "nms_fixed": fast_launches["nms_fixed"]}
 
     # ---------------------------------------------------------------- 9
+    marks.append((9, time.perf_counter()))
     training_and_parallel(torch, (fa, dispatch, clip_mod, sam_mod, layers, trainer, sam_finetune,
                                   ckpt, mfu, mesh_lib, plift, geometry,
                                   (geometry, rle, io, readers)),
                           work3d, os.path.join(work3d, "full3d"), dev)
 
     # ---------------------------------------------------------------- 10
+    marks.append((10, time.perf_counter()))
     transports(torch, (seg2d, projection, dispatch, io, rle, StageProfiler), Config, work,
                fixture3d, dev, fast_seg, fast_cfg, card)
+
+    # ---------------------------------------------------------------- 11
+    marks.append((11, time.perf_counter()))
+    from beyondff_tpu_torch.core import resize as core_resize
+
+    phase11(torch, (fa, wa, sam_mod, esam, yw, nms, core_resize, gd, dispatch, seg2d,
+                    projection, io, StageProfiler), Config, work, work3d, dev, fast_seg, fast_cfg,
+            card, cfg.detector)
     del fast_seg
     torch.cuda.empty_cache()
+    shutil.rmtree(ckpt_dir)
     shutil.rmtree(work3d)
 
     table = []
@@ -2610,6 +2936,10 @@ def main() -> int:
                                                      "dense_path_device_ms", "design")
                          if key in c}})
     shutil.rmtree(work)
+    marks.append((None, time.perf_counter()))
+    emit({"phase": "phase_seconds", "seconds": {
+        str(n): t1 - t0 for (n, t0), (_, t1) in zip(marks, marks[1:])},
+        "total": marks[-1][1] - marks[0][1]})
     with open(os.path.join(REPO, "chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(_LINES + [{"kernels": table}], f, indent=1)
     print(card, flush=True)

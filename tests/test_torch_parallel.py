@@ -5,10 +5,16 @@ The multi-rank cases run in spawned CPU processes joined in one gloo group
 60 s group timeout, children killed at a deadline), gathered into two
 spawns: one of four ranks for the mesh, the 2 x 2 dp x tp CLIP step, the
 tensor-parallel inference and the four frame-sharded lifts, and
-``dryrun_multichip(4)``. The workers below import no JAX (the spawned
-children import this module); the JAX references run in the test process,
-on the 8 virtual devices of tests/conftest.py.
+``dryrun_multichip(4)``; and one of two ranks for the stages' multi-rank
+branches (the sharded projection, ``predict_batch`` and ``encode_frames``
+inside ``shard_frames`` against one process with no group and against the
+JAX package's sharded calls; a sweep over the two ranks as hosts outside
+it). The workers below import no JAX (the spawned children import this
+module); the JAX references run in the test process, on the 8 virtual
+devices of tests/conftest.py.
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -389,6 +395,272 @@ def test_sharded_lift_rejects_frames_that_do_not_split():
     x = {k: torch.from_numpy(np.asarray(v)) for k, v in _lift_inputs().items()}
     with pytest.raises(ValueError, match="do not split"):
         lift.make_sharded_view_counts(OneOfThree())(x["pcd_h"], x["projs"], x["depths"])
+
+
+# ------------------------------------------------ multi-rank stage branches
+N_FRAMES = 8  # splits over the 2 ranks and the JAX side's 8 virtual devices
+CAPTION = "chair . towel"
+SWEEP_CLASSES = ["clothes", "towel"]
+SWEEP_DIRS = ("mask_2d_dir", "mask_3d_dir", "final_output_dir", "checkpoint_dir",
+              "results_dir")
+
+
+def _stream_inputs(rle):
+    """A small scene for ``projection.lift_scene_streamed``: 7 frames with
+    three dense masks each (the packed lift) or their RLE records (the RLE
+    lift), and 5 frames without detections (the view counts); 7 and 5 do
+    not split over 2 ranks, so the chunks are padded."""
+    from beyondff_tpu_torch.core import geometry, rle as trle
+
+    h, w = 16, 24
+    rng = np.random.default_rng(4)
+    pcd = rng.uniform([-1, -1, 1], [1, 1, 3], (2000, 3)).astype(np.float32)
+    intr = np.array([[12.0, 0, w / 2], [0, 12.0, h / 2], [0, 0, 1.0]])
+    frames = []
+    for i in range(12):
+        pose = np.eye(4)
+        pose[0, 3] = 0.04 * i
+        cam = (np.linalg.inv(pose) @ geometry.homogenize(pcd).astype(np.float64)).T[:, :3]
+        depth = np.where(rng.random((h, w)) < 0.9, np.median(cam[:, 2]), 0).astype(np.float32)
+        f = {"frame_id": str(i), "pose": pose, "depth": depth + rng.uniform(-1, 1, (h, w))}
+        if i < 7:
+            masks = rng.random((3, h, w)) < 0.4
+            f.update(confidences=np.full(3, 0.5 + 0.01 * i, np.float32),
+                     labels=["towel"] * 3)
+            if rle:
+                f["rles"] = [trle.rle_encode(m.reshape(-1)) for m in masks]
+            else:
+                f["masks"] = masks
+        frames.append(f)
+    return pcd, intr, frames, (h, w)
+
+
+def _stream_lift(lift_scene_streamed, rle, **kw):
+    pcd, intr, frames, hw = _stream_inputs(rle)
+    det = {f["frame_id"] for f in frames if "labels" in f}
+    member, confs, labels, mc, vc = lift_scene_streamed(
+        pcd, intr, iter(frames), det, 0.5, target_hw=hw, **kw)
+    return {"member": np.asarray(member)[..., :pcd.shape[0]], "confs": np.asarray(confs),
+            "labels": list(labels), "masked": np.asarray(mc), "viewed": np.asarray(vc)}
+
+
+def _frames():
+    return np.random.default_rng(8).integers(0, 255, (N_FRAMES, 48, 64, 3), dtype=np.uint8)
+
+
+def _scene_raw(scene_root, tag, dirs):
+    """The synthetic scene's config with the directories ``dirs`` under
+    ``tag``, every 3rd frame, and a detector that keeps every box (the
+    models are the "test" presets with seeded random weights)."""
+    import yaml
+
+    raw = yaml.safe_load(open(os.path.join(scene_root, "config.yaml")))
+    raw["frames"]["downsample_ratio"] = 3
+    raw["detector"].update({"box_threshold": 0.0, "must_match_query": False,
+                            "similarity_threshold": -10.0, "max_detections": 4,
+                            "dtype": "float32", "frame_batch": 2})
+    for key in dirs:
+        raw["paths"][key] = os.path.join(scene_root, f"{key}_{tag}")
+    return raw
+
+
+def _stage_calls(scene_root, tag, weights):
+    """The three multi-rank branches' calls on seeded inputs, inside
+    ``shard_frames`` when a group is up: the streamed lift (packed and
+    RLE), ``projection.run`` on the synthetic scene (output directories
+    under ``tag``), Grounding-DINO's ``predict_batch`` and SAM's
+    ``encode_frames`` on 8 frames with the JAX models' weights."""
+    import contextlib
+
+    import torch.distributed as dist
+
+    from beyondff_tpu_torch.config import Config
+    from beyondff_tpu_torch.models import sam as tsam
+    from beyondff_tpu_torch.models.gdino import GroundingDINO
+    from beyondff_tpu_torch.parallel.frames import shard_frames
+    from beyondff_tpu_torch.pipeline import projection
+    from beyondff_tpu_torch.utils import io as tio
+
+    gd = GroundingDINO.create("test", device="cpu")
+    gd.module.load_state_dict(torch.load(weights["gdino"]))
+    sam = tsam.SAM.create("test", device="cpu")
+    sam.module.load_state_dict(torch.load(weights["sam"]))
+    out = {}
+    with shard_frames() if dist.is_initialized() else contextlib.nullcontext():
+        for kind, rle in (("packed", False), ("rle", True)):
+            out[kind] = _stream_lift(projection.lift_scene_streamed, rle, device="cpu")
+        out["sharded"] = projection.sharded_lifts(torch.device("cpu"), 0.5) is not None
+        out["detections"] = gd.predict_batch(list(_frames()), CAPTION, box_threshold=0.0,
+                                             text_threshold=0.5)
+        out["embeddings"] = sam.encode_frames(torch.from_numpy(_frames())).numpy()
+        cfg = Config.from_dict(_scene_raw(scene_root, tag, ("mask_3d_dir", "checkpoint_dir")))
+        out["projection"] = projection.run(cfg, "clothes", resume=False, device="cpu")
+    out["projection_dict"] = tio.load_stage_dict(
+        os.path.join(cfg.paths.mask_3d_dir, "clothes", "scene0000_00.pth"))
+    return out
+
+
+def _sweep(scene_root, tag, hosts, host):
+    """``SweepRunner`` over ``SWEEP_CLASSES`` as host ``host`` of ``hosts``
+    (segmentation through projection, refinement and evaluation): the
+    status and each class's 2D records and 3D stage dict."""
+    from beyondff_tpu_torch.config import Config
+    from beyondff_tpu_torch.orchestration import sweep as tsweep
+    from beyondff_tpu_torch.utils import io as tio
+
+    cfg = Config.from_dict(_scene_raw(scene_root, f"sweep_{tag}", SWEEP_DIRS))
+    status = tsweep.SweepRunner(
+        cfg, checkpoint_path=os.path.join(scene_root, f"sweep_{tag}.txt"), hosts=hosts,
+        host=host, device="cpu", plot_pr_curves=False).run(SWEEP_CLASSES)
+    return status, {c: (tio.load_frame_records(os.path.join(cfg.paths.mask_2d_dir, c,
+                                                            "scene0000_00.pth")),
+                        tio.load_stage_dict(os.path.join(cfg.paths.mask_3d_dir, c,
+                                                         "scene0000_00.pth")))
+                    for c in status}
+
+
+def _two_rank_worker(rank, n, scene_root, weights):
+    """The branches inside ``shard_frames``; then, with the same group up
+    but outside it, a sweep whose hosts are the ranks (each rank its own
+    class), and the same sweep inside ``shard_frames``, which must raise."""
+    from beyondff_tpu_torch.orchestration import sweep as tsweep
+    from beyondff_tpu_torch.parallel.frames import shard_frames
+
+    out = _stage_calls(scene_root, f"rank{rank}", weights)
+    out["sweep"] = _sweep(scene_root, f"rank{rank}", *tsweep.resolve_hosts())
+    with shard_frames():
+        try:
+            _sweep(scene_root, f"refused{rank}", *tsweep.resolve_hosts())
+            out["sweep_refused"] = False
+        except RuntimeError:
+            out["sweep_refused"] = True
+    return out
+
+
+def _jax_calls(scene_root, jg, js):
+    """The JAX package's calls on the same inputs, on the 8 virtual devices
+    of tests/conftest.py, so each takes its sharded branch: the streamed
+    lifts and ``projection.run`` (8 divides FRAME_CHUNK and VIEW_CHUNK),
+    ``predict_batch`` and ``encode_image`` (8 frames)."""
+    import jax
+
+    from beyondff_tpu.config import Config as JConfig
+    from beyondff_tpu.pipeline import projection as jprojection
+    from beyondff_tpu.utils import io as jio
+
+    assert len(jax.devices()) == N_FRAMES
+    out = {kind: _stream_lift(jprojection.lift_scene_streamed, rle)
+           for kind, rle in (("packed", False), ("rle", True))}
+    out["detections"] = jg.predict_batch(list(_frames()), CAPTION, box_threshold=0.0,
+                                         text_threshold=0.5)
+    padded, hw = js.preprocess(_frames())
+    out["embeddings"] = np.asarray(js.encode_image(padded, hw))
+    cfg = JConfig.from_dict(_scene_raw(scene_root, "jax", ("mask_3d_dir", "checkpoint_dir")))
+    out["projection"] = jprojection.run(cfg, "clothes", resume=False)
+    out["projection_dict"] = jio.load_stage_dict(
+        os.path.join(cfg.paths.mask_3d_dir, "clothes", "scene0000_00.pth"))
+    return out
+
+
+@pytest.fixture(scope="module")
+def two_ranks(tmp_path_factory):
+    """The stage branches on two gloo ranks, in this process with no group,
+    and in the JAX package on the same inputs and weights; the synthetic
+    scene from the port's generator."""
+    from beyondff_tpu.models import sam as jsam
+    from beyondff_tpu.models.gdino import GroundingDINO as JGroundingDINO
+    from beyondff_tpu_torch.models import convert
+    from beyondff_tpu_torch.tools import make_synthetic_scene
+
+    import jax
+
+    tmp = tmp_path_factory.mktemp("two_ranks")
+    root = str(tmp / "scene")
+    make_synthetic_scene.generate(root, query="clothes", seed=11)
+    jg, js = JGroundingDINO.create("test", seed=5), jsam.SAM.create("test", seed=4)
+    weights = {}
+    for kind, jm, conv in (("gdino", jg, convert.gdino_from_jax),
+                           ("sam", js, convert.sam_from_jax)):
+        weights[kind] = str(tmp / f"{kind}.pth")
+        torch.save(conv(jax.tree_util.tree_map(np.asarray, jm.params), jm.cfg), weights[kind])
+    ranks = dryrun.launch(_two_rank_worker, 2, args=(root, weights),
+                          workdir=str(tmp_path_factory.mktemp("rdv")), timeout=300)
+    solo = _stage_calls(root, "solo", weights)
+    solo["sweep"] = _sweep(root, "solo", 1, 0)
+    return ranks, solo, _jax_calls(root, jg, js)
+
+
+@pytest.mark.parametrize("kind", ["packed", "rle"])
+def test_projection_lift_sharded_over_two_ranks_equals_one(two_ranks, kind):
+    """Membership, counts, confidences and labels exactly equal to one
+    rank's and to the JAX package's sharded lift."""
+    ranks, solo, jax_out = two_ranks
+    want = solo[kind]
+    assert not solo["sharded"] and want["masked"].sum() > 0 and want["viewed"].sum() > 0
+    for got in [r[kind] for r in ranks] + [jax_out[kind]]:
+        assert got["labels"] == want["labels"]
+        for key in ("member", "confs", "masked", "viewed"):
+            np.testing.assert_array_equal(got[key], want[key], err_msg=key)
+    assert all(r["sharded"] for r in ranks)
+
+
+def test_projection_run_sharded_over_two_ranks_equals_one(two_ranks):
+    """``projection.run``'s summary and stage dict equal one rank's and the
+    JAX package's sharded run."""
+    ranks, solo, jax_out = two_ranks
+    want = solo["projection_dict"]
+    assert solo["projection"][0]["instances"] > 0
+    for r in ranks + [jax_out]:
+        assert r["projection"] == solo["projection"]
+        for key in ("ins", "conf"):
+            np.testing.assert_array_equal(np.asarray(r["projection_dict"][key]), want[key])
+        assert list(r["projection_dict"]["final_class"]) == list(want["final_class"])
+
+
+def test_predict_batch_and_encode_frames_over_two_ranks_equal_one(two_ranks):
+    """Each rank detects and encodes four of the eight frames and gathers:
+    boxes and scores within 1e-5 of one rank's, phrases equal, embeddings
+    within 1e-5; and within the JAX comparison's 5e-4 + 1e-3 |x| of the
+    JAX package's sharded ``predict_batch`` and ``encode_image``."""
+    ranks, solo, jax_out = two_ranks
+    assert sum(len(d[2]) for d in solo["detections"]) > 0
+    for got, want, atol, rtol in [(r, solo, 1e-5, 0) for r in ranks] + [
+            (solo, jax_out, 5e-4, 1e-3)]:
+        assert len(got["detections"]) == N_FRAMES
+        for (tb, ts, tp), (wb, ws, wp) in zip(got["detections"], want["detections"]):
+            assert tp == wp
+            np.testing.assert_allclose(tb, wb, atol=atol, rtol=rtol)
+            np.testing.assert_allclose(ts, ws, atol=atol, rtol=rtol)
+        assert got["embeddings"].shape == want["embeddings"].shape
+        np.testing.assert_allclose(got["embeddings"], want["embeddings"], atol=atol, rtol=rtol)
+
+
+def test_sweep_over_two_ranks_shards_no_frames(two_ranks):
+    """With the group up but no ``shard_frames``, a sweep whose hosts are
+    the ranks gives each rank its own class, and each class's 2D records
+    and 3D stage dict equal those of one process running both classes;
+    inside ``shard_frames`` the same sweep raises."""
+    from beyondff_tpu_torch.core import rle as trle
+
+    ranks, solo, _ = two_ranks
+    solo_status, solo_recs = solo["sweep"]
+    assert sorted(solo_status) == SWEEP_CLASSES
+    assert all(all(s.values()) for s in solo_status.values()), solo_status
+    assert sum(len(r["labels"]) for r in solo_recs[SWEEP_CLASSES[1]][0]) > 0
+    for rank, r in enumerate(ranks):
+        status, recs = r["sweep"]
+        assert list(status) == [SWEEP_CLASSES[rank]] and r["sweep_refused"]
+        for c, (got2d, got3d) in recs.items():
+            want2d, want3d = solo_recs[c]
+            assert [g["frame_id"] for g in got2d] == [w["frame_id"] for w in want2d]
+            for g, w in zip(got2d, want2d):
+                assert list(g["labels"]) == list(w["labels"])
+                np.testing.assert_array_equal(g["confidences"], w["confidences"])
+                np.testing.assert_array_equal(
+                    trle.rle_decode_batch(g["segmented_frame_masks"]),
+                    trle.rle_decode_batch(w["segmented_frame_masks"]))
+            for key in ("ins", "conf"):
+                np.testing.assert_array_equal(np.asarray(got3d[key]), np.asarray(want3d[key]))
 
 
 # ------------------------------------------------------------------ dry run

@@ -597,3 +597,73 @@ def test_projection_matches_jax_with_depth_pack(stage, no_switches, dpack):
     assert list(outs["torch"][1]["final_class"]) == list(outs["jax"][1]["final_class"])
     assert outs["torch"][1]["ins"].shape[0] > 0
     assert (len(calls) > 0) == (dpack is None)
+
+
+# ------------------------------------------------------------ frame prefetch
+def _inline_loads(fn, items, depth=2, workers=1):
+    """``prefetch_map`` with the prefetch off: each batch loads in the scene
+    loop's own thread when the loop asks for it."""
+    return (fn(x) for x in items)
+
+
+@pytest.mark.parametrize("kind,two_tier", [("grounding_dino", None), ("yolo_world", "1")])
+def test_prefetch_records_byte_equal_and_match_jax(stage, no_switches, kind, two_tier):
+    """The prefetch off (``prefetch_map`` replaced by in-order loads in the
+    scene loop's thread), then ``BFF_SEG2D_WORKERS`` 1 and 4 with
+    ``BFF_SEG2D_PREFETCH`` at its default and at one frame: the port's
+    ``.pth`` bytes are equal across all four, and its records agree with
+    the JAX package's (both on their defaults; YOLO-World two-tier with
+    JXT, so each loaded batch keeps its own native frames) at the seg2d
+    bars."""
+    if two_tier:
+        no_switches.setenv("BFF_SEG2D_TWO_TIER", two_tier)
+    runs = {}
+    for workers, depth in (("off", None), ("1", None), ("4", None), ("4", "1")):
+        if depth:
+            no_switches.setenv("BFF_SEG2D_PREFETCH", depth)
+        tag = f"prefetch_{kind}_{workers}_{depth}"
+        cfgs = _configs(stage, kind, tag, natural=True)
+        with pytest.MonkeyPatch.context() as mp:
+            if workers == "off":
+                mp.setattr(tseg2d, "prefetch_map", _inline_loads)
+            else:
+                mp.setenv("BFF_SEG2D_WORKERS", workers)
+            if workers == "1" and depth is None:
+                _run_both(stage, kind, cfgs)
+            else:
+                _jseg, tseg = stage[kind]
+                old, tseg.cfg = tseg.cfg, cfgs[1]
+                try:
+                    tseg2d.run(cfgs[1], "towel", scenes=["scene0000_00"], segmentor=tseg)
+                finally:
+                    tseg.cfg = old
+        with open(os.path.join(cfgs[1].paths.mask_2d_dir, "towel", "scene0000_00.pth"),
+                  "rb") as f:
+            runs[(workers, depth)] = f.read()
+    first = runs[("off", None)]
+    assert all(b == first for b in runs.values())
+
+
+def test_seg2d_trace_phases_match_jax(stage, no_switches, capsys):
+    """``BFF_SEG2D_TRACE=1``: one line per scene in the JAX package's
+    format; the port's phases are the JAX package's names (the two-tier
+    fast variant's run reaches all but the deferred-flush ones)."""
+    no_switches.setenv("BFF_SEG2D_TRACE", "1")
+    no_switches.setenv("BFF_SEG2D_TWO_TIER", "1")
+    _run_both(stage, "yolo_world", _configs(stage, "yolo_world", "trace", natural=True))
+    lines = [ln for ln in capsys.readouterr().out.splitlines()
+             if ln.startswith("# seg2d host trace [scene0000_00]")]
+    assert len(lines) == 2  # the JAX package's, then the port's
+
+    def phases(line):
+        head, _, body = line.partition("frames): ")
+        assert "total=" in head and "(3 frames)" in line
+        return {kv.split("=")[0] for kv in body.split()}
+
+    jax_phases, port_phases = phases(lines[0]), phases(lines[1])
+    assert port_phases <= jax_phases | {"crop_build", "clip_dispatch", "clip_wait"}
+    assert {"prefetch_wait", "det_dispatch", "det_finalize", "phrase_filter",
+            "sam_encode_dispatch", "sam_upload", "crop_build", "clip_dispatch",
+            "clip_wait", "filter_apply", "decode_dispatch", "decode_wait",
+            "emit"} == port_phases
+    assert port_phases <= jax_phases
