@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from beyondff_tpu_torch.core.resize import fma, linear_axis
+from beyondff_tpu_torch.utils.host_copy import to_device
 
 
 def pack_ycrcb420(img: np.ndarray) -> np.ndarray:
@@ -72,9 +73,9 @@ def upload_frames(imgs: Sequence[np.ndarray], device, yuv: bool = True) -> torch
     """Same-size uint8 RGB host frames -> one (B, H, W, 3) uint8 RGB batch on
     ``device`` in a single host-to-device copy."""
     if not yuv:
-        return torch.from_numpy(np.stack(list(imgs))).to(device)
+        return to_device(np.stack(list(imgs)), device)
     h, w = imgs[0].shape[:2]
-    packed = torch.from_numpy(np.stack([pack_ycrcb420(im) for im in imgs])).to(device)
+    packed = to_device(np.stack([pack_ycrcb420(im) for im in imgs]), device)
     return unpack(packed, h, w)
 
 

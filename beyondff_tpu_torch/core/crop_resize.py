@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from beyondff_tpu_torch.core.resize import fma, taps_axis
+from beyondff_tpu_torch.utils.host_copy import to_device
 
 _CUBIC_A = -0.75  # OpenCV's interpolateCubic
 _CROP_CHUNK = 64  # crops whose (n, W, 3) row passes are live at once
@@ -130,7 +131,7 @@ def _crops(src: torch.Tensor, frame_of: np.ndarray, y0, y1, x0, x1, n: int) -> t
     for f in np.unique(frame_of):
         ks = np.flatnonzero(frame_of == f)
         for lo in range(0, ks.size, _CROP_CHUNK):
-            k = torch.as_tensor(ks[lo:lo + _CROP_CHUNK], device=src.device)
+            k = to_device(ks[lo:lo + _CROP_CHUNK], src.device)
             wr, wc = _clip_transform_weights(y0[k], y1[k], x0[k], x1[k], h, w, n)
             rows = torch.einsum("koy,yxc->koxc", wr, src[f])
             out[k] = _sat_round(torch.einsum("kpx,koxc->kopc", wc, rows))
@@ -143,6 +144,10 @@ def _crop_source_yolo(frames_u8: torch.Tensor) -> torch.Tensor:
     return torch.remainder(256 - frames_u8.to(torch.int32), 256).to(torch.float32)
 
 
+# (h, w, det_h, det_w, device) -> the detector resize's row and column taps
+_GDINO_TAPS = {}
+
+
 def _crop_source_gdino(frames_u8: torch.Tensor, det_hw: Tuple[int, int], mean,
                        std) -> torch.Tensor:
     """Grounding-DINO mode's crop source: INTER_LINEAR to the detector input
@@ -151,16 +156,22 @@ def _crop_source_gdino(frames_u8: torch.Tensor, det_hw: Tuple[int, int], mean,
     dev = frames_u8.device
     _, h, w, _ = frames_u8.shape
     gh, gw = det_hw
-    zero = torch.zeros(1, dtype=torch.int32, device=dev)
-    f32 = (lambda v: torch.full((1,), float(v), dtype=torch.float32, device=dev))
-    wr = _resize_weights(gh, f32(0), zero, f32(h), f32(gh), h, cubic=False)[0]
-    wc = _resize_weights(gw, f32(0), zero, f32(w), f32(gw), w, cubic=False)[0]
+    key = (h, w, gh, gw, str(dev))
+    if key not in _GDINO_TAPS:
+        # the weights depend on the shapes only: read back once per shape,
+        # not once per batch (a read-back waits for the whole stream)
+        zero = torch.zeros(1, dtype=torch.int32, device=dev)
+        f32 = (lambda v: torch.full((1,), float(v), dtype=torch.float32, device=dev))
+        _GDINO_TAPS[key] = (
+            _taps(_resize_weights(gh, f32(0), zero, f32(h), f32(gh), h, cubic=False)[0]),
+            _taps(_resize_weights(gw, f32(0), zero, f32(w), f32(gw), w, cubic=False)[0]))
+    taps_r, taps_c = _GDINO_TAPS[key]
     # two taps a row: the rows accumulate fused, the columns round each
     # product, as XLA:CPU's two dots do
-    rows = taps_axis(frames_u8.to(torch.float32), *_taps(wr), 1, fused=True)
-    v = _sat_round(taps_axis(rows, *_taps(wc), 2, fused=False))
-    mean = torch.as_tensor(np.asarray(mean, np.float32), device=dev)
-    std = torch.as_tensor(np.asarray(std, np.float32), device=dev)
+    rows = taps_axis(frames_u8.to(torch.float32), *taps_r, 1, fused=True)
+    v = _sat_round(taps_axis(rows, *taps_c, 2, fused=False))
+    mean = to_device(np.asarray(mean, np.float32), dev)
+    std = to_device(np.asarray(std, np.float32), dev)
     # (v / 255 - mean) / std * 255 with XLA:CPU's rewrites: division by a
     # constant becomes a multiply by its reciprocal, fused with the sub
     t = fma(v, np.float32(1 / 255.0), -mean) * (1.0 / std) * 255.0
@@ -172,8 +183,8 @@ def _clip_crops_of(src: torch.Tensor, frame_of, boxes, valid, frame_hw, n: int):
     (B, h, w, 3); boxes in ``frame_hw`` coordinates."""
     dev = src.device
     _, h, w, _ = src.shape
-    boxes = torch.as_tensor(np.asarray(boxes, np.float32), device=dev)
-    valid = torch.as_tensor(np.asarray(valid, bool), device=dev)
+    boxes = to_device(np.asarray(boxes, np.float32), dev)
+    valid = to_device(np.asarray(valid, bool), dev)
     x0, y0, x1, y1, ok = _crop_rect(boxes, w / frame_hw[1], h / frame_hw[0], w, h)
     out = _crops(src, np.asarray(frame_of, np.int64), y0, y1, x0, x1, n)
     return torch.where((ok & valid)[:, None, None, None], out, 0.0)

@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from beyondff_tpu_torch.core.resize import fma, resize_bilinear
+from beyondff_tpu_torch.utils.host_copy import to_device
 
 # geometric wire-size buckets; the caps are part of the wire format
 _BUCKET_BASE = 2048
@@ -210,7 +211,7 @@ def _decode(wire: torch.Tensor, qsteps: torch.Tensor, geometry: JxtGeometry, nca
     dense = torch.zeros(b, geometry.total_coeffs, dtype=torch.float32, device=dev)
     dense.scatter_add_(1, pos, v)
 
-    c = torch.as_tensor(_idct_mat(), device=dev)
+    c = to_device(_idct_mat(), dev)
     planes, off = [], 0
     for bh, bw, _, _ in geometry.comps:
         nb = bh * bw
@@ -267,12 +268,12 @@ def upload_frames(packs: List[JxtPacked], device) -> torch.Tensor:
     ncap = max(p.ncap for p in packs)
     ecap = max(p.ecap for p in packs)
     packs = [rebucket(p, ncap, ecap) for p in packs]
-    wire = torch.from_numpy(np.stack([p.wire for p in packs])).to(device)
+    wire = to_device(np.stack([p.wire for p in packs]), device)
     if all(np.array_equal(p.qsteps, packs[0].qsteps) for p in packs[1:]):
         q = packs[0].qsteps[None]
     else:
         q = np.stack([p.qsteps for p in packs])
-    return _decode(wire, torch.from_numpy(q).to(device), geo, ncap, ecap)
+    return _decode(wire, to_device(q, device), geo, ncap, ecap)
 
 
 def wire_bytes(packs: List[JxtPacked]) -> int:

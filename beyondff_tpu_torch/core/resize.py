@@ -35,6 +35,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from beyondff_tpu_torch.utils.host_copy import to_device
+
 _COEF_BITS = 11
 _COEF_SCALE = 1 << _COEF_BITS
 
@@ -83,8 +85,7 @@ def _cubic_taps(src: int, dst: int):
 
 def _taps(src: int, dst: int, kind: str, device):
     idx, coef = _TAPS[kind](src, dst)
-    return (torch.as_tensor(idx, device=device),
-            torch.as_tensor(coef.astype(np.int32), device=device))
+    return to_device(idx, device), to_device(coef.astype(np.int32), device)
 
 
 def _resize(img, size_hw: Tuple[int, int], cubic: bool):
@@ -118,7 +119,8 @@ def _resize(img, size_hw: Tuple[int, int], cubic: bool):
         rows = [h.index_select(1, yi[:, j]) for j in range(k)]  # (B, dh, dw, C)
         if cubic:
             scale = torch.tensor(1.0 / (_COEF_SCALE * _COEF_SCALE), dtype=torch.float32)
-            b = (ya.to(torch.float32) * scale.to(dev))[:, :, None, None]
+            # a 0-d CPU tensor enters the product as a scalar: no upload
+            b = (ya.to(torch.float32) * scale)[:, :, None, None]
             acc = torch.mul(rows[3].to(torch.float32), b[:, 3])
             for j in (2, 1, 0):
                 acc = torch.add(torch.mul(rows[j].to(torch.float32), b[:, j]), acc)
@@ -187,8 +189,8 @@ def taps_axis(x: torch.Tensor, idx, wt, axis: int, fused: bool) -> torch.Tensor:
     ``wt``, summing taps in their order; ``fused``: each step after the
     first is a fused multiply-add (XLA:CPU's GEMM accumulation), else the
     products round on their own before the sum."""
-    idx = torch.as_tensor(idx).to(x.device)
-    wt = torch.as_tensor(wt).to(x.device)
+    idx = to_device(idx, x.device)
+    wt = to_device(wt, x.device)
     shape = [1] * x.dim()
     shape[axis] = idx.shape[1]
     acc = None

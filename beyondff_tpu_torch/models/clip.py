@@ -12,6 +12,7 @@ the query embedding. ViT-L/14 at 224 px runs
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import Dict, Optional, Sequence, Tuple
 
@@ -24,6 +25,7 @@ from beyondff_tpu_torch.kernels.dispatch import resolve_device
 from beyondff_tpu_torch.models.convert_util import load_module, require_file
 from beyondff_tpu_torch.models.layers import TransformerBlock, build, quick_gelu
 from beyondff_tpu_torch.models.tokenizers import ClipTokenizer, HashTokenizer
+from beyondff_tpu_torch.utils.host_copy import to_device
 
 # image preprocessing constants (reference: segmentation_2d.py:315-322)
 IMAGE_MEAN = np.array([0.48145466, 0.4578275, 0.40821073], np.float32)
@@ -166,7 +168,7 @@ class CLIP:
         n = self.cfg.image_resolution
         out = []
         for img in images:
-            img = torch.as_tensor(img, device=self.device)
+            img = to_device(img, self.device)
             h, w = img.shape[:2]
             scale = n / min(h, w)
             nh, nw = round(h * scale), round(w * scale)
@@ -178,9 +180,17 @@ class CLIP:
     @torch.inference_mode()
     def encode_image(self, images) -> torch.Tensor:
         """(B, H, W, 3) uint8 crops, or float32 holding uint8 values (host or
-        device) -> (B, embed_dim)."""
-        x = torch.as_tensor(images, device=self.device).float()
-        x = (x / 255.0 - self._mean) / self._std
+        device) -> (B, embed_dim). With ``BFF_CLIP_MAP=1`` a uint8 batch of
+        more than one crop encodes one crop at a time (the JAX package's
+        ``lax.map`` of the batch-1 tower; an A/B knob, off by default)."""
+        x = to_device(images, self.device)
+        if x.dtype == torch.uint8 and x.shape[0] > 1 and os.environ.get("BFF_CLIP_MAP") == "1":
+            return torch.cat([self._encode(xi[None]) for xi in x])
+        return self._encode(x)
+
+    def _encode(self, x: torch.Tensor) -> torch.Tensor:
+        """Normalize device crops holding uint8 values and encode them."""
+        x = (x.float() / 255.0 - self._mean) / self._std
         return self.module.encode_image(x.to(self.dtype))
 
     @torch.inference_mode()
@@ -192,8 +202,8 @@ class CLIP:
         from beyondff_tpu_torch.core import color
 
         n = self.cfg.image_resolution
-        buf = torch.as_tensor(np.asarray(packed, np.uint8)).to(self.device)
-        return self.encode_image(color.unpack(buf, n, n))
+        buf = to_device(np.asarray(packed, np.uint8), self.device)
+        return self._encode(color.unpack(buf, n, n))
 
     @torch.inference_mode()
     def encode_image_boxes(self, frames: torch.Tensor, frame_idx, boxes, mode: str, frame_hw,
@@ -221,11 +231,11 @@ class CLIP:
         crops = crop_resize.clip_crop_batch(frames, idx_p, boxes_p, valid, mode, tuple(frame_hw),
                                             det_hw=det_hw, mean=det_mean, std=det_std,
                                             n=self.cfg.image_resolution)
-        return self.encode_image(crops), n
+        return self._encode(crops), n
 
     @torch.inference_mode()
     def encode_text(self, tokens) -> torch.Tensor:
-        t = torch.as_tensor(np.asarray(tokens), dtype=torch.long, device=self.device)
+        t = to_device(np.asarray(tokens), self.device, torch.long)
         return self.module.encode_text(t)
 
 

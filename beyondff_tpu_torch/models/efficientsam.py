@@ -20,6 +20,7 @@ from beyondff_tpu_torch.models import sam as sam_mod
 from beyondff_tpu_torch.models.convert_util import load_module, require_file
 from beyondff_tpu_torch.models.layers import build
 from beyondff_tpu_torch.models.sam import SAM, SAMConfig, SAMModule
+from beyondff_tpu_torch.utils.host_copy import to_device
 
 PRESETS = {
     # ViT-S (EfficientSAM-S) and ViT-T (EfficientSAM-Ti)
@@ -64,7 +65,7 @@ class EfficientSAM(SAM):
                                                                           torch.Tensor]:
         """embedding (g, g, d); boxes (B, 4) padded-square pixels -> the best
         mask's low-res logits (B, 4g, 4g) and its predicted IoU (B,)."""
-        bx = torch.as_tensor(boxes, dtype=torch.float32, device=self.device)
+        bx = to_device(boxes, self.device, torch.float32)
         return self._box_decode(embedding[None].expand(bx.shape[0], -1, -1, -1), bx)
 
 

@@ -23,6 +23,7 @@ import torch
 from torch import nn
 
 from beyondff_tpu_torch.kernels import deform_window as dw
+from beyondff_tpu_torch.utils.host_copy import to_device
 
 # levels with H*W at or below this are the "small" levels of the JAX package
 _MATMUL_LEVEL_MAX = 1024
@@ -107,7 +108,7 @@ class MSDeformAttn(nn.Module):
         weights = torch.softmax(
             self.attention_weights(query).reshape(b, q, self.heads, -1).float(), dim=-1)
         weights = weights.to(query.dtype).reshape(b, q, self.heads, self.levels, self.points)
-        shapes = torch.as_tensor(spatial_shapes, dtype=torch.float32, device=query.device)
+        shapes = to_device(spatial_shapes, query.device, torch.float32)
         wh = shapes.flip(-1)[None, None, None, :, None, :]  # (w, h) per level
         ref = reference_points.float()
         if ref.shape[-1] == 2:

@@ -35,6 +35,7 @@ from beyondff_tpu_torch.models.gdino import swin as swin_mod
 from beyondff_tpu_torch.models.gdino.deformable import MSDeformAttn
 from beyondff_tpu_torch.models.layers import Attention, MLPHead, build
 from beyondff_tpu_torch.parallel.frames import data_parallel_slice, gather_frames
+from beyondff_tpu_torch.utils.host_copy import HostCopy, to_device
 
 IMAGE_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGE_STD = np.array([0.229, 0.224, 0.225], np.float32)
@@ -312,7 +313,7 @@ class GDINOModule(nn.Module):
         pos = torch.cat(pos_parts, dim=0)[None].to(dtype)
 
         centers_np, valid_np, anchors_np = _raster_tables(shapes)
-        centers = torch.as_tensor(centers_np, device=dev)
+        centers = to_device(centers_np, dev)
         ref_enc = centers[None, :, None, :].expand(b, -1, len(shapes), 2)
 
         pos_text = sine_position_embedding(position_ids[..., None].float(), c.hidden)
@@ -324,14 +325,14 @@ class GDINOModule(nn.Module):
             memory = enc.layers[li](memory, pos, ref_enc, shapes)
 
         # language-guided query selection
-        valid = torch.as_tensor(valid_np, device=dev)
+        valid = to_device(valid_np, dev)
         masked_memory = memory * valid[None, :, None].to(memory.dtype)
         enc_out = tr.enc_output_norm(tr.enc_output(masked_memory))
         sim = torch.einsum("bic,btc->bit", enc_out, txt)
         sim = sim.masked_fill(~text_pad_mask[:, None, :], float("-inf"))
         _, topk = stable_topk(sim.amax(dim=-1).float(), c.num_queries)
         sel = torch.gather(enc_out, 1, topk[..., None].expand(-1, -1, c.hidden))
-        anchors = torch.as_tensor(anchors_np, device=dev)[topk]
+        anchors = to_device(anchors_np, dev)[topk]
         boxes = torch.sigmoid(tr.enc_out_bbox_embed(sel).float() + anchors)
 
         tgt = tr.tgt_embed.weight[None].expand(b, -1, -1).to(dtype)
@@ -340,7 +341,8 @@ class GDINOModule(nn.Module):
         ref = ref_in = boxes
         for layer in dec.layers:
             # gen_sineembed_for_position order: (pos_y, pos_x, pos_w, pos_h)
-            pe = sine_position_embedding(ref[..., [1, 0, 2, 3]], 2 * c.hidden).to(dtype)
+            pe = sine_position_embedding(torch.stack(
+                [ref[..., 1], ref[..., 0], ref[..., 2], ref[..., 3]], -1), 2 * c.hidden).to(dtype)
             query_pos = dec.ref_point_head(pe)
             ref_input = ref[:, :, None, :].expand(-1, -1, len(shapes), -1)
             tgt = layer(tgt, query_pos, memory, txt, ref_input, shapes, text_pad_mask)
@@ -427,8 +429,7 @@ class GroundingDINO:
         n = images_u8.shape[0]
 
         def tile(a, dtype):
-            return torch.as_tensor(np.broadcast_to(a, (n, *a.shape[1:])).copy(), dtype=dtype,
-                                   device=self.device)
+            return to_device(np.broadcast_to(a, (n, *a.shape[1:])).copy(), self.device, dtype)
 
         text = (tile(ids, torch.long), tile(self_mask, torch.bool), tile(pad, torch.bool),
                 tile(pos_ids, torch.long))
@@ -436,14 +437,15 @@ class GroundingDINO:
         if feats_cache is None:
             logits, boxes = self.module(self._normalize(images_u8, resize), *text)
             packed = pack_topk(logits, boxes, k)
-            return (packed if sliced is None else gather_frames(packed)), ids, b
+            packed = packed if sliced is None else gather_frames(packed)
+            return HostCopy(packed.float()), ids, b
         bank, key = feats_cache
         feats = bank.get(key)
         if feats is None:
             feats = self.module.backbone_forward(self._normalize(images_u8, resize))
             bank[key] = feats
         logits, boxes = self.module.detect(feats, *text)
-        return pack_topk(logits, boxes, k), ids, b
+        return HostCopy(pack_topk(logits, boxes, k).float()), ids, b
 
     # the seg2d stage may bank the text-independent backbone pyramid
     supports_feats_cache = True
@@ -453,7 +455,9 @@ class GroundingDINO:
         """Detection on an uploaded uint8 frame buffer (B, h, w, 3) of any
         resolution, resized to the detector input on the device. Returns a
         handle for :meth:`predict_finalize`; the work is queued on the
-        current stream.
+        current stream, and the handle's packed result (a
+        :class:`utils.host_copy.HostCopy`) starts its download there, behind
+        the work, as the JAX package's ``copy_to_host_async`` at dispatch.
 
         ``feats_cache``: optional ``(bank, key)``, the multi-class sweep's
         per-scene bank. The text-independent half (resize, normalize, Swin,
@@ -507,7 +511,7 @@ class GroundingDINO:
 
         Returns, per frame, a list over classes of (boxes, scores, phrases)."""
         packed_d, ids, b = handle
-        packed = packed_d.float().cpu().numpy()
+        packed = packed_d.numpy()
         top_boxes, top_probs = packed[..., 1:5], packed[..., 5:]
         thresholds = (list(box_threshold) if np.ndim(box_threshold)
                       else [box_threshold] * len(spans))
@@ -545,9 +549,10 @@ class GroundingDINO:
 
     def predict_finalize(self, handle, box_threshold: float = 0.35,
                          text_threshold: float = 0.25):
-        """Host half: one download + threshold + phrase extraction."""
+        """Host half: waits for the handle's download (its own event) +
+        threshold + phrase extraction."""
         packed_d, ids, b = handle
-        packed = packed_d.float().cpu().numpy()
+        packed = packed_d.numpy()
         top_scores, top_boxes, top_probs = packed[..., 0], packed[..., 1:5], packed[..., 5:]
         out = []
         for i in range(b):

@@ -19,6 +19,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from beyondff_tpu_torch.models.layers import MLP, gelu_exact
+from beyondff_tpu_torch.utils.host_copy import to_device
 
 
 @dataclass(frozen=True)
@@ -79,7 +80,7 @@ class WindowAttention(nn.Module):
         qkv = self.qkv(x).reshape(n, l, 3, self.num_heads, hd).permute(2, 0, 3, 1, 4)
         q, k, v = qkv[0], qkv[1], qkv[2]  # (n, heads, l, hd)
         logits = (q * hd ** -0.5) @ k.transpose(-1, -2)
-        idx = torch.as_tensor(_rel_pos_index(self.window), device=x.device)
+        idx = to_device(_rel_pos_index(self.window), x.device)
         bias = self.relative_position_bias_table[idx].reshape(l, l, -1).permute(2, 0, 1)
         logits = logits + bias.to(x.dtype)[None]
         if mask is not None:  # (nW, l, l)
@@ -116,7 +117,7 @@ class SwinTransformerBlock(nn.Module):
         mask = None
         if shift > 0:
             x = torch.roll(x, shifts=(-shift, -shift), dims=(1, 2))
-            mask = torch.as_tensor(_shift_mask(hp, wp, win, shift), device=x.device)
+            mask = to_device(_shift_mask(hp, wp, win, shift), x.device)
         x = x.reshape(b, hp // win, win, wp // win, win, c).permute(0, 1, 3, 2, 4, 5)
         x = self.attn(x.reshape(-1, win * win, c), mask)
         x = x.reshape(b, hp // win, wp // win, win, win, c).permute(0, 1, 3, 2, 4, 5)

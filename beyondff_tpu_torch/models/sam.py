@@ -9,7 +9,11 @@ bias. On the card its attention takes the JAX package's kernel branches
 (``ViTAttention.forward``): a grid of 512 tokens or more without rel-pos goes
 through the flash kernel, and with rel-pos through the rel-pos flash kernel
 when ``BFF_SAM_RELPOS_FLASH`` is set; everything else stays plain, as in the
-JAX default.
+JAX default. ``BFF_SAM_ABLATE`` (read on every call; timing attribution
+only, ``tools/profile_sam``) holds any of ``norelpos`` (the plain path drops
+the rel-pos bias; a global block on the rel-pos flash kernel keeps it, since
+that branch returns first, as in the JAX package), ``noattn`` (windowed
+blocks skip attention) and ``nomlp`` (every block skips its MLP).
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from beyondff_tpu_torch.models.convert_util import load_module, require_file
 from beyondff_tpu_torch.models.layers import (MLP, MLPHead, PatchEmbed, build, conv_nhwc,
                                               gelu_exact, window_partition, window_unpartition)
 from beyondff_tpu_torch.parallel.frames import data_parallel_slice, gather_frames
+from beyondff_tpu_torch.utils.host_copy import to_device
 
 PIXEL_MEAN = np.array([123.675, 116.28, 103.53], np.float32)
 PIXEL_STD = np.array([58.395, 57.12, 57.375], np.float32)
@@ -80,7 +85,7 @@ def _rel_pos_factors(q_hw, k_hw, rel_h, rel_w, q):
         coords = (np.arange(q_size)[:, None] * max(k_size / q_size, 1.0)
                   - np.arange(k_size)[None, :] * max(q_size / k_size, 1.0)
                   + (k_size - 1) * max(q_size / k_size, 1.0))
-        return rel[torch.as_tensor(coords.astype(np.int64), device=rel.device)]
+        return rel[to_device(coords.astype(np.int64), rel.device)]
 
     rh = get(rel_h, qh, kh)
     rw = get(rel_w, qw, kw)
@@ -135,7 +140,9 @@ class ViTAttention(nn.Module):
                 out = fa.attend_relpos(q, k, v, bias_h, bias_w, w)
         if out is None:
             logits = (q * hd ** -0.5) @ k.transpose(1, 2)
-            if self.use_rel_pos:
+            # BFF_SAM_ABLATE: the timing-attribution knob of tools/profile_sam,
+            # read past the kernel branches as in the JAX package
+            if self.use_rel_pos and "norelpos" not in os.environ.get("BFF_SAM_ABLATE", ""):
                 logits = logits + _rel_pos_bias((h, w), (h, w), self.rel_pos_h.to(x.dtype),
                                                 self.rel_pos_w.to(x.dtype), q)
             if self.softmax_f32:
@@ -158,15 +165,19 @@ class Block(nn.Module):
         self.mlp = MLP(d, 4 * d, activation=gelu_exact, names=("lin1", "lin2"))
 
     def forward(self, x):
+        ablate = os.environ.get("BFF_SAM_ABLATE", "")  # profiling only
         h0, w0 = x.shape[1], x.shape[2]
         shortcut = x
         x = self.norm1(x)
         if self.window_size > 0:
             x, padded = window_partition(x, self.window_size)
-        x = self.attn(x)
+        if not ("noattn" in ablate and self.window_size > 0):
+            x = self.attn(x)
         if self.window_size > 0:
             x = window_unpartition(x, self.window_size, padded, (h0, w0))
         x = shortcut + x
+        if "nomlp" in ablate:
+            return x
         return x + self.mlp(self.norm2(x))
 
 
@@ -451,8 +462,8 @@ class SAM:
         the second for frames at or above the SAM input size), but where the
         second shrinks one (a frame's long side below ``img_size``) it widens
         the triangle filter to the shrink factor, so it is on there."""
-        idx = torch.as_tensor(np.asarray(frame_idx, np.int64), device=self.device)
-        bx = torch.as_tensor(np.asarray(boxes, np.float32), device=self.device)
+        idx = to_device(np.asarray(frame_idx, np.int64), self.device)
+        bx = to_device(np.asarray(boxes, np.float32), self.device)
         low, iou = self._box_decode(embs.index_select(0, idx), bx)
         hh, ww = orig_hw
         # the upsample target follows the embedding grid: g * patch rows
@@ -492,5 +503,5 @@ def pack_bits(flat: torch.Tensor) -> torch.Tensor:
     if pad:
         flat = F.pad(flat, (0, pad))
     bits = flat.reshape(*flat.shape[:-1], -1, 8).to(torch.uint8)
-    w8 = torch.tensor([1, 2, 4, 8, 16, 32, 64, 128], dtype=torch.uint8, device=flat.device)
+    w8 = to_device(np.array([1, 2, 4, 8, 16, 32, 64, 128], np.uint8), flat.device)
     return (bits * w8).sum(-1, dtype=torch.uint8)

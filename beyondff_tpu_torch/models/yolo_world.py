@@ -33,6 +33,7 @@ from beyondff_tpu_torch.kernels import nms as _nms
 from beyondff_tpu_torch.kernels.dispatch import resolve_device
 from beyondff_tpu_torch.models.convert_util import ConversionError, load_module, require_file
 from beyondff_tpu_torch.models.layers import build
+from beyondff_tpu_torch.utils.host_copy import HostCopy, to_device
 
 
 @dataclass(frozen=True)
@@ -238,7 +239,7 @@ def _nearest(x: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
     for n_in, n_out in zip(x.shape[2:], hw):
         src = np.floor((np.arange(n_out, dtype=np.float32) + np.float32(0.5))
                        * np.float32(n_in) / np.float32(n_out)).astype(np.int64)
-        idx.append(torch.as_tensor(src, device=x.device))
+        idx.append(to_device(src, x.device))
     return x.index_select(2, idx[0]).index_select(3, idx[1])
 
 
@@ -401,14 +402,16 @@ class YOLOWorld:
                                    nms_iou: float = 0.5, feats_cache=None):
         """Detection on an uploaded uint8 frame buffer (B, h, w, 3) of any
         size, resized to the detector input on the device; the work is
-        queued on the current stream. Finish with :meth:`predict_finalize`.
+        queued on the current stream, and the packed result's download
+        (a :class:`utils.host_copy.HostCopy`) starts behind it. Finish with
+        :meth:`predict_finalize`.
 
         ``feats_cache``: optional ``(bank, key)``, the class sweep's
         per-scene bank: the backbone pyramid of this frame batch is computed
         once and stored under ``key``; later captions run only the
         text-guided half."""
         classes = [c.strip() for c in caption.rstrip(".").split(".") if c.strip()]
-        txt = torch.as_tensor(self.class_embeddings(classes), device=self.device)
+        txt = to_device(self.class_embeddings(classes), self.device)
         feats = None
         if feats_cache is not None:
             bank, key = feats_cache
@@ -418,7 +421,7 @@ class YOLOWorld:
                 feats = self.module.backbone(self._detector_input(frames_dev))
             if feats_cache is not None:
                 bank[key] = feats
-        return self._head_topk(feats, txt, nms_iou), classes
+        return HostCopy(self._head_topk(feats, txt, nms_iou).float()), classes
 
     def _row_dets(self, row, sel, classes):
         """Packed (K, 6) row + keep mask -> (normalized cxcywh, scores,
@@ -438,10 +441,10 @@ class YOLOWorld:
 
     def predict_finalize(self, handle, box_threshold: float = 0.02,
                          text_threshold: float = 0.0):
-        """Host half: one packed download + threshold. Per frame (boxes
+        """Host half: waits for the packed download + threshold. Per frame (boxes
         normalized cxcywh, scores, phrases); padding rows carry score -1."""
         packed_d, classes = handle
-        packed = packed_d.float().cpu().numpy()
+        packed = packed_d.numpy()
         return [self._row_dets(row, row[:, 0] > box_threshold, classes) for row in packed]
 
     def predict_batch(self, images, caption: str, box_threshold: float = 0.02,
@@ -453,7 +456,7 @@ class YOLOWorld:
         frames = torch.as_tensor(np.stack(images), device=self.device)
         img = _resize.resize_linear(frames, self.cfg.img_size)
         packed_d, classes = self.predict_batch_frames_async(img, caption, nms_iou)
-        packed = packed_d.float().cpu().numpy()
+        packed = packed_d.numpy()
         # NMS padding first, then the threshold, as the JAX ``predict``
         return [self._row_dets(row, (row[:, 0] >= 0) & (row[:, 0] > box_threshold), classes)
                 for row in packed]
@@ -477,7 +480,7 @@ class YOLOWorld:
         survivors whose best class is i and that clear its threshold
         (``box_threshold`` a scalar or one per span)."""
         packed_d, classes = handle
-        packed = packed_d.float().cpu().numpy()
+        packed = packed_d.numpy()
         thresholds = (list(box_threshold) if np.ndim(box_threshold)
                       else [box_threshold] * len(spans))
         if len(thresholds) != len(spans):

@@ -491,11 +491,13 @@ def run_classes(cfg: Config, class_names: Sequence[str],
     uploads to the device once and is shared by every class's lift via a
     per-scene ``depth_bank``; the query-independent per-point visibility
     totals are likewise computed once per scene and shared via a
-    ``view_bank``, so classes after the first lift only their detection
+    ``view_bank`` (``BFF_PROJ_BANK_VIEWED=0`` disables it, as in the JAX
+    package), so classes after the first lift only their detection
     frames. Per-(class, scene) checkpoints
     are identical to :func:`run`, so the two entry points resume each other's
     partial sweeps."""
     dev = resolve_device(device)
+    bank_viewed = os.environ.get("BFF_PROJ_BANK_VIEWED", "1") == "1"
     per_class_scenes: Dict[str, set] = {}
     for c in class_names:
         seg_dir = os.path.join(cfg.paths.mask_2d_dir, c)
@@ -521,7 +523,7 @@ def run_classes(cfg: Config, class_names: Sequence[str],
         if not todo:
             continue
         depth_bank: Dict = {}  # lives for this scene only
-        view_bank: Dict = {}
+        view_bank: Optional[Dict] = {} if bank_viewed else None
         for c in todo:
             results[c].append(project_scene(cfg, c, scene_id, prof=prof, depth_bank=depth_bank,
                                             view_bank=view_bank, device=dev))

@@ -49,10 +49,19 @@ and device decode on the caller's current stream, so the batch's kernels
 queue behind its copies on that one stream and need no cross-stream event.
 The records are the same with any depth and any number of workers.
 
-Batches run one after another: the JAX package's three-stage deferred flush
-gives identical records, and the port's device calls queue asynchronously on
-the CUDA stream anyway. ``BFF_SEG2D_TRACE=1`` prints each scene's
-host-blocking seconds per phase under the JAX package's phase names.
+Batches go through the JAX package's three-stage deferred completion
+(:meth:`Segmentor2D._staged`): a batch's detection, CLIP features and packed
+masks each start their download at dispatch (:class:`utils.host_copy.
+HostCopy`: a pinned buffer and a CUDA event) and are read a flush cycle
+later, with ``BFF_SEG2D_INFLIGHT`` (default 2) detection batches in flight,
+``BFF_SEG2D_DEFER`` (default 1, ``0``: same cycle) and ``BFF_SEG2D_EAGER_SAM``
+(default on), read on every call; the records are the same for every
+setting. Small host arrays on the loop's path (boxes, indices, tables)
+upload pinned and non-blocking (``host_copy.to_device``), since a blocking
+upload waits for the whole stream. ``device_frames: false`` stays serial.
+Profiler spans inside the loop hold host time only; the scene ends with one
+synchronize. ``BFF_SEG2D_TRACE=1`` prints each scene's host-blocking seconds
+per phase under the JAX package's phase names.
 """
 
 from __future__ import annotations
@@ -75,6 +84,7 @@ from beyondff_tpu_torch.kernels.dispatch import resolve_device
 from beyondff_tpu_torch.pipeline import descriptors, llm_client
 from beyondff_tpu_torch.utils import io as bio
 from beyondff_tpu_torch.utils.checkpoint import SceneCheckpoint
+from beyondff_tpu_torch.utils.host_copy import HostCopy, to_device
 from beyondff_tpu_torch.utils.prefetch import prefetch_map
 from beyondff_tpu_torch.utils.profiling import StageProfiler
 
@@ -84,6 +94,16 @@ def box_cxcywh_to_xyxy(boxes: np.ndarray, w: int, h: int) -> np.ndarray:
     cx, cy, bw, bh = boxes.T
     return np.stack(
         [(cx - bw / 2) * w, (cy - bh / 2) * h, (cx + bw / 2) * w, (cy + bh / 2) * h], axis=1)
+
+
+def _take(t: torch.Tensor, indices) -> torch.Tensor:
+    """``t[indices]`` along the first axis; the index list uploads
+    non-blocking (a list index would upload blocking, waiting for the
+    stream), and all rows in order return ``t`` itself."""
+    indices = list(indices)
+    if indices == list(range(t.shape[0])):
+        return t
+    return t.index_select(0, to_device(np.asarray(indices, np.int64), t.device))
 
 
 def _record(dets, masks) -> Dict:
@@ -192,7 +212,6 @@ class Segmentor2D:
         self.profiler: Optional[StageProfiler] = None
         self.upload_stats: Counter = Counter()
         self._stats_lock = threading.Lock()
-        self._loader = threading.local()  # .active: a prefetch thread's load
         self._trace: Optional[StageProfiler] = None  # BFF_SEG2D_TRACE phases
         self._query_embedding_cache: Dict[str, np.ndarray] = {}
 
@@ -261,24 +280,14 @@ class Segmentor2D:
             dtype=self.dtype, device=self.device))
 
     def _span(self, name: str, **items):
-        """A profiler span when a profiler is attached; device work queued
-        inside it is synchronized at its end so the span holds it. In a
-        loader thread the span holds the loader's host time only: waiting
-        there for the device would wait for the batches in flight."""
+        """A profiler span when a profiler is attached. It holds host time
+        only, as the JAX package's spans: the stage's device work runs
+        behind the host, and a fence here would put back the serial order.
+        :meth:`process_scene` synchronizes once at its end, so a span
+        around a whole scene holds its device work."""
         if self.profiler is None:
             return contextlib.nullcontext()
-        prof, dev = self.profiler, self.device
-        if getattr(self._loader, "active", False):
-            return prof.span(name, **items)
-
-        @contextlib.contextmanager
-        def cm():
-            with prof.span(name, **items):
-                yield
-                if dev.type == "cuda":
-                    torch.cuda.synchronize(dev)
-
-        return cm()
+        return self.profiler.span(name, **items)
 
     def _phase(self, name: str):
         """A ``BFF_SEG2D_TRACE`` phase: a span of the scene's own trace
@@ -320,20 +329,20 @@ class Segmentor2D:
         frame is copied to the device dense and cut there, with the same
         bytes as the JAX package's OpenCV chain on the host; crops stay on
         the device."""
-        image = torch.as_tensor(image, device=self.device)
+        image = to_device(image, self.device)
         h, w = frame_hw if frame_hw is not None else image.shape[:2]
         if self.yolo:
             src = image
-            lut = torch.as_tensor((np.arange(256, dtype=np.uint8) * 255).astype(np.uint8),
-                                  device=self.device)
+            lut = to_device((np.arange(256, dtype=np.uint8) * 255).astype(np.uint8),
+                            self.device)
             chans = None
         else:
             from beyondff_tpu_torch.models.gdino.model import IMAGE_MEAN, IMAGE_STD
 
             src = _resize.resize_linear(image, tuple(self.detector.cfg.image_size))
-            lut = torch.as_tensor(
+            lut = to_device(
                 (((np.arange(256, dtype=np.float32)[:, None] / 255.0 - IMAGE_MEAN) / IMAGE_STD)
-                 * 255).astype(np.uint8), device=self.device)
+                 * 255).astype(np.uint8), self.device)
             chans = torch.arange(3, device=self.device)
         sh, sw = src.shape[:2]
         sx, sy = sw / w, sh / h
@@ -358,54 +367,58 @@ class Segmentor2D:
             return mode == "1"
         return self.yolo and os.environ.get("BFF_SEG2D_YUV", "1") != "0"
 
-    def _clip_feats(self, crops: List[torch.Tensor]) -> np.ndarray:
-        """L2-normalized CLIP image features of uint8 crops, on the host.
-        Under :meth:`_crop_yuv` the preprocessed crops go through the
-        YCrCb round trip of the JAX package's crop upload (packed on the
-        host, unpacked on the device), so the encoder sees its pixels."""
-        with self._span("clip", crops=len(crops)):
-            with self._phase("clip_dispatch"):
-                batch = self.clip.preprocess(crops)
-                if self._crop_yuv():
-                    packed = np.stack([color.pack_ycrcb420(c) for c in batch.cpu().numpy()])
-                    feats = self.clip.encode_image_packed_yuv(packed)
-                else:
-                    feats = self.clip.encode_image(batch)
-            with self._phase("clip_wait"):
-                feats = feats.float().cpu().numpy()
-        feats /= np.linalg.norm(feats, axis=-1, keepdims=True)
-        return feats
+    def _clip_feats_dispatch(self, crops: List[torch.Tensor]) -> Tuple[HostCopy, int]:
+        """Device half of crop scoring (the JAX package's
+        ``_clip_sims_dispatch``): preprocess, encode and start the features'
+        download; returns the download and the crop count for
+        :meth:`_clip_feats_fetch`. Under :meth:`_crop_yuv` the preprocessed
+        crops go through the YCrCb round trip of the JAX package's crop
+        upload (packed on the host, unpacked on the device), so the encoder
+        sees its pixels."""
+        with self._span("clip", crops=len(crops)), self._phase("clip_dispatch"):
+            batch = self.clip.preprocess(crops)
+            if self._crop_yuv():
+                packed = np.stack([color.pack_ycrcb420(c) for c in batch.cpu().numpy()])
+                feats = self.clip.encode_image_packed_yuv(packed)
+            else:
+                feats = self.clip.encode_image(batch)
+            return HostCopy(feats.float()), len(crops)
 
-    def _device_crop_feats(self, frames: torch.Tensor, boxes: List[np.ndarray],
-                           frame_hw) -> np.ndarray:
-        """L2-normalized CLIP features of device crops (``BFF_CLIP_DEVICE_
+    def _clip_feats_fetch(self, feats: HostCopy, n: int) -> np.ndarray:
+        """Host half: wait for the download, L2-normalize on the host."""
+        with self._phase("clip_wait"):
+            out = feats.numpy()[:n].copy()
+        out /= np.linalg.norm(out, axis=-1, keepdims=True)
+        return out
+
+    def _device_crop_feats_dispatch(self, frames: torch.Tensor, boxes: List[np.ndarray],
+                                    frame_hw) -> Tuple[HostCopy, int]:
+        """:meth:`_clip_feats_dispatch` for device crops (``BFF_CLIP_DEVICE_
         CROPS``): ``boxes[i]`` cut from ``frames[i]``, the SAM-scale
         buffers."""
         with self._phase("crop_build"):
             counts = [len(bx) for bx in boxes]
             fpos = np.repeat(np.arange(len(boxes)), counts)
             boxes_cat = np.concatenate(boxes).astype(np.float32)
-        with self._span("clip", crops=len(boxes_cat)):
-            with self._phase("clip_dispatch"):
-                if self.yolo:
-                    feats, n = self.clip.encode_image_boxes(frames, fpos, boxes_cat, "yolo",
-                                                            frame_hw)
-                else:
-                    from beyondff_tpu_torch.models.gdino.model import IMAGE_MEAN, IMAGE_STD
+        with self._span("clip", crops=len(boxes_cat)), self._phase("clip_dispatch"):
+            if self.yolo:
+                feats, n = self.clip.encode_image_boxes(frames, fpos, boxes_cat, "yolo",
+                                                        frame_hw)
+            else:
+                from beyondff_tpu_torch.models.gdino.model import IMAGE_MEAN, IMAGE_STD
 
-                    feats, n = self.clip.encode_image_boxes(
-                        frames, fpos, boxes_cat, "gdino", frame_hw,
-                        det_hw=tuple(self.detector.cfg.image_size), det_mean=IMAGE_MEAN,
-                        det_std=IMAGE_STD)
-            with self._phase("clip_wait"):
-                feats = feats[:n].float().cpu().numpy()
-        feats /= np.linalg.norm(feats, axis=-1, keepdims=True)
-        return feats
+                feats, n = self.clip.encode_image_boxes(
+                    frames, fpos, boxes_cat, "gdino", frame_hw,
+                    det_hw=tuple(self.detector.cfg.image_size), det_mean=IMAGE_MEAN,
+                    det_std=IMAGE_STD)
+            return HostCopy(feats[:n].float()), n
 
     def filter_boxes_with_clip(self, image: np.ndarray, boxes_xyxy: np.ndarray, query: str):
         """Keep boxes whose crop's CLIP similarity >= threshold. Returns
         (keep_mask, similarities)."""
-        sims = self._clip_feats(self._clip_crops(image, boxes_xyxy)) @ self.query_embedding(query)
+        feats = self._clip_feats_fetch(*self._clip_feats_dispatch(
+            self._clip_crops(image, boxes_xyxy)))
+        sims = feats @ self.query_embedding(query)
         return sims >= self.cfg.detector.similarity_threshold, sims
 
     # --------------------------------------------------------- detection
@@ -434,68 +447,68 @@ class Segmentor2D:
             phrases = [phrases[i] for i in order]
         return boxes_xyxy, np.asarray(scores), phrases
 
-    def _detect_and_filter_batch(self, images, raw_dets, query, frame_hw=None, pre=None,
-                                 crop_frames: Optional[Callable] = None):
-        """Per-frame phrase filter + one batched CLIP crop scoring for the
-        frame batch + per-frame top-K. Returns (boxes_xyxy, scores, phrases)
-        or None per frame; CLIP similarities replace the detector scores.
-        ``query``: one query for the batch, or one per frame (a fused
-        replay's mixed-class batch). ``pre``: phrase-filter results already
-        computed by the caller. ``crop_frames(indices)``: the SAM-scale
-        device buffers of those frames, for device crops; without it crops
-        are cut from ``images``."""
-        d = self.cfg.detector
-        queries = [query] * len(images) if isinstance(query, str) else list(query)
-        if pre is None:
-            with self._phase("phrase_filter"):
-                pre = [self._phrase_filter(im, q, det, frame_hw)
-                       for im, q, det in zip(images, queries, raw_dets)]
-        if self.clip is None or not d.filter_with_clip:
-            return [None if p is None else self._cap_detections(p) for p in pre]
-        hit = [i for i, p in enumerate(pre) if p is not None]
-        counts = [0 if p is None else len(p[0]) for p in pre]
-        if not sum(counts):
-            return [None] * len(images)
-        if crop_frames is not None:
-            feats = self._device_crop_feats(crop_frames(hit), [pre[i][0] for i in hit], frame_hw)
-        else:
-            crops = []
-            with self._span("clip_crops", frames=len(hit)), self._phase("crop_build"):
-                for i in hit:
-                    crops.extend(self._clip_crops(images[i], pre[i][0], frame_hw))
-            feats = self._clip_feats(crops)
-        with self._phase("filter_apply"):
-            # one product per distinct query over the whole batch
-            sims_by_query = {q: feats @ self.query_embedding(q)
-                             for q, p in zip(queries, pre) if p is not None}
-            out, off = [], 0
-            for p, n, q in zip(pre, counts, queries):
-                if p is None:
-                    out.append(None)
-                    continue
-                boxes_xyxy, _scores, phrases = p
-                sims = sims_by_query[q][off:off + n]
-                off += n
-                keep = sims >= d.similarity_threshold
-                out.append(None if not keep.any() else self._cap_detections(
-                    (boxes_xyxy[keep], sims[keep], [ph for ph, k in zip(phrases, keep) if k])))
+    def _filter_apply(self, pre, idx, feats, counts, queries) -> Dict[int, tuple]:
+        """The CLIP filter on one batch: ``feats`` holds the crops of the
+        frames ``idx`` (``counts`` each) in order; one product per distinct
+        query over the whole batch, then per frame the kept boxes with the
+        similarities as their scores, capped. Returns {frame: detections}
+        for the frames that keep a box."""
+        sims_by_query = {q: feats @ self.query_embedding(q)
+                         for q in dict.fromkeys(queries[i] for i in idx)}
+        out, off = {}, 0
+        for i, n in zip(idx, counts):
+            boxes_xyxy, _scores, phrases = pre[i]
+            sims = sims_by_query[queries[i]][off:off + n]
+            off += n
+            keep = sims >= self.cfg.detector.similarity_threshold
+            if keep.any():
+                out[i] = self._cap_detections(
+                    (boxes_xyxy[keep], sims[keep], [ph for ph, k in zip(phrases, keep) if k]))
         return out
 
-    def _decode_masks(self, embs, dets: List, input_hw, orig_hw) -> List[np.ndarray]:
-        """Every box of the batch in one SAM decode, bit-packed on the device,
-        one download, unpacked to dense (M, H, W) bool per frame."""
-        h, w = orig_hw
+    def _detect_and_filter_batch(self, images, raw_dets, query):
+        """Host path: per-frame phrase filter + one batched CLIP crop scoring
+        for the frame batch + per-frame top-K. Returns (boxes_xyxy, scores,
+        phrases) or None per frame; CLIP similarities replace the detector
+        scores."""
+        d = self.cfg.detector
+        queries = [query] * len(images)
+        with self._phase("phrase_filter"):
+            pre = [self._phrase_filter(im, query, det) for im, det in zip(images, raw_dets)]
+        if self.clip is None or not d.filter_with_clip:
+            return [None if p is None else self._cap_detections(p) for p in pre]
+        idx = [i for i, p in enumerate(pre) if p is not None]
+        if not idx:
+            return [None] * len(images)
+        crops = []
+        with self._span("clip_crops", frames=len(idx)), self._phase("crop_build"):
+            for i in idx:
+                crops.extend(self._clip_crops(images[i], pre[i][0]))
+        feats = self._clip_feats_fetch(*self._clip_feats_dispatch(crops))
+        with self._phase("filter_apply"):
+            kept = self._filter_apply(pre, idx, feats, [len(pre[i][0]) for i in idx], queries)
+        return [kept.get(i) for i in range(len(images))]
+
+    def _decode_masks_dispatch(self, embs, dets: List, input_hw,
+                               orig_hw) -> Tuple[HostCopy, List[int]]:
+        """Device half of the batched box decode: every box of the batch in
+        one SAM decode, bit-packed on the device, and the one download of
+        the batch started. Returns (the download, boxes per frame)."""
         sizes = [bx.shape[0] for bx, _s, _p in dets]
         frame_idx = np.repeat(np.arange(len(dets)), sizes)
         boxes = np.concatenate([self.sam.transform_boxes(bx, orig_hw) for bx, _s, _p in dets])
-        with self._span("sam_decode", boxes=len(boxes)):
-            with self._phase("decode_dispatch"):
-                packed, _iou = self.sam.decode_boxes_packed(embs, frame_idx, boxes, input_hw,
-                                                            orig_hw)
-            with self._phase("decode_wait"):
-                flat = packed.cpu().numpy()
+        with self._span("sam_decode", boxes=len(boxes)), self._phase("decode_dispatch"):
+            packed, _iou = self.sam.decode_boxes_packed(embs, frame_idx, boxes, input_hw,
+                                                        orig_hw)
+            return HostCopy(packed), sizes
+
+    def _decode_masks_fetch(self, packed: HostCopy, sizes: List[int],
+                            orig_hw) -> List[np.ndarray]:
+        """Host half: wait for the packed download, unpack to dense (M, H, W)
+        bool per frame."""
+        h, w = orig_hw
         with self._phase("decode_wait"):
-            masks = np.unpackbits(flat, axis=-1, bitorder="little")[:, :h * w]
+            masks = np.unpackbits(packed.numpy(), axis=-1, bitorder="little")[:, :h * w]
             out, off = [], 0
             for m in sizes:
                 out.append(masks[off:off + m].reshape(m, h, w).astype(bool))
@@ -544,7 +557,11 @@ class Segmentor2D:
         frame loads and encodes once (``frame_bank`` required), each entry's
         crops score against its own class. Returns ``{class: [records]}``.
 
-        ``box_threshold`` overrides ``detector.box_threshold`` for this pass."""
+        ``box_threshold`` overrides ``detector.box_threshold`` for this pass.
+
+        On the device path the batches go through the JAX package's
+        three-stage deferred completion (see :meth:`_staged`); the records
+        are the same for every setting of its variables."""
         p = self.cfg.paths
         d = self.cfg.detector
         box_thr = d.box_threshold if box_threshold is None else box_threshold
@@ -568,73 +585,31 @@ class Segmentor2D:
             entries = frame_ids
         by_class: Dict[str, List[Dict]] = {c: [] for c in override_groups} if group else {}
         records: List[Dict] = []
-        bank_emb = (frame_bank is not None and d.device_frames
-                    and os.environ.get("BFF_SEG2D_BANK_EMB", "1") != "0")
+
+        def emit(chunk, fids, batch):
+            with self._phase("emit"):
+                for e, f, (dets, masks) in zip(chunk, fids, batch):
+                    if dets is not None:
+                        (by_class[e[1]] if group else records).append(
+                            {"frame_id": f"{f}.jpg", **_record(dets, masks)})
+
         tp = self._transport(scene_id, size, frame_hw, frame_bank, replay) \
             if d.device_frames else None
         bsz = max(1, d.frame_batch)
         chunks = [entries[i:i + bsz] for i in range(0, len(entries), bsz)]
         self._trace = StageProfiler("seg2d_trace") if os.environ.get("BFF_SEG2D_TRACE") \
             else None
-        for chunk, loaded, ctp in self._prefetched(chunks, group, tp, scene_id, size,
-                                                   frame_bank):
-            fids = [e[0] for e in chunk] if group else chunk
-            queries = [e[1] for e in chunk] if group else query
-            if not d.device_frames:
-                batch = self._host_batch(loaded, query, box_thr)
+        with contextlib.closing(self._prefetched(chunks, group, tp, scene_id, size,
+                                                 frame_bank)) as batches:
+            if d.device_frames:
+                self._staged(batches, query, frame_hw, frame_bank, box_thr, demux,
+                             detections_override, override_groups, emit)
             else:
-                frames, hosts = loaded
-                if ctp.two_tier:
-                    input_hw = ctp.sam_hw
-                    sam_bufs: Dict[str, torch.Tensor] = {}
-
-                    def sam_input(indices, fids=fids, frames=frames, hosts=hosts,
-                                  sam_bufs=sam_bufs, ctp=ctp):
-                        todo = [i for i in indices if fids[i] not in sam_bufs]
-                        if todo:
-                            with self._phase("sam_upload"):
-                                sam_bufs.update(self._sam_frames(fids, todo, frames, hosts,
-                                                                 ctp))
-                        return torch.stack([sam_bufs[fids[i]] for i in indices])
-                else:
-                    input_hw = tuple(frames.shape[1:3])
-
-                    def sam_input(indices, frames=frames):
-                        return frames[indices]
-
-                def encode(indices, fids=fids, sam_input=sam_input):
-                    with self._phase("sam_encode_dispatch"):
-                        return self._encode(fids, indices, sam_input, frame_bank, bank_emb,
-                                            group)
-
-                if replay:
-                    raw = [override_groups[c][f] for f, c in chunk] if group else \
-                        [detections_override[f] for f in fids]
-                else:
-                    with self._span("detect", frames=len(fids)):
-                        with self._phase("det_dispatch"):
-                            det_in = self._detector_input(frames) if ctp.key == "raw" \
-                                else frames
-                            handle = self._detect(det_in, query, fids, frame_bank)
-                        with self._phase("det_finalize"):
-                            if demux is not None:
-                                hits = self._demux(handle, fids, demux, box_thr)
-                            else:
-                                raw = self.detector.predict_finalize(
-                                    handle, box_threshold=box_thr,
-                                    text_threshold=d.text_threshold)
-                    if demux is not None:
-                        if hits and bank_emb:
-                            with self._span("sam_encode", frames=len(hits)):
-                                encode(hits)
-                        continue
-                batch = self._device_batch(hosts, input_hw, raw, queries, frame_hw, encode,
-                                           sam_input if ctp.device_crops else None)
-            with self._phase("emit"):
-                for e, f, (dets, masks) in zip(chunk, fids, batch):
-                    if dets is not None:
-                        (by_class[e[1]] if group else records).append(
-                            {"frame_id": f"{f}.jpg", **_record(dets, masks)})
+                for chunk, loaded, _ctp in batches:  # the JAX package's flush_host
+                    emit(chunk, chunk, self._host_batch(loaded, query, box_thr))
+        if self.device.type == "cuda":
+            # the scene's time holds its device work: the scene span ends here
+            torch.cuda.synchronize(self.device)
         if self._trace is not None:
             phases = self._trace.durations
             total = sum(phases.values())
@@ -644,6 +619,169 @@ class Segmentor2D:
                   f"({len(frame_ids)} frames): {parts}", flush=True)
         self._trace = None
         return by_class if group else records
+
+    def _staged(self, batches, query, frame_hw, frame_bank, box_thr, demux,
+                detections_override, override_groups, emit):
+        """The JAX package's three-stage deferred completion over the loaded
+        batches (``segmentation_2d.py``'s ``flush_device``).
+
+        ``dispatch_detection`` queues a batch's detection and the start of
+        its download (:class:`utils.host_copy.HostCopy`) into ``pending``;
+        ``stage_a`` finalizes the oldest one (phrase filter, the eager SAM
+        encode, crop build and CLIP dispatch with its download started; or
+        the demux) into ``bq``; ``stage_b`` waits for the CLIP features,
+        applies the filter and the cap and dispatches the mask decode with
+        its download into ``cq``; ``stage_c`` waits for the masks and emits.
+        Every wait is on the download's own event. After each loaded batch
+        the stages run while more than ``BFF_SEG2D_INFLIGHT`` (default 2)
+        detections are pending and more than ``BFF_SEG2D_DEFER`` (default
+        1; ``0``: same cycle) results wait in ``bq`` and ``cq``; the tail
+        drains in order. ``BFF_SEG2D_EAGER_SAM`` (default on) encodes every
+        frame with phrase-filtered boxes before the CLIP filter, so the card
+        runs the encoder while the host builds crops; ``0`` filters first
+        and encodes only frames that keep a box. Stages run in batch order,
+        so the records are those of the serial order, for every setting."""
+        d = self.cfg.detector
+        group = override_groups is not None
+        bank_emb = (frame_bank is not None
+                    and os.environ.get("BFF_SEG2D_BANK_EMB", "1") != "0")
+        filter_clip = self.clip is not None and d.filter_with_clip
+        eager_sam = os.environ.get("BFF_SEG2D_EAGER_SAM", "1") != "0"
+        inflight = int(os.environ.get("BFF_SEG2D_INFLIGHT", "2"))
+        defer = int(os.environ.get("BFF_SEG2D_DEFER", "1") or 1)
+        pending: List = []  # detection dispatched, awaiting finalize
+        bq: List = []  # awaiting CLIP features -> decode dispatch
+        cq: List = []  # awaiting packed-mask download -> emit
+
+        def dispatch_detection(chunk, loaded, ctp):
+            fids = [e[0] for e in chunk] if group else chunk
+            frames, hosts = loaded
+            if ctp.two_tier:
+                input_hw = ctp.sam_hw
+                sam_bufs: Dict[str, torch.Tensor] = {}
+
+                def sam_upload(indices):
+                    todo = [i for i in indices if fids[i] not in sam_bufs]
+                    if todo:
+                        with self._phase("sam_upload"):
+                            sam_bufs.update(self._sam_frames(fids, todo, frames, hosts, ctp))
+
+                def sam_input(indices):
+                    sam_upload(indices)
+                    return torch.stack([sam_bufs[fids[i]] for i in indices])
+            else:
+                input_hw = tuple(frames.shape[1:3])
+
+                def sam_upload(indices):
+                    pass
+
+                def sam_input(indices):
+                    return _take(frames, indices)
+
+            def encode(indices):
+                with self._span("sam_encode", frames=len(indices)), \
+                        self._phase("sam_encode_dispatch"):
+                    return self._encode(fids, indices, sam_input, frame_bank, bank_emb, group)
+
+            handle = None
+            if not (group or detections_override is not None):
+                with self._span("detect", frames=len(fids)), self._phase("det_dispatch"):
+                    det_in = self._detector_input(frames) if ctp.key == "raw" else frames
+                    handle = self._detect(det_in, query, fids, frame_bank)
+            pending.append((chunk, fids, hosts, ctp, input_hw, sam_upload, sam_input, encode,
+                            handle))
+
+        def stage_a():
+            batch = pending.pop(0)
+            try:
+                _stage_a(*batch)
+            finally:
+                # native JXT frames only serve this batch's SAM-scale buffers
+                batch[3].native.clear()
+
+        def _stage_a(chunk, fids, hosts, ctp, input_hw, sam_upload, sam_input, encode, handle):
+            if demux is not None:
+                with self._phase("det_finalize"):
+                    hits = self._demux(handle, fids, demux, box_thr)
+                if hits and bank_emb:
+                    encode(hits)
+                return
+            with self._phase("det_finalize"):
+                if group:
+                    raw = [override_groups[c][f] for f, c in chunk]
+                elif handle is None:
+                    raw = [detections_override[f] for f in fids]
+                else:
+                    raw = self.detector.predict_finalize(handle, box_threshold=box_thr,
+                                                         text_threshold=d.text_threshold)
+            queries = [e[1] for e in chunk] if group else [query] * len(chunk)
+            with self._phase("phrase_filter"):
+                pre = [self._phrase_filter(None, q, det, frame_hw)
+                       for q, det in zip(queries, raw)]
+            idx = [i for i, pr in enumerate(pre) if pr is not None]
+            if not idx:
+                return
+            # two-tier: frames with boxes get their SAM-scale buffers now,
+            # while the batch's native JXT frames are still held
+            sam_upload(idx)
+            embs = encode(idx) if eager_sam else None
+            feats = n_crops = counts = None
+            if filter_clip:
+                counts = [len(pre[i][0]) for i in idx]
+                if ctp.device_crops:
+                    feats, n_crops = self._device_crop_feats_dispatch(
+                        sam_input(idx), [pre[i][0] for i in idx], frame_hw)
+                else:
+                    crops = []
+                    with self._span("clip_crops", frames=len(idx)), self._phase("crop_build"):
+                        for i in idx:
+                            crops.extend(self._clip_crops(hosts[i], pre[i][0], frame_hw))
+                    feats, n_crops = self._clip_feats_dispatch(crops)
+            bq.append((chunk, fids, input_hw, encode, idx, pre, queries, embs, feats, n_crops,
+                       counts))
+
+        def stage_b():
+            (chunk, fids, input_hw, encode, idx, pre, queries, embs, feats, n_crops,
+             counts) = bq.pop(0)
+            if feats is not None:
+                feats = self._clip_feats_fetch(feats, n_crops)
+                with self._phase("filter_apply"):
+                    dets_by_i = self._filter_apply(pre, idx, feats, counts, queries)
+            else:
+                dets_by_i = {i: self._cap_detections(pre[i]) for i in idx}
+            kept = [i for i in idx if i in dets_by_i]
+            if not kept:
+                return
+            if embs is None:
+                embs = encode(kept)
+            elif len(kept) < len(idx):
+                # a frame the CLIP filter emptied has paid its eager encode
+                # but leaves the decode batch
+                embs = _take(embs, [j for j, i in enumerate(idx) if i in dets_by_i])
+            packed, sizes = self._decode_masks_dispatch(embs, [dets_by_i[i] for i in kept],
+                                                        input_hw, frame_hw)
+            cq.append((chunk, fids, kept, dets_by_i, packed, sizes))
+
+        def stage_c():
+            chunk, fids, kept, dets_by_i, packed, sizes = cq.pop(0)
+            masks = dict(zip(kept, self._decode_masks_fetch(packed, sizes, frame_hw)))
+            emit(chunk, fids, [(dets_by_i[i], masks[i]) if i in masks else (None, None)
+                               for i in range(len(chunk))])
+
+        for chunk, loaded, ctp in batches:  # flush_device
+            dispatch_detection(chunk, loaded, ctp)
+            if len(pending) > inflight:
+                stage_a()
+            while len(bq) > defer:
+                stage_b()
+            while len(cq) > defer:
+                stage_c()
+        while pending:
+            stage_a()
+        while bq:
+            stage_b()
+        while cq:
+            stage_c()
 
     def _prefetched(self, chunks, group: bool, tp: Optional[_Transport], scene_id, size,
                     frame_bank):
@@ -662,16 +800,12 @@ class Segmentor2D:
 
         def load(chunk):
             fids = [e[0] for e in chunk] if group else chunk
-            self._loader.active = True
-            try:
-                with (torch.cuda.stream(stream) if stream is not None
-                      else contextlib.nullcontext()):
-                    if tp is None:
-                        return chunk, self._host_frames(scene_id, fids, size, frame_bank), None
-                    ctp = replace(tp, native={})
-                    return chunk, self._device_frames(fids, ctp), ctp
-            finally:
-                self._loader.active = False
+            with (torch.cuda.stream(stream) if stream is not None
+                  else contextlib.nullcontext()):
+                if tp is None:
+                    return chunk, self._host_frames(scene_id, fids, size, frame_bank), None
+                ctp = replace(tp, native={})
+                return chunk, self._device_frames(fids, ctp), ctp
 
         it = prefetch_map(load, chunks, depth=max(1, depth // bsz), workers=workers)
         try:
@@ -764,7 +898,7 @@ class Segmentor2D:
             hosts = dict(zip(uniq, frames))
         if uniq != list(fids):
             pos = {f: i for i, f in enumerate(uniq)}
-            frames = frames[[pos[f] for f in fids]]
+            frames = _take(frames, [pos[f] for f in fids])
         return frames, [hosts[f] for f in fids]
 
     def _load_imgs(self, fids, tp: _Transport, bank_img: bool = True) -> List[np.ndarray]:
@@ -1040,51 +1174,27 @@ class Segmentor2D:
                 return fresh
         return torch.stack([cached[i] for i in indices])
 
-    def _device_batch(self, hosts, input_hw, raw, queries, frame_hw, encode, crop_frames):
-        """Device-frames path for one batch of detections: phrase filter,
-        SAM encode of the frames with boxes (before the CLIP filter, as the
-        JAX package's eager encode), CLIP filter on crops of ``hosts`` or,
-        with ``crop_frames``, of the SAM-scale device buffers, SAM decode at
-        ``input_hw``. Returns (detections, masks) per frame."""
-        qs = [queries] * len(hosts) if isinstance(queries, str) else queries
-        with self._phase("phrase_filter"):
-            pre = [self._phrase_filter(None, q, det, frame_hw) for q, det in zip(qs, raw)]
-        idx = [i for i, pr in enumerate(pre) if pr is not None]
-        if not idx:
-            return [(None, None)] * len(hosts)
-        with self._span("sam_encode", frames=len(idx)):
-            embs = encode(idx)
-        dets = self._detect_and_filter_batch(hosts, raw, queries, frame_hw, pre=pre,
-                                             crop_frames=crop_frames)
-        pos = [j for j, i in enumerate(idx) if dets[i] is not None]
-        return self._with_masks(dets, embs[pos], input_hw, frame_hw)
-
     def _host_batch(self, images, query, box_threshold):
         """``detector.device_frames: false``: the reference's per-model host
-        resize chain (detector input from the full-resolution frame)."""
+        resize chain (detector input from the full-resolution frame), one
+        batch start to finish. Returns (detections, masks) per frame."""
         d = self.cfg.detector
         with self._span("detect", frames=len(images)):
             raw = self.detector.predict_batch(images, query, box_threshold=box_threshold,
                                               text_threshold=d.text_threshold)
         dets = self._detect_and_filter_batch(images, raw, query)
         kept = [i for i, f in enumerate(dets) if f is not None]
+        out = [(None, None)] * len(images)
         if not kept:
-            return [(None, None)] * len(images)
+            return out
         with self._span("sam_encode", frames=len(kept)):
             frames, input_hw = self.sam.scale_frames(
                 torch.as_tensor(np.stack([images[i] for i in kept]), device=self.device))
             embs = self.sam.encode_frames(frames)
-        return self._with_masks(dets, embs, input_hw, images[0].shape[:2])
-
-    def _with_masks(self, dets, embs, input_hw, frame_hw):
-        """Decode the kept frames' boxes (``embs`` holds their embeddings in
-        frame order) and pair each frame's detections with its masks."""
-        kept = [i for i, f in enumerate(dets) if f is not None]
-        out = [(None, None)] * len(dets)
-        if kept:
-            masks = self._decode_masks(embs, [dets[i] for i in kept], input_hw, frame_hw)
-            for i, m in zip(kept, masks):
-                out[i] = (dets[i], m)
+        masks = self._decode_masks_fetch(*self._decode_masks_dispatch(
+            embs, [dets[i] for i in kept], input_hw, images[0].shape[:2]), images[0].shape[:2])
+        for i, m in zip(kept, masks):
+            out[i] = (dets[i], m)
         return out
 
 

@@ -27,15 +27,13 @@ JSON line.
 """
 
 import argparse
-import contextlib
 import json
-import os
-import time
 
 import numpy as np
 import torch
 
 from beyondff_tpu_torch.kernels.dispatch import resolve_device
+from beyondff_tpu_torch.tools.profile_common import env_set, time_ms
 
 FRAME_HW = (968, 1296)  # ScanNet's color frames
 # box prompts in padded-square pixels of a 1024 px input (the JAX tool's)
@@ -43,43 +41,9 @@ BOXES_1024 = np.array([[100, 80, 600, 500], [300, 200, 900, 700],
                        [50, 50, 200, 300], [400, 100, 1000, 760]], np.float32)
 
 
-@contextlib.contextmanager
 def rect_mode(on: bool):
     """``BFF_SAM_RECT`` set to ``1`` or ``0`` inside the block, restored after."""
-    old = os.environ.get("BFF_SAM_RECT")
-    os.environ["BFF_SAM_RECT"] = "1" if on else "0"
-    try:
-        yield
-    finally:
-        if old is None:
-            os.environ.pop("BFF_SAM_RECT", None)
-        else:
-            os.environ["BFF_SAM_RECT"] = old
-
-
-def time_ms(fn, iters: int, dev: torch.device) -> float:
-    """Milliseconds a call of ``fn``: CUDA events around ``iters`` calls on
-    the card (after a warm-up call), the host clock on the CPU; the best of
-    two rounds."""
-    fn()
-    best = None
-    for _ in range(2):
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            start.record()
-            for _ in range(iters):
-                fn()
-            end.record()
-            end.synchronize()
-            ms = start.elapsed_time(end) / iters
-        else:
-            t0 = time.perf_counter()
-            for _ in range(iters):
-                fn()
-            ms = (time.perf_counter() - t0) * 1e3 / iters
-        best = ms if best is None else min(best, ms)
-    return best
+    return env_set("BFF_SAM_RECT", "1" if on else "0")
 
 
 def scale_attention_temperature(module, t: float):

@@ -82,8 +82,8 @@ Phases (each one's failure ends the run with a non-zero exit):
    300-frame fixture, equal to ``core.geometry``'s;
 10. the native runtime against numpy / OpenCV, each transport against its
    dense path, and the fast variant's ``run()`` with the JAX package's
-   transport defaults against every transport off (hit and miss, two
-   rounds), and projection with ``BFF_DEPTH_PACK`` 1 and 0;
+   transport defaults against every transport off (hit and miss, one
+   round), and projection with ``BFF_DEPTH_PACK`` 1 and 0;
 11. the rect encode (``tools/measure_sam_rect.py`` on SAM ViT-H with
    ``BFF_SAM_RELPOS_FLASH=1`` and on EfficientSAM-S, bf16, a batch of 4
    968x1296 frames: encoder ms square against rect, embedding deviation,
@@ -98,6 +98,21 @@ Phases (each one's failure ends the run with a non-zero exit):
    every kernel launched); projection, ``predict_batch`` and
    ``encode_frames`` inside ``shard_frames`` over a one-rank NCCL group
    against no group.
+12. the deferred seg2d pipeline at full width on 24 frames (``frame_batch``
+   4, six batches): phase 4's loaded classic models in the hit regime
+   under (``BFF_SEG2D_INFLIGHT``, ``BFF_SEG2D_DEFER``,
+   ``BFF_SEG2D_EAGER_SAM``) = (1, 0, 1), the serial order, and (2, 1, 1),
+   the JAX default, two alternating rounds; phase 8's fast variant on 24
+   baseline JPEGs (JXT) in the hit and miss regimes under (1, 0, 1),
+   (2, 1, 1), (2, 1, 0) and (3, 2, 1); launch counts set to 0 before each
+   timed run; every run of a regime writes byte-equal records; one more
+   pass of each setting under ``torch.profiler`` and
+   ``torch.cuda.set_sync_debug_mode("warn")`` gives the device's busy
+   share and the synchronizing calls per batch with their call sites. Then
+   the five profiling CLIs at full width (``tools/profile_models``,
+   ``profile_sam`` with ``BFF_SAM_ABLATE`` and the global blocks' branch,
+   ``profile_gdino_blocks``, ``profile_enhancer``,
+   ``measure_depth_decimation``), a few iterations each.
 
 Phase 2 also holds the mask-IoU kernel bit for bit against its plain version
 at the aggregation's (600, 250 000) self-IoU and refinement's (20 x 150,
@@ -1305,9 +1320,15 @@ def full_width_sweep(torch, mods, Config, work, dev, models):
               "device_busy_share": busy_us / 1e6 / span["s"], "device_events": events,
               "top_device_ms": [[name[:120], n, us / 1e3] for name, (n, us) in top]})
 
-        # the SAM encode with the rel-pos flash kernel off and on, in turns
+        # the SAM encode with the rel-pos flash kernel off and on, in turns:
+        # the scene for the launches, the encoder on a batch of FRAME_BATCH
+        # of its frames for the time (CUDA events; the stage's spans hold
+        # host time only)
         cfg = cfgs["run_per_class"]
         seg = segmentor(cfg)
+        batch, _hw = sam.scale_frames(torch.as_tensor(np.stack(
+            [synthetic_frame(f"{i}.jpg", FRAME_HW[::-1]) for i in range(FRAME_BATCH)]),
+            device=dev))
         ab = []
         for flag in ("0", "1", "1", "0"):
             if flag == "1":
@@ -1321,9 +1342,10 @@ def full_width_sweep(torch, mods, Config, work, dev, models):
                 seg.process_scene("scene0000_00", "clothes")
             finally:
                 seg.profiler = None
-            ab.append({"BFF_SAM_RELPOS_FLASH": flag, "sam_encode_s": prof.durations["sam_encode"],
-                       "frames": prof.items["sam_encode.frames"],
-                       "relpos_launches": dispatch.launch_counts["flash_attention_relpos"]})
+            ab.append({"BFF_SAM_RELPOS_FLASH": flag, "frames": prof.items["sam_encode.frames"],
+                       "relpos_launches": dispatch.launch_counts["flash_attention_relpos"],
+                       "encode_ms_batch": cuda_ms(torch, lambda: sam.encode_frames(batch), 3),
+                       "batch": FRAME_BATCH})
             check((ab[-1]["relpos_launches"] > 0) == (flag == "1"),
                   f"rel-pos launches {ab[-1]['relpos_launches']} with the flag {flag}")
         emit({"phase": "sam_encode_ab", "runs": ab})
@@ -2024,6 +2046,10 @@ def training_and_parallel(torch, mods, work, root3d, dev):
 # ------------------------------------------------------------ the transports
 TRANSPORTS_OFF = {"BFF_SEG2D_YUV": "0", "BFF_CLIP_DEVICE_CROPS": "0", "BFF_SEG2D_JXT": "0",
                   "BFF_SEG2D_BATCH_UPLOAD": "0"}
+# the transports' A/B and the prefetch rounds: one each, to keep the run's
+# time with phase 12
+SEG2D_AB_ROUNDS = 1
+PREFETCH_ROUNDS = 1
 JPEG_NOISE = 4  # levels of noise in phase 10's JPEG frames (JXT's guard takes them)
 N_CROPS = 512
 
@@ -2328,7 +2354,7 @@ def seg2d_ab(torch, mods, dev, seg, cfg, work):
         one(v, "hit")
     launches.clear()
     round_s = []
-    for rnd in range(2):
+    for rnd in range(SEG2D_AB_ROUNDS):
         t_round = time.perf_counter()
         order = list(variants) if rnd == 0 else list(variants)[::-1]
         for regime in regimes:
@@ -2518,8 +2544,8 @@ def prefetch_phase(torch, mods, seg, cfg, work, card):
     """The fast variant's ``run()`` in the hit regime on phase 10's JPEG
     scene with the frame prefetch off (``prefetch_map`` replaced by in-order
     loads in the scene loop's thread), on with one loader thread and on with
-    four (``BFF_SEG2D_WORKERS``), over two rounds in turns after a warm-up:
-    the ``.pth`` bytes equal across every run, frames/s each."""
+    four (``BFF_SEG2D_WORKERS``), ``PREFETCH_ROUNDS`` rounds in turns after a
+    warm-up: the ``.pth`` bytes equal across every run, frames/s each."""
     seg2d, dispatch, StageProfiler = mods
     runs, blobs = {"off": [], "1": [], "4": []}, set()
     prefetch_map = seg2d.prefetch_map
@@ -2546,7 +2572,7 @@ def prefetch_phase(torch, mods, seg, cfg, work, card):
                 "upload_s": prof.durations.get("upload", 0.0)}
 
     one("1")
-    for order in (("off", "1", "4"), ("4", "1", "off")):
+    for order in (("off", "1", "4"), ("4", "1", "off"))[:PREFETCH_ROUNDS]:
         for w in order:
             runs[w].append(one(w))
     emit({"phase": "seg2d_prefetch", "card": card, "frames": N_FRAMES,
@@ -2682,6 +2708,204 @@ def phase11(torch, mods, Config, work, tmp, dev, fast_seg, fast_cfg, card, detec
     del sam
     torch.cuda.empty_cache()
     emit({"phase": "phase11", "seconds": time.perf_counter() - t0})
+
+
+# ------------------------------------------ phase 12: the deferred seg2d pipeline
+SCHED_VARS = ("BFF_SEG2D_INFLIGHT", "BFF_SEG2D_DEFER", "BFF_SEG2D_EAGER_SAM")
+P12_FRAMES = 24  # six batches of FRAME_BATCH: the pipeline reaches a steady state
+CLASSIC_SETTINGS = ((1, 0, 1), (2, 1, 1))  # the serial order, the JAX default
+FAST_SETTINGS = ((1, 0, 1), (2, 1, 1), (2, 1, 0), (3, 2, 1))
+
+
+def sync_counted(torch, fn):
+    """(result, synchronizing calls, their top call sites) of ``fn()`` under
+    ``torch.cuda.set_sync_debug_mode("warn")``, which warns at every call
+    that waits for a stream (blocking copies, ``.item()``, ``nonzero``);
+    an event wait is not one."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [w for w in caught if "synchroniz" in str(w.message).lower()]
+    sites = {}
+    for w in syncs:
+        key = f"{os.path.relpath(w.filename, REPO)}:{w.lineno}"
+        sites[key] = sites.get(key, 0) + 1
+    return out, len(syncs), sorted(sites.items(), key=lambda kv: -kv[1])[:8]
+
+
+def records_digest(records):
+    """A digest of a scene's records: frame ids, labels, the confidences'
+    and the bit-packed masks' bytes."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for r in records:
+        h.update(r["frame_id"].encode())
+        h.update("\0".join(r["labels"]).encode())
+        h.update(np.asarray(r["confidences"], np.float64).tobytes())
+        masks = np.asarray(r["segmented_frame_masks"], bool)
+        h.update(str(masks.shape).encode())
+        h.update(np.packbits(masks).tobytes())
+    return h.hexdigest()
+
+
+def scheduler_ab(torch, dispatch, seg, cfg, scene, variant, settings, regimes, rounds):
+    """``Segmentor2D.process_scene`` on ``scene`` (``run()``'s ``scene``
+    span: it ends synchronized) under each (``BFF_SEG2D_INFLIGHT``,
+    ``BFF_SEG2D_DEFER``, ``BFF_SEG2D_EAGER_SAM``) setting and regime
+    (``box_threshold``), alternating the settings' order over ``rounds``
+    after one warm-up, launch counts set to 0 just before each timed run;
+    then one pass of each under ``torch.profiler``, the sync debug mode and
+    ``BFF_SEG2D_TRACE`` for the device's busy share, the synchronizing calls
+    per batch and the host's blocking milliseconds per phase. The records
+    must be byte-equal across every unprofiled run of a regime."""
+    n_batches = -(-P12_FRAMES // cfg.detector.frame_batch)
+    digests = {}
+
+    def one(setting, regime, profiled=False):
+        c = cfg.override(**{"detector.box_threshold": regimes[regime]})
+        old, seg.cfg = seg.cfg, c  # the segmentor reads its thresholds from its config
+        try:
+            env = dict(zip(SCHED_VARS, map(str, setting)))
+
+            def fn():
+                return with_env(env, lambda: timed(
+                    torch, lambda: seg.process_scene(scene, "clothes")))
+            if profiled:
+                import contextlib
+                import io as pyio
+
+                box, buf = {}, pyio.StringIO()
+                env["BFF_SEG2D_TRACE"] = "1"  # the host-blocking seconds per phase
+                with contextlib.redirect_stdout(buf):
+                    busy_us, events, _ = device_activity(
+                        torch, lambda: box.update(zip(("res", "n", "sites"),
+                                                      sync_counted(torch, fn))))
+                records, scene_s = box["res"]
+                trace = [ln.split("frames): ", 1)[1] for ln in buf.getvalue().splitlines()
+                         if ln.startswith("# seg2d host trace")]
+                check(len(trace) == 1, "no seg2d host trace line")
+                host_ms = {k: float(v[:-2]) for k, v in
+                           (kv.split("=") for kv in trace[0].split())}
+            else:
+                dispatch.reset_launch_counts()
+                records, scene_s = fn()
+                launches = {k: v for k, v in dispatch.launch_counts.items() if v}
+        finally:
+            seg.cfg = old
+        if not profiled:
+            digests.setdefault(regime, set()).add(records_digest(records))
+        out = {"scene_seconds": scene_s, "frames_per_sec": P12_FRAMES / scene_s,
+               "frames_with_boxes": len(records)}
+        if profiled:
+            out.update({"device_busy_share": busy_us / 1e6 / scene_s,
+                        "device_busy_ms": busy_us / 1e3, "device_events": events,
+                        "sync_calls": box["n"], "sync_calls_per_batch": box["n"] / n_batches,
+                        "sync_sites": box["sites"], "host_trace_ms": host_ms})
+        else:
+            out["launches"] = launches
+        return out
+
+    runs = {(r, st): [] for r in regimes for st in settings}
+    one(settings[-1], next(iter(regimes)))  # warm-up
+    for rnd in range(rounds):
+        for regime in regimes:
+            for st in (settings if rnd % 2 == 0 else settings[::-1]):
+                runs[(regime, st)].append(one(st, regime))
+    profiled = {(r, st): one(st, r, profiled=True) for r in regimes for st in settings}
+    for regime in regimes:
+        check(len(digests[regime]) == 1,
+              f"{variant} {regime}: records differ across scheduler settings or runs")
+    rows = []
+    for (regime, st), timed_runs in runs.items():
+        rows.append({"regime": regime, **dict(zip(SCHED_VARS, st)),
+                     "frames_per_sec": [r["frames_per_sec"] for r in timed_runs],
+                     "scene_seconds": [r["scene_seconds"] for r in timed_runs],
+                     "frames_with_boxes": timed_runs[0]["frames_with_boxes"],
+                     "launches": timed_runs[0]["launches"],
+                     "profiled": profiled[(regime, st)]})
+    emit({"phase": f"p12_scheduler_{variant}", "frames": P12_FRAMES,
+          "frame_batch": cfg.detector.frame_batch, "batches": n_batches, "rounds": rounds,
+          "records_byte_equal": True, "runs": rows})
+    return rows
+
+
+def phase12(torch, mods, dev, classic, classic_cfg, fast_seg, fast_cfg):
+    """Phase 12: the deferred seg2d pipeline at full width on 24 frames
+    (phase 4's loaded classic models, synthetic frames; phase 8's fast
+    variant on baseline JPEGs, its JXT default), then the five profiling
+    CLIs at full width."""
+    dispatch, io = mods
+    import contextlib
+    import io as pyio
+
+    from beyondff_tpu_torch.tools import (measure_depth_decimation, profile_enhancer,
+                                          profile_gdino_blocks, profile_models, profile_sam)
+
+    t0 = time.perf_counter()
+    # the scenes (~20 MB of JPEGs) go to a temporary directory, not to
+    # chiprun_out
+    scenes = tempfile.mkdtemp(prefix="chip_smoke_p12_")
+    classic_cfg = classic_cfg.override(**{"paths.scene_2d_dir": scenes})
+    fast_cfg = fast_cfg.override(**{"paths.scene_2d_dir": scenes})
+    make_scene(scenes, "scene_p12", P12_FRAMES)
+    rows = scheduler_ab(torch, dispatch, classic, classic_cfg, "scene_p12",
+                        "classic", CLASSIC_SETTINGS, {"hit": 0.0}, 2)
+    for r in rows:
+        check(r["launches"].get("ms_deform_sample", 0) > 0
+              and r["launches"].get("flash_attention", 0) > 0,
+              f"classic {r}: K1 or K2 was not launched")
+    jpeg_scene(scenes, "scene_p12_jpeg", P12_FRAMES)
+    fast_seg.frame_loader = io.load_image  # the JPEG files themselves (JXT)
+    rows = scheduler_ab(torch, dispatch, fast_seg, fast_cfg, "scene_p12_jpeg",
+                        "fast", FAST_SETTINGS, {"hit": 0.0, "miss": 1.01}, 1)
+    for r in rows:
+        if r["regime"] == "hit":
+            check(r["launches"].get("flash_attention", 0) > 0
+                  and r["launches"].get("nms_fixed", 0) > 0, f"fast {r}: K3 or NMS missing")
+    shutil.rmtree(scenes)
+    scheduler_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    cli = {}
+    argv = ["--device", "cuda", "--scale", "full", "--iters", "3"]
+    dec_root = tempfile.mkdtemp(prefix="chip_smoke_dec_")
+    try:
+        for name, fn in (("profile_models", lambda: profile_models.main(argv)),
+                         ("profile_sam", lambda: profile_sam.main(argv)),
+                         ("profile_gdino_blocks", lambda: profile_gdino_blocks.main(argv)),
+                         ("profile_enhancer", lambda: profile_enhancer.main(argv)),
+                         ("measure_depth_decimation",
+                          lambda: measure_depth_decimation.measure(dec_root, dev))):
+            t_cli = time.perf_counter()
+            buf = pyio.StringIO()
+            with contextlib.redirect_stdout(buf):
+                out = fn()
+            lines = [json.loads(ln) for ln in buf.getvalue().splitlines() if ln.startswith("{")]
+            cli[name] = time.perf_counter() - t_cli
+            for row in lines:
+                emit({"phase": "p12_cli", **row})
+            if name == "measure_depth_decimation":
+                emit({"phase": "p12_cli", "tool": name, "rows": out})
+                check(out[1]["mean_final_mask_iou_vs_dec1"] == 1.0, "depth decimation: dec 1")
+            else:
+                check(lines and lines[-1]["variant"] in ("attribution", "summary"),
+                      f"{name}: no summary line")
+    finally:
+        shutil.rmtree(dec_root, ignore_errors=True)
+    by = {r["variant"]: r for r in _LINES if r.get("tool") == "profile_sam"}
+    check(by["full_relpos_flash"]["global_branch"] == "relpos_flash"
+          and by["norelpos_relpos_flash"]["global_relpos"] == "kept"
+          and by["norelpos"]["global_relpos"] == "dropped",
+          "profile_sam: the global blocks' branches")
+    emit({"phase": "phase12", "scheduler_seconds": scheduler_s,
+          "cli_seconds": cli, "seconds": scheduler_s + time.perf_counter() - t0})
 
 
 def main() -> int:
@@ -2865,6 +3089,7 @@ def main() -> int:
 
     # ---------------------------------------------------------------- 7
     marks.append((7, time.perf_counter()))
+    classic_seg = seg  # phase 12 runs it again
     del seg, det, clip, sam
     torch.cuda.empty_cache()
     # the 2D stage's launches, the sweep's rel-pos launches (K5 is wired into
@@ -2901,7 +3126,11 @@ def main() -> int:
     phase11(torch, (fa, wa, sam_mod, esam, yw, nms, core_resize, gd, dispatch, seg2d,
                     projection, io, StageProfiler), Config, work, work3d, dev, fast_seg, fast_cfg,
             card, cfg.detector)
-    del fast_seg
+
+    # ---------------------------------------------------------------- 12
+    marks.append((12, time.perf_counter()))
+    phase12(torch, (dispatch, io), dev, classic_seg, cfg, fast_seg, fast_cfg)
+    del fast_seg, classic_seg
     torch.cuda.empty_cache()
     shutil.rmtree(ckpt_dir)
     shutil.rmtree(work3d)

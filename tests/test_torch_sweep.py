@@ -136,7 +136,7 @@ def test_gdino_split_path_equals_full_forward(scene):
         full, ids, b = det.predict_batch_frames_async(frames, caption)
         split, ids2, b2 = det.predict_batch_frames_async(frames, caption, feats_cache=(bank, key))
         assert key in bank and len(bank) == 1
-        assert torch.equal(full, split) and b == b2 == 2
+        assert torch.equal(full.tensor, split.tensor) and b == b2 == 2
         np.testing.assert_array_equal(ids, ids2)
 
 
