@@ -18,9 +18,10 @@
 // Design (a block of WARPS warps, each warp MT m16 tiles = 16 MT query rows):
 // * Both products on the tensor cores: mma.sync.m16n8k16.row.col, bf16 in,
 //   f32 accumulate. Fragments come from shared memory by ldmatrix (.trans
-//   for V). mma.sync and not wgmma: the head dims are 80 (SAM ViT-H) and 32
-//   (Grounding-DINO), whole k16 steps but not the 64-element rows that
-//   wgmma's swizzled shared-memory descriptors want.
+//   for V). mma.sync and not wgmma: the head dims here are 80 (SAM ViT-H)
+//   and 32 (Grounding-DINO), whole k16 steps but not the 64-element rows
+//   that wgmma's swizzled shared-memory descriptors want. Head dim 64 with
+//   every key valid (K3) takes csrc/flash_attention_wgmma.cu instead.
 // * Shared memory, not the tensor cores, sets the pace: every warp reads
 //   the whole K and V tile by ldmatrix, at 128 bytes a clock per SM. A warp
 //   therefore owns MT m16 tiles and feeds each K and V fragment it reads to

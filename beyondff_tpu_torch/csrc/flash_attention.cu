@@ -14,9 +14,12 @@
 // (~0.6 us) and does 4*8*900*900*32 = 0.83 GFLOP (~0.8 us on the tensor
 // cores), so it is bound by operations.
 //
-// Two kernels, chosen by dtype inside bff_flash_attention:
-// * bf16 (the main path): flash_tc_kernel, the tensor-core block of
-//   csrc/attention_tc.cuh (mma.sync m16n8k16 bf16 -> f32 for Q K^T and P V,
+// Three kernels, chosen inside bff_flash_attention:
+// * bf16 at head dim 64 with every key valid (K3 on the main path:
+//   EfficientSAM-S's global blocks), exactly where bff_flash_wgmma_takes
+//   says so: the wgmma/TMA kernel of csrc/flash_attention_wgmma.cu.
+// * other bf16 (K2, the Grounding-DINO decoder): flash_tc_kernel, the
+//   tensor-core block of csrc/attention_tc.cuh (mma.sync m16n8k16 bf16 -> f32 for Q K^T and P V,
 //   scores and P in registers, K/V tiles bf16 in a 2-stage cp.async ring)
 //   with a key mask as its score modifier. D is padded to DP in {32, 64,
 //   80, 128} in shared memory only. 4 warps of 16 query rows a block (a
@@ -243,6 +246,12 @@ int dispatch_tc(const void* q, const void* k, const void* v, void* o, int BH, in
 
 }  // namespace
 
+// csrc/flash_attention_wgmma.cu
+extern "C" int bff_flash_wgmma_takes(int dtype, int D, int S, int valid_len, float scale,
+                                     const void* q, const void* k, const void* v, const void* o);
+extern "C" int bff_flash_attention_wgmma(const void* q, const void* k, const void* v, void* o,
+                                         int BH, int S, float scale, void* stream);
+
 // dtype: 0 = float32, 1 = bfloat16. q, k, v, o: contiguous (BH, S, D).
 // Returns cudaGetLastError() after the launch, or -1 for arguments the
 // kernel does not take.
@@ -250,6 +259,8 @@ extern "C" int bff_flash_attention(int dtype, const void* q, const void* k, cons
                                    void* o, int BH, int S, int D, int valid_len, float scale,
                                    void* stream) {
   if (BH < 1 || S < 1 || D < 1 || D > 128 || valid_len < 1 || valid_len > S) return -1;
+  if (bff_flash_wgmma_takes(dtype, D, S, valid_len, scale, q, k, v, o))
+    return bff_flash_attention_wgmma(q, k, v, o, BH, S, scale, stream);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return dispatch<float>(q, k, v, o, BH, S, D, valid_len, scale, s);
   if (dtype == 1) {

@@ -88,6 +88,8 @@ def library() -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.bff_flash_attention.argtypes = [i, p, p, p, p, i, i, i, i, f, p]
     lib.bff_flash_attention.restype = i
+    lib.bff_flash_wgmma_takes.argtypes = [i, i, i, i, f, p, p, p, p]
+    lib.bff_flash_wgmma_takes.restype = i
     lib.bff_ms_deform_sample.argtypes = [i, p, p, p, p, p, i, i, i, i, i, i, i,
                                          ctypes.POINTER(ctypes.c_int), p]
     lib.bff_ms_deform_sample.restype = i

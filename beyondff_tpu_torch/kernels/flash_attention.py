@@ -1,11 +1,15 @@
 """Flash attention: the hand-written Hopper kernels and their plain versions.
 
-Port of beyondff_tpu/kernels/flash_attention.py. One CUDA kernel
+Port of beyondff_tpu/kernels/flash_attention.py. One C entry
 (``csrc/flash_attention.cu``) computes softmax(Q K^T * scale) V over
 (BH, S, D) with keys >= ``valid_len`` masked, so the TPU's padded-and-masked
 ``_flash_masked`` and its unpadded ``flash_attention`` are the same call
-here. A second one (``csrc/relpos_attention.cu``) adds SAM's decomposed
-relative-position bias from its thin factors (``flash_attention_relpos``,
+here. It routes bf16 at head dim 64 with every key valid (K3, EfficientSAM's
+global blocks; :func:`wgmma_route`) to the wgmma/TMA kernel of
+``csrc/flash_attention_wgmma.cu``, counted as ``flash_attention_wgmma``,
+and everything else (K2) to the mma.sync tile or the f32 kernel, counted as
+``flash_attention``. A second entry (``csrc/relpos_attention.cu``) adds SAM's
+decomposed relative-position bias from its thin factors (``flash_attention_relpos``,
 reached through ``attend_relpos``). The wrappers launch them for CUDA
 tensors and raise on what they do not take; CPU tensors take the plain
 versions.
@@ -26,6 +30,18 @@ BLOCK_Q = 256
 # the JAX package's kv block, kept for ``relpos_shapes_ok``'s routing decision
 BLOCK_KV = 512
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_FLT_MAX = 3.4028234663852886e38
+
+
+def wgmma_route(dtype: int, d: int, s: int, valid_len: int, scale: float, *ptrs: int) -> bool:
+    """The mirror of ``bff_flash_wgmma_takes``: whether ``bff_flash_attention``
+    runs the wgmma/TMA kernel for a call (dtype 0 = float32, 1 = bfloat16;
+    ``ptrs`` the data pointers of q, k, v and the output): bf16, head dim
+    64, every key valid, a positive finite scale (rounded to f32 as the call
+    passes it) and 16-byte aligned pointers."""
+    f32 = ctypes.c_float(scale).value
+    return (dtype == 1 and d == 64 and s >= 1 and valid_len == s and 0.0 < f32 <= _FLT_MAX
+            and all(p % 16 == 0 for p in ptrs))
 
 
 def _plain_probs(q: torch.Tensor, k: torch.Tensor, scale: float,
@@ -93,13 +109,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     from beyondff_tpu_torch.kernels import _build
 
     out = torch.empty_like(q)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    key = ("flash_attention_wgmma" if wgmma_route(_DTYPES[q.dtype], d, s, valid, scale, *ptrs)
+           else "flash_attention")
     rc = _build.library().bff_flash_attention(
-        _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        bh, s, d, valid, ctypes.c_float(scale),
+        _DTYPES[q.dtype], *ptrs, bh, s, d, valid, ctypes.c_float(scale),
         torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed (code {rc})")
-    dispatch.launch_counts["flash_attention"] += 1
+        raise RuntimeError(f"{key} kernel launch failed (code {rc})")
+    dispatch.launch_counts[key] += 1
     return out
 
 

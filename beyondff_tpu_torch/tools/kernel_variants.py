@@ -20,7 +20,13 @@ cases also take the device time per call from ``torch.profiler``
 (``profiling.device_ms``), the rate of unique bytes it gives, the rate of
 the corner rows it loads (``corner_gbps``: value rows of in-map corners,
 each load counted) and the byte bound. K1's ``tile_order`` variant walks
-the encoder raster's queries in the order :func:`tile_order` gives.
+the encoder raster's queries in the order :func:`tile_order` gives. K3's
+cases (EfficientSAM-S's global blocks through ``bff_flash_attention``: the
+wgmma kernel in this tree, the mma.sync tile in a tree from before it) run
+``scaled_dot_product_attention`` on the same inputs as one more entry of
+the same rounds (``library``), and take device time, TFLOP/s, the
+operations bound and the host microseconds per call (the enqueue, tensor
+maps included).
 Prints one JSON line per (case, variant) with the card's name and power
 limit; the lines also go to
 ``kernel_variants.json`` in ``--out`` (the build directory by default),
@@ -35,6 +41,7 @@ import json
 import os
 import shutil
 import subprocess
+import time
 
 import numpy as np
 import torch
@@ -45,10 +52,12 @@ from beyondff_tpu_torch.kernels import flash_attention as fa
 from beyondff_tpu_torch.kernels import mask_iou as kiou
 from beyondff_tpu_torch.models import sam as sam_mod
 from beyondff_tpu_torch.models.gdino import deformable
-from beyondff_tpu_torch.utils.profiling import HBM_BYTES_PER_S, device_ms
+from beyondff_tpu_torch.utils.profiling import HBM_BYTES_PER_S, PEAK_FLOPS, device_ms
 
 OUT = os.path.join(_build.BUILD_DIR, "variants")
 RELPOS, IOU, MSD = "relpos_attention.cu", "mask_iou.cu", "ms_deform_sample.cu"
+FLASH, WGMMA = "flash_attention.cu", "flash_attention_wgmma.cu"
+SOURCES = (RELPOS, IOU, MSD, FLASH, WGMMA)
 ROUNDS = 3
 SET_ORDER = "bff_ms_deform_set_order"
 
@@ -82,7 +91,7 @@ def _head_run(warps):
 
 # name -> (sources to build, edits as (file, old, new))
 VARIANTS = {
-    "shipped": ((RELPOS, IOU, MSD), ()),
+    "shipped": (SOURCES, ()),
     # K1: a warp's rows are 8 queries of one head (not one query's 8 heads)
     "head_run_warp": _head_run(1),
     # K1: a block's rows are 64 queries of one head
@@ -127,6 +136,18 @@ VARIANTS = {
          "      if (c + 1 < chunks) cr.load(g, c + 1);\n      if (c + 1 < chunks) cr.cut("))),
     # K6's unaligned rows cut 128 bytes a step
     "cut128": ((IOU,), ((IOU, "constexpr int kCut = 64;", "constexpr int kCut = 128;"),)),
+    # K3: tile t's Q K^T after tile t - 1's P V has finished, not before it
+    "k3_serial": ((FLASH, WGMMA), ((WGMMA, "constexpr bool kOverlap = true;",
+                                    "constexpr bool kOverlap = false;"),)),
+    # K3: three K and V tiles in flight
+    "k3_stages_3": ((FLASH, WGMMA), ((WGMMA, "constexpr int kStages = 2;",
+                                      "constexpr int kStages = 3;"),)),
+    # K3: the consumers issue their products whenever they are ready
+    "k3_no_pingpong": ((FLASH, WGMMA), ((WGMMA, "constexpr bool kPingpong = true;",
+                                         "constexpr bool kPingpong = false;"),)),
+    # K3: two consumer warpgroups, a 128-query tile
+    "k3_two_consumers": ((FLASH, WGMMA), ((WGMMA, "constexpr int kConsumers = 3;",
+                                           "constexpr int kConsumers = 2;"),)),
 }
 VARIANTS["singles_plain_table"] = ((RELPOS,), VARIANTS["singles"][1] + VARIANTS["plain_table"][1])
 
@@ -145,7 +166,8 @@ def build_all(parent_csrc, names=None):
     shutil.rmtree(OUT, ignore_errors=True)
     specs = {n: v for n, v in VARIANTS.items() if names is None or n in names}
     if parent_csrc:
-        specs["parent"] = ((RELPOS, IOU, MSD), ())
+        specs["parent"] = (tuple(x for x in SOURCES
+                                 if os.path.exists(os.path.join(parent_csrc, x))), ())
     procs = {}
     for name, (sources, edits) in specs.items():
         src_dir = os.path.join(OUT, name, "csrc")
@@ -219,6 +241,50 @@ def attention_case(g, grid, window):
         return float(((got.float() - want.float()).abs() - bound).max())
 
     return fn, launch, check
+
+
+def k3_case(bh, s):
+    """K3 in bf16 at head dim 64, every key valid, through
+    ``bff_flash_attention``; after (name, launch, check) come SDPA on the
+    same inputs and the operations of one call."""
+    import torch.nn.functional as F
+
+    d = 64
+    gen = torch.Generator(device="cuda").manual_seed(bh * s)
+    q, k, v = (torch.randn(bh, s, d, device="cuda", generator=gen).bfloat16() for _ in range(3))
+    want = fa.flash_attention_plain(q, k, v)
+    bound = fa.bf16_error_bound(q, k, v, want)
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream().cuda_stream
+    fn = "bff_flash_attention"
+    q4, k4, v4 = (t.view(1, bh, s, d) for t in (q, k, v))
+
+    def launch(lib):
+        rc = lib.bff_flash_attention(ctypes.c_int(1), *(ctypes.c_void_p(t.data_ptr()) for t in
+                                                        (q, k, v, out)),
+                                     bh, s, d, s, ctypes.c_float(d ** -0.5),
+                                     ctypes.c_void_p(stream))
+        if rc != 0:
+            raise RuntimeError(f"{fn} failed (code {rc})")
+        return out
+
+    def check(got):
+        return float(((got.float() - want.float()).abs() - bound).max())
+
+    library = lambda: F.scaled_dot_product_attention(q4, k4, v4).view(bh, s, d)
+    return fn, launch, check, library, 4 * bh * s * s * d
+
+
+def host_us(fn, iters=50):
+    """Host microseconds per call of ``fn``, the launches enqueued back to
+    back (the device runs behind)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / iters * 1e6
 
 
 def iou_case(ia, ib, n):
@@ -367,6 +433,11 @@ def main():
         "k6 self (600, 250007)": lambda: iou_case(600, None, 250_007),
         "k6 cross (20 x 150, 250000)": lambda: iou_case(20, 150, 250_000),
         "k6 cross (20 x 150, 250007)": lambda: iou_case(20, 150, 250_007),
+        # EfficientSAM-S's global blocks at the batch of 4 (square and rect
+        # grid) and at one frame
+        "k3 (24, 4096, 64)": lambda: k3_case(24, 4096),
+        "k3 (24, 3072, 64)": lambda: k3_case(24, 3072),
+        "k3 (6, 4096, 64)": lambda: k3_case(6, 4096),
     })
     if args.cases:
         cases = {k: v for k, v in cases.items()
@@ -374,18 +445,33 @@ def main():
     os.makedirs(args.out, exist_ok=True)
     lines = []
     for case, make in cases.items():
-        fn, launch, check, *nbytes = make()  # K1: (unique bytes, corner-row bytes)
-        names = [n for n, lib in libs.items() if has(lib, fn)]
-        excess = {n: check(launch(libs[n])) for n in names}
-        times = {n: [] for n in names}
+        # K1: (unique bytes, corner-row bytes); K3: (library call, operations)
+        fn, launch, check, *nbytes = make()
+        library, flops = nbytes if nbytes and callable(nbytes[0]) else (None, None)
+        if library:
+            nbytes = []
+        calls = {n: (lambda lib=lib: launch(lib)) for n, lib in libs.items() if has(lib, fn)}
+        names = list(calls)
+        excess = {n: check(calls[n]()) for n in names}
+        if library:
+            calls["library"] = library
+            excess["library"] = check(library())
+        times = {n: [] for n in calls}
         for r in range(ROUNDS):
-            for n in names if r % 2 == 0 else names[::-1]:
-                times[n].append(event_ms(lambda: launch(libs[n]), 20))
-        for n in names:
+            for n in list(calls) if r % 2 == 0 else list(calls)[::-1]:
+                times[n].append(event_ms(calls[n], 20))
+        for n in calls:
             rec = {"case": case, "variant": n, "ms": min(times[n]), "ms_rounds": times[n],
                    "right": excess[n] <= 0.0, "excess": excess[n], "card": card}
+            if library:  # K3 and its yardstick: device time, rate, bound, host time
+                rec["device_ms"] = device_ms(calls[n])
+                rec["tflops"] = flops / rec["device_ms"] / 1e9
+                rec["bound_ms"] = flops / PEAK_FLOPS["bfloat16"] * 1e3
+                rec["host_us"] = host_us(calls[n])
+                if n == "library":
+                    rec["right"] = None  # a yardstick, not a variant: not gated
             if nbytes:  # K1: device time, the rates of unique and corner bytes, the bound
-                rec["device_ms"] = device_ms(lambda: launch(libs[n]))
+                rec["device_ms"] = device_ms(calls[n])
                 rec["gbps"] = nbytes[0] / rec["device_ms"] / 1e6
                 rec["corner_gbps"] = nbytes[1] / rec["device_ms"] / 1e6
                 rec["bound_ms"] = nbytes[0] / HBM_BYTES_PER_S * 1e3
@@ -400,7 +486,7 @@ def main():
             if rep.endswith(".ptxas.txt"):
                 shutil.copy(os.path.join(OUT, name, rep),
                             os.path.join(args.out, f"ptxas_{name}_{rep}"))
-    if not all(x["right"] for x in lines):
+    if not all(x["right"] for x in lines if x["right"] is not None):
         raise SystemExit("a variant disagrees with the plain version")
 
 

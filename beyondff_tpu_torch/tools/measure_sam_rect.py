@@ -7,7 +7,10 @@ dropped tokens are pure pad content, but they take part in the square
 path's global-attention softmax and boundary windows, so the mode is a
 deviation, measured here at the production shape:
 
-  - the encoder's time, square against rect (CUDA events on the card);
+  - the encoder's time, square against rect (CUDA events on the card),
+    and on the card also its device time from ``torch.profiler``
+    (``encode_device_ms_*``: where it lies well below the events' time,
+    the host's launches set the pace);
   - the embedding deviation over the valid grid (relative L2, max abs);
   - the decoded masks' IoU per box prompt, square against rect, and the
     largest change of the predicted IoU.
@@ -34,6 +37,7 @@ import torch
 
 from beyondff_tpu_torch.kernels.dispatch import resolve_device
 from beyondff_tpu_torch.tools.profile_common import env_set, time_ms
+from beyondff_tpu_torch.utils.profiling import device_ms
 
 FRAME_HW = (968, 1296)  # ScanNet's color frames
 # box prompts in padded-square pixels of a 1024 px input (the JAX tool's)
@@ -82,6 +86,8 @@ def measure(sam, frames: torch.Tensor, boxes: np.ndarray, orig_hw, iters: int = 
         with rect_mode(rect):
             tag = "rect" if rect else "square"
             out[f"encode_ms_{tag}"] = time_ms(lambda: sam.encode_frames(frames), iters, dev)
+            if dev.type == "cuda":
+                out[f"encode_device_ms_{tag}"] = device_ms(lambda: sam.encode_frames(frames))
             for t in temps:
                 saved = scale_attention_temperature(sam.module, t) if t != 1.0 else {}
                 emb = sam.encode_frames(frames)

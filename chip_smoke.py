@@ -60,9 +60,11 @@ Phases (each one's failure ends the run with a non-zero exit):
    tensor bit for bit, run ``run()`` on the 8-frame 968x1296 scene in the
    hit regime (two-tier uploads, YOLO-World in f32, EfficientSAM in bf16,
    hash guide embeddings) with launch counts set to 0 just before it: K3
-   must run 12 times per SAM encode batch and the NMS kernel once per
-   detection batch; then a profiled pass and banked ``run_classes`` over
-   three classes against per-class ``run()``;
+   must run 12 times per SAM encode batch, all through its wgmma kernel
+   (``flash_attention_wgmma``; ``flash_attention``, K2's counter, stays
+   0), and the NMS kernel once per detection batch; then a profiled pass
+   and banked ``run_classes`` over three classes against per-class
+   ``run()``;
 9. drive the training path and the parallel layer on a one-rank NCCL group
    and a 1 x 1 mesh, launch counts set to 0 just before and read after
    (no kernel lies on this path: all must stay 0): ``attend`` on CUDA
@@ -119,8 +121,11 @@ at the aggregation's (600, 250 000) self-IoU and refinement's (20 x 150,
 250 000) cross IoU, and at 250 007 points (rows off 16-byte boundaries), and
 the rel-pos attention kernels at SAM ViT-H's global (16 B, 4096, 80) and
 windowed (400 B, 196, 80) shapes, K3 at EfficientSAM-S's global blocks
-(6 B, 4096, 64) in bf16, and the NMS kernel index for index at YOLO-World-L's
-8 400 anchors for a batch of 4 (top_k 100). Tolerances: f32 within 1e-4; bf16 K2/K3,
+(6 B, 4096, 64) in bf16, at the rect grid's (24, 3072, 64) and at a ragged
+(24, 4095, 64) (each call must count under the counter
+``flash_attention.wgmma_route`` names), and the NMS kernel index for index
+at YOLO-World-L's 8 400 anchors for a batch of 4 (top_k 100). Tolerances:
+f32 within 1e-4; bf16 K2/K3,
 K4 and K5, whose tensor-core tile rounds P to bf16 before P V as the TPU
 kernels do, within 2^-8 |P|@|V| + 2^-7 |plain| + 1e-4
 (``flash_attention.bf16_error_bound``; K2 also within 1.6e-2); K1 within
@@ -182,6 +187,11 @@ def cuda_ms(torch, fn, iters):
 
 
 TC_DESIGN = "bf16 mma.sync m16n8k16 + ldmatrix, cp.async 2-stage ring, S and P in registers"
+WGMMA_DESIGN = ("bf16 wgmma: S = Q K^T m64n128k16 from shared memory, O += P V m64n64k16 with P "
+                "in registers; TMA loads (128-byte swizzle) of 128-key K/V tiles into a 2-stage "
+                "mbarrier ring by a producer warpgroup; three consumer warpgroups of 64 rows "
+                "(setmaxnreg 32/160) taking turns (pingpong) to issue their products, Q K^T of "
+                "tile t issued before P V of tile t - 1")
 FMA_DESIGN = "f32 FMA from shared memory"
 
 
@@ -230,15 +240,24 @@ def deform_case(torch, dw, name, q_locs, dtype, modes, dev, rng, b):
 def flash_case(torch, fa, name, shape, valid_len, dtype, dev):
     """One K2/K3 comparison + timing. bf16 is held within 1.6e-2 and within
     ``fa.bf16_error_bound`` (P rounded to bf16 before P V, as the TPU kernel
-    does, plus one output rounding); f32 within 1e-4."""
+    does, plus one output rounding); f32 within 1e-4. The record names the
+    counter the call went through (``flash_attention_wgmma`` for K3's bf16
+    head-dim-64 calls), which must be the one ``fa.wgmma_route`` names."""
     import torch.nn.functional as F
 
+    from beyondff_tpu_torch.kernels import dispatch
     from beyondff_tpu_torch.utils.profiling import HBM_BYTES_PER_S, PEAK_FLOPS, device_ms
 
     bh, s, d = shape
     q, k, v = (torch.randn(bh, s, d, device=dev, dtype=torch.float32).to(dtype)
                for _ in range(3))
+    before = dict(dispatch.launch_counts)
     got = fa.flash_attention(q, k, v, valid_len=valid_len)
+    went = [key for key, n in dispatch.launch_counts.items() if n != before[key]]
+    routed = ("flash_attention_wgmma" if fa.wgmma_route(
+        int(dtype == torch.bfloat16), d, s, valid_len, d ** -0.5,
+        *(t.data_ptr() for t in (q, k, v, got))) else "flash_attention")
+    check(went == [routed], f"flash_attention {name}: launched {went}, the route says {routed}")
     want = fa.flash_attention_plain(q, k, v, valid_len=valid_len)
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
@@ -256,12 +275,13 @@ def flash_case(torch, fa, name, shape, valid_len, dtype, dev):
     library = lambda: F.scaled_dot_product_attention(q4, k4, v4)
     dev_ms = device_ms(kernel)
     rec = {
-        "case": name, "kernel": "flash_attention", "dtype": dname, "shape": list(shape),
+        "case": name, "kernel": routed, "dtype": dname, "shape": list(shape),
         "valid_len": valid_len, "max_abs_err": err, "tol": tol, "tol_excess": excess,
         "bound_tol": "2^-8 |P|@|V| + 2^-7 |plain| + 1e-4" if bf16 else None,
         "ms": cuda_ms(torch, kernel, 50),
         "device_ms": dev_ms, "tflops": flops / dev_ms / 1e9,
-        "design": TC_DESIGN + ", 4 warps x 16 rows" if bf16 else FMA_DESIGN,
+        "design": (WGMMA_DESIGN if routed == "flash_attention_wgmma" else
+                   TC_DESIGN + ", 4 warps x 16 rows" if bf16 else FMA_DESIGN),
         "plain_ms": cuda_ms(torch, lambda: fa.flash_attention_plain(q, k, v, valid_len), 20),
         "bound_ms": max(bound_bytes, bound_ops),
         "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
@@ -465,7 +485,7 @@ def small_reference(torch, mods, work):
 
 
 PORT_KERNELS = ("ms_deform_sample_kernel", "flash_fwd_kernel", "flash_tc_kernel",
-                "nms_fixed_kernel")
+                "flash_wgmma_kernel", "nms_fixed_kernel")
 
 
 def profile_scene(torch, seg2d, seg, cfg, scene, timed_scene_s, phase="device_profile"):
@@ -1660,12 +1680,15 @@ def fast_variant(torch, mods, Config, work, dev, clip_files):
               "stage_ms": {k: v * 1e3 for k, v in prof.durations.items()},
               "stage_counts": dict(prof.counts), "stage_items": dict(prof.items),
               "two_tier": two_tier, "launches": launches,
-              "flash_attention_per_encode_batch": launches["flash_attention"] / max(encodes, 1),
+              "flash_attention_wgmma_per_encode_batch":
+                  launches["flash_attention_wgmma"] / max(encodes, 1),
               "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
               "frames_with_boxes": results[0]["frames_with_boxes"]})
         blocks = len(seg.sam.cfg.global_attn_indexes)  # 12: every block is global
-        check(encodes > 0 and launches["flash_attention"] == blocks * encodes,
-              f"K3: {launches['flash_attention']} launches for {encodes} encode batches")
+        check(encodes > 0 and launches["flash_attention_wgmma"] == blocks * encodes
+              and launches["flash_attention"] == 0,
+              f"K3: {launches['flash_attention_wgmma']} wgmma launches (and "
+              f"{launches['flash_attention']} on the mma.sync tile) for {encodes} encode batches")
         check(launches["nms_fixed"] == prof.counts["detect"] and launches["nms_fixed"] > 0,
               f"nms_fixed: {launches['nms_fixed']} launches for {prof.counts['detect']} batches")
         recs = check_records(torch, cfg, "clothes", "scene_fast", N_FRAMES)
@@ -2431,8 +2454,9 @@ def transports(torch, mods, Config, work, fixture, dev, seg, cfg, card):
           "seg2d": runs, "projection": proj,
           "launches_over_defaults": {"seg2d": launches, "projection": proj_launches},
           "seconds": time.perf_counter() - t_phase})
-    check(launches["flash_attention"] > 0 and launches["nms_fixed"] > 0
-          and proj_launches["mask_iou"] > 0, f"phase 10 launched no kernel: {launches}")
+    check(launches["flash_attention_wgmma"] > 0 and launches["flash_attention"] == 0
+          and launches["nms_fixed"] > 0 and proj_launches["mask_iou"] > 0,
+          f"phase 10 launched no kernel, or K3 off the wgmma kernel: {launches}")
 
 
 # ------------------------------------------------------------ phase 11
@@ -2440,6 +2464,7 @@ RECT_GRID = (48, 64)  # SAM's patch grid of a 968x1296 frame under BFF_SAM_RECT=
 # the CUDA functions behind each launch counter, for reading a profiler trace
 KERNEL_SYMBOLS = {"ms_deform_sample": ("ms_deform_sample_kernel",),
                   "flash_attention": ("flash_tc_kernel", "flash_fwd_kernel"),
+                  "flash_attention_wgmma": ("flash_wgmma_kernel",),
                   "flash_attention_relpos": ("flash_relpos_tc_kernel", "flash_relpos_kernel"),
                   "window_attention_relpos": ("window_relpos_tc_kernel", "window_relpos_kernel"),
                   "mask_iou": ("iou_count_kernel",), "nms_fixed": ("nms_fixed_kernel",)}
@@ -2468,8 +2493,11 @@ def rect_phase(torch, mods, dev, card):
         emit({"phase": "sam_rect", "model": name, "card": card, **rec})
         check(rec["grid_rect"] == list(RECT_GRID) and rec["grid_square"] == [64, 64],
               f"{name}: rect grid {rec['grid_rect']}")
-        kernel = "flash_attention_relpos" if name == "sam_vit_h" else "flash_attention"
+        kernel = "flash_attention_relpos" if name == "sam_vit_h" else "flash_attention_wgmma"
         check(rec["launches"].get(kernel, 0) > 0, f"{name}: {kernel} not launched")
+        check(rec["launches"].get("flash_attention", 0) == 0
+              and (name == "efficientsam_s" or rec["launches"]["flash_attention_wgmma"] == 0),
+              f"{name}: attention off its kernel: {rec['launches']}")
         check(np.isfinite(rec["emb_rel_l2"]) and min(rec["mask_iou"]) > 0.0,
               f"{name}: rect outputs {rec['emb_rel_l2']} {rec['mask_iou']}")
         out[name] = model if name == "sam_vit_h" else None
@@ -2859,15 +2887,19 @@ def phase12(torch, mods, dev, classic, classic_cfg, fast_seg, fast_cfg):
                         "classic", CLASSIC_SETTINGS, {"hit": 0.0}, 2)
     for r in rows:
         check(r["launches"].get("ms_deform_sample", 0) > 0
-              and r["launches"].get("flash_attention", 0) > 0,
-              f"classic {r}: K1 or K2 was not launched")
+              and r["launches"].get("flash_attention", 0) > 0
+              and r["launches"].get("flash_attention_wgmma", 0) == 0,
+              f"classic {r}: K1 or K2 was not launched, or K3 was")
     jpeg_scene(scenes, "scene_p12_jpeg", P12_FRAMES)
     fast_seg.frame_loader = io.load_image  # the JPEG files themselves (JXT)
     rows = scheduler_ab(torch, dispatch, fast_seg, fast_cfg, "scene_p12_jpeg",
                         "fast", FAST_SETTINGS, {"hit": 0.0, "miss": 1.01}, 1)
     for r in rows:
         if r["regime"] == "hit":
-            check(r["launches"].get("flash_attention", 0) > 0
+            blocks = len(fast_seg.sam.cfg.global_attn_indexes)
+            check(r["launches"].get("flash_attention_wgmma", 0)
+                  == blocks * -(-P12_FRAMES // fast_cfg.detector.frame_batch)
+                  and r["launches"].get("flash_attention", 0) == 0
                   and r["launches"].get("nms_fixed", 0) > 0, f"fast {r}: K3 or NMS missing")
     shutil.rmtree(scenes)
     scheduler_s = time.perf_counter() - t0
@@ -3014,6 +3046,12 @@ def main() -> int:
     for b in (1, FRAME_BATCH):
         cases[("k3_efficientsam", "bfloat16", b)] = flash_case(
             torch, fa, "efficientsam_global", (6 * b, 4096, 64), 4096, torch.bfloat16, dev)
+    # the rect grid's 48 x 64 tokens at the main path's batch, and a ragged S
+    # (the last key tile and the last query tile part-filled)
+    for s_k3 in (RECT_GRID[0] * RECT_GRID[1], 4095):
+        cases[("k3_efficientsam", s_k3)] = flash_case(
+            torch, fa, "efficientsam_global_rect" if s_k3 == 3072 else "ragged_4095",
+            (6 * FRAME_BATCH, s_k3, 64), s_k3, torch.bfloat16, dev)
     cases["nms"] = nms_case(torch, nms, dev)
 
     work = os.path.join(REPO, "chiprun_out", "chip_smoke")
@@ -3072,6 +3110,7 @@ def main() -> int:
           "frames_with_boxes": results[0]["frames_with_boxes"]})
     for name in ("ms_deform_sample", "flash_attention"):
         check(launches[name] > 0, f"{name} was not launched on the main path")
+    check(launches["flash_attention_wgmma"] == 0, "the classic path launched K3")
 
     recs = check_records(torch, cfg, "clothes", "scene0000_00", N_FRAMES)
     emit({"phase": "output_check", "records": len(recs),
@@ -3104,7 +3143,7 @@ def main() -> int:
     fast_launches, fast_seg, fast_cfg = fast_variant(
         torch, (seg2d, yw, esam, dispatch, io, rle, StageProfiler), Config, work, dev,
         (cfg.detector.clip_checkpoint, cfg.detector.clip_bpe_path))
-    launches = {**launches, "flash_attention_unmasked": fast_launches["flash_attention"],
+    launches = {**launches, "flash_attention_wgmma": fast_launches["flash_attention_wgmma"],
                 "nms_fixed": fast_launches["nms_fixed"]}
 
     # ---------------------------------------------------------------- 9
@@ -3147,14 +3186,14 @@ def main() -> int:
              "beyondff_tpu/kernels/window_attention.py:51"),
             ("iou_self", "beyondff_tpu_torch/csrc/mask_iou.cu",
              "beyondff_tpu/kernels/mask_iou.py:55"),
-            ("k3_efficientsam", "beyondff_tpu_torch/csrc/flash_attention.cu",
+            ("k3_efficientsam", "beyondff_tpu_torch/csrc/flash_attention_wgmma.cu",
              "beyondff_tpu/kernels/flash_attention.py:68"),
             ("nms", "beyondff_tpu_torch/csrc/nms_fixed.cu",
              "beyondff_tpu/models/yolo_world.py:313")):
         c = cases[key] if key in ("iou_self", "nms") else cases[(key, "bfloat16", FRAME_BATCH)]
-        # K3 is K2's kernel with every key valid; its row counts the fast
-        # variant's launches (EfficientSAM's global blocks)
-        name = "flash_attention_unmasked" if key == "k3_efficientsam" else c["kernel"]
+        # K3's row counts the fast variant's launches (EfficientSAM's global
+        # blocks), K2's the classic path's
+        name = c["kernel"]
         table.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                       "launches": launches[name], "max_abs_err": c["max_abs_err"],
                       "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],

@@ -92,6 +92,48 @@ def test_flash_plain_mask_drops_keys(rng):
                                full.numpy(), rtol=1e-6, atol=1e-6)
 
 
+@pytest.mark.parametrize("s", [512, 1000])
+def test_flash_plain_matches_attend_at_head_dim_64(rng, jx, s):
+    """K3's function at EfficientSAM's head dim: the JAX ``attend`` (the
+    Pallas kernel in interpret mode; S = 1000 padded to 1024 with keys
+    masked) against the port's plain version, every key valid."""
+    q, k, v = _qkv(rng, (2, s, 64))
+    want = np.asarray(jx.fa.attend(*map(jx.jnp.asarray, (q, k, v)), interpret=True))
+    got = tfa.flash_attention_plain(*map(torch.from_numpy, (q, k, v)), valid_len=s).numpy()
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-5)
+    np.testing.assert_allclose(tfa.attend(*map(torch.from_numpy, (q, k, v))).numpy(), want,
+                               rtol=2e-4, atol=2e-5)
+
+
+_SCALE = 64 ** -0.5
+
+
+@pytest.mark.parametrize("args,takes", [
+    ((1, 64, 4096, 4096, _SCALE, 0, 256, 512, 1024), True),  # EfficientSAM-S's global blocks
+    ((1, 64, 3072, 3072, _SCALE, 0, 16, 32, 48), True),  # the rect grid, 16-byte bases
+    ((1, 64, 1, 1, 1.0, 0, 0, 0, 0), True),  # any S >= 1
+    ((1, 64, 4095, 4095, 2.0, 0, 0, 0, 0), True),  # a ragged S, any positive scale
+    ((1, 64, 4096, 4095, _SCALE, 0, 0, 0, 0), False),  # keys masked: K2's tile
+    ((0, 64, 4096, 4096, _SCALE, 0, 0, 0, 0), False),  # f32: the FMA kernel
+    ((1, 32, 900, 900, 32 ** -0.5, 0, 0, 0, 0), False),  # Grounding-DINO's head dim
+    ((1, 80, 4096, 4096, 80 ** -0.5, 0, 0, 0, 0), False),  # SAM ViT-H's head dim
+    ((1, 128, 1024, 1024, 128 ** -0.5, 0, 0, 0, 0), False),
+    ((1, 64, 4096, 4096, _SCALE, 0, 8, 0, 0), False),  # k off 16 bytes
+    ((1, 64, 4096, 4096, _SCALE, 0, 0, 0, 2), False),  # the output off 16 bytes
+    ((1, 64, 4096, 4096, 0.0, 0, 0, 0, 0), False),
+    ((1, 64, 4096, 4096, -_SCALE, 0, 0, 0, 0), False),
+    ((1, 64, 4096, 4096, float("inf"), 0, 0, 0, 0), False),
+    ((1, 64, 4096, 4096, float("nan"), 0, 0, 0, 0), False),
+    ((1, 64, 4096, 4096, 1e39, 0, 0, 0, 0), False),  # inf once rounded to f32
+])
+def test_wgmma_route_pins_the_predicate(args, takes):
+    """The Python mirror of ``bff_flash_wgmma_takes`` (which decides, in
+    ``bff_flash_attention``, the calls the wgmma kernel takes and the
+    counter they count under): bf16, head dim 64, every key valid, a
+    positive finite f32 scale, 16-byte aligned q, k, v and output."""
+    assert tfa.wgmma_route(*args) is takes
+
+
 def test_attend_dense_path_matches_jax(rng, jx):
     q, k, v = _qkv(rng, (3, 100, 16))
     want = np.asarray(jx.fa.attend(*map(jx.jnp.asarray, (q, k, v))))
@@ -447,7 +489,8 @@ def test_mask_iou_wrapper_checks_on_cpu():
 @pytest.mark.parametrize("name", ["singles", "plain_table", "load_after_mma", "cut128",
                                   "singles_plain_table", "head_run_warp", "head_run_block",
                                   "tile_order", "min_blocks_2", "min_blocks_4",
-                                  "point_at_a_time", "two_points"])
+                                  "point_at_a_time", "two_points", "k3_serial", "k3_stages_3",
+                                  "k3_no_pingpong", "k3_two_consumers"])
 def test_kernel_variant_edits_match_the_sources(name):
     """Each variant ``tools/kernel_variants.py`` builds is a set of edits
     that must each match its source once: they go stale with the kernels."""
@@ -457,7 +500,7 @@ def test_kernel_variant_edits_match_the_sources(name):
     from beyondff_tpu_torch.tools import kernel_variants as kv
 
     sources, edits = kv.VARIANTS[name]
-    assert edits and set(sources) <= {kv.RELPOS, kv.IOU, kv.MSD}
+    assert edits and set(sources) <= set(kv.SOURCES)
     for fname, old, new in edits:
         with open(os.path.join(_build.CSRC, fname)) as f:
             assert f.read().count(old) == 1, (fname, old)
@@ -722,12 +765,82 @@ def test_flash_kernel_at_efficientsam_global_blocks_on_card(cuda_device, dtype, 
     g = torch.Generator(device=cuda_device).manual_seed(bh)
     q, k, v = (torch.randn(bh, 4096, 64, generator=g, device=cuda_device).to(dtype)
                for _ in range(3))
-    before = dispatch.launch_counts["flash_attention"]
+    key = "flash_attention_wgmma" if dtype == torch.bfloat16 else "flash_attention"
+    before = dict(dispatch.launch_counts)
     got = tfa.attend(q, k, v)
-    assert dispatch.launch_counts["flash_attention"] == before + 1
+    assert _launched(before) == [key]  # bf16: the wgmma kernel; f32: the FMA kernel
     want = tfa.flash_attention_plain(q, k, v)
     torch.cuda.synchronize()
     _assert_within_bound(got, want, tfa.bf16_error_bound(q, k, v, want))
+
+
+def _launched(before):
+    """The counters that moved since ``before``."""
+    return [k for k, n in dispatch.launch_counts.items() if n != before[k]]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bh", [1, 6, 24])
+@pytest.mark.parametrize("s", [128, 600, 1000, 3072, 4095, 4096])
+def test_flash_wgmma_kernel_matches_plain_on_card(cuda_device, bh, s):
+    """K3's wgmma/TMA kernel (bf16, head dim 64, every key valid) against
+    the plain version within the derived bound: whole 128-key tiles (128,
+    3072, 4096) and ragged ones, whose last key tile is masked and whose
+    last query rows are not written, at one head, one frame's 6 and the
+    batch's 24; counted as ``flash_attention_wgmma`` only."""
+    g = torch.Generator(device=cuda_device).manual_seed(bh * s)
+    q, k, v = (torch.randn(bh, s, 64, generator=g, device=cuda_device).bfloat16()
+               for _ in range(3))
+    before = dict(dispatch.launch_counts)
+    got = tfa.flash_attention(q, k, v)
+    assert _launched(before) == ["flash_attention_wgmma"]
+    want = tfa.flash_attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    _assert_within_bound(got, want, tfa.bf16_error_bound(q, k, v, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["masked", "d32", "d80", "f32", "misaligned"])
+def test_flash_other_shapes_keep_their_kernels_on_card(cuda_device, case):
+    """Calls outside the wgmma predicate keep their routes, counted as
+    ``flash_attention``: keys masked (K2), head dims 32 and 80 on the
+    mma.sync tile, f32 on the FMA kernel, and a bf16 head-dim-64 input off
+    16 bytes (the FMA kernel); each within its bound of the plain version."""
+    d = {"d32": 32, "d80": 80}.get(case, 64)
+    dtype = torch.float32 if case == "f32" else torch.bfloat16
+    g = torch.Generator(device=cuda_device).manual_seed(d)
+    q, k, v = (torch.randn(2, 1000, d, generator=g, device=cuda_device).to(dtype)
+               for _ in range(3))
+    if case == "misaligned":
+        q = torch.randn(2 * 1000 * 64 + 4, generator=g, device=cuda_device).bfloat16()
+        q = q[4:].view(2, 1000, 64)  # 8 bytes past an aligned base
+    valid = 900 if case == "masked" else 1000
+    before = dict(dispatch.launch_counts)
+    got = tfa.flash_attention(q, k, v, valid_len=valid)
+    assert _launched(before) == ["flash_attention"]
+    want = tfa.flash_attention_plain(q, k, v, valid_len=valid)
+    torch.cuda.synchronize()
+    _assert_within_bound(got, want, tfa.bf16_error_bound(q, k, v, want, valid))
+
+
+@pytest.mark.cuda
+def test_wgmma_route_matches_the_c_predicate_on_card(cuda_device):
+    """``wgmma_route`` says what ``bff_flash_wgmma_takes`` says, over the
+    dtypes, head dims, valid lengths, scales and alignments around the
+    predicate's edges."""
+    from beyondff_tpu_torch.kernels import _build
+
+    lib = _build.library()
+    for dtype in (0, 1):
+        for d in (32, 64, 80, 128):
+            for s, valid in ((1, 1), (4096, 4096), (4096, 4095), (3072, 3072)):
+                for scale in (d ** -0.5, 0.0, -1.0, float("inf")):
+                    for off in (0, 2, 8, 16, 4096):
+                        ptrs = (4096, 4096 + off, 8192, 12288)
+                        want = tfa.wgmma_route(dtype, d, s, valid, scale, *ptrs)
+                        assert bool(lib.bff_flash_wgmma_takes(dtype, d, s, valid, scale,
+                                                              *ptrs)) is want
 
 
 def _nms_frames(gen, dev, b, a, spread):
