@@ -84,8 +84,11 @@
 #include <stdint.h>
 
 #include "attention_tc.cuh"
+#include "wgmma.cuh"
 
 namespace {
+
+using namespace bff_wg;
 
 constexpr int kD = 64;         // head dim: one 128-byte row of bf16
 constexpr int kConsumers = 3;  // consumer warpgroups of 64 query rows each
@@ -110,130 +113,6 @@ struct Barriers {
   uint64_t q_full;
   uint64_t k_full[kStages], v_full[kStages], k_empty[kStages], v_empty[kStages];
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void bar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void bar_expect_tx(uint64_t* bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void bar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
-}
-// Returns once the barrier's phase of parity ``parity`` has completed.
-__device__ __forceinline__ void bar_wait(uint64_t* bar, int parity) {
-  const uint32_t a = smem_u32(bar);
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(a), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// One box of rows from ``row`` on of head bh into dst (64 x 128 for K and
-// V, 64 x 64 for a consumer's slice of Q).
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                         int row, int bh) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(0), "r"(row), "r"(bh)
-      : "memory");
-}
-
-// A shared-memory matrix descriptor in the 128-byte swizzle mode: 8-row
-// groups of 128-byte rows, 1024 bytes apart (SBO); the leading offset is
-// what the K-major layouts ignore and the MN-major V (one 64-element block
-// along N) never steps.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo_bytes) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo_bytes >> 4) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
-}
-
-// Named barriers 1 .. kConsumers (0 is __syncthreads): consumer w issues
-// its products after turn_sync(1 + w), then hands the turn on by
-// turn_arrive; two warpgroups meet at each.
-__device__ __forceinline__ void turn_sync(int id) {
-  asm volatile("bar.sync %0, 256;\n" ::"r"(id) : "memory");
-}
-__device__ __forceinline__ void turn_arrive(int id) {
-  asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// Keeps the compiler from moving reads or writes of registers that an
-// asynchronous wgmma owns across the wait that hands them back.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N, int M>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][M]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int j = 0; j < M; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
-}
-
-#define BFF_F4(a, i) "+f"(a[i]), "+f"(a[i + 1]), "+f"(a[i + 2]), "+f"(a[i + 3])
-#define BFF_F16(a, i) BFF_F4(a, i), BFF_F4(a, i + 4), BFF_F4(a, i + 8), BFF_F4(a, i + 12)
-
-// d (+)= A B for A 64 x 16 and B 16 x 128, both from shared memory, K-major.
-__device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t da, uint64_t db,
-                                                    int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : BFF_F16(d, 0), BFF_F16(d, 16), BFF_F16(d, 32), BFF_F16(d, 48)
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-// d += A B for A 64 x 16 in registers (the mma.sync m16n8k16 A layout, one
-// 16-row slice per warp) and B 16 x 64 from shared memory, MN-major.
-__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_t (&a)[4],
-                                                   uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "setp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : BFF_F16(d, 0), BFF_F16(d, 16)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-#undef BFF_F16
-#undef BFF_F4
 
 // S = Q K^T for the warpgroup's 64 rows (q_wg) and the 128 keys of k_tile.
 __device__ __forceinline__ void issue_scores(float (&s)[64], uint32_t q_wg, uint32_t k_tile) {
@@ -358,15 +237,15 @@ __global__ void __launch_bounds__(kThreads, 1) flash_wgmma_kernel(
       bar_expect_tx(&bars->q_full, kQBytes);
 #pragma unroll
       for (int c = 0; c < kConsumers; ++c)
-        tma_load(sQ + c * kQSlice, &tq, &bars->q_full, q0 + 64 * c, bh);
+        tma_load_3d(sQ + c * kQSlice, &tq, &bars->q_full, 0, q0 + 64 * c, bh);
       for (int t = 0; t < n_tiles; ++t) {
         const int st = t % kStages, parity = ((t / kStages) & 1) ^ 1;
         bar_wait(&bars->k_empty[st], parity);
         bar_expect_tx(&bars->k_full[st], kTileBytes);
-        tma_load(sK + st * kTileBytes, &tk, &bars->k_full[st], t * kBN, bh);
+        tma_load_3d(sK + st * kTileBytes, &tk, &bars->k_full[st], 0, t * kBN, bh);
         bar_wait(&bars->v_empty[st], parity);
         bar_expect_tx(&bars->v_full[st], kTileBytes);
-        tma_load(sV + st * kTileBytes, &tv, &bars->v_full[st], t * kBN, bh);
+        tma_load_3d(sV + st * kTileBytes, &tv, &bars->v_full[st], 0, t * kBN, bh);
       }
     }
   } else {
@@ -493,49 +372,6 @@ __global__ void __launch_bounds__(kThreads, 1) flash_wgmma_kernel(
   }
 }
 
-// cuTensorMapEncodeTiled's signature (cuda.h), looked up at run time.
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
-                                                       cudaEnableDefault, &found);
-#else
-    cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
-    fn = reinterpret_cast<EncodeTiled>(ptr);
-  }
-  return fn;
-}
-
-// base viewed as (BH, S, 64) bf16, boxes of box_rows rows x 64, 128-byte swizzle,
-// rows past S zero-filled. 0, or a negative code.
-int encode(EncodeTiled fn, CUtensorMap* map, const void* base, int BH, int S, int box_rows) {
-  const cuuint64_t dims[3] = {(cuuint64_t)kD, (cuuint64_t)S, (cuuint64_t)BH};
-  const cuuint64_t strides[2] = {(cuuint64_t)kD * 2, (cuuint64_t)S * kD * 2};  // bytes
-  const cuuint32_t box[3] = {(cuuint32_t)kD, (cuuint32_t)box_rows, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  if (reinterpret_cast<uintptr_t>(base) % 16 != 0 || strides[0] % 16 != 0 ||
-      strides[1] % 16 != 0)
-    return -3;
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
-                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : -1000 - static_cast<int>(r);
-}
-
-bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
-
 }  // namespace
 
 // The routing predicate (kernels/flash_attention.py wgmma_route mirrors it):
@@ -558,9 +394,10 @@ extern "C" int bff_flash_attention_wgmma(const void* q, const void* k, const voi
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return -2;
   CUtensorMap tq, tk, tv;
-  int rc = encode(fn, &tq, q, BH, S, 64);
-  if (rc == 0) rc = encode(fn, &tk, k, BH, S, kBN);
-  if (rc == 0) rc = encode(fn, &tv, v, BH, S, kBN);
+  const CUtensorMapSwizzle sw = CU_TENSOR_MAP_SWIZZLE_128B;
+  int rc = encode_3d(fn, &tq, q, kD, S, BH, kD, 64, sw);
+  if (rc == 0) rc = encode_3d(fn, &tk, k, kD, S, BH, kD, kBN, sw);
+  if (rc == 0) rc = encode_3d(fn, &tv, v, kD, S, BH, kD, kBN, sw);
   if (rc != 0) return rc;
   static bool configured = false;
   if (!configured) {

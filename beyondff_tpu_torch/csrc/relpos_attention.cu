@@ -564,6 +564,21 @@ int launch_window(const void* q, const void* k, const void* v, const void* bh, c
   return (int)cudaGetLastError();
 }
 
+}  // namespace
+
+// csrc/relpos_attention_wgmma.cu: SAM ViT-H's head-dim-80 calls on wgmma and TMA
+extern "C" int bff_relpos_wgmma_takes(int kind, int dtype, int D, int S, int rows, int cols,
+                                      float scale, const void* q, const void* k, const void* v,
+                                      const void* o, const void* bias_h, const void* bias_w);
+extern "C" int bff_flash_relpos_wgmma(const void* q, const void* k, const void* v,
+                                      const void* bias_h, const void* bias_w, void* o, int BH,
+                                      int S, int kh, float scale, void* stream);
+extern "C" int bff_window_relpos_wgmma(const void* q, const void* k, const void* v,
+                                       const void* bias_h, const void* bias_w, void* o, int G,
+                                       float scale, void* stream);
+
+namespace {
+
 #define BFF_BY_HEAD_DIM(FN, T, ...)                                 \
   (D <= 32 ? FN<T, 32>(__VA_ARGS__)                                 \
    : D <= 64 ? FN<T, 64>(__VA_ARGS__)                               \
@@ -584,6 +599,8 @@ extern "C" int bff_flash_attention_relpos(int dtype, const void* q, const void* 
   if (BH < 1 || S < 1 || D < 1 || D > 128 || kh < 1 || kw < 1 || kh * kw != S ||
       kh + kw > 256)
     return -1;
+  if (bff_relpos_wgmma_takes(0, dtype, D, S, kh, kw, scale, q, k, v, o, bias_h, bias_w))
+    return bff_flash_relpos_wgmma(q, k, v, bias_h, bias_w, o, BH, S, kh, scale, stream);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return BFF_BY_HEAD_DIM(launch_flash, float, q, k, v, bias_h, bias_w, o, BH, S, D, kh, kw,
@@ -605,6 +622,8 @@ extern "C" int bff_window_attention_relpos(int dtype, const void* q, const void*
                                            int wh, int ww, float scale, void* stream) {
   if (G < 1 || S < 1 || S > 256 || D < 1 || D > 128 || wh < 1 || ww < 1 || wh * ww != S)
     return -1;
+  if (bff_relpos_wgmma_takes(1, dtype, D, S, wh, ww, scale, q, k, v, o, bias_h, bias_w))
+    return bff_window_relpos_wgmma(q, k, v, bias_h, bias_w, o, G, scale, stream);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return BFF_BY_HEAD_DIM(launch_window, float, q, k, v, bias_h, bias_w, o, G, S, D, wh, ww,

@@ -90,6 +90,8 @@ def library() -> ctypes.CDLL:
     lib.bff_flash_attention.restype = i
     lib.bff_flash_wgmma_takes.argtypes = [i, i, i, i, f, p, p, p, p]
     lib.bff_flash_wgmma_takes.restype = i
+    lib.bff_relpos_wgmma_takes.argtypes = [i, i, i, i, i, i, f, p, p, p, p, p, p]
+    lib.bff_relpos_wgmma_takes.restype = i
     lib.bff_ms_deform_sample.argtypes = [i, p, p, p, p, p, i, i, i, i, i, i, i,
                                          ctypes.POINTER(ctypes.c_int), p]
     lib.bff_ms_deform_sample.restype = i

@@ -10,9 +10,13 @@ global blocks; :func:`wgmma_route`) to the wgmma/TMA kernel of
 and everything else (K2) to the mma.sync tile or the f32 kernel, counted as
 ``flash_attention``. A second entry (``csrc/relpos_attention.cu``) adds SAM's
 decomposed relative-position bias from its thin factors (``flash_attention_relpos``,
-reached through ``attend_relpos``). The wrappers launch them for CUDA
-tensors and raise on what they do not take; CPU tensors take the plain
-versions.
+reached through ``attend_relpos``); it routes SAM ViT-H's bf16 head-dim-80
+calls on its 64-wide grids (K4; :func:`relpos_wgmma_route`) to the
+wgmma/TMA kernel of ``csrc/relpos_attention_wgmma.cu``, counted as
+``flash_attention_relpos_wgmma``, and the rest to the mma.sync tile or the
+f32 kernel, counted as ``flash_attention_relpos``. The wrappers launch them
+for CUDA tensors and raise on what they do not take; CPU tensors take the
+plain versions.
 """
 
 from __future__ import annotations
@@ -42,6 +46,64 @@ def wgmma_route(dtype: int, d: int, s: int, valid_len: int, scale: float, *ptrs:
     f32 = ctypes.c_float(scale).value
     return (dtype == 1 and d == 64 and s >= 1 and valid_len == s and 0.0 < f32 <= _FLT_MAX
             and all(p % 16 == 0 for p in ptrs))
+
+
+def relpos_wgmma_route(kind: int, dtype: int, d: int, s: int, rows: int, cols: int,
+                       scale: float, *ptrs: int) -> bool:
+    """The mirror of ``bff_relpos_wgmma_takes``: whether the rel-pos entries
+    run the wgmma/TMA kernels of ``csrc/relpos_attention_wgmma.cu`` for a
+    call. ``kind`` 0 is ``bff_flash_attention_relpos`` (K4, a ``rows`` x
+    ``cols`` = kh x kw key grid), 1 is ``bff_window_attention_relpos`` (K5,
+    wh x ww windows); dtype 0 = float32, 1 = bfloat16; ``ptrs`` the data
+    pointers of q, k, v, the output, bias_h and bias_w. Taken: bf16, head
+    dim 80, kw = 64 with 1 <= kh <= 64 (K4) or 14 x 14 windows (K5), a
+    positive finite scale (rounded to f32 as the call passes it) and every
+    pointer 16-byte aligned."""
+    f32 = ctypes.c_float(scale).value
+    if kind == 0:
+        shape = cols == 64 and 1 <= rows <= 64 and s == rows * cols
+    elif kind == 1:
+        shape = rows == 14 and cols == 14 and s == 196
+    else:
+        shape = False
+    return (shape and dtype == 1 and d == 80 and 0.0 < f32 <= _FLT_MAX
+            and all(p % 16 == 0 for p in ptrs))
+
+
+def relpos_wgmma_fragment(kind: int, warp: int, lane: int, tile: int, s: int = 196):
+    """The mirror of ``csrc/relpos_attention_wgmma.cu``'s index arithmetic:
+    for lane ``lane`` of warp ``warp`` (0..3) of a consumer warpgroup, one
+    tuple per score register i, (i, row, key, ky, kx, table_row): the
+    warpgroup row and the key its accumulator value holds, the grid cell
+    (ky, kx) whose factors the kernel adds to it, and the row of the factor
+    table it reads them from (None where the key is masked). Register 4 j + e
+    holds row 16 warp + lane / 4 + 8 (e / 2), column 8 j + 2 (lane % 4) + e %
+    2 of the m64nN tile.
+
+    K4 (kind 0): ``tile`` is the 128-key tile t of a 64-wide grid (grid rows
+    2 t and 2 t + 1); ky = 2 t + j / 8, kx = 8 (j % 8) + 2 (lane % 4) + e %
+    2 (bias_w held in registers, bias_h by half-row); rows are the
+    warpgroup's, the table row the same. K5 (kind 1): ``tile`` is the m-tile
+    of a 14 x 14 window of ``s`` = 196 tokens; key = column of the n200 tile;
+    the pair c = 8 j + 2 (lane % 4) gives ky = c / 14, kx = c % 14 + e % 2;
+    keys >= s are masked; the table row is min(row, s - 1)."""
+    quad = lane % 4
+    out = []
+    for i in range(64 if kind == 0 else 100):
+        j, e = divmod(i, 4)
+        row = 16 * warp + lane // 4 + 8 * (e // 2)
+        col = 8 * j + 2 * quad + e % 2
+        if kind == 0:
+            out.append((i, row, 128 * tile + col, 2 * tile + j // 8,
+                        8 * (j % 8) + 2 * quad + e % 2, row))
+        else:
+            row += 64 * tile
+            c = 8 * j + 2 * quad
+            if c < s:
+                out.append((i, row, col, c // 14, c % 14 + e % 2, min(row, s - 1)))
+            else:
+                out.append((i, row, col, None, None, None))
+    return out
 
 
 def _plain_probs(q: torch.Tensor, k: torch.Tensor, scale: float,
@@ -173,7 +235,10 @@ def _check_relpos(name, q, k, v, bias_h, bias_w, rows, cols):
         raise ValueError(f"{name}: head dim {d} > 128")
 
 
-def _launch_relpos(fn_name, q, k, v, bias_h, bias_w, rows, cols, scale):
+def _launch_relpos(fn_name, kind, counter, q, k, v, bias_h, bias_w, rows, cols, scale):
+    """Launch ``fn_name`` and count the launch under ``counter``, or under
+    ``counter + "_wgmma"`` where :func:`relpos_wgmma_route` says the entry
+    takes the wgmma kernel."""
     from beyondff_tpu_torch.kernels import _build
 
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
@@ -182,12 +247,17 @@ def _launch_relpos(fn_name, q, k, v, bias_h, bias_w, rows, cols, scale):
     bias_w = bias_w.to(q.dtype).contiguous()
     bh, s, d = q.shape
     out = torch.empty_like(q)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bias_h.data_ptr(),
+            bias_w.data_ptr())
+    if relpos_wgmma_route(kind, _DTYPES[q.dtype], d, s, rows, cols, scale, *ptrs):
+        counter += "_wgmma"
+    qp, kp, vp, op, hp, wp = ptrs
     rc = getattr(_build.library(), fn_name)(
-        _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), bias_h.data_ptr(),
-        bias_w.data_ptr(), out.data_ptr(), bh, s, d, rows, cols, ctypes.c_float(scale),
+        _DTYPES[q.dtype], qp, kp, vp, hp, wp, op, bh, s, d, rows, cols, ctypes.c_float(scale),
         torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"{fn_name} kernel launch failed (code {rc})")
+        raise RuntimeError(f"{counter} kernel launch failed (code {rc})")
+    dispatch.launch_counts[counter] += 1
     return out
 
 
@@ -205,9 +275,8 @@ def flash_attention_relpos(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if kh + kw > 256:
         raise ValueError(f"flash_attention_relpos: kh + kw = {kh + kw} > 256")
     scale = q.shape[-1] ** -0.5 if scale is None else float(scale)
-    out = _launch_relpos("bff_flash_attention_relpos", q, k, v, bias_h, bias_w, kh, kw, scale)
-    dispatch.launch_counts["flash_attention_relpos"] += 1
-    return out
+    return _launch_relpos("bff_flash_attention_relpos", 0, "flash_attention_relpos", q, k, v,
+                          bias_h, bias_w, kh, kw, scale)
 
 
 def relpos_shapes_ok(kh: int, kw: int) -> bool:

@@ -9,7 +9,11 @@ bias_h[q, ky] + bias_w[q, kx]: bf16 inputs on the tensor-core tile of
 ``csrc/attention_tc.cuh`` (an online softmax over the window's few key
 tiles, P rounded to bf16 before P V as the TPU kernel rounds it; within
 ``flash_attention.bf16_error_bound``), f32 inputs with a plain softmax on
-f32 FMAs.
+f32 FMAs. SAM ViT-H's bf16 14 x 14 windows at head dim 80
+(``flash_attention.relpos_wgmma_route``) take the wgmma/TMA kernel of
+``csrc/relpos_attention_wgmma.cu`` instead, counted as
+``window_attention_relpos_wgmma``: the window's whole softmax at once, the
+output divided by its f32 denominator after P V, within the same bound.
 A window's zero-padded tokens (``window_partition``) are real keys; only the
 TPU's lane padding beyond S was masked there. Like the JAX kernel it is not
 wired into the SAM encoder.
@@ -43,7 +47,5 @@ def window_attention_relpos(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     fa._check_relpos("window_attention_relpos", q, k, v, bias_h, bias_w, win_h, win_w)
     if q.shape[1] > 256:
         raise ValueError(f"window_attention_relpos: {q.shape[1]} tokens > 256")
-    out = fa._launch_relpos("bff_window_attention_relpos", q, k, v, bias_h, bias_w,
-                            win_h, win_w, q.shape[-1] ** -0.5)
-    dispatch.launch_counts["window_attention_relpos"] += 1
-    return out
+    return fa._launch_relpos("bff_window_attention_relpos", 1, "window_attention_relpos", q, k,
+                             v, bias_h, bias_w, win_h, win_w, q.shape[-1] ** -0.5)

@@ -22,11 +22,15 @@ the corner rows it loads (``corner_gbps``: value rows of in-map corners,
 each load counted) and the byte bound. K1's ``tile_order`` variant walks
 the encoder raster's queries in the order :func:`tile_order` gives. K3's
 cases (EfficientSAM-S's global blocks through ``bff_flash_attention``: the
-wgmma kernel in this tree, the mma.sync tile in a tree from before it) run
-``scaled_dot_product_attention`` on the same inputs as one more entry of
-the same rounds (``library``), and take device time, TFLOP/s, the
-operations bound and the host microseconds per call (the enqueue, tensor
-maps included).
+wgmma kernel in this tree, the mma.sync tile in a tree from before it) and
+K4's and K5's (SAM ViT-H's global and windowed blocks through the rel-pos
+entries: the wgmma kernels of ``relpos_attention_wgmma.cu`` in this tree,
+the mma.sync tile in a tree from before them) run
+``scaled_dot_product_attention`` (with the rel-pos bias as a dense float
+mask for K4 and K5) on the same inputs as one more entry of the same rounds
+(``library``), and take device time, TFLOP/s and GB/s, the bound (the
+larger of operations and bytes) and the host microseconds per call (the
+enqueue, tensor maps included).
 Prints one JSON line per (case, variant) with the card's name and power
 limit; the lines also go to
 ``kernel_variants.json`` in ``--out`` (the build directory by default),
@@ -57,7 +61,8 @@ from beyondff_tpu_torch.utils.profiling import HBM_BYTES_PER_S, PEAK_FLOPS, devi
 OUT = os.path.join(_build.BUILD_DIR, "variants")
 RELPOS, IOU, MSD = "relpos_attention.cu", "mask_iou.cu", "ms_deform_sample.cu"
 FLASH, WGMMA = "flash_attention.cu", "flash_attention_wgmma.cu"
-SOURCES = (RELPOS, IOU, MSD, FLASH, WGMMA)
+RWG = "relpos_attention_wgmma.cu"
+SOURCES = (RELPOS, IOU, MSD, FLASH, WGMMA, RWG)
 ROUNDS = 3
 SET_ORDER = "bff_ms_deform_set_order"
 
@@ -87,6 +92,28 @@ def _head_run(warps):
         (MSD, "  const long long rows = (long long)g.B * g.Q * g.H;\n",
          f"  {run}\n  const long long rows = "
          "(long long)g.B * ((g.Q + run - 1) / run) * run * g.H;\n")))
+
+
+def _k5_pingpong():
+    """K5's consumers take turns to issue each product: a turn before the
+    scores and before P V, handed on after each commit."""
+    scores = "                            sw32_desc(base + kWKHi, 16), 1);\n        wgmma_commit();\n"
+    pv = ("          wgmma_m64n16k16_rs(o_hi, p[kk], sw32_desc(base + kWVHi + kk * 512, 256), kk);"
+          "\n        }\n        wgmma_commit();\n")
+    hand_on = "        turn_arrive(next_turn);\n"
+    take = "        turn_sync(my_turn);\n"
+    row = ("    const int wrow = ((threadIdx.x / 32) & 3) * 16 + lane / 4;"
+           "  // the lane's row of an m-tile\n")
+    done = ("      if (lane == 0) bar_arrive(&bars->empty[st]);"
+            "  // one arrival per consumer warp\n    }\n")
+    return (
+        (RWG, row, row + "    const int my_turn = 1 + wg, next_turn = 1 + (wg + 1) % kWConsumers;\n"
+                         "    if (wg == 1) turn_arrive(next_turn);\n"),
+        (RWG, "        float s[kWKeys / 2];\n", "        float s[kWKeys / 2];\n" + take),
+        (RWG, scores, scores + hand_on),
+        (RWG, "        float o_lo[32], o_hi[8];\n", "        float o_lo[32], o_hi[8];\n" + take),
+        (RWG, pv, pv + hand_on),
+        (RWG, done, done + "    if (wg == 0) turn_sync(my_turn);\n"))
 
 
 # name -> (sources to build, edits as (file, old, new))
@@ -119,16 +146,6 @@ VARIANTS = {
                                   "constexpr int PB = 1;"),)),
     "two_points": ((MSD,), ((MSD, "constexpr int PB = PT > 0 ? PT : 1;",
                              "constexpr int PB = PT > 0 ? 2 : 1;"),)),
-    # K5 (and K4) with the general window modifier, one key at a time
-    "singles": ((RELPOS,), (
-        (RELPOS, "  if (ww % 2 == 0)\n    return launch_window_tc_kind<DP, true>",
-         "  if (false)\n    return launch_window_tc_kind<DP, true>"),
-        (RELPOS, "  if (kw % 2 == 0)\n    return launch_flash_tc<DP, kPairs>",
-         "  if (false)\n    return launch_flash_tc<DP, kPairs>"))),
-    # the factor tables by plain loads instead of 4-byte cp.async
-    "plain_table": ((RELPOS,), (
-        ("attention_tc.cuh", "const bool words = ((kh | kw) & 1) == 0 &&",
-         "const bool words = false &&"),)),
     # K6's unaligned rows loaded after the mma instead of before it
     "load_after_mma": ((IOU,), (
         (IOU, "      if (c + 1 < chunks) cr.load(g, c + 1);  // in flight during the mma\n", ""),
@@ -148,8 +165,37 @@ VARIANTS = {
     # K3: two consumer warpgroups, a 128-query tile
     "k3_two_consumers": ((FLASH, WGMMA), ((WGMMA, "constexpr int kConsumers = 3;",
                                            "constexpr int kConsumers = 2;"),)),
+    # K4: two consumer warpgroups (240 registers each), a 128-query tile, tile
+    # t's Q K^T issued before tile t - 1's P V
+    "k4_two_consumers": ((RELPOS, RWG), (
+        (RWG, "constexpr int kConsumers = 3;", "constexpr int kConsumers = 2;"),
+        (RWG, "constexpr bool kOverlap = false;", "constexpr bool kOverlap = true;"))),
+    # K4: two consumers, each tile's products in turn
+    "k4_two_serial": ((RELPOS, RWG), ((RWG, "constexpr int kConsumers = 3;",
+                                        "constexpr int kConsumers = 2;"),)),
+    # K4: three consumers with the overlap (scores and P live at once: spills)
+    "k4_overlap": ((RELPOS, RWG), ((RWG, "constexpr bool kOverlap = false;",
+                                     "constexpr bool kOverlap = true;"),)),
+    # K4: the consumers issue their products whenever they are ready
+    "k4_no_pingpong": ((RELPOS, RWG), ((RWG, "constexpr bool kPingpong = true;",
+                                         "constexpr bool kPingpong = false;"),)),
+    # K4: three K and V tiles in flight
+    "k4_stages_3": ((RELPOS, RWG), ((RWG, "constexpr int kStages = 2;",
+                                      "constexpr int kStages = 3;"),)),
+    # K5: the two consumers take turns to issue their products, as K4's do
+    # (consumer 1 hands consumer 0 the first turn; consumer 0 takes the
+    # surplus one after its loop)
+    "k5_pingpong": ((RELPOS, RWG), _k5_pingpong()),
+    # K5: one consumer warpgroup walking the four m-tiles
+    "k5_one_consumer": ((RELPOS, RWG), ((RWG, "constexpr int kWConsumers = 2;",
+                                          "constexpr int kWConsumers = 1;"),)),
+    # K5: two blocks an SM, each one consumer and one window in flight
+    "k5_two_blocks": ((RELPOS, RWG), (
+        (RWG, "constexpr int kWConsumers = 2;", "constexpr int kWConsumers = 1;"),
+        (RWG, "constexpr int kWStages = 2;", "constexpr int kWStages = 1;"),
+        (RWG, "constexpr int kWBlocksPerSM = 1;", "constexpr int kWBlocksPerSM = 2;"),
+        (RWG, "constexpr int kWConsumerRegs = 240;", "constexpr int kWConsumerRegs = 232;"))),
 }
-VARIANTS["singles_plain_table"] = ((RELPOS,), VARIANTS["singles"][1] + VARIANTS["plain_table"][1])
 
 
 def tile_order(shapes, tile, device):
@@ -212,8 +258,12 @@ def has(lib, fn):
 
 
 def attention_case(g, grid, window):
-    """(launch(lib) -> out, check(out) -> excess over the bound) for K4 or K5
-    in bf16 at SAM's factors, as ``chip_smoke.py`` builds them."""
+    """K4 or K5 in bf16 at SAM's factors, as ``chip_smoke.py`` builds them,
+    through the rel-pos entries; after (name, launch, check) come SDPA with
+    the bias as a dense float mask on the same inputs, the operations and the
+    bytes of one call."""
+    import torch.nn.functional as F
+
     hh, ww = grid
     s, d = hh * ww, 80
     gen = torch.Generator(device="cuda").manual_seed(s + g)
@@ -240,7 +290,11 @@ def attention_case(g, grid, window):
     def check(got):
         return float(((got.float() - want.float()).abs() - bound).max())
 
-    return fn, launch, check
+    mask = fa.relpos_bias(bias_h, bias_w, torch.bfloat16).bfloat16()[None]
+    q4, k4, v4 = (t[None] for t in (q, k, v))
+    library = lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask)[0]
+    nbytes = (4 * g * s * d + g * s * (hh + ww)) * 2
+    return fn, launch, check, library, 4 * g * s * s * d, nbytes
 
 
 def k3_case(bh, s):
@@ -272,7 +326,7 @@ def k3_case(bh, s):
         return float(((got.float() - want.float()).abs() - bound).max())
 
     library = lambda: F.scaled_dot_product_attention(q4, k4, v4).view(bh, s, d)
-    return fn, launch, check, library, 4 * bh * s * s * d
+    return fn, launch, check, library, 4 * bh * s * s * d, 4 * bh * s * d * 2
 
 
 def host_us(fn, iters=50):
@@ -426,7 +480,11 @@ def main():
                 name = f"k1 {which} b{b} {str(dtype)[6:]}"
                 cases[name] = lambda w=which, b=b, d=dtype: deform_case(w, b, d)
     cases.update({
+        # SAM ViT-H's global blocks at the batch of 4 (square and rect grid)
+        # and at one frame; its windowed blocks at 4 and 1 frames
         "k4 (64, 4096, 80)": lambda: attention_case(64, (64, 64), False),
+        "k4 (64, 3072, 80)": lambda: attention_case(64, (48, 64), False),
+        "k4 (16, 4096, 80)": lambda: attention_case(16, (64, 64), False),
         "k5 (1600, 196, 80)": lambda: attention_case(1600, (14, 14), True),
         "k5 (400, 196, 80)": lambda: attention_case(400, (14, 14), True),
         "k6 self (600, 250000)": lambda: iou_case(600, None, 250_000),
@@ -445,9 +503,11 @@ def main():
     os.makedirs(args.out, exist_ok=True)
     lines = []
     for case, make in cases.items():
-        # K1: (unique bytes, corner-row bytes); K3: (library call, operations)
+        # K1: (unique bytes, corner-row bytes); K3-K5: (library call,
+        # operations, bytes)
         fn, launch, check, *nbytes = make()
-        library, flops = nbytes if nbytes and callable(nbytes[0]) else (None, None)
+        library, flops, io_bytes = (nbytes if nbytes and callable(nbytes[0])
+                                    else (None, None, None))
         if library:
             nbytes = []
         calls = {n: (lambda lib=lib: launch(lib)) for n, lib in libs.items() if has(lib, fn)}
@@ -463,10 +523,14 @@ def main():
         for n in calls:
             rec = {"case": case, "variant": n, "ms": min(times[n]), "ms_rounds": times[n],
                    "right": excess[n] <= 0.0, "excess": excess[n], "card": card}
-            if library:  # K3 and its yardstick: device time, rate, bound, host time
+            if library:  # K3-K5 and their yardstick: device time, rates, bound, host time
                 rec["device_ms"] = device_ms(calls[n])
                 rec["tflops"] = flops / rec["device_ms"] / 1e9
-                rec["bound_ms"] = flops / PEAK_FLOPS["bfloat16"] * 1e3
+                rec["gbps"] = io_bytes / rec["device_ms"] / 1e6
+                ops_ms = flops / PEAK_FLOPS["bfloat16"] * 1e3
+                bytes_ms = io_bytes / HBM_BYTES_PER_S * 1e3
+                rec["bound_ms"] = max(ops_ms, bytes_ms)
+                rec["bound_by"] = "operations" if ops_ms >= bytes_ms else "bytes"
                 rec["host_us"] = host_us(calls[n])
                 if n == "library":
                     rec["right"] = None  # a yardstick, not a variant: not gated

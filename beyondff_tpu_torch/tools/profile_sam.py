@@ -42,7 +42,7 @@ def global_branch(cfg: sam_mod.SAMConfig, launches: dict, ablate: str) -> dict:
     launches, and whether they added the rel-pos bias."""
     if not cfg.global_attn_indexes:
         return {"global_branch": None, "global_relpos": None}
-    if launches.get("flash_attention_relpos"):
+    if launches.get("flash_attention_relpos") or launches.get("flash_attention_relpos_wgmma"):
         return {"global_branch": "relpos_flash", "global_relpos": "kept"}
     if ((launches.get("flash_attention") or launches.get("flash_attention_wgmma"))
             and not cfg.use_rel_pos):

@@ -40,8 +40,9 @@ Phases (each one's failure ends the run with a non-zero exit):
    fused captions, ``BFF_SAM_RELPOS_FLASH=1``, after three timed 2D passes
    (per-class ``run()``, ``run_classes`` unfused and fused, whose banked
    records must equal the per-class ones); launch counts are set to 0 just
-   before the sweep and read after it; then the ``sam_encode`` span with
-   the rel-pos flash kernel off, on, on, off;
+   before the sweep and read after it, and every K4 launch must count as
+   its wgmma kernel (``flash_attention_relpos_wgmma``); then the
+   ``sam_encode`` span with the rel-pos flash kernel off, on, on, off;
 7. drive the 3D half — ``projection.run`` -> ``refinement.run`` ->
    ``evaluate.run`` — at full width for one (class, scene): 250 000 points,
    300 frames with 640x480 depth, 600 lifted 968x1296 masks, 150 stage-1
@@ -89,8 +90,9 @@ Phases (each one's failure ends the run with a non-zero exit):
 11. the rect encode (``tools/measure_sam_rect.py`` on SAM ViT-H with
    ``BFF_SAM_RELPOS_FLASH=1`` and on EfficientSAM-S, bf16, a batch of 4
    968x1296 frames: encoder ms square against rect, embedding deviation,
-   mask IoU, launch counts; K4 at (64, 3072, 80) and K3 at (24, 3072, 64)
-   against their plain versions and SDPA); YOLO-World-L with the v1 head
+   mask IoU, launch counts, K4 all through ``flash_attention_relpos_wgmma``;
+   K3 at (24, 3072, 64) against its plain version and SDPA; K4 at (64,
+   3072, 80) is phase 2's); YOLO-World-L with the v1 head
    from a v1-layout file, card against CPU, NMS index for index; the
    fast variant's hit regime with the frame prefetch off, on with one
    loader thread and with four (records byte-equal); the port's
@@ -120,7 +122,13 @@ Phase 2 also holds the mask-IoU kernel bit for bit against its plain version
 at the aggregation's (600, 250 000) self-IoU and refinement's (20 x 150,
 250 000) cross IoU, and at 250 007 points (rows off 16-byte boundaries), and
 the rel-pos attention kernels at SAM ViT-H's global (16 B, 4096, 80) and
-windowed (400 B, 196, 80) shapes, K3 at EfficientSAM-S's global blocks
+windowed (400 B, 196, 80) shapes and at the rect grid's (64, 3072, 80)
+(bf16 takes the wgmma kernels of ``csrc/relpos_attention_wgmma.cu``, each
+call counted under the counter ``flash_attention.relpos_wgmma_route``
+names, with its host microseconds a call), the mma.sync tile of
+``csrc/attention_tc.cuh``, which keeps every other bf16 call, at SAM
+ViT-L's global (64, 4096, 64) and windowed (1600, 196, 64) shapes, K3 at
+EfficientSAM-S's global blocks
 (6 B, 4096, 64) in bf16, at the rect grid's (24, 3072, 64) and at a ragged
 (24, 4095, 64) (each call must count under the counter
 ``flash_attention.wgmma_route`` names), and the NMS kernel index for index
@@ -193,6 +201,32 @@ WGMMA_DESIGN = ("bf16 wgmma: S = Q K^T m64n128k16 from shared memory, O += P V m
                 "(setmaxnreg 32/160) taking turns (pingpong) to issue their products, Q K^T of "
                 "tile t issued before P V of tile t - 1")
 FMA_DESIGN = "f32 FMA from shared memory"
+# csrc/relpos_attention_wgmma.cu: K4 (False) and K5 (True)
+RELPOS_WGMMA_DESIGN = {
+    False: ("bf16 wgmma at head dim 80: each tile two TMA boxes (columns 0-63 in the 128-byte "
+            "swizzle, 64-79 in the 32-byte one), S = Q K^T m64n128k16 (4 + 1 k-steps), O += P V "
+            "m64n64k16 + m64n16k16 with P in registers; 128-key K/V tiles in a 2-stage mbarrier "
+            "ring by a producer warpgroup; three consumer warpgroups of 64 rows (setmaxnreg "
+            "32/160) taking turns, each tile's products in turn; bias_w in registers, bias_h "
+            "per half-row from shared memory"),
+    True: ("bf16 wgmma at head dim 80: a persistent grid, a producer warpgroup keeping two "
+           "14 x 14 windows in flight (Q, K, V by TMA in two boxes each, the factor tables by "
+           "bulk copies), two consumer warpgroups of two 64-row m-tiles each; S = Q K^T one "
+           "m64n200k16 chain, the window's whole softmax in registers, O += P V over 13 k16 "
+           "steps (m64n64k16 + m64n16k16)"),
+}
+
+
+def host_us(torch, fn, iters=50):
+    """Host microseconds a call of ``fn``, the launches enqueued back to
+    back (the device runs behind)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / iters * 1e6
 
 
 def deform_case(torch, dw, name, q_locs, dtype, modes, dev, rng, b):
@@ -294,31 +328,46 @@ def flash_case(torch, fa, name, shape, valid_len, dtype, dev):
     return rec
 
 
-def relpos_case(torch, fa, wa, sam_mod, name, g, grid, dtype, dev):
+def relpos_case(torch, fa, wa, sam_mod, name, g, grid, dtype, dev, d=80):
     """One rel-pos attention comparison + timing: K4 (``flash_attention_relpos``)
     over a global grid, K5 (``window_attention_relpos``) when ``name`` is a
-    window case. q, k, v from a seeded generator; the factors are real q . R
+    window case, at head dim ``d``. q, k, v from a seeded generator; the factors are real q . R
     products (``sam._rel_pos_factors``) of rel-pos tables at 0.1 scale, so
-    the bias moves the softmax as a trained table does."""
+    the bias moves the softmax as a trained table does. The record names the
+    counter the call went through (``..._wgmma`` for SAM ViT-H's bf16 calls,
+    the kernels of ``csrc/relpos_attention_wgmma.cu``), which must be the
+    one ``fa.relpos_wgmma_route`` names, and the host microseconds a call
+    (``host_us``: the enqueue, tensor maps included)."""
     import torch.nn.functional as F
 
+    from beyondff_tpu_torch.kernels import dispatch
     from beyondff_tpu_torch.utils.profiling import HBM_BYTES_PER_S, PEAK_FLOPS, device_ms
 
     hh, ww = grid
-    s, d = hh * ww, 80
+    s = hh * ww
     window = name.startswith("window")
     gen = torch.Generator(device=dev).manual_seed(SEED + g + s)
     q, k, v = (torch.randn(g, s, d, device=dev, generator=gen).to(dtype) for _ in range(3))
     rel_h = (0.1 * torch.randn(2 * hh - 1, d, device=dev, generator=gen)).to(dtype)
     rel_w = (0.1 * torch.randn(2 * ww - 1, d, device=dev, generator=gen)).to(dtype)
-    bias_h, bias_w = sam_mod._rel_pos_factors((hh, ww), (hh, ww), rel_h, rel_w, q)
+    bias_h, bias_w = (t.to(dtype).contiguous() for t in
+                      sam_mod._rel_pos_factors((hh, ww), (hh, ww), rel_h, rel_w, q))
     if window:
         kernel = lambda: wa.window_attention_relpos(q, k, v, bias_h, bias_w, hh, ww)
         plain = lambda: wa.window_attention_relpos_plain(q, k, v, bias_h, bias_w, hh, ww)
     else:
         kernel = lambda: fa.attend_relpos(q, k, v, bias_h, bias_w, ww)
         plain = lambda: fa.attend_relpos_plain(q, k, v, bias_h, bias_w, ww)
-    got, want = kernel(), plain()
+    before = dict(dispatch.launch_counts)
+    got = kernel()
+    went = [key for key, n in dispatch.launch_counts.items() if n != before[key]]
+    routed = ("window_attention_relpos" if window else "flash_attention_relpos") + (
+        "_wgmma" if fa.relpos_wgmma_route(int(window), int(dtype == torch.bfloat16), d, s, hh,
+                                          ww, d ** -0.5, *(t.data_ptr() for t in
+                                                           (q, k, v, got, bias_h, bias_w)))
+        else "")
+    check(went == [routed], f"rel-pos {name}: launched {went}, the route says {routed}")
+    want = plain()
     torch.cuda.synchronize()
     diff = (got.float() - want.float()).abs()
     bf16 = dtype == torch.bfloat16
@@ -350,11 +399,13 @@ def relpos_case(torch, fa, wa, sam_mod, name, g, grid, dtype, dev):
         # device time per launch of the kernel and of its yardstick
         dev_ms = device_ms(kernel)
         extra = {"device_ms": dev_ms, "tflops": flops / dev_ms / 1e9,
-                 "library_device_ms": device_ms(library),
-                 "design": TC_DESIGN + ", 4 warps x 32 rows, " + (
-                     "bias_h as a row shift" if ww % 64 == 0 else
-                     "key coordinates once per tile, the last tile's k16 steps only")
-                     + (", persistent blocks loading the next window ahead" if window else "")}
+                 "gbps": nbytes / dev_ms / 1e6, "library_device_ms": device_ms(library),
+                 "design": (RELPOS_WGMMA_DESIGN[window] if routed.endswith("_wgmma") else
+                            TC_DESIGN + ", 4 warps x 32 rows, " + (
+                                "bias_h as a row shift" if ww % 64 == 0 else
+                                "key coordinates once per tile, the last tile's k16 steps only")
+                            + (", persistent blocks loading the next window ahead"
+                               if window else ""))}
     if window:
         # the SAM encoder's own dense windowed attention (models/sam.py,
         # ViTAttention.forward without a kernel): logits, the dense bias,
@@ -367,10 +418,10 @@ def relpos_case(torch, fa, wa, sam_mod, name, g, grid, dtype, dev):
         if bf16:
             extra["dense_path_device_ms"] = device_ms(dense)
     del mask
-    rec = {"case": name, "kernel": "window_attention_relpos" if window
-           else "flash_attention_relpos", "dtype": dname, "shape": [g, s, d],
+    rec = {"case": name, "kernel": routed, "dtype": dname, "shape": [g, s, d],
            "grid": [hh, ww], "max_abs_err": err, "tol_excess": excess, "tol": tol,
            "ms": cuda_ms(torch, kernel, 5 if s > 1024 else 20), **extra,
+           "host_us": host_us(torch, kernel),
            "plain_ms": cuda_ms(torch, plain, 3),
            "bound_ms": max(bound_bytes, bound_ops),
            "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
@@ -485,7 +536,7 @@ def small_reference(torch, mods, work):
 
 
 PORT_KERNELS = ("ms_deform_sample_kernel", "flash_fwd_kernel", "flash_tc_kernel",
-                "flash_wgmma_kernel", "nms_fixed_kernel")
+                "flash_wgmma_kernel", "flash_relpos_wgmma_kernel", "nms_fixed_kernel")
 
 
 def profile_scene(torch, seg2d, seg, cfg, scene, timed_scene_s, phase="device_profile"):
@@ -1279,8 +1330,9 @@ def full_width_sweep(torch, mods, Config, work, dev, models):
                 c_cfg, classes, segmentor=segmentor(c_cfg), profiler=prof))
         del os.environ["BFF_SEG2D_FUSED"]
         for name, p in passes.items():
-            check(p["launches"]["flash_attention_relpos"] > 0,
-                  f"{name}: the rel-pos flash kernel was not launched")
+            check(p["launches"]["flash_attention_relpos_wgmma"] > 0
+                  and p["launches"]["flash_attention_relpos"] == 0,
+                  f"{name}: K4 was not launched, or off its wgmma kernel: {p['launches']}")
         worst_conf, worst_iou, n = records_diff(io, rle, cfgs["run_per_class"],
                                                 cfgs["run_classes"], classes)
         emit({"phase": "sweep_2d_passes", "classes": classes, "frames": SWEEP_FRAMES,
@@ -1307,9 +1359,11 @@ def full_width_sweep(torch, mods, Config, work, dev, models):
         check(all(all(st.values()) for st in status.values()), f"sweep stages: {status}")
         check(runner.amortized == {"segmentation": classes, "projection": classes},
               f"amortized passes did not run for every class: {runner.amortized}")
-        for name in ("flash_attention_relpos", "ms_deform_sample", "flash_attention",
+        for name in ("flash_attention_relpos_wgmma", "ms_deform_sample", "flash_attention",
                      "mask_iou"):
             check(launches[name] > 0, f"{name} was not launched in the sweep")
+        check(launches["flash_attention_relpos"] == 0,
+              f"K4 launched off its wgmma kernel in the sweep: {launches}")
         masks_2d = 0
         for c in classes:
             masks_2d += sum(len(r["segmented_frame_masks"])
@@ -1362,8 +1416,11 @@ def full_width_sweep(torch, mods, Config, work, dev, models):
                 seg.process_scene("scene0000_00", "clothes")
             finally:
                 seg.profiler = None
+            check(dispatch.launch_counts["flash_attention_relpos"] == 0,
+                  f"K4 launched off its wgmma kernel: {dispatch.launch_counts}")
             ab.append({"BFF_SAM_RELPOS_FLASH": flag, "frames": prof.items["sam_encode.frames"],
-                       "relpos_launches": dispatch.launch_counts["flash_attention_relpos"],
+                       "relpos_launches":
+                           dispatch.launch_counts["flash_attention_relpos_wgmma"],
                        "encode_ms_batch": cuda_ms(torch, lambda: sam.encode_frames(batch), 3),
                        "batch": FRAME_BATCH})
             check((ab[-1]["relpos_launches"] > 0) == (flag == "1"),
@@ -2466,17 +2523,19 @@ KERNEL_SYMBOLS = {"ms_deform_sample": ("ms_deform_sample_kernel",),
                   "flash_attention": ("flash_tc_kernel", "flash_fwd_kernel"),
                   "flash_attention_wgmma": ("flash_wgmma_kernel",),
                   "flash_attention_relpos": ("flash_relpos_tc_kernel", "flash_relpos_kernel"),
+                  "flash_attention_relpos_wgmma": ("flash_relpos_wgmma_kernel",),
                   "window_attention_relpos": ("window_relpos_tc_kernel", "window_relpos_kernel"),
+                  "window_attention_relpos_wgmma": ("window_relpos_wgmma_kernel",),
                   "mask_iou": ("iou_count_kernel",), "nms_fixed": ("nms_fixed_kernel",)}
 
 
 def rect_phase(torch, mods, dev, card):
     """``measure_sam_rect`` on SAM ViT-H (bf16, ``BFF_SAM_RELPOS_FLASH=1``)
     and EfficientSAM-S (bf16) for the main path's batch of 968x1296 frames,
-    launch counts set to 0 before each; then K4 and K3 at the rect grid's
-    shapes against their plain versions. Returns SAM ViT-H (the one-rank
-    part encodes with it)."""
-    fa, wa, sam_mod, esam, dispatch, measure = mods
+    launch counts set to 0 before each; then K3 at the rect grid's shape
+    against its plain version (phase 2 holds K4 there). Returns SAM ViT-H
+    (the one-rank part encodes with it)."""
+    fa, sam_mod, esam, dispatch, measure = mods
     out = {}
     for name, build in (("sam_vit_h", lambda: sam_mod.SAM.create(
             "vit_h", seed=SEED + 2, dtype=torch.bfloat16, device=dev)),
@@ -2493,9 +2552,11 @@ def rect_phase(torch, mods, dev, card):
         emit({"phase": "sam_rect", "model": name, "card": card, **rec})
         check(rec["grid_rect"] == list(RECT_GRID) and rec["grid_square"] == [64, 64],
               f"{name}: rect grid {rec['grid_rect']}")
-        kernel = "flash_attention_relpos" if name == "sam_vit_h" else "flash_attention_wgmma"
+        kernel = ("flash_attention_relpos_wgmma" if name == "sam_vit_h"
+                  else "flash_attention_wgmma")
         check(rec["launches"].get(kernel, 0) > 0, f"{name}: {kernel} not launched")
         check(rec["launches"].get("flash_attention", 0) == 0
+              and rec["launches"].get("flash_attention_relpos", 0) == 0
               and (name == "efficientsam_s" or rec["launches"]["flash_attention_wgmma"] == 0),
               f"{name}: attention off its kernel: {rec['launches']}")
         check(np.isfinite(rec["emb_rel_l2"]) and min(rec["mask_iou"]) > 0.0,
@@ -2503,11 +2564,9 @@ def rect_phase(torch, mods, dev, card):
         out[name] = model if name == "sam_vit_h" else None
         del model, frames
         torch.cuda.empty_cache()
-    g = FRAME_BATCH
-    relpos_case(torch, fa, wa, sam_mod, "sam_global_rect", 16 * g, RECT_GRID, torch.bfloat16,
-                dev)
     s = RECT_GRID[0] * RECT_GRID[1]
-    flash_case(torch, fa, "efficientsam_global_rect", (6 * g, s, 64), s, torch.bfloat16, dev)
+    flash_case(torch, fa, "efficientsam_global_rect", (6 * FRAME_BATCH, s, 64), s,
+               torch.bfloat16, dev)
     return out["sam_vit_h"]
 
 
@@ -2714,18 +2773,18 @@ def one_rank_phase(torch, mods, sam, cfg_path, work, dev):
 
 
 def phase11(torch, mods, Config, work, tmp, dev, fast_seg, fast_cfg, card, detector):
-    """Phase 11: the rect encode (SAM ViT-H and EfficientSAM-S, K4 and K3 at
-    the rect shapes), the YOLO-World v1 head, the seg2d frame prefetch, the
+    """Phase 11: the rect encode (SAM ViT-H and EfficientSAM-S, K3 at the
+    rect shape), the YOLO-World v1 head, the seg2d frame prefetch, the
     full-width single-scene loop under a trace (phase 4's checkpoint files,
     ``detector``), and the one-rank branches."""
-    (fa, wa, sam_mod, esam, yw, nms, resize, gd, dispatch, seg2d, projection, io,
+    (fa, sam_mod, esam, yw, nms, resize, gd, dispatch, seg2d, projection, io,
      StageProfiler) = mods
     from beyondff_tpu_torch.parallel.frames import shard_frames
     from beyondff_tpu_torch.tools import make_synthetic_scene, measure_sam_rect, single_scene
     from beyondff_tpu_torch.utils import ply, profiling
 
     t0 = time.perf_counter()
-    sam = rect_phase(torch, (fa, wa, sam_mod, esam, dispatch, measure_sam_rect), dev, card)
+    sam = rect_phase(torch, (fa, sam_mod, esam, dispatch, measure_sam_rect), dev, card)
     v1_head_phase(torch, (yw, nms, resize), dev, work)
     prefetch_phase(torch, (seg2d, dispatch, StageProfiler), fast_seg, fast_cfg, work, card)
     cfg_path = single_scene_phase(
@@ -3031,6 +3090,20 @@ def main() -> int:
                 torch, fa, wa, sam_mod, "window_sam", 400 * b, (14, 14), dtype, dev)
             if b == 1 and dtype == torch.float32:
                 f32_one_frame_s += time.perf_counter() - t_case
+    # K4 on the rect grid's 48 x 64 tokens at the main path's batch
+    cases[("relpos_global_rect", "bfloat16", FRAME_BATCH)] = relpos_case(
+        torch, fa, wa, sam_mod, "sam_global_rect", 16 * FRAME_BATCH, RECT_GRID, torch.bfloat16,
+        dev)
+    # the mma.sync tile of csrc/attention_tc.cuh keeps every bf16 call outside
+    # bff_relpos_wgmma_takes: SAM ViT-L's global blocks (16 heads x B of the
+    # 64 x 64 grid at head dim 64, K4 under BFF_SAM_RELPOS_FLASH=1) and its
+    # 14 x 14 windows (K5's shape for ViT-L and ViT-B)
+    for key, name, g, grid in (("relpos_global_tile", "sam_vit_l_global", 16, (64, 64)),
+                               ("relpos_window_tile", "window_sam_vit_l", 400, (14, 14))):
+        cases[(key, "bfloat16", FRAME_BATCH)] = rec = relpos_case(
+            torch, fa, wa, sam_mod, name, g * FRAME_BATCH, grid, torch.bfloat16, dev, d=64)
+        check(rec["kernel"] in ("flash_attention_relpos", "window_attention_relpos"),
+              f"rel-pos {name}: went through {rec['kernel']}, not the mma.sync tile")
     emit({"phase": "kernel_cases", "f32_one_frame_seconds": f32_one_frame_s})
     # the aggregation's self-IoU and refinement's stage-2 x stage-1 IoU
     cases["iou_self"] = mask_iou_case(torch, kiou, "aggregation_self", 600, None, 250_000, dev)
@@ -3135,8 +3208,9 @@ def main() -> int:
     # no path: 0) and the 3D half's mask-IoU launches
     iou_launches, fixture3d = full_width_3d(torch, mods3d, Config, work3d, dev, cfg.detector)
     launches = {**launches, "mask_iou": iou_launches,
-                "flash_attention_relpos": sweep_launches["flash_attention_relpos"],
-                "window_attention_relpos": sweep_launches["window_attention_relpos"]}
+                **{key: sweep_launches[key] for key in (
+                    "flash_attention_relpos", "flash_attention_relpos_wgmma",
+                    "window_attention_relpos", "window_attention_relpos_wgmma")}}
 
     # ---------------------------------------------------------------- 8
     marks.append((8, time.perf_counter()))
@@ -3162,7 +3236,7 @@ def main() -> int:
     marks.append((11, time.perf_counter()))
     from beyondff_tpu_torch.core import resize as core_resize
 
-    phase11(torch, (fa, wa, sam_mod, esam, yw, nms, core_resize, gd, dispatch, seg2d,
+    phase11(torch, (fa, sam_mod, esam, yw, nms, core_resize, gd, dispatch, seg2d,
                     projection, io, StageProfiler), Config, work, work3d, dev, fast_seg, fast_cfg,
             card, cfg.detector)
 
@@ -3175,24 +3249,31 @@ def main() -> int:
     shutil.rmtree(work3d)
 
     table = []
+    bf16_b = ("bfloat16", FRAME_BATCH)
     for key, src, replaces in (
-            ("deform_clamp", "beyondff_tpu_torch/csrc/ms_deform_sample.cu",
+            (("deform_clamp", *bf16_b), "beyondff_tpu_torch/csrc/ms_deform_sample.cu",
              "beyondff_tpu/kernels/deform_window.py:170"),
-            ("flash_900", "beyondff_tpu_torch/csrc/flash_attention.cu",
+            (("flash_900", *bf16_b), "beyondff_tpu_torch/csrc/flash_attention.cu",
              "beyondff_tpu/kernels/flash_attention.py:270"),
-            ("relpos_global", "beyondff_tpu_torch/csrc/relpos_attention.cu",
+            # K4 and K5 in bf16 at head dim 80 take the wgmma kernels; other
+            # bf16 shapes keep the mma.sync tile of relpos_attention.cu
+            (("relpos_global_tile", *bf16_b), "beyondff_tpu_torch/csrc/relpos_attention.cu",
              "beyondff_tpu/kernels/flash_attention.py:193"),
-            ("relpos_window", "beyondff_tpu_torch/csrc/relpos_attention.cu",
+            (("relpos_window_tile", *bf16_b), "beyondff_tpu_torch/csrc/relpos_attention.cu",
+             "beyondff_tpu/kernels/window_attention.py:51"),
+            (("relpos_global", *bf16_b), "beyondff_tpu_torch/csrc/relpos_attention_wgmma.cu",
+             "beyondff_tpu/kernels/flash_attention.py:193"),
+            (("relpos_window", *bf16_b), "beyondff_tpu_torch/csrc/relpos_attention_wgmma.cu",
              "beyondff_tpu/kernels/window_attention.py:51"),
             ("iou_self", "beyondff_tpu_torch/csrc/mask_iou.cu",
              "beyondff_tpu/kernels/mask_iou.py:55"),
-            ("k3_efficientsam", "beyondff_tpu_torch/csrc/flash_attention_wgmma.cu",
+            (("k3_efficientsam", *bf16_b), "beyondff_tpu_torch/csrc/flash_attention_wgmma.cu",
              "beyondff_tpu/kernels/flash_attention.py:68"),
             ("nms", "beyondff_tpu_torch/csrc/nms_fixed.cu",
              "beyondff_tpu/models/yolo_world.py:313")):
-        c = cases[key] if key in ("iou_self", "nms") else cases[(key, "bfloat16", FRAME_BATCH)]
+        c = cases[key]
         # K3's row counts the fast variant's launches (EfficientSAM's global
-        # blocks), K2's the classic path's
+        # blocks), K2's the classic path's, K4's the sweep's
         name = c["kernel"]
         table.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
                       "launches": launches[name], "max_abs_err": c["max_abs_err"],
@@ -3201,7 +3282,8 @@ def main() -> int:
                       # device time per launch (and of the library call), and rates
                       **{key: c.get(key) for key in ("device_ms", "library_device_ms",
                                                      "tflops", "tops", "gbps", "dense_path_ms",
-                                                     "dense_path_device_ms", "design")
+                                                     "dense_path_device_ms", "host_us",
+                                                     "dtype", "shape", "design")
                          if key in c}})
     shutil.rmtree(work)
     marks.append((None, time.perf_counter()))

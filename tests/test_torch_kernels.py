@@ -486,11 +486,14 @@ def test_mask_iou_wrapper_checks_on_cpu():
         tiou.pairwise_iou(a.to("meta"))
 
 
-@pytest.mark.parametrize("name", ["singles", "plain_table", "load_after_mma", "cut128",
-                                  "singles_plain_table", "head_run_warp", "head_run_block",
+@pytest.mark.parametrize("name", ["load_after_mma", "cut128",
+                                  "head_run_warp", "head_run_block",
                                   "tile_order", "min_blocks_2", "min_blocks_4",
                                   "point_at_a_time", "two_points", "k3_serial", "k3_stages_3",
-                                  "k3_no_pingpong", "k3_two_consumers"])
+                                  "k3_no_pingpong", "k3_two_consumers", "k4_two_consumers",
+                                  "k4_two_serial", "k4_overlap", "k4_no_pingpong",
+                                  "k4_stages_3", "k5_one_consumer",
+                                  "k5_two_blocks", "k5_pingpong"])
 def test_kernel_variant_edits_match_the_sources(name):
     """Each variant ``tools/kernel_variants.py`` builds is a set of edits
     that must each match its source once: they go stale with the kernels."""
@@ -721,15 +724,20 @@ def test_flash_relpos_kernel_matches_plain_on_card(cuda_device, dtype, bh, rows,
     grid row per key tile: bias_h as a row shift), a ragged grid (S = 370, not
     a multiple of the 64-row tiles), head dim 128, a 32 x 128 grid (two key
     tiles per grid row) and the 64 x 64 grid with factors at scale 3 (a
-    peaked softmax). f32 within 1e-4, bf16 within the derived bound."""
+    peaked softmax). f32 within 1e-4, bf16 within the derived bound. bf16
+    at head dim 80 on a 64-wide grid counts as the wgmma kernel
+    (``flash_attention_relpos_wgmma``), every other call as
+    ``flash_attention_relpos``."""
     q, k, v, bias_h, bias_w = (torch.from_numpy(a).to(cuda_device) for a in _relpos_inputs(
         np.random.default_rng(rows), bh, rows, cols, d, scale))
     q, k, v = (t.to(dtype) for t in (q, k, v))
-    before = dispatch.launch_counts["flash_attention_relpos"]
+    key = ("flash_attention_relpos_wgmma" if dtype == torch.bfloat16 and d == 80 and cols == 64
+           else "flash_attention_relpos")
+    before = dict(dispatch.launch_counts)
     got = tfa.attend_relpos(q, k, v, bias_h, bias_w, cols)
     want = tfa.attend_relpos_plain(q, k, v, bias_h, bias_w, cols)
     torch.cuda.synchronize()
-    assert dispatch.launch_counts["flash_attention_relpos"] == before + 1
+    assert _launched(before) == [key]
     _assert_within_bound(got, want, tfa.bf16_error_bound(q, k, v, want, bias_h=bias_h,
                                                          bias_w=bias_w))
 
@@ -742,15 +750,19 @@ def test_window_relpos_kernel_matches_plain_on_card(cuda_device, dtype, g, wh, w
     """K5 against its plain version: SAM ViT-H's 14 x 14 x 80 window (S =
     196: a last key tile of 4 keys, m16 tiles past S), odd window widths (no
     bias_w pairs), a whole 16 x 16 window. f32 within 1e-4; bf16, on the
-    tensor-core tile, within the derived bound."""
+    tensor-core tile or (14 x 14 x 80, counted as
+    ``window_attention_relpos_wgmma``) the wgmma kernel, within the derived
+    bound."""
     q, k, v, bias_h, bias_w = (torch.from_numpy(a).to(cuda_device) for a in
                                _relpos_inputs(np.random.default_rng(wh), g, wh, ww, d))
     q, k, v = (t.to(dtype) for t in (q, k, v))
-    before = dispatch.launch_counts["window_attention_relpos"]
+    key = ("window_attention_relpos_wgmma" if dtype == torch.bfloat16 and d == 80 and wh == 14
+           and ww == 14 else "window_attention_relpos")
+    before = dict(dispatch.launch_counts)
     got = twa.window_attention_relpos(q, k, v, bias_h, bias_w, wh, ww)
     want = twa.window_attention_relpos_plain(q, k, v, bias_h, bias_w, wh, ww)
     torch.cuda.synchronize()
-    assert dispatch.launch_counts["window_attention_relpos"] == before + 1
+    assert _launched(before) == [key]
     _assert_within_bound(got, want, tfa.bf16_error_bound(q, k, v, want, bias_h=bias_h,
                                                          bias_w=bias_w))
 
