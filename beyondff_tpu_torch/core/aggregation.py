@@ -63,7 +63,7 @@ def aggregate(
     ``device`` (``cuda`` unless the caller names another; a device tensor
     stays on its own device)."""
     if isinstance(membership, torch.Tensor):
-        mem = membership.bool().contiguous()
+        mem = mask_ops.as_mask(membership, membership.device)
     else:
         mem = mask_ops.as_mask(membership, mask_ops.resolve_device(device))
     n_ins = mem.shape[0]
@@ -120,11 +120,17 @@ def aggregate_chunks(
         m = int(dev.shape[1])
         idx = [torch.arange(i * m, i * m + m_i) for i, m_i in enumerate(sizes) if m_i]
         if idx:
-            flat = dev.reshape(-1, dev.shape[-1])
-            parts.append(flat.index_select(0, torch.cat(idx).to(dev.device)))
+            parts.append((dev.reshape(-1, dev.shape[-1]), torch.cat(idx).to(dev.device)))
     if not parts:
         return _empty(n_points)
-    mem = torch.cat(parts)  # (I, N) bool, rows in frame-then-mask order
+    # (I, N) bool, rows in frame-then-mask order, gathered straight into rows
+    # 128 bytes apart (the mask-IoU call's wgmma kernel takes them)
+    mem = kiou.aligned_rows(sum(len(i) for _f, i in parts), parts[0][0].shape[-1],
+                            parts[0][0].device)
+    row = 0
+    for flat, rows in parts:
+        torch.index_select(flat, 0, rows, out=mem[row:row + len(rows)])
+        row += len(rows)
     return aggregate(mem, confidences, labels, iou_thres, min_aggregated_masks)
 
 

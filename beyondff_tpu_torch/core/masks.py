@@ -27,8 +27,20 @@ Device = Union[str, torch.device, None]
 
 
 def as_mask(x, device: torch.device) -> torch.Tensor:
+    """``x`` as a bool tensor on ``device``; a 2-D mask comes laid out as
+    ``kiou.aligned_rows`` lays it out (rows 128 bytes apart, which the
+    mask-IoU call takes on its wgmma kernel), copied there unless it is
+    already."""
     t = torch.as_tensor(np.asarray(x) if not isinstance(x, torch.Tensor) else x)
-    return t.to(device=device, dtype=torch.bool).contiguous()
+    if t.dim() != 2:
+        return t.to(device=device, dtype=torch.bool).contiguous()
+    dev = torch.device(device)
+    same = t.device.type == dev.type and (dev.index is None or t.device.index == dev.index)
+    if same and t.dtype == torch.bool and kiou.is_aligned(t):
+        return t
+    out = kiou.aligned_rows(t.shape[0], t.shape[1], device)
+    out.copy_(t)
+    return out
 
 
 # --------------------------------------------------------------- pairwise IoU

@@ -1,7 +1,10 @@
 // Pairwise IoU of boolean point masks on Hopper (sm_90a), CUDA C++.
 //
 // Replaces the TPU kernel beyondff_tpu/kernels/mask_iou.py
-// (pairwise_iou_pallas, body _iou_kernel, wrapper pad_and_iou):
+// (pairwise_iou_pallas, body _iou_kernel, wrapper pad_and_iou), together with
+// csrc/mask_iou_wgmma.cu, to which bff_mask_iou routes every call whose rows
+// lie on 16-byte boundaries (bff_mask_iou_wgmma_takes); the count kernel
+// below keeps every other call, and the finish kernel serves both:
 //
 //   out[i, j] = |a_i & b_j| / (|a_i| + |b_j| - |a_i & b_j|),   0 / 0 = nan
 //
@@ -19,13 +22,15 @@
 // it, barely. Refinement's cross IoU, (20 x 150, 250,000), reads 42.5 MB
 // (~13 us) for 1.5e9 operations: bound by bytes.
 //
-// Design: the intersections are a product over N of 0/1 bytes, so they go
-// to the int8 tensor cores, mma.sync.m16n8k32.row.col.s32.s8.s8.s32, on the
-// bool bytes themselves: A = a (Ia, N) row-major is the row operand, B = b
-// (Ib, N) row-major is the col operand (as K^T is in attention_tc.cuh's
-// Q K^T), counts in s32 (exact). Fragments come by ldmatrix from shared
-// tiles whose row stride, 144 bytes (9 granules of 16), puts the eight rows
-// of an ldmatrix phase on eight distinct groups of banks.
+// Design of the mma.sync count kernel (rows at any address; row strides
+// need not be multiples of 16): the intersections are a product over N of
+// 0/1 bytes, so they go to the int8 tensor cores,
+// mma.sync.m16n8k32.row.col.s32.s8.s8.s32, on the bool bytes themselves:
+// A = a (Ia, N) row-major is the row operand, B = b (Ib, N) row-major is
+// the col operand (as K^T is in attention_tc.cuh's Q K^T), counts in s32
+// (exact). Fragments come by ldmatrix from shared tiles whose row stride,
+// 80 bytes (5 granules of 16), puts the eight rows of an ldmatrix phase on
+// eight distinct groups of banks.
 // * A block of 8 warps owns a 128 x 128 output tile (each warp 64 x 32: 4 x
 //   4 m16n8 tiles, 16 mma for 4 A and 2 B fragments per k32 step) and one
 //   slice of N (split-K). For a self-IoU only the tiles on and above the
@@ -35,19 +40,18 @@
 //   integers). A warp whose rows or columns all lie past Ia or Ib skips its
 //   mma; the others run every tile, with no branch between ldmatrix and
 //   mma (rows past the end are zeros).
-// * Rows on 16-byte boundaries (N % 16 == 0 and 16-byte aligned bases)
-//   stream in by cp.async 16-byte copies, 128 bytes a row per step, through
-//   a ring of 3 stages. Other rows, which real scenes have (any N), cannot
-//   take cp.async at their own addresses. For them each thread owns one
-//   stage row: it loads the 5 aligned 16-byte granules around the row's
-//   64-byte chunk from global memory into registers, cuts the chunk out of
-//   them there (a funnel shift, bytes past the slice zeroed) and stores the
-//   4 cut granules into a ring of 2 cut stages. The loads of chunk c + 1
-//   are issued before the mma of chunk c and cut after it, with one barrier
-//   a step; no load leaves the granules that hold the tensor. Shared memory
-//   sees the same bytes as on the aligned path. It takes 1.7-1.8x the
-//   aligned time (PERF.md section 6): loads after the mma, four lanes a row
-//   side by side, and L1 prefetches were each measured slower.
+// * Rows off 16-byte boundaries, which contiguous masks of a real scene
+//   have (any N), cannot take cp.async or TMA at their own addresses. Each
+//   thread owns one stage row: it loads the 5 aligned 16-byte granules
+//   around the row's 64-byte chunk from global memory into registers, cuts
+//   the chunk out of them there (a funnel shift, bytes past the slice
+//   zeroed) and stores the 4 cut granules into a ring of 2 stages. The
+//   loads of chunk c + 1 are issued before the mma of chunk c and cut after
+//   it, with one barrier a step; no load leaves the granules that hold the
+//   tensor. It takes 1.7-1.8x the time that a cp.async ring took over
+//   aligned rows (NVIDIA H100 80GB HBM3, 700 W; PERF.md section 6); loads
+//   after the mma, four lanes a row side by side, and L1 prefetches were
+//   each measured slower.
 // * Areas: a self-IoU's |a_i| is its diagonal count inter[i, i]; there is
 //   no area pass. A cross IoU counts row areas from the shared tile with
 //   __dp4a (the blocks of the first tile column for a, of the first tile
@@ -55,9 +59,8 @@
 // * A second small kernel turns counts into IoU: the quotient of exact
 //   integers, correctly rounded, nan at 0 / 0; for a self-IoU it fills the
 //   lower triangle from the upper.
-// Shared memory: 3 x 256 x 144 = 110,592 bytes a block (aligned) or 2 x 256
-// x 80 = 40,960 (cut); at most 128 registers a thread (__launch_bounds__(256,
-// 2)): two blocks per SM.
+// Shared memory: 2 x 256 x 80 = 40,960 bytes a block; at most 128 registers
+// a thread (__launch_bounds__(256, 2)): two blocks per SM.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -69,23 +72,15 @@
 namespace {
 
 constexpr int kTile = 128;            // output rows and columns per block
-constexpr int kChunk = 128;           // bytes of N per row per stage
-constexpr int kSegs = kChunk / 16;    // 16-byte segments of a chunk row
-constexpr int kLd = kChunk + 16;      // shared row stride: 9 granules
+constexpr int kChunk = 128;           // bytes of N a slice of the split is a multiple of
 constexpr int kRows = 2 * kTile;      // a stage: A's 128 rows, then B's 128
-constexpr int kStages = 3;            // the aligned ring
-constexpr int kCut = 64;              // bytes of a row per step, unaligned rows
+constexpr int kCut = 64;              // bytes of a row per step
+constexpr int kLd = kCut + 16;        // shared row stride: 5 granules
 constexpr int kGran = kCut / 16 + 1;  // aligned granules around a cut chunk
-// shared memory: 3 stages of 256 rows x 144 bytes (aligned), or 2 cut
-// stages of 256 x 80 (unaligned)
-constexpr int kSmemAligned = kStages * kRows * kLd;  // 110,592
-constexpr int kSmemCut = 2 * kRows * (kCut + 16);    // 40,960
+constexpr int kStage = kRows * kLd;
+constexpr int kSmem = 2 * kStage;     // 2 stages of 256 rows x 80 bytes: 40,960
 constexpr int kThreads = 256;
 constexpr int kMT = 4, kNT = 4;       // a warp's m16 and n8 tiles: 64 x 32
-
-using bff_tc::cp_async16;
-using bff_tc::cp_async_commit;
-using bff_tc::cp_async_wait;
 
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const uint8_t* p) {
   bff_tc::ldsm_x4(r, reinterpret_cast<const __nv_bfloat16*>(p));
@@ -133,29 +128,15 @@ struct Slice {
   const uint8_t* a;
   const uint8_t* b;
   int Ia, Ib, row0, col0;
-  long long N, n_end;
+  long long lda, ldb, n_end;
 
   // Row r of a stage: A's row row0 + r (r < 128) or B's row col0 + r - 128;
   // null past Ia or Ib.
   __device__ __forceinline__ const uint8_t* row(int r) const {
-    if (r < kTile) return row0 + r < Ia ? a + (long long)(row0 + r) * N : nullptr;
-    return col0 + r - kTile < Ib ? b + (long long)(col0 + r - kTile) * N : nullptr;
+    if (r < kTile) return row0 + r < Ia ? a + (long long)(row0 + r) * lda : nullptr;
+    return col0 + r - kTile < Ib ? b + (long long)(col0 + r - kTile) * ldb : nullptr;
   }
 };
-
-// Chunk [n0, n0 + 128) of the stage's rows by cp.async, for rows on 16-byte
-// boundaries (n_end then is a multiple of 16 too); zero-filled past the
-// slice and past Ia or Ib.
-__device__ __forceinline__ void load_aligned(uint8_t* st, const Slice& sl, long long n0) {
-#pragma unroll
-  for (int it = 0; it < kRows * kSegs / kThreads; ++it) {
-    const int idx = it * kThreads + threadIdx.x;
-    const int r = idx / kSegs, seg = idx % kSegs;
-    const uint8_t* src = sl.row(r);
-    const bool in = src != nullptr && n0 + 16 * seg < sl.n_end;
-    cp_async16(st + r * kLd + seg * 16, in ? src + n0 + 16 * seg : sl.a, in);
-  }
-}
 
 // One thread's stage row of an unaligned slice: the row's aligned granules
 // from the slice's start on (``gp``, null past Ia or Ib), the row's offset
@@ -187,19 +168,14 @@ struct CutRow {
   }
 };
 
-// Rows on 16-byte boundaries stream in chunks of 128 bytes through a ring of
-// 3 cp.async stages. Other rows stream in chunks of 64 bytes through
-// registers into a ring of 2 cut stages: in step c the block loads chunk
-// c + 1, multiplies chunk c, then cuts chunk c + 1 into the other stage,
-// with one barrier a step.
-template <bool kAligned>
+// Rows stream in chunks of 64 bytes through registers into a ring of 2
+// stages: in step c the block loads chunk c + 1, multiplies chunk c, then
+// cuts chunk c + 1 into the other stage, with one barrier a step.
 __global__ void __launch_bounds__(kThreads, 2)
 iou_count_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b, int Ia, int Ib,
-                 long long N, int self, int tiles_j, long long split_len,
-                 int* __restrict__ inter, int* __restrict__ area_a, int* __restrict__ area_b) {
-  constexpr int CH = kAligned ? kChunk : kCut;  // bytes of a row per step
-  constexpr int LD = CH + 16;                   // stage row stride
-  constexpr int STAGE = kRows * LD;
+                 long long N, long long lda, long long ldb, int self, int tiles_j,
+                 long long split_len, int* __restrict__ inter, int* __restrict__ area_a,
+                 int* __restrict__ area_b) {
   extern __shared__ __align__(16) uint8_t smem[];
   // the output tile: the upper triangle by rows for a self-IoU
   int ti = 0, tj = blockIdx.x;
@@ -214,8 +190,8 @@ iou_count_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b, i
     tj = blockIdx.x % tiles_j;
   }
   const long long n_begin = (long long)blockIdx.y * split_len;
-  const Slice sl{a, b, Ia, Ib, ti * kTile, tj * kTile, N, min(N, n_begin + split_len)};
-  const int chunks = (int)((sl.n_end - n_begin + CH - 1) / CH);
+  const Slice sl{a, b, Ia, Ib, ti * kTile, tj * kTile, lda, ldb, min(N, n_begin + split_len)};
+  const int chunks = (int)((sl.n_end - n_begin + kCut - 1) / kCut);
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x / 32;
   const int wr = warp / 4, wc = warp % 4;  // rows wr * 64, columns wc * 32
@@ -235,61 +211,42 @@ iou_count_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b, i
 #pragma unroll
     for (int nt = 0; nt < kNT; ++nt) acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] = acc[mt][nt][3] = 0;
 
-  // unaligned rows: thread t owns stage row t
+  // thread t owns stage row t
   CutRow cr{nullptr, 0u, sl.n_end - n_begin};
   uint4 g[kGran];
-  if (kAligned) {
-#pragma unroll
-    for (int s = 0; s < kStages - 1; ++s) {
-      if (s < chunks) load_aligned(smem + s * STAGE, sl, n_begin + (long long)s * CH);
-      cp_async_commit();
-    }
-  } else {
-    const uint8_t* src = sl.row(threadIdx.x);
-    if (src != nullptr) {
-      cr.off = (unsigned)(reinterpret_cast<uintptr_t>(src + n_begin) & 15u);
-      cr.gp = reinterpret_cast<const uint4*>(src + n_begin - cr.off);
-    }
-    cr.load(g, 0);
-    cr.cut(g, 0, smem + threadIdx.x * LD);
-    __syncthreads();  // cut chunk 0 is whole
+  const uint8_t* src = sl.row(threadIdx.x);
+  if (src != nullptr) {
+    cr.off = (unsigned)(reinterpret_cast<uintptr_t>(src + n_begin) & 15u);
+    cr.gp = reinterpret_cast<const uint4*>(src + n_begin - cr.off);
   }
+  cr.load(g, 0);
+  cr.cut(g, 0, smem + threadIdx.x * kLd);
+  __syncthreads();  // cut chunk 0 is whole
 
   for (int c = 0; c < chunks; ++c) {
-    const uint8_t* st;
-    if (kAligned) {
-      cp_async_wait<kStages - 2>();
-      __syncthreads();  // chunk c landed; every warp is past chunk c - 1
-      const int nxt = c + kStages - 1;
-      if (nxt < chunks)
-        load_aligned(smem + (nxt % kStages) * STAGE, sl, n_begin + (long long)nxt * CH);
-      cp_async_commit();
-      st = smem + (c % kStages) * STAGE;
-    } else {
-      if (c + 1 < chunks) cr.load(g, c + 1);  // in flight during the mma
-      st = smem + (c & 1) * STAGE;
-    }
+    if (c + 1 < chunks) cr.load(g, c + 1);  // in flight during the mma
+    const uint8_t* st = smem + (c & 1) * kStage;
     if (do_area) {
-      const uint4* row = reinterpret_cast<const uint4*>(st + threadIdx.x * LD);
+      const uint4* row = reinterpret_cast<const uint4*>(st + threadIdx.x * kLd);
 #pragma unroll
-      for (int seg = 0; seg < CH / 16; ++seg) area = count16(row[seg], area);
+      for (int seg = 0; seg < kCut / 16; ++seg) area = count16(row[seg], area);
     }
 
-    const uint8_t* sA = st + (wr * 64) * LD;
-    const uint8_t* sB = st + (kTile + wc * 32) * LD;
+    const uint8_t* sA = st + (wr * 64) * kLd;
+    const uint8_t* sB = st + (kTile + wc * 32) * kLd;
     if (live) {
       // one k32 step at a time: with the 64 accumulators, the fragments of
       // one step are what 128 registers hold
 #pragma unroll 1
-      for (int kk = 0; kk < CH / 32; ++kk) {
+      for (int kk = 0; kk < kCut / 32; ++kk) {
         uint32_t af[kMT][4];
 #pragma unroll
         for (int mt = 0; mt < kMT; ++mt)
-          ldsm_x4(af[mt], sA + (mt * 16 + (lane & 15)) * LD + kk * 32 + (lane >> 4) * 16);
+          ldsm_x4(af[mt], sA + (mt * 16 + (lane & 15)) * kLd + kk * 32 + (lane >> 4) * 16);
 #pragma unroll
         for (int np = 0; np < kNT / 2; ++np) {
           uint32_t bf[4];
-          ldsm_x4(bf, sB + (np * 16 + (lane & 7) + (lane >> 4) * 8) * LD + kk * 32 +
+          ldsm_x4(bf, sB + (np * 16 + (lane & 7) + (lane >> 4) * 8) * kLd + kk * 32 +
                           ((lane >> 3) & 1) * 16);
 #pragma unroll
           for (int mt = 0; mt < kMT; ++mt) {
@@ -300,11 +257,9 @@ iou_count_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b, i
       }
     }
 
-    if (!kAligned) {
-      // stage (c + 1) & 1 was last read in step c - 1, behind its barrier
-      if (c + 1 < chunks) cr.cut(g, c + 1, smem + ((c + 1) & 1) * STAGE + threadIdx.x * LD);
-      __syncthreads();  // cut chunk c + 1 is whole; every warp is past chunk c
-    }
+    // stage (c + 1) & 1 was last read in step c - 1, behind its barrier
+    if (c + 1 < chunks) cr.cut(g, c + 1, smem + ((c + 1) & 1) * kStage + threadIdx.x * kLd);
+    __syncthreads();  // cut chunk c + 1 is whole; every warp is past chunk c
   }
 
   // partial counts of the slice: c0, c1 at (lane / 4, 2 (lane % 4) + {0, 1})
@@ -353,28 +308,26 @@ __global__ void iou_finish_kernel(const int* __restrict__ inter, const int* __re
   out[idx] = (float)n / (float)u;  // IEEE division: 0 / 0 = nan
 }
 
-template <bool kAligned>
-cudaError_t launch_count(dim3 grid, cudaStream_t s, const uint8_t* pa, const uint8_t* pb, int Ia,
-                         int Ib, long long N, int self, int tiles_j, long long split_len,
-                         int* inter, int* area_a, int* area_b) {
-  static int configured = 48 * 1024;
-  const int bytes = kAligned ? kSmemAligned : kSmemCut;
-  cudaError_t err = bff_tc::allow_smem(iou_count_kernel<kAligned>, bytes, &configured);
-  if (err != cudaSuccess) return err;
-  iou_count_kernel<kAligned><<<grid, kThreads, bytes, s>>>(pa, pb, Ia, Ib, N, self, tiles_j,
-                                                           split_len, inter, area_a, area_b);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
-// a: (Ia, N) bytes, b: (Ib, N) bytes or null for a self-IoU (Ib = Ia); both
-// contiguous, each byte 0 or 1. workspace: Ia*Ib + Ia + Ib int32. out: (Ia,
-// Ib) float32. Returns cudaGetLastError() after the launches, or -1 for
-// arguments the kernel does not take.
+// csrc/mask_iou_wgmma.cu: rows on 16-byte boundaries, on int8 wgmma and TMA
+extern "C" int bff_mask_iou_wgmma_takes(int Ia, int Ib, long long N, long long lda,
+                                        long long ldb, const void* a, const void* b);
+extern "C" int bff_mask_iou_wgmma_count(const void* a, const void* b, int Ia, int Ib,
+                                        long long N, long long lda, long long ldb, int* inter,
+                                        int* area_a, int* area_b, void* stream);
+
+// a: (Ia, N) bytes with rows lda bytes apart, b: (Ib, N) bytes with rows ldb
+// apart, or null for a self-IoU (Ib = Ia, ldb ignored); each byte 0 or 1.
+// workspace: Ia*Ib + Ia + Ib int32. out: (Ia, Ib) float32. Returns
+// cudaGetLastError() after the launches, or a non-zero code for arguments
+// the kernels do not take (-1) or a refused tensor map (see
+// bff_mask_iou_wgmma_count).
 extern "C" int bff_mask_iou(const void* a, const void* b, int Ia, int Ib, long long N,
-                            void* workspace, void* out, void* stream) {
-  if (Ia < 1 || Ib < 1 || N < 0 || (b == nullptr && Ib != Ia)) return -1;
+                            long long lda, long long ldb, void* workspace, void* out,
+                            void* stream) {
+  if (b == nullptr) ldb = lda;
+  if (Ia < 1 || Ib < 1 || N < 0 || lda < N || ldb < N || (b == nullptr && Ib != Ia)) return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int self = b == nullptr;
   const uint8_t* pa = static_cast<const uint8_t*>(a);
@@ -385,7 +338,11 @@ extern "C" int bff_mask_iou(const void* a, const void* b, int Ia, int Ib, long l
   cudaError_t err = cudaMemsetAsync(workspace, 0, sizeof(int) * ((long long)Ia * Ib + Ia + Ib), s);
   if (err != cudaSuccess) return (int)err;
 
-  if (N > 0) {
+  if (N > 0 && bff_mask_iou_wgmma_takes(Ia, Ib, N, lda, ldb, a, b)) {
+    const int rc = bff_mask_iou_wgmma_count(a, b, Ia, Ib, N, lda, ldb, inter, area_a, area_b,
+                                            stream);
+    if (rc != 0) return rc;
+  } else if (N > 0) {
     int dev = 0, sms = 132;
     cudaGetDevice(&dev);
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -398,13 +355,12 @@ extern "C" int bff_mask_iou(const void* a, const void* b, int Ia, int Ib, long l
     splits = std::max(1LL, std::min({splits, chunks / 4, 65535LL}));
     const long long split_len = ((chunks + splits - 1) / splits) * kChunk;
     splits = (N + split_len - 1) / split_len;
-    const bool aligned = N % 16 == 0 && ((reinterpret_cast<uintptr_t>(pa) |
-                                          reinterpret_cast<uintptr_t>(pb)) & 15u) == 0;
-    const dim3 grid((unsigned)tiles, (unsigned)splits);
-    err = aligned ? launch_count<true>(grid, s, pa, pb, Ia, Ib, N, self, tiles_j, split_len,
-                                       inter, area_a, area_b)
-                  : launch_count<false>(grid, s, pa, pb, Ia, Ib, N, self, tiles_j, split_len,
-                                        inter, area_a, area_b);
+    static int configured = 48 * 1024;
+    err = bff_tc::allow_smem(iou_count_kernel, kSmem, &configured);
+    if (err != cudaSuccess) return (int)err;
+    iou_count_kernel<<<dim3((unsigned)tiles, (unsigned)splits), kThreads, kSmem, s>>>(
+        pa, pb, Ia, Ib, N, lda, ldb, self, tiles_j, split_len, inter, area_a, area_b);
+    err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
   const long long total = (long long)Ia * Ib;

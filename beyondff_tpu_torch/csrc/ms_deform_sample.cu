@@ -3,7 +3,11 @@
 // Replaces the TPU kernel beyondff_tpu/kernels/deform_window.py
 // (sample_level_windowed, the Pallas body _kernel) and the exact gather path
 // of beyondff_tpu/models/gdino/deformable.py (ms_deform_attn). One launch
-// covers every level and point of one MSDeformAttn call:
+// covers every level and point of one MSDeformAttn call. Every call of the
+// port takes this gather; a kernel that samples the encoder's windowed call
+// from TMA-staged windows lost to it at the encoder raster and is kept only
+// as a variant (tools/variant_csrc/ms_deform_window_tma.cu; PERF.md
+// section 6):
 //
 //   out[b, q, h, :] = sum_{l, p} aw[b, q, h, l, p] * bilinear(value_l[b, :, h, :], loc[b, q, h, l, p])
 //
@@ -54,10 +58,11 @@
 // corners lie in the map, 1.48 GB of corner rows, which stream at ~5.3 TB/s
 // (tools/kernel_variants.py, corner_gbps). The time moves with occupancy
 // but hardly with the loads in flight (4 or 16 a lane) or the query order.
-// From that we infer, with no counter to confirm it, that the rate at which
-// L1 and L2 return 64-byte rows sets it rather than latency. Staging a
-// level's window in shared memory, as the TPU kernel keeps it in VMEM, would
-// test that; it was not tried.
+// That suggested, with no counter to confirm it, that the rate at which L1
+// and L2 return 64-byte rows sets it. Staging each level's window in
+// shared memory by TMA, as the TPU kernel keeps it in VMEM, cut the rows
+// taken from L2 by two thirds and ran slower (the k1_staged variant):
+// L2's row rate is not what limits this kernel.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

@@ -2,7 +2,10 @@
 // share: mbarriers, TMA loads (tensor and plain bulk), shared-memory matrix
 // descriptors, wgmma issue and wait, named-barrier turns, and the run-time
 // lookup of cuTensorMapEncodeTiled. Used by csrc/flash_attention_wgmma.cu
-// (K3) and csrc/relpos_attention_wgmma.cu (K4 and K5).
+// (K3), csrc/relpos_attention_wgmma.cu (K4 and K5) and
+// csrc/mask_iou_wgmma.cu (K6: the s8 product, 2-D maps over byte rows,
+// cluster multicast); also by tools/variant_csrc/ms_deform_window_tma.cu, a
+// K1 variant that tools/kernel_variants.py builds.
 //
 // Descriptors. A TMA box written with CU_TENSOR_MAP_SWIZZLE_128B (rows of
 // 128 bytes) or _32B (rows of 32 bytes) is read by a descriptor of the same
@@ -52,6 +55,68 @@ __device__ __forceinline__ void bar_wait(uint64_t* bar, int parity) {
         : "r"(a), "r"(parity)
         : "memory");
   } while (!done);
+}
+
+// The same, giving up with a trap (the launch then fails and the wrapper
+// raises) once the barrier has been polled 2^26 times, far beyond any wait
+// of a working pipeline: a protocol fault shows as an error, not a hang.
+__device__ __forceinline__ void bar_wait_or_trap(uint64_t* bar, int parity) {
+  const uint32_t a = smem_u32(bar);
+  uint32_t done;
+  for (uint32_t polls = 0;; ++polls) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (polls == (1u << 26)) __trap();
+  }
+}
+
+// Arrival on the barrier at the same shared-memory offset in block ``cta``
+// of the cluster (this block included).
+__device__ __forceinline__ void bar_arrive_cluster(uint64_t* bar, uint32_t cta) {
+  asm volatile(
+      "{\n.reg .b32 ra;\n"
+      "mapa.shared::cluster.u32 ra, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [ra];\n}\n" ::"r"(smem_u32(bar)),
+      "r"(cta)
+      : "memory");
+}
+
+// Every thread of every block of the cluster meets here (release/acquire).
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.aligned;\nbarrier.cluster.wait.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// The box of ``map`` at (c0, c1) into dst, reported to ``bar``.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// The same box written at dst (and reported to the barrier at bar's offset)
+// in every block of the cluster that ``mask`` names.
+__device__ __forceinline__ void tma_load_2d_multicast(void* dst, const CUtensorMap* map,
+                                                      uint64_t* bar, int c0, int c1,
+                                                      uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%3, %4}], [%2], %5;\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "h"(mask)
+      : "memory");
 }
 
 // The box of ``map`` at coordinates (c0, c1, c2) into dst; completion (its
@@ -121,6 +186,12 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N][M]) {
     for (int j = 0; j < M; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
 }
 
+template <int N>
+__device__ __forceinline__ void fence_regs(int (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
 #define BFF_F4(a, i) "+f"(a[i]), "+f"(a[i + 1]), "+f"(a[i + 2]), "+f"(a[i + 3])
 #define BFF_F16(a, i) BFF_F4(a, i), BFF_F4(a, i + 4), BFF_F4(a, i + 8), BFF_F4(a, i + 12)
 
@@ -188,6 +259,29 @@ __device__ __forceinline__ void wgmma_m64n200k16_ss(float (&d)[100], uint64_t da
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+#define BFF_R4(a, i) "+r"(a[i]), "+r"(a[i + 1]), "+r"(a[i + 2]), "+r"(a[i + 3])
+#define BFF_R16(a, i) BFF_R4(a, i), BFF_R4(a, i + 4), BFF_R4(a, i + 8), BFF_R4(a, i + 12)
+
+// d (+)= A B for A 64 x 32 and B 32 x 128 signed bytes, both from shared
+// memory, K-major (the only layout wgmma takes for 8-bit types), counts in
+// s32. The accumulator layout is the f32 one of m64n128k16.
+__device__ __forceinline__ void wgmma_m64n128k32_s8(int (&d)[64], uint64_t da, uint64_t db,
+                                                    int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n}\n"
+      : BFF_R16(d, 0), BFF_R16(d, 16), BFF_R16(d, 32), BFF_R16(d, 48)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+#undef BFF_R16
+#undef BFF_R4
 #undef BFF_F16
 #undef BFF_F4
 
@@ -231,6 +325,22 @@ inline int encode_3d(EncodeTiled fn, CUtensorMap* map, const void* base, int d, 
     return -3;
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
                         strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : -1000 - static_cast<int>(r);
+}
+
+// Any tiled map: ``rank`` dimensions (innermost first), byte strides of
+// dimensions 1 .. rank - 1, the box, no interleave, zero fill out of
+// bounds. Return codes as encode_3d's.
+inline int encode_map(EncodeTiled fn, CUtensorMap* map, CUtensorMapDataType type, int rank,
+                      const void* base, const cuuint64_t* dims, const cuuint64_t* strides,
+                      const cuuint32_t* box, CUtensorMapSwizzle swizzle) {
+  const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
+  if (reinterpret_cast<uintptr_t>(base) % 16 != 0) return -3;
+  for (int i = 0; i + 1 < rank; ++i)
+    if (strides[i] % 16 != 0) return -3;
+  const CUresult r = fn(map, type, rank, const_cast<void*>(base), dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : -1000 - static_cast<int>(r);
 }

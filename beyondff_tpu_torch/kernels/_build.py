@@ -95,8 +95,11 @@ def library() -> ctypes.CDLL:
     lib.bff_ms_deform_sample.argtypes = [i, p, p, p, p, p, i, i, i, i, i, i, i,
                                          ctypes.POINTER(ctypes.c_int), p]
     lib.bff_ms_deform_sample.restype = i
-    lib.bff_mask_iou.argtypes = [p, p, i, i, ctypes.c_longlong, p, p, p]
+    ll = ctypes.c_longlong
+    lib.bff_mask_iou.argtypes = [p, p, i, i, ll, ll, ll, p, p, p]
     lib.bff_mask_iou.restype = i
+    lib.bff_mask_iou_wgmma_takes.argtypes = [i, i, ll, ll, ll, p, p]
+    lib.bff_mask_iou_wgmma_takes.restype = i
     lib.bff_nms_fixed.argtypes = [p, p, i, i, i, f, p, p, p]
     lib.bff_nms_fixed.restype = i
     for name in ("bff_flash_attention_relpos", "bff_window_attention_relpos"):

@@ -30,7 +30,14 @@ the mma.sync tile in a tree from before them) run
 mask for K4 and K5) on the same inputs as one more entry of the same rounds
 (``library``), and take device time, TFLOP/s and GB/s, the bound (the
 larger of operations and bytes) and the host microseconds per call (the
-enqueue, tensor maps included).
+enqueue, tensor maps included). K6's cases (aggregation's self-IoU and
+refinement's cross IoU, rows padded to the main path's strides or not)
+take ``torch._int_mm`` on int8 copies as their ``library`` entry and the
+int8 peak for their bound. K1's variants ``k1_staged*`` add
+``variant_csrc/ms_deform_window_tma.cu`` (the encoder's clamp call sampled
+from TMA-staged windows, which lost to the gather and is in no path) and
+time it at the bf16 encoder clamp cases on its own entry, with the plan of
+``deform_staged.device_plan``.
 Prints one JSON line per (case, variant) with the card's name and power
 limit; the lines also go to
 ``kernel_variants.json`` in ``--out`` (the build directory by default),
@@ -56,13 +63,19 @@ from beyondff_tpu_torch.kernels import flash_attention as fa
 from beyondff_tpu_torch.kernels import mask_iou as kiou
 from beyondff_tpu_torch.models import sam as sam_mod
 from beyondff_tpu_torch.models.gdino import deformable
+from beyondff_tpu_torch.tools import deform_staged
 from beyondff_tpu_torch.utils.profiling import HBM_BYTES_PER_S, PEAK_FLOPS, device_ms
 
 OUT = os.path.join(_build.BUILD_DIR, "variants")
 RELPOS, IOU, MSD = "relpos_attention.cu", "mask_iou.cu", "ms_deform_sample.cu"
 FLASH, WGMMA = "flash_attention.cu", "flash_attention_wgmma.cu"
 RWG = "relpos_attention_wgmma.cu"
-SOURCES = (RELPOS, IOU, MSD, FLASH, WGMMA, RWG)
+IWG, MSW = "mask_iou_wgmma.cu", "ms_deform_window_tma.cu"
+SOURCES = (RELPOS, IOU, MSD, FLASH, WGMMA, RWG, IWG)
+# sources only variants build, copied beside csrc's (whose headers they use)
+VARIANT_CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "variant_csrc")
+K1, K6 = (MSD,), (IOU, IWG)  # what a K1 or K6 variant builds
+K1_STAGED = (MSD, MSW)
 ROUNDS = 3
 SET_ORDER = "bff_ms_deform_set_order"
 
@@ -79,7 +92,7 @@ def _head_run(warps):
     """K1's rows walk ``warps`` warps' worth of queries of one head before
     the next head (the last run padded past Q)."""
     run = f"const int run = ({warps} * 32 + lanes - 1) / lanes;"
-    return ((MSD,), (
+    return (K1, (
         (MSD, _RASTER_ROWS, f"""  {run}
   const int runs = (Q + run - 1) / run;
   if (r >= (long long)B * runs * run * H) return;
@@ -125,7 +138,7 @@ VARIANTS = {
     "head_run_block": _head_run(8),
     # K1: the rows walk a query permutation set by bff_ms_deform_set_order
     # (null: the raster), each output at its query's own index
-    "tile_order": ((MSD,), (
+    "tile_order": (K1, (
         (MSD, "constexpr int kThreads = 256;\n",
          "constexpr int kThreads = 256;\n__device__ const int* g_order;\n"),
         (MSD, _RASTER_ROWS, _RASTER_ROWS.replace(
@@ -139,20 +152,43 @@ VARIANTS = {
          '  return (int)cudaMemcpyToSymbol(g_order, &p, sizeof(p));\n}\n\n'
          'extern "C" int bff_ms_deform_sample('))),
     # K1: registers for 2 or 4 blocks of 256 threads per SM (shipped: 3)
-    **{f"min_blocks_{n}": ((MSD,), ((MSD, "constexpr int kMinBlocks = 3;",
+    **{f"min_blocks_{n}": (K1, ((MSD, "constexpr int kMinBlocks = 3;",
                                      f"constexpr int kMinBlocks = {n};"),)) for n in (2, 4)},
     # K1: one point's four corners in flight instead of a level's sixteen, or two points'
-    "point_at_a_time": ((MSD,), ((MSD, "constexpr int PB = PT > 0 ? PT : 1;",
+    "point_at_a_time": (K1, ((MSD, "constexpr int PB = PT > 0 ? PT : 1;",
                                   "constexpr int PB = 1;"),)),
-    "two_points": ((MSD,), ((MSD, "constexpr int PB = PT > 0 ? PT : 1;",
+    "two_points": (K1, ((MSD, "constexpr int PB = PT > 0 ? PT : 1;",
                              "constexpr int PB = PT > 0 ? 2 : 1;"),)),
+    # K1 from TMA-staged windows (timed on its own entry at the bf16 encoder
+    # clamp cases); then with dense boxes (no swizzle: ldmatrix meets 4-way
+    # bank conflicts), 8 consumer warps (64 queries a pass) or one box stage
+    # (no load ahead of the consumers)
+    "k1_staged": (K1_STAGED, ()),
+    "k1_staged_dense": (K1_STAGED, (
+        (MSW, "uint32_t swz64(uint32_t off) { return off ^ (((off >> 7) & 3u) << 4); }",
+         "uint32_t swz64(uint32_t off) { return off; }"),
+        (MSW, "box, CU_TENSOR_MAP_SWIZZLE_64B);", "box, CU_TENSOR_MAP_SWIZZLE_NONE);"))),
+    "k1_staged_warps_8": (K1_STAGED, ((MSW, "constexpr int kConsumerWarps = 16;",
+                                "constexpr int kConsumerWarps = 8;"),)),
+    "k1_staged_stages_1": (K1_STAGED, ((MSW, "constexpr int kStages = 2;",
+                                 "constexpr int kStages = 1;"),)),
+    # K6 on wgmma: no cluster (every block loads its own A), or clusters of 4
+    "k6_no_multicast": (K6, ((IWG, "constexpr int kCluster = 2;", "constexpr int kCluster = 1;"),)),
+    "k6_cluster_4": (K6, ((IWG, "constexpr int kCluster = 2;", "constexpr int kCluster = 4;"),)),
+    # K6 on wgmma: a chunk's products kept in flight while the next chunk's
+    # issue (ptxas serializes them, C7515)
+    "k6_overlap": (K6, ((IWG, "constexpr bool kOverlap = false;",
+                         "constexpr bool kOverlap = true;"),)),
+    # K6 on wgmma: 3 or 6 stages in flight (shipped: 4)
+    **{f"k6_stages_{n}": (K6, ((IWG, "constexpr int kStages = 4;",
+                                f"constexpr int kStages = {n};"),)) for n in (3, 6)},
     # K6's unaligned rows loaded after the mma instead of before it
-    "load_after_mma": ((IOU,), (
-        (IOU, "      if (c + 1 < chunks) cr.load(g, c + 1);  // in flight during the mma\n", ""),
-        (IOU, "      if (c + 1 < chunks) cr.cut(",
-         "      if (c + 1 < chunks) cr.load(g, c + 1);\n      if (c + 1 < chunks) cr.cut("))),
+    "load_after_mma": (K6, (
+        (IOU, "    if (c + 1 < chunks) cr.load(g, c + 1);  // in flight during the mma\n", ""),
+        (IOU, "    if (c + 1 < chunks) cr.cut(",
+         "    if (c + 1 < chunks) cr.load(g, c + 1);\n    if (c + 1 < chunks) cr.cut("))),
     # K6's unaligned rows cut 128 bytes a step
-    "cut128": ((IOU,), ((IOU, "constexpr int kCut = 64;", "constexpr int kCut = 128;"),)),
+    "cut128": (K6, ((IOU, "constexpr int kCut = 64;", "constexpr int kCut = 128;"),)),
     # K3: tile t's Q K^T after tile t - 1's P V has finished, not before it
     "k3_serial": ((FLASH, WGMMA), ((WGMMA, "constexpr bool kOverlap = true;",
                                     "constexpr bool kOverlap = false;"),)),
@@ -218,6 +254,9 @@ def build_all(parent_csrc, names=None):
     for name, (sources, edits) in specs.items():
         src_dir = os.path.join(OUT, name, "csrc")
         shutil.copytree(parent_csrc if name == "parent" else _build.CSRC, src_dir)
+        if name != "parent":
+            for fname in os.listdir(VARIANT_CSRC):
+                shutil.copy(os.path.join(VARIANT_CSRC, fname), src_dir)
         for fname, old, new in edits:
             path = os.path.join(src_dir, fname)
             with open(path) as f:
@@ -341,37 +380,65 @@ def host_us(fn, iters=50):
     return (t1 - t0) / iters * 1e6
 
 
-def iou_case(ia, ib, n):
+def iou_case(ia, ib, n, padded):
+    """K6 at (ia, n) x (ib, n) (``ib`` None: a self-IoU) through
+    ``bff_mask_iou``, rows ``padded`` to 16-byte strides as the main path
+    allocates them (``mask_iou.aligned_rows``) or contiguous; a library from
+    before the strided entry (no ``bff_mask_iou_wgmma_takes``) gets the
+    contiguous rows. After (name, launch, check) come ``torch._int_mm`` on
+    int8 copies (intersections only) on the same masks, the operations (each
+    distinct pair once), the bytes and the int8 peak."""
+    from beyondff_tpu_torch.utils.profiling import PEAK_INT8_OPS
+
     gen = torch.Generator(device="cuda").manual_seed(ia + n)
+
+    def rows(r, dens):
+        m = torch.rand(r, n, device="cuda", generator=gen) < dens
+        if not padded:
+            return m
+        v = kiou.aligned_rows(r, n, "cuda")
+        v.copy_(m)
+        return v
+
     dens = torch.rand(ia, 1, device="cuda", generator=gen) * 0.3
     dens[::17] = 0.0
-    a = torch.rand(ia, n, device="cuda", generator=gen) < dens
-    b = None
-    if ib is not None:
-        dens_b = torch.rand(ib, 1, device="cuda", generator=gen) * 0.3
-        b = torch.rand(ib, n, device="cuda", generator=gen) < dens_b
+    a = rows(ia, dens)
+    b = None if ib is None else rows(ib, torch.rand(ib, 1, device="cuda", generator=gen) * 0.3)
+    a_c, b_c = a.contiguous(), None if b is None else b.contiguous()
     want = kiou.pairwise_iou_plain(a, b)
     ib_n = ia if b is None else ib
     out = torch.empty(ia, ib_n, dtype=torch.float32, device="cuda")
     ws = torch.empty(ia * ib_n + ia + ib_n, dtype=torch.int32, device="cuda")
     stream = torch.cuda.current_stream().cuda_stream
+    ptr = lambda t: ctypes.c_void_p(None if t is None else t.data_ptr())
 
     def launch(lib):
-        rc = lib.bff_mask_iou(ctypes.c_void_p(a.data_ptr()),
-                              ctypes.c_void_p(None if b is None else b.data_ptr()), ia, ib_n,
-                              ctypes.c_longlong(n), ctypes.c_void_p(ws.data_ptr()),
-                              ctypes.c_void_p(out.data_ptr()), ctypes.c_void_p(stream))
+        if has(lib, "bff_mask_iou_wgmma_takes"):
+            rc = lib.bff_mask_iou(ptr(a), ptr(b), ia, ib_n, ctypes.c_longlong(n),
+                                  ctypes.c_longlong(a.stride(0)),
+                                  ctypes.c_longlong(a.stride(0) if b is None else b.stride(0)),
+                                  ptr(ws), ptr(out), ctypes.c_void_p(stream))
+        else:
+            rc = lib.bff_mask_iou(ptr(a_c), ptr(b_c), ia, ib_n, ctypes.c_longlong(n), ptr(ws),
+                                  ptr(out), ctypes.c_void_p(stream))
         if rc != 0:
             raise RuntimeError(f"bff_mask_iou failed (code {rc})")
         return out
 
     def check(got):
+        if got.dtype != torch.float32 or got.shape != want.shape:
+            return 1.0  # the library call's counts are not IoU (it is not gated)
         same_nan = torch.equal(torch.isnan(got), torch.isnan(want))
         fin = ~torch.isnan(want)
         same = torch.equal(got[fin].view(torch.int32), want[fin].view(torch.int32))
         return 0.0 if same_nan and same else 1.0
 
-    return "bff_mask_iou", launch, check
+    a8 = torch.nn.functional.pad(a_c.to(torch.int8), (0, -n % 8))
+    b8 = a8 if b is None else torch.nn.functional.pad(b_c.to(torch.int8), (0, -n % 8, 0, -ib_n % 8))
+    library = lambda: torch._int_mm(a8, b8.t())
+    ops = ia * (ia + 1) * n if b is None else 2 * ia * ib_n * n
+    nbytes = ia * n + (0 if b is None else ib_n * n) + 4 * ia * ib_n
+    return "bff_mask_iou", launch, check, library, ops, nbytes, PEAK_INT8_OPS
 
 
 def corner_rows(shapes, locs, modes):
@@ -405,7 +472,9 @@ def deform_case(which, b, dtype):
     ``encoder_exact``) or for 900 decoder queries (``decoder_exact``), on
     ``dw.sample_inputs`` as ``chip_smoke.py`` makes them. A library with
     ``bff_ms_deform_set_order`` walks the encoder raster in level-0 tile
-    order."""
+    order. For the bf16 encoder clamp call, ``launch.staged`` runs the same
+    call on a library's staged kernel (``bff_ms_deform_staged``, the
+    ``k1_staged*`` variants)."""
     rng = np.random.default_rng(b + 2 * (dtype == torch.float32))
     shapes = dw.ENC_SHAPES
     anchors = (rng.uniform(0.0, 1.0, (900, 2)).astype(np.float32) if which == "decoder_exact"
@@ -419,6 +488,8 @@ def deform_case(which, b, dtype):
     origins = dw.window_origins(shapes, modes, tl.device) if modes[0] is not None else None
     order = tile_order(shapes, dw.TILE, tl.device) if which != "decoder_exact" else None
     levels = dw.level_table(shapes, modes)
+    plan, meta = (deform_staged.device_plan(shapes, modes, tl.device)
+                  if which == "encoder_clamp" and dtype == torch.bfloat16 else (None, None))
     out = torch.empty(b, q, heads * hd, dtype=dtype, device="cuda")
     fn = "bff_ms_deform_sample"
     stream = torch.cuda.current_stream().cuda_stream
@@ -436,6 +507,17 @@ def deform_case(which, b, dtype):
         if rc != 0:
             raise RuntimeError(f"{fn} failed (code {rc})")
         return out
+
+    def staged(lib):
+        rc = lib.bff_ms_deform_staged(1, ptr(value), ptr(tl), ptr(ta), ptr(origins), ptr(plan),
+                                      ptr(out), b, s, q, heads, n_levels, levels, meta,
+                                      ctypes.c_void_p(stream))
+        if rc != 0:
+            raise RuntimeError(f"bff_ms_deform_staged failed (code {rc})")
+        return out
+
+    if which == "encoder_clamp" and dtype == torch.bfloat16:
+        launch.staged = staged
 
     def check(got):
         return float((got.float() - want).abs().max()) - tol
@@ -487,10 +569,15 @@ def main():
         "k4 (16, 4096, 80)": lambda: attention_case(16, (64, 64), False),
         "k5 (1600, 196, 80)": lambda: attention_case(1600, (14, 14), True),
         "k5 (400, 196, 80)": lambda: attention_case(400, (14, 14), True),
-        "k6 self (600, 250000)": lambda: iou_case(600, None, 250_000),
-        "k6 self (600, 250007)": lambda: iou_case(600, None, 250_007),
-        "k6 cross (20 x 150, 250000)": lambda: iou_case(20, 150, 250_000),
-        "k6 cross (20 x 150, 250007)": lambda: iou_case(20, 150, 250_007),
+        # K6 at aggregation's self-IoU and refinement's cross IoU: rows
+        # padded to 16-byte strides as the main path holds them, and at
+        # 250 007 points also contiguous (off 16-byte boundaries)
+        "k6 self (600, 250000)": lambda: iou_case(600, None, 250_000, True),
+        "k6 self (600, 250007 padded)": lambda: iou_case(600, None, 250_007, True),
+        "k6 self (600, 250007 unpadded)": lambda: iou_case(600, None, 250_007, False),
+        "k6 cross (20 x 150, 250000)": lambda: iou_case(20, 150, 250_000, True),
+        "k6 cross (20 x 150, 250007 padded)": lambda: iou_case(20, 150, 250_007, True),
+        "k6 cross (20 x 150, 250007 unpadded)": lambda: iou_case(20, 150, 250_007, False),
         # EfficientSAM-S's global blocks at the batch of 4 (square and rect
         # grid) and at one frame
         "k3 (24, 4096, 64)": lambda: k3_case(24, 4096),
@@ -503,14 +590,21 @@ def main():
     os.makedirs(args.out, exist_ok=True)
     lines = []
     for case, make in cases.items():
-        # K1: (unique bytes, corner-row bytes); K3-K5: (library call,
-        # operations, bytes)
+        # K1: (unique bytes, corner-row bytes); K3-K6: (library call,
+        # operations, bytes[, peak operations a second])
         fn, launch, check, *nbytes = make()
-        library, flops, io_bytes = (nbytes if nbytes and callable(nbytes[0])
-                                    else (None, None, None))
+        library, flops, io_bytes, *peak = (nbytes if nbytes and callable(nbytes[0])
+                                           else (None, None, None))
+        peak = peak[0] if peak else PEAK_FLOPS["bfloat16"]
         if library:
             nbytes = []
         calls = {n: (lambda lib=lib: launch(lib)) for n, lib in libs.items() if has(lib, fn)}
+        if getattr(launch, "staged", None):
+            # the k1_staged* variants on the staged kernel's own entry, in
+            # place of their (unedited) gather
+            for n, lib in libs.items():
+                if n.startswith("k1_staged"):
+                    calls[n] = lambda lib=lib: launch.staged(lib)
         names = list(calls)
         excess = {n: check(calls[n]()) for n in names}
         if library:
@@ -523,11 +617,11 @@ def main():
         for n in calls:
             rec = {"case": case, "variant": n, "ms": min(times[n]), "ms_rounds": times[n],
                    "right": excess[n] <= 0.0, "excess": excess[n], "card": card}
-            if library:  # K3-K5 and their yardstick: device time, rates, bound, host time
+            if library:  # K3-K6 and their yardstick: device time, rates, bound, host time
                 rec["device_ms"] = device_ms(calls[n])
                 rec["tflops"] = flops / rec["device_ms"] / 1e9
                 rec["gbps"] = io_bytes / rec["device_ms"] / 1e6
-                ops_ms = flops / PEAK_FLOPS["bfloat16"] * 1e3
+                ops_ms = flops / peak * 1e3
                 bytes_ms = io_bytes / HBM_BYTES_PER_S * 1e3
                 rec["bound_ms"] = max(ops_ms, bytes_ms)
                 rec["bound_by"] = "operations" if ops_ms >= bytes_ms else "bytes"

@@ -236,11 +236,16 @@ def deform_case(torch, dw, name, q_locs, dtype, modes, dev, rng, b):
     off the map)."""
     from beyondff_tpu_torch.utils.profiling import HBM_BYTES_PER_S, PEAK_FLOPS, device_ms
 
+    from beyondff_tpu_torch.kernels import dispatch
+
     shapes = dw.ENC_SHAPES
     value, tl, ta = dw.sample_inputs(rng, q_locs, b, dtype, dev)
     q, heads, lv, p = ta.shape[1:]
     hd = value.shape[-1]
+    before = dict(dispatch.launch_counts)
     got = dw.ms_deform_sample(value, shapes, tl, ta, modes)
+    went = [key for key, n in dispatch.launch_counts.items() if n != before[key]]
+    check(went == ["ms_deform_sample"], f"ms_deform_sample {name}: launched {went}")
     want = dw.ms_deform_sample_plain(value, shapes, tl, ta, modes)
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
@@ -887,10 +892,11 @@ def config_3d(Config, fixture, out):
 
 def run_3d(mods, cfg, dev, sim=None, prof=None):
     """projection.run -> refinement.run -> evaluate.run for the query on one
-    device; per stage: host seconds and mask-IoU launches (counts set to 0
-    just before each stage, read just after)."""
+    device; per stage: host seconds and mask-IoU launches, both kernels'
+    (``mask_iou_launches``) and the wgmma kernel's (counts set to 0 just
+    before each stage, read just after)."""
     torch, dispatch, projection, refinement, evaluate = mods
-    out = {"seconds": {}, "mask_iou_launches": {}}
+    out = {"seconds": {}, "mask_iou_launches": {}, "mask_iou_wgmma_launches": {}}
     for name, call in (
             ("projection", lambda: projection.run(cfg, QUERY, resume=False, device=dev,
                                                   profiler=prof)),
@@ -903,7 +909,9 @@ def run_3d(mods, cfg, dev, sim=None, prof=None):
         if dev.type == "cuda":
             torch.cuda.synchronize()
         out["seconds"][name] = time.perf_counter() - t0
-        out["mask_iou_launches"][name] = dispatch.launch_counts["mask_iou"]
+        out["mask_iou_launches"][name] = (dispatch.launch_counts["mask_iou"]
+                                          + dispatch.launch_counts["mask_iou_wgmma"])
+        out["mask_iou_wgmma_launches"][name] = dispatch.launch_counts["mask_iou_wgmma"]
         out[name] = result
     return out
 
@@ -969,33 +977,77 @@ def device_activity(torch, fn):
     return busy_us, len(spans), by_name
 
 
-def mask_iou_case(torch, kiou, name, ia, ib, n, dev):
-    """One mask-IoU comparison and timing at the main path's shapes; ``ib``
-    None is a self-IoU. A share of rows is empty (nan against empty rows)."""
+K6_DESIGN = {
+    "mask_iou": "int8 mma.sync m16n8k32 -> s32 on the bool bytes, 128 x 128 tiles (self: "
+                "upper triangle, areas from the diagonal), split N, rows at any address cut "
+                "from aligned 16-byte loads in registers into a 2-stage ring, int32 atomics",
+    "mask_iou_wgmma": "int8 wgmma m64n128k32 -> s32 on the bool bytes (K-major), a producer "
+                      "warp keeping 4 stages of 128-byte TMA boxes (2-D maps over (N, rows), "
+                      "128-byte swizzle, zero fill past N and the last row) on mbarriers, two "
+                      "consumer warpgroups a 128 x 128 tile, clusters of 2 adjacent tiles "
+                      "sharing A by multicast, split N, int32 atomics",
+}
+
+
+def mask_iou_case(torch, kiou, name, ia, ib, n, dev, padded=True, timed=True, empty=False):
+    """One mask-IoU comparison (bit for bit, nan at the same places) and,
+    when ``timed``, its timing against the plain version and
+    ``torch._int_mm``; ``ib`` None is a self-IoU. A share of rows is empty
+    (nan against empty rows; ``empty``: every row). Rows ``padded`` lie on
+    16-byte boundaries in wider storage, as the main path allocates them
+    (``kiou.aligned_rows``); the call must move the counter
+    ``kiou.wgmma_route`` names."""
+    from beyondff_tpu_torch.kernels import dispatch
     from beyondff_tpu_torch.utils.profiling import HBM_BYTES_PER_S, PEAK_INT8_OPS, device_ms
 
     g = torch.Generator(device=dev).manual_seed(SEED)
+
+    def rows(r, dens):
+        m = torch.rand(r, n, device=dev, generator=g) < dens
+        if empty:
+            m[:] = False
+        if not padded:
+            return m
+        v = kiou.aligned_rows(r, n, dev)
+        v.copy_(m)
+        return v
+
     dens = torch.rand(ia, 1, device=dev, generator=g) * 0.3
     dens[::17] = 0.0
-    a = torch.rand(ia, n, device=dev, generator=g) < dens
+    a = rows(ia, dens)
     b = None
     if ib is not None:
         dens_b = torch.rand(ib, 1, device=dev, generator=g) * 0.3
         dens_b[::13] = 0.0
-        b = torch.rand(ib, n, device=dev, generator=g) < dens_b
+        b = rows(ib, dens_b)
+    ib_n = ia if ib is None else ib
+    stride = lambda t: t.stride(0) if t.shape[0] > 1 else max(n, t.stride(0))
+    routed = ("mask_iou_wgmma" if kiou.wgmma_route(
+        ia, ib_n, n, stride(a), stride(a if b is None else b), a.data_ptr(),
+        None if b is None else b.data_ptr()) else "mask_iou")
+    before = dict(dispatch.launch_counts)
     got = kiou.pairwise_iou(a, b)
+    went = [key for key, c in dispatch.launch_counts.items() if c != before[key]]
+    check(went == [routed], f"mask_iou {name}: launched {went}, the route says {routed}")
     want = kiou.pairwise_iou_plain(a, b)
     torch.cuda.synchronize()
     nan_eq = bool(torch.equal(torch.isnan(got), torch.isnan(want)))
     fin = ~torch.isnan(want)
     err = float((got[fin] - want[fin]).abs().max()) if bool(fin.any()) else 0.0
     bits_eq = bool(torch.equal(got[fin].view(torch.int32), want[fin].view(torch.int32)))
-    ib_n = ia if ib is None else ib
+    if not timed:
+        rec = {"case": name, "kernel": routed, "shape": [ia, ib_n, n], "self": b is None,
+               "padded": padded, "max_abs_err": err, "bit_equal": bits_eq,
+               "nan_positions_equal": nan_eq, "nan_share": float(torch.isnan(want).float().mean())}
+        emit(rec)
+        check(nan_eq and bits_eq and err == 0.0, f"mask_iou {name}: differs from the plain version")
+        return rec
     # intersections only, as torch._int_mm takes them: int8 copies made
     # outside the timing, rows and points padded with zeros to its multiples
     # of 8
-    a8 = torch.nn.functional.pad(a.to(torch.int8), (0, -n % 8))
-    b8 = a8 if b is None else torch.nn.functional.pad(b.to(torch.int8), (0, -n % 8, 0, -ib_n % 8))
+    a8 = torch.nn.functional.pad(a.contiguous().to(torch.int8), (0, -n % 8))
+    b8 = a8 if b is None else torch.nn.functional.pad(b.contiguous().to(torch.int8),
+                                                      (0, -n % 8, 0, -ib_n % 8))
     nbytes = ia * n + (0 if b is None else ib_n * n) + 4 * ia * ib_n
     # a self-IoU needs each distinct pair once: ia (ia + 1) / 2 intersections
     ops = ia * (ia + 1) * n if b is None else 2 * ia * ib_n * n
@@ -1006,7 +1058,8 @@ def mask_iou_case(torch, kiou, name, ia, ib, n, dev):
     dev_ms = device_ms(kernel)
     lib_dev_ms = device_ms(library)
     lib_ops = 2 * a8.shape[0] * b8.shape[0] * a8.shape[1]  # _int_mm counts every pair
-    rec = {"case": name, "kernel": "mask_iou", "shape": [ia, ib_n, n], "self": b is None,
+    rec = {"case": name, "kernel": routed, "shape": [ia, ib_n, n], "self": b is None,
+           "padded": padded,
            "max_abs_err": err, "bit_equal": bits_eq, "nan_positions_equal": nan_eq,
            "nan_share": float(torch.isnan(want).float().mean()), "tol": 0.0,
            "ms": cuda_ms(torch, kernel, 20), "device_ms": dev_ms,
@@ -1018,11 +1071,7 @@ def mask_iou_case(torch, kiou, name, ia, ib, n, dev):
            "library_ms": cuda_ms(torch, library, 20), "library_device_ms": lib_dev_ms,
            "library_tops": lib_ops / lib_dev_ms / 1e9,
            "library_call": "torch._int_mm on int8 copies (intersections only)",
-           "design": "int8 mma.sync m16n8k32 -> s32 on the bool bytes, 128 x 128 tiles "
-                     "(self: upper triangle, areas from the diagonal), split N, "
-                     + ("cp.async 3-stage ring" if n % 16 == 0 else
-                        "aligned 16-byte loads into registers, cut there into a 2-stage ring")
-                     + ", int32 atomics"}
+           "design": K6_DESIGN[routed]}
     emit(rec)
     check(nan_eq and bits_eq and err == 0.0, f"mask_iou {name}: differs from the plain version")
     return rec
@@ -1068,6 +1117,12 @@ def full_width_3d(torch, mods, Config, work, dev, detector):
     for r in (run, warm):
         for stage in ("projection", "refinement"):
             check(r["mask_iou_launches"][stage] > 0, f"mask_iou was not launched in the {stage}")
+        # every mask row is allocated on 16-byte boundaries: the wgmma kernel
+        # takes each call (aggregation once, refinement three times)
+        check(r["mask_iou_wgmma_launches"] == r["mask_iou_launches"]
+              and sum(r["mask_iou_wgmma_launches"].values()) == 4,
+              f"mask IoU off the wgmma kernel: {r['mask_iou_launches']} "
+              f"{r['mask_iou_wgmma_launches']}")
 
     outs = stage_outputs(torch, cfg, "scene0000_00")
     for d in outs:
@@ -1102,7 +1157,9 @@ def full_width_3d(torch, mods, Config, work, dev, detector):
                              for k, r in (("cold", run), ("warm", warm))},
           "stage_seconds": {"cold": run["seconds"], "warm": warm["seconds"]},
           "projection_spans_s": {"cold": dict(prof.durations), "warm": dict(prof_warm.durations)},
-          "mask_iou_launches": launches, "max_memory_allocated_bytes": peak,
+          "mask_iou_launches": launches,
+          "mask_iou_wgmma_launches": run["mask_iou_wgmma_launches"],
+          "max_memory_allocated_bytes": peak,
           "instances": {"projection": int(outs[0]["ins"].shape[0]),
                         "refinement": int(outs[1]["ins"].shape[0])},
           "ap_row": {k: ap[k] for k in ("ap", "ap50%", "ap25%", "rc", "rc50%", "rc25%")}})
@@ -1110,7 +1167,9 @@ def full_width_3d(torch, mods, Config, work, dev, detector):
           "device_busy_ms": busy_us / 1e3, "device_busy_share": busy_us / 1e6 / span["s"],
           "device_events": events,
           "top_device_ms": [[name[:120], n, us / 1e3] for name, (n, us) in top]})
-    return launches["projection"] + launches["refinement"], fixture
+    wgmma = sum(run["mask_iou_wgmma_launches"][k] for k in ("projection", "refinement"))
+    return ({"mask_iou": launches["projection"] + launches["refinement"] - wgmma,
+             "mask_iou_wgmma": wgmma}, fixture)
 
 
 # ------------------------------------------------------------ the class sweep
@@ -1360,8 +1419,9 @@ def full_width_sweep(torch, mods, Config, work, dev, models):
         check(runner.amortized == {"segmentation": classes, "projection": classes},
               f"amortized passes did not run for every class: {runner.amortized}")
         for name in ("flash_attention_relpos_wgmma", "ms_deform_sample", "flash_attention",
-                     "mask_iou"):
+                     "mask_iou_wgmma"):
             check(launches[name] > 0, f"{name} was not launched in the sweep")
+        check(launches["mask_iou"] == 0, f"mask IoU off the wgmma kernel: {launches}")
         check(launches["flash_attention_relpos"] == 0,
               f"K4 launched off its wgmma kernel in the sweep: {launches}")
         masks_2d = 0
@@ -2512,7 +2572,7 @@ def transports(torch, mods, Config, work, fixture, dev, seg, cfg, card):
           "launches_over_defaults": {"seg2d": launches, "projection": proj_launches},
           "seconds": time.perf_counter() - t_phase})
     check(launches["flash_attention_wgmma"] > 0 and launches["flash_attention"] == 0
-          and launches["nms_fixed"] > 0 and proj_launches["mask_iou"] > 0,
+          and launches["nms_fixed"] > 0 and proj_launches["mask_iou_wgmma"] > 0,
           f"phase 10 launched no kernel, or K3 off the wgmma kernel: {launches}")
 
 
@@ -2526,7 +2586,8 @@ KERNEL_SYMBOLS = {"ms_deform_sample": ("ms_deform_sample_kernel",),
                   "flash_attention_relpos_wgmma": ("flash_relpos_wgmma_kernel",),
                   "window_attention_relpos": ("window_relpos_tc_kernel", "window_relpos_kernel"),
                   "window_attention_relpos_wgmma": ("window_relpos_wgmma_kernel",),
-                  "mask_iou": ("iou_count_kernel",), "nms_fixed": ("nms_fixed_kernel",)}
+                  "mask_iou": ("iou_count_kernel",), "mask_iou_wgmma": ("iou_wgmma_kernel",),
+                  "nms_fixed": ("nms_fixed_kernel",)}
 
 
 def rect_phase(torch, mods, dev, card):
@@ -2720,7 +2781,7 @@ def single_scene_phase(torch, mods, work, tmp, dev, card, detector):
           "launches": launches, "ply_vertices": n_points,
           "viewer_layers": [x["name"] for x in layers], "trace_names_kernels": named,
           "trace_kernel_names": len(names), "trace_bytes": trace_bytes})
-    for k in ("ms_deform_sample", "flash_attention", "mask_iou"):
+    for k in ("ms_deform_sample", "flash_attention", "mask_iou_wgmma"):
         check(launches.get(k, 0) > 0, f"single_scene launched no {k}: {launches}")
     check(all(named.values()), f"the trace misses a launched kernel: {named}")
     return cfg_path
@@ -3105,14 +3166,31 @@ def main() -> int:
         check(rec["kernel"] in ("flash_attention_relpos", "window_attention_relpos"),
               f"rel-pos {name}: went through {rec['kernel']}, not the mma.sync tile")
     emit({"phase": "kernel_cases", "f32_one_frame_seconds": f32_one_frame_s})
-    # the aggregation's self-IoU and refinement's stage-2 x stage-1 IoU
+    # the aggregation's self-IoU and refinement's stage-2 x stage-1 IoU, rows
+    # on 16-byte boundaries as the main path allocates them (the wgmma
+    # kernel), at 250 000 points and at a scene's arbitrary 250 007
     cases["iou_self"] = mask_iou_case(torch, kiou, "aggregation_self", 600, None, 250_000, dev)
     cases["iou_cross"] = mask_iou_case(torch, kiou, "refinement_cross", 20, 150, 250_000, dev)
-    # a scene's point count is arbitrary: rows that start off 16-byte boundaries
-    cases["iou_self_ragged"] = mask_iou_case(torch, kiou, "aggregation_self_ragged", 600, None,
+    cases["iou_self_padded"] = mask_iou_case(torch, kiou, "aggregation_self_padded", 600, None,
                                              250_007, dev)
-    cases["iou_cross_ragged"] = mask_iou_case(torch, kiou, "refinement_cross_ragged", 20, 150,
+    cases["iou_cross_padded"] = mask_iou_case(torch, kiou, "refinement_cross_padded", 20, 150,
                                               250_007, dev)
+    # the wgmma kernel's edges: one row, a partial cluster and tile, empty rows
+    for key, ia, ib, n, empty in (("iou_one_row", 1, None, 1000, False),
+                                  ("iou_65", 65, None, 4099, False),
+                                  ("iou_65x7", 65, 7, 4099, False),
+                                  ("iou_empty_rows", 40, None, 3001, True)):
+        cases[key] = mask_iou_case(torch, kiou, key, ia, ib, n, dev, timed=False, empty=empty)
+    # rows off 16-byte boundaries keep the mma.sync kernel and its cut path
+    cases["iou_self_ragged"] = mask_iou_case(torch, kiou, "aggregation_self_ragged", 600, None,
+                                             250_007, dev, padded=False)
+    cases["iou_cross_ragged"] = mask_iou_case(torch, kiou, "refinement_cross_ragged", 20, 150,
+                                              250_007, dev, padded=False)
+    for key in ("iou_self", "iou_cross", "iou_self_padded", "iou_cross_padded", "iou_one_row",
+                "iou_65", "iou_65x7", "iou_empty_rows"):
+        check(cases[key]["kernel"] == "mask_iou_wgmma", f"{key} off the wgmma kernel")
+    for key in ("iou_self_ragged", "iou_cross_ragged"):
+        check(cases[key]["kernel"] == "mask_iou", f"{key} off the mma.sync kernel")
     # the fast variant: EfficientSAM-S's global blocks (K3: 6 heads x B of
     # the 64 x 64 grid, head dim 64, every key valid) for one frame and the
     # main path's batch, and YOLO-World-L's NMS over the batch
@@ -3207,7 +3285,7 @@ def main() -> int:
     # the 2D stage's launches, the sweep's rel-pos launches (K5 is wired into
     # no path: 0) and the 3D half's mask-IoU launches
     iou_launches, fixture3d = full_width_3d(torch, mods3d, Config, work3d, dev, cfg.detector)
-    launches = {**launches, "mask_iou": iou_launches,
+    launches = {**launches, **iou_launches,
                 **{key: sweep_launches[key] for key in (
                     "flash_attention_relpos", "flash_attention_relpos_wgmma",
                     "window_attention_relpos", "window_attention_relpos_wgmma")}}
@@ -3265,7 +3343,11 @@ def main() -> int:
              "beyondff_tpu/kernels/flash_attention.py:193"),
             (("relpos_window", *bf16_b), "beyondff_tpu_torch/csrc/relpos_attention_wgmma.cu",
              "beyondff_tpu/kernels/window_attention.py:51"),
-            ("iou_self", "beyondff_tpu_torch/csrc/mask_iou.cu",
+            # rows on 16-byte boundaries (the main path's) on the wgmma
+            # kernel, other rows on the mma.sync kernel
+            ("iou_self_padded", "beyondff_tpu_torch/csrc/mask_iou_wgmma.cu",
+             "beyondff_tpu/kernels/mask_iou.py:55"),
+            ("iou_self_ragged", "beyondff_tpu_torch/csrc/mask_iou.cu",
              "beyondff_tpu/kernels/mask_iou.py:55"),
             (("k3_efficientsam", *bf16_b), "beyondff_tpu_torch/csrc/flash_attention_wgmma.cu",
              "beyondff_tpu/kernels/flash_attention.py:68"),

@@ -486,7 +486,9 @@ def test_mask_iou_wrapper_checks_on_cpu():
         tiou.pairwise_iou(a.to("meta"))
 
 
-@pytest.mark.parametrize("name", ["load_after_mma", "cut128",
+@pytest.mark.parametrize("name", ["load_after_mma", "cut128", "k1_staged_dense",
+                                  "k1_staged_warps_8", "k1_staged_stages_1", "k6_no_multicast",
+                                  "k6_cluster_4", "k6_overlap", "k6_stages_3", "k6_stages_6",
                                   "head_run_warp", "head_run_block",
                                   "tile_order", "min_blocks_2", "min_blocks_4",
                                   "point_at_a_time", "two_points", "k3_serial", "k3_stages_3",
@@ -503,11 +505,30 @@ def test_kernel_variant_edits_match_the_sources(name):
     from beyondff_tpu_torch.tools import kernel_variants as kv
 
     sources, edits = kv.VARIANTS[name]
-    assert edits and set(sources) <= set(kv.SOURCES)
+    extra = set(os.listdir(kv.VARIANT_CSRC))
+    assert edits and set(sources) <= set(kv.SOURCES) | extra
     for fname, old, new in edits:
-        with open(os.path.join(_build.CSRC, fname)) as f:
+        with open(os.path.join(kv.VARIANT_CSRC if fname in extra else _build.CSRC, fname)) as f:
             assert f.read().count(old) == 1, (fname, old)
         assert new != old
+
+
+def test_staged_k1_is_built_only_as_a_variant():
+    """K1's TMA-staged kernel lost to the gather and is on no path: its
+    source lies outside ``csrc`` (the port's library does not build it) and
+    only the ``k1_staged*`` variants build it; no K6 variant closes the
+    wgmma route."""
+    import os
+
+    from beyondff_tpu_torch.kernels import _build
+    from beyondff_tpu_torch.tools import kernel_variants as kv
+
+    assert kv.MSW not in _build._files() and kv.MSW not in kv.SOURCES
+    assert kv.MSW in os.listdir(kv.VARIANT_CSRC)
+    staged = {n for n, (sources, _e) in kv.VARIANTS.items() if kv.MSW in sources}
+    assert staged == {"k1_staged", "k1_staged_dense", "k1_staged_warps_8", "k1_staged_stages_1"}
+    assert not any(dispatch_key.startswith("ms_deform_sample_")
+                   for dispatch_key in dispatch.launch_counts)
 
 
 def test_wrappers_reject_other_devices():
@@ -519,6 +540,21 @@ def test_wrappers_reject_other_devices():
 
 
 # --------------------------------------------------------------- on the card
+def _moved(before):
+    """The counters that moved since ``before``."""
+    return [k for k, n in dispatch.launch_counts.items() if n != before[k]]
+
+
+def _k6_counter(ta, tb):
+    """The counter a K6 call moves, as ``wgmma_route`` decides."""
+    stride = lambda t: t.stride(0) if t.shape[0] > 1 else max(t.shape[1], t.stride(0))
+    ia, n = ta.shape
+    takes = tiou.wgmma_route(ia, ia if tb is None else tb.shape[0], n, stride(ta),
+                             stride(ta if tb is None else tb), ta.data_ptr(),
+                             None if tb is None else tb.data_ptr())
+    return "mask_iou_wgmma" if takes else "mask_iou"
+
+
 def _assert_within_bound(got, want, bound):
     """f32: within 1e-4. bf16: within ``bound`` (``tfa.bf16_error_bound``)."""
     if got.dtype == torch.float32:
@@ -585,7 +621,8 @@ def _edge_locs(locs, shapes):
 
 def _deform_on_card(dev, dtype, shapes, value, locs, aw, shift=0):
     """The kernel against the plain version in clamp and exact mode; value
-    ``shift`` elements past an aligned address. f32 within 1e-4, bf16 3e-2."""
+    ``shift`` elements past an aligned address. f32 within 1e-4, bf16 3e-2.
+    Each call moves the gather's counter and no other."""
     buf = torch.empty(value.size + shift, dtype=dtype, device=dev)
     tv = buf[shift:].view(value.shape)
     tv.copy_(torch.from_numpy(value))
@@ -594,9 +631,9 @@ def _deform_on_card(dev, dtype, shapes, value, locs, aw, shift=0):
     q, raster = locs.shape[1], sum(h * w for h, w in shapes)
     tol = 1e-4 if dtype == torch.float32 else 3e-2
     for modes in ((tdeform.level_modes(shapes),) if q == raster else ()) + ((None,) * len(shapes),):
-        before = dispatch.launch_counts["ms_deform_sample"]
+        before = dict(dispatch.launch_counts)
         got = tdw.ms_deform_sample(tv, shapes, tl, ta, modes)
-        assert dispatch.launch_counts["ms_deform_sample"] == before + 1
+        assert _moved(before) == ["ms_deform_sample"]
         want = tdw.ms_deform_sample_plain(tv, shapes, tl, ta, modes)
         torch.cuda.synchronize()
         assert got.shape == want.shape and got.dtype == dtype
@@ -669,11 +706,13 @@ def test_mask_iou_kernel_matches_plain_on_card(cuda_device, ia, ib, n):
     a, b = _iou_masks(rng, ia, ib or 8, n)
     ta = torch.from_numpy(a).to(cuda_device)
     tb = None if ib is None else torch.from_numpy(b).to(cuda_device)
-    before = dispatch.launch_counts["mask_iou"]
+    before = dict(dispatch.launch_counts)
     got = tiou.pairwise_iou(ta, tb)
     want = tiou.pairwise_iou_plain(ta, tb)
     torch.cuda.synchronize()
-    assert dispatch.launch_counts["mask_iou"] == before + 1
+    # contiguous rows of N % 16 == 0 points lie on 16-byte boundaries: the
+    # wgmma kernel; the others the mma.sync kernel
+    assert _moved(before) == [_k6_counter(ta, tb)]
     _assert_bit_equal(got.cpu().numpy(), want.cpu().numpy())
 
 
@@ -712,6 +751,71 @@ def test_mask_iou_kernel_takes_masks_at_any_address(cuda_device, shift, n):
         got = tiou.pairwise_iou(ta, other)
         want = tiou.pairwise_iou_plain(ta, other)
         _assert_bit_equal(got.cpu().numpy(), want.cpu().numpy())
+
+
+def _aligned_masks(dev, m):
+    """Host masks as the main path holds them on the card: rows on 128-byte
+    boundaries in wider storage (``core.masks.as_mask``)."""
+    from beyondff_tpu_torch.core import masks as tmasks
+
+    t = tmasks.as_mask(m, dev)
+    assert tiou.is_aligned(t)
+    return t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ia,ib,n", [(600, None, 250_000), (600, None, 250_007),
+                                     (20, 150, 250_007), (1, None, 1000), (65, None, 4099),
+                                     (65, 7, 4099), (127, 129, 1007), (129, None, 16),
+                                     (257, 255, 3001), (300, 700, 5000)])
+def test_mask_iou_wgmma_matches_plain_on_card(cuda_device, ia, ib, n):
+    """K6's wgmma kernel on padded rows, bit for bit: the main path's
+    self-IoU and cross IoU at 250 000 and 250 007 points, one row, 16 k +- 1
+    rows (a partial cluster, a partial 128-row tile), N below one 128-byte
+    chunk and off 16, with empty rows (nan) and an IoU-1 pair."""
+    rng = np.random.default_rng(n + ia)
+    a, b = _iou_masks(rng, ia, ib or 8, n)
+    ta = _aligned_masks(cuda_device, a)
+    tb = None if ib is None else _aligned_masks(cuda_device, b)
+    before = dict(dispatch.launch_counts)
+    got = tiou.pairwise_iou(ta, tb)
+    want = tiou.pairwise_iou_plain(ta, tb)
+    torch.cuda.synchronize()
+    assert _moved(before) == ["mask_iou_wgmma"]
+    _assert_bit_equal(got.cpu().numpy(), want.cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_mask_iou_wgmma_empty_full_rows_and_route_on_card(cuda_device):
+    """Empty and full rows through the wgmma kernel (areas from the
+    diagonal), and the route: ``wgmma_route`` equals the C predicate
+    ``bff_mask_iou_wgmma_takes``, and an unpadded 250 007-point call keeps the
+    mma.sync kernel."""
+    from beyondff_tpu_torch.kernels import _build
+
+    rng = np.random.default_rng(5)
+    a, _ = _iou_masks(rng, 140, 1, 4099)
+    a[3] = False
+    a[130] = True
+    ta = _aligned_masks(cuda_device, a)
+    got = tiou.pairwise_iou(ta)
+    _assert_bit_equal(got.cpu().numpy(), tiou.pairwise_iou_plain(ta).cpu().numpy())
+    assert bool(torch.isnan(got[3, 3])) and float(got[130, 130]) == 1.0
+    lib = _build.library()
+    for args in [(600, 600, 250_007, 250_016, 250_016, 256, None),
+                 (600, 600, 250_007, 250_007, 250_007, 256, None),
+                 (20, 150, 1000, 1008, 1008, 256, 520), (1, 1, 1, 16, 16, 0, None),
+                 (4, 4, 0, 16, 16, 0, None), (4, 4, 32, 16, 16, 0, None)]:
+        ia, ib, n, lda, ldb, pa, pb = args
+        c = lib.bff_mask_iou_wgmma_takes(ia, ib, n, lda, ldb, pa + 4096,
+                                         None if pb is None else pb + 4096)
+        assert bool(c) == tiou.wgmma_route(ia, ib, n, lda, ldb, pa + 4096,
+                                           None if pb is None else pb + 4096), args
+    m = torch.from_numpy(_iou_masks(rng, 33, 1, 250_007)[0]).to(cuda_device)
+    before = dict(dispatch.launch_counts)
+    _assert_bit_equal(tiou.pairwise_iou(m).cpu().numpy(),
+                      tiou.pairwise_iou_plain(m).cpu().numpy())
+    assert _moved(before) == ["mask_iou"]
 
 
 @pytest.mark.cuda
