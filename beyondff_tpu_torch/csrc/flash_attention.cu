@@ -14,21 +14,26 @@
 // (~0.6 us) and does 4*8*900*900*32 = 0.83 GFLOP (~0.8 us on the tensor
 // cores), so it is bound by operations.
 //
-// Three kernels, chosen inside bff_flash_attention:
+// Four kernels, chosen inside bff_flash_attention:
 // * bf16 at head dim 64 with every key valid (K3 on the main path:
 //   EfficientSAM-S's global blocks), exactly where bff_flash_wgmma_takes
 //   says so: the wgmma/TMA kernel of csrc/flash_attention_wgmma.cu.
-// * other bf16 (K2, the Grounding-DINO decoder): flash_tc_kernel, the
-//   tensor-core block of csrc/attention_tc.cuh (mma.sync m16n8k16 bf16 -> f32 for Q K^T and P V,
+// * bf16 at head dim 32 with up to 1536 valid keys (K2 on the main path: the
+//   Grounding-DINO decoder's self-attention, (32, 900, 32) at the batch of
+//   4), exactly where bff_flash_masked_wgmma_takes says so: the wgmma/TMA
+//   kernel of csrc/flash_masked_wgmma.cu.
+// * other bf16: flash_tc_kernel, the tensor-core block of
+//   csrc/attention_tc.cuh (mma.sync m16n8k16 bf16 -> f32 for Q K^T and P V,
 //   scores and P in registers, K/V tiles bf16 in a 2-stage cp.async ring)
 //   with a key mask as its score modifier. D is padded to DP in {32, 64,
 //   80, 128} in shared memory only. 4 warps of 16 query rows a block (a
 //   64-query tile): 25 600 B of shared memory at DP = 32 and about 100
-//   registers a thread, so four blocks share an SM. At (32, 900, 32) the
-//   grid is 15 x 32 = 480 blocks walking 15 key tiles each, under one wave,
-//   so the time is the latency of one block's 15 steps, not a bandwidth.
-//   bf16 inputs with D % 8 != 0 or bases off 16 bytes (no 16-byte cp.async
-//   rows) take the f32-FMA kernel below.
+//   registers a thread, so four blocks share an SM. It ran K2 until the
+//   wgmma kernel took it: at (32, 900, 32) its grid is 15 x 32 = 480 blocks
+//   walking 15 key tiles each, under one wave, so the time is the latency of
+//   one block's 15 steps, not a bandwidth. bf16 inputs with D % 8 != 0 or
+//   bases off 16 bytes (no 16-byte cp.async rows) take the f32-FMA kernel
+//   below.
 // * f32 (the CPU-parity runs): flash_fwd_kernel, one block of 256 threads
 //   per (bh, 64-query tile), K and V through shared memory as f32 (rows
 //   padded by one against bank conflicts), both products as plain f32 FMAs
@@ -251,6 +256,12 @@ extern "C" int bff_flash_wgmma_takes(int dtype, int D, int S, int valid_len, flo
                                      const void* q, const void* k, const void* v, const void* o);
 extern "C" int bff_flash_attention_wgmma(const void* q, const void* k, const void* v, void* o,
                                          int BH, int S, float scale, void* stream);
+// csrc/flash_masked_wgmma.cu
+extern "C" int bff_flash_masked_wgmma_takes(int dtype, int D, int S, int valid_len, float scale,
+                                            const void* q, const void* k, const void* v,
+                                            const void* o);
+extern "C" int bff_flash_masked_wgmma(const void* q, const void* k, const void* v, void* o,
+                                      int BH, int S, int valid_len, float scale, void* stream);
 
 // dtype: 0 = float32, 1 = bfloat16. q, k, v, o: contiguous (BH, S, D).
 // Returns cudaGetLastError() after the launch, or -1 for arguments the
@@ -261,6 +272,8 @@ extern "C" int bff_flash_attention(int dtype, const void* q, const void* k, cons
   if (BH < 1 || S < 1 || D < 1 || D > 128 || valid_len < 1 || valid_len > S) return -1;
   if (bff_flash_wgmma_takes(dtype, D, S, valid_len, scale, q, k, v, o))
     return bff_flash_attention_wgmma(q, k, v, o, BH, S, scale, stream);
+  if (bff_flash_masked_wgmma_takes(dtype, D, S, valid_len, scale, q, k, v, o))
+    return bff_flash_masked_wgmma(q, k, v, o, BH, S, valid_len, scale, stream);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return dispatch<float>(q, k, v, o, BH, S, D, valid_len, scale, s);
   if (dtype == 1) {

@@ -2,21 +2,23 @@
 // share: mbarriers, TMA loads (tensor and plain bulk), shared-memory matrix
 // descriptors, wgmma issue and wait, named-barrier turns, and the run-time
 // lookup of cuTensorMapEncodeTiled. Used by csrc/flash_attention_wgmma.cu
-// (K3), csrc/relpos_attention_wgmma.cu (K4 and K5) and
-// csrc/mask_iou_wgmma.cu (K6: the s8 product, 2-D maps over byte rows,
-// cluster multicast); also by tools/variant_csrc/ms_deform_window_tma.cu, a
-// K1 variant that tools/kernel_variants.py builds.
+// (K3), csrc/flash_masked_wgmma.cu (K2: head dim 32, 64-byte swizzle),
+// csrc/relpos_attention_wgmma.cu (K4 and K5) and csrc/mask_iou_wgmma.cu (K6:
+// the s8 product, 2-D maps over byte rows, cluster multicast); also by
+// tools/variant_csrc/ms_deform_window_tma.cu, a K1 variant that
+// tools/kernel_variants.py builds.
 //
 // Descriptors. A TMA box written with CU_TENSOR_MAP_SWIZZLE_128B (rows of
-// 128 bytes) or _32B (rows of 32 bytes) is read by a descriptor of the same
-// swizzle mode; tiles start on 1024-byte boundaries. For a K-major operand
-// the stride byte offset (SBO) is the distance between 8-row groups and the
-// leading offset is not read (one k16 step never leaves a swizzle row); a
-// k-step moves the start address by 32 bytes. For the MN-major V (keys down,
-// head dims along the row; the transpose bit set) the SBO is the distance
-// between 8-key groups and the leading offset the distance between the
-// swizzle-wide blocks (64 or 16 elements) along N, which the callers' N
-// never leaves: they pass the SBO for it.
+// 128 bytes), _64B (rows of 64 bytes) or _32B (rows of 32 bytes) is read by
+// a descriptor of the same swizzle mode; tiles start on 1024-byte
+// boundaries. For a K-major operand the stride byte offset (SBO) is the
+// distance between 8-row groups and the leading offset is not read (one k16
+// step never leaves a swizzle row); a k-step moves the start address by 32
+// bytes. For the MN-major V (keys down, head dims along the row; the
+// transpose bit set) the SBO is the distance between 8-key groups and the
+// leading offset the distance between the swizzle-wide blocks (64, 32 or 16
+// elements) along N, which the callers' N never leaves: they pass the SBO
+// for it.
 
 #pragma once
 
@@ -140,12 +142,18 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, int bytes,
 }
 
 // Shared-memory matrix descriptors: 128-byte swizzle (8-row groups of
-// 128-byte rows, 1024 bytes apart) and 32-byte swizzle (8-row groups of
+// 128-byte rows, 1024 bytes apart), 64-byte swizzle (8-row groups of
+// 64-byte rows, 512 bytes apart) and 32-byte swizzle (8-row groups of
 // 32-byte rows, 256 bytes apart).
 __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo_bytes) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>(lbo_bytes >> 4) << 16) |
          (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+__device__ __forceinline__ uint64_t sw64_desc(uint32_t addr, uint32_t lbo_bytes) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo_bytes >> 4) << 16) |
+         (static_cast<uint64_t>(512 >> 4) << 32) | (2ull << 62);
 }
 __device__ __forceinline__ uint64_t sw32_desc(uint32_t addr, uint32_t lbo_bytes) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
@@ -194,6 +202,8 @@ __device__ __forceinline__ void fence_regs(int (&r)[N]) {
 
 #define BFF_F4(a, i) "+f"(a[i]), "+f"(a[i + 1]), "+f"(a[i + 2]), "+f"(a[i + 3])
 #define BFF_F16(a, i) BFF_F4(a, i), BFF_F4(a, i + 4), BFF_F4(a, i + 8), BFF_F4(a, i + 12)
+#define BFF_W4(a, i) "=f"(a[i]), "=f"(a[i + 1]), "=f"(a[i + 2]), "=f"(a[i + 3])
+#define BFF_W16(a, i) BFF_W4(a, i), BFF_W4(a, i + 4), BFF_W4(a, i + 8), BFF_W4(a, i + 12)
 
 // d (+)= A B for A 64 x 16 and B 16 x 128, both from shared memory, K-major.
 __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t da, uint64_t db,
@@ -209,6 +219,49 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t da,
       "%64, %65, p, 1, 1, 0, 0;\n}\n"
       : BFF_F16(d, 0), BFF_F16(d, 16), BFF_F16(d, 32), BFF_F16(d, 48)
       : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (+)= A B for A 64 x 16 and B 16 x 64, both from shared memory, K-major.
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t da, uint64_t db,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : BFF_F16(d, 0), BFF_F16(d, 16)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d = A B, the same shapes: d is written, not read (the first k-step of a
+// product), so the compiler need not keep its old values.
+__device__ __forceinline__ void wgmma_m64n64k16_ss_first(float (&d)[32], uint64_t da,
+                                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : BFF_W16(d, 0), BFF_W16(d, 16)
+      : "l"(da), "l"(db), "r"(0));
+}
+
+// d (+)= A B for A 64 x 16 in registers (the mma.sync m16n8k16 A layout, one
+// 16-row slice per warp) and B 16 x 32 from shared memory, MN-major.
+__device__ __forceinline__ void wgmma_m64n32k16_rs(float (&d)[16], const uint32_t (&a)[4],
+                                                   uint64_t db, int accumulate = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : BFF_F16(d, 0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
 }
 
 // d (+)= A B for A 64 x 16 in registers (the mma.sync m16n8k16 A layout, one
@@ -282,6 +335,8 @@ __device__ __forceinline__ void wgmma_m64n128k32_s8(int (&d)[64], uint64_t da, u
 
 #undef BFF_R16
 #undef BFF_R4
+#undef BFF_W16
+#undef BFF_W4
 #undef BFF_F16
 #undef BFF_F4
 

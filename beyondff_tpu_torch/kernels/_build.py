@@ -90,6 +90,8 @@ def library() -> ctypes.CDLL:
     lib.bff_flash_attention.restype = i
     lib.bff_flash_wgmma_takes.argtypes = [i, i, i, i, f, p, p, p, p]
     lib.bff_flash_wgmma_takes.restype = i
+    lib.bff_flash_masked_wgmma_takes.argtypes = [i, i, i, i, f, p, p, p, p]
+    lib.bff_flash_masked_wgmma_takes.restype = i
     lib.bff_relpos_wgmma_takes.argtypes = [i, i, i, i, i, i, f, p, p, p, p, p, p]
     lib.bff_relpos_wgmma_takes.restype = i
     lib.bff_ms_deform_sample.argtypes = [i, p, p, p, p, p, i, i, i, i, i, i, i,

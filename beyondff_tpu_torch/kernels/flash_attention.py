@@ -6,9 +6,13 @@ Port of beyondff_tpu/kernels/flash_attention.py. One C entry
 ``_flash_masked`` and its unpadded ``flash_attention`` are the same call
 here. It routes bf16 at head dim 64 with every key valid (K3, EfficientSAM's
 global blocks; :func:`wgmma_route`) to the wgmma/TMA kernel of
-``csrc/flash_attention_wgmma.cu``, counted as ``flash_attention_wgmma``,
-and everything else (K2) to the mma.sync tile or the f32 kernel, counted as
-``flash_attention``. A second entry (``csrc/relpos_attention.cu``) adds SAM's
+``csrc/flash_attention_wgmma.cu``, counted as ``flash_attention_wgmma``;
+bf16 at head dim 32 with at most ``MASKED_WGMMA_MAX_KEYS`` valid keys (K2,
+the Grounding-DINO decoder's self-attention; :func:`masked_wgmma_route`) to
+the wgmma/TMA kernel of ``csrc/flash_masked_wgmma.cu``, counted as
+``flash_masked_wgmma``; and everything else to the mma.sync tile or the f32
+kernel, counted as ``flash_attention`` (:func:`flash_counter` names the
+counter of a call). A second entry (``csrc/relpos_attention.cu``) adds SAM's
 decomposed relative-position bias from its thin factors (``flash_attention_relpos``,
 reached through ``attend_relpos``); it routes SAM ViT-H's bf16 head-dim-80
 calls on its 64-wide grids (K4; :func:`relpos_wgmma_route`) to the
@@ -35,6 +39,10 @@ BLOCK_Q = 256
 BLOCK_KV = 512
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _FLT_MAX = 3.4028234663852886e38
+# csrc/flash_masked_wgmma.cu: 64-key tiles, at most 24 of them held in
+# shared memory
+MASKED_WGMMA_TILE = 64
+MASKED_WGMMA_MAX_KEYS = 24 * MASKED_WGMMA_TILE
 
 
 def wgmma_route(dtype: int, d: int, s: int, valid_len: int, scale: float, *ptrs: int) -> bool:
@@ -46,6 +54,103 @@ def wgmma_route(dtype: int, d: int, s: int, valid_len: int, scale: float, *ptrs:
     f32 = ctypes.c_float(scale).value
     return (dtype == 1 and d == 64 and s >= 1 and valid_len == s and 0.0 < f32 <= _FLT_MAX
             and all(p % 16 == 0 for p in ptrs))
+
+
+def masked_wgmma_route(dtype: int, d: int, s: int, valid_len: int, scale: float,
+                       *ptrs: int) -> bool:
+    """The mirror of ``bff_flash_masked_wgmma_takes``: whether
+    ``bff_flash_attention`` runs the wgmma/TMA kernel of
+    ``csrc/flash_masked_wgmma.cu`` for a call that :func:`wgmma_route`
+    leaves (dtype 0 = float32, 1 = bfloat16; ``ptrs`` the data pointers of
+    q, k, v and the output): bf16, head dim 32, 1 <= ``valid_len`` <= S and
+    at most ``MASKED_WGMMA_MAX_KEYS`` (the valid keys sit whole in shared
+    memory), a positive finite scale (rounded to f32 as the call passes it)
+    and 16-byte aligned pointers."""
+    f32 = ctypes.c_float(scale).value
+    return (dtype == 1 and d == 32 and s >= 1 and 1 <= valid_len <= s
+            and valid_len <= MASKED_WGMMA_MAX_KEYS and 0.0 < f32 <= _FLT_MAX
+            and all(p % 16 == 0 for p in ptrs))
+
+
+def masked_wgmma_schedule(bh: int, s: int, sms: int = 132):
+    """The mirror of ``csrc/flash_masked_wgmma.cu``'s ``choose_consumers`` and
+    grid: (C, grid, tiles), C consumer warpgroups a block, the grid (ceil(S /
+    64 C), BH), and for each block (x, head) the query rows [r0, r0 + 64) of
+    each of its warpgroups (rows >= S are computed on zero-filled Q and not
+    written). C in (4, 2, 1) costs the least: ceil(blocks / ``sms``) waves
+    times C + 2; ties go to the larger C."""
+    best, best_cost = 4, None
+    for c in (4, 2, 1):
+        blocks = bh * -(-s // (64 * c))
+        cost = -(-blocks // sms) * (c + 2)
+        if best_cost is None or cost < best_cost:
+            best, best_cost = c, cost
+    grid = (-(-s // (64 * best)), bh)
+    tiles = {(x, h): [64 * best * x + 64 * w for w in range(best)]
+             for h in range(bh) for x in range(grid[0])}
+    return best, grid, tiles
+
+
+def masked_wgmma_mirror(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        valid_len: Optional[int] = None,
+                        scale: Optional[float] = None) -> torch.Tensor:
+    """The arithmetic of ``csrc/flash_masked_wgmma.cu`` in PyTorch on the
+    CPU, block by block of :func:`masked_wgmma_schedule`: per 64-row tile,
+    64-key tiles up to ``valid_len`` (keys >= ``valid_len`` of the last one
+    at -inf, its column tiles wholly past it at p = 0); scores in f32 from
+    the inputs' values, the running max in log2 units raised for a warp's 16
+    rows only where one of them outgrows it by 2^8, p = 2^(s * scale * log2 e
+    - m) (exact, standing in for ex2.approx), the output rescaled only
+    when a max was raised, the denominator summed from the
+    f32 p, P rounded to the inputs' dtype before P V, the output divided once
+    in f32 and rounded to the inputs' dtype; rows >= S not written (left 0)."""
+    bh, s, d = q.shape
+    valid = s if valid_len is None else int(valid_len)
+    scale = d ** -0.5 if scale is None else scale
+    sl2 = torch.tensor(scale * 1.4426950408889634, dtype=torch.float32)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    out = torch.zeros(bh, s, d, dtype=torch.float32)
+    written = torch.zeros(bh, s, dtype=torch.int32)
+    _c, _grid, tiles = masked_wgmma_schedule(bh, s)
+    tile = MASKED_WGMMA_TILE
+    n_tiles = -(-valid // tile)
+    col = torch.arange(tile)
+    for (_x, h), row0s in tiles.items():
+        for r0 in row0s:
+            rows = torch.arange(r0, r0 + 64)
+            live = rows < s
+            qt = torch.zeros(64, d)
+            qt[live] = qf[h, rows[live]]
+            m = torch.full((64,), -1e30)
+            l = torch.zeros(64)
+            acc = torch.zeros(64, d)
+            for t in range(n_tiles):
+                keys = t * tile + col
+                kt = torch.zeros(tile, d)
+                vt = torch.zeros(tile, d)
+                inside = keys < s
+                kt[inside] = kf[h, keys[inside]]
+                vt[inside] = vf[h, keys[inside]]
+                sc = qt @ kt.T
+                sc = torch.where(keys[None, :] < valid, sc, torch.tensor(float("-inf")))
+                mx = sc.max(dim=1).values * sl2
+                # a warp's 16 rows raise their max together, when any needs it
+                grow = (mx > m + 8.0).view(4, 16).any(dim=1).repeat_interleave(16)
+                m_new = torch.where(grow, torch.maximum(m, mx), m)
+                corr = torch.where(grow, torch.exp2(m - m_new), torch.ones(64))
+                m = m_new
+                l = l * corr
+                p = torch.exp2(sc * sl2 - m[:, None])
+                dead = (keys - keys % 8) >= valid  # column tiles wholly past valid_len
+                p = torch.where(dead[None, :], torch.zeros_like(p), p)
+                l = l + p.sum(dim=1)
+                acc = acc * corr[:, None] + p.to(q.dtype).float() @ vt
+            o = (acc / l[:, None]).to(q.dtype).float()
+            out[h, rows[live]] = o[live]
+            written[h, rows[live]] += 1
+    if not bool((written == 1).all()):
+        raise AssertionError("the schedule does not write every (head, row) once")
+    return out.to(q.dtype)
 
 
 def relpos_wgmma_route(kind: int, dtype: int, d: int, s: int, rows: int, cols: int,
@@ -146,6 +251,18 @@ def bf16_error_bound(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, plain: t
     return 2.0 ** -8 * pv + 2.0 ** -7 * plain.float().abs() + 1e-4
 
 
+def flash_counter(dtype: int, d: int, s: int, valid_len: int, scale: float, *ptrs: int) -> str:
+    """The launch counter a ``bff_flash_attention`` call counts under, as its
+    routes decide: ``flash_attention_wgmma`` (K3's kernel),
+    ``flash_masked_wgmma`` (K2's) or ``flash_attention`` (the mma.sync tile
+    or the f32 kernel)."""
+    if wgmma_route(dtype, d, s, valid_len, scale, *ptrs):
+        return "flash_attention_wgmma"
+    if masked_wgmma_route(dtype, d, s, valid_len, scale, *ptrs):
+        return "flash_masked_wgmma"
+    return "flash_attention"
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     valid_len: Optional[int] = None,
                     scale: Optional[float] = None) -> torch.Tensor:
@@ -172,8 +289,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     out = torch.empty_like(q)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
-    key = ("flash_attention_wgmma" if wgmma_route(_DTYPES[q.dtype], d, s, valid, scale, *ptrs)
-           else "flash_attention")
+    key = flash_counter(_DTYPES[q.dtype], d, s, valid, scale, *ptrs)
     rc = _build.library().bff_flash_attention(
         _DTYPES[q.dtype], *ptrs, bh, s, d, valid, ctypes.c_float(scale),
         torch.cuda.current_stream(q.device).cuda_stream)

@@ -2,7 +2,7 @@
 one card, in one process, in alternating order.
 
     python -m beyondff_tpu_torch.tools.kernel_variants [--parent-csrc DIR] [--variants a,b]
-        [--cases k1,k6] [--out DIR]
+        [--cases k1,k2,nms] [--out DIR]
 
 A variant is the ``csrc`` tree with textual edits (each edit must match its
 file exactly once), built from the sources it names; ``--parent-csrc`` adds
@@ -37,7 +37,16 @@ int8 peak for their bound. K1's variants ``k1_staged*`` add
 ``variant_csrc/ms_deform_window_tma.cu`` (the encoder's clamp call sampled
 from TMA-staged windows, which lost to the gather and is in no path) and
 time it at the bf16 encoder clamp cases on its own entry, with the plan of
-``deform_staged.device_plan``.
+``deform_staged.device_plan``. K2's cases (Grounding-DINO's decoder
+self-attention at head dim 32 through ``bff_flash_attention``: the wgmma
+kernel of ``flash_masked_wgmma.cu`` in this tree, the mma.sync tile in a
+tree from before it) take SDPA, with a key mask where keys are masked, as
+their ``library`` entry. The NMS case times the call as the wrapper makes
+it (stable sort, gather, ``bff_nms_fixed``; ``bff_nms_bitmask`` for the
+``nms_bitmask`` variant, ``variant_csrc/nms_bitmask.cu``), holds it index
+for index against ``nms.nms_fixed_plain`` and splits its device time into
+the sort, the gather and the scan (``nms.split_spans``), with the bound of the
+IoU tests these boxes need at the f32 peak.
 Prints one JSON line per (case, variant) with the card's name and power
 limit; the lines also go to
 ``kernel_variants.json`` in ``--out`` (the build directory by default),
@@ -61,20 +70,26 @@ from beyondff_tpu_torch.kernels import _build
 from beyondff_tpu_torch.kernels import deform_window as dw
 from beyondff_tpu_torch.kernels import flash_attention as fa
 from beyondff_tpu_torch.kernels import mask_iou as kiou
+from beyondff_tpu_torch.kernels import nms
 from beyondff_tpu_torch.models import sam as sam_mod
 from beyondff_tpu_torch.models.gdino import deformable
 from beyondff_tpu_torch.tools import deform_staged
-from beyondff_tpu_torch.utils.profiling import HBM_BYTES_PER_S, PEAK_FLOPS, device_ms
+from beyondff_tpu_torch.utils.profiling import (HBM_BYTES_PER_S, PEAK_FLOPS, device_ms,
+                                                device_spans)
 
 OUT = os.path.join(_build.BUILD_DIR, "variants")
 RELPOS, IOU, MSD = "relpos_attention.cu", "mask_iou.cu", "ms_deform_sample.cu"
 FLASH, WGMMA = "flash_attention.cu", "flash_attention_wgmma.cu"
+FMW, NMS = "flash_masked_wgmma.cu", "nms_fixed.cu"
 RWG = "relpos_attention_wgmma.cu"
 IWG, MSW = "mask_iou_wgmma.cu", "ms_deform_window_tma.cu"
-SOURCES = (RELPOS, IOU, MSD, FLASH, WGMMA, RWG, IWG)
+NMB = "nms_bitmask.cu"
+SOURCES = (RELPOS, IOU, MSD, FLASH, WGMMA, FMW, RWG, IWG, NMS)
 # sources only variants build, copied beside csrc's (whose headers they use)
 VARIANT_CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "variant_csrc")
 K1, K6 = (MSD,), (IOU, IWG)  # what a K1 or K6 variant builds
+K3 = (FLASH, WGMMA, FMW)  # what a K2 or K3 variant builds (one C entry routes both)
+NMS_V = (NMS,)
 K1_STAGED = (MSD, MSW)
 ROUNDS = 3
 SET_ORDER = "bff_ms_deform_set_order"
@@ -127,6 +142,55 @@ def _k5_pingpong():
         (RWG, "        float o_lo[32], o_hi[8];\n", "        float o_lo[32], o_hi[8];\n" + take),
         (RWG, pv, pv + hand_on),
         (RWG, done, done + "    if (wg == 0) turn_sync(my_turn);\n"))
+
+
+# K2's exponentials of one n8 column tile j of a score tile
+_K2_EXP = """    s[4 * j] = bff_tc::exp2_approx(fmaf(s[4 * j], sl2, -m[0]));
+    s[4 * j + 1] = bff_tc::exp2_approx(fmaf(s[4 * j + 1], sl2, -m[0]));
+    s[4 * j + 2] = bff_tc::exp2_approx(fmaf(s[4 * j + 2], sl2, -m[1]));
+    s[4 * j + 3] = bff_tc::exp2_approx(fmaf(s[4 * j + 3], sl2, -m[1]));
+"""
+
+# 2^x on the FMA and integer units: x = n + f with n = rint(x) (the 1.5 *
+# 2^23 shift) and f in [-1/2, 1/2]; 2^f by a degree-3 minimax (relative
+# error 7.5e-5 on the interval); n added to the exponent field (the shifted
+# float's low bits hold n, and its other bits shift out of the word). x is
+# clamped at -125 so that 2^n stays normal; below that the result is 0, as
+# ex2.approx.ftz gives, and -inf (a masked key) gives 0.
+_K2_EXP2_POLY = """__device__ __forceinline__ float exp2_poly(float x) {
+  const float xc = fmaxf(x, -125.f);
+  const float t = __fadd_rn(xc, 12582912.f);
+  const float f = __fsub_rn(xc, __fsub_rn(t, 12582912.f));
+  float p = fmaf(0x1.c3f76p-5f, f, 0x1.f0de1ap-3f);
+  p = fmaf(p, f, 0x1.62f31ap-1f);
+  p = fmaf(p, f, 0x1.fff692p-1f);
+  const float r = __uint_as_float(__float_as_uint(p) + (__float_as_uint(t) << 23));
+  return x < -125.f ? 0.f : r;
+}
+
+__device__ __forceinline__ float exp2_tile(float x, int j) {
+  return j < kPolyTiles ? exp2_poly(x) : bff_tc::exp2_approx(x);
+}
+
+"""
+
+
+def _k2_poly(tiles):
+    """K2 with the 2^x of the first ``tiles`` n8 column tiles (of 8) of each
+    score tile as a polynomial on the FMA units, the rest on the
+    special-function unit (shipped: every one there)."""
+    scores = "// S = Q K^T for the warpgroup's 64 rows"
+    return (K3, (
+        (FMW, scores, f"constexpr int kPolyTiles = {tiles};\n\n" + _K2_EXP2_POLY + scores),
+        (FMW, _K2_EXP, _K2_EXP.replace("bff_tc::exp2_approx(fmaf(", "exp2_tile(fmaf(")
+         .replace("));", "), j);"))))
+
+
+# the NMS entry's first launch attribute, after which a cluster above the
+# portable 8 blocks must be allowed
+_NMS_SMEM_ATTR = """    const cudaError_t err = cudaFuncSetAttribute(
+        nms_fixed_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_of(kMaxSlice));
+"""
 
 
 # name -> (sources to build, edits as (file, old, new))
@@ -190,17 +254,68 @@ VARIANTS = {
     # K6's unaligned rows cut 128 bytes a step
     "cut128": (K6, ((IOU, "constexpr int kCut = 64;", "constexpr int kCut = 128;"),)),
     # K3: tile t's Q K^T after tile t - 1's P V has finished, not before it
-    "k3_serial": ((FLASH, WGMMA), ((WGMMA, "constexpr bool kOverlap = true;",
+    "k3_serial": (K3, ((WGMMA, "constexpr bool kOverlap = true;",
                                     "constexpr bool kOverlap = false;"),)),
     # K3: three K and V tiles in flight
-    "k3_stages_3": ((FLASH, WGMMA), ((WGMMA, "constexpr int kStages = 2;",
+    "k3_stages_3": (K3, ((WGMMA, "constexpr int kStages = 2;",
                                       "constexpr int kStages = 3;"),)),
     # K3: the consumers issue their products whenever they are ready
-    "k3_no_pingpong": ((FLASH, WGMMA), ((WGMMA, "constexpr bool kPingpong = true;",
+    "k3_no_pingpong": (K3, ((WGMMA, "constexpr bool kPingpong = true;",
                                          "constexpr bool kPingpong = false;"),)),
     # K3: two consumer warpgroups, a 128-query tile
-    "k3_two_consumers": ((FLASH, WGMMA), ((WGMMA, "constexpr int kConsumers = 3;",
+    "k3_two_consumers": (K3, ((WGMMA, "constexpr int kConsumers = 3;",
                                            "constexpr int kConsumers = 2;"),)),
+    # K2: 1, 2 or 4 n8 column tiles (of 8) of each score tile take 2^x as a
+    # polynomial on the FMA units
+    **{f"k2_poly_{n}": _k2_poly(n) for n in (1, 2, 4)},
+    # K2: the last tile in the loop, the masking behind a run-time test
+    "k2_no_peel": (K3, ((FMW, "constexpr bool kPeelLast = true;",
+                         "constexpr bool kPeelLast = false;"),)),
+    # K2: the scores' first k-step reads its accumulators (as the others do)
+    "k2_scores_read": (K3, ((FMW, "constexpr bool kFreshScores = true;",
+                             "constexpr bool kFreshScores = false;"),)),
+    # K2: the output rows rescaled at every tile, whether a max was raised or not
+    "k2_rescale_always": (K3, ((FMW, "constexpr bool kLazyRescale = true;",
+                                "constexpr bool kLazyRescale = false;"),)),
+    # K2: tile t's Q K^T after tile t - 1's P V has finished, not before it
+    "k2_serial": (K3, ((FMW, "constexpr bool kOverlap = true;",
+                        "constexpr bool kOverlap = false;"),)),
+    # K2: the consumers issue their products whenever they are ready
+    "k2_no_pingpong": (K3, ((FMW, "constexpr bool kPingpong = true;",
+                             "constexpr bool kPingpong = false;"),)),
+    # K2: both: each consumer issues when ready, the scores after P V
+    "k2_serial_no_pingpong": (K3, ((FMW, "constexpr bool kOverlap = true;",
+                                    "constexpr bool kOverlap = false;"),
+                                   (FMW, "constexpr bool kPingpong = true;",
+                                    "constexpr bool kPingpong = false;"))),
+    # K2: four, two or one consumer warpgroups a block whatever the shape
+    "k2_consumers_4": (K3, ((FMW, "  int best = 4;\n", "  return 4;\n  int best = 4;\n"),)),
+    "k2_consumers_2": (K3, ((FMW, "  int best = 4;\n", "  return 2;\n  int best = 4;\n"),)),
+    "k2_consumers_1": (K3, ((FMW, "  int best = 4;\n", "  return 1;\n  int best = 4;\n"),)),
+    # NMS: clusters of 4 or 16 blocks a frame (shipped: 8; 16 offer 2 boxes
+    # each), or one block a frame (the staged boxes, the look-ahead and the
+    # division-free test on one SM)
+    **{f"nms_cluster_{n}": (NMS_V, ((NMS, "constexpr int kCluster = 8;",
+                                     f"constexpr int kCluster = {n};"),)) for n in (1, 4)},
+    "nms_cluster_16": (NMS_V, ((NMS, "constexpr int kCluster = 8;", "constexpr int kCluster = 16;"),
+                               (NMS, "constexpr int kLook = 4;", "constexpr int kLook = 2;"),
+                               (NMS, _NMS_SMEM_ATTR, _NMS_SMEM_ATTR.replace("const ", "") + (
+                                   "    if (err == cudaSuccess)\n      err = cudaFuncSetAttribute("
+                                   "nms_fixed_kernel,\n          "
+                                   "cudaFuncAttributeNonPortableClusterSizeAllowed, 1);\n")))),
+    # NMS: each block offers its first 1 or 2 free boxes a round (shipped: 4);
+    # with 1 a round resolves one box, as the first cluster design did
+    **{f"nms_look_{n}": (NMS_V, ((NMS, "constexpr int kLook = 4;",
+                                  f"constexpr int kLook = {n};"),)) for n in (1, 2)},
+    # NMS: 256 or 1024 threads a block (shipped: 512)
+    **{f"nms_threads_{n}": (NMS_V, ((NMS, "constexpr int kThreads = 512;",
+                                     f"constexpr int kThreads = {n};"),)) for n in (256, 1024)},
+    # NMS: every pair divided (the division-free test off)
+    "nms_divide": (NMS_V, ((NMS, "const bool exact_free = thr >= FLT_MIN && thr <= FLT_MAX;",
+                            "const bool exact_free = false;"),)),
+    # NMS from the pairwise suppression bitmask over the card, then a warp a
+    # frame scans it (timed through its own entry, bff_nms_bitmask)
+    "nms_bitmask": ((NMS, NMB), ()),
     # K4: two consumer warpgroups (240 registers each), a 128-query tile, tile
     # t's Q K^T issued before tile t - 1's P V
     "k4_two_consumers": ((RELPOS, RWG), (
@@ -366,6 +481,87 @@ def k3_case(bh, s):
 
     library = lambda: F.scaled_dot_product_attention(q4, k4, v4).view(bh, s, d)
     return fn, launch, check, library, 4 * bh * s * s * d, 4 * bh * s * d * 2
+
+
+def k2_case(bh, s, valid_len):
+    """K2 in bf16 at Grounding-DINO's decoder head dim 32 through
+    ``bff_flash_attention`` with keys >= ``valid_len`` masked (the main
+    path's ``attend`` passes ``valid_len = S``): the wgmma kernel of
+    ``flash_masked_wgmma.cu`` in this tree, the mma.sync tile in a tree from
+    before it. After (name, launch, check) come SDPA on the same inputs (a
+    boolean key mask where ``valid_len < S``) and the operations and bytes of
+    one call."""
+    import torch.nn.functional as F
+
+    d = 32
+    gen = torch.Generator(device="cuda").manual_seed(bh * s + valid_len)
+    q, k, v = (torch.randn(bh, s, d, device="cuda", generator=gen).bfloat16() for _ in range(3))
+    want = fa.flash_attention_plain(q, k, v, valid_len)
+    bound = fa.bf16_error_bound(q, k, v, want, valid_len)
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream().cuda_stream
+    fn = "bff_flash_attention"
+    q4, k4, v4 = (t.view(1, bh, s, d) for t in (q, k, v))
+    mask = None
+    if valid_len < s:
+        mask = torch.arange(s, device="cuda")[None, :] < valid_len
+
+    def launch(lib):
+        rc = lib.bff_flash_attention(ctypes.c_int(1), *(ctypes.c_void_p(t.data_ptr()) for t in
+                                                        (q, k, v, out)),
+                                     bh, s, d, valid_len, ctypes.c_float(d ** -0.5),
+                                     ctypes.c_void_p(stream))
+        if rc != 0:
+            raise RuntimeError(f"{fn} failed (code {rc})")
+        return out
+
+    def check(got):
+        return float(((got.float() - want.float()).abs() - bound).max())
+
+    library = lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask).view(bh, s, d)
+    return fn, launch, check, library, 4 * bh * s * valid_len * d, 4 * bh * s * d * 2
+
+
+def nms_case(b, a, top_k=100, thr=0.5):
+    """NMS over ``b`` frames of ``a`` clustered boxes as the wrapper runs it:
+    the stable sort of the negated scores and the gather (in PyTorch), then
+    ``bff_nms_fixed`` (this tree's or the parent's) or, for the ``nms_bitmask``
+    variant, ``bff_nms_bitmask`` (``variant_csrc/nms_bitmask.cu``: the
+    pairwise suppression bitmask over the card, then a warp a frame scans
+    it). Held index for index against ``nms.nms_fixed_plain``. After (name,
+    launch, check) comes a dict: the IoU tests this data needs and the bytes
+    read once, for the bound, and ``split``, the device ms of the sort, the
+    gather and the scan of a call."""
+    boxes, scores = nms.clustered_boxes(torch.Generator(device="cuda").manual_seed(0), b, a)
+    want = nms.nms_fixed_plain(boxes, scores, thr, top_k)
+    keep = torch.empty(b, top_k, dtype=torch.int32, device="cuda")
+    valid = torch.empty(b, top_k, dtype=torch.bool, device="cuda")
+    words = (a + 31) // 32
+    ws = torch.empty(b * a * words, dtype=torch.int32, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())
+
+    def launch(lib):
+        order = torch.sort(scores.neg(), dim=-1, stable=True).indices
+        boxes_s = torch.gather(boxes, 1, order[..., None].expand(-1, -1, 4)).contiguous()
+        if has(lib, "bff_nms_bitmask"):
+            rc = lib.bff_nms_bitmask(ptr(boxes_s), ptr(order), b, a, top_k, ctypes.c_float(thr),
+                                     ptr(ws), ptr(keep), ptr(valid), ctypes.c_void_p(stream))
+        else:
+            rc = lib.bff_nms_fixed(ptr(boxes_s), ptr(order), b, a, top_k, ctypes.c_float(thr),
+                                   ptr(keep), ptr(valid), ctypes.c_void_p(stream))
+        if rc != 0:
+            raise RuntimeError(f"nms failed (code {rc})")
+        return keep, valid
+
+    def check(got):
+        return 0.0 if all(bool(torch.equal(x, y)) for x, y in zip(got, want)) else 1.0
+
+    extra = {"iou_tests": nms.iou_tests(*want, scores), "kept": int(want[1].sum()),
+             "bytes": b * a * (16 + 4) + b * top_k * (4 + 1),
+             "split": lambda call: nms.split_spans(device_spans(lambda: [call() for _ in range(5)]),
+                                                   5)}
+    return "bff_nms_fixed", launch, check, extra
 
 
 def host_us(fn, iters=50):
@@ -583,6 +779,13 @@ def main():
         "k3 (24, 4096, 64)": lambda: k3_case(24, 4096),
         "k3 (24, 3072, 64)": lambda: k3_case(24, 3072),
         "k3 (6, 4096, 64)": lambda: k3_case(6, 4096),
+        # Grounding-DINO's decoder self-attention at the batch of 4 and at one
+        # frame (every key valid, as attend calls it), and with keys masked
+        "k2 (32, 900, 32)": lambda: k2_case(32, 900, 900),
+        "k2 (8, 900, 32)": lambda: k2_case(8, 900, 900),
+        "k2 (32, 1024, 32) valid 900": lambda: k2_case(32, 1024, 900),
+        # YOLO-World-L's NMS over the batch of 4: 8 400 anchors, top_k 100
+        "nms (4, 8400)": lambda: nms_case(4, 8400),
     })
     if args.cases:
         cases = {k: v for k, v in cases.items()
@@ -593,6 +796,7 @@ def main():
         # K1: (unique bytes, corner-row bytes); K3-K6: (library call,
         # operations, bytes[, peak operations a second])
         fn, launch, check, *nbytes = make()
+        nms_extra = nbytes.pop() if nbytes and isinstance(nbytes[0], dict) else None
         library, flops, io_bytes, *peak = (nbytes if nbytes and callable(nbytes[0])
                                            else (None, None, None))
         peak = peak[0] if peak else PEAK_FLOPS["bfloat16"]
@@ -605,8 +809,16 @@ def main():
             for n, lib in libs.items():
                 if n.startswith("k1_staged"):
                     calls[n] = lambda lib=lib: launch.staged(lib)
-        names = list(calls)
-        excess = {n: check(calls[n]()) for n in names}
+        excess = {}
+        for n in list(calls):
+            try:
+                excess[n] = check(calls[n]())
+            except RuntimeError as err:  # a failed launch: recorded, not timed
+                rec = {"case": case, "variant": n, "right": False, "error": str(err),
+                       "card": card}
+                lines.append(rec)
+                print(json.dumps(rec), flush=True)
+                del calls[n]
         if library:
             calls["library"] = library
             excess["library"] = check(library())
@@ -628,6 +840,14 @@ def main():
                 rec["host_us"] = host_us(calls[n])
                 if n == "library":
                     rec["right"] = None  # a yardstick, not a variant: not gated
+            if nms_extra:  # NMS: device time, its split, the bound (IoU tests at the f32 peak)
+                rec["device_ms"] = device_ms(calls[n])
+                rec.update(nms_extra["split"](calls[n]))
+                ops_ms = nms.IOU_OPS * nms_extra["iou_tests"] / PEAK_FLOPS["float32"] * 1e3
+                bytes_ms = nms_extra["bytes"] / HBM_BYTES_PER_S * 1e3
+                rec["bound_ms"] = max(ops_ms, bytes_ms)
+                rec["bound_by"] = "operations" if ops_ms >= bytes_ms else "bytes"
+                rec["kept"] = nms_extra["kept"]
             if nbytes:  # K1: device time, the rates of unique and corner bytes, the bound
                 rec["device_ms"] = device_ms(calls[n])
                 rec["gbps"] = nbytes[0] / rec["device_ms"] / 1e6

@@ -30,8 +30,11 @@ Phases (each one's failure ends the run with a non-zero exit):
    after the same cast, bit for bit, and print each model's load seconds,
    the GB read and the peak device memory during the load; then drive the
    2D stage's ``run()`` on the loaded models, in bf16, on one 8-frame
-   968x1296 scene, with launch counts reset just before it; reload and
-   check the written ``.pth``;
+   968x1296 scene, with launch counts reset just before it: K2, the
+   decoder's self-attention, must run once a decoder layer a detect batch,
+   all through its wgmma kernel (``flash_masked_wgmma``; ``flash_attention``,
+   the mma.sync tile's counter, stays 0); reload and check the written
+   ``.pth``;
 5. run the scene once more under ``torch.profiler`` for the device's busy
    share and the kernels that take its time;
 6. drive the class sweep at full width with the phase-4 (loaded) models:
@@ -62,8 +65,9 @@ Phases (each one's failure ends the run with a non-zero exit):
    hit regime (two-tier uploads, YOLO-World in f32, EfficientSAM in bf16,
    hash guide embeddings) with launch counts set to 0 just before it: K3
    must run 12 times per SAM encode batch, all through its wgmma kernel
-   (``flash_attention_wgmma``; ``flash_attention``, K2's counter, stays
-   0), and the NMS kernel once per detection batch; then a profiled pass
+   (``flash_attention_wgmma``; ``flash_attention`` and K2's
+   ``flash_masked_wgmma`` stay 0), and the NMS kernel once per detection
+   batch; then a profiled pass
    and banked ``run_classes`` over three classes against per-class
    ``run()``;
 9. drive the training path and the parallel layer on a one-rank NCCL group
@@ -131,8 +135,13 @@ ViT-L's global (64, 4096, 64) and windowed (1600, 196, 64) shapes, K3 at
 EfficientSAM-S's global blocks
 (6 B, 4096, 64) in bf16, at the rect grid's (24, 3072, 64) and at a ragged
 (24, 4095, 64) (each call must count under the counter
-``flash_attention.wgmma_route`` names), and the NMS kernel index for index
-at YOLO-World-L's 8 400 anchors for a batch of 4 (top_k 100). Tolerances:
+``flash_attention.flash_counter`` names), K2 at the decoder's (8 B, 900,
+32) for one frame and the batch of 4, unmasked at S = 1024 and with keys
+past 900 of 1024 masked, all on its wgmma kernel (``flash_masked_wgmma``),
+the mma.sync tile at (32, 1024, 64) with keys masked, and the NMS kernel
+index for index at YOLO-World-L's 8 400 anchors for a batch of 4 (top_k
+100; its device time split into the sort, the gather and the scan) and at
+thresholds set to pairs' exact IoUs. Tolerances:
 f32 within 1e-4; bf16 K2/K3,
 K4 and K5, whose tensor-core tile rounds P to bf16 before P V as the TPU
 kernels do, within 2^-8 |P|@|V| + 2^-7 |plain| + 1e-4
@@ -200,6 +209,14 @@ WGMMA_DESIGN = ("bf16 wgmma: S = Q K^T m64n128k16 from shared memory, O += P V m
                 "mbarrier ring by a producer warpgroup; three consumer warpgroups of 64 rows "
                 "(setmaxnreg 32/160) taking turns (pingpong) to issue their products, Q K^T of "
                 "tile t issued before P V of tile t - 1")
+MASKED_WGMMA_DESIGN = ("bf16 wgmma at head dim 32: the valid keys' 64-key K/V tiles whole in "
+                       "shared memory, loaded once by TMA (64-byte swizzle) with a barrier a "
+                       "tile, no producer; C in {4, 2, 1} consumer warpgroups of 64 rows "
+                       "taking turns (pingpong), S = Q K^T m64n64k16, O += P V m64n32k16 with "
+                       "P in registers, Q K^T of tile t before P V of tile t - 1; the output "
+                       "rescaled only when a max was raised; the ragged last tile peeled out "
+                       "of the loop, its column tiles past valid_len skipping their "
+                       "exponentials")
 FMA_DESIGN = "f32 FMA from shared memory"
 # csrc/relpos_attention_wgmma.cu: K4 (False) and K5 (True)
 RELPOS_WGMMA_DESIGN = {
@@ -281,7 +298,8 @@ def flash_case(torch, fa, name, shape, valid_len, dtype, dev):
     ``fa.bf16_error_bound`` (P rounded to bf16 before P V, as the TPU kernel
     does, plus one output rounding); f32 within 1e-4. The record names the
     counter the call went through (``flash_attention_wgmma`` for K3's bf16
-    head-dim-64 calls), which must be the one ``fa.wgmma_route`` names."""
+    head-dim-64 calls, ``flash_masked_wgmma`` for K2's bf16 head-dim-32
+    calls), which must be the one ``fa.flash_counter`` names."""
     import torch.nn.functional as F
 
     from beyondff_tpu_torch.kernels import dispatch
@@ -293,9 +311,8 @@ def flash_case(torch, fa, name, shape, valid_len, dtype, dev):
     before = dict(dispatch.launch_counts)
     got = fa.flash_attention(q, k, v, valid_len=valid_len)
     went = [key for key, n in dispatch.launch_counts.items() if n != before[key]]
-    routed = ("flash_attention_wgmma" if fa.wgmma_route(
-        int(dtype == torch.bfloat16), d, s, valid_len, d ** -0.5,
-        *(t.data_ptr() for t in (q, k, v, got))) else "flash_attention")
+    routed = fa.flash_counter(int(dtype == torch.bfloat16), d, s, valid_len, d ** -0.5,
+                              *(t.data_ptr() for t in (q, k, v, got)))
     check(went == [routed], f"flash_attention {name}: launched {went}, the route says {routed}")
     want = fa.flash_attention_plain(q, k, v, valid_len=valid_len)
     torch.cuda.synchronize()
@@ -311,7 +328,9 @@ def flash_case(torch, fa, name, shape, valid_len, dtype, dev):
     bound_ops = flops / PEAK_FLOPS[dname] * 1e3
     q4, k4, v4 = (t.view(1, bh, s, d) for t in (q, k, v))
     kernel = lambda: fa.flash_attention(q, k, v, valid_len=valid_len)
-    library = lambda: F.scaled_dot_product_attention(q4, k4, v4)
+    # the yardstick: SDPA, with a boolean key mask where keys are masked
+    mask = (torch.arange(s, device=dev)[None, :] < valid_len) if valid_len < s else None
+    library = lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask)
     dev_ms = device_ms(kernel)
     rec = {
         "case": name, "kernel": routed, "dtype": dname, "shape": list(shape),
@@ -320,6 +339,7 @@ def flash_case(torch, fa, name, shape, valid_len, dtype, dev):
         "ms": cuda_ms(torch, kernel, 50),
         "device_ms": dev_ms, "tflops": flops / dev_ms / 1e9,
         "design": (WGMMA_DESIGN if routed == "flash_attention_wgmma" else
+                   MASKED_WGMMA_DESIGN if routed == "flash_masked_wgmma" else
                    TC_DESIGN + ", 4 warps x 16 rows" if bf16 else FMA_DESIGN),
         "plain_ms": cuda_ms(torch, lambda: fa.flash_attention_plain(q, k, v, valid_len), 20),
         "bound_ms": max(bound_bytes, bound_ops),
@@ -541,7 +561,8 @@ def small_reference(torch, mods, work):
 
 
 PORT_KERNELS = ("ms_deform_sample_kernel", "flash_fwd_kernel", "flash_tc_kernel",
-                "flash_wgmma_kernel", "flash_relpos_wgmma_kernel", "nms_fixed_kernel")
+                "flash_wgmma_kernel", "flash_masked_wgmma_kernel", "flash_relpos_wgmma_kernel",
+                "nms_fixed_kernel")
 
 
 def profile_scene(torch, seg2d, seg, cfg, scene, timed_scene_s, phase="device_profile"):
@@ -1418,9 +1439,11 @@ def full_width_sweep(torch, mods, Config, work, dev, models):
         check(all(all(st.values()) for st in status.values()), f"sweep stages: {status}")
         check(runner.amortized == {"segmentation": classes, "projection": classes},
               f"amortized passes did not run for every class: {runner.amortized}")
-        for name in ("flash_attention_relpos_wgmma", "ms_deform_sample", "flash_attention",
+        for name in ("flash_attention_relpos_wgmma", "ms_deform_sample", "flash_masked_wgmma",
                      "mask_iou_wgmma"):
             check(launches[name] > 0, f"{name} was not launched in the sweep")
+        check(launches["flash_attention"] == 0,
+              f"a decoder self-attention call stayed on the mma.sync tile: {launches}")
         check(launches["mask_iou"] == 0, f"mask IoU off the wgmma kernel: {launches}")
         check(launches["flash_attention_relpos"] == 0,
               f"K4 launched off its wgmma kernel in the sweep: {launches}")
@@ -1495,18 +1518,6 @@ def full_width_sweep(torch, mods, Config, work, dev, models):
 # ------------------------------------------------------------ the fast variant
 NMS_ANCHORS = 80 * 80 + 40 * 40 + 20 * 20  # YOLO-World-L's anchors at 640x640
 NMS_TOP_K = 100  # YOLO-World-L's max_dets
-IOU_OPS = 16  # f32 operations of one IoU test (4 min/max, 2 clamps, 2 products, 8 +-/)
-
-
-def iou_tests(torch, keep, valid, scores):
-    """The IoU tests the greedy scan makes for these results: each kept box
-    against every box after it in score order (what this run's data needs,
-    for the bound)."""
-    order = torch.sort(scores.neg(), dim=-1, stable=True).indices
-    rank = torch.empty_like(order)
-    rank.scatter_(1, order, torch.arange(order.shape[1], device=order.device).expand_as(order))
-    pos = torch.gather(rank, 1, keep.long())
-    return int(((scores.shape[1] - 1 - pos) * valid).sum())
 
 
 def nms_case(torch, nms, dev):
@@ -1515,41 +1526,71 @@ def nms_case(torch, nms, dev):
     output), top_k 100, IoU 0.5. The bound counts the IoU tests this data
     needs (each kept box against every box after it) at the f32 peak, and
     the boxes and scores read once."""
-    from beyondff_tpu_torch.utils.profiling import HBM_BYTES_PER_S, PEAK_FLOPS, device_ms
+    from beyondff_tpu_torch.utils.profiling import (HBM_BYTES_PER_S, PEAK_FLOPS, device_ms,
+                                                    device_spans)
 
-    gen = torch.Generator(device=dev).manual_seed(SEED)
     b, a = FRAME_BATCH, NMS_ANCHORS
-    centers = torch.rand(b, 60, 2, generator=gen, device=dev) * 640
-    pick = torch.randint(0, 60, (b, a), generator=gen, device=dev)
-    c = torch.gather(centers, 1, pick[..., None].expand(-1, -1, 2))
-    c = c + torch.randn(b, a, 2, generator=gen, device=dev) * 10
-    half = torch.rand(b, a, 2, generator=gen, device=dev) * 60 + 8
-    boxes = torch.cat([c - half, c + half], -1)
-    scores = torch.rand(b, a, generator=gen, device=dev)
+    boxes, scores = nms.clustered_boxes(torch.Generator(device=dev).manual_seed(SEED), b, a)
     keep, valid = nms.nms_fixed(boxes, scores, 0.5, NMS_TOP_K)
     want_keep, want_valid = nms.nms_fixed_plain(boxes, scores, 0.5, NMS_TOP_K)
     torch.cuda.synchronize()
     err = float((keep.long() - want_keep.long()).abs().max())
     equal = bool(torch.equal(keep, want_keep) and torch.equal(valid, want_valid))
-    n_iou = iou_tests(torch, keep, valid, scores)
+    n_iou = nms.iou_tests(keep, valid, scores)
     nbytes = b * a * (16 + 4) + b * NMS_TOP_K * (4 + 1)
     bound_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    bound_ops = IOU_OPS * n_iou / PEAK_FLOPS["float32"] * 1e3
+    bound_ops = nms.IOU_OPS * n_iou / PEAK_FLOPS["float32"] * 1e3
     kernel = lambda: nms.nms_fixed(boxes, scores, 0.5, NMS_TOP_K)
+    # the call's device time by part: the scan (the kernel), the gather, and
+    # the sort with the negation of the scores (the wrapper's)
+    split = nms.split_spans(device_spans(lambda: [kernel() for _ in range(5)]), 5)
     rec = {"case": "yolo_world_l_batch", "kernel": "nms_fixed", "shape": [b, a],
            "top_k": NMS_TOP_K, "kept": int(valid.sum()), "iou_evaluations": n_iou,
            "max_abs_err": err, "index_equal": equal, "tol": "indices equal",
-           "ms": cuda_ms(torch, kernel, 50), "device_ms": device_ms(kernel),
+           "ms": cuda_ms(torch, kernel, 50), "device_ms": device_ms(kernel), **split,
            "plain_ms": cuda_ms(torch, lambda: nms.nms_fixed_plain(boxes, scores, 0.5,
                                                                    NMS_TOP_K), 3),
            "bound_ms": max(bound_bytes, bound_ops),
            "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
            "library_ms": None,
-           "design": "a block per frame, the suppression bitmask in shared memory, the next "
-                     "survivor found a word at a time, warp ballots over 32 later boxes, "
-                     "stops at top_k; ms includes the wrapper's stable sort and gather"}
+           "design": "a cluster of 8 blocks per frame, each a slice of the sorted boxes "
+                     "staged by one bulk copy with its suppression bits in shared memory; a "
+                     "round tests the boxes the last round kept against the slice (warp "
+                     "ballots, suppressed words skipped, the division only near the "
+                     "threshold), each block offers its first 4 free boxes to all through "
+                     "distributed shared memory, one cluster barrier, then the 4 smallest "
+                     "offers are kept greedily; stops at top_k; ms and device_ms include "
+                     "the wrapper's stable sort and gather (sort_ms, gather_ms, scan_ms)"}
     emit(rec)
     check(equal, f"nms_fixed kernel disagrees with its plain version: {rec}")
+    return rec
+
+
+def nms_threshold_case(torch, nms, dev):
+    """The NMS kernel index for index against its plain version with the
+    threshold set to IoUs the plain version computes for pairs of the input
+    (``>`` keeps those pairs: the division-free test must fall back to the
+    division there), tied scores in the mix, at 2 frames of 2 000 boxes."""
+    boxes, scores = nms.clustered_boxes(torch.Generator(device=dev).manual_seed(SEED + 7), 2,
+                                        2000, centres=40, spread=3.0, half_min=5.0)
+    scores = torch.round(scores * 8) / 8
+    bs = boxes[0]
+    area = (bs[:, 2] - bs[:, 0]).clamp_min(0) * (bs[:, 3] - bs[:, 1]).clamp_min(0)
+    inter = ((torch.minimum(bs[0, 2], bs[1:, 2]) - torch.maximum(bs[0, 0], bs[1:, 0]))
+             .clamp_min(0) * (torch.minimum(bs[0, 3], bs[1:, 3])
+                              - torch.maximum(bs[0, 1], bs[1:, 1])).clamp_min(0))
+    iou = inter / (area[0] + area[1:] - inter + 1e-9)
+    thresholds = iou[(iou > 0.2) & (iou < 0.8)][:6].tolist()
+    equal = []
+    for thr in thresholds:
+        got = nms.nms_fixed(boxes, scores, thr, 300)
+        want = nms.nms_fixed_plain(boxes, scores, thr, 300)
+        equal.append(all(bool(torch.equal(x, y)) for x, y in zip(got, want)))
+    torch.cuda.synchronize()
+    rec = {"case": "nms_on_the_threshold", "kernel": "nms_fixed", "thresholds": thresholds,
+           "index_equal": equal}
+    emit(rec)
+    check(len(thresholds) == 6 and all(equal), f"nms_fixed on the threshold: {rec}")
     return rec
 
 
@@ -1803,7 +1844,7 @@ def fast_variant(torch, mods, Config, work, dev, clip_files):
               "frames_with_boxes": results[0]["frames_with_boxes"]})
         blocks = len(seg.sam.cfg.global_attn_indexes)  # 12: every block is global
         check(encodes > 0 and launches["flash_attention_wgmma"] == blocks * encodes
-              and launches["flash_attention"] == 0,
+              and launches["flash_attention"] == 0 and launches["flash_masked_wgmma"] == 0,
               f"K3: {launches['flash_attention_wgmma']} wgmma launches (and "
               f"{launches['flash_attention']} on the mma.sync tile) for {encodes} encode batches")
         check(launches["nms_fixed"] == prof.counts["detect"] and launches["nms_fixed"] > 0,
@@ -2572,6 +2613,7 @@ def transports(torch, mods, Config, work, fixture, dev, seg, cfg, card):
           "launches_over_defaults": {"seg2d": launches, "projection": proj_launches},
           "seconds": time.perf_counter() - t_phase})
     check(launches["flash_attention_wgmma"] > 0 and launches["flash_attention"] == 0
+          and launches.get("flash_masked_wgmma", 0) == 0
           and launches["nms_fixed"] > 0 and proj_launches["mask_iou_wgmma"] > 0,
           f"phase 10 launched no kernel, or K3 off the wgmma kernel: {launches}")
 
@@ -2582,6 +2624,7 @@ RECT_GRID = (48, 64)  # SAM's patch grid of a 968x1296 frame under BFF_SAM_RECT=
 KERNEL_SYMBOLS = {"ms_deform_sample": ("ms_deform_sample_kernel",),
                   "flash_attention": ("flash_tc_kernel", "flash_fwd_kernel"),
                   "flash_attention_wgmma": ("flash_wgmma_kernel",),
+                  "flash_masked_wgmma": ("flash_masked_wgmma_kernel",),
                   "flash_attention_relpos": ("flash_relpos_tc_kernel", "flash_relpos_kernel"),
                   "flash_attention_relpos_wgmma": ("flash_relpos_wgmma_kernel",),
                   "window_attention_relpos": ("window_relpos_tc_kernel", "window_relpos_kernel"),
@@ -2617,6 +2660,7 @@ def rect_phase(torch, mods, dev, card):
                   else "flash_attention_wgmma")
         check(rec["launches"].get(kernel, 0) > 0, f"{name}: {kernel} not launched")
         check(rec["launches"].get("flash_attention", 0) == 0
+              and rec["launches"].get("flash_masked_wgmma", 0) == 0
               and rec["launches"].get("flash_attention_relpos", 0) == 0
               and (name == "efficientsam_s" or rec["launches"]["flash_attention_wgmma"] == 0),
               f"{name}: attention off its kernel: {rec['launches']}")
@@ -2781,7 +2825,7 @@ def single_scene_phase(torch, mods, work, tmp, dev, card, detector):
           "launches": launches, "ply_vertices": n_points,
           "viewer_layers": [x["name"] for x in layers], "trace_names_kernels": named,
           "trace_kernel_names": len(names), "trace_bytes": trace_bytes})
-    for k in ("ms_deform_sample", "flash_attention", "mask_iou_wgmma"):
+    for k in ("ms_deform_sample", "flash_masked_wgmma", "mask_iou_wgmma"):
         check(launches.get(k, 0) > 0, f"single_scene launched no {k}: {launches}")
     check(all(named.values()), f"the trace misses a launched kernel: {named}")
     return cfg_path
@@ -3007,9 +3051,11 @@ def phase12(torch, mods, dev, classic, classic_cfg, fast_seg, fast_cfg):
                         "classic", CLASSIC_SETTINGS, {"hit": 0.0}, 2)
     for r in rows:
         check(r["launches"].get("ms_deform_sample", 0) > 0
-              and r["launches"].get("flash_attention", 0) > 0
+              and r["launches"].get("flash_masked_wgmma", 0) > 0
+              and r["launches"].get("flash_attention", 0) == 0
               and r["launches"].get("flash_attention_wgmma", 0) == 0,
-              f"classic {r}: K1 or K2 was not launched, or K3 was")
+              f"classic {r}: K1 or K2 (on its wgmma kernel) was not launched, or K3 or the "
+              "mma.sync tile was")
     jpeg_scene(scenes, "scene_p12_jpeg", P12_FRAMES)
     fast_seg.frame_loader = io.load_image  # the JPEG files themselves (JXT)
     rows = scheduler_ab(torch, dispatch, fast_seg, fast_cfg, "scene_p12_jpeg",
@@ -3020,6 +3066,7 @@ def phase12(torch, mods, dev, classic, classic_cfg, fast_seg, fast_cfg):
             check(r["launches"].get("flash_attention_wgmma", 0)
                   == blocks * -(-P12_FRAMES // fast_cfg.detector.frame_batch)
                   and r["launches"].get("flash_attention", 0) == 0
+                  and r["launches"].get("flash_masked_wgmma", 0) == 0
                   and r["launches"].get("nms_fixed", 0) > 0, f"fast {r}: K3 or NMS missing")
     shutil.rmtree(scenes)
     scheduler_s = time.perf_counter() - t0
@@ -3136,6 +3183,9 @@ def main() -> int:
                                                         (8 * b, 900, 32), 900, dtype, dev)
             cases[("flash_1024", dname, b)] = flash_case(torch, fa, "unmasked_1024",
                                                          (8 * b, 1024, 32), 1024, dtype, dev)
+            # keys masked: valid_len < S, the last valid tile ragged
+            cases[("flash_masked", dname, b)] = flash_case(torch, fa, "masked_1024_900",
+                                                           (8 * b, 1024, 32), 900, dtype, dev)
             if b == 1 and dtype == torch.float32:
                 f32_one_frame_s += time.perf_counter() - t_case
     # SAM ViT-H's global blocks (K4: 16 heads x B of the 64 x 64 grid) and
@@ -3165,6 +3215,15 @@ def main() -> int:
             torch, fa, wa, sam_mod, name, g * FRAME_BATCH, grid, torch.bfloat16, dev, d=64)
         check(rec["kernel"] in ("flash_attention_relpos", "window_attention_relpos"),
               f"rel-pos {name}: went through {rec['kernel']}, not the mma.sync tile")
+    for b in (1, FRAME_BATCH):
+        for key in ("flash_900", "flash_1024", "flash_masked"):
+            check(cases[(key, "bfloat16", b)]["kernel"] == "flash_masked_wgmma",
+                  f"K2 {key} at batch {b} off its wgmma kernel")
+    # the mma.sync tile of csrc/attention_tc.cuh keeps every bf16 call outside
+    # both wgmma predicates: here head dim 64 with keys masked
+    cases[("flash_tile", "bfloat16", FRAME_BATCH)] = rec = flash_case(
+        torch, fa, "masked_d64_1024_900", (8 * FRAME_BATCH, 1024, 64), 900, torch.bfloat16, dev)
+    check(rec["kernel"] == "flash_attention", "flash_tile: off the mma.sync tile")
     emit({"phase": "kernel_cases", "f32_one_frame_seconds": f32_one_frame_s})
     # the aggregation's self-IoU and refinement's stage-2 x stage-1 IoU, rows
     # on 16-byte boundaries as the main path allocates them (the wgmma
@@ -3204,6 +3263,7 @@ def main() -> int:
             torch, fa, "efficientsam_global_rect" if s_k3 == 3072 else "ragged_4095",
             (6 * FRAME_BATCH, s_k3, 64), s_k3, torch.bfloat16, dev)
     cases["nms"] = nms_case(torch, nms, dev)
+    cases["nms_threshold"] = nms_threshold_case(torch, nms, dev)
 
     work = os.path.join(REPO, "chiprun_out", "chip_smoke")
     shutil.rmtree(work, ignore_errors=True)
@@ -3259,8 +3319,15 @@ def main() -> int:
           "launches_per_frame": {k: v / N_FRAMES for k, v in launches.items()},
           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
           "frames_with_boxes": results[0]["frames_with_boxes"]})
-    for name in ("ms_deform_sample", "flash_attention"):
-        check(launches[name] > 0, f"{name} was not launched on the main path")
+    check(launches["ms_deform_sample"] > 0, "ms_deform_sample was not launched on the main path")
+    # K2: the decoder's self-attention, one launch a decoder layer a detect
+    # batch, all on its wgmma kernel; none left on the mma.sync tile
+    dec_layers = seg.detector.cfg.dec_layers
+    check(launches["flash_masked_wgmma"] == dec_layers * prof.counts["detect"] > 0
+          and launches["flash_attention"] == 0,
+          f"K2: {launches['flash_masked_wgmma']} wgmma launches (and "
+          f"{launches['flash_attention']} on the mma.sync tile) for "
+          f"{prof.counts['detect']} detect batches of {dec_layers} decoder layers")
     check(launches["flash_attention_wgmma"] == 0, "the classic path launched K3")
 
     recs = check_records(torch, cfg, "clothes", "scene0000_00", N_FRAMES)
@@ -3331,7 +3398,10 @@ def main() -> int:
     for key, src, replaces in (
             (("deform_clamp", *bf16_b), "beyondff_tpu_torch/csrc/ms_deform_sample.cu",
              "beyondff_tpu/kernels/deform_window.py:170"),
-            (("flash_900", *bf16_b), "beyondff_tpu_torch/csrc/flash_attention.cu",
+            (("flash_900", *bf16_b), "beyondff_tpu_torch/csrc/flash_masked_wgmma.cu",
+             "beyondff_tpu/kernels/flash_attention.py:270"),
+            # bf16 calls outside both wgmma predicates keep the mma.sync tile
+            (("flash_tile", *bf16_b), "beyondff_tpu_torch/csrc/flash_attention.cu",
              "beyondff_tpu/kernels/flash_attention.py:270"),
             # K4 and K5 in bf16 at head dim 80 take the wgmma kernels; other
             # bf16 shapes keep the mma.sync tile of relpos_attention.cu
@@ -3365,6 +3435,7 @@ def main() -> int:
                       **{key: c.get(key) for key in ("device_ms", "library_device_ms",
                                                      "tflops", "tops", "gbps", "dense_path_ms",
                                                      "dense_path_device_ms", "host_us",
+                                                     "sort_ms", "gather_ms", "scan_ms",
                                                      "dtype", "shape", "design")
                          if key in c}})
     shutil.rmtree(work)

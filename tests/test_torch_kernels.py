@@ -575,15 +575,22 @@ def test_flash_kernel_matches_plain_on_card(cuda_device, dtype, bh, s, valid, d)
     masked in the last partial tile at S = 600, 1000 and 1023, and head dims
     16 to 128 (bf16 pads them to whole k16 steps in shared memory; D = 20 is
     no whole 16-byte row and takes the FMA kernel). f32 within 1e-4; bf16
-    within the derived bound and K2's 1.6e-2."""
+    within the derived bound and K2's 1.6e-2. Each call counts once, under
+    the counter ``tfa.flash_counter`` names: bf16 at head dim 32 goes to
+    K2's wgmma kernel (``flash_masked_wgmma``), the rest to the mma.sync
+    tile or the FMA kernel (``flash_attention``)."""
     g = torch.Generator(device=cuda_device).manual_seed(s + d)
     q, k, v = (torch.randn(bh, s, d, generator=g, device=cuda_device).to(dtype)
                for _ in range(3))
-    before = dispatch.launch_counts["flash_attention"]
+    before = dict(dispatch.launch_counts)
     got = tfa.flash_attention(q, k, v, valid_len=valid)
     want = tfa.flash_attention_plain(q, k, v, valid_len=valid)
     torch.cuda.synchronize()
-    assert dispatch.launch_counts["flash_attention"] == before + 1
+    key = tfa.flash_counter(int(dtype == torch.bfloat16), d, s, valid, d ** -0.5,
+                            *(t.data_ptr() for t in (q, k, v, got)))
+    assert _moved(before) == [key]
+    assert key == ("flash_masked_wgmma" if dtype == torch.bfloat16 and d == 32
+                   else "flash_attention")
     _assert_within_bound(got, want, tfa.bf16_error_bound(q, k, v, want, valid))
     if dtype == torch.bfloat16:
         assert float((got.float() - want.float()).abs().max()) <= 1.6e-2
@@ -919,10 +926,11 @@ def test_flash_wgmma_kernel_matches_plain_on_card(cuda_device, bh, s):
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", ["masked", "d32", "d80", "f32", "misaligned"])
 def test_flash_other_shapes_keep_their_kernels_on_card(cuda_device, case):
-    """Calls outside the wgmma predicate keep their routes, counted as
-    ``flash_attention``: keys masked (K2), head dims 32 and 80 on the
-    mma.sync tile, f32 on the FMA kernel, and a bf16 head-dim-64 input off
-    16 bytes (the FMA kernel); each within its bound of the plain version."""
+    """Calls outside K3's wgmma predicate keep their routes: keys masked at
+    head dim 64 and head dim 80 on the mma.sync tile, f32 on the FMA kernel
+    and a bf16 head-dim-64 input off 16 bytes (the FMA kernel), counted as
+    ``flash_attention``; bf16 at head dim 32 on K2's wgmma kernel, counted as
+    ``flash_masked_wgmma``; each within its bound of the plain version."""
     d = {"d32": 32, "d80": 80}.get(case, 64)
     dtype = torch.float32 if case == "f32" else torch.bfloat16
     g = torch.Generator(device=cuda_device).manual_seed(d)
@@ -934,7 +942,7 @@ def test_flash_other_shapes_keep_their_kernels_on_card(cuda_device, case):
     valid = 900 if case == "masked" else 1000
     before = dict(dispatch.launch_counts)
     got = tfa.flash_attention(q, k, v, valid_len=valid)
-    assert _launched(before) == ["flash_attention"]
+    assert _launched(before) == ["flash_masked_wgmma" if case == "d32" else "flash_attention"]
     want = tfa.flash_attention_plain(q, k, v, valid_len=valid)
     torch.cuda.synchronize()
     _assert_within_bound(got, want, tfa.bf16_error_bound(q, k, v, want, valid))
