@@ -15,9 +15,10 @@
 //   w3 == 0  exact: zero padding outside the map (the reference op);
 //   w3 > 0   clamp: the TPU kernel's semantics. The query's window origin
 //            (tile_origin - radius, from build_assignment) comes in
-//            `origin`; the sample clamps to [origin, origin + w3 - 2] in
-//            window coordinates, contributes 0 unless -1 < g < size on both
-//            axes, and corners outside the map read 0.
+//            `origin`; a sample beyond [origin, origin + w3 - 2] clamps to
+//            that edge, one inside it samples exactly (as the exact mode
+//            does, bit for bit), it contributes 0 unless -1 < g < size on
+//            both axes, and corners outside the map read 0.
 //
 // A gather, not the TPU kernel's tile-window matmul: Mosaic has no gather,
 // so the TPU builds a dense (window cells x queries) weight matrix, of which
@@ -191,7 +192,11 @@ __device__ __forceinline__ void load_points(const float* loc, const T* a, float*
 
 // One point's four corners: element offsets of their rows from the level's
 // base (-1 where the corner reads 0) and weights (bilinear x attention),
-// rounded as the plain version rounds the cell coordinates.
+// rounded as the plain version rounds the cell coordinates. In clamp mode
+// the sample is first clamped into its window [origin, origin + w3 - 2]:
+// clamping picks one of its operands, so a sample inside keeps its
+// coordinates and the two modes agree bit for bit where nothing clamps,
+// and one beyond lands on the edge, a whole cell.
 __device__ __forceinline__ void corners(float lx, float ly, float wgt, int hh, int ww, int w3,
                                         int oy, int ox, int row_stride, int* off, float* cw) {
   const float gx = __fsub_rn(__fmul_rn(lx, (float)ww), 0.5f);
@@ -201,13 +206,13 @@ __device__ __forceinline__ void corners(float lx, float ly, float wgt, int hh, i
   bool live = true;
   if (w3 > 0) {
     live = gy > -1.f && gy < (float)hh && gx > -1.f && gx < (float)ww;
-    const float ry = fminf(fmaxf(__fsub_rn(gy, (float)oy), 0.f), (float)(w3 - 2));
-    const float rx = fminf(fmaxf(__fsub_rn(gx, (float)ox), 0.f), (float)(w3 - 2));
-    const float ry0 = floorf(ry), rx0 = floorf(rx);
-    fy = __fsub_rn(ry, ry0);
-    fx = __fsub_rn(rx, rx0);
-    y0 = (int)ry0 + oy;
-    x0 = (int)rx0 + ox;
+    const float cy = fminf(fmaxf(gy, (float)oy), (float)(oy + w3 - 2));
+    const float cx = fminf(fmaxf(gx, (float)ox), (float)(ox + w3 - 2));
+    const float y0f = floorf(cy), x0f = floorf(cx);
+    fy = __fsub_rn(cy, y0f);
+    fx = __fsub_rn(cx, x0f);
+    y0 = (int)y0f;
+    x0 = (int)x0f;
   } else {
     const float y0f = floorf(gy), x0f = floorf(gx);
     fy = __fsub_rn(gy, y0f);

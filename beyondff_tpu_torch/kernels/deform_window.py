@@ -183,6 +183,45 @@ def _check_modes(shapes, modes, q):
     return modes
 
 
+def window_corner(gy: torch.Tensor, gx: torch.Tensor, ylo, yhi, xlo, xhi):
+    """Corner (0, 0) cell (y0, x0) and fractions (fy, fx) of samples at cell
+    coordinates (gy, gx), as the kernel computes them: each sample clamped
+    into [ylo, yhi] x [xlo, xhi] (a clamp level's window
+    ``[origin, origin + w3 - 2]``, an exact level's [-2, size + 1]), then
+    floor and remainder. Clamping picks one of its operands, so a sample
+    inside keeps its coordinates (the two modes agree bit for bit where
+    nothing clamps) and one beyond lands on the edge, a whole cell."""
+    cy, cx = torch.clamp(gy, ylo, yhi), torch.clamp(gx, xlo, xhi)
+    y0f, x0f = torch.floor(cy), torch.floor(cx)
+    return y0f.long(), x0f.long(), cy - y0f, cx - x0f
+
+
+def clamped_samples(locs: torch.Tensor, shapes: Sequence[Tuple[int, int]],
+                    modes: Sequence[Mode]):
+    """Per level, the (clamped, in map) masks (B, Q, heads, P) of ``locs``
+    (B, Q, heads, L, P, 2) in [0, 1] over the all-level raster: a sample is
+    in the map when -1 < g < size on both axes (g = loc * size - 0.5) and
+    clamps when it is in the map and beyond its window
+    ``[origin, origin + w3 - 2]`` on either axis; exact levels clamp none."""
+    shapes = tuple((int(h), int(w)) for h, w in shapes)
+    modes = _check_modes(shapes, modes, locs.shape[1])
+    origins = (window_origins(shapes, modes, locs.device).float()
+               if any(m is not None for m in modes) else None)
+    out = []
+    for li, (h, w) in enumerate(shapes):
+        gx = locs[:, :, :, li, :, 0].float() * w - 0.5
+        gy = locs[:, :, :, li, :, 1].float() * h - 0.5
+        inmap = (gy > -1.0) & (gy < float(h)) & (gx > -1.0) & (gx < float(w))
+        clamped = torch.zeros_like(inmap)
+        if modes[li] is not None:
+            edge = float(modes[li][0] + 2 * modes[li][1] - 2)
+            oy = origins[li, :, 0].view(1, -1, 1, 1)
+            ox = origins[li, :, 1].view(1, -1, 1, 1)
+            clamped = inmap & ((gy < oy) | (gy > oy + edge) | (gx < ox) | (gx > ox + edge))
+        out.append((clamped, inmap))
+    return out
+
+
 def ms_deform_sample_plain(value: torch.Tensor, shapes: Sequence[Tuple[int, int]],
                            locs: torch.Tensor, aw: torch.Tensor,
                            modes: Optional[Sequence[Mode]] = None) -> torch.Tensor:
@@ -194,7 +233,7 @@ def ms_deform_sample_plain(value: torch.Tensor, shapes: Sequence[Tuple[int, int]
     b, _, heads, hd = value.shape
     q, p_pts = locs.shape[1], locs.shape[4]
     modes = _check_modes(shapes, modes or (None,) * len(shapes), q)
-    origins = (window_origins(shapes, modes, value.device).long()
+    origins = (window_origins(shapes, modes, value.device)
                if any(m is not None for m in modes) else None)
     out = torch.zeros(b, q, heads, hd, dtype=torch.float32, device=value.device)
     start = 0
@@ -206,22 +245,14 @@ def ms_deform_sample_plain(value: torch.Tensor, shapes: Sequence[Tuple[int, int]
         gy = locs[:, :, :, li, :, 1].float() * h - 0.5
         a = aw[:, :, :, li].float()
         if modes[li] is not None:
-            tile, radius = modes[li]
-            w3 = tile + 2 * radius
-            oy = origins[li, :, 0].view(1, q, 1, 1)
-            ox = origins[li, :, 1].view(1, q, 1, 1)
+            edge = modes[li][0] + 2 * modes[li][1] - 2
+            oy = origins[li, :, 0].view(1, q, 1, 1).float()
+            ox = origins[li, :, 1].view(1, q, 1, 1).float()
             inmap = (gy > -1.0) & (gy < float(h)) & (gx > -1.0) & (gx < float(w))
             a = a * inmap
-            ry = (gy - oy.float()).clamp(0.0, w3 - 2.0)
-            rx = (gx - ox.float()).clamp(0.0, w3 - 2.0)
-            y0f, x0f = torch.floor(ry), torch.floor(rx)
-            fy, fx = ry - y0f, rx - x0f
-            y0, x0 = y0f.long() + oy, x0f.long() + ox
+            y0, x0, fy, fx = window_corner(gy, gx, oy, oy + edge, ox, ox + edge)
         else:
-            y0f, x0f = torch.floor(gy), torch.floor(gx)
-            fy, fx = gy - y0f, gx - x0f
-            y0 = y0f.clamp(-2, h + 1).long()
-            x0 = x0f.clamp(-2, w + 1).long()
+            y0, x0, fy, fx = window_corner(gy, gx, -2.0, h + 1.0, -2.0, w + 1.0)
         for dy in (0, 1):
             for dx in (0, 1):
                 yy, xx = y0 + dy, x0 + dx

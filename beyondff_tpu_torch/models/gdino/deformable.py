@@ -98,23 +98,29 @@ class MSDeformAttn(nn.Module):
         self.value_proj = nn.Linear(dim, dim)
         self.output_proj = nn.Linear(dim, dim)
 
+    def sampling_locations(self, query, reference_points, spatial_shapes):
+        """(B, Q, heads, levels, points, 2) f32 sampling locations in [0, 1]:
+        the reference points plus the predicted offsets."""
+        b, q, _ = query.shape
+        offsets = self.sampling_offsets(query).reshape(
+            b, q, self.heads, self.levels, self.points, 2)
+        shapes = to_device(spatial_shapes, query.device, torch.float32)
+        wh = shapes.flip(-1)[None, None, None, :, None, :]  # (w, h) per level
+        ref = reference_points.float()
+        if ref.shape[-1] == 2:
+            return ref[:, :, None, :, None, :] + offsets.float() / wh
+        # (cx, cy, w, h) refs: offsets scaled by box size
+        return (ref[..., :2][:, :, None, :, None, :]
+                + offsets.float() / self.points * ref[..., 2:][:, :, None, :, None, :] * 0.5)
+
     def forward(self, query, reference_points, value, spatial_shapes):
         """query (B, Q, dim); reference_points (B, Q, levels, 2 or 4) in
         [0, 1]; value (B, sum HW, dim)."""
         b, q, _ = query.shape
         v = self.value_proj(value).reshape(b, -1, self.heads, self.dim // self.heads)
-        offsets = self.sampling_offsets(query).reshape(
-            b, q, self.heads, self.levels, self.points, 2)
         weights = torch.softmax(
             self.attention_weights(query).reshape(b, q, self.heads, -1).float(), dim=-1)
         weights = weights.to(query.dtype).reshape(b, q, self.heads, self.levels, self.points)
-        shapes = to_device(spatial_shapes, query.device, torch.float32)
-        wh = shapes.flip(-1)[None, None, None, :, None, :]  # (w, h) per level
-        ref = reference_points.float()
-        if ref.shape[-1] == 2:
-            locs = ref[:, :, None, :, None, :] + offsets.float() / wh
-        else:  # (cx, cy, w, h) refs: offsets scaled by box size
-            locs = (ref[..., :2][:, :, None, :, None, :]
-                    + offsets.float() / self.points * ref[..., 2:][:, :, None, :, None, :] * 0.5)
+        locs = self.sampling_locations(query, reference_points, spatial_shapes)
         out = ms_deform_attn(v, spatial_shapes, locs, weights, windowed=self.windowed)
         return self.output_proj(out)

@@ -24,7 +24,7 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
-from beyondff_tpu_torch.kernels.deform_window import Mode, build_assignment
+from beyondff_tpu_torch.kernels.deform_window import Mode, build_assignment, window_corner
 
 STAGED_HEAD_DIM = 32      # the head dim the kernel takes
 STAGED_SMEM = 227 * 1024  # bytes of shared memory a block may use
@@ -175,10 +175,8 @@ def staged_sample_mirror(value: torch.Tensor, shapes: Sequence[Tuple[int, int]],
             gy = locs[:, qs, :, li, :, 1].float() * h - 0.5
             a = aw[:, qs, :, li].float()
             live = (gy > -1.0) & (gy < float(h)) & (gx > -1.0) & (gx < float(w))
-            ry = (gy - oy.float()).clamp(0.0, w3 - 2.0)
-            rx = (gx - ox.float()).clamp(0.0, w3 - 2.0)
-            fy, fx = ry - torch.floor(ry), rx - torch.floor(rx)
-            y0, x0 = torch.floor(ry).long() + oy, torch.floor(rx).long() + ox
+            y0, x0, fy, fx = window_corner(gy, gx, oy.float(), oy.float() + (w3 - 2),
+                                           ox.float(), ox.float() + (w3 - 2))
             cell0 = (y0 - boy) * bx + (x0 - box_)  # the kernel's corner (0, 0) cell
             for dy in (0, 1):
                 for dx in (0, 1):

@@ -285,11 +285,12 @@ staged_kernel(const __grid_constant__ Maps maps, const __grid_constant__ Plan pl
     const float gx = __fsub_rn(__fmul_rn(ld.lx, (float)ww), 0.5f);
     const float gy = __fsub_rn(__fmul_rn(ld.ly, (float)hh), 0.5f);
     const bool live = q >= 0 && gy > -1.f && gy < (float)hh && gx > -1.f && gx < (float)ww;
-    const float ry = fminf(fmaxf(__fsub_rn(gy, (float)ld.oy), 0.f), (float)(w3 - 2));
-    const float rx = fminf(fmaxf(__fsub_rn(gx, (float)ld.ox), 0.f), (float)(w3 - 2));
-    const float ry0 = floorf(ry), rx0 = floorf(rx);
-    const float fy = __fsub_rn(ry, ry0), fx = __fsub_rn(rx, rx0);
-    const int y0 = (int)ry0 + ld.oy, x0 = (int)rx0 + ld.ox;
+    const float ylo = (float)ld.oy, yhi = (float)(ld.oy + w3 - 2);
+    const float xlo = (float)ld.ox, xhi = (float)(ld.ox + w3 - 2);
+    const float cy = fminf(fmaxf(gy, ylo), yhi), cx = fminf(fmaxf(gx, xlo), xhi);
+    const float y0f = floorf(cy), x0f = floorf(cx);
+    const float fy = __fsub_rn(cy, y0f), fx = __fsub_rn(cx, x0f);
+    const int y0 = (int)y0f, x0 = (int)x0f;
     const float wa = live ? ld.a : 0.f;
     float wc[4];  // corners (dy, dx) = (0, 0), (0, 1), (1, 0), (1, 1)
     wc[0] = (1.f - fy) * (1.f - fx) * wa;

@@ -121,6 +121,17 @@ Phases (each one's failure ends the run with a non-zero exit):
    ``profile_sam`` with ``BFF_SAM_ABLATE`` and the global blocks' branch,
    ``profile_gdino_blocks``, ``profile_enhancer``,
    ``measure_depth_decimation``), a few iterations each.
+13. the windowed clamp of K1 against exact sampling
+   (``tools/measure_deform_window``, bf16): at the encoder raster (8 heads
+   x 32, 4 points), N(0, sigma) offsets of 1, 2, 3, 4 and 8 cells, each
+   level in the main path's mode and L0 / L1 at PARITY.md's (16, 16) /
+   (8, 8); then Grounding-DINO Swin-B at full width on one 800x1072 input,
+   windowed against exact, the encoder's sampling offsets scaled by 0.05,
+   0.25, 1 and 4 (launch counts: K1 and K2 on their kernels). At sigma 1
+   and the main path's modes no sample clamps and clamp equals exact bit
+   for bit; every error is finite; alpha 0.05 moves no box by more than
+   1e-3. A ``deform_window_cost`` line puts phase 2's clamp and exact K1
+   times at the main path's batch beside the rows.
 
 Phase 2 also holds the mask-IoU kernel bit for bit against its plain version
 at the aggregation's (600, 250 000) self-IoU and refinement's (20 x 150,
@@ -3107,6 +3118,77 @@ def phase12(torch, mods, dev, classic, classic_cfg, fast_seg, fast_cfg):
           "cli_seconds": cli, "seconds": scheduler_s + time.perf_counter() - t0})
 
 
+# ------------------------------------ phase 13: the windowed clamp against exact
+
+DEFORM_SIGMAS = (1.0, 2.0, 3.0, 4.0, 8.0)  # offsets, cells of the sampled level
+DEFORM_ALPHAS = (0.05, 0.25, 1.0, 4.0)  # the encoder's sampling offsets scaled by alpha
+
+
+def deform_window_phase(torch, mods, dev, card, cases):
+    """Phase 13: ``tools/measure_deform_window`` on the card in bf16. K1 at
+    the encoder raster (8 heads x 32, 4 points) in clamp and exact mode at
+    the main path's modes and at PARITY.md's geometry (L0 (16, 16), L1
+    (8, 8)), sigma 1 to 8 cells; then Grounding-DINO Swin-B at full width on
+    one seeded 800x1072 input, windowed against exact, the encoder's
+    offsets scaled by 0.05 to 4. At sigma 1 and the main path's modes
+    nothing clamps and clamp equals exact bit for bit; every error is
+    finite; alpha 0.05 moves no box by more than 1e-3."""
+    dw, deformable, gd, dispatch = mods
+    from beyondff_tpu_torch.tools import measure_deform_window as mdw
+
+    t0 = time.perf_counter()
+    geometries = (("main_path", deformable.level_modes(dw.ENC_SHAPES)),
+                  ("parity_geometry", mdw.tile_modes(dw.ENC_SHAPES, (16, 8))))
+    rows = {}
+    for tag, modes in geometries:
+        dispatch.reset_launch_counts()
+        rows[tag] = mdw.kernel_level(np.random.default_rng(SEED), DEFORM_SIGMAS, modes,
+                                     device=dev)
+        launched = {k: n for k, n in dispatch.launch_counts.items() if n}
+        # every row one launch in clamp mode and one in exact mode
+        check(launched == {"ms_deform_sample": 2 * len(rows[tag])},
+              f"deform_window {tag}: launched {launched}")
+        for row in rows[tag]:
+            emit({"phase": "deform_window", "geometry": tag, **row, "card": card})
+            check(all(np.isfinite(row[k]) for k in ("mean_abs_err", "max_abs_err", "rel_l2")),
+                  f"deform_window {tag}: an error is not finite: {row}")
+    sigma1 = [r for r in rows["main_path"] if r["sigma_cells"] == 1.0]
+    check(len(sigma1) == len(dw.ENC_SHAPES)
+          and all(r["clamped"] == 0 and r["mismatched"] == 0 for r in sigma1),
+          "deform_window: at sigma 1 a sample clamped or clamp and exact differ: "
+          + str([(r["level"], r["clamped"], r["mismatched"]) for r in sigma1]))
+
+    module = gd.GroundingDINO.create("swinb", seed=SEED, dtype=torch.bfloat16,
+                                     device=dev).module
+    dispatch.reset_launch_counts()
+    full = mdw.full_model(np.random.default_rng(SEED), DEFORM_ALPHAS, module=module,
+                          device=dev)
+    launches = dict(dispatch.launch_counts)
+    del module
+    torch.cuda.empty_cache()
+    cfg = gd.PRESETS["swinb"]
+    forwards = 2 * len(DEFORM_ALPHAS)
+    check(launches["ms_deform_sample"] == forwards * (cfg.enc_layers + cfg.dec_layers)
+          and launches["flash_masked_wgmma"] == forwards * cfg.dec_layers
+          and launches["flash_attention"] == 0,
+          f"deform_window full model: launches {launches}")
+    for row in full:
+        emit({"phase": "deform_window", "geometry": "full_model",
+              **{k: v for k, v in row.items() if k != "outputs"}, "card": card})
+        check(all(np.isfinite(row[k]) for k in ("max_dbox", "max_dlogit", "memory_rel_l2")),
+              f"deform_window full model: a delta is not finite at alpha {row['alpha']}")
+    check(full[0]["alpha"] == 0.05 and full[0]["max_dbox"] <= 1e-3,
+          f"deform_window: alpha 0.05 moved a box by {full[0]['max_dbox']}")
+    # what exact sampling costs at the main path's batch: phase 2's K1 times
+    clamp, exact = cases[("deform_clamp", "bfloat16", FRAME_BATCH)], \
+        cases[("deform_exact", "bfloat16", FRAME_BATCH)]
+    emit({"phase": "deform_window_cost", "batch": FRAME_BATCH, "dtype": "bfloat16",
+          "clamp_ms": clamp["ms"], "exact_ms": exact["ms"],
+          "clamp_device_ms": clamp["device_ms"], "exact_device_ms": exact["device_ms"],
+          "launches": {k: v for k, v in launches.items() if v}, "card": card,
+          "seconds": time.perf_counter() - t0})
+
+
 def main() -> int:
     import torch
 
@@ -3392,6 +3474,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     shutil.rmtree(ckpt_dir)
     shutil.rmtree(work3d)
+
+    # ---------------------------------------------------------------- 13
+    marks.append((13, time.perf_counter()))
+    deform_window_phase(torch, (dw, deformable, gd, dispatch), dev, card, cases)
 
     table = []
     bf16_b = ("bfloat16", FRAME_BATCH)

@@ -36,8 +36,9 @@ def jx():
 
     from beyondff_tpu.kernels import deform_window as jdw
     from beyondff_tpu.kernels import mask_iou as jiou
+    from beyondff_tpu.models.gdino import deformable as jdeform
 
-    return types.SimpleNamespace(jnp=jnp, dw=jdw, iou=jiou)
+    return types.SimpleNamespace(jnp=jnp, dw=jdw, iou=jiou, deform=jdeform)
 
 
 def _test_preset_shapes():
@@ -324,8 +325,11 @@ def test_device_plan_is_the_table_the_kernel_reads():
 def test_staged_arithmetic_matches_plain_and_pallas(jx, shapes, modes, hd):
     """(e) The staged kernel's index arithmetic (boxes cut from the map with
     zero fill, 64-byte swizzled chunks, box-relative corners, windows off
-    their box read from the map) equals the plain gather and the Pallas
-    kernel in interpret mode, level by level, within f32 1e-5."""
+    their box read from the map) equals the plain gather and, level by
+    level, the JAX package within f32 1e-5: the Pallas kernel in interpret
+    mode where a (query, head) clamps a sample, the exact op where none
+    clamps (the port keeps the exact arithmetic inside the window, where
+    the Pallas kernel rounds g - origin)."""
     shapes = _test_preset_shapes() if shapes == "test" else shapes
     modes = tdeform.level_modes(shapes) if modes is None else modes
     rng = np.random.default_rng(hd)
@@ -349,5 +353,13 @@ def test_staged_arithmetic_matches_plain_and_pallas(jx, shapes, modes, hd):
         pallas = np.asarray(jx.dw.sample_level_windowed(
             *map(jx.jnp.asarray, (v, gx, gy, aw[:, :, :, li].numpy())), assign, h, w,
             radius=radius, interpret=True))
-        np.testing.assert_allclose(mine, pallas.reshape(mine.shape), atol=1e-5, rtol=0)
+        exact = np.asarray(jx.deform.ms_deform_attn(
+            jx.jnp.asarray(v), [(h, w)], jx.jnp.asarray(locs[:, :, :, li:li + 1].numpy()),
+            jx.jnp.asarray(aw[:, :, :, li:li + 1].numpy())))
+        clamps = tdw.clamped_samples(locs, shapes, modes)[li][0].any(-1).numpy()
+        mine = mine.reshape(clamps.shape + (hd,))
+        np.testing.assert_allclose(mine[clamps], pallas.reshape(mine.shape)[clamps],
+                                   atol=1e-5, rtol=0)
+        np.testing.assert_allclose(mine[~clamps], exact.reshape(mine.shape)[~clamps],
+                                   atol=1e-5, rtol=0)
         start += h * w

@@ -612,6 +612,51 @@ def test_deform_kernel_matches_plain_on_card(cuda_device, dtype):
         assert (got.float() - want.float()).abs().max().item() < tol
 
 
+def _clamp_against_exact(dev, dtype, sigma):
+    """Clamp mode (the main path's modes) and exact mode on one call's
+    inputs at the encoder raster, 2 heads of 16: N(0, sigma cells) offsets
+    around every query's centre. Returns (clamp, exact, rows whose samples
+    clamp)."""
+    shapes = tdw.ENC_SHAPES
+    rng = np.random.default_rng(3)
+    q = sum(h * w for h, w in shapes)
+    wh = np.array([[w, h] for h, w in shapes], np.float32)
+    off = rng.normal(0, sigma, (1, q, 2, len(shapes), 4, 2)).astype(np.float32)
+    locs = tdw.raster_centers(shapes)[None, :, None, None, None, :] + off / wh[:, None, :]
+    aw = rng.uniform(0.1, 1.0, (1, q, 2, len(shapes), 4)).astype(np.float32)
+    tv = torch.from_numpy(rng.normal(size=(1, q, 2, 16)).astype(np.float32)).to(dev, dtype)
+    tl = torch.from_numpy(locs).to(dev)
+    ta = torch.from_numpy(aw).to(dev, dtype)
+    modes = tdeform.level_modes(shapes)
+    clamps = sum(c.any(-1) for c, _ in tdw.clamped_samples(tl, shapes, modes))
+    return (tdw.ms_deform_sample(tv, shapes, tl, ta, modes),
+            tdw.ms_deform_sample(tv, shapes, tl, ta, (None,) * len(shapes)), clamps > 0)
+
+
+def _assert_equal_where_nothing_clamps(clamp, exact, clamps, sigma):
+    clamp, exact = clamp.view(*clamps.shape, -1), exact.view(*clamps.shape, -1)
+    assert torch.equal(clamp[~clamps], exact[~clamps])
+    if sigma < 2:
+        assert not clamps.any()
+    else:
+        assert clamps.any() and not torch.equal(clamp[clamps], exact[clamps])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sigma", [1.0, 4.0])
+def test_deform_clamp_equals_exact_where_nothing_clamps(dtype, sigma):
+    """A (query, head) none of whose samples leaves its window samples with
+    the exact mode's arithmetic, bit for bit, at the main path's modes."""
+    _assert_equal_where_nothing_clamps(*_clamp_against_exact("cpu", dtype, sigma), sigma)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sigma", [1.0, 4.0])
+def test_deform_clamp_equals_exact_where_nothing_clamps_on_card(cuda_device, dtype, sigma):
+    _assert_equal_where_nothing_clamps(*_clamp_against_exact(cuda_device, dtype, sigma), sigma)
+
+
 def _edge_locs(locs, shapes):
     """Samples on every map edge, half a cell beyond it and wholly outside."""
     locs[:, ::9, :, :, :, 0] = 0.0                      # left edge
