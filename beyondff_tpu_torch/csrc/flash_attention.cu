@@ -14,7 +14,7 @@
 // (~0.6 us) and does 4*8*900*900*32 = 0.83 GFLOP (~0.8 us on the tensor
 // cores), so it is bound by operations.
 //
-// Four kernels, chosen inside bff_flash_attention:
+// Five kernels, chosen inside bff_flash_attention:
 // * bf16 at head dim 64 with every key valid (K3 on the main path:
 //   EfficientSAM-S's global blocks), exactly where bff_flash_wgmma_takes
 //   says so: the wgmma/TMA kernel of csrc/flash_attention_wgmma.cu.
@@ -34,10 +34,16 @@
 //   one block's 15 steps, not a bandwidth. bf16 inputs with D % 8 != 0 or
 //   bases off 16 bytes (no 16-byte cp.async rows) take the f32-FMA kernel
 //   below.
-// * f32 (the CPU-parity runs): flash_fwd_kernel, one block of 256 threads
-//   per (bh, 64-query tile), K and V through shared memory as f32 (rows
-//   padded by one against bank conflicts), both products as plain f32 FMAs
-//   (67 TFLOP/s f32 peak): TF32 tensor cores would not hold the 1e-4 bar.
+// * f32 at head dim 32 or 64 (K2 and K3 in detector.dtype float32), exactly
+//   where bff_flash_tf32_takes says so: the 3xTF32 wgmma/TMA kernel of
+//   csrc/flash_attention_tf32.cu. One TF32 product would not hold the 1e-4
+//   the f32 calls are held to; three (hi hi + hi lo + lo hi, each operand
+//   split into two TF32 words) keep about 22 bits at 165 TFLOP/s of
+//   f32-grade work against the 67 TFLOP/s of f32 FMAs. It needs scratch
+//   from the caller (bff_flash_tf32_scratch_floats).
+// * other f32: flash_fwd_kernel, one block of 256 threads per (bh, 64-query
+//   tile), K and V through shared memory as f32 (rows padded by one against
+//   bank conflicts), both products as plain f32 FMAs (67 TFLOP/s f32 peak).
 //   Head dim bound DP in {32, 64, 128}; features D..DP read as zero.
 
 #include <cuda_bf16.h>
@@ -262,18 +268,28 @@ extern "C" int bff_flash_masked_wgmma_takes(int dtype, int D, int S, int valid_l
                                             const void* o);
 extern "C" int bff_flash_masked_wgmma(const void* q, const void* k, const void* v, void* o,
                                       int BH, int S, int valid_len, float scale, void* stream);
+// csrc/flash_attention_tf32.cu
+extern "C" int bff_flash_tf32_takes(int dtype, int D, int S, int valid_len, float scale,
+                                    const void* q, const void* k, const void* v, const void* o);
+extern "C" int bff_flash_attention_tf32(const void* q, const void* k, const void* v, void* o,
+                                        void* scratch, int BH, int S, int D, int valid_len,
+                                        float scale, void* stream);
 
-// dtype: 0 = float32, 1 = bfloat16. q, k, v, o: contiguous (BH, S, D).
-// Returns cudaGetLastError() after the launch, or -1 for arguments the
-// kernel does not take.
+// dtype: 0 = float32, 1 = bfloat16. q, k, v, o: contiguous (BH, S, D);
+// scratch: what the 3xTF32 kernel needs where bff_flash_tf32_takes the call
+// (bff_flash_tf32_scratch_floats floats), else unread. Returns
+// cudaGetLastError() after the launch, or -1 for arguments the kernel does
+// not take.
 extern "C" int bff_flash_attention(int dtype, const void* q, const void* k, const void* v,
                                    void* o, int BH, int S, int D, int valid_len, float scale,
-                                   void* stream) {
+                                   void* stream, void* scratch) {
   if (BH < 1 || S < 1 || D < 1 || D > 128 || valid_len < 1 || valid_len > S) return -1;
   if (bff_flash_wgmma_takes(dtype, D, S, valid_len, scale, q, k, v, o))
     return bff_flash_attention_wgmma(q, k, v, o, BH, S, scale, stream);
   if (bff_flash_masked_wgmma_takes(dtype, D, S, valid_len, scale, q, k, v, o))
     return bff_flash_masked_wgmma(q, k, v, o, BH, S, valid_len, scale, stream);
+  if (bff_flash_tf32_takes(dtype, D, S, valid_len, scale, q, k, v, o))
+    return bff_flash_attention_tf32(q, k, v, o, scratch, BH, S, D, valid_len, scale, stream);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return dispatch<float>(q, k, v, o, BH, S, D, valid_len, scale, s);
   if (dtype == 1) {

@@ -86,8 +86,12 @@ def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first call, with its C signatures."""
     lib = ctypes.CDLL(build())
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.bff_flash_attention.argtypes = [i, p, p, p, p, i, i, i, i, f, p]
+    lib.bff_flash_attention.argtypes = [i, p, p, p, p, i, i, i, i, f, p, p]
     lib.bff_flash_attention.restype = i
+    lib.bff_flash_tf32_takes.argtypes = [i, i, i, i, f, p, p, p, p]
+    lib.bff_flash_tf32_takes.restype = i
+    lib.bff_flash_tf32_scratch_floats.argtypes = [i, i, i]
+    lib.bff_flash_tf32_scratch_floats.restype = ctypes.c_longlong
     lib.bff_flash_wgmma_takes.argtypes = [i, i, i, i, f, p, p, p, p]
     lib.bff_flash_wgmma_takes.restype = i
     lib.bff_flash_masked_wgmma_takes.argtypes = [i, i, i, i, f, p, p, p, p]

@@ -10,9 +10,13 @@ global blocks; :func:`wgmma_route`) to the wgmma/TMA kernel of
 bf16 at head dim 32 with at most ``MASKED_WGMMA_MAX_KEYS`` valid keys (K2,
 the Grounding-DINO decoder's self-attention; :func:`masked_wgmma_route`) to
 the wgmma/TMA kernel of ``csrc/flash_masked_wgmma.cu``, counted as
-``flash_masked_wgmma``; and everything else to the mma.sync tile or the f32
-kernel, counted as ``flash_attention`` (:func:`flash_counter` names the
-counter of a call). A second entry (``csrc/relpos_attention.cu``) adds SAM's
+``flash_masked_wgmma``; f32 at head dim 32 or 64 (K2 and K3 in
+``detector.dtype: float32``; :func:`tf32_route`) to the 3xTF32 wgmma/TMA
+kernel of ``csrc/flash_attention_tf32.cu``, counted as
+``flash_attention_tf32``; every other f32 call to the f32-FMA kernel,
+counted as ``flash_attention_f32``; and every other bf16 call to the
+mma.sync tile, counted as ``flash_attention`` (:func:`flash_counter` names
+the counter of a call). A second entry (``csrc/relpos_attention.cu``) adds SAM's
 decomposed relative-position bias from its thin factors (``flash_attention_relpos``,
 reached through ``attend_relpos``); it routes SAM ViT-H's bf16 head-dim-80
 calls on its 64-wide grids (K4; :func:`relpos_wgmma_route`) to the
@@ -70,6 +74,132 @@ def masked_wgmma_route(dtype: int, d: int, s: int, valid_len: int, scale: float,
     return (dtype == 1 and d == 32 and s >= 1 and 1 <= valid_len <= s
             and valid_len <= MASKED_WGMMA_MAX_KEYS and 0.0 < f32 <= _FLT_MAX
             and all(p % 16 == 0 for p in ptrs))
+
+
+# csrc/flash_attention_tf32.cu: 64-key tiles, blocks of two 64-row
+# warpgroups, and the shortest sequence it takes (shorter ones keep the FMA
+# kernel, faster there)
+TF32_TILE = 64
+TF32_BLOCK_Q = 128
+TF32_MIN_S = 256
+# the order of the keys of each 8-key group in the kernel's V^T (a lane's
+# accumulator columns 2 t, 2 t + 1 are the A fragment's columns t, t + 4)
+TF32_KEY_ORDER = (0, 2, 4, 6, 1, 3, 5, 7)
+
+
+def tf32_route(dtype: int, d: int, s: int, valid_len: int, scale: float, *ptrs: int) -> bool:
+    """The mirror of ``bff_flash_tf32_takes``: whether ``bff_flash_attention``
+    runs the 3xTF32 wgmma/TMA kernel of ``csrc/flash_attention_tf32.cu``
+    for a call (dtype 0 = float32, 1 = bfloat16; ``ptrs`` the data pointers
+    of q, k, v and the output): f32, head dim 32 or 64, S >= ``TF32_MIN_S``,
+    1 <= ``valid_len`` <= S, a positive finite scale (rounded to f32 as the
+    call passes it) and 16-byte aligned pointers."""
+    f32 = ctypes.c_float(scale).value
+    return (dtype == 0 and d in (32, 64) and s >= TF32_MIN_S and 1 <= valid_len <= s
+            and 0.0 < f32 <= _FLT_MAX and all(p % 16 == 0 for p in ptrs))
+
+
+def tf32_scratch_floats(bh: int, d: int, valid_len: int) -> int:
+    """The mirror of ``bff_flash_tf32_scratch_floats``: the floats of scratch a
+    3xTF32 call needs, K's hi and lo and V^T's hi and lo, each (BH, Kp, D)
+    with Kp = ``valid_len`` rounded up to 64 keys."""
+    return 4 * bh * (-(-valid_len // TF32_TILE) * TF32_TILE) * d
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """``cvt.rna.tf32.f32`` on f32 values: the 10-bit mantissa rounded to
+    nearest, ties away from zero (half an ulp added to the magnitude, the
+    low 13 bits cleared), as an f32 tensor."""
+    bits = x.float().contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    bits = (bits + 0x1000) & 0xFFFFE000
+    bits = torch.where(bits >= 2 ** 31, bits - 2 ** 32, bits).to(torch.int32)
+    return bits.view(torch.float32)
+
+
+def tf32_split(x: torch.Tensor):
+    """(hi, lo) = (rna(x), rna(x - hi)) in TF32, as the kernel splits each f32
+    operand (x - hi is exact in f32)."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x.float() - hi)
+
+
+def tf32_schedule(bh: int, s: int):
+    """The mirror of ``csrc/flash_attention_tf32.cu``'s grid: (grid, tiles),
+    the grid (ceil(S / 128), BH) and for each block (x, head) the first query
+    rows of its two consumer warpgroups, 64 rows each (rows >= S are
+    computed on zero Q and not written)."""
+    grid = (-(-s // TF32_BLOCK_Q), bh)
+    tiles = {(x, h): [TF32_BLOCK_Q * x, TF32_BLOCK_Q * x + 64]
+             for h in range(bh) for x in range(grid[0])}
+    return grid, tiles
+
+
+def flash_tf32_mirror(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      valid_len: Optional[int] = None,
+                      scale: Optional[float] = None) -> torch.Tensor:
+    """The arithmetic of ``csrc/flash_attention_tf32.cu`` in PyTorch on the
+    CPU, block by block of :func:`tf32_schedule`. The pre-pass: keys >=
+    ``valid_len`` zeroed up to a multiple of 64, K split into TF32 hi and
+    lo (:func:`tf32_split`), V split and stored as V^T with each 8-key group
+    in ``TF32_KEY_ORDER``. Per 64-row warpgroup tile, Q split; per 64-key
+    tile, S = (lo(Q) hi(K)^T + hi(Q) lo(K)^T) + hi(Q) hi(K)^T in f32, keys
+    >= ``valid_len`` at -inf, the running max in log2 units raised at every
+    tile, p = 2^(s * scale * log2 e - m) with one rounding (exact, standing
+    in for ex2.approx), the denominator summed from the f32 p, the output
+    rescaled, P split in the fragment order and O += (lo(P) hi(V) + hi(P)
+    lo(V)) + hi(P) hi(V); the output divided once; rows >= S not written
+    (left 0). Every word handed to the products is rna-rounded TF32, so the
+    hardware's truncation of the low 13 bits is the identity and is not
+    modelled."""
+    bh, s, d = q.shape
+    valid = s if valid_len is None else int(valid_len)
+    scale = d ** -0.5 if scale is None else scale
+    sl2 = float(torch.tensor(scale * 1.4426950408889634, dtype=torch.float32))
+    tile = TF32_TILE
+    kp = -(-valid // tile) * tile
+    kz = torch.zeros(bh, kp, d)
+    vz = torch.zeros(bh, kp, d)
+    kz[:, :valid] = k[:, :valid].float()
+    vz[:, :valid] = v[:, :valid].float()
+    k_hi, k_lo = tf32_split(kz)
+    order = torch.tensor([8 * (j // 8) + TF32_KEY_ORDER[j % 8] for j in range(kp)])
+    vt_hi, vt_lo = (t[:, order].transpose(1, 2) for t in tf32_split(vz))  # (BH, D, Kp)
+    out = torch.zeros(bh, s, d, dtype=torch.float32)
+    written = torch.zeros(bh, s, dtype=torch.int32)
+    _grid, tiles = tf32_schedule(bh, s)
+    col = torch.arange(tile)
+    for (_x, h), row0s in tiles.items():
+        for r0 in row0s:
+            rows = torch.arange(r0, r0 + 64)
+            live = rows < s
+            qt = torch.zeros(64, d)
+            qt[live] = q[h, rows[live]].float()
+            q_hi, q_lo = tf32_split(qt)
+            m = torch.full((64,), -1e30)
+            l = torch.zeros(64)
+            acc = torch.zeros(64, d)
+            for t in range(kp // tile):
+                ks = slice(t * tile, (t + 1) * tile)
+                sc = (q_lo @ k_hi[h, ks].T + q_hi @ k_lo[h, ks].T) + q_hi @ k_hi[h, ks].T
+                keys = t * tile + col
+                sc = torch.where(keys[None, :] < valid, sc, torch.tensor(float("-inf")))
+                mx = sc.max(dim=1).values * sl2
+                m_new = torch.maximum(m, mx)
+                corr = torch.exp2(m - m_new)
+                m = m_new
+                l = l * corr
+                p = torch.exp2((sc.double() * sl2 - m[:, None].double()).float())
+                l = l + p.sum(dim=1)
+                acc = acc * corr[:, None]
+                p_hi, p_lo = tf32_split(p[:, order[:tile]])  # the A fragments' column order
+                acc = acc + ((p_lo @ vt_hi[h, :, ks].T + p_hi @ vt_lo[h, :, ks].T)
+                             + p_hi @ vt_hi[h, :, ks].T)
+            o = acc / l[:, None]
+            out[h, rows[live]] = o[live]
+            written[h, rows[live]] += 1
+    if not bool((written == 1).all()):
+        raise AssertionError("the schedule does not write every (head, row) once")
+    return out
 
 
 def masked_wgmma_schedule(bh: int, s: int, sms: int = 132):
@@ -253,14 +383,18 @@ def bf16_error_bound(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, plain: t
 
 def flash_counter(dtype: int, d: int, s: int, valid_len: int, scale: float, *ptrs: int) -> str:
     """The launch counter a ``bff_flash_attention`` call counts under, as its
-    routes decide: ``flash_attention_wgmma`` (K3's kernel),
-    ``flash_masked_wgmma`` (K2's) or ``flash_attention`` (the mma.sync tile
-    or the f32 kernel)."""
+    routes decide: ``flash_attention_wgmma`` (K3's bf16 kernel),
+    ``flash_masked_wgmma`` (K2's), ``flash_attention_tf32`` (the 3xTF32
+    kernel of K2 and K3 in f32), ``flash_attention_f32`` (the f32-FMA kernel,
+    every other f32 call) or ``flash_attention`` (every other bf16 call: the
+    mma.sync tile)."""
     if wgmma_route(dtype, d, s, valid_len, scale, *ptrs):
         return "flash_attention_wgmma"
     if masked_wgmma_route(dtype, d, s, valid_len, scale, *ptrs):
         return "flash_masked_wgmma"
-    return "flash_attention"
+    if tf32_route(dtype, d, s, valid_len, scale, *ptrs):
+        return "flash_attention_tf32"
+    return "flash_attention_f32" if dtype == 0 else "flash_attention"
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -290,9 +424,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
     key = flash_counter(_DTYPES[q.dtype], d, s, valid, scale, *ptrs)
+    scratch = None
+    if key == "flash_attention_tf32":
+        scratch = torch.empty(tf32_scratch_floats(bh, d, valid), dtype=torch.float32,
+                              device=q.device)
     rc = _build.library().bff_flash_attention(
         _DTYPES[q.dtype], *ptrs, bh, s, d, valid, ctypes.c_float(scale),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        torch.cuda.current_stream(q.device).cuda_stream,
+        None if scratch is None else scratch.data_ptr())
     if rc != 0:
         raise RuntimeError(f"{key} kernel launch failed (code {rc})")
     dispatch.launch_counts[key] += 1

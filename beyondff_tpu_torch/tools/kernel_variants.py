@@ -41,8 +41,16 @@ time it at the bf16 encoder clamp cases on its own entry, with the plan of
 self-attention at head dim 32 through ``bff_flash_attention``: the wgmma
 kernel of ``flash_masked_wgmma.cu`` in this tree, the mma.sync tile in a
 tree from before it) take SDPA, with a key mask where keys are masked, as
-their ``library`` entry. The NMS case times the call as the wrapper makes
-it (stable sort, gather, ``bff_nms_fixed``; ``bff_nms_bitmask`` for the
+their ``library`` entry. The f32 cases (``--cases f32``: K2 and K3 in f32
+at their main-path shapes, and ``f32 small``, S 64 to 512) go through
+``bff_flash_attention`` (the 3xTF32 kernel in this tree, the FMA kernel in
+a tree from before it or in the ``f32_fma`` variant), are held within 1e-4,
+take SDPA in f32 and the plain version as yardsticks, ``bound_ms`` at
+3xTF32 beside ``bound_fma_ms`` at the f32 FMA peak, and the pre-pass's
+device time a call (``prepass_ms``); the ``tf32_smem_split`` variant
+builds ``variant_csrc/flash_attention_tf32_smem.cu`` (the split in shared
+memory, no pre-pass) and runs on its own entry. The NMS case times the
+call as the wrapper makes it (stable sort, gather, ``bff_nms_fixed``; ``bff_nms_bitmask`` for the
 ``nms_bitmask`` variant, ``variant_csrc/nms_bitmask.cu``), holds it index
 for index against ``nms.nms_fixed_plain`` and splits its device time into
 the sort, the gather and the scan (``nms.split_spans``), with the bound of the
@@ -74,24 +82,27 @@ from beyondff_tpu_torch.kernels import nms
 from beyondff_tpu_torch.models import sam as sam_mod
 from beyondff_tpu_torch.models.gdino import deformable
 from beyondff_tpu_torch.tools import deform_staged
-from beyondff_tpu_torch.utils.profiling import (HBM_BYTES_PER_S, PEAK_FLOPS, device_ms,
-                                                device_spans)
+from beyondff_tpu_torch.utils.profiling import (HBM_BYTES_PER_S, PEAK_FLOPS, PEAK_TF32_FLOPS,
+                                                device_ms, device_spans, f32_attention_bounds)
 
 OUT = os.path.join(_build.BUILD_DIR, "variants")
 RELPOS, IOU, MSD = "relpos_attention.cu", "mask_iou.cu", "ms_deform_sample.cu"
 FLASH, WGMMA = "flash_attention.cu", "flash_attention_wgmma.cu"
 FMW, NMS = "flash_masked_wgmma.cu", "nms_fixed.cu"
+TF32 = "flash_attention_tf32.cu"
 RWG = "relpos_attention_wgmma.cu"
 IWG, MSW = "mask_iou_wgmma.cu", "ms_deform_window_tma.cu"
 NMB = "nms_bitmask.cu"
-SOURCES = (RELPOS, IOU, MSD, FLASH, WGMMA, FMW, RWG, IWG, NMS)
+TF32_SMEM = "flash_attention_tf32_smem.cu"
+SOURCES = (RELPOS, IOU, MSD, FLASH, WGMMA, FMW, TF32, RWG, IWG, NMS)
 # sources only variants build, copied beside csrc's (whose headers they use)
 VARIANT_CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "variant_csrc")
 K1, K6 = (MSD,), (IOU, IWG)  # what a K1 or K6 variant builds
-K3 = (FLASH, WGMMA, FMW)  # what a K2 or K3 variant builds (one C entry routes both)
+K3 = (FLASH, WGMMA, FMW, TF32)  # what a K2 or K3 variant builds (one C entry routes all)
 NMS_V = (NMS,)
 K1_STAGED = (MSD, MSW)
 ROUNDS = 3
+F32_TOL = 1e-4  # f32 attention against its plain version
 SET_ORDER = "bff_ms_deform_set_order"
 
 # K1's row walk, which the query-order variants replace
@@ -292,6 +303,22 @@ VARIANTS = {
     "k2_consumers_4": (K3, ((FMW, "  int best = 4;\n", "  return 4;\n  int best = 4;\n"),)),
     "k2_consumers_2": (K3, ((FMW, "  int best = 4;\n", "  return 2;\n  int best = 4;\n"),)),
     "k2_consumers_1": (K3, ((FMW, "  int best = 4;\n", "  return 1;\n  int best = 4;\n"),)),
+    # f32 K2/K3 on the f32-FMA kernel (the 3xTF32 route off)
+    "f32_fma": (K3, ((FLASH,
+                      "  if (bff_flash_tf32_takes(dtype, D, S, valid_len, scale, q, k, v, o))\n",
+                      "  if (false)\n"),)),
+    # 3xTF32: tile t's Q K^T after tile t - 1's P V has finished
+    "tf32_serial": (K3, ((TF32, "constexpr bool kOverlap = true;",
+                          "constexpr bool kOverlap = false;"),)),
+    # 3xTF32: the consumers issue their products whenever they are ready
+    "tf32_no_pingpong": (K3, ((TF32, "constexpr bool kPingpong = true;",
+                               "constexpr bool kPingpong = false;"),)),
+    # 3xTF32 with K and V split in shared memory by the producer warpgroup
+    # (no pre-pass, no scratch), timed on its own entry at the f32 cases
+    "tf32_smem_split": (K3 + (TF32_SMEM,), ()),
+    # 3xTF32: two stages at head dim 32 too (shipped: 4 at D 32, 2 at D 64)
+    "tf32_stages_2": (K3, ((TF32, "static constexpr int kStages = D == 32 ? 4 : 2;",
+                            "static constexpr int kStages = 2;"),)),
     # NMS: clusters of 4 or 16 blocks a frame (shipped: 8; 16 offer 2 boxes
     # each), or one block a frame (the staged boxes, the look-ahead and the
     # division-free test on one SM)
@@ -471,7 +498,7 @@ def k3_case(bh, s):
         rc = lib.bff_flash_attention(ctypes.c_int(1), *(ctypes.c_void_p(t.data_ptr()) for t in
                                                         (q, k, v, out)),
                                      bh, s, d, s, ctypes.c_float(d ** -0.5),
-                                     ctypes.c_void_p(stream))
+                                     ctypes.c_void_p(stream), ctypes.c_void_p(None))
         if rc != 0:
             raise RuntimeError(f"{fn} failed (code {rc})")
         return out
@@ -510,7 +537,7 @@ def k2_case(bh, s, valid_len):
         rc = lib.bff_flash_attention(ctypes.c_int(1), *(ctypes.c_void_p(t.data_ptr()) for t in
                                                         (q, k, v, out)),
                                      bh, s, d, valid_len, ctypes.c_float(d ** -0.5),
-                                     ctypes.c_void_p(stream))
+                                     ctypes.c_void_p(stream), ctypes.c_void_p(None))
         if rc != 0:
             raise RuntimeError(f"{fn} failed (code {rc})")
         return out
@@ -520,6 +547,57 @@ def k2_case(bh, s, valid_len):
 
     library = lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask).view(bh, s, d)
     return fn, launch, check, library, 4 * bh * s * valid_len * d, 4 * bh * s * d * 2
+
+
+def f32_case(bh, s, d, valid_len):
+    """K2 (head dim 32, keys >= ``valid_len`` masked) or K3 (head dim 64,
+    every key valid) in f32 through ``bff_flash_attention``, held within
+    1e-4 of the plain version; after (name, launch, check) come SDPA in f32
+    on the same inputs (a boolean key mask where keys are masked), the
+    operations and bytes of one call, the peak that gives ``bound_ms``
+    (3xTF32: a third of the TF32 rate) and the plain version, timed as one
+    more yardstick."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(bh * s + valid_len + d)
+    q, k, v = (torch.randn(bh, s, d, device="cuda", generator=gen) for _ in range(3))
+    want = fa.flash_attention_plain(q, k, v, valid_len)
+    out = torch.empty_like(q)
+    # the 3xTF32 kernel's scratch (a tree from before it ignores the argument)
+    scratch = torch.empty(fa.tf32_scratch_floats(bh, d, valid_len), device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    fn = "bff_flash_attention"
+    q4, k4, v4 = (t.view(1, bh, s, d) for t in (q, k, v))
+    mask = None
+    if valid_len < s:
+        mask = torch.arange(s, device="cuda")[None, :] < valid_len
+
+    def launch(lib):
+        rc = lib.bff_flash_attention(ctypes.c_int(0), *(ctypes.c_void_p(t.data_ptr()) for t in
+                                                        (q, k, v, out)),
+                                     bh, s, d, valid_len, ctypes.c_float(d ** -0.5),
+                                     ctypes.c_void_p(stream), ctypes.c_void_p(scratch.data_ptr()))
+        if rc != 0:
+            raise RuntimeError(f"{fn} failed (code {rc})")
+        return out
+
+    def check(got):
+        return float((got - want).abs().max()) - F32_TOL
+
+    library = lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask).view(bh, s, d)
+    launch.plain = lambda: fa.flash_attention_plain(q, k, v, valid_len)
+
+    def smem_split(lib):
+        rc = lib.bff_flash_attention_tf32_smem(
+            *(ctypes.c_void_p(t.data_ptr()) for t in (q, k, v, out)), bh, s, d, valid_len,
+            ctypes.c_float(d ** -0.5), ctypes.c_void_p(stream))
+        if rc != 0:
+            raise RuntimeError(f"bff_flash_attention_tf32_smem failed (code {rc})")
+        return out
+
+    launch.smem_split = smem_split
+    return (fn, launch, check, library, 4 * bh * s * valid_len * d, 4 * bh * s * d * 4,
+            PEAK_TF32_FLOPS / 3)
 
 
 def nms_case(b, a, top_k=100, thr=0.5):
@@ -747,6 +825,7 @@ def main():
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("kernel_variants needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False  # the f32 yardsticks in full f32
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
     print(card, flush=True)
@@ -784,6 +863,20 @@ def main():
         "k2 (32, 900, 32)": lambda: k2_case(32, 900, 900),
         "k2 (8, 900, 32)": lambda: k2_case(8, 900, 900),
         "k2 (32, 1024, 32) valid 900": lambda: k2_case(32, 1024, 900),
+        # K2 and K3 in f32 (detector.dtype: float32) at the same shapes, and
+        # K3 at the ragged S = 4095
+        "f32 k2 (8, 900, 32)": lambda: f32_case(8, 900, 32, 900),
+        "f32 k2 (32, 900, 32)": lambda: f32_case(32, 900, 32, 900),
+        "f32 k2 (32, 1024, 32) valid 900": lambda: f32_case(32, 1024, 32, 900),
+        "f32 k3 (6, 4096, 64)": lambda: f32_case(6, 4096, 64, 4096),
+        "f32 k3 (24, 4096, 64)": lambda: f32_case(24, 4096, 64, 4096),
+        "f32 k3 (24, 3072, 64)": lambda: f32_case(24, 3072, 64, 3072),
+        "f32 k3 (24, 4095, 64)": lambda: f32_case(24, 4095, 64, 4095),
+        # f32 at short sequences, where the 3xTF32 kernel's pre-pass and
+        # latency weigh most (the main path's attend calls a kernel from
+        # S = 256 on, its models from 512)
+        **{f"f32 small ({bh}, {s_}, {d})": (lambda bh=bh, s_=s_, d=d: f32_case(bh, s_, d, s_))
+           for d, bh in ((32, 8), (64, 6)) for s_ in (64, 256, 512)},
         # YOLO-World-L's NMS over the batch of 4: 8 400 anchors, top_k 100
         "nms (4, 8400)": lambda: nms_case(4, 8400),
     })
@@ -803,6 +896,12 @@ def main():
         if library:
             nbytes = []
         calls = {n: (lambda lib=lib: launch(lib)) for n, lib in libs.items() if has(lib, fn)}
+        if getattr(launch, "smem_split", None):
+            # the tf32_smem_split variant on its own entry, in place of the
+            # (unedited) pre-pass kernel
+            for n, lib in libs.items():
+                if n.startswith("tf32_smem"):
+                    calls[n] = lambda lib=lib: launch.smem_split(lib)
         if getattr(launch, "staged", None):
             # the k1_staged* variants on the staged kernel's own entry, in
             # place of their (unedited) gather
@@ -822,6 +921,9 @@ def main():
         if library:
             calls["library"] = library
             excess["library"] = check(library())
+        if getattr(launch, "plain", None):  # f32: the plain version, one more yardstick
+            calls["plain"] = launch.plain
+            excess["plain"] = check(launch.plain())
         times = {n: [] for n in calls}
         for r in range(ROUNDS):
             for n in list(calls) if r % 2 == 0 else list(calls)[::-1]:
@@ -837,8 +939,16 @@ def main():
                 bytes_ms = io_bytes / HBM_BYTES_PER_S * 1e3
                 rec["bound_ms"] = max(ops_ms, bytes_ms)
                 rec["bound_by"] = "operations" if ops_ms >= bytes_ms else "bytes"
+                if case.startswith("f32"):  # 3xTF32 above, f32 FMAs here
+                    rec["bound_ms"], rec["bound_fma_ms"], rec["bound_by"] = (
+                        f32_attention_bounds(flops, io_bytes))
                 rec["host_us"] = host_us(calls[n])
-                if n == "library":
+                if case.startswith("f32") and n not in ("library", "plain"):
+                    # the 3xTF32 call's pre-pass (split_kv_kernel) a call
+                    spans = device_spans(lambda: [calls[n]() for _ in range(5)])
+                    rec["prepass_ms"] = sum(e - s_ for s_, e, name in spans
+                                            if "split_kv_kernel" in name) / 5e3
+                if n in ("library", "plain"):
                     rec["right"] = None  # a yardstick, not a variant: not gated
             if nms_extra:  # NMS: device time, its split, the bound (IoU tests at the f32 peak)
                 rec["device_ms"] = device_ms(calls[n])

@@ -44,8 +44,9 @@ def global_branch(cfg: sam_mod.SAMConfig, launches: dict, ablate: str) -> dict:
         return {"global_branch": None, "global_relpos": None}
     if launches.get("flash_attention_relpos") or launches.get("flash_attention_relpos_wgmma"):
         return {"global_branch": "relpos_flash", "global_relpos": "kept"}
-    if ((launches.get("flash_attention") or launches.get("flash_attention_wgmma"))
-            and not cfg.use_rel_pos):
+    flash = ("flash_attention", "flash_attention_wgmma", "flash_attention_tf32",
+             "flash_attention_f32")
+    if any(launches.get(key) for key in flash) and not cfg.use_rel_pos:
         return {"global_branch": "flash", "global_relpos": None}
     kept = cfg.use_rel_pos and "norelpos" not in (ablate or "")
     return {"global_branch": "plain", "global_relpos": "kept" if kept else "dropped"}

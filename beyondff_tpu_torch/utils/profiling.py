@@ -30,10 +30,25 @@ from collections import defaultdict
 from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
 # H100 SXM peaks (data sheet): the memory rate, dense bf16 and f32 (non-tensor)
-# FLOP/s, and dense int8 tensor OP/s
+# FLOP/s, dense int8 tensor OP/s and dense TF32 tensor FLOP/s
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PEAK_INT8_OPS = 1979e12
+PEAK_TF32_FLOPS = 495e12
+
+
+def f32_attention_bounds(flops: float, nbytes: float) -> Tuple[float, float, str]:
+    """The least milliseconds an H100 takes for f32-grade attention of
+    ``flops`` operations moving ``nbytes``: (bound_ms, bound_fma_ms,
+    bound_by). ``bound_ms`` is 3xTF32 on the tensor cores (three TF32
+    products per f32 product, 495 TFLOP/s), the fastest way to f32
+    accuracy; ``bound_fma_ms`` the same operations as f32 FMAs (67 TFLOP/s).
+    Each is the larger of its operation time and the byte time."""
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    tf32_ms = 3 * flops / PEAK_TF32_FLOPS * 1e3
+    fma_ms = flops / PEAK_FLOPS["float32"] * 1e3
+    return (max(tf32_ms, bytes_ms), max(fma_ms, bytes_ms),
+            "operations" if tf32_ms >= bytes_ms else "bytes")
 
 
 class StageProfiler:

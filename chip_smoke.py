@@ -110,7 +110,7 @@ Phases (each one's failure ends the run with a non-zero exit):
    4, six batches): phase 4's loaded classic models in the hit regime
    under (``BFF_SEG2D_INFLIGHT``, ``BFF_SEG2D_DEFER``,
    ``BFF_SEG2D_EAGER_SAM``) = (1, 0, 1), the serial order, and (2, 1, 1),
-   the JAX default, two alternating rounds; phase 8's fast variant on 24
+   the JAX default, one round each; phase 8's fast variant on 24
    baseline JPEGs (JXT) in the hit and miss regimes under (1, 0, 1),
    (2, 1, 1), (2, 1, 0) and (3, 2, 1); launch counts set to 0 before each
    timed run; every run of a regime writes byte-equal records; one more
@@ -132,6 +132,17 @@ Phases (each one's failure ends the run with a non-zero exit):
    for bit; every error is finite; alpha 0.05 moves no box by more than
    1e-3. A ``deform_window_cost`` line puts phase 2's clamp and exact K1
    times at the main path's batch beside the rows.
+14. the float32 configuration (``detector.dtype: float32``): both variants
+   loaded by ``Segmentor2D(cfg)`` in f32 from phases 4's and 8's
+   official-layout files (Grounding-DINO Swin-B, CLIP ViT-L/14, SAM ViT-H;
+   YOLO-World-L, EfficientSAM-S, CLIP), one ``frame_batch`` of 4 hit
+   frames of the 968x1296 scene each, after a warm-up: frames/s, the
+   device's busy share (a profiled pass) and the launches by counter. K2
+   in f32 must launch 6 times and K3 12, all on the 3xTF32 kernel
+   (``flash_attention_tf32``), the FMA kernel's ``flash_attention_f32`` 0;
+   each pass must equal the same pass with ``fa.flash_attention`` swapped
+   for ``fa.flash_attention_plain`` inside the phase: the same detections,
+   confidences within 1e-4, masks at IoU >= 0.999.
 
 Phase 2 also holds the mask-IoU kernel bit for bit against its plain version
 at the aggregation's (600, 250 000) self-IoU and refinement's (20 x 150,
@@ -149,6 +160,11 @@ EfficientSAM-S's global blocks
 ``flash_attention.flash_counter`` names), K2 at the decoder's (8 B, 900,
 32) for one frame and the batch of 4, unmasked at S = 1024 and with keys
 past 900 of 1024 masked, all on its wgmma kernel (``flash_masked_wgmma``),
+K2 and K3 in f32 at the same shapes on the 3xTF32 kernel
+(``flash_attention_tf32``; each f32 attention record carries ``bound_ms``
+at 3xTF32, three TF32 products a product at 495 TFLOP/s, and
+``bound_fma_ms`` at the 67 TFLOP/s f32 peak) and an f32 call at head dim
+128 on the FMA kernel (``flash_attention_f32``),
 the mma.sync tile at (32, 1024, 64) with keys masked, and the NMS kernel
 index for index at YOLO-World-L's 8 400 anchors for a batch of 4 (top_k
 100; its device time split into the sort, the gather and the scan) and at
@@ -165,7 +181,8 @@ presets on both (f32, cuDNN TF32 off) with two-tier uploads on auto and
 forced on: confidences within 1e-4, masks at IoU >= 0.99.
 
 A ``phase_seconds`` line gives each phase's host seconds. The last three
-lines are the card's name and power limit, the kernel table and
+lines are the card's name and power limit, the kernel table (its f32 rows
+count the float32 configuration's launches) and
 ``{"ok": true, "device": ...}``;
 every JSON line also goes to ``chiprun_out/chip_smoke.json``. Exits non-zero
 without a result when no CUDA device is present.
@@ -229,6 +246,13 @@ MASKED_WGMMA_DESIGN = ("bf16 wgmma at head dim 32: the valid keys' 64-key K/V ti
                        "of the loop, its column tiles past valid_len skipping their "
                        "exponentials")
 FMA_DESIGN = "f32 FMA from shared memory"
+TF32_DESIGN = ("3xTF32 wgmma (hi lo + lo hi + hi hi, each f32 operand split into two rna-rounded "
+               "TF32 words): a pre-pass writes K hi/lo and V^T hi/lo (keys of each 8-key group "
+               "in the A fragment's order) to scratch; a producer warpgroup TMA-loads 64-key "
+               "tiles (128-byte swizzle) into a 2-stage (D 64) or 4-stage (D 32) mbarrier ring; "
+               "two consumer warpgroups of 64 rows, Q split once into shared memory, P split "
+               "in registers, S = Q K^T m64n64k8, O += P V m64nDk8, taking turns, Q K^T of "
+               "tile t before P V of t - 1")
 # csrc/relpos_attention_wgmma.cu: K4 (False) and K5 (True)
 RELPOS_WGMMA_DESIGN = {
     False: ("bf16 wgmma at head dim 80: each tile two TMA boxes (columns 0-63 in the 128-byte "
@@ -314,7 +338,8 @@ def flash_case(torch, fa, name, shape, valid_len, dtype, dev):
     import torch.nn.functional as F
 
     from beyondff_tpu_torch.kernels import dispatch
-    from beyondff_tpu_torch.utils.profiling import HBM_BYTES_PER_S, PEAK_FLOPS, device_ms
+    from beyondff_tpu_torch.utils.profiling import (HBM_BYTES_PER_S, PEAK_FLOPS, device_ms,
+                                                    f32_attention_bounds)
 
     bh, s, d = shape
     q, k, v = (torch.randn(bh, s, d, device=dev, dtype=torch.float32).to(dtype)
@@ -351,6 +376,7 @@ def flash_case(torch, fa, name, shape, valid_len, dtype, dev):
         "device_ms": dev_ms, "tflops": flops / dev_ms / 1e9,
         "design": (WGMMA_DESIGN if routed == "flash_attention_wgmma" else
                    MASKED_WGMMA_DESIGN if routed == "flash_masked_wgmma" else
+                   TF32_DESIGN if routed == "flash_attention_tf32" else
                    TC_DESIGN + ", 4 warps x 16 rows" if bf16 else FMA_DESIGN),
         "plain_ms": cuda_ms(torch, lambda: fa.flash_attention_plain(q, k, v, valid_len), 20),
         "bound_ms": max(bound_bytes, bound_ops),
@@ -358,9 +384,18 @@ def flash_case(torch, fa, name, shape, valid_len, dtype, dev):
         "library_ms": cuda_ms(torch, library, 50),
         "library_device_ms": device_ms(library),
     }
+    if not bf16:
+        # f32-grade work: bound_ms at 3xTF32 on the tensor cores (the fastest
+        # way to f32 accuracy), bound_fma_ms at the f32 FMA peak
+        rec["bound_ms"], rec["bound_fma_ms"], rec["bound_by"] = f32_attention_bounds(
+            flops, nbytes)
+        rec["share_of_bound"] = rec["bound_ms"] / dev_ms
+        rec["share_of_fma_bound"] = rec["bound_fma_ms"] / dev_ms
     emit(rec)
     check(err <= tol and excess <= 0.0,
           f"flash_attention {name} {dname}: max abs err {err} beyond tolerance")
+    check(rec.get("share_of_bound", 0.0) <= 1.0,
+          f"flash_attention {name} {dname}: faster than its bound ({rec.get('share_of_bound')})")
     return rec
 
 
@@ -377,7 +412,8 @@ def relpos_case(torch, fa, wa, sam_mod, name, g, grid, dtype, dev, d=80):
     import torch.nn.functional as F
 
     from beyondff_tpu_torch.kernels import dispatch
-    from beyondff_tpu_torch.utils.profiling import HBM_BYTES_PER_S, PEAK_FLOPS, device_ms
+    from beyondff_tpu_torch.utils.profiling import (HBM_BYTES_PER_S, PEAK_FLOPS, device_ms,
+                                                    f32_attention_bounds)
 
     hh, ww = grid
     s = hh * ww
@@ -431,6 +467,12 @@ def relpos_case(torch, fa, wa, sam_mod, name, g, grid, dtype, dev, d=80):
     library = lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask)
     library_ms = cuda_ms(torch, library, 5)
     extra = {"design": FMA_DESIGN + (", whole-window softmax" if window else "")}
+    if not bf16:
+        dev_ms = device_ms(kernel)
+        bound_ms, bound_fma_ms, bound_by = f32_attention_bounds(flops, nbytes)
+        extra.update({"device_ms": dev_ms, "tflops": flops / dev_ms / 1e9,
+                      "bound_fma_ms": bound_fma_ms, "share_of_bound": bound_ms / dev_ms,
+                      "share_of_fma_bound": bound_fma_ms / dev_ms})
     if bf16:
         # device time per launch of the kernel and of its yardstick
         dev_ms = device_ms(kernel)
@@ -463,6 +505,8 @@ def relpos_case(torch, fa, wa, sam_mod, name, g, grid, dtype, dev, d=80):
            "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
            "library_ms": library_ms,
            "library_call": "scaled_dot_product_attention with the bias as a float mask"}
+    if not bf16:  # f32-grade work: 3xTF32 in bound_ms, f32 FMAs in bound_fma_ms
+        rec["bound_ms"], rec["bound_by"] = bound_ms, bound_by
     emit(rec)
     torch.cuda.empty_cache()
     check(excess <= 0.0, f"{rec['kernel']} {name} {dname}: max abs err {err} beyond tolerance")
@@ -573,7 +617,7 @@ def small_reference(torch, mods, work):
 
 PORT_KERNELS = ("ms_deform_sample_kernel", "flash_fwd_kernel", "flash_tc_kernel",
                 "flash_wgmma_kernel", "flash_masked_wgmma_kernel", "flash_relpos_wgmma_kernel",
-                "nms_fixed_kernel")
+                "flash_tf32_kernel", "split_kv_kernel", "nms_fixed_kernel")
 
 
 def profile_scene(torch, seg2d, seg, cfg, scene, timed_scene_s, phase="device_profile"):
@@ -1782,7 +1826,8 @@ def fast_variant(torch, mods, Config, work, dev, clip_files):
     968x1296 scene in the hit regime with launch counts set to 0 just before
     it, a profiled pass, and banked ``run_classes`` over three classes
     against per-class ``run()``. Returns the run's launch counts, the
-    segmentor (phase 10 runs it again) and its config."""
+    segmentor (phase 10 runs it again), its config and the directory
+    holding the files (phase 14 loads them again, in f32)."""
     seg2d, yw, esam, dispatch, io, rle, StageProfiler = mods
     root = tempfile.mkdtemp(prefix="chip_smoke_fast_")
     try:
@@ -1902,9 +1947,10 @@ def fast_variant(torch, mods, Config, work, dev, clip_files):
         check(n > 0 and worst_conf <= 1e-4 and worst_iou >= 0.999,
               f"fast variant: banked run_classes differs from run(): {worst_conf} {worst_iou}")
         check(passes["run_classes"]["launches"]["nms_fixed"] > 0, "run_classes: no NMS launch")
-        return launches, seg, cfg
-    finally:
+        return launches, seg, cfg, root
+    except BaseException:
         shutil.rmtree(root, ignore_errors=True)
+        raise
 
 
 # ------------------------------------------ the training path and parallel layer
@@ -1937,7 +1983,8 @@ def autograd_guard(torch, fa, dispatch, dev):
     launches (the kernels have no backward); under ``no_grad`` it launches."""
     g = torch.Generator(device=dev).manual_seed(SEED)
     q = torch.randn(8, 512, 64, device=dev, generator=g).requires_grad_(True)
-    before = dispatch.launch_counts["flash_attention"]
+    key = "flash_attention_tf32"  # f32 at head dim 64: the 3xTF32 kernel
+    before = dispatch.launch_counts[key]
     raised = None
     try:
         fa.attend(q, q, q)
@@ -1945,12 +1992,12 @@ def autograd_guard(torch, fa, dispatch, dev):
         raised = str(e)
     check(raised is not None and "no backward" in raised,
           "attend on inputs that require grad did not raise")
-    check(dispatch.launch_counts["flash_attention"] == before, "the refused call launched")
+    check(dispatch.launch_counts[key] == before, "the refused call launched")
     with torch.no_grad():
         fa.attend(q, q, q)
     torch.cuda.synchronize()
-    check(dispatch.launch_counts["flash_attention"] == before + 1, "attend under no_grad")
-    dispatch.launch_counts["flash_attention"] = before  # a check, not a path launch
+    check(dispatch.launch_counts[key] == before + 1, "attend under no_grad")
+    dispatch.launch_counts[key] = before  # a check, not a path launch
     emit({"phase": "autograd_guard", "raised": raised})
 
 
@@ -2634,6 +2681,8 @@ RECT_GRID = (48, 64)  # SAM's patch grid of a 968x1296 frame under BFF_SAM_RECT=
 # the CUDA functions behind each launch counter, for reading a profiler trace
 KERNEL_SYMBOLS = {"ms_deform_sample": ("ms_deform_sample_kernel",),
                   "flash_attention": ("flash_tc_kernel", "flash_fwd_kernel"),
+                  "flash_attention_f32": ("flash_fwd_kernel",),
+                  "flash_attention_tf32": ("flash_tf32_kernel", "split_kv_kernel"),
                   "flash_attention_wgmma": ("flash_wgmma_kernel",),
                   "flash_masked_wgmma": ("flash_masked_wgmma_kernel",),
                   "flash_attention_relpos": ("flash_relpos_tc_kernel", "flash_relpos_kernel"),
@@ -3058,8 +3107,9 @@ def phase12(torch, mods, dev, classic, classic_cfg, fast_seg, fast_cfg):
     classic_cfg = classic_cfg.override(**{"paths.scene_2d_dir": scenes})
     fast_cfg = fast_cfg.override(**{"paths.scene_2d_dir": scenes})
     make_scene(scenes, "scene_p12", P12_FRAMES)
+    # one round, as the fast variant's (two until phase 14 took the time)
     rows = scheduler_ab(torch, dispatch, classic, classic_cfg, "scene_p12",
-                        "classic", CLASSIC_SETTINGS, {"hit": 0.0}, 2)
+                        "classic", CLASSIC_SETTINGS, {"hit": 0.0}, 1)
     for r in rows:
         check(r["launches"].get("ms_deform_sample", 0) > 0
               and r["launches"].get("flash_masked_wgmma", 0) > 0
@@ -3187,6 +3237,105 @@ def deform_window_phase(torch, mods, dev, card, cases):
           "clamp_device_ms": clamp["device_ms"], "exact_device_ms": exact["device_ms"],
           "launches": {k: v for k, v in launches.items() if v}, "card": card,
           "seconds": time.perf_counter() - t0})
+
+
+# ------------------------------------------ phase 14: the float32 configuration
+F32_SCENE = "scene_f32"  # one frame_batch of hit frames
+
+
+def float32_phase(torch, mods, work, variants):
+    """Both variants at ``detector.dtype: float32``, loaded by
+    ``Segmentor2D(cfg)`` from phases 4's and 8's official-layout files (the
+    classic Grounding-DINO Swin-B, CLIP ViT-L/14 and SAM ViT-H; the fast
+    YOLO-World-L, EfficientSAM-S and CLIP), each on one frame_batch of 4
+    hit frames of the 968x1296 synthetic scene: a warm-up on phase 4's
+    2-frame scene, a timed pass (frames/s, launches), a profiled pass (busy
+    share), and the same pass with ``fa.flash_attention`` swapped for
+    ``fa.flash_attention_plain`` (test code here, not a switch of the
+    package). K2 in f32 must launch 6 times (6 decoder layers, one detect
+    batch) and K3 12 times (12 global blocks, one encode batch), all on
+    ``flash_attention_tf32``, ``flash_attention_f32`` 0; each pass must
+    equal its plain-attention pass: the same detections and labels,
+    confidences within 1e-4, masks at IoU >= 0.999. Returns each variant's
+    launch counts."""
+    seg2d, fa, dispatch, io, rle, StageProfiler = mods
+    make_scene(os.path.join(work, "scenes"), F32_SCENE, FRAME_BATCH)
+    out = {}
+    for variant, base_cfg in variants:
+        cfgs = {p: base_cfg.override(**{
+            "detector.dtype": "float32",
+            "paths.mask_2d_dir": os.path.join(work, f"masks_f32_{variant}_{p}"),
+            "paths.checkpoint_dir": os.path.join(work, f"ckpt_f32_{variant}_{p}")})
+            for p in ("kernel", "plain")}
+        t0 = time.perf_counter()
+        seg = seg2d.Segmentor2D(cfgs["kernel"], frame_loader=synthetic_frame)
+        load_s = time.perf_counter() - t0
+        check(all(m.dtype == torch.float32 for m in (seg.detector, seg.sam, seg.clip)),
+              f"{variant}: a model not in float32")
+        t0 = time.perf_counter()
+        seg2d.run(cfgs["kernel"], "clothes", scenes=["warmup"], segmentor=seg)
+        torch.cuda.synchronize()
+        warmup_s = time.perf_counter() - t0
+        # the timed pass, launch counts set to 0 just before it, then the same
+        # pass under torch.profiler for the device's busy share
+        prof = StageProfiler("segmentation_2d")
+        dispatch.reset_launch_counts()
+        seg2d.run(cfgs["kernel"], "clothes", scenes=[F32_SCENE], segmentor=seg, resume=False,
+                  profiler=prof)
+        torch.cuda.synchronize()
+        launches = dict(dispatch.launch_counts)
+        profiled = StageProfiler("segmentation_2d")
+        busy_us, _events, by_name = device_activity(torch, lambda: seg2d.run(
+            cfgs["kernel"], "clothes", scenes=[F32_SCENE], segmentor=seg, resume=False,
+            profiler=profiled))
+        kernel_fn = fa.flash_attention
+        fa.flash_attention = fa.flash_attention_plain
+        try:
+            dispatch.reset_launch_counts()
+            t0 = time.perf_counter()
+            seg2d.run(cfgs["plain"], "clothes", scenes=[F32_SCENE], segmentor=seg)
+            torch.cuda.synchronize()
+            plain_s = time.perf_counter() - t0
+            plain_launches = dict(dispatch.launch_counts)
+        finally:
+            fa.flash_attention = kernel_fn
+        worst_conf, worst_iou, n = records_diff(io, rle, cfgs["kernel"], cfgs["plain"],
+                                                ["clothes"], F32_SCENE)
+        recs = check_records(torch, cfgs["kernel"], "clothes", F32_SCENE, FRAME_BATCH)
+        want = {"flash_attention_tf32": (6 if variant == "classic" else 12),
+                "flash_attention_f32": 0}
+        rec = {"phase": "float32_configuration", "variant": variant, "frames": FRAME_BATCH,
+               "frames_per_sec": FRAME_BATCH / prof.durations["scene"],
+               "device_busy_share": busy_us / 1e6 / profiled.durations["scene"],
+               "load_seconds": load_s, "warmup_seconds": warmup_s,
+               "plain_attention_seconds": plain_s, "launches": launches,
+               "stage_counts": dict(prof.counts),
+               "port_kernels_ms": {name[:60]: [calls, us / 1e3]
+                                   for name, (calls, us) in by_name.items()
+                                   if any(k in name for k in PORT_KERNELS)},
+               "launches_expected": want,
+               "plain_pass_launches": {k: v for k, v in plain_launches.items() if v},
+               "vs_plain_attention": {"masks": n, "max_conf_diff": worst_conf,
+                                      "min_mask_iou": worst_iou, "conf_tol": 1e-4,
+                                      "iou_min": 0.999},
+               "boxes": sum(len(r["confidences"]) for r in recs)}
+        emit(rec)
+        for key, n_want in want.items():
+            check(launches[key] == n_want, f"f32 {variant}: {key} launched {launches[key]} "
+                                           f"times, not {n_want}")
+        check(launches["flash_attention"] == 0 and launches["flash_attention_wgmma"] == 0
+              and launches["flash_masked_wgmma"] == 0, f"f32 {variant}: a bf16 kernel ran")
+        check(plain_launches["flash_attention_tf32"] == 0, "the plain pass launched K2/K3")
+        if variant == "classic":
+            check(launches["ms_deform_sample"] > 0, "f32 classic: K1 not launched")
+        else:
+            check(launches["nms_fixed"] > 0, "f32 fast: the NMS kernel not launched")
+        check(n > 0 and worst_conf <= 1e-4 and worst_iou >= 0.999,
+              f"f32 {variant}: kernel pass against plain attention: {worst_conf} {worst_iou}")
+        out[variant] = launches
+        del seg
+        torch.cuda.empty_cache()
+    return out
 
 
 def main() -> int:
@@ -3336,14 +3485,27 @@ def main() -> int:
     # the 64 x 64 grid, head dim 64, every key valid) for one frame and the
     # main path's batch, and YOLO-World-L's NMS over the batch
     for b in (1, FRAME_BATCH):
-        cases[("k3_efficientsam", "bfloat16", b)] = flash_case(
-            torch, fa, "efficientsam_global", (6 * b, 4096, 64), 4096, torch.bfloat16, dev)
+        for dtype in (torch.bfloat16, torch.float32):
+            cases[("k3_efficientsam", str(dtype).split(".")[-1], b)] = flash_case(
+                torch, fa, "efficientsam_global", (6 * b, 4096, 64), 4096, dtype, dev)
     # the rect grid's 48 x 64 tokens at the main path's batch, and a ragged S
-    # (the last key tile and the last query tile part-filled)
+    # (the last key tile and the last query tile part-filled), bf16 and f32
     for s_k3 in (RECT_GRID[0] * RECT_GRID[1], 4095):
-        cases[("k3_efficientsam", s_k3)] = flash_case(
-            torch, fa, "efficientsam_global_rect" if s_k3 == 3072 else "ragged_4095",
-            (6 * FRAME_BATCH, s_k3, 64), s_k3, torch.bfloat16, dev)
+        for dtype in (torch.bfloat16, torch.float32):
+            key = ("k3_efficientsam", s_k3) + (("float32",) if dtype == torch.float32 else ())
+            cases[key] = flash_case(
+                torch, fa, "efficientsam_global_rect" if s_k3 == 3072 else "ragged_4095",
+                (6 * FRAME_BATCH, s_k3, 64), s_k3, dtype, dev)
+    # f32 K2 and K3 on the 3xTF32 kernel (detector.dtype: float32); an f32
+    # call outside its predicate (head dim 128) keeps the FMA kernel
+    f32_flash = [(key, "float32", b) for key in ("flash_900", "flash_1024", "flash_masked",
+                                                 "k3_efficientsam") for b in (1, FRAME_BATCH)]
+    for key in f32_flash + [("k3_efficientsam", s_k3, "float32") for s_k3 in (3072, 4095)]:
+        check(cases[key]["kernel"] == "flash_attention_tf32",
+              f"f32 {key}: on {cases[key]['kernel']}")
+    cases[("flash_fma", "float32", FRAME_BATCH)] = rec = flash_case(
+        torch, fa, "d128_1024_900", (8 * FRAME_BATCH, 1024, 128), 900, torch.float32, dev)
+    check(rec["kernel"] == "flash_attention_f32", "flash_fma: off the f32-FMA kernel")
     cases["nms"] = nms_case(torch, nms, dev)
     cases["nms_threshold"] = nms_threshold_case(torch, nms, dev)
 
@@ -3441,7 +3603,7 @@ def main() -> int:
 
     # ---------------------------------------------------------------- 8
     marks.append((8, time.perf_counter()))
-    fast_launches, fast_seg, fast_cfg = fast_variant(
+    fast_launches, fast_seg, fast_cfg, fast_ckpt_dir = fast_variant(
         torch, (seg2d, yw, esam, dispatch, io, rle, StageProfiler), Config, work, dev,
         (cfg.detector.clip_checkpoint, cfg.detector.clip_bpe_path))
     launches = {**launches, "flash_attention_wgmma": fast_launches["flash_attention_wgmma"],
@@ -3472,12 +3634,18 @@ def main() -> int:
     phase12(torch, (dispatch, io), dev, classic_seg, cfg, fast_seg, fast_cfg)
     del fast_seg, classic_seg
     torch.cuda.empty_cache()
-    shutil.rmtree(ckpt_dir)
     shutil.rmtree(work3d)
 
     # ---------------------------------------------------------------- 13
     marks.append((13, time.perf_counter()))
     deform_window_phase(torch, (dw, deformable, gd, dispatch), dev, card, cases)
+
+    # ---------------------------------------------------------------- 14
+    marks.append((14, time.perf_counter()))
+    f32_launches = float32_phase(torch, (seg2d, fa, dispatch, io, rle, StageProfiler), work,
+                                 (("classic", cfg), ("fast", fast_cfg)))
+    shutil.rmtree(ckpt_dir)
+    shutil.rmtree(fast_ckpt_dir)
 
     table = []
     bf16_b = ("bfloat16", FRAME_BATCH)
@@ -3508,20 +3676,46 @@ def main() -> int:
             (("k3_efficientsam", *bf16_b), "beyondff_tpu_torch/csrc/flash_attention_wgmma.cu",
              "beyondff_tpu/kernels/flash_attention.py:68"),
             ("nms", "beyondff_tpu_torch/csrc/nms_fixed.cu",
-             "beyondff_tpu/models/yolo_world.py:313")):
+             "beyondff_tpu/models/yolo_world.py:313"),
+            # detector.dtype float32 (phase 14): K2 and K3 on the 3xTF32
+            # kernel, the other f32 calls on the FMA kernels
+            (("flash_900", "float32", FRAME_BATCH),
+             "beyondff_tpu_torch/csrc/flash_attention_tf32.cu",
+             "beyondff_tpu/kernels/flash_attention.py:270"),
+            (("k3_efficientsam", "float32", FRAME_BATCH),
+             "beyondff_tpu_torch/csrc/flash_attention_tf32.cu",
+             "beyondff_tpu/kernels/flash_attention.py:68"),
+            (("flash_fma", "float32", FRAME_BATCH), "beyondff_tpu_torch/csrc/flash_attention.cu",
+             "beyondff_tpu/kernels/flash_attention.py:270"),
+            (("relpos_global", "float32", FRAME_BATCH),
+             "beyondff_tpu_torch/csrc/relpos_attention.cu",
+             "beyondff_tpu/kernels/flash_attention.py:193"),
+            (("relpos_window", "float32", FRAME_BATCH),
+             "beyondff_tpu_torch/csrc/relpos_attention.cu",
+             "beyondff_tpu/kernels/window_attention.py:51"),
+            (("deform_clamp", "float32", FRAME_BATCH),
+             "beyondff_tpu_torch/csrc/ms_deform_sample.cu",
+             "beyondff_tpu/kernels/deform_window.py:170")):
         c = cases[key]
         # K3's row counts the fast variant's launches (EfficientSAM's global
-        # blocks), K2's the classic path's, K4's the sweep's
+        # blocks), K2's the classic path's, K4's the sweep's; an f32 row the
+        # float32 configuration's (phase 14: classic, and fast for K3)
         name = c["kernel"]
+        if isinstance(key, tuple) and "float32" in key:
+            n_launches = f32_launches["fast" if key[0] == "k3_efficientsam" else "classic"][name]
+        else:
+            n_launches = launches[name]
         table.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
-                      "launches": launches[name], "max_abs_err": c["max_abs_err"],
+                      "launches": n_launches, "max_abs_err": c["max_abs_err"],
                       "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
                       "bound_by": c["bound_by"], "library_ms": c["library_ms"],
-                      # device time per launch (and of the library call), and rates
+                      # device time per launch (and of the library call), rates,
+                      # and for f32 attention the f32-FMA bound beside bound_ms
                       **{key: c.get(key) for key in ("device_ms", "library_device_ms",
                                                      "tflops", "tops", "gbps", "dense_path_ms",
                                                      "dense_path_device_ms", "host_us",
                                                      "sort_ms", "gather_ms", "scan_ms",
+                                                     "bound_fma_ms", "share_of_bound",
                                                      "dtype", "shape", "design")
                          if key in c}})
     shutil.rmtree(work)

@@ -59,7 +59,7 @@ def cuda_device():
     ((1, 32, 4096, 1537, _S32, *_A), False),  # one more: the mma.sync tile
     ((1, 32, 900, 0, _S32, *_A), False),  # no valid key
     ((1, 32, 900, 901, _S32, *_A), False),  # valid_len past S
-    ((0, 32, 900, 900, _S32, *_A), False),  # f32: the FMA kernel
+    ((0, 32, 900, 900, _S32, *_A), False),  # f32: the 3xTF32 kernel
     ((1, 64, 1024, 900, 0.125, *_A), False),  # head dim 64, keys masked: the tile
     ((1, 16, 900, 900, 0.25, *_A), False),
     ((1, 80, 900, 900, 80 ** -0.5, *_A), False),
@@ -77,7 +77,8 @@ def test_masked_wgmma_route_pins_the_predicate(args, takes):
     f32 scale, 16-byte aligned q, k, v and output; and the counter a call
     moves (K3's predicate is asked first and takes none of these)."""
     assert tfa.masked_wgmma_route(*args) is takes
-    assert tfa.flash_counter(*args) == ("flash_masked_wgmma" if takes else "flash_attention")
+    other = "flash_attention_tf32" if args[0] == 0 else "flash_attention"  # f32: D 32, aligned
+    assert tfa.flash_counter(*args) == ("flash_masked_wgmma" if takes else other)
 
 
 def test_masked_wgmma_counter_is_registered():
@@ -451,7 +452,8 @@ def test_k2_wgmma_matches_plain_on_card(cuda_device, bh, s, valid):
 def test_k2_other_calls_keep_their_kernels_on_card(cuda_device, case):
     """Calls outside K2's predicate keep their kernels, counted as
     ``flash_attention``: more valid keys than shared memory holds, an input
-    off 16 bytes, f32, and head dim 64 with keys masked."""
+    off 16 bytes, and head dim 64 with keys masked; f32 takes the 3xTF32
+    kernel, counted as ``flash_attention_tf32``."""
     d = 64 if case == "d64_masked" else 32
     s, valid = {"past_keys": (2048, 1600), "d64_masked": (1024, 900)}.get(case, (900, 900))
     dtype = torch.float32 if case == "f32" else torch.bfloat16
@@ -463,7 +465,7 @@ def test_k2_other_calls_keep_their_kernels_on_card(cuda_device, case):
         q = q.view(2, s, d)
     before = dict(dispatch.launch_counts)
     got = tfa.flash_attention(q, k, v, valid_len=valid)
-    assert _moved(before) == ["flash_attention"]
+    assert _moved(before) == ["flash_attention_tf32" if case == "f32" else "flash_attention"]
     want = tfa.flash_attention_plain(q, k, v, valid_len=valid)
     torch.cuda.synchronize()
     if dtype == torch.float32:

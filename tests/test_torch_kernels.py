@@ -495,7 +495,8 @@ def test_mask_iou_wrapper_checks_on_cpu():
                                   "k3_no_pingpong", "k3_two_consumers", "k4_two_consumers",
                                   "k4_two_serial", "k4_overlap", "k4_no_pingpong",
                                   "k4_stages_3", "k5_one_consumer",
-                                  "k5_two_blocks", "k5_pingpong"])
+                                  "k5_two_blocks", "k5_pingpong", "f32_fma", "tf32_serial",
+                                  "tf32_no_pingpong", "tf32_stages_2"])
 def test_kernel_variant_edits_match_the_sources(name):
     """Each variant ``tools/kernel_variants.py`` builds is a set of edits
     that must each match its source once: they go stale with the kernels."""
@@ -577,8 +578,10 @@ def test_flash_kernel_matches_plain_on_card(cuda_device, dtype, bh, s, valid, d)
     no whole 16-byte row and takes the FMA kernel). f32 within 1e-4; bf16
     within the derived bound and K2's 1.6e-2. Each call counts once, under
     the counter ``tfa.flash_counter`` names: bf16 at head dim 32 goes to
-    K2's wgmma kernel (``flash_masked_wgmma``), the rest to the mma.sync
-    tile or the FMA kernel (``flash_attention``)."""
+    K2's wgmma kernel (``flash_masked_wgmma``), other bf16 to the mma.sync
+    tile or the FMA kernel (``flash_attention``), f32 at head dim 32 or 64
+    to the 3xTF32 kernel (``flash_attention_tf32``) and other f32 to the
+    FMA kernel (``flash_attention_f32``)."""
     g = torch.Generator(device=cuda_device).manual_seed(s + d)
     q, k, v = (torch.randn(bh, s, d, generator=g, device=cuda_device).to(dtype)
                for _ in range(3))
@@ -589,8 +592,10 @@ def test_flash_kernel_matches_plain_on_card(cuda_device, dtype, bh, s, valid, d)
     key = tfa.flash_counter(int(dtype == torch.bfloat16), d, s, valid, d ** -0.5,
                             *(t.data_ptr() for t in (q, k, v, got)))
     assert _moved(before) == [key]
-    assert key == ("flash_masked_wgmma" if dtype == torch.bfloat16 and d == 32
-                   else "flash_attention")
+    if dtype == torch.bfloat16:
+        assert key == ("flash_masked_wgmma" if d == 32 else "flash_attention")
+    else:
+        assert key == ("flash_attention_tf32" if d in (32, 64) else "flash_attention_f32")
     _assert_within_bound(got, want, tfa.bf16_error_bound(q, k, v, want, valid))
     if dtype == torch.bfloat16:
         assert float((got.float() - want.float()).abs().max()) <= 1.6e-2
@@ -929,14 +934,15 @@ def test_window_relpos_kernel_matches_plain_on_card(cuda_device, dtype, g, wh, w
 def test_flash_kernel_at_efficientsam_global_blocks_on_card(cuda_device, dtype, bh):
     """K3 at EfficientSAM-S's global blocks: head dim 64 over the 64 x 64
     grid (S 4096, every key valid), 6 heads for one frame and 24 for the
-    main path's batch of 4; f32 within 1e-4, bf16 within the derived bound."""
+    main path's batch of 4; f32 within 1e-4 (the 3xTF32 kernel), bf16 within
+    the derived bound (the wgmma kernel)."""
     g = torch.Generator(device=cuda_device).manual_seed(bh)
     q, k, v = (torch.randn(bh, 4096, 64, generator=g, device=cuda_device).to(dtype)
                for _ in range(3))
-    key = "flash_attention_wgmma" if dtype == torch.bfloat16 else "flash_attention"
+    key = "flash_attention_wgmma" if dtype == torch.bfloat16 else "flash_attention_tf32"
     before = dict(dispatch.launch_counts)
     got = tfa.attend(q, k, v)
-    assert _launched(before) == [key]  # bf16: the wgmma kernel; f32: the FMA kernel
+    assert _launched(before) == [key]  # bf16: the wgmma kernel; f32: the 3xTF32 kernel
     want = tfa.flash_attention_plain(q, k, v)
     torch.cuda.synchronize()
     _assert_within_bound(got, want, tfa.bf16_error_bound(q, k, v, want))
@@ -972,10 +978,11 @@ def test_flash_wgmma_kernel_matches_plain_on_card(cuda_device, bh, s):
 @pytest.mark.parametrize("case", ["masked", "d32", "d80", "f32", "misaligned"])
 def test_flash_other_shapes_keep_their_kernels_on_card(cuda_device, case):
     """Calls outside K3's wgmma predicate keep their routes: keys masked at
-    head dim 64 and head dim 80 on the mma.sync tile, f32 on the FMA kernel
-    and a bf16 head-dim-64 input off 16 bytes (the FMA kernel), counted as
-    ``flash_attention``; bf16 at head dim 32 on K2's wgmma kernel, counted as
-    ``flash_masked_wgmma``; each within its bound of the plain version."""
+    head dim 64 and head dim 80 on the mma.sync tile and a bf16 head-dim-64
+    input off 16 bytes (the FMA kernel), counted as ``flash_attention``;
+    bf16 at head dim 32 on K2's wgmma kernel, counted as
+    ``flash_masked_wgmma``; f32 at head dim 64 on the 3xTF32 kernel, counted
+    as ``flash_attention_tf32``; each within its bound of the plain version."""
     d = {"d32": 32, "d80": 80}.get(case, 64)
     dtype = torch.float32 if case == "f32" else torch.bfloat16
     g = torch.Generator(device=cuda_device).manual_seed(d)
@@ -987,7 +994,8 @@ def test_flash_other_shapes_keep_their_kernels_on_card(cuda_device, case):
     valid = 900 if case == "masked" else 1000
     before = dict(dispatch.launch_counts)
     got = tfa.flash_attention(q, k, v, valid_len=valid)
-    assert _launched(before) == ["flash_masked_wgmma" if case == "d32" else "flash_attention"]
+    assert _launched(before) == [{"d32": "flash_masked_wgmma", "f32": "flash_attention_tf32"}
+                                 .get(case, "flash_attention")]
     want = tfa.flash_attention_plain(q, k, v, valid_len=valid)
     torch.cuda.synchronize()
     _assert_within_bound(got, want, tfa.bf16_error_bound(q, k, v, want, valid))
@@ -1100,4 +1108,5 @@ def test_kernels_refuse_autograd_on_card(cuda_device):
     with torch.no_grad():
         out = tfa.attend(q, q, q)
     torch.cuda.synchronize()
-    assert dispatch.launch_counts["flash_attention"] == 1 and out.requires_grad is False
+    # f32 at head dim 32: the 3xTF32 kernel
+    assert dispatch.launch_counts["flash_attention_tf32"] == 1 and out.requires_grad is False
