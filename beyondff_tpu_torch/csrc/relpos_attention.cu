@@ -25,6 +25,12 @@
 // windowed blocks at B = 4, (1600, 196, 80), do 2.0e10 operations (0.02 ms)
 // and move about 218 MB (0.065 ms): bound by bytes.
 //
+// Routes. bf16 calls at SAM ViT-H's head dim 80 that bff_relpos_wgmma_takes
+// accepts go to csrc/relpos_attention_wgmma.cu; f32 calls that
+// bff_relpos_tf32_takes accepts (head dim 80, kw = 64 or 14 x 14 windows)
+// to the 3xTF32 wgmma kernels of csrc/relpos_attention_tf32.cu; the rest to
+// the kernels below.
+//
 // K4 in bf16 (the SAM path): flash_relpos_tc_kernel, the tensor-core block
 // of csrc/attention_tc.cuh (mma.sync m16n8k16 bf16 -> f32 for both
 // products, scores and P in registers, K/V bf16 in a 2-stage cp.async
@@ -75,12 +81,13 @@
 //   window), 20 480 B: 110 592 B a block. 255 registers a thread, no
 //   spills (ptxas, DP = 80, even ww): two blocks per SM.
 //
-// f32 inputs (the CPU-parity runs), and K5 in bf16 off the tile's
-// alignment: one block of 256 threads per (bh or window, 64-query tile);
-// K and V go through shared memory in 64-key tiles as f32 (rows padded by
-// one against bank conflicts), both products as f32 FMAs (67 TFLOP/s f32
-// peak; TF32 would not hold the 1e-4 bar), the bias looked up per score
-// from an f32 factor table. The flash kernel keeps
+// f32 inputs outside bff_relpos_tf32_takes (another head dim or grid, a
+// base off 16 bytes), and K5 in bf16 off the tile's alignment: one block of
+// 256 threads per (bh or window, 64-query tile); K and V go through shared
+// memory in 64-key tiles as f32 (rows padded by one against bank
+// conflicts), both products as f32 FMAs (67 TFLOP/s f32 peak; one TF32
+// product a product would not hold the 1e-4 bar, three do: the route
+// above), the bias looked up per score from an f32 factor table. The flash kernel keeps
 // each row's running max and denominator in registers (K2's scheme,
 // csrc/flash_attention.cu); the window kernel keeps the whole (64, S) score
 // tile of its window in shared memory and normalises it in one pass. Ragged
@@ -576,6 +583,17 @@ extern "C" int bff_flash_relpos_wgmma(const void* q, const void* k, const void* 
 extern "C" int bff_window_relpos_wgmma(const void* q, const void* k, const void* v,
                                        const void* bias_h, const void* bias_w, void* o, int G,
                                        float scale, void* stream);
+// csrc/relpos_attention_tf32.cu: the f32 head-dim-80 calls on 3xTF32 wgmma
+extern "C" int bff_relpos_tf32_takes(int kind, int dtype, int D, int S, int rows, int cols,
+                                     float scale, const void* q, const void* k, const void* v,
+                                     const void* o, const void* bias_h, const void* bias_w);
+extern "C" int bff_flash_relpos_tf32(const void* q, const void* k, const void* v,
+                                     const void* bias_h, const void* bias_w, void* o,
+                                     void* scratch, int BH, int S, int kh, float scale,
+                                     void* stream);
+extern "C" int bff_window_relpos_tf32(const void* q, const void* k, const void* v,
+                                      const void* bias_h, const void* bias_w, void* o, int G,
+                                      float scale, void* stream);
 
 namespace {
 
@@ -589,18 +607,22 @@ namespace {
 
 // dtype: 0 = float32, 1 = bfloat16. q, k, v, o: contiguous (BH, S, D) with
 // S = kh * kw and kh + kw <= 256; bias_h: (BH, S, kh), bias_w: (BH, S, kw),
-// in q's dtype.
+// in q's dtype; scratch: what the 3xTF32 kernel needs where
+// bff_relpos_tf32_takes the call (bff_relpos_tf32_scratch_floats floats),
+// else unread.
 // Returns cudaGetLastError() after the launch, or -1 for arguments the
 // kernel does not take.
 extern "C" int bff_flash_attention_relpos(int dtype, const void* q, const void* k, const void* v,
                                           const void* bias_h, const void* bias_w, void* o,
                                           int BH, int S, int D, int kh, int kw, float scale,
-                                          void* stream) {
+                                          void* stream, void* scratch) {
   if (BH < 1 || S < 1 || D < 1 || D > 128 || kh < 1 || kw < 1 || kh * kw != S ||
       kh + kw > 256)
     return -1;
   if (bff_relpos_wgmma_takes(0, dtype, D, S, kh, kw, scale, q, k, v, o, bias_h, bias_w))
     return bff_flash_relpos_wgmma(q, k, v, bias_h, bias_w, o, BH, S, kh, scale, stream);
+  if (bff_relpos_tf32_takes(0, dtype, D, S, kh, kw, scale, q, k, v, o, bias_h, bias_w))
+    return bff_flash_relpos_tf32(q, k, v, bias_h, bias_w, o, scratch, BH, S, kh, scale, stream);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return BFF_BY_HEAD_DIM(launch_flash, float, q, k, v, bias_h, bias_w, o, BH, S, D, kh, kw,
@@ -624,6 +646,8 @@ extern "C" int bff_window_attention_relpos(int dtype, const void* q, const void*
     return -1;
   if (bff_relpos_wgmma_takes(1, dtype, D, S, wh, ww, scale, q, k, v, o, bias_h, bias_w))
     return bff_window_relpos_wgmma(q, k, v, bias_h, bias_w, o, G, scale, stream);
+  if (bff_relpos_tf32_takes(1, dtype, D, S, wh, ww, scale, q, k, v, o, bias_h, bias_w))
+    return bff_window_relpos_tf32(q, k, v, bias_h, bias_w, o, G, scale, stream);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return BFF_BY_HEAD_DIM(launch_window, float, q, k, v, bias_h, bias_w, o, G, S, D, wh, ww,

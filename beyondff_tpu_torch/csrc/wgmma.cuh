@@ -3,8 +3,10 @@
 // descriptors, wgmma issue and wait, named-barrier turns, and the run-time
 // lookup of cuTensorMapEncodeTiled. Used by csrc/flash_attention_wgmma.cu
 // (K3), csrc/flash_masked_wgmma.cu (K2: head dim 32, 64-byte swizzle),
-// csrc/relpos_attention_wgmma.cu (K4 and K5) and csrc/mask_iou_wgmma.cu (K6:
-// the s8 product, 2-D maps over byte rows, cluster multicast); also by
+// csrc/relpos_attention_wgmma.cu (K4 and K5), csrc/mask_iou_wgmma.cu (K6:
+// the s8 product, 2-D maps over byte rows, cluster multicast) and the
+// 3xTF32 kernels (csrc/flash_attention_tf32.cu, csrc/relpos_attention_tf32.cu:
+// the TF32 split); also by
 // tools/variant_csrc/ms_deform_window_tma.cu, a K1 variant that
 // tools/kernel_variants.py builds.
 //
@@ -401,5 +403,18 @@ inline int encode_map(EncodeTiled fn, CUtensorMap* map, CUtensorMapDataType type
 }
 
 inline bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+// The 3xTF32 kernels' rounding: x to a TF32 word, rounded to nearest with
+// ties away (cvt.rna; the low 13 bits 0), and x = hi + lo to about 22 bits,
+// both TF32 words (x - hi is exact in f32).
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
 
 }  // namespace bff_wg

@@ -98,6 +98,10 @@ def library() -> ctypes.CDLL:
     lib.bff_flash_masked_wgmma_takes.restype = i
     lib.bff_relpos_wgmma_takes.argtypes = [i, i, i, i, i, i, f, p, p, p, p, p, p]
     lib.bff_relpos_wgmma_takes.restype = i
+    lib.bff_relpos_tf32_takes.argtypes = [i, i, i, i, i, i, f, p, p, p, p, p, p]
+    lib.bff_relpos_tf32_takes.restype = i
+    lib.bff_relpos_tf32_scratch_floats.argtypes = [i, i]
+    lib.bff_relpos_tf32_scratch_floats.restype = ctypes.c_longlong
     lib.bff_ms_deform_sample.argtypes = [i, p, p, p, p, p, i, i, i, i, i, i, i,
                                          ctypes.POINTER(ctypes.c_int), p]
     lib.bff_ms_deform_sample.restype = i
@@ -108,8 +112,8 @@ def library() -> ctypes.CDLL:
     lib.bff_mask_iou_wgmma_takes.restype = i
     lib.bff_nms_fixed.argtypes = [p, p, i, i, i, f, p, p, p]
     lib.bff_nms_fixed.restype = i
-    for name in ("bff_flash_attention_relpos", "bff_window_attention_relpos"):
-        fn = getattr(lib, name)
-        fn.argtypes = [i, p, p, p, p, p, p, i, i, i, i, i, f, p]
-        fn.restype = i
+    lib.bff_flash_attention_relpos.argtypes = [i, p, p, p, p, p, p, i, i, i, i, i, f, p, p]
+    lib.bff_flash_attention_relpos.restype = i
+    lib.bff_window_attention_relpos.argtypes = [i, p, p, p, p, p, p, i, i, i, i, i, f, p]
+    lib.bff_window_attention_relpos.restype = i
     return lib

@@ -21,10 +21,14 @@ decomposed relative-position bias from its thin factors (``flash_attention_relpo
 reached through ``attend_relpos``); it routes SAM ViT-H's bf16 head-dim-80
 calls on its 64-wide grids (K4; :func:`relpos_wgmma_route`) to the
 wgmma/TMA kernel of ``csrc/relpos_attention_wgmma.cu``, counted as
-``flash_attention_relpos_wgmma``, and the rest to the mma.sync tile or the
-f32 kernel, counted as ``flash_attention_relpos``. The wrappers launch them
-for CUDA tensors and raise on what they do not take; CPU tensors take the
-plain versions.
+``flash_attention_relpos_wgmma``; its f32 head-dim-80 calls on those grids
+(K4 in ``detector.dtype: float32`` under ``BFF_SAM_RELPOS_FLASH=1``;
+:func:`relpos_tf32_route`) to the 3xTF32 wgmma kernel of
+``csrc/relpos_attention_tf32.cu``, counted as
+``flash_attention_relpos_tf32``; and the rest to the mma.sync tile or the
+f32-FMA kernel, counted as ``flash_attention_relpos`` (:func:`relpos_counter`
+names the counter of a call). The wrappers launch them for CUDA tensors and
+raise on what they do not take; CPU tensors take the plain versions.
 """
 
 from __future__ import annotations
@@ -341,6 +345,200 @@ def relpos_wgmma_fragment(kind: int, warp: int, lane: int, tile: int, s: int = 1
     return out
 
 
+# csrc/relpos_attention_tf32.cu: K4's 64-key tiles (one grid row of kw =
+# 64), K5's 40-key tiles over a 14 x 14 window's 196 keys (200 with the
+# masked ones), 128-row blocks (K4) and rounds (K5) of two 64-row consumer
+# warpgroups, and the smallest grid height K4 takes
+RELPOS_TF32_TILE = 64
+RELPOS_TF32_WINDOW_TILE = 40
+RELPOS_TF32_BLOCK_Q = 128
+RELPOS_TF32_MIN_GRID_H = 1
+_WIN, _WIN_S = 14, 196
+
+
+def relpos_tf32_route(kind: int, dtype: int, d: int, s: int, rows: int, cols: int,
+                      scale: float, *ptrs: int) -> bool:
+    """The mirror of ``bff_relpos_tf32_takes``: whether the rel-pos entries
+    run the 3xTF32 wgmma kernels of ``csrc/relpos_attention_tf32.cu`` for a
+    call. ``kind`` 0 is ``bff_flash_attention_relpos`` (K4, a ``rows`` x
+    ``cols`` = kh x kw key grid), 1 is ``bff_window_attention_relpos`` (K5,
+    wh x ww windows); dtype 0 = float32, 1 = bfloat16; ``ptrs`` the data
+    pointers of q, k, v, the output, bias_h and bias_w. Taken: f32, head dim
+    80, kw = 64 with ``RELPOS_TF32_MIN_GRID_H`` <= kh <= 64 (K4) or 14 x 14
+    windows (K5), a positive finite scale (rounded to f32 as the call passes
+    it) and every pointer 16-byte aligned."""
+    f32 = ctypes.c_float(scale).value
+    if kind == 0:
+        shape = cols == 64 and RELPOS_TF32_MIN_GRID_H <= rows <= 64 and s == rows * cols
+    elif kind == 1:
+        shape = rows == _WIN and cols == _WIN and s == _WIN_S
+    else:
+        shape = False
+    return (shape and dtype == 0 and d == 80 and 0.0 < f32 <= _FLT_MAX
+            and all(p % 16 == 0 for p in ptrs))
+
+
+def relpos_tf32_scratch_floats(bh: int, s: int) -> int:
+    """The mirror of ``bff_relpos_tf32_scratch_floats``: the floats of scratch
+    a K4 call on the 3xTF32 kernel needs, each 64-key tile's K hi, K lo, V^T
+    hi and V^T lo images, 4 BH S 80 (S = 64 kh is whole tiles)."""
+    return 4 * bh * s * 80
+
+
+def relpos_counter(kind: int, dtype: int, d: int, s: int, rows: int, cols: int, scale: float,
+                   *ptrs: int) -> str:
+    """The launch counter a rel-pos call counts under, as the entries' routes
+    decide: ``..._wgmma`` (:func:`relpos_wgmma_route`), ``..._tf32``
+    (:func:`relpos_tf32_route`) or the entry's own (the mma.sync tile and the
+    FMA kernels) after ``flash_attention_relpos`` (kind 0) or
+    ``window_attention_relpos`` (kind 1)."""
+    name = "window_attention_relpos" if kind == 1 else "flash_attention_relpos"
+    if relpos_wgmma_route(kind, dtype, d, s, rows, cols, scale, *ptrs):
+        return name + "_wgmma"
+    if relpos_tf32_route(kind, dtype, d, s, rows, cols, scale, *ptrs):
+        return name + "_tf32"
+    return name
+
+
+def relpos_tf32_schedule(kind: int, n: int, s: int, sms: int = 132):
+    """The mirror of ``csrc/relpos_attention_tf32.cu``'s grids: (grid,
+    tiles). K4 (kind 0, ``n`` heads of S = ``s`` tokens): the grid (ceil(S /
+    128), n), block (x, head) -> the first rows of its two consumer
+    warpgroups, [(head, 128 x), (head, 128 x + 64)]. K5 (kind 1, ``n``
+    windows of ``s`` = 196): a persistent grid of min(2 n, ``sms``) blocks,
+    block b walking items b, b + grid, ... (item i: window i / 2, rows 128
+    (i % 2) ..), block b -> [(window, first row) for each item and
+    consumer]. Rows past S (or 196) are computed and not written."""
+    if kind == 0:
+        grid = (-(-s // RELPOS_TF32_BLOCK_Q), n)
+        tiles = {(x, h): [(h, RELPOS_TF32_BLOCK_Q * x), (h, RELPOS_TF32_BLOCK_Q * x + 64)]
+                 for h in range(n) for x in range(grid[0])}
+        return grid, tiles
+    items = 2 * n
+    grid = (min(items, sms),)
+    tiles = {(b,): [(i // 2, RELPOS_TF32_BLOCK_Q * (i % 2) + 64 * w)
+                    for i in range(b, items, grid[0]) for w in range(2)]
+             for b in range(grid[0])}
+    return grid, tiles
+
+
+def relpos_tf32_fragment(kind: int, warp: int, lane: int, tile: int, s: int = 196):
+    """The mirror of ``csrc/relpos_attention_tf32.cu``'s score index
+    arithmetic: for lane ``lane`` of warp ``warp`` (0..3) of a consumer
+    warpgroup and key tile ``tile``, one tuple per score register i, (i,
+    row, key, ky, kx): the warpgroup row and the key the accumulator value
+    holds and the grid cell whose factors start it (None where the key is
+    masked). Register 4 j + e holds row 16 warp + lane / 4 + 8 (e / 2),
+    column 8 j + 2 (lane % 4) + e % 2 of the m64nN tile.
+
+    K4 (kind 0, 64-key tiles of a 64-wide grid): key 64 tile + column, ky =
+    tile (bias_h, a row shift), kx = the column (bias_w, the initial value,
+    from the table row of the warpgroup row). K5 (kind 1, 40-key tiles of a
+    14 x 14 window): key 40 tile + column; the pair c = key - e % 2 gives ky
+    = c / 14 and kx = c % 14 + e % 2 (one bias_h read and one 8-byte bias_w
+    read a pair); keys >= ``s`` are masked."""
+    n = RELPOS_TF32_TILE if kind == 0 else RELPOS_TF32_WINDOW_TILE
+    quad = lane % 4
+    out = []
+    for i in range(n // 2):
+        j, e = divmod(i, 4)
+        row = 16 * warp + lane // 4 + 8 * (e // 2)
+        col = 8 * j + 2 * quad + e % 2
+        key = n * tile + col
+        if kind == 0:
+            out.append((i, row, key, tile, col))
+        else:
+            c = key - e % 2
+            out.append((i, row, key, c // _WIN, c % _WIN + e % 2) if c < s
+                       else (i, row, key, None, None))
+    return out
+
+
+def relpos_tf32_mirror(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       bias_h: torch.Tensor, bias_w: torch.Tensor, kind: int,
+                       scale: Optional[float] = None) -> torch.Tensor:
+    """The arithmetic of ``csrc/relpos_attention_tf32.cu`` in PyTorch on the
+    CPU, block by block of :func:`relpos_tf32_schedule`, f32 at head dim 80.
+    K4 (kind 0; q, k, v (BH, S, 80), S = 64 kh, bias_h (BH, S, kh), bias_w
+    (BH, S, 64)) or K5 (kind 1; (G, 196, 80), both factors (G, 196, 14)).
+    K and V split into TF32 hi and lo (:func:`tf32_split`; V^T with each
+    8-key group in ``TF32_KEY_ORDER``); per 64-row warpgroup tile, Q
+    multiplied by the scale and split; per key tile (64 keys, one grid row,
+    for K4; 40 for K5, keys >= 196 zero), the scores' accumulators start at
+    the bias (K4: bias_w; K5: bias_h + bias_w, -inf for keys >= 196) and
+    take lo(Q) hi(K)^T + hi(Q) lo(K)^T, then hi(Q) hi(K)^T; the running max
+    (log2 units, K4's rows shifted by bias_h[q, t] log2 e) raised at every
+    tile; p = 2^(s log2 e + shift - m) (one rounding); the denominator summed
+    from the f32 p; the output rescaled, P split in the fragment order, the
+    tile's (lo(P) hi(V) + hi(P) lo(V)) + hi(P) hi(V) summed apart and added
+    to O in f32 (the kernels' kFold); the output divided once; rows past S
+    not written (left 0). Every word handed to the products is rna-rounded
+    TF32, so the hardware's truncation is not modelled."""
+    n, s, d = q.shape
+    scale = d ** -0.5 if scale is None else scale
+    l2e = float(torch.tensor(1.4426950408889634, dtype=torch.float32))
+    sc = float(torch.tensor(scale, dtype=torch.float32))
+    tile = RELPOS_TF32_TILE if kind == 0 else RELPOS_TF32_WINDOW_TILE
+    n_tiles = s // tile if kind == 0 else -(-s // tile)
+    kp = tile * n_tiles
+    kz = torch.zeros(n, kp, d)
+    vz = torch.zeros(n, kp, d)
+    kz[:, :s] = k.float()
+    vz[:, :s] = v.float()
+    k_hi, k_lo = tf32_split(kz)
+    order = torch.tensor([8 * (j // 8) + TF32_KEY_ORDER[j % 8] for j in range(kp)])
+    vt_hi, vt_lo = (t[:, order].transpose(1, 2) for t in tf32_split(vz))  # (n, D, Kp)
+    bh_f, bw_f = bias_h.float(), bias_w.float()
+    out = torch.zeros(n, s, d, dtype=torch.float32)
+    written = torch.zeros(n, s, dtype=torch.int32)
+    _grid, blocks = relpos_tf32_schedule(kind, n, s)
+    for rows0 in blocks.values():
+        for h, r0 in rows0:
+            rows = torch.arange(r0, r0 + 64)
+            live = rows < s
+            qt = torch.zeros(64, d)
+            qt[live] = q[h, rows[live]].float() * sc
+            q_hi, q_lo = tf32_split(qt)
+            m = torch.full((64,), -1e30)
+            l = torch.zeros(64)
+            acc = torch.zeros(64, d)
+            for t in range(n_tiles):
+                ks = slice(t * tile, (t + 1) * tile)
+                keys = torch.arange(t * tile, (t + 1) * tile)
+                init = torch.zeros(64, tile)
+                shift = torch.zeros(64)
+                if kind == 0:
+                    init[live] = bw_f[h, rows[live]]
+                    shift[live] = bh_f[h, rows[live], t] * l2e
+                else:
+                    inside = keys < s
+                    ky, kx = keys[inside] // _WIN, keys[inside] % _WIN
+                    init[:, ~inside] = float("-inf")
+                    r = rows[live]
+                    init[live.nonzero()[:, 0][:, None], inside.nonzero()[:, 0][None, :]] = (
+                        bh_f[h, r][:, ky] + bw_f[h, r][:, kx])
+                sco = ((init + q_lo @ k_hi[h, ks].T) + q_hi @ k_lo[h, ks].T) + q_hi @ k_hi[h, ks].T
+                mx = (sco.max(dim=1).values.double() * l2e + shift.double()).float()
+                m_new = torch.maximum(m, mx)
+                corr = torch.exp2(m - m_new)
+                m = m_new
+                l = l * corr
+                c = shift - m
+                x = (sco.double() * l2e + c[:, None].double()).float()  # the FMA's rounding
+                p = torch.exp2(x.double()).float()  # exact, standing in for ex2.approx
+                l = l + p.sum(dim=1)
+                acc = acc * corr[:, None]
+                p_hi, p_lo = tf32_split(p[:, order[:tile]])  # the A fragments' column order
+                acc = acc + ((p_lo @ vt_hi[h, :, ks].T + p_hi @ vt_lo[h, :, ks].T)
+                             + p_hi @ vt_hi[h, :, ks].T)
+            o = acc / l[:, None]
+            out[h, rows[live]] = o[live]
+            written[h, rows[live]] += 1
+    if not bool((written == 1).all()):
+        raise AssertionError("the schedule does not write every (head, row) once")
+    return out
+
+
 def _plain_probs(q: torch.Tensor, k: torch.Tensor, scale: float,
                  valid_len: Optional[int] = None,
                  bias: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -490,10 +688,9 @@ def _check_relpos(name, q, k, v, bias_h, bias_w, rows, cols):
         raise ValueError(f"{name}: head dim {d} > 128")
 
 
-def _launch_relpos(fn_name, kind, counter, q, k, v, bias_h, bias_w, rows, cols, scale):
-    """Launch ``fn_name`` and count the launch under ``counter``, or under
-    ``counter + "_wgmma"`` where :func:`relpos_wgmma_route` says the entry
-    takes the wgmma kernel."""
+def _launch_relpos(fn_name, kind, q, k, v, bias_h, bias_w, rows, cols, scale):
+    """Launch ``fn_name`` and count the launch under the counter
+    :func:`relpos_counter` names; K4 on the 3xTF32 kernel gets its scratch."""
     from beyondff_tpu_torch.kernels import _build
 
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
@@ -504,12 +701,18 @@ def _launch_relpos(fn_name, kind, counter, q, k, v, bias_h, bias_w, rows, cols, 
     out = torch.empty_like(q)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bias_h.data_ptr(),
             bias_w.data_ptr())
-    if relpos_wgmma_route(kind, _DTYPES[q.dtype], d, s, rows, cols, scale, *ptrs):
-        counter += "_wgmma"
+    counter = relpos_counter(kind, _DTYPES[q.dtype], d, s, rows, cols, scale, *ptrs)
     qp, kp, vp, op, hp, wp = ptrs
-    rc = getattr(_build.library(), fn_name)(
-        _DTYPES[q.dtype], qp, kp, vp, hp, wp, op, bh, s, d, rows, cols, ctypes.c_float(scale),
-        torch.cuda.current_stream(q.device).cuda_stream)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    args = (_DTYPES[q.dtype], qp, kp, vp, hp, wp, op, bh, s, d, rows, cols,
+            ctypes.c_float(scale), stream)
+    if kind == 0:
+        scratch = None
+        if counter == "flash_attention_relpos_tf32":
+            scratch = torch.empty(relpos_tf32_scratch_floats(bh, s), dtype=torch.float32,
+                                  device=q.device)
+        args += (None if scratch is None else scratch.data_ptr(),)
+    rc = getattr(_build.library(), fn_name)(*args)
     if rc != 0:
         raise RuntimeError(f"{counter} kernel launch failed (code {rc})")
     dispatch.launch_counts[counter] += 1
@@ -530,8 +733,8 @@ def flash_attention_relpos(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if kh + kw > 256:
         raise ValueError(f"flash_attention_relpos: kh + kw = {kh + kw} > 256")
     scale = q.shape[-1] ** -0.5 if scale is None else float(scale)
-    return _launch_relpos("bff_flash_attention_relpos", 0, "flash_attention_relpos", q, k, v,
-                          bias_h, bias_w, kh, kw, scale)
+    return _launch_relpos("bff_flash_attention_relpos", 0, q, k, v, bias_h, bias_w, kh, kw,
+                          scale)
 
 
 def relpos_shapes_ok(kh: int, kw: int) -> bool:

@@ -8,12 +8,16 @@ independent windows of S = win_h * win_w tokens, bias[q, (ky, kx)] =
 bias_h[q, ky] + bias_w[q, kx]: bf16 inputs on the tensor-core tile of
 ``csrc/attention_tc.cuh`` (an online softmax over the window's few key
 tiles, P rounded to bf16 before P V as the TPU kernel rounds it; within
-``flash_attention.bf16_error_bound``), f32 inputs with a plain softmax on
-f32 FMAs. SAM ViT-H's bf16 14 x 14 windows at head dim 80
+``flash_attention.bf16_error_bound``), other f32 inputs with a plain
+softmax on f32 FMAs. SAM ViT-H's bf16 14 x 14 windows at head dim 80
 (``flash_attention.relpos_wgmma_route``) take the wgmma/TMA kernel of
 ``csrc/relpos_attention_wgmma.cu`` instead, counted as
 ``window_attention_relpos_wgmma``: the window's whole softmax at once, the
 output divided by its f32 denominator after P V, within the same bound.
+Their f32 counterparts (``flash_attention.relpos_tf32_route``) take the
+3xTF32 wgmma kernel of ``csrc/relpos_attention_tf32.cu``, counted as
+``window_attention_relpos_tf32``: an online softmax over five 40-key tiles,
+the window's K and V split into TF32 halves on the chip, within 1e-4.
 A window's zero-padded tokens (``window_partition``) are real keys; only the
 TPU's lane padding beyond S was masked there. Like the JAX kernel it is not
 wired into the SAM encoder.
@@ -47,5 +51,5 @@ def window_attention_relpos(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     fa._check_relpos("window_attention_relpos", q, k, v, bias_h, bias_w, win_h, win_w)
     if q.shape[1] > 256:
         raise ValueError(f"window_attention_relpos: {q.shape[1]} tokens > 256")
-    return fa._launch_relpos("bff_window_attention_relpos", 1, "window_attention_relpos", q, k,
-                             v, bias_h, bias_w, win_h, win_w, q.shape[-1] ** -0.5)
+    return fa._launch_relpos("bff_window_attention_relpos", 1, q, k, v, bias_h, bias_w, win_h,
+                             win_w, q.shape[-1] ** -0.5)

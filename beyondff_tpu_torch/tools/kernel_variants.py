@@ -91,14 +91,16 @@ FLASH, WGMMA = "flash_attention.cu", "flash_attention_wgmma.cu"
 FMW, NMS = "flash_masked_wgmma.cu", "nms_fixed.cu"
 TF32 = "flash_attention_tf32.cu"
 RWG = "relpos_attention_wgmma.cu"
+RT32 = "relpos_attention_tf32.cu"
 IWG, MSW = "mask_iou_wgmma.cu", "ms_deform_window_tma.cu"
 NMB = "nms_bitmask.cu"
 TF32_SMEM = "flash_attention_tf32_smem.cu"
-SOURCES = (RELPOS, IOU, MSD, FLASH, WGMMA, FMW, TF32, RWG, IWG, NMS)
+SOURCES = (RELPOS, IOU, MSD, FLASH, WGMMA, FMW, TF32, RWG, RT32, IWG, NMS)
 # sources only variants build, copied beside csrc's (whose headers they use)
 VARIANT_CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "variant_csrc")
 K1, K6 = (MSD,), (IOU, IWG)  # what a K1 or K6 variant builds
 K3 = (FLASH, WGMMA, FMW, TF32)  # what a K2 or K3 variant builds (one C entry routes all)
+K45 = (RELPOS, RWG, RT32)  # what a K4 or K5 variant builds (the rel-pos entries route all)
 NMS_V = (NMS,)
 K1_STAGED = (MSD, MSW)
 ROUNDS = 3
@@ -345,30 +347,54 @@ VARIANTS = {
     "nms_bitmask": ((NMS, NMB), ()),
     # K4: two consumer warpgroups (240 registers each), a 128-query tile, tile
     # t's Q K^T issued before tile t - 1's P V
-    "k4_two_consumers": ((RELPOS, RWG), (
+    "k4_two_consumers": (K45, (
         (RWG, "constexpr int kConsumers = 3;", "constexpr int kConsumers = 2;"),
         (RWG, "constexpr bool kOverlap = false;", "constexpr bool kOverlap = true;"))),
     # K4: two consumers, each tile's products in turn
-    "k4_two_serial": ((RELPOS, RWG), ((RWG, "constexpr int kConsumers = 3;",
+    "k4_two_serial": (K45, ((RWG, "constexpr int kConsumers = 3;",
                                         "constexpr int kConsumers = 2;"),)),
     # K4: three consumers with the overlap (scores and P live at once: spills)
-    "k4_overlap": ((RELPOS, RWG), ((RWG, "constexpr bool kOverlap = false;",
+    "k4_overlap": (K45, ((RWG, "constexpr bool kOverlap = false;",
                                      "constexpr bool kOverlap = true;"),)),
     # K4: the consumers issue their products whenever they are ready
-    "k4_no_pingpong": ((RELPOS, RWG), ((RWG, "constexpr bool kPingpong = true;",
+    "k4_no_pingpong": (K45, ((RWG, "constexpr bool kPingpong = true;",
                                          "constexpr bool kPingpong = false;"),)),
     # K4: three K and V tiles in flight
-    "k4_stages_3": ((RELPOS, RWG), ((RWG, "constexpr int kStages = 2;",
+    "k4_stages_3": (K45, ((RWG, "constexpr int kStages = 2;",
                                       "constexpr int kStages = 3;"),)),
     # K5: the two consumers take turns to issue their products, as K4's do
     # (consumer 1 hands consumer 0 the first turn; consumer 0 takes the
     # surplus one after its loop)
-    "k5_pingpong": ((RELPOS, RWG), _k5_pingpong()),
+    "k5_pingpong": (K45, _k5_pingpong()),
     # K5: one consumer warpgroup walking the four m-tiles
-    "k5_one_consumer": ((RELPOS, RWG), ((RWG, "constexpr int kWConsumers = 2;",
+    "k5_one_consumer": (K45, ((RWG, "constexpr int kWConsumers = 2;",
                                           "constexpr int kWConsumers = 1;"),)),
     # K5: two blocks an SM, each one consumer and one window in flight
-    "k5_two_blocks": ((RELPOS, RWG), (
+    # K4 and K5 in f32 on the FMA kernels of relpos_attention.cu (the 3xTF32
+    # route off): the kernels before the redesign
+    "relpos_f32_fma": (K45, (
+        (RELPOS, "  if (bff_relpos_tf32_takes(0, dtype, D, S, kh, kw, scale, q, k, v, o, bias_h, "
+                 "bias_w))\n", "  if (false)\n"),
+        (RELPOS, "  if (bff_relpos_tf32_takes(1, dtype, D, S, wh, ww, scale, q, k, v, o, bias_h, "
+                 "bias_w))\n", "  if (false)\n"))),
+    # 3xTF32 K4 and K5: tile t's Q K^T issued before tile t - 1's P V
+    # (shipped: after it; with the overlap the consumers spill)
+    "k4_tf32_overlap": (K45, ((RT32, "constexpr bool kOverlap = false;",
+                               "constexpr bool kOverlap = true;"),)),
+    "k5_tf32_overlap": (K45, ((RT32, "constexpr bool kWOverlap = false;",
+                               "constexpr bool kWOverlap = true;"),)),
+    # 3xTF32 K5: the producer reads tile u + 1 before it writes tile u
+    # (shipped: after; the registers of both tiles spill)
+    "k5_tf32_prefetch": (K45, ((RT32, "constexpr bool kWPrefetch = false;",
+                                "constexpr bool kWPrefetch = true;"),)),
+    # 3xTF32 K4 and K5: P V accumulated across every key tile by the tensor
+    # cores (shipped: each tile's P V summed apart, then added in f32)
+    "relpos_tf32_no_fold": (K45, ((RT32, "constexpr bool kFold = true;",
+                                   "constexpr bool kFold = false;"),)),
+    # 3xTF32 K4 and K5: the consumers issue their products whenever they are ready
+    "relpos_tf32_no_pingpong": (K45, ((RT32, "constexpr bool kPingpong = true;",
+                                       "constexpr bool kPingpong = false;"),)),
+    "k5_two_blocks": (K45, (
         (RWG, "constexpr int kWConsumers = 2;", "constexpr int kWConsumers = 1;"),
         (RWG, "constexpr int kWStages = 2;", "constexpr int kWStages = 1;"),
         (RWG, "constexpr int kWBlocksPerSM = 1;", "constexpr int kWBlocksPerSM = 2;"),
@@ -461,9 +487,12 @@ def attention_case(g, grid, window):
 
     def launch(lib):
         f = getattr(lib, fn)
+        # the flash entry's scratch, unread for bf16 (a tree from before it
+        # ignores the argument)
         rc = f(ctypes.c_int(1), *(ctypes.c_void_p(t.data_ptr()) for t in
                                   (q, k, v, bias_h, bias_w, out)),
-               g, s, d, hh, ww, ctypes.c_float(d ** -0.5), ctypes.c_void_p(stream))
+               g, s, d, hh, ww, ctypes.c_float(d ** -0.5), ctypes.c_void_p(stream),
+               ctypes.c_void_p(None))
         if rc != 0:
             raise RuntimeError(f"{fn} failed (code {rc})")
         return out
@@ -476,6 +505,54 @@ def attention_case(g, grid, window):
     library = lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask)[0]
     nbytes = (4 * g * s * d + g * s * (hh + ww)) * 2
     return fn, launch, check, library, 4 * g * s * s * d, nbytes
+
+
+def relpos_f32_case(g, grid, window):
+    """K4 or K5 in f32 at SAM ViT-H's head dim 80 through the rel-pos
+    entries (the 3xTF32 kernels of ``relpos_attention_tf32.cu`` in this tree,
+    the FMA kernels in the ``relpos_f32_fma`` variant or a tree from before
+    them), the factors as ``chip_smoke.py`` builds them, held within 1e-4 of
+    the plain version; after (name, launch, check) come SDPA in f32 with the
+    bias as a dense float mask on the same inputs, the operations and bytes
+    of one call, the peak that gives ``bound_ms`` (3xTF32: a third of the
+    TF32 rate) and the plain version, timed as one more yardstick."""
+    import torch.nn.functional as F
+
+    hh, ww = grid
+    s, d = hh * ww, 80
+    gen = torch.Generator(device="cuda").manual_seed(s + g)
+    q, k, v = (torch.randn(g, s, d, device="cuda", generator=gen) for _ in range(3))
+    rel_h = 0.1 * torch.randn(2 * hh - 1, d, device="cuda", generator=gen)
+    rel_w = 0.1 * torch.randn(2 * ww - 1, d, device="cuda", generator=gen)
+    bias_h, bias_w = (t.contiguous() for t in
+                      sam_mod._rel_pos_factors((hh, ww), (hh, ww), rel_h, rel_w, q))
+    plain = lambda: fa.attend_relpos_plain(q, k, v, bias_h, bias_w, ww)
+    want = plain()
+    out = torch.empty_like(q)
+    scratch = None if window else torch.empty(fa.relpos_tf32_scratch_floats(g, s),
+                                              device="cuda")
+    fn = "bff_window_attention_relpos" if window else "bff_flash_attention_relpos"
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def launch(lib):
+        extra = () if window else (ctypes.c_void_p(scratch.data_ptr()),)
+        rc = getattr(lib, fn)(ctypes.c_int(0), *(ctypes.c_void_p(t.data_ptr()) for t in
+                                                 (q, k, v, bias_h, bias_w, out)),
+                              g, s, d, hh, ww, ctypes.c_float(d ** -0.5),
+                              ctypes.c_void_p(stream), *extra)
+        if rc != 0:
+            raise RuntimeError(f"{fn} failed (code {rc})")
+        return out
+
+    def check(got):
+        return float((got - want).abs().max()) - F32_TOL
+
+    mask = fa.relpos_bias(bias_h, bias_w, torch.float32)[None]
+    q4, k4, v4 = (t[None] for t in (q, k, v))
+    library = lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask)[0]
+    launch.plain = plain
+    nbytes = (4 * g * s * d + g * s * (hh + ww)) * 4
+    return fn, launch, check, library, 4 * g * s * s * d, nbytes, PEAK_TF32_FLOPS / 3
 
 
 def k3_case(bh, s):
@@ -877,6 +954,17 @@ def main():
         # S = 256 on, its models from 512)
         **{f"f32 small ({bh}, {s_}, {d})": (lambda bh=bh, s_=s_, d=d: f32_case(bh, s_, d, s_))
            for d, bh in ((32, 8), (64, 6)) for s_ in (64, 256, 512)},
+        # K4 and K5 in f32 (detector.dtype: float32, BFF_SAM_RELPOS_FLASH=1)
+        # at SAM ViT-H's batch of 4 (square and rect grid) and one frame;
+        # then K4 on short grids, where the 3xTF32 kernel's pre-pass and
+        # latency weigh most (the route's kMinGridH)
+        "relpos_f32 k4 (64, 4096, 80)": lambda: relpos_f32_case(64, (64, 64), False),
+        "relpos_f32 k4 (16, 4096, 80)": lambda: relpos_f32_case(16, (64, 64), False),
+        "relpos_f32 k4 rect (64, 3072, 80)": lambda: relpos_f32_case(64, (48, 64), False),
+        "relpos_f32 k5 (1600, 196, 80)": lambda: relpos_f32_case(1600, (14, 14), True),
+        "relpos_f32 k5 (400, 196, 80)": lambda: relpos_f32_case(400, (14, 14), True),
+        **{f"relpos_f32 small k4 (16, {64 * kh}, 80)":
+           (lambda kh=kh: relpos_f32_case(16, (kh, 64), False)) for kh in (1, 2, 4, 8)},
         # YOLO-World-L's NMS over the batch of 4: 8 400 anchors, top_k 100
         "nms (4, 8400)": lambda: nms_case(4, 8400),
     })
@@ -928,6 +1016,7 @@ def main():
         for r in range(ROUNDS):
             for n in list(calls) if r % 2 == 0 else list(calls)[::-1]:
                 times[n].append(event_ms(calls[n], 20))
+        f32 = case.startswith(("f32", "relpos_f32"))
         for n in calls:
             rec = {"case": case, "variant": n, "ms": min(times[n]), "ms_rounds": times[n],
                    "right": excess[n] <= 0.0, "excess": excess[n], "card": card}
@@ -939,15 +1028,16 @@ def main():
                 bytes_ms = io_bytes / HBM_BYTES_PER_S * 1e3
                 rec["bound_ms"] = max(ops_ms, bytes_ms)
                 rec["bound_by"] = "operations" if ops_ms >= bytes_ms else "bytes"
-                if case.startswith("f32"):  # 3xTF32 above, f32 FMAs here
+                if f32:  # 3xTF32 above, f32 FMAs here
                     rec["bound_ms"], rec["bound_fma_ms"], rec["bound_by"] = (
                         f32_attention_bounds(flops, io_bytes))
                 rec["host_us"] = host_us(calls[n])
-                if case.startswith("f32") and n not in ("library", "plain"):
-                    # the 3xTF32 call's pre-pass (split_kv_kernel) a call
+                if f32 and n not in ("library", "plain"):
+                    # the 3xTF32 call's pre-pass (split_kv_kernel, K4's
+                    # split_kv_relpos_kernel) a call
                     spans = device_spans(lambda: [calls[n]() for _ in range(5)])
                     rec["prepass_ms"] = sum(e - s_ for s_, e, name in spans
-                                            if "split_kv_kernel" in name) / 5e3
+                                            if "split_kv" in name) / 5e3
                 if n in ("library", "plain"):
                     rec["right"] = None  # a yardstick, not a variant: not gated
             if nms_extra:  # NMS: device time, its split, the bound (IoU tests at the f32 peak)

@@ -142,7 +142,13 @@ Phases (each one's failure ends the run with a non-zero exit):
    (``flash_attention_tf32``), the FMA kernel's ``flash_attention_f32`` 0;
    each pass must equal the same pass with ``fa.flash_attention`` swapped
    for ``fa.flash_attention_plain`` inside the phase: the same detections,
-   confidences within 1e-4, masks at IoU >= 0.999.
+   confidences within 1e-4, masks at IoU >= 0.999. Then the classic
+   variant once more under ``BFF_SAM_RELPOS_FLASH=1`` (timed, profiled,
+   and against its plain-attention pass, which swaps
+   ``fa.flash_attention_relpos`` for ``fa.attend_relpos_plain`` too): K4 in
+   f32 must launch 4 times (4 global blocks, one SAM encode batch), all on
+   the 3xTF32 kernel (``flash_attention_relpos_tf32``), the FMA kernel's
+   ``flash_attention_relpos`` 0.
 
 Phase 2 also holds the mask-IoU kernel bit for bit against its plain version
 at the aggregation's (600, 250 000) self-IoU and refinement's (20 x 150,
@@ -164,7 +170,11 @@ K2 and K3 in f32 at the same shapes on the 3xTF32 kernel
 (``flash_attention_tf32``; each f32 attention record carries ``bound_ms``
 at 3xTF32, three TF32 products a product at 495 TFLOP/s, and
 ``bound_fma_ms`` at the 67 TFLOP/s f32 peak) and an f32 call at head dim
-128 on the FMA kernel (``flash_attention_f32``),
+128 on the FMA kernel (``flash_attention_f32``), K4 and K5 in f32 at
+SAM ViT-H's shapes (and K4 at the rect grid's) on the 3xTF32 kernels of
+``csrc/relpos_attention_tf32.cu`` (``flash_attention_relpos_tf32``,
+``window_attention_relpos_tf32``) and at SAM ViT-L's head dim 64 on the
+FMA kernels (``flash_attention_relpos``, ``window_attention_relpos``),
 the mma.sync tile at (32, 1024, 64) with keys masked, and the NMS kernel
 index for index at YOLO-World-L's 8 400 anchors for a batch of 4 (top_k
 100; its device time split into the sort, the gather and the scan) and at
@@ -182,7 +192,8 @@ forced on: confidences within 1e-4, masks at IoU >= 0.99.
 
 A ``phase_seconds`` line gives each phase's host seconds. The last three
 lines are the card's name and power limit, the kernel table (its f32 rows
-count the float32 configuration's launches) and
+count the float32 configuration's launches, K4's those of the pass under
+``BFF_SAM_RELPOS_FLASH=1``) and
 ``{"ok": true, "device": ...}``;
 every JSON line also goes to ``chiprun_out/chip_smoke.json``. Exits non-zero
 without a result when no CUDA device is present.
@@ -266,6 +277,24 @@ RELPOS_WGMMA_DESIGN = {
            "bulk copies), two consumer warpgroups of two 64-row m-tiles each; S = Q K^T one "
            "m64n200k16 chain, the window's whole softmax in registers, O += P V over 13 k16 "
            "steps (m64n64k16 + m64n16k16)"),
+}
+
+
+# csrc/relpos_attention_tf32.cu: K4 (False) and K5 (True) in f32
+RELPOS_TF32_DESIGN = {
+    False: ("3xTF32 wgmma at head dim 80: a pre-pass writes each 64-key tile's K hi/lo and V^T "
+            "hi/lo (keys of each 8-key group in the A fragment's order) as 32-byte-swizzle "
+            "images to scratch; a producer thread bulk-copies them into one K and one V stage; "
+            "two consumer warpgroups of 64 rows, Q scaled and split once into shared memory, "
+            "the scores' accumulators starting at bias_w from a shared-memory table, bias_h a "
+            "row shift, S = Q K^T m64n64k8 (taking turns) after P V of tile t - 1, "
+            "P V m64n80k8 with P split in registers, each tile's P V added in f32"),
+    True: ("3xTF32 wgmma at head dim 80: a persistent grid over (window, 128-row round) items; "
+           "a producer warpgroup reads, splits and writes each 40-key tile of K and V^T into a "
+           "2-stage ring (no pre-pass); two consumer warpgroups of 64 rows, Q scaled and split "
+           "once a round, the scores' accumulators starting at the bias from the window's "
+           "factor tables (keys past 196 at -inf), an online softmax over five tiles, "
+           "S = Q K^T m64n40k8 (taking turns), P V m64n80k8, each tile's P V added in f32"),
 }
 
 
@@ -406,8 +435,9 @@ def relpos_case(torch, fa, wa, sam_mod, name, g, grid, dtype, dev, d=80):
     products (``sam._rel_pos_factors``) of rel-pos tables at 0.1 scale, so
     the bias moves the softmax as a trained table does. The record names the
     counter the call went through (``..._wgmma`` for SAM ViT-H's bf16 calls,
-    the kernels of ``csrc/relpos_attention_wgmma.cu``), which must be the
-    one ``fa.relpos_wgmma_route`` names, and the host microseconds a call
+    the kernels of ``csrc/relpos_attention_wgmma.cu``; ``..._tf32`` for its
+    f32 calls, the kernels of ``csrc/relpos_attention_tf32.cu``), which must
+    be the one ``fa.relpos_counter`` names, and the host microseconds a call
     (``host_us``: the enqueue, tensor maps included)."""
     import torch.nn.functional as F
 
@@ -433,11 +463,8 @@ def relpos_case(torch, fa, wa, sam_mod, name, g, grid, dtype, dev, d=80):
     before = dict(dispatch.launch_counts)
     got = kernel()
     went = [key for key, n in dispatch.launch_counts.items() if n != before[key]]
-    routed = ("window_attention_relpos" if window else "flash_attention_relpos") + (
-        "_wgmma" if fa.relpos_wgmma_route(int(window), int(dtype == torch.bfloat16), d, s, hh,
-                                          ww, d ** -0.5, *(t.data_ptr() for t in
-                                                           (q, k, v, got, bias_h, bias_w)))
-        else "")
+    routed = fa.relpos_counter(int(window), int(dtype == torch.bfloat16), d, s, hh, ww,
+                               d ** -0.5, *(t.data_ptr() for t in (q, k, v, got, bias_h, bias_w)))
     check(went == [routed], f"rel-pos {name}: launched {went}, the route says {routed}")
     want = plain()
     torch.cuda.synchronize()
@@ -466,7 +493,8 @@ def relpos_case(torch, fa, wa, sam_mod, name, g, grid, dtype, dev, d=80):
     q4, k4, v4 = (t[None] for t in (q, k, v))
     library = lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask)
     library_ms = cuda_ms(torch, library, 5)
-    extra = {"design": FMA_DESIGN + (", whole-window softmax" if window else "")}
+    extra = {"design": RELPOS_TF32_DESIGN[window] if routed.endswith("_tf32") else
+             FMA_DESIGN + (", whole-window softmax" if window else "")}
     if not bf16:
         dev_ms = device_ms(kernel)
         bound_ms, bound_fma_ms, bound_by = f32_attention_bounds(flops, nbytes)
@@ -617,7 +645,8 @@ def small_reference(torch, mods, work):
 
 PORT_KERNELS = ("ms_deform_sample_kernel", "flash_fwd_kernel", "flash_tc_kernel",
                 "flash_wgmma_kernel", "flash_masked_wgmma_kernel", "flash_relpos_wgmma_kernel",
-                "flash_tf32_kernel", "split_kv_kernel", "nms_fixed_kernel")
+                "flash_tf32_kernel", "split_kv_kernel", "flash_relpos_tf32_kernel",
+                "split_kv_relpos_kernel", "window_relpos_tf32_kernel", "nms_fixed_kernel")
 
 
 def profile_scene(torch, seg2d, seg, cfg, scene, timed_scene_s, phase="device_profile"):
@@ -2687,8 +2716,11 @@ KERNEL_SYMBOLS = {"ms_deform_sample": ("ms_deform_sample_kernel",),
                   "flash_masked_wgmma": ("flash_masked_wgmma_kernel",),
                   "flash_attention_relpos": ("flash_relpos_tc_kernel", "flash_relpos_kernel"),
                   "flash_attention_relpos_wgmma": ("flash_relpos_wgmma_kernel",),
+                  "flash_attention_relpos_tf32": ("flash_relpos_tf32_kernel",
+                                                  "split_kv_relpos_kernel"),
                   "window_attention_relpos": ("window_relpos_tc_kernel", "window_relpos_kernel"),
                   "window_attention_relpos_wgmma": ("window_relpos_wgmma_kernel",),
+                  "window_attention_relpos_tf32": ("window_relpos_tf32_kernel",),
                   "mask_iou": ("iou_count_kernel",), "mask_iou_wgmma": ("iou_wgmma_kernel",),
                   "nms_fixed": ("nms_fixed_kernel",)}
 
@@ -3250,92 +3282,117 @@ def float32_phase(torch, mods, work, variants):
     YOLO-World-L, EfficientSAM-S and CLIP), each on one frame_batch of 4
     hit frames of the 968x1296 synthetic scene: a warm-up on phase 4's
     2-frame scene, a timed pass (frames/s, launches), a profiled pass (busy
-    share), and the same pass with ``fa.flash_attention`` swapped for
-    ``fa.flash_attention_plain`` (test code here, not a switch of the
-    package). K2 in f32 must launch 6 times (6 decoder layers, one detect
-    batch) and K3 12 times (12 global blocks, one encode batch), all on
-    ``flash_attention_tf32``, ``flash_attention_f32`` 0; each pass must
-    equal its plain-attention pass: the same detections and labels,
-    confidences within 1e-4, masks at IoU >= 0.999. Returns each variant's
-    launch counts."""
+    share), and the same pass with ``fa.flash_attention`` and
+    ``fa.flash_attention_relpos`` swapped for their plain versions (test
+    code here, not a switch of the package). ``variants``: (name, config,
+    passes), each pass (tag, environment) on the same loaded models; the
+    classic variant runs once as it is and once under
+    ``BFF_SAM_RELPOS_FLASH=1``. K2 in f32 must launch 6 times (6 decoder
+    layers, one detect batch) and K3 12 times (12 global blocks, one encode
+    batch), all on ``flash_attention_tf32``, ``flash_attention_f32`` 0; under
+    the flag K4 in f32 4 times (4 global blocks, one encode batch), all on
+    ``flash_attention_relpos_tf32``, ``flash_attention_relpos`` 0; each pass
+    must equal its plain-attention pass: the same detections and labels,
+    confidences within 1e-4, masks at IoU >= 0.999. Returns each pass's
+    launch counts by tag."""
     seg2d, fa, dispatch, io, rle, StageProfiler = mods
     make_scene(os.path.join(work, "scenes"), F32_SCENE, FRAME_BATCH)
     out = {}
-    for variant, base_cfg in variants:
-        cfgs = {p: base_cfg.override(**{
-            "detector.dtype": "float32",
-            "paths.mask_2d_dir": os.path.join(work, f"masks_f32_{variant}_{p}"),
-            "paths.checkpoint_dir": os.path.join(work, f"ckpt_f32_{variant}_{p}")})
-            for p in ("kernel", "plain")}
+    for variant, base_cfg, passes in variants:
+        cfg0 = base_cfg.override(**{"detector.dtype": "float32"})
         t0 = time.perf_counter()
-        seg = seg2d.Segmentor2D(cfgs["kernel"], frame_loader=synthetic_frame)
+        seg = seg2d.Segmentor2D(cfg0, frame_loader=synthetic_frame)
         load_s = time.perf_counter() - t0
         check(all(m.dtype == torch.float32 for m in (seg.detector, seg.sam, seg.clip)),
               f"{variant}: a model not in float32")
-        t0 = time.perf_counter()
-        seg2d.run(cfgs["kernel"], "clothes", scenes=["warmup"], segmentor=seg)
-        torch.cuda.synchronize()
-        warmup_s = time.perf_counter() - t0
-        # the timed pass, launch counts set to 0 just before it, then the same
-        # pass under torch.profiler for the device's busy share
-        prof = StageProfiler("segmentation_2d")
-        dispatch.reset_launch_counts()
-        seg2d.run(cfgs["kernel"], "clothes", scenes=[F32_SCENE], segmentor=seg, resume=False,
-                  profiler=prof)
-        torch.cuda.synchronize()
-        launches = dict(dispatch.launch_counts)
-        profiled = StageProfiler("segmentation_2d")
-        busy_us, _events, by_name = device_activity(torch, lambda: seg2d.run(
-            cfgs["kernel"], "clothes", scenes=[F32_SCENE], segmentor=seg, resume=False,
-            profiler=profiled))
-        kernel_fn = fa.flash_attention
-        fa.flash_attention = fa.flash_attention_plain
-        try:
-            dispatch.reset_launch_counts()
-            t0 = time.perf_counter()
-            seg2d.run(cfgs["plain"], "clothes", scenes=[F32_SCENE], segmentor=seg)
-            torch.cuda.synchronize()
-            plain_s = time.perf_counter() - t0
-            plain_launches = dict(dispatch.launch_counts)
-        finally:
-            fa.flash_attention = kernel_fn
-        worst_conf, worst_iou, n = records_diff(io, rle, cfgs["kernel"], cfgs["plain"],
-                                                ["clothes"], F32_SCENE)
-        recs = check_records(torch, cfgs["kernel"], "clothes", F32_SCENE, FRAME_BATCH)
-        want = {"flash_attention_tf32": (6 if variant == "classic" else 12),
-                "flash_attention_f32": 0}
-        rec = {"phase": "float32_configuration", "variant": variant, "frames": FRAME_BATCH,
-               "frames_per_sec": FRAME_BATCH / prof.durations["scene"],
-               "device_busy_share": busy_us / 1e6 / profiled.durations["scene"],
-               "load_seconds": load_s, "warmup_seconds": warmup_s,
-               "plain_attention_seconds": plain_s, "launches": launches,
-               "stage_counts": dict(prof.counts),
-               "port_kernels_ms": {name[:60]: [calls, us / 1e3]
-                                   for name, (calls, us) in by_name.items()
-                                   if any(k in name for k in PORT_KERNELS)},
-               "launches_expected": want,
-               "plain_pass_launches": {k: v for k, v in plain_launches.items() if v},
-               "vs_plain_attention": {"masks": n, "max_conf_diff": worst_conf,
-                                      "min_mask_iou": worst_iou, "conf_tol": 1e-4,
-                                      "iou_min": 0.999},
-               "boxes": sum(len(r["confidences"]) for r in recs)}
-        emit(rec)
-        for key, n_want in want.items():
-            check(launches[key] == n_want, f"f32 {variant}: {key} launched {launches[key]} "
-                                           f"times, not {n_want}")
-        check(launches["flash_attention"] == 0 and launches["flash_attention_wgmma"] == 0
-              and launches["flash_masked_wgmma"] == 0, f"f32 {variant}: a bf16 kernel ran")
-        check(plain_launches["flash_attention_tf32"] == 0, "the plain pass launched K2/K3")
-        if variant == "classic":
-            check(launches["ms_deform_sample"] > 0, "f32 classic: K1 not launched")
-        else:
-            check(launches["nms_fixed"] > 0, "f32 fast: the NMS kernel not launched")
-        check(n > 0 and worst_conf <= 1e-4 and worst_iou >= 0.999,
-              f"f32 {variant}: kernel pass against plain attention: {worst_conf} {worst_iou}")
-        out[variant] = launches
+        for tag, env in passes:
+            cfgs = {p: cfg0.override(**{
+                "paths.mask_2d_dir": os.path.join(work, f"masks_f32_{tag}_{p}"),
+                "paths.checkpoint_dir": os.path.join(work, f"ckpt_f32_{tag}_{p}")})
+                for p in ("kernel", "plain")}
+            rec, launches, plain_launches = with_env(env, lambda: float32_pass(
+                torch, mods, seg, cfgs))
+            relpos = env.get("BFF_SAM_RELPOS_FLASH") == "1"
+            want = {"flash_attention_tf32": (6 if variant == "classic" else 12),
+                    "flash_attention_f32": 0}
+            if relpos:
+                want.update({"flash_attention_relpos_tf32": 4, "flash_attention_relpos": 0})
+            rec.update({"phase": "float32_configuration", "variant": variant, "pass": tag,
+                        "environment": env, "load_seconds": load_s, "launches_expected": want})
+            emit(rec)
+            for key, n_want in want.items():
+                check(launches[key] == n_want, f"f32 {tag}: {key} launched {launches[key]} "
+                                               f"times, not {n_want}")
+            check(launches["flash_attention"] == 0 and launches["flash_attention_wgmma"] == 0
+                  and launches["flash_masked_wgmma"] == 0
+                  and launches["flash_attention_relpos_wgmma"] == 0,
+                  f"f32 {tag}: a bf16 kernel ran")
+            check(plain_launches["flash_attention_tf32"] == 0
+                  and plain_launches["flash_attention_relpos_tf32"] == 0,
+                  f"f32 {tag}: the plain pass launched an attention kernel")
+            if variant == "classic":
+                check(launches["ms_deform_sample"] > 0, f"f32 {tag}: K1 not launched")
+            else:
+                check(launches["nms_fixed"] > 0, f"f32 {tag}: the NMS kernel not launched")
+            cmp = rec["vs_plain_attention"]
+            check(cmp["masks"] > 0 and cmp["max_conf_diff"] <= 1e-4
+                  and cmp["min_mask_iou"] >= 0.999,
+                  f"f32 {tag}: kernel pass against plain attention: {cmp}")
+            out[tag] = launches
         del seg
         torch.cuda.empty_cache()
     return out
+
+
+def float32_pass(torch, mods, seg, cfgs):
+    """One float32 pass of ``float32_phase`` on the loaded ``seg``: the
+    warm-up, the timed pass (launch counts set to 0 just before it), the
+    profiled pass and the plain-attention pass, compared. Returns (record,
+    launches, the plain pass's launches)."""
+    seg2d, fa, dispatch, io, rle, StageProfiler = mods
+    t0 = time.perf_counter()
+    seg2d.run(cfgs["kernel"], "clothes", scenes=["warmup"], segmentor=seg)
+    torch.cuda.synchronize()
+    warmup_s = time.perf_counter() - t0
+    # the timed pass, launch counts set to 0 just before it, then the same
+    # pass under torch.profiler for the device's busy share
+    prof = StageProfiler("segmentation_2d")
+    dispatch.reset_launch_counts()
+    seg2d.run(cfgs["kernel"], "clothes", scenes=[F32_SCENE], segmentor=seg, resume=False,
+              profiler=prof)
+    torch.cuda.synchronize()
+    launches = dict(dispatch.launch_counts)
+    profiled = StageProfiler("segmentation_2d")
+    busy_us, _events, by_name = device_activity(torch, lambda: seg2d.run(
+        cfgs["kernel"], "clothes", scenes=[F32_SCENE], segmentor=seg, resume=False,
+        profiler=profiled))
+    kernel_fns = fa.flash_attention, fa.flash_attention_relpos
+    fa.flash_attention = fa.flash_attention_plain
+    fa.flash_attention_relpos = fa.attend_relpos_plain
+    try:
+        dispatch.reset_launch_counts()
+        t0 = time.perf_counter()
+        seg2d.run(cfgs["plain"], "clothes", scenes=[F32_SCENE], segmentor=seg)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+        plain_launches = dict(dispatch.launch_counts)
+    finally:
+        fa.flash_attention, fa.flash_attention_relpos = kernel_fns
+    worst_conf, worst_iou, n = records_diff(io, rle, cfgs["kernel"], cfgs["plain"],
+                                            ["clothes"], F32_SCENE)
+    recs = check_records(torch, cfgs["kernel"], "clothes", F32_SCENE, FRAME_BATCH)
+    rec = {"frames": FRAME_BATCH, "frames_per_sec": FRAME_BATCH / prof.durations["scene"],
+           "device_busy_share": busy_us / 1e6 / profiled.durations["scene"],
+           "warmup_seconds": warmup_s, "plain_attention_seconds": plain_s,
+           "launches": launches, "stage_counts": dict(prof.counts),
+           "port_kernels_ms": {name[:60]: [calls, us / 1e3]
+                               for name, (calls, us) in by_name.items()
+                               if any(k in name for k in PORT_KERNELS)},
+           "plain_pass_launches": {k: v for k, v in plain_launches.items() if v},
+           "vs_plain_attention": {"masks": n, "max_conf_diff": worst_conf,
+                                  "min_mask_iou": worst_iou, "conf_tol": 1e-4, "iou_min": 0.999},
+           "boxes": sum(len(r["confidences"]) for r in recs)}
+    return rec, launches, plain_launches
 
 
 def main() -> int:
@@ -3433,9 +3490,24 @@ def main() -> int:
             if b == 1 and dtype == torch.float32:
                 f32_one_frame_s += time.perf_counter() - t_case
     # K4 on the rect grid's 48 x 64 tokens at the main path's batch
-    cases[("relpos_global_rect", "bfloat16", FRAME_BATCH)] = relpos_case(
-        torch, fa, wa, sam_mod, "sam_global_rect", 16 * FRAME_BATCH, RECT_GRID, torch.bfloat16,
-        dev)
+    for dtype in (torch.bfloat16, torch.float32):
+        cases[("relpos_global_rect", str(dtype).split(".")[-1], FRAME_BATCH)] = relpos_case(
+            torch, fa, wa, sam_mod, "sam_global_rect", 16 * FRAME_BATCH, RECT_GRID, dtype, dev)
+    # f32 K4 and K5 at head dim 80 on the 3xTF32 kernels; at SAM ViT-L's head
+    # dim 64, outside their predicate, on the FMA kernels
+    for b in (1, FRAME_BATCH):
+        for key, want in (("relpos_global", "flash_attention_relpos_tf32"),
+                          ("relpos_window", "window_attention_relpos_tf32")):
+            rec = cases[(key, "float32", b)]
+            check(rec["kernel"] == want, f"f32 {key} at batch {b}: on {rec['kernel']}")
+    check(cases[("relpos_global_rect", "float32", FRAME_BATCH)]["kernel"]
+          == "flash_attention_relpos_tf32", "f32 rect K4 off the 3xTF32 kernel")
+    for key, name, g, grid in (("relpos_global_fma", "sam_vit_l_global", 16, (64, 64)),
+                               ("relpos_window_fma", "window_sam_vit_l", 400, (14, 14))):
+        cases[(key, "float32", FRAME_BATCH)] = rec = relpos_case(
+            torch, fa, wa, sam_mod, name, g * FRAME_BATCH, grid, torch.float32, dev, d=64)
+        check(rec["kernel"] in ("flash_attention_relpos", "window_attention_relpos"),
+              f"f32 rel-pos {name}: went through {rec['kernel']}, not the FMA kernel")
     # the mma.sync tile of csrc/attention_tc.cuh keeps every bf16 call outside
     # bff_relpos_wgmma_takes: SAM ViT-L's global blocks (16 heads x B of the
     # 64 x 64 grid at head dim 64, K4 under BFF_SAM_RELPOS_FLASH=1) and its
@@ -3642,8 +3714,11 @@ def main() -> int:
 
     # ---------------------------------------------------------------- 14
     marks.append((14, time.perf_counter()))
-    f32_launches = float32_phase(torch, (seg2d, fa, dispatch, io, rle, StageProfiler), work,
-                                 (("classic", cfg), ("fast", fast_cfg)))
+    f32_launches = float32_phase(
+        torch, (seg2d, fa, dispatch, io, rle, StageProfiler), work,
+        (("classic", cfg, (("classic", {}),
+                           ("classic_relpos_flash", {"BFF_SAM_RELPOS_FLASH": "1"}))),
+         ("fast", fast_cfg, (("fast", {}),))))
     shutil.rmtree(ckpt_dir)
     shutil.rmtree(fast_ckpt_dir)
 
@@ -3687,10 +3762,18 @@ def main() -> int:
              "beyondff_tpu/kernels/flash_attention.py:68"),
             (("flash_fma", "float32", FRAME_BATCH), "beyondff_tpu_torch/csrc/flash_attention.cu",
              "beyondff_tpu/kernels/flash_attention.py:270"),
+            # K4 and K5 in f32 at head dim 80 on the 3xTF32 kernels, other f32
+            # rel-pos calls (here SAM ViT-L's head dim 64) on the FMA kernels
             (("relpos_global", "float32", FRAME_BATCH),
-             "beyondff_tpu_torch/csrc/relpos_attention.cu",
+             "beyondff_tpu_torch/csrc/relpos_attention_tf32.cu",
              "beyondff_tpu/kernels/flash_attention.py:193"),
             (("relpos_window", "float32", FRAME_BATCH),
+             "beyondff_tpu_torch/csrc/relpos_attention_tf32.cu",
+             "beyondff_tpu/kernels/window_attention.py:51"),
+            (("relpos_global_fma", "float32", FRAME_BATCH),
+             "beyondff_tpu_torch/csrc/relpos_attention.cu",
+             "beyondff_tpu/kernels/flash_attention.py:193"),
+            (("relpos_window_fma", "float32", FRAME_BATCH),
              "beyondff_tpu_torch/csrc/relpos_attention.cu",
              "beyondff_tpu/kernels/window_attention.py:51"),
             (("deform_clamp", "float32", FRAME_BATCH),
@@ -3699,10 +3782,13 @@ def main() -> int:
         c = cases[key]
         # K3's row counts the fast variant's launches (EfficientSAM's global
         # blocks), K2's the classic path's, K4's the sweep's; an f32 row the
-        # float32 configuration's (phase 14: classic, and fast for K3)
+        # float32 configuration's (phase 14: classic, fast for K3, the
+        # classic pass under BFF_SAM_RELPOS_FLASH=1 for K4 and K5)
         name = c["kernel"]
         if isinstance(key, tuple) and "float32" in key:
-            n_launches = f32_launches["fast" if key[0] == "k3_efficientsam" else "classic"][name]
+            n_launches = f32_launches["fast" if key[0] == "k3_efficientsam" else
+                                      "classic_relpos_flash" if key[0].startswith("relpos")
+                                      else "classic"][name]
         else:
             n_launches = launches[name]
         table.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,

@@ -887,13 +887,15 @@ def test_flash_relpos_kernel_matches_plain_on_card(cuda_device, dtype, bh, rows,
     tiles per grid row) and the 64 x 64 grid with factors at scale 3 (a
     peaked softmax). f32 within 1e-4, bf16 within the derived bound. bf16
     at head dim 80 on a 64-wide grid counts as the wgmma kernel
-    (``flash_attention_relpos_wgmma``), every other call as
+    (``flash_attention_relpos_wgmma``), f32 there as the 3xTF32 kernel
+    (``flash_attention_relpos_tf32``), every other call as
     ``flash_attention_relpos``."""
     q, k, v, bias_h, bias_w = (torch.from_numpy(a).to(cuda_device) for a in _relpos_inputs(
         np.random.default_rng(rows), bh, rows, cols, d, scale))
     q, k, v = (t.to(dtype) for t in (q, k, v))
-    key = ("flash_attention_relpos_wgmma" if dtype == torch.bfloat16 and d == 80 and cols == 64
-           else "flash_attention_relpos")
+    key = "flash_attention_relpos"
+    if d == 80 and cols == 64:
+        key += "_wgmma" if dtype == torch.bfloat16 else "_tf32"
     before = dict(dispatch.launch_counts)
     got = tfa.attend_relpos(q, k, v, bias_h, bias_w, cols)
     want = tfa.attend_relpos_plain(q, k, v, bias_h, bias_w, cols)
@@ -910,15 +912,17 @@ def test_flash_relpos_kernel_matches_plain_on_card(cuda_device, dtype, bh, rows,
 def test_window_relpos_kernel_matches_plain_on_card(cuda_device, dtype, g, wh, ww, d):
     """K5 against its plain version: SAM ViT-H's 14 x 14 x 80 window (S =
     196: a last key tile of 4 keys, m16 tiles past S), odd window widths (no
-    bias_w pairs), a whole 16 x 16 window. f32 within 1e-4; bf16, on the
-    tensor-core tile or (14 x 14 x 80, counted as
-    ``window_attention_relpos_wgmma``) the wgmma kernel, within the derived
-    bound."""
+    bias_w pairs), a whole 16 x 16 window. f32 within 1e-4, on the FMA
+    kernel or (14 x 14 x 80, counted as ``window_attention_relpos_tf32``) the
+    3xTF32 kernel; bf16, on the tensor-core tile or (14 x 14 x 80, counted
+    as ``window_attention_relpos_wgmma``) the wgmma kernel, within the
+    derived bound."""
     q, k, v, bias_h, bias_w = (torch.from_numpy(a).to(cuda_device) for a in
                                _relpos_inputs(np.random.default_rng(wh), g, wh, ww, d))
     q, k, v = (t.to(dtype) for t in (q, k, v))
-    key = ("window_attention_relpos_wgmma" if dtype == torch.bfloat16 and d == 80 and wh == 14
-           and ww == 14 else "window_attention_relpos")
+    key = "window_attention_relpos"
+    if d == 80 and wh == 14 and ww == 14:
+        key += "_wgmma" if dtype == torch.bfloat16 else "_tf32"
     before = dict(dispatch.launch_counts)
     got = twa.window_attention_relpos(q, k, v, bias_h, bias_w, wh, ww)
     want = twa.window_attention_relpos_plain(q, k, v, bias_h, bias_w, wh, ww)

@@ -264,14 +264,15 @@ def test_k5_wgmma_matches_plain_on_card(cuda_device, g, scale):
 @pytest.mark.parametrize("case", ["f32", "d64", "kw32", "misaligned", "window_16", "window_f32"])
 def test_other_relpos_calls_keep_their_routes_on_card(cuda_device, case):
     """Calls outside the predicate keep the mma.sync tile or the FMA kernels
-    and their counters: f32, head dim 64, a 32-wide grid, a bf16 input off
-    16 bytes, 16 x 16 windows and f32 windows; each within its bound."""
+    and their counters: f32 (at head dim 64: f32 at 80 takes the 3xTF32
+    kernels), head dim 64, a 32-wide grid, a bf16 input off 16 bytes, 16 x
+    16 windows and f32 windows (head dim 64); each within its bound."""
     window = case.startswith("window")
     rows, cols = ((16, 16) if case == "window_16" else (14, 14)) if window else (
         (64, 32) if case == "kw32" else (16, 64))
     dtype = torch.float32 if case in ("f32", "window_f32") else torch.bfloat16
     q, k, v, bias_h, bias_w = _card_inputs(cuda_device, 3, rows, cols, dtype,
-                                           d=64 if case == "d64" else 80)
+                                           d=64 if case in ("d64", "f32", "window_f32") else 80)
     if case == "misaligned":
         buf = torch.empty(q.numel() + 4, dtype=q.dtype, device=cuda_device)
         q = buf[4:].view(q.shape).copy_(q)  # 8 bytes past an aligned base
