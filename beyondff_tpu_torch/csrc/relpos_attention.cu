@@ -27,9 +27,9 @@
 //
 // Routes. bf16 calls at SAM ViT-H's head dim 80 that bff_relpos_wgmma_takes
 // accepts go to csrc/relpos_attention_wgmma.cu; f32 calls that
-// bff_relpos_tf32_takes accepts (head dim 80, kw = 64 or 14 x 14 windows)
-// to the 3xTF32 wgmma kernels of csrc/relpos_attention_tf32.cu; the rest to
-// the kernels below.
+// bff_relpos_tf32_takes accepts (K4 at head dim 64 or 80 with kw = 64, K5
+// at 80 on 14 x 14 windows) to the 3xTF32 wgmma kernels of
+// csrc/relpos_attention_tf32.cu; the rest to the kernels below.
 //
 // K4 in bf16 (the SAM path): flash_relpos_tc_kernel, the tensor-core block
 // of csrc/attention_tc.cuh (mma.sync m16n8k16 bf16 -> f32 for both
@@ -583,13 +583,14 @@ extern "C" int bff_flash_relpos_wgmma(const void* q, const void* k, const void* 
 extern "C" int bff_window_relpos_wgmma(const void* q, const void* k, const void* v,
                                        const void* bias_h, const void* bias_w, void* o, int G,
                                        float scale, void* stream);
-// csrc/relpos_attention_tf32.cu: the f32 head-dim-80 calls on 3xTF32 wgmma
+// csrc/relpos_attention_tf32.cu: the f32 calls of K4 at head dim 64 or 80 and of
+// K5 at 80 on 3xTF32 wgmma
 extern "C" int bff_relpos_tf32_takes(int kind, int dtype, int D, int S, int rows, int cols,
                                      float scale, const void* q, const void* k, const void* v,
                                      const void* o, const void* bias_h, const void* bias_w);
 extern "C" int bff_flash_relpos_tf32(const void* q, const void* k, const void* v,
                                      const void* bias_h, const void* bias_w, void* o,
-                                     void* scratch, int BH, int S, int kh, float scale,
+                                     void* scratch, int BH, int S, int D, int kh, float scale,
                                      void* stream);
 extern "C" int bff_window_relpos_tf32(const void* q, const void* k, const void* v,
                                       const void* bias_h, const void* bias_w, void* o, int G,
@@ -622,7 +623,8 @@ extern "C" int bff_flash_attention_relpos(int dtype, const void* q, const void* 
   if (bff_relpos_wgmma_takes(0, dtype, D, S, kh, kw, scale, q, k, v, o, bias_h, bias_w))
     return bff_flash_relpos_wgmma(q, k, v, bias_h, bias_w, o, BH, S, kh, scale, stream);
   if (bff_relpos_tf32_takes(0, dtype, D, S, kh, kw, scale, q, k, v, o, bias_h, bias_w))
-    return bff_flash_relpos_tf32(q, k, v, bias_h, bias_w, o, scratch, BH, S, kh, scale, stream);
+    return bff_flash_relpos_tf32(q, k, v, bias_h, bias_w, o, scratch, BH, S, D, kh, scale,
+                                 stream);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return BFF_BY_HEAD_DIM(launch_flash, float, q, k, v, bias_h, bias_w, o, BH, S, D, kh, kw,

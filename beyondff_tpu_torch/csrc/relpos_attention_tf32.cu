@@ -1,5 +1,5 @@
-// Attention with SAM's decomposed relative-position bias at head dim 80 in
-// f32 for Hopper (sm_90a): 3xTF32 on wgmma, warp-specialised. Two kernels:
+// Attention with SAM's decomposed relative-position bias in f32 for Hopper
+// (sm_90a): 3xTF32 on wgmma, warp-specialised. Two kernels:
 //
 // * flash_relpos_tf32_kernel replaces, for float32 inputs, the TPU kernel
 //   beyondff_tpu/kernels/flash_attention.py flash_attention_relpos (:193,
@@ -8,7 +8,9 @@
 //   with an online max and denominator, the output divided once. SAM
 //   ViT-H's global blocks in detector.dtype float32 under
 //   BFF_SAM_RELPOS_FLASH=1: (16 B, 4096, 80), and (16 B, 3072, 80) on the
-//   rect 48 x 64 grid.
+//   rect 48 x 64 grid; and at head dim 64, the shape of SAM ViT-L's (16 B,
+//   4096, 64) and ViT-B's (12 B, 4096, 64) global blocks, which the public
+//   entry takes and no configured model calls.
 // * window_relpos_tf32_kernel replaces, for float32 inputs, the TPU kernel
 //   beyondff_tpu/kernels/window_attention.py window_attention_relpos (:51,
 //   pallas_call :110): the same function over G independent 14 x 14 windows
@@ -18,8 +20,9 @@
 // added in f32. bff_flash_attention_relpos and bff_window_attention_relpos
 // (csrc/relpos_attention.cu) route here exactly the calls that
 // bff_relpos_tf32_takes accepts (kernels/flash_attention.py
-// relpos_tf32_route mirrors it): f32, D = 80, kw = 64 with kMinGridH <= kh
-// <= 64 (K4) or a 14 x 14 window (K5), a positive finite scale, and q, k,
+// relpos_tf32_route mirrors it): f32, kw = 64 with kMinGridH <= kh <= 64
+// at D 64 or 80 (K4) or a 14 x 14 window at D 80 (K5), a positive finite
+// scale, and q, k,
 // v, o and both factors 16-byte aligned. Every other f32 call keeps the FMA
 // kernels of csrc/relpos_attention.cu. The line lies below every grid K4
 // takes: at one grid row (16 heads, S = 64) this kernel took 0.0101 ms
@@ -97,6 +100,13 @@
 //   the output 40, P's halves 64 and, with kFold, the tile's P V 40; 72
 //   bytes spill (155 registers and none without kFold).
 // * Rows past S (an odd kh) are computed on zero Q and not written.
+// * Head dim 64 (K4Cfg<64>): images of 16 KB a 64-key tile, 8 regions a
+//   row. Q 64 KB, two K stages and one V stage 96 KB and the table 36 KB:
+//   196 KB. Two V stages as well fit only with the table at 64 floats a
+//   row (its 8-column groups swizzled against bank conflicts) and were
+//   1.4% slower at (64, 4096, 64) than one; one K stage 3.3% slower
+//   (tools/kernel_variants.py). The consumers hold the output 32, scores
+//   32, P's halves 64 and the fold's 32 registers: no spill.
 //
 // K5 design (a persistent grid of one block a SM, each walking items g * 2
 // + round, the 128 query rows 128 round .. of window g):
@@ -126,7 +136,8 @@
 // of the bound, the pre-pass 0.173 of it) against 20.75 ms for the FMA
 // kernel and 13.35 ms for scaled_dot_product_attention in f32 with the
 // bias as a float mask; K5 at (1600, 196, 80) 0.471 ms (28% of its byte
-// bound) against 1.93 and 1.57 ms.
+// bound) against 1.93 and 1.57 ms; K4 at (64, 4096, 64) 2.60 ms (64% of
+// its 1.666 ms bound) against 13.86 and 8.24 ms.
 //
 // Host: a failed launch returns non-zero and the wrapper raises: nothing
 // falls back to another kernel.
@@ -145,9 +156,7 @@ namespace {
 
 using namespace bff_wg;
 
-constexpr int kD = 80;                // SAM ViT-H's head dim
-constexpr int kRegions = kD / 8;      // k-steps of Q K^T: 8 columns (32 bytes) each
-constexpr int kVRegion = kD * 32;     // a V^T region: 80 rows of 32 bytes
+constexpr int kD = 80;                // SAM ViT-H's head dim (K5's; K4 also takes 64)
 constexpr int kConsumers = 2;         // consumer warpgroups of 64 query rows each
 constexpr int kBM = 64 * kConsumers;  // query rows of a block (of a K5 round)
 constexpr int kThreads = 128 * (kConsumers + 1);  // the producer is the last warpgroup
@@ -164,6 +173,8 @@ constexpr int kBN = 64;               // keys of a K4 tile: one grid row
 constexpr bool kOverlap = false;      // issue Q K^T of tile t before P V of tile t - 1
 constexpr int kKStages = 1, kVStages = 1;
 constexpr int kBwLd = kGridW + 8;     // the bias_w table's row stride (floats)
+// K4 at head dim 64 (K4Cfg): the K and V rings' depths
+constexpr int kKStages64 = 2, kVStages64 = 1;
 constexpr int kSplitThreads = 256;
 
 // K5
@@ -176,10 +187,11 @@ constexpr int kWRounds = 2;           // 128-row rounds of a window: rows 0..255
 constexpr bool kWOverlap = false;     // as kOverlap, for K5
 constexpr bool kWPrefetch = false;    // the producer reads tile u + 1 before writing tile u
 
-// The bytes of a K-like image of ``rows`` rows (10 regions of rows x 32
-// bytes) and of a V^T image of ``keys`` keys (keys / 8 regions of 80 x 32):
-// both 320 bytes a row or key.
-__host__ __device__ constexpr int img_bytes(int rows) { return rows * kD * 4; }
+// The bytes of a K-like image of ``rows`` rows (D / 8 regions of rows x 32
+// bytes) and of a V^T image of ``keys`` keys (keys / 8 regions of D x 32):
+// both 4 D bytes a row or key.
+template <int D = kD>
+__host__ __device__ constexpr int img_bytes(int rows) { return rows * D * 4; }
 
 struct Barriers {
   uint64_t k_full[2], k_empty[2], v_full[2], v_empty[2];
@@ -192,7 +204,7 @@ __device__ __forceinline__ void split4(float4 x, uint4& hi, uint4& lo) {
   split_tf32(x.w, hi.w, lo.w);
 }
 
-// A K-like image of ``rows`` rows is 10 regions x rows x 2 halves of 16
+// A K-like image of ``rows`` rows is D / 8 regions x rows x 2 halves of 16
 // bytes; chunk i (16 bytes at byte 16 i) is (region i / (2 rows), row (i /
 // 2) % rows, stored half i % 2), which holds the columns 8 region + 4 half,
 // half = stored half ^ ((row / 4) % 2). Returns that first column; ``row``
@@ -203,14 +215,15 @@ __device__ __forceinline__ int kimg_chunk(int i, int rows, int& row) {
   return region * 8 + (((i ^ (row >> 2)) & 1) << 2);
 }
 
-// A V^T image is keys / 8 regions x 80 rows x 2 halves; chunk i is (group
-// i / 160, row d = (i / 2) % 80, stored half i % 2) and holds the keys of
+// A V^T image is keys / 8 regions x D rows x 2 halves; chunk i is (group
+// i / 2 D, row d = (i / 2) % D, stored half i % 2) and holds the keys of
 // parity e = stored half ^ ((d / 4) % 2) of the group, 8 group + e + 2 u at
 // stored position 4 e + u (the order 0 2 4 6 1 3 5 7). Returns the group's
 // first key plus e; ``d`` is set.
+template <int D = kD>
 __device__ __forceinline__ int vimg_chunk(int i, int& d) {
-  d = (i >> 1) % kD;
-  return (i / (2 * kD)) * 8 + ((i ^ (d >> 2)) & 1);
+  d = (i >> 1) % D;
+  return (i / (2 * D)) * 8 + ((i ^ (d >> 2)) & 1);
 }
 
 // ------------------------------------------------------------ wgmma, TF32
@@ -245,7 +258,20 @@ __device__ __forceinline__ void mma_ss(float (&d)[20], uint64_t da, uint64_t db)
 
 // d (+)= A B for A 64 x 8 TF32 in registers (a lane holds rows g, g + 8 of
 // its warp's 16 and columns t, t + 4: a0 (g, t), a1 (g + 8, t), a2 (g, t +
-// 4), a3 (g + 8, t + 4)) and B 8 x 80 TF32 from shared memory, K-major.
+// 4), a3 (g + 8, t + 4)) and B 8 x 80 (or 8 x 64) TF32 from shared memory,
+// K-major.
+__device__ __forceinline__ void mma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
+                                       int accumulate = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : BFF_T8(d, 0), BFF_T8(d, 8), BFF_T8(d, 16), BFF_T8(d, 24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
 __device__ __forceinline__ void mma_rs(float (&d)[40], const uint32_t (&a)[4], uint64_t db,
                                        int accumulate = 1) {
   asm volatile(
@@ -266,34 +292,34 @@ __device__ __forceinline__ void mma_rs(float (&d)[40], const uint32_t (&a)[4], u
 __device__ __forceinline__ uint64_t desc(uint32_t addr) { return sw32_desc(addr, 16); }
 
 // S += Q K^T for the warpgroup's 64 rows (Q's images at qhi, qlo) and the N
-// keys of a tile (K's images at khi, klo): the small terms over every
-// k-step first, then hi hi.
-template <int N>
+// keys of a tile (K's images at khi, klo), head dim D (D / 8 regions): the
+// small terms over every k-step first, then hi hi.
+template <int N, int D>
 __device__ __forceinline__ void issue_scores(float (&s)[N / 2], uint32_t qhi, uint32_t qlo,
                                              uint32_t khi, uint32_t klo) {
 #pragma unroll
-  for (int kk = 0; kk < kRegions; ++kk) {
+  for (int kk = 0; kk < D / 8; ++kk) {
     mma_ss(s, desc(qlo + kk * 64 * 32), desc(khi + kk * N * 32));
     mma_ss(s, desc(qhi + kk * 64 * 32), desc(klo + kk * N * 32));
   }
 #pragma unroll
-  for (int kk = 0; kk < kRegions; ++kk)
+  for (int kk = 0; kk < D / 8; ++kk)
     mma_ss(s, desc(qhi + kk * 64 * 32), desc(khi + kk * N * 32));
 }
 
-// O += P V for the KS 8-key groups of a tile (V^T's images at vhi, vlo);
-// O = P V when ``fresh``.
-template <int KS>
-__device__ __forceinline__ void issue_pv(float (&o)[40], const uint32_t (&ph)[KS][4],
+// O += P V for the KS 8-key groups of a tile (V^T's images at vhi, vlo, a
+// region of D x 32 bytes a group); O = P V when ``fresh``.
+template <int KS, int D>
+__device__ __forceinline__ void issue_pv(float (&o)[D / 2], const uint32_t (&ph)[KS][4],
                                          const uint32_t (&pl)[KS][4], uint32_t vhi,
                                          uint32_t vlo, bool fresh) {
 #pragma unroll
   for (int kk = 0; kk < KS; ++kk) {
-    mma_rs(o, pl[kk], desc(vhi + kk * kVRegion), kk == 0 && fresh ? 0 : 1);
-    mma_rs(o, ph[kk], desc(vlo + kk * kVRegion));
+    mma_rs(o, pl[kk], desc(vhi + kk * D * 32), kk == 0 && fresh ? 0 : 1);
+    mma_rs(o, ph[kk], desc(vlo + kk * D * 32));
   }
 #pragma unroll
-  for (int kk = 0; kk < KS; ++kk) mma_rs(o, ph[kk], desc(vhi + kk * kVRegion));
+  for (int kk = 0; kk < KS; ++kk) mma_rs(o, ph[kk], desc(vhi + kk * D * 32));
 }
 
 // The online softmax of one score tile in place. s holds the logits in
@@ -347,9 +373,10 @@ __device__ __forceinline__ void split_p(uint32_t (&ph)[KS][4], uint32_t (&pl)[KS
   }
 }
 
-__device__ __forceinline__ void rescale(float (&o)[40], const float (&corr)[2]) {
+template <int D>
+__device__ __forceinline__ void rescale(float (&o)[D / 2], const float (&corr)[2]) {
 #pragma unroll
-  for (int j = 0; j < kD / 8; ++j) {
+  for (int j = 0; j < D / 8; ++j) {
     o[4 * j] *= corr[0];
     o[4 * j + 1] *= corr[0];
     o[4 * j + 2] *= corr[1];
@@ -376,28 +403,28 @@ struct Ring {
 // Every round of issues is one pingpong turn: consumer 1 hands consumer 0
 // the first turn before the first pass, consumer 0 takes the surplus one
 // after the last.
-template <int N, int KStages, int VStages, bool Overlap, typename Init>
-__device__ __forceinline__ void attend_rows(float (&acc)[40], float (&l)[2], uint32_t qhi,
+template <int N, int KStages, int VStages, bool Overlap, int D, typename Init>
+__device__ __forceinline__ void attend_rows(float (&acc)[D / 2], float (&l)[2], uint32_t qhi,
                                             uint32_t qlo, const Ring& ring, int u0, int n_tiles,
                                             int wg, Init&& init) {
   constexpr int KS = N / 8;
-  constexpr int kImg = img_bytes(N);
+  constexpr int kImg = img_bytes<D>(N);
   Barriers* bars = ring.bars;
   const bool signals = (threadIdx.x & 31) == 0;  // one arrival per consumer warp
   const int my_turn = 1 + wg, next_turn = 1 + (wg + 1) % kConsumers;
   auto k_hi = [&](int st) { return ring.k_base + st * 2 * kImg; };
   auto v_hi = [&](int st) { return ring.v_base + st * 2 * kImg; };
-  float s[N / 2], pv_sum[40];
-  float (&pv)[40] = kFold ? pv_sum : acc;  // what P V's wgmmas accumulate into
+  float s[N / 2], pv_sum[D / 2];
+  float (&pv)[D / 2] = kFold ? pv_sum : acc;  // what P V's wgmmas accumulate into
   uint32_t ph[KS][4] = {}, pl[KS][4] = {};
   float m[2] = {bff_tc::kInitMax, bff_tc::kInitMax}, corr[2], sh[2];
 #pragma unroll
-  for (int i = 0; i < 40; ++i) acc[i] = pv_sum[i] = 0.f;
+  for (int i = 0; i < D / 2; ++i) acc[i] = pv_sum[i] = 0.f;
   l[0] = l[1] = 0.f;
   auto fold = [&]() {
     if (kFold) {
 #pragma unroll
-      for (int i = 0; i < 40; ++i) acc[i] += pv_sum[i];
+      for (int i = 0; i < D / 2; ++i) acc[i] += pv_sum[i];
     }
   };
   auto fence_for_issue = [&]() {
@@ -422,7 +449,7 @@ __device__ __forceinline__ void attend_rows(float (&acc)[40], float (&l)[2], uin
     bar_wait_or_trap(&bars->k_full[st], parity);
     turn();
     fence_for_issue();
-    issue_scores<N>(s, qhi, qlo, k_hi(st), k_hi(st) + kImg);
+    issue_scores<N, D>(s, qhi, qlo, k_hi(st), k_hi(st) + kImg);
     wgmma_commit();
     hand_on();
     wgmma_wait<0>();
@@ -441,9 +468,9 @@ __device__ __forceinline__ void attend_rows(float (&acc)[40], float (&l)[2], uin
       bar_wait_or_trap(&bars->v_full[pst], pparity);
       turn();
       fence_for_issue();
-      issue_scores<N>(s, qhi, qlo, k_hi(st), k_hi(st) + kImg);
+      issue_scores<N, D>(s, qhi, qlo, k_hi(st), k_hi(st) + kImg);
       wgmma_commit();
-      issue_pv<KS>(pv, ph, pl, v_hi(pst), v_hi(pst) + kImg, kFold);
+      issue_pv<KS, D>(pv, ph, pl, v_hi(pst), v_hi(pst) + kImg, kFold);
       wgmma_commit();
       hand_on();
       wgmma_wait<1>();  // the scores are in
@@ -459,7 +486,7 @@ __device__ __forceinline__ void attend_rows(float (&acc)[40], float (&l)[2], uin
     } else {
       bar_wait_or_trap(&bars->v_full[pst], pparity);
       fence_for_issue();
-      issue_pv<KS>(pv, ph, pl, v_hi(pst), v_hi(pst) + kImg, kFold);
+      issue_pv<KS, D>(pv, ph, pl, v_hi(pst), v_hi(pst) + kImg, kFold);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(pv);
@@ -470,7 +497,7 @@ __device__ __forceinline__ void attend_rows(float (&acc)[40], float (&l)[2], uin
       bar_wait_or_trap(&bars->k_full[st], parity);
       turn();
       fence_for_issue();
-      issue_scores<N>(s, qhi, qlo, k_hi(st), k_hi(st) + kImg);
+      issue_scores<N, D>(s, qhi, qlo, k_hi(st), k_hi(st) + kImg);
       wgmma_commit();
       hand_on();
       wgmma_wait<0>();
@@ -479,7 +506,7 @@ __device__ __forceinline__ void attend_rows(float (&acc)[40], float (&l)[2], uin
       softmax_tile<N>(s, m, l, corr, sh);
     }
     fold();
-    rescale(acc, corr);
+    rescale<D>(acc, corr);
     split_p<KS>(ph, pl, s);
   }
   // P V of the last tile (its own turn when the products overlap)
@@ -488,7 +515,7 @@ __device__ __forceinline__ void attend_rows(float (&acc)[40], float (&l)[2], uin
   bar_wait_or_trap(&bars->v_full[lst], lparity);
   if (Overlap) turn();
   fence_for_issue();
-  issue_pv<KS>(pv, ph, pl, v_hi(lst), v_hi(lst) + kImg, kFold);
+  issue_pv<KS, D>(pv, ph, pl, v_hi(lst), v_hi(lst) + kImg, kFold);
   wgmma_commit();
   if (Overlap) hand_on();
   wgmma_wait<0>();
@@ -504,29 +531,31 @@ __device__ __forceinline__ void attend_rows(float (&acc)[40], float (&l)[2], uin
 
 // A consumer warp's two rows (row0 and row0 + 8, each written when its flag
 // is set), divided by their denominators.
-__device__ __forceinline__ void store_rows(const float (&acc)[40], const float (&l)[2],
+template <int D>
+__device__ __forceinline__ void store_rows(const float (&acc)[D / 2], const float (&l)[2],
                                            float* __restrict__ row0, bool live0, bool live1) {
   const int tq = threadIdx.x & 3;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     if (h == 0 ? live0 : live1) {
-      float* orow = row0 + 8 * h * kD + 2 * tq;
+      float* orow = row0 + 8 * h * D + 2 * tq;
       const float inv = 1.f / l[h];
 #pragma unroll
-      for (int j = 0; j < kD / 8; ++j)
+      for (int j = 0; j < D / 8; ++j)
         *reinterpret_cast<float2*>(orow + 8 * j) =
             make_float2(acc[4 * j + 2 * h] * inv, acc[4 * j + 2 * h + 1] * inv);
     }
   }
 }
 
-// A warpgroup's 64 rows of a (rows, 80) f32 matrix, multiplied by ``scale``,
+// A warpgroup's 64 rows of a (rows, D) f32 matrix, multiplied by ``scale``,
 // split and written as its hi and lo images (rows >= n_rows as zero; row r
-// read from src + r * 80), then made visible to wgmma and to the warpgroup.
+// read from src + r * D), then made visible to wgmma and to the warpgroup.
+template <int D>
 __device__ __forceinline__ void stage_q(unsigned char* img_hi, unsigned char* img_lo,
                                         const float* __restrict__ src, int n_rows, float scale,
                                         int wg) {
-  constexpr int kPer = 2 * kRegions * 64 / 128;  // 10 chunks a thread, all read first
+  constexpr int kPer = 2 * (D / 8) * 64 / 128;  // D / 8 chunks a thread, all read first
   const int wt = threadIdx.x & 127;
   float4 x[kPer];
 #pragma unroll
@@ -534,7 +563,7 @@ __device__ __forceinline__ void stage_q(unsigned char* img_hi, unsigned char* im
     int r;
     const int c = kimg_chunk(wt + 128 * j, 64, r);
     x[j] = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r < n_rows) x[j] = __ldg(reinterpret_cast<const float4*>(src + r * kD + c));
+    if (r < n_rows) x[j] = __ldg(reinterpret_cast<const float4*>(src + r * D + c));
   }
 #pragma unroll
   for (int j = 0; j < kPer; ++j) {
@@ -550,61 +579,75 @@ __device__ __forceinline__ void stage_q(unsigned char* img_hi, unsigned char* im
 }
 
 // ------------------------------------------------------------------ K4
-// Shared memory of a K4 block (from a 1024-byte boundary): each consumer's Q
-// hi and lo images, the K stages, the V stages, the bias_w table, the
-// barriers.
-constexpr int kImg64 = img_bytes(kBN);  // 20 KB
-constexpr int kQOff = 0;
-constexpr int kKOff = kQOff + 2 * kConsumers * kImg64;
-constexpr int kVOff = kKOff + 2 * kKStages * kImg64;
-constexpr int kBwOff = kVOff + 2 * kVStages * kImg64;
-constexpr int kBarOff = kBwOff + kBM * kBwLd * 4;
-constexpr int kSmemBytes = kBarOff + (int)sizeof(Barriers) + 1024;
-static_assert(kSmemBytes <= 232448, "K4's shared memory");
+// K4 at head dim D (80: SAM ViT-H; 64: SAM ViT-L and ViT-B). Shared memory
+// of a block (from a 1024-byte boundary): each consumer's Q hi and lo
+// images, the K stages, the V stages, the bias_w table, the barriers. At D
+// 80 one K and one V stage fit beside the table; at D 64 (an image 16 KB)
+// two K stages and one V stage do.
+template <int D>
+struct K4Cfg {
+  static constexpr int kKStages = D == 64 ? kKStages64 : ::kKStages;
+  static constexpr int kVStages = D == 64 ? kVStages64 : ::kVStages;
+  static constexpr int kImg = img_bytes<D>(kBN);  // 20 KB at D 80, 16 KB at D 64
+  static constexpr int kQOff = 0;
+  static constexpr int kKOff = kQOff + 2 * kConsumers * kImg;
+  static constexpr int kVOff = kKOff + 2 * kKStages * kImg;
+  static constexpr int kBwOff = kVOff + 2 * kVStages * kImg;
+  static constexpr int kBarOff = kBwOff + kBM * kBwLd * 4;
+  static constexpr int kSmemBytes = kBarOff + (int)sizeof(Barriers) + 1024;
+  static_assert(kSmemBytes <= 232448, "K4's shared memory");
+  static_assert(kKStages <= 2 && kVStages <= 2, "the barriers' stages");
+};
+constexpr int kImg64 = img_bytes(kBN);  // a 64-row image at head dim 80, 20 KB
 
 // Each 64-key tile of a head as four images (K hi, K lo, V^T hi, V^T lo):
-// tile t of head bh at scratch + (bh * kh + t) * 4 * img_bytes(64). One
+// tile t of head bh at scratch + (bh * kh + t) * 4 * img_bytes<D>(64). One
 // block a tile.
+template <int D>
 __global__ void __launch_bounds__(kSplitThreads) split_kv_relpos_kernel(
     const float* __restrict__ k, const float* __restrict__ v, float* __restrict__ scratch,
     int S) {
-  __shared__ float tk[kBN][kD + 1], tv[kBN][kD + 1];
+  constexpr int kImg = K4Cfg<D>::kImg;
+  __shared__ float tk[kBN][D + 1], tv[kBN][D + 1];
   const int t = blockIdx.x, bh = blockIdx.y, kh = gridDim.x;
-  const long long in = ((long long)bh * S + (long long)t * kBN) * kD;
-  for (int i = threadIdx.x; i < kBN * kD; i += kSplitThreads) {
-    const int r = i / kD, c = i - r * kD;
+  const long long in = ((long long)bh * S + (long long)t * kBN) * D;
+  for (int i = threadIdx.x; i < kBN * D; i += kSplitThreads) {
+    const int r = i / D, c = i - r * D;
     tk[r][c] = k[in + i];
     tv[r][c] = v[in + i];
   }
   __syncthreads();
   unsigned char* img =
-      reinterpret_cast<unsigned char*>(scratch + ((long long)bh * kh + t) * 4 * (kImg64 / 4));
-  for (int i = threadIdx.x; i < 2 * kRegions * kBN; i += kSplitThreads) {
+      reinterpret_cast<unsigned char*>(scratch + ((long long)bh * kh + t) * 4 * (kImg / 4));
+  for (int i = threadIdx.x; i < 2 * (D / 8) * kBN; i += kSplitThreads) {
     int r;
     const int c = kimg_chunk(i, kBN, r);
     uint4 hi, lo;
     split4(make_float4(tk[r][c], tk[r][c + 1], tk[r][c + 2], tk[r][c + 3]), hi, lo);
     *reinterpret_cast<uint4*>(img + 16 * i) = hi;
-    *reinterpret_cast<uint4*>(img + kImg64 + 16 * i) = lo;
+    *reinterpret_cast<uint4*>(img + kImg + 16 * i) = lo;
   }
-  for (int i = threadIdx.x; i < 2 * kD * (kBN / 8); i += kSplitThreads) {
+  for (int i = threadIdx.x; i < 2 * D * (kBN / 8); i += kSplitThreads) {
     int d;
-    const int key = vimg_chunk(i, d);
+    const int key = vimg_chunk<D>(i, d);
     uint4 hi, lo;
     split4(make_float4(tv[key][d], tv[key + 2][d], tv[key + 4][d], tv[key + 6][d]), hi, lo);
-    *reinterpret_cast<uint4*>(img + 2 * kImg64 + 16 * i) = hi;
-    *reinterpret_cast<uint4*>(img + 3 * kImg64 + 16 * i) = lo;
+    *reinterpret_cast<uint4*>(img + 2 * kImg + 16 * i) = hi;
+    *reinterpret_cast<uint4*>(img + 3 * kImg + 16 * i) = lo;
   }
 }
 
+template <int D>
 __global__ void __launch_bounds__(kThreads, 1) flash_relpos_tf32_kernel(
     const float* __restrict__ q, const float* __restrict__ scratch,
     const float* __restrict__ bias_h, const float* __restrict__ bias_w, float* __restrict__ o,
     int S, int kh, float scale) {
+  using C = K4Cfg<D>;
+  constexpr int kImg = C::kImg;
   extern __shared__ __align__(1024) unsigned char rt_smem_raw[];
   unsigned char* smem = rt_smem_raw + ((1024 - (smem_u32(rt_smem_raw) & 1023)) & 1023);
-  float* sBw = reinterpret_cast<float*>(smem + kBwOff);
-  Barriers* bars = reinterpret_cast<Barriers*>(smem + kBarOff);
+  float* sBw = reinterpret_cast<float*>(smem + C::kBwOff);
+  Barriers* bars = reinterpret_cast<Barriers*>(smem + C::kBarOff);
   const int bh = blockIdx.y;
   const int q0 = blockIdx.x * kBM;
 
@@ -629,33 +672,33 @@ __global__ void __launch_bounds__(kThreads, 1) flash_relpos_tf32_kernel(
   __syncthreads();
 
   const int wg = threadIdx.x / 128;
-  const long long tile_bytes = 4LL * kImg64;
+  const long long tile_bytes = 4LL * kImg;
   if (wg == kConsumers) {
     // ---------------------------------------------------------- producer
     if (threadIdx.x == 128 * kConsumers) {
       const unsigned char* src =
           reinterpret_cast<const unsigned char*>(scratch) + (long long)bh * kh * tile_bytes;
       for (int t = 0; t < kh; ++t) {
-        const int kst = t % kKStages, kparity = ((t / kKStages) & 1) ^ 1;
-        const int vst = t % kVStages, vparity = ((t / kVStages) & 1) ^ 1;
+        const int kst = t % C::kKStages, kparity = ((t / C::kKStages) & 1) ^ 1;
+        const int vst = t % C::kVStages, vparity = ((t / C::kVStages) & 1) ^ 1;
         bar_wait_or_trap(&bars->k_empty[kst], kparity);
-        bar_expect_tx(&bars->k_full[kst], 2 * kImg64);
-        bulk_load(smem + kKOff + kst * 2 * kImg64, src + t * tile_bytes, 2 * kImg64,
+        bar_expect_tx(&bars->k_full[kst], 2 * kImg);
+        bulk_load(smem + C::kKOff + kst * 2 * kImg, src + t * tile_bytes, 2 * kImg,
                   &bars->k_full[kst]);
         bar_wait_or_trap(&bars->v_empty[vst], vparity);
-        bar_expect_tx(&bars->v_full[vst], 2 * kImg64);
-        bulk_load(smem + kVOff + vst * 2 * kImg64, src + t * tile_bytes + 2 * kImg64,
-                  2 * kImg64, &bars->v_full[vst]);
+        bar_expect_tx(&bars->v_full[vst], 2 * kImg);
+        bulk_load(smem + C::kVOff + vst * 2 * kImg, src + t * tile_bytes + 2 * kImg, 2 * kImg,
+                  &bars->v_full[vst]);
       }
     }
   } else {
     // ---------------------------------------------------------- consumers
     const int lane = threadIdx.x & 31, tq = lane & 3;
     const int rb = wg * 64 + ((threadIdx.x / 32) & 3) * 16 + lane / 4;  // and rb + 8
-    unsigned char* q_hi = smem + kQOff + 2 * wg * kImg64;
-    unsigned char* q_lo = q_hi + kImg64;
-    stage_q(q_hi, q_lo, q + ((long long)bh * S + q0 + wg * 64) * kD, S - q0 - wg * 64, scale,
-            wg);
+    unsigned char* q_hi = smem + C::kQOff + 2 * wg * kImg;
+    unsigned char* q_lo = q_hi + kImg;
+    stage_q<D>(q_hi, q_lo, q + ((long long)bh * S + q0 + wg * 64) * D, S - q0 - wg * 64, scale,
+               wg);
     if (kPingpong && wg == kConsumers - 1) turn_arrive(1 + (wg + 1) % kConsumers);
 
     const float* bw_row[2] = {sBw + rb * kBwLd + 2 * tq, sBw + (rb + 8) * kBwLd + 2 * tq};
@@ -678,14 +721,39 @@ __global__ void __launch_bounds__(kThreads, 1) flash_relpos_tf32_kernel(
         }
       }
     };
-    const Ring ring{bars, smem_u32(smem + kKOff), smem_u32(smem + kVOff)};
-    float acc[40], l[2];
-    attend_rows<kBN, kKStages, kVStages, kOverlap>(acc, l, smem_u32(q_hi), smem_u32(q_lo), ring,
-                                                   0, kh, wg, init);
+    const Ring ring{bars, smem_u32(smem + C::kKOff), smem_u32(smem + C::kVOff)};
+    float acc[D / 2], l[2];
+    attend_rows<kBN, C::kKStages, C::kVStages, kOverlap, D>(acc, l, smem_u32(q_hi),
+                                                            smem_u32(q_lo), ring, 0, kh, wg, init);
     if (kPingpong && wg == 0) turn_sync(1);  // the last consumer's last turn
     const int row = q0 + rb;
-    store_rows(acc, l, o + ((long long)bh * S + row) * kD, row < S, row + 8 < S);
+    store_rows<D>(acc, l, o + ((long long)bh * S + row) * D, row < S, row + 8 < S);
   }
+}
+
+template <int D>
+int launch_k4(const void* q, const void* k, const void* v, const void* bias_h,
+              const void* bias_w, void* o, void* scratch, int BH, int S, int kh, float scale,
+              cudaStream_t s) {
+  static bool configured = false;
+  if (!configured) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        flash_relpos_tf32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        K4Cfg<D>::kSmemBytes);
+    if (err != cudaSuccess) return (int)err;
+    configured = true;
+  }
+  split_kv_relpos_kernel<D><<<dim3(kh, BH), kSplitThreads, 0, s>>>(
+      static_cast<const float*>(k), static_cast<const float*>(v), static_cast<float*>(scratch),
+      S);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  flash_relpos_tf32_kernel<D><<<dim3((S + kBM - 1) / kBM, BH), kThreads, K4Cfg<D>::kSmemBytes,
+                                 s>>>(
+      static_cast<const float*>(q), static_cast<const float*>(scratch),
+      static_cast<const float*>(bias_h), static_cast<const float*>(bias_w),
+      static_cast<float*>(o), S, kh, scale);
+  return (int)cudaGetLastError();
 }
 
 // ------------------------------------------------------------------ K5
@@ -727,7 +795,7 @@ __global__ void __launch_bounds__(kThreads, 1) window_relpos_tf32_kernel(
   if (wg == kConsumers) {
     // ---------------------------------------------------------- producer
     const int pt = threadIdx.x & 127;
-    constexpr int kChunks = 2 * kRegions * kWBN;  // 800 of each image
+    constexpr int kChunks = 2 * (kD / 8) * kWBN;  // 800 of each image
     constexpr int kPer = (kChunks + 127) / 128;
     // the block's tiles u = 0 .. n_tiles - 1: item blockIdx.x + (u / 5) *
     // gridDim.x, key tile u % 5; tile u + 1 is read from device memory
@@ -748,7 +816,7 @@ __global__ void __launch_bounds__(kThreads, 1) window_relpos_tf32_kernel(
             xk[j] = __ldg(reinterpret_cast<const float4*>(k + base + (k0 + r) * kD + c));
           // V^T: each chunk the values of one feature for four keys of a group
           int d;
-          const int key = k0 + vimg_chunk(i, d);
+          const int key = k0 + vimg_chunk<kD>(i, d);
           const float* src = v + base + (long long)key * kD + d;
           if (key < kWinS) xv[j].x = __ldg(src);
           if (key + 2 < kWinS) xv[j].y = __ldg(src + 2 * kD);
@@ -825,7 +893,7 @@ __global__ void __launch_bounds__(kThreads, 1) window_relpos_tf32_kernel(
         tab_h[(threadIdx.x & 127) + 128 * j] = fh[j];
         tab_w[(threadIdx.x & 127) + 128 * j] = fw[j];
       }
-      stage_q(q_hi, q_lo, q + base + (long long)r0 * kD, kWinS - r0, scale, wg);
+      stage_q<kD>(q_hi, q_lo, q + base + (long long)r0 * kD, kWinS - r0, scale, wg);
       const float* th[2] = {tab_h + wrow * kWin, tab_h + (wrow + 8) * kWin};
       const float* tw[2] = {tab_w + wrow * kWin, tab_w + (wrow + 8) * kWin};
       // tile t: each score starts at its bias; keys >= 196 at -inf
@@ -846,10 +914,11 @@ __global__ void __launch_bounds__(kThreads, 1) window_relpos_tf32_kernel(
         }
       };
       float acc[40], l[2];
-      attend_rows<kWBN, kWStages, kWStages, kWOverlap>(acc, l, smem_u32(q_hi), smem_u32(q_lo),
-                                                       ring, u, kWTiles, wg, init);
+      attend_rows<kWBN, kWStages, kWStages, kWOverlap, kD>(acc, l, smem_u32(q_hi),
+                                                           smem_u32(q_lo), ring, u, kWTiles, wg,
+                                                           init);
       const int row = r0 + wrow;
-      store_rows(acc, l, o + base + (long long)row * kD, row < kWinS, row + 8 < kWinS);
+      store_rows<kD>(acc, l, o + base + (long long)row * kD, row < kWinS, row + 8 < kWinS);
     }
     if (kPingpong && wg == 0) turn_sync(1);  // the last consumer's last turn
   }
@@ -866,54 +935,40 @@ bool aligned(const void* q, const void* k, const void* v, const void* o, const v
 // The routing predicate (kernels/flash_attention.py relpos_tf32_route
 // mirrors it): 1 when bff_flash_attention_relpos (kind 0, K4; rows x cols =
 // kh x kw) or bff_window_attention_relpos (kind 1, K5; wh x ww) takes the
-// 3xTF32 kernel for the call. dtype: 0 = float32, 1 = bfloat16.
+// 3xTF32 kernel for the call: K4 at head dim 64 or 80, K5 at 80. dtype: 0
+// = float32, 1 = bfloat16.
 extern "C" int bff_relpos_tf32_takes(int kind, int dtype, int D, int S, int rows, int cols,
                                      float scale, const void* q, const void* k, const void* v,
                                      const void* o, const void* bias_h, const void* bias_w) {
   const bool shape = kind == 0   ? cols == kGridW && rows >= kMinGridH && rows <= kMaxGridH &&
-                                     S == rows * cols
-                     : kind == 1 ? rows == kWin && cols == kWin && S == kWinS
+                                     S == rows * cols && (D == 64 || D == kD)
+                     : kind == 1 ? rows == kWin && cols == kWin && S == kWinS && D == kD
                                  : false;
-  return shape && dtype == 0 && D == kD && scale > 0.f && scale <= FLT_MAX &&
+  return shape && dtype == 0 && scale > 0.f && scale <= FLT_MAX &&
          aligned(q, k, v, o, bias_h, bias_w);
 }
 
-// The scratch a K4 call needs, in floats: each 64-key tile's K hi, K lo,
-// V^T hi and V^T lo images, 4 BH S 80.
-extern "C" long long bff_relpos_tf32_scratch_floats(int BH, int S) {
-  return 4LL * BH * S * kD;
+// The scratch a K4 call at head dim D needs, in floats: each 64-key tile's
+// K hi, K lo, V^T hi and V^T lo images, 4 BH S D.
+extern "C" long long bff_relpos_tf32_scratch_floats(int BH, int S, int D) {
+  return 4LL * BH * S * D;
 }
 
-// K4. q, k, v, o: contiguous (BH, S, 80) f32 with S = kh * 64; bias_h (BH,
-// S, kh), bias_w (BH, S, 64) f32; scratch: 16-byte aligned, at least
-// bff_relpos_tf32_scratch_floats floats, on the same stream. Returns
-// cudaGetLastError() after the launches, -1 for arguments outside the
-// predicate or no scratch.
+// K4. q, k, v, o: contiguous (BH, S, D) f32 with S = kh * 64 and D 64 or
+// 80; bias_h (BH, S, kh), bias_w (BH, S, 64) f32; scratch: 16-byte aligned,
+// at least bff_relpos_tf32_scratch_floats floats, on the same stream.
+// Returns cudaGetLastError() after the launches, -1 for arguments outside
+// the predicate or no scratch.
 extern "C" int bff_flash_relpos_tf32(const void* q, const void* k, const void* v,
                                      const void* bias_h, const void* bias_w, void* o,
-                                     void* scratch, int BH, int S, int kh, float scale,
+                                     void* scratch, int BH, int S, int D, int kh, float scale,
                                      void* stream) {
   if (BH < 1 || scratch == nullptr || !aligned16(scratch) ||
-      !bff_relpos_tf32_takes(0, 0, kD, S, kh, kGridW, scale, q, k, v, o, bias_h, bias_w))
+      !bff_relpos_tf32_takes(0, 0, D, S, kh, kGridW, scale, q, k, v, o, bias_h, bias_w))
     return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  static bool configured = false;
-  if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_relpos_tf32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
-    if (err != cudaSuccess) return (int)err;
-    configured = true;
-  }
-  split_kv_relpos_kernel<<<dim3(kh, BH), kSplitThreads, 0, s>>>(
-      static_cast<const float*>(k), static_cast<const float*>(v), static_cast<float*>(scratch),
-      S);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  flash_relpos_tf32_kernel<<<dim3((S + kBM - 1) / kBM, BH), kThreads, kSmemBytes, s>>>(
-      static_cast<const float*>(q), static_cast<const float*>(scratch),
-      static_cast<const float*>(bias_h), static_cast<const float*>(bias_w),
-      static_cast<float*>(o), S, kh, scale);
-  return (int)cudaGetLastError();
+  if (D == 64) return launch_k4<64>(q, k, v, bias_h, bias_w, o, scratch, BH, S, kh, scale, s);
+  return launch_k4<kD>(q, k, v, bias_h, bias_w, o, scratch, BH, S, kh, scale, s);
 }
 
 // K5. q, k, v, o: contiguous (G, 196, 80) f32; bias_h, bias_w (G, 196, 14)

@@ -11,7 +11,7 @@ bf16 at head dim 32 with at most ``MASKED_WGMMA_MAX_KEYS`` valid keys (K2,
 the Grounding-DINO decoder's self-attention; :func:`masked_wgmma_route`) to
 the wgmma/TMA kernel of ``csrc/flash_masked_wgmma.cu``, counted as
 ``flash_masked_wgmma``; f32 at head dim 32 or 64 (K2 and K3 in
-``detector.dtype: float32``; :func:`tf32_route`) to the 3xTF32 wgmma/TMA
+``detector.dtype: float32``) or 128 (:func:`tf32_route`) to the 3xTF32 wgmma/TMA
 kernel of ``csrc/flash_attention_tf32.cu``, counted as
 ``flash_attention_tf32``; every other f32 call to the f32-FMA kernel,
 counted as ``flash_attention_f32``; and every other bf16 call to the
@@ -22,7 +22,8 @@ reached through ``attend_relpos``); it routes SAM ViT-H's bf16 head-dim-80
 calls on its 64-wide grids (K4; :func:`relpos_wgmma_route`) to the
 wgmma/TMA kernel of ``csrc/relpos_attention_wgmma.cu``, counted as
 ``flash_attention_relpos_wgmma``; its f32 head-dim-80 calls on those grids
-(K4 in ``detector.dtype: float32`` under ``BFF_SAM_RELPOS_FLASH=1``;
+(K4 in ``detector.dtype: float32`` under ``BFF_SAM_RELPOS_FLASH=1``) and its
+f32 head-dim-64 calls on them (SAM ViT-L's and ViT-B's global blocks;
 :func:`relpos_tf32_route`) to the 3xTF32 wgmma kernel of
 ``csrc/relpos_attention_tf32.cu``, counted as
 ``flash_attention_relpos_tf32``; and the rest to the mma.sync tile or the
@@ -80,11 +81,12 @@ def masked_wgmma_route(dtype: int, d: int, s: int, valid_len: int, scale: float,
             and all(p % 16 == 0 for p in ptrs))
 
 
-# csrc/flash_attention_tf32.cu: 64-key tiles, blocks of two 64-row
-# warpgroups, and the shortest sequence it takes (shorter ones keep the FMA
-# kernel, faster there)
+# csrc/flash_attention_tf32.cu: the pre-pass's 64-key padding, blocks of two
+# 64-row warpgroups, the head dims it takes and the shortest sequence
+# (shorter ones keep the FMA kernel, faster there)
 TF32_TILE = 64
 TF32_BLOCK_Q = 128
+TF32_HEAD_DIMS = (32, 64, 128)
 TF32_MIN_S = 256
 # the order of the keys of each 8-key group in the kernel's V^T (a lane's
 # accumulator columns 2 t, 2 t + 1 are the A fragment's columns t, t + 4)
@@ -95,12 +97,19 @@ def tf32_route(dtype: int, d: int, s: int, valid_len: int, scale: float, *ptrs: 
     """The mirror of ``bff_flash_tf32_takes``: whether ``bff_flash_attention``
     runs the 3xTF32 wgmma/TMA kernel of ``csrc/flash_attention_tf32.cu``
     for a call (dtype 0 = float32, 1 = bfloat16; ``ptrs`` the data pointers
-    of q, k, v and the output): f32, head dim 32 or 64, S >= ``TF32_MIN_S``,
-    1 <= ``valid_len`` <= S, a positive finite scale (rounded to f32 as the
-    call passes it) and 16-byte aligned pointers."""
+    of q, k, v and the output): f32, head dim 32, 64 or 128, S >=
+    ``TF32_MIN_S``, 1 <= ``valid_len`` <= S, a positive finite scale
+    (rounded to f32 as the call passes it) and 16-byte aligned pointers."""
     f32 = ctypes.c_float(scale).value
-    return (dtype == 0 and d in (32, 64) and s >= TF32_MIN_S and 1 <= valid_len <= s
+    return (dtype == 0 and d in TF32_HEAD_DIMS and s >= TF32_MIN_S and 1 <= valid_len <= s
             and 0.0 < f32 <= _FLT_MAX and all(p % 16 == 0 for p in ptrs))
+
+
+def tf32_key_tile(d: int) -> int:
+    """The keys of a tile of ``csrc/flash_attention_tf32.cu``'s online
+    softmax at head dim ``d`` (``Cfg<D>::kBN``): 64, or 32 at head dim 128,
+    where a 64-key stage beside both consumers' Q halves would not fit."""
+    return 32 if d == 128 else 64
 
 
 def tf32_scratch_floats(bh: int, d: int, valid_len: int) -> int:
@@ -152,15 +161,16 @@ def flash_tf32_mirror(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     in for ex2.approx), the denominator summed from the f32 p, the output
     rescaled, P split in the fragment order and O += (lo(P) hi(V) + hi(P)
     lo(V)) + hi(P) hi(V); the output divided once; rows >= S not written
-    (left 0). Every word handed to the products is rna-rounded TF32, so the
-    hardware's truncation of the low 13 bits is the identity and is not
-    modelled."""
+    (left 0). The softmax's key tiles are :func:`tf32_key_tile` keys (32
+    at head dim 128). Every word handed to the products is rna-rounded
+    TF32, so the hardware's truncation of the low 13 bits is the identity
+    and is not modelled."""
     bh, s, d = q.shape
     valid = s if valid_len is None else int(valid_len)
     scale = d ** -0.5 if scale is None else scale
     sl2 = float(torch.tensor(scale * 1.4426950408889634, dtype=torch.float32))
-    tile = TF32_TILE
-    kp = -(-valid // tile) * tile
+    kp = -(-valid // TF32_TILE) * TF32_TILE
+    tile = tf32_key_tile(d)
     kz = torch.zeros(bh, kp, d)
     vz = torch.zeros(bh, kp, d)
     kz[:, :valid] = k[:, :valid].float()
@@ -353,6 +363,8 @@ RELPOS_TF32_TILE = 64
 RELPOS_TF32_WINDOW_TILE = 40
 RELPOS_TF32_BLOCK_Q = 128
 RELPOS_TF32_MIN_GRID_H = 1
+# the head dims each takes: K4 (kind 0) SAM ViT-L/B's 64 and ViT-H's 80, K5 80
+RELPOS_TF32_HEAD_DIMS = {0: (64, 80), 1: (80,)}
 _WIN, _WIN_S = 14, 196
 
 
@@ -363,10 +375,10 @@ def relpos_tf32_route(kind: int, dtype: int, d: int, s: int, rows: int, cols: in
     call. ``kind`` 0 is ``bff_flash_attention_relpos`` (K4, a ``rows`` x
     ``cols`` = kh x kw key grid), 1 is ``bff_window_attention_relpos`` (K5,
     wh x ww windows); dtype 0 = float32, 1 = bfloat16; ``ptrs`` the data
-    pointers of q, k, v, the output, bias_h and bias_w. Taken: f32, head dim
-    80, kw = 64 with ``RELPOS_TF32_MIN_GRID_H`` <= kh <= 64 (K4) or 14 x 14
-    windows (K5), a positive finite scale (rounded to f32 as the call passes
-    it) and every pointer 16-byte aligned."""
+    pointers of q, k, v, the output, bias_h and bias_w. Taken: f32, kw = 64
+    with ``RELPOS_TF32_MIN_GRID_H`` <= kh <= 64 at head dim 64 or 80 (K4) or
+    14 x 14 windows at head dim 80 (K5), a positive finite scale (rounded to
+    f32 as the call passes it) and every pointer 16-byte aligned."""
     f32 = ctypes.c_float(scale).value
     if kind == 0:
         shape = cols == 64 and RELPOS_TF32_MIN_GRID_H <= rows <= 64 and s == rows * cols
@@ -374,15 +386,16 @@ def relpos_tf32_route(kind: int, dtype: int, d: int, s: int, rows: int, cols: in
         shape = rows == _WIN and cols == _WIN and s == _WIN_S
     else:
         shape = False
-    return (shape and dtype == 0 and d == 80 and 0.0 < f32 <= _FLT_MAX
+    return (shape and dtype == 0 and d in RELPOS_TF32_HEAD_DIMS[kind] and 0.0 < f32 <= _FLT_MAX
             and all(p % 16 == 0 for p in ptrs))
 
 
-def relpos_tf32_scratch_floats(bh: int, s: int) -> int:
+def relpos_tf32_scratch_floats(bh: int, s: int, d: int) -> int:
     """The mirror of ``bff_relpos_tf32_scratch_floats``: the floats of scratch
-    a K4 call on the 3xTF32 kernel needs, each 64-key tile's K hi, K lo, V^T
-    hi and V^T lo images, 4 BH S 80 (S = 64 kh is whole tiles)."""
-    return 4 * bh * s * 80
+    a K4 call at head dim ``d`` on the 3xTF32 kernel needs, each 64-key
+    tile's K hi, K lo, V^T hi and V^T lo images, 4 BH S D (S = 64 kh is
+    whole tiles)."""
+    return 4 * bh * s * d
 
 
 def relpos_counter(kind: int, dtype: int, d: int, s: int, rows: int, cols: int, scale: float,
@@ -458,9 +471,10 @@ def relpos_tf32_mirror(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        bias_h: torch.Tensor, bias_w: torch.Tensor, kind: int,
                        scale: Optional[float] = None) -> torch.Tensor:
     """The arithmetic of ``csrc/relpos_attention_tf32.cu`` in PyTorch on the
-    CPU, block by block of :func:`relpos_tf32_schedule`, f32 at head dim 80.
-    K4 (kind 0; q, k, v (BH, S, 80), S = 64 kh, bias_h (BH, S, kh), bias_w
-    (BH, S, 64)) or K5 (kind 1; (G, 196, 80), both factors (G, 196, 14)).
+    CPU, block by block of :func:`relpos_tf32_schedule`, in f32. K4 (kind 0;
+    q, k, v (BH, S, D) with D 64 or 80, S = 64 kh, bias_h (BH, S, kh),
+    bias_w (BH, S, 64)) or K5 (kind 1; (G, 196, 80), both factors (G, 196,
+    14)).
     K and V split into TF32 hi and lo (:func:`tf32_split`; V^T with each
     8-key group in ``TF32_KEY_ORDER``); per 64-row warpgroup tile, Q
     multiplied by the scale and split; per key tile (64 keys, one grid row,
@@ -709,7 +723,7 @@ def _launch_relpos(fn_name, kind, q, k, v, bias_h, bias_w, rows, cols, scale):
     if kind == 0:
         scratch = None
         if counter == "flash_attention_relpos_tf32":
-            scratch = torch.empty(relpos_tf32_scratch_floats(bh, s), dtype=torch.float32,
+            scratch = torch.empty(relpos_tf32_scratch_floats(bh, s, d), dtype=torch.float32,
                                   device=q.device)
         args += (None if scratch is None else scratch.data_ptr(),)
     rc = getattr(_build.library(), fn_name)(*args)

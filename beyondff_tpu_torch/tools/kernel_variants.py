@@ -208,6 +208,9 @@ _NMS_SMEM_ATTR = """    const cudaError_t err = cudaFuncSetAttribute(
 
 # name -> (sources to build, edits as (file, old, new))
 VARIANTS = {
+    # the tree as it stands, every source: the shipped kernels beside the
+    # variants that edit them
+    "shipped": (SOURCES, ()),
     "shipped": (SOURCES, ()),
     # K1: a warp's rows are 8 queries of one head (not one query's 8 heads)
     "head_run_warp": _head_run(1),
@@ -321,6 +324,20 @@ VARIANTS = {
     # 3xTF32: two stages at head dim 32 too (shipped: 4 at D 32, 2 at D 64)
     "tf32_stages_2": (K3, ((TF32, "static constexpr int kStages = D == 32 ? 4 : 2;",
                             "static constexpr int kStages = 2;"),)),
+    # 3xTF32 at head dim 128 (shipped: each tile's products in turn, P V
+    # accumulated across the key tiles by the tensor cores, two K stages and
+    # one V stage): each tile's P V summed apart in two 64-column halves and
+    # added in f32
+    "tf32_d128_fold": (K3, ((TF32, "constexpr bool kFold128 = false;",
+                             "constexpr bool kFold128 = true;"),)),
+    # tile t's Q K^T issued before tile t - 1's P V
+    "tf32_d128_overlap": (K3, ((TF32, "constexpr bool kOverlap128 = false;",
+                                "constexpr bool kOverlap128 = true;"),)),
+    # one K stage and two V stages, or one of each
+    **{f"tf32_d128_stages_{k}_{v}": (K3, ((TF32, "constexpr int kKStages128 = 2, kVStages128 = 1;",
+                                           f"constexpr int kKStages128 = {k}, "
+                                           f"kVStages128 = {v};"),))
+       for k, v in ((1, 2), (1, 1))},
     # NMS: clusters of 4 or 16 blocks a frame (shipped: 8; 16 offer 2 boxes
     # each), or one block a frame (the staged boxes, the look-ahead and the
     # division-free test on one SM)
@@ -394,6 +411,10 @@ VARIANTS = {
     # 3xTF32 K4 and K5: the consumers issue their products whenever they are ready
     "relpos_tf32_no_pingpong": (K45, ((RT32, "constexpr bool kPingpong = true;",
                                        "constexpr bool kPingpong = false;"),)),
+    # 3xTF32 K4 at head dim 64: one K and one V stage (shipped: two K stages
+    # and one V stage)
+    "k4_tf32_d64_stages_1_1": (K45, ((RT32, "constexpr int kKStages64 = 2, kVStages64 = 1;",
+                                      "constexpr int kKStages64 = 1, kVStages64 = 1;"),)),
     "k5_two_blocks": (K45, (
         (RWG, "constexpr int kWConsumers = 2;", "constexpr int kWConsumers = 1;"),
         (RWG, "constexpr int kWStages = 2;", "constexpr int kWStages = 1;"),
@@ -507,8 +528,9 @@ def attention_case(g, grid, window):
     return fn, launch, check, library, 4 * g * s * s * d, nbytes
 
 
-def relpos_f32_case(g, grid, window):
-    """K4 or K5 in f32 at SAM ViT-H's head dim 80 through the rel-pos
+def relpos_f32_case(g, grid, window, d=80, spread=1.0):
+    """K4 or K5 in f32 at head dim ``d`` (SAM ViT-H's 80; K4 also at SAM
+    ViT-L's 64), q and k scaled by ``spread``, through the rel-pos
     entries (the 3xTF32 kernels of ``relpos_attention_tf32.cu`` in this tree,
     the FMA kernels in the ``relpos_f32_fma`` variant or a tree from before
     them), the factors as ``chip_smoke.py`` builds them, held within 1e-4 of
@@ -519,9 +541,10 @@ def relpos_f32_case(g, grid, window):
     import torch.nn.functional as F
 
     hh, ww = grid
-    s, d = hh * ww, 80
+    s = hh * ww
     gen = torch.Generator(device="cuda").manual_seed(s + g)
     q, k, v = (torch.randn(g, s, d, device="cuda", generator=gen) for _ in range(3))
+    q, k = q * spread, k * spread
     rel_h = 0.1 * torch.randn(2 * hh - 1, d, device="cuda", generator=gen)
     rel_w = 0.1 * torch.randn(2 * ww - 1, d, device="cuda", generator=gen)
     bias_h, bias_w = (t.contiguous() for t in
@@ -529,7 +552,7 @@ def relpos_f32_case(g, grid, window):
     plain = lambda: fa.attend_relpos_plain(q, k, v, bias_h, bias_w, ww)
     want = plain()
     out = torch.empty_like(q)
-    scratch = None if window else torch.empty(fa.relpos_tf32_scratch_floats(g, s),
+    scratch = None if window else torch.empty(fa.relpos_tf32_scratch_floats(g, s, d),
                                               device="cuda")
     fn = "bff_window_attention_relpos" if window else "bff_flash_attention_relpos"
     stream = torch.cuda.current_stream().cuda_stream
@@ -626,18 +649,19 @@ def k2_case(bh, s, valid_len):
     return fn, launch, check, library, 4 * bh * s * valid_len * d, 4 * bh * s * d * 2
 
 
-def f32_case(bh, s, d, valid_len):
+def f32_case(bh, s, d, valid_len, spread=1.0):
     """K2 (head dim 32, keys >= ``valid_len`` masked) or K3 (head dim 64,
     every key valid) in f32 through ``bff_flash_attention``, held within
     1e-4 of the plain version; after (name, launch, check) come SDPA in f32
     on the same inputs (a boolean key mask where keys are masked), the
     operations and bytes of one call, the peak that gives ``bound_ms``
     (3xTF32: a third of the TF32 rate) and the plain version, timed as one
-    more yardstick."""
+    more yardstick. ``spread`` scales q and k (peaked rows at 3)."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(bh * s + valid_len + d)
     q, k, v = (torch.randn(bh, s, d, device="cuda", generator=gen) for _ in range(3))
+    q, k = q * spread, k * spread
     want = fa.flash_attention_plain(q, k, v, valid_len)
     out = torch.empty_like(q)
     # the 3xTF32 kernel's scratch (a tree from before it ignores the argument)
@@ -953,7 +977,12 @@ def main():
         # latency weigh most (the main path's attend calls a kernel from
         # S = 256 on, its models from 512)
         **{f"f32 small ({bh}, {s_}, {d})": (lambda bh=bh, s_=s_, d=d: f32_case(bh, s_, d, s_))
-           for d, bh in ((32, 8), (64, 6)) for s_ in (64, 256, 512)},
+           for d, bh in ((32, 8), (64, 6), (128, 8)) for s_ in (64, 256, 512)},
+        # f32 at head dim 128 (the public entries take it; no model calls it)
+        # with keys past 900 of 1024 masked, at 32 and 8 heads
+        "f32 d128 (32, 1024, 128) valid 900": lambda: f32_case(32, 1024, 128, 900),
+        "f32 d128 (8, 1024, 128) valid 900": lambda: f32_case(8, 1024, 128, 900),
+        "f32 d128 spread 3 (32, 1024, 128) valid 900": lambda: f32_case(32, 1024, 128, 900, 3.0),
         # K4 and K5 in f32 (detector.dtype: float32, BFF_SAM_RELPOS_FLASH=1)
         # at SAM ViT-H's batch of 4 (square and rect grid) and one frame;
         # then K4 on short grids, where the 3xTF32 kernel's pre-pass and
@@ -965,6 +994,12 @@ def main():
         "relpos_f32 k5 (400, 196, 80)": lambda: relpos_f32_case(400, (14, 14), True),
         **{f"relpos_f32 small k4 (16, {64 * kh}, 80)":
            (lambda kh=kh: relpos_f32_case(16, (kh, 64), False)) for kh in (1, 2, 4, 8)},
+        # K4 in f32 at SAM ViT-L's (and ViT-B's) head dim 64 on the 64 x 64
+        # grid, four frames and one
+        "relpos_f32 k4 d64 (64, 4096, 64)": lambda: relpos_f32_case(64, (64, 64), False, 64),
+        "relpos_f32 k4 d64 (16, 4096, 64)": lambda: relpos_f32_case(16, (64, 64), False, 64),
+        "relpos_f32 k4 d64 spread 3 (64, 4096, 64)":
+            lambda: relpos_f32_case(64, (64, 64), False, 64, 3.0),
         # YOLO-World-L's NMS over the batch of 4: 8 400 anchors, top_k 100
         "nms (4, 8400)": lambda: nms_case(4, 8400),
     })

@@ -169,12 +169,15 @@ past 900 of 1024 masked, all on its wgmma kernel (``flash_masked_wgmma``),
 K2 and K3 in f32 at the same shapes on the 3xTF32 kernel
 (``flash_attention_tf32``; each f32 attention record carries ``bound_ms``
 at 3xTF32, three TF32 products a product at 495 TFLOP/s, and
-``bound_fma_ms`` at the 67 TFLOP/s f32 peak) and an f32 call at head dim
-128 on the FMA kernel (``flash_attention_f32``), K4 and K5 in f32 at
-SAM ViT-H's shapes (and K4 at the rect grid's) on the 3xTF32 kernels of
+``bound_fma_ms`` at the 67 TFLOP/s f32 peak), f32 at head dim 128 (32,
+1024, 128) with 900 valid keys on the same kernel and an f32 call at head
+dim 96 on the FMA kernel (``flash_attention_f32``), K4 and K5 in f32 at
+SAM ViT-H's shapes (and K4 at the rect grid's and at SAM ViT-L's head dim
+64, (64, 4096, 64)) on the 3xTF32 kernels of
 ``csrc/relpos_attention_tf32.cu`` (``flash_attention_relpos_tf32``,
-``window_attention_relpos_tf32``) and at SAM ViT-L's head dim 64 on the
-FMA kernels (``flash_attention_relpos``, ``window_attention_relpos``),
+``window_attention_relpos_tf32``), K4 at head dim 64 on a 64 x 32 grid
+and K5 at SAM ViT-L's head dim 64 on the FMA kernels
+(``flash_attention_relpos``, ``window_attention_relpos``),
 the mma.sync tile at (32, 1024, 64) with keys masked, and the NMS kernel
 index for index at YOLO-World-L's 8 400 anchors for a batch of 4 (top_k
 100; its device time split into the sort, the gather and the scan) and at
@@ -3493,8 +3496,9 @@ def main() -> int:
     for dtype in (torch.bfloat16, torch.float32):
         cases[("relpos_global_rect", str(dtype).split(".")[-1], FRAME_BATCH)] = relpos_case(
             torch, fa, wa, sam_mod, "sam_global_rect", 16 * FRAME_BATCH, RECT_GRID, dtype, dev)
-    # f32 K4 and K5 at head dim 80 on the 3xTF32 kernels; at SAM ViT-L's head
-    # dim 64, outside their predicate, on the FMA kernels
+    # f32 K4 and K5 at head dim 80 on the 3xTF32 kernels, and K4 at SAM
+    # ViT-L's head dim 64 too; K5 at head dim 64 and K4 on a 32-wide grid,
+    # outside their predicate, on the FMA kernels
     for b in (1, FRAME_BATCH):
         for key, want in (("relpos_global", "flash_attention_relpos_tf32"),
                           ("relpos_window", "window_attention_relpos_tf32")):
@@ -3502,7 +3506,12 @@ def main() -> int:
             check(rec["kernel"] == want, f"f32 {key} at batch {b}: on {rec['kernel']}")
     check(cases[("relpos_global_rect", "float32", FRAME_BATCH)]["kernel"]
           == "flash_attention_relpos_tf32", "f32 rect K4 off the 3xTF32 kernel")
-    for key, name, g, grid in (("relpos_global_fma", "sam_vit_l_global", 16, (64, 64)),
+    cases[("relpos_global_d64", "float32", FRAME_BATCH)] = rec = relpos_case(
+        torch, fa, wa, sam_mod, "sam_vit_l_global", 16 * FRAME_BATCH, (64, 64), torch.float32,
+        dev, d=64)
+    check(rec["kernel"] == "flash_attention_relpos_tf32",
+          f"f32 K4 at head dim 64: went through {rec['kernel']}, not the 3xTF32 kernel")
+    for key, name, g, grid in (("relpos_global_fma", "kw32_d64_global", 16, (64, 32)),
                                ("relpos_window_fma", "window_sam_vit_l", 400, (14, 14))):
         cases[(key, "float32", FRAME_BATCH)] = rec = relpos_case(
             torch, fa, wa, sam_mod, name, g * FRAME_BATCH, grid, torch.float32, dev, d=64)
@@ -3568,15 +3577,19 @@ def main() -> int:
             cases[key] = flash_case(
                 torch, fa, "efficientsam_global_rect" if s_k3 == 3072 else "ragged_4095",
                 (6 * FRAME_BATCH, s_k3, 64), s_k3, dtype, dev)
-    # f32 K2 and K3 on the 3xTF32 kernel (detector.dtype: float32); an f32
-    # call outside its predicate (head dim 128) keeps the FMA kernel
+    # f32 K2 and K3 on the 3xTF32 kernel (detector.dtype: float32), and f32
+    # at head dim 128 too; an f32 call outside its predicate (head dim 96)
+    # keeps the FMA kernel
     f32_flash = [(key, "float32", b) for key in ("flash_900", "flash_1024", "flash_masked",
                                                  "k3_efficientsam") for b in (1, FRAME_BATCH)]
     for key in f32_flash + [("k3_efficientsam", s_k3, "float32") for s_k3 in (3072, 4095)]:
         check(cases[key]["kernel"] == "flash_attention_tf32",
               f"f32 {key}: on {cases[key]['kernel']}")
-    cases[("flash_fma", "float32", FRAME_BATCH)] = rec = flash_case(
+    cases[("flash_d128", "float32", FRAME_BATCH)] = rec = flash_case(
         torch, fa, "d128_1024_900", (8 * FRAME_BATCH, 1024, 128), 900, torch.float32, dev)
+    check(rec["kernel"] == "flash_attention_tf32", "flash_d128: off the 3xTF32 kernel")
+    cases[("flash_fma", "float32", FRAME_BATCH)] = rec = flash_case(
+        torch, fa, "d96_1024_900", (8 * FRAME_BATCH, 1024, 96), 900, torch.float32, dev)
     check(rec["kernel"] == "flash_attention_f32", "flash_fma: off the f32-FMA kernel")
     cases["nms"] = nms_case(torch, nms, dev)
     cases["nms_threshold"] = nms_threshold_case(torch, nms, dev)
@@ -3760,11 +3773,18 @@ def main() -> int:
             (("k3_efficientsam", "float32", FRAME_BATCH),
              "beyondff_tpu_torch/csrc/flash_attention_tf32.cu",
              "beyondff_tpu/kernels/flash_attention.py:68"),
+            (("flash_d128", "float32", FRAME_BATCH),
+             "beyondff_tpu_torch/csrc/flash_attention_tf32.cu",
+             "beyondff_tpu/kernels/flash_attention.py:270"),
             (("flash_fma", "float32", FRAME_BATCH), "beyondff_tpu_torch/csrc/flash_attention.cu",
              "beyondff_tpu/kernels/flash_attention.py:270"),
-            # K4 and K5 in f32 at head dim 80 on the 3xTF32 kernels, other f32
-            # rel-pos calls (here SAM ViT-L's head dim 64) on the FMA kernels
+            # K4 and K5 in f32 at head dim 80 (and K4 at 64) on the 3xTF32
+            # kernels, other f32 rel-pos calls (K4 on a 32-wide grid, K5 at head
+            # dim 64) on the FMA kernels
             (("relpos_global", "float32", FRAME_BATCH),
+             "beyondff_tpu_torch/csrc/relpos_attention_tf32.cu",
+             "beyondff_tpu/kernels/flash_attention.py:193"),
+            (("relpos_global_d64", "float32", FRAME_BATCH),
              "beyondff_tpu_torch/csrc/relpos_attention_tf32.cu",
              "beyondff_tpu/kernels/flash_attention.py:193"),
             (("relpos_window", "float32", FRAME_BATCH),

@@ -496,7 +496,9 @@ def test_mask_iou_wrapper_checks_on_cpu():
                                   "k4_two_serial", "k4_overlap", "k4_no_pingpong",
                                   "k4_stages_3", "k5_one_consumer",
                                   "k5_two_blocks", "k5_pingpong", "f32_fma", "tf32_serial",
-                                  "tf32_no_pingpong", "tf32_stages_2"])
+                                  "tf32_no_pingpong", "tf32_stages_2", "tf32_d128_fold",
+                                  "tf32_d128_overlap", "tf32_d128_stages_1_2",
+                                  "tf32_d128_stages_1_1"])
 def test_kernel_variant_edits_match_the_sources(name):
     """Each variant ``tools/kernel_variants.py`` builds is a set of edits
     that must each match its source once: they go stale with the kernels."""

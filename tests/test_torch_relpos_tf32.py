@@ -1,5 +1,6 @@
-"""K4 and K5 in f32 (SAM ViT-H's head-dim-80 rel-pos attention) on the
-3xTF32 wgmma kernels of ``csrc/relpos_attention_tf32.cu``.
+"""K4 and K5 in f32 (SAM ViT-H's head-dim-80 rel-pos attention, and K4 at
+SAM ViT-L's and ViT-B's head dim 64) on the 3xTF32 wgmma kernels of
+``csrc/relpos_attention_tf32.cu``.
 
 On the CPU: the routing rule (``relpos_tf32_route``, the mirror of the C
 predicate ``bff_relpos_tf32_takes``) and the counter a call moves, K4's
@@ -7,8 +8,8 @@ scratch size, the kernels' grids (``relpos_tf32_schedule``), their score
 index arithmetic (``relpos_tf32_fragment``) against ``relpos_bias``, and
 their arithmetic (``relpos_tf32_mirror``) against the plain versions and
 against the JAX ``attend_relpos`` / ``window_attention_relpos`` in
-interpret mode, in f32 at head dim 80, within 1e-4 (the f32 calls'
-tolerance everywhere in the repository). Tests that need the card carry
+interpret mode, in f32 at head dim 80 (and K4 at 64), within 1e-4 (the f32
+calls' tolerance everywhere in the repository). Tests that need the card carry
 the ``cuda`` marker and import nothing of JAX:
 ``python -m pytest --noconftest -m cuda tests/test_torch_relpos_tf32.py``.
 """
@@ -73,8 +74,14 @@ def _inputs(seed, g, rows, cols, d=80, spread=1.0, bias_scale=0.5):
     ((1, 0, 80, 196, 14, 14, _S80, *_A), True),  # K5: SAM ViT-H's 14 x 14 windows
     ((0, 1, 80, 4096, 64, 64, _S80, *_A), False),  # bf16: the wgmma kernel
     ((1, 1, 80, 196, 14, 14, _S80, *_A), False),
-    ((0, 0, 64, 4096, 64, 64, 0.125, *_A), False),  # another head dim: the FMA kernel
-    ((1, 0, 64, 196, 14, 14, 0.125, *_A), False),
+    ((0, 0, 64, 4096, 64, 64, 0.125, *_A), True),  # K4: SAM ViT-L's and ViT-B's head dim
+    ((0, 0, 64, 64, 1, 64, 0.125, *_A), True),  # head dim 64, one grid row
+    ((0, 1, 64, 4096, 64, 64, 0.125, *_A), False),  # bf16 at head dim 64: the tile
+    ((0, 0, 64, 2048, 64, 32, 0.125, *_A), False),  # head dim 64 on a 32-wide grid
+    ((0, 0, 64, 4096, 64, 64, 0.125, 0, 0, 0, 0, 0, 4), False),  # bias_w off 16 bytes
+    ((1, 0, 64, 196, 14, 14, 0.125, *_A), False),  # K5 at head dim 64: the FMA kernel
+    ((0, 0, 96, 4096, 64, 64, 96 ** -0.5, *_A), False),  # another head dim
+    ((0, 0, 128, 4096, 64, 64, 128 ** -0.5, *_A), False),
     ((0, 0, 80, 4096, 128, 32, _S80, *_A), False),  # kw 32
     ((0, 0, 80, 8192, 128, 64, _S80, *_A), False),  # kh past 64
     ((0, 0, 80, 4095, 64, 64, _S80, *_A), False),  # S off the grid
@@ -91,8 +98,8 @@ def _inputs(seed, g, rows, cols, d=80, spread=1.0, bias_scale=0.5):
     ((2, 0, 80, 196, 14, 14, _S80, *_A), False),  # no such entry
 ])
 def test_relpos_tf32_route_pins_the_predicate(args, takes):
-    """The Python mirror of ``bff_relpos_tf32_takes``: f32, head dim 80, kw =
-    64 with kh <= 64 (K4) or 14 x 14 windows (K5), a positive finite f32
+    """The Python mirror of ``bff_relpos_tf32_takes``: f32, kw = 64 with kh <=
+    64 at head dim 64 or 80 (K4) or 14 x 14 windows at 80 (K5), a positive finite f32
     scale, six 16-byte aligned pointers; and the counter a call moves:
     ``..._tf32`` where it takes the call, else the bf16 wgmma kernels'
     ``..._wgmma`` or the entry's own (the mma.sync tile, the FMA kernels)."""
@@ -122,9 +129,18 @@ def test_relpos_tf32_counters_are_registered_and_reset():
     (64, 4096, 4 * 64 * 4096 * 80), (16, 4096, 4 * 16 * 4096 * 80),
     (64, 3072, 4 * 64 * 3072 * 80), (1, 64, 4 * 64 * 80), (3, 320, 4 * 3 * 320 * 80)])
 def test_relpos_tf32_scratch_holds_every_tiles_images(bh, s, want):
-    """K4's scratch: the K hi, K lo, V^T hi and V^T lo images of every 64-key
-    tile of every head, 4 BH S 80 floats (S = 64 kh is whole tiles)."""
-    assert tfa.relpos_tf32_scratch_floats(bh, s) == want
+    """K4's scratch at head dim 80: the K hi, K lo, V^T hi and V^T lo images
+    of every 64-key tile of every head, 4 BH S 80 floats (S = 64 kh is whole
+    tiles)."""
+    assert tfa.relpos_tf32_scratch_floats(bh, s, 80) == want
+
+
+@pytest.mark.parametrize("bh,s,d", [(64, 4096, 64), (16, 4096, 64), (1, 64, 64), (3, 320, 64),
+                                    (64, 4096, 80)])
+def test_relpos_tf32_scratch_follows_the_head_dim(bh, s, d):
+    """K4's scratch holds four images of 64 keys by D for every tile: 4 BH S
+    D floats at head dim 64 as at 80."""
+    assert tfa.relpos_tf32_scratch_floats(bh, s, d) == 4 * bh * s * d
 
 
 # --------------------------------------------------------------- schedule
@@ -213,6 +229,22 @@ def test_relpos_tf32_mirror_matches_plain(kind, g, rows, cols, spread, bias_scal
     assert float((got - want).abs().max()) <= TOL
 
 
+@pytest.mark.parametrize("g,rows,spread,bias_scale", [
+    (2, 3, 1.0, 0.5),  # three grid rows, a ragged last query block
+    (2, 4, 3.0, 0.5),  # sharp rows
+    (1, 1, 1.0, 0.5),  # one grid row
+    (2, 2, 0.25, 3.0)])  # a flat score, large factors
+def test_k4_tf32_mirror_matches_plain_at_head_dim_64(g, rows, spread, bias_scale):
+    """K4's arithmetic at SAM ViT-L's head dim 64 against the plain version
+    within 1e-4."""
+    q, k, v, bias_h, bias_w = _inputs(g * rows + 64, g, rows, 64, d=64, spread=spread,
+                                      bias_scale=bias_scale)
+    got = tfa.relpos_tf32_mirror(q, k, v, bias_h, bias_w, 0)
+    want = tfa.attend_relpos_plain(q, k, v, bias_h, bias_w, 64)
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    assert float((got - want).abs().max()) <= TOL
+
+
 @pytest.mark.parametrize("kind,rows,cols", [(0, 4, 64), (1, 14, 14)])
 def test_relpos_tf32_mirror_beats_one_tf32_product(kind, rows, cols):
     """What the split buys: one TF32 product (hi only) misses 1e-4 where the
@@ -232,6 +264,22 @@ def test_k4_tf32_mirror_matches_attend_relpos(jx, g, rows, spread):
     f32 at head dim 80 on a 4 x 64 grid, within 1e-4, both within 1e-4 of
     the plain version."""
     q, k, v, bias_h, bias_w = _inputs(rows + g, g, rows, 64, spread=spread)
+    got = tfa.relpos_tf32_mirror(q, k, v, bias_h, bias_w, 0)
+    want = torch.from_numpy(np.array(jx.fa.attend_relpos(
+        *(jx.jnp.asarray(t.numpy()) for t in (q, k, v, bias_h, bias_w)), 64, interpret=True)))
+    plain = tfa.attend_relpos_plain(q, k, v, bias_h, bias_w, 64)
+    assert float((want - plain).abs().max()) <= TOL
+    assert float((got - plain).abs().max()) <= TOL
+    assert float((got - want).abs().max()) <= TOL
+
+
+@pytest.mark.parametrize("g,rows,spread", [(2, 4, 1.0), (1, 4, 3.0), (2, 3, 1.0)])
+def test_k4_tf32_d64_mirror_matches_attend_relpos(jx, g, rows, spread):
+    """K4 at head dim 64: the mirror against the JAX ``attend_relpos`` in
+    interpret mode in f32 (its head dim padded to 128 lanes) within 1e-4,
+    at unit scale and on peaked rows, both within 1e-4 of the plain
+    version."""
+    q, k, v, bias_h, bias_w = _inputs(rows + g + 64, g, rows, 64, d=64, spread=spread)
     got = tfa.relpos_tf32_mirror(q, k, v, bias_h, bias_w, 0)
     want = torch.from_numpy(np.array(jx.fa.attend_relpos(
         *(jx.jnp.asarray(t.numpy()) for t in (q, k, v, bias_h, bias_w)), 64, interpret=True)))
@@ -262,11 +310,14 @@ def test_relpos_tf32_wrappers_on_cpu_take_the_plain_versions():
     3xTF32 route takes, and move no counter."""
     q, k, v, bias_h, bias_w = _inputs(3, 2, 2, 64)
     wq, wk, wv, wh, ww = _inputs(4, 2, 14, 14)
+    lq, lk, lv, lh, lw = _inputs(5, 2, 2, 64, d=64)
     before = dict(dispatch.launch_counts)
     got = tfa.attend_relpos(q, k, v, bias_h, bias_w, 64)
     got_w = twa.window_attention_relpos(wq, wk, wv, wh, ww, 14, 14)
+    got_l = tfa.attend_relpos(lq, lk, lv, lh, lw, 64)
     assert dispatch.launch_counts == before
     assert torch.equal(got, tfa.attend_relpos_plain(q, k, v, bias_h, bias_w, 64))
+    assert torch.equal(got_l, tfa.attend_relpos_plain(lq, lk, lv, lh, lw, 64))
     assert torch.equal(got_w, twa.window_attention_relpos_plain(wq, wk, wv, wh, ww, 14, 14))
 
 
@@ -312,6 +363,26 @@ def test_k4_tf32_matches_plain_on_card(cuda_device, g, rows, scale, spread):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("g,rows,scale,spread", [
+    (64, 64, 0.1, 1.0), (16, 64, 0.1, 1.0),  # SAM ViT-L's global blocks: B 4, B 1
+    (64, 64, 0.1, 3.0), (2, 64, 3.0, 1.0), (2, 64, 0.1, 0.25),  # peaked, flat
+    (3, 5, 0.1, 1.0), (2, 1, 0.1, 1.0), (1, 63, 0.1, 1.0)])  # odd kh: a ragged query block
+def test_k4_tf32_d64_matches_plain_on_card(cuda_device, g, rows, scale, spread):
+    """K4's 3xTF32 kernel at head dim 64 (two K stages and one V stage)
+    against the plain version within 1e-4, one launch
+    counted as ``flash_attention_relpos_tf32`` only."""
+    q, k, v, bias_h, bias_w = _card_inputs(cuda_device, g, rows, 64, d=64, scale=scale,
+                                           spread=spread)
+    before = dict(dispatch.launch_counts)
+    got = tfa.attend_relpos(q, k, v, bias_h, bias_w, 64)
+    assert _moved(before) == ["flash_attention_relpos_tf32"]
+    want = tfa.attend_relpos_plain(q, k, v, bias_h, bias_w, 64)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert float((got - want).abs().max()) <= TOL
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("g,scale,spread", [
     (1600, 0.1, 1.0), (400, 0.1, 1.0), (1, 0.1, 1.0), (3, 3.0, 1.0), (3, 0.1, 3.0),
     (133, 0.1, 1.0), (265, 0.1, 1.0)])
@@ -332,16 +403,17 @@ def test_k5_tf32_matches_plain_on_card(cuda_device, g, scale, spread):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["d64", "kw32", "misaligned", "window_d64", "window_16"])
+@pytest.mark.parametrize("case", ["d96", "kw32", "kw32_d64", "misaligned", "window_d64",
+                                  "window_16"])
 def test_other_f32_relpos_calls_keep_the_fma_kernels_on_card(cuda_device, case):
-    """f32 calls outside the predicate (SAM ViT-L's head dim 64, a 32-wide
-    grid, an input off 16 bytes, head-dim-64 and 16 x 16 windows) stay on
-    the FMA kernels, counted as ``flash_attention_relpos`` or
+    """f32 calls outside the predicate (head dim 96, a 32-wide grid at head
+    dim 80 and 64, an input off 16 bytes, head-dim-64 and 16 x 16 windows)
+    stay on the FMA kernels, counted as ``flash_attention_relpos`` or
     ``window_attention_relpos``, within 1e-4."""
     window = case.startswith("window")
     rows, cols = ((16, 16) if case == "window_16" else (14, 14)) if window else (
-        (64, 32) if case == "kw32" else (16, 64))
-    d = 64 if case in ("d64", "window_d64") else 80
+        (64, 32) if case.startswith("kw32") else (16, 64))
+    d = {"d96": 96, "kw32_d64": 64, "window_d64": 64}.get(case, 80)
     q, k, v, bias_h, bias_w = _card_inputs(cuda_device, 3, rows, cols, d=d)
     if case == "misaligned":
         buf = torch.empty(q.numel() + 1, device=cuda_device)
@@ -371,7 +443,7 @@ def test_relpos_tf32_route_and_scratch_match_the_c_side_on_card(cuda_device):
              (16, 16), (7, 28))
     for kind in (0, 1, 2):
         for dtype in (0, 1):
-            for d in (64, 80, 128):
+            for d in (64, 80, 96, 128):
                 for rows, cols in grids:
                     for s in (rows * cols, rows * cols - 1):
                         for scale in (d ** -0.5, 0.0, -1.0, float("inf"), 1e39):
@@ -385,7 +457,9 @@ def test_relpos_tf32_route_and_scratch_match_the_c_side_on_card(cuda_device):
                                 assert bool(got) is want, (kind, dtype, d, s, rows, cols,
                                                            scale, slot, off)
     for bh, s in ((64, 4096), (16, 3072), (1, 64), (3, 320)):
-        assert lib.bff_relpos_tf32_scratch_floats(bh, s) == tfa.relpos_tf32_scratch_floats(bh, s)
+        for d in (64, 80):
+            assert lib.bff_relpos_tf32_scratch_floats(bh, s, d) == (
+                tfa.relpos_tf32_scratch_floats(bh, s, d))
 
 
 @pytest.mark.cuda
@@ -428,7 +502,7 @@ def test_relpos_tf32_raises_on_a_failed_launch_on_card(cuda_device, monkeypatch,
 
 @pytest.mark.parametrize("name", ["relpos_f32_fma", "k4_tf32_overlap", "k5_tf32_overlap",
                                   "k5_tf32_prefetch", "relpos_tf32_no_pingpong",
-                                  "relpos_tf32_no_fold"])
+                                  "relpos_tf32_no_fold", "k4_tf32_d64_stages_1_1"])
 def test_relpos_tf32_variant_edits_match_the_sources(name):
     """Each of ``tools/kernel_variants.py``'s variants of the f32 rel-pos
     routes is a set of edits that must each match its source once; they

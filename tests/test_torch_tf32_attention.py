@@ -1,10 +1,11 @@
-"""K2 and K3 in f32 (``detector.dtype: float32``) on the 3xTF32 wgmma kernel
-(``csrc/flash_attention_tf32.cu``).
+"""K2 and K3 in f32 (``detector.dtype: float32``), and f32 attention at head
+dim 128, on the 3xTF32 wgmma kernel (``csrc/flash_attention_tf32.cu``).
 
 On the CPU: the kernel's rounding (``tf32_round``: ``cvt.rna.tf32.f32``)
 and split (``tf32_split``), its routing rule (``tf32_route``, the mirror of
 the C predicate ``bff_flash_tf32_takes``) and the counter a call moves,
-its scratch size, its grid (``tf32_schedule``), the key order of its V^T
+its scratch size, its grid (``tf32_schedule``) and key tile
+(``tf32_key_tile``), the key order of its V^T
 against the wgmma fragment layouts, and its arithmetic
 (``flash_tf32_mirror``) against the plain version and against the JAX
 ``_flash_masked`` / ``flash_attention`` / ``attend`` in interpret mode, in
@@ -111,9 +112,15 @@ def test_tf32_split_keeps_about_22_bits(rng):
     ((0, 32, 8192, 8192, _S32, *_A), True),  # no key limit (the keys stream)
     ((1, 32, 900, 900, _S32, *_A), False),  # bf16: K2's bf16 kernel
     ((1, 64, 4096, 4096, _S64, *_A), False),  # bf16: K3's bf16 kernel
-    ((0, 128, 900, 900, 128 ** -0.5, *_A), False),  # head dim 128: the FMA kernel
+    ((0, 128, 900, 900, 128 ** -0.5, *_A), True),  # head dim 128: 32-key tiles
+    ((0, 128, 1024, 900, 128 ** -0.5, *_A), True),  # head dim 128, keys masked
+    ((0, 128, 256, 1, 1.0, *_A), True),  # head dim 128, the shortest S, one valid key
+    ((0, 128, 255, 255, 128 ** -0.5, *_A), False),  # shorter: the FMA kernel
+    ((0, 128, 900, 900, 128 ** -0.5, 0, 0, 4, 0), False),  # head dim 128, v off 16 bytes
+    ((1, 128, 900, 900, 128 ** -0.5, *_A), False),  # bf16 at head dim 128: the tile
     ((0, 16, 900, 900, 0.25, *_A), False),
     ((0, 80, 900, 900, 80 ** -0.5, *_A), False),
+    ((0, 96, 900, 900, 96 ** -0.5, *_A), False),  # head dim 96: the FMA kernel
     ((0, 32, 900, 0, _S32, *_A), False),  # no valid key
     ((0, 32, 900, 901, _S32, *_A), False),  # valid_len past S
     ((0, 32, 900, 900, _S32, 0, 4, 0, 0), False),  # k off 16 bytes
@@ -125,8 +132,8 @@ def test_tf32_split_keeps_about_22_bits(rng):
     ((0, 32, 900, 900, 1e39, *_A), False),  # inf once rounded to f32
 ])
 def test_tf32_route_pins_the_predicate(args, takes):
-    """The Python mirror of ``bff_flash_tf32_takes``: f32, head dim 32 or 64,
-    S >= 256, 1 <= valid_len <= S, a positive finite f32 scale, 16-byte aligned q, k,
+    """The Python mirror of ``bff_flash_tf32_takes``: f32, head dim 32, 64 or
+    128, S >= 256, 1 <= valid_len <= S, a positive finite f32 scale, 16-byte aligned q, k,
     v and output; and the counter a call moves: ``flash_attention_tf32``
     where it takes the call, else ``flash_attention_f32`` for f32 (the FMA
     kernel) and the bf16 kernels' own counters for bf16."""
@@ -153,16 +160,18 @@ def test_tf32_counters_are_registered():
 @pytest.mark.parametrize("bh,d,valid,want", [
     (32, 32, 900, 4 * 32 * 960 * 32), (24, 64, 4096, 4 * 24 * 4096 * 64),
     (24, 64, 4095, 4 * 24 * 4096 * 64), (1, 32, 1, 4 * 64 * 32), (2, 64, 64, 4 * 2 * 64 * 64),
-    (2, 64, 65, 4 * 2 * 128 * 64)])
+    (2, 64, 65, 4 * 2 * 128 * 64), (32, 128, 900, 4 * 32 * 960 * 128),
+    (8, 128, 1024, 4 * 8 * 1024 * 128), (1, 128, 33, 4 * 64 * 128)])
 def test_tf32_scratch_holds_the_split_keys(bh, d, valid, want):
     """Scratch for K hi, K lo, V^T hi and V^T lo, each (BH, Kp, D) with Kp =
-    valid_len rounded up to the 64-key tile."""
+    valid_len rounded up to the pre-pass's 64 keys (at head dim 128 too,
+    whose kernel walks 32-key tiles)."""
     assert tfa.tf32_scratch_floats(bh, d, valid) == want
 
 
 # --------------------------------------------------------------- schedule
 @pytest.mark.parametrize("bh,s", [(32, 900), (8, 900), (24, 4096), (24, 4095), (6, 3072),
-                                  (1, 1), (3, 65), (2, 128), (2, 129)])
+                                  (1, 1), (3, 65), (2, 128), (2, 129), (32, 1024), (8, 1024)])
 def test_tf32_schedule_covers_each_row_once(bh, s):
     """The grid (ceil(S / 128), BH) puts every (head, row) in exactly one
     consumer warpgroup's 64 rows."""
@@ -174,6 +183,21 @@ def test_tf32_schedule_covers_each_row_once(bh, s):
         for r0 in row0s:
             seen[h, r0:min(r0 + 64, s)] += 1
     assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("d,tile,k_stages,v_stages", [(32, 64, 4, 4), (64, 64, 2, 2),
+                                                      (128, 32, 2, 1)])
+def test_tf32_key_tile_fits_a_block(d, tile, k_stages, v_stages):
+    """The kernel's key tile (``tf32_key_tile``) at each head dim, and why:
+    its K and V^T stages (hi and lo of ``tile`` keys by D, four bytes each)
+    beside both consumers' Q halves (2 x 2 x 64 x D) fit the 232 448 bytes
+    a block may have, with the barriers and the 1024-byte alignment; 64-key
+    tiles at head dim 128, even with one stage each, would not. The tile
+    also divides the pre-pass's 64-key padding."""
+    assert tfa.tf32_key_tile(d) == tile and tfa.TF32_TILE % tile == 0
+    smem = lambda t, ks, vs: (ks + vs) * 2 * t * d * 4 + 2 * 2 * 64 * d * 4 + 256 + 1024
+    assert smem(tile, k_stages, v_stages) <= 232_448
+    assert smem(64, 1, 1) > 232_448 or d != 128
 
 
 def test_tf32_key_order_turns_accumulators_into_a_fragments():
@@ -197,10 +221,15 @@ def test_tf32_key_order_turns_accumulators_into_a_fragments():
     (3, 65, 65, 64, 1.0),  # one full and one ragged tile, 3 heads
     (2, 512, 449, 64, 3.0),  # sharp rows, many raised maxima
     (2, 600, 517, 32, 0.25),  # a flat softmax
-    (2, 400, 400, 64, 2.0)])
+    (2, 400, 400, 64, 2.0),
+    (2, 1024, 900, 128, 1.0),  # head dim 128: 32-key tiles, keys masked
+    (2, 1024, 900, 128, 3.0),  # sharp rows at head dim 128
+    (3, 257, 33, 128, 1.0),  # head dim 128, the second tile's first key valid
+    (2, 300, 300, 128, 0.25)])
 def test_tf32_mirror_matches_plain(rng, bh, s, valid, d, spread):
     """The kernel's arithmetic against the plain version within 1e-4, over
-    both head dims, ragged S, keys masked and a spread of score scales."""
+    the three head dims, ragged S, keys masked and a spread of score
+    scales."""
     q, k, v = _inputs(rng, (bh, s, d), spread)
     got = tfa.flash_tf32_mirror(q, k, v, valid)
     want = tfa.flash_attention_plain(q, k, v, valid)
@@ -220,7 +249,7 @@ def test_tf32_mirror_beats_one_tf32_product(rng):
 
 @pytest.mark.parametrize("bh,s,valid,d,spread", [
     (2, 1024, 900, 32, 1.0), (2, 512, 300, 64, 1.0), (2, 512, 512, 32, 3.0),
-    (2, 256, 1, 64, 1.0)])
+    (2, 256, 1, 64, 1.0), (2, 512, 449, 128, 1.0), (2, 512, 449, 128, 3.0)])
 def test_tf32_mirror_matches_flash_masked(rng, jx, bh, s, valid, d, spread):
     """Keys >= valid_len masked: the mirror against the JAX ``_flash_masked``
     in interpret mode in f32, both within 1e-4 of the plain version."""
@@ -234,7 +263,7 @@ def test_tf32_mirror_matches_flash_masked(rng, jx, bh, s, valid, d, spread):
     assert float((got - want).abs().max()) <= TOL
 
 
-@pytest.mark.parametrize("bh,s,d", [(2, 512, 64), (3, 1024, 32)])
+@pytest.mark.parametrize("bh,s,d", [(2, 512, 64), (3, 1024, 32), (2, 512, 128)])
 def test_tf32_mirror_matches_flash_attention(rng, jx, bh, s, d):
     """Every key valid: the mirror against the JAX ``flash_attention`` in
     interpret mode in f32 within 1e-4."""
@@ -245,7 +274,7 @@ def test_tf32_mirror_matches_flash_attention(rng, jx, bh, s, d):
     assert float((got - want).abs().max()) <= TOL
 
 
-@pytest.mark.parametrize("bh,s,d", [(2, 900, 32), (2, 300, 64)])
+@pytest.mark.parametrize("bh,s,d", [(2, 900, 32), (2, 300, 64), (2, 300, 128)])
 def test_tf32_mirror_matches_attend(rng, jx, bh, s, d):
     """Through the JAX ``attend`` (S padded to 512 with the pad keys masked,
     the head dim padded to 128 lanes) in interpret mode, as the main path
@@ -292,11 +321,13 @@ def _moved(before):
     (8, 900, 900, 32), (32, 900, 900, 32), (32, 1024, 1024, 32), (32, 1024, 900, 32),
     (6, 4096, 4096, 64), (24, 4096, 4096, 64), (24, 3072, 3072, 64), (24, 4095, 4095, 64),
     (1, 256, 256, 32), (2, 257, 257, 64), (2, 319, 319, 32), (3, 300, 70, 64),
-    (2, 257, 1, 64)])
+    (2, 257, 1, 64), (32, 1024, 900, 128), (8, 1024, 900, 128), (8, 4096, 4096, 128),
+    (2, 257, 257, 128), (3, 300, 33, 128), (2, 256, 1, 128)])
 def test_tf32_kernel_matches_plain_on_card(cuda_device, bh, s, valid, d):
     """The 3xTF32 kernel at K2's f32 shapes (one frame, the batch of 4,
     unmasked 1024, 900 of 1024 valid), K3's (one frame, the batch of 4, the
-    rect grid, ragged 4095) and edges (the shortest S it takes, ragged rows
+    rect grid, ragged 4095), head dim 128 (900 of 1024 valid at 32 and 8
+    heads, a long sequence) and edges (the shortest S it takes, ragged rows
     and tiles, keys masked inside the second tile, one valid key): within
     1e-4 of the plain version, one launch counted as
     ``flash_attention_tf32``."""
@@ -326,13 +357,27 @@ def test_tf32_kernel_over_score_scales_on_card(cuda_device, spread):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["d128", "d16", "misaligned", "short"])
+@pytest.mark.parametrize("spread", [1.0, 3.0])
+def test_tf32_d128_over_score_scales_on_card(cuda_device, spread):
+    """Head dim 128 at (32, 1024, 128) with 900 valid keys, unit scores and
+    peaked rows: within 1e-4 of the plain version."""
+    g = torch.Generator(device=cuda_device).manual_seed(11)
+    q, k, v = (torch.randn(32, 1024, 128, generator=g, device=cuda_device) for _ in range(3))
+    q, k = q * spread, k * spread
+    got = tfa.flash_attention(q, k, v, valid_len=900)
+    want = tfa.flash_attention_plain(q, k, v, valid_len=900)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["d96", "d16", "misaligned", "short", "d128_short"])
 def test_tf32_other_f32_calls_keep_the_fma_kernel_on_card(cuda_device, case):
-    """f32 calls outside the predicate (head dim 128 or 16, an input off 16
-    bytes, S below 256) stay on the FMA kernel, counted as
-    ``flash_attention_f32``, within 1e-4."""
-    d = {"d128": 128, "d16": 16}.get(case, 64)
-    s, valid = (255, 200) if case == "short" else (700, 650)
+    """f32 calls outside the predicate (head dim 96 or 16, an input off 16
+    bytes, S below 256, at head dim 64 and 128) stay on the FMA kernel,
+    counted as ``flash_attention_f32``, within 1e-4."""
+    d = {"d96": 96, "d16": 16, "d128_short": 128}.get(case, 64)
+    s, valid = (255, 200) if case in ("short", "d128_short") else (700, 650)
     g = torch.Generator(device=cuda_device).manual_seed(d)
     q, k, v = (torch.randn(2, s, d, generator=g, device=cuda_device) for _ in range(3))
     if case == "misaligned":
@@ -353,7 +398,7 @@ def test_tf32_route_and_scratch_match_the_c_side_on_card(cuda_device):
 
     lib = _build.library()
     for dtype in (0, 1):
-        for d in (16, 32, 64, 80, 128):
+        for d in (16, 32, 64, 80, 96, 128):
             for s, valid in ((900, 900), (1024, 900), (256, 1), (255, 255), (1, 1), (900, 0),
                              (900, 901)):
                 for scale in (d ** -0.5, 0.0, -1.0, float("inf"), float("nan"), 1e39):
@@ -362,7 +407,8 @@ def test_tf32_route_and_scratch_match_the_c_side_on_card(cuda_device):
                             dtype, d, s, valid, ctypes.c_float(scale),
                             *(ctypes.c_void_p(p) for p in ptrs)))
                         assert tfa.tf32_route(dtype, d, s, valid, scale, *ptrs) is want
-    for bh, d, valid in ((32, 32, 900), (24, 64, 4095), (1, 32, 1), (2, 64, 65)):
+    for bh, d, valid in ((32, 32, 900), (24, 64, 4095), (1, 32, 1), (2, 64, 65), (32, 128, 900),
+                         (1, 128, 33)):
         assert lib.bff_flash_tf32_scratch_floats(bh, d, valid) == tfa.tf32_scratch_floats(
             bh, d, valid)
 
