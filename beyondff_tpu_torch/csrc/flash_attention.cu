@@ -34,7 +34,8 @@
 //   one block's 15 steps, not a bandwidth. bf16 inputs with D % 8 != 0 or
 //   bases off 16 bytes (no 16-byte cp.async rows) take the f32-FMA kernel
 //   below.
-// * f32 at head dim 32 or 64 (K2 and K3 in detector.dtype float32), exactly
+// * f32 at head dim 32 or 64 (K2 and K3 in detector.dtype float32), and at 96
+//   and 128, which no configured model calls, exactly
 //   where bff_flash_tf32_takes says so: the 3xTF32 wgmma/TMA kernel of
 //   csrc/flash_attention_tf32.cu. One TF32 product would not hold the 1e-4
 //   the f32 calls are held to; three (hi hi + hi lo + lo hi, each operand
@@ -298,4 +299,17 @@ extern "C" int bff_flash_attention(int dtype, const void* q, const void* k, cons
     return dispatch<__nv_bfloat16>(q, k, v, o, BH, S, D, valid_len, scale, s);
   }
   return -1;
+}
+
+// f32 on the FMA kernel (flash_fwd_kernel<float>) whatever
+// bff_flash_tf32_takes says: the yardstick that chip_smoke.py and
+// tools/kernel_variants.py time beside the 3xTF32 kernel on the same call.
+// No wrapper calls it. Arguments and return codes as bff_flash_attention's,
+// f32 only.
+extern "C" int bff_flash_attention_f32_fma(const void* q, const void* k, const void* v, void* o,
+                                           int BH, int S, int D, int valid_len, float scale,
+                                           void* stream) {
+  if (BH < 1 || S < 1 || D < 1 || D > 128 || valid_len < 1 || valid_len > S) return -1;
+  return dispatch<float>(q, k, v, o, BH, S, D, valid_len, scale,
+                         static_cast<cudaStream_t>(stream));
 }

@@ -9,10 +9,11 @@
 // divided once. On the port's main path in detector.dtype float32 that is K2,
 // the Grounding-DINO decoder's self-attention at (8 B, 900, 32), and K3,
 // EfficientSAM-S's global blocks at (6 B, 4096, 64) (and (6 B, 3072, 64) on
-// the rect grid); and f32 attention at head dim 128, which the public entry
-// points take and no configured model calls. bff_flash_attention
+// the rect grid); and f32 attention at head dims 96 and 128, which the public
+// entry points take and no configured model calls. bff_flash_attention
 // (csrc/flash_attention.cu) routes here exactly the calls that
-// bff_flash_tf32_takes accepts: f32, D in {32, 64, 128}, S >= kMinS = 256,
+// bff_flash_tf32_takes accepts: f32, D in {32, 64, 96, 128} (every multiple
+// of 32 up to 128), S >= kMinS = 256,
 // 1 <= valid_len <= S, a positive finite scale and 16-byte aligned q, k, v
 // and o; every other f32 call keeps
 // flash_fwd_kernel<float> (f32 FMAs). Below S = 256 the pre-pass and the
@@ -91,6 +92,19 @@
 //   at unit scale, within 1e-5 of it, so the fold (kFold128: each tile's P
 //   V summed apart in two 64-column halves, m64n64k8, and added by the FMA
 //   units, as csrc/relpos_attention_tf32.cu's kFold does) stays off.
+// * Head dim 96 (Cfg<96>). A 96-float row is three 128-byte TMA boxes. At
+//   64-key tiles a K stage and a V stage (hi and lo) take 48 KB each, so
+//   beside both consumers' Q halves (96 KB) only one of each fits (192 KB);
+//   at 32-key tiles (D 128's) two of each fit. The output at m64n96 is 48
+//   registers a thread; 64-key scores (32) and P's halves (64) leave 24 of
+//   the 168 for addresses, yet ptxas fits them without a spill when each
+//   tile's products run in turn. So the tiles are 64 keys (wgmma.m64n64k8
+//   for Q K^T, m64n96k8 for P V), one K and one V stage, each tile's
+//   products in turn (kOverlap96 off), P V accumulated across the tiles by
+//   the tensor cores (no fold: 6.8e-6 from plain at unit scale). 32-key
+//   tiles with two K and two V stages and the overlap, the first design,
+//   were 6% slower (0.1485 against 0.1401 ms at (32, 1024, 96) with 900
+//   valid keys; serial 0.1563; three K stages 0.1494).
 // * Masking is branch-free: every score of a key >= valid_len is set to
 //   -inf (only the last tile has any); rows >= S are computed on zero Q and
 //   not written.
@@ -109,7 +123,12 @@
 // the bound, the pre-pass 0.031 of it) against 0.899 ms for the FMA kernel
 // and 0.446 ms for scaled_dot_product_attention in f32; there the fold
 // took 0.212, the overlap 0.247 (it spills), one K stage and two V stages
-// 0.261, one of each 0.224.
+// 0.261, one of each 0.224. At (32, 1024, 96) with 900 valid keys 0.140 ms
+// (49% of its 0.0686 ms bound, the pre-pass 0.024) against 0.895 ms for
+// the FMA kernel and 0.414 ms for scaled_dot_product_attention in f32, 6.8e-6
+// from plain (2.9e-5 at spread 3); the overlap at D 96 spilled 384 bytes
+// and took 0.287. At (8, 256, 96) 0.0252 against the FMA kernel's 0.0688:
+// kMinS holds at D 96.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -136,6 +155,11 @@ constexpr bool kPingpong = true;      // the consumers take turns to issue their
 constexpr bool kOverlap128 = false;
 constexpr bool kFold128 = false;
 constexpr int kKStages128 = 2, kVStages128 = 1;
+// Head dim 96 (Cfg): 64-key tiles, one K and one V stage, each tile's
+// products in turn
+constexpr int kBN96 = 64;
+constexpr bool kOverlap96 = false;
+constexpr int kKStages96 = 1, kVStages96 = 1;
 constexpr int kThreads = 128 * (kConsumers + 1);  // the producer is the last warpgroup
 constexpr int kProducerRegs = 24;
 constexpr int kConsumerRegs = 240;
@@ -147,12 +171,12 @@ template <int D>
 struct Cfg {
   // keys of a tile: 64, or 32 at D 128, where one 64-key stage (K and V^T
   // hi and lo, 128 KB) beside both consumers' Q halves (128 KB) would not
-  // fit in a block's 227 KB
-  static constexpr int kBN = D == 128 ? 32 : 64;
+  // fit in a block's 227 KB (at D 96 one 64-key stage of each fits)
+  static constexpr int kBN = D == 128 ? 32 : D == 96 ? kBN96 : 64;
   static constexpr int kStages = D == 32 ? 4 : 2;
-  static constexpr int kKStages = D == 128 ? kKStages128 : kStages;
-  static constexpr int kVStages = D == 128 ? kVStages128 : kStages;
-  static constexpr bool kOverlapped = D == 128 ? kOverlap128 : kOverlap;
+  static constexpr int kKStages = D == 128 ? kKStages128 : D == 96 ? kKStages96 : kStages;
+  static constexpr int kVStages = D == 128 ? kVStages128 : D == 96 ? kVStages96 : kStages;
+  static constexpr bool kOverlapped = D == 128 ? kOverlap128 : D == 96 ? kOverlap96 : kOverlap;
   static constexpr bool kFold = D == 128 && kFold128;
   static constexpr int kKBytes = kBN * D * 4;  // K hi or K lo of a tile: D / 32 boxes of kBN rows
   static constexpr int kVBytes = D * kBN * 4;  // V^T hi or lo of a tile: kBN / 32 boxes of D rows
@@ -173,7 +197,7 @@ struct Barriers {
   uint64_t v_full[Cfg<D>::kVStages], v_empty[Cfg<D>::kVStages];
 };
 static_assert(sizeof(Barriers<32>) <= 256 && sizeof(Barriers<64>) <= 256 &&
-                  sizeof(Barriers<128>) <= 256,
+                  sizeof(Barriers<96>) <= 256 && sizeof(Barriers<128>) <= 256,
               "the barriers' room");
 
 #define BFF_T4(a, i) "+f"(a[i]), "+f"(a[i + 1]), "+f"(a[i + 2]), "+f"(a[i + 3])
@@ -194,6 +218,19 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[64], const uint32_t (&a)[4
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
       "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
       : BFF_T16(d, 0), BFF_T16(d, 16), BFF_T16(d, 32), BFF_T16(d, 48)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+__device__ __forceinline__ void wgmma_tf32(float (&d)[48], const uint32_t (&a)[4], uint64_t db,
+                                           int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
+      "{%48, %49, %50, %51}, %52, p, 1, 1;\n}\n"
+      : BFF_T16(d, 0), BFF_T16(d, 16), BFF_T16(d, 32)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
 }
 __device__ __forceinline__ void wgmma_tf32(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
@@ -705,9 +742,9 @@ int launch(const void* q, const void* k, const void* v, void* o, void* scratch, 
 // float32, 1 = bfloat16.
 extern "C" int bff_flash_tf32_takes(int dtype, int D, int S, int valid_len, float scale,
                                     const void* q, const void* k, const void* v, const void* o) {
-  return dtype == 0 && (D == 32 || D == 64 || D == 128) && S >= kMinS && valid_len >= 1 &&
-         valid_len <= S && scale > 0.f && scale <= FLT_MAX && aligned16(q) && aligned16(k) &&
-         aligned16(v) && aligned16(o);
+  return dtype == 0 && (D == 32 || D == 64 || D == 96 || D == 128) && S >= kMinS &&
+         valid_len >= 1 && valid_len <= S && scale > 0.f && scale <= FLT_MAX && aligned16(q) &&
+         aligned16(k) && aligned16(v) && aligned16(o);
 }
 
 // The scratch a call needs, in floats: K hi and lo, V^T hi and lo, each
@@ -731,5 +768,6 @@ extern "C" int bff_flash_attention_tf32(const void* q, const void* k, const void
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D == 32) return launch<32>(q, k, v, o, scratch, BH, S, valid_len, scale, s);
   if (D == 64) return launch<64>(q, k, v, o, scratch, BH, S, valid_len, scale, s);
+  if (D == 96) return launch<96>(q, k, v, o, scratch, BH, S, valid_len, scale, s);
   return launch<128>(q, k, v, o, scratch, BH, S, valid_len, scale, s);
 }

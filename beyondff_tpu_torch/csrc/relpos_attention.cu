@@ -590,8 +590,8 @@ extern "C" int bff_relpos_tf32_takes(int kind, int dtype, int D, int S, int rows
                                      const void* o, const void* bias_h, const void* bias_w);
 extern "C" int bff_flash_relpos_tf32(const void* q, const void* k, const void* v,
                                      const void* bias_h, const void* bias_w, void* o,
-                                     void* scratch, int BH, int S, int D, int kh, float scale,
-                                     void* stream);
+                                     void* scratch, int BH, int S, int D, int kh, int kw,
+                                     float scale, void* stream);
 extern "C" int bff_window_relpos_tf32(const void* q, const void* k, const void* v,
                                       const void* bias_h, const void* bias_w, void* o, int G,
                                       float scale, void* stream);
@@ -623,8 +623,8 @@ extern "C" int bff_flash_attention_relpos(int dtype, const void* q, const void* 
   if (bff_relpos_wgmma_takes(0, dtype, D, S, kh, kw, scale, q, k, v, o, bias_h, bias_w))
     return bff_flash_relpos_wgmma(q, k, v, bias_h, bias_w, o, BH, S, kh, scale, stream);
   if (bff_relpos_tf32_takes(0, dtype, D, S, kh, kw, scale, q, k, v, o, bias_h, bias_w))
-    return bff_flash_relpos_tf32(q, k, v, bias_h, bias_w, o, scratch, BH, S, D, kh, scale,
-                                 stream);
+    return bff_flash_relpos_tf32(q, k, v, bias_h, bias_w, o, scratch, BH, S, D, kh, kw,
+                                 scale, stream);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return BFF_BY_HEAD_DIM(launch_flash, float, q, k, v, bias_h, bias_w, o, BH, S, D, kh, kw,
@@ -661,4 +661,20 @@ extern "C" int bff_window_attention_relpos(int dtype, const void* q, const void*
     return BFF_BY_HEAD_DIM(launch_window, __nv_bfloat16, q, k, v, bias_h, bias_w, o, G, S, D,
                            wh, ww, scale, s);
   return -1;
+}
+
+// K4 in f32 on the FMA kernel above whatever bff_relpos_tf32_takes says: the
+// yardstick that chip_smoke.py and tools/kernel_variants.py time beside the
+// 3xTF32 kernel on the same call. No wrapper calls it. Arguments and return
+// codes as bff_flash_attention_relpos's, f32 only.
+extern "C" int bff_flash_attention_relpos_f32_fma(const void* q, const void* k, const void* v,
+                                                  const void* bias_h, const void* bias_w,
+                                                  void* o, int BH, int S, int D, int kh, int kw,
+                                                  float scale, void* stream) {
+  if (BH < 1 || S < 1 || D < 1 || D > 128 || kh < 1 || kw < 1 || kh * kw != S ||
+      kh + kw > 256)
+    return -1;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return BFF_BY_HEAD_DIM(launch_flash, float, q, k, v, bias_h, bias_w, o, BH, S, D, kh, kw,
+                         scale, s);
 }

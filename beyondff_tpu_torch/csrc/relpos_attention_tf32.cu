@@ -4,7 +4,7 @@
 // * flash_relpos_tf32_kernel replaces, for float32 inputs, the TPU kernel
 //   beyondff_tpu/kernels/flash_attention.py flash_attention_relpos (:193,
 //   pallas_call :214, body _relpos_kernel :128, wrapper attend_relpos :253):
-//   softmax(Q K^T * scale + bias) V over a raster-ordered (kh, 64) key grid
+//   softmax(Q K^T * scale + bias) V over a raster-ordered (kh, kw) key grid
 //   with an online max and denominator, the output divided once. SAM
 //   ViT-H's global blocks in detector.dtype float32 under
 //   BFF_SAM_RELPOS_FLASH=1: (16 B, 4096, 80), and (16 B, 3072, 80) on the
@@ -20,12 +20,12 @@
 // added in f32. bff_flash_attention_relpos and bff_window_attention_relpos
 // (csrc/relpos_attention.cu) route here exactly the calls that
 // bff_relpos_tf32_takes accepts (kernels/flash_attention.py
-// relpos_tf32_route mirrors it): f32, kw = 64 with kMinGridH <= kh <= 64
-// at D 64 or 80 (K4) or a 14 x 14 window at D 80 (K5), a positive finite
-// scale, and q, k,
-// v, o and both factors 16-byte aligned. Every other f32 call keeps the FMA
-// kernels of csrc/relpos_attention.cu. The line lies below every grid K4
-// takes: at one grid row (16 heads, S = 64) this kernel took 0.0101 ms
+// relpos_tf32_route mirrors it): f32, kMinGridH <= kh <= 64 with kw = 64,
+// or kw a multiple of 8 from kMinGridW = 8 to 56 (the narrow mode below), at
+// D 64 or 80 (K4), or a 14 x 14 window at D 80 (K5), a positive finite
+// scale, and q, k, v, o and both factors 16-byte aligned. Every other f32
+// call keeps the FMA kernels of csrc/relpos_attention.cu. The line lies
+// below every grid K4 takes: at one grid row (16 heads, S = 64) this kernel took 0.0101 ms
 // against the FMA kernel's 0.0211, at 2, 4 and 8 rows 2.5-3.5x less
 // (tools/kernel_variants.py --cases "relpos_f32 small"), so kMinGridH is 1.
 //
@@ -100,6 +100,31 @@
 //   the output 40, P's halves 64 and, with kFold, the tile's P V 40; 72
 //   bytes spill (155 registers and none without kFold).
 // * Rows past S (an odd kh) are computed on zero Q and not written.
+// * Grids narrower than 64 (the narrow mode, flash_relpos_tf32_kernel<D,
+//   true>: SAM's portrait frames under BFF_SAM_RECT=1, 64 x 32 for a 2:1
+//   frame). A 64-key tile then spans 64 / kw grid rows or, where kw does
+//   not divide 64, parts of two or more, so neither factor is the same for
+//   every tile. The tiles stay 64 keys (the wgmma shapes, stages, pingpong
+//   and fold of the wide mode, at full tensor-core width whatever kw is);
+//   what changes is where the bias comes from. With kw a multiple of 8 an
+//   n8 group of keys lies in one grid row, so the wide mode's split holds
+//   a group at a time: each score's accumulator starts at bias_w[q, k % kw]
+//   (an 8-byte pair a lane from the block's table: kw columns at a row
+//   stride of kw or kw + 8, whichever is 8 mod 16 in 8-byte words, no bank
+//   conflicts), and bias_h[q, k / kw] shifts the group's logits in log2
+//   units in the softmax (16 shifts a lane a tile, read from device
+//   memory, L1); the group's grid row and column advance by 8 keys a group
+//   and 64 a tile without a division. The pre-pass pads the last tile (S =
+//   kh kw need not be a multiple of 64) with zero keys, which start at
+//   -inf. Two designs lost (tools/kernel_variants.py on an H100 at 700 W):
+//   the whole bias as the accumulators' start, as K5 does, lay 1.07e-4
+//   from plain at factor scale 3 (the tensor cores' sums carry twice a
+//   factor's magnitude through every k-step); the whole bias added in f32
+//   once the products are in held 1e-4 but its reads sit between the
+//   scores and the softmax, 6-19% slower. The
+//   other way, tiles of one grid row (N = kw), keeps the wide mode's row
+//   shift but runs the tensor cores at n16..n56 with the per-tile softmax
+//   and barrier costs of a 64-key tile.
 // * Head dim 64 (K4Cfg<64>): images of 16 KB a 64-key tile, 8 regions a
 //   row. Q 64 KB, two K stages and one V stage 96 KB and the table 36 KB:
 //   196 KB. Two V stages as well fit only with the table at 64 floats a
@@ -137,7 +162,15 @@
 // kernel and 13.35 ms for scaled_dot_product_attention in f32 with the
 // bias as a float mask; K5 at (1600, 196, 80) 0.471 ms (28% of its byte
 // bound) against 1.93 and 1.57 ms; K4 at (64, 4096, 64) 2.60 ms (64% of
-// its 1.666 ms bound) against 13.86 and 8.24 ms.
+// its 1.666 ms bound) against 13.86 and 8.24 ms. The narrow mode at (64,
+// 2048, 64) on a 64 x 32 grid 0.909 ms (46% of its 0.4165 ms bound)
+// against 4.46 ms for the FMA kernel and 2.63 ms for SDPA in f32 with the
+// bias as a float mask; (64, 3072, 64) on 64 x 48 1.95 against 9.93 and
+// 5.76; at head dim 80 1.18 and 2.52 against 5.31 / 11.71 and 3.39 / 7.60
+// (D 80 spills 88 bytes; starting the scores at the whole bias, 16
+// registers fewer, took 1.02 and 2.18 but missed 1e-4).
+// At one tile (16 heads of a 1 x 8 grid) 0.0081 against the FMA kernel's
+// 0.0119, so kMinGridW is 8, the narrowest width the groups allow.
 //
 // Host: a failed launch returns non-zero and the wrapper raises: nothing
 // falls back to another kernel.
@@ -173,6 +206,7 @@ constexpr int kBN = 64;               // keys of a K4 tile: one grid row
 constexpr bool kOverlap = false;      // issue Q K^T of tile t before P V of tile t - 1
 constexpr int kKStages = 1, kVStages = 1;
 constexpr int kBwLd = kGridW + 8;     // the bias_w table's row stride (floats)
+constexpr int kMinGridW = 8;          // the narrow mode's smallest kw (a multiple of 8)
 // K4 at head dim 64 (K4Cfg): the K and V rings' depths
 constexpr int kKStages64 = 2, kVStages64 = 1;
 constexpr int kSplitThreads = 256;
@@ -323,36 +357,41 @@ __device__ __forceinline__ void issue_pv(float (&o)[D / 2], const uint32_t (&ph)
 }
 
 // The online softmax of one score tile in place. s holds the logits in
-// natural units (masked keys at -inf); sh[h] shifts row h's logits in log2
-// units (K4: bias_h of the tile's grid row). The running max m (log2
+// natural units (masked keys at -inf); sh[h][g] shifts row h's logits in
+// log2 units: with G = 1 the whole row (K4's wide mode: bias_h of the
+// tile's grid row; K5: 0), with G = N / 8 the keys of n8 group g (K4's
+// narrow mode: bias_h of the group's grid row). The running max m (log2
 // units) is raised, l rescaled and summed, s turned into p; corr: the
 // factors the output rows are rescaled by.
-template <int N>
+template <int N, int G>
 __device__ __forceinline__ void softmax_tile(float (&s)[N / 2], float (&m)[2], float (&l)[2],
-                                             float (&corr)[2], const float (&sh)[2]) {
+                                             float (&corr)[2], const float (&sh)[2][G]) {
+  static_assert(G == 1 || G == N / 8, "a shift a row, or a row and n8 group");
   float mx[2] = {bff_tc::masked_score(), bff_tc::masked_score()};
 #pragma unroll
   for (int j = 0; j < N / 8; ++j) {
-    mx[0] = fmaxf(mx[0], fmaxf(s[4 * j], s[4 * j + 1]));
-    mx[1] = fmaxf(mx[1], fmaxf(s[4 * j + 2], s[4 * j + 3]));
+    const float m0 = fmaxf(s[4 * j], s[4 * j + 1]), m1 = fmaxf(s[4 * j + 2], s[4 * j + 3]);
+    mx[0] = fmaxf(mx[0], G == 1 ? m0 : fmaf(m0, kL2e, sh[0][j % G]));
+    mx[1] = fmaxf(mx[1], G == 1 ? m1 : fmaf(m1, kL2e, sh[1][j % G]));
   }
-  float c[2];
+  float c[2][G];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
     mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-    const float m_new = fmaxf(m[h], fmaf(mx[h], kL2e, sh[h]));
+    const float m_new = fmaxf(m[h], G == 1 ? fmaf(mx[h], kL2e, sh[h][0]) : mx[h]);
     corr[h] = bff_tc::exp2_approx(m[h] - m_new);
     m[h] = m_new;
     l[h] *= corr[h];
-    c[h] = sh[h] - m[h];
+#pragma unroll
+    for (int g = 0; g < G; ++g) c[h][g] = sh[h][g] - m[h];
   }
 #pragma unroll
   for (int j = 0; j < N / 8; ++j) {
-    s[4 * j] = bff_tc::exp2_approx(fmaf(s[4 * j], kL2e, c[0]));
-    s[4 * j + 1] = bff_tc::exp2_approx(fmaf(s[4 * j + 1], kL2e, c[0]));
-    s[4 * j + 2] = bff_tc::exp2_approx(fmaf(s[4 * j + 2], kL2e, c[1]));
-    s[4 * j + 3] = bff_tc::exp2_approx(fmaf(s[4 * j + 3], kL2e, c[1]));
+    s[4 * j] = bff_tc::exp2_approx(fmaf(s[4 * j], kL2e, c[0][j % G]));
+    s[4 * j + 1] = bff_tc::exp2_approx(fmaf(s[4 * j + 1], kL2e, c[0][j % G]));
+    s[4 * j + 2] = bff_tc::exp2_approx(fmaf(s[4 * j + 2], kL2e, c[1][j % G]));
+    s[4 * j + 3] = bff_tc::exp2_approx(fmaf(s[4 * j + 3], kL2e, c[1][j % G]));
     l[0] += s[4 * j] + s[4 * j + 1];
     l[1] += s[4 * j + 2] + s[4 * j + 3];
   }
@@ -395,15 +434,16 @@ struct Ring {
 // query rows (Q's images at qhi, qlo), the tiles being the ring's u0 .. u0
 // + n_tiles - 1 (stage u % stages, parity (u / stages) % 2). init(t, s, sh)
 // sets tile t's score accumulators to their initial values (the bias, -inf
-// for masked keys) and the rows' log2 shifts. Leaves the output rows
-// (unnormalised) in acc and their denominators, summed over the quad, in l.
+// for masked keys) and the log2 shifts of the rows (G = 1) or of each row's
+// n8 groups (G = N / 8). Leaves the output rows (unnormalised) in acc and
+// their denominators, summed over the quad, in l.
 // With kFold each tile's P V is a fresh wgmma sum, added to acc by the FMA
 // units: the tensor cores' f32 sums then span 3 KS products, not the row's
 // every key.
 // Every round of issues is one pingpong turn: consumer 1 hands consumer 0
 // the first turn before the first pass, consumer 0 takes the surplus one
 // after the last.
-template <int N, int KStages, int VStages, bool Overlap, int D, typename Init>
+template <int N, int KStages, int VStages, bool Overlap, int D, int G, typename Init>
 __device__ __forceinline__ void attend_rows(float (&acc)[D / 2], float (&l)[2], uint32_t qhi,
                                             uint32_t qlo, const Ring& ring, int u0, int n_tiles,
                                             int wg, Init&& init) {
@@ -417,7 +457,7 @@ __device__ __forceinline__ void attend_rows(float (&acc)[D / 2], float (&l)[2], 
   float s[N / 2], pv_sum[D / 2];
   float (&pv)[D / 2] = kFold ? pv_sum : acc;  // what P V's wgmmas accumulate into
   uint32_t ph[KS][4] = {}, pl[KS][4] = {};
-  float m[2] = {bff_tc::kInitMax, bff_tc::kInitMax}, corr[2], sh[2];
+  float m[2] = {bff_tc::kInitMax, bff_tc::kInitMax}, corr[2], sh[2][G];
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) acc[i] = pv_sum[i] = 0.f;
   l[0] = l[1] = 0.f;
@@ -455,7 +495,7 @@ __device__ __forceinline__ void attend_rows(float (&acc)[D / 2], float (&l)[2], 
     wgmma_wait<0>();
     fence_regs(s);
     if (signals) bar_arrive(&bars->k_empty[st]);
-    softmax_tile<N>(s, m, l, corr, sh);
+    softmax_tile<N, G>(s, m, l, corr, sh);
     split_p<KS>(ph, pl, s);
   }
   for (int t = 1; t < n_tiles; ++t) {
@@ -476,7 +516,7 @@ __device__ __forceinline__ void attend_rows(float (&acc)[D / 2], float (&l)[2], 
       wgmma_wait<1>();  // the scores are in
       fence_regs(s);
       if (signals) bar_arrive(&bars->k_empty[st]);
-      softmax_tile<N>(s, m, l, corr, sh);
+      softmax_tile<N, G>(s, m, l, corr, sh);
       wgmma_wait<0>();  // P V of tile t - 1 is in
       fence_regs(pv);
       fence_regs(ph);
@@ -503,7 +543,7 @@ __device__ __forceinline__ void attend_rows(float (&acc)[D / 2], float (&l)[2], 
       wgmma_wait<0>();
       fence_regs(s);
       if (signals) bar_arrive(&bars->k_empty[st]);
-      softmax_tile<N>(s, m, l, corr, sh);
+      softmax_tile<N, G>(s, m, l, corr, sh);
     }
     fold();
     rescale<D>(acc, corr);
@@ -601,24 +641,26 @@ struct K4Cfg {
 constexpr int kImg64 = img_bytes(kBN);  // a 64-row image at head dim 80, 20 KB
 
 // Each 64-key tile of a head as four images (K hi, K lo, V^T hi, V^T lo):
-// tile t of head bh at scratch + (bh * kh + t) * 4 * img_bytes<D>(64). One
-// block a tile.
-template <int D>
+// tile t of head bh at scratch + (bh * n_tiles + t) * 4 * img_bytes<D>(64).
+// One block a tile. kRagged (the narrow mode): keys >= S of the last tile as
+// zero.
+template <int D, bool kRagged>
 __global__ void __launch_bounds__(kSplitThreads) split_kv_relpos_kernel(
     const float* __restrict__ k, const float* __restrict__ v, float* __restrict__ scratch,
     int S) {
   constexpr int kImg = K4Cfg<D>::kImg;
   __shared__ float tk[kBN][D + 1], tv[kBN][D + 1];
-  const int t = blockIdx.x, bh = blockIdx.y, kh = gridDim.x;
+  const int t = blockIdx.x, bh = blockIdx.y, n_tiles = gridDim.x;
   const long long in = ((long long)bh * S + (long long)t * kBN) * D;
   for (int i = threadIdx.x; i < kBN * D; i += kSplitThreads) {
     const int r = i / D, c = i - r * D;
-    tk[r][c] = k[in + i];
-    tv[r][c] = v[in + i];
+    const bool live = !kRagged || t * kBN + r < S;
+    tk[r][c] = live ? k[in + i] : 0.f;
+    tv[r][c] = live ? v[in + i] : 0.f;
   }
   __syncthreads();
   unsigned char* img =
-      reinterpret_cast<unsigned char*>(scratch + ((long long)bh * kh + t) * 4 * (kImg / 4));
+      reinterpret_cast<unsigned char*>(scratch + ((long long)bh * n_tiles + t) * 4 * (kImg / 4));
   for (int i = threadIdx.x; i < 2 * (D / 8) * kBN; i += kSplitThreads) {
     int r;
     const int c = kimg_chunk(i, kBN, r);
@@ -637,11 +679,17 @@ __global__ void __launch_bounds__(kSplitThreads) split_kv_relpos_kernel(
   }
 }
 
-template <int D>
+// The bias_w table's row stride in the narrow mode: kw or kw + 8 floats,
+// whichever is 8 mod 16 (a quad's 8-byte reads of 8 rows in distinct banks).
+__host__ __device__ constexpr int narrow_ld(int kw) { return kw % 16 == 0 ? kw + 8 : kw; }
+
+// kNarrow: a grid of kw < 64 columns (the narrow mode); otherwise kw = 64
+// and kh = S / 64 tiles of one grid row each.
+template <int D, bool kNarrow>
 __global__ void __launch_bounds__(kThreads, 1) flash_relpos_tf32_kernel(
     const float* __restrict__ q, const float* __restrict__ scratch,
     const float* __restrict__ bias_h, const float* __restrict__ bias_w, float* __restrict__ o,
-    int S, int kh, float scale) {
+    int S, int kh, int kw, float scale) {
   using C = K4Cfg<D>;
   constexpr int kImg = C::kImg;
   extern __shared__ __align__(1024) unsigned char rt_smem_raw[];
@@ -650,14 +698,18 @@ __global__ void __launch_bounds__(kThreads, 1) flash_relpos_tf32_kernel(
   Barriers* bars = reinterpret_cast<Barriers*>(smem + C::kBarOff);
   const int bh = blockIdx.y;
   const int q0 = blockIdx.x * kBM;
+  const int cols = kNarrow ? kw : kGridW;          // bias_w's columns
+  const int ld = kNarrow ? narrow_ld(kw) : kBwLd;  // the table's row stride
+  const int n_tiles = kNarrow ? (S + kBN - 1) / kBN : kh;
 
   // the block's rows of bias_w (zero past S)
-  const float* bwg = bias_w + (long long)bh * S * kGridW;
-  for (int i = threadIdx.x; i < kBM * kGridW / 4; i += kThreads) {
-    const int r = i / (kGridW / 4), c = 4 * (i % (kGridW / 4));
+  const float* bwg = bias_w + (long long)bh * S * cols;
+  for (int i = threadIdx.x; i < kBM * cols / 4; i += kThreads) {
+    const int r = i / (cols / 4), c = 4 * (i % (cols / 4));
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (q0 + r < S) x = __ldg(reinterpret_cast<const float4*>(bwg + (long long)(q0 + r) * kGridW + c));
-    *reinterpret_cast<float4*>(sBw + r * kBwLd + c) = x;
+    if (q0 + r < S)
+      x = __ldg(reinterpret_cast<const float4*>(bwg + (long long)(q0 + r) * cols + c));
+    *reinterpret_cast<float4*>(sBw + r * ld + c) = x;
   }
   if (threadIdx.x == 0) {
 #pragma unroll
@@ -677,8 +729,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_relpos_tf32_kernel(
     // ---------------------------------------------------------- producer
     if (threadIdx.x == 128 * kConsumers) {
       const unsigned char* src =
-          reinterpret_cast<const unsigned char*>(scratch) + (long long)bh * kh * tile_bytes;
-      for (int t = 0; t < kh; ++t) {
+          reinterpret_cast<const unsigned char*>(scratch) + (long long)bh * n_tiles * tile_bytes;
+      for (int t = 0; t < n_tiles; ++t) {
         const int kst = t % C::kKStages, kparity = ((t / C::kKStages) & 1) ^ 1;
         const int vst = t % C::kVStages, vparity = ((t / C::kVStages) & 1) ^ 1;
         bar_wait_or_trap(&bars->k_empty[kst], kparity);
@@ -701,7 +753,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_relpos_tf32_kernel(
                wg);
     if (kPingpong && wg == kConsumers - 1) turn_arrive(1 + (wg + 1) % kConsumers);
 
-    const float* bw_row[2] = {sBw + rb * kBwLd + 2 * tq, sBw + (rb + 8) * kBwLd + 2 * tq};
+    const float* bw_row[2] = {sBw + rb * ld + 2 * tq, sBw + (rb + 8) * ld + 2 * tq};
     const float* bh_row[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h)
@@ -709,10 +761,10 @@ __global__ void __launch_bounds__(kThreads, 1) flash_relpos_tf32_kernel(
                                       : nullptr;
     // tile t: the accumulators start at bias_w (the same for every tile),
     // the rows shift by bias_h[q, t] in log2 units
-    auto init = [&](int t, float (&s)[kBN / 2], float (&sh)[2]) {
+    auto init_wide = [&](int t, float (&s)[kBN / 2], float (&sh)[2][1]) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        sh[h] = bh_row[h] != nullptr ? __ldg(bh_row[h] + t) * kL2e : 0.f;
+        sh[h][0] = bh_row[h] != nullptr ? __ldg(bh_row[h] + t) * kL2e : 0.f;
 #pragma unroll
         for (int j = 0; j < kBN / 8; ++j) {
           const float2 w = *reinterpret_cast<const float2*>(bw_row[h] + 8 * j);
@@ -721,38 +773,67 @@ __global__ void __launch_bounds__(kThreads, 1) flash_relpos_tf32_kernel(
         }
       }
     };
+    // the narrow mode's tile t: the accumulators start at bias_w[q, kx]
+    // (keys >= S at -inf), and each n8 group's keys shift by bias_h[q, ky]
+    // in log2 units. n8 group j holds keys 64 t + 8 j .. + 7, one grid row
+    // (kw % 8 == 0): (ky, kx) of the group's first key, advanced by 8 keys
+    // a group and set once a tile
+    auto init_narrow = [&](int t, float (&s)[kBN / 2], float (&sh)[2][kBN / 8]) {
+      int ky = t * kBN / kw, kx = t * kBN - ky * kw;
+#pragma unroll
+      for (int j = 0; j < kBN / 8; ++j) {
+        const bool in = t * kBN + 8 * j < S;  // S is a multiple of 8: the whole group
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          sh[h][j] = in && bh_row[h] != nullptr ? __ldg(bh_row[h] + ky) * kL2e : 0.f;
+          const float2 w = *reinterpret_cast<const float2*>(bw_row[h] + kx);
+          s[4 * j + 2 * h] = in ? w.x : bff_tc::masked_score();
+          s[4 * j + 2 * h + 1] = in ? w.y : bff_tc::masked_score();
+        }
+        kx += 8;
+        if (kx >= kw) {
+          kx -= kw;
+          ++ky;
+        }
+      }
+    };
     const Ring ring{bars, smem_u32(smem + C::kKOff), smem_u32(smem + C::kVOff)};
     float acc[D / 2], l[2];
-    attend_rows<kBN, C::kKStages, C::kVStages, kOverlap, D>(acc, l, smem_u32(q_hi),
-                                                            smem_u32(q_lo), ring, 0, kh, wg, init);
+    if constexpr (kNarrow)
+      attend_rows<kBN, C::kKStages, C::kVStages, kOverlap, D, kBN / 8>(
+          acc, l, smem_u32(q_hi), smem_u32(q_lo), ring, 0, n_tiles, wg, init_narrow);
+    else
+      attend_rows<kBN, C::kKStages, C::kVStages, kOverlap, D, 1>(
+          acc, l, smem_u32(q_hi), smem_u32(q_lo), ring, 0, kh, wg, init_wide);
     if (kPingpong && wg == 0) turn_sync(1);  // the last consumer's last turn
     const int row = q0 + rb;
     store_rows<D>(acc, l, o + ((long long)bh * S + row) * D, row < S, row + 8 < S);
   }
 }
 
-template <int D>
+template <int D, bool kNarrow>
 int launch_k4(const void* q, const void* k, const void* v, const void* bias_h,
-              const void* bias_w, void* o, void* scratch, int BH, int S, int kh, float scale,
-              cudaStream_t s) {
+              const void* bias_w, void* o, void* scratch, int BH, int S, int kh, int kw,
+              float scale, cudaStream_t s) {
   static bool configured = false;
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_relpos_tf32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_relpos_tf32_kernel<D, kNarrow>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         K4Cfg<D>::kSmemBytes);
     if (err != cudaSuccess) return (int)err;
     configured = true;
   }
-  split_kv_relpos_kernel<D><<<dim3(kh, BH), kSplitThreads, 0, s>>>(
+  const int n_tiles = (S + kBN - 1) / kBN;  // kh at kw = 64
+  split_kv_relpos_kernel<D, kNarrow><<<dim3(n_tiles, BH), kSplitThreads, 0, s>>>(
       static_cast<const float*>(k), static_cast<const float*>(v), static_cast<float*>(scratch),
       S);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  flash_relpos_tf32_kernel<D><<<dim3((S + kBM - 1) / kBM, BH), kThreads, K4Cfg<D>::kSmemBytes,
-                                 s>>>(
+  flash_relpos_tf32_kernel<D, kNarrow><<<dim3((S + kBM - 1) / kBM, BH), kThreads,
+                                         K4Cfg<D>::kSmemBytes, s>>>(
       static_cast<const float*>(q), static_cast<const float*>(scratch),
       static_cast<const float*>(bias_h), static_cast<const float*>(bias_w),
-      static_cast<float*>(o), S, kh, scale);
+      static_cast<float*>(o), S, kh, kw, scale);
   return (int)cudaGetLastError();
 }
 
@@ -897,8 +978,8 @@ __global__ void __launch_bounds__(kThreads, 1) window_relpos_tf32_kernel(
       const float* th[2] = {tab_h + wrow * kWin, tab_h + (wrow + 8) * kWin};
       const float* tw[2] = {tab_w + wrow * kWin, tab_w + (wrow + 8) * kWin};
       // tile t: each score starts at its bias; keys >= 196 at -inf
-      auto init = [&](int t, float (&s)[kWBN / 2], float (&sh)[2]) {
-        sh[0] = sh[1] = 0.f;
+      auto init = [&](int t, float (&s)[kWBN / 2], float (&sh)[2][1]) {
+        sh[0][0] = sh[1][0] = 0.f;
 #pragma unroll
         for (int j = 0; j < kWBN / 8; ++j) {
           const int c = t * kWBN + 8 * j + 2 * tq;  // the lane's key pair c, c + 1: one grid row
@@ -914,9 +995,9 @@ __global__ void __launch_bounds__(kThreads, 1) window_relpos_tf32_kernel(
         }
       };
       float acc[40], l[2];
-      attend_rows<kWBN, kWStages, kWStages, kWOverlap, kD>(acc, l, smem_u32(q_hi),
-                                                           smem_u32(q_lo), ring, u, kWTiles, wg,
-                                                           init);
+      attend_rows<kWBN, kWStages, kWStages, kWOverlap, kD, 1>(acc, l, smem_u32(q_hi),
+                                                              smem_u32(q_lo), ring, u, kWTiles,
+                                                              wg, init);
       const int row = r0 + wrow;
       store_rows<kD>(acc, l, o + base + (long long)row * kD, row < kWinS, row + 8 < kWinS);
     }
@@ -935,12 +1016,14 @@ bool aligned(const void* q, const void* k, const void* v, const void* o, const v
 // The routing predicate (kernels/flash_attention.py relpos_tf32_route
 // mirrors it): 1 when bff_flash_attention_relpos (kind 0, K4; rows x cols =
 // kh x kw) or bff_window_attention_relpos (kind 1, K5; wh x ww) takes the
-// 3xTF32 kernel for the call: K4 at head dim 64 or 80, K5 at 80. dtype: 0
-// = float32, 1 = bfloat16.
+// 3xTF32 kernel for the call: K4 at head dim 64 or 80 on grids of kw = 64
+// or of kw a multiple of 8 in [kMinGridW, 64) (the narrow mode), K5 at 80.
+// dtype: 0 = float32, 1 = bfloat16.
 extern "C" int bff_relpos_tf32_takes(int kind, int dtype, int D, int S, int rows, int cols,
                                      float scale, const void* q, const void* k, const void* v,
                                      const void* o, const void* bias_h, const void* bias_w) {
-  const bool shape = kind == 0   ? cols == kGridW && rows >= kMinGridH && rows <= kMaxGridH &&
+  const bool width = cols == kGridW || (cols % 8 == 0 && cols >= kMinGridW && cols < kGridW);
+  const bool shape = kind == 0   ? width && rows >= kMinGridH && rows <= kMaxGridH &&
                                      S == rows * cols && (D == 64 || D == kD)
                      : kind == 1 ? rows == kWin && cols == kWin && S == kWinS && D == kD
                                  : false;
@@ -949,26 +1032,30 @@ extern "C" int bff_relpos_tf32_takes(int kind, int dtype, int D, int S, int rows
 }
 
 // The scratch a K4 call at head dim D needs, in floats: each 64-key tile's
-// K hi, K lo, V^T hi and V^T lo images, 4 BH S D.
+// K hi, K lo, V^T hi and V^T lo images, 4 BH Sp D with Sp = S rounded up to
+// 64 keys (S itself at kw = 64).
 extern "C" long long bff_relpos_tf32_scratch_floats(int BH, int S, int D) {
-  return 4LL * BH * S * D;
+  return 4LL * BH * ((S + kBN - 1) / kBN * kBN) * D;
 }
 
-// K4. q, k, v, o: contiguous (BH, S, D) f32 with S = kh * 64 and D 64 or
-// 80; bias_h (BH, S, kh), bias_w (BH, S, 64) f32; scratch: 16-byte aligned,
+// K4. q, k, v, o: contiguous (BH, S, D) f32 with S = kh * kw and D 64 or
+// 80; bias_h (BH, S, kh), bias_w (BH, S, kw) f32; scratch: 16-byte aligned,
 // at least bff_relpos_tf32_scratch_floats floats, on the same stream.
 // Returns cudaGetLastError() after the launches, -1 for arguments outside
 // the predicate or no scratch.
 extern "C" int bff_flash_relpos_tf32(const void* q, const void* k, const void* v,
                                      const void* bias_h, const void* bias_w, void* o,
-                                     void* scratch, int BH, int S, int D, int kh, float scale,
-                                     void* stream) {
+                                     void* scratch, int BH, int S, int D, int kh, int kw,
+                                     float scale, void* stream) {
   if (BH < 1 || scratch == nullptr || !aligned16(scratch) ||
-      !bff_relpos_tf32_takes(0, 0, D, S, kh, kGridW, scale, q, k, v, o, bias_h, bias_w))
+      !bff_relpos_tf32_takes(0, 0, D, S, kh, kw, scale, q, k, v, o, bias_h, bias_w))
     return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 64) return launch_k4<64>(q, k, v, bias_h, bias_w, o, scratch, BH, S, kh, scale, s);
-  return launch_k4<kD>(q, k, v, bias_h, bias_w, o, scratch, BH, S, kh, scale, s);
+#define BFF_K4(DIM, NARROW) \
+  launch_k4<DIM, NARROW>(q, k, v, bias_h, bias_w, o, scratch, BH, S, kh, kw, scale, s)
+  if (kw == kGridW) return D == 64 ? BFF_K4(64, false) : BFF_K4(kD, false);
+  return D == 64 ? BFF_K4(64, true) : BFF_K4(kD, true);
+#undef BFF_K4
 }
 
 // K5. q, k, v, o: contiguous (G, 196, 80) f32; bias_h, bias_w (G, 196, 14)

@@ -112,8 +112,17 @@ def library() -> ctypes.CDLL:
     lib.bff_mask_iou_wgmma_takes.restype = i
     lib.bff_nms_fixed.argtypes = [p, p, i, i, i, f, p, p, p]
     lib.bff_nms_fixed.restype = i
+    lib.bff_nms_fixed_large.argtypes = [p, p, i, i, i, f, p, p, p, p]
+    lib.bff_nms_fixed_large.restype = i
+    lib.bff_nms_large_scratch_words.argtypes = [i, i]
+    lib.bff_nms_large_scratch_words.restype = ll
     lib.bff_flash_attention_relpos.argtypes = [i, p, p, p, p, p, p, i, i, i, i, i, f, p, p]
     lib.bff_flash_attention_relpos.restype = i
     lib.bff_window_attention_relpos.argtypes = [i, p, p, p, p, p, p, i, i, i, i, i, f, p]
     lib.bff_window_attention_relpos.restype = i
+    # the FMA kernels whatever the routes say: measurement yardsticks only
+    lib.bff_flash_attention_f32_fma.argtypes = [p, p, p, p, i, i, i, i, f, p]
+    lib.bff_flash_attention_f32_fma.restype = i
+    lib.bff_flash_attention_relpos_f32_fma.argtypes = [p, p, p, p, p, p, i, i, i, i, i, f, p]
+    lib.bff_flash_attention_relpos_f32_fma.restype = i
     return lib

@@ -23,6 +23,7 @@ launch_counts: Dict[str, int] = {"flash_attention": 0, "flash_attention_f32": 0,
                                  "flash_attention_wgmma": 0, "flash_masked_wgmma": 0,
                                  "mask_iou": 0,
                                  "mask_iou_wgmma": 0, "ms_deform_sample": 0, "nms_fixed": 0,
+                                 "nms_fixed_large": 0,
                                  "window_attention_relpos": 0,
                                  "window_attention_relpos_tf32": 0,
                                  "window_attention_relpos_wgmma": 0}

@@ -11,7 +11,7 @@ bf16 at head dim 32 with at most ``MASKED_WGMMA_MAX_KEYS`` valid keys (K2,
 the Grounding-DINO decoder's self-attention; :func:`masked_wgmma_route`) to
 the wgmma/TMA kernel of ``csrc/flash_masked_wgmma.cu``, counted as
 ``flash_masked_wgmma``; f32 at head dim 32 or 64 (K2 and K3 in
-``detector.dtype: float32``) or 128 (:func:`tf32_route`) to the 3xTF32 wgmma/TMA
+``detector.dtype: float32``) or 96 or 128 (:func:`tf32_route`) to the 3xTF32 wgmma/TMA
 kernel of ``csrc/flash_attention_tf32.cu``, counted as
 ``flash_attention_tf32``; every other f32 call to the f32-FMA kernel,
 counted as ``flash_attention_f32``; and every other bf16 call to the
@@ -22,8 +22,10 @@ reached through ``attend_relpos``); it routes SAM ViT-H's bf16 head-dim-80
 calls on its 64-wide grids (K4; :func:`relpos_wgmma_route`) to the
 wgmma/TMA kernel of ``csrc/relpos_attention_wgmma.cu``, counted as
 ``flash_attention_relpos_wgmma``; its f32 head-dim-80 calls on those grids
-(K4 in ``detector.dtype: float32`` under ``BFF_SAM_RELPOS_FLASH=1``) and its
-f32 head-dim-64 calls on them (SAM ViT-L's and ViT-B's global blocks;
+(K4 in ``detector.dtype: float32`` under ``BFF_SAM_RELPOS_FLASH=1``), its
+f32 head-dim-64 calls on them (SAM ViT-L's and ViT-B's global blocks) and
+its f32 head-dim-64 and -80 calls on grids narrower than 64 whose width is a
+multiple of 8 (portrait frames under ``BFF_SAM_RECT=1``;
 :func:`relpos_tf32_route`) to the 3xTF32 wgmma kernel of
 ``csrc/relpos_attention_tf32.cu``, counted as
 ``flash_attention_relpos_tf32``; and the rest to the mma.sync tile or the
@@ -86,7 +88,7 @@ def masked_wgmma_route(dtype: int, d: int, s: int, valid_len: int, scale: float,
 # (shorter ones keep the FMA kernel, faster there)
 TF32_TILE = 64
 TF32_BLOCK_Q = 128
-TF32_HEAD_DIMS = (32, 64, 128)
+TF32_HEAD_DIMS = (32, 64, 96, 128)
 TF32_MIN_S = 256
 # the order of the keys of each 8-key group in the kernel's V^T (a lane's
 # accumulator columns 2 t, 2 t + 1 are the A fragment's columns t, t + 4)
@@ -97,7 +99,7 @@ def tf32_route(dtype: int, d: int, s: int, valid_len: int, scale: float, *ptrs: 
     """The mirror of ``bff_flash_tf32_takes``: whether ``bff_flash_attention``
     runs the 3xTF32 wgmma/TMA kernel of ``csrc/flash_attention_tf32.cu``
     for a call (dtype 0 = float32, 1 = bfloat16; ``ptrs`` the data pointers
-    of q, k, v and the output): f32, head dim 32, 64 or 128, S >=
+    of q, k, v and the output): f32, head dim 32, 64, 96 or 128, S >=
     ``TF32_MIN_S``, 1 <= ``valid_len`` <= S, a positive finite scale
     (rounded to f32 as the call passes it) and 16-byte aligned pointers."""
     f32 = ctypes.c_float(scale).value
@@ -108,7 +110,8 @@ def tf32_route(dtype: int, d: int, s: int, valid_len: int, scale: float, *ptrs: 
 def tf32_key_tile(d: int) -> int:
     """The keys of a tile of ``csrc/flash_attention_tf32.cu``'s online
     softmax at head dim ``d`` (``Cfg<D>::kBN``): 64, or 32 at head dim 128,
-    where a 64-key stage beside both consumers' Q halves would not fit."""
+    where a 64-key stage beside both consumers' Q halves would not fit (at
+    96 one 64-key stage of each fits)."""
     return 32 if d == 128 else 64
 
 
@@ -356,13 +359,16 @@ def relpos_wgmma_fragment(kind: int, warp: int, lane: int, tile: int, s: int = 1
 
 
 # csrc/relpos_attention_tf32.cu: K4's 64-key tiles (one grid row of kw =
-# 64), K5's 40-key tiles over a 14 x 14 window's 196 keys (200 with the
-# masked ones), 128-row blocks (K4) and rounds (K5) of two 64-row consumer
-# warpgroups, and the smallest grid height K4 takes
+# 64; in the narrow mode, kw < 64, 64 keys across grid rows), K5's 40-key
+# tiles over a 14 x 14 window's 196 keys (200 with the masked ones), 128-row
+# blocks (K4) and rounds (K5) of two 64-row consumer warpgroups, the
+# smallest grid height K4 takes, and the narrow mode's smallest width (its
+# widths are multiples of 8)
 RELPOS_TF32_TILE = 64
 RELPOS_TF32_WINDOW_TILE = 40
 RELPOS_TF32_BLOCK_Q = 128
 RELPOS_TF32_MIN_GRID_H = 1
+RELPOS_TF32_MIN_GRID_W = 8
 # the head dims each takes: K4 (kind 0) SAM ViT-L/B's 64 and ViT-H's 80, K5 80
 RELPOS_TF32_HEAD_DIMS = {0: (64, 80), 1: (80,)}
 _WIN, _WIN_S = 14, 196
@@ -375,13 +381,16 @@ def relpos_tf32_route(kind: int, dtype: int, d: int, s: int, rows: int, cols: in
     call. ``kind`` 0 is ``bff_flash_attention_relpos`` (K4, a ``rows`` x
     ``cols`` = kh x kw key grid), 1 is ``bff_window_attention_relpos`` (K5,
     wh x ww windows); dtype 0 = float32, 1 = bfloat16; ``ptrs`` the data
-    pointers of q, k, v, the output, bias_h and bias_w. Taken: f32, kw = 64
-    with ``RELPOS_TF32_MIN_GRID_H`` <= kh <= 64 at head dim 64 or 80 (K4) or
-    14 x 14 windows at head dim 80 (K5), a positive finite scale (rounded to
-    f32 as the call passes it) and every pointer 16-byte aligned."""
+    pointers of q, k, v, the output, bias_h and bias_w. Taken: f32,
+    ``RELPOS_TF32_MIN_GRID_H`` <= kh <= 64 with kw = 64 or kw a multiple of 8
+    from ``RELPOS_TF32_MIN_GRID_W`` to 56 (the narrow mode) at head dim 64 or
+    80 (K4), or 14 x 14 windows at head dim 80 (K5), a positive finite scale
+    (rounded to f32 as the call passes it) and every pointer 16-byte
+    aligned."""
     f32 = ctypes.c_float(scale).value
     if kind == 0:
-        shape = cols == 64 and RELPOS_TF32_MIN_GRID_H <= rows <= 64 and s == rows * cols
+        width = cols == 64 or (cols % 8 == 0 and RELPOS_TF32_MIN_GRID_W <= cols < 64)
+        shape = width and RELPOS_TF32_MIN_GRID_H <= rows <= 64 and s == rows * cols
     elif kind == 1:
         shape = rows == _WIN and cols == _WIN and s == _WIN_S
     else:
@@ -393,9 +402,10 @@ def relpos_tf32_route(kind: int, dtype: int, d: int, s: int, rows: int, cols: in
 def relpos_tf32_scratch_floats(bh: int, s: int, d: int) -> int:
     """The mirror of ``bff_relpos_tf32_scratch_floats``: the floats of scratch
     a K4 call at head dim ``d`` on the 3xTF32 kernel needs, each 64-key
-    tile's K hi, K lo, V^T hi and V^T lo images, 4 BH S D (S = 64 kh is
-    whole tiles)."""
-    return 4 * bh * s * d
+    tile's K hi, K lo, V^T hi and V^T lo images, 4 BH Sp D with Sp = S
+    rounded up to 64 keys (S = 64 kh is whole tiles; a narrow grid's last
+    tile is padded)."""
+    return 4 * bh * (-(-s // RELPOS_TF32_TILE) * RELPOS_TF32_TILE) * d
 
 
 def relpos_counter(kind: int, dtype: int, d: int, s: int, rows: int, cols: int, scale: float,
@@ -435,7 +445,8 @@ def relpos_tf32_schedule(kind: int, n: int, s: int, sms: int = 132):
     return grid, tiles
 
 
-def relpos_tf32_fragment(kind: int, warp: int, lane: int, tile: int, s: int = 196):
+def relpos_tf32_fragment(kind: int, warp: int, lane: int, tile: int, s: int = 196,
+                         kw: int = 64):
     """The mirror of ``csrc/relpos_attention_tf32.cu``'s score index
     arithmetic: for lane ``lane`` of warp ``warp`` (0..3) of a consumer
     warpgroup and key tile ``tile``, one tuple per score register i, (i,
@@ -444,21 +455,38 @@ def relpos_tf32_fragment(kind: int, warp: int, lane: int, tile: int, s: int = 19
     masked). Register 4 j + e holds row 16 warp + lane / 4 + 8 (e / 2),
     column 8 j + 2 (lane % 4) + e % 2 of the m64nN tile.
 
-    K4 (kind 0, 64-key tiles of a 64-wide grid): key 64 tile + column, ky =
-    tile (bias_h, a row shift), kx = the column (bias_w, the initial value,
-    from the table row of the warpgroup row). K5 (kind 1, 40-key tiles of a
-    14 x 14 window): key 40 tile + column; the pair c = key - e % 2 gives ky
-    = c / 14 and kx = c % 14 + e % 2 (one bias_h read and one 8-byte bias_w
-    read a pair); keys >= ``s`` are masked."""
+    K4 (kind 0, 64-key tiles of a grid ``kw`` wide, ``s`` keys): key 64
+    tile + column. At kw = 64, ky = tile (bias_h, a row shift), kx = the
+    column (bias_w, the initial value, from the table row of the warpgroup
+    row). In the narrow mode (kw < 64, a multiple of 8) n8 group j's keys
+    lie in one grid row: ky = (64 tile + 8 j) / kw (bias_h, the group's
+    shift), kx = (64 tile + 8 j) % kw + 2 (lane % 4) + e % 2 (bias_w, the
+    initial value), the kernel's running (ky, kx) advanced by 8 keys a
+    group without a division; keys >= ``s`` are masked. K5 (kind 1,
+    40-key tiles of a 14 x 14 window): key 40 tile + column; the pair c =
+    key - e % 2 gives ky = c / 14 and kx = c % 14 + e % 2 (one bias_h read
+    and one 8-byte bias_w read a pair); keys >= ``s`` are masked."""
     n = RELPOS_TF32_TILE if kind == 0 else RELPOS_TF32_WINDOW_TILE
     quad = lane % 4
     out = []
+    if kind == 0 and kw != 64:
+        ky, kx = divmod(n * tile, kw)
+        starts = []
+        for _j in range(n // 8):
+            starts.append((ky, kx))
+            kx += 8
+            if kx >= kw:
+                kx, ky = kx - kw, ky + 1
     for i in range(n // 2):
         j, e = divmod(i, 4)
         row = 16 * warp + lane // 4 + 8 * (e // 2)
         col = 8 * j + 2 * quad + e % 2
         key = n * tile + col
-        if kind == 0:
+        if kind == 0 and kw != 64:
+            gy, gx = starts[j]
+            out.append((i, row, key, gy, gx + 2 * quad + e % 2) if n * tile + 8 * j < s
+                       else (i, row, key, None, None))
+        elif kind == 0:
             out.append((i, row, key, tile, col))
         else:
             c = key - e % 2
@@ -472,18 +500,20 @@ def relpos_tf32_mirror(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        scale: Optional[float] = None) -> torch.Tensor:
     """The arithmetic of ``csrc/relpos_attention_tf32.cu`` in PyTorch on the
     CPU, block by block of :func:`relpos_tf32_schedule`, in f32. K4 (kind 0;
-    q, k, v (BH, S, D) with D 64 or 80, S = 64 kh, bias_h (BH, S, kh),
-    bias_w (BH, S, 64)) or K5 (kind 1; (G, 196, 80), both factors (G, 196,
-    14)).
+    q, k, v (BH, S, D) with D 64 or 80, S = kh kw, bias_h (BH, S, kh),
+    bias_w (BH, S, kw), kw = 64 or, in the narrow mode, a multiple of 8
+    below it) or K5 (kind 1; (G, 196, 80), both factors (G, 196, 14)).
     K and V split into TF32 hi and lo (:func:`tf32_split`; V^T with each
     8-key group in ``TF32_KEY_ORDER``); per 64-row warpgroup tile, Q
     multiplied by the scale and split; per key tile (64 keys, one grid row,
-    for K4; 40 for K5, keys >= 196 zero), the scores' accumulators start at
-    the bias (K4: bias_w; K5: bias_h + bias_w, -inf for keys >= 196) and
-    take lo(Q) hi(K)^T + hi(Q) lo(K)^T, then hi(Q) hi(K)^T; the running max
-    (log2 units, K4's rows shifted by bias_h[q, t] log2 e) raised at every
-    tile; p = 2^(s log2 e + shift - m) (one rounding); the denominator summed
-    from the f32 p; the output rescaled, P split in the fragment order, the
+    for K4 at kw = 64; 64 keys across rows in the narrow mode and 40 for K5,
+    keys past S zero), the scores' accumulators start at the bias (K4:
+    bias_w; K5: bias_h + bias_w; -inf for keys past S) and take lo(Q)
+    hi(K)^T + hi(Q) lo(K)^T, then hi(Q) hi(K)^T; the running max (log2
+    units, K4's keys shifted by bias_h log2 e: of the tile's grid row at
+    kw = 64, of each key's in the narrow mode) raised at every tile; p =
+    2^(s log2 e + shift - m) (one rounding); the denominator summed from
+    the f32 p; the output rescaled, P split in the fragment order, the
     tile's (lo(P) hi(V) + hi(P) lo(V)) + hi(P) hi(V) summed apart and added
     to O in f32 (the kernels' kFold); the output divided once; rows past S
     not written (left 0). Every word handed to the products is rna-rounded
@@ -493,7 +523,8 @@ def relpos_tf32_mirror(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     l2e = float(torch.tensor(1.4426950408889634, dtype=torch.float32))
     sc = float(torch.tensor(scale, dtype=torch.float32))
     tile = RELPOS_TF32_TILE if kind == 0 else RELPOS_TF32_WINDOW_TILE
-    n_tiles = s // tile if kind == 0 else -(-s // tile)
+    kw = bias_w.shape[-1] if kind == 0 else _WIN
+    n_tiles = -(-s // tile)
     kp = tile * n_tiles
     kz = torch.zeros(n, kp, d)
     vz = torch.zeros(n, kp, d)
@@ -520,25 +551,29 @@ def relpos_tf32_mirror(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 ks = slice(t * tile, (t + 1) * tile)
                 keys = torch.arange(t * tile, (t + 1) * tile)
                 init = torch.zeros(64, tile)
-                shift = torch.zeros(64)
-                if kind == 0:
+                shift = torch.zeros(64, tile)  # log2 units, a row's (or a key's) shift
+                if kind == 0 and kw == RELPOS_TF32_TILE:
                     init[live] = bw_f[h, rows[live]]
-                    shift[live] = bh_f[h, rows[live], t] * l2e
+                    shift[live] = (bh_f[h, rows[live], t] * l2e)[:, None]
                 else:
                     inside = keys < s
-                    ky, kx = keys[inside] // _WIN, keys[inside] % _WIN
+                    ky, kx = keys[inside] // kw, keys[inside] % kw
                     init[:, ~inside] = float("-inf")
                     r = rows[live]
-                    init[live.nonzero()[:, 0][:, None], inside.nonzero()[:, 0][None, :]] = (
-                        bh_f[h, r][:, ky] + bw_f[h, r][:, kx])
+                    at = (live.nonzero()[:, 0][:, None], inside.nonzero()[:, 0][None, :])
+                    if kind == 0:  # the narrow mode: bias_w starts, bias_h shifts the key
+                        init[at] = bw_f[h, r][:, kx]
+                        shift[at] = bh_f[h, r][:, ky] * l2e
+                    else:
+                        init[at] = bh_f[h, r][:, ky] + bw_f[h, r][:, kx]
                 sco = ((init + q_lo @ k_hi[h, ks].T) + q_hi @ k_lo[h, ks].T) + q_hi @ k_hi[h, ks].T
-                mx = (sco.max(dim=1).values.double() * l2e + shift.double()).float()
+                mx = (sco.double() * l2e + shift.double()).max(dim=1).values.float()
                 m_new = torch.maximum(m, mx)
                 corr = torch.exp2(m - m_new)
                 m = m_new
                 l = l * corr
-                c = shift - m
-                x = (sco.double() * l2e + c[:, None].double()).float()  # the FMA's rounding
+                c = shift - m[:, None]
+                x = (sco.double() * l2e + c.double()).float()  # the FMA's rounding
                 p = torch.exp2(x.double()).float()  # exact, standing in for ex2.approx
                 l = l + p.sum(dim=1)
                 acc = acc * corr[:, None]

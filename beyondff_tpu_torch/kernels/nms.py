@@ -13,11 +13,17 @@ The CUDA kernel (``csrc/nms_fixed.cu``) scans a frame on a cluster of
 ``CLUSTER`` blocks, each holding a slice of the sorted boxes and its
 suppression bits in shared memory, resolves up to ``LOOK`` boxes a round
 and decides most pairs without the division (:func:`iou_exceeds`);
-:func:`cluster_scan_mirror` walks its rounds on the CPU. The plain version
-walks the same greedy order in PyTorch. All stop once ``top_k`` boxes are
-kept, which leaves the first ``top_k`` kept indices unchanged, and all give
-the JAX function's result index for index. The wrapper launches the kernel
-for CUDA tensors and raises on what it does not take; CPU tensors take
+:func:`cluster_scan_mirror` walks its rounds on the CPU. Frames of up to
+``MAX_ANCHORS`` boxes take it as it stands (counted as ``nms_fixed``);
+larger ones, up to ``MAX_BOXES``, take its large mode (counted as
+``nms_fixed_large``; :func:`route`), which reads the boxes from device
+memory every round and keeps only the suppression bits in shared memory,
+or in device memory past ``CLUSTER`` slices of ``MAX_MASK_SLICE`` boxes
+(:func:`large_scratch_words`). The plain version walks the same greedy
+order in PyTorch. All stop once ``top_k`` boxes are kept, which leaves the
+first ``top_k`` kept indices unchanged, and all give the JAX function's
+result index for index. The wrapper launches the kernel for CUDA tensors
+and raises on what it does not take; CPU tensors take
 :func:`nms_fixed_plain`.
 """
 
@@ -36,6 +42,10 @@ CLUSTER = 8
 MAX_SLICE = 11264
 LOOK = 4
 MAX_ANCHORS = CLUSTER * MAX_SLICE
+# the large mode: the boxes a block's suppression bits cover in shared memory
+# (kMaskSmemWords words), and the most boxes a frame (positions stay ints)
+MAX_MASK_SLICE = 32 * 57344
+MAX_BOXES = 2 ** 31 - 1 - 32 * CLUSTER
 # the relative margin around thr * denom beyond which the quotient's side of
 # thr is certain
 MARGIN = 2.0 ** -20
@@ -82,6 +92,25 @@ def _iou_terms(box_i: np.ndarray, area_i, boxes: np.ndarray, areas: np.ndarray):
     return inter, (area_i + areas - inter) + np.float32(1e-9)
 
 
+def route(a: int, max_slice: int = MAX_SLICE, cluster: int = CLUSTER) -> str:
+    """The counter, and so the mode, ``nms_fixed`` takes for frames of ``a``
+    boxes: ``nms_fixed`` (the staged kernel) while a block's slice
+    (:func:`cluster_slices`) holds at most ``max_slice`` boxes, else
+    ``nms_fixed_large``."""
+    return "nms_fixed" if -(-(-(-a // cluster)) // 32) * 32 <= max_slice else "nms_fixed_large"
+
+
+def large_scratch_words(b: int, a: int, cluster: int = CLUSTER) -> int:
+    """The mirror of ``bff_nms_large_scratch_words``: the int32 words of
+    device memory the large mode's suppression bits need for ``b`` frames of
+    ``a`` boxes, 0 while a block's words (rounded up to 4) fit in shared
+    memory, else ``b`` x ``cluster`` runs of them."""
+    if b <= 0 or a <= 0 or a > MAX_BOXES:
+        return 0
+    words = (-(-(-(-a // cluster)) // 32) + 3) & ~3
+    return 0 if 32 * words <= MAX_MASK_SLICE else b * cluster * words
+
+
 def cluster_slices(a: int, cluster: int = CLUSTER):
     """The kernel's partition of a frame's ``a`` sorted boxes: ``cluster``
     slices [r * slice, (r + 1) * slice) clipped to ``a``, slice the
@@ -90,8 +119,28 @@ def cluster_slices(a: int, cluster: int = CLUSTER):
     return [(r * slice_, min((r + 1) * slice_, a)) for r in range(cluster)]
 
 
+def _areas(bs: np.ndarray) -> np.ndarray:
+    """The kernel's ``area_of`` over (n, 4) float32 boxes."""
+    return (np.maximum(bs[:, 2] - bs[:, 0], np.float32(0))
+            * np.maximum(bs[:, 3] - bs[:, 1], np.float32(0)))
+
+
+class _DeviceBoxes:
+    """The large mode's view of a frame's sorted boxes: every read goes back
+    to the boxes (device memory) and recomputes the areas from them, as the
+    kernel's ``box_at`` / ``area_at`` do outside the staged mode."""
+
+    def __init__(self, bs: np.ndarray):
+        self.bs = bs
+
+    def __getitem__(self, idx):
+        out = _areas(self.bs[idx].reshape(-1, 4))
+        return out[0] if isinstance(idx, (int, np.integer)) else out
+
+
 def cluster_scan_mirror(boxes: torch.Tensor, scores: torch.Tensor, iou_thres: float,
-                        top_k: int, cluster: int = CLUSTER, look: int = LOOK):
+                        top_k: int, cluster: int = CLUSTER, look: int = LOOK,
+                        max_slice: int = MAX_SLICE):
     """The rounds of ``csrc/nms_fixed.cu`` on the CPU: per frame, the
     stable descending sort, the slices of :func:`cluster_slices`, the
     suppression bits. A round: each slice offers its first ``look`` free
@@ -99,18 +148,22 @@ def cluster_scan_mirror(boxes: torch.Tensor, scores: torch.Tensor, iou_thres: fl
     (the frame's first free boxes) are kept in order unless a box kept
     before them in the round suppresses them (:func:`iou_exceeds`), and the
     free boxes after them are tested against the boxes the round kept.
-    Returns (keep_idx (B, top_k) int32, valid (B, top_k) bool), padded with
-    index 0 and ``valid`` false, and the rounds each frame took."""
+    ``max_slice`` is the staged mode's slice capacity (the kernel's
+    ``kMaxSlice``): frames whose slices exceed it walk the large mode
+    (:func:`route`), whose areas come from the boxes at every read, so a
+    small capacity sends a small frame down that mode. Returns (keep_idx
+    (B, top_k) int32, valid (B, top_k) bool), padded with index 0 and
+    ``valid`` false, and the rounds each frame took."""
     b, a = scores.shape
     order = torch.sort(scores.float().neg(), dim=-1, stable=True).indices.numpy()
     keep = np.zeros((b, top_k), np.int32)
     valid = np.zeros((b, top_k), bool)
     rounds = []
     slices = cluster_slices(a, cluster)
+    staged = route(a, max_slice, cluster) == "nms_fixed"
     for f in range(b):
         bs = boxes[f].float().numpy()[order[f]]
-        area = (np.maximum(bs[:, 2] - bs[:, 0], np.float32(0))
-                * np.maximum(bs[:, 3] - bs[:, 1], np.float32(0)))
+        area = _areas(bs) if staged else _DeviceBoxes(bs)
         suppressed = np.zeros(a, bool)
         pos, kept, n_rounds, new = -1, 0, 0, []
         while True:
@@ -225,9 +278,9 @@ def nms_fixed(boxes: torch.Tensor, scores: torch.Tensor, iou_thres: float, top_k
     if boxes.dtype != torch.float32 or scores.dtype != torch.float32:
         raise TypeError(f"nms_fixed takes float32, got {boxes.dtype} and {scores.dtype}")
     b, a = scores.shape
-    if a > MAX_ANCHORS:
-        raise ValueError(f"nms_fixed: {a} boxes exceed the kernel's {MAX_ANCHORS} "
-                         f"({CLUSTER} slices of {MAX_SLICE} in shared memory)")
+    if a > MAX_BOXES:
+        raise ValueError(f"nms_fixed: {a} boxes exceed the kernel's {MAX_BOXES} "
+                         "(positions held in int32)")
     if top_k < 1:
         raise ValueError(f"nms_fixed: top_k {top_k} < 1")
     from beyondff_tpu_torch.kernels import _build
@@ -236,10 +289,21 @@ def nms_fixed(boxes: torch.Tensor, scores: torch.Tensor, iou_thres: float, top_k
     boxes_s = boxes_s.contiguous()
     keep = torch.empty(b, top_k, dtype=torch.int32, device=boxes.device)
     valid = torch.empty(b, top_k, dtype=torch.bool, device=boxes.device)
-    rc = _build.library().bff_nms_fixed(
-        boxes_s.data_ptr(), order.data_ptr(), b, a, top_k, ctypes.c_float(iou_thres),
-        keep.data_ptr(), valid.data_ptr(), torch.cuda.current_stream(boxes.device).cuda_stream)
+    key = route(a)
+    stream = torch.cuda.current_stream(boxes.device).cuda_stream
+    if key == "nms_fixed":
+        rc = _build.library().bff_nms_fixed(
+            boxes_s.data_ptr(), order.data_ptr(), b, a, top_k, ctypes.c_float(iou_thres),
+            keep.data_ptr(), valid.data_ptr(), stream)
+    else:
+        words = large_scratch_words(b, a)
+        scratch = (torch.empty(words, dtype=torch.int32, device=boxes.device) if words
+                   else None)
+        rc = _build.library().bff_nms_fixed_large(
+            boxes_s.data_ptr(), order.data_ptr(), b, a, top_k, ctypes.c_float(iou_thres),
+            None if scratch is None else scratch.data_ptr(), keep.data_ptr(), valid.data_ptr(),
+            stream)
     if rc != 0:
-        raise RuntimeError(f"nms_fixed kernel launch failed (code {rc})")
-    dispatch.launch_counts["nms_fixed"] += 1
+        raise RuntimeError(f"{key} kernel launch failed (code {rc})")
+    dispatch.launch_counts[key] += 1
     return keep, valid

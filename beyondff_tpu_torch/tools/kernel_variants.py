@@ -44,7 +44,8 @@ tree from before it) take SDPA, with a key mask where keys are masked, as
 their ``library`` entry. The f32 cases (``--cases f32``: K2 and K3 in f32
 at their main-path shapes, and ``f32 small``, S 64 to 512) go through
 ``bff_flash_attention`` (the 3xTF32 kernel in this tree, the FMA kernel in
-a tree from before it or in the ``f32_fma`` variant), are held within 1e-4,
+a tree from before it, and as the entry ``fma`` of the same rounds through
+``bff_flash_attention_f32_fma``), are held within 1e-4,
 take SDPA in f32 and the plain version as yardsticks, ``bound_ms`` at
 3xTF32 beside ``bound_fma_ms`` at the f32 FMA peak, and the pre-pass's
 device time a call (``prepass_ms``); the ``tf32_smem_split`` variant
@@ -54,7 +55,9 @@ call as the wrapper makes it (stable sort, gather, ``bff_nms_fixed``; ``bff_nms_
 ``nms_bitmask`` variant, ``variant_csrc/nms_bitmask.cu``), holds it index
 for index against ``nms.nms_fixed_plain`` and splits its device time into
 the sort, the gather and the scan (``nms.split_spans``), with the bound of the
-IoU tests these boxes need at the f32 peak.
+IoU tests these boxes need at the f32 peak; the large-mode cases time
+``bff_nms_fixed_large`` at 4 x 8 400 boxes and past the staged kernel's
+90 112 a frame.
 Prints one JSON line per (case, variant) with the card's name and power
 limit; the lines also go to
 ``kernel_variants.json`` in ``--out`` (the build directory by default),
@@ -202,7 +205,7 @@ def _k2_poly(tiles):
 # the NMS entry's first launch attribute, after which a cluster above the
 # portable 8 blocks must be allowed
 _NMS_SMEM_ATTR = """    const cudaError_t err = cudaFuncSetAttribute(
-        nms_fixed_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_of(kMaxSlice));
+        nms_fixed_kernel<kStaged>, cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem);
 """
 
 
@@ -210,7 +213,6 @@ _NMS_SMEM_ATTR = """    const cudaError_t err = cudaFuncSetAttribute(
 VARIANTS = {
     # the tree as it stands, every source: the shipped kernels beside the
     # variants that edit them
-    "shipped": (SOURCES, ()),
     "shipped": (SOURCES, ()),
     # K1: a warp's rows are 8 queries of one head (not one query's 8 heads)
     "head_run_warp": _head_run(1),
@@ -308,10 +310,6 @@ VARIANTS = {
     "k2_consumers_4": (K3, ((FMW, "  int best = 4;\n", "  return 4;\n  int best = 4;\n"),)),
     "k2_consumers_2": (K3, ((FMW, "  int best = 4;\n", "  return 2;\n  int best = 4;\n"),)),
     "k2_consumers_1": (K3, ((FMW, "  int best = 4;\n", "  return 1;\n  int best = 4;\n"),)),
-    # f32 K2/K3 on the f32-FMA kernel (the 3xTF32 route off)
-    "f32_fma": (K3, ((FLASH,
-                      "  if (bff_flash_tf32_takes(dtype, D, S, valid_len, scale, q, k, v, o))\n",
-                      "  if (false)\n"),)),
     # 3xTF32: tile t's Q K^T after tile t - 1's P V has finished
     "tf32_serial": (K3, ((TF32, "constexpr bool kOverlap = true;",
                           "constexpr bool kOverlap = false;"),)),
@@ -338,6 +336,19 @@ VARIANTS = {
                                            f"constexpr int kKStages128 = {k}, "
                                            f"kVStages128 = {v};"),))
        for k, v in ((1, 2), (1, 1))},
+    # 3xTF32 at head dim 96 (shipped: 64-key tiles, one K and one V stage,
+    # each tile's products in turn): 32-key tiles with two K and two V
+    # stages, overlapped (the first design) or in turn, or three K stages;
+    # 64-key tiles overlapped (scores and P's halves live at once)
+    **{f"tf32_d96_tile32{sfx}": (K3, (
+        (TF32, "constexpr int kBN96 = 64;", "constexpr int kBN96 = 32;"),
+        (TF32, "constexpr int kKStages96 = 1, kVStages96 = 1;",
+         f"constexpr int kKStages96 = {k}, kVStages96 = 2;"),
+        *(((TF32, "constexpr bool kOverlap96 = false;", "constexpr bool kOverlap96 = true;"),)
+          if overlap else ())))
+       for sfx, overlap, k in (("", True, 2), ("_serial", False, 2), ("_stages_3_2", True, 3))},
+    "tf32_d96_overlap": (K3, ((TF32, "constexpr bool kOverlap96 = false;",
+                               "constexpr bool kOverlap96 = true;"),)),
     # NMS: clusters of 4 or 16 blocks a frame (shipped: 8; 16 offer 2 boxes
     # each), or one block a frame (the staged boxes, the look-ahead and the
     # division-free test on one SM)
@@ -347,7 +358,7 @@ VARIANTS = {
                                (NMS, "constexpr int kLook = 4;", "constexpr int kLook = 2;"),
                                (NMS, _NMS_SMEM_ATTR, _NMS_SMEM_ATTR.replace("const ", "") + (
                                    "    if (err == cudaSuccess)\n      err = cudaFuncSetAttribute("
-                                   "nms_fixed_kernel,\n          "
+                                   "nms_fixed_kernel<kStaged>,\n          "
                                    "cudaFuncAttributeNonPortableClusterSizeAllowed, 1);\n")))),
     # NMS: each block offers its first 1 or 2 free boxes a round (shipped: 4);
     # with 1 a round resolves one box, as the first cluster design did
@@ -356,6 +367,10 @@ VARIANTS = {
     # NMS: 256 or 1024 threads a block (shipped: 512)
     **{f"nms_threads_{n}": (NMS_V, ((NMS, "constexpr int kThreads = 512;",
                                      f"constexpr int kThreads = {n};"),)) for n in (256, 1024)},
+    # NMS's large mode: 1 or 8 suppression words a warp at once (shipped: 4)
+    **{f"nms_large_unroll_{n}": (NMS_V, ((NMS, "constexpr int kLargeUnroll = 4;",
+                                          f"constexpr int kLargeUnroll = {n};"),))
+       for n in (1, 8)},
     # NMS: every pair divided (the division-free test off)
     "nms_divide": (NMS_V, ((NMS, "const bool exact_free = thr >= FLT_MIN && thr <= FLT_MAX;",
                             "const bool exact_free = false;"),)),
@@ -574,6 +589,17 @@ def relpos_f32_case(g, grid, window, d=80, spread=1.0):
     q4, k4, v4 = (t[None] for t in (q, k, v))
     library = lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask)[0]
     launch.plain = plain
+
+    def fma(lib):  # K4's FMA kernel on the same call (this tree's measurement entry)
+        rc = lib.bff_flash_attention_relpos_f32_fma(
+            *(ctypes.c_void_p(t.data_ptr()) for t in (q, k, v, bias_h, bias_w, out)), g, s, d,
+            hh, ww, ctypes.c_float(d ** -0.5), ctypes.c_void_p(stream))
+        if rc != 0:
+            raise RuntimeError(f"bff_flash_attention_relpos_f32_fma failed (code {rc})")
+        return out
+
+    if not window:
+        launch.fma = ("bff_flash_attention_relpos_f32_fma", fma)
     nbytes = (4 * g * s * d + g * s * (hh + ww)) * 4
     return fn, launch, check, library, 4 * g * s * s * d, nbytes, PEAK_TF32_FLOPS / 3
 
@@ -688,6 +714,16 @@ def f32_case(bh, s, d, valid_len, spread=1.0):
     library = lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask).view(bh, s, d)
     launch.plain = lambda: fa.flash_attention_plain(q, k, v, valid_len)
 
+    def fma(lib):  # the FMA kernel on the same call (this tree's measurement entry)
+        rc = lib.bff_flash_attention_f32_fma(
+            *(ctypes.c_void_p(t.data_ptr()) for t in (q, k, v, out)), bh, s, d, valid_len,
+            ctypes.c_float(d ** -0.5), ctypes.c_void_p(stream))
+        if rc != 0:
+            raise RuntimeError(f"bff_flash_attention_f32_fma failed (code {rc})")
+        return out
+
+    launch.fma = ("bff_flash_attention_f32_fma", fma)
+
     def smem_split(lib):
         rc = lib.bff_flash_attention_tf32_smem(
             *(ctypes.c_void_p(t.data_ptr()) for t in (q, k, v, out)), bh, s, d, valid_len,
@@ -701,29 +737,37 @@ def f32_case(bh, s, d, valid_len, spread=1.0):
             PEAK_TF32_FLOPS / 3)
 
 
-def nms_case(b, a, top_k=100, thr=0.5):
+def nms_case(b, a, top_k=100, thr=0.5, large=False):
     """NMS over ``b`` frames of ``a`` clustered boxes as the wrapper runs it:
     the stable sort of the negated scores and the gather (in PyTorch), then
     ``bff_nms_fixed`` (this tree's or the parent's) or, for the ``nms_bitmask``
     variant, ``bff_nms_bitmask`` (``variant_csrc/nms_bitmask.cu``: the
     pairwise suppression bitmask over the card, then a warp a frame scans
-    it). Held index for index against ``nms.nms_fixed_plain``. After (name,
-    launch, check) comes a dict: the IoU tests this data needs and the bytes
-    read once, for the bound, and ``split``, the device ms of the sort, the
-    gather and the scan of a call."""
+    it); with ``large`` (frames past ``nms.MAX_ANCHORS`` boxes, or the
+    large mode timed at a frame the staged kernel takes)
+    ``bff_nms_fixed_large``. Held index for index against
+    ``nms.nms_fixed_plain``. After (name, launch, check) comes a dict: the
+    IoU tests this data needs and the bytes read once, for the bound, and
+    ``split``, the device ms of the sort, the gather and the scan of a
+    call."""
     boxes, scores = nms.clustered_boxes(torch.Generator(device="cuda").manual_seed(0), b, a)
     want = nms.nms_fixed_plain(boxes, scores, thr, top_k)
     keep = torch.empty(b, top_k, dtype=torch.int32, device="cuda")
     valid = torch.empty(b, top_k, dtype=torch.bool, device="cuda")
     words = (a + 31) // 32
-    ws = torch.empty(b * a * words, dtype=torch.int32, device="cuda")
+    ws = torch.empty(nms.large_scratch_words(b, a) if large else b * a * words,
+                     dtype=torch.int32, device="cuda")
     stream = torch.cuda.current_stream().cuda_stream
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())
 
     def launch(lib):
         order = torch.sort(scores.neg(), dim=-1, stable=True).indices
         boxes_s = torch.gather(boxes, 1, order[..., None].expand(-1, -1, 4)).contiguous()
-        if has(lib, "bff_nms_bitmask"):
+        if large:
+            rc = lib.bff_nms_fixed_large(ptr(boxes_s), ptr(order), b, a, top_k,
+                                         ctypes.c_float(thr), ptr(ws), ptr(keep), ptr(valid),
+                                         ctypes.c_void_p(stream))
+        elif has(lib, "bff_nms_bitmask"):
             rc = lib.bff_nms_bitmask(ptr(boxes_s), ptr(order), b, a, top_k, ctypes.c_float(thr),
                                      ptr(ws), ptr(keep), ptr(valid), ctypes.c_void_p(stream))
         else:
@@ -740,7 +784,7 @@ def nms_case(b, a, top_k=100, thr=0.5):
              "bytes": b * a * (16 + 4) + b * top_k * (4 + 1),
              "split": lambda call: nms.split_spans(device_spans(lambda: [call() for _ in range(5)]),
                                                    5)}
-    return "bff_nms_fixed", launch, check, extra
+    return "bff_nms_fixed_large" if large else "bff_nms_fixed", launch, check, extra
 
 
 def host_us(fn, iters=50):
@@ -983,6 +1027,13 @@ def main():
         "f32 d128 (32, 1024, 128) valid 900": lambda: f32_case(32, 1024, 128, 900),
         "f32 d128 (8, 1024, 128) valid 900": lambda: f32_case(8, 1024, 128, 900),
         "f32 d128 spread 3 (32, 1024, 128) valid 900": lambda: f32_case(32, 1024, 128, 900, 3.0),
+        # f32 at head dim 96 (the public entries take it; no model calls it),
+        # 900 of 1024 keys valid, at 32 and 8 heads and on peaked rows; and
+        # the shortest S the route takes
+        "f32 d96 (32, 1024, 96) valid 900": lambda: f32_case(32, 1024, 96, 900),
+        "f32 d96 (8, 1024, 96) valid 900": lambda: f32_case(8, 1024, 96, 900),
+        "f32 d96 spread 3 (32, 1024, 96) valid 900": lambda: f32_case(32, 1024, 96, 900, 3.0),
+        "f32 d96 small (8, 256, 96)": lambda: f32_case(8, 256, 96, 256),
         # K4 and K5 in f32 (detector.dtype: float32, BFF_SAM_RELPOS_FLASH=1)
         # at SAM ViT-H's batch of 4 (square and rect grid) and one frame;
         # then K4 on short grids, where the 3xTF32 kernel's pre-pass and
@@ -1000,8 +1051,27 @@ def main():
         "relpos_f32 k4 d64 (16, 4096, 64)": lambda: relpos_f32_case(16, (64, 64), False, 64),
         "relpos_f32 k4 d64 spread 3 (64, 4096, 64)":
             lambda: relpos_f32_case(64, (64, 64), False, 64, 3.0),
-        # YOLO-World-L's NMS over the batch of 4: 8 400 anchors, top_k 100
+        # K4 in f32 on grids narrower than 64 (portrait frames under
+        # BFF_SAM_RECT=1) at head dims 64 and 80, and on peaked rows
+        "relpos_f32 k4 kw32 (64, 2048, 64)": lambda: relpos_f32_case(64, (64, 32), False, 64),
+        "relpos_f32 k4 kw48 (64, 3072, 64)": lambda: relpos_f32_case(64, (64, 48), False, 64),
+        "relpos_f32 k4 kw32 d80 (64, 2048, 80)": lambda: relpos_f32_case(64, (64, 32), False),
+        "relpos_f32 k4 kw48 d80 (64, 3072, 80)": lambda: relpos_f32_case(64, (64, 48), False),
+        "relpos_f32 k4 kw32 spread 3 (64, 2048, 64)":
+            lambda: relpos_f32_case(64, (64, 32), False, 64, 3.0),
+        # the narrow mode at its smallest widths and heights, where the
+        # pre-pass, a padded tile and the latency weigh most (its kMinGridW)
+        **{f"relpos_f32 narrow small k4 kw{kw} ({16}, {kh * kw}, 64)":
+           (lambda kh=kh, kw=kw: relpos_f32_case(16, (kh, kw), False, 64))
+           for kh, kw in ((1, 8), (8, 8), (64, 8), (4, 16), (1, 24), (2, 40))},
+        # YOLO-World-L's NMS over the batch of 4: 8 400 anchors, top_k 100;
+        # the large mode at the same frames (what staging the boxes buys) and
+        # at frames past the staged kernel's 90 112 boxes
         "nms (4, 8400)": lambda: nms_case(4, 8400),
+        "nms large-mode (4, 8400)": lambda: nms_case(4, 8400, large=True),
+        "nms large (2, 90113)": lambda: nms_case(2, 90113, large=True),
+        "nms large (2, 393216)": lambda: nms_case(2, 393216, large=True),
+        "nms large (1, 1048576)": lambda: nms_case(1, 1048576, large=True),
     })
     if args.cases:
         cases = {k: v for k, v in cases.items()
@@ -1019,6 +1089,10 @@ def main():
         if library:
             nbytes = []
         calls = {n: (lambda lib=lib: launch(lib)) for n, lib in libs.items() if has(lib, fn)}
+        shipped = libs.get("shipped")
+        if getattr(launch, "fma", None) and shipped is not None and has(shipped, launch.fma[0]):
+            # the FMA kernel on the same call, one more entry of the rounds
+            calls["fma"] = lambda: launch.fma[1](shipped)
         if getattr(launch, "smem_split", None):
             # the tf32_smem_split variant on its own entry, in place of the
             # (unedited) pre-pass kernel
@@ -1067,7 +1141,7 @@ def main():
                     rec["bound_ms"], rec["bound_fma_ms"], rec["bound_by"] = (
                         f32_attention_bounds(flops, io_bytes))
                 rec["host_us"] = host_us(calls[n])
-                if f32 and n not in ("library", "plain"):
+                if f32 and n not in ("library", "plain", "fma"):
                     # the 3xTF32 call's pre-pass (split_kv_kernel, K4's
                     # split_kv_relpos_kernel) a call
                     spans = device_spans(lambda: [calls[n]() for _ in range(5)])

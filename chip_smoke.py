@@ -169,19 +169,25 @@ past 900 of 1024 masked, all on its wgmma kernel (``flash_masked_wgmma``),
 K2 and K3 in f32 at the same shapes on the 3xTF32 kernel
 (``flash_attention_tf32``; each f32 attention record carries ``bound_ms``
 at 3xTF32, three TF32 products a product at 495 TFLOP/s, and
-``bound_fma_ms`` at the 67 TFLOP/s f32 peak), f32 at head dim 128 (32,
-1024, 128) with 900 valid keys on the same kernel and an f32 call at head
-dim 96 on the FMA kernel (``flash_attention_f32``), K4 and K5 in f32 at
-SAM ViT-H's shapes (and K4 at the rect grid's and at SAM ViT-L's head dim
-64, (64, 4096, 64)) on the 3xTF32 kernels of
-``csrc/relpos_attention_tf32.cu`` (``flash_attention_relpos_tf32``,
-``window_attention_relpos_tf32``), K4 at head dim 64 on a 64 x 32 grid
-and K5 at SAM ViT-L's head dim 64 on the FMA kernels
-(``flash_attention_relpos``, ``window_attention_relpos``),
+``bound_fma_ms`` at the 67 TFLOP/s f32 peak), f32 at head dims 128 and 96
+((32, 1024, D) with 900 valid keys) on the same kernel, the D 96 call
+beside the FMA kernel on the same inputs (``fma_ms``, through
+``bff_flash_attention_f32_fma``, which no wrapper calls), and an f32 call
+at head dim 80 on the FMA kernel (``flash_attention_f32``), K4 and K5 in
+f32 at SAM ViT-H's shapes (and K4 at the rect grid's and at SAM ViT-L's
+head dim 64, (64, 4096, 64), and on the 64 x 32 and 64 x 48 grids of
+portrait frames at head dims 64 and 80, the narrow mode, each beside the
+FMA kernel through ``bff_flash_attention_relpos_f32_fma``) on the 3xTF32
+kernels of ``csrc/relpos_attention_tf32.cu``
+(``flash_attention_relpos_tf32``, ``window_attention_relpos_tf32``), K4
+at head dim 96 on a 64 x 32 grid and K5 at SAM ViT-L's head dim 64 on the
+FMA kernels (``flash_attention_relpos``, ``window_attention_relpos``),
 the mma.sync tile at (32, 1024, 64) with keys masked, and the NMS kernel
 index for index at YOLO-World-L's 8 400 anchors for a batch of 4 (top_k
-100; its device time split into the sort, the gather and the scan) and at
-thresholds set to pairs' exact IoUs. Tolerances:
+100; its device time split into the sort, the gather and the scan), at
+thresholds set to pairs' exact IoUs, and past the staged kernel's 90 112
+boxes a frame on its large mode (``nms_fixed_large``: 2 x 90 113, 2 x
+393 216, 1 x 1 048 576). Tolerances:
 f32 within 1e-4; bf16 K2/K3,
 K4 and K5, whose tensor-core tile rounds P to bf16 before P V as the TPU
 kernels do, within 2^-8 |P|@|V| + 2^-7 |plain| + 1e-4
@@ -301,6 +307,16 @@ RELPOS_TF32_DESIGN = {
 }
 
 
+# csrc/relpos_attention_tf32.cu: K4 in f32 on a grid narrower than 64
+RELPOS_TF32_NARROW_DESIGN = (
+    "3xTF32 wgmma, K4's narrow mode (kw < 64, a multiple of 8): 64-key tiles across grid rows "
+    "(the last padded with zero keys by the pre-pass), each score's accumulator starting at "
+    "bias_h[q, k / kw] + bias_w[q, k % kw] (bias_w from a shared-memory table, bias_h from "
+    "device memory, the group's grid cell advanced without a division, keys past S at -inf); "
+    "otherwise the kw = 64 kernel: one K and one V stage (two K stages at D 64), two consumer "
+    "warpgroups taking turns, S = Q K^T m64n64k8, P V m64nDk8, each tile's P V added in f32")
+
+
 def host_us(torch, fn, iters=50):
     """Host microseconds a call of ``fn``, the launches enqueued back to
     back (the device runs behind)."""
@@ -360,13 +376,26 @@ def deform_case(torch, dw, name, q_locs, dtype, modes, dev, rng, b):
     return rec
 
 
-def flash_case(torch, fa, name, shape, valid_len, dtype, dev):
+def fma_yardstick(torch, call, want):
+    """The f32-FMA kernel on a call the 3xTF32 route takes, through its
+    measurement entry (``call``, which moves no counter): its max abs error
+    against the plain version ``want``, its ms (CUDA events) and device ms,
+    as ``fma_*`` keys of the 3xTF32 call's record."""
+    from beyondff_tpu_torch.utils.profiling import device_ms
+
+    err = float((call().float() - want.float()).abs().max())
+    return {"fma_max_abs_err": err, "fma_ms": cuda_ms(torch, call, 5),
+            "fma_device_ms": device_ms(call)}
+
+
+def flash_case(torch, fa, name, shape, valid_len, dtype, dev, fma=False):
     """One K2/K3 comparison + timing. bf16 is held within 1.6e-2 and within
     ``fa.bf16_error_bound`` (P rounded to bf16 before P V, as the TPU kernel
     does, plus one output rounding); f32 within 1e-4. The record names the
     counter the call went through (``flash_attention_wgmma`` for K3's bf16
     head-dim-64 calls, ``flash_masked_wgmma`` for K2's bf16 head-dim-32
-    calls), which must be the one ``fa.flash_counter`` names."""
+    calls), which must be the one ``fa.flash_counter`` names. ``fma``: also
+    time the f32-FMA kernel on the same inputs (``fma_yardstick``)."""
     import torch.nn.functional as F
 
     from beyondff_tpu_torch.kernels import dispatch
@@ -396,6 +425,20 @@ def flash_case(torch, fa, name, shape, valid_len, dtype, dev):
     bound_ops = flops / PEAK_FLOPS[dname] * 1e3
     q4, k4, v4 = (t.view(1, bh, s, d) for t in (q, k, v))
     kernel = lambda: fa.flash_attention(q, k, v, valid_len=valid_len)
+    extra = {}
+    if fma:
+        from beyondff_tpu_torch.kernels import _build
+
+        out_fma = torch.empty_like(q)
+
+        def fma_call():
+            rc = _build.library().bff_flash_attention_f32_fma(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out_fma.data_ptr(), bh, s, d,
+                valid_len, d ** -0.5, torch.cuda.current_stream().cuda_stream)
+            check(rc == 0, f"bff_flash_attention_f32_fma {name}: code {rc}")
+            return out_fma
+
+        extra = fma_yardstick(torch, fma_call, want)
     # the yardstick: SDPA, with a boolean key mask where keys are masked
     mask = (torch.arange(s, device=dev)[None, :] < valid_len) if valid_len < s else None
     library = lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask)
@@ -414,7 +457,7 @@ def flash_case(torch, fa, name, shape, valid_len, dtype, dev):
         "bound_ms": max(bound_bytes, bound_ops),
         "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
         "library_ms": cuda_ms(torch, library, 50),
-        "library_device_ms": device_ms(library),
+        "library_device_ms": device_ms(library), **extra,
     }
     if not bf16:
         # f32-grade work: bound_ms at 3xTF32 on the tensor cores (the fastest
@@ -431,7 +474,7 @@ def flash_case(torch, fa, name, shape, valid_len, dtype, dev):
     return rec
 
 
-def relpos_case(torch, fa, wa, sam_mod, name, g, grid, dtype, dev, d=80):
+def relpos_case(torch, fa, wa, sam_mod, name, g, grid, dtype, dev, d=80, fma=False):
     """One rel-pos attention comparison + timing: K4 (``flash_attention_relpos``)
     over a global grid, K5 (``window_attention_relpos``) when ``name`` is a
     window case, at head dim ``d``. q, k, v from a seeded generator; the factors are real q . R
@@ -441,7 +484,8 @@ def relpos_case(torch, fa, wa, sam_mod, name, g, grid, dtype, dev, d=80):
     the kernels of ``csrc/relpos_attention_wgmma.cu``; ``..._tf32`` for its
     f32 calls, the kernels of ``csrc/relpos_attention_tf32.cu``), which must
     be the one ``fa.relpos_counter`` names, and the host microseconds a call
-    (``host_us``: the enqueue, tensor maps included)."""
+    (``host_us``: the enqueue, tensor maps included). ``fma``: also time K4's
+    f32-FMA kernel on the same inputs (``fma_yardstick``)."""
     import torch.nn.functional as F
 
     from beyondff_tpu_torch.kernels import dispatch
@@ -483,6 +527,21 @@ def relpos_case(torch, fa, wa, sam_mod, name, g, grid, dtype, dev, d=80):
         bound = torch.full_like(diff, 1e-4)
     excess = float((diff - bound).max())
     err = float(diff.max())
+    fma_rec = {}
+    if fma:
+        from beyondff_tpu_torch.kernels import _build
+
+        out_fma = torch.empty_like(q)
+
+        def fma_call():
+            rc = _build.library().bff_flash_attention_relpos_f32_fma(
+                *(t.data_ptr() for t in (q, k, v, bias_h, bias_w, out_fma)), g, s, d, hh, ww,
+                d ** -0.5, torch.cuda.current_stream().cuda_stream)
+            check(rc == 0, f"bff_flash_attention_relpos_f32_fma {name}: code {rc}")
+            return out_fma
+
+        fma_rec = fma_yardstick(torch, fma_call, want)
+        del out_fma
     del got, want, diff, bound
     dname = str(dtype).split(".")[-1]
     es = q.element_size()
@@ -496,7 +555,8 @@ def relpos_case(torch, fa, wa, sam_mod, name, g, grid, dtype, dev, d=80):
     q4, k4, v4 = (t[None] for t in (q, k, v))
     library = lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask)
     library_ms = cuda_ms(torch, library, 5)
-    extra = {"design": RELPOS_TF32_DESIGN[window] if routed.endswith("_tf32") else
+    extra = {"design": (RELPOS_TF32_NARROW_DESIGN if not window and ww != 64 else
+                        RELPOS_TF32_DESIGN[window]) if routed.endswith("_tf32") else
              FMA_DESIGN + (", whole-window softmax" if window else "")}
     if not bf16:
         dev_ms = device_ms(kernel)
@@ -535,7 +595,8 @@ def relpos_case(torch, fa, wa, sam_mod, name, g, grid, dtype, dev, d=80):
            "bound_ms": max(bound_bytes, bound_ops),
            "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
            "library_ms": library_ms,
-           "library_call": "scaled_dot_product_attention with the bias as a float mask"}
+           "library_call": "scaled_dot_product_attention with the bias as a float mask",
+           **fma_rec}
     if not bf16:  # f32-grade work: 3xTF32 in bound_ms, f32 FMAs in bound_fma_ms
         rec["bound_ms"], rec["bound_by"] = bound_ms, bound_by
     emit(rec)
@@ -1607,18 +1668,39 @@ NMS_ANCHORS = 80 * 80 + 40 * 40 + 20 * 20  # YOLO-World-L's anchors at 640x640
 NMS_TOP_K = 100  # YOLO-World-L's max_dets
 
 
-def nms_case(torch, nms, dev):
+NMS_STAGED_DESIGN = (
+    "a cluster of 8 blocks per frame, each a slice of the sorted boxes staged by one bulk copy "
+    "with its suppression bits in shared memory; a round tests the boxes the last round kept "
+    "against the slice (warp ballots, suppressed words skipped, the division only near the "
+    "threshold), each block offers its first 4 free boxes to all through distributed shared "
+    "memory, one cluster barrier, then the 4 smallest offers are kept greedily; stops at top_k; "
+    "ms and device_ms include the wrapper's stable sort and gather (sort_ms, gather_ms, "
+    "scan_ms)")
+NMS_LARGE_DESIGN = (
+    "the same kernel's large mode for frames above 90 112 boxes: the same cluster rounds with "
+    "the sorted boxes read from device memory (L2) every round, areas recomputed, only the "
+    "suppression bits in shared memory (slices up to 1 835 008 boxes; device memory past "
+    "that); ms and device_ms include the wrapper's stable sort and gather")
+
+
+def nms_case(torch, nms, dev, b=FRAME_BATCH, a=NMS_ANCHORS, name="yolo_world_l_batch"):
     """The NMS kernel against its plain version, index for index, at the
     main path's batch: 4 frames of 8 400 clustered boxes (as the detector's
-    output), top_k 100, IoU 0.5. The bound counts the IoU tests this data
-    needs (each kept box against every box after it) at the f32 peak, and
-    the boxes and scores read once."""
+    output), top_k 100, IoU 0.5; or ``b`` frames of ``a`` boxes, above
+    ``nms.MAX_ANCHORS`` on the large mode (``nms_fixed_large``). The call
+    must count under the counter ``nms.route`` names. The bound counts the
+    IoU tests this data needs (each kept box against every box after it) at
+    the f32 peak, and the boxes and scores read once."""
+    from beyondff_tpu_torch.kernels import dispatch
     from beyondff_tpu_torch.utils.profiling import (HBM_BYTES_PER_S, PEAK_FLOPS, device_ms,
                                                     device_spans)
 
-    b, a = FRAME_BATCH, NMS_ANCHORS
-    boxes, scores = nms.clustered_boxes(torch.Generator(device=dev).manual_seed(SEED), b, a)
+    seed = SEED if a == NMS_ANCHORS else SEED + a
+    boxes, scores = nms.clustered_boxes(torch.Generator(device=dev).manual_seed(seed), b, a)
+    before = dict(dispatch.launch_counts)
     keep, valid = nms.nms_fixed(boxes, scores, 0.5, NMS_TOP_K)
+    went = [key for key, n in dispatch.launch_counts.items() if n != before[key]]
+    check(went == [nms.route(a)], f"nms_fixed {name}: launched {went}")
     want_keep, want_valid = nms.nms_fixed_plain(boxes, scores, 0.5, NMS_TOP_K)
     torch.cuda.synchronize()
     err = float((keep.long() - want_keep.long()).abs().max())
@@ -1631,7 +1713,7 @@ def nms_case(torch, nms, dev):
     # the call's device time by part: the scan (the kernel), the gather, and
     # the sort with the negation of the scores (the wrapper's)
     split = nms.split_spans(device_spans(lambda: [kernel() for _ in range(5)]), 5)
-    rec = {"case": "yolo_world_l_batch", "kernel": "nms_fixed", "shape": [b, a],
+    rec = {"case": name, "kernel": nms.route(a), "shape": [b, a],
            "top_k": NMS_TOP_K, "kept": int(valid.sum()), "iou_evaluations": n_iou,
            "max_abs_err": err, "index_equal": equal, "tol": "indices equal",
            "ms": cuda_ms(torch, kernel, 50), "device_ms": device_ms(kernel), **split,
@@ -1640,16 +1722,11 @@ def nms_case(torch, nms, dev):
            "bound_ms": max(bound_bytes, bound_ops),
            "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
            "library_ms": None,
-           "design": "a cluster of 8 blocks per frame, each a slice of the sorted boxes "
-                     "staged by one bulk copy with its suppression bits in shared memory; a "
-                     "round tests the boxes the last round kept against the slice (warp "
-                     "ballots, suppressed words skipped, the division only near the "
-                     "threshold), each block offers its first 4 free boxes to all through "
-                     "distributed shared memory, one cluster barrier, then the 4 smallest "
-                     "offers are kept greedily; stops at top_k; ms and device_ms include "
-                     "the wrapper's stable sort and gather (sort_ms, gather_ms, scan_ms)"}
+           "design": NMS_STAGED_DESIGN if a <= nms.MAX_ANCHORS else NMS_LARGE_DESIGN}
     emit(rec)
     check(equal, f"nms_fixed kernel disagrees with its plain version: {rec}")
+    del boxes, scores
+    torch.cuda.empty_cache()
     return rec
 
 
@@ -3511,10 +3588,23 @@ def main() -> int:
         dev, d=64)
     check(rec["kernel"] == "flash_attention_relpos_tf32",
           f"f32 K4 at head dim 64: went through {rec['kernel']}, not the 3xTF32 kernel")
-    for key, name, g, grid in (("relpos_global_fma", "kw32_d64_global", 16, (64, 32)),
-                               ("relpos_window_fma", "window_sam_vit_l", 400, (14, 14))):
+    # K4 in f32 on grids narrower than 64 (portrait frames under
+    # BFF_SAM_RECT=1: 64 x 32 for 2:1, 64 x 48 for 4:3) at head dims 64 and
+    # 80 on the 3xTF32 kernel's narrow mode, each beside the FMA kernel on
+    # the same inputs
+    for kw in (32, 48):
+        for d in (64, 80):
+            cases[(f"relpos_narrow_kw{kw}_d{d}", "float32", FRAME_BATCH)] = rec = relpos_case(
+                torch, fa, wa, sam_mod, f"portrait_kw{kw}_d{d}_global", 16 * FRAME_BATCH,
+                (64, kw), torch.float32, dev, d=d, fma=True)
+            check(rec["kernel"] == "flash_attention_relpos_tf32",
+                  f"f32 K4 on 64 x {kw} at head dim {d}: on {rec['kernel']}")
+    # outside the 3xTF32 predicate, on the FMA kernels: K4 at head dim 96
+    # on the 64 x 32 grid, K5 at SAM ViT-L's head dim 64
+    for key, name, g, grid, d in (("relpos_global_fma", "kw32_d96_global", 16, (64, 32), 96),
+                                  ("relpos_window_fma", "window_sam_vit_l", 400, (14, 14), 64)):
         cases[(key, "float32", FRAME_BATCH)] = rec = relpos_case(
-            torch, fa, wa, sam_mod, name, g * FRAME_BATCH, grid, torch.float32, dev, d=64)
+            torch, fa, wa, sam_mod, name, g * FRAME_BATCH, grid, torch.float32, dev, d=d)
         check(rec["kernel"] in ("flash_attention_relpos", "window_attention_relpos"),
               f"f32 rel-pos {name}: went through {rec['kernel']}, not the FMA kernel")
     # the mma.sync tile of csrc/attention_tc.cuh keeps every bf16 call outside
@@ -3588,11 +3678,19 @@ def main() -> int:
     cases[("flash_d128", "float32", FRAME_BATCH)] = rec = flash_case(
         torch, fa, "d128_1024_900", (8 * FRAME_BATCH, 1024, 128), 900, torch.float32, dev)
     check(rec["kernel"] == "flash_attention_tf32", "flash_d128: off the 3xTF32 kernel")
+    cases[("flash_d96", "float32", FRAME_BATCH)] = rec = flash_case(
+        torch, fa, "d96_1024_900", (8 * FRAME_BATCH, 1024, 96), 900, torch.float32, dev,
+        fma=True)
+    check(rec["kernel"] == "flash_attention_tf32", "flash_d96: off the 3xTF32 kernel")
     cases[("flash_fma", "float32", FRAME_BATCH)] = rec = flash_case(
-        torch, fa, "d96_1024_900", (8 * FRAME_BATCH, 1024, 96), 900, torch.float32, dev)
+        torch, fa, "d80_1024_900", (8 * FRAME_BATCH, 1024, 80), 900, torch.float32, dev)
     check(rec["kernel"] == "flash_attention_f32", "flash_fma: off the f32-FMA kernel")
     cases["nms"] = nms_case(torch, nms, dev)
     cases["nms_threshold"] = nms_threshold_case(torch, nms, dev)
+    # frames past the staged kernel's 90 112 boxes, on its large mode
+    for b_nms, a_nms in ((2, nms.MAX_ANCHORS + 1), (2, 393_216), (1, 1_048_576)):
+        cases[("nms_large", a_nms)] = nms_case(torch, nms, dev, b_nms, a_nms,
+                                               f"large_{b_nms}x{a_nms}")
 
     work = os.path.join(REPO, "chiprun_out", "chip_smoke")
     shutil.rmtree(work, ignore_errors=True)
@@ -3692,7 +3790,8 @@ def main() -> int:
         torch, (seg2d, yw, esam, dispatch, io, rle, StageProfiler), Config, work, dev,
         (cfg.detector.clip_checkpoint, cfg.detector.clip_bpe_path))
     launches = {**launches, "flash_attention_wgmma": fast_launches["flash_attention_wgmma"],
-                "nms_fixed": fast_launches["nms_fixed"]}
+                "nms_fixed": fast_launches["nms_fixed"],
+                "nms_fixed_large": fast_launches["nms_fixed_large"]}
 
     # ---------------------------------------------------------------- 9
     marks.append((9, time.perf_counter()))
@@ -3765,6 +3864,10 @@ def main() -> int:
              "beyondff_tpu/kernels/flash_attention.py:68"),
             ("nms", "beyondff_tpu_torch/csrc/nms_fixed.cu",
              "beyondff_tpu/models/yolo_world.py:313"),
+            # frames above 90 112 boxes: the large mode (no configured
+            # detector reaches it: 0 launches on the path)
+            (("nms_large", 1_048_576), "beyondff_tpu_torch/csrc/nms_fixed.cu",
+             "beyondff_tpu/models/yolo_world.py:313"),
             # detector.dtype float32 (phase 14): K2 and K3 on the 3xTF32
             # kernel, the other f32 calls on the FMA kernels
             (("flash_900", "float32", FRAME_BATCH),
@@ -3774,6 +3877,9 @@ def main() -> int:
              "beyondff_tpu_torch/csrc/flash_attention_tf32.cu",
              "beyondff_tpu/kernels/flash_attention.py:68"),
             (("flash_d128", "float32", FRAME_BATCH),
+             "beyondff_tpu_torch/csrc/flash_attention_tf32.cu",
+             "beyondff_tpu/kernels/flash_attention.py:270"),
+            (("flash_d96", "float32", FRAME_BATCH),
              "beyondff_tpu_torch/csrc/flash_attention_tf32.cu",
              "beyondff_tpu/kernels/flash_attention.py:270"),
             (("flash_fma", "float32", FRAME_BATCH), "beyondff_tpu_torch/csrc/flash_attention.cu",
@@ -3787,6 +3893,10 @@ def main() -> int:
             (("relpos_global_d64", "float32", FRAME_BATCH),
              "beyondff_tpu_torch/csrc/relpos_attention_tf32.cu",
              "beyondff_tpu/kernels/flash_attention.py:193"),
+            *((("relpos_narrow_kw%d_d%d" % (kw, d), "float32", FRAME_BATCH),
+               "beyondff_tpu_torch/csrc/relpos_attention_tf32.cu",
+               "beyondff_tpu/kernels/flash_attention.py:193")
+              for kw in (32, 48) for d in (64, 80)),
             (("relpos_window", "float32", FRAME_BATCH),
              "beyondff_tpu_torch/csrc/relpos_attention_tf32.cu",
              "beyondff_tpu/kernels/window_attention.py:51"),
@@ -3805,7 +3915,9 @@ def main() -> int:
         # float32 configuration's (phase 14: classic, fast for K3, the
         # classic pass under BFF_SAM_RELPOS_FLASH=1 for K4 and K5)
         name = c["kernel"]
-        if isinstance(key, tuple) and "float32" in key:
+        if isinstance(key, tuple) and key[0] == "nms_large":
+            n_launches = launches.get(name, 0)
+        elif isinstance(key, tuple) and "float32" in key:
             n_launches = f32_launches["fast" if key[0] == "k3_efficientsam" else
                                       "classic_relpos_flash" if key[0].startswith("relpos")
                                       else "classic"][name]
@@ -3822,6 +3934,7 @@ def main() -> int:
                                                      "dense_path_device_ms", "host_us",
                                                      "sort_ms", "gather_ms", "scan_ms",
                                                      "bound_fma_ms", "share_of_bound",
+                                                     "fma_ms", "fma_device_ms",
                                                      "dtype", "shape", "design")
                          if key in c}})
     shutil.rmtree(work)

@@ -347,6 +347,71 @@ def test_nms_anchor_limit_follows_the_slices():
     assert tnms.MAX_ANCHORS == tnms.CLUSTER * tnms.MAX_SLICE == 90112
 
 
+@pytest.mark.parametrize("a,want", [
+    (1, "nms_fixed"), (8400, "nms_fixed"), (90112, "nms_fixed"), (90113, "nms_fixed_large"),
+    (393216, "nms_fixed_large"), (1048576, "nms_fixed_large"), (20_000_000, "nms_fixed_large"),
+    (2 ** 31 - 257, "nms_fixed_large")])
+def test_nms_route_takes_the_large_mode_past_the_staged_slices(a, want):
+    """Frames whose slices hold at most ``MAX_SLICE`` boxes take the staged
+    kernel (``nms_fixed``), every larger one the large mode
+    (``nms_fixed_large``), up to ``MAX_BOXES``; both counters exist and
+    reset with the rest."""
+    assert tnms.route(a) == want
+    assert want in dispatch.launch_counts
+    assert tnms.MAX_BOXES == 2 ** 31 - 1 - 32 * tnms.CLUSTER
+
+
+@pytest.mark.parametrize("b,a,want", [
+    (1, 90113, 0), (4, 1048576, 0), (2, 14_680_064, 0),  # the bits fit in shared memory
+    (2, 14_680_065, 2 * 8 * 57348),  # past 32 x 57 344 boxes a slice: device memory
+    (1, 100_000_000, 8 * 390628), (3, 0, 0), (0, 100, 0), (1, 2 ** 31, 0)])
+def test_nms_large_scratch_words(b, a, want):
+    """The large mode keeps a block's suppression words (rounded up to 4) in
+    shared memory up to ``MAX_MASK_SLICE`` boxes a slice, and in scratch
+    past it: ``b`` x ``CLUSTER`` runs of a block's words."""
+    assert tnms.large_scratch_words(b, a) == want
+
+
+def _clustered_ties_threshold(rng, a):
+    """Clustered boxes with zero-area and inverted ones and scores tied in
+    sixths, and a threshold on an IoU of a pair of the input (the division
+    near the threshold)."""
+    boxes, scores = _clustered(rng, 2, a, spread=3.0)
+    boxes[:, ::7, 2] = boxes[:, ::7, 0]
+    boxes[:, 1::11, 3] = boxes[:, 1::11, 1] - 4
+    scores = (np.round(scores * 6) / 6).astype(np.float32)
+    bs = boxes[0]
+    area = (np.maximum(bs[:, 2] - bs[:, 0], 0) * np.maximum(bs[:, 3] - bs[:, 1], 0))
+    inter = (np.maximum(np.minimum(bs[2, 2], bs[3:, 2]) - np.maximum(bs[2, 0], bs[3:, 0]), 0)
+             * np.maximum(np.minimum(bs[2, 3], bs[3:, 3]) - np.maximum(bs[2, 1], bs[3:, 1]), 0))
+    iou = (inter / ((area[2] + area[3:] - inter) + np.float32(1e-9))).astype(np.float32)
+    return boxes, scores, float(iou[(iou > 0.2) & (iou < 0.8)][0])
+
+
+@pytest.mark.parametrize("kind,a,max_slice,top_k", [
+    ("clustered", 3000, 256, 100), ("clustered", 3000, 64, 3000), ("clustered", 2500, 288, 7),
+    ("ties_threshold", 2000, 128, 400), ("ties_threshold", 2000, 224, 2000)])
+def test_large_route_mirror_matches_jax_nms(rng, jx, kind, a, max_slice, top_k):
+    """The large mode's rounds (``cluster_scan_mirror`` with a slice capacity
+    small enough that a few thousand boxes take it: the boxes read from
+    device memory every round, areas recomputed) index for index against
+    the JAX ``nms_fixed``: clustered boxes, and zero-area, inverted and
+    tied boxes with the threshold on a pair's IoU; and equal to the staged
+    mode's rounds, round for round."""
+    thr = 0.5
+    if kind == "clustered":
+        boxes, scores = _clustered(rng, 2, a)
+    else:
+        boxes, scores, thr = _clustered_ties_threshold(rng, a)
+    assert tnms.route(a, max_slice) == "nms_fixed_large" and tnms.route(a) == "nms_fixed"
+    want = _jax_nms(jx, boxes, scores, thr, top_k)
+    tb, ts = torch.from_numpy(boxes), torch.from_numpy(scores)
+    got = tnms.cluster_scan_mirror(tb, ts, thr, top_k, max_slice=max_slice)
+    _assert_nms_equal(got[:2], want)
+    staged = tnms.cluster_scan_mirror(tb, ts, thr, top_k)
+    assert got[2] == staged[2]
+
+
 # ---------------------------------------------------------------- variants
 @pytest.mark.parametrize("name", ["k2_poly_1", "k2_poly_2", "k2_poly_4",
                                   "k2_rescale_always", "k2_no_peel",
@@ -355,7 +420,8 @@ def test_nms_anchor_limit_follows_the_slices():
                                   "k2_consumers_4",
                                   "k2_consumers_2", "k2_consumers_1", "nms_cluster_1", "nms_cluster_4",
                                   "nms_cluster_16", "nms_look_1", "nms_look_2",
-                                  "nms_threads_256", "nms_threads_1024", "nms_divide"])
+                                  "nms_threads_256", "nms_threads_1024", "nms_divide",
+                                  "nms_large_unroll_1", "nms_large_unroll_8"])
 def test_k2_nms_variant_edits_match_the_sources(name):
     """Each K2 or NMS variant of ``tools/kernel_variants.py`` is a set of
     edits that must each match its source once."""
@@ -541,7 +607,79 @@ def test_nms_cluster_on_the_threshold_on_card(cuda_device):
 
 @pytest.mark.cuda
 def test_nms_rejects_more_anchors_than_the_slices_hold_on_card(cuda_device):
-    boxes = torch.zeros(1, tnms.MAX_ANCHORS + 1, 4, device=cuda_device)
-    scores = torch.zeros(1, tnms.MAX_ANCHORS + 1, device=cuda_device)
-    with pytest.raises(ValueError, match="exceed"):
-        tnms.nms_fixed(boxes, scores, 0.5, 10)
+    """Frames past the staged slices (90 113 and 393 216 boxes, 2 frames)
+    are no longer refused: the large mode gives the plain version's indices,
+    one launch counted as ``nms_fixed_large`` a call."""
+    for a in (tnms.MAX_ANCHORS + 1, 393_216):
+        gen = torch.Generator(device=cuda_device).manual_seed(a)
+        boxes, scores = tnms.clustered_boxes(gen, 2, a)
+        before = dict(dispatch.launch_counts)
+        keep, valid = tnms.nms_fixed(boxes, scores, 0.5, 100)
+        assert _moved(before) == ["nms_fixed_large"]
+        want = tnms.nms_fixed_plain(boxes, scores, 0.5, 100)
+        torch.cuda.synchronize()
+        assert torch.equal(keep, want[0]) and torch.equal(valid, want[1]), a
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,a,top_k", [(1, 1_048_576, 100), (2, 200_000, 3000),
+                                       (1, 15_000_000, 100)])
+def test_nms_large_mode_matches_plain_on_card(cuda_device, b, a, top_k):
+    """The large mode at a million boxes, at top_k past the kept count, and
+    past the boxes whose suppression bits shared memory holds (15 M: the
+    bits in scratch): index for index against the plain version."""
+    gen = torch.Generator(device=cuda_device).manual_seed(a + top_k)
+    boxes, scores = tnms.clustered_boxes(gen, b, a)
+    before = dict(dispatch.launch_counts)
+    keep, valid = tnms.nms_fixed(boxes, scores, 0.5, top_k)
+    assert _moved(before) == ["nms_fixed_large"]
+    want = tnms.nms_fixed_plain(boxes, scores, 0.5, top_k)
+    torch.cuda.synchronize()
+    assert torch.equal(keep, want[0]) and torch.equal(valid, want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,a", [(4, 8400), (2, 33), (1, 1), (2, 2000)])
+def test_nms_large_mode_at_small_frames_on_card(cuda_device, b, a):
+    """The large mode's C entry also takes frames the staged kernel takes
+    (the measurements time it there): the same indices as the staged kernel
+    and the plain version, on clustered boxes with tied scores."""
+    import ctypes
+
+    from beyondff_tpu_torch.kernels import _build
+
+    gen = torch.Generator(device=cuda_device).manual_seed(a + 5)
+    boxes, scores = tnms.clustered_boxes(gen, b, a)
+    scores = torch.round(scores * 8) / 8
+    order = torch.sort(scores.neg(), dim=-1, stable=True).indices
+    bs = torch.gather(boxes, 1, order[..., None].expand(-1, -1, 4)).contiguous()
+    keep = torch.empty(b, 100, dtype=torch.int32, device=cuda_device)
+    valid = torch.empty(b, 100, dtype=torch.bool, device=cuda_device)
+    rc = _build.library().bff_nms_fixed_large(
+        bs.data_ptr(), order.data_ptr(), b, a, 100, ctypes.c_float(0.5), None, keep.data_ptr(),
+        valid.data_ptr(), torch.cuda.current_stream().cuda_stream)
+    assert rc == 0
+    staged = tnms.nms_fixed(boxes, scores, 0.5, 100)
+    want = tnms.nms_fixed_plain(boxes, scores, 0.5, 100)
+    torch.cuda.synchronize()
+    for got in ((keep, valid), staged):
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+def test_nms_large_scratch_matches_the_c_side_on_card(cuda_device):
+    """``large_scratch_words`` says what ``bff_nms_large_scratch_words`` says,
+    and the large entry refuses frames it cannot hold and missing scratch."""
+    import ctypes
+
+    from beyondff_tpu_torch.kernels import _build
+
+    lib = _build.library()
+    for b in (0, 1, 2, 5):
+        for a in (0, 1, 8400, 90113, 14_680_064, 14_680_065, 100_000_000, 2 ** 31 - 257,
+                  2 ** 31 - 256):
+            assert lib.bff_nms_large_scratch_words(b, a) == tnms.large_scratch_words(b, a)
+    p = ctypes.c_void_p(16)
+    assert lib.bff_nms_fixed_large(p, p, 1, 0, 10, ctypes.c_float(0.5), None, p, p, None) == -1
+    assert lib.bff_nms_fixed_large(p, p, 1, 14_680_065, 10, ctypes.c_float(0.5), None, p, p,
+                                   None) == -1

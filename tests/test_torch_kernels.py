@@ -495,10 +495,12 @@ def test_mask_iou_wrapper_checks_on_cpu():
                                   "k3_no_pingpong", "k3_two_consumers", "k4_two_consumers",
                                   "k4_two_serial", "k4_overlap", "k4_no_pingpong",
                                   "k4_stages_3", "k5_one_consumer",
-                                  "k5_two_blocks", "k5_pingpong", "f32_fma", "tf32_serial",
+                                  "k5_two_blocks", "k5_pingpong", "tf32_serial",
                                   "tf32_no_pingpong", "tf32_stages_2", "tf32_d128_fold",
                                   "tf32_d128_overlap", "tf32_d128_stages_1_2",
-                                  "tf32_d128_stages_1_1"])
+                                  "tf32_d128_stages_1_1", "tf32_d96_tile32",
+                                  "tf32_d96_tile32_serial", "tf32_d96_tile32_stages_3_2",
+                                  "tf32_d96_overlap"])
 def test_kernel_variant_edits_match_the_sources(name):
     """Each variant ``tools/kernel_variants.py`` builds is a set of edits
     that must each match its source once: they go stale with the kernels."""
@@ -581,9 +583,9 @@ def test_flash_kernel_matches_plain_on_card(cuda_device, dtype, bh, s, valid, d)
     within the derived bound and K2's 1.6e-2. Each call counts once, under
     the counter ``tfa.flash_counter`` names: bf16 at head dim 32 goes to
     K2's wgmma kernel (``flash_masked_wgmma``), other bf16 to the mma.sync
-    tile or the FMA kernel (``flash_attention``), f32 at head dim 32 or 64
-    to the 3xTF32 kernel (``flash_attention_tf32``) and other f32 to the
-    FMA kernel (``flash_attention_f32``)."""
+    tile or the FMA kernel (``flash_attention``), f32 at head dim 32, 64, 96
+    or 128 from S = 256 on to the 3xTF32 kernel (``flash_attention_tf32``)
+    and other f32 to the FMA kernel (``flash_attention_f32``)."""
     g = torch.Generator(device=cuda_device).manual_seed(s + d)
     q, k, v = (torch.randn(bh, s, d, generator=g, device=cuda_device).to(dtype)
                for _ in range(3))
@@ -597,7 +599,8 @@ def test_flash_kernel_matches_plain_on_card(cuda_device, dtype, bh, s, valid, d)
     if dtype == torch.bfloat16:
         assert key == ("flash_masked_wgmma" if d == 32 else "flash_attention")
     else:
-        assert key == ("flash_attention_tf32" if d in (32, 64) else "flash_attention_f32")
+        assert key == ("flash_attention_tf32" if d in tfa.TF32_HEAD_DIMS and s >= tfa.TF32_MIN_S
+                       else "flash_attention_f32")
     _assert_within_bound(got, want, tfa.bf16_error_bound(q, k, v, want, valid))
     if dtype == torch.bfloat16:
         assert float((got.float() - want.float()).abs().max()) <= 1.6e-2

@@ -1,6 +1,6 @@
 """K4 and K5 in f32 (SAM ViT-H's head-dim-80 rel-pos attention, and K4 at
-SAM ViT-L's and ViT-B's head dim 64) on the 3xTF32 wgmma kernels of
-``csrc/relpos_attention_tf32.cu``.
+SAM ViT-L's and ViT-B's head dim 64, and on grids narrower than 64: the
+narrow mode) on the 3xTF32 wgmma kernels of ``csrc/relpos_attention_tf32.cu``.
 
 On the CPU: the routing rule (``relpos_tf32_route``, the mirror of the C
 predicate ``bff_relpos_tf32_takes``) and the counter a call moves, K4's
@@ -39,10 +39,13 @@ def jx():
     pytest.importorskip("jax")
     import jax.numpy as jnp
 
+    import jax
+
     from beyondff_tpu.kernels import flash_attention as jfa
     from beyondff_tpu.kernels import window_attention as jwa
+    from beyondff_tpu.models import sam as jsam
 
-    return types.SimpleNamespace(jnp=jnp, fa=jfa, wa=jwa)
+    return types.SimpleNamespace(jax=jax, jnp=jnp, fa=jfa, wa=jwa, sam=jsam)
 
 
 @pytest.fixture
@@ -65,6 +68,27 @@ def _inputs(seed, g, rows, cols, d=80, spread=1.0, bias_scale=0.5):
     return tuple(t)
 
 
+def _rel_tables(rows, cols, d, scale=0.1):
+    """Seeded rel-pos tables for a rows x cols grid, as SAM holds them."""
+    rng = np.random.default_rng(rows * 100 + cols + d)
+    return ((rng.standard_normal((2 * rows - 1, d)) * scale).astype(np.float32),
+            (rng.standard_normal((2 * cols - 1, d)) * scale).astype(np.float32))
+
+
+def _sam_factors(jx, rows, cols, g, d, spread):
+    """q, k, v from a seeded numpy generator (q and k scaled by ``spread``)
+    and the factors the JAX package's SAM builds from them
+    (``_rel_pos_factors`` of q and the tables), as CPU f32 tensors."""
+    rng = np.random.default_rng(g * rows * cols + d)
+    s = rows * cols
+    q, k, v = (rng.standard_normal((g, s, d)).astype(np.float32) for _ in range(3))
+    q, k = q * spread, k * spread
+    rel_h, rel_w = _rel_tables(rows, cols, d)
+    bias_h, bias_w = jx.sam._rel_pos_factors((rows, cols), (rows, cols), jx.jnp.asarray(rel_h),
+                                             jx.jnp.asarray(rel_w), jx.jnp.asarray(q))
+    return tuple(torch.from_numpy(np.array(t, np.float32)) for t in (q, k, v, bias_h, bias_w))
+
+
 # ------------------------------------------------------------------ route
 @pytest.mark.parametrize("args,takes", [
     ((0, 0, 80, 4096, 64, 64, _S80, *_A), True),  # K4: SAM ViT-H's global grid
@@ -77,12 +101,27 @@ def _inputs(seed, g, rows, cols, d=80, spread=1.0, bias_scale=0.5):
     ((0, 0, 64, 4096, 64, 64, 0.125, *_A), True),  # K4: SAM ViT-L's and ViT-B's head dim
     ((0, 0, 64, 64, 1, 64, 0.125, *_A), True),  # head dim 64, one grid row
     ((0, 1, 64, 4096, 64, 64, 0.125, *_A), False),  # bf16 at head dim 64: the tile
-    ((0, 0, 64, 2048, 64, 32, 0.125, *_A), False),  # head dim 64 on a 32-wide grid
+    ((0, 0, 64, 2048, 64, 32, 0.125, *_A), True),  # head dim 64 on a 32-wide grid: narrow
+    ((0, 0, 80, 2048, 64, 32, _S80, *_A), True),  # a 2:1 portrait frame's 64 x 32 grid
+    ((0, 0, 80, 3072, 64, 48, _S80, *_A), True),  # a 4:3 portrait frame's 64 x 48 grid
+    ((0, 0, 64, 3072, 64, 48, 0.125, *_A), True),
+    ((0, 0, 64, 1024, 64, 16, 0.125, *_A), True),  # kw 16
+    ((0, 0, 80, 8, 1, 8, _S80, *_A), True),  # the narrowest and shortest grid: one tile
+    ((0, 0, 80, 3584, 64, 56, _S80, *_A), True),  # the widest narrow grid
+    ((0, 0, 80, 120, 5, 24, _S80, *_A), True),  # kw 24: tiles straddle grid rows
+    ((0, 0, 80, 256, 64, 4, _S80, *_A), False),  # kw 4: below the narrow mode's 8
+    ((0, 0, 80, 768, 64, 12, _S80, *_A), False),  # kw 12: not a multiple of 8
+    ((0, 0, 80, 2304, 64, 36, _S80, *_A), False),  # kw 36: not a multiple of 8
+    ((0, 0, 80, 4608, 64, 72, _S80, *_A), False),  # wider than 64
+    ((0, 0, 80, 2080, 65, 32, _S80, *_A), False),  # kh 65 on a 32-wide grid
+    ((0, 0, 96, 2048, 64, 32, 96 ** -0.5, *_A), False),  # head dim 96 on a 32-wide grid
+    ((0, 1, 80, 2048, 64, 32, _S80, *_A), False),  # bf16 on a 32-wide grid: the tile
+    ((0, 0, 80, 2048, 64, 32, _S80, 0, 0, 0, 0, 4, 0), False),  # narrow, bias_h off 16 bytes
     ((0, 0, 64, 4096, 64, 64, 0.125, 0, 0, 0, 0, 0, 4), False),  # bias_w off 16 bytes
     ((1, 0, 64, 196, 14, 14, 0.125, *_A), False),  # K5 at head dim 64: the FMA kernel
     ((0, 0, 96, 4096, 64, 64, 96 ** -0.5, *_A), False),  # another head dim
     ((0, 0, 128, 4096, 64, 64, 128 ** -0.5, *_A), False),
-    ((0, 0, 80, 4096, 128, 32, _S80, *_A), False),  # kw 32
+    ((0, 0, 80, 4096, 128, 32, _S80, *_A), False),  # kw 32 with kh past 64
     ((0, 0, 80, 8192, 128, 64, _S80, *_A), False),  # kh past 64
     ((0, 0, 80, 4095, 64, 64, _S80, *_A), False),  # S off the grid
     ((1, 0, 80, 256, 16, 16, _S80, *_A), False),  # 16 x 16 windows
@@ -98,8 +137,9 @@ def _inputs(seed, g, rows, cols, d=80, spread=1.0, bias_scale=0.5):
     ((2, 0, 80, 196, 14, 14, _S80, *_A), False),  # no such entry
 ])
 def test_relpos_tf32_route_pins_the_predicate(args, takes):
-    """The Python mirror of ``bff_relpos_tf32_takes``: f32, kw = 64 with kh <=
-    64 at head dim 64 or 80 (K4) or 14 x 14 windows at 80 (K5), a positive finite f32
+    """The Python mirror of ``bff_relpos_tf32_takes``: f32, kh <= 64 with kw =
+    64 or a multiple of 8 from 8 to 56 at head dim 64 or 80 (K4) or 14 x 14
+    windows at 80 (K5), a positive finite f32
     scale, six 16-byte aligned pointers; and the counter a call moves:
     ``..._tf32`` where it takes the call, else the bf16 wgmma kernels'
     ``..._wgmma`` or the entry's own (the mma.sync tile, the FMA kernels)."""
@@ -133,6 +173,16 @@ def test_relpos_tf32_scratch_holds_every_tiles_images(bh, s, want):
     of every 64-key tile of every head, 4 BH S 80 floats (S = 64 kh is whole
     tiles)."""
     assert tfa.relpos_tf32_scratch_floats(bh, s, 80) == want
+
+
+@pytest.mark.parametrize("bh,s,d,want", [
+    (64, 2048, 64, 4 * 64 * 2048 * 64), (64, 3072, 80, 4 * 64 * 3072 * 80),
+    (2, 8, 80, 4 * 2 * 64 * 80), (3, 120, 64, 4 * 3 * 128 * 64), (2, 3584, 80, 4 * 2 * 3584 * 80),
+    (1, 2 * 40, 80, 4 * 128 * 80)])
+def test_relpos_tf32_scratch_pads_a_narrow_grids_last_tile(bh, s, d, want):
+    """The narrow mode's scratch: the images of every 64-key tile, the last
+    padded with zero keys, 4 BH Sp D floats with Sp = S rounded up to 64."""
+    assert tfa.relpos_tf32_scratch_floats(bh, s, d) == want
 
 
 @pytest.mark.parametrize("bh,s,d", [(64, 4096, 64), (16, 4096, 64), (1, 64, 64), (3, 320, 64),
@@ -180,13 +230,17 @@ def test_relpos_tf32_fragment_covers_each_score_once(kind, tile):
     assert seen == {(r, n * tile + c): 1 for r in range(64) for c in range(n)}
 
 
-@pytest.mark.parametrize("kind,rows,cols", [(0, 64, 64), (0, 48, 64), (0, 5, 64), (1, 14, 14)])
+@pytest.mark.parametrize("kind,rows,cols", [(0, 64, 64), (0, 48, 64), (0, 5, 64), (1, 14, 14),
+                                            (0, 64, 32), (0, 64, 48), (0, 7, 24), (0, 3, 8),
+                                            (0, 2, 56), (0, 5, 40), (0, 1, 16)])
 def test_relpos_tf32_fragment_gathers_relpos_bias(kind, rows, cols):
     """The factors gathered through the fragment arithmetic (bias_h at (row,
     ky) plus bias_w at (row, kx), in f32) equal ``relpos_bias`` at every
     score of every key tile of SAM ViT-H's 64 x 64 and 48 x 64 grids, a
-    5 x 64 grid (K4) and a 14 x 14 window (K5), for every 64-row slice of
-    the queries; K5's masked keys are exactly those past 196."""
+    5 x 64 grid (K4), a 14 x 14 window (K5) and narrow grids (K4's narrow
+    mode: 64-key tiles across grid rows, widths that divide 64 and widths
+    that do not), for every 64-row slice of the queries; the masked keys are
+    exactly those past S in the last tile."""
     s = rows * cols
     gen = torch.Generator().manual_seed(rows)
     bias_h = torch.randn(1, s, rows, generator=gen)
@@ -198,7 +252,7 @@ def test_relpos_tf32_fragment_gathers_relpos_bias(kind, rows, cols):
     masked = 0
     for t in range(-(-s // n)):
         regs = [r for warp in range(4) for lane in range(32)
-                for r in tfa.relpos_tf32_fragment(kind, warp, lane, t, s)]
+                for r in tfa.relpos_tf32_fragment(kind, warp, lane, t, s, cols)]
         masked += sum(r[3] is None for r in regs)
         assert all(r[2] >= s for r in regs if r[3] is None)
         row, key, ky, kx = (torch.tensor([r[i] for r in regs if r[3] is not None])
@@ -206,7 +260,7 @@ def test_relpos_tf32_fragment_gathers_relpos_bias(kind, rows, cols):
         q = q0s[:, None] + row
         got = fh[q, ky] + fw[q, kx]
         assert torch.equal(got, dense[q, key.expand_as(q)])
-    assert masked == (64 * (200 - s) if kind == 1 else 0)
+    assert masked == 64 * (-(-s // n) * n - s)
 
 
 # -------------------------------------------------------------- arithmetic
@@ -241,6 +295,25 @@ def test_k4_tf32_mirror_matches_plain_at_head_dim_64(g, rows, spread, bias_scale
                                       bias_scale=bias_scale)
     got = tfa.relpos_tf32_mirror(q, k, v, bias_h, bias_w, 0)
     want = tfa.attend_relpos_plain(q, k, v, bias_h, bias_w, 64)
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    assert float((got - want).abs().max()) <= TOL
+
+
+@pytest.mark.parametrize("d,g,rows,cols,spread,bias_scale", [
+    (80, 2, 3, 32, 1.0, 0.5),  # a 32-wide grid: two grid rows a tile
+    (64, 2, 5, 48, 3.0, 0.5),  # kw 48: tiles straddle grid rows, sharp rows
+    (80, 1, 7, 16, 1.0, 0.5),  # kw 16, a padded last tile
+    (64, 2, 2, 8, 0.25, 3.0),  # the narrowest grid, one padded tile, large factors
+    (80, 2, 5, 40, 1.0, 0.5),
+    (64, 1, 3, 56, 1.0, 0.5)])
+def test_k4_tf32_narrow_mirror_matches_plain(d, g, rows, cols, spread, bias_scale):
+    """K4's narrow mode (grids narrower than 64) against the plain version
+    within 1e-4, at head dims 64 and 80, over widths, score and factor
+    scales."""
+    q, k, v, bias_h, bias_w = _inputs(g * rows + cols + d, g, rows, cols, d=d, spread=spread,
+                                      bias_scale=bias_scale)
+    got = tfa.relpos_tf32_mirror(q, k, v, bias_h, bias_w, 0)
+    want = tfa.attend_relpos_plain(q, k, v, bias_h, bias_w, cols)
     assert got.dtype == torch.float32 and torch.isfinite(got).all()
     assert float((got - want).abs().max()) <= TOL
 
@@ -284,6 +357,51 @@ def test_k4_tf32_d64_mirror_matches_attend_relpos(jx, g, rows, spread):
     want = torch.from_numpy(np.array(jx.fa.attend_relpos(
         *(jx.jnp.asarray(t.numpy()) for t in (q, k, v, bias_h, bias_w)), 64, interpret=True)))
     plain = tfa.attend_relpos_plain(q, k, v, bias_h, bias_w, 64)
+    assert float((want - plain).abs().max()) <= TOL
+    assert float((got - plain).abs().max()) <= TOL
+    assert float((got - want).abs().max()) <= TOL
+
+
+@pytest.mark.parametrize("d,g,rows,cols,spread", [
+    (80, 2, 8, 32, 1.0), (64, 1, 8, 32, 3.0),  # 8 x 32: 256 tokens, the JAX kernel's grid
+    (80, 2, 16, 16, 1.0), (64, 1, 16, 16, 3.0)])
+def test_k4_tf32_narrow_mirror_matches_attend_relpos(jx, d, g, rows, cols, spread):
+    """The narrow mode against the JAX ``attend_relpos`` in interpret mode in
+    f32 on grids its routing admits (``relpos_shapes_ok``: kw 32 and 16),
+    with the factors SAM builds (``_rel_pos_factors`` of the JAX package),
+    within 1e-4, both within 1e-4 of the plain version."""
+    assert tfa.relpos_shapes_ok(rows, cols)
+    q, k, v, bias_h, bias_w = _sam_factors(jx, rows, cols, g, d, spread)
+    got = tfa.relpos_tf32_mirror(q, k, v, bias_h, bias_w, 0)
+    want = torch.from_numpy(np.array(jx.fa.attend_relpos(
+        *(jx.jnp.asarray(t.numpy()) for t in (q, k, v, bias_h, bias_w)), cols, interpret=True)))
+    plain = tfa.attend_relpos_plain(q, k, v, bias_h, bias_w, cols)
+    assert float((want - plain).abs().max()) <= TOL
+    assert float((got - plain).abs().max()) <= TOL
+    assert float((got - want).abs().max()) <= TOL
+
+
+@pytest.mark.parametrize("d,g,rows,cols,spread", [
+    (80, 2, 6, 48, 1.0), (64, 1, 6, 48, 3.0),  # kw 48: the JAX kernel never takes it
+    (80, 1, 5, 32, 1.0),  # 160 tokens: below the JAX kernel's 256
+    (64, 2, 3, 24, 1.0)])
+def test_k4_tf32_narrow_mirror_matches_sam_xla_attention(jx, d, g, rows, cols, spread):
+    """Where ``relpos_shapes_ok`` refuses the grid (kw 48, or fewer than 256
+    tokens), the JAX package runs SAM's attention as XLA: the dense bias
+    ``_rel_pos_bias`` added to the scaled logits, an f32 softmax and P V.
+    The narrow mode's mirror against that expression within 1e-4, both
+    within 1e-4 of the plain version."""
+    jnp = jx.jnp
+    q, k, v, bias_h, bias_w = _sam_factors(jx, rows, cols, g, d, spread)
+    jq, jk, jv = (jnp.asarray(t.numpy()) for t in (q, k, v))
+    rel_h, rel_w = _rel_tables(rows, cols, d)
+    bias = jx.sam._rel_pos_bias((rows, cols), (rows, cols), jnp.asarray(rel_h),
+                                jnp.asarray(rel_w), jq)
+    logits = jnp.einsum("bqd,bkd->bqk", jq * d ** -0.5, jk) + bias
+    want = torch.from_numpy(np.array(jnp.einsum(
+        "bqk,bkd->bqd", jx.jax.nn.softmax(logits.astype(jnp.float32), axis=-1), jv)))
+    got = tfa.relpos_tf32_mirror(q, k, v, bias_h, bias_w, 0)
+    plain = tfa.attend_relpos_plain(q, k, v, bias_h, bias_w, cols)
     assert float((want - plain).abs().max()) <= TOL
     assert float((got - plain).abs().max()) <= TOL
     assert float((got - want).abs().max()) <= TOL
@@ -383,6 +501,51 @@ def test_k4_tf32_d64_matches_plain_on_card(cuda_device, g, rows, scale, spread):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d,g,rows,cols,scale,spread", [
+    (64, 64, 64, 32, 0.1, 1.0), (80, 64, 64, 32, 0.1, 1.0),  # 2:1 portrait, batch of 4
+    (64, 64, 64, 48, 0.1, 1.0), (80, 64, 64, 48, 0.1, 1.0),  # 4:3 portrait, batch of 4
+    (80, 16, 64, 32, 0.1, 3.0), (64, 2, 64, 48, 3.0, 1.0),  # peaked by the scores, the factors
+    (80, 2, 64, 16, 0.1, 0.25),  # a flat softmax, kw 16
+    (80, 2, 1, 8, 0.1, 1.0), (64, 3, 3, 8, 0.1, 1.0),  # the narrowest grids: one tile
+    (80, 3, 7, 24, 0.1, 1.0), (64, 2, 5, 40, 0.1, 1.0),  # tiles straddle grid rows
+    (80, 4, 64, 56, 0.1, 1.0), (80, 1, 63, 32, 0.1, 1.0)])  # the widest; a ragged query block
+def test_k4_tf32_narrow_matches_plain_on_card(cuda_device, d, g, rows, cols, scale, spread):
+    """K4's narrow mode (grids narrower than 64) against the plain version
+    within 1e-4 over portrait grids at the batch of 4, widths from 8 to 56,
+    score and factor scales, one launch counted as
+    ``flash_attention_relpos_tf32`` only."""
+    q, k, v, bias_h, bias_w = _card_inputs(cuda_device, g, rows, cols, d=d, scale=scale,
+                                           spread=spread)
+    before = dict(dispatch.launch_counts)
+    got = tfa.attend_relpos(q, k, v, bias_h, bias_w, cols)
+    assert _moved(before) == ["flash_attention_relpos_tf32"]
+    want = tfa.attend_relpos_plain(q, k, v, bias_h, bias_w, cols)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert float((got - want).abs().max()) <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cols", [32, 64])
+def test_k4_fma_yardstick_entry_matches_plain_on_card(cuda_device, cols):
+    """``bff_flash_attention_relpos_f32_fma``, K4's FMA kernel that the
+    measurements time beside the 3xTF32 one on the same call, computes the
+    same function within 1e-4 and moves no counter."""
+    from beyondff_tpu_torch.kernels import _build
+
+    q, k, v, bias_h, bias_w = _card_inputs(cuda_device, 2, 8, cols)
+    out = torch.empty_like(q)
+    before = dict(dispatch.launch_counts)
+    rc = _build.library().bff_flash_attention_relpos_f32_fma(
+        *(t.data_ptr() for t in (q, k, v, bias_h, bias_w, out)), 2, 8 * cols, 80, 8, cols,
+        _S80, torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert rc == 0 and dispatch.launch_counts == before
+    want = tfa.attend_relpos_plain(q, k, v, bias_h, bias_w, cols)
+    assert float((out - want).abs().max()) <= TOL
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("g,scale,spread", [
     (1600, 0.1, 1.0), (400, 0.1, 1.0), (1, 0.1, 1.0), (3, 3.0, 1.0), (3, 0.1, 3.0),
     (133, 0.1, 1.0), (265, 0.1, 1.0)])
@@ -403,17 +566,19 @@ def test_k5_tf32_matches_plain_on_card(cuda_device, g, scale, spread):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["d96", "kw32", "kw32_d64", "misaligned", "window_d64",
-                                  "window_16"])
+@pytest.mark.parametrize("case", ["d96", "kw36", "kw36_d64", "kw4", "d96_kw32", "misaligned",
+                                  "window_d64", "window_16"])
 def test_other_f32_relpos_calls_keep_the_fma_kernels_on_card(cuda_device, case):
-    """f32 calls outside the predicate (head dim 96, a 32-wide grid at head
-    dim 80 and 64, an input off 16 bytes, head-dim-64 and 16 x 16 windows)
-    stay on the FMA kernels, counted as ``flash_attention_relpos`` or
-    ``window_attention_relpos``, within 1e-4."""
+    """f32 calls outside the predicate (head dim 96 on 64- and 32-wide
+    grids, a 36-wide grid at head dim 80 and 64 and a 4-wide one (widths the
+    narrow mode does not take), an input off 16 bytes, head-dim-64 and
+    16 x 16 windows) stay on the FMA kernels, counted as
+    ``flash_attention_relpos`` or ``window_attention_relpos``, within 1e-4."""
     window = case.startswith("window")
     rows, cols = ((16, 16) if case == "window_16" else (14, 14)) if window else (
-        (64, 32) if case.startswith("kw32") else (16, 64))
-    d = {"d96": 96, "kw32_d64": 64, "window_d64": 64}.get(case, 80)
+        (64, 36) if case.startswith("kw36") else (64, 4) if case == "kw4" else
+        (64, 32) if case == "d96_kw32" else (16, 64))
+    d = {"d96": 96, "d96_kw32": 96, "kw36_d64": 64, "window_d64": 64}.get(case, 80)
     q, k, v, bias_h, bias_w = _card_inputs(cuda_device, 3, rows, cols, d=d)
     if case == "misaligned":
         buf = torch.empty(q.numel() + 1, device=cuda_device)
@@ -440,7 +605,8 @@ def test_relpos_tf32_route_and_scratch_match_the_c_side_on_card(cuda_device):
 
     lib = _build.library()
     grids = ((64, 64), (48, 64), (1, 64), (5, 64), (65, 64), (0, 64), (64, 32), (14, 14),
-             (16, 16), (7, 28))
+             (16, 16), (7, 28), (64, 48), (1, 8), (64, 56), (64, 36), (64, 4), (65, 32),
+             (3, 24), (64, 72))
     for kind in (0, 1, 2):
         for dtype in (0, 1):
             for d in (64, 80, 96, 128):
@@ -456,7 +622,7 @@ def test_relpos_tf32_route_and_scratch_match_the_c_side_on_card(cuda_device):
                                                                 ctypes.c_float(scale), *ptrs)
                                 assert bool(got) is want, (kind, dtype, d, s, rows, cols,
                                                            scale, slot, off)
-    for bh, s in ((64, 4096), (16, 3072), (1, 64), (3, 320)):
+    for bh, s in ((64, 4096), (16, 3072), (1, 64), (3, 320), (64, 2048), (2, 8), (3, 120)):
         for d in (64, 80):
             assert lib.bff_relpos_tf32_scratch_floats(bh, s, d) == (
                 tfa.relpos_tf32_scratch_floats(bh, s, d))

@@ -1,5 +1,5 @@
 """K2 and K3 in f32 (``detector.dtype: float32``), and f32 attention at head
-dim 128, on the 3xTF32 wgmma kernel (``csrc/flash_attention_tf32.cu``).
+dims 96 and 128, on the 3xTF32 wgmma kernel (``csrc/flash_attention_tf32.cu``).
 
 On the CPU: the kernel's rounding (``tf32_round``: ``cvt.rna.tf32.f32``)
 and split (``tf32_split``), its routing rule (``tf32_route``, the mirror of
@@ -120,7 +120,13 @@ def test_tf32_split_keeps_about_22_bits(rng):
     ((1, 128, 900, 900, 128 ** -0.5, *_A), False),  # bf16 at head dim 128: the tile
     ((0, 16, 900, 900, 0.25, *_A), False),
     ((0, 80, 900, 900, 80 ** -0.5, *_A), False),
-    ((0, 96, 900, 900, 96 ** -0.5, *_A), False),  # head dim 96: the FMA kernel
+    ((0, 96, 900, 900, 96 ** -0.5, *_A), True),  # head dim 96: one 64-key stage each
+    ((0, 96, 1024, 900, 96 ** -0.5, *_A), True),  # head dim 96, keys masked
+    ((0, 96, 256, 1, 1.0, *_A), True),  # head dim 96, the shortest S, one valid key
+    ((0, 96, 255, 255, 96 ** -0.5, *_A), False),  # shorter: the FMA kernel
+    ((0, 96, 900, 900, 96 ** -0.5, 4, 0, 0, 0), False),  # head dim 96, q off 16 bytes
+    ((1, 96, 900, 900, 96 ** -0.5, *_A), False),  # bf16 at head dim 96: the tile
+    ((0, 112, 900, 900, 112 ** -0.5, *_A), False),  # not a multiple of 32: the FMA kernel
     ((0, 32, 900, 0, _S32, *_A), False),  # no valid key
     ((0, 32, 900, 901, _S32, *_A), False),  # valid_len past S
     ((0, 32, 900, 900, _S32, 0, 4, 0, 0), False),  # k off 16 bytes
@@ -132,8 +138,8 @@ def test_tf32_split_keeps_about_22_bits(rng):
     ((0, 32, 900, 900, 1e39, *_A), False),  # inf once rounded to f32
 ])
 def test_tf32_route_pins_the_predicate(args, takes):
-    """The Python mirror of ``bff_flash_tf32_takes``: f32, head dim 32, 64 or
-    128, S >= 256, 1 <= valid_len <= S, a positive finite f32 scale, 16-byte aligned q, k,
+    """The Python mirror of ``bff_flash_tf32_takes``: f32, head dim 32, 64, 96
+    or 128, S >= 256, 1 <= valid_len <= S, a positive finite f32 scale, 16-byte aligned q, k,
     v and output; and the counter a call moves: ``flash_attention_tf32``
     where it takes the call, else ``flash_attention_f32`` for f32 (the FMA
     kernel) and the bf16 kernels' own counters for bf16."""
@@ -161,11 +167,12 @@ def test_tf32_counters_are_registered():
     (32, 32, 900, 4 * 32 * 960 * 32), (24, 64, 4096, 4 * 24 * 4096 * 64),
     (24, 64, 4095, 4 * 24 * 4096 * 64), (1, 32, 1, 4 * 64 * 32), (2, 64, 64, 4 * 2 * 64 * 64),
     (2, 64, 65, 4 * 2 * 128 * 64), (32, 128, 900, 4 * 32 * 960 * 128),
-    (8, 128, 1024, 4 * 8 * 1024 * 128), (1, 128, 33, 4 * 64 * 128)])
+    (8, 128, 1024, 4 * 8 * 1024 * 128), (1, 128, 33, 4 * 64 * 128),
+    (32, 96, 900, 4 * 32 * 960 * 96), (1, 96, 1, 4 * 64 * 96)])
 def test_tf32_scratch_holds_the_split_keys(bh, d, valid, want):
     """Scratch for K hi, K lo, V^T hi and V^T lo, each (BH, Kp, D) with Kp =
     valid_len rounded up to the pre-pass's 64 keys (at head dim 128 too,
-    whose kernel walks 32-key tiles)."""
+    whose kernel walks 32-key tiles, and at 96)."""
     assert tfa.tf32_scratch_floats(bh, d, valid) == want
 
 
@@ -186,18 +193,20 @@ def test_tf32_schedule_covers_each_row_once(bh, s):
 
 
 @pytest.mark.parametrize("d,tile,k_stages,v_stages", [(32, 64, 4, 4), (64, 64, 2, 2),
-                                                      (128, 32, 2, 1)])
+                                                      (96, 64, 1, 1), (128, 32, 2, 1)])
 def test_tf32_key_tile_fits_a_block(d, tile, k_stages, v_stages):
     """The kernel's key tile (``tf32_key_tile``) at each head dim, and why:
     its K and V^T stages (hi and lo of ``tile`` keys by D, four bytes each)
     beside both consumers' Q halves (2 x 2 x 64 x D) fit the 232 448 bytes
     a block may have, with the barriers and the 1024-byte alignment; 64-key
-    tiles at head dim 128, even with one stage each, would not. The tile
-    also divides the pre-pass's 64-key padding."""
+    tiles at head dim 128, even with one stage each, would not, and at head
+    dim 96 only one stage of each fits. The tile also divides the pre-pass's
+    64-key padding."""
     assert tfa.tf32_key_tile(d) == tile and tfa.TF32_TILE % tile == 0
     smem = lambda t, ks, vs: (ks + vs) * 2 * t * d * 4 + 2 * 2 * 64 * d * 4 + 256 + 1024
     assert smem(tile, k_stages, v_stages) <= 232_448
     assert smem(64, 1, 1) > 232_448 or d != 128
+    assert smem(64, 2, 1) > 232_448 >= smem(64, 1, 1) or d != 96
 
 
 def test_tf32_key_order_turns_accumulators_into_a_fragments():
@@ -225,10 +234,14 @@ def test_tf32_key_order_turns_accumulators_into_a_fragments():
     (2, 1024, 900, 128, 1.0),  # head dim 128: 32-key tiles, keys masked
     (2, 1024, 900, 128, 3.0),  # sharp rows at head dim 128
     (3, 257, 33, 128, 1.0),  # head dim 128, the second tile's first key valid
-    (2, 300, 300, 128, 0.25)])
+    (2, 300, 300, 128, 0.25),
+    (2, 1024, 900, 96, 1.0),  # head dim 96, keys masked
+    (2, 1024, 900, 96, 3.0),  # sharp rows at head dim 96
+    (3, 257, 33, 96, 1.0),  # head dim 96, the second tile's first key valid
+    (2, 300, 300, 96, 0.25)])
 def test_tf32_mirror_matches_plain(rng, bh, s, valid, d, spread):
     """The kernel's arithmetic against the plain version within 1e-4, over
-    the three head dims, ragged S, keys masked and a spread of score
+    the four head dims, ragged S, keys masked and a spread of score
     scales."""
     q, k, v = _inputs(rng, (bh, s, d), spread)
     got = tfa.flash_tf32_mirror(q, k, v, valid)
@@ -249,7 +262,8 @@ def test_tf32_mirror_beats_one_tf32_product(rng):
 
 @pytest.mark.parametrize("bh,s,valid,d,spread", [
     (2, 1024, 900, 32, 1.0), (2, 512, 300, 64, 1.0), (2, 512, 512, 32, 3.0),
-    (2, 256, 1, 64, 1.0), (2, 512, 449, 128, 1.0), (2, 512, 449, 128, 3.0)])
+    (2, 256, 1, 64, 1.0), (2, 512, 449, 128, 1.0), (2, 512, 449, 128, 3.0),
+    (2, 512, 449, 96, 1.0), (2, 512, 449, 96, 3.0)])
 def test_tf32_mirror_matches_flash_masked(rng, jx, bh, s, valid, d, spread):
     """Keys >= valid_len masked: the mirror against the JAX ``_flash_masked``
     in interpret mode in f32, both within 1e-4 of the plain version."""
@@ -263,7 +277,7 @@ def test_tf32_mirror_matches_flash_masked(rng, jx, bh, s, valid, d, spread):
     assert float((got - want).abs().max()) <= TOL
 
 
-@pytest.mark.parametrize("bh,s,d", [(2, 512, 64), (3, 1024, 32), (2, 512, 128)])
+@pytest.mark.parametrize("bh,s,d", [(2, 512, 64), (3, 1024, 32), (2, 512, 128), (2, 512, 96)])
 def test_tf32_mirror_matches_flash_attention(rng, jx, bh, s, d):
     """Every key valid: the mirror against the JAX ``flash_attention`` in
     interpret mode in f32 within 1e-4."""
@@ -274,7 +288,7 @@ def test_tf32_mirror_matches_flash_attention(rng, jx, bh, s, d):
     assert float((got - want).abs().max()) <= TOL
 
 
-@pytest.mark.parametrize("bh,s,d", [(2, 900, 32), (2, 300, 64), (2, 300, 128)])
+@pytest.mark.parametrize("bh,s,d", [(2, 900, 32), (2, 300, 64), (2, 300, 128), (2, 300, 96)])
 def test_tf32_mirror_matches_attend(rng, jx, bh, s, d):
     """Through the JAX ``attend`` (S padded to 512 with the pad keys masked,
     the head dim padded to 128 lanes) in interpret mode, as the main path
@@ -283,6 +297,20 @@ def test_tf32_mirror_matches_attend(rng, jx, bh, s, d):
     got = tfa.flash_tf32_mirror(q, k, v)
     want = torch.from_numpy(np.array(jx.fa.attend(
         *(jx.jnp.asarray(t.numpy()) for t in (q, k, v)), interpret=True)))
+    assert float((got - want).abs().max()) <= TOL
+
+
+@pytest.mark.parametrize("spread", [1.0, 3.0])
+def test_tf32_d96_mirror_matches_jax_over_score_scales(rng, jx, spread):
+    """Head dim 96 with 900 of 1024 keys valid, unit scores and peaked rows:
+    the mirror against the JAX ``_flash_masked`` in interpret mode and the
+    plain version, each within 1e-4."""
+    q, k, v = _inputs(rng, (2, 1024, 96), spread)
+    got = tfa.flash_tf32_mirror(q, k, v, 900)
+    want = torch.from_numpy(np.array(jx.fa._flash_masked(
+        *(jx.jnp.asarray(t.numpy()) for t in (q, k, v)), 900, True)))
+    plain = tfa.flash_attention_plain(q, k, v, 900)
+    assert float((got - plain).abs().max()) <= TOL
     assert float((got - want).abs().max()) <= TOL
 
 
@@ -322,12 +350,14 @@ def _moved(before):
     (6, 4096, 4096, 64), (24, 4096, 4096, 64), (24, 3072, 3072, 64), (24, 4095, 4095, 64),
     (1, 256, 256, 32), (2, 257, 257, 64), (2, 319, 319, 32), (3, 300, 70, 64),
     (2, 257, 1, 64), (32, 1024, 900, 128), (8, 1024, 900, 128), (8, 4096, 4096, 128),
-    (2, 257, 257, 128), (3, 300, 33, 128), (2, 256, 1, 128)])
+    (2, 257, 257, 128), (3, 300, 33, 128), (2, 256, 1, 128), (32, 1024, 900, 96),
+    (8, 1024, 900, 96), (8, 4096, 4096, 96), (2, 257, 257, 96), (3, 300, 33, 96),
+    (2, 256, 1, 96)])
 def test_tf32_kernel_matches_plain_on_card(cuda_device, bh, s, valid, d):
     """The 3xTF32 kernel at K2's f32 shapes (one frame, the batch of 4,
     unmasked 1024, 900 of 1024 valid), K3's (one frame, the batch of 4, the
-    rect grid, ragged 4095), head dim 128 (900 of 1024 valid at 32 and 8
-    heads, a long sequence) and edges (the shortest S it takes, ragged rows
+    rect grid, ragged 4095), head dims 128 and 96 (900 of 1024 valid at 32
+    and 8 heads, a long sequence) and edges (the shortest S it takes, ragged rows
     and tiles, keys masked inside the second tile, one valid key): within
     1e-4 of the plain version, one launch counted as
     ``flash_attention_tf32``."""
@@ -371,13 +401,30 @@ def test_tf32_d128_over_score_scales_on_card(cuda_device, spread):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["d96", "d16", "misaligned", "short", "d128_short"])
+@pytest.mark.parametrize("spread", [1.0, 3.0])
+def test_tf32_d96_over_score_scales_on_card(cuda_device, spread):
+    """Head dim 96 at (32, 1024, 96) with 900 valid keys, unit scores and
+    peaked rows: within 1e-4 of the plain version, on the 3xTF32 kernel."""
+    g = torch.Generator(device=cuda_device).manual_seed(13)
+    q, k, v = (torch.randn(32, 1024, 96, generator=g, device=cuda_device) for _ in range(3))
+    q, k = q * spread, k * spread
+    before = dict(dispatch.launch_counts)
+    got = tfa.flash_attention(q, k, v, valid_len=900)
+    assert _moved(before) == ["flash_attention_tf32"]
+    want = tfa.flash_attention_plain(q, k, v, valid_len=900)
+    torch.cuda.synchronize()
+    assert float((got - want).abs().max()) <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["d80", "d16", "misaligned", "short", "d128_short",
+                                  "d96_short"])
 def test_tf32_other_f32_calls_keep_the_fma_kernel_on_card(cuda_device, case):
-    """f32 calls outside the predicate (head dim 96 or 16, an input off 16
-    bytes, S below 256, at head dim 64 and 128) stay on the FMA kernel,
+    """f32 calls outside the predicate (head dim 80 or 16, an input off 16
+    bytes, S below 256, at head dim 64, 96 and 128) stay on the FMA kernel,
     counted as ``flash_attention_f32``, within 1e-4."""
-    d = {"d96": 96, "d16": 16, "d128_short": 128}.get(case, 64)
-    s, valid = (255, 200) if case in ("short", "d128_short") else (700, 650)
+    d = {"d80": 80, "d16": 16, "d128_short": 128, "d96_short": 96}.get(case, 64)
+    s, valid = (255, 200) if case.endswith("short") else (700, 650)
     g = torch.Generator(device=cuda_device).manual_seed(d)
     q, k, v = (torch.randn(2, s, d, generator=g, device=cuda_device) for _ in range(3))
     if case == "misaligned":
@@ -411,6 +458,26 @@ def test_tf32_route_and_scratch_match_the_c_side_on_card(cuda_device):
                          (1, 128, 33)):
         assert lib.bff_flash_tf32_scratch_floats(bh, d, valid) == tfa.tf32_scratch_floats(
             bh, d, valid)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [96, 128])
+def test_tf32_fma_yardstick_entry_matches_plain_on_card(cuda_device, d):
+    """``bff_flash_attention_f32_fma``, the FMA kernel that the measurements
+    time beside the 3xTF32 one on the same call, computes the same function
+    within 1e-4 and moves no counter."""
+    from beyondff_tpu_torch.kernels import _build
+
+    g = torch.Generator(device=cuda_device).manual_seed(d)
+    q, k, v = (torch.randn(4, 512, d, generator=g, device=cuda_device) for _ in range(3))
+    out = torch.empty_like(q)
+    before = dict(dispatch.launch_counts)
+    rc = _build.library().bff_flash_attention_f32_fma(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), 4, 512, d, 450, d ** -0.5,
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert rc == 0 and dispatch.launch_counts == before
+    assert float((out - tfa.flash_attention_plain(q, k, v, 450)).abs().max()) <= TOL
 
 
 @pytest.mark.cuda
