@@ -34,8 +34,8 @@
 //   one block's 15 steps, not a bandwidth. bf16 inputs with D % 8 != 0 or
 //   bases off 16 bytes (no 16-byte cp.async rows) take the f32-FMA kernel
 //   below.
-// * f32 at head dim 32 or 64 (K2 and K3 in detector.dtype float32), and at 96
-//   and 128, which no configured model calls, exactly
+// * f32 at head dim 32 or 64 (K2 and K3 in detector.dtype float32), and at
+//   80, 96 and 128, which no configured model calls, exactly
 //   where bff_flash_tf32_takes says so: the 3xTF32 wgmma/TMA kernel of
 //   csrc/flash_attention_tf32.cu. One TF32 product would not hold the 1e-4
 //   the f32 calls are held to; three (hi hi + hi lo + lo hi, each operand

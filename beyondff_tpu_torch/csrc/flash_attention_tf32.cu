@@ -9,11 +9,11 @@
 // divided once. On the port's main path in detector.dtype float32 that is K2,
 // the Grounding-DINO decoder's self-attention at (8 B, 900, 32), and K3,
 // EfficientSAM-S's global blocks at (6 B, 4096, 64) (and (6 B, 3072, 64) on
-// the rect grid); and f32 attention at head dims 96 and 128, which the public
-// entry points take and no configured model calls. bff_flash_attention
+// the rect grid); and f32 attention at head dims 80, 96 and 128, which the
+// public entry points take and no configured model calls. bff_flash_attention
 // (csrc/flash_attention.cu) routes here exactly the calls that
-// bff_flash_tf32_takes accepts: f32, D in {32, 64, 96, 128} (every multiple
-// of 32 up to 128), S >= kMinS = 256,
+// bff_flash_tf32_takes accepts: f32, D in {32, 64, 80, 96, 128}, S >= kMinS
+// = 256,
 // 1 <= valid_len <= S, a positive finite scale and 16-byte aligned q, k, v
 // and o; every other f32 call keeps
 // flash_fwd_kernel<float> (f32 FMAs). Below S = 256 the pre-pass and the
@@ -105,6 +105,19 @@
 //   tiles with two K and two V stages and the overlap, the first design,
 //   were 6% slower (0.1485 against 0.1401 ms at (32, 1024, 96) with 900
 //   valid keys; serial 0.1563; three K stages 0.1494).
+// * Head dim 80 (Cfg<80>). An 80-float row is 320 bytes, 2.5 128-byte
+//   boxes, so K's and Q's rows are five 16-float boxes (64 bytes) in the
+//   64-byte swizzle instead (kKBox 16; the Q K^T descriptors in the same
+//   mode, a k-step 32 bytes into a 64-byte row), which cover a row exactly:
+//   no padded column reaches the tensor cores. V^T, whose rows are keys,
+//   keeps the 128-byte swizzle and is read by m64n80k8. Q takes 80 KB, a
+//   64-key K stage 40 KB, a V stage 40 KB: two K stages and one V stage
+//   (200 KB). The output (40 registers), the scores (32) and P's halves (64)
+//   fit 168 registers with no spill, each tile's products in turn, no fold.
+//   Padding D 80 to 96 in the pre-pass and Q's split and running Cfg<96>
+//   was not built: Cfg<96> itself takes 0.1407 ms at (32, 1024, 96) with
+//   900 valid keys, 17% above this design's 0.1206 at D 80, before the
+//   padding's 20% more k-steps of Q K^T are counted.
 // * Masking is branch-free: every score of a key >= valid_len is set to
 //   -inf (only the last tile has any); rows >= S are computed on zero Q and
 //   not written.
@@ -128,7 +141,14 @@
 // the FMA kernel and 0.414 ms for scaled_dot_product_attention in f32, 6.8e-6
 // from plain (2.9e-5 at spread 3); the overlap at D 96 spilled 384 bytes
 // and took 0.287. At (8, 256, 96) 0.0252 against the FMA kernel's 0.0688:
-// kMinS holds at D 96.
+// kMinS holds at D 96. At (32, 1024, 80) with 900 valid keys (NVIDIA H100
+// 80GB HBM3, 700.00 W, device time) 0.1206 ms (47% of its 0.0572 ms bound,
+// the pre-pass 0.019) against 0.8812 ms for the FMA kernel and 0.4120 ms for
+// scaled_dot_product_attention in f32, 5.4e-6 from plain (3.0e-5 at spread
+// 3); at (8, 1024, 80) 0.0520 against 0.2455 and 0.1035; the overlap, with
+// no spill, took 0.1502, one K and one V stage 0.1220, one K stage and two V
+// stages 0.1230. At (8, 256, 80) 0.0218 against the FMA kernel's 0.0678
+// (and SDPA-f32's 0.0239): kMinS holds at D 80.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -160,6 +180,11 @@ constexpr int kKStages128 = 2, kVStages128 = 1;
 constexpr int kBN96 = 64;
 constexpr bool kOverlap96 = false;
 constexpr int kKStages96 = 1, kVStages96 = 1;
+// Head dim 80 (Cfg): K's and Q's rows in boxes of 16 floats in the 64-byte
+// swizzle (five a row); 64-key tiles, two K stages and one V stage, each
+// tile's products in turn
+constexpr int kKStages80 = 2, kVStages80 = 1;
+constexpr bool kOverlap80 = false;
 constexpr int kThreads = 128 * (kConsumers + 1);  // the producer is the last warpgroup
 constexpr int kProducerRegs = 24;
 constexpr int kConsumerRegs = 240;
@@ -174,13 +199,27 @@ struct Cfg {
   // fit in a block's 227 KB (at D 96 one 64-key stage of each fits)
   static constexpr int kBN = D == 128 ? 32 : D == 96 ? kBN96 : 64;
   static constexpr int kStages = D == 32 ? 4 : 2;
-  static constexpr int kKStages = D == 128 ? kKStages128 : D == 96 ? kKStages96 : kStages;
-  static constexpr int kVStages = D == 128 ? kVStages128 : D == 96 ? kVStages96 : kStages;
-  static constexpr bool kOverlapped = D == 128 ? kOverlap128 : D == 96 ? kOverlap96 : kOverlap;
+  static constexpr int kKStages = D == 128 ? kKStages128
+                                  : D == 96 ? kKStages96
+                                  : D == 80 ? kKStages80
+                                            : kStages;
+  static constexpr int kVStages = D == 128 ? kVStages128
+                                  : D == 96 ? kVStages96
+                                  : D == 80 ? kVStages80
+                                            : kStages;
+  static constexpr bool kOverlapped = D == 128 ? kOverlap128
+                                      : D == 96 ? kOverlap96
+                                      : D == 80 ? kOverlap80
+                                                : kOverlap;
   static constexpr bool kFold = D == 128 && kFold128;
-  static constexpr int kKBytes = kBN * D * 4;  // K hi or K lo of a tile: D / 32 boxes of kBN rows
+  // K's and Q's rows: TMA boxes of kKBox floats, rows of kKRow bytes in the
+  // 128-byte swizzle (32 floats), or at D 80, 2.5 such boxes, of 16 floats
+  // in the 64-byte swizzle
+  static constexpr int kKBox = D == 80 ? 16 : 32;
+  static constexpr int kKRow = 4 * kKBox;
+  static constexpr int kKBytes = kBN * D * 4;  // K hi or K lo of a tile: D / kKBox boxes of kBN rows
   static constexpr int kVBytes = D * kBN * 4;  // V^T hi or lo of a tile: kBN / 32 boxes of D rows
-  static constexpr int kQBytes = 64 * D * 4;   // a consumer's Q hi or Q lo: D / 32 boxes of 64 rows
+  static constexpr int kQBytes = 64 * D * 4;   // a consumer's Q hi or Q lo: D / kKBox boxes of 64 rows
   // the K stages (hi, lo), the V stages (hi, lo), both consumers' Q hi and
   // lo, the barriers, and room to align the start to 1024 bytes
   static constexpr int kKOff = 0;
@@ -197,7 +236,8 @@ struct Barriers {
   uint64_t v_full[Cfg<D>::kVStages], v_empty[Cfg<D>::kVStages];
 };
 static_assert(sizeof(Barriers<32>) <= 256 && sizeof(Barriers<64>) <= 256 &&
-                  sizeof(Barriers<96>) <= 256 && sizeof(Barriers<128>) <= 256,
+                  sizeof(Barriers<80>) <= 256 && sizeof(Barriers<96>) <= 256 &&
+                  sizeof(Barriers<128>) <= 256,
               "the barriers' room");
 
 #define BFF_T4(a, i) "+f"(a[i]), "+f"(a[i + 1]), "+f"(a[i + 2]), "+f"(a[i + 3])
@@ -231,6 +271,19 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[48], const uint32_t (&a)[4
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
       "{%48, %49, %50, %51}, %52, p, 1, 1;\n}\n"
       : BFF_T16(d, 0), BFF_T16(d, 16), BFF_T16(d, 32)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+__device__ __forceinline__ void wgmma_tf32(float (&d)[40], const uint32_t (&a)[4], uint64_t db,
+                                           int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39}, "
+      "{%40, %41, %42, %43}, %44, p, 1, 1;\n}\n"
+      : BFF_T16(d, 0), BFF_T16(d, 16), BFF_T4(d, 32), BFF_T4(d, 36)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
 }
 __device__ __forceinline__ void wgmma_tf32(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
@@ -293,11 +346,22 @@ __device__ __forceinline__ uint64_t kstep_desc(uint32_t base, int kk) {
   return sw128_desc(base + (kk / 4) * rows * kRow + (kk % 4) * 32, 16);
 }
 
-// The byte offset of element (row, col) of a box of 32-float rows in the
-// 128-byte swizzle, as TMA writes it: the 16-byte chunk col / 4 of row r
-// lies at chunk (col / 4) ^ (r % 8).
+// The same for Q and K at head dim D: boxes of Cfg<D>::kKBox floats, at D 80
+// 64-byte rows in the 64-byte swizzle (16 columns a box).
+template <int D, int rows>
+__device__ __forceinline__ uint64_t qk_desc(uint32_t base, int kk) {
+  if constexpr (Cfg<D>::kKBox == 32) return kstep_desc<rows>(base, kk);
+  else return sw64_desc(base + (kk / 2) * rows * 64 + (kk % 2) * 32, 16);
+}
+
+// The byte offset of element (row, col) of a box of ``box``-float rows as
+// TMA writes it: in the 128-byte swizzle (box 32) the 16-byte chunk col / 4
+// of row r lies at chunk (col / 4) ^ (r % 8), in the 64-byte swizzle (box
+// 16) at (col / 4) ^ ((r / 2) % 4).
+template <int box>
 __device__ __forceinline__ int swizzled(int row, int col) {
-  return row * kRow + ((((col >> 2) ^ row) & 7) << 4) + ((col & 3) << 2);
+  if constexpr (box == 32) return row * kRow + ((((col >> 2) ^ row) & 7) << 4) + ((col & 3) << 2);
+  else return row * 64 + ((((col >> 2) ^ (row >> 1)) & 3) << 4) + ((col & 3) << 2);
 }
 
 // S = Q K^T for the warpgroup's 64 rows (Q hi and lo in shared memory) and
@@ -307,12 +371,12 @@ __device__ __forceinline__ void issue_scores(float (&s)[N / 2], uint32_t qhi, ui
                                              uint32_t khi, uint32_t klo) {
 #pragma unroll
   for (int kk = 0; kk < D / 8; ++kk) {
-    wgmma_tf32(s, kstep_desc<64>(qlo, kk), kstep_desc<N>(khi, kk), kk);
-    wgmma_tf32(s, kstep_desc<64>(qhi, kk), kstep_desc<N>(klo, kk), 1);
+    wgmma_tf32(s, qk_desc<D, 64>(qlo, kk), qk_desc<D, N>(khi, kk), kk);
+    wgmma_tf32(s, qk_desc<D, 64>(qhi, kk), qk_desc<D, N>(klo, kk), 1);
   }
 #pragma unroll
   for (int kk = 0; kk < D / 8; ++kk)
-    wgmma_tf32(s, kstep_desc<64>(qhi, kk), kstep_desc<N>(khi, kk), 1);
+    wgmma_tf32(s, qk_desc<D, 64>(qhi, kk), qk_desc<D, N>(khi, kk), 1);
 }
 
 // O += P V for the N keys of a tile (k-step kk: stored keys 8 kk .. 8 kk +
@@ -479,9 +543,11 @@ __global__ void __launch_bounds__(kThreads, 1) flash_tf32_kernel(
       bar_wait_or_trap(&bars->k_empty[st], parity);
       bar_expect_tx(&bars->k_full[st], 2 * C::kKBytes);
 #pragma unroll
-      for (int c = 0; c < D / 32; ++c) {
-        tma_load_3d(khi_at(st) + c * N * kRow, &tkh, &bars->k_full[st], 32 * c, t * N, bh);
-        tma_load_3d(klo_at(st) + c * N * kRow, &tkl, &bars->k_full[st], 32 * c, t * N, bh);
+      for (int c = 0; c < D / C::kKBox; ++c) {
+        tma_load_3d(khi_at(st) + c * N * C::kKRow, &tkh, &bars->k_full[st], C::kKBox * c, t * N,
+                    bh);
+        tma_load_3d(klo_at(st) + c * N * C::kKRow, &tkl, &bars->k_full[st], C::kKBox * c, t * N,
+                    bh);
       }
     };
     auto load_v = [&](int t) {
@@ -530,7 +596,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_tf32_kernel(
         const int r = i / D, c = i % D;
         uint32_t hi, lo;
         split_tf32(q0 + wg * 64 + r < S ? qb[(long long)r * D + c] : 0.f, hi, lo);
-        const int at = (c / 32) * 64 * kRow + swizzled(r, c % 32);
+        const int at =
+            (c / C::kKBox) * 64 * C::kKRow + swizzled<C::kKBox>(r, c % C::kKBox);
         *reinterpret_cast<uint32_t*>(q_hi + at) = hi;
         *reinterpret_cast<uint32_t*>(q_lo + at) = lo;
       }
@@ -706,14 +773,15 @@ int launch(const void* q, const void* k, const void* v, void* o, void* scratch, 
   CUtensorMap tkh, tkl, tvh, tvl;
   const cuuint64_t k_dims[3] = {(cuuint64_t)D, (cuuint64_t)Kp, (cuuint64_t)BH};
   const cuuint64_t k_strides[2] = {(cuuint64_t)D * 4, (cuuint64_t)Kp * D * 4};
-  const cuuint32_t k_box[3] = {32, (cuuint32_t)Cfg<D>::kBN, 1};
+  const cuuint32_t k_box[3] = {(cuuint32_t)Cfg<D>::kKBox, (cuuint32_t)Cfg<D>::kBN, 1};
   const cuuint64_t v_dims[3] = {(cuuint64_t)Kp, (cuuint64_t)D, (cuuint64_t)BH};
   const cuuint64_t v_strides[2] = {(cuuint64_t)Kp * 4, (cuuint64_t)Kp * D * 4};
   const cuuint32_t v_box[3] = {32, D, 1};
   const CUtensorMapDataType f32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
   const CUtensorMapSwizzle sw = CU_TENSOR_MAP_SWIZZLE_128B;
-  int rc = encode_map(fn, &tkh, f32, 3, khi, k_dims, k_strides, k_box, sw);
-  if (rc == 0) rc = encode_map(fn, &tkl, f32, 3, klo, k_dims, k_strides, k_box, sw);
+  const CUtensorMapSwizzle k_sw = Cfg<D>::kKBox == 32 ? sw : CU_TENSOR_MAP_SWIZZLE_64B;
+  int rc = encode_map(fn, &tkh, f32, 3, khi, k_dims, k_strides, k_box, k_sw);
+  if (rc == 0) rc = encode_map(fn, &tkl, f32, 3, klo, k_dims, k_strides, k_box, k_sw);
   if (rc == 0) rc = encode_map(fn, &tvh, f32, 3, vhi, v_dims, v_strides, v_box, sw);
   if (rc == 0) rc = encode_map(fn, &tvl, f32, 3, vlo, v_dims, v_strides, v_box, sw);
   if (rc != 0) return rc;
@@ -742,7 +810,7 @@ int launch(const void* q, const void* k, const void* v, void* o, void* scratch, 
 // float32, 1 = bfloat16.
 extern "C" int bff_flash_tf32_takes(int dtype, int D, int S, int valid_len, float scale,
                                     const void* q, const void* k, const void* v, const void* o) {
-  return dtype == 0 && (D == 32 || D == 64 || D == 96 || D == 128) && S >= kMinS &&
+  return dtype == 0 && (D == 32 || D == 64 || D == 80 || D == 96 || D == 128) && S >= kMinS &&
          valid_len >= 1 && valid_len <= S && scale > 0.f && scale <= FLT_MAX && aligned16(q) &&
          aligned16(k) && aligned16(v) && aligned16(o);
 }
@@ -768,6 +836,7 @@ extern "C" int bff_flash_attention_tf32(const void* q, const void* k, const void
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D == 32) return launch<32>(q, k, v, o, scratch, BH, S, valid_len, scale, s);
   if (D == 64) return launch<64>(q, k, v, o, scratch, BH, S, valid_len, scale, s);
+  if (D == 80) return launch<80>(q, k, v, o, scratch, BH, S, valid_len, scale, s);
   if (D == 96) return launch<96>(q, k, v, o, scratch, BH, S, valid_len, scale, s);
   return launch<128>(q, k, v, o, scratch, BH, S, valid_len, scale, s);
 }

@@ -27,9 +27,10 @@
 //
 // Routes. bf16 calls at SAM ViT-H's head dim 80 that bff_relpos_wgmma_takes
 // accepts go to csrc/relpos_attention_wgmma.cu; f32 calls that
-// bff_relpos_tf32_takes accepts (K4 at head dim 64 or 80 with kw = 64, K5
-// at 80 on 14 x 14 windows) to the 3xTF32 wgmma kernels of
-// csrc/relpos_attention_tf32.cu; the rest to the kernels below.
+// bff_relpos_tf32_takes accepts (K4 at head dim 64, 80 or 96 with kw = 64
+// or kw a multiple of 8 from 8 to 56, K5 at 80 on 14 x 14 windows) to the
+// 3xTF32 wgmma kernels of csrc/relpos_attention_tf32.cu; the rest to the
+// kernels below.
 //
 // K4 in bf16 (the SAM path): flash_relpos_tc_kernel, the tensor-core block
 // of csrc/attention_tc.cuh (mma.sync m16n8k16 bf16 -> f32 for both

@@ -9,8 +9,8 @@
 //   ViT-H's global blocks in detector.dtype float32 under
 //   BFF_SAM_RELPOS_FLASH=1: (16 B, 4096, 80), and (16 B, 3072, 80) on the
 //   rect 48 x 64 grid; and at head dim 64, the shape of SAM ViT-L's (16 B,
-//   4096, 64) and ViT-B's (12 B, 4096, 64) global blocks, which the public
-//   entry takes and no configured model calls.
+//   4096, 64) and ViT-B's (12 B, 4096, 64) global blocks, and at head dim
+//   96, which the public entry takes and no configured model calls.
 // * window_relpos_tf32_kernel replaces, for float32 inputs, the TPU kernel
 //   beyondff_tpu/kernels/window_attention.py window_attention_relpos (:51,
 //   pallas_call :110): the same function over G independent 14 x 14 windows
@@ -22,7 +22,7 @@
 // bff_relpos_tf32_takes accepts (kernels/flash_attention.py
 // relpos_tf32_route mirrors it): f32, kMinGridH <= kh <= 64 with kw = 64,
 // or kw a multiple of 8 from kMinGridW = 8 to 56 (the narrow mode below), at
-// D 64 or 80 (K4), or a 14 x 14 window at D 80 (K5), a positive finite
+// D 64, 80 or 96 (K4), or a 14 x 14 window at D 80 (K5), a positive finite
 // scale, and q, k, v, o and both factors 16-byte aligned. Every other f32
 // call keeps the FMA kernels of csrc/relpos_attention.cu. The line lies
 // below every grid K4 takes: at one grid row (16 heads, S = 64) this kernel took 0.0101 ms
@@ -132,6 +132,26 @@
 //   1.4% slower at (64, 4096, 64) than one; one K stage 3.3% slower
 //   (tools/kernel_variants.py). The consumers hold the output 32, scores
 //   32, P's halves 64 and the fold's 32 registers: no spill.
+// * Head dim 96 (K4Cfg<96>, both modes): images of 24 KB a 64-key tile, 12
+//   regions a row; Q 96 KB, one K and one V stage 96 KB. The wide mode's
+//   bias_w table at 72 floats a row (36 KB) would pass the 227 KB, so at D
+//   96 it is 64 floats a row with 8-column group j of row r stored at j ^ (r
+//   % 8) (kBwSwizzled; a quad's 8-byte reads of 8 rows still fill each bank
+//   twice): 229 376 bytes and the barriers. The narrow mode's table (kw <=
+//   56 at a stride of at most 56) fits in the same room. The output at
+//   m64n96 is 48 registers, the scores 32, P's halves 64, so the fold runs
+//   in two 48-column parts (kFoldParts96, wgmma.m64n48k8, 24 registers),
+//   each added as soon as it is in. And the scores are summed from zero,
+//   bias_w added in f32 once they are in (kBiasAfter96; its table reads,
+//   and the narrow mode's bias_h reads, issued while the products run):
+//   started at bias_w, as at D 64 and 80, the tensor cores' f32 sums carry
+//   the factors' magnitude through 36 k-steps, and at factor scale 3 K4 lay
+//   1.33e-4 from plain (3.5e-5 and 4.1e-5 this way, at 64 x 32 and 64 x 64).
+//   The pre-pass reads K's and V's tiles in turn into one buffer (both at
+//   once would pass the 48 KB of static shared memory). ptxas: 168
+//   registers, 108 bytes spilled in the wide mode and 168 in the narrow one
+//   (the bias at the start: 100 and 152; the fold in one part: 180 and 268;
+//   no fold: none and 88).
 //
 // K5 design (a persistent grid of one block a SM, each walking items g * 2
 // + round, the 128 query rows 128 round .. of window g):
@@ -171,6 +191,14 @@
 // registers fewer, took 1.02 and 2.18 but missed 1e-4).
 // At one tile (16 heads of a 1 x 8 grid) 0.0081 against the FMA kernel's
 // 0.0119, so kMinGridW is 8, the narrowest width the groups allow.
+// K4 at head dim 96 (NVIDIA H100 80GB HBM3, 700.00 W, CUDA events, one
+// process): (64, 2048, 96) on 64 x 32 1.512 ms (41% of its 0.6247 ms
+// bound, the pre-pass 0.105) against 10.27 ms for the FMA kernel and 3.359
+// ms for SDPA in f32 with the bias as a float mask; 64 x 48 3.267 against
+// 22.91 and 7.583; 64 x 64 4.255 (59% of 2.499) against 39.94 and 13.37. In
+// another process the bias as the start took 1.361, 2.911 and 4.211 (10-11%
+// less in the narrow mode, 1.5% in the wide one) and no fold 1.423, 3.068
+// and 4.156 (4.5e-5 from plain at unit scale on 64 x 64, against 5.7e-6).
 //
 // Host: a failed launch returns non-zero and the wrapper raises: nothing
 // falls back to another kernel.
@@ -209,6 +237,16 @@ constexpr int kBwLd = kGridW + 8;     // the bias_w table's row stride (floats)
 constexpr int kMinGridW = 8;          // the narrow mode's smallest kw (a multiple of 8)
 // K4 at head dim 64 (K4Cfg): the K and V rings' depths
 constexpr int kKStages64 = 2, kVStages64 = 1;
+// K4 at head dim 96 (K4Cfg): each tile's P V summed apart in kFoldParts96
+// column parts (m64n48k8 at 2), each added to the output rows in f32 as soon
+// as it is in; one K and one V stage; at kw = 64 the bias_w table 64 floats
+// a row with its 8-column groups swizzled (72-float rows do not fit)
+constexpr bool kFold96 = true;
+constexpr int kFoldParts96 = 2;
+// and the scores' products summed from zero, the bias added in f32 once
+// they are in (its table reads issued while the products run): started at
+// bias_w, the tensor cores' sums carry its magnitude through 36 k-steps
+constexpr bool kBiasAfter96 = true;
 constexpr int kSplitThreads = 256;
 
 // K5
@@ -292,8 +330,8 @@ __device__ __forceinline__ void mma_ss(float (&d)[20], uint64_t da, uint64_t db)
 
 // d (+)= A B for A 64 x 8 TF32 in registers (a lane holds rows g, g + 8 of
 // its warp's 16 and columns t, t + 4: a0 (g, t), a1 (g + 8, t), a2 (g, t +
-// 4), a3 (g + 8, t + 4)) and B 8 x 80 (or 8 x 64) TF32 from shared memory,
-// K-major.
+// 4), a3 (g + 8, t + 4)) and B 8 x N TF32 from shared memory, K-major: N 64,
+// 80, 48 or 96 (2 N / 4 registers of d).
 __device__ __forceinline__ void mma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
                                        int accumulate = 1) {
   asm volatile(
@@ -320,6 +358,32 @@ __device__ __forceinline__ void mma_rs(float (&d)[40], const uint32_t (&a)[4], u
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
 }
 
+__device__ __forceinline__ void mma_rs(float (&d)[24], const uint32_t (&a)[4], uint64_t db,
+                                       int accumulate = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23}, "
+      "{%24, %25, %26, %27}, %28, p, 1, 1;\n}\n"
+      : BFF_T8(d, 0), BFF_T8(d, 8), BFF_T8(d, 16)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+__device__ __forceinline__ void mma_rs(float (&d)[48], const uint32_t (&a)[4], uint64_t db,
+                                       int accumulate = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
+      "{%48, %49, %50, %51}, %52, p, 1, 1;\n}\n"
+      : BFF_T8(d, 0), BFF_T8(d, 8), BFF_T8(d, 16), BFF_T8(d, 24), BFF_T8(d, 32), BFF_T8(d, 40)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
 #undef BFF_T8
 #undef BFF_T4
 
@@ -342,9 +406,10 @@ __device__ __forceinline__ void issue_scores(float (&s)[N / 2], uint32_t qhi, ui
 }
 
 // O += P V for the KS 8-key groups of a tile (V^T's images at vhi, vlo, a
-// region of D x 32 bytes a group); O = P V when ``fresh``.
-template <int KS, int D>
-__device__ __forceinline__ void issue_pv(float (&o)[D / 2], const uint32_t (&ph)[KS][4],
+// region of D x 32 bytes a group) and the 2 R columns of V^T's rows from
+// vhi, vlo on (all D, or a part); O = P V when ``fresh``.
+template <int KS, int D, int R>
+__device__ __forceinline__ void issue_pv(float (&o)[R], const uint32_t (&ph)[KS][4],
                                          const uint32_t (&pl)[KS][4], uint32_t vhi,
                                          uint32_t vlo, bool fresh) {
 #pragma unroll
@@ -437,43 +502,64 @@ struct Ring {
 // for masked keys) and the log2 shifts of the rows (G = 1) or of each row's
 // n8 groups (G = N / 8). Leaves the output rows (unnormalised) in acc and
 // their denominators, summed over the quad, in l.
-// With kFold each tile's P V is a fresh wgmma sum, added to acc by the FMA
+// With Fold each tile's P V is a fresh wgmma sum, added to acc by the FMA
 // units: the tensor cores' f32 sums then span 3 KS products, not the row's
-// every key.
+// every key. Parts > 1 splits that sum into column parts of D / Parts (its
+// registers), each issued, waited for and added in turn (a whole tile's sum
+// is added after the next tile's softmax). With BiasAfter init writes the initial
+// values into registers of their own while the products run, the products
+// are summed from zero and those values added in f32 once they are in.
 // Every round of issues is one pingpong turn: consumer 1 hands consumer 0
 // the first turn before the first pass, consumer 0 takes the surplus one
 // after the last.
-template <int N, int KStages, int VStages, bool Overlap, int D, int G, typename Init>
+template <int N, int KStages, int VStages, bool Overlap, int D, int G, bool Fold, int Parts,
+          bool BiasAfter, typename Init>
 __device__ __forceinline__ void attend_rows(float (&acc)[D / 2], float (&l)[2], uint32_t qhi,
                                             uint32_t qlo, const Ring& ring, int u0, int n_tiles,
                                             int wg, Init&& init) {
   constexpr int KS = N / 8;
   constexpr int kImg = img_bytes<D>(N);
+  constexpr int R = D / 2 / Parts;  // the registers of one part of a tile's P V
+  static_assert(Parts == 1 || (Fold && !Overlap), "parts of a fold, each tile's products in turn");
+  static_assert(!(BiasAfter && Overlap), "the bias after the products, each tile's in turn");
   Barriers* bars = ring.bars;
   const bool signals = (threadIdx.x & 31) == 0;  // one arrival per consumer warp
   const int my_turn = 1 + wg, next_turn = 1 + (wg + 1) % kConsumers;
   auto k_hi = [&](int st) { return ring.k_base + st * 2 * kImg; };
   auto v_hi = [&](int st) { return ring.v_base + st * 2 * kImg; };
-  float s[N / 2], pv_sum[D / 2];
-  float (&pv)[D / 2] = kFold ? pv_sum : acc;  // what P V's wgmmas accumulate into
+  float s[N / 2], pv_sum[Fold ? R : 1], bias[BiasAfter ? N / 2 : 1];
   uint32_t ph[KS][4] = {}, pl[KS][4] = {};
   float m[2] = {bff_tc::kInitMax, bff_tc::kInitMax}, corr[2], sh[2][G];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = pv_sum[i] = 0.f;
-  l[0] = l[1] = 0.f;
-  auto fold = [&]() {
-    if (kFold) {
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) acc[i] += pv_sum[i];
+  for (int i = 0; i < (Fold ? R : 1); ++i) pv_sum[i] = 0.f;
+  l[0] = l[1] = 0.f;
+  // part ``part`` of the last tile's P V into acc
+  auto fold = [&](int part) {
+    if constexpr (Fold) {
+#pragma unroll
+      for (int i = 0; i < R; ++i) acc[part * R + i] += pv_sum[i];
     }
+  };
+  auto fence_pv = [&]() {
+    if constexpr (Fold) fence_regs(pv_sum);
+    else fence_regs(acc);
   };
   auto fence_for_issue = [&]() {
     fence_regs(acc);
-    if (kFold) fence_regs(pv_sum);
+    if constexpr (Fold) fence_regs(pv_sum);
     fence_regs(ph);
     fence_regs(pl);
     fence_regs(s);
     wgmma_fence();
+  };
+  // issues part ``part`` of the P V of the tile in V stage st: into acc, or
+  // with Fold into pv_sum afresh
+  auto issue_tile_pv = [&](int st, int part) {
+    const uint32_t vh = v_hi(st) + part * (D / Parts) * 32;
+    if constexpr (Fold) issue_pv<KS, D>(pv_sum, ph, pl, vh, vh + kImg, true);
+    else issue_pv<KS, D>(acc, ph, pl, vh, vh + kImg, false);
   };
   auto turn = [&]() {
     if (kPingpong) turn_sync(my_turn);
@@ -481,23 +567,34 @@ __device__ __forceinline__ void attend_rows(float (&acc)[D / 2], float (&l)[2], 
   auto hand_on = [&]() {
     if (kPingpong) turn_arrive(next_turn);
   };
-
-  // tile 0: scores, softmax, P
-  {
-    const int st = u0 % KStages, parity = (u0 / KStages) & 1;
-    init(0, s, sh);
+  // tile t's scores (K stage st) in s, then its softmax
+  auto scores = [&](int t, int st, int parity) {
+    if constexpr (BiasAfter) {
+#pragma unroll
+      for (int i = 0; i < N / 2; ++i) s[i] = 0.f;
+    } else {
+      init(t, s, sh);
+    }
     bar_wait_or_trap(&bars->k_full[st], parity);
     turn();
     fence_for_issue();
     issue_scores<N, D>(s, qhi, qlo, k_hi(st), k_hi(st) + kImg);
     wgmma_commit();
     hand_on();
+    if constexpr (BiasAfter) init(t, bias, sh);
     wgmma_wait<0>();
     fence_regs(s);
     if (signals) bar_arrive(&bars->k_empty[st]);
+    if constexpr (BiasAfter) {
+#pragma unroll
+      for (int i = 0; i < N / 2; ++i) s[i] += bias[i];
+    }
     softmax_tile<N, G>(s, m, l, corr, sh);
-    split_p<KS>(ph, pl, s);
-  }
+  };
+
+  // tile 0: scores, softmax, P
+  scores(0, u0 % KStages, (u0 / KStages) & 1);
+  split_p<KS>(ph, pl, s);
   for (int t = 1; t < n_tiles; ++t) {
     const int u = u0 + t;
     const int st = u % KStages, parity = (u / KStages) & 1;
@@ -510,7 +607,7 @@ __device__ __forceinline__ void attend_rows(float (&acc)[D / 2], float (&l)[2], 
       fence_for_issue();
       issue_scores<N, D>(s, qhi, qlo, k_hi(st), k_hi(st) + kImg);
       wgmma_commit();
-      issue_pv<KS, D>(pv, ph, pl, v_hi(pst), v_hi(pst) + kImg, kFold);
+      issue_tile_pv(pst, 0);
       wgmma_commit();
       hand_on();
       wgmma_wait<1>();  // the scores are in
@@ -518,34 +615,28 @@ __device__ __forceinline__ void attend_rows(float (&acc)[D / 2], float (&l)[2], 
       if (signals) bar_arrive(&bars->k_empty[st]);
       softmax_tile<N, G>(s, m, l, corr, sh);
       wgmma_wait<0>();  // P V of tile t - 1 is in
-      fence_regs(pv);
+      fence_pv();
       fence_regs(ph);
       fence_regs(pl);
       fence_regs(s);
       if (signals) bar_arrive(&bars->v_empty[pst]);
     } else {
       bar_wait_or_trap(&bars->v_full[pst], pparity);
-      fence_for_issue();
-      issue_pv<KS, D>(pv, ph, pl, v_hi(pst), v_hi(pst) + kImg, kFold);
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(pv);
-      fence_regs(ph);
-      fence_regs(pl);
+#pragma unroll
+      for (int part = 0; part < Parts; ++part) {
+        fence_for_issue();
+        issue_tile_pv(pst, part);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_pv();
+        fence_regs(ph);
+        fence_regs(pl);
+        if (Parts > 1) fold(part);
+      }
       if (signals) bar_arrive(&bars->v_empty[pst]);
-      init(t, s, sh);
-      bar_wait_or_trap(&bars->k_full[st], parity);
-      turn();
-      fence_for_issue();
-      issue_scores<N, D>(s, qhi, qlo, k_hi(st), k_hi(st) + kImg);
-      wgmma_commit();
-      hand_on();
-      wgmma_wait<0>();
-      fence_regs(s);
-      if (signals) bar_arrive(&bars->k_empty[st]);
-      softmax_tile<N, G>(s, m, l, corr, sh);
+      scores(t, st, parity);
     }
-    fold();
+    if (Parts == 1) fold(0);
     rescale<D>(acc, corr);
     split_p<KS>(ph, pl, s);
   }
@@ -554,14 +645,18 @@ __device__ __forceinline__ void attend_rows(float (&acc)[D / 2], float (&l)[2], 
   const int lst = lu % VStages, lparity = (lu / VStages) & 1;
   bar_wait_or_trap(&bars->v_full[lst], lparity);
   if (Overlap) turn();
-  fence_for_issue();
-  issue_pv<KS, D>(pv, ph, pl, v_hi(lst), v_hi(lst) + kImg, kFold);
-  wgmma_commit();
-  if (Overlap) hand_on();
-  wgmma_wait<0>();
-  fence_regs(pv);
+#pragma unroll
+  for (int part = 0; part < Parts; ++part) {
+    fence_for_issue();
+    issue_tile_pv(lst, part);
+    wgmma_commit();
+    if (Overlap) hand_on();
+    wgmma_wait<0>();
+    fence_pv();
+    if (Parts > 1) fold(part);
+  }
   if (signals) bar_arrive(&bars->v_empty[lst]);
-  fold();
+  if (Parts == 1) fold(0);
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
@@ -619,44 +714,62 @@ __device__ __forceinline__ void stage_q(unsigned char* img_hi, unsigned char* im
 }
 
 // ------------------------------------------------------------------ K4
-// K4 at head dim D (80: SAM ViT-H; 64: SAM ViT-L and ViT-B). Shared memory
-// of a block (from a 1024-byte boundary): each consumer's Q hi and lo
+// The bias_w table's row stride in the narrow mode: kw or kw + 8 floats,
+// whichever is 8 mod 16 (a quad's 8-byte reads of 8 rows in distinct banks).
+__host__ __device__ constexpr int narrow_ld(int kw) { return kw % 16 == 0 ? kw + 8 : kw; }
+
+// K4 at head dim D (80: SAM ViT-H; 64: SAM ViT-L and ViT-B; 96). Shared
+// memory of a block (from a 1024-byte boundary): each consumer's Q hi and lo
 // images, the K stages, the V stages, the bias_w table, the barriers. At D
 // 80 one K and one V stage fit beside the table; at D 64 (an image 16 KB)
-// two K stages and one V stage do.
+// two K stages and one V stage do; at D 96 (24 KB) one of each fits beside
+// the table only at 64 floats a row (kBwSwizzled: 8-column group j of row r
+// stored at group j ^ (r % 8), so a quad's 8-byte reads of 8 rows fall in
+// distinct banks).
 template <int D>
 struct K4Cfg {
   static constexpr int kKStages = D == 64 ? kKStages64 : ::kKStages;
   static constexpr int kVStages = D == 64 ? kVStages64 : ::kVStages;
-  static constexpr int kImg = img_bytes<D>(kBN);  // 20 KB at D 80, 16 KB at D 64
+  static constexpr bool kFold = D == 96 ? kFold96 : ::kFold;
+  static constexpr int kFoldParts = D == 96 && kFold96 ? kFoldParts96 : 1;
+  static constexpr bool kBiasAfter = D == 96 && kBiasAfter96;
+  static constexpr bool kOverlapped = kOverlap && kFoldParts == 1 && !kBiasAfter;
+  static constexpr bool kBwSwizzled = D == 96;
+  static constexpr int kBwLdWide = kBwSwizzled ? kGridW : kBwLd;  // the wide mode's row stride
+  static constexpr int kImg = img_bytes<D>(kBN);  // 20 KB at D 80, 16 KB at D 64, 24 KB at 96
   static constexpr int kQOff = 0;
   static constexpr int kKOff = kQOff + 2 * kConsumers * kImg;
   static constexpr int kVOff = kKOff + 2 * kKStages * kImg;
   static constexpr int kBwOff = kVOff + 2 * kVStages * kImg;
-  static constexpr int kBarOff = kBwOff + kBM * kBwLd * 4;
+  static constexpr int kBarOff = kBwOff + kBM * kBwLdWide * 4;
   static constexpr int kSmemBytes = kBarOff + (int)sizeof(Barriers) + 1024;
   static_assert(kSmemBytes <= 232448, "K4's shared memory");
   static_assert(kKStages <= 2 && kVStages <= 2, "the barriers' stages");
+  static_assert(narrow_ld(kGridW - 8) <= kBwLdWide, "the narrow mode's table");
 };
 constexpr int kImg64 = img_bytes(kBN);  // a 64-row image at head dim 80, 20 KB
 
 // Each 64-key tile of a head as four images (K hi, K lo, V^T hi, V^T lo):
 // tile t of head bh at scratch + (bh * n_tiles + t) * 4 * img_bytes<D>(64).
 // One block a tile. kRagged (the narrow mode): keys >= S of the last tile as
-// zero.
+// zero. K's and V's tiles are read at once where both fit the 48 KB of static
+// shared memory (D <= 80); at D 96 V's is read into K's once K's images are
+// written.
 template <int D, bool kRagged>
 __global__ void __launch_bounds__(kSplitThreads) split_kv_relpos_kernel(
     const float* __restrict__ k, const float* __restrict__ v, float* __restrict__ scratch,
     int S) {
   constexpr int kImg = K4Cfg<D>::kImg;
-  __shared__ float tk[kBN][D + 1], tv[kBN][D + 1];
+  constexpr bool kBoth = 2 * kBN * (D + 1) * 4 <= 48 * 1024;
+  __shared__ float tk[kBN][D + 1], tv_own[kBoth ? kBN : 1][D + 1];
+  float(*tv)[D + 1] = kBoth ? tv_own : tk;
   const int t = blockIdx.x, bh = blockIdx.y, n_tiles = gridDim.x;
   const long long in = ((long long)bh * S + (long long)t * kBN) * D;
   for (int i = threadIdx.x; i < kBN * D; i += kSplitThreads) {
     const int r = i / D, c = i - r * D;
     const bool live = !kRagged || t * kBN + r < S;
     tk[r][c] = live ? k[in + i] : 0.f;
-    tv[r][c] = live ? v[in + i] : 0.f;
+    if (kBoth) tv[r][c] = live ? v[in + i] : 0.f;
   }
   __syncthreads();
   unsigned char* img =
@@ -669,6 +782,14 @@ __global__ void __launch_bounds__(kSplitThreads) split_kv_relpos_kernel(
     *reinterpret_cast<uint4*>(img + 16 * i) = hi;
     *reinterpret_cast<uint4*>(img + kImg + 16 * i) = lo;
   }
+  if (!kBoth) {
+    __syncthreads();
+    for (int i = threadIdx.x; i < kBN * D; i += kSplitThreads) {
+      const int r = i / D, c = i - r * D;
+      tv[r][c] = !kRagged || t * kBN + r < S ? v[in + i] : 0.f;
+    }
+    __syncthreads();
+  }
   for (int i = threadIdx.x; i < 2 * D * (kBN / 8); i += kSplitThreads) {
     int d;
     const int key = vimg_chunk<D>(i, d);
@@ -678,10 +799,6 @@ __global__ void __launch_bounds__(kSplitThreads) split_kv_relpos_kernel(
     *reinterpret_cast<uint4*>(img + 3 * kImg + 16 * i) = lo;
   }
 }
-
-// The bias_w table's row stride in the narrow mode: kw or kw + 8 floats,
-// whichever is 8 mod 16 (a quad's 8-byte reads of 8 rows in distinct banks).
-__host__ __device__ constexpr int narrow_ld(int kw) { return kw % 16 == 0 ? kw + 8 : kw; }
 
 // kNarrow: a grid of kw < 64 columns (the narrow mode); otherwise kw = 64
 // and kh = S / 64 tiles of one grid row each.
@@ -698,8 +815,10 @@ __global__ void __launch_bounds__(kThreads, 1) flash_relpos_tf32_kernel(
   Barriers* bars = reinterpret_cast<Barriers*>(smem + C::kBarOff);
   const int bh = blockIdx.y;
   const int q0 = blockIdx.x * kBM;
-  const int cols = kNarrow ? kw : kGridW;          // bias_w's columns
-  const int ld = kNarrow ? narrow_ld(kw) : kBwLd;  // the table's row stride
+  const int cols = kNarrow ? kw : kGridW;                  // bias_w's columns
+  const int ld = kNarrow ? narrow_ld(kw) : C::kBwLdWide;  // the table's row stride
+  // the wide mode's table at D 96: 8-column group j of row r at j ^ (r % 8)
+  constexpr bool kSwizzled = !kNarrow && C::kBwSwizzled;
   const int n_tiles = kNarrow ? (S + kBN - 1) / kBN : kh;
 
   // the block's rows of bias_w (zero past S)
@@ -709,7 +828,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_relpos_tf32_kernel(
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
     if (q0 + r < S)
       x = __ldg(reinterpret_cast<const float4*>(bwg + (long long)(q0 + r) * cols + c));
-    *reinterpret_cast<float4*>(sBw + r * ld + c) = x;
+    const int at = kSwizzled ? r * ld + ((((c >> 3) ^ r) & 7) << 3) + (c & 7) : r * ld + c;
+    *reinterpret_cast<float4*>(sBw + at) = x;
   }
   if (threadIdx.x == 0) {
 #pragma unroll
@@ -754,6 +874,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_relpos_tf32_kernel(
     if (kPingpong && wg == kConsumers - 1) turn_arrive(1 + (wg + 1) % kConsumers);
 
     const float* bw_row[2] = {sBw + rb * ld + 2 * tq, sBw + (rb + 8) * ld + 2 * tq};
+    const int bw_sw = kSwizzled ? lane / 4 : 0;  // (rb + 8 h) % 8: the rows' swizzle
     const float* bh_row[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h)
@@ -767,7 +888,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_relpos_tf32_kernel(
         sh[h][0] = bh_row[h] != nullptr ? __ldg(bh_row[h] + t) * kL2e : 0.f;
 #pragma unroll
         for (int j = 0; j < kBN / 8; ++j) {
-          const float2 w = *reinterpret_cast<const float2*>(bw_row[h] + 8 * j);
+          const float2 w = *reinterpret_cast<const float2*>(bw_row[h] + 8 * (j ^ bw_sw));
           s[4 * j + 2 * h] = w.x;
           s[4 * j + 2 * h + 1] = w.y;
         }
@@ -800,11 +921,13 @@ __global__ void __launch_bounds__(kThreads, 1) flash_relpos_tf32_kernel(
     const Ring ring{bars, smem_u32(smem + C::kKOff), smem_u32(smem + C::kVOff)};
     float acc[D / 2], l[2];
     if constexpr (kNarrow)
-      attend_rows<kBN, C::kKStages, C::kVStages, kOverlap, D, kBN / 8>(
-          acc, l, smem_u32(q_hi), smem_u32(q_lo), ring, 0, n_tiles, wg, init_narrow);
+      attend_rows<kBN, C::kKStages, C::kVStages, C::kOverlapped, D, kBN / 8, C::kFold,
+                  C::kFoldParts, C::kBiasAfter>(acc, l, smem_u32(q_hi), smem_u32(q_lo), ring, 0,
+                                                n_tiles, wg, init_narrow);
     else
-      attend_rows<kBN, C::kKStages, C::kVStages, kOverlap, D, 1>(
-          acc, l, smem_u32(q_hi), smem_u32(q_lo), ring, 0, kh, wg, init_wide);
+      attend_rows<kBN, C::kKStages, C::kVStages, C::kOverlapped, D, 1, C::kFold,
+                  C::kFoldParts, C::kBiasAfter>(acc, l, smem_u32(q_hi), smem_u32(q_lo), ring, 0,
+                                                kh, wg, init_wide);
     if (kPingpong && wg == 0) turn_sync(1);  // the last consumer's last turn
     const int row = q0 + rb;
     store_rows<D>(acc, l, o + ((long long)bh * S + row) * D, row < S, row + 8 < S);
@@ -995,9 +1118,8 @@ __global__ void __launch_bounds__(kThreads, 1) window_relpos_tf32_kernel(
         }
       };
       float acc[40], l[2];
-      attend_rows<kWBN, kWStages, kWStages, kWOverlap, kD, 1>(acc, l, smem_u32(q_hi),
-                                                              smem_u32(q_lo), ring, u, kWTiles,
-                                                              wg, init);
+      attend_rows<kWBN, kWStages, kWStages, kWOverlap, kD, 1, kFold, 1, false>(
+          acc, l, smem_u32(q_hi), smem_u32(q_lo), ring, u, kWTiles, wg, init);
       const int row = r0 + wrow;
       store_rows<kD>(acc, l, o + base + (long long)row * kD, row < kWinS, row + 8 < kWinS);
     }
@@ -1024,7 +1146,7 @@ extern "C" int bff_relpos_tf32_takes(int kind, int dtype, int D, int S, int rows
                                      const void* o, const void* bias_h, const void* bias_w) {
   const bool width = cols == kGridW || (cols % 8 == 0 && cols >= kMinGridW && cols < kGridW);
   const bool shape = kind == 0   ? width && rows >= kMinGridH && rows <= kMaxGridH &&
-                                     S == rows * cols && (D == 64 || D == kD)
+                                     S == rows * cols && (D == 64 || D == kD || D == 96)
                      : kind == 1 ? rows == kWin && cols == kWin && S == kWinS && D == kD
                                  : false;
   return shape && dtype == 0 && scale > 0.f && scale <= FLT_MAX &&
@@ -1053,8 +1175,9 @@ extern "C" int bff_flash_relpos_tf32(const void* q, const void* k, const void* v
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define BFF_K4(DIM, NARROW) \
   launch_k4<DIM, NARROW>(q, k, v, bias_h, bias_w, o, scratch, BH, S, kh, kw, scale, s)
-  if (kw == kGridW) return D == 64 ? BFF_K4(64, false) : BFF_K4(kD, false);
-  return D == 64 ? BFF_K4(64, true) : BFF_K4(kD, true);
+  if (kw == kGridW)
+    return D == 64 ? BFF_K4(64, false) : D == 96 ? BFF_K4(96, false) : BFF_K4(kD, false);
+  return D == 64 ? BFF_K4(64, true) : D == 96 ? BFF_K4(96, true) : BFF_K4(kD, true);
 #undef BFF_K4
 }
 

@@ -11,7 +11,7 @@ bf16 at head dim 32 with at most ``MASKED_WGMMA_MAX_KEYS`` valid keys (K2,
 the Grounding-DINO decoder's self-attention; :func:`masked_wgmma_route`) to
 the wgmma/TMA kernel of ``csrc/flash_masked_wgmma.cu``, counted as
 ``flash_masked_wgmma``; f32 at head dim 32 or 64 (K2 and K3 in
-``detector.dtype: float32``) or 96 or 128 (:func:`tf32_route`) to the 3xTF32 wgmma/TMA
+``detector.dtype: float32``) or 80, 96 or 128 (:func:`tf32_route`) to the 3xTF32 wgmma/TMA
 kernel of ``csrc/flash_attention_tf32.cu``, counted as
 ``flash_attention_tf32``; every other f32 call to the f32-FMA kernel,
 counted as ``flash_attention_f32``; and every other bf16 call to the
@@ -23,9 +23,10 @@ calls on its 64-wide grids (K4; :func:`relpos_wgmma_route`) to the
 wgmma/TMA kernel of ``csrc/relpos_attention_wgmma.cu``, counted as
 ``flash_attention_relpos_wgmma``; its f32 head-dim-80 calls on those grids
 (K4 in ``detector.dtype: float32`` under ``BFF_SAM_RELPOS_FLASH=1``), its
-f32 head-dim-64 calls on them (SAM ViT-L's and ViT-B's global blocks) and
-its f32 head-dim-64 and -80 calls on grids narrower than 64 whose width is a
-multiple of 8 (portrait frames under ``BFF_SAM_RECT=1``;
+f32 head-dim-64 and -96 calls on them (SAM ViT-L's and ViT-B's global
+blocks at 64) and its f32 head-dim-64, -80 and -96 calls on grids narrower
+than 64 whose width is a multiple of 8 (portrait frames under
+``BFF_SAM_RECT=1``;
 :func:`relpos_tf32_route`) to the 3xTF32 wgmma kernel of
 ``csrc/relpos_attention_tf32.cu``, counted as
 ``flash_attention_relpos_tf32``; and the rest to the mma.sync tile or the
@@ -88,7 +89,7 @@ def masked_wgmma_route(dtype: int, d: int, s: int, valid_len: int, scale: float,
 # (shorter ones keep the FMA kernel, faster there)
 TF32_TILE = 64
 TF32_BLOCK_Q = 128
-TF32_HEAD_DIMS = (32, 64, 96, 128)
+TF32_HEAD_DIMS = (32, 64, 80, 96, 128)
 TF32_MIN_S = 256
 # the order of the keys of each 8-key group in the kernel's V^T (a lane's
 # accumulator columns 2 t, 2 t + 1 are the A fragment's columns t, t + 4)
@@ -99,7 +100,7 @@ def tf32_route(dtype: int, d: int, s: int, valid_len: int, scale: float, *ptrs: 
     """The mirror of ``bff_flash_tf32_takes``: whether ``bff_flash_attention``
     runs the 3xTF32 wgmma/TMA kernel of ``csrc/flash_attention_tf32.cu``
     for a call (dtype 0 = float32, 1 = bfloat16; ``ptrs`` the data pointers
-    of q, k, v and the output): f32, head dim 32, 64, 96 or 128, S >=
+    of q, k, v and the output): f32, head dim 32, 64, 80, 96 or 128, S >=
     ``TF32_MIN_S``, 1 <= ``valid_len`` <= S, a positive finite scale
     (rounded to f32 as the call passes it) and 16-byte aligned pointers."""
     f32 = ctypes.c_float(scale).value
@@ -111,7 +112,7 @@ def tf32_key_tile(d: int) -> int:
     """The keys of a tile of ``csrc/flash_attention_tf32.cu``'s online
     softmax at head dim ``d`` (``Cfg<D>::kBN``): 64, or 32 at head dim 128,
     where a 64-key stage beside both consumers' Q halves would not fit (at
-    96 one 64-key stage of each fits)."""
+    96 one 64-key stage of each fits, at 80 two K stages and one V stage)."""
     return 32 if d == 128 else 64
 
 
@@ -369,8 +370,12 @@ RELPOS_TF32_WINDOW_TILE = 40
 RELPOS_TF32_BLOCK_Q = 128
 RELPOS_TF32_MIN_GRID_H = 1
 RELPOS_TF32_MIN_GRID_W = 8
-# the head dims each takes: K4 (kind 0) SAM ViT-L/B's 64 and ViT-H's 80, K5 80
-RELPOS_TF32_HEAD_DIMS = {0: (64, 80), 1: (80,)}
+# the head dims each takes: K4 (kind 0) SAM ViT-L/B's 64, ViT-H's 80 and 96, K5 80
+RELPOS_TF32_HEAD_DIMS = {0: (64, 80, 96), 1: (80,)}
+# K4's head dims whose scores are summed from zero, bias_w added in f32
+# after the products (kBiasAfter96): at 96 the tensor cores' sums would
+# carry the factors' magnitude through 36 k-steps
+RELPOS_TF32_BIAS_AFTER = (96,)
 _WIN, _WIN_S = 14, 196
 
 
@@ -383,8 +388,8 @@ def relpos_tf32_route(kind: int, dtype: int, d: int, s: int, rows: int, cols: in
     wh x ww windows); dtype 0 = float32, 1 = bfloat16; ``ptrs`` the data
     pointers of q, k, v, the output, bias_h and bias_w. Taken: f32,
     ``RELPOS_TF32_MIN_GRID_H`` <= kh <= 64 with kw = 64 or kw a multiple of 8
-    from ``RELPOS_TF32_MIN_GRID_W`` to 56 (the narrow mode) at head dim 64 or
-    80 (K4), or 14 x 14 windows at head dim 80 (K5), a positive finite scale
+    from ``RELPOS_TF32_MIN_GRID_W`` to 56 (the narrow mode) at head dim 64,
+    80 or 96 (K4), or 14 x 14 windows at head dim 80 (K5), a positive finite scale
     (rounded to f32 as the call passes it) and every pointer 16-byte
     aligned."""
     f32 = ctypes.c_float(scale).value
@@ -500,7 +505,7 @@ def relpos_tf32_mirror(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        scale: Optional[float] = None) -> torch.Tensor:
     """The arithmetic of ``csrc/relpos_attention_tf32.cu`` in PyTorch on the
     CPU, block by block of :func:`relpos_tf32_schedule`, in f32. K4 (kind 0;
-    q, k, v (BH, S, D) with D 64 or 80, S = kh kw, bias_h (BH, S, kh),
+    q, k, v (BH, S, D) with D 64, 80 or 96, S = kh kw, bias_h (BH, S, kh),
     bias_w (BH, S, kw), kw = 64 or, in the narrow mode, a multiple of 8
     below it) or K5 (kind 1; (G, 196, 80), both factors (G, 196, 14)).
     K and V split into TF32 hi and lo (:func:`tf32_split`; V^T with each
@@ -509,15 +514,19 @@ def relpos_tf32_mirror(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for K4 at kw = 64; 64 keys across rows in the narrow mode and 40 for K5,
     keys past S zero), the scores' accumulators start at the bias (K4:
     bias_w; K5: bias_h + bias_w; -inf for keys past S) and take lo(Q)
-    hi(K)^T + hi(Q) lo(K)^T, then hi(Q) hi(K)^T; the running max (log2
+    hi(K)^T + hi(Q) lo(K)^T, then hi(Q) hi(K)^T (K4 at the head dims of
+    ``RELPOS_TF32_BIAS_AFTER``: the products from zero, the bias added
+    after them); the running max (log2
     units, K4's keys shifted by bias_h log2 e: of the tile's grid row at
     kw = 64, of each key's in the narrow mode) raised at every tile; p =
     2^(s log2 e + shift - m) (one rounding); the denominator summed from
     the f32 p; the output rescaled, P split in the fragment order, the
     tile's (lo(P) hi(V) + hi(P) lo(V)) + hi(P) hi(V) summed apart and added
-    to O in f32 (the kernels' kFold); the output divided once; rows past S
-    not written (left 0). Every word handed to the products is rna-rounded
-    TF32, so the hardware's truncation is not modelled."""
+    to O in f32 (the kernels' kFold; K4 at head dim 96 sums and adds it in
+    two 48-column halves, the same sums column by column); the output
+    divided once; rows past S not written (left 0). Every word handed to
+    the products is rna-rounded TF32, so the hardware's truncation is not
+    modelled."""
     n, s, d = q.shape
     scale = d ** -0.5 if scale is None else scale
     l2e = float(torch.tensor(1.4426950408889634, dtype=torch.float32))
@@ -566,7 +575,12 @@ def relpos_tf32_mirror(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         shift[at] = bh_f[h, r][:, ky] * l2e
                     else:
                         init[at] = bh_f[h, r][:, ky] + bw_f[h, r][:, kx]
-                sco = ((init + q_lo @ k_hi[h, ks].T) + q_hi @ k_lo[h, ks].T) + q_hi @ k_hi[h, ks].T
+                if kind == 0 and d in RELPOS_TF32_BIAS_AFTER:
+                    sco = ((q_lo @ k_hi[h, ks].T + q_hi @ k_lo[h, ks].T)
+                           + q_hi @ k_hi[h, ks].T) + init
+                else:
+                    sco = (((init + q_lo @ k_hi[h, ks].T) + q_hi @ k_lo[h, ks].T)
+                           + q_hi @ k_hi[h, ks].T)
                 mx = (sco.double() * l2e + shift.double()).max(dim=1).values.float()
                 m_new = torch.maximum(m, mx)
                 corr = torch.exp2(m - m_new)

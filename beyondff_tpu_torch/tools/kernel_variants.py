@@ -42,7 +42,8 @@ self-attention at head dim 32 through ``bff_flash_attention``: the wgmma
 kernel of ``flash_masked_wgmma.cu`` in this tree, the mma.sync tile in a
 tree from before it) take SDPA, with a key mask where keys are masked, as
 their ``library`` entry. The f32 cases (``--cases f32``: K2 and K3 in f32
-at their main-path shapes, and ``f32 small``, S 64 to 512) go through
+at their main-path shapes, ``f32 small``, S 64 to 512, f32 at head dims 80,
+96 and 128, and ``f32 d112``, a shape the 3xTF32 route refuses) go through
 ``bff_flash_attention`` (the 3xTF32 kernel in this tree, the FMA kernel in
 a tree from before it, and as the entry ``fma`` of the same rounds through
 ``bff_flash_attention_f32_fma``), are held within 1e-4,
@@ -349,6 +350,15 @@ VARIANTS = {
        for sfx, overlap, k in (("", True, 2), ("_serial", False, 2), ("_stages_3_2", True, 3))},
     "tf32_d96_overlap": (K3, ((TF32, "constexpr bool kOverlap96 = false;",
                                "constexpr bool kOverlap96 = true;"),)),
+    # 3xTF32 at head dim 80 (shipped: two K stages and one V stage, each
+    # tile's products in turn): tile t's Q K^T issued before tile t - 1's
+    # P V; one K and one V stage; one K stage and two V stages
+    "tf32_d80_overlap": (K3, ((TF32, "constexpr bool kOverlap80 = false;",
+                               "constexpr bool kOverlap80 = true;"),)),
+    **{f"tf32_d80_stages_{k}_{v}": (K3, ((TF32, "constexpr int kKStages80 = 2, kVStages80 = 1;",
+                                          f"constexpr int kKStages80 = {k}, "
+                                          f"kVStages80 = {v};"),))
+       for k, v in ((1, 1), (1, 2))},
     # NMS: clusters of 4 or 16 blocks a frame (shipped: 8; 16 offer 2 boxes
     # each), or one block a frame (the staged boxes, the look-ahead and the
     # division-free test on one SM)
@@ -430,6 +440,17 @@ VARIANTS = {
     # and one V stage)
     "k4_tf32_d64_stages_1_1": (K45, ((RT32, "constexpr int kKStages64 = 2, kVStages64 = 1;",
                                       "constexpr int kKStages64 = 1, kVStages64 = 1;"),)),
+    # 3xTF32 K4 at head dim 96 (shipped: each tile's P V summed apart in two
+    # 48-column halves): P V accumulated across every key tile by the tensor
+    # cores (no fold), or the fold in one piece (48 more registers live)
+    "k4_tf32_d96_no_fold": (K45, ((RT32, "constexpr bool kFold96 = true;",
+                                   "constexpr bool kFold96 = false;"),)),
+    "k4_tf32_d96_fold_whole": (K45, ((RT32, "constexpr int kFoldParts96 = 2;",
+                                      "constexpr int kFoldParts96 = 1;"),)),
+    # 3xTF32 K4 at head dim 96: the scores' accumulators start at bias_w
+    # (shipped: the products from zero, the bias added after them)
+    "k4_tf32_d96_bias_start": (K45, ((RT32, "constexpr bool kBiasAfter96 = true;",
+                                      "constexpr bool kBiasAfter96 = false;"),)),
     "k5_two_blocks": (K45, (
         (RWG, "constexpr int kWConsumers = 2;", "constexpr int kWConsumers = 1;"),
         (RWG, "constexpr int kWStages = 2;", "constexpr int kWStages = 1;"),
@@ -543,9 +564,10 @@ def attention_case(g, grid, window):
     return fn, launch, check, library, 4 * g * s * s * d, nbytes
 
 
-def relpos_f32_case(g, grid, window, d=80, spread=1.0):
+def relpos_f32_case(g, grid, window, d=80, spread=1.0, factor_scale=0.1):
     """K4 or K5 in f32 at head dim ``d`` (SAM ViT-H's 80; K4 also at SAM
-    ViT-L's 64), q and k scaled by ``spread``, through the rel-pos
+    ViT-L's 64 and at 96), q and k scaled by ``spread``, the rel-pos tables
+    drawn at ``factor_scale`` (peaked by the factors at 3), through the rel-pos
     entries (the 3xTF32 kernels of ``relpos_attention_tf32.cu`` in this tree,
     the FMA kernels in the ``relpos_f32_fma`` variant or a tree from before
     them), the factors as ``chip_smoke.py`` builds them, held within 1e-4 of
@@ -560,8 +582,8 @@ def relpos_f32_case(g, grid, window, d=80, spread=1.0):
     gen = torch.Generator(device="cuda").manual_seed(s + g)
     q, k, v = (torch.randn(g, s, d, device="cuda", generator=gen) for _ in range(3))
     q, k = q * spread, k * spread
-    rel_h = 0.1 * torch.randn(2 * hh - 1, d, device="cuda", generator=gen)
-    rel_w = 0.1 * torch.randn(2 * ww - 1, d, device="cuda", generator=gen)
+    rel_h = factor_scale * torch.randn(2 * hh - 1, d, device="cuda", generator=gen)
+    rel_w = factor_scale * torch.randn(2 * ww - 1, d, device="cuda", generator=gen)
     bias_h, bias_w = (t.contiguous() for t in
                       sam_mod._rel_pos_factors((hh, ww), (hh, ww), rel_h, rel_w, q))
     plain = lambda: fa.attend_relpos_plain(q, k, v, bias_h, bias_w, ww)
@@ -1034,6 +1056,17 @@ def main():
         "f32 d96 (8, 1024, 96) valid 900": lambda: f32_case(8, 1024, 96, 900),
         "f32 d96 spread 3 (32, 1024, 96) valid 900": lambda: f32_case(32, 1024, 96, 900, 3.0),
         "f32 d96 small (8, 256, 96)": lambda: f32_case(8, 256, 96, 256),
+        # f32 at head dim 80 (the public entries take it; SAM ViT-H's head
+        # dim, which reaches flash attention only through the rel-pos
+        # entries), 900 of 1024 keys valid, at 32 and 8 heads and on peaked
+        # rows; and the shortest S the route takes
+        "f32 d80 (32, 1024, 80) valid 900": lambda: f32_case(32, 1024, 80, 900),
+        "f32 d80 (8, 1024, 80) valid 900": lambda: f32_case(8, 1024, 80, 900),
+        "f32 d80 spread 3 (32, 1024, 80) valid 900": lambda: f32_case(32, 1024, 80, 900, 3.0),
+        "f32 d80 small (8, 256, 80)": lambda: f32_case(8, 256, 80, 256),
+        # outside the 3xTF32 route (head dim 112): the FMA kernel, with SDPA
+        # in f32 beside it, the witness of what still loses to the library
+        "f32 d112 (32, 1024, 112) valid 900": lambda: f32_case(32, 1024, 112, 900),
         # K4 and K5 in f32 (detector.dtype: float32, BFF_SAM_RELPOS_FLASH=1)
         # at SAM ViT-H's batch of 4 (square and rect grid) and one frame;
         # then K4 on short grids, where the 3xTF32 kernel's pre-pass and
@@ -1059,6 +1092,25 @@ def main():
         "relpos_f32 k4 kw48 d80 (64, 3072, 80)": lambda: relpos_f32_case(64, (64, 48), False),
         "relpos_f32 k4 kw32 spread 3 (64, 2048, 64)":
             lambda: relpos_f32_case(64, (64, 32), False, 64, 3.0),
+        # K4 in f32 at head dim 96 (no configured model calls it) on the
+        # 64 x 32, 64 x 48 and 64 x 64 grids, on peaked rows (scores and
+        # factors) and at one tile of the narrowest grid
+        "relpos_f32 k4 kw32 d96 (64, 2048, 96)": lambda: relpos_f32_case(64, (64, 32), False, 96),
+        "relpos_f32 k4 kw48 d96 (64, 3072, 96)": lambda: relpos_f32_case(64, (64, 48), False, 96),
+        "relpos_f32 k4 d96 (64, 4096, 96)": lambda: relpos_f32_case(64, (64, 64), False, 96),
+        "relpos_f32 k4 kw32 d96 spread 3 (64, 2048, 96)":
+            lambda: relpos_f32_case(64, (64, 32), False, 96, 3.0),
+        "relpos_f32 k4 kw32 d96 factors 3 (64, 2048, 96)":
+            lambda: relpos_f32_case(64, (64, 32), False, 96, 1.0, 3.0),
+        "relpos_f32 k4 d96 spread 3 (64, 4096, 96)":
+            lambda: relpos_f32_case(64, (64, 64), False, 96, 3.0),
+        "relpos_f32 k4 d96 factors 3 (64, 4096, 96)":
+            lambda: relpos_f32_case(64, (64, 64), False, 96, 1.0, 3.0),
+        "relpos_f32 narrow small k4 kw8 d96 (16, 8, 96)":
+            lambda: relpos_f32_case(16, (1, 8), False, 96),
+        # outside the 3xTF32 route (kw 36, not a multiple of 8): the FMA
+        # kernel, with SDPA in f32 beside it, the witness of what still loses
+        "relpos_f32 k4 kw36 d80 (64, 2304, 80)": lambda: relpos_f32_case(64, (64, 36), False),
         # the narrow mode at its smallest widths and heights, where the
         # pre-pass, a padded tile and the latency weigh most (its kMinGridW)
         **{f"relpos_f32 narrow small k4 kw{kw} ({16}, {kh * kw}, 64)":

@@ -388,14 +388,15 @@ def fma_yardstick(torch, call, want):
             "fma_device_ms": device_ms(call)}
 
 
-def flash_case(torch, fa, name, shape, valid_len, dtype, dev, fma=False):
+def flash_case(torch, fa, name, shape, valid_len, dtype, dev, fma=False, spread=1.0):
     """One K2/K3 comparison + timing. bf16 is held within 1.6e-2 and within
     ``fa.bf16_error_bound`` (P rounded to bf16 before P V, as the TPU kernel
     does, plus one output rounding); f32 within 1e-4. The record names the
     counter the call went through (``flash_attention_wgmma`` for K3's bf16
     head-dim-64 calls, ``flash_masked_wgmma`` for K2's bf16 head-dim-32
     calls), which must be the one ``fa.flash_counter`` names. ``fma``: also
-    time the f32-FMA kernel on the same inputs (``fma_yardstick``)."""
+    time the f32-FMA kernel on the same inputs (``fma_yardstick``).
+    ``spread`` scales q and k (peaked rows at 3)."""
     import torch.nn.functional as F
 
     from beyondff_tpu_torch.kernels import dispatch
@@ -405,6 +406,8 @@ def flash_case(torch, fa, name, shape, valid_len, dtype, dev, fma=False):
     bh, s, d = shape
     q, k, v = (torch.randn(bh, s, d, device=dev, dtype=torch.float32).to(dtype)
                for _ in range(3))
+    if spread != 1.0:
+        q, k = q * spread, k * spread
     before = dict(dispatch.launch_counts)
     got = fa.flash_attention(q, k, v, valid_len=valid_len)
     went = [key for key, n in dispatch.launch_counts.items() if n != before[key]]
@@ -445,7 +448,8 @@ def flash_case(torch, fa, name, shape, valid_len, dtype, dev, fma=False):
     dev_ms = device_ms(kernel)
     rec = {
         "case": name, "kernel": routed, "dtype": dname, "shape": list(shape),
-        "valid_len": valid_len, "max_abs_err": err, "tol": tol, "tol_excess": excess,
+        "valid_len": valid_len, "spread": spread, "max_abs_err": err, "tol": tol,
+        "tol_excess": excess,
         "bound_tol": "2^-8 |P|@|V| + 2^-7 |plain| + 1e-4" if bf16 else None,
         "ms": cuda_ms(torch, kernel, 50),
         "device_ms": dev_ms, "tflops": flops / dev_ms / 1e9,
@@ -474,7 +478,8 @@ def flash_case(torch, fa, name, shape, valid_len, dtype, dev, fma=False):
     return rec
 
 
-def relpos_case(torch, fa, wa, sam_mod, name, g, grid, dtype, dev, d=80, fma=False):
+def relpos_case(torch, fa, wa, sam_mod, name, g, grid, dtype, dev, d=80, fma=False,
+                spread=1.0):
     """One rel-pos attention comparison + timing: K4 (``flash_attention_relpos``)
     over a global grid, K5 (``window_attention_relpos``) when ``name`` is a
     window case, at head dim ``d``. q, k, v from a seeded generator; the factors are real q . R
@@ -485,7 +490,8 @@ def relpos_case(torch, fa, wa, sam_mod, name, g, grid, dtype, dev, d=80, fma=Fal
     f32 calls, the kernels of ``csrc/relpos_attention_tf32.cu``), which must
     be the one ``fa.relpos_counter`` names, and the host microseconds a call
     (``host_us``: the enqueue, tensor maps included). ``fma``: also time K4's
-    f32-FMA kernel on the same inputs (``fma_yardstick``)."""
+    f32-FMA kernel on the same inputs (``fma_yardstick``). ``spread`` scales
+    q and k (peaked rows at 3; the factors follow q)."""
     import torch.nn.functional as F
 
     from beyondff_tpu_torch.kernels import dispatch
@@ -497,6 +503,8 @@ def relpos_case(torch, fa, wa, sam_mod, name, g, grid, dtype, dev, d=80, fma=Fal
     window = name.startswith("window")
     gen = torch.Generator(device=dev).manual_seed(SEED + g + s)
     q, k, v = (torch.randn(g, s, d, device=dev, generator=gen).to(dtype) for _ in range(3))
+    if spread != 1.0:
+        q, k = q * spread, k * spread
     rel_h = (0.1 * torch.randn(2 * hh - 1, d, device=dev, generator=gen)).to(dtype)
     rel_w = (0.1 * torch.randn(2 * ww - 1, d, device=dev, generator=gen)).to(dtype)
     bias_h, bias_w = (t.to(dtype).contiguous() for t in
@@ -588,7 +596,8 @@ def relpos_case(torch, fa, wa, sam_mod, name, g, grid, dtype, dev, d=80, fma=Fal
             extra["dense_path_device_ms"] = device_ms(dense)
     del mask
     rec = {"case": name, "kernel": routed, "dtype": dname, "shape": [g, s, d],
-           "grid": [hh, ww], "max_abs_err": err, "tol_excess": excess, "tol": tol,
+           "grid": [hh, ww], "spread": spread, "max_abs_err": err, "tol_excess": excess,
+           "tol": tol,
            "ms": cuda_ms(torch, kernel, 5 if s > 1024 else 20), **extra,
            "host_us": host_us(torch, kernel),
            "plain_ms": cuda_ms(torch, plain, 3),
@@ -3599,9 +3608,25 @@ def main() -> int:
                 (64, kw), torch.float32, dev, d=d, fma=True)
             check(rec["kernel"] == "flash_attention_relpos_tf32",
                   f"f32 K4 on 64 x {kw} at head dim {d}: on {rec['kernel']}")
-    # outside the 3xTF32 predicate, on the FMA kernels: K4 at head dim 96
-    # on the 64 x 32 grid, K5 at SAM ViT-L's head dim 64
-    for key, name, g, grid, d in (("relpos_global_fma", "kw32_d96_global", 16, (64, 32), 96),
+    # K4 in f32 at head dim 96 on the 3xTF32 kernel: the narrow mode on the
+    # 64 x 32 and 64 x 48 grids, the wide mode on 64 x 64 (its swizzled
+    # bias_w table), each beside the FMA kernel on the same inputs, and on
+    # peaked rows
+    for key, name, grid, spread in (("relpos_d96_kw32", "kw32_d96_global", (64, 32), 1.0),
+                                    ("relpos_d96_kw32_spread3", "kw32_d96_global_spread3",
+                                     (64, 32), 3.0),
+                                    ("relpos_d96_kw48", "kw48_d96_global", (64, 48), 1.0),
+                                    ("relpos_d96", "d96_global", (64, 64), 1.0),
+                                    ("relpos_d96_spread3", "d96_global_spread3", (64, 64), 3.0)):
+        cases[(key, "float32", FRAME_BATCH)] = rec = relpos_case(
+            torch, fa, wa, sam_mod, name, 16 * FRAME_BATCH, grid, torch.float32, dev, d=96,
+            fma=spread == 1.0, spread=spread)
+        check(rec["kernel"] == "flash_attention_relpos_tf32",
+              f"f32 K4 {name} at head dim 96: on {rec['kernel']}")
+    # outside the 3xTF32 predicate, on the FMA kernels (the witnesses of what
+    # still loses to SDPA in f32): K4 at head dim 80 on the 64 x 36 grid
+    # (kw not a multiple of 8), K5 at SAM ViT-L's head dim 64
+    for key, name, g, grid, d in (("relpos_global_fma", "kw36_d80_global", 16, (64, 36), 80),
                                   ("relpos_window_fma", "window_sam_vit_l", 400, (14, 14), 64)):
         cases[(key, "float32", FRAME_BATCH)] = rec = relpos_case(
             torch, fa, wa, sam_mod, name, g * FRAME_BATCH, grid, torch.float32, dev, d=d)
@@ -3668,8 +3693,8 @@ def main() -> int:
                 torch, fa, "efficientsam_global_rect" if s_k3 == 3072 else "ragged_4095",
                 (6 * FRAME_BATCH, s_k3, 64), s_k3, dtype, dev)
     # f32 K2 and K3 on the 3xTF32 kernel (detector.dtype: float32), and f32
-    # at head dim 128 too; an f32 call outside its predicate (head dim 96)
-    # keeps the FMA kernel
+    # at head dims 128, 96 and 80 too; an f32 call outside its predicate
+    # (head dim 112) keeps the FMA kernel
     f32_flash = [(key, "float32", b) for key in ("flash_900", "flash_1024", "flash_masked",
                                                  "k3_efficientsam") for b in (1, FRAME_BATCH)]
     for key in f32_flash + [("k3_efficientsam", s_k3, "float32") for s_k3 in (3072, 4095)]:
@@ -3682,8 +3707,14 @@ def main() -> int:
         torch, fa, "d96_1024_900", (8 * FRAME_BATCH, 1024, 96), 900, torch.float32, dev,
         fma=True)
     check(rec["kernel"] == "flash_attention_tf32", "flash_d96: off the 3xTF32 kernel")
+    for key, name, spread in (("flash_d80", "d80_1024_900", 1.0),
+                              ("flash_d80_spread3", "d80_1024_900_spread3", 3.0)):
+        cases[(key, "float32", FRAME_BATCH)] = rec = flash_case(
+            torch, fa, name, (8 * FRAME_BATCH, 1024, 80), 900, torch.float32, dev,
+            fma=spread == 1.0, spread=spread)
+        check(rec["kernel"] == "flash_attention_tf32", f"{key}: off the 3xTF32 kernel")
     cases[("flash_fma", "float32", FRAME_BATCH)] = rec = flash_case(
-        torch, fa, "d80_1024_900", (8 * FRAME_BATCH, 1024, 80), 900, torch.float32, dev)
+        torch, fa, "d112_1024_900", (8 * FRAME_BATCH, 1024, 112), 900, torch.float32, dev)
     check(rec["kernel"] == "flash_attention_f32", "flash_fma: off the f32-FMA kernel")
     cases["nms"] = nms_case(torch, nms, dev)
     cases["nms_threshold"] = nms_threshold_case(torch, nms, dev)
@@ -3882,11 +3913,14 @@ def main() -> int:
             (("flash_d96", "float32", FRAME_BATCH),
              "beyondff_tpu_torch/csrc/flash_attention_tf32.cu",
              "beyondff_tpu/kernels/flash_attention.py:270"),
+            (("flash_d80", "float32", FRAME_BATCH),
+             "beyondff_tpu_torch/csrc/flash_attention_tf32.cu",
+             "beyondff_tpu/kernels/flash_attention.py:270"),
             (("flash_fma", "float32", FRAME_BATCH), "beyondff_tpu_torch/csrc/flash_attention.cu",
              "beyondff_tpu/kernels/flash_attention.py:270"),
-            # K4 and K5 in f32 at head dim 80 (and K4 at 64) on the 3xTF32
-            # kernels, other f32 rel-pos calls (K4 on a 32-wide grid, K5 at head
-            # dim 64) on the FMA kernels
+            # K4 and K5 in f32 at head dim 80 (and K4 at 64 and 96) on the
+            # 3xTF32 kernels, other f32 rel-pos calls (K4 on a 36-wide grid,
+            # K5 at head dim 64) on the FMA kernels
             (("relpos_global", "float32", FRAME_BATCH),
              "beyondff_tpu_torch/csrc/relpos_attention_tf32.cu",
              "beyondff_tpu/kernels/flash_attention.py:193"),
@@ -3897,6 +3931,9 @@ def main() -> int:
                "beyondff_tpu_torch/csrc/relpos_attention_tf32.cu",
                "beyondff_tpu/kernels/flash_attention.py:193")
               for kw in (32, 48) for d in (64, 80)),
+            *(((key, "float32", FRAME_BATCH), "beyondff_tpu_torch/csrc/relpos_attention_tf32.cu",
+               "beyondff_tpu/kernels/flash_attention.py:193")
+              for key in ("relpos_d96_kw32", "relpos_d96_kw48", "relpos_d96")),
             (("relpos_window", "float32", FRAME_BATCH),
              "beyondff_tpu_torch/csrc/relpos_attention_tf32.cu",
              "beyondff_tpu/kernels/window_attention.py:51"),

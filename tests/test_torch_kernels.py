@@ -500,7 +500,8 @@ def test_mask_iou_wrapper_checks_on_cpu():
                                   "tf32_d128_overlap", "tf32_d128_stages_1_2",
                                   "tf32_d128_stages_1_1", "tf32_d96_tile32",
                                   "tf32_d96_tile32_serial", "tf32_d96_tile32_stages_3_2",
-                                  "tf32_d96_overlap"])
+                                  "tf32_d96_overlap", "tf32_d80_overlap",
+                                  "tf32_d80_stages_1_1", "tf32_d80_stages_1_2"])
 def test_kernel_variant_edits_match_the_sources(name):
     """Each variant ``tools/kernel_variants.py`` builds is a set of edits
     that must each match its source once: they go stale with the kernels."""
@@ -583,8 +584,8 @@ def test_flash_kernel_matches_plain_on_card(cuda_device, dtype, bh, s, valid, d)
     within the derived bound and K2's 1.6e-2. Each call counts once, under
     the counter ``tfa.flash_counter`` names: bf16 at head dim 32 goes to
     K2's wgmma kernel (``flash_masked_wgmma``), other bf16 to the mma.sync
-    tile or the FMA kernel (``flash_attention``), f32 at head dim 32, 64, 96
-    or 128 from S = 256 on to the 3xTF32 kernel (``flash_attention_tf32``)
+    tile or the FMA kernel (``flash_attention``), f32 at head dim 32, 64, 80,
+    96 or 128 from S = 256 on to the 3xTF32 kernel (``flash_attention_tf32``)
     and other f32 to the FMA kernel (``flash_attention_f32``)."""
     g = torch.Generator(device=cuda_device).manual_seed(s + d)
     q, k, v = (torch.randn(bh, s, d, generator=g, device=cuda_device).to(dtype)

@@ -1,6 +1,7 @@
 """K4 and K5 in f32 (SAM ViT-H's head-dim-80 rel-pos attention, and K4 at
-SAM ViT-L's and ViT-B's head dim 64, and on grids narrower than 64: the
-narrow mode) on the 3xTF32 wgmma kernels of ``csrc/relpos_attention_tf32.cu``.
+SAM ViT-L's and ViT-B's head dim 64 and at head dim 96, and on grids
+narrower than 64: the narrow mode) on the 3xTF32 wgmma kernels of
+``csrc/relpos_attention_tf32.cu``.
 
 On the CPU: the routing rule (``relpos_tf32_route``, the mirror of the C
 predicate ``bff_relpos_tf32_takes``) and the counter a call moves, K4's
@@ -8,7 +9,7 @@ scratch size, the kernels' grids (``relpos_tf32_schedule``), their score
 index arithmetic (``relpos_tf32_fragment``) against ``relpos_bias``, and
 their arithmetic (``relpos_tf32_mirror``) against the plain versions and
 against the JAX ``attend_relpos`` / ``window_attention_relpos`` in
-interpret mode, in f32 at head dim 80 (and K4 at 64), within 1e-4 (the f32
+interpret mode, in f32 at head dim 80 (and K4 at 64 and 96), within 1e-4 (the f32
 calls' tolerance everywhere in the repository). Tests that need the card carry
 the ``cuda`` marker and import nothing of JAX:
 ``python -m pytest --noconftest -m cuda tests/test_torch_relpos_tf32.py``.
@@ -114,12 +115,12 @@ def _sam_factors(jx, rows, cols, g, d, spread):
     ((0, 0, 80, 2304, 64, 36, _S80, *_A), False),  # kw 36: not a multiple of 8
     ((0, 0, 80, 4608, 64, 72, _S80, *_A), False),  # wider than 64
     ((0, 0, 80, 2080, 65, 32, _S80, *_A), False),  # kh 65 on a 32-wide grid
-    ((0, 0, 96, 2048, 64, 32, 96 ** -0.5, *_A), False),  # head dim 96 on a 32-wide grid
+    ((0, 0, 96, 2048, 64, 32, 96 ** -0.5, *_A), True),  # head dim 96 on a 32-wide grid
     ((0, 1, 80, 2048, 64, 32, _S80, *_A), False),  # bf16 on a 32-wide grid: the tile
     ((0, 0, 80, 2048, 64, 32, _S80, 0, 0, 0, 0, 4, 0), False),  # narrow, bias_h off 16 bytes
     ((0, 0, 64, 4096, 64, 64, 0.125, 0, 0, 0, 0, 0, 4), False),  # bias_w off 16 bytes
     ((1, 0, 64, 196, 14, 14, 0.125, *_A), False),  # K5 at head dim 64: the FMA kernel
-    ((0, 0, 96, 4096, 64, 64, 96 ** -0.5, *_A), False),  # another head dim
+    ((0, 0, 96, 4096, 64, 64, 96 ** -0.5, *_A), True),  # head dim 96: a swizzled table
     ((0, 0, 128, 4096, 64, 64, 128 ** -0.5, *_A), False),
     ((0, 0, 80, 4096, 128, 32, _S80, *_A), False),  # kw 32 with kh past 64
     ((0, 0, 80, 8192, 128, 64, _S80, *_A), False),  # kh past 64
@@ -135,10 +136,22 @@ def _sam_factors(jx, rows, cols, g, d, spread):
     ((0, 0, 80, 4096, 64, 64, float("nan"), *_A), False),
     ((0, 0, 80, 4096, 64, 64, 1e39, *_A), False),  # inf once rounded to f32
     ((2, 0, 80, 196, 14, 14, _S80, *_A), False),  # no such entry
+    ((0, 0, 96, 64, 8, 8, 96 ** -0.5, *_A), True),  # head dim 96 at kw 8: one tile
+    ((0, 0, 96, 3072, 64, 48, 96 ** -0.5, *_A), True),  # head dim 96 on a 48-wide grid
+    ((0, 0, 96, 3584, 64, 56, 96 ** -0.5, *_A), True),  # head dim 96, the widest narrow grid
+    ((0, 0, 96, 64, 1, 64, 96 ** -0.5, *_A), True),  # head dim 96, one grid row
+    ((0, 0, 96, 32, 1, 32, 96 ** -0.5, *_A), True),  # head dim 96, kh 1 on a 32-wide grid
+    ((0, 0, 96, 2304, 64, 36, 96 ** -0.5, *_A), False),  # head dim 96, kw 36
+    ((0, 0, 96, 4096, 64, 64, 96 ** -0.5, 0, 0, 0, 0, 0, 4), False),  # bias_w off 16 bytes
+    ((0, 0, 96, 2048, 64, 32, 96 ** -0.5, 4, 0, 0, 0, 0, 0), False),  # narrow, q off 16 bytes
+    ((0, 1, 96, 4096, 64, 64, 96 ** -0.5, *_A), False),  # bf16 at head dim 96: the tile
+    ((1, 0, 96, 196, 14, 14, 96 ** -0.5, *_A), False),  # K5 at head dim 96: the FMA kernel
+    ((0, 0, 112, 4096, 64, 64, 112 ** -0.5, *_A), False),  # head dim 112
+    ((0, 0, 112, 2048, 64, 32, 112 ** -0.5, *_A), False),
 ])
 def test_relpos_tf32_route_pins_the_predicate(args, takes):
     """The Python mirror of ``bff_relpos_tf32_takes``: f32, kh <= 64 with kw =
-    64 or a multiple of 8 from 8 to 56 at head dim 64 or 80 (K4) or 14 x 14
+    64 or a multiple of 8 from 8 to 56 at head dim 64, 80 or 96 (K4) or 14 x 14
     windows at 80 (K5), a positive finite f32
     scale, six 16-byte aligned pointers; and the counter a call moves:
     ``..._tf32`` where it takes the call, else the bf16 wgmma kernels'
@@ -178,7 +191,7 @@ def test_relpos_tf32_scratch_holds_every_tiles_images(bh, s, want):
 @pytest.mark.parametrize("bh,s,d,want", [
     (64, 2048, 64, 4 * 64 * 2048 * 64), (64, 3072, 80, 4 * 64 * 3072 * 80),
     (2, 8, 80, 4 * 2 * 64 * 80), (3, 120, 64, 4 * 3 * 128 * 64), (2, 3584, 80, 4 * 2 * 3584 * 80),
-    (1, 2 * 40, 80, 4 * 128 * 80)])
+    (1, 2 * 40, 80, 4 * 128 * 80), (2, 8, 96, 4 * 2 * 64 * 96), (3, 120, 96, 4 * 3 * 128 * 96)])
 def test_relpos_tf32_scratch_pads_a_narrow_grids_last_tile(bh, s, d, want):
     """The narrow mode's scratch: the images of every 64-key tile, the last
     padded with zero keys, 4 BH Sp D floats with Sp = S rounded up to 64."""
@@ -186,11 +199,41 @@ def test_relpos_tf32_scratch_pads_a_narrow_grids_last_tile(bh, s, d, want):
 
 
 @pytest.mark.parametrize("bh,s,d", [(64, 4096, 64), (16, 4096, 64), (1, 64, 64), (3, 320, 64),
-                                    (64, 4096, 80)])
+                                    (64, 4096, 80), (64, 4096, 96), (1, 64, 96), (64, 2048, 96)])
 def test_relpos_tf32_scratch_follows_the_head_dim(bh, s, d):
     """K4's scratch holds four images of 64 keys by D for every tile: 4 BH S
-    D floats at head dim 64 as at 80."""
+    D floats at head dim 64 and 96 as at 80."""
     assert tfa.relpos_tf32_scratch_floats(bh, s, d) == 4 * bh * s * d
+
+
+@pytest.mark.parametrize("d,k_stages,v_stages,table_ld", [(64, 2, 1, 72), (80, 1, 1, 72),
+                                                          (96, 1, 1, 64)])
+def test_k4_tf32_shared_memory_fits_a_block(d, k_stages, v_stages, table_ld):
+    """K4Cfg's shared memory at each head dim: both consumers' Q hi and lo
+    images (2 x 2 x 64 x D floats), the K and V^T stages (hi and lo of 64
+    keys by D), the 128 rows of the bias_w table, the barriers (eight
+    64-bit words) and the 1024-byte alignment fit the 232 448 bytes a block
+    may have. At head dim 96 the table's 72-float rows would not: it is 64
+    floats a row there (its 8-column groups swizzled), which still holds
+    the narrow mode's widest row (kw 56 at a stride of 56). At 64, 80 and 96
+    a second V stage (or, at 80 and 96, a second K stage) would not fit."""
+    img = 64 * d * 4
+    smem = lambda ks, vs, ld: 2 * 2 * img + 2 * (ks + vs) * img + 128 * ld * 4 + 64 + 1024
+    assert smem(k_stages, v_stages, table_ld) <= 232_448
+    assert smem(k_stages, v_stages + 1, table_ld) > 232_448
+    assert d == 64 or smem(k_stages + 1, v_stages, table_ld) > 232_448
+    assert d != 96 or smem(k_stages, v_stages, 72) > 232_448
+    narrow_ld = lambda kw: kw + 8 if kw % 16 == 0 else kw
+    assert max(narrow_ld(kw) for kw in range(8, 64, 8)) <= table_ld
+    # the swizzled table: row r's 8-column groups at j ^ (r % 8); the 8 rows
+    # of a warp's 8-byte reads of group j (8 floats a row) fill each of the
+    # 32 banks exactly twice, the least two wavefronts can do (unswizzled,
+    # 64-float rows would put all 8 rows in the same 8 banks)
+    for j in range(64 // 8 if d == 96 else 0):
+        banks = [(r * 64 + 8 * (j ^ r) + c) % 32 for r in range(8) for c in range(8)]
+        assert all(banks.count(b) == 2 for b in range(32))
+        flat = [(r * 64 + 8 * j + c) % 32 for r in range(8) for c in range(8)]
+        assert max(flat.count(b) for b in range(32)) == 8
 
 
 # --------------------------------------------------------------- schedule
@@ -318,6 +361,27 @@ def test_k4_tf32_narrow_mirror_matches_plain(d, g, rows, cols, spread, bias_scal
     assert float((got - want).abs().max()) <= TOL
 
 
+@pytest.mark.parametrize("g,rows,cols,spread,bias_scale", [
+    (2, 3, 64, 1.0, 0.5),  # the wide mode, a ragged last query block
+    (2, 4, 64, 3.0, 0.5),  # sharp rows
+    (2, 2, 64, 1.0, 3.0),  # large factors
+    (2, 3, 32, 1.0, 0.5),  # the narrow mode: two grid rows a tile
+    (2, 5, 48, 3.0, 0.5),  # kw 48: tiles straddle grid rows, sharp rows
+    (2, 4, 32, 1.0, 3.0),  # large factors on the narrow mode
+    (2, 2, 8, 1.0, 0.5),  # the narrowest grid, one padded tile
+    (1, 3, 56, 1.0, 0.5)])
+def test_k4_tf32_d96_mirror_matches_plain(g, rows, cols, spread, bias_scale):
+    """K4 at head dim 96 in both modes (the fold in two 48-column halves)
+    against the plain version within 1e-4, over widths, score and factor
+    scales."""
+    q, k, v, bias_h, bias_w = _inputs(g * rows + cols + 96, g, rows, cols, d=96, spread=spread,
+                                      bias_scale=bias_scale)
+    got = tfa.relpos_tf32_mirror(q, k, v, bias_h, bias_w, 0)
+    want = tfa.attend_relpos_plain(q, k, v, bias_h, bias_w, cols)
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    assert float((got - want).abs().max()) <= TOL
+
+
 @pytest.mark.parametrize("kind,rows,cols", [(0, 4, 64), (1, 14, 14)])
 def test_relpos_tf32_mirror_beats_one_tf32_product(kind, rows, cols):
     """What the split buys: one TF32 product (hi only) misses 1e-4 where the
@@ -372,6 +436,32 @@ def test_k4_tf32_narrow_mirror_matches_attend_relpos(jx, d, g, rows, cols, sprea
     within 1e-4, both within 1e-4 of the plain version."""
     assert tfa.relpos_shapes_ok(rows, cols)
     q, k, v, bias_h, bias_w = _sam_factors(jx, rows, cols, g, d, spread)
+    got = tfa.relpos_tf32_mirror(q, k, v, bias_h, bias_w, 0)
+    want = torch.from_numpy(np.array(jx.fa.attend_relpos(
+        *(jx.jnp.asarray(t.numpy()) for t in (q, k, v, bias_h, bias_w)), cols, interpret=True)))
+    plain = tfa.attend_relpos_plain(q, k, v, bias_h, bias_w, cols)
+    assert float((want - plain).abs().max()) <= TOL
+    assert float((got - plain).abs().max()) <= TOL
+    assert float((got - want).abs().max()) <= TOL
+
+
+@pytest.mark.parametrize("rows,cols,g,spread,bias_scale", [
+    (4, 64, 2, 1.0, None), (4, 64, 1, 3.0, None),  # the wide mode, SAM's factors
+    (4, 64, 1, 1.0, 3.0),  # large factors
+    (8, 32, 2, 1.0, None), (8, 32, 1, 3.0, None),  # the narrow mode, SAM's factors
+    (8, 32, 1, 1.0, 3.0)])
+def test_k4_tf32_d96_mirror_matches_attend_relpos(jx, rows, cols, g, spread, bias_scale):
+    """K4 at head dim 96 in both modes against the JAX ``attend_relpos`` in
+    interpret mode in f32 (its head dim padded to 128 lanes), on the factors
+    SAM builds (``bias_scale`` None) or on seeded factors of that standard
+    deviation, unit scores and peaked rows: within 1e-4, both within 1e-4 of
+    the plain version."""
+    assert tfa.relpos_shapes_ok(rows, cols)
+    if bias_scale is None:
+        q, k, v, bias_h, bias_w = _sam_factors(jx, rows, cols, g, 96, spread)
+    else:
+        q, k, v, bias_h, bias_w = _inputs(rows + cols + g, g, rows, cols, d=96, spread=spread,
+                                          bias_scale=bias_scale)
     got = tfa.relpos_tf32_mirror(q, k, v, bias_h, bias_w, 0)
     want = torch.from_numpy(np.array(jx.fa.attend_relpos(
         *(jx.jnp.asarray(t.numpy()) for t in (q, k, v, bias_h, bias_w)), cols, interpret=True)))
@@ -526,6 +616,35 @@ def test_k4_tf32_narrow_matches_plain_on_card(cuda_device, d, g, rows, cols, sca
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("g,rows,cols,scale,spread", [
+    (64, 64, 32, 0.1, 1.0), (64, 64, 48, 0.1, 1.0),  # portrait grids at the batch of 4
+    (64, 64, 64, 0.1, 1.0), (16, 64, 64, 0.1, 1.0),  # the wide mode: 64 x 64
+    (16, 64, 32, 0.1, 3.0), (16, 64, 32, 3.0, 1.0),  # peaked by the scores, the factors
+    (16, 64, 64, 0.1, 3.0), (16, 64, 64, 3.0, 1.0),
+    (2, 64, 16, 0.1, 0.25), (2, 1, 8, 0.1, 1.0),  # a flat softmax; one tile of kw 8
+    (3, 7, 24, 0.1, 1.0), (4, 64, 56, 0.1, 1.0),  # tiles straddle grid rows; the widest
+    (3, 5, 64, 0.1, 1.0), (2, 1, 64, 0.1, 1.0),  # odd kh, one grid row
+    (1, 63, 32, 0.1, 1.0)])  # a ragged query block
+def test_k4_tf32_d96_matches_plain_on_card(cuda_device, g, rows, cols, scale, spread):
+    """K4's 3xTF32 kernel at head dim 96 (the swizzled bias_w table at kw =
+    64, the fold in two 48-column halves) against the plain version within
+    1e-4 over both modes, widths from 8 to 64, score and factor scales and
+    odd grid heights, one launch counted as ``flash_attention_relpos_tf32``
+    only."""
+    q, k, v, bias_h, bias_w = _card_inputs(cuda_device, g, rows, cols, d=96, scale=scale,
+                                           spread=spread)
+    before = dict(dispatch.launch_counts)
+    got = tfa.attend_relpos(q, k, v, bias_h, bias_w, cols)
+    assert _moved(before) == ["flash_attention_relpos_tf32"]
+    assert dispatch.launch_counts["flash_attention_relpos_tf32"] == (
+        before["flash_attention_relpos_tf32"] + 1)
+    want = tfa.attend_relpos_plain(q, k, v, bias_h, bias_w, cols)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert float((got - want).abs().max()) <= TOL
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("cols", [32, 64])
 def test_k4_fma_yardstick_entry_matches_plain_on_card(cuda_device, cols):
     """``bff_flash_attention_relpos_f32_fma``, K4's FMA kernel that the
@@ -566,19 +685,19 @@ def test_k5_tf32_matches_plain_on_card(cuda_device, g, scale, spread):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["d96", "kw36", "kw36_d64", "kw4", "d96_kw32", "misaligned",
+@pytest.mark.parametrize("case", ["d112", "kw36", "kw36_d64", "kw4", "d96_kw36", "misaligned",
                                   "window_d64", "window_16"])
 def test_other_f32_relpos_calls_keep_the_fma_kernels_on_card(cuda_device, case):
-    """f32 calls outside the predicate (head dim 96 on 64- and 32-wide
-    grids, a 36-wide grid at head dim 80 and 64 and a 4-wide one (widths the
+    """f32 calls outside the predicate (head dim 112 on a 64-wide grid, a
+    36-wide grid at head dim 80, 64 and 96 and a 4-wide one (widths the
     narrow mode does not take), an input off 16 bytes, head-dim-64 and
     16 x 16 windows) stay on the FMA kernels, counted as
     ``flash_attention_relpos`` or ``window_attention_relpos``, within 1e-4."""
     window = case.startswith("window")
     rows, cols = ((16, 16) if case == "window_16" else (14, 14)) if window else (
-        (64, 36) if case.startswith("kw36") else (64, 4) if case == "kw4" else
-        (64, 32) if case == "d96_kw32" else (16, 64))
-    d = {"d96": 96, "d96_kw32": 96, "kw36_d64": 64, "window_d64": 64}.get(case, 80)
+        (64, 36) if case.startswith("kw36") or case == "d96_kw36" else
+        (64, 4) if case == "kw4" else (16, 64))
+    d = {"d112": 112, "d96_kw36": 96, "kw36_d64": 64, "window_d64": 64}.get(case, 80)
     q, k, v, bias_h, bias_w = _card_inputs(cuda_device, 3, rows, cols, d=d)
     if case == "misaligned":
         buf = torch.empty(q.numel() + 1, device=cuda_device)
@@ -609,7 +728,7 @@ def test_relpos_tf32_route_and_scratch_match_the_c_side_on_card(cuda_device):
              (3, 24), (64, 72))
     for kind in (0, 1, 2):
         for dtype in (0, 1):
-            for d in (64, 80, 96, 128):
+            for d in (64, 80, 96, 112, 128):
                 for rows, cols in grids:
                     for s in (rows * cols, rows * cols - 1):
                         for scale in (d ** -0.5, 0.0, -1.0, float("inf"), 1e39):
@@ -623,7 +742,7 @@ def test_relpos_tf32_route_and_scratch_match_the_c_side_on_card(cuda_device):
                                 assert bool(got) is want, (kind, dtype, d, s, rows, cols,
                                                            scale, slot, off)
     for bh, s in ((64, 4096), (16, 3072), (1, 64), (3, 320), (64, 2048), (2, 8), (3, 120)):
-        for d in (64, 80):
+        for d in (64, 80, 96):
             assert lib.bff_relpos_tf32_scratch_floats(bh, s, d) == (
                 tfa.relpos_tf32_scratch_floats(bh, s, d))
 
@@ -643,14 +762,16 @@ def test_k4_tf32_entry_refuses_a_missing_scratch_on_card(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("window", [False, True])
-def test_relpos_tf32_raises_on_a_failed_launch_on_card(cuda_device, monkeypatch, window):
+@pytest.mark.parametrize("window,d", [pytest.param(False, 80, id="False"),
+                                      pytest.param(True, 80, id="True"),
+                                      pytest.param(False, 96, id="d96")])
+def test_relpos_tf32_raises_on_a_failed_launch_on_card(cuda_device, monkeypatch, window, d):
     """A code from the C entry raises, naming the route; nothing falls back
-    and nothing is counted."""
+    and nothing is counted (K4 at head dims 80 and 96, K5)."""
     from beyondff_tpu_torch.kernels import _build
 
     rows, cols = (14, 14) if window else (2, 64)
-    q, k, v, bias_h, bias_w = _card_inputs(cuda_device, 2, rows, cols)
+    q, k, v, bias_h, bias_w = _card_inputs(cuda_device, 2, rows, cols, d=d)
 
     class Failing:
         def __getattr__(self, name):
@@ -668,7 +789,9 @@ def test_relpos_tf32_raises_on_a_failed_launch_on_card(cuda_device, monkeypatch,
 
 @pytest.mark.parametrize("name", ["relpos_f32_fma", "k4_tf32_overlap", "k5_tf32_overlap",
                                   "k5_tf32_prefetch", "relpos_tf32_no_pingpong",
-                                  "relpos_tf32_no_fold", "k4_tf32_d64_stages_1_1"])
+                                  "relpos_tf32_no_fold", "k4_tf32_d64_stages_1_1",
+                                  "k4_tf32_d96_no_fold", "k4_tf32_d96_fold_whole",
+                                  "k4_tf32_d96_bias_start"])
 def test_relpos_tf32_variant_edits_match_the_sources(name):
     """Each of ``tools/kernel_variants.py``'s variants of the f32 rel-pos
     routes is a set of edits that must each match its source once; they

@@ -264,14 +264,14 @@ def test_k5_wgmma_matches_plain_on_card(cuda_device, g, scale):
 @pytest.mark.parametrize("case", ["f32", "d64", "kw32", "misaligned", "window_16", "window_f32"])
 def test_other_relpos_calls_keep_their_routes_on_card(cuda_device, case):
     """Calls outside the predicate keep the mma.sync tile or the FMA kernels
-    and their counters: f32 (at head dim 96: f32 at 64 and 80 takes the
+    and their counters: f32 (at head dim 112: f32 at 64, 80 and 96 takes the
     3xTF32 kernels), head dim 64, a 32-wide grid, a bf16 input off 16 bytes,
     16 x 16 windows and f32 windows (head dim 64); each within its bound."""
     window = case.startswith("window")
     rows, cols = ((16, 16) if case == "window_16" else (14, 14)) if window else (
         (64, 32) if case == "kw32" else (16, 64))
     dtype = torch.float32 if case in ("f32", "window_f32") else torch.bfloat16
-    d = {"f32": 96, "d64": 64, "window_f32": 64}.get(case, 80)
+    d = {"f32": 112, "d64": 64, "window_f32": 64}.get(case, 80)
     q, k, v, bias_h, bias_w = _card_inputs(cuda_device, 3, rows, cols, dtype, d=d)
     if case == "misaligned":
         buf = torch.empty(q.numel() + 4, dtype=q.dtype, device=cuda_device)
