@@ -140,12 +140,13 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// Rows [r0, r0 + ROWS) of a row-major (S, D) bf16 matrix into a tile with
-// row stride DP + 8, by cp.async from THREADS threads; rows >= S and
-// features >= D are zero-filled.
+// Rows [r0, r0 + ROWS) and features [f0, f0 + DP) of a row-major (S, D)
+// bf16 matrix into a tile with row stride DP + 8, by cp.async from THREADS
+// threads; rows >= S and features >= D are zero-filled. f0 is 0 but for
+// the head-dim slices of attend_block_sliced (a multiple of DP).
 template <int DP, int ROWS, int THREADS>
 __device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* __restrict__ src,
-                                          int r0, int S, int D) {
+                                          int r0, int S, int D, int f0 = 0) {
   constexpr int kChunks = DP / 8;  // 16-byte chunks of a row
   constexpr int kTotal = ROWS * kChunks;
 #pragma unroll
@@ -153,8 +154,8 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat1
     const int i = it * THREADS + threadIdx.x;
     if (kTotal % THREADS == 0 || i < kTotal) {
       const int r = i / kChunks, c = (i % kChunks) * 8, gr = r0 + r;
-      const bool in = gr < S && c < D;
-      cp_async16(dst + r * (DP + 8) + c, in ? src + (long long)gr * D + c : src, in);
+      const bool in = gr < S && f0 + c < D;
+      cp_async16(dst + r * (DP + 8) + c, in ? src + (long long)gr * D + f0 + c : src, in);
     }
   }
 }
@@ -174,11 +175,12 @@ __device__ __forceinline__ void init_rows(float (&acc)[MT][DP / 8][4], float (&m
 }
 
 // A warp's 16 MT output rows from row0 on, divided by their denominators
-// in f32 and rounded once; rows >= S and features >= D are not written.
+// in f32 and rounded once, into features [c0, c0 + DP) of the (S, D)
+// output; rows >= S and features >= D are not written.
 template <int DP, int MT>
 __device__ __forceinline__ void store_rows(const float (&acc)[MT][DP / 8][4],
                                            const float (&l)[MT][2], __nv_bfloat16* __restrict__ o,
-                                           int row0, int S, int D) {
+                                           int row0, int S, int D, int c0 = 0) {
   const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
@@ -189,11 +191,11 @@ __device__ __forceinline__ void store_rows(const float (&acc)[MT][DP / 8][4],
       lsum += __shfl_xor_sync(0xffffffffu, lsum, 2);
       const int row = row0 + mt * 16 + lane / 4 + 8 * h;
       if (row < S) {
-        __nv_bfloat16* orow = o + (long long)row * D;
+        __nv_bfloat16* orow = o + (long long)row * D + c0;
 #pragma unroll
         for (int n = 0; n < DP / 8; ++n) {
           const int c = 8 * n + col0();
-          if (c < D)
+          if (c0 + c < D)
             *reinterpret_cast<uint32_t*>(orow + c) =
                 pack_bf16(acc[mt][n][2 * h] / lsum, acc[mt][n][2 * h + 1] / lsum);
         }
@@ -201,30 +203,15 @@ __device__ __forceinline__ void store_rows(const float (&acc)[MT][DP / 8][4],
     }
 }
 
-// One key tile for one warp: S = Q K^T, the modifier, the online softmax,
-// O += P V, over the tile's first NK k16 steps (16 keys each) only: the
-// last tile of a ragged S runs the steps that hold keys (SAM's windows, S =
-// 196: one step of four). Scores past them stay 0 and the modifier masks
-// them (the modifier touches only the first 2 NK n8 tiles); their P is 0.
-// NK is a template argument so that no branch stands between the ldmatrix
-// and mma of the loops: guards there, tried first, made K5 slower than
-// computing the padding (PERF.md). Likewise a warp computes all its MT m16
-// tiles; only a warp whose rows all lie past S skips the tile.
-template <int DP, int MT, int NK, class Mod>
-__device__ __forceinline__ void tile_step(float (&acc)[MT][DP / 8][4], float (&m)[MT][2],
-                                          float (&l)[MT][2], const __nv_bfloat16* sQw,
-                                          const __nv_bfloat16* kt, const __nv_bfloat16* vt,
-                                          int k0, int wrow, float scale, const Mod& mod) {
+// S += Q K^T of one key tile for one warp, over the tile's first NK k16
+// steps (16 keys each) and the DP features of the tiles: each K fragment
+// feeds all MT m16 tiles.
+template <int DP, int MT, int NK>
+__device__ __forceinline__ void add_scores(float (&s)[MT][NS][4], const __nv_bfloat16* sQw,
+                                           const __nv_bfloat16* kt) {
   constexpr int LD = DP + 8;
   constexpr int KS = DP / 16;  // k16 steps of Q K^T
-  constexpr int NO = DP / 8;   // n8 tiles of an output row
   const int lane = threadIdx.x & 31;
-  // S = Q K^T: each K fragment feeds all MT m16 tiles
-  float s[MT][NS][4];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int j = 0; j < NS; ++j) s[mt][j][0] = s[mt][j][1] = s[mt][j][2] = s[mt][j][3] = 0.f;
 #pragma unroll
   for (int kk = 0; kk < KS; ++kk) {
     uint32_t a[MT][4];
@@ -243,7 +230,26 @@ __device__ __forceinline__ void tile_step(float (&acc)[MT][DP / 8][4], float (&m
       }
     }
   }
+}
 
+template <int MT>
+__device__ __forceinline__ void zero_scores(float (&s)[MT][NS][4]) {
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int j = 0; j < NS; ++j) s[mt][j][0] = s[mt][j][1] = s[mt][j][2] = s[mt][j][3] = 0.f;
+}
+
+// The rest of a key tile for one warp, given its raw scores s: the
+// modifier, the online softmax, O += P V over the first NK k16 steps.
+template <int DP, int MT, int NK, class Mod>
+__device__ __forceinline__ void softmax_pv(float (&acc)[MT][DP / 8][4], float (&m)[MT][2],
+                                           float (&l)[MT][2], float (&s)[MT][NS][4],
+                                           const __nv_bfloat16* vt, int k0, int wrow, float scale,
+                                           const Mod& mod) {
+  constexpr int LD = DP + 8;
+  constexpr int NO = DP / 8;   // n8 tiles of an output row
+  const int lane = threadIdx.x & 31;
   // the online softmax of each m16 tile; P in bf16 as the A fragments of
   // P V (k16 step kk takes n8 tiles 2 kk and 2 kk + 1 of the scores)
   uint32_t pa[MT][NS / 2][4];
@@ -307,6 +313,26 @@ __device__ __forceinline__ void tile_step(float (&acc)[MT][DP / 8][4], float (&m
       }
     }
   }
+}
+
+// One key tile for one warp: S = Q K^T, the modifier, the online softmax,
+// O += P V, over the tile's first NK k16 steps (16 keys each) only: the
+// last tile of a ragged S runs the steps that hold keys (SAM's windows, S =
+// 196: one step of four). Scores past them stay 0 and the modifier masks
+// them (the modifier touches only the first 2 NK n8 tiles); their P is 0.
+// NK is a template argument so that no branch stands between the ldmatrix
+// and mma of the loops: guards there, tried first, made K5 slower than
+// computing the padding (PERF.md). Likewise a warp computes all its MT m16
+// tiles; only a warp whose rows all lie past S skips the tile.
+template <int DP, int MT, int NK, class Mod>
+__device__ __forceinline__ void tile_step(float (&acc)[MT][DP / 8][4], float (&m)[MT][2],
+                                          float (&l)[MT][2], const __nv_bfloat16* sQw,
+                                          const __nv_bfloat16* kt, const __nv_bfloat16* vt,
+                                          int k0, int wrow, float scale, const Mod& mod) {
+  float s[MT][NS][4];
+  zero_scores<MT>(s);
+  add_scores<DP, MT, NK>(s, sQw, kt);
+  softmax_pv<DP, MT, NK>(acc, m, l, s, vt, k0, wrow, scale, mod);
 }
 
 // A key tile holding kn keys (from k0 on) by the tile_step instance that
@@ -382,6 +408,61 @@ __device__ __forceinline__ void attend_block(const __nv_bfloat16* __restrict__ q
   }
 
   store_rows<DP, MT>(acc, l, o, q0 + wrow, S, D);
+}
+
+// Head dims past 128: the block's rows attend over the whole head dim and
+// write the 128 output features [c0, c0 + 128) (blockIdx.z of the callers'
+// grids: ceil(D / 128) blocks a query tile, each recomputing the scores).
+// Per key tile the scores sum Q K^T over the head dim's 128-feature slices,
+// each slice of Q and K staged in turn through the one Q and K tile (V's
+// slice [c0, c0 + 128) with the first), then the modifier, the online
+// softmax and P V as tile_step does them: P rounded to bf16 before P V, so
+// bf16_error_bound holds as it does for attend_block. Loads are not
+// pipelined (each slice waits on its copies): a repair for shapes that no
+// configured model reaches, not a tuned path. Every tile runs its four k16
+// steps; keys past S are zero and the modifier masks them. Shared memory:
+// (ROWS + 2 x 64) x 136 x 2 bytes, plus what the caller appends after it.
+template <int WARPS, int MT>
+__host__ __device__ constexpr int sliced_smem_bytes() {
+  return (16 * WARPS * MT + 2 * kBK) * (128 + 8) * (int)sizeof(__nv_bfloat16);
+}
+
+template <int WARPS, int MT, class Mod>
+__device__ __forceinline__ void attend_block_sliced(const __nv_bfloat16* __restrict__ q,
+                                                    const __nv_bfloat16* __restrict__ k,
+                                                    const __nv_bfloat16* __restrict__ v,
+                                                    __nv_bfloat16* __restrict__ o, int q0, int S,
+                                                    int D, int c0, int n_tiles, float scale,
+                                                    const Mod& mod, __nv_bfloat16* smem) {
+  constexpr int DP = 128, LD = DP + 8;
+  constexpr int ROWS = 16 * WARPS * MT;
+  constexpr int kThreads = 32 * WARPS;
+  __nv_bfloat16* sQ = smem;
+  __nv_bfloat16* sK = smem + ROWS * LD;
+  __nv_bfloat16* sV = sK + kBK * LD;
+  const int wrow = (threadIdx.x / 32) * 16 * MT;  // the warp's first row
+  const __nv_bfloat16* sQw = sQ + wrow * LD;
+  const bool live = q0 + wrow < S;  // a warp whose rows all lie past S computes nothing
+
+  float acc[MT][DP / 8][4];
+  float m[MT][2], l[MT][2];
+  init_rows<DP, MT>(acc, m, l);
+  for (int t = 0; t < n_tiles; ++t) {
+    float s[MT][NS][4];
+    zero_scores<MT>(s);
+    for (int f0 = 0; f0 < D; f0 += DP) {
+      __syncthreads();  // every warp is past its reads of the last slice (and tile)
+      load_tile<DP, ROWS, kThreads>(sQ, q, q0, S, D, f0);
+      load_tile<DP, kBK, kThreads>(sK, k, t * kBK, S, D, f0);
+      if (f0 == 0) load_tile<DP, kBK, kThreads>(sV, v, t * kBK, S, D, c0);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+      if (live) add_scores<DP, MT, NS / 2>(s, sQw, sK);
+    }
+    if (live) softmax_pv<DP, MT, NS / 2>(acc, m, l, s, sV, t * kBK, wrow, scale, mod);
+  }
+  store_rows<DP, MT>(acc, l, o, q0 + wrow, S, D, c0);
 }
 
 // A score modifier has a ``Tile`` (what a lane knows of a key tile's

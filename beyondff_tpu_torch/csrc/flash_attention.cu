@@ -46,6 +46,16 @@
 //   tile), K and V through shared memory as f32 (rows padded by one against
 //   bank conflicts), both products as plain f32 FMAs (67 TFLOP/s f32 peak).
 //   Head dim bound DP in {32, 64, 128}; features D..DP read as zero.
+//
+// Head dims past 128, which the JAX functions take and no configured model
+// calls, run on the same two kernels with a third grid axis over the
+// ceil(D / 128) slices of 128 output features: each block forms its rows'
+// scores over the whole head dim, staging Q and K through its 128-wide
+// tiles one slice after another and summing each slice's Q K^T into the
+// same f32 scores, runs the online softmax as above, and accumulates P V
+// for its own 128 columns of V only (kSliced; the tile's
+// attend_block_sliced). The scores are recomputed ceil(D / 128) times. bf16
+// keeps rounding P to bf16 before P V on the tile.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -73,7 +83,10 @@ constexpr int smem_floats() {
   return kBQ * (DP + 1) + kBK * (DP + 1) + kBK * DP + kBQ * (kBK + 1);
 }
 
-template <typename T, int DP>
+// kSliced (DP = 128, D > 128): the block writes output features [c0, c0 +
+// 128), c0 = 128 blockIdx.z, and sums the scores over the head dim's
+// 128-feature slices, Q's and K's slice f0 staged in sQ and sK in turn.
+template <typename T, int DP, bool kSliced = false>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     T* __restrict__ o, int S, int D, int valid_len, float scale) {
@@ -87,15 +100,19 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
 
   const int tid = threadIdx.x;
   const int q0 = blockIdx.x * kBQ;
+  const int c0 = kSliced ? blockIdx.z * DP : 0;  // the block's output features
   const long long base = (long long)blockIdx.y * S * D;
   const T* qb = q + base;
   const T* kb = k + base;
   const T* vb = v + base;
-
-  for (int i = tid; i < kBQ * DP; i += kThreads) {
-    const int r = i / DP, c = i % DP, gr = q0 + r;
-    sQ[r * LD + c] = (gr < S && c < D) ? to_f(qb[(long long)gr * D + c]) : 0.f;
-  }
+  // Q's features [f0, f0 + DP) of the block's rows into sQ
+  auto load_q = [&](int f0) {
+    for (int i = tid; i < kBQ * DP; i += kThreads) {
+      const int r = i / DP, c = i % DP, gr = q0 + r;
+      sQ[r * LD + c] = (gr < S && f0 + c < D) ? to_f(qb[(long long)gr * D + f0 + c]) : 0.f;
+    }
+  };
+  if (!kSliced) load_q(0);
 
   // Q K^T tile: thread (ty, tx) owns rows ty*4 + i and columns tx + 16*j.
   const int ty = tid / 16, tx = tid % 16;
@@ -110,31 +127,35 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
   const int n_tiles = (valid_len + kBK - 1) / kBK;
   for (int t = 0; t < n_tiles; ++t) {
     const int k0 = t * kBK;
-    __syncthreads();  // the previous tile's sK, sV and sP are no longer read
-    for (int i = tid; i < kBK * DP; i += kThreads) {
-      const int r = i / DP, c = i % DP, gr = k0 + r;
-      const bool in = gr < S && c < D;
-      sK[r * LD + c] = in ? to_f(kb[(long long)gr * D + c]) : 0.f;
-      sV[r * DP + c] = in ? to_f(vb[(long long)gr * D + c]) : 0.f;
-    }
-    __syncthreads();
-
     float s[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+    // one pass over the head dim, or (kSliced) one a 128-feature slice
+    for (int f0 = 0; f0 < (kSliced ? D : 1); f0 += DP) {
+      __syncthreads();  // the previous tile's (or slice's) sQ, sK, sV and sP are no longer read
+      for (int i = tid; i < kBK * DP; i += kThreads) {
+        const int r = i / DP, c = i % DP, gr = k0 + r;
+        sK[r * LD + c] = gr < S && f0 + c < D ? to_f(kb[(long long)gr * D + f0 + c]) : 0.f;
+        if (f0 == 0)
+          sV[r * DP + c] = gr < S && c0 + c < D ? to_f(vb[(long long)gr * D + c0 + c]) : 0.f;
+      }
+      if (kSliced) load_q(f0);
+      __syncthreads();
+
 #pragma unroll 8
-    for (int d = 0; d < DP; ++d) {
-      float qv[4], kv[4];
+      for (int d = 0; d < DP; ++d) {
+        float qv[4], kv[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = sQ[(ty * 4 + i) * LD + d];
+        for (int i = 0; i < 4; ++i) qv[i] = sQ[(ty * 4 + i) * LD + d];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = sK[(tx + 16 * j) * LD + d];
+        for (int j = 0; j < 4; ++j) kv[j] = sK[(tx + 16 * j) * LD + d];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+          for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+      }
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i)
@@ -181,28 +202,32 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(
   const int gr = q0 + row;
   if (gr < S) {
     const float inv = 1.f / l;
-    T* orow = o + base + (long long)gr * D;
+    T* orow = o + base + (long long)gr * D + c0;
 #pragma unroll
     for (int i = 0; i < DP / 4; ++i) {
       const int c = part + 4 * i;
-      if (c < D) orow[c] = from_f<T>(acc[i] * inv);
+      if (c0 + c < D) orow[c] = from_f<T>(acc[i] * inv);
     }
   }
 }
 
-template <typename T, int DP>
+// The slices of 128 output features a call at head dim D takes (grid z).
+constexpr int kSliceD = 128;
+inline int slices(int D) { return (D + kSliceD - 1) / kSliceD; }
+
+template <typename T, int DP, bool kSliced = false>
 int launch(const void* q, const void* k, const void* v, void* o, int BH, int S, int D,
            int valid_len, float scale, cudaStream_t stream) {
   constexpr int bytes = smem_floats<DP>() * (int)sizeof(float);
   static bool configured = false;
   if (!configured) {
-    cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, DP>,
+    cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, DP, kSliced>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return (int)err;
     configured = true;
   }
-  dim3 grid((S + kBQ - 1) / kBQ, BH);
-  flash_fwd_kernel<T, DP><<<grid, kThreads, bytes, stream>>>(
+  dim3 grid((S + kBQ - 1) / kBQ, BH, kSliced ? slices(D) : 1);
+  flash_fwd_kernel<T, DP, kSliced><<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), S, D, valid_len, scale);
   return (int)cudaGetLastError();
@@ -213,7 +238,8 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int BH, int S
              int valid_len, float scale, cudaStream_t stream) {
   if (D <= 32) return launch<T, 32>(q, k, v, o, BH, S, D, valid_len, scale, stream);
   if (D <= 64) return launch<T, 64>(q, k, v, o, BH, S, D, valid_len, scale, stream);
-  return launch<T, 128>(q, k, v, o, BH, S, D, valid_len, scale, stream);
+  if (D <= kSliceD) return launch<T, 128>(q, k, v, o, BH, S, D, valid_len, scale, stream);
+  return launch<T, 128, true>(q, k, v, o, BH, S, D, valid_len, scale, stream);
 }
 
 constexpr int kTcWarps = 4, kTcMT = 1;  // 4 warps x 1 m16 tile: a 64-query tile
@@ -248,12 +274,41 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, int BH, int 
   return (int)cudaGetLastError();
 }
 
+// Head dims past 128 on the tile: grid z over the 128-feature output slices.
+__global__ void __launch_bounds__(32 * kTcWarps) flash_tc_sliced_kernel(
+    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+    const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int S, int D,
+    int valid_len, float scale) {
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  const long long base = (long long)blockIdx.y * S * D;
+  bff_tc::KeyMask mod{valid_len};
+  bff_tc::attend_block_sliced<kTcWarps, kTcMT>(
+      q + base, k + base, v + base, o + base, blockIdx.x * kTcRows, S, D, blockIdx.z * kSliceD,
+      (valid_len + bff_tc::kBK - 1) / bff_tc::kBK, scale, mod,
+      reinterpret_cast<__nv_bfloat16*>(tc_smem));
+}
+
+int launch_tc_sliced(const void* q, const void* k, const void* v, void* o, int BH, int S, int D,
+                     int valid_len, float scale, cudaStream_t stream) {
+  static int configured = 48 * 1024;
+  constexpr int bytes = bff_tc::sliced_smem_bytes<kTcWarps, kTcMT>();
+  cudaError_t err = bff_tc::allow_smem(flash_tc_sliced_kernel, bytes, &configured);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((S + kTcRows - 1) / kTcRows, BH, slices(D));
+  flash_tc_sliced_kernel<<<grid, 32 * kTcWarps, bytes, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), S, D, valid_len,
+      scale);
+  return (int)cudaGetLastError();
+}
+
 int dispatch_tc(const void* q, const void* k, const void* v, void* o, int BH, int S, int D,
                 int valid_len, float scale, cudaStream_t stream) {
   if (D <= 32) return launch_tc<32>(q, k, v, o, BH, S, D, valid_len, scale, stream);
   if (D <= 64) return launch_tc<64>(q, k, v, o, BH, S, D, valid_len, scale, stream);
   if (D <= 80) return launch_tc<80>(q, k, v, o, BH, S, D, valid_len, scale, stream);
-  return launch_tc<128>(q, k, v, o, BH, S, D, valid_len, scale, stream);
+  if (D <= kSliceD) return launch_tc<128>(q, k, v, o, BH, S, D, valid_len, scale, stream);
+  return launch_tc_sliced(q, k, v, o, BH, S, D, valid_len, scale, stream);
 }
 
 }  // namespace
@@ -276,7 +331,8 @@ extern "C" int bff_flash_attention_tf32(const void* q, const void* k, const void
                                         void* scratch, int BH, int S, int D, int valid_len,
                                         float scale, void* stream);
 
-// dtype: 0 = float32, 1 = bfloat16. q, k, v, o: contiguous (BH, S, D);
+// dtype: 0 = float32, 1 = bfloat16. q, k, v, o: contiguous (BH, S, D), any
+// D (past 128 on the slice axis above);
 // scratch: what the 3xTF32 kernel needs where bff_flash_tf32_takes the call
 // (bff_flash_tf32_scratch_floats floats), else unread. Returns
 // cudaGetLastError() after the launch, or -1 for arguments the kernel does
@@ -284,7 +340,7 @@ extern "C" int bff_flash_attention_tf32(const void* q, const void* k, const void
 extern "C" int bff_flash_attention(int dtype, const void* q, const void* k, const void* v,
                                    void* o, int BH, int S, int D, int valid_len, float scale,
                                    void* stream, void* scratch) {
-  if (BH < 1 || S < 1 || D < 1 || D > 128 || valid_len < 1 || valid_len > S) return -1;
+  if (BH < 1 || S < 1 || D < 1 || valid_len < 1 || valid_len > S) return -1;
   if (bff_flash_wgmma_takes(dtype, D, S, valid_len, scale, q, k, v, o))
     return bff_flash_attention_wgmma(q, k, v, o, BH, S, scale, stream);
   if (bff_flash_masked_wgmma_takes(dtype, D, S, valid_len, scale, q, k, v, o))
@@ -309,7 +365,7 @@ extern "C" int bff_flash_attention(int dtype, const void* q, const void* k, cons
 extern "C" int bff_flash_attention_f32_fma(const void* q, const void* k, const void* v, void* o,
                                            int BH, int S, int D, int valid_len, float scale,
                                            void* stream) {
-  if (BH < 1 || S < 1 || D < 1 || D > 128 || valid_len < 1 || valid_len > S) return -1;
+  if (BH < 1 || S < 1 || D < 1 || valid_len < 1 || valid_len > S) return -1;
   return dispatch<float>(q, k, v, o, BH, S, D, valid_len, scale,
                          static_cast<cudaStream_t>(stream));
 }

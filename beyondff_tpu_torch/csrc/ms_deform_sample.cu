@@ -64,6 +64,13 @@
 // shared memory by TMA, as the TPU kernel keeps it in VMEM, cut the rows
 // taken from L2 by two thirds and ran slower (the k1_staged variant):
 // L2's row rate is not what limits this kernel.
+//
+// Every shape the JAX function takes (it samples one level a call, at any
+// head dim): head dims past 128 on a second grid axis over 128-channel
+// slices of each head (sampling is linear in the channels, so each slice
+// is the same gather over its own channels); more than kMaxLevels levels
+// with the level table read from device memory (kDevLevels, the levels
+// looped at run time), the by-value table kept for the main path's 4.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -71,7 +78,8 @@
 
 namespace {
 
-constexpr int kMaxLevels = 8;
+constexpr int kMaxLevels = 8;  // levels the by-value table holds
+constexpr int kSliceC = 128;   // channels of a head a block samples
 constexpr int kThreads = 256;
 constexpr int kMinBlocks = 3;  // blocks per SM the registers must allow
 
@@ -231,12 +239,17 @@ __device__ __forceinline__ void corners(float lx, float ly, float wgt, int hh, i
 }
 
 // T: value type; BYTES: chunk size; NCH: chunks a lane owns; LT, PT: levels
-// and points (0: given at run time).
-template <typename T, int BYTES, int NCH, int LT, int PT>
+// and points (0: given at run time); kDevLevels: the level table's L rows
+// (h, w, start, w3) read from lv_dev (L > kMaxLevels), not from lv;
+// kSliced (D > kSliceC): a block samples channels [c0, c0 + kSliceC) of each
+// head, c0 = kSliceC blockIdx.y, and ``chunks`` is a whole slice's (D's
+// otherwise).
+template <typename T, int BYTES, int NCH, int LT, int PT, bool kDevLevels = false,
+          bool kSliced = false>
 __global__ void __launch_bounds__(kThreads, kMinBlocks) ms_deform_sample_kernel(
     const T* __restrict__ value, const float* __restrict__ locs, const T* __restrict__ aw,
     const int* __restrict__ origin, T* __restrict__ out, int B, int S, int Q, int H, int D,
-    int L, int P, int lanes, int chunks, Levels lv) {
+    int L, int P, int lanes, int chunks, Levels lv, const int4* __restrict__ lv_dev) {
   using C = Chunk<T, BYTES>;
   using R = typename Raw<BYTES>::type;
   constexpr int E = C::N;
@@ -256,11 +269,14 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) ms_deform_sample_kernel(
   const int row_stride = H * D;
   const T* vb = value + (long long)b * S * row_stride + h * D;
 
+  // the slice's channels and chunks (the last slice of a head may be narrower)
+  const int c0 = kSliced ? blockIdx.y * kSliceC : 0;
+  const int n_chunks = kSliced ? min(chunks, (D - c0) * (int)sizeof(T) / BYTES) : chunks;
   int ch[NCH];  // element offset of each owned chunk in the row, -1 if none
 #pragma unroll
   for (int k = 0; k < NCH; ++k) {
     const int c = lane + lanes * k;
-    ch[k] = c < chunks ? c * E : -1;
+    ch[k] = c < n_chunks ? c0 + c * E : -1;
   }
   float acc[NCH][E];
 #pragma unroll
@@ -268,17 +284,15 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) ms_deform_sample_kernel(
 #pragma unroll
     for (int e = 0; e < E; ++e) acc[k][e] = 0.f;
 
-#pragma unroll
-  for (int l = 0; l < (LT > 0 ? LT : kMaxLevels); ++l) {
-    if (LT == 0 && l >= NL) break;
-    const int hh = lv.h[l], ww = lv.w[l], w3 = lv.w3[l];
+  // one level: its map hh x ww from value row ``start`` on, window w3
+  auto level = [&](int l, int hh, int ww, int start, int w3) {
     int oy = 0, ox = 0;
     if (w3 > 0) {
       const int2 o = __ldg(reinterpret_cast<const int2*>(origin) + (long long)l * Q + q);
       oy = o.x;
       ox = o.y;
     }
-    const T* vl = vb + (long long)lv.start[l] * row_stride;
+    const T* vl = vb + (long long)start * row_stride;
 #pragma unroll 1
     for (int p0 = 0; p0 < NP; p0 += PB) {
       float lx[PB], ly[PB], wt[PB];
@@ -311,6 +325,19 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) ms_deform_sample_kernel(
             for (int e = 0; e < E; ++e) acc[k][e] = fmaf(cw[p][c], f[e], acc[k][e]);
           }
     }
+  };
+  if constexpr (kDevLevels) {
+#pragma unroll 1
+    for (int l = 0; l < NL; ++l) {
+      const int4 e = __ldg(lv_dev + l);
+      level(l, e.x, e.y, e.z, e.w);
+    }
+  } else {
+#pragma unroll
+    for (int l = 0; l < (LT > 0 ? LT : kMaxLevels); ++l) {
+      if (LT == 0 && l >= NL) break;
+      level(l, lv.h[l], lv.w[l], lv.start[l], lv.w3[l]);
+    }
   }
   T* o = out + row * D;
 #pragma unroll
@@ -323,21 +350,36 @@ struct Args {
   void* out;
   int B, S, Q, H, D, L, P;
   Levels lv;
+  const void* lv_dev;  // the (L, 4) level table on the device, read when L > kMaxLevels
   cudaStream_t stream;
 };
 
-template <typename T, int BYTES, int NCH, int LT, int PT>
+template <typename T, int BYTES, int NCH, int LT, int PT, bool kDevLevels = false,
+          bool kSliced = false>
 int launch(const Args& g) {
-  const int chunks = g.D * (int)sizeof(T) / BYTES;
+  const int chunks = (g.D < kSliceC ? g.D : kSliceC) * (int)sizeof(T) / BYTES;
   const int lanes = chunks < 32 ? chunks : 32;
   const long long rows = (long long)g.B * g.Q * g.H;
   const long long blocks = (rows * lanes + kThreads - 1) / kThreads;
   if (blocks > 0x7fffffffLL) return -1;
-  ms_deform_sample_kernel<T, BYTES, NCH, LT, PT><<<(unsigned)blocks, kThreads, 0, g.stream>>>(
+  const dim3 grid((unsigned)blocks, (g.D + kSliceC - 1) / kSliceC);
+  ms_deform_sample_kernel<T, BYTES, NCH, LT, PT, kDevLevels, kSliced>
+      <<<grid, kThreads, 0, g.stream>>>(
       static_cast<const T*>(g.value), static_cast<const float*>(g.locs),
       static_cast<const T*>(g.aw), static_cast<const int*>(g.origin), static_cast<T*>(g.out),
-      g.B, g.S, g.Q, g.H, g.D, g.L, g.P, lanes, chunks, g.lv);
+      g.B, g.S, g.Q, g.H, g.D, g.L, g.P, lanes, chunks, g.lv,
+      static_cast<const int4*>(g.lv_dev));
   return (int)cudaGetLastError();
+}
+
+// Past kMaxLevels levels or kSliceC channels: (L, P) at run time, the level
+// table in device memory past the levels, the channel slices past the
+// channels.
+template <typename T, int BYTES, int NCH>
+int launch_past_limits(const Args& g) {
+  if (g.D <= kSliceC) return launch<T, BYTES, NCH, 0, 0, true, false>(g);
+  if (g.L <= kMaxLevels) return launch<T, BYTES, NCH, 0, 0, false, true>(g);
+  return launch<T, BYTES, NCH, 0, 0, true, true>(g);
 }
 
 template <typename T>
@@ -346,6 +388,13 @@ int dispatch(const Args& g) {
   const uintptr_t base = reinterpret_cast<uintptr_t>(g.value) | reinterpret_cast<uintptr_t>(g.out);
   int bytes = 16;
   while (bytes > es && ((g.D * es) % bytes != 0 || base % bytes != 0)) bytes /= 2;
+  if (g.L > kMaxLevels || g.D > kSliceC) {
+    if (bytes == 16) return launch_past_limits<T, 16, 1>(g);
+    if (bytes == 8) return launch_past_limits<T, 8, 4>(g);
+    if (bytes == 4) return launch_past_limits<T, 4, 4>(g);
+    if constexpr (sizeof(T) == 2) return launch_past_limits<T, 2, 4>(g);
+    return -1;
+  }
   if (bytes == 16) {
     // the unrolled (L, P) read a level's points as vectors: 16-byte aligned
     // locations, 4 * size-aligned weights
@@ -364,25 +413,28 @@ int dispatch(const Args& g) {
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (value, aw and out share it; locs are f32).
-// levels: host array of L rows (h, w, start, w3). origin: device int32
-// (L, Q, 2) window origins, read only for levels with w3 > 0 (may be null
-// when every level is exact). Returns cudaGetLastError() after the launch,
-// or -1 for arguments the kernel does not take.
+// levels: host array of L rows (h, w, start, w3); levels_dev: the same rows
+// as device int32 (L, 4), 16-byte aligned, needed when L > 8 (may be null
+// otherwise). origin: device int32 (L, Q, 2) window origins, read only for
+// levels with w3 > 0 (may be null when every level is exact). Any head dim
+// D. Returns cudaGetLastError() after the launch, or -1 for arguments the
+// kernel does not take.
 extern "C" int bff_ms_deform_sample(int dtype, const void* value, const void* locs,
                                     const void* aw, const void* origin, void* out, int B, int S,
                                     int Q, int H, int D, int L, int P, const int* levels,
-                                    void* stream) {
-  if (L < 1 || L > kMaxLevels || P < 0 || D < 1 || D > 128 ||
-      (long long)S * H * D >= (1LL << 31))
+                                    void* stream, const void* levels_dev) {
+  if (L < 1 || P < 0 || D < 1 || (long long)S * H * D >= (1LL << 31)) return -1;
+  if (L > kMaxLevels && (levels_dev == nullptr || reinterpret_cast<uintptr_t>(levels_dev) % 16))
     return -1;
-  Args g{value, locs, aw, origin, out, B, S, Q, H, D, L, P, {},
+  Args g{value, locs, aw, origin, out, B, S, Q, H, D, L, P, {}, levels_dev,
          static_cast<cudaStream_t>(stream)};
   for (int l = 0; l < L; ++l) {
+    if (levels[4 * l + 3] > 0 && origin == nullptr) return -1;
+    if (l >= kMaxLevels) continue;
     g.lv.h[l] = levels[4 * l];
     g.lv.w[l] = levels[4 * l + 1];
     g.lv.start[l] = levels[4 * l + 2];
     g.lv.w3[l] = levels[4 * l + 3];
-    if (g.lv.w3[l] > 0 && origin == nullptr) return -1;
   }
   if ((long long)B * Q * H == 0) return 0;
   if (dtype == 0) return dispatch<float>(g);

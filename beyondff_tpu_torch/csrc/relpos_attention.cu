@@ -30,7 +30,19 @@
 // bff_relpos_tf32_takes accepts (K4 at head dim 64, 80 or 96 with kw = 64
 // or kw a multiple of 8 from 8 to 56, K5 at 80 on 14 x 14 windows) to the
 // 3xTF32 wgmma kernels of csrc/relpos_attention_tf32.cu; the rest to the
-// kernels below.
+// kernels below (flash_relpos_kernels).
+//
+// Every shape the JAX functions take runs here: head dims past 128 on a
+// third grid axis over the ceil(D / 128) slices of 128 output features
+// (each block sums its scores over the head dim's slices, staged in turn
+// through its 128-wide Q and K tiles, and accumulates P V for its own
+// slice of V: the FMA kernel's kSliced, the tile's attend_block_sliced);
+// grids with kh + kw past kMaxTableCols = 256 on the FMA kernel reading
+// each score's two factors from device memory through the read-only path
+// instead of a table (bf16 too: the tile keeps its bf16 table); and windows
+// past kMaxWindow = 256 tokens or head dim 128 on K4's kernels, G windows
+// as BH (the same function: window_attention_relpos_plain is
+// attend_relpos_plain), counted as K4's.
 //
 // K4 in bf16 (the SAM path): flash_relpos_tc_kernel, the tensor-core block
 // of csrc/attention_tc.cuh (mma.sync m16n8k16 bf16 -> f32 for both
@@ -150,15 +162,18 @@ __device__ __forceinline__ float bias_at(const float* sF, int row, int key, int 
   return f[ky] + f[kh + key - ky * kw];
 }
 
-// s[i][j] = Q[ty * 4 + i] . K[tx + 16 j] over DP features (both tiles f32
-// in shared memory with row stride ld).
-template <int DP>
-__device__ __forceinline__ void score_tile(const float* sQ, const float* sK, int ld, int ty,
-                                           int tx, float s[4][4]) {
+__device__ __forceinline__ void zero_tile(float s[4][4]) {
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+}
+
+// s[i][j] += Q[ty * 4 + i] . K[tx + 16 j] over DP features (both tiles f32
+// in shared memory with row stride ld).
+template <int DP>
+__device__ __forceinline__ void score_tile(const float* sQ, const float* sK, int ld, int ty,
+                                           int tx, float s[4][4]) {
 #pragma unroll 8
   for (int d = 0; d < DP; ++d) {
     float qv[4], kv[4];
@@ -174,13 +189,27 @@ __device__ __forceinline__ void score_tile(const float* sQ, const float* sK, int
 }
 
 // ------------------------------------------------------------ K4: flash
+// The factor table's widest rows (kh + kw columns): past them the FMA
+// kernel reads bias_h and bias_w from device memory (kTable false) instead
+// of growing the table, and bf16 calls leave the tile for the FMA kernel.
+constexpr int kMaxTableCols = 256;
+// The slices of 128 output features a call at head dim D takes (grid z).
+constexpr int kSliceD = 128;
+inline int slices(int D) { return (D + kSliceD - 1) / kSliceD; }
+
 template <int DP>
 int flash_smem_bytes(int nf) {
   return (kBQ * (DP + 1) + kBK * (DP + 1) + kBK * DP + kBQ * (kBK + 1) + kBQ * nf) *
          (int)sizeof(float);
 }
 
-template <typename T, int DP>
+// kSliced (DP = 128, D > 128): the block writes output features [c0, c0 +
+// 128), c0 = 128 blockIdx.z, and sums the scores over the head dim's
+// 128-feature slices, Q's and K's slice f0 staged in sQ and sK in turn
+// (csrc/flash_attention.cu's scheme). kTable: the query tile's factors in a
+// shared-memory table (kh + kw <= kMaxTableCols); otherwise each score reads
+// its two factors from device memory through the read-only path.
+template <typename T, int DP, bool kSliced = false, bool kTable = true>
 __global__ void __launch_bounds__(kThreads) flash_relpos_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ bh, const T* __restrict__ bw, T* __restrict__ o, int S, int D,
@@ -196,12 +225,26 @@ __global__ void __launch_bounds__(kThreads) flash_relpos_kernel(
 
   const int tid = threadIdx.x;
   const int q0 = blockIdx.x * kBQ;
+  const int c0 = kSliced ? blockIdx.z * DP : 0;  // the block's output features
   const long long base = (long long)blockIdx.y * S * D;
+  const T* qb = q + base;
   const T* kb = k + base;
   const T* vb = v + base;
-  load_rows<T, DP>(sQ, LD, q + base, q0, S, D);
-  load_factors<T>(sF, bh + (long long)blockIdx.y * S * kh, bw + (long long)blockIdx.y * S * kw,
-                  q0, S, kh, kw);
+  const T* bhb = bh + (long long)blockIdx.y * S * kh;
+  const T* bwb = bw + (long long)blockIdx.y * S * kw;
+  if (!kSliced) load_rows<T, DP>(sQ, LD, qb, q0, S, D);
+  if (kTable) load_factors<T>(sF, bhb, bwb, q0, S, kh, kw);
+  // the bias of block row r (rows >= S: 0) and key ``key``
+  auto bias = [&](int r, int key) {
+    if constexpr (kTable) {
+      return bias_at(sF, r, key, kh, kw);
+    } else {
+      const long long gr = q0 + r;
+      if (gr >= S) return 0.f;
+      const int ky = key / kw;
+      return to_f(__ldg(bhb + gr * kh + ky)) + to_f(__ldg(bwb + gr * kw + key - ky * kw));
+    }
+  };
 
   const int ty = tid / 16, tx = tid % 16;
   const int row = tid / 4, part = tid % 4;
@@ -213,23 +256,32 @@ __global__ void __launch_bounds__(kThreads) flash_relpos_kernel(
   const int n_tiles = (S + kBK - 1) / kBK;
   for (int t = 0; t < n_tiles; ++t) {
     const int k0 = t * kBK;
-    __syncthreads();  // the previous tile's sK, sV and sP are no longer read
-    for (int i = tid; i < kBK * DP; i += kThreads) {
-      const int r = i / DP, c = i % DP, gr = k0 + r;
-      const bool in = gr < S && c < D;
-      sK[r * LD + c] = in ? to_f(kb[(long long)gr * D + c]) : 0.f;
-      sV[r * DP + c] = in ? to_f(vb[(long long)gr * D + c]) : 0.f;
-    }
-    __syncthreads();
-
     float s[4][4];
-    score_tile<DP>(sQ, sK, LD, ty, tx, s);
+    zero_tile(s);
+    // one pass over the head dim, or (kSliced) one a 128-feature slice
+    for (int f0 = 0; f0 < (kSliced ? D : 1); f0 += DP) {
+      __syncthreads();  // the previous tile's (or slice's) sQ, sK, sV and sP are no longer read
+      for (int i = tid; i < kBK * DP; i += kThreads) {
+        const int r = i / DP, c = i % DP, gr = k0 + r;
+        sK[r * LD + c] = gr < S && f0 + c < D ? to_f(kb[(long long)gr * D + f0 + c]) : 0.f;
+        if (f0 == 0)
+          sV[r * DP + c] = gr < S && c0 + c < D ? to_f(vb[(long long)gr * D + c0 + c]) : 0.f;
+      }
+      if (kSliced) {
+        for (int i = tid; i < kBQ * DP; i += kThreads) {
+          const int r = i / DP, c = i % DP, gr = q0 + r;
+          sQ[r * LD + c] = gr < S && f0 + c < D ? to_f(qb[(long long)gr * D + f0 + c]) : 0.f;
+        }
+      }
+      __syncthreads();
+      score_tile<DP>(sQ, sK, LD, ty, tx, s);
+    }
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int r = ty * 4 + i, col = tx + 16 * j, key = k0 + col;
-        sP[r * LP + col] = key < S ? s[i][j] * scale + bias_at(sF, r, key, kh, kw) : kNegInf;
+        sP[r * LP + col] = key < S ? s[i][j] * scale + bias(r, key) : kNegInf;
       }
     __syncthreads();
 
@@ -269,11 +321,11 @@ __global__ void __launch_bounds__(kThreads) flash_relpos_kernel(
   const int gr = q0 + row;
   if (gr < S) {
     const float inv = 1.f / l;
-    T* orow = o + base + (long long)gr * D;
+    T* orow = o + base + (long long)gr * D + c0;
 #pragma unroll
     for (int i = 0; i < DP / 4; ++i) {
       const int c = part + 4 * i;
-      if (c < D) orow[c] = from_f<T>(acc[i] * inv);
+      if (c0 + c < D) orow[c] = from_f<T>(acc[i] * inv);
     }
   }
 }
@@ -314,6 +366,7 @@ __global__ void __launch_bounds__(kThreads) window_relpos_kernel(
     load_rows<T, DP>(sKV, LD, k + base, k0, S, D);
     __syncthreads();
     float s[4][4];
+    zero_tile(s);
     score_tile<DP>(sQ, sKV, LD, ty, tx, s);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
@@ -381,7 +434,9 @@ constexpr int kTcRows = 16 * kTcWarps * kTcMT;
 // other grids and K5's windows WindowBias, by pairs where kw is even.
 enum BiasKind { kGridRows, kPairs, kSingles };
 
-template <int DP, int kBias>
+// kSliced (DP = 128, D > 128): the tile's attend_block_sliced, grid z over
+// the 128-feature output slices.
+template <int DP, int kBias, bool kSliced = false>
 __global__ void __launch_bounds__(32 * kTcWarps) flash_relpos_tc_kernel(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ bh,
@@ -389,36 +444,42 @@ __global__ void __launch_bounds__(32 * kTcWarps) flash_relpos_tc_kernel(
     int kw, float scale) {
   extern __shared__ __align__(16) unsigned char tc_smem[];
   __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(tc_smem);
-  __nv_bfloat16* table =
-      reinterpret_cast<__nv_bfloat16*>(tc_smem + bff_tc::smem_bytes<DP, kTcRows>());
+  __nv_bfloat16* table = reinterpret_cast<__nv_bfloat16*>(
+      tc_smem + (kSliced ? bff_tc::sliced_smem_bytes<kTcWarps, kTcMT>()
+                         : bff_tc::smem_bytes<DP, kTcRows>()));
   const int q0 = blockIdx.x * kTcRows;
   const long long base = (long long)blockIdx.y * S * D;
   bff_tc::load_factor_table<kTcRows, 32 * kTcWarps>(
       table, bh + (long long)blockIdx.y * S * kh, bw + (long long)blockIdx.y * S * kw, q0, S, kh,
       kw);
   const int n_tiles = (S + bff_tc::kBK - 1) / bff_tc::kBK;
-  if constexpr (kBias == kGridRows) {
-    const bff_tc::GridRowBias mod{table, kh, kw};
-    bff_tc::attend_block<DP, kTcWarps, kTcMT>(q + base, k + base, v + base, o + base, q0, S, D,
-                                              n_tiles, scale, mod, smem);
-  } else {
-    const bff_tc::WindowBias<kBias == kPairs> mod{table, kh, kw, S};
-    bff_tc::attend_block<DP, kTcWarps, kTcMT>(q + base, k + base, v + base, o + base, q0, S, D,
-                                              n_tiles, scale, mod, smem);
-  }
+  auto run = [&](const auto& mod) {
+    if constexpr (kSliced)
+      bff_tc::attend_block_sliced<kTcWarps, kTcMT>(q + base, k + base, v + base, o + base, q0, S,
+                                                   D, blockIdx.z * kSliceD, n_tiles, scale, mod,
+                                                   smem);
+    else
+      bff_tc::attend_block<DP, kTcWarps, kTcMT>(q + base, k + base, v + base, o + base, q0, S, D,
+                                                n_tiles, scale, mod, smem);
+  };
+  if constexpr (kBias == kGridRows)
+    run(bff_tc::GridRowBias{table, kh, kw});
+  else
+    run(bff_tc::WindowBias<kBias == kPairs>{table, kh, kw, S});
 }
 
-template <int DP, int kBias>
+template <int DP, int kBias, bool kSliced>
 int launch_flash_tc(const void* q, const void* k, const void* v, const void* bh, const void* bw,
                     void* o, int BH, int S, int D, int kh, int kw, float scale,
                     cudaStream_t stream) {
   static int configured = 48 * 1024;
-  const int bytes = bff_tc::smem_bytes<DP, kTcRows>() +
+  const int bytes = (kSliced ? bff_tc::sliced_smem_bytes<kTcWarps, kTcMT>()
+                             : bff_tc::smem_bytes<DP, kTcRows>()) +
                     kTcRows * bff_tc::table_ld(kh, kw) * (int)sizeof(__nv_bfloat16);
-  cudaError_t err = allow_smem(flash_relpos_tc_kernel<DP, kBias>, bytes, &configured);
+  cudaError_t err = allow_smem(flash_relpos_tc_kernel<DP, kBias, kSliced>, bytes, &configured);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((S + kTcRows - 1) / kTcRows, BH);
-  flash_relpos_tc_kernel<DP, kBias><<<grid, 32 * kTcWarps, bytes, stream>>>(
+  dim3 grid((S + kTcRows - 1) / kTcRows, BH, kSliced ? slices(D) : 1);
+  flash_relpos_tc_kernel<DP, kBias, kSliced><<<grid, 32 * kTcWarps, bytes, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<const __nv_bfloat16*>(bh),
       static_cast<const __nv_bfloat16*>(bw), static_cast<__nv_bfloat16*>(o), S, D, kh, kw, scale);
@@ -426,15 +487,18 @@ int launch_flash_tc(const void* q, const void* k, const void* v, const void* bh,
 }
 
 // bf16 only; the type parameter fits BFF_BY_HEAD_DIM's shape.
-template <typename, int DP>
+template <typename, int DP, bool kSliced = false>
 int launch_flash_tc_grid(const void* q, const void* k, const void* v, const void* bh,
                          const void* bw, void* o, int BH, int S, int D, int kh, int kw,
                          float scale, cudaStream_t stream) {
   if (kw % bff_tc::kBK == 0)
-    return launch_flash_tc<DP, kGridRows>(q, k, v, bh, bw, o, BH, S, D, kh, kw, scale, stream);
+    return launch_flash_tc<DP, kGridRows, kSliced>(q, k, v, bh, bw, o, BH, S, D, kh, kw, scale,
+                                                   stream);
   if (kw % 2 == 0)
-    return launch_flash_tc<DP, kPairs>(q, k, v, bh, bw, o, BH, S, D, kh, kw, scale, stream);
-  return launch_flash_tc<DP, kSingles>(q, k, v, bh, bw, o, BH, S, D, kh, kw, scale, stream);
+    return launch_flash_tc<DP, kPairs, kSliced>(q, k, v, bh, bw, o, BH, S, D, kh, kw, scale,
+                                                stream);
+  return launch_flash_tc<DP, kSingles, kSliced>(q, k, v, bh, bw, o, BH, S, D, kh, kw, scale,
+                                                stream);
 }
 
 // ------------------------------------------------------ K5: tensor cores
@@ -540,16 +604,16 @@ int launch_window_tc(const void* q, const void* k, const void* v, const void* bh
   return launch_window_tc_kind<DP, false>(q, k, v, bh, bw, o, G, S, D, wh, ww, scale, stream);
 }
 
-template <typename T, int DP>
+template <typename T, int DP, bool kSliced = false, bool kTable = true>
 int launch_flash(const void* q, const void* k, const void* v, const void* bh, const void* bw,
                  void* o, int BH, int S, int D, int kh, int kw, float scale,
                  cudaStream_t stream) {
   static int configured = 48 * 1024;
-  const int bytes = flash_smem_bytes<DP>(kh + kw);
-  cudaError_t err = allow_smem(flash_relpos_kernel<T, DP>, bytes, &configured);
+  const int bytes = flash_smem_bytes<DP>(kTable ? kh + kw : 0);
+  cudaError_t err = allow_smem(flash_relpos_kernel<T, DP, kSliced, kTable>, bytes, &configured);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((S + kBQ - 1) / kBQ, BH);
-  flash_relpos_kernel<T, DP><<<grid, kThreads, bytes, stream>>>(
+  dim3 grid((S + kBQ - 1) / kBQ, BH, kSliced ? slices(D) : 1);
+  flash_relpos_kernel<T, DP, kSliced, kTable><<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(bh), static_cast<const T*>(bw), static_cast<T*>(o), S, D, kh, kw,
       scale);
@@ -605,10 +669,47 @@ namespace {
    : D <= 80 ? FN<T, 80>(__VA_ARGS__)                               \
              : FN<T, 128>(__VA_ARGS__))
 
+// The FMA kernel at any head dim and grid: the bound DP up to 128, the
+// slice axis past it; the factor table up to kMaxTableCols columns, device
+// memory past them.
+template <typename T>
+int dispatch_flash(const void* q, const void* k, const void* v, const void* bh, const void* bw,
+                   void* o, int BH, int S, int D, int kh, int kw, float scale,
+                   cudaStream_t s) {
+  const bool table = kh + kw <= kMaxTableCols;
+  if (D > kSliceD)
+    return table ? launch_flash<T, 128, true, true>(q, k, v, bh, bw, o, BH, S, D, kh, kw, scale, s)
+                 : launch_flash<T, 128, true, false>(q, k, v, bh, bw, o, BH, S, D, kh, kw, scale,
+                                                     s);
+  if (!table)
+    return launch_flash<T, 128, false, false>(q, k, v, bh, bw, o, BH, S, D, kh, kw, scale, s);
+  return BFF_BY_HEAD_DIM(launch_flash, T, q, k, v, bh, bw, o, BH, S, D, kh, kw, scale, s);
+}
+
+// K4's kernels below the wgmma and 3xTF32 routes (and K5's windows past 256
+// tokens or head dim 128, the same function with G windows as BH): bf16 on
+// the tile where its rows, bases and factor table allow (the slice axis
+// past head dim 128), every other call on the FMA kernel. -1 for another
+// dtype.
+int flash_relpos_kernels(int dtype, const void* q, const void* k, const void* v,
+                         const void* bh, const void* bw, void* o, int BH, int S, int D, int kh,
+                         int kw, float scale, cudaStream_t s) {
+  if (dtype == 0) return dispatch_flash<float>(q, k, v, bh, bw, o, BH, S, D, kh, kw, scale, s);
+  if (dtype != 1) return -1;
+  if (bff_tc::tile_takes(D, q, k, v, o) && kh + kw <= kMaxTableCols) {
+    if (D > kSliceD)
+      return launch_flash_tc_grid<__nv_bfloat16, 128, true>(q, k, v, bh, bw, o, BH, S, D, kh,
+                                                            kw, scale, s);
+    return BFF_BY_HEAD_DIM(launch_flash_tc_grid, __nv_bfloat16, q, k, v, bh, bw, o, BH, S, D, kh,
+                           kw, scale, s);
+  }
+  return dispatch_flash<__nv_bfloat16>(q, k, v, bh, bw, o, BH, S, D, kh, kw, scale, s);
+}
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. q, k, v, o: contiguous (BH, S, D) with
-// S = kh * kw and kh + kw <= 256; bias_h: (BH, S, kh), bias_w: (BH, S, kw),
+// S = kh * kw, any D and any grid; bias_h: (BH, S, kh), bias_w: (BH, S, kw),
 // in q's dtype; scratch: what the 3xTF32 kernel needs where
 // bff_relpos_tf32_takes the call (bff_relpos_tf32_scratch_floats floats),
 // else unread.
@@ -618,35 +719,31 @@ extern "C" int bff_flash_attention_relpos(int dtype, const void* q, const void* 
                                           const void* bias_h, const void* bias_w, void* o,
                                           int BH, int S, int D, int kh, int kw, float scale,
                                           void* stream, void* scratch) {
-  if (BH < 1 || S < 1 || D < 1 || D > 128 || kh < 1 || kw < 1 || kh * kw != S ||
-      kh + kw > 256)
-    return -1;
+  if (BH < 1 || S < 1 || D < 1 || kh < 1 || kw < 1 || (long long)kh * kw != S) return -1;
   if (bff_relpos_wgmma_takes(0, dtype, D, S, kh, kw, scale, q, k, v, o, bias_h, bias_w))
     return bff_flash_relpos_wgmma(q, k, v, bias_h, bias_w, o, BH, S, kh, scale, stream);
   if (bff_relpos_tf32_takes(0, dtype, D, S, kh, kw, scale, q, k, v, o, bias_h, bias_w))
     return bff_flash_relpos_tf32(q, k, v, bias_h, bias_w, o, scratch, BH, S, D, kh, kw,
                                  scale, stream);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return BFF_BY_HEAD_DIM(launch_flash, float, q, k, v, bias_h, bias_w, o, BH, S, D, kh, kw,
-                           scale, s);
-  if (dtype == 1 && bff_tc::tile_takes(D, q, k, v, o))
-    return BFF_BY_HEAD_DIM(launch_flash_tc_grid, __nv_bfloat16, q, k, v, bias_h, bias_w, o, BH,
-                           S, D, kh, kw, scale, s);
-  if (dtype == 1)
-    return BFF_BY_HEAD_DIM(launch_flash, __nv_bfloat16, q, k, v, bias_h, bias_w, o, BH, S, D,
-                           kh, kw, scale, s);
-  return -1;
+  return flash_relpos_kernels(dtype, q, k, v, bias_h, bias_w, o, BH, S, D, kh, kw, scale,
+                              static_cast<cudaStream_t>(stream));
 }
 
-// dtype as above. q, k, v, o: contiguous (G, S, D) with S = wh * ww <= 256;
+// The windows the window kernels below take: at most kMaxWindow tokens and
+// head dim 128; larger windows and head dims run K4's kernels
+// (flash_relpos_kernels, G windows as BH, kh x kw = wh x ww).
+constexpr int kMaxWindow = 256;
+
+// dtype as above. q, k, v, o: contiguous (G, S, D) with S = wh * ww;
 // bias_h: (G, S, wh), bias_w: (G, S, ww), in q's dtype.
 extern "C" int bff_window_attention_relpos(int dtype, const void* q, const void* k,
                                            const void* v, const void* bias_h,
                                            const void* bias_w, void* o, int G, int S, int D,
                                            int wh, int ww, float scale, void* stream) {
-  if (G < 1 || S < 1 || S > 256 || D < 1 || D > 128 || wh < 1 || ww < 1 || wh * ww != S)
-    return -1;
+  if (G < 1 || S < 1 || D < 1 || wh < 1 || ww < 1 || (long long)wh * ww != S) return -1;
+  if (S > kMaxWindow || D > kSliceD)
+    return flash_relpos_kernels(dtype, q, k, v, bias_h, bias_w, o, G, S, D, wh, ww, scale,
+                                static_cast<cudaStream_t>(stream));
   if (bff_relpos_wgmma_takes(1, dtype, D, S, wh, ww, scale, q, k, v, o, bias_h, bias_w))
     return bff_window_relpos_wgmma(q, k, v, bias_h, bias_w, o, G, scale, stream);
   if (bff_relpos_tf32_takes(1, dtype, D, S, wh, ww, scale, q, k, v, o, bias_h, bias_w))
@@ -672,10 +769,7 @@ extern "C" int bff_flash_attention_relpos_f32_fma(const void* q, const void* k, 
                                                   const void* bias_h, const void* bias_w,
                                                   void* o, int BH, int S, int D, int kh, int kw,
                                                   float scale, void* stream) {
-  if (BH < 1 || S < 1 || D < 1 || D > 128 || kh < 1 || kw < 1 || kh * kw != S ||
-      kh + kw > 256)
-    return -1;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return BFF_BY_HEAD_DIM(launch_flash, float, q, k, v, bias_h, bias_w, o, BH, S, D, kh, kw,
-                         scale, s);
+  if (BH < 1 || S < 1 || D < 1 || kh < 1 || kw < 1 || (long long)kh * kw != S) return -1;
+  return dispatch_flash<float>(q, k, v, bias_h, bias_w, o, BH, S, D, kh, kw, scale,
+                               static_cast<cudaStream_t>(stream));
 }

@@ -21,8 +21,9 @@
 // (csrc/relpos_attention.cu) route here exactly the calls that
 // bff_relpos_tf32_takes accepts (kernels/flash_attention.py
 // relpos_tf32_route mirrors it): f32, kMinGridH <= kh <= 64 with kw = 64,
-// or kw a multiple of 8 from kMinGridW = 8 to 56 (the narrow mode below), at
-// D 64, 80 or 96 (K4), or a 14 x 14 window at D 80 (K5), a positive finite
+// kw a multiple of 8 from kMinGridW = 8 to 56 (the narrow mode below) or
+// any other kw from kMinStraddleW to 63 (the straddling mode), at D 64, 80
+// or 96 (K4), or a 14 x 14 window at D 80 (K5), a positive finite
 // scale, and q, k, v, o and both factors 16-byte aligned. Every other f32
 // call keeps the FMA kernels of csrc/relpos_attention.cu. The line lies
 // below every grid K4 takes: at one grid row (16 heads, S = 64) this kernel took 0.0101 ms
@@ -125,6 +126,21 @@
 //   other way, tiles of one grid row (N = kw), keeps the wide mode's row
 //   shift but runs the tensor cores at n16..n56 with the per-tile softmax
 //   and barrier costs of a 64-key tile.
+// * Grids narrower than 64 whose width is no multiple of 8 (the straddling
+//   mode, flash_relpos_tf32_kernel<D, kStraddleMode>): an n8 group of keys
+//   then straddles two grid rows, or below kw = 8 several, so bias_h can no
+//   longer be one shift a group. The tiles, stages, pingpong and fold stay
+//   the narrow mode's; the scores' products are summed from zero and each
+//   score's whole bias, bias_h[q, key / kw] + bias_w[q, key % kw] of its own
+//   key, is added in f32 once they are in (kBiasAfter, the reads issued
+//   while the products run), with no row shift. A lane's (ky, kx) comes
+//   from one division a tile and steps of 8 keys (one wrap at kw >= 8, a
+//   division below), the pair's second key the next column or the next
+//   row's first. bias_w is read float by float (an odd kw's pairs are not
+//   8-byte aligned) from a table at straddle_ld's stride, 3 mod 16 floats,
+//   where a warp's 32 reads meet at most two to a bank (at the stride kw up
+//   to four); at D 96 its widest rows (67 floats) grow the table's room from
+//   64 floats a row, which still fits.
 // * Head dim 64 (K4Cfg<64>): images of 16 KB a 64-key tile, 8 regions a
 //   row. Q 64 KB, two K stages and one V stage 96 KB and the table 36 KB:
 //   196 KB. Two V stages as well fit only with the table at 64 floats a
@@ -235,6 +251,10 @@ constexpr bool kOverlap = false;      // issue Q K^T of tile t before P V of til
 constexpr int kKStages = 1, kVStages = 1;
 constexpr int kBwLd = kGridW + 8;     // the bias_w table's row stride (floats)
 constexpr int kMinGridW = 8;          // the narrow mode's smallest kw (a multiple of 8)
+constexpr int kMinStraddleW = 1;      // the straddling mode's smallest kw (not a multiple of 8)
+// the modes of flash_relpos_tf32_kernel: kw = 64, kw < 64 a multiple of 8
+// (an n8 group of keys in one grid row), any other kw < 64 (groups straddle rows)
+enum K4Mode { kWideMode, kNarrowMode, kStraddleMode };
 // K4 at head dim 64 (K4Cfg): the K and V rings' depths
 constexpr int kKStages64 = 2, kVStages64 = 1;
 // K4 at head dim 96 (K4Cfg): each tile's P V summed apart in kFoldParts96
@@ -717,6 +737,11 @@ __device__ __forceinline__ void stage_q(unsigned char* img_hi, unsigned char* im
 // The bias_w table's row stride in the narrow mode: kw or kw + 8 floats,
 // whichever is 8 mod 16 (a quad's 8-byte reads of 8 rows in distinct banks).
 __host__ __device__ constexpr int narrow_ld(int kw) { return kw % 16 == 0 ? kw + 8 : kw; }
+// And in the straddling mode: the least stride >= kw that is 3 mod 16
+// floats. A quad's four keys of a read step lie within 8 columns, the 8
+// rows of a warp's read step 3 banks apart mod 16, so its 32 reads meet at
+// most two to a bank at every kw < 64 (at the stride kw, up to four).
+__host__ __device__ constexpr int straddle_ld(int kw) { return kw + (19 - kw % 16) % 16; }
 
 // K4 at head dim D (80: SAM ViT-H; 64: SAM ViT-L and ViT-B; 96). Shared
 // memory of a block (from a 1024-byte boundary): each consumer's Q hi and lo
@@ -736,16 +761,19 @@ struct K4Cfg {
   static constexpr bool kOverlapped = kOverlap && kFoldParts == 1 && !kBiasAfter;
   static constexpr bool kBwSwizzled = D == 96;
   static constexpr int kBwLdWide = kBwSwizzled ? kGridW : kBwLd;  // the wide mode's row stride
+  // the table's room: the widest of the modes' strides (the straddling
+  // mode's passes the swizzled 64 at D 96)
+  static constexpr int kBwRoom = std::max(kBwLdWide, straddle_ld(kGridW - 1));
   static constexpr int kImg = img_bytes<D>(kBN);  // 20 KB at D 80, 16 KB at D 64, 24 KB at 96
   static constexpr int kQOff = 0;
   static constexpr int kKOff = kQOff + 2 * kConsumers * kImg;
   static constexpr int kVOff = kKOff + 2 * kKStages * kImg;
   static constexpr int kBwOff = kVOff + 2 * kVStages * kImg;
-  static constexpr int kBarOff = kBwOff + kBM * kBwLdWide * 4;
+  static constexpr int kBarOff = kBwOff + kBM * kBwRoom * 4;
   static constexpr int kSmemBytes = kBarOff + (int)sizeof(Barriers) + 1024;
   static_assert(kSmemBytes <= 232448, "K4's shared memory");
   static_assert(kKStages <= 2 && kVStages <= 2, "the barriers' stages");
-  static_assert(narrow_ld(kGridW - 8) <= kBwLdWide, "the narrow mode's table");
+  static_assert(narrow_ld(kGridW - 8) <= kBwRoom, "the narrow mode's table");
 };
 constexpr int kImg64 = img_bytes(kBN);  // a 64-row image at head dim 80, 20 KB
 
@@ -800,14 +828,20 @@ __global__ void __launch_bounds__(kSplitThreads) split_kv_relpos_kernel(
   }
 }
 
-// kNarrow: a grid of kw < 64 columns (the narrow mode); otherwise kw = 64
-// and kh = S / 64 tiles of one grid row each.
-template <int D, bool kNarrow>
+// kMode: kWideMode, kw = 64 and kh = S / 64 tiles of one grid row each;
+// kNarrowMode, a grid of kw < 64 columns, kw a multiple of 8; kStraddleMode,
+// any other kw < 64 (its n8 groups of keys straddle grid rows).
+template <int D, int kMode>
 __global__ void __launch_bounds__(kThreads, 1) flash_relpos_tf32_kernel(
     const float* __restrict__ q, const float* __restrict__ scratch,
     const float* __restrict__ bias_h, const float* __restrict__ bias_w, float* __restrict__ o,
     int S, int kh, int kw, float scale) {
   using C = K4Cfg<D>;
+  constexpr bool kNarrow = kMode != kWideMode;  // 64-key tiles across grid rows
+  constexpr bool kStraddle = kMode == kStraddleMode;
+  // the straddling mode adds the whole bias once the products are in
+  constexpr bool kBiasAfter = C::kBiasAfter || kStraddle;
+  constexpr bool kOverlapped = C::kOverlapped && !kBiasAfter;
   constexpr int kImg = C::kImg;
   extern __shared__ __align__(1024) unsigned char rt_smem_raw[];
   unsigned char* smem = rt_smem_raw + ((1024 - (smem_u32(rt_smem_raw) & 1023)) & 1023);
@@ -816,14 +850,21 @@ __global__ void __launch_bounds__(kThreads, 1) flash_relpos_tf32_kernel(
   const int bh = blockIdx.y;
   const int q0 = blockIdx.x * kBM;
   const int cols = kNarrow ? kw : kGridW;                  // bias_w's columns
-  const int ld = kNarrow ? narrow_ld(kw) : C::kBwLdWide;  // the table's row stride
+  const int ld = kStraddle ? straddle_ld(kw) : kNarrow ? narrow_ld(kw) : C::kBwLdWide;
   // the wide mode's table at D 96: 8-column group j of row r at j ^ (r % 8)
   constexpr bool kSwizzled = !kNarrow && C::kBwSwizzled;
   const int n_tiles = kNarrow ? (S + kBN - 1) / kBN : kh;
 
-  // the block's rows of bias_w (zero past S)
+  // the block's rows of bias_w (zero past S); an odd or unaligned width's
+  // rows float by float
   const float* bwg = bias_w + (long long)bh * S * cols;
-  for (int i = threadIdx.x; i < kBM * cols / 4; i += kThreads) {
+  if (kStraddle) {
+    for (int i = threadIdx.x; i < kBM * cols; i += kThreads) {
+      const int r = i / cols, c = i - r * cols;
+      sBw[r * ld + c] = q0 + r < S ? __ldg(bwg + (long long)(q0 + r) * cols + c) : 0.f;
+    }
+  }
+  for (int i = threadIdx.x; i < (kStraddle ? 0 : kBM * cols / 4); i += kThreads) {
     const int r = i / (cols / 4), c = 4 * (i % (cols / 4));
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
     if (q0 + r < S)
@@ -918,41 +959,86 @@ __global__ void __launch_bounds__(kThreads, 1) flash_relpos_tf32_kernel(
         }
       }
     };
+    // the straddling mode's tile t: each score's initial value is its whole
+    // bias, bias_h[q, ky] + bias_w[q, kx] with (ky, kx) = (key / kw, key %
+    // kw) of its own key (keys >= S at -inf), added once the products are in
+    // (kBiasAfter; these reads run while the products do); no row shift. The
+    // lane's keys are 64 t + 8 j + 2 tq + e: (ky, kx) of its e = 0 key set
+    // once a tile by a division and advanced by 8 keys a group, by one wrap
+    // where kw >= 8 and a division below; the e = 1 key is the next column
+    // or the next row's first. bias_w is read float by float (an odd kw's
+    // pairs are not 8-byte aligned), at straddle_ld's stride
+    const float* bw_base[2] = {sBw + rb * ld, sBw + (rb + 8) * ld};
+    auto init_straddle = [&](int t, float (&s)[kBN / 2], float (&sh)[2][1]) {
+      sh[0][0] = sh[1][0] = 0.f;
+      int key = t * kBN + 2 * tq;
+      int ky = key / kw, kx = key - ky * kw;
+#pragma unroll
+      for (int j = 0; j < kBN / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const bool wrap = e == 1 && kx + 1 == kw;
+          const int y = ky + wrap, x = e == 0 ? kx : wrap ? 0 : kx + 1;
+          const bool in = key + e < S;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float b = in && bh_row[h] != nullptr ? __ldg(bh_row[h] + y) : 0.f;
+            const float w = bw_base[h][in ? x : 0];
+            s[4 * j + 2 * h + e] = in ? b + w : bff_tc::masked_score();
+          }
+        }
+        key += 8;
+        if (kw >= 8) {
+          kx += 8;
+          if (kx >= kw) {
+            kx -= kw;
+            ++ky;
+          }
+        } else {
+          ky = key / kw;
+          kx = key - ky * kw;
+        }
+      }
+    };
     const Ring ring{bars, smem_u32(smem + C::kKOff), smem_u32(smem + C::kVOff)};
     float acc[D / 2], l[2];
-    if constexpr (kNarrow)
-      attend_rows<kBN, C::kKStages, C::kVStages, C::kOverlapped, D, kBN / 8, C::kFold,
-                  C::kFoldParts, C::kBiasAfter>(acc, l, smem_u32(q_hi), smem_u32(q_lo), ring, 0,
-                                                n_tiles, wg, init_narrow);
+    if constexpr (kStraddle)
+      attend_rows<kBN, C::kKStages, C::kVStages, kOverlapped, D, 1, C::kFold, C::kFoldParts,
+                  kBiasAfter>(acc, l, smem_u32(q_hi), smem_u32(q_lo), ring, 0, n_tiles, wg,
+                              init_straddle);
+    else if constexpr (kNarrow)
+      attend_rows<kBN, C::kKStages, C::kVStages, kOverlapped, D, kBN / 8, C::kFold,
+                  C::kFoldParts, kBiasAfter>(acc, l, smem_u32(q_hi), smem_u32(q_lo), ring, 0,
+                                             n_tiles, wg, init_narrow);
     else
-      attend_rows<kBN, C::kKStages, C::kVStages, C::kOverlapped, D, 1, C::kFold,
-                  C::kFoldParts, C::kBiasAfter>(acc, l, smem_u32(q_hi), smem_u32(q_lo), ring, 0,
-                                                kh, wg, init_wide);
+      attend_rows<kBN, C::kKStages, C::kVStages, kOverlapped, D, 1, C::kFold,
+                  C::kFoldParts, kBiasAfter>(acc, l, smem_u32(q_hi), smem_u32(q_lo), ring, 0,
+                                             kh, wg, init_wide);
     if (kPingpong && wg == 0) turn_sync(1);  // the last consumer's last turn
     const int row = q0 + rb;
     store_rows<D>(acc, l, o + ((long long)bh * S + row) * D, row < S, row + 8 < S);
   }
 }
 
-template <int D, bool kNarrow>
+template <int D, int kMode>
 int launch_k4(const void* q, const void* k, const void* v, const void* bias_h,
               const void* bias_w, void* o, void* scratch, int BH, int S, int kh, int kw,
               float scale, cudaStream_t s) {
   static bool configured = false;
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_relpos_tf32_kernel<D, kNarrow>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_relpos_tf32_kernel<D, kMode>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         K4Cfg<D>::kSmemBytes);
     if (err != cudaSuccess) return (int)err;
     configured = true;
   }
   const int n_tiles = (S + kBN - 1) / kBN;  // kh at kw = 64
-  split_kv_relpos_kernel<D, kNarrow><<<dim3(n_tiles, BH), kSplitThreads, 0, s>>>(
+  split_kv_relpos_kernel<D, kMode != kWideMode><<<dim3(n_tiles, BH), kSplitThreads, 0, s>>>(
       static_cast<const float*>(k), static_cast<const float*>(v), static_cast<float*>(scratch),
       S);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  flash_relpos_tf32_kernel<D, kNarrow><<<dim3((S + kBM - 1) / kBM, BH), kThreads,
+  flash_relpos_tf32_kernel<D, kMode><<<dim3((S + kBM - 1) / kBM, BH), kThreads,
                                          K4Cfg<D>::kSmemBytes, s>>>(
       static_cast<const float*>(q), static_cast<const float*>(scratch),
       static_cast<const float*>(bias_h), static_cast<const float*>(bias_w),
@@ -1138,13 +1224,16 @@ bool aligned(const void* q, const void* k, const void* v, const void* o, const v
 // The routing predicate (kernels/flash_attention.py relpos_tf32_route
 // mirrors it): 1 when bff_flash_attention_relpos (kind 0, K4; rows x cols =
 // kh x kw) or bff_window_attention_relpos (kind 1, K5; wh x ww) takes the
-// 3xTF32 kernel for the call: K4 at head dim 64 or 80 on grids of kw = 64
-// or of kw a multiple of 8 in [kMinGridW, 64) (the narrow mode), K5 at 80.
+// 3xTF32 kernel for the call: K4 at head dim 64, 80 or 96 on grids of kw =
+// 64, of kw a multiple of 8 in [kMinGridW, 64) (the narrow mode) or of any
+// other kw in [kMinStraddleW, 64) (the straddling mode), K5 at 80.
 // dtype: 0 = float32, 1 = bfloat16.
 extern "C" int bff_relpos_tf32_takes(int kind, int dtype, int D, int S, int rows, int cols,
                                      float scale, const void* q, const void* k, const void* v,
                                      const void* o, const void* bias_h, const void* bias_w) {
-  const bool width = cols == kGridW || (cols % 8 == 0 && cols >= kMinGridW && cols < kGridW);
+  const bool width =
+      cols == kGridW ||
+      (cols < kGridW && (cols % 8 == 0 ? cols >= kMinGridW : cols >= kMinStraddleW));
   const bool shape = kind == 0   ? width && rows >= kMinGridH && rows <= kMaxGridH &&
                                      S == rows * cols && (D == 64 || D == kD || D == 96)
                      : kind == 1 ? rows == kWin && cols == kWin && S == kWinS && D == kD
@@ -1173,11 +1262,14 @@ extern "C" int bff_flash_relpos_tf32(const void* q, const void* k, const void* v
       !bff_relpos_tf32_takes(0, 0, D, S, kh, kw, scale, q, k, v, o, bias_h, bias_w))
     return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define BFF_K4(DIM, NARROW) \
-  launch_k4<DIM, NARROW>(q, k, v, bias_h, bias_w, o, scratch, BH, S, kh, kw, scale, s)
-  if (kw == kGridW)
-    return D == 64 ? BFF_K4(64, false) : D == 96 ? BFF_K4(96, false) : BFF_K4(kD, false);
-  return D == 64 ? BFF_K4(64, true) : D == 96 ? BFF_K4(96, true) : BFF_K4(kD, true);
+#define BFF_K4(DIM, MODE) \
+  launch_k4<DIM, MODE>(q, k, v, bias_h, bias_w, o, scratch, BH, S, kh, kw, scale, s)
+#define BFF_K4_DIMS(MODE) \
+  (D == 64 ? BFF_K4(64, MODE) : D == 96 ? BFF_K4(96, MODE) : BFF_K4(kD, MODE))
+  if (kw == kGridW) return BFF_K4_DIMS(kWideMode);
+  if (kw % 8 == 0) return BFF_K4_DIMS(kNarrowMode);
+  return BFF_K4_DIMS(kStraddleMode);
+#undef BFF_K4_DIMS
 #undef BFF_K4
 }
 

@@ -103,7 +103,7 @@ def library() -> ctypes.CDLL:
     lib.bff_relpos_tf32_scratch_floats.argtypes = [i, i, i]
     lib.bff_relpos_tf32_scratch_floats.restype = ctypes.c_longlong
     lib.bff_ms_deform_sample.argtypes = [i, p, p, p, p, p, i, i, i, i, i, i, i,
-                                         ctypes.POINTER(ctypes.c_int), p]
+                                         ctypes.POINTER(ctypes.c_int), p, p]
     lib.bff_ms_deform_sample.restype = i
     ll = ctypes.c_longlong
     lib.bff_mask_iou.argtypes = [p, p, i, i, ll, ll, ll, p, p, p]

@@ -18,7 +18,10 @@ point of one deformable-attention call. Each level runs in one of two modes:
 
 The wrapper launches the kernel for CUDA tensors and raises on what it does
 not take; CPU tensors take :func:`ms_deform_sample_plain`, a gather version
-of both modes.
+of both modes. Like the JAX function (one level a call, any head dim) it
+takes any number of levels and any head dim: head dims past 128 on a grid
+axis over 128-channel slices of each head (:func:`channel_slices`), more than
+8 levels with the level table in device memory (:func:`device_levels`).
 """
 
 from __future__ import annotations
@@ -33,6 +36,10 @@ import torch
 from beyondff_tpu_torch.kernels import dispatch
 
 TILE = 16  # default target-level cells per tile side, as in the JAX package
+# csrc/ms_deform_sample.cu: the channels of a head one block samples
+# (kSliceC) and the levels its by-value table holds (kMaxLevels)
+SLICE_CHANNELS = 128
+MAX_TABLE_LEVELS = 8
 # Grounding-DINO's four levels (h, w) at its 800x1072 input (Swin-B): the
 # main path's raster of 17 821 queries
 ENC_SHAPES = ((100, 134), (50, 67), (25, 34), (13, 17))
@@ -174,6 +181,29 @@ def level_table(shapes: Tuple[Tuple[int, int], ...], modes: Tuple[Mode, ...]) ->
     return levels
 
 
+def channel_slices(hd: int) -> int:
+    """The kernel's grid y at head dim ``hd``: ceil(hd / 128) slices of
+    ``SLICE_CHANNELS`` channels of each head (1 up to 128), each block the
+    same gather over its own channels."""
+    return -(-hd // SLICE_CHANNELS)
+
+
+def device_levels(n_levels: int) -> bool:
+    """Whether the kernel reads its level table from device memory (more
+    than ``MAX_TABLE_LEVELS`` levels, the levels looped at run time) rather
+    than from its by-value table."""
+    return n_levels > MAX_TABLE_LEVELS
+
+
+@functools.lru_cache(maxsize=32)
+def device_level_table(shapes: Tuple[Tuple[int, int], ...], modes: Tuple[Mode, ...],
+                       device: torch.device) -> torch.Tensor:
+    """:func:`level_table`'s rows as an (L, 4) int32 tensor on ``device``,
+    built once per (shapes, modes, device)."""
+    return torch.tensor(list(level_table(shapes, modes)), dtype=torch.int32,
+                        device=device).view(-1, 4)
+
+
 def _check_modes(shapes, modes, q):
     modes = tuple(None if m is None else (int(m[0]), int(m[1])) for m in modes)
     if len(modes) != len(shapes):
@@ -290,10 +320,10 @@ def ms_deform_sample(value: torch.Tensor, shapes: Sequence[Tuple[int, int]],
                         f"got {value.dtype}, {aw.dtype}, {locs.dtype}")
     if not (value.is_contiguous() and locs.is_contiguous() and aw.is_contiguous()):
         raise ValueError("ms_deform_sample takes contiguous tensors")
-    if hd > 128 or n_levels > 8:
-        raise ValueError(f"head dim {hd} > 128 or {n_levels} levels > 8")
     modes = _check_modes(shapes, modes or (None,) * n_levels, q)
     levels = level_table(shapes, modes)
+    levels_dev = (device_level_table(shapes, modes, value.device)
+                  if device_levels(n_levels) else None)
     origins = (window_origins(shapes, modes, value.device)
                if any(m is not None for m in modes) else None)
     from beyondff_tpu_torch.kernels import _build
@@ -303,7 +333,8 @@ def ms_deform_sample(value: torch.Tensor, shapes: Sequence[Tuple[int, int]],
         _DTYPES[value.dtype], value.data_ptr(), locs.data_ptr(), aw.data_ptr(),
         None if origins is None else origins.data_ptr(), out.data_ptr(),
         b, s, q, heads, hd, n_levels, p_pts, levels,
-        torch.cuda.current_stream(value.device).cuda_stream)
+        torch.cuda.current_stream(value.device).cuda_stream,
+        None if levels_dev is None else levels_dev.data_ptr())
     if rc != 0:
         raise RuntimeError(f"ms_deform_sample kernel launch failed (code {rc})")
     dispatch.launch_counts["ms_deform_sample"] += 1

@@ -33,6 +33,15 @@ than 64 whose width is a multiple of 8 (portrait frames under
 f32-FMA kernel, counted as ``flash_attention_relpos`` (:func:`relpos_counter`
 names the counter of a call). The wrappers launch them for CUDA tensors and
 raise on what they do not take; CPU tensors take the plain versions.
+
+Every shape the JAX functions take runs on a kernel: head dims past 128 on
+the FMA kernel or the mma.sync tile with a grid axis over the head dim's
+128-feature output slices (:func:`head_dim_slices`; each block sums its
+scores over every slice and accumulates P V for its own;
+:func:`sliced_mirror`), rel-pos grids with kh + kw past 256 on the FMA
+kernel reading the factors from device memory (:func:`relpos_factor_table`),
+and K5's windows past 256 tokens or head dim 128 on K4's kernels
+(:func:`window_on_flash`).
 """
 
 from __future__ import annotations
@@ -55,6 +64,108 @@ _FLT_MAX = 3.4028234663852886e38
 # shared memory
 MASKED_WGMMA_TILE = 64
 MASKED_WGMMA_MAX_KEYS = 24 * MASKED_WGMMA_TILE
+
+
+# csrc/flash_attention.cu and csrc/relpos_attention.cu: head dims past 128
+# take a grid axis over slices of this many output features
+HEAD_DIM_SLICE = 128
+# csrc/relpos_attention.cu: the widest factor table (kh + kw columns) a K4
+# block holds in shared memory (kMaxTableCols), and the largest window K5's
+# own kernels take, in tokens and head dim (kMaxWindow, kSliceD)
+RELPOS_TABLE_COLS = 256
+WINDOW_MAX_TOKENS = 256
+
+
+def head_dim_slices(d: int) -> int:
+    """The grid's slices of ``HEAD_DIM_SLICE`` output features a call at head
+    dim ``d`` takes on the FMA kernels and the mma.sync tile (their grid z):
+    1 up to 128, ceil(d / 128) past it, where each block recomputes the
+    scores over the whole head dim."""
+    return max(1, -(-d // HEAD_DIM_SLICE))
+
+
+def relpos_factor_table(kh: int, kw: int) -> bool:
+    """The mirror of ``csrc/relpos_attention.cu``'s table rule: whether a K4
+    block of the FMA kernel or the mma.sync tile holds its rows' factors in a
+    shared-memory table (kh + kw <= ``RELPOS_TABLE_COLS``). Past it the FMA
+    kernel reads each score's two factors from device memory, and bf16 calls
+    leave the tile for the FMA kernel."""
+    return kh + kw <= RELPOS_TABLE_COLS
+
+
+def window_on_flash(s: int, d: int) -> bool:
+    """The mirror of ``bff_window_attention_relpos``'s first rule: windows of
+    more than ``WINDOW_MAX_TOKENS`` tokens or head dims past 128 run K4's
+    kernels (the FMA kernel or the mma.sync tile, G windows as BH), counted
+    as ``flash_attention_relpos``."""
+    return s > WINDOW_MAX_TOKENS or d > HEAD_DIM_SLICE
+
+
+def sliced_schedule(bh: int, s: int, d: int, rows: int = 64):
+    """The mirror of the sliced grids of ``csrc/flash_attention.cu`` and
+    ``csrc/relpos_attention.cu``: (grid, blocks), the grid (ceil(S / rows),
+    BH, :func:`head_dim_slices`) with ``rows`` query rows a block (64 on the
+    FMA kernels and K2/K3's tile, 128 on K4's), and for each block (x, head,
+    z) its query rows and output features [128 z, min(128 z + 128, d))."""
+    n = head_dim_slices(d)
+    grid = (-(-s // rows), bh, n)
+    blocks = {(x, h, z): (range(rows * x, min(rows * x + rows, s)),
+                          range(HEAD_DIM_SLICE * z, min(HEAD_DIM_SLICE * z + HEAD_DIM_SLICE, d)))
+              for h in range(bh) for x in range(grid[0]) for z in range(n)}
+    return grid, blocks
+
+
+def sliced_mirror(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  valid_len: Optional[int] = None, scale: Optional[float] = None,
+                  bias_h: Optional[torch.Tensor] = None, bias_w: Optional[torch.Tensor] = None,
+                  rows: int = 64) -> torch.Tensor:
+    """The arithmetic of the FMA kernels' head-dim slices in PyTorch on the
+    CPU, block by block of :func:`sliced_schedule`, in f32: per 64-key tile
+    (keys >= ``valid_len`` at -inf; the tiles up to ``valid_len``), the
+    scores summed over the head dim's 128-feature slices of Q and K in turn
+    (slice after slice), scaled, plus the rel-pos bias
+    bias_h[q, k / kw] + bias_w[q, k % kw] where factors are given; the
+    online softmax (the running max raised at every tile, the output
+    rescaled); P V over the block's own 128 features of V; the output
+    divided once. Every (head, row, feature) is written by one block. The
+    kernels' f32 sums run in another order; this holds their schedule, not
+    their rounding."""
+    bh, s, d = q.shape
+    valid = s if valid_len is None else int(valid_len)
+    scale = d ** -0.5 if scale is None else scale
+    qf, kf, vf = q.float(), k.float(), v.float()
+    bias = None if bias_h is None else relpos_bias(bias_h, bias_w, q.dtype)
+    out = torch.zeros(bh, s, d, dtype=torch.float32)
+    written = torch.zeros(bh, s, d, dtype=torch.int32)
+    _grid, blocks = sliced_schedule(bh, s, d, rows)
+    tile = 64
+    for (_x, h, _z), (rr, cc) in blocks.items():
+        r = torch.tensor(list(rr))
+        c = torch.tensor(list(cc))
+        m = torch.full((len(r),), -1e30)
+        l = torch.zeros(len(r))
+        acc = torch.zeros(len(r), len(c))
+        for k0 in range(0, valid, tile):
+            keys = torch.arange(k0, min(k0 + tile, s))
+            sc = torch.zeros(len(r), len(keys))
+            for f0 in range(0, d, HEAD_DIM_SLICE):
+                fs = slice(f0, f0 + HEAD_DIM_SLICE)
+                sc = sc + qf[h, r, fs] @ kf[h, keys, fs].T
+            sc = sc * scale
+            if bias is not None:
+                sc = sc + bias[h][r][:, keys]
+            sc = torch.where(keys[None, :] < valid, sc, torch.tensor(float("-inf")))
+            m_new = torch.maximum(m, sc.max(dim=1).values)
+            corr = torch.exp(m - m_new)
+            p = torch.exp(sc - m_new[:, None])
+            l = l * corr + p.sum(dim=1)
+            acc = acc * corr[:, None] + p @ vf[h, keys][:, c]
+            m = m_new
+        out[h, r[:, None], c[None, :]] = acc / l[:, None]
+        written[h, r[:, None], c[None, :]] += 1
+    if not bool((written == 1).all()):
+        raise AssertionError("the schedule does not write every (head, row, feature) once")
+    return out.to(q.dtype)
 
 
 def wgmma_route(dtype: int, d: int, s: int, valid_len: int, scale: float, *ptrs: int) -> bool:
@@ -360,16 +471,18 @@ def relpos_wgmma_fragment(kind: int, warp: int, lane: int, tile: int, s: int = 1
 
 
 # csrc/relpos_attention_tf32.cu: K4's 64-key tiles (one grid row of kw =
-# 64; in the narrow mode, kw < 64, 64 keys across grid rows), K5's 40-key
-# tiles over a 14 x 14 window's 196 keys (200 with the masked ones), 128-row
-# blocks (K4) and rounds (K5) of two 64-row consumer warpgroups, the
-# smallest grid height K4 takes, and the narrow mode's smallest width (its
-# widths are multiples of 8)
+# 64; in the narrow and straddling modes, kw < 64, 64 keys across grid
+# rows), K5's 40-key tiles over a 14 x 14 window's 196 keys (200 with the
+# masked ones), 128-row blocks (K4) and rounds (K5) of two 64-row consumer
+# warpgroups, the smallest grid height K4 takes, the narrow mode's smallest
+# width (its widths are multiples of 8) and the straddling mode's (every
+# other width below 64)
 RELPOS_TF32_TILE = 64
 RELPOS_TF32_WINDOW_TILE = 40
 RELPOS_TF32_BLOCK_Q = 128
 RELPOS_TF32_MIN_GRID_H = 1
 RELPOS_TF32_MIN_GRID_W = 8
+RELPOS_TF32_MIN_STRADDLE_W = 1
 # the head dims each takes: K4 (kind 0) SAM ViT-L/B's 64, ViT-H's 80 and 96, K5 80
 RELPOS_TF32_HEAD_DIMS = {0: (64, 80, 96), 1: (80,)}
 # K4's head dims whose scores are summed from zero, bias_w added in f32
@@ -387,14 +500,16 @@ def relpos_tf32_route(kind: int, dtype: int, d: int, s: int, rows: int, cols: in
     ``cols`` = kh x kw key grid), 1 is ``bff_window_attention_relpos`` (K5,
     wh x ww windows); dtype 0 = float32, 1 = bfloat16; ``ptrs`` the data
     pointers of q, k, v, the output, bias_h and bias_w. Taken: f32,
-    ``RELPOS_TF32_MIN_GRID_H`` <= kh <= 64 with kw = 64 or kw a multiple of 8
-    from ``RELPOS_TF32_MIN_GRID_W`` to 56 (the narrow mode) at head dim 64,
-    80 or 96 (K4), or 14 x 14 windows at head dim 80 (K5), a positive finite scale
-    (rounded to f32 as the call passes it) and every pointer 16-byte
-    aligned."""
+    ``RELPOS_TF32_MIN_GRID_H`` <= kh <= 64 with kw = 64, kw a multiple of 8
+    from ``RELPOS_TF32_MIN_GRID_W`` to 56 (the narrow mode) or any other kw
+    from ``RELPOS_TF32_MIN_STRADDLE_W`` to 63 (the straddling mode) at head
+    dim 64, 80 or 96 (K4), or 14 x 14 windows at head dim 80 (K5), a
+    positive finite scale (rounded to f32 as the call passes it) and every
+    pointer 16-byte aligned."""
     f32 = ctypes.c_float(scale).value
     if kind == 0:
-        width = cols == 64 or (cols % 8 == 0 and RELPOS_TF32_MIN_GRID_W <= cols < 64)
+        least = RELPOS_TF32_MIN_GRID_W if cols % 8 == 0 else RELPOS_TF32_MIN_STRADDLE_W
+        width = cols == 64 or least <= cols < 64
         shape = width and RELPOS_TF32_MIN_GRID_H <= rows <= 64 and s == rows * cols
     elif kind == 1:
         shape = rows == _WIN and cols == _WIN and s == _WIN_S
@@ -402,6 +517,22 @@ def relpos_tf32_route(kind: int, dtype: int, d: int, s: int, rows: int, cols: in
         shape = False
     return (shape and dtype == 0 and d in RELPOS_TF32_HEAD_DIMS[kind] and 0.0 < f32 <= _FLT_MAX
             and all(p % 16 == 0 for p in ptrs))
+
+
+def relpos_tf32_mode(kw: int) -> str:
+    """The mode ``csrc/relpos_attention_tf32.cu``'s K4 kernel runs a grid
+    ``kw`` wide in (within the route): ``wide`` (kw = 64, a tile one grid
+    row), ``narrow`` (a multiple of 8: an n8 group of keys in one grid row,
+    bias_w the scores' start and bias_h the group's shift) or ``straddle``
+    (any other width: groups straddle grid rows, each score's whole bias
+    added in f32 once the products are in)."""
+    return "wide" if kw == 64 else "narrow" if kw % 8 == 0 else "straddle"
+
+
+def relpos_tf32_straddle_ld(kw: int) -> int:
+    """The straddling mode's bias_w table stride (``straddle_ld``): the least
+    stride >= kw that is 3 mod 16 floats."""
+    return kw + (19 - kw % 16) % 16
 
 
 def relpos_tf32_scratch_floats(bh: int, s: int, d: int) -> int:
@@ -419,7 +550,11 @@ def relpos_counter(kind: int, dtype: int, d: int, s: int, rows: int, cols: int, 
     decide: ``..._wgmma`` (:func:`relpos_wgmma_route`), ``..._tf32``
     (:func:`relpos_tf32_route`) or the entry's own (the mma.sync tile and the
     FMA kernels) after ``flash_attention_relpos`` (kind 0) or
-    ``window_attention_relpos`` (kind 1)."""
+    ``window_attention_relpos`` (kind 1); K5's windows that
+    :func:`window_on_flash` sends to K4's kernels count as
+    ``flash_attention_relpos``."""
+    if kind == 1 and window_on_flash(s, d):  # K4's kernels
+        return "flash_attention_relpos"
     name = "window_attention_relpos" if kind == 1 else "flash_attention_relpos"
     if relpos_wgmma_route(kind, dtype, d, s, rows, cols, scale, *ptrs):
         return name + "_wgmma"
@@ -467,13 +602,41 @@ def relpos_tf32_fragment(kind: int, warp: int, lane: int, tile: int, s: int = 19
     lie in one grid row: ky = (64 tile + 8 j) / kw (bias_h, the group's
     shift), kx = (64 tile + 8 j) % kw + 2 (lane % 4) + e % 2 (bias_w, the
     initial value), the kernel's running (ky, kx) advanced by 8 keys a
-    group without a division; keys >= ``s`` are masked. K5 (kind 1,
-    40-key tiles of a 14 x 14 window): key 40 tile + column; the pair c =
-    key - e % 2 gives ky = c / 14 and kx = c % 14 + e % 2 (one bias_h read
-    and one 8-byte bias_w read a pair); keys >= ``s`` are masked."""
+    group without a division; keys >= ``s`` are masked. In the straddling
+    mode (kw < 64, not a multiple of 8) each score's own key: (ky, kx) of
+    the lane's first key 64 tile + 2 (lane % 4) from one division, advanced
+    by 8 keys a group (one wrap at kw >= 8, a division below), the second
+    key of the pair the next column or the next row's first (bias_h and
+    bias_w both added after the products); keys >= ``s`` are masked. K5
+    (kind 1, 40-key tiles of a 14 x 14 window): key 40 tile + column; the
+    pair c = key - e % 2 gives ky = c / 14 and kx = c % 14 + e % 2 (one
+    bias_h read and one 8-byte bias_w read a pair); keys >= ``s`` are
+    masked."""
     n = RELPOS_TF32_TILE if kind == 0 else RELPOS_TF32_WINDOW_TILE
     quad = lane % 4
     out = []
+    if kind == 0 and relpos_tf32_mode(kw) == "straddle":
+        key = n * tile + 2 * quad
+        ky, kx = divmod(key, kw)
+        cells = []
+        for _j in range(n // 8):
+            wrap = kx + 1 == kw
+            cells.append(((ky, kx), (ky + wrap, 0 if wrap else kx + 1)))
+            key += 8
+            if kw >= 8:
+                kx += 8
+                if kx >= kw:
+                    kx, ky = kx - kw, ky + 1
+            else:
+                ky, kx = divmod(key, kw)
+        for i in range(n // 2):
+            j, e = divmod(i, 4)
+            row = 16 * warp + lane // 4 + 8 * (e // 2)
+            col = 8 * j + 2 * quad + e % 2
+            key = n * tile + col
+            gy, gx = cells[j][e % 2]
+            out.append((i, row, key, gy, gx) if key < s else (i, row, key, None, None))
+        return out
     if kind == 0 and kw != 64:
         ky, kx = divmod(n * tile, kw)
         starts = []
@@ -507,7 +670,8 @@ def relpos_tf32_mirror(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     CPU, block by block of :func:`relpos_tf32_schedule`, in f32. K4 (kind 0;
     q, k, v (BH, S, D) with D 64, 80 or 96, S = kh kw, bias_h (BH, S, kh),
     bias_w (BH, S, kw), kw = 64 or, in the narrow mode, a multiple of 8
-    below it) or K5 (kind 1; (G, 196, 80), both factors (G, 196, 14)).
+    below it, or in the straddling mode any other width below it) or K5
+    (kind 1; (G, 196, 80), both factors (G, 196, 14)).
     K and V split into TF32 hi and lo (:func:`tf32_split`; V^T with each
     8-key group in ``TF32_KEY_ORDER``); per 64-row warpgroup tile, Q
     multiplied by the scale and split; per key tile (64 keys, one grid row,
@@ -518,7 +682,9 @@ def relpos_tf32_mirror(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``RELPOS_TF32_BIAS_AFTER``: the products from zero, the bias added
     after them); the running max (log2
     units, K4's keys shifted by bias_h log2 e: of the tile's grid row at
-    kw = 64, of each key's in the narrow mode) raised at every tile; p =
+    kw = 64, of each key's in the narrow mode; in the straddling mode the
+    products from zero and the whole bias, bias_h + bias_w, added after
+    them, no shift) raised at every tile; p =
     2^(s log2 e + shift - m) (one rounding); the denominator summed from
     the f32 p; the output rescaled, P split in the fragment order, the
     tile's (lo(P) hi(V) + hi(P) lo(V)) + hi(P) hi(V) summed apart and added
@@ -533,6 +699,7 @@ def relpos_tf32_mirror(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     sc = float(torch.tensor(scale, dtype=torch.float32))
     tile = RELPOS_TF32_TILE if kind == 0 else RELPOS_TF32_WINDOW_TILE
     kw = bias_w.shape[-1] if kind == 0 else _WIN
+    straddle = kind == 0 and relpos_tf32_mode(kw) == "straddle"
     n_tiles = -(-s // tile)
     kp = tile * n_tiles
     kz = torch.zeros(n, kp, d)
@@ -570,12 +737,12 @@ def relpos_tf32_mirror(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     init[:, ~inside] = float("-inf")
                     r = rows[live]
                     at = (live.nonzero()[:, 0][:, None], inside.nonzero()[:, 0][None, :])
-                    if kind == 0:  # the narrow mode: bias_w starts, bias_h shifts the key
+                    if kind == 0 and not straddle:  # narrow: bias_w starts, bias_h shifts
                         init[at] = bw_f[h, r][:, kx]
                         shift[at] = bh_f[h, r][:, ky] * l2e
-                    else:
+                    else:  # K5 and the straddling mode: the whole bias
                         init[at] = bh_f[h, r][:, ky] + bw_f[h, r][:, kx]
-                if kind == 0 and d in RELPOS_TF32_BIAS_AFTER:
+                if kind == 0 and (d in RELPOS_TF32_BIAS_AFTER or straddle):
                     sco = ((q_lo @ k_hi[h, ks].T + q_hi @ k_lo[h, ks].T)
                            + q_hi @ k_hi[h, ks].T) + init
                 else:
@@ -661,7 +828,7 @@ def flash_counter(dtype: int, d: int, s: int, valid_len: int, scale: float, *ptr
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     valid_len: Optional[int] = None,
                     scale: Optional[float] = None) -> torch.Tensor:
-    """(BH, S, D) -> (BH, S, D); scale defaults to D ** -0.5."""
+    """(BH, S, D) -> (BH, S, D) at any head dim; scale defaults to D ** -0.5."""
     if not dispatch.kernel_device(q, k, v):
         return flash_attention_plain(q, k, v, valid_len, scale)
     dispatch.refuse_autograd("flash_attention", q, k, v)
@@ -674,8 +841,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention takes contiguous tensors")
     bh, s, d = q.shape
-    if d > 128:
-        raise ValueError(f"head dim {d} > 128")
+    if d < 1:
+        raise ValueError(f"head dim {d} < 1")
     valid = s if valid_len is None else int(valid_len)
     if not 1 <= valid <= s:
         raise ValueError(f"valid_len {valid} outside [1, {s}]")
@@ -747,8 +914,8 @@ def _check_relpos(name, q, k, v, bias_h, bias_w, rows, cols):
     if tuple(bias_h.shape) != (bh, s, rows) or tuple(bias_w.shape) != (bh, s, cols):
         raise ValueError(f"{name}: factors {tuple(bias_h.shape)}, {tuple(bias_w.shape)} for "
                          f"({bh}, {s}, {rows}) and ({bh}, {s}, {cols})")
-    if d > 128:
-        raise ValueError(f"{name}: head dim {d} > 128")
+    if d < 1:
+        raise ValueError(f"{name}: head dim {d} < 1")
 
 
 def _launch_relpos(fn_name, kind, q, k, v, bias_h, bias_w, rows, cols, scale):
@@ -787,14 +954,12 @@ def flash_attention_relpos(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            scale: Optional[float] = None) -> torch.Tensor:
     """Flash attention over a raster-ordered (kh, kw) token grid with SAM's
     decomposed rel-pos bias from its thin factors: (BH, S, D) -> (BH, S, D),
-    S = kh * kw, kh + kw <= 256, D <= 128; scale defaults to D ** -0.5."""
+    S = kh * kw, any grid and head dim; scale defaults to D ** -0.5."""
     if not dispatch.kernel_device(q, k, v, bias_h, bias_w):
         return attend_relpos_plain(q, k, v, bias_h, bias_w, kw, scale)
     dispatch.refuse_autograd("flash_attention_relpos", q, k, v, bias_h, bias_w)
     kh = bias_h.shape[-1]
     _check_relpos("flash_attention_relpos", q, k, v, bias_h, bias_w, kh, kw)
-    if kh + kw > 256:
-        raise ValueError(f"flash_attention_relpos: kh + kw = {kh + kw} > 256")
     scale = q.shape[-1] ** -0.5 if scale is None else float(scale)
     return _launch_relpos("bff_flash_attention_relpos", 0, q, k, v, bias_h, bias_w, kh, kw,
                           scale)

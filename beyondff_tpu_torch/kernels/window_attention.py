@@ -19,8 +19,11 @@ Their f32 counterparts (``flash_attention.relpos_tf32_route``) take the
 ``window_attention_relpos_tf32``: an online softmax over five 40-key tiles,
 the window's K and V split into TF32 halves on the chip, within 1e-4.
 A window's zero-padded tokens (``window_partition``) are real keys; only the
-TPU's lane padding beyond S was masked there. Like the JAX kernel it is not
-wired into the SAM encoder.
+TPU's lane padding beyond S was masked there. Windows of more than 256
+tokens or head dims past 128 run K4's kernels (the same function with G
+windows as BH: the plain versions are one), counted as
+``flash_attention_relpos`` (``flash_attention.window_on_flash``). Like the
+JAX kernel it is not wired into the SAM encoder.
 """
 
 from __future__ import annotations
@@ -44,12 +47,11 @@ def window_attention_relpos_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Ten
 def window_attention_relpos(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             bias_h: torch.Tensor, bias_w: torch.Tensor,
                             win_h: int, win_w: int) -> torch.Tensor:
-    """(G, S, D) -> (G, S, D) with S = win_h * win_w <= 256 and D <= 128."""
+    """(G, S, D) -> (G, S, D) with S = win_h * win_w: windows past 256 tokens
+    or head dim 128 on K4's kernels (``fa.window_on_flash``)."""
     if not dispatch.kernel_device(q, k, v, bias_h, bias_w):
         return window_attention_relpos_plain(q, k, v, bias_h, bias_w, win_h, win_w)
     dispatch.refuse_autograd("window_attention_relpos", q, k, v, bias_h, bias_w)
     fa._check_relpos("window_attention_relpos", q, k, v, bias_h, bias_w, win_h, win_w)
-    if q.shape[1] > 256:
-        raise ValueError(f"window_attention_relpos: {q.shape[1]} tokens > 256")
     return fa._launch_relpos("bff_window_attention_relpos", 1, q, k, v, bias_h, bias_w, win_h,
                              win_w, q.shape[-1] ** -0.5)

@@ -942,9 +942,11 @@ def deform_case(which, b, dtype):
             if getattr(lib, SET_ORDER)(ptr(order)) != 0:
                 raise RuntimeError(f"{SET_ORDER} failed")
             ordered.add(id(lib))
+        # the device level table (read past 8 levels; a tree from before it
+        # ignores the argument)
         rc = getattr(lib, fn)(int(dtype == torch.bfloat16), ptr(value), ptr(tl), ptr(ta),
                               ptr(origins), ptr(out), b, s, q, heads, hd, n_levels, p, levels,
-                              ctypes.c_void_p(stream))
+                              ctypes.c_void_p(stream), ctypes.c_void_p(None))
         if rc != 0:
             raise RuntimeError(f"{fn} failed (code {rc})")
         return out
@@ -1108,9 +1110,26 @@ def main():
             lambda: relpos_f32_case(64, (64, 64), False, 96, 1.0, 3.0),
         "relpos_f32 narrow small k4 kw8 d96 (16, 8, 96)":
             lambda: relpos_f32_case(16, (1, 8), False, 96),
-        # outside the 3xTF32 route (kw 36, not a multiple of 8): the FMA
-        # kernel, with SDPA in f32 beside it, the witness of what still loses
+        # kw 36, not a multiple of 8: the straddling mode (each score's whole
+        # bias added after the products), beside the FMA kernel and SDPA in
+        # f32; at head dims 64 and 96 too
         "relpos_f32 k4 kw36 d80 (64, 2304, 80)": lambda: relpos_f32_case(64, (64, 36), False),
+        "relpos_f32 straddle k4 kw36 d64 (64, 2304, 64)":
+            lambda: relpos_f32_case(64, (64, 36), False, 64),
+        "relpos_f32 straddle k4 kw36 d96 (64, 2304, 96)":
+            lambda: relpos_f32_case(64, (64, 36), False, 96),
+        "relpos_f32 straddle k4 kw36 d80 factors 3 (64, 2304, 80)":
+            lambda: relpos_f32_case(64, (64, 36), False, 80, 1.0, 3.0),
+        # the straddling mode across widths (16 heads of 64 grid rows) at
+        # head dim 80 beside the FMA kernel: which widths it wins
+        **{f"relpos_f32 straddle k4 kw{kw} (16, {64 * kw}, 80)":
+           (lambda kw=kw: relpos_f32_case(16, (64, kw), False))
+           for kw in (1, 2, 3, 4, 5, 6, 7, 9, 12, 20, 28, 44, 52, 60, 63)},
+        # and the narrow mode's widths beside them, at equal S: what the
+        # straddle's per-score bias costs
+        **{f"relpos_f32 straddle ref k4 kw{kw} (16, {64 * kw}, 80)":
+           (lambda kw=kw: relpos_f32_case(16, (64, kw), False))
+           for kw in (8, 16, 24, 32, 40, 48, 56)},
         # the narrow mode at its smallest widths and heights, where the
         # pre-pass, a padded tile and the latency weigh most (its kMinGridW)
         **{f"relpos_f32 narrow small k4 kw{kw} ({16}, {kh * kw}, 64)":

@@ -180,9 +180,14 @@ portrait frames at head dims 64 and 80, the narrow mode, each beside the
 FMA kernel through ``bff_flash_attention_relpos_f32_fma``) on the 3xTF32
 kernels of ``csrc/relpos_attention_tf32.cu``
 (``flash_attention_relpos_tf32``, ``window_attention_relpos_tf32``), K4
-at head dim 96 on a 64 x 32 grid and K5 at SAM ViT-L's head dim 64 on the
-FMA kernels (``flash_attention_relpos``, ``window_attention_relpos``),
-the mma.sync tile at (32, 1024, 64) with keys masked, and the NMS kernel
+at head dim 80 on the 64 x 36 grid (a width no multiple of 8: the
+straddling mode) on the same kernel beside the FMA kernel, K4 on a 72 x 36
+grid (taller than the 3xTF32 kernel takes) and K5 at SAM ViT-L's head dim
+64 on the FMA kernels (``flash_attention_relpos``,
+``window_attention_relpos``), the mma.sync tile at (32, 1024, 64) with keys
+masked, the shapes past the port's old limits (``past_limits``: K2/K3 at
+head dims 160 and 256, K4 at head dim 160 and at kh + kw past 256, K5 on
+17 x 17 windows, K1 at 9 levels and at head dim 160), and the NMS kernel
 index for index at YOLO-World-L's 8 400 anchors for a batch of 4 (top_k
 100; its device time split into the sort, the gather and the scan), at
 thresholds set to pairs' exact IoUs, and past the staged kernel's 90 112
@@ -317,6 +322,21 @@ RELPOS_TF32_NARROW_DESIGN = (
     "warpgroups taking turns, S = Q K^T m64n64k8, P V m64nDk8, each tile's P V added in f32")
 
 
+# csrc/relpos_attention_tf32.cu: K4 in f32 on a grid whose width is no
+# multiple of 8
+RELPOS_TF32_STRADDLE_DESIGN = (
+    "3xTF32 wgmma, K4's straddling mode (kw < 64, no multiple of 8): 64-key tiles across grid "
+    "rows (the last padded with zero keys by the pre-pass), the scores' products summed from "
+    "zero and each score's whole bias, bias_h[q, k / kw] + bias_w[q, k % kw], added in f32 "
+    "once they are in (bias_w from a shared-memory table at a stride 3 mod 16, bias_h from "
+    "device memory, both read while the products run, each key's grid cell advanced without "
+    "a division); otherwise the narrow mode's kernel")
+# csrc/flash_attention.cu, csrc/relpos_attention.cu: head dims past 128
+SLICED_DESIGN = (", head dims past 128 on a grid axis of 128-feature output slices: each "
+                 "block sums its scores over every slice of Q and K, staged in turn, and "
+                 "accumulates P V for its own slice of V")
+
+
 def host_us(torch, fn, iters=50):
     """Host microseconds a call of ``fn``, the launches enqueued back to
     back (the device runs behind)."""
@@ -329,17 +349,17 @@ def host_us(torch, fn, iters=50):
     return (t1 - t0) / iters * 1e6
 
 
-def deform_case(torch, dw, name, q_locs, dtype, modes, dev, rng, b):
-    """One ms_deform_sample comparison + timing at the encoder's levels;
-    q_locs (Q, 2) query anchors, ``b`` frames in the batch (inputs from
-    ``dw.sample_inputs``: offsets within 12 cells, every 17th query shifted
-    off the map)."""
+def deform_case(torch, dw, name, q_locs, dtype, modes, dev, rng, b, shapes=None, heads=8, hd=32):
+    """One ms_deform_sample comparison + timing at the encoder's levels (or
+    ``shapes``, ``heads`` heads of ``hd``); q_locs (Q, 2) query anchors,
+    ``b`` frames in the batch (inputs from ``dw.sample_inputs``: offsets
+    within 12 cells, every 17th query shifted off the map)."""
     from beyondff_tpu_torch.utils.profiling import HBM_BYTES_PER_S, PEAK_FLOPS, device_ms
 
     from beyondff_tpu_torch.kernels import dispatch
 
-    shapes = dw.ENC_SHAPES
-    value, tl, ta = dw.sample_inputs(rng, q_locs, b, dtype, dev)
+    shapes = dw.ENC_SHAPES if shapes is None else shapes
+    value, tl, ta = dw.sample_inputs(rng, q_locs, b, dtype, dev, shapes, heads, hd)
     q, heads, lv, p = ta.shape[1:]
     hd = value.shape[-1]
     before = dict(dispatch.launch_counts)
@@ -369,7 +389,12 @@ def deform_case(torch, dw, name, q_locs, dtype, modes, dev, rng, b):
         "library_ms": None,
         "design": "bilinear gather, a lane per 16-byte chunk of a head row (4 lanes a bf16 "
                   "row of 32), a level's 16 corner loads in flight, L and P unrolled, "
-                  "f32 FMAs, all levels in one launch",
+                  "f32 FMAs, all levels in one launch" + (
+                      ", head dims past 128 on a grid axis of 128-channel slices"
+                      if hd > dw.SLICE_CHANNELS else "") + (
+                      ", the level table in device memory, levels looped at run time"
+                      if dw.device_levels(lv) else ""),
+        "levels": lv, "heads": heads, "head_dim": hd,
     }
     emit(rec)
     check(err <= tol, f"ms_deform_sample {name} {dname}: max abs err {err} > {tol}")
@@ -456,7 +481,8 @@ def flash_case(torch, fa, name, shape, valid_len, dtype, dev, fma=False, spread=
         "design": (WGMMA_DESIGN if routed == "flash_attention_wgmma" else
                    MASKED_WGMMA_DESIGN if routed == "flash_masked_wgmma" else
                    TF32_DESIGN if routed == "flash_attention_tf32" else
-                   TC_DESIGN + ", 4 warps x 16 rows" if bf16 else FMA_DESIGN),
+                   TC_DESIGN + ", 4 warps x 16 rows" if bf16 else FMA_DESIGN)
+                  + (SLICED_DESIGN if d > fa.HEAD_DIM_SLICE else ""),
         "plain_ms": cuda_ms(torch, lambda: fa.flash_attention_plain(q, k, v, valid_len), 20),
         "bound_ms": max(bound_bytes, bound_ops),
         "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
@@ -563,9 +589,18 @@ def relpos_case(torch, fa, wa, sam_mod, name, g, grid, dtype, dev, d=80, fma=Fal
     q4, k4, v4 = (t[None] for t in (q, k, v))
     library = lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask)
     library_ms = cuda_ms(torch, library, 5)
-    extra = {"design": (RELPOS_TF32_NARROW_DESIGN if not window and ww != 64 else
-                        RELPOS_TF32_DESIGN[window]) if routed.endswith("_tf32") else
-             FMA_DESIGN + (", whole-window softmax" if window else "")}
+    # what the shape adds to a route's design: K4's kernels for a large
+    # window, head-dim slices, factors from device memory, the straddling mode
+    on_flash = window and fa.window_on_flash(s, d)
+    suffix = ((", K4's kernel with the windows as heads" if on_flash else "")
+              + (SLICED_DESIGN if d > fa.HEAD_DIM_SLICE else "")
+              + ("" if fa.relpos_factor_table(hh, ww) or routed.endswith(("_tf32", "_wgmma"))
+                 else ", each score's factors read from device memory (kh + kw past 256)"))
+    extra = {"design": ((RELPOS_TF32_STRADDLE_DESIGN if not window and ww % 8 else
+                         RELPOS_TF32_NARROW_DESIGN if not window and ww != 64 else
+                         RELPOS_TF32_DESIGN[window]) if routed.endswith("_tf32") else
+                        FMA_DESIGN + (", whole-window softmax" if window and not on_flash
+                                      else "")) + suffix}
     if not bf16:
         dev_ms = device_ms(kernel)
         bound_ms, bound_fma_ms, bound_by = f32_attention_bounds(flops, nbytes)
@@ -578,11 +613,12 @@ def relpos_case(torch, fa, wa, sam_mod, name, g, grid, dtype, dev, d=80, fma=Fal
         extra = {"device_ms": dev_ms, "tflops": flops / dev_ms / 1e9,
                  "gbps": nbytes / dev_ms / 1e6, "library_device_ms": device_ms(library),
                  "design": (RELPOS_WGMMA_DESIGN[window] if routed.endswith("_wgmma") else
-                            TC_DESIGN + ", 4 warps x 32 rows, " + (
-                                "bias_h as a row shift" if ww % 64 == 0 else
-                                "key coordinates once per tile, the last tile's k16 steps only")
+                            (FMA_DESIGN if not fa.relpos_factor_table(hh, ww) else
+                             TC_DESIGN + ", 4 warps x 32 rows, " + (
+                                 "bias_h as a row shift" if ww % 64 == 0 else
+                                 "key coordinates once per tile, the last tile's k16 steps only"))
                             + (", persistent blocks loading the next window ahead"
-                               if window else ""))}
+                               if window and not on_flash else "")) + suffix}
     if window:
         # the SAM encoder's own dense windowed attention (models/sam.py,
         # ViTAttention.forward without a kernel): logits, the dense bias,
@@ -612,6 +648,54 @@ def relpos_case(torch, fa, wa, sam_mod, name, g, grid, dtype, dev, d=80, fma=Fal
     torch.cuda.empty_cache()
     check(excess <= 0.0, f"{rec['kernel']} {name} {dname}: max abs err {err} beyond tolerance")
     return rec
+
+
+# K1 past the by-value table's 8 levels: the encoder's four and five more
+# below them (as a deeper feature pyramid would add)
+NINE_LEVELS = ((100, 134), (50, 67), (25, 34), (13, 17), (7, 9), (4, 5), (2, 3), (1, 2), (1, 1))
+
+
+def past_limits(torch, mods, cases, dev, rng):
+    """The shapes the JAX kernels take past the port's old limits, each on a
+    hand-written kernel whose counter the case checks (the routes the CPU
+    mirrors name) and within tolerance of its plain version: K2/K3 at head
+    dims 160 and 256 in bf16 and f32, every key valid and keys masked (the
+    head-dim slices of the tile and the FMA kernel); K4 at head dim 160 and
+    on grids with kh + kw past 256 (1 x 300, 2 x 255: the FMA kernel reading
+    the factors from device memory); K5 on 17 x 17 windows (K4's kernels);
+    K1 at 9 levels (the level table in device memory) and at head dim 160
+    (the channel slices), clamp and exact. Small shapes: no configured model
+    reaches any of them, and the run's time limit is shared."""
+    fa, wa, dw, sam_mod, deformable = mods
+    for d in (160, 256):
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = str(dtype).split(".")[-1]
+            for valid, tag in ((1024, "unmasked"), (900, "masked")):
+                cases[(f"flash_d{d}_{tag}", dname, 1)] = rec = flash_case(
+                    torch, fa, f"d{d}_1024_{valid}", (16, 1024, d), valid, dtype, dev)
+                check(rec["kernel"] == ("flash_attention" if dtype == torch.bfloat16
+                                        else "flash_attention_f32"),
+                      f"flash d{d} {tag} {dname}: on {rec['kernel']}")
+    for key, name, g, grid, d in (("relpos_d160", "d160_global", 16, (32, 32), 160),
+                                  ("relpos_kh_kw_300", "grid_1x300_global", 16, (1, 300), 64),
+                                  ("relpos_kh_kw_257", "grid_2x255_global", 16, (2, 255), 64),
+                                  ("relpos_window_17", "window_17x17", 256, (17, 17), 80)):
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = str(dtype).split(".")[-1]
+            cases[(key, dname, 1)] = rec = relpos_case(
+                torch, fa, wa, sam_mod, name, g, grid, dtype, dev, d=d)
+            check(rec["kernel"] == "flash_attention_relpos",
+                  f"rel-pos {name} {dname}: on {rec['kernel']}, not K4's kernel")
+    anchors9 = dw.raster_centers(NINE_LEVELS)
+    anchors = dw.raster_centers(dw.ENC_SHAPES)
+    for key, shapes, q_locs, heads, hd in (("deform_9_levels", NINE_LEVELS, anchors9, 8, 32),
+                                           ("deform_d160", dw.ENC_SHAPES, anchors, 2, 160)):
+        for mode, modes in (("clamp", deformable.level_modes(shapes)),
+                            ("exact", (None,) * len(shapes))):
+            for dtype in (torch.bfloat16, torch.float32):
+                cases[(f"{key}_{mode}", str(dtype).split(".")[-1], 1)] = deform_case(
+                    torch, dw, f"{key}_{mode}", q_locs, dtype, modes, dev, rng, 1, shapes,
+                    heads, hd)
 
 
 def synthetic_frame(path, size, noise=12):
@@ -3623,10 +3707,23 @@ def main() -> int:
             fma=spread == 1.0, spread=spread)
         check(rec["kernel"] == "flash_attention_relpos_tf32",
               f"f32 K4 {name} at head dim 96: on {rec['kernel']}")
-    # outside the 3xTF32 predicate, on the FMA kernels (the witnesses of what
-    # still loses to SDPA in f32): K4 at head dim 80 on the 64 x 36 grid
-    # (kw not a multiple of 8), K5 at SAM ViT-L's head dim 64
-    for key, name, g, grid, d in (("relpos_global_fma", "kw36_d80_global", 16, (64, 36), 80),
+    # K4 at head dim 80 on the 64 x 36 grid (kw not a multiple of 8) on the
+    # 3xTF32 kernel's straddling mode, beside the FMA kernel on the same
+    # inputs; outside the 3xTF32 predicate, on the FMA kernels (the
+    # witnesses of what still loses to SDPA in f32): K4 on a grid taller
+    # than 64 at a straddling width, K5 at SAM ViT-L's head dim 64
+    # (and on a 64 x 3 grid, where an n8 group spans three grid rows): each
+    # width is admitted only where it beats the FMA kernel
+    for key, name, g, grid in (("relpos_straddle", "kw36_d80_global", 16 * FRAME_BATCH, (64, 36)),
+                               ("relpos_straddle_kw3", "kw3_d80_global", 16, (64, 3))):
+        cases[(key, "float32", FRAME_BATCH)] = rec = relpos_case(
+            torch, fa, wa, sam_mod, name, g, grid, torch.float32, dev, fma=True)
+        check(rec["kernel"] == "flash_attention_relpos_tf32",
+              f"f32 K4 {name}: went through {rec['kernel']}, not the 3xTF32 kernel")
+        check(rec["device_ms"] < rec["fma_device_ms"],
+              f"f32 K4 {name}: the 3xTF32 kernel ({rec['device_ms']} ms) loses to the FMA "
+              f"kernel ({rec['fma_device_ms']} ms)")
+    for key, name, g, grid, d in (("relpos_global_fma", "kh72_kw36_d80_global", 4, (72, 36), 80),
                                   ("relpos_window_fma", "window_sam_vit_l", 400, (14, 14), 64)):
         cases[(key, "float32", FRAME_BATCH)] = rec = relpos_case(
             torch, fa, wa, sam_mod, name, g * FRAME_BATCH, grid, torch.float32, dev, d=d)
@@ -3716,6 +3813,7 @@ def main() -> int:
     cases[("flash_fma", "float32", FRAME_BATCH)] = rec = flash_case(
         torch, fa, "d112_1024_900", (8 * FRAME_BATCH, 1024, 112), 900, torch.float32, dev)
     check(rec["kernel"] == "flash_attention_f32", "flash_fma: off the f32-FMA kernel")
+    past_limits(torch, (fa, wa, dw, sam_mod, deformable), cases, dev, rng)
     cases["nms"] = nms_case(torch, nms, dev)
     cases["nms_threshold"] = nms_threshold_case(torch, nms, dev)
     # frames past the staged kernel's 90 112 boxes, on its large mode
@@ -3937,6 +4035,9 @@ def main() -> int:
             (("relpos_window", "float32", FRAME_BATCH),
              "beyondff_tpu_torch/csrc/relpos_attention_tf32.cu",
              "beyondff_tpu/kernels/window_attention.py:51"),
+            (("relpos_straddle", "float32", FRAME_BATCH),
+             "beyondff_tpu_torch/csrc/relpos_attention_tf32.cu",
+             "beyondff_tpu/kernels/flash_attention.py:193"),
             (("relpos_global_fma", "float32", FRAME_BATCH),
              "beyondff_tpu_torch/csrc/relpos_attention.cu",
              "beyondff_tpu/kernels/flash_attention.py:193"),
@@ -3945,7 +4046,24 @@ def main() -> int:
              "beyondff_tpu/kernels/window_attention.py:51"),
             (("deform_clamp", "float32", FRAME_BATCH),
              "beyondff_tpu_torch/csrc/ms_deform_sample.cu",
-             "beyondff_tpu/kernels/deform_window.py:170")):
+             "beyondff_tpu/kernels/deform_window.py:170"),
+            # the shapes past the old limits (past_limits; no configured
+            # model reaches them): head dims past 128 on the slices of the
+            # tile (bf16) and the FMA kernels (f32), kh + kw past 256, 17 x 17
+            # windows on K4's kernels, K1 at 9 levels and head dim 160
+            *(((f"flash_d{d}_{tag}", dname, 1), "beyondff_tpu_torch/csrc/flash_attention.cu",
+               "beyondff_tpu/kernels/flash_attention.py:" + ("270" if tag == "masked" else "68"))
+              for d in (160, 256) for tag in ("unmasked", "masked")
+              for dname in ("bfloat16", "float32")),
+            *(((key, dname, 1), "beyondff_tpu_torch/csrc/relpos_attention.cu",
+               "beyondff_tpu/kernels/" + ("window_attention.py:51" if key == "relpos_window_17"
+                                          else "flash_attention.py:193"))
+              for key in ("relpos_d160", "relpos_kh_kw_300", "relpos_kh_kw_257",
+                          "relpos_window_17") for dname in ("bfloat16", "float32")),
+            *(((f"{key}_{mode}", dname, 1), "beyondff_tpu_torch/csrc/ms_deform_sample.cu",
+               "beyondff_tpu/kernels/deform_window.py:170")
+              for key in ("deform_9_levels", "deform_d160") for mode in ("clamp", "exact")
+              for dname in ("bfloat16", "float32"))):
         c = cases[key]
         # K3's row counts the fast variant's launches (EfficientSAM's global
         # blocks), K2's the classic path's, K4's the sweep's; an f32 row the
@@ -3972,7 +4090,8 @@ def main() -> int:
                                                      "sort_ms", "gather_ms", "scan_ms",
                                                      "bound_fma_ms", "share_of_bound",
                                                      "fma_ms", "fma_device_ms",
-                                                     "dtype", "shape", "design")
+                                                     "dtype", "shape", "grid", "valid_len",
+                                                     "levels", "head_dim", "design")
                          if key in c}})
     shutil.rmtree(work)
     marks.append((None, time.perf_counter()))

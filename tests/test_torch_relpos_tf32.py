@@ -1,6 +1,7 @@
 """K4 and K5 in f32 (SAM ViT-H's head-dim-80 rel-pos attention, and K4 at
 SAM ViT-L's and ViT-B's head dim 64 and at head dim 96, and on grids
-narrower than 64: the narrow mode) on the 3xTF32 wgmma kernels of
+narrower than 64: the narrow and straddling modes; the straddling mode's
+own cases are in tests/test_torch_any_shape.py) on the 3xTF32 wgmma kernels of
 ``csrc/relpos_attention_tf32.cu``.
 
 On the CPU: the routing rule (``relpos_tf32_route``, the mirror of the C
@@ -110,9 +111,9 @@ def _sam_factors(jx, rows, cols, g, d, spread):
     ((0, 0, 80, 8, 1, 8, _S80, *_A), True),  # the narrowest and shortest grid: one tile
     ((0, 0, 80, 3584, 64, 56, _S80, *_A), True),  # the widest narrow grid
     ((0, 0, 80, 120, 5, 24, _S80, *_A), True),  # kw 24: tiles straddle grid rows
-    ((0, 0, 80, 256, 64, 4, _S80, *_A), False),  # kw 4: below the narrow mode's 8
-    ((0, 0, 80, 768, 64, 12, _S80, *_A), False),  # kw 12: not a multiple of 8
-    ((0, 0, 80, 2304, 64, 36, _S80, *_A), False),  # kw 36: not a multiple of 8
+    ((0, 0, 80, 260, 65, 4, _S80, *_A), False),  # kw 4 (straddling) with kh past 64
+    ((0, 0, 80, 780, 65, 12, _S80, *_A), False),  # kw 12 (straddling) with kh past 64
+    ((0, 0, 80, 2305, 64, 36, _S80, *_A), False),  # kw 36 (straddling), S off the grid
     ((0, 0, 80, 4608, 64, 72, _S80, *_A), False),  # wider than 64
     ((0, 0, 80, 2080, 65, 32, _S80, *_A), False),  # kh 65 on a 32-wide grid
     ((0, 0, 96, 2048, 64, 32, 96 ** -0.5, *_A), True),  # head dim 96 on a 32-wide grid
@@ -141,17 +142,29 @@ def _sam_factors(jx, rows, cols, g, d, spread):
     ((0, 0, 96, 3584, 64, 56, 96 ** -0.5, *_A), True),  # head dim 96, the widest narrow grid
     ((0, 0, 96, 64, 1, 64, 96 ** -0.5, *_A), True),  # head dim 96, one grid row
     ((0, 0, 96, 32, 1, 32, 96 ** -0.5, *_A), True),  # head dim 96, kh 1 on a 32-wide grid
-    ((0, 0, 96, 2304, 64, 36, 96 ** -0.5, *_A), False),  # head dim 96, kw 36
+    ((0, 0, 96, 2340, 65, 36, 96 ** -0.5, *_A), False),  # head dim 96, kw 36 with kh past 64
     ((0, 0, 96, 4096, 64, 64, 96 ** -0.5, 0, 0, 0, 0, 0, 4), False),  # bias_w off 16 bytes
     ((0, 0, 96, 2048, 64, 32, 96 ** -0.5, 4, 0, 0, 0, 0, 0), False),  # narrow, q off 16 bytes
     ((0, 1, 96, 4096, 64, 64, 96 ** -0.5, *_A), False),  # bf16 at head dim 96: the tile
     ((1, 0, 96, 196, 14, 14, 96 ** -0.5, *_A), False),  # K5 at head dim 96: the FMA kernel
     ((0, 0, 112, 4096, 64, 64, 112 ** -0.5, *_A), False),  # head dim 112
     ((0, 0, 112, 2048, 64, 32, 112 ** -0.5, *_A), False),
+    # the straddling mode: widths below 64 that are no multiple of 8
+    ((0, 0, 80, 256, 64, 4, _S80, *_A), True),  # kw 4: an n8 group spans two grid rows
+    ((0, 0, 80, 768, 64, 12, _S80, *_A), True),  # kw 12
+    ((0, 0, 80, 2304, 64, 36, _S80, *_A), True),  # kw 36: the 64 x 36 witness's grid
+    ((0, 0, 96, 2304, 64, 36, 96 ** -0.5, *_A), True),  # head dim 96, kw 36
+    ((0, 0, 64, 64, 64, 1, 0.125, *_A), True),  # kw 1: every key its own grid row
+    ((0, 0, 80, 4032, 64, 63, _S80, *_A), True),  # kw 63, the widest
+    ((0, 0, 80, 7, 1, 7, _S80, *_A), True),  # one grid row of 7: one padded tile
+    ((0, 1, 80, 2304, 64, 36, _S80, *_A), False),  # bf16 at kw 36: the tile
+    ((0, 0, 112, 2304, 64, 36, 112 ** -0.5, *_A), False),  # head dim 112 at kw 36
+    ((0, 0, 80, 2304, 64, 36, _S80, 0, 0, 0, 0, 0, 4), False),  # kw 36, bias_w off 16 bytes
 ])
 def test_relpos_tf32_route_pins_the_predicate(args, takes):
     """The Python mirror of ``bff_relpos_tf32_takes``: f32, kh <= 64 with kw =
-    64 or a multiple of 8 from 8 to 56 at head dim 64, 80 or 96 (K4) or 14 x 14
+    64, a multiple of 8 from 8 to 56 (the narrow mode) or any other width
+    below 64 (the straddling mode) at head dim 64, 80 or 96 (K4) or 14 x 14
     windows at 80 (K5), a positive finite f32
     scale, six 16-byte aligned pointers; and the counter a call moves:
     ``..._tf32`` where it takes the call, else the bf16 wgmma kernels'
@@ -689,14 +702,15 @@ def test_k5_tf32_matches_plain_on_card(cuda_device, g, scale, spread):
                                   "window_d64", "window_16"])
 def test_other_f32_relpos_calls_keep_the_fma_kernels_on_card(cuda_device, case):
     """f32 calls outside the predicate (head dim 112 on a 64-wide grid, a
-    36-wide grid at head dim 80, 64 and 96 and a 4-wide one (widths the
-    narrow mode does not take), an input off 16 bytes, head-dim-64 and
-    16 x 16 windows) stay on the FMA kernels, counted as
-    ``flash_attention_relpos`` or ``window_attention_relpos``, within 1e-4."""
+    36-wide grid at head dim 80, 64 and 96 and a 4-wide one 65 rows tall
+    (the straddling mode takes these widths up to 64 rows), an input off 16
+    bytes, head-dim-64 and 16 x 16 windows) stay on the FMA kernels, counted
+    as ``flash_attention_relpos`` or ``window_attention_relpos``, within
+    1e-4."""
     window = case.startswith("window")
     rows, cols = ((16, 16) if case == "window_16" else (14, 14)) if window else (
-        (64, 36) if case.startswith("kw36") or case == "d96_kw36" else
-        (64, 4) if case == "kw4" else (16, 64))
+        (65, 36) if case.startswith("kw36") or case == "d96_kw36" else
+        (65, 4) if case == "kw4" else (16, 64))
     d = {"d112": 112, "d96_kw36": 96, "kw36_d64": 64, "window_d64": 64}.get(case, 80)
     q, k, v, bias_h, bias_w = _card_inputs(cuda_device, 3, rows, cols, d=d)
     if case == "misaligned":
