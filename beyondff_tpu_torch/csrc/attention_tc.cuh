@@ -60,6 +60,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace bff_tc {
 
 constexpr int kBK = 64;      // keys of a tile
@@ -95,11 +97,12 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) 
                "r"(in ? 16 : 0)
                : "memory");
 }
-// 4 bytes by cp.async (through L1), zero-filled where ``in`` is false.
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool in) {
+// 4 bytes by cp.async (through L1) of which the first ``bytes`` (0, 2 or 4)
+// are read from src and the rest zero-filled (2: a bf16 pair whose second
+// element lies past the end of its array).
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int bytes) {
   const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
-               "r"(in ? 4 : 0)
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src), "r"(bytes)
                : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {
@@ -240,20 +243,34 @@ __device__ __forceinline__ void zero_scores(float (&s)[MT][NS][4]) {
     for (int j = 0; j < NS; ++j) s[mt][j][0] = s[mt][j][1] = s[mt][j][2] = s[mt][j][3] = 0.f;
 }
 
-// The rest of a key tile for one warp, given its raw scores s: the
-// modifier, the online softmax, O += P V over the first NK k16 steps.
+// What a score modifier declares beyond ``tile`` and ``apply``: ``kStaged``,
+// that it stages each key tile's data into shared memory beside K and V
+// (``stage(k0)``, issued by every thread with the tile's K and V copies and
+// waited for with them), and ``kEarlyTile``, that its ``tile(k0)`` is taken
+// before the tile's Q K^T (it issues loads that the products then cover).
+template <class Mod, class = void>
+struct mod_traits {
+  static constexpr bool staged = false, early = false;
+};
+template <class Mod>
+struct mod_traits<Mod, std::void_t<decltype(Mod::kStaged)>> {
+  static constexpr bool staged = Mod::kStaged, early = Mod::kEarlyTile;
+};
+
+// The rest of a key tile for one warp, given its raw scores s and the
+// modifier's tile: the modifier, the online softmax, O += P V over the
+// first NK k16 steps.
 template <int DP, int MT, int NK, class Mod>
 __device__ __forceinline__ void softmax_pv(float (&acc)[MT][DP / 8][4], float (&m)[MT][2],
                                            float (&l)[MT][2], float (&s)[MT][NS][4],
-                                           const __nv_bfloat16* vt, int k0, int wrow, float scale,
-                                           const Mod& mod) {
+                                           const __nv_bfloat16* vt, const typename Mod::Tile& cols,
+                                           int wrow, float scale, const Mod& mod) {
   constexpr int LD = DP + 8;
   constexpr int NO = DP / 8;   // n8 tiles of an output row
   const int lane = threadIdx.x & 31;
   // the online softmax of each m16 tile; P in bf16 as the A fragments of
   // P V (k16 step kk takes n8 tiles 2 kk and 2 kk + 1 of the scores)
   uint32_t pa[MT][NS / 2][4];
-  const typename Mod::Tile cols = mod.tile(k0);
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt) {
     float shift[2];
@@ -331,8 +348,14 @@ __device__ __forceinline__ void tile_step(float (&acc)[MT][DP / 8][4], float (&m
                                           int k0, int wrow, float scale, const Mod& mod) {
   float s[MT][NS][4];
   zero_scores<MT>(s);
-  add_scores<DP, MT, NK>(s, sQw, kt);
-  softmax_pv<DP, MT, NK>(acc, m, l, s, vt, k0, wrow, scale, mod);
+  if constexpr (mod_traits<Mod>::early) {
+    const typename Mod::Tile cols = mod.tile(k0);
+    add_scores<DP, MT, NK>(s, sQw, kt);
+    softmax_pv<DP, MT, NK>(acc, m, l, s, vt, cols, wrow, scale, mod);
+  } else {
+    add_scores<DP, MT, NK>(s, sQw, kt);
+    softmax_pv<DP, MT, NK>(acc, m, l, s, vt, mod.tile(k0), wrow, scale, mod);
+  }
 }
 
 // A key tile holding kn keys (from k0 on) by the tile_step instance that
@@ -362,8 +385,9 @@ __device__ __forceinline__ void key_tile(float (&acc)[MT][DP / 8][4], float (&m)
 // to the key tiles [0, n_tiles) of k and v; out rows >= S are not written.
 // Every thread of the block calls it. The block synchronises before the
 // first ``mod.apply``, so the caller may fill shared memory the modifier
-// reads (after the first smem_bytes<DP, ROWS>() bytes) with plain stores
-// just before.
+// reads (after the first smem_bytes<DP, ROWS>() bytes) with plain stores or
+// cp.async copies just before (the copies join the first group). A staged
+// modifier (mod_traits) stages tile t + 1 into its ring slot with K and V.
 template <int DP, int WARPS, int MT, class Mod>
 __device__ __forceinline__ void attend_block(const __nv_bfloat16* __restrict__ q,
                                              const __nv_bfloat16* __restrict__ k,
@@ -398,6 +422,7 @@ __device__ __forceinline__ void attend_block(const __nv_bfloat16* __restrict__ q
     if (t + 1 < n_tiles) {
       load_tile<DP, kBK, kThreads>(sK + ((t + 1) & 1) * kTile, k, (t + 1) * kBK, S, D);
       load_tile<DP, kBK, kThreads>(sV + ((t + 1) & 1) * kTile, v, (t + 1) * kBK, S, D);
+      if constexpr (mod_traits<Mod>::staged) mod.stage((t + 1) * kBK);
     }
     cp_async_commit();
     const __nv_bfloat16* kt = sK + (t & 1) * kTile;
@@ -460,7 +485,7 @@ __device__ __forceinline__ void attend_block_sliced(const __nv_bfloat16* __restr
       __syncthreads();
       if (live) add_scores<DP, MT, NS / 2>(s, sQw, sK);
     }
-    if (live) softmax_pv<DP, MT, NS / 2>(acc, m, l, s, sV, t * kBK, wrow, scale, mod);
+    if (live) softmax_pv<DP, MT, NS / 2>(acc, m, l, s, sV, mod.tile(t * kBK), wrow, scale, mod);
   }
   store_rows<DP, MT>(acc, l, o, q0 + wrow, S, D, c0);
 }
@@ -526,7 +551,7 @@ __device__ __forceinline__ void load_factor_table(__nv_bfloat16* dst,
       const bool in = gr < S;
       const __nv_bfloat16* src = c < kh ? bh + (long long)gr * kh + c
                                         : bw + (long long)gr * kw + c - kh;
-      cp_async4(dst + r * ld + (c < kh ? c : w0 + c - kh), in ? src : bh, in);
+      cp_async4(dst + r * ld + (c < kh ? c : w0 + c - kh), in ? src : bh, in ? 4 : 0);
     }
     return;
   }
@@ -572,6 +597,47 @@ struct GridRowBias {
   }
 };
 
+// Scores of block rows r0 and r0 + 8 plus their bias from a bf16 table in
+// shared memory with row stride ld: off[col] (off[pair] with kPairs: the
+// two columns' bias_h is one entry, their bias_w one 4-byte pair) holds the
+// column's bias_h entry in its low 16 bits and its bias_w entry in the high
+// ones, or kMaskedOff for a key past S. Masked columns read the row's
+// first entry and are set to -inf after: no branch, so the table reads of
+// all columns issue together.
+constexpr uint32_t kMaskedOff = 0xffffffffu;
+
+template <bool kPairs, int NJ, int NC>
+__device__ __forceinline__ void table_bias(float (&s)[NS][4], const uint32_t (&off)[NC],
+                                           const __nv_bfloat16* table, int ld, int r0,
+                                           float scale, float (&shift)[2]) {
+  shift[0] = shift[1] = 0.f;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const __nv_bfloat16* f = table + (r0 + 8 * h) * ld;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      if (kPairs) {
+        const uint32_t u = off[j] == kMaskedOff ? 0u : off[j];
+        const float bh = __bfloat162float(f[u & 0xffffu]);
+        const float2 bw =
+            __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(f + (u >> 16)));
+        const float x0 = fmaf(s[j][2 * h], scale, bh + bw.x);
+        const float x1 = fmaf(s[j][2 * h + 1], scale, bh + bw.y);
+        s[j][2 * h] = off[j] == kMaskedOff ? masked_score() : x0;
+        s[j][2 * h + 1] = off[j] == kMaskedOff ? masked_score() : x1;
+      } else {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const uint32_t u = off[2 * j + e] == kMaskedOff ? 0u : off[2 * j + e];
+          const float x = fmaf(s[j][2 * h + e], scale,
+                               __bfloat162float(f[u & 0xffffu]) + __bfloat162float(f[u >> 16]));
+          s[j][2 * h + e] = off[2 * j + e] == kMaskedOff ? masked_score() : x;
+        }
+      }
+    }
+  }
+}
+
 // K5's windows and K4 on any other grid (kw % 64 != 0): the factor table
 // read through each key's grid coordinates. ``tile`` takes the lane's 16
 // columns of the key tile (8 j + col0() + {0, 1}) to their (ky, kx) once,
@@ -583,7 +649,7 @@ struct GridRowBias {
 template <bool kPairs>
 struct WindowBias {
   static constexpr int kCols = kPairs ? NS : 2 * NS;
-  static constexpr uint32_t kMasked = 0xffffffffu;
+  static constexpr uint32_t kMasked = kMaskedOff;
   const __nv_bfloat16* table;
   int kh, kw, S;
   // per column (pair): ky | (table_w0(kh) + kx) << 16, or kMasked
@@ -621,33 +687,202 @@ struct WindowBias {
   template <int NJ>
   __device__ __forceinline__ void apply(float (&s)[NS][4], const Tile& c, int r0, float scale,
                                         float (&shift)[2]) const {
-    shift[0] = shift[1] = 0.f;
-    const int ld = table_ld(kh, kw);
-    // masked columns read the row's first entry and are set to -inf after:
-    // no branch, so the table reads of all columns issue together
+    table_bias<kPairs, NJ>(s, c.off, table, table_ld(kh, kw), r0, scale, shift);
+  }
+};
+
+// K4 on grids whose factor table would not fit (kh + kw past
+// csrc/relpos_attention.cu's kMaxTableCols), and K5's windows that run K4's
+// kernels there: the factors a key tile needs are staged into a ring slot
+// of shared memory beside the tile's K and V, in the same cp.async group,
+// and read from there as WindowBias reads its table. A tile starting at key
+// k0 touches grid rows y0 = k0 / kw .. (k0 + 63) / kw, at most 62 / kw + 2
+// columns of bias_h, and min(kw, 64) columns of bias_w. Up to
+// kStreamFixedW columns every bias_w column of the block's rows is staged
+// once, into a fixed table after the two slots, and only bias_h's columns
+// stream (two a row a tile for kw >= 64); past it bias_w streams too: one
+// run of 64 from x0 = k0 % kw that wraps at most once (piece A, x0 .. kw -
+// 1, then piece B, 0 ..). A piece of a factor row starts at any element, so
+// it is copied as the 4-byte words that hold it (the factor bases are
+// 4-byte aligned), its first element at parity p = its flat index & 1 within
+// its first word; the word past the end of an array is read as 2 bytes.
+// Four threads copy a row's words, eight rows a warp at a time. Table row r
+// (block row r, flat factor row R = head * S + q0 + r) holds, in words:
+// slot 0 (H words of bias_h, then, past kStreamFixedW, 34 words of bias_w:
+// piece A, piece B from the next word), slot 1 alike, then the fixed table
+// (up to kStreamFixedW: (kw + 2) / 2 words), rows ld elements apart. A
+// lane's rows (lane / 4 + 8 h + 16 mt of its warp's 32) share R's parity,
+// so its per-tile column offsets hold for all of them; with an even kw
+// every parity of bias_w is 0 and a key pair shares one bias_h entry and
+// one 4-byte bias_w pair, as in WindowBias. kernels/flash_attention.py
+// relpos_stream_layout / relpos_stream_stage / relpos_stream_offsets mirror
+// this plan.
+constexpr int kStreamFixedW = 160;  // at DP 80 two blocks still share an SM
+__host__ __device__ constexpr int stream_h_words(int kw) { return (62 / kw + 4) / 2; }
+__host__ __device__ constexpr int stream_slot_words(int kw) {
+  return stream_h_words(kw) + (kw > kStreamFixedW ? 34 : 0);
+}
+__host__ __device__ constexpr int stream_fixed_words(int kw) {
+  return kw > kStreamFixedW ? 0 : (kw + 2) / 2;
+}
+__host__ __device__ constexpr int stream_ld(int kw) {
+  return (2 * (2 * stream_slot_words(kw) + stream_fixed_words(kw)) + 15) / 16 * 16 + 8;
+}
+
+// ROWS query rows a block, THREADS threads. kFromL2 (a measured
+// alternative, tools/kernel_variants.py): nothing is staged; each score's
+// factors are read from device memory, the tile's factor lines prefetched
+// into L1 before its Q K^T (tile() runs first: kEarlyTile).
+template <int ROWS, int THREADS, bool kPairs, bool kFromL2 = false>
+struct StreamedBias {
+  static constexpr bool kStaged = !kFromL2, kEarlyTile = kFromL2;
+  static constexpr int kCols = kPairs ? NS : 2 * NS;
+  __nv_bfloat16* table;       // ROWS x stream_ld(kw) bf16 in shared memory
+  const __nv_bfloat16* bh;    // bias_h (rows, kh), the whole array, 4-byte aligned
+  const __nv_bfloat16* bw;    // bias_w (rows, kw)
+  long long rows;             // BH * S, the factor rows of every head
+  long long row0;             // the block's first flat row, head * S + q0
+  int kh, kw, S, q0;
+  // per column (pair): bias_h entry | bias_w entry << 16 of the table row
+  // (kFromL2: ky | kx << 16), or kMaskedOff
+  struct Tile {
+    uint32_t off[kCols];
+  };
+
+  // The piece of ``cnt`` elements from flat index e of ``src`` (``total``
+  // elements) into the words from dst on, this thread taking words sub,
+  // sub + 4, ...; zero-filled when ``live`` is false (rows past S).
+  __device__ __forceinline__ static void copy_piece(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                                    long long total, long long e, int cnt,
+                                                    int sub, bool live) {
+    const int nw = cnt > 0 ? (static_cast<int>(e & 1) + cnt + 1) >> 1 : 0;
+    const __nv_bfloat16* s0 = src + 2 * (e >> 1);
+    const bool short_end = 2 * ((e >> 1) + nw) > total;  // the last word's second element
+    for (int u = sub; u < nw; u += 4)
+      cp_async4(dst + 2 * u, live ? s0 + 2 * u : src,
+                !live ? 0 : u == nw - 1 && short_end ? 2 : 4);
+  }
+
+  // The fixed table (every bias_w column of the block's rows, up to
+  // kStreamFixedW columns), by cp.async; called once before attend_block.
+  __device__ __forceinline__ void stage_fixed() const {
+    if (kFromL2 || kw > kStreamFixedW) return;
+    const int ld = stream_ld(kw), f0 = 4 * stream_slot_words(kw);
+    for (int r = threadIdx.x / 4; r < ROWS; r += THREADS / 4)
+      copy_piece(table + r * ld + f0, bw, rows * kw, (row0 + r) * kw, kw, threadIdx.x & 3,
+                 q0 + r < S);
+  }
+
+  // Tile k0's factor columns into slot (k0 / 64) & 1, by every thread.
+  __device__ __forceinline__ void stage(int k0) const {
+    if (kFromL2) return;
+    const int hw = stream_h_words(kw), sw = stream_slot_words(kw), ld = stream_ld(kw);
+    const int y0 = k0 / kw, x0 = k0 - y0 * kw, n = min(kBK, S - k0);
+    const int nh = (k0 + n - 1) / kw - y0 + 1;
+    const int na = min(n, kw - x0), nb = n - na;
+    const long long th = rows * kh, tw = rows * kw;
+    __nv_bfloat16* slot = table + ((k0 / kBK) & 1) * 2 * sw;
+    const int sub = threadIdx.x & 3;
+    for (int r = threadIdx.x / 4; r < ROWS; r += THREADS / 4) {
+      const long long R = row0 + r;
+      const bool live = q0 + r < S;
+      __nv_bfloat16* dst = slot + r * ld;
+      copy_piece(dst, bh, th, R * kh + y0, nh, sub, live);
+      if (kw > kStreamFixedW) {
+        const long long ea = R * kw + x0;
+        const int wa = (static_cast<int>(ea & 1) + na + 1) >> 1;
+        copy_piece(dst + 2 * hw, bw, tw, ea, na, sub, live);
+        copy_piece(dst + 2 * (hw + wa), bw, tw, R * kw, nb, sub, live);
+      }
+    }
+  }
+
+  __device__ __forceinline__ Tile tile(int k0) const {
+    Tile c;
+    const int y0 = k0 / kw, x0 = k0 - y0 * kw, n = min(kBK, S - k0);
+    const int lane = threadIdx.x & 31;
+    int hbase = 0, abase = 0, bbase = 0, xa = 0;
+    if constexpr (kFromL2) {
+      // the lane's rows' factor lines into L1 while Q K^T runs
+      constexpr int kWarpRows = ROWS / (THREADS / 32);
+      const int last = x0 + n - 1;  // the run's last column, past kw when it wraps
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const __nv_bfloat16* f = table + (r0 + 8 * h) * ld;
+      for (int i = 0; i < kWarpRows / 8; ++i) {
+        const int gr = min(q0 + (threadIdx.x / 32) * kWarpRows + 8 * i + lane / 4, S - 1);
+        const __nv_bfloat16* fh = bh + (row0 - q0 + gr) * kh;
+        const __nv_bfloat16* fw = bw + (row0 - q0 + gr) * kw;
+        const int xs[4] = {kw < kBK ? 0 : x0, min(last, kw - 1), last >= kw ? 0 : x0,
+                           last >= kw ? last - kw : x0};
+        asm volatile("prefetch.global.L1 [%0];\n" ::"l"(fh + y0));
+        asm volatile("prefetch.global.L1 [%0];\n" ::"l"(fh + (k0 + n - 1) / kw));
 #pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        if (kPairs) {
-          const uint32_t u = c.off[j] == kMasked ? 0u : c.off[j];
-          const float bh = __bfloat162float(f[u & 0xffffu]);
-          const float2 bw =
-              __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(f + (u >> 16)));
-          const float x0 = fmaf(s[j][2 * h], scale, bh + bw.x);
-          const float x1 = fmaf(s[j][2 * h + 1], scale, bh + bw.y);
-          s[j][2 * h] = c.off[j] == kMasked ? masked_score() : x0;
-          s[j][2 * h + 1] = c.off[j] == kMasked ? masked_score() : x1;
-        } else {
+        for (int p = 0; p < 4; ++p) asm volatile("prefetch.global.L1 [%0];\n" ::"l"(fw + xs[p]));
+      }
+    } else {
+      const int hw = stream_h_words(kw), sw = stream_slot_words(kw);
+      const int rho = static_cast<int>((row0 + lane / 4) & 1);  // the lane's rows' parity
+      const int s0 = ((k0 / kBK) & 1) * 2 * sw;
+      hbase = s0 + ((rho * kh + y0) & 1) - y0;
+      if (kw > kStreamFixedW) {
+        const int pa = (rho * kw + x0) & 1, na = min(n, kw - x0);
+        xa = x0;
+        abase = s0 + 2 * hw + pa - x0;
+        bbase = s0 + 2 * hw + 2 * ((pa + na + 1) >> 1) + ((rho * kw) & 1);
+      } else {
+        abase = 4 * sw + ((rho * kw) & 1);  // the fixed table
+      }
+    }
+    int key = k0 + col0();
+    int ky = key / kw, kx = key - ky * kw;
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+#pragma unroll
+      for (int e = 0; e < (kPairs ? 1 : 2); ++e) {
+        const bool wrap = kx + e == kw;
+        const int y = ky + wrap, x = wrap ? 0 : kx + e;
+        const uint32_t off =
+            kFromL2 ? (static_cast<uint32_t>(y) | static_cast<uint32_t>(x) << 16)
+                    : (static_cast<uint32_t>(hbase + y) |
+                       static_cast<uint32_t>(x >= xa ? abase + x : bbase + x) << 16);
+        c.off[kPairs ? j : 2 * j + e] = key + e < S ? off : kMaskedOff;
+      }
+      key += 8;
+      if (kw >= 8) {  // one wrap at most
+        kx += 8;
+        const bool wrap = kx >= kw;
+        kx -= wrap ? kw : 0;
+        ky += wrap;
+      } else {
+        ky = key / kw;
+        kx = key - ky * kw;
+      }
+    }
+    return c;
+  }
+
+  template <int NJ>
+  __device__ __forceinline__ void apply(float (&s)[NS][4], const Tile& c, int r0, float scale,
+                                        float (&shift)[2]) const {
+    if constexpr (!kFromL2) {
+      table_bias<kPairs, NJ>(s, c.off, table, stream_ld(kw), r0, scale, shift);
+    } else {
+      shift[0] = shift[1] = 0.f;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const long long R = row0 + min(r0 + 8 * h, S - 1 - q0);  // rows past S: any row
+        const __nv_bfloat16* fh = bh + R * kh;
+        const __nv_bfloat16* fw = bw + R * kw;
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
-            const uint32_t u = c.off[2 * j + e] == kMasked ? 0u : c.off[2 * j + e];
+            const uint32_t o = c.off[kPairs ? j : 2 * j + e];
+            const uint32_t u = o == kMaskedOff ? 0u : o;
             const float x = fmaf(s[j][2 * h + e], scale,
-                                 __bfloat162float(f[u & 0xffffu]) + __bfloat162float(f[u >> 16]));
-            s[j][2 * h + e] = c.off[2 * j + e] == kMasked ? masked_score() : x;
+                                 __bfloat162float(__ldg(fh + (u & 0xffffu))) +
+                                     __bfloat162float(__ldg(fw + (u >> 16) + (kPairs ? e : 0))));
+            s[j][2 * h + e] = o == kMaskedOff ? masked_score() : x;
           }
-        }
       }
     }
   }

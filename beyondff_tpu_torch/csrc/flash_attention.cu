@@ -14,7 +14,7 @@
 // (~0.6 us) and does 4*8*900*900*32 = 0.83 GFLOP (~0.8 us on the tensor
 // cores), so it is bound by operations.
 //
-// Five kernels, chosen inside bff_flash_attention:
+// Six kernels, chosen inside bff_flash_attention:
 // * bf16 at head dim 64 with every key valid (K3 on the main path:
 //   EfficientSAM-S's global blocks), exactly where bff_flash_wgmma_takes
 //   says so: the wgmma/TMA kernel of csrc/flash_attention_wgmma.cu.
@@ -22,6 +22,10 @@
 //   Grounding-DINO decoder's self-attention, (32, 900, 32) at the batch of
 //   4), exactly where bff_flash_masked_wgmma_takes says so: the wgmma/TMA
 //   kernel of csrc/flash_masked_wgmma.cu.
+// * bf16 at head dims 144 to 256 in steps of 16, any valid_len, exactly
+//   where bff_flash_wide_wgmma_takes says so: the wgmma/TMA kernel of
+//   csrc/flash_attention_wide_wgmma.cu, each block holding the whole head
+//   dim, so every score is computed once.
 // * other bf16: flash_tc_kernel, the tensor-core block of
 //   csrc/attention_tc.cuh (mma.sync m16n8k16 bf16 -> f32 for Q K^T and P V,
 //   scores and P in registers, K/V tiles bf16 in a 2-stage cp.async ring)
@@ -47,10 +51,12 @@
 //   bank conflicts), both products as plain f32 FMAs (67 TFLOP/s f32 peak).
 //   Head dim bound DP in {32, 64, 128}; features D..DP read as zero.
 //
-// Head dims past 128, which the JAX functions take and no configured model
-// calls, run on the same two kernels with a third grid axis over the
-// ceil(D / 128) slices of 128 output features: each block forms its rows'
-// scores over the whole head dim, staging Q and K through its 128-wide
+// Head dims past 128 outside the wide wgmma kernel's predicate (past 256,
+// not a multiple of 16, f32, bases off 16 bytes), which the JAX functions
+// take and no configured model calls, run on the same two kernels with a
+// third grid axis over the ceil(D / 128) slices of 128 output features:
+// each block forms its rows' scores over the whole head dim, staging Q and
+// K through its 128-wide
 // tiles one slice after another and summing each slice's Q K^T into the
 // same f32 scores, runs the online softmax as above, and accumulates P V
 // for its own 128 columns of V only (kSliced; the tile's
@@ -324,6 +330,12 @@ extern "C" int bff_flash_masked_wgmma_takes(int dtype, int D, int S, int valid_l
                                             const void* o);
 extern "C" int bff_flash_masked_wgmma(const void* q, const void* k, const void* v, void* o,
                                       int BH, int S, int valid_len, float scale, void* stream);
+// csrc/flash_attention_wide_wgmma.cu
+extern "C" int bff_flash_wide_wgmma_takes(int dtype, int D, int S, int valid_len, float scale,
+                                          const void* q, const void* k, const void* v,
+                                          const void* o);
+extern "C" int bff_flash_wide_wgmma(const void* q, const void* k, const void* v, void* o, int BH,
+                                    int S, int D, int valid_len, float scale, void* stream);
 // csrc/flash_attention_tf32.cu
 extern "C" int bff_flash_tf32_takes(int dtype, int D, int S, int valid_len, float scale,
                                     const void* q, const void* k, const void* v, const void* o);
@@ -345,6 +357,8 @@ extern "C" int bff_flash_attention(int dtype, const void* q, const void* k, cons
     return bff_flash_attention_wgmma(q, k, v, o, BH, S, scale, stream);
   if (bff_flash_masked_wgmma_takes(dtype, D, S, valid_len, scale, q, k, v, o))
     return bff_flash_masked_wgmma(q, k, v, o, BH, S, valid_len, scale, stream);
+  if (bff_flash_wide_wgmma_takes(dtype, D, S, valid_len, scale, q, k, v, o))
+    return bff_flash_wide_wgmma(q, k, v, o, BH, S, D, valid_len, scale, stream);
   if (bff_flash_tf32_takes(dtype, D, S, valid_len, scale, q, k, v, o))
     return bff_flash_attention_tf32(q, k, v, o, scratch, BH, S, D, valid_len, scale, stream);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -26,7 +26,9 @@
 // and move about 218 MB (0.065 ms): bound by bytes.
 //
 // Routes. bf16 calls at SAM ViT-H's head dim 80 that bff_relpos_wgmma_takes
-// accepts go to csrc/relpos_attention_wgmma.cu; f32 calls that
+// accepts go to csrc/relpos_attention_wgmma.cu; bf16 calls past the factor
+// table that bff_relpos_streamed_takes accepts to
+// csrc/relpos_attention_streamed.cu; f32 calls that
 // bff_relpos_tf32_takes accepts (K4 at head dim 64, 80 or 96 with kw = 64
 // or kw a multiple of 8 from 8 to 56, K5 at 80 on 14 x 14 windows) to the
 // 3xTF32 wgmma kernels of csrc/relpos_attention_tf32.cu; the rest to the
@@ -37,9 +39,13 @@
 // (each block sums its scores over the head dim's slices, staged in turn
 // through its 128-wide Q and K tiles, and accumulates P V for its own
 // slice of V: the FMA kernel's kSliced, the tile's attend_block_sliced);
-// grids with kh + kw past kMaxTableCols = 256 on the FMA kernel reading
-// each score's two factors from device memory through the read-only path
-// instead of a table (bf16 too: the tile keeps its bf16 table); and windows
+// grids with kh + kw past kMaxTableCols = 256 in bf16 on the tile with
+// each key tile's factor columns staged beside its K and V
+// (csrc/relpos_attention_streamed.cu, StreamedBias in attention_tc.cuh;
+// bff_relpos_streamed_takes below), and every
+// other call past the table (f32, bf16 off the tile's alignment or past
+// head dim 128) on the FMA kernel reading each score's two factors from
+// device memory through the read-only path instead of a table; and windows
 // past kMaxWindow = 256 tokens or head dim 128 on K4's kernels, G windows
 // as BH (the same function: window_attention_relpos_plain is
 // attend_relpos_plain), counted as K4's.
@@ -109,6 +115,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <float.h>
 #include <stdint.h>
 
 #include <algorithm>
@@ -193,6 +200,10 @@ __device__ __forceinline__ void score_tile(const float* sQ, const float* sK, int
 // kernel reads bias_h and bias_w from device memory (kTable false) instead
 // of growing the table, and bf16 calls leave the tile for the FMA kernel.
 constexpr int kMaxTableCols = 256;
+// The windows K5's own kernels take: at most kMaxWindow tokens and head dim
+// 128; larger windows and head dims run K4's kernels (flash_relpos_kernels,
+// G windows as BH, kh x kw = wh x ww).
+constexpr int kMaxWindow = 256;
 // The slices of 128 output features a call at head dim D takes (grid z).
 constexpr int kSliceD = 128;
 inline int slices(int D) { return (D + kSliceD - 1) / kSliceD; }
@@ -638,6 +649,17 @@ int launch_window(const void* q, const void* k, const void* v, const void* bh, c
 
 }  // namespace
 
+// below
+extern "C" int bff_relpos_streamed_takes(int kind, int dtype, int D, int S, int rows, int cols,
+                                         float scale, const void* q, const void* k,
+                                         const void* v, const void* o, const void* bias_h,
+                                         const void* bias_w);
+// csrc/relpos_attention_streamed.cu: bf16 K4 past the factor table on the
+// tile with streamed factors
+extern "C" int bff_flash_relpos_streamed(const void* q, const void* k, const void* v,
+                                         const void* bias_h, const void* bias_w, void* o, int BH,
+                                         int S, int D, int kh, int kw, float scale,
+                                         void* stream);
 // csrc/relpos_attention_wgmma.cu: SAM ViT-H's head-dim-80 calls on wgmma and TMA
 extern "C" int bff_relpos_wgmma_takes(int kind, int dtype, int D, int S, int rows, int cols,
                                       float scale, const void* q, const void* k, const void* v,
@@ -689,8 +711,9 @@ int dispatch_flash(const void* q, const void* k, const void* v, const void* bh, 
 // K4's kernels below the wgmma and 3xTF32 routes (and K5's windows past 256
 // tokens or head dim 128, the same function with G windows as BH): bf16 on
 // the tile where its rows, bases and factor table allow (the slice axis
-// past head dim 128), every other call on the FMA kernel. -1 for another
-// dtype.
+// past head dim 128), past the table on the tile with streamed factors
+// where bff_relpos_streamed_takes says so, every other call on the FMA
+// kernel. -1 for another dtype.
 int flash_relpos_kernels(int dtype, const void* q, const void* k, const void* v,
                          const void* bh, const void* bw, void* o, int BH, int S, int D, int kh,
                          int kw, float scale, cudaStream_t s) {
@@ -703,10 +726,31 @@ int flash_relpos_kernels(int dtype, const void* q, const void* k, const void* v,
     return BFF_BY_HEAD_DIM(launch_flash_tc_grid, __nv_bfloat16, q, k, v, bh, bw, o, BH, S, D, kh,
                            kw, scale, s);
   }
+  if (bff_relpos_streamed_takes(0, dtype, D, S, kh, kw, scale, q, k, v, o, bh, bw))
+    return bff_flash_relpos_streamed(q, k, v, bh, bw, o, BH, S, D, kh, kw, scale, s);
   return dispatch_flash<__nv_bfloat16>(q, k, v, bh, bw, o, BH, S, D, kh, kw, scale, s);
 }
 
 }  // namespace
+
+// The streamed route's predicate (kernels/flash_attention.py
+// relpos_streamed_route mirrors it): 1 when K4's kernels (kind 0, a rows x
+// cols = kh x kw grid) or K5's windows run on them (kind 1, wh x ww windows
+// past kMaxWindow tokens) take the tile with streamed factors: bf16, head
+// dim <= 128 on the tile's alignment (D % 8 == 0, q, k, v, o on 16 bytes),
+// kh + kw past kMaxTableCols, factor bases on 4 bytes, a positive finite
+// scale. dtype: 0 = float32, 1 = bfloat16.
+extern "C" int bff_relpos_streamed_takes(int kind, int dtype, int D, int S, int rows, int cols,
+                                         float scale, const void* q, const void* k,
+                                         const void* v, const void* o, const void* bias_h,
+                                         const void* bias_w) {
+  const bool shape = rows >= 1 && cols >= 1 && (long long)rows * cols == S &&
+                     rows + cols > kMaxTableCols && (kind == 0 || (kind == 1 && S > kMaxWindow));
+  const uintptr_t factors =
+      reinterpret_cast<uintptr_t>(bias_h) | reinterpret_cast<uintptr_t>(bias_w);
+  return shape && dtype == 1 && D >= 1 && D <= kSliceD && scale > 0.f && scale <= FLT_MAX &&
+         bff_tc::tile_takes(D, q, k, v, o) && (factors & 3) == 0;
+}
 
 // dtype: 0 = float32, 1 = bfloat16. q, k, v, o: contiguous (BH, S, D) with
 // S = kh * kw, any D and any grid; bias_h: (BH, S, kh), bias_w: (BH, S, kw),
@@ -728,11 +772,6 @@ extern "C" int bff_flash_attention_relpos(int dtype, const void* q, const void* 
   return flash_relpos_kernels(dtype, q, k, v, bias_h, bias_w, o, BH, S, D, kh, kw, scale,
                               static_cast<cudaStream_t>(stream));
 }
-
-// The windows the window kernels below take: at most kMaxWindow tokens and
-// head dim 128; larger windows and head dims run K4's kernels
-// (flash_relpos_kernels, G windows as BH, kh x kw = wh x ww).
-constexpr int kMaxWindow = 256;
 
 // dtype as above. q, k, v, o: contiguous (G, S, D) with S = wh * ww;
 // bias_h: (G, S, wh), bias_w: (G, S, ww), in q's dtype.

@@ -17,10 +17,12 @@ import torch
 # one where it launches its kernel and nowhere else.
 launch_counts: Dict[str, int] = {"flash_attention": 0, "flash_attention_f32": 0,
                                  "flash_attention_relpos": 0,
+                                 "flash_attention_relpos_streamed": 0,
                                  "flash_attention_relpos_tf32": 0,
                                  "flash_attention_relpos_wgmma": 0,
                                  "flash_attention_tf32": 0,
-                                 "flash_attention_wgmma": 0, "flash_masked_wgmma": 0,
+                                 "flash_attention_wgmma": 0,
+                                 "flash_attention_wide_wgmma": 0, "flash_masked_wgmma": 0,
                                  "mask_iou": 0,
                                  "mask_iou_wgmma": 0, "ms_deform_sample": 0, "nms_fixed": 0,
                                  "nms_fixed_large": 0,

@@ -10,7 +10,10 @@ global blocks; :func:`wgmma_route`) to the wgmma/TMA kernel of
 bf16 at head dim 32 with at most ``MASKED_WGMMA_MAX_KEYS`` valid keys (K2,
 the Grounding-DINO decoder's self-attention; :func:`masked_wgmma_route`) to
 the wgmma/TMA kernel of ``csrc/flash_masked_wgmma.cu``, counted as
-``flash_masked_wgmma``; f32 at head dim 32 or 64 (K2 and K3 in
+``flash_masked_wgmma``; bf16 at head dims 144 to 256 in steps of 16
+(:func:`wide_wgmma_route`) to the wgmma/TMA kernel of
+``csrc/flash_attention_wide_wgmma.cu``, counted as
+``flash_attention_wide_wgmma``; f32 at head dim 32 or 64 (K2 and K3 in
 ``detector.dtype: float32``) or 80, 96 or 128 (:func:`tf32_route`) to the 3xTF32 wgmma/TMA
 kernel of ``csrc/flash_attention_tf32.cu``, counted as
 ``flash_attention_tf32``; every other f32 call to the f32-FMA kernel,
@@ -39,9 +42,11 @@ the FMA kernel or the mma.sync tile with a grid axis over the head dim's
 128-feature output slices (:func:`head_dim_slices`; each block sums its
 scores over every slice and accumulates P V for its own;
 :func:`sliced_mirror`), rel-pos grids with kh + kw past 256 on the FMA
-kernel reading the factors from device memory (:func:`relpos_factor_table`),
-and K5's windows past 256 tokens or head dim 128 on K4's kernels
-(:func:`window_on_flash`).
+kernel reading the factors from device memory (:func:`relpos_factor_table`;
+bf16 at head dims up to 128 on the mma.sync tile with each key tile's
+factors streamed into shared memory, :func:`relpos_streamed_route`, counted
+as ``flash_attention_relpos_streamed``), and K5's windows past 256 tokens
+or head dim 128 on K4's kernels (:func:`window_on_flash`).
 """
 
 from __future__ import annotations
@@ -49,6 +54,7 @@ from __future__ import annotations
 import ctypes
 from typing import Optional
 
+import numpy as np
 import torch
 
 from beyondff_tpu_torch.kernels import dispatch
@@ -91,6 +97,175 @@ def relpos_factor_table(kh: int, kw: int) -> bool:
     kernel reads each score's two factors from device memory, and bf16 calls
     leave the tile for the FMA kernel."""
     return kh + kw <= RELPOS_TABLE_COLS
+
+
+# csrc/relpos_attention.cu's streamed route: the tile's 128 query rows a
+# block, its 64-key tiles, and the widest grid whose bias_w columns sit
+# whole in a fixed table (``attention_tc.cuh``'s kStreamFixedW)
+STREAM_ROWS = 128
+STREAM_TILE = 64
+STREAM_FIXED_W = 160
+
+
+def relpos_streamed_route(kind: int, dtype: int, d: int, s: int, rows: int, cols: int,
+                          scale: float, *ptrs: int) -> bool:
+    """The mirror of ``bff_relpos_streamed_takes``: whether K4's kernels (kind
+    0, a ``rows`` x ``cols`` = kh x kw grid) or K5's windows that run on them
+    (kind 1, windows past ``WINDOW_MAX_TOKENS`` tokens) take the mma.sync
+    tile with each key tile's factors staged beside its K and V (counted as
+    ``flash_attention_relpos_streamed``): bf16, head dim <= 128 with d % 8 ==
+    0, kh + kw past ``RELPOS_TABLE_COLS``, a positive finite scale (rounded
+    to f32 as the call passes it), q, k, v and the output on 16 bytes and
+    both factors (``ptrs``' last two) on 4."""
+    f32 = ctypes.c_float(scale).value
+    shape = (rows >= 1 and cols >= 1 and rows * cols == s and not relpos_factor_table(rows, cols)
+             and (kind == 0 or (kind == 1 and s > WINDOW_MAX_TOKENS)))
+    return (shape and dtype == 1 and 1 <= d <= HEAD_DIM_SLICE and d % 8 == 0
+            and 0.0 < f32 <= _FLT_MAX and all(p % 16 == 0 for p in ptrs[:4])
+            and all(p % 4 == 0 for p in ptrs[4:]))
+
+
+def relpos_stream_layout(kw: int) -> dict:
+    """The mirror of ``attention_tc.cuh``'s streamed table for a grid ``kw``
+    wide, in 4-byte words a row: ``h_words`` of bias_h and ``w_words`` of
+    bias_w (past ``STREAM_FIXED_W`` columns: pieces A and B) in each of the
+    two ring slots (``slot_words``), then ``fixed_words`` of every bias_w
+    column (up to ``STREAM_FIXED_W``), rows ``ld`` bf16 elements apart (the
+    least multiple of 16 that holds a row, plus 8)."""
+    h = (62 // kw + 4) // 2
+    w = 34 if kw > STREAM_FIXED_W else 0
+    fixed = 0 if kw > STREAM_FIXED_W else (kw + 2) // 2
+    return {"h_words": h, "w_words": w, "slot_words": h + w, "fixed_words": fixed,
+            "ld": (2 * (2 * (h + w) + fixed) + 15) // 16 * 16 + 8}
+
+
+def _stream_piece(table, col, flat, e, cnt, live):
+    """The words that hold ``cnt`` elements from flat index ``e`` (arrays over
+    the block's rows) of ``flat`` into ``table`` from element column ``col``
+    on, as the kernel's 4-byte copies move them: a word's second element
+    past the array's end, and every word of a row off the grid, zero."""
+    nw = np.where(cnt > 0, ((e & 1) + cnt + 1) // 2, 0)
+    total = flat.shape[0]
+    rows = np.arange(table.shape[0])
+    for u in range(int(nw.max(initial=0))):
+        gw = (e >> 1) + u
+        put = u < nw
+        first = np.where(live, flat[np.clip(2 * gw, 0, total - 1)], 0)
+        second = np.where(live & (2 * gw + 1 < total), flat[np.clip(2 * gw + 1, 0, total - 1)], 0)
+        c = col + 2 * u
+        table[rows[put], c[put]] = first[put]
+        table[rows[put], c[put] + 1] = second[put]
+
+
+def relpos_stream_stage(table, bias_h_flat, bias_w_flat, kh: int, kw: int, s: int, row0: int,
+                        q0: int, k0: int) -> None:
+    """The mirror of ``StreamedBias::stage``: the factor columns of the key
+    tile at ``k0`` into ring slot (k0 / 64) & 1 of ``table`` (numpy, 128 rows
+    x ``ld``) for the block whose first flat factor row is ``row0`` (head *
+    S + ``q0``): bias_h's piece, and past ``STREAM_FIXED_W`` columns bias_w's
+    pieces A and B from the word after A's; rows at or past S zero-filled."""
+    lay = relpos_stream_layout(kw)
+    hw, sw = lay["h_words"], lay["slot_words"]
+    y0, x0 = divmod(k0, kw)
+    n = min(STREAM_TILE, s - k0)
+    nh = (k0 + n - 1) // kw - y0 + 1
+    na = min(n, kw - x0)
+    big_r = row0 + np.arange(STREAM_ROWS)
+    live = q0 + np.arange(STREAM_ROWS) < s
+    base = ((k0 // STREAM_TILE) & 1) * 2 * sw
+    col = np.full(STREAM_ROWS, base)
+    _stream_piece(table, col, bias_h_flat, big_r * kh + y0, np.full(STREAM_ROWS, nh), live)
+    if kw > STREAM_FIXED_W:
+        ea = big_r * kw + x0
+        wa = ((ea & 1) + na + 1) // 2
+        _stream_piece(table, col + 2 * hw, bias_w_flat, ea, np.full(STREAM_ROWS, na), live)
+        _stream_piece(table, col + 2 * (hw + wa), bias_w_flat, big_r * kw,
+                      np.full(STREAM_ROWS, n - na), live)
+
+
+def relpos_stream_fixed(table, bias_w_flat, kw: int, s: int, row0: int, q0: int) -> None:
+    """The mirror of ``StreamedBias::stage_fixed``: up to ``STREAM_FIXED_W``
+    columns every bias_w column of the block's rows sits in the fixed table
+    after the two slots."""
+    if kw > STREAM_FIXED_W:
+        return
+    lay = relpos_stream_layout(kw)
+    big_r = row0 + np.arange(STREAM_ROWS)
+    _stream_piece(table, np.full(STREAM_ROWS, 4 * lay["slot_words"]), bias_w_flat, big_r * kw,
+                  np.full(STREAM_ROWS, kw), q0 + np.arange(STREAM_ROWS) < s)
+
+
+def relpos_stream_offsets(kh: int, kw: int, s: int, k0: int, rho: int):
+    """The mirror of ``StreamedBias::tile``: for the 64 columns of the key
+    tile at ``k0`` and a lane whose rows' flat factor rows have parity
+    ``rho``, (hoff, woff, live): the table elements of each key's bias_h and
+    bias_w entry in those rows, and whether the key lies before S."""
+    lay = relpos_stream_layout(kw)
+    hw, sw = lay["h_words"], lay["slot_words"]
+    y0, x0 = divmod(k0, kw)
+    n = min(STREAM_TILE, s - k0)
+    s0 = ((k0 // STREAM_TILE) & 1) * 2 * sw
+    hbase = s0 + ((rho * kh + y0) & 1) - y0
+    if kw > STREAM_FIXED_W:
+        pa = (rho * kw + x0) & 1
+        na = min(n, kw - x0)
+        xa, abase = x0, s0 + 2 * hw + pa - x0
+        bbase = s0 + 2 * hw + 2 * ((pa + na + 1) // 2) + ((rho * kw) & 1)
+    else:
+        xa, abase, bbase = 0, 4 * sw + ((rho * kw) & 1), 0
+    key = k0 + np.arange(STREAM_TILE)
+    ky, kx = key // kw, key % kw
+    return hbase + ky, np.where(kx >= xa, abase + kx, bbase + kx), key < s
+
+
+def relpos_streamed_mirror(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           bias_h: torch.Tensor, bias_w: torch.Tensor, kw: int,
+                           scale: Optional[float] = None) -> torch.Tensor:
+    """The arithmetic of the streamed route in PyTorch on the CPU, block by
+    block of 128 query rows: per 64-key tile, the factors staged into the
+    ring slot (:func:`relpos_stream_stage`, the fixed table for kw < 64)
+    and each score's bias read back through :func:`relpos_stream_offsets`
+    (the parity of each row's flat factor row), the scores in f32 plus the
+    bias (bf16 factors added in f32), keys past S at -inf, the online
+    softmax, P rounded to the inputs' dtype before P V, the denominator from
+    the f32 probabilities, the output divided once."""
+    g, s, d = q.shape
+    kh = bias_h.shape[-1]
+    scale = d ** -0.5 if scale is None else scale
+    qf, kf, vf = q.float(), k.float(), v.float()
+    fh = bias_h.to(q.dtype).float().reshape(-1).numpy()
+    fw = bias_w.to(q.dtype).float().reshape(-1).numpy()
+    lay = relpos_stream_layout(kw)
+    out = torch.zeros(g, s, d)
+    for h in range(g):
+        for q0 in range(0, s, STREAM_ROWS):
+            row0 = h * s + q0
+            rows = torch.arange(q0, min(q0 + STREAM_ROWS, s))
+            nr = len(rows)
+            table = np.zeros((STREAM_ROWS, lay["ld"]), np.float32)
+            relpos_stream_fixed(table, fw, kw, s, row0, q0)
+            parity = (row0 + np.arange(nr)) & 1
+            m = torch.full((nr,), -1e30)
+            l = torch.zeros(nr)
+            acc = torch.zeros(nr, d)
+            for k0 in range(0, s, STREAM_TILE):
+                relpos_stream_stage(table, fh, fw, kh, kw, s, row0, q0, k0)
+                keys = torch.arange(k0, min(k0 + STREAM_TILE, s))
+                bias = np.zeros((nr, STREAM_TILE), np.float32)
+                for rho in (0, 1):
+                    hoff, woff, _live = relpos_stream_offsets(kh, kw, s, k0, rho)
+                    sel = np.nonzero(parity == rho)[0]
+                    bias[sel] = (table[sel][:, hoff] + table[sel][:, woff])
+                sc = qf[h, rows] @ kf[h, keys].T * scale + torch.from_numpy(
+                    bias[:, :len(keys)])
+                m_new = torch.maximum(m, sc.max(dim=1).values)
+                corr = torch.exp(m - m_new)
+                p = torch.exp(sc - m_new[:, None])
+                l = l * corr + p.sum(dim=1)
+                acc = acc * corr[:, None] + p.to(q.dtype).float() @ vf[h, keys]
+                m = m_new
+            out[h, rows] = acc / l[:, None]
+    return out.to(q.dtype)
 
 
 def window_on_flash(s: int, d: int) -> bool:
@@ -363,6 +538,14 @@ def masked_wgmma_mirror(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     when a max was raised, the denominator summed from the
     f32 p, P rounded to the inputs' dtype before P V, the output divided once
     in f32 and rounded to the inputs' dtype; rows >= S not written (left 0)."""
+    bh, s, _d = q.shape
+    return _wgmma_rows_mirror(q, k, v, valid_len, scale, masked_wgmma_schedule(bh, s)[2])
+
+
+def _wgmma_rows_mirror(q, k, v, valid_len, scale, tiles):
+    """The arithmetic the wgmma kernels of K2 and of head dims past 128
+    share, over the 64-row tiles of ``tiles`` ({block: first rows}); see
+    :func:`masked_wgmma_mirror`."""
     bh, s, d = q.shape
     valid = s if valid_len is None else int(valid_len)
     scale = d ** -0.5 if scale is None else scale
@@ -370,7 +553,6 @@ def masked_wgmma_mirror(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     qf, kf, vf = q.float(), k.float(), v.float()
     out = torch.zeros(bh, s, d, dtype=torch.float32)
     written = torch.zeros(bh, s, dtype=torch.int32)
-    _c, _grid, tiles = masked_wgmma_schedule(bh, s)
     tile = MASKED_WGMMA_TILE
     n_tiles = -(-valid // tile)
     col = torch.arange(tile)
@@ -410,6 +592,62 @@ def masked_wgmma_mirror(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not bool((written == 1).all()):
         raise AssertionError("the schedule does not write every (head, row) once")
     return out.to(q.dtype)
+
+
+# csrc/flash_attention_wide_wgmma.cu: the head dims it takes and its blocks
+# of two 64-row consumer warpgroups
+WIDE_WGMMA_HEAD_DIMS = tuple(range(144, 257, 16))
+WIDE_WGMMA_BLOCK_Q = 128
+
+
+def wide_wgmma_route(dtype: int, d: int, s: int, valid_len: int, scale: float,
+                     *ptrs: int) -> bool:
+    """The mirror of ``bff_flash_wide_wgmma_takes``: whether
+    ``bff_flash_attention`` runs the wgmma/TMA kernel of
+    ``csrc/flash_attention_wide_wgmma.cu`` for a call (dtype 0 = float32, 1
+    = bfloat16; ``ptrs`` the data pointers of q, k, v and the output):
+    bf16, head dim a multiple of 16 from 144 to 256, 1 <= ``valid_len`` <=
+    S, a positive finite scale (rounded to f32 as the call passes it) and
+    16-byte aligned pointers."""
+    f32 = ctypes.c_float(scale).value
+    return (dtype == 1 and d in WIDE_WGMMA_HEAD_DIMS and s >= 1 and 1 <= valid_len <= s
+            and 0.0 < f32 <= _FLT_MAX and all(p % 16 == 0 for p in ptrs))
+
+
+def wide_wgmma_boxes(d: int):
+    """The mirror of the wide kernel's ``Boxes<DP>``: the TMA boxes a row of
+    head dim ``d`` is cut into, as (first column, columns, swizzle bytes,
+    byte offset in a 64-row tile), over DP = ``d`` rounded up to 32 (the
+    TMA zero-fills the columns from ``d`` on): 64-column boxes in the
+    128-byte swizzle, then a 32-column box in the 64-byte swizzle where DP
+    % 64 holds one."""
+    dp = -(-d // 32) * 32
+    boxes = [(64 * b, 64, 128, 64 * b * 128) for b in range(dp // 64)]
+    if dp % 64:
+        boxes.append((dp - 32, 32, 64, (dp // 64) * 64 * 128))
+    return boxes
+
+
+def wide_wgmma_schedule(bh: int, s: int):
+    """The mirror of the wide kernel's grid: (grid, tiles), the grid
+    (ceil(S / 128), BH) and for each block (x, head) the first query rows of
+    its two consumer warpgroups."""
+    grid = (-(-s // WIDE_WGMMA_BLOCK_Q), bh)
+    tiles = {(x, h): [WIDE_WGMMA_BLOCK_Q * x, WIDE_WGMMA_BLOCK_Q * x + 64]
+             for h in range(bh) for x in range(grid[0])}
+    return grid, tiles
+
+
+def wide_wgmma_mirror(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      valid_len: Optional[int] = None,
+                      scale: Optional[float] = None) -> torch.Tensor:
+    """The arithmetic of ``csrc/flash_attention_wide_wgmma.cu`` in PyTorch on
+    the CPU, block by block of :func:`wide_wgmma_schedule`: the whole head
+    dim at once, then :func:`masked_wgmma_mirror`'s tile walk (64-key tiles
+    up to ``valid_len``, the last one masked, the lazy running max, P
+    rounded before P V, the output divided once)."""
+    bh, s, _d = q.shape
+    return _wgmma_rows_mirror(q, k, v, valid_len, scale, wide_wgmma_schedule(bh, s)[1])
 
 
 def relpos_wgmma_route(kind: int, dtype: int, d: int, s: int, rows: int, cols: int,
@@ -552,7 +790,11 @@ def relpos_counter(kind: int, dtype: int, d: int, s: int, rows: int, cols: int, 
     FMA kernels) after ``flash_attention_relpos`` (kind 0) or
     ``window_attention_relpos`` (kind 1); K5's windows that
     :func:`window_on_flash` sends to K4's kernels count as
-    ``flash_attention_relpos``."""
+    ``flash_attention_relpos``; past the factor table, the tile with
+    streamed factors (:func:`relpos_streamed_route`) as
+    ``flash_attention_relpos_streamed``."""
+    if relpos_streamed_route(kind, dtype, d, s, rows, cols, scale, *ptrs):
+        return "flash_attention_relpos_streamed"
     if kind == 1 and window_on_flash(s, d):  # K4's kernels
         return "flash_attention_relpos"
     name = "window_attention_relpos" if kind == 1 else "flash_attention_relpos"
@@ -812,7 +1054,8 @@ def bf16_error_bound(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, plain: t
 def flash_counter(dtype: int, d: int, s: int, valid_len: int, scale: float, *ptrs: int) -> str:
     """The launch counter a ``bff_flash_attention`` call counts under, as its
     routes decide: ``flash_attention_wgmma`` (K3's bf16 kernel),
-    ``flash_masked_wgmma`` (K2's), ``flash_attention_tf32`` (the 3xTF32
+    ``flash_masked_wgmma`` (K2's), ``flash_attention_wide_wgmma`` (bf16 at
+    head dims 144 to 256), ``flash_attention_tf32`` (the 3xTF32
     kernel of K2 and K3 in f32), ``flash_attention_f32`` (the f32-FMA kernel,
     every other f32 call) or ``flash_attention`` (every other bf16 call: the
     mma.sync tile)."""
@@ -820,6 +1063,8 @@ def flash_counter(dtype: int, d: int, s: int, valid_len: int, scale: float, *ptr
         return "flash_attention_wgmma"
     if masked_wgmma_route(dtype, d, s, valid_len, scale, *ptrs):
         return "flash_masked_wgmma"
+    if wide_wgmma_route(dtype, d, s, valid_len, scale, *ptrs):
+        return "flash_attention_wide_wgmma"
     if tf32_route(dtype, d, s, valid_len, scale, *ptrs):
         return "flash_attention_tf32"
     return "flash_attention_f32" if dtype == 0 else "flash_attention"

@@ -94,17 +94,19 @@ RELPOS, IOU, MSD = "relpos_attention.cu", "mask_iou.cu", "ms_deform_sample.cu"
 FLASH, WGMMA = "flash_attention.cu", "flash_attention_wgmma.cu"
 FMW, NMS = "flash_masked_wgmma.cu", "nms_fixed.cu"
 TF32 = "flash_attention_tf32.cu"
+WIDE = "flash_attention_wide_wgmma.cu"
 RWG = "relpos_attention_wgmma.cu"
+RST = "relpos_attention_streamed.cu"
 RT32 = "relpos_attention_tf32.cu"
 IWG, MSW = "mask_iou_wgmma.cu", "ms_deform_window_tma.cu"
 NMB = "nms_bitmask.cu"
 TF32_SMEM = "flash_attention_tf32_smem.cu"
-SOURCES = (RELPOS, IOU, MSD, FLASH, WGMMA, FMW, TF32, RWG, RT32, IWG, NMS)
+SOURCES = (RELPOS, IOU, MSD, FLASH, WGMMA, FMW, TF32, WIDE, RWG, RST, RT32, IWG, NMS)
 # sources only variants build, copied beside csrc's (whose headers they use)
 VARIANT_CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "variant_csrc")
 K1, K6 = (MSD,), (IOU, IWG)  # what a K1 or K6 variant builds
-K3 = (FLASH, WGMMA, FMW, TF32)  # what a K2 or K3 variant builds (one C entry routes all)
-K45 = (RELPOS, RWG, RT32)  # what a K4 or K5 variant builds (the rel-pos entries route all)
+K3 = (FLASH, WGMMA, FMW, TF32, WIDE)  # what a K2 or K3 variant builds (one C entry routes all)
+K45 = (RELPOS, RWG, RST, RT32)  # what a K4 or K5 variant builds (the rel-pos entries route all)
 NMS_V = (NMS,)
 K1_STAGED = (MSD, MSW)
 ROUNDS = 3
@@ -451,6 +453,17 @@ VARIANTS = {
     # (shipped: the products from zero, the bias added after them)
     "k4_tf32_d96_bias_start": (K45, ((RT32, "constexpr bool kBiasAfter96 = true;",
                                       "constexpr bool kBiasAfter96 = false;"),)),
+    # bf16 flash attention at head dims 144-256: each tile's products in turn;
+    # the two warpgroups issuing their products when they are ready
+    "wide_serial": (K3, ((WIDE, "constexpr bool kOverlap = true;",
+                          "constexpr bool kOverlap = false;"),)),
+    "wide_no_pingpong": (K3, ((WIDE, "constexpr bool kPingpong = true;",
+                               "constexpr bool kPingpong = false;"),)),
+    # K4 past the factor table: each score's factors read from device memory
+    # (the tile's lines prefetched into L1 before its Q K^T) instead of
+    # staged beside K and V
+    "relpos_stream_l2": (K45, ((RST, "constexpr bool kStreamFromL2 = false;",
+                                "constexpr bool kStreamFromL2 = true;"),)),
     "k5_two_blocks": (K45, (
         (RWG, "constexpr int kWConsumers = 2;", "constexpr int kWConsumers = 1;"),
         (RWG, "constexpr int kWStages = 2;", "constexpr int kWStages = 1;"),
@@ -521,15 +534,16 @@ def has(lib, fn):
     return True
 
 
-def attention_case(g, grid, window):
+def attention_case(g, grid, window, d=80):
     """K4 or K5 in bf16 at SAM's factors, as ``chip_smoke.py`` builds them,
-    through the rel-pos entries; after (name, launch, check) come SDPA with
-    the bias as a dense float mask on the same inputs, the operations and the
-    bytes of one call."""
+    through the rel-pos entries, at head dim ``d`` (SAM ViT-H's 80); after
+    (name, launch, check) come SDPA with the bias as a dense float mask on
+    the same inputs, the operations and the bytes of one call. The plain
+    version is timed beside them (``launch.plain``)."""
     import torch.nn.functional as F
 
     hh, ww = grid
-    s, d = hh * ww, 80
+    s = hh * ww
     gen = torch.Generator(device="cuda").manual_seed(s + g)
     q, k, v = (torch.randn(g, s, d, device="cuda", generator=gen).bfloat16() for _ in range(3))
     rel_h = (0.1 * torch.randn(2 * hh - 1, d, device="cuda", generator=gen)).bfloat16()
@@ -560,6 +574,7 @@ def attention_case(g, grid, window):
     mask = fa.relpos_bias(bias_h, bias_w, torch.bfloat16).bfloat16()[None]
     q4, k4, v4 = (t[None] for t in (q, k, v))
     library = lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask)[0]
+    launch.plain = lambda: fa.attend_relpos_plain(q, k, v, bias_h, bias_w, ww)
     nbytes = (4 * g * s * d + g * s * (hh + ww)) * 2
     return fn, launch, check, library, 4 * g * s * s * d, nbytes
 
@@ -658,17 +673,18 @@ def k3_case(bh, s):
     return fn, launch, check, library, 4 * bh * s * s * d, 4 * bh * s * d * 2
 
 
-def k2_case(bh, s, valid_len):
-    """K2 in bf16 at Grounding-DINO's decoder head dim 32 through
+def k2_case(bh, s, valid_len, d=32):
+    """K2 in bf16 at Grounding-DINO's decoder head dim 32 (or ``d``) through
     ``bff_flash_attention`` with keys >= ``valid_len`` masked (the main
     path's ``attend`` passes ``valid_len = S``): the wgmma kernel of
     ``flash_masked_wgmma.cu`` in this tree, the mma.sync tile in a tree from
-    before it. After (name, launch, check) come SDPA on the same inputs (a
-    boolean key mask where ``valid_len < S``) and the operations and bytes of
-    one call."""
+    before it (past head dim 128: the wide kernel of
+    ``flash_attention_wide_wgmma.cu``, the tile's slices before it). After
+    (name, launch, check) come SDPA on the same inputs (a boolean key mask
+    where ``valid_len < S``) and the operations and bytes of one call; past
+    head dim 128 the plain version is timed beside them."""
     import torch.nn.functional as F
 
-    d = 32
     gen = torch.Generator(device="cuda").manual_seed(bh * s + valid_len)
     q, k, v = (torch.randn(bh, s, d, device="cuda", generator=gen).bfloat16() for _ in range(3))
     want = fa.flash_attention_plain(q, k, v, valid_len)
@@ -694,6 +710,8 @@ def k2_case(bh, s, valid_len):
         return float(((got.float() - want.float()).abs() - bound).max())
 
     library = lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask).view(bh, s, d)
+    if d > fa.HEAD_DIM_SLICE:
+        launch.plain = lambda: fa.flash_attention_plain(q, k, v, valid_len)
     return fn, launch, check, library, 4 * bh * s * valid_len * d, 4 * bh * s * d * 2
 
 
@@ -1032,6 +1050,25 @@ def main():
         "k2 (32, 900, 32)": lambda: k2_case(32, 900, 900),
         "k2 (8, 900, 32)": lambda: k2_case(8, 900, 900),
         "k2 (32, 1024, 32) valid 900": lambda: k2_case(32, 1024, 900),
+        # past the old limits in bf16 (no configured model calls them): flash
+        # attention at head dims 160 and 256 on the wide wgmma kernel (the
+        # tile's 128-feature slices in a tree from before it), every key
+        # valid and 900 of 1024, and at S 4096; K4 past the factor table on
+        # the tile with streamed factors (the FMA kernel before it, the
+        # relpos_stream_l2 variant reading the factors from device memory)
+        **{f"past flash d{d_} ({bh_}, {s_}, {d_}){'' if v_ == s_ else f' valid {v_}'}":
+           (lambda bh_=bh_, s_=s_, v_=v_, d_=d_: k2_case(bh_, s_, v_, d_))
+           for bh_, s_, v_, d_ in ((16, 1024, 1024, 160), (16, 1024, 900, 160),
+                                   (16, 1024, 1024, 256), (16, 1024, 900, 256),
+                                   (16, 4096, 4096, 256))},
+        "past k4 streamed 1x300 (16, 300, 64)": lambda: attention_case(16, (1, 300), False, 64),
+        "past k4 streamed 2x255 (16, 510, 64)": lambda: attention_case(16, (2, 255), False, 64),
+        "past k4 streamed 136x136 (4, 18496, 80)":
+            lambda: attention_case(4, (136, 136), False, 80),
+        "past k4 d160 32x32 (16, 1024, 160)": lambda: attention_case(16, (32, 32), False, 160),
+        # the factor table's route just inside its limit (kh + kw = 240), the
+        # streamed route's yardstick at a similar grid
+        "past k4 table 120x120 (4, 14400, 80)": lambda: attention_case(4, (120, 120), False, 80),
         # K2 and K3 in f32 (detector.dtype: float32) at the same shapes, and
         # K3 at the ragged S = 4095
         "f32 k2 (8, 900, 32)": lambda: f32_case(8, 900, 32, 900),

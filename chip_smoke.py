@@ -186,8 +186,12 @@ grid (taller than the 3xTF32 kernel takes) and K5 at SAM ViT-L's head dim
 64 on the FMA kernels (``flash_attention_relpos``,
 ``window_attention_relpos``), the mma.sync tile at (32, 1024, 64) with keys
 masked, the shapes past the port's old limits (``past_limits``: K2/K3 at
-head dims 160 and 256, K4 at head dim 160 and at kh + kw past 256, K5 on
-17 x 17 windows, K1 at 9 levels and at head dim 160), and the NMS kernel
+head dims 160 and 256, bf16 on the wide wgmma kernel
+(``flash_attention_wide_wgmma``; at (16, 4096, 256) too) and at 264 on the
+tile's slices, K4 at head dim 160 and at kh + kw past 256, bf16 on the tile
+with streamed factors (``flash_attention_relpos_streamed``; SAM's global
+attention on a 136 x 136 grid too) and at head dim 160 on the FMA kernel, K5
+on 17 x 17 windows, K1 at 9 levels and at head dim 160), and the NMS kernel
 index for index at YOLO-World-L's 8 400 anchors for a batch of 4 (top_k
 100; its device time split into the sort, the gather and the scan), at
 thresholds set to pairs' exact IoUs, and past the staged kernel's 90 112
@@ -332,6 +336,18 @@ RELPOS_TF32_STRADDLE_DESIGN = (
     "device memory, both read while the products run, each key's grid cell advanced without "
     "a division); otherwise the narrow mode's kernel")
 # csrc/flash_attention.cu, csrc/relpos_attention.cu: head dims past 128
+WIDE_WGMMA_DESIGN = ("bf16 wgmma holding the whole head dim (144-256, rounded up to 32, the "
+                     "TMA zero-filling the rest): TMA boxes of 64 columns (128-byte swizzle) "
+                     "plus 32 (64-byte), 64-key K/V tiles "
+                     "in a 2-stage mbarrier ring refilled by the second warpgroup's first "
+                     "thread (no producer: 256 threads, 255 registers); two warpgroups of 64 "
+                     "rows, S = Q K^T m64n64k16 over D / 16 k-steps, O += P V one chain a box "
+                     "with P in registers, pingpong, Q K^T of tile t before P V of tile t - 1, "
+                     "the last tile masked")
+STREAMED_DESIGN = (TC_DESIGN + ", 4 warps x 32 rows, each 64-key tile's bias_h columns (and, "
+                   "past 160 grid columns, bias_w's run of 64) staged by 4-byte cp.async into "
+                   "a ring slot beside its K and V, up to 160 columns bias_w whole in a fixed "
+                   "table")
 SLICED_DESIGN = (", head dims past 128 on a grid axis of 128-feature output slices: each "
                  "block sums its scores over every slice of Q and K, staged in turn, and "
                  "accumulates P V for its own slice of V")
@@ -480,9 +496,11 @@ def flash_case(torch, fa, name, shape, valid_len, dtype, dev, fma=False, spread=
         "device_ms": dev_ms, "tflops": flops / dev_ms / 1e9,
         "design": (WGMMA_DESIGN if routed == "flash_attention_wgmma" else
                    MASKED_WGMMA_DESIGN if routed == "flash_masked_wgmma" else
+                   WIDE_WGMMA_DESIGN if routed == "flash_attention_wide_wgmma" else
                    TF32_DESIGN if routed == "flash_attention_tf32" else
                    TC_DESIGN + ", 4 warps x 16 rows" if bf16 else FMA_DESIGN)
-                  + (SLICED_DESIGN if d > fa.HEAD_DIM_SLICE else ""),
+                  + (SLICED_DESIGN if d > fa.HEAD_DIM_SLICE
+                     and routed != "flash_attention_wide_wgmma" else ""),
         "plain_ms": cuda_ms(torch, lambda: fa.flash_attention_plain(q, k, v, valid_len), 20),
         "bound_ms": max(bound_bytes, bound_ops),
         "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
@@ -594,7 +612,8 @@ def relpos_case(torch, fa, wa, sam_mod, name, g, grid, dtype, dev, d=80, fma=Fal
     on_flash = window and fa.window_on_flash(s, d)
     suffix = ((", K4's kernel with the windows as heads" if on_flash else "")
               + (SLICED_DESIGN if d > fa.HEAD_DIM_SLICE else "")
-              + ("" if fa.relpos_factor_table(hh, ww) or routed.endswith(("_tf32", "_wgmma"))
+              + ("" if fa.relpos_factor_table(hh, ww)
+                 or routed.endswith(("_tf32", "_wgmma", "_streamed"))
                  else ", each score's factors read from device memory (kh + kw past 256)"))
     extra = {"design": ((RELPOS_TF32_STRADDLE_DESIGN if not window and ww % 8 else
                          RELPOS_TF32_NARROW_DESIGN if not window and ww != 64 else
@@ -613,6 +632,7 @@ def relpos_case(torch, fa, wa, sam_mod, name, g, grid, dtype, dev, d=80, fma=Fal
         extra = {"device_ms": dev_ms, "tflops": flops / dev_ms / 1e9,
                  "gbps": nbytes / dev_ms / 1e6, "library_device_ms": device_ms(library),
                  "design": (RELPOS_WGMMA_DESIGN[window] if routed.endswith("_wgmma") else
+                            STREAMED_DESIGN if routed.endswith("_streamed") else
                             (FMA_DESIGN if not fa.relpos_factor_table(hh, ww) else
                              TC_DESIGN + ", 4 warps x 32 rows, " + (
                                  "bias_h as a row shift" if ww % 64 == 0 else
@@ -659,12 +679,16 @@ def past_limits(torch, mods, cases, dev, rng):
     """The shapes the JAX kernels take past the port's old limits, each on a
     hand-written kernel whose counter the case checks (the routes the CPU
     mirrors name) and within tolerance of its plain version: K2/K3 at head
-    dims 160 and 256 in bf16 and f32, every key valid and keys masked (the
-    head-dim slices of the tile and the FMA kernel); K4 at head dim 160 and
-    on grids with kh + kw past 256 (1 x 300, 2 x 255: the FMA kernel reading
-    the factors from device memory); K5 on 17 x 17 windows (K4's kernels);
-    K1 at 9 levels (the level table in device memory) and at head dim 160
-    (the channel slices), clamp and exact. Small shapes: no configured model
+    dims 160 and 256, every key valid and keys masked (bf16 on the wide
+    wgmma kernel, f32 on the FMA kernel's head-dim slices), bf16 at (16,
+    4096, 256), and bf16 at head dim 264 on the tile's slices, which keep
+    the head dims the wide kernel leaves; K4 at head dim 160 and on grids
+    with kh + kw past 256 (1 x 300, 2 x 255 and, bf16 only, SAM's global
+    attention on a 136 x 136 grid: the tile with streamed factors in bf16,
+    the FMA kernel reading the factors from device memory in f32 and for
+    bf16 past head dim 128, 2 x 255 at 160); K5 on 17 x 17 windows (K4's
+    kernels); K1 at 9 levels (the level table in device memory) and at head
+    dim 160 (the channel slices), clamp and exact. No configured model
     reaches any of them, and the run's time limit is shared."""
     fa, wa, dw, sam_mod, deformable = mods
     for d in (160, 256):
@@ -673,19 +697,35 @@ def past_limits(torch, mods, cases, dev, rng):
             for valid, tag in ((1024, "unmasked"), (900, "masked")):
                 cases[(f"flash_d{d}_{tag}", dname, 1)] = rec = flash_case(
                     torch, fa, f"d{d}_1024_{valid}", (16, 1024, d), valid, dtype, dev)
-                check(rec["kernel"] == ("flash_attention" if dtype == torch.bfloat16
+                check(rec["kernel"] == ("flash_attention_wide_wgmma" if dtype == torch.bfloat16
                                         else "flash_attention_f32"),
                       f"flash d{d} {tag} {dname}: on {rec['kernel']}")
-    for key, name, g, grid, d in (("relpos_d160", "d160_global", 16, (32, 32), 160),
-                                  ("relpos_kh_kw_300", "grid_1x300_global", 16, (1, 300), 64),
-                                  ("relpos_kh_kw_257", "grid_2x255_global", 16, (2, 255), 64),
-                                  ("relpos_window_17", "window_17x17", 256, (17, 17), 80)):
-        for dtype in (torch.bfloat16, torch.float32):
+    for key, name, shape, valid, want in (
+            ("flash_d256_4096", "d256_4096_4096", (16, 4096, 256), 4096,
+             "flash_attention_wide_wgmma"),
+            ("flash_d264_tile", "d264_1024_900", (16, 1024, 264), 900, "flash_attention")):
+        cases[(key, "bfloat16", 1)] = rec = flash_case(torch, fa, name, shape, valid,
+                                                       torch.bfloat16, dev)
+        check(rec["kernel"] == want, f"flash {name} bfloat16: on {rec['kernel']}, not {want}")
+    for key, name, g, grid, d, dtypes in (
+            ("relpos_d160", "d160_global", 16, (32, 32), 160, (torch.bfloat16, torch.float32)),
+            ("relpos_kh_kw_300", "grid_1x300_global", 16, (1, 300), 64,
+             (torch.bfloat16, torch.float32)),
+            ("relpos_kh_kw_257", "grid_2x255_global", 16, (2, 255), 64,
+             (torch.bfloat16, torch.float32)),
+            ("relpos_136", "grid_136x136_global", 4, (136, 136), 80, (torch.bfloat16,)),
+            ("relpos_past_table_d160", "grid_2x255_d160_global", 16, (2, 255), 160,
+             (torch.bfloat16,)),
+            ("relpos_window_17", "window_17x17", 256, (17, 17), 80,
+             (torch.bfloat16, torch.float32))):
+        for dtype in dtypes:
             dname = str(dtype).split(".")[-1]
             cases[(key, dname, 1)] = rec = relpos_case(
                 torch, fa, wa, sam_mod, name, g, grid, dtype, dev, d=d)
-            check(rec["kernel"] == "flash_attention_relpos",
-                  f"rel-pos {name} {dname}: on {rec['kernel']}, not K4's kernel")
+            want = ("flash_attention_relpos_streamed" if dtype == torch.bfloat16 and d <= 128
+                    and not fa.relpos_factor_table(*grid) else "flash_attention_relpos")
+            check(rec["kernel"] == want,
+                  f"rel-pos {name} {dname}: on {rec['kernel']}, not {want}")
     anchors9 = dw.raster_centers(NINE_LEVELS)
     anchors = dw.raster_centers(dw.ENC_SHAPES)
     for key, shapes, q_locs, heads, hd in (("deform_9_levels", NINE_LEVELS, anchors9, 8, 32),
@@ -4048,18 +4088,35 @@ def main() -> int:
              "beyondff_tpu_torch/csrc/ms_deform_sample.cu",
              "beyondff_tpu/kernels/deform_window.py:170"),
             # the shapes past the old limits (past_limits; no configured
-            # model reaches them): head dims past 128 on the slices of the
-            # tile (bf16) and the FMA kernels (f32), kh + kw past 256, 17 x 17
-            # windows on K4's kernels, K1 at 9 levels and head dim 160
-            *(((f"flash_d{d}_{tag}", dname, 1), "beyondff_tpu_torch/csrc/flash_attention.cu",
+            # model reaches them): head dims past 128 on the wide wgmma
+            # kernel (bf16 144-256), the slices of the tile (bf16 264) and
+            # the FMA kernels (f32); kh + kw past 256 on the tile with
+            # streamed factors (bf16) and the FMA kernel (f32, bf16 at 160);
+            # 17 x 17 windows on K4's kernels, K1 at 9 levels and head dim 160
+            *(((f"flash_d{d}_{tag}", dname, 1),
+               "beyondff_tpu_torch/csrc/" + ("flash_attention_wide_wgmma.cu"
+                                             if dname == "bfloat16" else "flash_attention.cu"),
                "beyondff_tpu/kernels/flash_attention.py:" + ("270" if tag == "masked" else "68"))
               for d in (160, 256) for tag in ("unmasked", "masked")
               for dname in ("bfloat16", "float32")),
-            *(((key, dname, 1), "beyondff_tpu_torch/csrc/relpos_attention.cu",
+            (("flash_d256_4096", "bfloat16", 1),
+             "beyondff_tpu_torch/csrc/flash_attention_wide_wgmma.cu",
+             "beyondff_tpu/kernels/flash_attention.py:68"),
+            (("flash_d264_tile", "bfloat16", 1), "beyondff_tpu_torch/csrc/flash_attention.cu",
+             "beyondff_tpu/kernels/flash_attention.py:270"),
+            *(((key, dname, 1), "beyondff_tpu_torch/csrc/" + (
+                "relpos_attention_streamed.cu" if dname == "bfloat16"
+                and key in ("relpos_kh_kw_300", "relpos_kh_kw_257", "relpos_136")
+                else "relpos_attention.cu"),
                "beyondff_tpu/kernels/" + ("window_attention.py:51" if key == "relpos_window_17"
                                           else "flash_attention.py:193"))
-              for key in ("relpos_d160", "relpos_kh_kw_300", "relpos_kh_kw_257",
-                          "relpos_window_17") for dname in ("bfloat16", "float32")),
+              for key, dnames in (("relpos_d160", ("bfloat16", "float32")),
+                                  ("relpos_kh_kw_300", ("bfloat16", "float32")),
+                                  ("relpos_kh_kw_257", ("bfloat16", "float32")),
+                                  ("relpos_window_17", ("bfloat16", "float32")),
+                                  ("relpos_136", ("bfloat16",)),
+                                  ("relpos_past_table_d160", ("bfloat16",)))
+              for dname in dnames),
             *(((f"{key}_{mode}", dname, 1), "beyondff_tpu_torch/csrc/ms_deform_sample.cu",
                "beyondff_tpu/kernels/deform_window.py:170")
               for key in ("deform_9_levels", "deform_d160") for mode in ("clamp", "exact")

@@ -286,7 +286,10 @@ _OLD_RELPOS = [
 _NEW_RELPOS = [
     ((0, 0, 160, 256, 16, 16), "flash_attention_relpos"),
     ((0, 1, 160, 256, 16, 16), "flash_attention_relpos"),
-    ((0, 1, 32, 300, 1, 300), "flash_attention_relpos"),
+    ((0, 1, 32, 300, 1, 300), "flash_attention_relpos_streamed"),
+    ((0, 1, 64, 510, 2, 255), "flash_attention_relpos_streamed"),
+    ((1, 1, 32, 257, 1, 257), "flash_attention_relpos_streamed"),
+    ((0, 1, 160, 510, 2, 255), "flash_attention_relpos"),
     ((0, 0, 32, 510, 2, 255), "flash_attention_relpos"),
     ((1, 0, 80, 289, 17, 17), "flash_attention_relpos"),
     ((1, 1, 80, 289, 17, 17), "flash_attention_relpos"),
@@ -302,7 +305,10 @@ def test_relpos_counter_table(args, counter):
     """Which counter a rel-pos call moves: the old shapes keep theirs (the
     wgmma and 3xTF32 routes at their shapes, the tile and the FMA kernels
     elsewhere); the new shapes take K4's tile or FMA kernel (K5's large
-    windows and wide heads too), or the 3xTF32 kernel's straddling mode."""
+    windows and wide heads too), or the 3xTF32 kernel's straddling mode;
+    bf16 past the factor table at head dims up to 128 takes the tile with
+    streamed factors (K5's windows there too), at head dim 160 the FMA
+    kernel."""
     kind, dtype, d, s, rows, cols = args
     assert tfa.relpos_counter(kind, dtype, d, s, rows, cols, d ** -0.5, *_A) == counter
 
@@ -312,10 +318,13 @@ def test_relpos_counter_table(args, counter):
     (0, 32, 900, 900, "flash_attention_tf32"), (0, 128, 1024, 900, "flash_attention_tf32"),
     (0, 112, 1024, 900, "flash_attention_f32"), (1, 64, 1024, 900, "flash_attention"),
     (0, 160, 1024, 900, "flash_attention_f32"), (0, 256, 300, 300, "flash_attention_f32"),
-    (1, 160, 1024, 900, "flash_attention"), (1, 256, 300, 300, "flash_attention")])
+    (1, 160, 1024, 900, "flash_attention_wide_wgmma"),
+    (1, 256, 300, 300, "flash_attention_wide_wgmma"), (1, 264, 300, 300, "flash_attention"),
+    (1, 168, 300, 300, "flash_attention"), (1, 136, 300, 300, "flash_attention")])
 def test_flash_counter_table(dtype, d, s, valid, counter):
-    """Head dims past 128 count under the FMA kernel's (f32) and the tile's
-    (bf16) counters; the old shapes keep theirs."""
+    """Head dims past 128 count under the FMA kernel's (f32) counter, the
+    wide wgmma kernel's (bf16 at multiples of 16 from 144 to 256) and the
+    tile's (other bf16); the old shapes keep theirs."""
     assert tfa.flash_counter(dtype, d, s, valid, d ** -0.5, *_A[:4]) == counter
 
 
@@ -485,9 +494,10 @@ def _within(got, want, q, k, v, valid=None, bias_h=None, bias_w=None):
                                           (1, 200, 77, 300), (2, 64, 64, 136)])
 def test_flash_past_head_dim_128_on_card(cuda_device, dtype, bh, s, valid, d):
     """K2/K3 at head dims past 128, masked and unmasked: one launch on the FMA
-    kernel (f32, ``flash_attention_f32``) or the tile (bf16,
-    ``flash_attention``), with its head-dim slices, within tolerance of the
-    plain version."""
+    kernel (f32, ``flash_attention_f32``), the wide wgmma kernel (bf16 at
+    head dims 144 to 256, ``flash_attention_wide_wgmma``) or the tile (other
+    bf16, ``flash_attention``, with its head-dim slices), within tolerance
+    of the plain version."""
     g = torch.Generator(device=cuda_device).manual_seed(s + d)
     q, k, v = (torch.randn(bh, s, d, generator=g, device=cuda_device).to(dtype)
                for _ in range(3))
@@ -495,7 +505,9 @@ def test_flash_past_head_dim_128_on_card(cuda_device, dtype, bh, s, valid, d):
     got = tfa.flash_attention(q, k, v, valid_len=valid)
     key = tfa.flash_counter(int(dtype == torch.bfloat16), d, s, valid, d ** -0.5,
                             *(t.data_ptr() for t in (q, k, v, got)))
-    assert key == ("flash_attention" if dtype == torch.bfloat16 else "flash_attention_f32")
+    assert key == ("flash_attention_f32" if dtype == torch.float32 else
+                   "flash_attention_wide_wgmma" if d in tfa.WIDE_WGMMA_HEAD_DIMS else
+                   "flash_attention")
     _one_launch(before, key)
     want = tfa.flash_attention_plain(q, k, v, valid_len=valid)
     torch.cuda.synchronize()
@@ -512,7 +524,8 @@ def test_attend_past_head_dim_128_on_card(cuda_device, dtype):
                for _ in range(3))
     before = dict(dispatch.launch_counts)
     got = tfa.attend(q, k, v)
-    _one_launch(before, "flash_attention" if dtype == torch.bfloat16 else "flash_attention_f32")
+    _one_launch(before, "flash_attention_wide_wgmma" if dtype == torch.bfloat16
+                else "flash_attention_f32")
     want = tfa.flash_attention_plain(q, k, v)
     torch.cuda.synchronize()
     assert _within(got, want, q, k, v)
@@ -552,12 +565,16 @@ def _relpos_card(dev, g, rows, cols, d, dtype, scale=0.5):
 def test_relpos_past_the_limits_on_card(cuda_device, dtype, g, rows, cols, d):
     """K4 at head dims past 128 (the slice axis, on the tile in bf16 and the
     FMA kernel in f32) and at kh + kw past 256 (the FMA kernel reading the
-    factors from device memory, bf16 too): one launch counted as
-    ``flash_attention_relpos``, within tolerance of the plain version."""
+    factors from device memory; bf16 at head dims up to 128 the tile with
+    streamed factors, ``flash_attention_relpos_streamed``): one launch
+    counted as ``flash_attention_relpos`` where no other route takes it,
+    within tolerance of the plain version."""
     q, k, v, bias_h, bias_w = _relpos_card(cuda_device, g, rows, cols, d, dtype)
     before = dict(dispatch.launch_counts)
     got = tfa.attend_relpos(q, k, v, bias_h, bias_w, cols)
-    _one_launch(before, "flash_attention_relpos")
+    streamed = dtype == torch.bfloat16 and rows + cols > 256 and d <= 128
+    _one_launch(before, "flash_attention_relpos_streamed" if streamed
+                else "flash_attention_relpos")
     want = tfa.attend_relpos_plain(q, k, v, bias_h, bias_w, cols)
     torch.cuda.synchronize()
     assert torch.isfinite(got.float()).all()
@@ -570,12 +587,15 @@ def test_relpos_past_the_limits_on_card(cuda_device, dtype, g, rows, cols, d):
                                        (2, 20, 30, 64), (4, 1, 257, 32)])
 def test_window_past_256_tokens_on_card(cuda_device, dtype, g, wh, ww, d):
     """K5 on windows past 256 tokens or head dim 128: K4's kernels with G
-    windows as BH, counted as ``flash_attention_relpos``, within tolerance
-    of the window's plain version."""
+    windows as BH, counted as ``flash_attention_relpos`` (past the factor
+    table in bf16: ``flash_attention_relpos_streamed``), within tolerance of
+    the window's plain version."""
     q, k, v, bias_h, bias_w = _relpos_card(cuda_device, g, wh, ww, d, dtype)
     before = dict(dispatch.launch_counts)
     got = twa.window_attention_relpos(q, k, v, bias_h, bias_w, wh, ww)
-    _one_launch(before, "flash_attention_relpos")
+    streamed = dtype == torch.bfloat16 and wh + ww > 256 and d <= 128
+    _one_launch(before, "flash_attention_relpos_streamed" if streamed
+                else "flash_attention_relpos")
     want = twa.window_attention_relpos_plain(q, k, v, bias_h, bias_w, wh, ww)
     torch.cuda.synchronize()
     assert _within(got, want, q, k, v, bias_h=bias_h, bias_w=bias_w)
