@@ -717,16 +717,33 @@ struct WindowBias {
 // one 4-byte bias_w pair, as in WindowBias. kernels/flash_attention.py
 // relpos_stream_layout / relpos_stream_stage / relpos_stream_offsets mirror
 // this plan.
+// The same plan serves csrc/relpos_attention_wide_wgmma.cu with another
+// fixed-table width (fixed_w) and ring depth (slots).
 constexpr int kStreamFixedW = 160;  // at DP 80 two blocks still share an SM
 __host__ __device__ constexpr int stream_h_words(int kw) { return (62 / kw + 4) / 2; }
-__host__ __device__ constexpr int stream_slot_words(int kw) {
-  return stream_h_words(kw) + (kw > kStreamFixedW ? 34 : 0);
+__host__ __device__ constexpr int stream_slot_words(int kw, int fixed_w = kStreamFixedW) {
+  return stream_h_words(kw) + (kw > fixed_w ? 34 : 0);
 }
-__host__ __device__ constexpr int stream_fixed_words(int kw) {
-  return kw > kStreamFixedW ? 0 : (kw + 2) / 2;
+__host__ __device__ constexpr int stream_fixed_words(int kw, int fixed_w = kStreamFixedW) {
+  return kw > fixed_w ? 0 : (kw + 2) / 2;
 }
-__host__ __device__ constexpr int stream_ld(int kw) {
-  return (2 * (2 * stream_slot_words(kw) + stream_fixed_words(kw)) + 15) / 16 * 16 + 8;
+__host__ __device__ constexpr int stream_ld(int kw, int fixed_w = kStreamFixedW, int slots = 2) {
+  return (2 * (slots * stream_slot_words(kw, fixed_w) + stream_fixed_words(kw, fixed_w)) + 15) /
+             16 * 16 + 8;
+}
+
+// The piece of ``cnt`` elements from flat index e of ``src`` (``total``
+// elements) into the words from dst on, this thread taking words sub,
+// sub + 4, ... (four threads a row); zero-filled when ``live`` is false
+// (rows past S).
+__device__ __forceinline__ void stream_piece(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                             long long total, long long e, int cnt, int sub,
+                                             bool live) {
+  const int nw = cnt > 0 ? (static_cast<int>(e & 1) + cnt + 1) >> 1 : 0;
+  const __nv_bfloat16* s0 = src + 2 * (e >> 1);
+  const bool short_end = 2 * ((e >> 1) + nw) > total;  // the last word's second element
+  for (int u = sub; u < nw; u += 4)
+    cp_async4(dst + 2 * u, live ? s0 + 2 * u : src, !live ? 0 : u == nw - 1 && short_end ? 2 : 4);
 }
 
 // ROWS query rows a block, THREADS threads. kFromL2 (a measured
@@ -749,27 +766,13 @@ struct StreamedBias {
     uint32_t off[kCols];
   };
 
-  // The piece of ``cnt`` elements from flat index e of ``src`` (``total``
-  // elements) into the words from dst on, this thread taking words sub,
-  // sub + 4, ...; zero-filled when ``live`` is false (rows past S).
-  __device__ __forceinline__ static void copy_piece(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                                    long long total, long long e, int cnt,
-                                                    int sub, bool live) {
-    const int nw = cnt > 0 ? (static_cast<int>(e & 1) + cnt + 1) >> 1 : 0;
-    const __nv_bfloat16* s0 = src + 2 * (e >> 1);
-    const bool short_end = 2 * ((e >> 1) + nw) > total;  // the last word's second element
-    for (int u = sub; u < nw; u += 4)
-      cp_async4(dst + 2 * u, live ? s0 + 2 * u : src,
-                !live ? 0 : u == nw - 1 && short_end ? 2 : 4);
-  }
-
   // The fixed table (every bias_w column of the block's rows, up to
   // kStreamFixedW columns), by cp.async; called once before attend_block.
   __device__ __forceinline__ void stage_fixed() const {
     if (kFromL2 || kw > kStreamFixedW) return;
     const int ld = stream_ld(kw), f0 = 4 * stream_slot_words(kw);
     for (int r = threadIdx.x / 4; r < ROWS; r += THREADS / 4)
-      copy_piece(table + r * ld + f0, bw, rows * kw, (row0 + r) * kw, kw, threadIdx.x & 3,
+      stream_piece(table + r * ld + f0, bw, rows * kw, (row0 + r) * kw, kw, threadIdx.x & 3,
                  q0 + r < S);
   }
 
@@ -787,12 +790,12 @@ struct StreamedBias {
       const long long R = row0 + r;
       const bool live = q0 + r < S;
       __nv_bfloat16* dst = slot + r * ld;
-      copy_piece(dst, bh, th, R * kh + y0, nh, sub, live);
+      stream_piece(dst, bh, th, R * kh + y0, nh, sub, live);
       if (kw > kStreamFixedW) {
         const long long ea = R * kw + x0;
         const int wa = (static_cast<int>(ea & 1) + na + 1) >> 1;
-        copy_piece(dst + 2 * hw, bw, tw, ea, na, sub, live);
-        copy_piece(dst + 2 * (hw + wa), bw, tw, R * kw, nb, sub, live);
+        stream_piece(dst + 2 * hw, bw, tw, ea, na, sub, live);
+        stream_piece(dst + 2 * (hw + wa), bw, tw, R * kw, nb, sub, live);
       }
     }
   }

@@ -28,24 +28,30 @@
 // Routes. bf16 calls at SAM ViT-H's head dim 80 that bff_relpos_wgmma_takes
 // accepts go to csrc/relpos_attention_wgmma.cu; bf16 calls past the factor
 // table that bff_relpos_streamed_takes accepts to
-// csrc/relpos_attention_streamed.cu; f32 calls that
+// csrc/relpos_attention_streamed.cu; bf16 calls at head dims 144 to 256
+// that bff_relpos_wide_wgmma_takes accepts to
+// csrc/relpos_attention_wide_wgmma.cu, and f32 ones there that
+// bff_relpos_wide_tf32_takes accepts to
+// csrc/relpos_attention_wide_tf32.cu (K5's windows at those head dims
+// too); f32 calls that
 // bff_relpos_tf32_takes accepts (K4 at head dim 64, 80 or 96 with kw = 64
 // or kw a multiple of 8 from 8 to 56, K5 at 80 on 14 x 14 windows) to the
 // 3xTF32 wgmma kernels of csrc/relpos_attention_tf32.cu; the rest to the
 // kernels below (flash_relpos_kernels).
 //
-// Every shape the JAX functions take runs here: head dims past 128 on a
-// third grid axis over the ceil(D / 128) slices of 128 output features
-// (each block sums its scores over the head dim's slices, staged in turn
-// through its 128-wide Q and K tiles, and accumulates P V for its own
-// slice of V: the FMA kernel's kSliced, the tile's attend_block_sliced);
-// grids with kh + kw past kMaxTableCols = 256 in bf16 on the tile with
-// each key tile's factor columns staged beside its K and V
-// (csrc/relpos_attention_streamed.cu, StreamedBias in attention_tc.cuh;
-// bff_relpos_streamed_takes below), and every
-// other call past the table (f32, bf16 off the tile's alignment or past
-// head dim 128) on the FMA kernel reading each score's two factors from
-// device memory through the read-only path instead of a table; and windows
+// Every shape the JAX functions take runs here: head dims past 128 outside
+// the wide routes above on a third grid axis over the ceil(D / 128) slices
+// of 128 output features (each block sums its scores over the head dim's
+// slices, staged in turn through its 128-wide Q and K tiles, and
+// accumulates P V for its own slice of V: the FMA kernel's kSliced, the
+// tile's attend_block_sliced); grids with kh + kw past kMaxTableCols = 256
+// in bf16 on the tile with each key tile's factor columns staged beside its
+// K and V (csrc/relpos_attention_streamed.cu, StreamedBias in
+// attention_tc.cuh; bff_relpos_streamed_takes below), and every other call
+// past the table (f32, bf16 off the tile's alignment or past head dim 128
+// outside the wide route) on the FMA kernel reading each score's two
+// factors from device memory through the read-only path instead of a
+// table; and windows
 // past kMaxWindow = 256 tokens or head dim 128 on K4's kernels, G windows
 // as BH (the same function: window_attention_relpos_plain is
 // attend_relpos_plain), counted as K4's.
@@ -660,6 +666,25 @@ extern "C" int bff_flash_relpos_streamed(const void* q, const void* k, const voi
                                          const void* bias_h, const void* bias_w, void* o, int BH,
                                          int S, int D, int kh, int kw, float scale,
                                          void* stream);
+// csrc/relpos_attention_wide_wgmma.cu and csrc/relpos_attention_wide_tf32.cu:
+// head dims 144 to 256 on wgmma, the whole head dim a block (bf16 on any
+// grid, f32 on the factor table's)
+extern "C" int bff_relpos_wide_wgmma_takes(int kind, int dtype, int D, int S, int rows, int cols,
+                                           float scale, const void* q, const void* k,
+                                           const void* v, const void* o, const void* bias_h,
+                                           const void* bias_w);
+extern "C" int bff_flash_relpos_wide_wgmma(const void* q, const void* k, const void* v,
+                                           const void* bias_h, const void* bias_w, void* o,
+                                           int BH, int S, int D, int kh, int kw, float scale,
+                                           void* stream);
+extern "C" int bff_relpos_wide_tf32_takes(int kind, int dtype, int D, int S, int rows, int cols,
+                                          float scale, const void* q, const void* k,
+                                          const void* v, const void* o, const void* bias_h,
+                                          const void* bias_w);
+extern "C" int bff_flash_relpos_wide_tf32(const void* q, const void* k, const void* v,
+                                          const void* bias_h, const void* bias_w, void* o,
+                                          int BH, int S, int D, int kh, int kw, float scale,
+                                          void* stream);
 // csrc/relpos_attention_wgmma.cu: SAM ViT-H's head-dim-80 calls on wgmma and TMA
 extern "C" int bff_relpos_wgmma_takes(int kind, int dtype, int D, int S, int rows, int cols,
                                       float scale, const void* q, const void* k, const void* v,
@@ -709,14 +734,20 @@ int dispatch_flash(const void* q, const void* k, const void* v, const void* bh, 
 }
 
 // K4's kernels below the wgmma and 3xTF32 routes (and K5's windows past 256
-// tokens or head dim 128, the same function with G windows as BH): bf16 on
-// the tile where its rows, bases and factor table allow (the slice axis
-// past head dim 128), past the table on the tile with streamed factors
+// tokens or head dim 128, the same function with G windows as BH): head dims
+// 144 to 256 where bff_relpos_wide_wgmma_takes (bf16) or
+// bff_relpos_wide_tf32_takes (f32) says so on the wide kernels; other bf16
+// calls on the tile where its rows, bases and factor table allow (the slice
+// axis past head dim 128), past the table on the tile with streamed factors
 // where bff_relpos_streamed_takes says so, every other call on the FMA
 // kernel. -1 for another dtype.
 int flash_relpos_kernels(int dtype, const void* q, const void* k, const void* v,
                          const void* bh, const void* bw, void* o, int BH, int S, int D, int kh,
                          int kw, float scale, cudaStream_t s) {
+  if (bff_relpos_wide_wgmma_takes(0, dtype, D, S, kh, kw, scale, q, k, v, o, bh, bw))
+    return bff_flash_relpos_wide_wgmma(q, k, v, bh, bw, o, BH, S, D, kh, kw, scale, s);
+  if (bff_relpos_wide_tf32_takes(0, dtype, D, S, kh, kw, scale, q, k, v, o, bh, bw))
+    return bff_flash_relpos_wide_tf32(q, k, v, bh, bw, o, BH, S, D, kh, kw, scale, s);
   if (dtype == 0) return dispatch_flash<float>(q, k, v, bh, bw, o, BH, S, D, kh, kw, scale, s);
   if (dtype != 1) return -1;
   if (bff_tc::tile_takes(D, q, k, v, o) && kh + kw <= kMaxTableCols) {

@@ -10,6 +10,9 @@
 // tools/variant_csrc/ms_deform_window_tma.cu, a K1 variant that
 // tools/kernel_variants.py builds.
 //
+// The wide kernels of head dims 144 to 256 use it through wide_wgmma.cuh
+// (bf16) and tf32_images.cuh (3xTF32).
+//
 // Descriptors. A TMA box written with CU_TENSOR_MAP_SWIZZLE_128B (rows of
 // 128 bytes), _64B (rows of 64 bytes) or _32B (rows of 32 bytes) is read by
 // a descriptor of the same swizzle mode; tiles start on 1024-byte
@@ -169,6 +172,16 @@ __device__ __forceinline__ void turn_sync(int id) {
 }
 __device__ __forceinline__ void turn_arrive(int id) {
   asm volatile("bar.arrive %0, 256;\n" ::"r"(id) : "memory");
+}
+
+// x, opaque to the compiler from here on: a kernel passes an address or an
+// index through it once a loop step, so what is computed from it (wgmma
+// descriptors, chunk coordinates) is computed there instead of hoisted out
+// of the loop into registers that the accumulators need.
+template <typename T>
+__device__ __forceinline__ T opaque(T x) {
+  asm volatile("" : "+r"(x));
+  return x;
 }
 
 __device__ __forceinline__ void wgmma_fence() {

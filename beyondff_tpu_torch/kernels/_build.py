@@ -104,6 +104,10 @@ def library() -> ctypes.CDLL:
     lib.bff_relpos_tf32_takes.restype = i
     lib.bff_relpos_streamed_takes.argtypes = [i, i, i, i, i, i, f, p, p, p, p, p, p]
     lib.bff_relpos_streamed_takes.restype = i
+    lib.bff_relpos_wide_wgmma_takes.argtypes = [i, i, i, i, i, i, f, p, p, p, p, p, p]
+    lib.bff_relpos_wide_wgmma_takes.restype = i
+    lib.bff_relpos_wide_tf32_takes.argtypes = [i, i, i, i, i, i, f, p, p, p, p, p, p]
+    lib.bff_relpos_wide_tf32_takes.restype = i
     lib.bff_relpos_tf32_scratch_floats.argtypes = [i, i, i]
     lib.bff_relpos_tf32_scratch_floats.restype = ctypes.c_longlong
     lib.bff_ms_deform_sample.argtypes = [i, p, p, p, p, p, i, i, i, i, i, i, i,

@@ -32,16 +32,24 @@ than 64 whose width is a multiple of 8 (portrait frames under
 ``BFF_SAM_RECT=1``;
 :func:`relpos_tf32_route`) to the 3xTF32 wgmma kernel of
 ``csrc/relpos_attention_tf32.cu``, counted as
-``flash_attention_relpos_tf32``; and the rest to the mma.sync tile or the
-f32-FMA kernel, counted as ``flash_attention_relpos`` (:func:`relpos_counter`
-names the counter of a call). The wrappers launch them for CUDA tensors and
-raise on what they do not take; CPU tensors take the plain versions.
+``flash_attention_relpos_tf32``; its bf16 calls at head dims 144 to 256 in
+steps of 16 on any grid (:func:`relpos_wide_wgmma_route`) to the wgmma/TMA
+kernel of ``csrc/relpos_attention_wide_wgmma.cu``, the whole head dim a
+block with each key tile's factors streamed into shared memory, counted as
+``flash_attention_relpos_wide_wgmma``, and its f32 calls there on any grid
+(:func:`relpos_wide_tf32_route`) to the 3xTF32 wgmma kernel of
+``csrc/relpos_attention_wide_tf32.cu``, counted as
+``flash_attention_relpos_wide_tf32``; and the rest to the mma.sync tile or
+the f32-FMA kernel, counted as ``flash_attention_relpos``
+(:func:`relpos_counter` names the counter of a call). The wrappers launch
+them for CUDA tensors and raise on what they do not take; CPU tensors take
+the plain versions.
 
-Every shape the JAX functions take runs on a kernel: head dims past 128 on
-the FMA kernel or the mma.sync tile with a grid axis over the head dim's
-128-feature output slices (:func:`head_dim_slices`; each block sums its
-scores over every slice and accumulates P V for its own;
-:func:`sliced_mirror`), rel-pos grids with kh + kw past 256 on the FMA
+Every shape the JAX functions take runs on a kernel: head dims past 128
+outside the wide routes on the FMA kernel or the mma.sync tile with a grid
+axis over the head dim's 128-feature output slices (:func:`head_dim_slices`;
+each block sums its scores over every slice and accumulates P V for its
+own; :func:`sliced_mirror`), rel-pos grids with kh + kw past 256 on the FMA
 kernel reading the factors from device memory (:func:`relpos_factor_table`;
 bf16 at head dims up to 128 on the mma.sync tile with each key tile's
 factors streamed into shared memory, :func:`relpos_streamed_route`, counted
@@ -125,18 +133,20 @@ def relpos_streamed_route(kind: int, dtype: int, d: int, s: int, rows: int, cols
             and all(p % 4 == 0 for p in ptrs[4:]))
 
 
-def relpos_stream_layout(kw: int) -> dict:
+def relpos_stream_layout(kw: int, fixed_w: int = STREAM_FIXED_W, slots: int = 2) -> dict:
     """The mirror of ``attention_tc.cuh``'s streamed table for a grid ``kw``
     wide, in 4-byte words a row: ``h_words`` of bias_h and ``w_words`` of
-    bias_w (past ``STREAM_FIXED_W`` columns: pieces A and B) in each of the
-    two ring slots (``slot_words``), then ``fixed_words`` of every bias_w
-    column (up to ``STREAM_FIXED_W``), rows ``ld`` bf16 elements apart (the
-    least multiple of 16 that holds a row, plus 8)."""
+    bias_w (past ``fixed_w`` columns: pieces A and B) in each of the
+    ``slots`` ring slots (``slot_words``), then ``fixed_words`` of every
+    bias_w column (up to ``fixed_w``), rows ``ld`` bf16 elements apart (the
+    least multiple of 16 that holds a row, plus 8). The tile's streamed route
+    has ``STREAM_FIXED_W`` and two slots, the wide wgmma kernel
+    ``RELPOS_WIDE_FIXED_W`` and ``RELPOS_WIDE_SLOTS``."""
     h = (62 // kw + 4) // 2
-    w = 34 if kw > STREAM_FIXED_W else 0
-    fixed = 0 if kw > STREAM_FIXED_W else (kw + 2) // 2
+    w = 34 if kw > fixed_w else 0
+    fixed = 0 if kw > fixed_w else (kw + 2) // 2
     return {"h_words": h, "w_words": w, "slot_words": h + w, "fixed_words": fixed,
-            "ld": (2 * (2 * (h + w) + fixed) + 15) // 16 * 16 + 8}
+            "ld": (2 * (slots * (h + w) + fixed) + 15) // 16 * 16 + 8}
 
 
 def _stream_piece(table, col, flat, e, cnt, live):
@@ -158,13 +168,15 @@ def _stream_piece(table, col, flat, e, cnt, live):
 
 
 def relpos_stream_stage(table, bias_h_flat, bias_w_flat, kh: int, kw: int, s: int, row0: int,
-                        q0: int, k0: int) -> None:
-    """The mirror of ``StreamedBias::stage``: the factor columns of the key
-    tile at ``k0`` into ring slot (k0 / 64) & 1 of ``table`` (numpy, 128 rows
-    x ``ld``) for the block whose first flat factor row is ``row0`` (head *
-    S + ``q0``): bias_h's piece, and past ``STREAM_FIXED_W`` columns bias_w's
-    pieces A and B from the word after A's; rows at or past S zero-filled."""
-    lay = relpos_stream_layout(kw)
+                        q0: int, k0: int, fixed_w: int = STREAM_FIXED_W, slots: int = 2) -> None:
+    """The mirror of ``StreamedBias::stage`` (and of the wide wgmma kernel's
+    ``WarpFactors::stage``, whose warps' 16-row parts stack into the same
+    table): the factor columns of the key tile at ``k0`` into ring slot (k0
+    / 64) % ``slots`` of ``table`` (numpy, 128 rows x ``ld``) for the block
+    whose first flat factor row is ``row0`` (head * S + ``q0``): bias_h's
+    piece, and past ``fixed_w`` columns bias_w's pieces A and B from the
+    word after A's; rows at or past S zero-filled."""
+    lay = relpos_stream_layout(kw, fixed_w, slots)
     hw, sw = lay["h_words"], lay["slot_words"]
     y0, x0 = divmod(k0, kw)
     n = min(STREAM_TILE, s - k0)
@@ -172,10 +184,10 @@ def relpos_stream_stage(table, bias_h_flat, bias_w_flat, kh: int, kw: int, s: in
     na = min(n, kw - x0)
     big_r = row0 + np.arange(STREAM_ROWS)
     live = q0 + np.arange(STREAM_ROWS) < s
-    base = ((k0 // STREAM_TILE) & 1) * 2 * sw
+    base = ((k0 // STREAM_TILE) % slots) * 2 * sw
     col = np.full(STREAM_ROWS, base)
     _stream_piece(table, col, bias_h_flat, big_r * kh + y0, np.full(STREAM_ROWS, nh), live)
-    if kw > STREAM_FIXED_W:
+    if kw > fixed_w:
         ea = big_r * kw + x0
         wa = ((ea & 1) + na + 1) // 2
         _stream_piece(table, col + 2 * hw, bias_w_flat, ea, np.full(STREAM_ROWS, na), live)
@@ -183,36 +195,39 @@ def relpos_stream_stage(table, bias_h_flat, bias_w_flat, kh: int, kw: int, s: in
                       np.full(STREAM_ROWS, n - na), live)
 
 
-def relpos_stream_fixed(table, bias_w_flat, kw: int, s: int, row0: int, q0: int) -> None:
-    """The mirror of ``StreamedBias::stage_fixed``: up to ``STREAM_FIXED_W``
-    columns every bias_w column of the block's rows sits in the fixed table
-    after the two slots."""
-    if kw > STREAM_FIXED_W:
+def relpos_stream_fixed(table, bias_w_flat, kw: int, s: int, row0: int, q0: int,
+                        fixed_w: int = STREAM_FIXED_W, slots: int = 2) -> None:
+    """The mirror of ``StreamedBias::stage_fixed`` (``WarpFactors::
+    stage_fixed``): up to ``fixed_w`` columns every bias_w column of the
+    block's rows sits in the fixed table after the ``slots`` slots."""
+    if kw > fixed_w:
         return
-    lay = relpos_stream_layout(kw)
+    lay = relpos_stream_layout(kw, fixed_w, slots)
     big_r = row0 + np.arange(STREAM_ROWS)
-    _stream_piece(table, np.full(STREAM_ROWS, 4 * lay["slot_words"]), bias_w_flat, big_r * kw,
-                  np.full(STREAM_ROWS, kw), q0 + np.arange(STREAM_ROWS) < s)
+    _stream_piece(table, np.full(STREAM_ROWS, 2 * slots * lay["slot_words"]), bias_w_flat,
+                  big_r * kw, np.full(STREAM_ROWS, kw), q0 + np.arange(STREAM_ROWS) < s)
 
 
-def relpos_stream_offsets(kh: int, kw: int, s: int, k0: int, rho: int):
-    """The mirror of ``StreamedBias::tile``: for the 64 columns of the key
-    tile at ``k0`` and a lane whose rows' flat factor rows have parity
-    ``rho``, (hoff, woff, live): the table elements of each key's bias_h and
-    bias_w entry in those rows, and whether the key lies before S."""
-    lay = relpos_stream_layout(kw)
+def relpos_stream_offsets(kh: int, kw: int, s: int, k0: int, rho: int,
+                          fixed_w: int = STREAM_FIXED_W, slots: int = 2):
+    """The mirror of ``StreamedBias::tile`` (``WarpFactors::apply``): for the
+    64 columns of the key tile at ``k0`` and a lane whose rows' flat factor
+    rows have parity ``rho``, (hoff, woff, live): the table elements of each
+    key's bias_h and bias_w entry in those rows, and whether the key lies
+    before S."""
+    lay = relpos_stream_layout(kw, fixed_w, slots)
     hw, sw = lay["h_words"], lay["slot_words"]
     y0, x0 = divmod(k0, kw)
     n = min(STREAM_TILE, s - k0)
-    s0 = ((k0 // STREAM_TILE) & 1) * 2 * sw
+    s0 = ((k0 // STREAM_TILE) % slots) * 2 * sw
     hbase = s0 + ((rho * kh + y0) & 1) - y0
-    if kw > STREAM_FIXED_W:
+    if kw > fixed_w:
         pa = (rho * kw + x0) & 1
         na = min(n, kw - x0)
         xa, abase = x0, s0 + 2 * hw + pa - x0
         bbase = s0 + 2 * hw + 2 * ((pa + na + 1) // 2) + ((rho * kw) & 1)
     else:
-        xa, abase, bbase = 0, 4 * sw + ((rho * kw) & 1), 0
+        xa, abase, bbase = 0, 2 * slots * sw + ((rho * kw) & 1), 0
     key = k0 + np.arange(STREAM_TILE)
     ky, kx = key // kw, key % kw
     return hbase + ky, np.where(kx >= xa, abase + kx, bbase + kx), key < s
@@ -542,14 +557,18 @@ def masked_wgmma_mirror(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _wgmma_rows_mirror(q, k, v, valid_len, scale, masked_wgmma_schedule(bh, s)[2])
 
 
-def _wgmma_rows_mirror(q, k, v, valid_len, scale, tiles):
+def _wgmma_rows_mirror(q, k, v, valid_len, scale, tiles, bias=None):
     """The arithmetic the wgmma kernels of K2 and of head dims past 128
     share, over the 64-row tiles of ``tiles`` ({block: first rows}); see
-    :func:`masked_wgmma_mirror`."""
+    :func:`masked_wgmma_mirror`. With ``bias`` (a (BH, rows, keys) f32
+    tensor, rows and keys padded past S with zeros) each logit is first s *
+    scale + bias in natural units, and log2(e) is the softmax's scale."""
     bh, s, d = q.shape
     valid = s if valid_len is None else int(valid_len)
     scale = d ** -0.5 if scale is None else scale
     sl2 = torch.tensor(scale * 1.4426950408889634, dtype=torch.float32)
+    if bias is not None:
+        sl2 = torch.tensor(1.4426950408889634, dtype=torch.float32)
     qf, kf, vf = q.float(), k.float(), v.float()
     out = torch.zeros(bh, s, d, dtype=torch.float32)
     written = torch.zeros(bh, s, dtype=torch.int32)
@@ -573,6 +592,8 @@ def _wgmma_rows_mirror(q, k, v, valid_len, scale, tiles):
                 kt[inside] = kf[h, keys[inside]]
                 vt[inside] = vf[h, keys[inside]]
                 sc = qt @ kt.T
+                if bias is not None:
+                    sc = sc * scale + bias[h, r0:r0 + 64, t * tile:(t + 1) * tile]
                 sc = torch.where(keys[None, :] < valid, sc, torch.tensor(float("-inf")))
                 mx = sc.max(dim=1).values * sl2
                 # a warp's 16 rows raise their max together, when any needs it
@@ -648,6 +669,176 @@ def wide_wgmma_mirror(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     rounded before P V, the output divided once)."""
     bh, s, _d = q.shape
     return _wgmma_rows_mirror(q, k, v, valid_len, scale, wide_wgmma_schedule(bh, s)[1])
+
+
+# csrc/relpos_attention_wide_wgmma.cu (bf16) and
+# csrc/relpos_attention_wide_tf32.cu (f32): K4 at the wide kernel's head dims
+# (``WIDE_WGMMA_HEAD_DIMS``); the wgmma kernel's factor table (the streamed
+# plan with bias_w whole up to 64 grid columns and one slot) and the 3xTF32
+# kernel's blocks of one 64-row consumer warpgroup
+RELPOS_WIDE_FIXED_W = 64
+RELPOS_WIDE_SLOTS = 1
+RELPOS_WIDE_TF32_BLOCK_Q = 64
+
+
+def relpos_wide_wgmma_route(kind: int, dtype: int, d: int, s: int, rows: int, cols: int,
+                            scale: float, *ptrs: int) -> bool:
+    """The mirror of ``bff_relpos_wide_wgmma_takes``: whether K4's kernels
+    (kind 0, a ``rows`` x ``cols`` = kh x kw grid) or K5's windows that run
+    on them (kind 1) take the wgmma/TMA kernel of
+    ``csrc/relpos_attention_wide_wgmma.cu`` (counted as
+    ``flash_attention_relpos_wide_wgmma``): bf16, head dim a multiple of 16
+    from 144 to 256, any grid (inside or past the factor table), a positive
+    finite scale (rounded to f32 as the call passes it), q, k, v and the
+    output on 16 bytes and both factors (``ptrs``' last two) on 4."""
+    f32 = ctypes.c_float(scale).value
+    shape = kind in (0, 1) and rows >= 1 and cols >= 1 and rows * cols == s
+    return (shape and dtype == 1 and d in WIDE_WGMMA_HEAD_DIMS and 0.0 < f32 <= _FLT_MAX
+            and all(p % 16 == 0 for p in ptrs[:4]) and all(p % 4 == 0 for p in ptrs[4:]))
+
+
+def relpos_wide_tf32_route(kind: int, dtype: int, d: int, s: int, rows: int, cols: int,
+                           scale: float, *ptrs: int) -> bool:
+    """The mirror of ``bff_relpos_wide_tf32_takes``: whether K4's kernels
+    (kind 0) or K5's windows that run on them (kind 1) take the 3xTF32
+    wgmma kernel of ``csrc/relpos_attention_wide_tf32.cu`` (counted as
+    ``flash_attention_relpos_wide_tf32``): f32, head dim a multiple of 16
+    from 144 to 256, any grid (the kernel reads each score's factors from
+    device memory, so it needs no factor table), a positive finite scale and
+    every pointer on 16 bytes."""
+    f32 = ctypes.c_float(scale).value
+    shape = kind in (0, 1) and rows >= 1 and cols >= 1 and rows * cols == s
+    return (shape and dtype == 0 and d in WIDE_WGMMA_HEAD_DIMS and 0.0 < f32 <= _FLT_MAX
+            and all(p % 16 == 0 for p in ptrs))
+
+
+def relpos_wide_tf32_plan(d: int) -> dict:
+    """The mirror of ``csrc/relpos_attention_wide_tf32.cu``'s ``Cfg<DP>`` at
+    head dim ``d``: the padded head dim ``dp`` (``d`` rounded up to 32), the
+    keys of a tile (32; 16 at DP 256, where Q's images take 128 KB), the
+    output columns of a fold part (32 at DP 256 and 56 at DP 224, where
+    wider parts spilled) and the parts, and the bytes of shared memory a
+    block asks (Q's hi and lo images for 64 rows, one K and one V^T stage of
+    hi and lo, the barriers and the 1024 bytes of alignment)."""
+    dp = -(-d // 32) * 32
+    n = 16 if dp == 256 else 32
+    fold = {256: 32, 224: 56}.get(dp, dp // 2)
+    return {"dp": dp, "keys": n, "fold": fold, "parts": dp // fold,
+            "smem": 2 * RELPOS_WIDE_TF32_BLOCK_Q * dp * 4 + 4 * n * dp * 4 + 64 + 1024}
+
+
+def relpos_staged_bias(bias_h: torch.Tensor, bias_w: torch.Tensor, kw: int,
+                       fixed_w: int = RELPOS_WIDE_FIXED_W,
+                       slots: int = RELPOS_WIDE_SLOTS) -> torch.Tensor:
+    """The bias each score reads through the streamed table (blocks of 128
+    rows, 64-key tiles; :func:`relpos_stream_stage`, the fixed part and
+    :func:`relpos_stream_offsets` at ``fixed_w`` and ``slots``; the wide
+    wgmma kernel's plan by default) as a dense (BH, rows, keys) f32 tensor,
+    both padded to whole blocks and tiles with zeros: the factors in their
+    dtype, summed in f32."""
+    g, s, kh = bias_h.shape
+    fh = bias_h.float().reshape(-1).numpy()
+    fw = bias_w.float().reshape(-1).numpy()
+    lay = relpos_stream_layout(kw, fixed_w, slots)
+    n_tiles = -(-s // STREAM_TILE)
+    out = np.zeros((g, -(-s // STREAM_ROWS) * STREAM_ROWS, n_tiles * STREAM_TILE), np.float32)
+    for h in range(g):
+        for q0 in range(0, s, STREAM_ROWS):
+            row0 = h * s + q0
+            table = np.zeros((STREAM_ROWS, lay["ld"]), np.float32)
+            relpos_stream_fixed(table, fw, kw, s, row0, q0, fixed_w, slots)
+            parity = (row0 + np.arange(STREAM_ROWS)) & 1
+            for k0 in range(0, s, STREAM_TILE):
+                relpos_stream_stage(table, fh, fw, kh, kw, s, row0, q0, k0, fixed_w, slots)
+                for rho in (0, 1):
+                    hoff, woff, live = relpos_stream_offsets(kh, kw, s, k0, rho, fixed_w, slots)
+                    sel = np.nonzero(parity == rho)[0]
+                    got = table[sel][:, hoff] + table[sel][:, woff]
+                    out[h, q0 + sel, k0:k0 + STREAM_TILE] = np.where(live[None], got, 0.0)
+    return torch.from_numpy(out)
+
+
+def relpos_wide_wgmma_mirror(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             bias_h: torch.Tensor, bias_w: torch.Tensor, kw: int,
+                             scale: Optional[float] = None) -> torch.Tensor:
+    """The arithmetic of ``csrc/relpos_attention_wide_wgmma.cu`` in PyTorch
+    on the CPU, block by block of :func:`wide_wgmma_schedule`: each score's
+    bias as the kernel reads it from its staged table
+    (:func:`relpos_staged_bias`: bias_w whole up to 64 grid columns, each
+    tile's columns streamed past them, one slot), each logit s * scale +
+    bias_h + bias_w in f32 (the factors rounded to the inputs' dtype), keys
+    past S at -inf, then :func:`masked_wgmma_mirror`'s tile walk in log2
+    units (the lazy running max, column tiles wholly past S at p = 0, P
+    rounded before P V, the output divided once)."""
+    g, s, _d = q.shape
+    bias = relpos_staged_bias(bias_h.to(q.dtype), bias_w.to(q.dtype), kw)
+    return _wgmma_rows_mirror(q, k, v, None, scale, wide_wgmma_schedule(g, s)[1], bias)
+
+
+def relpos_wide_tf32_mirror(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            bias_h: torch.Tensor, bias_w: torch.Tensor, kw: int,
+                            scale: Optional[float] = None) -> torch.Tensor:
+    """The arithmetic of ``csrc/relpos_attention_wide_tf32.cu`` in PyTorch on
+    the CPU, in f32, block by block of ``RELPOS_WIDE_TF32_BLOCK_Q`` rows: Q
+    times the scale, split (:func:`tf32_split`); per tile of
+    :func:`relpos_wide_tf32_plan`'s keys (keys past S zero), K and V split
+    (V^T with each 8-key group in ``TF32_KEY_ORDER``), the scores ((lo(Q)
+    hi(K)^T + hi(Q) lo(K)^T) + hi(Q) hi(K)^T) from zero, then each score's
+    bias_h + bias_w added in f32 (keys past S at -inf); the running max (log2
+    units) raised at every tile; p = 2^(s log2 e - m) (one rounding); the
+    denominator summed from the f32 p; the output rescaled and the tile's
+    (lo(P) hi(V) + hi(P) lo(V)) + hi(P) hi(V) summed apart and added to it
+    (the kernel adds it in column parts: the same sums column by column; the
+    zero columns of the padded head dim add nothing); the output divided
+    once. Every word handed to the products is rna-rounded TF32, so the
+    hardware's truncation is not modelled."""
+    g, s, d = q.shape
+    scale = d ** -0.5 if scale is None else scale
+    l2e = float(torch.tensor(1.4426950408889634, dtype=torch.float32))
+    sc_f32 = float(torch.tensor(scale, dtype=torch.float32))
+    tile = relpos_wide_tf32_plan(d)["keys"]
+    n_tiles = -(-s // tile)
+    kp = tile * n_tiles
+    kz = torch.zeros(g, kp, d)
+    vz = torch.zeros(g, kp, d)
+    kz[:, :s] = k.float()
+    vz[:, :s] = v.float()
+    k_hi, k_lo = tf32_split(kz)
+    order = torch.tensor([8 * (j // 8) + TF32_KEY_ORDER[j % 8] for j in range(kp)])
+    vt_hi, vt_lo = (t[:, order].transpose(1, 2) for t in tf32_split(vz))  # (g, D, Kp)
+    bias = torch.full((g, s, kp), float("-inf"))
+    bias[:, :, :s] = relpos_bias(bias_h, bias_w, torch.float32)
+    bm = RELPOS_WIDE_TF32_BLOCK_Q
+    out = torch.zeros(g, s, d)
+    for h in range(g):
+        for r0 in range(0, s, bm):
+            rows = torch.arange(r0, min(r0 + bm, s))
+            qt = torch.zeros(bm, d)
+            qt[:len(rows)] = q[h, rows].float() * sc_f32
+            q_hi, q_lo = tf32_split(qt)
+            b = torch.zeros(bm, kp)
+            b[:len(rows)] = bias[h, rows]
+            b[len(rows):, s:] = float("-inf")
+            m = torch.full((bm,), -1e30)
+            l = torch.zeros(bm)
+            acc = torch.zeros(bm, d)
+            for t in range(n_tiles):
+                ks = slice(t * tile, (t + 1) * tile)
+                sco = ((q_lo @ k_hi[h, ks].T + q_hi @ k_lo[h, ks].T)
+                       + q_hi @ k_hi[h, ks].T) + b[:, ks]
+                m_new = torch.maximum(m, sco.max(dim=1).values * l2e)
+                corr = torch.exp2(m - m_new)
+                m = m_new
+                l = l * corr
+                x = (sco.double() * l2e - m[:, None].double()).float()  # the FMA's rounding
+                p = torch.exp2(x.double()).float()  # exact, standing in for ex2.approx
+                l = l + p.sum(dim=1)
+                acc = acc * corr[:, None]
+                p_hi, p_lo = tf32_split(p[:, order[:tile]])  # the A fragments' column order
+                acc = acc + ((p_lo @ vt_hi[h, :, ks].T + p_hi @ vt_lo[h, :, ks].T)
+                             + p_hi @ vt_hi[h, :, ks].T)
+            out[h, rows] = (acc / l[:, None])[:len(rows)]
+    return out
 
 
 def relpos_wgmma_route(kind: int, dtype: int, d: int, s: int, rows: int, cols: int,
@@ -792,9 +983,16 @@ def relpos_counter(kind: int, dtype: int, d: int, s: int, rows: int, cols: int, 
     :func:`window_on_flash` sends to K4's kernels count as
     ``flash_attention_relpos``; past the factor table, the tile with
     streamed factors (:func:`relpos_streamed_route`) as
-    ``flash_attention_relpos_streamed``."""
+    ``flash_attention_relpos_streamed``; at head dims 144 to 256 the wide
+    kernels (K5's windows there too) as ``flash_attention_relpos_wide_wgmma``
+    (:func:`relpos_wide_wgmma_route`) and ``flash_attention_relpos_wide_tf32``
+    (:func:`relpos_wide_tf32_route`)."""
     if relpos_streamed_route(kind, dtype, d, s, rows, cols, scale, *ptrs):
         return "flash_attention_relpos_streamed"
+    if relpos_wide_wgmma_route(kind, dtype, d, s, rows, cols, scale, *ptrs):
+        return "flash_attention_relpos_wide_wgmma"
+    if relpos_wide_tf32_route(kind, dtype, d, s, rows, cols, scale, *ptrs):
+        return "flash_attention_relpos_wide_tf32"
     if kind == 1 and window_on_flash(s, d):  # K4's kernels
         return "flash_attention_relpos"
     name = "window_attention_relpos" if kind == 1 else "flash_attention_relpos"

@@ -22,8 +22,12 @@ A window's zero-padded tokens (``window_partition``) are real keys; only the
 TPU's lane padding beyond S was masked there. Windows of more than 256
 tokens or head dims past 128 run K4's kernels (the same function with G
 windows as BH: the plain versions are one), counted as
-``flash_attention_relpos`` (``flash_attention.window_on_flash``). Like the
-JAX kernel it is not wired into the SAM encoder.
+``flash_attention_relpos`` (``flash_attention.window_on_flash``), or as the
+route that takes them: ``flash_attention_relpos_streamed`` past the factor
+table, and at head dims 144 to 256 ``flash_attention_relpos_wide_wgmma``
+(bf16) and ``flash_attention_relpos_wide_tf32`` (f32)
+(``flash_attention.relpos_counter``). Like the JAX kernel it is not wired
+into the SAM encoder.
 """
 
 from __future__ import annotations

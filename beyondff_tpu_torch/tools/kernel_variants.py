@@ -98,15 +98,17 @@ WIDE = "flash_attention_wide_wgmma.cu"
 RWG = "relpos_attention_wgmma.cu"
 RST = "relpos_attention_streamed.cu"
 RT32 = "relpos_attention_tf32.cu"
+RWW, RWT = "relpos_attention_wide_wgmma.cu", "relpos_attention_wide_tf32.cu"
 IWG, MSW = "mask_iou_wgmma.cu", "ms_deform_window_tma.cu"
 NMB = "nms_bitmask.cu"
 TF32_SMEM = "flash_attention_tf32_smem.cu"
-SOURCES = (RELPOS, IOU, MSD, FLASH, WGMMA, FMW, TF32, WIDE, RWG, RST, RT32, IWG, NMS)
+SOURCES = (RELPOS, IOU, MSD, FLASH, WGMMA, FMW, TF32, WIDE, RWG, RST, RT32, RWW, RWT, IWG, NMS)
 # sources only variants build, copied beside csrc's (whose headers they use)
 VARIANT_CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "variant_csrc")
 K1, K6 = (MSD,), (IOU, IWG)  # what a K1 or K6 variant builds
 K3 = (FLASH, WGMMA, FMW, TF32, WIDE)  # what a K2 or K3 variant builds (one C entry routes all)
-K45 = (RELPOS, RWG, RST, RT32)  # what a K4 or K5 variant builds (the rel-pos entries route all)
+# what a K4 or K5 variant builds (the rel-pos entries route all)
+K45 = (RELPOS, RWG, RST, RT32, RWW, RWT)
 NMS_V = (NMS,)
 K1_STAGED = (MSD, MSW)
 ROUNDS = 3
@@ -464,6 +466,13 @@ VARIANTS = {
     # staged beside K and V
     "relpos_stream_l2": (K45, ((RST, "constexpr bool kStreamFromL2 = false;",
                                 "constexpr bool kStreamFromL2 = true;"),)),
+    # K4 at head dims 144-256, f32: each tile's P V folded in two 112-column
+    # halves at DP 224 (shipped: four 56-column parts)
+    "relpos_wide_tf32_fold_halves": (K45, ((RWT, "DP == 256 ? 32 : DP == 224 ? 56 : DP / 2;",
+                                            "DP == 256 ? 32 : DP / 2;"),)),
+    # and at DP 256 in four 64-column parts (shipped: eight of 32)
+    "relpos_wide_tf32_fold_64": (K45, ((RWT, "DP == 256 ? 32 : DP == 224 ? 56 : DP / 2;",
+                                        "DP == 256 ? 64 : DP == 224 ? 56 : DP / 2;"),)),
     "k5_two_blocks": (K45, (
         (RWG, "constexpr int kWConsumers = 2;", "constexpr int kWConsumers = 1;"),
         (RWG, "constexpr int kWStages = 2;", "constexpr int kWStages = 1;"),
@@ -1066,6 +1075,26 @@ def main():
         "past k4 streamed 136x136 (4, 18496, 80)":
             lambda: attention_case(4, (136, 136), False, 80),
         "past k4 d160 32x32 (16, 1024, 160)": lambda: attention_case(16, (32, 32), False, 160),
+        # K4 at head dims 144-256 on the wide kernels (the tile's or the FMA
+        # kernel's slices in a tree from before them): bf16 inside and past
+        # the factor table; f32 on any grid ("relpos_f32 wide", beside the FMA
+        # kernel's slices through the entry ``fma``)
+        "past k4 d160 2x255 (16, 510, 160)": lambda: attention_case(16, (2, 255), False, 160),
+        "past k4 d256 32x32 (16, 1024, 256)": lambda: attention_case(16, (32, 32), False, 256),
+        "past k4 d160 136x136 (4, 18496, 160)":
+            lambda: attention_case(4, (136, 136), False, 160),
+        "relpos_f32 wide d160 32x32 (16, 1024, 160)":
+            lambda: relpos_f32_case(16, (32, 32), False, 160),
+        "relpos_f32 wide d256 32x32 (16, 1024, 256)":
+            lambda: relpos_f32_case(16, (32, 32), False, 256),
+        "relpos_f32 wide d160 2x255 (16, 510, 160)":
+            lambda: relpos_f32_case(16, (2, 255), False, 160),
+        "relpos_f32 wide d160 32x36 (16, 1152, 160)":
+            lambda: relpos_f32_case(16, (32, 36), False, 160),
+        "relpos_f32 wide d224 32x32 (16, 1024, 224)":
+            lambda: relpos_f32_case(16, (32, 32), False, 224),
+        "relpos_f32 wide d160 factors 3 (16, 1024, 160)":
+            lambda: relpos_f32_case(16, (32, 32), False, 160, 1.0, 3.0),
         # the factor table's route just inside its limit (kh + kw = 240), the
         # streamed route's yardstick at a similar grid
         "past k4 table 120x120 (4, 14400, 80)": lambda: attention_case(4, (120, 120), False, 80),

@@ -348,6 +348,19 @@ STREAMED_DESIGN = (TC_DESIGN + ", 4 warps x 32 rows, each 64-key tile's bias_h c
                    "past 160 grid columns, bias_w's run of 64) staged by 4-byte cp.async into "
                    "a ring slot beside its K and V, up to 160 columns bias_w whole in a fixed "
                    "table")
+RELPOS_WIDE_WGMMA_DESIGN = (WIDE_WGMMA_DESIGN.replace(", the last tile masked", "")
+                            + ", the bias added to the scores in f32 before the softmax "
+                            "(one FMA with the scale), each 64-key tile's factor columns "
+                            "staged by each warp for its own 16 rows by 4-byte cp.async into "
+                            "one slot (bias_w whole up to 64 grid columns), keys past S "
+                            "masked")
+RELPOS_WIDE_TF32_DESIGN = ("3xTF32 wgmma holding the whole head dim (144-256, padded to 32 "
+                           "with zeros): one 64-row consumer warpgroup and a producer "
+                           "warpgroup that reads each K and V tile (32 keys, 16 at DP 256) "
+                           "from device memory and writes its TF32 hi/lo images (no "
+                           "pre-pass), Q's images in shared memory, the products from zero "
+                           "and each score's whole bias added in f32 after them, each tile's "
+                           "P V summed apart in column parts and added in f32")
 SLICED_DESIGN = (", head dims past 128 on a grid axis of 128-feature output slices: each "
                  "block sums its scores over every slice of Q and K, staged in turn, and "
                  "accumulates P V for its own slice of V")
@@ -425,6 +438,7 @@ def fma_yardstick(torch, call, want):
     from beyondff_tpu_torch.utils.profiling import device_ms
 
     err = float((call().float() - want.float()).abs().max())
+    check(err <= 1e-4, f"the f32-FMA yardstick: max abs err {err} > 1e-4")
     return {"fma_max_abs_err": err, "fma_ms": cuda_ms(torch, call, 5),
             "fma_device_ms": device_ms(call)}
 
@@ -533,7 +547,8 @@ def relpos_case(torch, fa, wa, sam_mod, name, g, grid, dtype, dev, d=80, fma=Fal
     the kernels of ``csrc/relpos_attention_wgmma.cu``; ``..._tf32`` for its
     f32 calls, the kernels of ``csrc/relpos_attention_tf32.cu``), which must
     be the one ``fa.relpos_counter`` names, and the host microseconds a call
-    (``host_us``: the enqueue, tensor maps included). ``fma``: also time K4's
+    (``host_us``: the enqueue, tensor maps included; on the wide routes
+    ``entry_us`` too, the C entry alone). ``fma``: also time K4's
     f32-FMA kernel on the same inputs (``fma_yardstick``). ``spread`` scales
     q and k (peaked rows at 3; the factors follow q)."""
     import torch.nn.functional as F
@@ -594,6 +609,26 @@ def relpos_case(torch, fa, wa, sam_mod, name, g, grid, dtype, dev, d=80, fma=Fal
 
         fma_rec = fma_yardstick(torch, fma_call, want)
         del out_fma
+    if routed.endswith(("_wide_wgmma", "_wide_tf32")) and not window:
+        # the wide route's C entry alone (its tensor maps and launch, no
+        # Python wrapper; it moves no counter): host microseconds a call
+        import ctypes
+
+        from beyondff_tpu_torch.kernels import _build
+
+        out_entry = torch.empty_like(q)
+        entry = getattr(_build.library(),
+                        "bff_flash_relpos" + routed[len("flash_attention_relpos"):])
+
+        def entry_call():
+            rc = entry(*(ctypes.c_void_p(t.data_ptr()) for t in
+                         (q, k, v, bias_h, bias_w, out_entry)), g, s, d, hh, ww,
+                       ctypes.c_float(d ** -0.5),
+                       ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+            check(rc == 0, f"{routed} entry {name}: code {rc}")
+
+        fma_rec["entry_us"] = host_us(torch, entry_call)
+        del out_entry
     del got, want, diff, bound
     dname = str(dtype).split(".")[-1]
     es = q.element_size()
@@ -610,12 +645,14 @@ def relpos_case(torch, fa, wa, sam_mod, name, g, grid, dtype, dev, d=80, fma=Fal
     # what the shape adds to a route's design: K4's kernels for a large
     # window, head-dim slices, factors from device memory, the straddling mode
     on_flash = window and fa.window_on_flash(s, d)
+    wide = routed.endswith(("_wide_wgmma", "_wide_tf32"))
     suffix = ((", K4's kernel with the windows as heads" if on_flash else "")
-              + (SLICED_DESIGN if d > fa.HEAD_DIM_SLICE else "")
+              + (SLICED_DESIGN if d > fa.HEAD_DIM_SLICE and not wide else "")
               + ("" if fa.relpos_factor_table(hh, ww)
                  or routed.endswith(("_tf32", "_wgmma", "_streamed"))
                  else ", each score's factors read from device memory (kh + kw past 256)"))
-    extra = {"design": ((RELPOS_TF32_STRADDLE_DESIGN if not window and ww % 8 else
+    extra = {"design": (RELPOS_WIDE_TF32_DESIGN if wide else
+                        (RELPOS_TF32_STRADDLE_DESIGN if not window and ww % 8 else
                          RELPOS_TF32_NARROW_DESIGN if not window and ww != 64 else
                          RELPOS_TF32_DESIGN[window]) if routed.endswith("_tf32") else
                         FMA_DESIGN + (", whole-window softmax" if window and not on_flash
@@ -631,7 +668,8 @@ def relpos_case(torch, fa, wa, sam_mod, name, g, grid, dtype, dev, d=80, fma=Fal
         dev_ms = device_ms(kernel)
         extra = {"device_ms": dev_ms, "tflops": flops / dev_ms / 1e9,
                  "gbps": nbytes / dev_ms / 1e6, "library_device_ms": device_ms(library),
-                 "design": (RELPOS_WGMMA_DESIGN[window] if routed.endswith("_wgmma") else
+                 "design": (RELPOS_WIDE_WGMMA_DESIGN if wide else
+                            RELPOS_WGMMA_DESIGN[window] if routed.endswith("_wgmma") else
                             STREAMED_DESIGN if routed.endswith("_streamed") else
                             (FMA_DESIGN if not fa.relpos_factor_table(hh, ww) else
                              TC_DESIGN + ", 4 warps x 32 rows, " + (
@@ -685,8 +723,13 @@ def past_limits(torch, mods, cases, dev, rng):
     the head dims the wide kernel leaves; K4 at head dim 160 and on grids
     with kh + kw past 256 (1 x 300, 2 x 255 and, bf16 only, SAM's global
     attention on a 136 x 136 grid: the tile with streamed factors in bf16,
-    the FMA kernel reading the factors from device memory in f32 and for
-    bf16 past head dim 128, 2 x 255 at 160); K5 on 17 x 17 windows (K4's
+    the FMA kernel reading the factors from device memory in f32); K4 at
+    head dims 160 and 256 on 32 x 32 and at 160 on 2 x 255 on the wide
+    kernels (bf16 the wgmma kernel with streamed factors, f32 the 3xTF32
+    one, timed beside the FMA kernel's slices it displaced), and at head
+    dim 168 on the kernels they displaced (bf16 the tile's slices on 32 x
+    32 and the FMA kernel's past the table on 2 x 255, f32 the FMA
+    kernel's slices); K5 on 17 x 17 windows (K4's
     kernels); K1 at 9 levels (the level table in device memory) and at head
     dim 160 (the channel slices), clamp and exact. No configured model
     reaches any of them, and the run's time limit is shared."""
@@ -709,21 +752,34 @@ def past_limits(torch, mods, cases, dev, rng):
         check(rec["kernel"] == want, f"flash {name} bfloat16: on {rec['kernel']}, not {want}")
     for key, name, g, grid, d, dtypes in (
             ("relpos_d160", "d160_global", 16, (32, 32), 160, (torch.bfloat16, torch.float32)),
+            ("relpos_d256", "d256_global", 16, (32, 32), 256, (torch.bfloat16, torch.float32)),
             ("relpos_kh_kw_300", "grid_1x300_global", 16, (1, 300), 64,
              (torch.bfloat16, torch.float32)),
             ("relpos_kh_kw_257", "grid_2x255_global", 16, (2, 255), 64,
              (torch.bfloat16, torch.float32)),
             ("relpos_136", "grid_136x136_global", 4, (136, 136), 80, (torch.bfloat16,)),
             ("relpos_past_table_d160", "grid_2x255_d160_global", 16, (2, 255), 160,
+             (torch.bfloat16, torch.float32)),
+            ("relpos_d168", "d168_global", 16, (32, 32), 168, (torch.bfloat16, torch.float32)),
+            ("relpos_past_table_d168", "grid_2x255_d168_global", 16, (2, 255), 168,
              (torch.bfloat16,)),
             ("relpos_window_17", "window_17x17", 256, (17, 17), 80,
              (torch.bfloat16, torch.float32))):
         for dtype in dtypes:
             dname = str(dtype).split(".")[-1]
+            bf16, table = dtype == torch.bfloat16, fa.relpos_factor_table(*grid)
+            wide = d in fa.WIDE_WGMMA_HEAD_DIMS
+            # the wide routes at head dims 144-256, timed beside the kernels
+            # they displaced: the FMA kernel's f32 slices here, the bf16
+            # ones through tools/kernel_variants.py with the parent's csrc/;
+            # head dim 168 keeps the displaced kernels (the tile's slices,
+            # past the table the FMA kernel's; the FMA kernel's in f32)
             cases[(key, dname, 1)] = rec = relpos_case(
-                torch, fa, wa, sam_mod, name, g, grid, dtype, dev, d=d)
-            want = ("flash_attention_relpos_streamed" if dtype == torch.bfloat16 and d <= 128
-                    and not fa.relpos_factor_table(*grid) else "flash_attention_relpos")
+                torch, fa, wa, sam_mod, name, g, grid, dtype, dev, d=d, fma=wide and not bf16)
+            want = ("flash_attention_relpos_wide_wgmma" if bf16 and wide else
+                    "flash_attention_relpos_wide_tf32" if wide else
+                    "flash_attention_relpos_streamed" if bf16 and d <= 128 and not table else
+                    "flash_attention_relpos")
             check(rec["kernel"] == want,
                   f"rel-pos {name} {dname}: on {rec['kernel']}, not {want}")
     anchors9 = dw.raster_centers(NINE_LEVELS)
@@ -4091,8 +4147,10 @@ def main() -> int:
             # model reaches them): head dims past 128 on the wide wgmma
             # kernel (bf16 144-256), the slices of the tile (bf16 264) and
             # the FMA kernels (f32); kh + kw past 256 on the tile with
-            # streamed factors (bf16) and the FMA kernel (f32, bf16 at 160);
-            # 17 x 17 windows on K4's kernels, K1 at 9 levels and head dim 160
+            # streamed factors (bf16 up to head dim 128) and the FMA kernel
+            # (f32); K4 at head dims 160 and 256 on the wide kernels (both
+            # dtypes on any grid), at 168 on the slices they leave; 17 x 17
+            # windows on K4's kernels, K1 at 9 levels and head dim 160
             *(((f"flash_d{d}_{tag}", dname, 1),
                "beyondff_tpu_torch/csrc/" + ("flash_attention_wide_wgmma.cu"
                                              if dname == "bfloat16" else "flash_attention.cu"),
@@ -4107,15 +4165,21 @@ def main() -> int:
             *(((key, dname, 1), "beyondff_tpu_torch/csrc/" + (
                 "relpos_attention_streamed.cu" if dname == "bfloat16"
                 and key in ("relpos_kh_kw_300", "relpos_kh_kw_257", "relpos_136")
+                else ("relpos_attention_wide_wgmma.cu" if dname == "bfloat16"
+                      else "relpos_attention_wide_tf32.cu")
+                if key in ("relpos_d160", "relpos_d256", "relpos_past_table_d160")
                 else "relpos_attention.cu"),
                "beyondff_tpu/kernels/" + ("window_attention.py:51" if key == "relpos_window_17"
                                           else "flash_attention.py:193"))
               for key, dnames in (("relpos_d160", ("bfloat16", "float32")),
+                                  ("relpos_d256", ("bfloat16", "float32")),
                                   ("relpos_kh_kw_300", ("bfloat16", "float32")),
                                   ("relpos_kh_kw_257", ("bfloat16", "float32")),
                                   ("relpos_window_17", ("bfloat16", "float32")),
                                   ("relpos_136", ("bfloat16",)),
-                                  ("relpos_past_table_d160", ("bfloat16",)))
+                                  ("relpos_past_table_d160", ("bfloat16", "float32")),
+                                  ("relpos_d168", ("bfloat16", "float32")),
+                                  ("relpos_past_table_d168", ("bfloat16",)))
               for dname in dnames),
             *(((f"{key}_{mode}", dname, 1), "beyondff_tpu_torch/csrc/ms_deform_sample.cu",
                "beyondff_tpu/kernels/deform_window.py:170")
@@ -4146,7 +4210,7 @@ def main() -> int:
                                                      "dense_path_device_ms", "host_us",
                                                      "sort_ms", "gather_ms", "scan_ms",
                                                      "bound_fma_ms", "share_of_bound",
-                                                     "fma_ms", "fma_device_ms",
+                                                     "fma_ms", "fma_device_ms", "entry_us",
                                                      "dtype", "shape", "grid", "valid_len",
                                                      "levels", "head_dim", "design")
                          if key in c}})

@@ -284,16 +284,16 @@ _OLD_RELPOS = [
 ]
 # and the new shapes' counters
 _NEW_RELPOS = [
-    ((0, 0, 160, 256, 16, 16), "flash_attention_relpos"),
-    ((0, 1, 160, 256, 16, 16), "flash_attention_relpos"),
+    ((0, 0, 160, 256, 16, 16), "flash_attention_relpos_wide_tf32"),
+    ((0, 1, 160, 256, 16, 16), "flash_attention_relpos_wide_wgmma"),
     ((0, 1, 32, 300, 1, 300), "flash_attention_relpos_streamed"),
     ((0, 1, 64, 510, 2, 255), "flash_attention_relpos_streamed"),
     ((1, 1, 32, 257, 1, 257), "flash_attention_relpos_streamed"),
-    ((0, 1, 160, 510, 2, 255), "flash_attention_relpos"),
+    ((0, 1, 160, 510, 2, 255), "flash_attention_relpos_wide_wgmma"),
     ((0, 0, 32, 510, 2, 255), "flash_attention_relpos"),
     ((1, 0, 80, 289, 17, 17), "flash_attention_relpos"),
     ((1, 1, 80, 289, 17, 17), "flash_attention_relpos"),
-    ((1, 1, 160, 196, 14, 14), "flash_attention_relpos"),
+    ((1, 1, 160, 196, 14, 14), "flash_attention_relpos_wide_wgmma"),
     ((0, 0, 80, 2304, 64, 36), "flash_attention_relpos_tf32"),
     ((0, 0, 96, 2304, 64, 36), "flash_attention_relpos_tf32"),
     ((0, 0, 64, 1300, 65, 20), "flash_attention_relpos"),
@@ -305,10 +305,11 @@ def test_relpos_counter_table(args, counter):
     """Which counter a rel-pos call moves: the old shapes keep theirs (the
     wgmma and 3xTF32 routes at their shapes, the tile and the FMA kernels
     elsewhere); the new shapes take K4's tile or FMA kernel (K5's large
-    windows and wide heads too), or the 3xTF32 kernel's straddling mode;
-    bf16 past the factor table at head dims up to 128 takes the tile with
-    streamed factors (K5's windows there too), at head dim 160 the FMA
-    kernel."""
+    windows too), or the 3xTF32 kernel's straddling mode; bf16 past the
+    factor table at head dims up to 128 takes the tile with streamed factors
+    (K5's windows there too); at head dim 160 bf16 takes the wide wgmma
+    kernel on any grid and f32 the wide 3xTF32 kernel inside the table (K5's
+    wide heads too; tests/test_torch_relpos_wide.py holds the rest)."""
     kind, dtype, d, s, rows, cols = args
     assert tfa.relpos_counter(kind, dtype, d, s, rows, cols, d ** -0.5, *_A) == counter
 
@@ -572,9 +573,9 @@ def test_relpos_past_the_limits_on_card(cuda_device, dtype, g, rows, cols, d):
     q, k, v, bias_h, bias_w = _relpos_card(cuda_device, g, rows, cols, d, dtype)
     before = dict(dispatch.launch_counts)
     got = tfa.attend_relpos(q, k, v, bias_h, bias_w, cols)
-    streamed = dtype == torch.bfloat16 and rows + cols > 256 and d <= 128
-    _one_launch(before, "flash_attention_relpos_streamed" if streamed
-                else "flash_attention_relpos")
+    _one_launch(before, tfa.relpos_counter(
+        0, int(dtype == torch.bfloat16), d, rows * cols, rows, cols, d ** -0.5,
+        *(t.data_ptr() for t in (q, k, v, got, bias_h, bias_w))))
     want = tfa.attend_relpos_plain(q, k, v, bias_h, bias_w, cols)
     torch.cuda.synchronize()
     assert torch.isfinite(got.float()).all()
@@ -593,9 +594,9 @@ def test_window_past_256_tokens_on_card(cuda_device, dtype, g, wh, ww, d):
     q, k, v, bias_h, bias_w = _relpos_card(cuda_device, g, wh, ww, d, dtype)
     before = dict(dispatch.launch_counts)
     got = twa.window_attention_relpos(q, k, v, bias_h, bias_w, wh, ww)
-    streamed = dtype == torch.bfloat16 and wh + ww > 256 and d <= 128
-    _one_launch(before, "flash_attention_relpos_streamed" if streamed
-                else "flash_attention_relpos")
+    _one_launch(before, tfa.relpos_counter(
+        1, int(dtype == torch.bfloat16), d, wh * ww, wh, ww, d ** -0.5,
+        *(t.data_ptr() for t in (q, k, v, got, bias_h, bias_w))))
     want = twa.window_attention_relpos_plain(q, k, v, bias_h, bias_w, wh, ww)
     torch.cuda.synchronize()
     assert _within(got, want, q, k, v, bias_h=bias_h, bias_w=bias_w)

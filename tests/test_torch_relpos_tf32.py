@@ -809,7 +809,7 @@ def test_relpos_tf32_raises_on_a_failed_launch_on_card(cuda_device, monkeypatch,
 def test_relpos_tf32_variant_edits_match_the_sources(name):
     """Each of ``tools/kernel_variants.py``'s variants of the f32 rel-pos
     routes is a set of edits that must each match its source once; they
-    build the four sources the rel-pos entries route between."""
+    build the six sources the rel-pos entries route between."""
     import os
 
     from beyondff_tpu_torch.kernels import _build
@@ -817,7 +817,9 @@ def test_relpos_tf32_variant_edits_match_the_sources(name):
 
     sources, edits = kv.VARIANTS[name]
     assert set(sources) == {"relpos_attention.cu", "relpos_attention_wgmma.cu",
-                            "relpos_attention_streamed.cu", "relpos_attention_tf32.cu"} and edits
+                            "relpos_attention_streamed.cu", "relpos_attention_tf32.cu",
+                            "relpos_attention_wide_wgmma.cu",
+                            "relpos_attention_wide_tf32.cu"} and edits
     for fname, old, new in edits:
         with open(os.path.join(_build.CSRC, fname)) as f:
             assert f.read().count(old) == 1, (fname, old)

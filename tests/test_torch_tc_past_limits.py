@@ -358,13 +358,14 @@ def test_streamed_route_windows_on_card(cuda_device, g, wh, ww, d, key):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["d160", "factors_off_4_bytes", "f32"])
+@pytest.mark.parametrize("case", ["d168", "factors_off_4_bytes", "f32"])
 def test_past_the_table_outside_the_route_keeps_fma_on_card(cuda_device, case):
     """Calls past the table that the streamed route leaves keep the FMA
     kernel reading the factors from device memory (``flash_attention_relpos``):
-    bf16 at head dim 160, bf16 factors off 4 bytes, f32."""
+    bf16 at head dim 168 (160 takes the wide wgmma kernel,
+    tests/test_torch_relpos_wide.py), bf16 factors off 4 bytes, f32."""
     dtype = torch.float32 if case == "f32" else torch.bfloat16
-    d = 160 if case == "d160" else 64
+    d = 168 if case == "d168" else 64
     q, k, v, bias_h, bias_w = _relpos_card(cuda_device, 1, 2, 255, d, dtype)
     if case == "factors_off_4_bytes":
         buf = torch.empty(bias_h.numel() + 1, dtype=dtype, device=cuda_device)
