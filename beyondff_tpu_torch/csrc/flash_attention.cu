@@ -14,7 +14,7 @@
 // (~0.6 us) and does 4*8*900*900*32 = 0.83 GFLOP (~0.8 us on the tensor
 // cores), so it is bound by operations.
 //
-// Six kernels, chosen inside bff_flash_attention:
+// Seven kernels, chosen inside bff_flash_attention:
 // * bf16 at head dim 64 with every key valid (K3 on the main path:
 //   EfficientSAM-S's global blocks), exactly where bff_flash_wgmma_takes
 //   says so: the wgmma/TMA kernel of csrc/flash_attention_wgmma.cu.
@@ -38,8 +38,16 @@
 //   one block's 15 steps, not a bandwidth. bf16 inputs with D % 8 != 0 or
 //   bases off 16 bytes (no 16-byte cp.async rows) take the f32-FMA kernel
 //   below.
+// * f32 at head dims 144 to 256 in steps of 16, any valid_len, exactly where
+//   bff_flash_wide_tf32_takes says so: the 3xTF32 wgmma kernel of
+//   csrc/relpos_attention_wide_tf32.cu with the key mask as its score
+//   modifier (K4's f32 kernel there), each block holding the whole head dim
+//   and one 64-row consumer warpgroup, K and V^T split into TF32 halves by
+//   a pre-pass into scratch from the caller
+//   (bff_flash_wide_tf32_scratch_floats) and copied into shared memory by a
+//   producer warpgroup.
 // * f32 at head dim 32 or 64 (K2 and K3 in detector.dtype float32), and at
-//   80, 96 and 128, which no configured model calls, exactly
+//   80, 96, 112 and 128, which no configured model calls, exactly
 //   where bff_flash_tf32_takes says so: the 3xTF32 wgmma/TMA kernel of
 //   csrc/flash_attention_tf32.cu. One TF32 product would not hold the 1e-4
 //   the f32 calls are held to; three (hi hi + hi lo + lo hi, each operand
@@ -51,8 +59,8 @@
 //   bank conflicts), both products as plain f32 FMAs (67 TFLOP/s f32 peak).
 //   Head dim bound DP in {32, 64, 128}; features D..DP read as zero.
 //
-// Head dims past 128 outside the wide wgmma kernel's predicate (past 256,
-// not a multiple of 16, f32, bases off 16 bytes), which the JAX functions
+// Head dims past 128 outside the two wide kernels' predicates (past 256, not
+// a multiple of 16, bases off 16 bytes), which the JAX functions
 // take and no configured model calls, run on the same two kernels with a
 // third grid axis over the ceil(D / 128) slices of 128 output features:
 // each block forms its rows' scores over the whole head dim, staging Q and
@@ -336,6 +344,13 @@ extern "C" int bff_flash_wide_wgmma_takes(int dtype, int D, int S, int valid_len
                                           const void* o);
 extern "C" int bff_flash_wide_wgmma(const void* q, const void* k, const void* v, void* o, int BH,
                                     int S, int D, int valid_len, float scale, void* stream);
+// csrc/relpos_attention_wide_tf32.cu
+extern "C" int bff_flash_wide_tf32_takes(int dtype, int D, int S, int valid_len, float scale,
+                                         const void* q, const void* k, const void* v,
+                                         const void* o);
+extern "C" int bff_flash_wide_tf32(const void* q, const void* k, const void* v, void* o,
+                                   void* scratch, int BH, int S, int D, int valid_len,
+                                   float scale, void* stream);
 // csrc/flash_attention_tf32.cu
 extern "C" int bff_flash_tf32_takes(int dtype, int D, int S, int valid_len, float scale,
                                     const void* q, const void* k, const void* v, const void* o);
@@ -345,8 +360,9 @@ extern "C" int bff_flash_attention_tf32(const void* q, const void* k, const void
 
 // dtype: 0 = float32, 1 = bfloat16. q, k, v, o: contiguous (BH, S, D), any
 // D (past 128 on the slice axis above);
-// scratch: what the 3xTF32 kernel needs where bff_flash_tf32_takes the call
-// (bff_flash_tf32_scratch_floats floats), else unread. Returns
+// scratch: what the 3xTF32 kernels need where bff_flash_tf32_takes the
+// call (bff_flash_tf32_scratch_floats floats) or bff_flash_wide_tf32_takes
+// it (bff_flash_wide_tf32_scratch_floats), else unread. Returns
 // cudaGetLastError() after the launch, or -1 for arguments the kernel does
 // not take.
 extern "C" int bff_flash_attention(int dtype, const void* q, const void* k, const void* v,
@@ -359,6 +375,8 @@ extern "C" int bff_flash_attention(int dtype, const void* q, const void* k, cons
     return bff_flash_masked_wgmma(q, k, v, o, BH, S, valid_len, scale, stream);
   if (bff_flash_wide_wgmma_takes(dtype, D, S, valid_len, scale, q, k, v, o))
     return bff_flash_wide_wgmma(q, k, v, o, BH, S, D, valid_len, scale, stream);
+  if (bff_flash_wide_tf32_takes(dtype, D, S, valid_len, scale, q, k, v, o))
+    return bff_flash_wide_tf32(q, k, v, o, scratch, BH, S, D, valid_len, scale, stream);
   if (bff_flash_tf32_takes(dtype, D, S, valid_len, scale, q, k, v, o))
     return bff_flash_attention_tf32(q, k, v, o, scratch, BH, S, D, valid_len, scale, stream);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -372,8 +390,9 @@ extern "C" int bff_flash_attention(int dtype, const void* q, const void* k, cons
 }
 
 // f32 on the FMA kernel (flash_fwd_kernel<float>) whatever
-// bff_flash_tf32_takes says: the yardstick that chip_smoke.py and
-// tools/kernel_variants.py time beside the 3xTF32 kernel on the same call.
+// bff_flash_tf32_takes and bff_flash_wide_tf32_takes say: the yardstick
+// that chip_smoke.py and tools/kernel_variants.py time beside the 3xTF32
+// kernels on the same call.
 // No wrapper calls it. Arguments and return codes as bff_flash_attention's,
 // f32 only.
 extern "C" int bff_flash_attention_f32_fma(const void* q, const void* k, const void* v, void* o,

@@ -9,11 +9,11 @@
 // divided once. On the port's main path in detector.dtype float32 that is K2,
 // the Grounding-DINO decoder's self-attention at (8 B, 900, 32), and K3,
 // EfficientSAM-S's global blocks at (6 B, 4096, 64) (and (6 B, 3072, 64) on
-// the rect grid); and f32 attention at head dims 80, 96 and 128, which the
-// public entry points take and no configured model calls. bff_flash_attention
-// (csrc/flash_attention.cu) routes here exactly the calls that
-// bff_flash_tf32_takes accepts: f32, D in {32, 64, 80, 96, 128}, S >= kMinS
-// = 256,
+// the rect grid); and f32 attention at head dims 80, 96, 112 and 128, which
+// the public entry points take and no configured model calls.
+// bff_flash_attention (csrc/flash_attention.cu) routes here exactly the calls
+// that bff_flash_tf32_takes accepts: f32, D in {32, 64, 80, 96, 112, 128}, S
+// >= kMinS = 256,
 // 1 <= valid_len <= S, a positive finite scale and 16-byte aligned q, k, v
 // and o; every other f32 call keeps
 // flash_fwd_kernel<float> (f32 FMAs). Below S = 256 the pre-pass and the
@@ -118,6 +118,20 @@
 //   was not built: Cfg<96> itself takes 0.1407 ms at (32, 1024, 96) with
 //   900 valid keys, 17% above this design's 0.1206 at D 80, before the
 //   padding's 20% more k-steps of Q K^T are counted.
+// * Head dim 112 (Cfg<112>). A 112-float row is 448 bytes, 3.5 128-byte
+//   boxes, so K's and Q's rows are seven 16-float boxes in the 64-byte
+//   swizzle, as D 80's are five; V^T keeps the 128-byte swizzle and is read
+//   by m64n112k8. Both consumers' Q halves take 112 KB. At 64-key tiles a K
+//   stage and a V stage take 56 KB each, so one of each fits with under 2
+//   KB to spare, and the output (56 registers), the scores (32) and P's
+//   halves (64) leave 16 of the 168 for addresses; at 32-key tiles (D 128's
+//   plan) two K stages and one V stage take 84 KB (196 KB with Q) and the
+//   scores and P's halves 48 registers. So the tiles are 32 keys
+//   (wgmma.m64n32k8 for Q K^T), two K stages and one V stage, each tile's
+//   products in turn, no fold. 64-key tiles with one stage of each were
+//   8% faster (0.1681 against 0.1820 ms at (32, 1024, 112) with 900 valid
+//   keys) but spilled 80 bytes, also with Q's addresses made opaque once a
+//   tile (tools/kernel_variants.py tf32_d112_keys_64*).
 // * Masking is branch-free: every score of a key >= valid_len is set to
 //   -inf (only the last tile has any); rows >= S are computed on zero Q and
 //   not written.
@@ -148,7 +162,12 @@
 // 3); at (8, 1024, 80) 0.0520 against 0.2455 and 0.1035; the overlap, with
 // no spill, took 0.1502, one K and one V stage 0.1220, one K stage and two V
 // stages 0.1230. At (8, 256, 80) 0.0218 against the FMA kernel's 0.0678
-// (and SDPA-f32's 0.0239): kMinS holds at D 80.
+// (and SDPA-f32's 0.0239): kMinS holds at D 80. At (32, 1024, 112) with
+// 900 valid keys (NVIDIA H100 80GB HBM3, 700.00 W, CUDA events) 0.1817 ms
+// (44% of its 0.0801 ms bound) against 0.8854 ms for the FMA kernel and
+// 0.4533 ms for scaled_dot_product_attention in f32, 4.8e-6 from plain
+// (3.1e-5 at spread 3); at (8, 256, 112) 0.0341 against the FMA kernel's
+// 0.0697: kMinS holds at D 112.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -185,6 +204,12 @@ constexpr int kKStages96 = 1, kVStages96 = 1;
 // tile's products in turn
 constexpr int kKStages80 = 2, kVStages80 = 1;
 constexpr bool kOverlap80 = false;
+// Head dim 112 (Cfg): seven 16-float boxes a row in the 64-byte swizzle, as
+// at 80; 32-key tiles, two K stages and one V stage, each tile's products in
+// turn
+constexpr int kBN112 = 32;
+constexpr int kKStages112 = 2, kVStages112 = 1;
+constexpr bool kOverlap112 = false;
 constexpr int kThreads = 128 * (kConsumers + 1);  // the producer is the last warpgroup
 constexpr int kProducerRegs = 24;
 constexpr int kConsumerRegs = 240;
@@ -197,25 +222,28 @@ struct Cfg {
   // keys of a tile: 64, or 32 at D 128, where one 64-key stage (K and V^T
   // hi and lo, 128 KB) beside both consumers' Q halves (128 KB) would not
   // fit in a block's 227 KB (at D 96 one 64-key stage of each fits)
-  static constexpr int kBN = D == 128 ? 32 : D == 96 ? kBN96 : 64;
+  static constexpr int kBN = D == 128 ? 32 : D == 112 ? kBN112 : D == 96 ? kBN96 : 64;
   static constexpr int kStages = D == 32 ? 4 : 2;
   static constexpr int kKStages = D == 128 ? kKStages128
+                                  : D == 112 ? kKStages112
                                   : D == 96 ? kKStages96
                                   : D == 80 ? kKStages80
                                             : kStages;
   static constexpr int kVStages = D == 128 ? kVStages128
+                                  : D == 112 ? kVStages112
                                   : D == 96 ? kVStages96
                                   : D == 80 ? kVStages80
                                             : kStages;
   static constexpr bool kOverlapped = D == 128 ? kOverlap128
+                                      : D == 112 ? kOverlap112
                                       : D == 96 ? kOverlap96
                                       : D == 80 ? kOverlap80
                                                 : kOverlap;
   static constexpr bool kFold = D == 128 && kFold128;
   // K's and Q's rows: TMA boxes of kKBox floats, rows of kKRow bytes in the
-  // 128-byte swizzle (32 floats), or at D 80, 2.5 such boxes, of 16 floats
-  // in the 64-byte swizzle
-  static constexpr int kKBox = D == 80 ? 16 : 32;
+  // 128-byte swizzle (32 floats), or at D 80 and 112, 2.5 and 3.5 such
+  // boxes, of 16 floats in the 64-byte swizzle
+  static constexpr int kKBox = D % 32 == 0 ? 32 : 16;
   static constexpr int kKRow = 4 * kKBox;
   static constexpr int kKBytes = kBN * D * 4;  // K hi or K lo of a tile: D / kKBox boxes of kBN rows
   static constexpr int kVBytes = D * kBN * 4;  // V^T hi or lo of a tile: kBN / 32 boxes of D rows
@@ -237,7 +265,7 @@ struct Barriers {
 };
 static_assert(sizeof(Barriers<32>) <= 256 && sizeof(Barriers<64>) <= 256 &&
                   sizeof(Barriers<80>) <= 256 && sizeof(Barriers<96>) <= 256 &&
-                  sizeof(Barriers<128>) <= 256,
+                  sizeof(Barriers<112>) <= 256 && sizeof(Barriers<128>) <= 256,
               "the barriers' room");
 
 #define BFF_T4(a, i) "+f"(a[i]), "+f"(a[i + 1]), "+f"(a[i + 2]), "+f"(a[i + 3])
@@ -258,6 +286,20 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[64], const uint32_t (&a)[4
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
       "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
       : BFF_T16(d, 0), BFF_T16(d, 16), BFF_T16(d, 32), BFF_T16(d, 48)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+__device__ __forceinline__ void wgmma_tf32(float (&d)[56], const uint32_t (&a)[4], uint64_t db,
+                                           int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %61, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n112k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55}, "
+      "{%56, %57, %58, %59}, %60, p, 1, 1;\n}\n"
+      : BFF_T16(d, 0), BFF_T16(d, 16), BFF_T16(d, 32), BFF_T4(d, 48), BFF_T4(d, 52)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
 }
 __device__ __forceinline__ void wgmma_tf32(float (&d)[48], const uint32_t (&a)[4], uint64_t db,
@@ -347,7 +389,7 @@ __device__ __forceinline__ uint64_t kstep_desc(uint32_t base, int kk) {
 }
 
 // The same for Q and K at head dim D: boxes of Cfg<D>::kKBox floats, at D 80
-// 64-byte rows in the 64-byte swizzle (16 columns a box).
+// and 112 64-byte rows in the 64-byte swizzle (16 columns a box).
 template <int D, int rows>
 __device__ __forceinline__ uint64_t qk_desc(uint32_t base, int kk) {
   if constexpr (Cfg<D>::kKBox == 32) return kstep_desc<rows>(base, kk);
@@ -810,9 +852,9 @@ int launch(const void* q, const void* k, const void* v, void* o, void* scratch, 
 // float32, 1 = bfloat16.
 extern "C" int bff_flash_tf32_takes(int dtype, int D, int S, int valid_len, float scale,
                                     const void* q, const void* k, const void* v, const void* o) {
-  return dtype == 0 && (D == 32 || D == 64 || D == 80 || D == 96 || D == 128) && S >= kMinS &&
-         valid_len >= 1 && valid_len <= S && scale > 0.f && scale <= FLT_MAX && aligned16(q) &&
-         aligned16(k) && aligned16(v) && aligned16(o);
+  return dtype == 0 && (D == 32 || D == 64 || D == 80 || D == 96 || D == 112 || D == 128) &&
+         S >= kMinS && valid_len >= 1 && valid_len <= S && scale > 0.f && scale <= FLT_MAX &&
+         aligned16(q) && aligned16(k) && aligned16(v) && aligned16(o);
 }
 
 // The scratch a call needs, in floats: K hi and lo, V^T hi and lo, each
@@ -838,5 +880,6 @@ extern "C" int bff_flash_attention_tf32(const void* q, const void* k, const void
   if (D == 64) return launch<64>(q, k, v, o, scratch, BH, S, valid_len, scale, s);
   if (D == 80) return launch<80>(q, k, v, o, scratch, BH, S, valid_len, scale, s);
   if (D == 96) return launch<96>(q, k, v, o, scratch, BH, S, valid_len, scale, s);
+  if (D == 112) return launch<112>(q, k, v, o, scratch, BH, S, valid_len, scale, s);
   return launch<128>(q, k, v, o, scratch, BH, S, valid_len, scale, s);
 }

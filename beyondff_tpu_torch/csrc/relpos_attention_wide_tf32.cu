@@ -1,6 +1,8 @@
-// Attention with SAM's decomposed relative-position bias in f32 at head
-// dims 144 to 256 for Hopper (sm_90a): 3xTF32 on wgmma, the whole head dim
-// in one block, K and V split into TF32 halves on the chip.
+// Attention in f32 at head dims 144 to 256 for Hopper (sm_90a): 3xTF32 on
+// wgmma, the whole head dim in one block, K and V split into TF32 halves on
+// the chip or by a pre-pass. One kernel body serves two functions, told
+// apart by its score modifier (kKeyMask): SAM's decomposed relative-position
+// bias, or a key mask.
 //
 // Replaces, for float32 inputs at head dims past 128, the TPU kernel
 // beyondff_tpu/kernels/flash_attention.py flash_attention_relpos (:193,
@@ -17,6 +19,20 @@
 // every pointer on 16 bytes. Before this kernel such calls ran on the FMA
 // kernel's 128-feature slices, each recomputing the scores.
 //
+// With the key mask it replaces, for the same inputs, the TPU kernels
+// beyondff_tpu/kernels/flash_attention.py _flash_masked (:270, pallas_call
+// :313; keys >= valid_len masked, reached through attend :101) and
+// flash_attention (:68, pallas_call :78; every key valid): softmax(Q K^T *
+// scale) V. bff_flash_attention (csrc/flash_attention.cu) routes here
+// exactly the calls that bff_flash_wide_tf32_takes accepts: f32, D % 16 ==
+// 0 with 128 < D <= 256, any S, 1 <= valid_len <= S, a positive finite
+// scale and q, k, v and o on 16 bytes. Every score of a key >= valid_len
+// is -inf, and no tile that lies wholly past valid_len is read. It needs
+// scratch from the caller (bff_flash_wide_tf32_scratch_floats).
+// Before this kernel such calls ran on the FMA kernel's 128-feature slices
+// too (at (16, 1024, 160) with 900 valid keys 1.3747 ms against SDPA-f32's
+// 0.403, PERF.md).
+//
 // Precision, as csrc/relpos_attention_tf32.cu: each f32 operand x is split
 // into TF32 words hi = rna(x), lo = rna(x - hi) and each product summed as
 // lo hi + hi lo + hi hi in f32 accumulators; Q is multiplied by the scale
@@ -29,7 +45,8 @@
 // Bound on an H100 SXM (3xTF32: 495 / 3 = 165 TFLOP/s of f32-grade work;
 // 3.35 TB/s): at (16, 1024, 160) on 32 x 32 the function does 10.7 GFLOP
 // (0.0651 ms) against 46 MB (0.0137 ms); at (16, 1024, 256) 17.2 GFLOP
-// (0.1041 ms): bound by operations.
+// (0.1041 ms): bound by operations. With the key mask at (16, 1024, 160)
+// and 900 valid keys 9.4 GFLOP (0.0572 ms) against 42 MB (0.0125 ms).
 //
 // Why the design differs from csrc/relpos_attention_tf32.cu's. Every f32
 // operand doubles in its hi and lo images: Q's for 64 rows at DP 256 take
@@ -44,20 +61,32 @@
 //   keys (16 at DP 256), so Q's images (64 DP 8 bytes), one K stage and one
 //   V stage (N DP 8 bytes each) fit: 160 KB at DP 160, 224 KB at DP 224,
 //   192 KB at DP 256.
-// * No pre-pass and no scratch: the producer's 128 threads read each tile
-//   of K and V from device memory (f32, 4 bytes an element, half what the
-//   split images would take), split them and write their images into the
-//   stages (keys past S and columns past D as zero), then
+// * With the bias, no pre-pass and no scratch: the producer's 128 threads
+//   read each tile of K and V from device memory (f32, 4 bytes an element,
+//   half what the split images would take), split them and write their
+//   images into the stages (keys past S and columns past D as zero), then
 //   fence.proxy.async and arrive on the stage's full barrier; they read the
 //   next tile while the consumer computes (K5's producer,
 //   csrc/relpos_attention_tf32.cu).
+// * With the key mask (kPreSplit), a pre-pass (wide_split_kernel, one
+//   block a tile of a head) splits K and V^T into the same images, keys
+//   from valid_len on as zero, laid out in scratch as the producer's
+//   chunks, and the producer copies each tile's images (16 bytes a chunk)
+//   into the stages. It reads twice the bytes and splits nothing: at (16,
+//   1024, 160) with 900 valid keys 0.1710 ms against 0.2311 for the split
+//   on the chip (0.3250 against 0.4205 at D 256, 4.894 against 6.919 at
+//   (16, 4096, 256)); below S 128 the pre-pass's launch costs more than it
+//   saves (0.0174 against 0.0124 at (16, 64, 160)), yet the kernel stays
+//   ahead of the FMA kernel's slices (0.0339) (tools/kernel_variants.py,
+//   variant wide_tf32_split_on_chip, NVIDIA H100 80GB HBM3, 700.00 W).
 // * The consumer scales, splits and writes its Q images once, then per
 //   tile: the P V of the last tile in kParts column parts (each a fresh
 //   wgmma sum, waited for and added in f32), then Q K^T (the small terms
 //   over every k-step first, then hi hi), each score's bias read from
 //   device memory (the lane's 2 rows x N / 2 keys, their cells stepped by 8
 //   keys from one division) while the products run and added once they are
-//   in, the online softmax in log2 units, P split in registers.
+//   in (with the key mask: the scores of keys >= valid_len set to -inf),
+//   the online softmax in log2 units, P split in registers.
 // * Operand layout, as csrc/relpos_attention_tf32.cu's: images of 32-byte
 //   rows in the 32-byte swizzle (K-like: DP / 8 regions of rows x 32
 //   bytes; V^T: one region of DP x 32 bytes per 8-key group with its keys
@@ -80,6 +109,7 @@ namespace {
 using namespace bff_tf32;
 
 constexpr int kMinD = 144, kMaxD = 256;  // the head dims taken, in steps of 16
+constexpr bool kPreSplit = true;         // the key mask's K and V^T split by a pre-pass
 constexpr int kDStep = 32;               // DP: D rounded up to this
 constexpr int kBM = 64;                  // query rows of a block: one consumer warpgroup
 constexpr int kThreads = 256;            // the consumer warpgroup, then the producer's
@@ -202,11 +232,15 @@ __device__ __forceinline__ void split_p(uint32_t (&ph)[KS][4], uint32_t (&pl)[KS
   }
 }
 
-template <int DP>
-__global__ void __launch_bounds__(kThreads, 1) relpos_wide_tf32_kernel(
+// The keys visited are 0 .. keys - 1: S with the bias (kh, kw its grid),
+// valid_len with the key mask (kKeyMask; bias_h, bias_w, kh and kw unread;
+// with kPreSplit, img holds K's and V^T's images from wide_split_kernel).
+template <int DP, bool kKeyMask>
+__global__ void __launch_bounds__(kThreads, 1) wide_tf32_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    const float* __restrict__ bias_h, const float* __restrict__ bias_w, float* __restrict__ o,
-    int S, int D, int kh, int kw, float scale) {
+    const float* __restrict__ bias_h, const float* __restrict__ bias_w,
+    const uint4* __restrict__ img, float* __restrict__ o, int S, int D, int kh, int kw, int keys,
+    float scale) {
   using C = Cfg<DP>;
   constexpr int N = C::kN, KS = C::kKS, R = C::kFoldW / 2;
   extern __shared__ __align__(1024) unsigned char rw_smem_raw[];
@@ -214,7 +248,7 @@ __global__ void __launch_bounds__(kThreads, 1) relpos_wide_tf32_kernel(
   Barriers* bars = reinterpret_cast<Barriers*>(smem + C::kBarOff);
   const int bh = blockIdx.y;
   const int q0 = blockIdx.x * kBM;
-  const int n_tiles = (S + N - 1) / N;
+  const int n_tiles = (keys + N - 1) / N;
   const long long head = static_cast<long long>(bh) * S;  // the head's first row
   if (threadIdx.x == 0) {
     bar_init(&bars->k_full, 128);
@@ -231,11 +265,41 @@ __global__ void __launch_bounds__(kThreads, 1) relpos_wide_tf32_kernel(
     constexpr int kChunks = 2 * (DP / 8) * N;  // 16-byte chunks of each image
     constexpr int kPer = kChunks / 128;
     static_assert(kChunks % 128 == 0, "whole chunks a thread");
+    if constexpr (kKeyMask && kPreSplit) {
+      // tile t's four images (K hi, K lo, V^T hi, V^T lo) in the pre-pass's
+      // order, each read into registers before its stage is free
+      constexpr int kI = C::kImg / 16;
+      const uint4* head_img = img + static_cast<long long>(bh) * n_tiles * 4 * kI;
+      auto copy = [&](const uint4* src, unsigned char* stage, uint64_t* empty, uint64_t* full,
+                      int parity) {
+        uint4 hi[kPer], lo[kPer];
+#pragma unroll
+        for (int j = 0; j < kPer; ++j) {
+          hi[j] = __ldg(src + pt + 128 * j);
+          lo[j] = __ldg(src + kI + pt + 128 * j);
+        }
+        bar_wait_or_trap(empty, parity);
+#pragma unroll
+        for (int j = 0; j < kPer; ++j) {
+          *reinterpret_cast<uint4*>(stage + 16 * (pt + 128 * j)) = hi[j];
+          *reinterpret_cast<uint4*>(stage + C::kImg + 16 * (pt + 128 * j)) = lo[j];
+        }
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        bar_arrive(full);
+      };
+      for (int t = 0; t < n_tiles; ++t) {
+        const uint4* ti = head_img + static_cast<long long>(t) * 4 * kI;
+        const int parity = (t & 1) ^ 1;
+        copy(ti, smem + C::kKOff, &bars->k_empty, &bars->k_full, parity);
+        copy(ti + 2 * kI, smem + C::kVOff, &bars->v_empty, &bars->v_full, parity);
+      }
+      return;
+    }
     const float* kb = k + head * D;
     const float* vb = v + head * D;
-    // tile t of K, or of V^T, from device memory: keys >= S and columns >=
-    // D as zero (D is a multiple of 16: a chunk's four columns are all in or
-    // out)
+    // tile t of K, or of V^T, from device memory: keys from ``keys`` on and
+    // columns from D on as zero (D is a multiple of 16: a chunk's four
+    // columns are all in or out)
     auto load_k = [&](int t, float4 (&x)[kPer]) {
       const int me = opaque(pt);
 #pragma unroll
@@ -244,7 +308,7 @@ __global__ void __launch_bounds__(kThreads, 1) relpos_wide_tf32_kernel(
         const int c = kimg_chunk(me + 128 * j, N, r);
         const int key = t * N + r;
         x[j] = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (key < S && c < D)
+        if (key < keys && c < D)
           x[j] = __ldg(reinterpret_cast<const float4*>(kb + static_cast<long long>(key) * D + c));
       }
     };
@@ -258,10 +322,10 @@ __global__ void __launch_bounds__(kThreads, 1) relpos_wide_tf32_kernel(
         const float* src = vb + static_cast<long long>(key) * D + d;
         x[j] = make_float4(0.f, 0.f, 0.f, 0.f);
         if (d < D) {
-          if (key < S) x[j].x = __ldg(src);
-          if (key + 2 < S) x[j].y = __ldg(src + 2 * D);
-          if (key + 4 < S) x[j].z = __ldg(src + 4 * D);
-          if (key + 6 < S) x[j].w = __ldg(src + 6 * D);
+          if (key < keys) x[j].x = __ldg(src);
+          if (key + 2 < keys) x[j].y = __ldg(src + 2 * D);
+          if (key + 4 < keys) x[j].z = __ldg(src + 4 * D);
+          if (key + 6 < keys) x[j].w = __ldg(src + 6 * D);
         }
       }
     };
@@ -357,7 +421,7 @@ __global__ void __launch_bounds__(kThreads, 1) relpos_wide_tf32_kernel(
       for (int e = 0; e < 2; ++e) {
         const bool wrap = e == 1 && kx + 1 == kw;
         const int y = ky + wrap, x = e == 0 ? kx : wrap ? 0 : kx + 1;
-        const bool in = key + e < S;
+        const bool in = key + e < keys;
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const float f = in && bh_row[h] != nullptr ? __ldg(bh_row[h] + y) + __ldg(bw_row[h] + x)
@@ -394,7 +458,7 @@ __global__ void __launch_bounds__(kThreads, 1) relpos_wide_tf32_kernel(
     fence_regs(pl);
   };
   // tile t's scores in s (the products from zero, the bias added once they
-  // are in), then its softmax
+  // are in, or the keys >= valid_len set to -inf), then its softmax
   auto scores = [&](int t) {
 #pragma unroll
     for (int i = 0; i < N / 2; ++i) s[i] = 0.f;
@@ -403,12 +467,21 @@ __global__ void __launch_bounds__(kThreads, 1) relpos_wide_tf32_kernel(
     wgmma_fence();
     issue_scores<N, DP>(s, desc(qh), desc(ql), desc(kh_img), desc(kh_img + C::kImg));
     wgmma_commit();
-    load_bias(t, b);
+    if constexpr (!kKeyMask) load_bias(t, b);
     wgmma_wait<0>();
     fence_regs(s);
     if (signals) bar_arrive(&bars->k_empty);
+    if constexpr (kKeyMask) {
+      const int c = t * N + 2 * tq;
 #pragma unroll
-    for (int i = 0; i < N / 2; ++i) s[i] += b[i];
+      for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[4 * j + e] = c + 8 * j + (e & 1) < keys ? s[4 * j + e] : bff_tc::masked_score();
+    } else {
+#pragma unroll
+      for (int i = 0; i < N / 2; ++i) s[i] += b[i];
+    }
     softmax_tile<N>(s, m, l, corr);
   };
   // the P V of the tile in the V stage (parity of tile u), part by part: a
@@ -464,19 +537,95 @@ __global__ void __launch_bounds__(kThreads, 1) relpos_wide_tf32_kernel(
   }
 }
 
+// The pre-pass of the key mask (kPreSplit): tile blockIdx.x of head
+// blockIdx.y, K's and V^T's hi and lo images in the producer's chunk order
+// (the kernel's load_k and load_v, then split4), keys from ``keys`` on as
+// zero. img: (BH, tiles, 4 images) of C::kImg bytes.
 template <int DP>
+__global__ void __launch_bounds__(128) wide_split_kernel(const float* __restrict__ k,
+                                                         const float* __restrict__ v,
+                                                         uint4* __restrict__ img, int S, int D,
+                                                         int keys) {
+  using C = Cfg<DP>;
+  constexpr int N = C::kN, kI = C::kImg / 16;
+  const int t = blockIdx.x, bh = blockIdx.y;
+  const float* kb = k + static_cast<long long>(bh) * S * D;
+  const float* vb = v + static_cast<long long>(bh) * S * D;
+  uint4* ti = img + (static_cast<long long>(bh) * gridDim.x + t) * 4 * kI;
+  for (int i = threadIdx.x; i < kI; i += 128) {
+    int r, d;
+    const int c = kimg_chunk(i, N, r);
+    const int key = t * N + r;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (key < keys && c < D)
+      x = __ldg(reinterpret_cast<const float4*>(kb + static_cast<long long>(key) * D + c));
+    uint4 hi, lo;
+    split4(x, hi, lo);
+    ti[i] = hi;
+    ti[kI + i] = lo;
+    const int vk = t * N + vimg_chunk<DP>(i, d);
+    const float* src = vb + static_cast<long long>(vk) * D + d;
+    x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (d < D) {
+      if (vk < keys) x.x = __ldg(src);
+      if (vk + 2 < keys) x.y = __ldg(src + 2 * D);
+      if (vk + 4 < keys) x.z = __ldg(src + 4 * D);
+      if (vk + 6 < keys) x.w = __ldg(src + 6 * D);
+    }
+    split4(x, hi, lo);
+    ti[2 * kI + i] = hi;
+    ti[3 * kI + i] = lo;
+  }
+}
+
+// The tiles of keys 0 .. keys - 1 at head dim D.
+inline int tiles(int D, int keys) {
+  const int n = (D + kDStep - 1) / kDStep * kDStep == 256 ? Cfg<256>::kN : Cfg<160>::kN;
+  return (keys + n - 1) / n;
+}
+
+template <int DP, bool kKeyMask>
 int launch(const void* q, const void* k, const void* v, const void* bias_h, const void* bias_w,
-           void* o, int BH, int S, int D, int kh, int kw, float scale, cudaStream_t stream) {
+           void* img, void* o, int BH, int S, int D, int kh, int kw, int keys, float scale,
+           cudaStream_t stream) {
   static int configured = 48 * 1024;
   const cudaError_t err =
-      bff_tc::allow_smem(relpos_wide_tf32_kernel<DP>, Cfg<DP>::kSmemBytes, &configured);
+      bff_tc::allow_smem(wide_tf32_kernel<DP, kKeyMask>, Cfg<DP>::kSmemBytes, &configured);
   if (err != cudaSuccess) return (int)err;
-  relpos_wide_tf32_kernel<DP><<<dim3((S + kBM - 1) / kBM, BH), kThreads, Cfg<DP>::kSmemBytes,
-                                stream>>>(
+  if constexpr (kKeyMask && kPreSplit) {
+    wide_split_kernel<DP><<<dim3(tiles(D, keys), BH), 128, 0, stream>>>(
+        static_cast<const float*>(k), static_cast<const float*>(v), static_cast<uint4*>(img), S,
+        D, keys);
+    const cudaError_t split_err = cudaGetLastError();
+    if (split_err != cudaSuccess) return (int)split_err;
+  }
+  wide_tf32_kernel<DP, kKeyMask><<<dim3((S + kBM - 1) / kBM, BH), kThreads, Cfg<DP>::kSmemBytes,
+                                   stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(bias_h), static_cast<const float*>(bias_w),
-      static_cast<float*>(o), S, D, kh, kw, scale);
+      static_cast<const uint4*>(img), static_cast<float*>(o), S, D, kh, kw, keys, scale);
   return (int)cudaGetLastError();
+}
+
+// The instance of D rounded up to kDStep.
+template <bool kKeyMask>
+int dispatch(const void* q, const void* k, const void* v, const void* bias_h, const void* bias_w,
+             void* img, void* o, int BH, int S, int D, int kh, int kw, int keys, float scale,
+             cudaStream_t st) {
+  switch ((D + kDStep - 1) / kDStep * kDStep) {
+    case 160:
+      return launch<160, kKeyMask>(q, k, v, bias_h, bias_w, img, o, BH, S, D, kh, kw, keys, scale,
+                                   st);
+    case 192:
+      return launch<192, kKeyMask>(q, k, v, bias_h, bias_w, img, o, BH, S, D, kh, kw, keys, scale,
+                                   st);
+    case 224:
+      return launch<224, kKeyMask>(q, k, v, bias_h, bias_w, img, o, BH, S, D, kh, kw, keys, scale,
+                                   st);
+    default:
+      return launch<256, kKeyMask>(q, k, v, bias_h, bias_w, img, o, BH, S, D, kh, kw, keys, scale,
+                                   st);
+  }
 }
 
 }  // namespace
@@ -508,11 +657,42 @@ extern "C" int bff_flash_relpos_wide_tf32(const void* q, const void* k, const vo
   if (BH < 1 ||
       !bff_relpos_wide_tf32_takes(0, 0, D, S, kh, kw, scale, q, k, v, o, bias_h, bias_w))
     return -1;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch ((D + kDStep - 1) / kDStep * kDStep) {
-    case 160: return launch<160>(q, k, v, bias_h, bias_w, o, BH, S, D, kh, kw, scale, st);
-    case 192: return launch<192>(q, k, v, bias_h, bias_w, o, BH, S, D, kh, kw, scale, st);
-    case 224: return launch<224>(q, k, v, bias_h, bias_w, o, BH, S, D, kh, kw, scale, st);
-    default: return launch<256>(q, k, v, bias_h, bias_w, o, BH, S, D, kh, kw, scale, st);
-  }
+  return dispatch<false>(q, k, v, bias_h, bias_w, nullptr, o, BH, S, D, kh, kw, S, scale,
+                         static_cast<cudaStream_t>(stream));
+}
+
+// The routing predicate of the key-mask function (kernels/flash_attention.py
+// wide_tf32_route mirrors it): 1 when bff_flash_attention takes this kernel
+// for the call: f32, D % 16 == 0 with 128 < D <= 256, any S, 1 <= valid_len
+// <= S, a positive finite scale and q, k, v and o on 16 bytes (it beat the
+// FMA kernel's slices from S = 64 on: 0.0174 against 0.0339 ms at (16, 64,
+// 160), 0.0229 against 0.0340 at (16, 64, 256)). dtype: 0 = float32, 1 =
+// bfloat16.
+extern "C" int bff_flash_wide_tf32_takes(int dtype, int D, int S, int valid_len, float scale,
+                                         const void* q, const void* k, const void* v,
+                                         const void* o) {
+  return dtype == 0 && D % 16 == 0 && D >= kMinD && D <= kMaxD && valid_len >= 1 &&
+         valid_len <= S && scale > 0.f && scale <= FLT_MAX && aligned16(q) && aligned16(k) &&
+         aligned16(v) && aligned16(o);
+}
+
+// The scratch a key-mask call needs, in floats: K hi and lo, V^T hi and lo
+// of every tile up to valid_len, each tile N x DP (DP = D rounded up to 32).
+extern "C" long long bff_flash_wide_tf32_scratch_floats(int BH, int D, int valid_len) {
+  const int dp = (D + kDStep - 1) / kDStep * kDStep;
+  return 4LL * BH * tiles(D, valid_len) * (dp == 256 ? Cfg<256>::kN : Cfg<160>::kN) * dp;
+}
+
+// q, k, v, o: contiguous (BH, S, D) f32; keys >= valid_len masked; scratch:
+// 16-byte aligned, at least bff_flash_wide_tf32_scratch_floats floats, on
+// the same stream. Returns cudaGetLastError() after the launches, -1 for
+// arguments outside the predicate or no scratch.
+extern "C" int bff_flash_wide_tf32(const void* q, const void* k, const void* v, void* o,
+                                   void* scratch, int BH, int S, int D, int valid_len,
+                                   float scale, void* stream) {
+  if (BH < 1 || scratch == nullptr || !aligned16(scratch) ||
+      !bff_flash_wide_tf32_takes(0, D, S, valid_len, scale, q, k, v, o))
+    return -1;
+  return dispatch<true>(q, k, v, nullptr, nullptr, scratch, o, BH, S, D, 0, 0, valid_len, scale,
+                        static_cast<cudaStream_t>(stream));
 }

@@ -98,6 +98,10 @@ def library() -> ctypes.CDLL:
     lib.bff_flash_masked_wgmma_takes.restype = i
     lib.bff_flash_wide_wgmma_takes.argtypes = [i, i, i, i, f, p, p, p, p]
     lib.bff_flash_wide_wgmma_takes.restype = i
+    lib.bff_flash_wide_tf32_takes.argtypes = [i, i, i, i, f, p, p, p, p]
+    lib.bff_flash_wide_tf32_takes.restype = i
+    lib.bff_flash_wide_tf32_scratch_floats.argtypes = [i, i, i]
+    lib.bff_flash_wide_tf32_scratch_floats.restype = ctypes.c_longlong
     lib.bff_relpos_wgmma_takes.argtypes = [i, i, i, i, i, i, f, p, p, p, p, p, p]
     lib.bff_relpos_wgmma_takes.restype = i
     lib.bff_relpos_tf32_takes.argtypes = [i, i, i, i, i, i, f, p, p, p, p, p, p]

@@ -23,6 +23,7 @@ launch_counts: Dict[str, int] = {"flash_attention": 0, "flash_attention_f32": 0,
                                  "flash_attention_relpos_wide_tf32": 0,
                                  "flash_attention_relpos_wide_wgmma": 0,
                                  "flash_attention_tf32": 0,
+                                 "flash_attention_wide_tf32": 0,
                                  "flash_attention_wgmma": 0,
                                  "flash_attention_wide_wgmma": 0, "flash_masked_wgmma": 0,
                                  "mask_iou": 0,

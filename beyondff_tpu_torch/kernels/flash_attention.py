@@ -13,9 +13,13 @@ the wgmma/TMA kernel of ``csrc/flash_masked_wgmma.cu``, counted as
 ``flash_masked_wgmma``; bf16 at head dims 144 to 256 in steps of 16
 (:func:`wide_wgmma_route`) to the wgmma/TMA kernel of
 ``csrc/flash_attention_wide_wgmma.cu``, counted as
-``flash_attention_wide_wgmma``; f32 at head dim 32 or 64 (K2 and K3 in
-``detector.dtype: float32``) or 80, 96 or 128 (:func:`tf32_route`) to the 3xTF32 wgmma/TMA
-kernel of ``csrc/flash_attention_tf32.cu``, counted as
+``flash_attention_wide_wgmma``; f32 at head dims 144 to 256 in steps of 16
+(:func:`wide_tf32_route`) to the 3xTF32 wgmma kernel of
+``csrc/relpos_attention_wide_tf32.cu`` with a key mask for its score
+modifier, the whole head dim a block, counted as
+``flash_attention_wide_tf32``; f32 at head dim 32 or 64 (K2 and K3 in
+``detector.dtype: float32``) or 80, 96, 112 or 128 (:func:`tf32_route`) to
+the 3xTF32 wgmma/TMA kernel of ``csrc/flash_attention_tf32.cu``, counted as
 ``flash_attention_tf32``; every other f32 call to the f32-FMA kernel,
 counted as ``flash_attention_f32``; and every other bf16 call to the
 mma.sync tile, counted as ``flash_attention`` (:func:`flash_counter` names
@@ -390,7 +394,7 @@ def masked_wgmma_route(dtype: int, d: int, s: int, valid_len: int, scale: float,
 # (shorter ones keep the FMA kernel, faster there)
 TF32_TILE = 64
 TF32_BLOCK_Q = 128
-TF32_HEAD_DIMS = (32, 64, 80, 96, 128)
+TF32_HEAD_DIMS = (32, 64, 80, 96, 112, 128)
 TF32_MIN_S = 256
 # the order of the keys of each 8-key group in the kernel's V^T (a lane's
 # accumulator columns 2 t, 2 t + 1 are the A fragment's columns t, t + 4)
@@ -401,7 +405,7 @@ def tf32_route(dtype: int, d: int, s: int, valid_len: int, scale: float, *ptrs: 
     """The mirror of ``bff_flash_tf32_takes``: whether ``bff_flash_attention``
     runs the 3xTF32 wgmma/TMA kernel of ``csrc/flash_attention_tf32.cu``
     for a call (dtype 0 = float32, 1 = bfloat16; ``ptrs`` the data pointers
-    of q, k, v and the output): f32, head dim 32, 64, 80, 96 or 128, S >=
+    of q, k, v and the output): f32, head dim 32, 64, 80, 96, 112 or 128, S >=
     ``TF32_MIN_S``, 1 <= ``valid_len`` <= S, a positive finite scale
     (rounded to f32 as the call passes it) and 16-byte aligned pointers."""
     f32 = ctypes.c_float(scale).value
@@ -413,8 +417,10 @@ def tf32_key_tile(d: int) -> int:
     """The keys of a tile of ``csrc/flash_attention_tf32.cu``'s online
     softmax at head dim ``d`` (``Cfg<D>::kBN``): 64, or 32 at head dim 128,
     where a 64-key stage beside both consumers' Q halves would not fit (at
-    96 one 64-key stage of each fits, at 80 two K stages and one V stage)."""
-    return 32 if d == 128 else 64
+    96 one 64-key stage of each fits, at 80 two K stages and one V stage),
+    and at 112, where one 64-key stage of each fits but spilled 80 bytes
+    (a 384-thread block is held to 168 registers)."""
+    return 32 if d in (112, 128) else 64
 
 
 def tf32_scratch_floats(bh: int, d: int, valid_len: int) -> int:
@@ -467,9 +473,9 @@ def flash_tf32_mirror(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     rescaled, P split in the fragment order and O += (lo(P) hi(V) + hi(P)
     lo(V)) + hi(P) hi(V); the output divided once; rows >= S not written
     (left 0). The softmax's key tiles are :func:`tf32_key_tile` keys (32
-    at head dim 128). Every word handed to the products is rna-rounded
-    TF32, so the hardware's truncation of the low 13 bits is the identity
-    and is not modelled."""
+    at head dims 112 and 128). Every word handed to the products is
+    rna-rounded TF32, so the hardware's truncation of the low 13 bits is the
+    identity and is not modelled."""
     bh, s, d = q.shape
     valid = s if valid_len is None else int(valid_len)
     scale = d ** -0.5 if scale is None else scale
@@ -671,6 +677,30 @@ def wide_wgmma_mirror(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _wgmma_rows_mirror(q, k, v, valid_len, scale, wide_wgmma_schedule(bh, s)[1])
 
 
+def wide_tf32_route(dtype: int, d: int, s: int, valid_len: int, scale: float,
+                    *ptrs: int) -> bool:
+    """The mirror of ``bff_flash_wide_tf32_takes``: whether
+    ``bff_flash_attention`` runs the 3xTF32 wgmma kernel of
+    ``csrc/relpos_attention_wide_tf32.cu`` with its key mask for a call that
+    :func:`wide_wgmma_route` leaves (dtype 0 = float32, 1 = bfloat16;
+    ``ptrs`` the data pointers of q, k, v and the output): f32, head dim a
+    multiple of 16 from 144 to 256, any S (the kernel beat the FMA kernel's
+    slices from S = 64 on), 1 <= ``valid_len`` <= S, a positive finite scale
+    (rounded to f32 as the call passes it) and 16-byte aligned pointers."""
+    f32 = ctypes.c_float(scale).value
+    return (dtype == 0 and d in WIDE_WGMMA_HEAD_DIMS and 1 <= valid_len <= s
+            and 0.0 < f32 <= _FLT_MAX and all(p % 16 == 0 for p in ptrs))
+
+
+def wide_tf32_scratch_floats(bh: int, d: int, valid_len: int) -> int:
+    """The mirror of ``bff_flash_wide_tf32_scratch_floats``: the floats of
+    scratch a :func:`wide_tf32_route` call needs, the pre-pass's K hi and lo
+    and V^T hi and lo images of every tile up to ``valid_len``
+    (:func:`relpos_wide_tf32_plan`'s keys a tile, DP columns)."""
+    plan = relpos_wide_tf32_plan(d)
+    return 4 * bh * -(-valid_len // plan["keys"]) * plan["keys"] * plan["dp"]
+
+
 # csrc/relpos_attention_wide_wgmma.cu (bf16) and
 # csrc/relpos_attention_wide_tf32.cu (f32): K4 at the wide kernel's head dims
 # (``WIDE_WGMMA_HEAD_DIMS``); the wgmma kernel's factor table (the streamed
@@ -714,12 +744,14 @@ def relpos_wide_tf32_route(kind: int, dtype: int, d: int, s: int, rows: int, col
 
 def relpos_wide_tf32_plan(d: int) -> dict:
     """The mirror of ``csrc/relpos_attention_wide_tf32.cu``'s ``Cfg<DP>`` at
-    head dim ``d``: the padded head dim ``dp`` (``d`` rounded up to 32), the
-    keys of a tile (32; 16 at DP 256, where Q's images take 128 KB), the
-    output columns of a fold part (32 at DP 256 and 56 at DP 224, where
-    wider parts spilled) and the parts, and the bytes of shared memory a
-    block asks (Q's hi and lo images for 64 rows, one K and one V^T stage of
-    hi and lo, the barriers and the 1024 bytes of alignment)."""
+    head dim ``d``, which both of its functions (the rel-pos bias and the
+    key mask, :func:`wide_tf32_route`) share: the padded head dim ``dp``
+    (``d`` rounded up to 32), the keys of a tile (32; 16 at DP 256, where
+    Q's images take 128 KB), the output columns of a fold part (32 at DP
+    256 and 56 at DP 224, where wider parts spilled) and the parts, and the
+    bytes of shared memory a block asks (Q's hi and lo images for 64 rows,
+    one K and one V^T stage of hi and lo, the barriers and the 1024 bytes of
+    alignment)."""
     dp = -(-d // 32) * 32
     n = 16 if dp == 256 else 32
     fold = {256: 32, 224: 56}.get(dp, dp // 2)
@@ -778,36 +810,57 @@ def relpos_wide_wgmma_mirror(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def relpos_wide_tf32_mirror(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             bias_h: torch.Tensor, bias_w: torch.Tensor, kw: int,
                             scale: Optional[float] = None) -> torch.Tensor:
-    """The arithmetic of ``csrc/relpos_attention_wide_tf32.cu`` in PyTorch on
-    the CPU, in f32, block by block of ``RELPOS_WIDE_TF32_BLOCK_Q`` rows: Q
+    """The arithmetic of ``csrc/relpos_attention_wide_tf32.cu`` with the
+    rel-pos bias, in PyTorch on the CPU: :func:`_wide_tf32_rows` over every
+    key, each score's bias_h + bias_w (in f32) its modifier."""
+    s = q.shape[1]
+    return _wide_tf32_rows(q, k, v, s, scale, relpos_bias(bias_h, bias_w, torch.float32))
+
+
+def wide_tf32_mirror(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     valid_len: Optional[int] = None,
+                     scale: Optional[float] = None) -> torch.Tensor:
+    """The arithmetic of ``csrc/relpos_attention_wide_tf32.cu`` with the key
+    mask (:func:`wide_tf32_route`), in PyTorch on the CPU:
+    :func:`_wide_tf32_rows` over the keys up to ``valid_len``, the scores of
+    the keys past it in the last tile at -inf (the kernel's pre-pass splits
+    K and V as its producer does with the bias: the same words)."""
+    s = q.shape[1]
+    return _wide_tf32_rows(q, k, v, s if valid_len is None else int(valid_len), scale)
+
+
+def _wide_tf32_rows(q, k, v, keys, scale, bias=None):
+    """The wide 3xTF32 kernel's arithmetic in f32, block by block of
+    ``RELPOS_WIDE_TF32_BLOCK_Q`` rows, over the keys 0 .. ``keys`` - 1: Q
     times the scale, split (:func:`tf32_split`); per tile of
-    :func:`relpos_wide_tf32_plan`'s keys (keys past S zero), K and V split
-    (V^T with each 8-key group in ``TF32_KEY_ORDER``), the scores ((lo(Q)
-    hi(K)^T + hi(Q) lo(K)^T) + hi(Q) hi(K)^T) from zero, then each score's
-    bias_h + bias_w added in f32 (keys past S at -inf); the running max (log2
-    units) raised at every tile; p = 2^(s log2 e - m) (one rounding); the
-    denominator summed from the f32 p; the output rescaled and the tile's
-    (lo(P) hi(V) + hi(P) lo(V)) + hi(P) hi(V) summed apart and added to it
-    (the kernel adds it in column parts: the same sums column by column; the
-    zero columns of the padded head dim add nothing); the output divided
-    once. Every word handed to the products is rna-rounded TF32, so the
-    hardware's truncation is not modelled."""
+    :func:`relpos_wide_tf32_plan`'s keys (keys past ``keys`` zero), K and V
+    split (V^T with each 8-key group in ``TF32_KEY_ORDER``), the scores
+    ((lo(Q) hi(K)^T + hi(Q) lo(K)^T) + hi(Q) hi(K)^T) from zero, then the
+    modifier: each score's ``bias`` (a dense (BH, S, keys) f32 tensor) added
+    in f32, or with no ``bias`` nothing (keys past ``keys`` at -inf either
+    way); the running max (log2 units) raised at every tile; p = 2^(s log2
+    e - m) (one rounding); the denominator summed from the f32 p; the output
+    rescaled and the tile's (lo(P) hi(V) + hi(P) lo(V)) + hi(P) hi(V) summed
+    apart and added to it (the kernel adds it in column parts: the same sums
+    column by column; the zero columns of the padded head dim add nothing);
+    the output divided once. Every word handed to the products is
+    rna-rounded TF32, so the hardware's truncation is not modelled."""
     g, s, d = q.shape
     scale = d ** -0.5 if scale is None else scale
     l2e = float(torch.tensor(1.4426950408889634, dtype=torch.float32))
     sc_f32 = float(torch.tensor(scale, dtype=torch.float32))
     tile = relpos_wide_tf32_plan(d)["keys"]
-    n_tiles = -(-s // tile)
+    n_tiles = -(-keys // tile)
     kp = tile * n_tiles
     kz = torch.zeros(g, kp, d)
     vz = torch.zeros(g, kp, d)
-    kz[:, :s] = k.float()
-    vz[:, :s] = v.float()
+    kz[:, :keys] = k[:, :keys].float()
+    vz[:, :keys] = v[:, :keys].float()
     k_hi, k_lo = tf32_split(kz)
     order = torch.tensor([8 * (j // 8) + TF32_KEY_ORDER[j % 8] for j in range(kp)])
     vt_hi, vt_lo = (t[:, order].transpose(1, 2) for t in tf32_split(vz))  # (g, D, Kp)
-    bias = torch.full((g, s, kp), float("-inf"))
-    bias[:, :, :s] = relpos_bias(bias_h, bias_w, torch.float32)
+    full = torch.full((g, s, kp), float("-inf"))
+    full[:, :, :keys] = 0.0 if bias is None else bias
     bm = RELPOS_WIDE_TF32_BLOCK_Q
     out = torch.zeros(g, s, d)
     for h in range(g):
@@ -817,8 +870,8 @@ def relpos_wide_tf32_mirror(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             qt[:len(rows)] = q[h, rows].float() * sc_f32
             q_hi, q_lo = tf32_split(qt)
             b = torch.zeros(bm, kp)
-            b[:len(rows)] = bias[h, rows]
-            b[len(rows):, s:] = float("-inf")
+            b[:len(rows)] = full[h, rows]
+            b[len(rows):, keys:] = float("-inf")
             m = torch.full((bm,), -1e30)
             l = torch.zeros(bm)
             acc = torch.zeros(bm, d)
@@ -1253,7 +1306,8 @@ def flash_counter(dtype: int, d: int, s: int, valid_len: int, scale: float, *ptr
     """The launch counter a ``bff_flash_attention`` call counts under, as its
     routes decide: ``flash_attention_wgmma`` (K3's bf16 kernel),
     ``flash_masked_wgmma`` (K2's), ``flash_attention_wide_wgmma`` (bf16 at
-    head dims 144 to 256), ``flash_attention_tf32`` (the 3xTF32
+    head dims 144 to 256), ``flash_attention_wide_tf32`` (f32 there),
+    ``flash_attention_tf32`` (the 3xTF32
     kernel of K2 and K3 in f32), ``flash_attention_f32`` (the f32-FMA kernel,
     every other f32 call) or ``flash_attention`` (every other bf16 call: the
     mma.sync tile)."""
@@ -1263,6 +1317,8 @@ def flash_counter(dtype: int, d: int, s: int, valid_len: int, scale: float, *ptr
         return "flash_masked_wgmma"
     if wide_wgmma_route(dtype, d, s, valid_len, scale, *ptrs):
         return "flash_attention_wide_wgmma"
+    if wide_tf32_route(dtype, d, s, valid_len, scale, *ptrs):
+        return "flash_attention_wide_tf32"
     if tf32_route(dtype, d, s, valid_len, scale, *ptrs):
         return "flash_attention_tf32"
     return "flash_attention_f32" if dtype == 0 else "flash_attention"
@@ -1296,9 +1352,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
     key = flash_counter(_DTYPES[q.dtype], d, s, valid, scale, *ptrs)
     scratch = None
-    if key == "flash_attention_tf32":
-        scratch = torch.empty(tf32_scratch_floats(bh, d, valid), dtype=torch.float32,
-                              device=q.device)
+    if key in ("flash_attention_tf32", "flash_attention_wide_tf32"):
+        floats = (tf32_scratch_floats if key == "flash_attention_tf32"
+                  else wide_tf32_scratch_floats)(bh, d, valid)
+        scratch = torch.empty(floats, dtype=torch.float32, device=q.device)
     rc = _build.library().bff_flash_attention(
         _DTYPES[q.dtype], *ptrs, bh, s, d, valid, ctypes.c_float(scale),
         torch.cuda.current_stream(q.device).cuda_stream,

@@ -43,13 +43,16 @@ kernel of ``flash_masked_wgmma.cu`` in this tree, the mma.sync tile in a
 tree from before it) take SDPA, with a key mask where keys are masked, as
 their ``library`` entry. The f32 cases (``--cases f32``: K2 and K3 in f32
 at their main-path shapes, ``f32 small``, S 64 to 512, f32 at head dims 80,
-96 and 128, and ``f32 d112``, a shape the 3xTF32 route refuses) go through
-``bff_flash_attention`` (the 3xTF32 kernel in this tree, the FMA kernel in
-a tree from before it, and as the entry ``fma`` of the same rounds through
+96, 112 and 128, ``f32 wide`` at 144 to 256 (the wide 3xTF32 kernel with its
+key mask), and ``f32 d48``, a shape both 3xTF32 routes refuse) go through
+``bff_flash_attention`` (the 3xTF32 kernels in this tree, the FMA kernel in
+a tree from before them, and as the entry ``fma`` of the same rounds through
 ``bff_flash_attention_f32_fma``), are held within 1e-4,
 take SDPA in f32 and the plain version as yardsticks, ``bound_ms`` at
 3xTF32 beside ``bound_fma_ms`` at the f32 FMA peak, and the pre-pass's
-device time a call (``prepass_ms``); the ``tf32_smem_split`` variant
+device time a call (``prepass_ms``); each output's digest beside it
+(``digest``: a route that shares a kernel body stays bit for bit); the
+``tf32_smem_split`` variant
 builds ``variant_csrc/flash_attention_tf32_smem.cu`` (the split in shared
 memory, no pre-pass) and runs on its own entry. The NMS case times the
 call as the wrapper makes it (stable sort, gather, ``bff_nms_fixed``; ``bff_nms_bitmask`` for the
@@ -69,6 +72,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import hashlib
 import json
 import os
 import shutil
@@ -106,7 +110,8 @@ SOURCES = (RELPOS, IOU, MSD, FLASH, WGMMA, FMW, TF32, WIDE, RWG, RST, RT32, RWW,
 # sources only variants build, copied beside csrc's (whose headers they use)
 VARIANT_CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "variant_csrc")
 K1, K6 = (MSD,), (IOU, IWG)  # what a K1 or K6 variant builds
-K3 = (FLASH, WGMMA, FMW, TF32, WIDE)  # what a K2 or K3 variant builds (one C entry routes all)
+# what a K2 or K3 variant builds (one C entry routes all)
+K3 = (FLASH, WGMMA, FMW, TF32, WIDE, RWT)
 # what a K4 or K5 variant builds (the rel-pos entries route all)
 K45 = (RELPOS, RWG, RST, RT32, RWW, RWT)
 NMS_V = (NMS,)
@@ -470,6 +475,29 @@ VARIANTS = {
     # halves at DP 224 (shipped: four 56-column parts)
     "relpos_wide_tf32_fold_halves": (K45, ((RWT, "DP == 256 ? 32 : DP == 224 ? 56 : DP / 2;",
                                             "DP == 256 ? 32 : DP / 2;"),)),
+    # f32 flash attention at head dim 112: 64-key tiles, one K and one V
+    # stage (shipped: 32-key tiles, two K stages and one V stage)
+    "tf32_d112_keys_64": (K3, ((TF32, "constexpr int kBN112 = 32;\n"
+                                      "constexpr int kKStages112 = 2, kVStages112 = 1;",
+                                "constexpr int kBN112 = 64;\n"
+                                "constexpr int kKStages112 = 1, kVStages112 = 1;"),)),
+    # and with Q's addresses made opaque once a tile, so that the Q K^T
+    # descriptors are computed there instead of hoisted into registers
+    "tf32_d112_keys_64_opaque": (K3, (
+        (TF32, "constexpr int kBN112 = 32;\nconstexpr int kKStages112 = 2, kVStages112 = 1;",
+         "constexpr int kBN112 = 64;\nconstexpr int kKStages112 = 1, kVStages112 = 1;"),
+        (TF32, "                                             uint32_t khi, uint32_t klo) {\n"
+               "#pragma unroll\n  for (int kk = 0; kk < D / 8; ++kk) {\n"
+               "    wgmma_tf32(s, qk_desc<D, 64>(qlo, kk)",
+         "                                             uint32_t khi, uint32_t klo) {\n"
+         "  qhi = opaque(qhi);\n  qlo = opaque(qlo);\n"
+         "#pragma unroll\n  for (int kk = 0; kk < D / 8; ++kk) {\n"
+         "    wgmma_tf32(s, qk_desc<D, 64>(qlo, kk)"))),
+    # f32 flash attention at head dims 144-256 with K and V split by the
+    # producer on the chip, as K4's bias mode does (shipped: split by a
+    # pre-pass into scratch, the producer copying the images)
+    "wide_tf32_split_on_chip": (K3, ((RWT, "constexpr bool kPreSplit = true;",
+                                      "constexpr bool kPreSplit = false;"),)),
     # and at DP 256 in four 64-column parts (shipped: eight of 32)
     "relpos_wide_tf32_fold_64": (K45, ((RWT, "DP == 256 ? 32 : DP == 224 ? 56 : DP / 2;",
                                         "DP == 256 ? 64 : DP == 224 ? 56 : DP / 2;"),)),
@@ -739,8 +767,10 @@ def f32_case(bh, s, d, valid_len, spread=1.0):
     q, k = q * spread, k * spread
     want = fa.flash_attention_plain(q, k, v, valid_len)
     out = torch.empty_like(q)
-    # the 3xTF32 kernel's scratch (a tree from before it ignores the argument)
-    scratch = torch.empty(fa.tf32_scratch_floats(bh, d, valid_len), device="cuda")
+    # the 3xTF32 kernels' scratch (a tree from before them ignores the
+    # argument)
+    scratch = torch.empty(max(fa.tf32_scratch_floats(bh, d, valid_len),
+                              fa.wide_tf32_scratch_floats(bh, d, valid_len)), device="cuda")
     stream = torch.cuda.current_stream().cuda_stream
     fn = "bff_flash_attention"
     q4, k4, v4 = (t.view(1, bh, s, d) for t in (q, k, v))
@@ -1132,9 +1162,33 @@ def main():
         "f32 d80 (8, 1024, 80) valid 900": lambda: f32_case(8, 1024, 80, 900),
         "f32 d80 spread 3 (32, 1024, 80) valid 900": lambda: f32_case(32, 1024, 80, 900, 3.0),
         "f32 d80 small (8, 256, 80)": lambda: f32_case(8, 256, 80, 256),
-        # outside the 3xTF32 route (head dim 112): the FMA kernel, with SDPA
-        # in f32 beside it, the witness of what still loses to the library
+        # f32 at head dim 112 (the public entries take it; no model calls it)
+        # on the 3xTF32 kernel's Cfg<112>, 900 of 1024 keys valid, at 32 and 8
+        # heads and on peaked rows; and the shortest S the route takes
         "f32 d112 (32, 1024, 112) valid 900": lambda: f32_case(32, 1024, 112, 900),
+        "f32 d112 (8, 1024, 112) valid 900": lambda: f32_case(8, 1024, 112, 900),
+        "f32 d112 spread 3 (32, 1024, 112) valid 900": lambda: f32_case(32, 1024, 112, 900, 3.0),
+        "f32 d112 small (8, 256, 112)": lambda: f32_case(8, 256, 112, 256),
+        # outside the 3xTF32 routes (head dim 48): the FMA kernel, with SDPA
+        # in f32 beside it
+        "f32 d48 (32, 1024, 48) valid 900": lambda: f32_case(32, 1024, 48, 900),
+        # f32 at head dims 144-256 on the wide 3xTF32 kernel with the key mask
+        # (the FMA kernel's 128-feature slices in a tree from before it, and
+        # as the entry ``fma``): every key valid and 900 of 1024, on peaked
+        # rows, at S 4096, a ragged S at the smallest instance's padded
+        # columns, and short sequences (the route takes every S: it beat the
+        # slices there too)
+        **{f"f32 wide d{d_} ({bh_}, {s_}, {d_}){'' if v_ == s_ else f' valid {v_}'}"
+           f"{'' if sp_ == 1.0 else ' spread 3'}":
+           (lambda bh_=bh_, s_=s_, v_=v_, d_=d_, sp_=sp_: f32_case(bh_, s_, d_, v_, sp_))
+           for bh_, s_, v_, d_, sp_ in ((16, 1024, 1024, 160, 1.0), (16, 1024, 900, 160, 1.0),
+                                        (16, 1024, 1024, 256, 1.0), (16, 1024, 900, 256, 1.0),
+                                        (16, 1024, 900, 160, 3.0), (16, 1024, 900, 256, 3.0),
+                                        (16, 4096, 4096, 256, 1.0), (16, 1000, 999, 144, 1.0),
+                                        (16, 1024, 900, 224, 1.0))},
+        **{f"f32 wide small d{d_} (16, {s_}, {d_})":
+           (lambda s_=s_, d_=d_: f32_case(16, s_, d_, s_))
+           for d_ in (160, 256) for s_ in (64, 128, 255)},
         # K4 and K5 in f32 (detector.dtype: float32, BFF_SAM_RELPOS_FLASH=1)
         # at SAM ViT-H's batch of 4 (square and rect grid) and one frame;
         # then K4 on short grids, where the 3xTF32 kernel's pre-pass and
@@ -1242,10 +1296,14 @@ def main():
             for n, lib in libs.items():
                 if n.startswith("k1_staged"):
                     calls[n] = lambda lib=lib: launch.staged(lib)
-        excess = {}
+        excess, digest = {}, {}
         for n in list(calls):
             try:
-                excess[n] = check(calls[n]())
+                got = calls[n]()
+                excess[n] = check(got)
+                if isinstance(got, torch.Tensor):  # bit-for-bit comparisons across variants
+                    digest[n] = hashlib.sha256(got.contiguous().view(torch.uint8)
+                                               .cpu().numpy().tobytes()).hexdigest()[:16]
             except RuntimeError as err:  # a failed launch: recorded, not timed
                 rec = {"case": case, "variant": n, "right": False, "error": str(err),
                        "card": card}
@@ -1266,6 +1324,8 @@ def main():
         for n in calls:
             rec = {"case": case, "variant": n, "ms": min(times[n]), "ms_rounds": times[n],
                    "right": excess[n] <= 0.0, "excess": excess[n], "card": card}
+            if n in digest:
+                rec["digest"] = digest[n]
             if library:  # K3-K6 and their yardstick: device time, rates, bound, host time
                 rec["device_ms"] = device_ms(calls[n])
                 rec["tflops"] = flops / rec["device_ms"] / 1e9
@@ -1280,10 +1340,12 @@ def main():
                 rec["host_us"] = host_us(calls[n])
                 if f32 and n not in ("library", "plain", "fma"):
                     # the 3xTF32 call's pre-pass (split_kv_kernel, K4's
-                    # split_kv_relpos_kernel) a call
+                    # split_kv_relpos_kernel, the wide kernel's
+                    # wide_split_kernel) a call
                     spans = device_spans(lambda: [calls[n]() for _ in range(5)])
                     rec["prepass_ms"] = sum(e - s_ for s_, e, name in spans
-                                            if "split_kv" in name) / 5e3
+                                            if "split_kv" in name
+                                            or "wide_split" in name) / 5e3
                 if n in ("library", "plain"):
                     rec["right"] = None  # a yardstick, not a variant: not gated
             if nms_extra:  # NMS: device time, its split, the bound (IoU tests at the f32 peak)

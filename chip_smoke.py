@@ -361,6 +361,16 @@ RELPOS_WIDE_TF32_DESIGN = ("3xTF32 wgmma holding the whole head dim (144-256, pa
                            "pre-pass), Q's images in shared memory, the products from zero "
                            "and each score's whole bias added in f32 after them, each tile's "
                            "P V summed apart in column parts and added in f32")
+# csrc/relpos_attention_wide_tf32.cu with the key mask: K2/K3 in f32 at
+# head dims 144-256
+FLASH_WIDE_TF32_DESIGN = ("3xTF32 wgmma holding the whole head dim (144-256, padded to 32 with "
+                          "zeros), K4 f32's wide kernel with a key mask for its score "
+                          "modifier: a pre-pass splits each K and V tile up to valid_len "
+                          "(32 keys, 16 at DP 256) into TF32 hi/lo images in scratch; one "
+                          "64-row consumer warpgroup and a producer warpgroup copying each "
+                          "tile's images into one K and one V stage, Q scaled and split into "
+                          "shared memory once, the keys past valid_len at -inf, each tile's "
+                          "P V summed apart in column parts and added in f32")
 SLICED_DESIGN = (", head dims past 128 on a grid axis of 128-feature output slices: each "
                  "block sums its scores over every slice of Q and K, staged in turn, and "
                  "accumulates P V for its own slice of V")
@@ -511,10 +521,11 @@ def flash_case(torch, fa, name, shape, valid_len, dtype, dev, fma=False, spread=
         "design": (WGMMA_DESIGN if routed == "flash_attention_wgmma" else
                    MASKED_WGMMA_DESIGN if routed == "flash_masked_wgmma" else
                    WIDE_WGMMA_DESIGN if routed == "flash_attention_wide_wgmma" else
+                   FLASH_WIDE_TF32_DESIGN if routed == "flash_attention_wide_tf32" else
                    TF32_DESIGN if routed == "flash_attention_tf32" else
                    TC_DESIGN + ", 4 warps x 16 rows" if bf16 else FMA_DESIGN)
                   + (SLICED_DESIGN if d > fa.HEAD_DIM_SLICE
-                     and routed != "flash_attention_wide_wgmma" else ""),
+                     and not routed.startswith("flash_attention_wide") else ""),
         "plain_ms": cuda_ms(torch, lambda: fa.flash_attention_plain(q, k, v, valid_len), 20),
         "bound_ms": max(bound_bytes, bound_ops),
         "bound_by": "bytes" if bound_bytes >= bound_ops else "operations",
@@ -718,12 +729,14 @@ def past_limits(torch, mods, cases, dev, rng):
     hand-written kernel whose counter the case checks (the routes the CPU
     mirrors name) and within tolerance of its plain version: K2/K3 at head
     dims 160 and 256, every key valid and keys masked (bf16 on the wide
-    wgmma kernel, f32 on the FMA kernel's head-dim slices), bf16 at (16,
-    4096, 256), and bf16 at head dim 264 on the tile's slices, which keep
-    the head dims the wide kernel leaves; K4 at head dim 160 and on grids
-    with kh + kw past 256 (1 x 300, 2 x 255 and, bf16 only, SAM's global
-    attention on a 136 x 136 grid: the tile with streamed factors in bf16,
-    the FMA kernel reading the factors from device memory in f32); K4 at
+    wgmma kernel, f32 on the wide 3xTF32 kernel with its key mask, timed
+    beside the FMA kernel's head-dim slices it displaced), bf16 at (16,
+    4096, 256), and at head dims the wide kernels leave on the slices they
+    displaced: bf16 at 264 (the tile's), f32 at 168 (the FMA kernel's);
+    K4 at head dim 160 and on grids with kh + kw past 256 (1 x 300, 2 x
+    255 and, bf16 only, SAM's global attention on a 136 x 136 grid: the
+    tile with streamed factors in bf16, the FMA kernel reading the factors
+    from device memory in f32); K4 at
     head dims 160 and 256 on 32 x 32 and at 160 on 2 x 255 on the wide
     kernels (bf16 the wgmma kernel with streamed factors, f32 the 3xTF32
     one, timed beside the FMA kernel's slices it displaced), and at head
@@ -738,18 +751,23 @@ def past_limits(torch, mods, cases, dev, rng):
         for dtype in (torch.bfloat16, torch.float32):
             dname = str(dtype).split(".")[-1]
             for valid, tag in ((1024, "unmasked"), (900, "masked")):
+                # f32 beside the FMA kernel's slices it displaced
                 cases[(f"flash_d{d}_{tag}", dname, 1)] = rec = flash_case(
-                    torch, fa, f"d{d}_1024_{valid}", (16, 1024, d), valid, dtype, dev)
+                    torch, fa, f"d{d}_1024_{valid}", (16, 1024, d), valid, dtype, dev,
+                    fma=dtype == torch.float32)
                 check(rec["kernel"] == ("flash_attention_wide_wgmma" if dtype == torch.bfloat16
-                                        else "flash_attention_f32"),
+                                        else "flash_attention_wide_tf32"),
                       f"flash d{d} {tag} {dname}: on {rec['kernel']}")
-    for key, name, shape, valid, want in (
-            ("flash_d256_4096", "d256_4096_4096", (16, 4096, 256), 4096,
+    for key, name, shape, valid, dtype, want in (
+            ("flash_d256_4096", "d256_4096_4096", (16, 4096, 256), 4096, torch.bfloat16,
              "flash_attention_wide_wgmma"),
-            ("flash_d264_tile", "d264_1024_900", (16, 1024, 264), 900, "flash_attention")):
-        cases[(key, "bfloat16", 1)] = rec = flash_case(torch, fa, name, shape, valid,
-                                                       torch.bfloat16, dev)
-        check(rec["kernel"] == want, f"flash {name} bfloat16: on {rec['kernel']}, not {want}")
+            ("flash_d264_tile", "d264_1024_900", (16, 1024, 264), 900, torch.bfloat16,
+             "flash_attention"),
+            ("flash_d168_fma", "d168_1024_900", (16, 1024, 168), 900, torch.float32,
+             "flash_attention_f32")):
+        dname = str(dtype).split(".")[-1]
+        cases[(key, dname, 1)] = rec = flash_case(torch, fa, name, shape, valid, dtype, dev)
+        check(rec["kernel"] == want, f"flash {name} {dname}: on {rec['kernel']}, not {want}")
     for key, name, g, grid, d, dtypes in (
             ("relpos_d160", "d160_global", 16, (32, 32), 160, (torch.bfloat16, torch.float32)),
             ("relpos_d256", "d256_global", 16, (32, 32), 256, (torch.bfloat16, torch.float32)),
@@ -3886,8 +3904,8 @@ def main() -> int:
                 torch, fa, "efficientsam_global_rect" if s_k3 == 3072 else "ragged_4095",
                 (6 * FRAME_BATCH, s_k3, 64), s_k3, dtype, dev)
     # f32 K2 and K3 on the 3xTF32 kernel (detector.dtype: float32), and f32
-    # at head dims 128, 96 and 80 too; an f32 call outside its predicate
-    # (head dim 112) keeps the FMA kernel
+    # at head dims 128, 112, 96 and 80 too; an f32 call outside its
+    # predicate (head dim 48) keeps the FMA kernel
     f32_flash = [(key, "float32", b) for key in ("flash_900", "flash_1024", "flash_masked",
                                                  "k3_efficientsam") for b in (1, FRAME_BATCH)]
     for key in f32_flash + [("k3_efficientsam", s_k3, "float32") for s_k3 in (3072, 4095)]:
@@ -3906,8 +3924,14 @@ def main() -> int:
             torch, fa, name, (8 * FRAME_BATCH, 1024, 80), 900, torch.float32, dev,
             fma=spread == 1.0, spread=spread)
         check(rec["kernel"] == "flash_attention_tf32", f"{key}: off the 3xTF32 kernel")
+    for key, name, spread in (("flash_d112", "d112_1024_900", 1.0),
+                              ("flash_d112_spread3", "d112_1024_900_spread3", 3.0)):
+        cases[(key, "float32", FRAME_BATCH)] = rec = flash_case(
+            torch, fa, name, (8 * FRAME_BATCH, 1024, 112), 900, torch.float32, dev,
+            fma=True, spread=spread)
+        check(rec["kernel"] == "flash_attention_tf32", f"{key}: off the 3xTF32 kernel")
     cases[("flash_fma", "float32", FRAME_BATCH)] = rec = flash_case(
-        torch, fa, "d112_1024_900", (8 * FRAME_BATCH, 1024, 112), 900, torch.float32, dev)
+        torch, fa, "d48_1024_900", (8 * FRAME_BATCH, 1024, 48), 900, torch.float32, dev)
     check(rec["kernel"] == "flash_attention_f32", "flash_fma: off the f32-FMA kernel")
     past_limits(torch, (fa, wa, dw, sam_mod, deformable), cases, dev, rng)
     cases["nms"] = nms_case(torch, nms, dev)
@@ -4110,6 +4134,9 @@ def main() -> int:
             (("flash_d80", "float32", FRAME_BATCH),
              "beyondff_tpu_torch/csrc/flash_attention_tf32.cu",
              "beyondff_tpu/kernels/flash_attention.py:270"),
+            (("flash_d112", "float32", FRAME_BATCH),
+             "beyondff_tpu_torch/csrc/flash_attention_tf32.cu",
+             "beyondff_tpu/kernels/flash_attention.py:270"),
             (("flash_fma", "float32", FRAME_BATCH), "beyondff_tpu_torch/csrc/flash_attention.cu",
              "beyondff_tpu/kernels/flash_attention.py:270"),
             # K4 and K5 in f32 at head dim 80 (and K4 at 64 and 96) on the
@@ -4144,16 +4171,18 @@ def main() -> int:
              "beyondff_tpu_torch/csrc/ms_deform_sample.cu",
              "beyondff_tpu/kernels/deform_window.py:170"),
             # the shapes past the old limits (past_limits; no configured
-            # model reaches them): head dims past 128 on the wide wgmma
-            # kernel (bf16 144-256), the slices of the tile (bf16 264) and
-            # the FMA kernels (f32); kh + kw past 256 on the tile with
+            # model reaches them): head dims past 128 on the wide kernels
+            # (144-256: wgmma in bf16, 3xTF32 in f32), the slices of the
+            # tile (bf16 264) and of the FMA kernel (f32 168); kh + kw past
+            # 256 on the tile with
             # streamed factors (bf16 up to head dim 128) and the FMA kernel
             # (f32); K4 at head dims 160 and 256 on the wide kernels (both
             # dtypes on any grid), at 168 on the slices they leave; 17 x 17
             # windows on K4's kernels, K1 at 9 levels and head dim 160
             *(((f"flash_d{d}_{tag}", dname, 1),
                "beyondff_tpu_torch/csrc/" + ("flash_attention_wide_wgmma.cu"
-                                             if dname == "bfloat16" else "flash_attention.cu"),
+                                             if dname == "bfloat16"
+                                             else "relpos_attention_wide_tf32.cu"),
                "beyondff_tpu/kernels/flash_attention.py:" + ("270" if tag == "masked" else "68"))
               for d in (160, 256) for tag in ("unmasked", "masked")
               for dname in ("bfloat16", "float32")),
@@ -4161,6 +4190,8 @@ def main() -> int:
              "beyondff_tpu_torch/csrc/flash_attention_wide_wgmma.cu",
              "beyondff_tpu/kernels/flash_attention.py:68"),
             (("flash_d264_tile", "bfloat16", 1), "beyondff_tpu_torch/csrc/flash_attention.cu",
+             "beyondff_tpu/kernels/flash_attention.py:270"),
+            (("flash_d168_fma", "float32", 1), "beyondff_tpu_torch/csrc/flash_attention.cu",
              "beyondff_tpu/kernels/flash_attention.py:270"),
             *(((key, dname, 1), "beyondff_tpu_torch/csrc/" + (
                 "relpos_attention_streamed.cu" if dname == "bfloat16"

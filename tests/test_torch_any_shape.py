@@ -317,15 +317,17 @@ def test_relpos_counter_table(args, counter):
 @pytest.mark.parametrize("dtype,d,s,valid,counter", [
     (1, 64, 4096, 4096, "flash_attention_wgmma"), (1, 32, 900, 900, "flash_masked_wgmma"),
     (0, 32, 900, 900, "flash_attention_tf32"), (0, 128, 1024, 900, "flash_attention_tf32"),
-    (0, 112, 1024, 900, "flash_attention_f32"), (1, 64, 1024, 900, "flash_attention"),
-    (0, 160, 1024, 900, "flash_attention_f32"), (0, 256, 300, 300, "flash_attention_f32"),
+    (0, 112, 1024, 900, "flash_attention_tf32"), (1, 64, 1024, 900, "flash_attention"),
+    (0, 160, 1024, 900, "flash_attention_wide_tf32"),
+    (0, 256, 300, 300, "flash_attention_wide_tf32"),
     (1, 160, 1024, 900, "flash_attention_wide_wgmma"),
     (1, 256, 300, 300, "flash_attention_wide_wgmma"), (1, 264, 300, 300, "flash_attention"),
     (1, 168, 300, 300, "flash_attention"), (1, 136, 300, 300, "flash_attention")])
 def test_flash_counter_table(dtype, d, s, valid, counter):
-    """Head dims past 128 count under the FMA kernel's (f32) counter, the
-    wide wgmma kernel's (bf16 at multiples of 16 from 144 to 256) and the
-    tile's (other bf16); the old shapes keep theirs."""
+    """Head dims past 128 count under the wide kernels' counters (multiples
+    of 16 from 144 to 256: the wgmma kernel's in bf16, the 3xTF32 kernel's in
+    f32) and the tile's (other bf16); f32 at head dim 112 under the 3xTF32
+    kernel's; the old shapes keep theirs."""
     assert tfa.flash_counter(dtype, d, s, valid, d ** -0.5, *_A[:4]) == counter
 
 
@@ -494,11 +496,11 @@ def _within(got, want, q, k, v, valid=None, bias_h=None, bias_w=None):
                                           (2, 256, 256, 256), (2, 1024, 900, 256),
                                           (1, 200, 77, 300), (2, 64, 64, 136)])
 def test_flash_past_head_dim_128_on_card(cuda_device, dtype, bh, s, valid, d):
-    """K2/K3 at head dims past 128, masked and unmasked: one launch on the FMA
-    kernel (f32, ``flash_attention_f32``), the wide wgmma kernel (bf16 at
-    head dims 144 to 256, ``flash_attention_wide_wgmma``) or the tile (other
-    bf16, ``flash_attention``, with its head-dim slices), within tolerance
-    of the plain version."""
+    """K2/K3 at head dims past 128, masked and unmasked: one launch on the
+    wide kernels at head dims 144 to 256 (bf16 ``flash_attention_wide_wgmma``,
+    f32 ``flash_attention_wide_tf32``), elsewhere the FMA kernel (f32,
+    ``flash_attention_f32``) or the tile (bf16, ``flash_attention``), with
+    their head-dim slices, within tolerance of the plain version."""
     g = torch.Generator(device=cuda_device).manual_seed(s + d)
     q, k, v = (torch.randn(bh, s, d, generator=g, device=cuda_device).to(dtype)
                for _ in range(3))
@@ -506,9 +508,11 @@ def test_flash_past_head_dim_128_on_card(cuda_device, dtype, bh, s, valid, d):
     got = tfa.flash_attention(q, k, v, valid_len=valid)
     key = tfa.flash_counter(int(dtype == torch.bfloat16), d, s, valid, d ** -0.5,
                             *(t.data_ptr() for t in (q, k, v, got)))
-    assert key == ("flash_attention_f32" if dtype == torch.float32 else
-                   "flash_attention_wide_wgmma" if d in tfa.WIDE_WGMMA_HEAD_DIMS else
-                   "flash_attention")
+    wide = d in tfa.WIDE_WGMMA_HEAD_DIMS
+    if dtype == torch.float32:
+        assert key == ("flash_attention_wide_tf32" if wide else "flash_attention_f32")
+    else:
+        assert key == ("flash_attention_wide_wgmma" if wide else "flash_attention")
     _one_launch(before, key)
     want = tfa.flash_attention_plain(q, k, v, valid_len=valid)
     torch.cuda.synchronize()
@@ -526,7 +530,7 @@ def test_attend_past_head_dim_128_on_card(cuda_device, dtype):
     before = dict(dispatch.launch_counts)
     got = tfa.attend(q, k, v)
     _one_launch(before, "flash_attention_wide_wgmma" if dtype == torch.bfloat16
-                else "flash_attention_f32")
+                else "flash_attention_wide_tf32")
     want = tfa.flash_attention_plain(q, k, v)
     torch.cuda.synchronize()
     assert _within(got, want, q, k, v)

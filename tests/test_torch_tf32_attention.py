@@ -1,5 +1,5 @@
 """K2 and K3 in f32 (``detector.dtype: float32``), and f32 attention at head
-dims 80, 96 and 128, on the 3xTF32 wgmma kernel (``csrc/flash_attention_tf32.cu``).
+dims 80, 96, 112 and 128, on the 3xTF32 wgmma kernel (``csrc/flash_attention_tf32.cu``).
 
 On the CPU: the kernel's rounding (``tf32_round``: ``cvt.rna.tf32.f32``)
 and split (``tf32_split``), its routing rule (``tf32_route``, the mirror of
@@ -126,7 +126,7 @@ def test_tf32_split_keeps_about_22_bits(rng):
     ((0, 96, 255, 255, 96 ** -0.5, *_A), False),  # shorter: the FMA kernel
     ((0, 96, 900, 900, 96 ** -0.5, 4, 0, 0, 0), False),  # head dim 96, q off 16 bytes
     ((1, 96, 900, 900, 96 ** -0.5, *_A), False),  # bf16 at head dim 96: the tile
-    ((0, 112, 900, 900, 112 ** -0.5, *_A), False),  # no Cfg<112>: the FMA kernel
+    ((0, 112, 900, 900, 112 ** -0.5, *_A), True),  # head dim 112: seven 16-float boxes
     ((0, 32, 900, 0, _S32, *_A), False),  # no valid key
     ((0, 32, 900, 901, _S32, *_A), False),  # valid_len past S
     ((0, 32, 900, 900, _S32, 0, 4, 0, 0), False),  # k off 16 bytes
@@ -141,14 +141,15 @@ def test_tf32_split_keeps_about_22_bits(rng):
     ((0, 80, 255, 255, 80 ** -0.5, *_A), False),  # shorter: the FMA kernel
     ((0, 80, 900, 900, 80 ** -0.5, 0, 0, 0, 4), False),  # head dim 80, the output off 16 bytes
     ((1, 80, 900, 900, 80 ** -0.5, *_A), False),  # bf16 at head dim 80: the tile
-    ((0, 112, 1024, 900, 112 ** -0.5, *_A), False),
+    ((0, 112, 1024, 900, 112 ** -0.5, *_A), True),  # head dim 112, keys masked
 ])
 def test_tf32_route_pins_the_predicate(args, takes):
     """The Python mirror of ``bff_flash_tf32_takes``: f32, head dim 32, 64, 80,
-    96 or 128, S >= 256, 1 <= valid_len <= S, a positive finite f32 scale, 16-byte aligned q, k,
-    v and output; and the counter a call moves: ``flash_attention_tf32``
-    where it takes the call, else ``flash_attention_f32`` for f32 (the FMA
-    kernel) and the bf16 kernels' own counters for bf16."""
+    96, 112 or 128, S >= 256, 1 <= valid_len <= S, a positive finite f32
+    scale, 16-byte aligned q, k, v and output; and the counter a call
+    moves: ``flash_attention_tf32`` where it takes the call, else
+    ``flash_attention_f32`` for f32 (the FMA kernel) and the bf16 kernels'
+    own counters for bf16."""
     assert tfa.tf32_route(*args) is takes
     key = tfa.flash_counter(*args)
     if takes:
@@ -471,13 +472,13 @@ def test_tf32_d80_over_score_scales_on_card(cuda_device, spread):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["d112", "d16", "misaligned", "short", "d128_short",
+@pytest.mark.parametrize("case", ["d48", "d16", "misaligned", "short", "d128_short",
                                   "d96_short"])
 def test_tf32_other_f32_calls_keep_the_fma_kernel_on_card(cuda_device, case):
-    """f32 calls outside the predicate (head dim 112 or 16, an input off 16
+    """f32 calls outside the predicate (head dim 48 or 16, an input off 16
     bytes, S below 256, at head dim 64, 96 and 128) stay on the FMA kernel,
     counted as ``flash_attention_f32``, within 1e-4."""
-    d = {"d112": 112, "d16": 16, "d128_short": 128, "d96_short": 96}.get(case, 64)
+    d = {"d48": 48, "d16": 16, "d128_short": 128, "d96_short": 96}.get(case, 64)
     s, valid = (255, 200) if case.endswith("short") else (700, 650)
     g = torch.Generator(device=cuda_device).manual_seed(d)
     q, k, v = (torch.randn(2, s, d, generator=g, device=cuda_device) for _ in range(3))
