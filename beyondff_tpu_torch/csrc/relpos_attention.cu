@@ -34,10 +34,12 @@
 // bff_relpos_wide_tf32_takes accepts to
 // csrc/relpos_attention_wide_tf32.cu (K5's windows at those head dims
 // too); f32 calls that
-// bff_relpos_tf32_takes accepts (K4 at head dim 64, 80 or 96 with kw = 64
-// or kw a multiple of 8 from 8 to 56, K5 at 80 on 14 x 14 windows) to the
-// 3xTF32 wgmma kernels of csrc/relpos_attention_tf32.cu; the rest to the
-// kernels below (flash_relpos_kernels).
+// bff_relpos_tf32_takes accepts (K4 at head dim 64, 80 or 96 on grids of
+// any height up to 64 wide, K5 at 80 on 14 x 14 windows) or
+// bff_relpos_tf32_streamed_takes accepts (K4 there on grids wider than 64)
+// to the 3xTF32 wgmma kernels of csrc/relpos_attention_tf32.cu, K5's
+// windows past 256 tokens to its K4 kernel too (flash_relpos_f32_routes);
+// the rest to the kernels below (flash_relpos_kernels).
 //
 // Every shape the JAX functions take runs here: head dims past 128 outside
 // the wide routes above on a third grid axis over the ceil(D / 128) slices
@@ -695,11 +697,16 @@ extern "C" int bff_flash_relpos_wgmma(const void* q, const void* k, const void* 
 extern "C" int bff_window_relpos_wgmma(const void* q, const void* k, const void* v,
                                        const void* bias_h, const void* bias_w, void* o, int G,
                                        float scale, void* stream);
-// csrc/relpos_attention_tf32.cu: the f32 calls of K4 at head dim 64 or 80 and of
-// K5 at 80 on 3xTF32 wgmma
+// csrc/relpos_attention_tf32.cu: the f32 calls of K4 at head dims 64, 80 and 96
+// (grids up to 64 wide, and past 64 in the streamed mode) and of K5 at 80 on
+// 3xTF32 wgmma
 extern "C" int bff_relpos_tf32_takes(int kind, int dtype, int D, int S, int rows, int cols,
                                      float scale, const void* q, const void* k, const void* v,
                                      const void* o, const void* bias_h, const void* bias_w);
+extern "C" int bff_relpos_tf32_streamed_takes(int kind, int dtype, int D, int S, int rows,
+                                              int cols, float scale, const void* q,
+                                              const void* k, const void* v, const void* o,
+                                              const void* bias_h, const void* bias_w);
 extern "C" int bff_flash_relpos_tf32(const void* q, const void* k, const void* v,
                                      const void* bias_h, const void* bias_w, void* o,
                                      void* scratch, int BH, int S, int D, int kh, int kw,
@@ -762,6 +769,20 @@ int flash_relpos_kernels(int dtype, const void* q, const void* k, const void* v,
   return dispatch_flash<__nv_bfloat16>(q, k, v, bh, bw, o, BH, S, D, kh, kw, scale, s);
 }
 
+// K4's 3xTF32 kernel (f32 at head dims 64, 80 and 96: grids up to 64 wide
+// where bff_relpos_tf32_takes says so, wider ones in its streamed mode where
+// bff_relpos_tf32_streamed_takes does), else flash_relpos_kernels. K5's
+// windows past 256 tokens come here too, G windows as BH.
+int flash_relpos_f32_routes(int dtype, const void* q, const void* k, const void* v,
+                            const void* bh, const void* bw, void* o, int BH, int S, int D,
+                            int kh, int kw, float scale, void* stream, void* scratch) {
+  if (bff_relpos_tf32_takes(0, dtype, D, S, kh, kw, scale, q, k, v, o, bh, bw) ||
+      bff_relpos_tf32_streamed_takes(0, dtype, D, S, kh, kw, scale, q, k, v, o, bh, bw))
+    return bff_flash_relpos_tf32(q, k, v, bh, bw, o, scratch, BH, S, D, kh, kw, scale, stream);
+  return flash_relpos_kernels(dtype, q, k, v, bh, bw, o, BH, S, D, kh, kw, scale,
+                              static_cast<cudaStream_t>(stream));
+}
+
 }  // namespace
 
 // The streamed route's predicate (kernels/flash_attention.py
@@ -786,8 +807,8 @@ extern "C" int bff_relpos_streamed_takes(int kind, int dtype, int D, int S, int 
 // dtype: 0 = float32, 1 = bfloat16. q, k, v, o: contiguous (BH, S, D) with
 // S = kh * kw, any D and any grid; bias_h: (BH, S, kh), bias_w: (BH, S, kw),
 // in q's dtype; scratch: what the 3xTF32 kernel needs where
-// bff_relpos_tf32_takes the call (bff_relpos_tf32_scratch_floats floats),
-// else unread.
+// bff_relpos_tf32_takes or bff_relpos_tf32_streamed_takes the call
+// (bff_relpos_tf32_scratch_floats floats), else unread.
 // Returns cudaGetLastError() after the launch, or -1 for arguments the
 // kernel does not take.
 extern "C" int bff_flash_attention_relpos(int dtype, const void* q, const void* k, const void* v,
@@ -797,23 +818,23 @@ extern "C" int bff_flash_attention_relpos(int dtype, const void* q, const void* 
   if (BH < 1 || S < 1 || D < 1 || kh < 1 || kw < 1 || (long long)kh * kw != S) return -1;
   if (bff_relpos_wgmma_takes(0, dtype, D, S, kh, kw, scale, q, k, v, o, bias_h, bias_w))
     return bff_flash_relpos_wgmma(q, k, v, bias_h, bias_w, o, BH, S, kh, scale, stream);
-  if (bff_relpos_tf32_takes(0, dtype, D, S, kh, kw, scale, q, k, v, o, bias_h, bias_w))
-    return bff_flash_relpos_tf32(q, k, v, bias_h, bias_w, o, scratch, BH, S, D, kh, kw,
-                                 scale, stream);
-  return flash_relpos_kernels(dtype, q, k, v, bias_h, bias_w, o, BH, S, D, kh, kw, scale,
-                              static_cast<cudaStream_t>(stream));
+  return flash_relpos_f32_routes(dtype, q, k, v, bias_h, bias_w, o, BH, S, D, kh, kw, scale,
+                                 stream, scratch);
 }
 
 // dtype as above. q, k, v, o: contiguous (G, S, D) with S = wh * ww;
-// bias_h: (G, S, wh), bias_w: (G, S, ww), in q's dtype.
+// bias_h: (G, S, wh), bias_w: (G, S, ww), in q's dtype; scratch: as
+// bff_flash_attention_relpos's for its windows past 256 tokens (K4's
+// kernels, G windows as BH), else unread.
 extern "C" int bff_window_attention_relpos(int dtype, const void* q, const void* k,
                                            const void* v, const void* bias_h,
                                            const void* bias_w, void* o, int G, int S, int D,
-                                           int wh, int ww, float scale, void* stream) {
+                                           int wh, int ww, float scale, void* stream,
+                                           void* scratch) {
   if (G < 1 || S < 1 || D < 1 || wh < 1 || ww < 1 || (long long)wh * ww != S) return -1;
   if (S > kMaxWindow || D > kSliceD)
-    return flash_relpos_kernels(dtype, q, k, v, bias_h, bias_w, o, G, S, D, wh, ww, scale,
-                                static_cast<cudaStream_t>(stream));
+    return flash_relpos_f32_routes(dtype, q, k, v, bias_h, bias_w, o, G, S, D, wh, ww, scale,
+                                   stream, scratch);
   if (bff_relpos_wgmma_takes(1, dtype, D, S, wh, ww, scale, q, k, v, o, bias_h, bias_w))
     return bff_window_relpos_wgmma(q, k, v, bias_h, bias_w, o, G, scale, stream);
   if (bff_relpos_tf32_takes(1, dtype, D, S, wh, ww, scale, q, k, v, o, bias_h, bias_w))

@@ -20,15 +20,22 @@
 // added in f32. bff_flash_attention_relpos and bff_window_attention_relpos
 // (csrc/relpos_attention.cu) route here exactly the calls that
 // bff_relpos_tf32_takes accepts (kernels/flash_attention.py
-// relpos_tf32_route mirrors it): f32, kMinGridH <= kh <= 64 with kw = 64,
-// kw a multiple of 8 from kMinGridW = 8 to 56 (the narrow mode below) or
-// any other kw from kMinStraddleW to 63 (the straddling mode), at D 64, 80
-// or 96 (K4), or a 14 x 14 window at D 80 (K5), a positive finite
-// scale, and q, k, v, o and both factors 16-byte aligned. Every other f32
-// call keeps the FMA kernels of csrc/relpos_attention.cu. The line lies
-// below every grid K4 takes: at one grid row (16 heads, S = 64) this kernel took 0.0101 ms
+// relpos_tf32_route mirrors it): f32, any kh >= kMinGridH with kw = 64, kw a
+// multiple of 8 from kMinGridW = 8 to 56 (the narrow mode below) or any
+// other kw from kMinStraddleW to 63 (the straddling mode), at D 64, 80 or
+// 96 (K4; K5's windows past 256 tokens too, G windows as BH), or a 14 x 14
+// window at D 80 (K5), a positive finite scale, and q, k, v, o and both
+// factors 16-byte aligned; and those that bff_relpos_tf32_streamed_takes
+// accepts (relpos_tf32_streamed_route): K4 at D 64, 80 or 96 on grids wider
+// than 64, any kh (the streamed mode). Every other f32 call keeps the FMA
+// kernels of csrc/relpos_attention.cu. The line lies below every grid K4
+// takes: at one grid row (16 heads, S = 64) this kernel took 0.0101 ms
 // against the FMA kernel's 0.0211, at 2, 4 and 8 rows 2.5-3.5x less
 // (tools/kernel_variants.py --cases "relpos_f32 small"), so kMinGridH is 1.
+// No mode ties the grid's height to 64: bias_h is read from device memory
+// by grid row, never tabled, and tile counts and offsets are ints of S (row
+// offsets 64-bit), so taller grids, past kh + kw = 256 too, take the same
+// kernels.
 //
 // Precision. As in csrc/flash_attention_tf32.cu: each f32 operand x is split
 // into TF32 words hi = rna(x), lo = rna(x - hi) (cvt.rna.tf32.f32) and each
@@ -141,6 +148,41 @@
 //   where a warp's 32 reads meet at most two to a bank (at the stride kw up
 //   to four); at D 96 its widest rows (67 floats) grow the table's room from
 //   64 floats a row, which still fits.
+// * Grids wider than 64 (the streamed mode, flash_relpos_tf32_kernel<D,
+//   kStreamMode>: SAM past a 1024-pixel side, 1 x 300 or 2 x 255 past kh +
+//   kw = 256). A block's 128 rows of bias_w no longer fit beside Q's images
+//   and the stages (128 x 255 floats are 130 KB), so the table goes: a
+//   64-key tile lies in at most two grid rows (kw > 64) and its bias_w
+//   columns are one run of 64 from (64 t) % kw that wraps at most once.
+//   The producer warpgroup's three idle warps copy that run for the block's
+//   128 rows into a slot of the tile's K stage (128 x 64 floats, 32 KB, in
+//   the table's room; two at D 64's two K stages, which grow it) by 4-byte
+//   cp.async, a row's 32 columns a copy step (the factors need no alignment
+//   past 4 bytes, and a run starts at any column), and arrive on the
+//   stage's full barrier when their copies are in
+//   (cp.async.mbarrier.arrive.noinc): the stage is full with its K images
+//   and its slot, and the consumers' release of it after their products
+//   releases the slot too, so the slot adds no barrier and no wait to
+//   either consumer. The slot's 8-column groups are swizzled by row (group
+//   g of row r at g ^ (r % 8)): a quad's 8-byte reads of 8 rows fill each
+//   bank twice. bias_h is two reads a row a tile (grid rows ky and ky + 1).
+//   The tiles, stages, pingpong and fold are the narrow mode's, and as in
+//   the straddling mode the products are summed from zero and each score's
+//   whole bias added in f32 once they are in, read while the products run.
+//   Each tile's P V is added to the output as soon as it is in (FoldFirst:
+//   the same sums in the same order), so its 40 registers are not live
+//   beside the scores and the bias. The other plan, each score reading its
+//   bias_w from device memory (kBwStreamed false), is
+//   tools/kernel_variants.py's k4_tf32_bw_from_l2: on an H100 at 700 W (one
+//   process, CUDA events) 5.877 ms at (16, 8192, 80) on 64 x 128 against
+//   the slot's 5.323, 2.292 against 2.140 on 72 x 72, 7.954 against 7.377
+//   at (4, 18 496, 80) on 136 x 136, 2.799 against 2.412 at head dim 96,
+//   level at 2 x 255 and 1 x 300 (0.0372 / 0.0378, 0.0275 / 0.0274); it
+//   spills 496 bytes at head dim 80. A first slot, copied by each consumer
+//   warp for its own rows between the products' issue and their wait,
+//   spilled 560 bytes and lost to both (6.527 at 64 x 128). ptxas: the
+//   streamed mode spills 0, 120 and 132 bytes at head dims 64, 80 and 96
+//   (168 registers).
 // * Head dim 64 (K4Cfg<64>): images of 16 KB a 64-key tile, 8 regions a
 //   row. Q 64 KB, two K stages and one V stage 96 KB and the table 36 KB:
 //   196 KB. Two V stages as well fit only with the table at 64 floats a
@@ -243,9 +285,8 @@ constexpr bool kFold = true;          // each tile's P V summed apart, then adde
 constexpr float kL2e = bff_tc::kLog2e;
 
 // K4
-constexpr int kGridW = 64;            // the key grid's width (kw) K4 takes
-constexpr int kMaxGridH = 64;         // and its largest height (kh)
-constexpr int kMinGridH = 1;          // and its smallest
+constexpr int kGridW = 64;            // the key grid's width (kw) of the wide mode
+constexpr int kMinGridH = 1;          // the smallest grid height (kh) K4 takes; any larger one
 constexpr int kBN = 64;               // keys of a K4 tile: one grid row
 constexpr bool kOverlap = false;      // issue Q K^T of tile t before P V of tile t - 1
 constexpr int kKStages = 1, kVStages = 1;
@@ -253,8 +294,14 @@ constexpr int kBwLd = kGridW + 8;     // the bias_w table's row stride (floats)
 constexpr int kMinGridW = 8;          // the narrow mode's smallest kw (a multiple of 8)
 constexpr int kMinStraddleW = 1;      // the straddling mode's smallest kw (not a multiple of 8)
 // the modes of flash_relpos_tf32_kernel: kw = 64, kw < 64 a multiple of 8
-// (an n8 group of keys in one grid row), any other kw < 64 (groups straddle rows)
-enum K4Mode { kWideMode, kNarrowMode, kStraddleMode };
+// (an n8 group of keys in one grid row), any other kw < 64 (groups straddle
+// rows), kw > 64 (bias_w streamed a tile at a time: no block-wide table)
+enum K4Mode { kWideMode, kNarrowMode, kStraddleMode, kStreamMode };
+// the streamed mode: the producer warpgroup's other three warps copy each
+// tile's bias_w run into a shared-memory slot of its K stage by 4-byte
+// cp.async (false: each score reads its bias_w from device memory)
+constexpr bool kBwStreamed = true;
+constexpr int kFillThreads = 96;      // the slot's copiers: producer warps 1-3
 // K4 at head dim 64 (K4Cfg): the K and V rings' depths
 constexpr int kKStages64 = 2, kVStages64 = 1;
 // K4 at head dim 96 (K4Cfg): each tile's P V summed apart in kFoldParts96
@@ -408,14 +455,16 @@ struct Ring {
 // units: the tensor cores' f32 sums then span 3 KS products, not the row's
 // every key. Parts > 1 splits that sum into column parts of D / Parts (its
 // registers), each issued, waited for and added in turn (a whole tile's sum
-// is added after the next tile's softmax). With BiasAfter init writes the initial
+// is added after the next tile's softmax; with FoldFirst as soon as it is in,
+// the same sums in the same order, so that the scores' and the bias's
+// registers are not live beside it). With BiasAfter init writes the initial
 // values into registers of their own while the products run, the products
 // are summed from zero and those values added in f32 once they are in.
 // Every round of issues is one pingpong turn: consumer 1 hands consumer 0
 // the first turn before the first pass, consumer 0 takes the surplus one
 // after the last.
 template <int N, int KStages, int VStages, bool Overlap, int D, int G, bool Fold, int Parts,
-          bool BiasAfter, typename Init>
+          bool BiasAfter, bool FoldFirst = false, typename Init>
 __device__ __forceinline__ void attend_rows(float (&acc)[D / 2], float (&l)[2], uint32_t qhi,
                                             uint32_t qlo, const Ring& ring, int u0, int n_tiles,
                                             int wg, Init&& init) {
@@ -424,6 +473,8 @@ __device__ __forceinline__ void attend_rows(float (&acc)[D / 2], float (&l)[2], 
   constexpr int R = D / 2 / Parts;  // the registers of one part of a tile's P V
   static_assert(Parts == 1 || (Fold && !Overlap), "parts of a fold, each tile's products in turn");
   static_assert(!(BiasAfter && Overlap), "the bias after the products, each tile's in turn");
+  static_assert(!FoldFirst || (Fold && !Overlap), "a fold, each tile's products in turn");
+  constexpr bool kFoldNow = Parts > 1 || FoldFirst;  // each part as soon as it is in
   Barriers* bars = ring.bars;
   const bool signals = (threadIdx.x & 31) == 0;  // one arrival per consumer warp
   const int my_turn = 1 + wg, next_turn = 1 + (wg + 1) % kConsumers;
@@ -533,12 +584,12 @@ __device__ __forceinline__ void attend_rows(float (&acc)[D / 2], float (&l)[2], 
         fence_pv();
         fence_regs(ph);
         fence_regs(pl);
-        if (Parts > 1) fold(part);
+        if (kFoldNow) fold(part);
       }
       if (signals) bar_arrive(&bars->v_empty[pst]);
       scores(t, st, parity);
     }
-    if (Parts == 1) fold(0);
+    if (!kFoldNow) fold(0);
     rescale<D>(acc, corr);
     split_p<KS>(ph, pl, s);
   }
@@ -654,6 +705,13 @@ struct K4Cfg {
   static constexpr int kBarOff = kBwOff + kBM * kBwRoom * 4;
   static constexpr int kSmemBytes = kBarOff + (int)sizeof(Barriers) + 1024;
   static_assert(kSmemBytes <= 232448, "K4's shared memory");
+  // the streamed mode: a bias_w slot (128 rows x 64 floats) a K stage in
+  // the table's room, grown where two K stages need more (D 64)
+  static constexpr int kSlotFloats = kBM * kGridW;
+  static constexpr int kStreamBarOff =
+      kBwOff + std::max(kBM * kBwRoom, kKStages * kSlotFloats) * 4;
+  static constexpr int kStreamSmemBytes = kStreamBarOff + (int)sizeof(Barriers) + 1024;
+  static_assert(kStreamSmemBytes <= 232448, "K4's shared memory, the streamed mode");
   static_assert(kKStages <= 2 && kVStages <= 2, "the barriers' stages");
   static_assert(narrow_ld(kGridW - 8) <= kBwRoom, "the narrow mode's table");
 };
@@ -712,7 +770,9 @@ __global__ void __launch_bounds__(kSplitThreads) split_kv_relpos_kernel(
 
 // kMode: kWideMode, kw = 64 and kh = S / 64 tiles of one grid row each;
 // kNarrowMode, a grid of kw < 64 columns, kw a multiple of 8; kStraddleMode,
-// any other kw < 64 (its n8 groups of keys straddle grid rows).
+// any other kw < 64 (its n8 groups of keys straddle grid rows);
+// kStreamMode, kw > 64 (a tile's bias_w columns one run of 64 from (64 t) %
+// kw, wrapping at most once; the tile in at most two grid rows).
 template <int D, int kMode>
 __global__ void __launch_bounds__(kThreads, 1) flash_relpos_tf32_kernel(
     const float* __restrict__ q, const float* __restrict__ scratch,
@@ -721,14 +781,15 @@ __global__ void __launch_bounds__(kThreads, 1) flash_relpos_tf32_kernel(
   using C = K4Cfg<D>;
   constexpr bool kNarrow = kMode != kWideMode;  // 64-key tiles across grid rows
   constexpr bool kStraddle = kMode == kStraddleMode;
-  // the straddling mode adds the whole bias once the products are in
-  constexpr bool kBiasAfter = C::kBiasAfter || kStraddle;
+  constexpr bool kStream = kMode == kStreamMode;
+  // the straddling and streamed modes add the whole bias once the products are in
+  constexpr bool kBiasAfter = C::kBiasAfter || kStraddle || kStream;
   constexpr bool kOverlapped = C::kOverlapped && !kBiasAfter;
   constexpr int kImg = C::kImg;
   extern __shared__ __align__(1024) unsigned char rt_smem_raw[];
   unsigned char* smem = rt_smem_raw + ((1024 - (smem_u32(rt_smem_raw) & 1023)) & 1023);
   float* sBw = reinterpret_cast<float*>(smem + C::kBwOff);
-  Barriers* bars = reinterpret_cast<Barriers*>(smem + C::kBarOff);
+  Barriers* bars = reinterpret_cast<Barriers*>(smem + (kStream ? C::kStreamBarOff : C::kBarOff));
   const int bh = blockIdx.y;
   const int q0 = blockIdx.x * kBM;
   const int cols = kNarrow ? kw : kGridW;                  // bias_w's columns
@@ -738,7 +799,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_relpos_tf32_kernel(
   const int n_tiles = kNarrow ? (S + kBN - 1) / kBN : kh;
 
   // the block's rows of bias_w (zero past S); an odd or unaligned width's
-  // rows float by float
+  // rows float by float; none in the streamed mode
   const float* bwg = bias_w + (long long)bh * S * cols;
   if (kStraddle) {
     for (int i = threadIdx.x; i < kBM * cols; i += kThreads) {
@@ -746,7 +807,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_relpos_tf32_kernel(
       sBw[r * ld + c] = q0 + r < S ? __ldg(bwg + (long long)(q0 + r) * cols + c) : 0.f;
     }
   }
-  for (int i = threadIdx.x; i < (kStraddle ? 0 : kBM * cols / 4); i += kThreads) {
+  for (int i = threadIdx.x; i < (kStraddle || kStream ? 0 : kBM * cols / 4); i += kThreads) {
     const int r = i / (cols / 4), c = 4 * (i % (cols / 4));
     float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
     if (q0 + r < S)
@@ -757,7 +818,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_relpos_tf32_kernel(
   if (threadIdx.x == 0) {
 #pragma unroll
     for (int st = 0; st < 2; ++st) {
-      bar_init(&bars->k_full[st], 1);
+      // the streamed mode's K stage is full once its slot's copies are in too
+      bar_init(&bars->k_full[st], 1 + (kStream && kBwStreamed ? kFillThreads : 0));
       bar_init(&bars->v_full[st], 1);
       bar_init(&bars->k_empty[st], kConsumerWarps);
       bar_init(&bars->v_empty[st], kConsumerWarps);
@@ -768,6 +830,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_relpos_tf32_kernel(
 
   const int wg = threadIdx.x / 128;
   const long long tile_bytes = 4LL * kImg;
+  const int lane = threadIdx.x & 31;
   if (wg == kConsumers) {
     // ---------------------------------------------------------- producer
     if (threadIdx.x == 128 * kConsumers) {
@@ -785,10 +848,40 @@ __global__ void __launch_bounds__(kThreads, 1) flash_relpos_tf32_kernel(
         bulk_load(smem + C::kVOff + vst * 2 * kImg, src + t * tile_bytes + 2 * kImg, 2 * kImg,
                   &bars->v_full[vst]);
       }
+    } else if (kStream && kBwStreamed && threadIdx.x >= 128 * kConsumers + 32) {
+      // the streamed mode's slot of tile t's K stage: row r's run of 64
+      // bias_w columns from (64 t) % kw (wrapping at most once, kw > 64),
+      // column c at r * 64 + ((c / 8) ^ (r % 8)) * 8 + c % 8, zero past S;
+      // warp w of the three copies rows w, w + 3, ..., a row's 32 columns a
+      // copy step, and each thread's arrival on the K stage's full barrier
+      // comes when its copies are in
+      const int fw = (threadIdx.x - 128 * kConsumers) / 32 - 1;
+      const float* bw_block = bias_w + ((long long)bh * S + q0) * kw;
+      for (int t = 0; t < n_tiles; ++t) {
+        const int kst = t % C::kKStages, kparity = ((t / C::kKStages) & 1) ^ 1;
+        bar_wait_or_trap(&bars->k_empty[kst], kparity);
+        int x0 = t * kBN % kw + lane, x1 = x0 + 32;
+        x0 = x0 >= kw ? x0 - kw : x0;
+        x1 = x1 >= kw ? x1 - kw : x1;
+        float* slot = sBw + kst * C::kSlotFloats + (lane & 7);
+#pragma unroll 4
+        for (int r = fw; r < kBM; r += 3) {
+          const bool live = q0 + r < S;
+          const float* src = bw_block + (long long)r * kw;
+          bff_tc::cp_async4(slot + r * kGridW + (((lane >> 3) ^ (r & 7)) << 3),
+                            live ? src + x0 : bias_w, live ? 4 : 0);
+          bff_tc::cp_async4(slot + r * kGridW + ((((lane >> 3) + 4) ^ (r & 7)) << 3),
+                            live ? src + x1 : bias_w, live ? 4 : 0);
+        }
+        asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                         smem_u32(&bars->k_full[kst]))
+                     : "memory");
+      }
+      bff_tc::cp_async_wait<0>();
     }
   } else {
     // ---------------------------------------------------------- consumers
-    const int lane = threadIdx.x & 31, tq = lane & 3;
+    const int tq = lane & 3;
     const int rb = wg * 64 + ((threadIdx.x / 32) & 3) * 16 + lane / 4;  // and rb + 8
     unsigned char* q_hi = smem + C::kQOff + 2 * wg * kImg;
     unsigned char* q_lo = q_hi + kImg;
@@ -882,9 +975,69 @@ __global__ void __launch_bounds__(kThreads, 1) flash_relpos_tf32_kernel(
         }
       }
     };
+    // the streamed mode's tile t: as the straddling mode's, each score's
+    // whole bias added once the products are in, no row shift; the tile's
+    // keys lie in grid rows ky and ky + 1 (columns from ``split`` on in the
+    // second), so bias_h is two reads a row, and bias_w comes from the slot
+    // of the tile's K stage (kBwStreamed: in by the time the stage is full,
+    // released with it once the products are in, so no barrier of its own),
+    // a quad's 8-byte pairs of 8 rows filling each bank twice; or, without
+    // it, each score's from device memory. Straight-line: a branch between
+    // the products' issue and their wait would serialize every wgmma (C7520).
+    const float* bw_dev[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      bw_dev[h] = q0 + rb + 8 * h < S ? bias_w + ((long long)bh * S + q0 + rb + 8 * h) * kw
+                                      : nullptr;
+    auto init_stream = [&](int t, float (&s)[kBN / 2], float (&sh)[2][1]) {
+      sh[0][0] = sh[1][0] = 0.f;
+      const int key0 = t * kBN, ky = key0 / kw, kx0 = key0 - ky * kw;
+      const int split = kw - kx0;  // the tile's columns from here on lie in grid row ky + 1
+      float h0[2], h1[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        h0[h] = bh_row[h] != nullptr ? __ldg(bh_row[h] + ky) : 0.f;
+        h1[h] = bh_row[h] != nullptr && split < kBN && ky + 1 < kh ? __ldg(bh_row[h] + ky + 1)
+                                                                 : 0.f;
+      }
+      const float* slot = sBw + (t % C::kKStages) * C::kSlotFloats + rb * kGridW + 2 * tq;
+#pragma unroll
+      for (int j = 0; j < kBN / 8; ++j) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float w[2];
+          if constexpr (kBwStreamed) {
+            const float2 p = *reinterpret_cast<const float2*>(
+                slot + 8 * h * kGridW + ((j ^ (lane / 4)) << 3));
+            w[0] = p.x;
+            w[1] = p.y;
+          } else {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int c = 8 * j + 2 * tq + e;
+              const int x = kx0 + c >= kw ? kx0 + c - kw : kx0 + c;
+              w[e] = bw_dev[h] != nullptr && key0 + c < S ? __ldg(bw_dev[h] + x) : 0.f;
+            }
+          }
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int c = 8 * j + 2 * tq + e;
+            s[4 * j + 2 * h + e] =
+                key0 + c < S ? (c < split ? h0[h] : h1[h]) + w[e] : bff_tc::masked_score();
+          }
+        }
+      }
+      // every lane's slot reads before the warp's lane 0 releases the K
+      // stage (and so the slot) once the products are in
+      if constexpr (kBwStreamed) __syncwarp();
+    };
     const Ring ring{bars, smem_u32(smem + C::kKOff), smem_u32(smem + C::kVOff)};
     float acc[D / 2], l[2];
-    if constexpr (kStraddle)
+    if constexpr (kStream)
+      attend_rows<kBN, C::kKStages, C::kVStages, kOverlapped, D, 1, C::kFold, C::kFoldParts,
+                  kBiasAfter, true>(acc, l, smem_u32(q_hi), smem_u32(q_lo), ring, 0, n_tiles,
+                                    wg, init_stream);
+    else if constexpr (kStraddle)
       attend_rows<kBN, C::kKStages, C::kVStages, kOverlapped, D, 1, C::kFold, C::kFoldParts,
                   kBiasAfter>(acc, l, smem_u32(q_hi), smem_u32(q_lo), ring, 0, n_tiles, wg,
                               init_straddle);
@@ -906,11 +1059,11 @@ template <int D, int kMode>
 int launch_k4(const void* q, const void* k, const void* v, const void* bias_h,
               const void* bias_w, void* o, void* scratch, int BH, int S, int kh, int kw,
               float scale, cudaStream_t s) {
+  constexpr int kSmem = kMode == kStreamMode ? K4Cfg<D>::kStreamSmemBytes : K4Cfg<D>::kSmemBytes;
   static bool configured = false;
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_relpos_tf32_kernel<D, kMode>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        K4Cfg<D>::kSmemBytes);
+        flash_relpos_tf32_kernel<D, kMode>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
     if (err != cudaSuccess) return (int)err;
     configured = true;
   }
@@ -920,8 +1073,7 @@ int launch_k4(const void* q, const void* k, const void* v, const void* bias_h,
       S);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  flash_relpos_tf32_kernel<D, kMode><<<dim3((S + kBM - 1) / kBM, BH), kThreads,
-                                         K4Cfg<D>::kSmemBytes, s>>>(
+  flash_relpos_tf32_kernel<D, kMode><<<dim3((S + kBM - 1) / kBM, BH), kThreads, kSmem, s>>>(
       static_cast<const float*>(q), static_cast<const float*>(scratch),
       static_cast<const float*>(bias_h), static_cast<const float*>(bias_w),
       static_cast<float*>(o), S, kh, kw, scale);
@@ -1106,9 +1258,12 @@ bool aligned(const void* q, const void* k, const void* v, const void* o, const v
 // The routing predicate (kernels/flash_attention.py relpos_tf32_route
 // mirrors it): 1 when bff_flash_attention_relpos (kind 0, K4; rows x cols =
 // kh x kw) or bff_window_attention_relpos (kind 1, K5; wh x ww) takes the
-// 3xTF32 kernel for the call: K4 at head dim 64, 80 or 96 on grids of kw =
-// 64, of kw a multiple of 8 in [kMinGridW, 64) (the narrow mode) or of any
-// other kw in [kMinStraddleW, 64) (the straddling mode), K5 at 80.
+// 3xTF32 kernel for the call: K4 at head dim 64, 80 or 96 on grids of any
+// height from kMinGridH with kw = 64, kw a multiple of 8 in [kMinGridW, 64)
+// (the narrow mode) or any other kw in [kMinStraddleW, 64) (the
+// straddling mode), K5 at 80. (bff_window_attention_relpos also asks with
+// kind 0 for its windows past 256 tokens, G windows as BH.) Grids wider
+// than 64 are bff_relpos_tf32_streamed_takes's.
 // dtype: 0 = float32, 1 = bfloat16.
 extern "C" int bff_relpos_tf32_takes(int kind, int dtype, int D, int S, int rows, int cols,
                                      float scale, const void* q, const void* k, const void* v,
@@ -1116,38 +1271,56 @@ extern "C" int bff_relpos_tf32_takes(int kind, int dtype, int D, int S, int rows
   const bool width =
       cols == kGridW ||
       (cols < kGridW && (cols % 8 == 0 ? cols >= kMinGridW : cols >= kMinStraddleW));
-  const bool shape = kind == 0   ? width && rows >= kMinGridH && rows <= kMaxGridH &&
-                                     S == rows * cols && (D == 64 || D == kD || D == 96)
+  const bool shape = kind == 0   ? width && rows >= kMinGridH && (long long)rows * cols == S &&
+                                     (D == 64 || D == kD || D == 96)
                      : kind == 1 ? rows == kWin && cols == kWin && S == kWinS && D == kD
                                  : false;
   return shape && dtype == 0 && scale > 0.f && scale <= FLT_MAX &&
          aligned(q, k, v, o, bias_h, bias_w);
 }
 
-// The scratch a K4 call at head dim D needs, in floats: each 64-key tile's
-// K hi, K lo, V^T hi and V^T lo images, 4 BH Sp D with Sp = S rounded up to
-// 64 keys (S itself at kw = 64).
+// The streamed mode's predicate (kernels/flash_attention.py
+// relpos_tf32_streamed_route mirrors it): 1 when K4's kernels (kind 0, a
+// rows x cols = kh x kw grid; bff_window_attention_relpos asks so for its
+// windows past 256 tokens) take the 3xTF32 kernel in the streamed mode: f32
+// at head dim 64, 80 or 96, any kh >= 1 and kw past 64, a positive finite
+// scale and every pointer on 16 bytes. The entry is bff_flash_relpos_tf32.
+extern "C" int bff_relpos_tf32_streamed_takes(int kind, int dtype, int D, int S, int rows,
+                                              int cols, float scale, const void* q,
+                                              const void* k, const void* v, const void* o,
+                                              const void* bias_h, const void* bias_w) {
+  const bool shape = kind == 0 && rows >= 1 && cols > kGridW && (long long)rows * cols == S &&
+                     (D == 64 || D == kD || D == 96);
+  return shape && dtype == 0 && scale > 0.f && scale <= FLT_MAX &&
+         aligned(q, k, v, o, bias_h, bias_w);
+}
+
+// The scratch a K4 call at head dim D needs (every mode), in floats: each
+// 64-key tile's K hi, K lo, V^T hi and V^T lo images, 4 BH Sp D with Sp = S
+// rounded up to 64 keys (S itself at kw = 64).
 extern "C" long long bff_relpos_tf32_scratch_floats(int BH, int S, int D) {
   return 4LL * BH * ((S + kBN - 1) / kBN * kBN) * D;
 }
 
-// K4. q, k, v, o: contiguous (BH, S, D) f32 with S = kh * kw and D 64 or
-// 80; bias_h (BH, S, kh), bias_w (BH, S, kw) f32; scratch: 16-byte aligned,
-// at least bff_relpos_tf32_scratch_floats floats, on the same stream.
-// Returns cudaGetLastError() after the launches, -1 for arguments outside
-// the predicate or no scratch.
+// K4, every mode. q, k, v, o: contiguous (BH, S, D) f32 with S = kh * kw
+// and D 64, 80 or 96; bias_h (BH, S, kh), bias_w (BH, S, kw) f32; scratch:
+// 16-byte aligned, at least bff_relpos_tf32_scratch_floats floats, on the
+// same stream. Returns cudaGetLastError() after the launches, -1 for
+// arguments outside both predicates or no scratch.
 extern "C" int bff_flash_relpos_tf32(const void* q, const void* k, const void* v,
                                      const void* bias_h, const void* bias_w, void* o,
                                      void* scratch, int BH, int S, int D, int kh, int kw,
                                      float scale, void* stream) {
   if (BH < 1 || scratch == nullptr || !aligned16(scratch) ||
-      !bff_relpos_tf32_takes(0, 0, D, S, kh, kw, scale, q, k, v, o, bias_h, bias_w))
+      !(bff_relpos_tf32_takes(0, 0, D, S, kh, kw, scale, q, k, v, o, bias_h, bias_w) ||
+        bff_relpos_tf32_streamed_takes(0, 0, D, S, kh, kw, scale, q, k, v, o, bias_h, bias_w)))
     return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define BFF_K4(DIM, MODE) \
   launch_k4<DIM, MODE>(q, k, v, bias_h, bias_w, o, scratch, BH, S, kh, kw, scale, s)
 #define BFF_K4_DIMS(MODE) \
   (D == 64 ? BFF_K4(64, MODE) : D == 96 ? BFF_K4(96, MODE) : BFF_K4(kD, MODE))
+  if (kw > kGridW) return BFF_K4_DIMS(kStreamMode);
   if (kw == kGridW) return BFF_K4_DIMS(kWideMode);
   if (kw % 8 == 0) return BFF_K4_DIMS(kNarrowMode);
   return BFF_K4_DIMS(kStraddleMode);

@@ -106,6 +106,8 @@ def library() -> ctypes.CDLL:
     lib.bff_relpos_wgmma_takes.restype = i
     lib.bff_relpos_tf32_takes.argtypes = [i, i, i, i, i, i, f, p, p, p, p, p, p]
     lib.bff_relpos_tf32_takes.restype = i
+    lib.bff_relpos_tf32_streamed_takes.argtypes = [i, i, i, i, i, i, f, p, p, p, p, p, p]
+    lib.bff_relpos_tf32_streamed_takes.restype = i
     lib.bff_relpos_streamed_takes.argtypes = [i, i, i, i, i, i, f, p, p, p, p, p, p]
     lib.bff_relpos_streamed_takes.restype = i
     lib.bff_relpos_wide_wgmma_takes.argtypes = [i, i, i, i, i, i, f, p, p, p, p, p, p]
@@ -130,7 +132,7 @@ def library() -> ctypes.CDLL:
     lib.bff_nms_large_scratch_words.restype = ll
     lib.bff_flash_attention_relpos.argtypes = [i, p, p, p, p, p, p, i, i, i, i, i, f, p, p]
     lib.bff_flash_attention_relpos.restype = i
-    lib.bff_window_attention_relpos.argtypes = [i, p, p, p, p, p, p, i, i, i, i, i, f, p]
+    lib.bff_window_attention_relpos.argtypes = [i, p, p, p, p, p, p, i, i, i, i, i, f, p, p]
     lib.bff_window_attention_relpos.restype = i
     # the FMA kernels whatever the routes say: measurement yardsticks only
     lib.bff_flash_attention_f32_fma.argtypes = [p, p, p, p, i, i, i, i, f, p]

@@ -19,6 +19,7 @@ launch_counts: Dict[str, int] = {"flash_attention": 0, "flash_attention_f32": 0,
                                  "flash_attention_relpos": 0,
                                  "flash_attention_relpos_streamed": 0,
                                  "flash_attention_relpos_tf32": 0,
+                                 "flash_attention_relpos_tf32_streamed": 0,
                                  "flash_attention_relpos_wgmma": 0,
                                  "flash_attention_relpos_wide_tf32": 0,
                                  "flash_attention_relpos_wide_wgmma": 0,

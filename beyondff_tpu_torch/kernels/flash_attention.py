@@ -953,12 +953,13 @@ def relpos_wgmma_fragment(kind: int, warp: int, lane: int, tile: int, s: int = 1
 
 
 # csrc/relpos_attention_tf32.cu: K4's 64-key tiles (one grid row of kw =
-# 64; in the narrow and straddling modes, kw < 64, 64 keys across grid
-# rows), K5's 40-key tiles over a 14 x 14 window's 196 keys (200 with the
-# masked ones), 128-row blocks (K4) and rounds (K5) of two 64-row consumer
-# warpgroups, the smallest grid height K4 takes, the narrow mode's smallest
-# width (its widths are multiples of 8) and the straddling mode's (every
-# other width below 64)
+# 64; in the narrow and straddling modes, kw < 64, and the streamed mode,
+# kw > 64, 64 keys across grid rows), K5's 40-key tiles over a 14 x 14
+# window's 196 keys (200 with the masked ones), 128-row blocks (K4) and
+# rounds (K5) of two 64-row consumer warpgroups, the smallest grid height K4
+# takes (and any larger one), the narrow mode's smallest width (its widths
+# are multiples of 8) and the straddling mode's (every other width below
+# 64)
 RELPOS_TF32_TILE = 64
 RELPOS_TF32_WINDOW_TILE = 40
 RELPOS_TF32_BLOCK_Q = 128
@@ -981,18 +982,19 @@ def relpos_tf32_route(kind: int, dtype: int, d: int, s: int, rows: int, cols: in
     call. ``kind`` 0 is ``bff_flash_attention_relpos`` (K4, a ``rows`` x
     ``cols`` = kh x kw key grid), 1 is ``bff_window_attention_relpos`` (K5,
     wh x ww windows); dtype 0 = float32, 1 = bfloat16; ``ptrs`` the data
-    pointers of q, k, v, the output, bias_h and bias_w. Taken: f32,
-    ``RELPOS_TF32_MIN_GRID_H`` <= kh <= 64 with kw = 64, kw a multiple of 8
-    from ``RELPOS_TF32_MIN_GRID_W`` to 56 (the narrow mode) or any other kw
-    from ``RELPOS_TF32_MIN_STRADDLE_W`` to 63 (the straddling mode) at head
-    dim 64, 80 or 96 (K4), or 14 x 14 windows at head dim 80 (K5), a
-    positive finite scale (rounded to f32 as the call passes it) and every
-    pointer 16-byte aligned."""
+    pointers of q, k, v, the output, bias_h and bias_w. Taken: f32, any kh
+    from ``RELPOS_TF32_MIN_GRID_H`` with kw = 64, kw a multiple of 8 from
+    ``RELPOS_TF32_MIN_GRID_W`` to 56 (the narrow mode) or any other kw from
+    ``RELPOS_TF32_MIN_STRADDLE_W`` to 63 (the straddling mode) at head dim
+    64, 80 or 96 (K4; the window entry asks so, kind 0, for its windows past
+    256 tokens), or 14 x 14 windows at head dim 80 (K5), a positive finite
+    scale (rounded to f32 as the call passes it) and every pointer 16-byte
+    aligned. Grids wider than 64 are :func:`relpos_tf32_streamed_route`'s."""
     f32 = ctypes.c_float(scale).value
     if kind == 0:
         least = RELPOS_TF32_MIN_GRID_W if cols % 8 == 0 else RELPOS_TF32_MIN_STRADDLE_W
         width = cols == 64 or least <= cols < 64
-        shape = width and RELPOS_TF32_MIN_GRID_H <= rows <= 64 and s == rows * cols
+        shape = width and RELPOS_TF32_MIN_GRID_H <= rows and s == rows * cols
     elif kind == 1:
         shape = rows == _WIN and cols == _WIN and s == _WIN_S
     else:
@@ -1001,13 +1003,33 @@ def relpos_tf32_route(kind: int, dtype: int, d: int, s: int, rows: int, cols: in
             and all(p % 16 == 0 for p in ptrs))
 
 
+def relpos_tf32_streamed_route(kind: int, dtype: int, d: int, s: int, rows: int, cols: int,
+                               scale: float, *ptrs: int) -> bool:
+    """The mirror of ``bff_relpos_tf32_streamed_takes``: whether K4's kernels
+    (kind 0, a ``rows`` x ``cols`` = kh x kw grid; the window entry asks so
+    for its windows past 256 tokens) take ``csrc/relpos_attention_tf32.cu``'s
+    3xTF32 kernel in its streamed mode (counted as
+    ``flash_attention_relpos_tf32_streamed``): f32 at head dim 64, 80 or 96,
+    any kh >= 1 and kw past 64, a positive finite scale (rounded to f32 as
+    the call passes it) and every pointer 16-byte aligned."""
+    f32 = ctypes.c_float(scale).value
+    shape = kind == 0 and rows >= 1 and cols > 64 and s == rows * cols
+    return (shape and dtype == 0 and d in RELPOS_TF32_HEAD_DIMS[0] and 0.0 < f32 <= _FLT_MAX
+            and all(p % 16 == 0 for p in ptrs))
+
+
 def relpos_tf32_mode(kw: int) -> str:
     """The mode ``csrc/relpos_attention_tf32.cu``'s K4 kernel runs a grid
-    ``kw`` wide in (within the route): ``wide`` (kw = 64, a tile one grid
-    row), ``narrow`` (a multiple of 8: an n8 group of keys in one grid row,
-    bias_w the scores' start and bias_h the group's shift) or ``straddle``
-    (any other width: groups straddle grid rows, each score's whole bias
-    added in f32 once the products are in)."""
+    ``kw`` wide in (within the routes): ``wide`` (kw = 64, a tile one grid
+    row), ``narrow`` (a multiple of 8 below 64: an n8 group of keys in one
+    grid row, bias_w the scores' start and bias_h the group's shift),
+    ``straddle`` (any other width below 64: groups straddle grid rows, each
+    score's whole bias added in f32 once the products are in) or
+    ``streamed`` (past 64: a tile in at most two grid rows, its bias_w run of
+    64 columns staged a tile at a time, each score's whole bias added in f32
+    once the products are in)."""
+    if kw > 64:
+        return "streamed"
     return "wide" if kw == 64 else "narrow" if kw % 8 == 0 else "straddle"
 
 
@@ -1034,7 +1056,11 @@ def relpos_counter(kind: int, dtype: int, d: int, s: int, rows: int, cols: int, 
     FMA kernels) after ``flash_attention_relpos`` (kind 0) or
     ``window_attention_relpos`` (kind 1); K5's windows that
     :func:`window_on_flash` sends to K4's kernels count as
-    ``flash_attention_relpos``; past the factor table, the tile with
+    ``flash_attention_relpos``, or as K4's 3xTF32 kernel where it takes them
+    (f32 at head dims 64, 80 and 96: ``flash_attention_relpos_tf32``, and past
+    64 grid columns ``flash_attention_relpos_tf32_streamed``,
+    :func:`relpos_tf32_streamed_route`, as K4's own calls there); past the
+    factor table, the tile with
     streamed factors (:func:`relpos_streamed_route`) as
     ``flash_attention_relpos_streamed``; at head dims 144 to 256 the wide
     kernels (K5's windows there too) as ``flash_attention_relpos_wide_wgmma``
@@ -1046,13 +1072,15 @@ def relpos_counter(kind: int, dtype: int, d: int, s: int, rows: int, cols: int, 
         return "flash_attention_relpos_wide_wgmma"
     if relpos_wide_tf32_route(kind, dtype, d, s, rows, cols, scale, *ptrs):
         return "flash_attention_relpos_wide_tf32"
-    if kind == 1 and window_on_flash(s, d):  # K4's kernels
-        return "flash_attention_relpos"
-    name = "window_attention_relpos" if kind == 1 else "flash_attention_relpos"
-    if relpos_wgmma_route(kind, dtype, d, s, rows, cols, scale, *ptrs):
+    on_flash = kind == 1 and window_on_flash(s, d)  # K4's kernels, windows as heads
+    name = "window_attention_relpos" if kind == 1 and not on_flash else "flash_attention_relpos"
+    if not on_flash and relpos_wgmma_route(kind, dtype, d, s, rows, cols, scale, *ptrs):
         return name + "_wgmma"
-    if relpos_tf32_route(kind, dtype, d, s, rows, cols, scale, *ptrs):
+    if relpos_tf32_route(0 if on_flash else kind, dtype, d, s, rows, cols, scale, *ptrs):
         return name + "_tf32"
+    if relpos_tf32_streamed_route(0 if on_flash else kind, dtype, d, s, rows, cols, scale,
+                                  *ptrs):
+        return "flash_attention_relpos_tf32_streamed"
     return name
 
 
@@ -1100,7 +1128,12 @@ def relpos_tf32_fragment(kind: int, warp: int, lane: int, tile: int, s: int = 19
     the lane's first key 64 tile + 2 (lane % 4) from one division, advanced
     by 8 keys a group (one wrap at kw >= 8, a division below), the second
     key of the pair the next column or the next row's first (bias_h and
-    bias_w both added after the products); keys >= ``s`` are masked. K5
+    bias_w both added after the products); keys >= ``s`` are masked. In the
+    streamed mode (kw > 64) the tile's first key gives (ky, kx0) by one
+    division, and column c lies at (ky, kx0 + c) below ``split`` = kw - kx0,
+    else at (ky + 1, kx0 + c - kw): bias_h two reads a row, bias_w the
+    column of :func:`relpos_tf32_bw_slot`'s run (both added after the
+    products); keys >= ``s`` are masked. K5
     (kind 1, 40-key tiles of a 14 x 14 window): key 40 tile + column; the
     pair c = key - e % 2 gives ky = c / 14 and kx = c % 14 + e % 2 (one
     bias_h read and one 8-byte bias_w read a pair); keys >= ``s`` are
@@ -1108,6 +1141,17 @@ def relpos_tf32_fragment(kind: int, warp: int, lane: int, tile: int, s: int = 19
     n = RELPOS_TF32_TILE if kind == 0 else RELPOS_TF32_WINDOW_TILE
     quad = lane % 4
     out = []
+    if kind == 0 and relpos_tf32_mode(kw) == "streamed":
+        ky, kx0 = divmod(n * tile, kw)
+        split = kw - kx0
+        for i in range(n // 2):
+            j, e = divmod(i, 4)
+            row = 16 * warp + lane // 4 + 8 * (e // 2)
+            col = 8 * j + 2 * quad + e % 2
+            key = n * tile + col
+            cell = (ky, kx0 + col) if col < split else (ky + 1, kx0 + col - kw)
+            out.append((i, row, key, *cell) if key < s else (i, row, key, None, None))
+        return out
     if kind == 0 and relpos_tf32_mode(kw) == "straddle":
         key = n * tile + 2 * quad
         ky, kx = divmod(key, kw)
@@ -1156,6 +1200,15 @@ def relpos_tf32_fragment(kind: int, warp: int, lane: int, tile: int, s: int = 19
     return out
 
 
+def relpos_tf32_bw_slot(r: int, c: int) -> int:
+    """The mirror of the streamed mode's bias_w slot in
+    ``csrc/relpos_attention_tf32.cu`` (one a K stage, filled by the
+    producer warpgroup's other three warps): the float at which it holds
+    column ``c`` (0..63) of the tile's run for the block's row ``r``
+    (0..127): 64 floats a row, 8-column group g stored at g ^ (r % 8)."""
+    return r * 64 + ((c // 8) ^ (r % 8)) * 8 + c % 8
+
+
 def relpos_tf32_mirror(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        bias_h: torch.Tensor, bias_w: torch.Tensor, kind: int,
                        scale: Optional[float] = None) -> torch.Tensor:
@@ -1163,7 +1216,8 @@ def relpos_tf32_mirror(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     CPU, block by block of :func:`relpos_tf32_schedule`, in f32. K4 (kind 0;
     q, k, v (BH, S, D) with D 64, 80 or 96, S = kh kw, bias_h (BH, S, kh),
     bias_w (BH, S, kw), kw = 64 or, in the narrow mode, a multiple of 8
-    below it, or in the straddling mode any other width below it) or K5
+    below it, or in the straddling mode any other width below it, or in the
+    streamed mode any width past it) or K5
     (kind 1; (G, 196, 80), both factors (G, 196, 14)).
     K and V split into TF32 hi and lo (:func:`tf32_split`; V^T with each
     8-key group in ``TF32_KEY_ORDER``); per 64-row warpgroup tile, Q
@@ -1175,9 +1229,9 @@ def relpos_tf32_mirror(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``RELPOS_TF32_BIAS_AFTER``: the products from zero, the bias added
     after them); the running max (log2
     units, K4's keys shifted by bias_h log2 e: of the tile's grid row at
-    kw = 64, of each key's in the narrow mode; in the straddling mode the
-    products from zero and the whole bias, bias_h + bias_w, added after
-    them, no shift) raised at every tile; p =
+    kw = 64, of each key's in the narrow mode; in the straddling and
+    streamed modes the products from zero and the whole bias, bias_h +
+    bias_w, added after them, no shift) raised at every tile; p =
     2^(s log2 e + shift - m) (one rounding); the denominator summed from
     the f32 p; the output rescaled, P split in the fragment order, the
     tile's (lo(P) hi(V) + hi(P) lo(V)) + hi(P) hi(V) summed apart and added
@@ -1192,7 +1246,8 @@ def relpos_tf32_mirror(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     sc = float(torch.tensor(scale, dtype=torch.float32))
     tile = RELPOS_TF32_TILE if kind == 0 else RELPOS_TF32_WINDOW_TILE
     kw = bias_w.shape[-1] if kind == 0 else _WIN
-    straddle = kind == 0 and relpos_tf32_mode(kw) == "straddle"
+    # the straddling and streamed modes: the whole bias after the products
+    straddle = kind == 0 and relpos_tf32_mode(kw) in ("straddle", "streamed")
     n_tiles = -(-s // tile)
     kp = tile * n_tiles
     kz = torch.zeros(n, kp, d)
@@ -1233,7 +1288,7 @@ def relpos_tf32_mirror(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     if kind == 0 and not straddle:  # narrow: bias_w starts, bias_h shifts
                         init[at] = bw_f[h, r][:, kx]
                         shift[at] = bh_f[h, r][:, ky] * l2e
-                    else:  # K5 and the straddling mode: the whole bias
+                    else:  # K5, the straddling and streamed modes: the whole bias
                         init[at] = bh_f[h, r][:, ky] + bw_f[h, r][:, kx]
                 if kind == 0 and (d in RELPOS_TF32_BIAS_AFTER or straddle):
                     sco = ((q_lo @ k_hi[h, ks].T + q_hi @ k_lo[h, ks].T)
@@ -1420,7 +1475,8 @@ def _check_relpos(name, q, k, v, bias_h, bias_w, rows, cols):
 
 def _launch_relpos(fn_name, kind, q, k, v, bias_h, bias_w, rows, cols, scale):
     """Launch ``fn_name`` and count the launch under the counter
-    :func:`relpos_counter` names; K4 on the 3xTF32 kernel gets its scratch."""
+    :func:`relpos_counter` names; K4's 3xTF32 kernel (K5's windows past 256
+    tokens on it too) gets its scratch."""
     from beyondff_tpu_torch.kernels import _build
 
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
@@ -1434,15 +1490,13 @@ def _launch_relpos(fn_name, kind, q, k, v, bias_h, bias_w, rows, cols, scale):
     counter = relpos_counter(kind, _DTYPES[q.dtype], d, s, rows, cols, scale, *ptrs)
     qp, kp, vp, op, hp, wp = ptrs
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    args = (_DTYPES[q.dtype], qp, kp, vp, hp, wp, op, bh, s, d, rows, cols,
-            ctypes.c_float(scale), stream)
-    if kind == 0:
-        scratch = None
-        if counter == "flash_attention_relpos_tf32":
-            scratch = torch.empty(relpos_tf32_scratch_floats(bh, s, d), dtype=torch.float32,
-                                  device=q.device)
-        args += (None if scratch is None else scratch.data_ptr(),)
-    rc = getattr(_build.library(), fn_name)(*args)
+    scratch = None
+    if counter in ("flash_attention_relpos_tf32", "flash_attention_relpos_tf32_streamed"):
+        scratch = torch.empty(relpos_tf32_scratch_floats(bh, s, d), dtype=torch.float32,
+                              device=q.device)
+    rc = getattr(_build.library(), fn_name)(
+        _DTYPES[q.dtype], qp, kp, vp, hp, wp, op, bh, s, d, rows, cols, ctypes.c_float(scale),
+        stream, None if scratch is None else scratch.data_ptr())
     if rc != 0:
         raise RuntimeError(f"{counter} kernel launch failed (code {rc})")
     dispatch.launch_counts[counter] += 1

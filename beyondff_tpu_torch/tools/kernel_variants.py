@@ -422,10 +422,11 @@ VARIANTS = {
                                           "constexpr int kWConsumers = 1;"),)),
     # K5: two blocks an SM, each one consumer and one window in flight
     # K4 and K5 in f32 on the FMA kernels of relpos_attention.cu (the 3xTF32
-    # route off): the kernels before the redesign
+    # routes off): the kernels before the redesign
     "relpos_f32_fma": (K45, (
-        (RELPOS, "  if (bff_relpos_tf32_takes(0, dtype, D, S, kh, kw, scale, q, k, v, o, bias_h, "
-                 "bias_w))\n", "  if (false)\n"),
+        (RELPOS, "  if (bff_relpos_tf32_takes(0, dtype, D, S, kh, kw, scale, q, k, v, o, bh, "
+                 "bw) ||\n      bff_relpos_tf32_streamed_takes(0, dtype, D, S, kh, kw, scale, "
+                 "q, k, v, o, bh, bw))\n", "  if (false)\n"),
         (RELPOS, "  if (bff_relpos_tf32_takes(1, dtype, D, S, wh, ww, scale, q, k, v, o, bias_h, "
                  "bias_w))\n", "  if (false)\n"))),
     # 3xTF32 K4 and K5: tile t's Q K^T issued before tile t - 1's P V
@@ -456,6 +457,11 @@ VARIANTS = {
                                    "constexpr bool kFold96 = false;"),)),
     "k4_tf32_d96_fold_whole": (K45, ((RT32, "constexpr int kFoldParts96 = 2;",
                                       "constexpr int kFoldParts96 = 1;"),)),
+    # 3xTF32 K4 past 64 grid columns (the streamed mode): each score reads its
+    # bias_w from device memory (shipped: each warp stages its rows' run of
+    # the tile into a shared-memory slot by cp.async)
+    "k4_tf32_bw_from_l2": (K45, ((RT32, "constexpr bool kBwStreamed = true;",
+                                  "constexpr bool kBwStreamed = false;"),)),
     # 3xTF32 K4 at head dim 96: the scores' accumulators start at bias_w
     # (shipped: the products from zero, the bias added after them)
     "k4_tf32_d96_bias_start": (K45, ((RT32, "constexpr bool kBiasAfter96 = true;",
@@ -641,17 +647,17 @@ def relpos_f32_case(g, grid, window, d=80, spread=1.0, factor_scale=0.1):
     plain = lambda: fa.attend_relpos_plain(q, k, v, bias_h, bias_w, ww)
     want = plain()
     out = torch.empty_like(q)
-    scratch = None if window else torch.empty(fa.relpos_tf32_scratch_floats(g, s, d),
-                                              device="cuda")
+    # K4's 3xTF32 scratch (K5's windows past 256 tokens run K4's kernel; a
+    # tree from before that ignores the window entry's last argument)
+    scratch = torch.empty(fa.relpos_tf32_scratch_floats(g, s, d), device="cuda")
     fn = "bff_window_attention_relpos" if window else "bff_flash_attention_relpos"
     stream = torch.cuda.current_stream().cuda_stream
 
     def launch(lib):
-        extra = () if window else (ctypes.c_void_p(scratch.data_ptr()),)
         rc = getattr(lib, fn)(ctypes.c_int(0), *(ctypes.c_void_p(t.data_ptr()) for t in
                                                  (q, k, v, bias_h, bias_w, out)),
                               g, s, d, hh, ww, ctypes.c_float(d ** -0.5),
-                              ctypes.c_void_p(stream), *extra)
+                              ctypes.c_void_p(stream), ctypes.c_void_p(scratch.data_ptr()))
         if rc != 0:
             raise RuntimeError(f"{fn} failed (code {rc})")
         return out
@@ -672,7 +678,7 @@ def relpos_f32_case(g, grid, window, d=80, spread=1.0, factor_scale=0.1):
             raise RuntimeError(f"bff_flash_attention_relpos_f32_fma failed (code {rc})")
         return out
 
-    if not window:
+    if not window or fa.window_on_flash(s, d):  # K4's function (windows as heads)
         launch.fma = ("bff_flash_attention_relpos_f32_fma", fma)
     nbytes = (4 * g * s * d + g * s * (hh + ww)) * 4
     return fn, launch, check, library, 4 * g * s * s * d, nbytes, PEAK_TF32_FLOPS / 3
@@ -1255,6 +1261,25 @@ def main():
         **{f"relpos_f32 narrow small k4 kw{kw} ({16}, {kh * kw}, 64)":
            (lambda kh=kh, kw=kw: relpos_f32_case(16, (kh, kw), False, 64))
            for kh, kw in ((1, 8), (8, 8), (64, 8), (4, 16), (1, 24), (2, 40))},
+        # K4 in f32 on grids past 64 x 64 (no configured model calls them),
+        # beside the FMA kernel they displace (the entry ``fma``; a tree from
+        # before them runs it through the entry) and SDPA in f32: kh past 64
+        # on the wide, narrow and straddling modes (route 1), kw past 64 on
+        # the streamed mode (route 2; ``k4_tf32_bw_from_l2`` its other plan),
+        # peaked rows, and 17 x 17 windows (K4's kernel, windows as heads)
+        **{f"relpos_f32 grids {kh}x{kw}{'' if d == 80 else f' d{d}'} ({g}, {kh * kw}, {d})":
+           (lambda g=g, kh=kh, kw=kw, d=d: relpos_f32_case(g, (kh, kw), False, d))
+           for g, kh, kw, d in ((16, 72, 36, 80), (16, 80, 64, 80), (16, 255, 2, 64),
+                                (16, 72, 36, 96), (16, 257, 1, 80), (16, 2, 255, 64),
+                                (16, 1, 300, 64), (16, 64, 128, 80), (16, 72, 72, 80),
+                                (4, 136, 136, 80), (16, 72, 72, 96), (16, 1, 65, 64),
+                                (16, 8, 100, 80))},
+        "relpos_f32 grids 2x255 spread 3 (16, 510, 64)":
+            lambda: relpos_f32_case(16, (2, 255), False, 64, 3.0),
+        "relpos_f32 grids 72x72 factors 3 (16, 5184, 80)":
+            lambda: relpos_f32_case(16, (72, 72), False, 80, 1.0, 3.0),
+        "relpos_f32 grids window 17x17 (256, 289, 80)":
+            lambda: relpos_f32_case(256, (17, 17), True),
         # YOLO-World-L's NMS over the batch of 4: 8 400 anchors, top_k 100;
         # the large mode at the same frames (what staging the boxes buys) and
         # at frames past the staged kernel's 90 112 boxes

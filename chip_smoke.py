@@ -181,17 +181,26 @@ FMA kernel through ``bff_flash_attention_relpos_f32_fma``) on the 3xTF32
 kernels of ``csrc/relpos_attention_tf32.cu``
 (``flash_attention_relpos_tf32``, ``window_attention_relpos_tf32``), K4
 at head dim 80 on the 64 x 36 grid (a width no multiple of 8: the
-straddling mode) on the same kernel beside the FMA kernel, K4 on a 72 x 36
-grid (taller than the 3xTF32 kernel takes) and K5 at SAM ViT-L's head dim
-64 on the FMA kernels (``flash_attention_relpos``,
+straddling mode) on the same kernel beside the FMA kernel, K4 on grids past
+64 x 64 (16 heads: 72 x 36, 80 x 64, 255 x 2 and, at head dim 96, 72 x 36
+on the same kernel, ``flash_attention_relpos_tf32``; 64 x 128, 72 x 72 and,
+at head dim 96, 72 x 72 on its streamed mode,
+``flash_attention_relpos_tf32_streamed``), each beside the FMA kernel it
+displaced, which it must beat, and at spread 3 within 1e-4, SAM ViT-H's
+global-attention block in f32 (dim 1280, 16 heads, batch 1) on 80 x 64 and
+64 x 128 grids under ``BFF_SAM_RELPOS_FLASH=1`` on those two routes within
+1e-4 of the output's largest magnitude of the same block on plain
+attention, K4 at head dim 128 and K5 at SAM ViT-L's head dim 64 on the FMA
+kernels (``flash_attention_relpos``,
 ``window_attention_relpos``), the mma.sync tile at (32, 1024, 64) with keys
 masked, the shapes past the port's old limits (``past_limits``: K2/K3 at
 head dims 160 and 256, bf16 on the wide wgmma kernel
 (``flash_attention_wide_wgmma``; at (16, 4096, 256) too) and at 264 on the
 tile's slices, K4 at head dim 160 and at kh + kw past 256, bf16 on the tile
 with streamed factors (``flash_attention_relpos_streamed``; SAM's global
-attention on a 136 x 136 grid too) and at head dim 160 on the FMA kernel, K5
-on 17 x 17 windows, K1 at 9 levels and at head dim 160), and the NMS kernel
+attention on a 136 x 136 grid too), f32 on the 3xTF32 kernel's streamed
+mode, and at head dim 160 on the FMA kernel, K5 on 17 x 17 windows (f32 on
+the 3xTF32 kernel), K1 at 9 levels and at head dim 160), and the NMS kernel
 index for index at YOLO-World-L's 8 400 anchors for a batch of 4 (top_k
 100; its device time split into the sort, the gather and the scan), at
 thresholds set to pairs' exact IoUs, and past the staged kernel's 90 112
@@ -335,6 +344,16 @@ RELPOS_TF32_STRADDLE_DESIGN = (
     "once they are in (bias_w from a shared-memory table at a stride 3 mod 16, bias_h from "
     "device memory, both read while the products run, each key's grid cell advanced without "
     "a division); otherwise the narrow mode's kernel")
+
+
+# csrc/relpos_attention_tf32.cu: K4 in f32 on a grid wider than 64
+RELPOS_TF32_STREAMED_DESIGN = (
+    "3xTF32 wgmma, K4's streamed mode (kw > 64): 64-key tiles across at most two grid rows "
+    "(the last padded with zero keys by the pre-pass), no block-wide bias_w table: each warp "
+    "copies its 16 rows' run of 64 bias_w columns of the next tile into its part of a "
+    "shared-memory slot by 4-byte cp.async once it has read the current one, bias_h two reads "
+    "a row a tile; the scores' products summed from zero and each score's whole bias added in "
+    "f32 once they are in; otherwise the narrow mode's kernel")
 # csrc/flash_attention.cu, csrc/relpos_attention.cu: head dims past 128
 WIDE_WGMMA_DESIGN = ("bf16 wgmma holding the whole head dim (144-256, rounded up to 32, the "
                      "TMA zero-filling the rest): TMA boxes of 64 columns (128-byte swizzle) "
@@ -548,7 +567,7 @@ def flash_case(torch, fa, name, shape, valid_len, dtype, dev, fma=False, spread=
 
 
 def relpos_case(torch, fa, wa, sam_mod, name, g, grid, dtype, dev, d=80, fma=False,
-                spread=1.0):
+                spread=1.0, spread3=False):
     """One rel-pos attention comparison + timing: K4 (``flash_attention_relpos``)
     over a global grid, K5 (``window_attention_relpos``) when ``name`` is a
     window case, at head dim ``d``. q, k, v from a seeded generator; the factors are real q . R
@@ -561,7 +580,9 @@ def relpos_case(torch, fa, wa, sam_mod, name, g, grid, dtype, dev, d=80, fma=Fal
     (``host_us``: the enqueue, tensor maps included; on the wide routes
     ``entry_us`` too, the C entry alone). ``fma``: also time K4's
     f32-FMA kernel on the same inputs (``fma_yardstick``). ``spread`` scales
-    q and k (peaked rows at 3; the factors follow q)."""
+    q and k (peaked rows at 3; the factors follow q); ``spread3``: also the
+    error of the same call on inputs at spread 3 (``max_abs_err_spread3``,
+    held within 1e-4)."""
     import torch.nn.functional as F
 
     from beyondff_tpu_torch.kernels import dispatch
@@ -656,6 +677,7 @@ def relpos_case(torch, fa, wa, sam_mod, name, g, grid, dtype, dev, d=80, fma=Fal
     # what the shape adds to a route's design: K4's kernels for a large
     # window, head-dim slices, factors from device memory, the straddling mode
     on_flash = window and fa.window_on_flash(s, d)
+    k4_call = not window or on_flash  # K4's kernels
     wide = routed.endswith(("_wide_wgmma", "_wide_tf32"))
     suffix = ((", K4's kernel with the windows as heads" if on_flash else "")
               + (SLICED_DESIGN if d > fa.HEAD_DIM_SLICE and not wide else "")
@@ -663,9 +685,10 @@ def relpos_case(torch, fa, wa, sam_mod, name, g, grid, dtype, dev, d=80, fma=Fal
                  or routed.endswith(("_tf32", "_wgmma", "_streamed"))
                  else ", each score's factors read from device memory (kh + kw past 256)"))
     extra = {"design": (RELPOS_WIDE_TF32_DESIGN if wide else
-                        (RELPOS_TF32_STRADDLE_DESIGN if not window and ww % 8 else
-                         RELPOS_TF32_NARROW_DESIGN if not window and ww != 64 else
-                         RELPOS_TF32_DESIGN[window]) if routed.endswith("_tf32") else
+                        RELPOS_TF32_STREAMED_DESIGN if routed.endswith("_tf32_streamed") else
+                        (RELPOS_TF32_STRADDLE_DESIGN if k4_call and ww % 8 else
+                         RELPOS_TF32_NARROW_DESIGN if k4_call and ww != 64 else
+                         RELPOS_TF32_DESIGN[not k4_call]) if routed.endswith("_tf32") else
                         FMA_DESIGN + (", whole-window softmax" if window and not on_flash
                                       else "")) + suffix}
     if not bf16:
@@ -713,9 +736,97 @@ def relpos_case(torch, fa, wa, sam_mod, name, g, grid, dtype, dev, d=80, fma=Fal
            **fma_rec}
     if not bf16:  # f32-grade work: 3xTF32 in bound_ms, f32 FMAs in bound_fma_ms
         rec["bound_ms"], rec["bound_by"] = bound_ms, bound_by
+    del q, k, v, bias_h, bias_w, q4, k4, v4
+    if spread3:
+        rec["max_abs_err_spread3"] = relpos_err(torch, fa, wa, sam_mod, window, g, grid, dtype,
+                                                dev, d, 3.0, routed)
     emit(rec)
     torch.cuda.empty_cache()
     check(excess <= 0.0, f"{rec['kernel']} {name} {dname}: max abs err {err} beyond tolerance")
+    check(rec.get("max_abs_err_spread3", 0.0) <= 1e-4,
+          f"{rec['kernel']} {name}: max abs err {rec.get('max_abs_err_spread3')} at spread 3")
+    return rec
+
+
+def relpos_err(torch, fa, wa, sam_mod, window, g, grid, dtype, dev, d, spread, routed):
+    """The max abs error against the plain version of one f32 rel-pos call
+    as ``relpos_case`` makes it, q and k at ``spread`` (the factors follow
+    q), which must move the counter ``routed``."""
+    from beyondff_tpu_torch.kernels import dispatch
+
+    hh, ww = grid
+    s = hh * ww
+    gen = torch.Generator(device=dev).manual_seed(SEED + g + s + 1)
+    q, k, v = (torch.randn(g, s, d, device=dev, generator=gen).to(dtype) for _ in range(3))
+    q, k = q * spread, k * spread
+    rel_h = (0.1 * torch.randn(2 * hh - 1, d, device=dev, generator=gen)).to(dtype)
+    rel_w = (0.1 * torch.randn(2 * ww - 1, d, device=dev, generator=gen)).to(dtype)
+    bias_h, bias_w = (t.contiguous() for t in
+                      sam_mod._rel_pos_factors((hh, ww), (hh, ww), rel_h, rel_w, q))
+    before = dict(dispatch.launch_counts)
+    if window:
+        got = wa.window_attention_relpos(q, k, v, bias_h, bias_w, hh, ww)
+        want = wa.window_attention_relpos_plain(q, k, v, bias_h, bias_w, hh, ww)
+    else:
+        got = fa.attend_relpos(q, k, v, bias_h, bias_w, ww)
+        want = fa.attend_relpos_plain(q, k, v, bias_h, bias_w, ww)
+    went = [key for key, n in dispatch.launch_counts.items() if n != before[key]]
+    check(went == [routed], f"rel-pos {grid} at spread {spread}: launched {went}, not {routed}")
+    torch.cuda.synchronize()
+    return float((got.float() - want.float()).abs().max())
+
+
+def sam_block_case(torch, mods, dev, grid, want):
+    """SAM ViT-H's global-attention block (``models/sam.py``'s
+    ``ViTAttention``: dim 1280, 16 heads of head dim 80, its rel-pos tables
+    sized for ``grid``) in f32 at batch 1 on a patch grid past 64 x 64 (80 x
+    64 for a 1280 x 1024 input, 64 x 128 for 1024 x 2048), seeded weights
+    (rel-pos tables at 0.1, the rest at 0.02): the block under
+    ``BFF_SAM_RELPOS_FLASH=1`` (its rel-pos flash branch, which
+    ``fa.relpos_shapes_ok`` admits on both grids) must move the counter
+    ``want`` once and come within 1e-4 of the output's largest magnitude
+    of the same block without the flag (plain attention: the dense bias and
+    an f32 softmax), which moves no counter. Both timed (CUDA events)."""
+    sam_mod, fa, dispatch = mods
+    h, w = grid
+    check(fa.relpos_shapes_ok(h, w), f"SAM block {grid}: relpos_shapes_ok refuses it")
+    gen = torch.Generator(device=dev).manual_seed(SEED + h * w)
+    attn = sam_mod.ViTAttention(1280, 16, True, grid, softmax_f32=True).to(dev)
+    with torch.no_grad():
+        for pname, p in attn.named_parameters():
+            p.copy_((0.1 if "rel_pos" in pname else 0.02)
+                    * torch.randn(p.shape, device=dev, generator=gen))
+    x = torch.randn(1, h, w, 1280, device=dev, generator=gen)
+    flag = "BFF_SAM_RELPOS_FLASH"
+    old = os.environ.pop(flag, None)
+    try:
+        with torch.no_grad():
+            plain = lambda: attn(x)
+            before = dict(dispatch.launch_counts)
+            ref = plain()
+            check(dispatch.launch_counts == before, f"SAM block {grid}: the plain pass launched")
+            plain_ms = cuda_ms(torch, plain, 3)
+            os.environ[flag] = "1"
+            before = dict(dispatch.launch_counts)
+            got = attn(x)
+            moved = {k: n - before[k] for k, n in dispatch.launch_counts.items() if n != before[k]}
+            flash_ms = cuda_ms(torch, lambda: attn(x), 5)
+    finally:
+        os.environ.pop(flag, None)
+        if old is not None:
+            os.environ[flag] = old
+    torch.cuda.synchronize()
+    diff = float((got - ref).abs().max())
+    peak = float(ref.abs().max())
+    rec = {"phase": "sam_global_block_f32", "grid": [h, w], "input_hw": [16 * h, 16 * w],
+           "dim": 1280, "heads": 16, "head_dim": 80, "launches": moved,
+           "max_abs_diff": diff, "max_abs_out": peak, "tol": 1e-4 * peak,
+           "ms_flash": flash_ms, "ms_plain": plain_ms}
+    emit(rec)
+    del attn, x, got, ref
+    torch.cuda.empty_cache()
+    check(moved == {want: 1}, f"SAM block {grid}: launched {moved}, not {want} once")
+    check(diff <= 1e-4 * peak, f"SAM block {grid}: {diff} from plain attention > 1e-4 x {peak}")
     return rec
 
 
@@ -734,17 +845,18 @@ def past_limits(torch, mods, cases, dev, rng):
     4096, 256), and at head dims the wide kernels leave on the slices they
     displaced: bf16 at 264 (the tile's), f32 at 168 (the FMA kernel's);
     K4 at head dim 160 and on grids with kh + kw past 256 (1 x 300, 2 x
-    255 and, bf16 only, SAM's global attention on a 136 x 136 grid: the
-    tile with streamed factors in bf16, the FMA kernel reading the factors
-    from device memory in f32); K4 at
+    255 and SAM's global attention on a 136 x 136 grid: the tile with
+    streamed factors in bf16, the 3xTF32 kernel's streamed mode in f32,
+    beside the FMA kernel it displaced and at spread 3); K4 at
     head dims 160 and 256 on 32 x 32 and at 160 on 2 x 255 on the wide
     kernels (bf16 the wgmma kernel with streamed factors, f32 the 3xTF32
     one, timed beside the FMA kernel's slices it displaced), and at head
     dim 168 on the kernels they displaced (bf16 the tile's slices on 32 x
     32 and the FMA kernel's past the table on 2 x 255, f32 the FMA
-    kernel's slices); K5 on 17 x 17 windows (K4's
-    kernels); K1 at 9 levels (the level table in device memory) and at head
-    dim 160 (the channel slices), clamp and exact. No configured model
+    kernel's slices); K5 on 17 x 17 windows (K4's kernels: f32 on the
+    3xTF32 kernel's straddling mode); K1 at 9 levels (the level table in
+    device memory) and at head dim 160 (the channel slices), clamp and
+    exact. No configured model
     reaches any of them, and the run's time limit is shared."""
     fa, wa, dw, sam_mod, deformable = mods
     for d in (160, 256):
@@ -775,7 +887,8 @@ def past_limits(torch, mods, cases, dev, rng):
              (torch.bfloat16, torch.float32)),
             ("relpos_kh_kw_257", "grid_2x255_global", 16, (2, 255), 64,
              (torch.bfloat16, torch.float32)),
-            ("relpos_136", "grid_136x136_global", 4, (136, 136), 80, (torch.bfloat16,)),
+            ("relpos_136", "grid_136x136_global", 4, (136, 136), 80,
+             (torch.bfloat16, torch.float32)),
             ("relpos_past_table_d160", "grid_2x255_d160_global", 16, (2, 255), 160,
              (torch.bfloat16, torch.float32)),
             ("relpos_d168", "d168_global", 16, (32, 32), 168, (torch.bfloat16, torch.float32)),
@@ -791,15 +904,26 @@ def past_limits(torch, mods, cases, dev, rng):
             # they displaced: the FMA kernel's f32 slices here, the bf16
             # ones through tools/kernel_variants.py with the parent's csrc/;
             # head dim 168 keeps the displaced kernels (the tile's slices,
-            # past the table the FMA kernel's; the FMA kernel's in f32)
+            # past the table the FMA kernel's; the FMA kernel's in f32);
+            # f32 at head dims 64-96 on the 3xTF32 kernel (2 x 255, 1 x 300
+            # and 136 x 136 on its streamed mode, the 17 x 17 windows on its
+            # straddling mode), beside the FMA kernel it displaced, and at
+            # spread 3
+            tf32 = not bf16 and d in fa.RELPOS_TF32_HEAD_DIMS[0]
             cases[(key, dname, 1)] = rec = relpos_case(
-                torch, fa, wa, sam_mod, name, g, grid, dtype, dev, d=d, fma=wide and not bf16)
+                torch, fa, wa, sam_mod, name, g, grid, dtype, dev, d=d,
+                fma=not bf16 and (wide or tf32), spread3=tf32)
             want = ("flash_attention_relpos_wide_wgmma" if bf16 and wide else
                     "flash_attention_relpos_wide_tf32" if wide else
+                    "flash_attention_relpos_tf32_streamed" if tf32 and grid[1] > 64 else
+                    "flash_attention_relpos_tf32" if tf32 else
                     "flash_attention_relpos_streamed" if bf16 and d <= 128 and not table else
                     "flash_attention_relpos")
             check(rec["kernel"] == want,
                   f"rel-pos {name} {dname}: on {rec['kernel']}, not {want}")
+            check(not tf32 or rec["device_ms"] < rec["fma_device_ms"],
+                  f"rel-pos {name}: the 3xTF32 kernel ({rec.get('device_ms')} ms) loses to the "
+                  f"FMA kernel ({rec.get('fma_device_ms')} ms)")
     anchors9 = dw.raster_centers(NINE_LEVELS)
     anchors = dw.raster_centers(dw.ENC_SHAPES)
     for key, shapes, q_locs, heads, hd in (("deform_9_levels", NINE_LEVELS, anchors9, 8, 32),
@@ -3603,7 +3727,8 @@ def float32_phase(torch, mods, work, variants):
             want = {"flash_attention_tf32": (6 if variant == "classic" else 12),
                     "flash_attention_f32": 0}
             if relpos:
-                want.update({"flash_attention_relpos_tf32": 4, "flash_attention_relpos": 0})
+                want.update({"flash_attention_relpos_tf32": 4, "flash_attention_relpos": 0,
+                             "flash_attention_relpos_tf32_streamed": 0})
             rec.update({"phase": "float32_configuration", "variant": variant, "pass": tag,
                         "environment": env, "load_seconds": load_s, "launches_expected": want})
             emit(rec)
@@ -3823,11 +3948,8 @@ def main() -> int:
               f"f32 K4 {name} at head dim 96: on {rec['kernel']}")
     # K4 at head dim 80 on the 64 x 36 grid (kw not a multiple of 8) on the
     # 3xTF32 kernel's straddling mode, beside the FMA kernel on the same
-    # inputs; outside the 3xTF32 predicate, on the FMA kernels (the
-    # witnesses of what still loses to SDPA in f32): K4 on a grid taller
-    # than 64 at a straddling width, K5 at SAM ViT-L's head dim 64
-    # (and on a 64 x 3 grid, where an n8 group spans three grid rows): each
-    # width is admitted only where it beats the FMA kernel
+    # inputs (and on a 64 x 3 grid, where an n8 group spans three grid
+    # rows): each width is admitted only where it beats the FMA kernel
     for key, name, g, grid in (("relpos_straddle", "kw36_d80_global", 16 * FRAME_BATCH, (64, 36)),
                                ("relpos_straddle_kw3", "kw3_d80_global", 16, (64, 3))):
         cases[(key, "float32", FRAME_BATCH)] = rec = relpos_case(
@@ -3837,7 +3959,36 @@ def main() -> int:
         check(rec["device_ms"] < rec["fma_device_ms"],
               f"f32 K4 {name}: the 3xTF32 kernel ({rec['device_ms']} ms) loses to the FMA "
               f"kernel ({rec['fma_device_ms']} ms)")
-    for key, name, g, grid, d in (("relpos_global_fma", "kh72_kw36_d80_global", 4, (72, 36), 80),
+    # K4 in f32 on grids past 64 x 64 (no configured model calls them: SAM
+    # past a 1024-pixel side), 16 heads: kh past 64 on the 3xTF32 kernel's
+    # wide, narrow and straddling modes (flash_attention_relpos_tf32), kw
+    # past 64 on its streamed mode (flash_attention_relpos_tf32_streamed;
+    # past_limits has 2 x 255, 1 x 300, 136 x 136 and 17 x 17 windows), each
+    # beside the FMA kernel it displaced, which it must beat, and at spread 3
+    for key, name, grid, d in (("relpos_kh72", "kh72_kw36_d80_global", (72, 36), 80),
+                               ("relpos_kh80", "kh80_kw64_d80_global", (80, 64), 80),
+                               ("relpos_kh255", "kh255_kw2_d64_global", (255, 2), 64),
+                               ("relpos_kh72_d96", "kh72_kw36_d96_global", (72, 36), 96),
+                               ("relpos_kw128", "kh64_kw128_d80_global", (64, 128), 80),
+                               ("relpos_kw72", "kh72_kw72_d80_global", (72, 72), 80),
+                               ("relpos_kw72_d96", "kh72_kw72_d96_global", (72, 72), 96)):
+        cases[(key, "float32", 1)] = rec = relpos_case(
+            torch, fa, wa, sam_mod, name, 16, grid, torch.float32, dev, d=d, fma=True,
+            spread3=True)
+        want = ("flash_attention_relpos_tf32_streamed" if grid[1] > 64
+                else "flash_attention_relpos_tf32")
+        check(rec["kernel"] == want, f"f32 K4 {name}: on {rec['kernel']}, not {want}")
+        check(rec["device_ms"] < rec["fma_device_ms"],
+              f"f32 K4 {name}: the 3xTF32 kernel ({rec['device_ms']} ms) loses to the FMA "
+              f"kernel ({rec['fma_device_ms']} ms)")
+    # SAM ViT-H's global block in f32 on those grids: 80 x 64 (a 1280 x 1024
+    # input) on the first route, 64 x 128 (1024 x 2048) on the second
+    for grid, want in (((80, 64), "flash_attention_relpos_tf32"),
+                       ((64, 128), "flash_attention_relpos_tf32_streamed")):
+        sam_block_case(torch, (sam_mod, fa, dispatch), dev, grid, want)
+    # outside every f32 route, on the FMA kernels: K4 at head dim 128 (the
+    # 3xTF32 kernel takes 64, 80 and 96) and K5 at SAM ViT-L's head dim 64
+    for key, name, g, grid, d in (("relpos_global_fma", "d128_global", 4, (64, 64), 128),
                                   ("relpos_window_fma", "window_sam_vit_l", 400, (14, 14), 64)):
         cases[(key, "float32", FRAME_BATCH)] = rec = relpos_case(
             torch, fa, wa, sam_mod, name, g * FRAME_BATCH, grid, torch.float32, dev, d=d)
@@ -4161,6 +4312,13 @@ def main() -> int:
             (("relpos_straddle", "float32", FRAME_BATCH),
              "beyondff_tpu_torch/csrc/relpos_attention_tf32.cu",
              "beyondff_tpu/kernels/flash_attention.py:193"),
+            # K4 f32 on grids past 64 x 64: kh past 64 on the 3xTF32
+            # kernel's modes, kw past 64 on its streamed mode (no configured
+            # model reaches them: 0 launches on the path)
+            (("relpos_kh72", "float32", 1), "beyondff_tpu_torch/csrc/relpos_attention_tf32.cu",
+             "beyondff_tpu/kernels/flash_attention.py:193"),
+            (("relpos_kw128", "float32", 1), "beyondff_tpu_torch/csrc/relpos_attention_tf32.cu",
+             "beyondff_tpu/kernels/flash_attention.py:193"),
             (("relpos_global_fma", "float32", FRAME_BATCH),
              "beyondff_tpu_torch/csrc/relpos_attention.cu",
              "beyondff_tpu/kernels/flash_attention.py:193"),
@@ -4194,11 +4352,14 @@ def main() -> int:
             (("flash_d168_fma", "float32", 1), "beyondff_tpu_torch/csrc/flash_attention.cu",
              "beyondff_tpu/kernels/flash_attention.py:270"),
             *(((key, dname, 1), "beyondff_tpu_torch/csrc/" + (
-                "relpos_attention_streamed.cu" if dname == "bfloat16"
-                and key in ("relpos_kh_kw_300", "relpos_kh_kw_257", "relpos_136")
+                ("relpos_attention_streamed.cu" if dname == "bfloat16"
+                 else "relpos_attention_tf32.cu")
+                if key in ("relpos_kh_kw_300", "relpos_kh_kw_257", "relpos_136")
                 else ("relpos_attention_wide_wgmma.cu" if dname == "bfloat16"
                       else "relpos_attention_wide_tf32.cu")
                 if key in ("relpos_d160", "relpos_d256", "relpos_past_table_d160")
+                else "relpos_attention_tf32.cu"
+                if key == "relpos_window_17" and dname == "float32"
                 else "relpos_attention.cu"),
                "beyondff_tpu/kernels/" + ("window_attention.py:51" if key == "relpos_window_17"
                                           else "flash_attention.py:193"))
@@ -4207,7 +4368,7 @@ def main() -> int:
                                   ("relpos_kh_kw_300", ("bfloat16", "float32")),
                                   ("relpos_kh_kw_257", ("bfloat16", "float32")),
                                   ("relpos_window_17", ("bfloat16", "float32")),
-                                  ("relpos_136", ("bfloat16",)),
+                                  ("relpos_136", ("bfloat16", "float32")),
                                   ("relpos_past_table_d160", ("bfloat16", "float32")),
                                   ("relpos_d168", ("bfloat16", "float32")),
                                   ("relpos_past_table_d168", ("bfloat16",)))

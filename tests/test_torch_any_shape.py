@@ -278,7 +278,7 @@ _OLD_RELPOS = [
     ((1, 1, 64, 196, 14, 14), "window_attention_relpos"),
     ((1, 0, 64, 196, 14, 14), "window_attention_relpos"),
     ((0, 0, 112, 4096, 64, 64), "flash_attention_relpos"),
-    ((0, 0, 80, 8192, 128, 64), "flash_attention_relpos"),
+    ((0, 0, 80, 8192, 128, 64), "flash_attention_relpos_tf32"),
     ((1, 0, 80, 256, 16, 16), "window_attention_relpos"),
     ((1, 1, 16, 20, 4, 5), "window_attention_relpos"),
 ]
@@ -291,12 +291,13 @@ _NEW_RELPOS = [
     ((1, 1, 32, 257, 1, 257), "flash_attention_relpos_streamed"),
     ((0, 1, 160, 510, 2, 255), "flash_attention_relpos_wide_wgmma"),
     ((0, 0, 32, 510, 2, 255), "flash_attention_relpos"),
-    ((1, 0, 80, 289, 17, 17), "flash_attention_relpos"),
+    ((1, 0, 80, 289, 17, 17), "flash_attention_relpos_tf32"),
     ((1, 1, 80, 289, 17, 17), "flash_attention_relpos"),
     ((1, 1, 160, 196, 14, 14), "flash_attention_relpos_wide_wgmma"),
     ((0, 0, 80, 2304, 64, 36), "flash_attention_relpos_tf32"),
     ((0, 0, 96, 2304, 64, 36), "flash_attention_relpos_tf32"),
-    ((0, 0, 64, 1300, 65, 20), "flash_attention_relpos"),
+    ((0, 0, 64, 1300, 65, 20), "flash_attention_relpos_tf32"),
+    ((0, 0, 64, 510, 2, 255), "flash_attention_relpos_tf32_streamed"),
 ]
 
 
@@ -305,7 +306,9 @@ def test_relpos_counter_table(args, counter):
     """Which counter a rel-pos call moves: the old shapes keep theirs (the
     wgmma and 3xTF32 routes at their shapes, the tile and the FMA kernels
     elsewhere); the new shapes take K4's tile or FMA kernel (K5's large
-    windows too), or the 3xTF32 kernel's straddling mode; bf16 past the
+    windows too), or the 3xTF32 kernel (its straddling mode, any grid
+    height, and past 64 grid columns its streamed mode; K5's f32 windows past
+    256 tokens too); bf16 past the
     factor table at head dims up to 128 takes the tile with streamed factors
     (K5's windows there too); at head dim 160 bf16 takes the wide wgmma
     kernel on any grid and f32 the wide 3xTF32 kernel inside the table (K5's

@@ -894,7 +894,9 @@ def test_flash_relpos_kernel_matches_plain_on_card(cuda_device, dtype, bh, rows,
     peaked softmax). f32 within 1e-4, bf16 within the derived bound. bf16
     at head dim 80 on a 64-wide grid counts as the wgmma kernel
     (``flash_attention_relpos_wgmma``), f32 there as the 3xTF32 kernel
-    (``flash_attention_relpos_tf32``), every other call as
+    (``flash_attention_relpos_tf32``), f32 at head dim 64 on the 32 x 128
+    grid as the 3xTF32 kernel's streamed mode
+    (``flash_attention_relpos_tf32_streamed``), every other call as
     ``flash_attention_relpos``."""
     q, k, v, bias_h, bias_w = (torch.from_numpy(a).to(cuda_device) for a in _relpos_inputs(
         np.random.default_rng(rows), bh, rows, cols, d, scale))
@@ -902,6 +904,8 @@ def test_flash_relpos_kernel_matches_plain_on_card(cuda_device, dtype, bh, rows,
     key = "flash_attention_relpos"
     if d == 80 and cols == 64:
         key += "_wgmma" if dtype == torch.bfloat16 else "_tf32"
+    elif dtype == torch.float32 and d == 64 and cols > 64:
+        key += "_tf32_streamed"
     before = dict(dispatch.launch_counts)
     got = tfa.attend_relpos(q, k, v, bias_h, bias_w, cols)
     want = tfa.attend_relpos_plain(q, k, v, bias_h, bias_w, cols)

@@ -111,11 +111,11 @@ def _sam_factors(jx, rows, cols, g, d, spread):
     ((0, 0, 80, 8, 1, 8, _S80, *_A), True),  # the narrowest and shortest grid: one tile
     ((0, 0, 80, 3584, 64, 56, _S80, *_A), True),  # the widest narrow grid
     ((0, 0, 80, 120, 5, 24, _S80, *_A), True),  # kw 24: tiles straddle grid rows
-    ((0, 0, 80, 260, 65, 4, _S80, *_A), False),  # kw 4 (straddling) with kh past 64
-    ((0, 0, 80, 780, 65, 12, _S80, *_A), False),  # kw 12 (straddling) with kh past 64
+    ((0, 0, 80, 260, 65, 4, _S80, *_A), True),  # kw 4 (straddling) with kh past 64
+    ((0, 0, 80, 780, 65, 12, _S80, *_A), True),  # kw 12 (straddling) with kh past 64
     ((0, 0, 80, 2305, 64, 36, _S80, *_A), False),  # kw 36 (straddling), S off the grid
-    ((0, 0, 80, 4608, 64, 72, _S80, *_A), False),  # wider than 64
-    ((0, 0, 80, 2080, 65, 32, _S80, *_A), False),  # kh 65 on a 32-wide grid
+    ((0, 0, 80, 4608, 64, 72, _S80, *_A), False),  # wider than 64: the streamed mode's
+    ((0, 0, 80, 2080, 65, 32, _S80, *_A), True),  # kh 65 on a 32-wide grid
     ((0, 0, 96, 2048, 64, 32, 96 ** -0.5, *_A), True),  # head dim 96 on a 32-wide grid
     ((0, 1, 80, 2048, 64, 32, _S80, *_A), False),  # bf16 on a 32-wide grid: the tile
     ((0, 0, 80, 2048, 64, 32, _S80, 0, 0, 0, 0, 4, 0), False),  # narrow, bias_h off 16 bytes
@@ -123,8 +123,8 @@ def _sam_factors(jx, rows, cols, g, d, spread):
     ((1, 0, 64, 196, 14, 14, 0.125, *_A), False),  # K5 at head dim 64: the FMA kernel
     ((0, 0, 96, 4096, 64, 64, 96 ** -0.5, *_A), True),  # head dim 96: a swizzled table
     ((0, 0, 128, 4096, 64, 64, 128 ** -0.5, *_A), False),
-    ((0, 0, 80, 4096, 128, 32, _S80, *_A), False),  # kw 32 with kh past 64
-    ((0, 0, 80, 8192, 128, 64, _S80, *_A), False),  # kh past 64
+    ((0, 0, 80, 4096, 128, 32, _S80, *_A), True),  # kw 32 with kh past 64
+    ((0, 0, 80, 8192, 128, 64, _S80, *_A), True),  # kh past 64
     ((0, 0, 80, 4095, 64, 64, _S80, *_A), False),  # S off the grid
     ((1, 0, 80, 256, 16, 16, _S80, *_A), False),  # 16 x 16 windows
     ((1, 0, 80, 196, 14, 14, _S80, 0, 0, 0, 0, 0, 8), False),  # bias_w off 16 bytes
@@ -142,7 +142,7 @@ def _sam_factors(jx, rows, cols, g, d, spread):
     ((0, 0, 96, 3584, 64, 56, 96 ** -0.5, *_A), True),  # head dim 96, the widest narrow grid
     ((0, 0, 96, 64, 1, 64, 96 ** -0.5, *_A), True),  # head dim 96, one grid row
     ((0, 0, 96, 32, 1, 32, 96 ** -0.5, *_A), True),  # head dim 96, kh 1 on a 32-wide grid
-    ((0, 0, 96, 2340, 65, 36, 96 ** -0.5, *_A), False),  # head dim 96, kw 36 with kh past 64
+    ((0, 0, 96, 2340, 65, 36, 96 ** -0.5, *_A), True),  # head dim 96, kw 36 with kh past 64
     ((0, 0, 96, 4096, 64, 64, 96 ** -0.5, 0, 0, 0, 0, 0, 4), False),  # bias_w off 16 bytes
     ((0, 0, 96, 2048, 64, 32, 96 ** -0.5, 4, 0, 0, 0, 0, 0), False),  # narrow, q off 16 bytes
     ((0, 1, 96, 4096, 64, 64, 96 ** -0.5, *_A), False),  # bf16 at head dim 96: the tile
@@ -162,13 +162,15 @@ def _sam_factors(jx, rows, cols, g, d, spread):
     ((0, 0, 80, 2304, 64, 36, _S80, 0, 0, 0, 0, 0, 4), False),  # kw 36, bias_w off 16 bytes
 ])
 def test_relpos_tf32_route_pins_the_predicate(args, takes):
-    """The Python mirror of ``bff_relpos_tf32_takes``: f32, kh <= 64 with kw =
+    """The Python mirror of ``bff_relpos_tf32_takes``: f32, any kh with kw =
     64, a multiple of 8 from 8 to 56 (the narrow mode) or any other width
     below 64 (the straddling mode) at head dim 64, 80 or 96 (K4) or 14 x 14
     windows at 80 (K5), a positive finite f32
     scale, six 16-byte aligned pointers; and the counter a call moves:
     ``..._tf32`` where it takes the call, else the bf16 wgmma kernels'
-    ``..._wgmma`` or the entry's own (the mma.sync tile, the FMA kernels)."""
+    ``..._wgmma``, the streamed mode's past 64 grid columns
+    (``relpos_tf32_streamed_route``) or the entry's own (the mma.sync tile,
+    the FMA kernels)."""
     assert tfa.relpos_tf32_route(*args) is takes
     kind = args[0]
     key = tfa.relpos_counter(*args)
@@ -177,6 +179,8 @@ def test_relpos_tf32_route_pins_the_predicate(args, takes):
         assert key == name + "_tf32"
     elif tfa.relpos_wgmma_route(*args):
         assert key == name + "_wgmma"
+    elif tfa.relpos_tf32_streamed_route(*args):
+        assert key == "flash_attention_relpos_tf32_streamed"
     else:
         assert key == name
 
@@ -698,20 +702,20 @@ def test_k5_tf32_matches_plain_on_card(cuda_device, g, scale, spread):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["d112", "kw36", "kw36_d64", "kw4", "d96_kw36", "misaligned",
-                                  "window_d64", "window_16"])
+@pytest.mark.parametrize("case", ["d112", "kw36_d128", "kw36_d48", "kw4_d32", "kw36_d112",
+                                  "misaligned", "window_d64", "window_16"])
 def test_other_f32_relpos_calls_keep_the_fma_kernels_on_card(cuda_device, case):
-    """f32 calls outside the predicate (head dim 112 on a 64-wide grid, a
-    36-wide grid at head dim 80, 64 and 96 and a 4-wide one 65 rows tall
-    (the straddling mode takes these widths up to 64 rows), an input off 16
-    bytes, head-dim-64 and 16 x 16 windows) stay on the FMA kernels, counted
-    as ``flash_attention_relpos`` or ``window_attention_relpos``, within
-    1e-4."""
+    """f32 calls outside the predicates (head dim 112 on a 64-wide grid, a
+    36-wide grid 65 rows tall at head dims 128, 48 and 112 and a 4-wide one
+    at 32 (at 64, 80 and 96 the straddling mode takes these grids at any
+    height), an input off 16 bytes, head-dim-64 and 16 x 16 windows) stay
+    on the FMA kernels, counted as ``flash_attention_relpos`` or
+    ``window_attention_relpos``, within 1e-4."""
     window = case.startswith("window")
     rows, cols = ((16, 16) if case == "window_16" else (14, 14)) if window else (
-        (65, 36) if case.startswith("kw36") or case == "d96_kw36" else
-        (65, 4) if case == "kw4" else (16, 64))
-    d = {"d112": 112, "d96_kw36": 96, "kw36_d64": 64, "window_d64": 64}.get(case, 80)
+        (65, 36) if case.startswith("kw36") else (65, 4) if case == "kw4_d32" else (16, 64))
+    d = {"d112": 112, "kw36_d128": 128, "kw36_d112": 112, "kw36_d48": 48, "kw4_d32": 32,
+         "window_d64": 64}.get(case, 80)
     q, k, v, bias_h, bias_w = _card_inputs(cuda_device, 3, rows, cols, d=d)
     if case == "misaligned":
         buf = torch.empty(q.numel() + 1, device=cuda_device)
@@ -805,7 +809,7 @@ def test_relpos_tf32_raises_on_a_failed_launch_on_card(cuda_device, monkeypatch,
                                   "k5_tf32_prefetch", "relpos_tf32_no_pingpong",
                                   "relpos_tf32_no_fold", "k4_tf32_d64_stages_1_1",
                                   "k4_tf32_d96_no_fold", "k4_tf32_d96_fold_whole",
-                                  "k4_tf32_d96_bias_start"])
+                                  "k4_tf32_d96_bias_start", "k4_tf32_bw_from_l2"])
 def test_relpos_tf32_variant_edits_match_the_sources(name):
     """Each of ``tools/kernel_variants.py``'s variants of the f32 rel-pos
     routes is a set of edits that must each match its source once; they
