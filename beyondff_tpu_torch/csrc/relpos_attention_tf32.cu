@@ -9,8 +9,9 @@
 //   ViT-H's global blocks in detector.dtype float32 under
 //   BFF_SAM_RELPOS_FLASH=1: (16 B, 4096, 80), and (16 B, 3072, 80) on the
 //   rect 48 x 64 grid; and at head dim 64, the shape of SAM ViT-L's (16 B,
-//   4096, 64) and ViT-B's (12 B, 4096, 64) global blocks, and at head dim
-//   96, which the public entry takes and no configured model calls.
+//   4096, 64) and ViT-B's (12 B, 4096, 64) global blocks, and at head dims
+//   32, 48, 96, 112 and 128, which the public entry takes and no configured
+//   model calls.
 // * window_relpos_tf32_kernel replaces, for float32 inputs, the TPU kernel
 //   beyondff_tpu/kernels/window_attention.py window_attention_relpos (:51,
 //   pallas_call :110): the same function over G independent 14 x 14 windows
@@ -22,16 +23,28 @@
 // bff_relpos_tf32_takes accepts (kernels/flash_attention.py
 // relpos_tf32_route mirrors it): f32, any kh >= kMinGridH with kw = 64, kw a
 // multiple of 8 from kMinGridW = 8 to 56 (the narrow mode below) or any
-// other kw from kMinStraddleW to 63 (the straddling mode), at D 64, 80 or
-// 96 (K4; K5's windows past 256 tokens too, G windows as BH), or a 14 x 14
-// window at D 80 (K5), a positive finite scale, and q, k, v, o and both
-// factors 16-byte aligned; and those that bff_relpos_tf32_streamed_takes
-// accepts (relpos_tf32_streamed_route): K4 at D 64, 80 or 96 on grids wider
-// than 64, any kh (the streamed mode). Every other f32 call keeps the FMA
-// kernels of csrc/relpos_attention.cu. The line lies below every grid K4
+// other kw from kMinStraddleW to 63 (the straddling mode), at the head dims
+// of k4_dim, the multiples of 16 from 32 to 128 (K4; K5's windows past 256
+// tokens too, G windows as BH), or a 14 x 14 window at D 80 (K5), a positive
+// finite scale, and q, k, v, o and both factors 16-byte aligned; and those
+// that bff_relpos_tf32_streamed_takes accepts (relpos_tf32_streamed_route):
+// K4 at those head dims on grids wider than 64, any kh (the streamed mode).
+// Every other f32 call keeps the FMA kernels of csrc/relpos_attention.cu:
+// head dim 16, those that are no multiple of 16 and 136, and a pointer off
+// 16 bytes. The line lies below every grid K4
 // takes: at one grid row (16 heads, S = 64) this kernel took 0.0101 ms
 // against the FMA kernel's 0.0211, at 2, 4 and 8 rows 2.5-3.5x less
 // (tools/kernel_variants.py --cases "relpos_f32 small"), so kMinGridH is 1.
+// The lines hold at every head dim K4 takes (the same tool, device time, 16
+// heads, NVIDIA H100 80GB HBM3 at 700 W): on 1, 2, 4 and 8 rows of 64, 1 x
+// 8, 8 x 8, 1 x 65 and kw 1-7 on 64 rows this kernel took 0.25-0.85 of the
+// FMA kernel's time at D 32, 48, 112 and 128 (D 128: 1 x 64 0.0140 ms
+// against 0.0282, 64 x 1 0.0158 against 0.0285; D 32: 1 x 8 0.0063 against
+// 0.0075, the closest). At one tile of D 32 and 48 both calls take less
+// than the host's launches: by events, back to back, 1 x 8 at D 32 took
+// 0.0112 against 0.0089 (this route's two launches and scratch, 12 us a
+// call on the host against 9), a cost of the call's host side, not of the
+// kernel.
 // No mode ties the grid's height to 64: bias_h is read from device memory
 // by grid row, never tabled, and tile counts and offsets are ints of S (row
 // offsets 64-bit), so taller grids, past kh + kw = 256 too, take the same
@@ -210,6 +223,46 @@
 //   registers, 108 bytes spilled in the wide mode and 168 in the narrow one
 //   (the bias at the start: 100 and 152; the fold in one part: 180 and 268;
 //   no fold: none and 88).
+// * Head dims 112 and 128 (K4Cfg<112>, <128>, every mode). A 64-key stage
+//   of K and V^T, hi and lo, is 112 or 128 KB, and both consumers' Q images
+//   as much again: past the 227 KB. So the tiles are 32 keys (kBN128, as
+//   csrc/flash_attention_tf32.cu's Cfg<128>): S = Q K^T by 3 D / 8
+//   wgmma.m64n32k8, one K and one V stage, and still two 64-row consumers,
+//   so a block's re-reads of the K and V images per query row stay those
+//   of the 64-key design (64-row blocks would double them). At D 128: Q 128
+//   KB, the stages 64 KB, the table's room 34 304 bytes (the straddling
+//   mode's 67 floats a row; the wide mode's table 64 floats a row,
+//   swizzled as at 96): 232 000 bytes with the barriers and the alignment.
+//   At 112 the wide table keeps 72-float rows (209 984 bytes). What a
+//   32-key tile changes: in the wide mode a tile is half a grid row
+//   (bias_w's columns from 32 (t % 2), bias_h[q, t / 2] still one shift a
+//   tile); in the narrow mode an n8 group still lies in one grid row; the
+//   straddling mode adds each score's whole bias after the products as
+//   before; in the streamed mode a tile lies in at most two grid rows and
+//   its slot is 128 x 32 floats (group g of row r at g ^ (r % 4)), one copy
+//   step a row. The pre-pass writes 32-key tiles into scratch rounded up to
+//   32 keys. Registers (168): the output 64 (56 at 112), the scores 16,
+//   their bias 16, P's halves 32, a fold part 16 at 128 (four parts,
+//   m64n32k8) and 28 at 112 (two, m64n56k8); ptxas spills 112, 192, 184
+//   and 136 bytes at D 128 in the wide, narrow, straddling and streamed
+//   modes (two parts of 64: 160, 240, 200 and 184, and 4-15% slower,
+//   k4_tf32_d128_fold_2), 24, 144, 104 and 72 at 112. The products run from zero and the bias is added
+//   after them (kBiasAfter128): started at bias_w (the variant
+//   k4_tf32_d128_bias_start) K4 lay 1.44e-4 and 1.51e-4 from plain at
+//   factor scale 3 at D 128 and 112 (4.3e-5 and 3.4e-5 this way). The other
+//   plan, the wide 3xTF32 kernel of csrc/relpos_attention_wide_tf32.cu at a
+//   padded DP of 128 (one 64-row consumer, k4_tf32_plan_b), took 3.802 ms
+//   at (16, 4096, 128) on 64 x 64 against this kernel's 1.864
+//   (tools/kernel_variants.py on an H100 at 700 W, one process).
+// * Head dims 32 and 48 (K4Cfg<32>, <48>): images of 8 and 12 KB a 64-key
+//   tile, D / 8 = 4 and 6 regions a row, P V by wgmma.m64n32k8 and
+//   m64n48k8. Two K and two V stages fit beside the table (136 256 and
+//   185 408 bytes); one V stage was within 2.3% either way, one of each up
+//   to 20% slower in the streamed mode (k4_tf32_d32_stages_*). The bias is the
+//   scores' start, as at 64 and 80: 4.0e-5 and 6.8e-5 from plain at factor
+//   scale 3. No spill. At these head dims the softmax's ex2 weighs most
+//   against the products: 16 heads at S 4096 are 2.7e8 ex2 (0.064 ms at
+//   the SFUs' 4.2e12 a second) against 0.208 ms of products at D 32.
 //
 // K5 design (a persistent grid of one block a SM, each walking items g * 2
 // + round, the 128 query rows 128 round .. of window g):
@@ -314,6 +367,19 @@ constexpr int kFoldParts96 = 2;
 // they are in (its table reads issued while the products run): started at
 // bias_w, the tensor cores' sums carry its magnitude through 36 k-steps
 constexpr bool kBiasAfter96 = true;
+// K4 at head dims 112 and 128 (K4Cfg): 32-key tiles (64-key stages and Q's
+// images pass the block's shared memory), one K and one V stage, each
+// tile's P V summed apart in column parts (two of 56 at 112, four of 32 at
+// 128), the bias added in f32 after the products, as at 96
+constexpr int kBN128 = 32;
+// the keys of a K4 tile at head dim D: K4Cfg<D>::kBN and the scratch's padding
+__host__ __device__ constexpr int k4_tile(int D) { return D > 96 ? kBN128 : kBN; }
+constexpr int kFoldParts112 = 2, kFoldParts128 = 4;
+constexpr bool kBiasAfter128 = true;
+// K4 at head dims 32 and 48 (K4Cfg): the K and V rings' depths
+constexpr int kKStages32 = 2, kVStages32 = 2;
+// the head dims K4's kernel takes: the multiples of 16 in [kMinK4D, kMaxK4D]
+constexpr int kMinK4D = 32, kMaxK4D = 128;
 constexpr int kSplitThreads = 256;
 
 // K5
@@ -686,48 +752,61 @@ __host__ __device__ constexpr int straddle_ld(int kw) { return kw + (19 - kw % 1
 // distinct banks).
 template <int D>
 struct K4Cfg {
-  static constexpr int kKStages = D == 64 ? kKStages64 : ::kKStages;
-  static constexpr int kVStages = D == 64 ? kVStages64 : ::kVStages;
-  static constexpr bool kFold = D == 96 ? kFold96 : ::kFold;
-  static constexpr int kFoldParts = D == 96 && kFold96 ? kFoldParts96 : 1;
-  static constexpr bool kBiasAfter = D == 96 && kBiasAfter96;
+  static_assert(D % 16 == 0 && D >= 32 && D <= 128, "K4's head dims");
+  static constexpr bool kSmall = D < 64;   // 32 and 48
+  static constexpr bool kLarge = D > 96;   // 112 and 128
+  static constexpr int kBN = k4_tile(D);  // keys of a tile
+  static constexpr int kKStages = D == 64 ? kKStages64 : kSmall ? kKStages32 : ::kKStages;
+  static constexpr int kVStages = D == 64 ? kVStages64 : kSmall ? kVStages32 : ::kVStages;
+  // (at 112 and 128 always: the output's 56 or 64 registers have no room
+  // for a tile's whole P V, and m64n128k8 no instance here)
+  static constexpr bool kFold = D == 96 ? kFold96 : kLarge || ::kFold;
+  static constexpr int kFoldParts = D == 96 && kFold96 ? kFoldParts96
+                                    : D == 112          ? kFoldParts112
+                                    : D == 128          ? kFoldParts128
+                                                        : 1;
+  static constexpr bool kBiasAfter = (D == 96 && kBiasAfter96) || (kLarge && kBiasAfter128);
   static constexpr bool kOverlapped = kOverlap && kFoldParts == 1 && !kBiasAfter;
-  static constexpr bool kBwSwizzled = D == 96;
+  static constexpr bool kBwSwizzled = D == 96 || D == 128;
   static constexpr int kBwLdWide = kBwSwizzled ? kGridW : kBwLd;  // the wide mode's row stride
   // the table's room: the widest of the modes' strides (the straddling
-  // mode's passes the swizzled 64 at D 96)
+  // mode's passes the swizzled 64 at D 96 and 128)
   static constexpr int kBwRoom = std::max(kBwLdWide, straddle_ld(kGridW - 1));
-  static constexpr int kImg = img_bytes<D>(kBN);  // 20 KB at D 80, 16 KB at D 64, 24 KB at 96
+  static constexpr int kQImg = img_bytes<D>(64);   // a consumer's 64 rows of Q
+  static constexpr int kImg = img_bytes<D>(kBN);   // a tile's K (or V^T) image
   static constexpr int kQOff = 0;
-  static constexpr int kKOff = kQOff + 2 * kConsumers * kImg;
+  static constexpr int kKOff = kQOff + 2 * kConsumers * kQImg;
   static constexpr int kVOff = kKOff + 2 * kKStages * kImg;
   static constexpr int kBwOff = kVOff + 2 * kVStages * kImg;
   static constexpr int kBarOff = kBwOff + kBM * kBwRoom * 4;
   static constexpr int kSmemBytes = kBarOff + (int)sizeof(Barriers) + 1024;
   static_assert(kSmemBytes <= 232448, "K4's shared memory");
-  // the streamed mode: a bias_w slot (128 rows x 64 floats) a K stage in
-  // the table's room, grown where two K stages need more (D 64)
-  static constexpr int kSlotFloats = kBM * kGridW;
+  // the streamed mode: a bias_w slot (128 rows x kBN floats) a K stage in
+  // the table's room, grown where two K stages need more (D 32, 48, 64)
+  static constexpr int kSlotFloats = kBM * kBN;
   static constexpr int kStreamBarOff =
       kBwOff + std::max(kBM * kBwRoom, kKStages * kSlotFloats) * 4;
   static constexpr int kStreamSmemBytes = kStreamBarOff + (int)sizeof(Barriers) + 1024;
   static_assert(kStreamSmemBytes <= 232448, "K4's shared memory, the streamed mode");
   static_assert(kKStages <= 2 && kVStages <= 2, "the barriers' stages");
   static_assert(narrow_ld(kGridW - 8) <= kBwRoom, "the narrow mode's table");
+  static_assert(kGridW % kBN == 0 && kBN % 32 == 0, "a wide grid row is whole tiles");
+  static_assert(kImg % 256 == 0 && kQImg % 256 == 0, "images on the swizzle's period");
 };
 constexpr int kImg64 = img_bytes(kBN);  // a 64-row image at head dim 80, 20 KB
 
-// Each 64-key tile of a head as four images (K hi, K lo, V^T hi, V^T lo):
-// tile t of head bh at scratch + (bh * n_tiles + t) * 4 * img_bytes<D>(64).
+// Each kBN-key tile of a head as four images (K hi, K lo, V^T hi, V^T lo):
+// tile t of head bh at scratch + (bh * n_tiles + t) * 4 * K4Cfg<D>::kImg.
 // One block a tile. kRagged (the narrow mode): keys >= S of the last tile as
 // zero. K's and V's tiles are read at once where both fit the 48 KB of static
-// shared memory (D <= 80); at D 96 V's is read into K's once K's images are
-// written.
+// shared memory (D <= 80, and 112 and 128 at 32 keys); at D 96 V's is read
+// into K's once K's images are written.
 template <int D, bool kRagged>
 __global__ void __launch_bounds__(kSplitThreads) split_kv_relpos_kernel(
     const float* __restrict__ k, const float* __restrict__ v, float* __restrict__ scratch,
     int S) {
   constexpr int kImg = K4Cfg<D>::kImg;
+  constexpr int kBN = K4Cfg<D>::kBN;
   constexpr bool kBoth = 2 * kBN * (D + 1) * 4 <= 48 * 1024;
   __shared__ float tk[kBN][D + 1], tv_own[kBoth ? kBN : 1][D + 1];
   float(*tv)[D + 1] = kBoth ? tv_own : tk;
@@ -779,7 +858,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_relpos_tf32_kernel(
     const float* __restrict__ bias_h, const float* __restrict__ bias_w, float* __restrict__ o,
     int S, int kh, int kw, float scale) {
   using C = K4Cfg<D>;
-  constexpr bool kNarrow = kMode != kWideMode;  // 64-key tiles across grid rows
+  constexpr int kBN = C::kBN;
+  constexpr bool kNarrow = kMode != kWideMode;  // kBN-key tiles across grid rows
   constexpr bool kStraddle = kMode == kStraddleMode;
   constexpr bool kStream = kMode == kStreamMode;
   // the straddling and streamed modes add the whole bias once the products are in
@@ -794,9 +874,9 @@ __global__ void __launch_bounds__(kThreads, 1) flash_relpos_tf32_kernel(
   const int q0 = blockIdx.x * kBM;
   const int cols = kNarrow ? kw : kGridW;                  // bias_w's columns
   const int ld = kStraddle ? straddle_ld(kw) : kNarrow ? narrow_ld(kw) : C::kBwLdWide;
-  // the wide mode's table at D 96: 8-column group j of row r at j ^ (r % 8)
+  // the wide mode's table at D 96 and 128: 8-column group j of row r at j ^ (r % 8)
   constexpr bool kSwizzled = !kNarrow && C::kBwSwizzled;
-  const int n_tiles = kNarrow ? (S + kBN - 1) / kBN : kh;
+  const int n_tiles = kNarrow ? (S + kBN - 1) / kBN : kh * (kGridW / kBN);
 
   // the block's rows of bias_w (zero past S); an odd or unaligned width's
   // rows float by float; none in the streamed mode
@@ -849,12 +929,14 @@ __global__ void __launch_bounds__(kThreads, 1) flash_relpos_tf32_kernel(
                   &bars->v_full[vst]);
       }
     } else if (kStream && kBwStreamed && threadIdx.x >= 128 * kConsumers + 32) {
-      // the streamed mode's slot of tile t's K stage: row r's run of 64
-      // bias_w columns from (64 t) % kw (wrapping at most once, kw > 64),
-      // column c at r * 64 + ((c / 8) ^ (r % 8)) * 8 + c % 8, zero past S;
-      // warp w of the three copies rows w, w + 3, ..., a row's 32 columns a
-      // copy step, and each thread's arrival on the K stage's full barrier
-      // comes when its copies are in
+      // the streamed mode's slot of tile t's K stage: row r's run of kBN
+      // bias_w columns from (kBN t) % kw (wrapping at most once, kw > 64),
+      // column c at r * kBN + ((c / 8) ^ (r % (kBN / 8))) * 8 + c % 8, zero
+      // past S; warp w of the three copies rows w, w + 3, ..., a row's 32
+      // columns a copy step, and each thread's arrival on the K stage's full
+      // barrier comes when its copies are in
+      static_assert(kBN == 32 || kBN == 64, "one or two copy steps a row");
+      constexpr int kGroups = kBN / 8;
       const int fw = (threadIdx.x - 128 * kConsumers) / 32 - 1;
       const float* bw_block = bias_w + ((long long)bh * S + q0) * kw;
       for (int t = 0; t < n_tiles; ++t) {
@@ -868,10 +950,11 @@ __global__ void __launch_bounds__(kThreads, 1) flash_relpos_tf32_kernel(
         for (int r = fw; r < kBM; r += 3) {
           const bool live = q0 + r < S;
           const float* src = bw_block + (long long)r * kw;
-          bff_tc::cp_async4(slot + r * kGridW + (((lane >> 3) ^ (r & 7)) << 3),
+          bff_tc::cp_async4(slot + r * kBN + (((lane >> 3) ^ (r & (kGroups - 1))) << 3),
                             live ? src + x0 : bias_w, live ? 4 : 0);
-          bff_tc::cp_async4(slot + r * kGridW + ((((lane >> 3) + 4) ^ (r & 7)) << 3),
-                            live ? src + x1 : bias_w, live ? 4 : 0);
+          if constexpr (kBN == 64)
+            bff_tc::cp_async4(slot + r * kBN + ((((lane >> 3) + 4) ^ (r & (kGroups - 1))) << 3),
+                              live ? src + x1 : bias_w, live ? 4 : 0);
         }
         asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
                          smem_u32(&bars->k_full[kst]))
@@ -883,8 +966,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_relpos_tf32_kernel(
     // ---------------------------------------------------------- consumers
     const int tq = lane & 3;
     const int rb = wg * 64 + ((threadIdx.x / 32) & 3) * 16 + lane / 4;  // and rb + 8
-    unsigned char* q_hi = smem + C::kQOff + 2 * wg * kImg;
-    unsigned char* q_lo = q_hi + kImg;
+    unsigned char* q_hi = smem + C::kQOff + 2 * wg * C::kQImg;
+    unsigned char* q_lo = q_hi + C::kQImg;
     stage_q<D>(q_hi, q_lo, q + ((long long)bh * S + q0 + wg * 64) * D, S - q0 - wg * 64, scale,
                wg);
     if (kPingpong && wg == kConsumers - 1) turn_arrive(1 + (wg + 1) % kConsumers);
@@ -896,15 +979,18 @@ __global__ void __launch_bounds__(kThreads, 1) flash_relpos_tf32_kernel(
     for (int h = 0; h < 2; ++h)
       bh_row[h] = q0 + rb + 8 * h < S ? bias_h + ((long long)bh * S + q0 + rb + 8 * h) * kh
                                       : nullptr;
-    // tile t: the accumulators start at bias_w (the same for every tile),
-    // the rows shift by bias_h[q, t] in log2 units
+    // tile t: the accumulators start at bias_w (the same for every tile of
+    // a grid row; at 32-key tiles, D 112 and 128, the row's half t % 2), the
+    // rows shift by bias_h[q, t / (64 / kBN)] in log2 units
     auto init_wide = [&](int t, float (&s)[kBN / 2], float (&sh)[2][1]) {
+      constexpr int kPerRow = kGridW / kBN;  // tiles a grid row
+      const int g0 = (t % kPerRow) * (kBN / 8);
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        sh[h][0] = bh_row[h] != nullptr ? __ldg(bh_row[h] + t) * kL2e : 0.f;
+        sh[h][0] = bh_row[h] != nullptr ? __ldg(bh_row[h] + t / kPerRow) * kL2e : 0.f;
 #pragma unroll
         for (int j = 0; j < kBN / 8; ++j) {
-          const float2 w = *reinterpret_cast<const float2*>(bw_row[h] + 8 * (j ^ bw_sw));
+          const float2 w = *reinterpret_cast<const float2*>(bw_row[h] + 8 * ((g0 + j) ^ bw_sw));
           s[4 * j + 2 * h] = w.x;
           s[4 * j + 2 * h + 1] = w.y;
         }
@@ -1000,7 +1086,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_relpos_tf32_kernel(
         h1[h] = bh_row[h] != nullptr && split < kBN && ky + 1 < kh ? __ldg(bh_row[h] + ky + 1)
                                                                  : 0.f;
       }
-      const float* slot = sBw + (t % C::kKStages) * C::kSlotFloats + rb * kGridW + 2 * tq;
+      const float* slot = sBw + (t % C::kKStages) * C::kSlotFloats + rb * kBN + 2 * tq;
 #pragma unroll
       for (int j = 0; j < kBN / 8; ++j) {
 #pragma unroll
@@ -1008,7 +1094,8 @@ __global__ void __launch_bounds__(kThreads, 1) flash_relpos_tf32_kernel(
           float w[2];
           if constexpr (kBwStreamed) {
             const float2 p = *reinterpret_cast<const float2*>(
-                slot + 8 * h * kGridW + ((j ^ (lane / 4)) << 3));
+                slot + 8 * h * kBN +
+                ((j ^ (kBN == kGridW ? lane / 4 : (lane / 4) & (kBN / 8 - 1))) << 3));
             w[0] = p.x;
             w[1] = p.y;
           } else {
@@ -1048,7 +1135,7 @@ __global__ void __launch_bounds__(kThreads, 1) flash_relpos_tf32_kernel(
     else
       attend_rows<kBN, C::kKStages, C::kVStages, kOverlapped, D, 1, C::kFold,
                   C::kFoldParts, kBiasAfter>(acc, l, smem_u32(q_hi), smem_u32(q_lo), ring, 0,
-                                             kh, wg, init_wide);
+                                             n_tiles, wg, init_wide);
     if (kPingpong && wg == 0) turn_sync(1);  // the last consumer's last turn
     const int row = q0 + rb;
     store_rows<D>(acc, l, o + ((long long)bh * S + row) * D, row < S, row + 8 < S);
@@ -1067,7 +1154,8 @@ int launch_k4(const void* q, const void* k, const void* v, const void* bias_h,
     if (err != cudaSuccess) return (int)err;
     configured = true;
   }
-  const int n_tiles = (S + kBN - 1) / kBN;  // kh at kw = 64
+  constexpr int kBN = K4Cfg<D>::kBN;
+  const int n_tiles = (S + kBN - 1) / kBN;  // kh (64 / kBN) at kw = 64
   split_kv_relpos_kernel<D, kMode != kWideMode><<<dim3(n_tiles, BH), kSplitThreads, 0, s>>>(
       static_cast<const float*>(k), static_cast<const float*>(v), static_cast<float*>(scratch),
       S);
@@ -1247,6 +1335,9 @@ __global__ void __launch_bounds__(kThreads, 1) window_relpos_tf32_kernel(
   }
 }
 
+// K4's head dims: the K4Cfg instances, the multiples of 16 from kMinK4D to kMaxK4D
+bool k4_dim(int D) { return D % 16 == 0 && D >= kMinK4D && D <= kMaxK4D; }
+
 bool aligned(const void* q, const void* k, const void* v, const void* o, const void* bh,
              const void* bw) {
   return aligned16(q) && aligned16(k) && aligned16(v) && aligned16(o) && aligned16(bh) &&
@@ -1258,8 +1349,8 @@ bool aligned(const void* q, const void* k, const void* v, const void* o, const v
 // The routing predicate (kernels/flash_attention.py relpos_tf32_route
 // mirrors it): 1 when bff_flash_attention_relpos (kind 0, K4; rows x cols =
 // kh x kw) or bff_window_attention_relpos (kind 1, K5; wh x ww) takes the
-// 3xTF32 kernel for the call: K4 at head dim 64, 80 or 96 on grids of any
-// height from kMinGridH with kw = 64, kw a multiple of 8 in [kMinGridW, 64)
+// 3xTF32 kernel for the call: K4 at head dims 32 to 128 in steps of 16 on
+// grids of any height from kMinGridH with kw = 64, kw a multiple of 8 in [kMinGridW, 64)
 // (the narrow mode) or any other kw in [kMinStraddleW, 64) (the
 // straddling mode), K5 at 80. (bff_window_attention_relpos also asks with
 // kind 0 for its windows past 256 tokens, G windows as BH.) Grids wider
@@ -1272,7 +1363,7 @@ extern "C" int bff_relpos_tf32_takes(int kind, int dtype, int D, int S, int rows
       cols == kGridW ||
       (cols < kGridW && (cols % 8 == 0 ? cols >= kMinGridW : cols >= kMinStraddleW));
   const bool shape = kind == 0   ? width && rows >= kMinGridH && (long long)rows * cols == S &&
-                                     (D == 64 || D == kD || D == 96)
+                                     k4_dim(D)
                      : kind == 1 ? rows == kWin && cols == kWin && S == kWinS && D == kD
                                  : false;
   return shape && dtype == 0 && scale > 0.f && scale <= FLT_MAX &&
@@ -1283,27 +1374,28 @@ extern "C" int bff_relpos_tf32_takes(int kind, int dtype, int D, int S, int rows
 // relpos_tf32_streamed_route mirrors it): 1 when K4's kernels (kind 0, a
 // rows x cols = kh x kw grid; bff_window_attention_relpos asks so for its
 // windows past 256 tokens) take the 3xTF32 kernel in the streamed mode: f32
-// at head dim 64, 80 or 96, any kh >= 1 and kw past 64, a positive finite
+// at head dims 32 to 128 in steps of 16, any kh >= 1 and kw past 64, a positive finite
 // scale and every pointer on 16 bytes. The entry is bff_flash_relpos_tf32.
 extern "C" int bff_relpos_tf32_streamed_takes(int kind, int dtype, int D, int S, int rows,
                                               int cols, float scale, const void* q,
                                               const void* k, const void* v, const void* o,
                                               const void* bias_h, const void* bias_w) {
-  const bool shape = kind == 0 && rows >= 1 && cols > kGridW && (long long)rows * cols == S &&
-                     (D == 64 || D == kD || D == 96);
+  const bool shape =
+      kind == 0 && rows >= 1 && cols > kGridW && (long long)rows * cols == S && k4_dim(D);
   return shape && dtype == 0 && scale > 0.f && scale <= FLT_MAX &&
          aligned(q, k, v, o, bias_h, bias_w);
 }
 
 // The scratch a K4 call at head dim D needs (every mode), in floats: each
-// 64-key tile's K hi, K lo, V^T hi and V^T lo images, 4 BH Sp D with Sp = S
-// rounded up to 64 keys (S itself at kw = 64).
+// tile's K hi, K lo, V^T hi and V^T lo images, 4 BH Sp D with Sp = S rounded
+// up to the tile's keys (64; 32 at D 112 and 128; S itself at kw = 64).
 extern "C" long long bff_relpos_tf32_scratch_floats(int BH, int S, int D) {
-  return 4LL * BH * ((S + kBN - 1) / kBN * kBN) * D;
+  const int bn = k4_tile(D);
+  return 4LL * BH * ((S + bn - 1) / bn * bn) * D;
 }
 
 // K4, every mode. q, k, v, o: contiguous (BH, S, D) f32 with S = kh * kw
-// and D 64, 80 or 96; bias_h (BH, S, kh), bias_w (BH, S, kw) f32; scratch:
+// and D 32, 48, 64, 80, 96, 112 or 128; bias_h (BH, S, kh), bias_w (BH, S, kw) f32; scratch:
 // 16-byte aligned, at least bff_relpos_tf32_scratch_floats floats, on the
 // same stream. Returns cudaGetLastError() after the launches, -1 for
 // arguments outside both predicates or no scratch.
@@ -1318,8 +1410,14 @@ extern "C" int bff_flash_relpos_tf32(const void* q, const void* k, const void* v
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define BFF_K4(DIM, MODE) \
   launch_k4<DIM, MODE>(q, k, v, bias_h, bias_w, o, scratch, BH, S, kh, kw, scale, s)
-#define BFF_K4_DIMS(MODE) \
-  (D == 64 ? BFF_K4(64, MODE) : D == 96 ? BFF_K4(96, MODE) : BFF_K4(kD, MODE))
+#define BFF_K4_DIMS(MODE)                                                                \
+  (D == 32    ? BFF_K4(32, MODE)                                                         \
+   : D == 48  ? BFF_K4(48, MODE)                                                         \
+   : D == 64  ? BFF_K4(64, MODE)                                                         \
+   : D == 96  ? BFF_K4(96, MODE)                                                         \
+   : D == 112 ? BFF_K4(112, MODE)                                                        \
+   : D == 128 ? BFF_K4(128, MODE)                                                        \
+              : BFF_K4(kD, MODE))
   if (kw > kGridW) return BFF_K4_DIMS(kStreamMode);
   if (kw == kGridW) return BFF_K4_DIMS(kWideMode);
   if (kw % 8 == 0) return BFF_K4_DIMS(kNarrowMode);

@@ -30,10 +30,10 @@ calls on its 64-wide grids (K4; :func:`relpos_wgmma_route`) to the
 wgmma/TMA kernel of ``csrc/relpos_attention_wgmma.cu``, counted as
 ``flash_attention_relpos_wgmma``; its f32 head-dim-80 calls on those grids
 (K4 in ``detector.dtype: float32`` under ``BFF_SAM_RELPOS_FLASH=1``), its
-f32 head-dim-64 and -96 calls on them (SAM ViT-L's and ViT-B's global
-blocks at 64) and its f32 head-dim-64, -80 and -96 calls on grids narrower
-than 64 whose width is a multiple of 8 (portrait frames under
-``BFF_SAM_RECT=1``;
+f32 calls at the other multiples of 16 from 32 to 128 on them (SAM
+ViT-L's and ViT-B's global blocks at 64) and its f32 calls at those head
+dims on grids narrower than 64 whose width is a multiple of 8 (portrait
+frames under ``BFF_SAM_RECT=1``;
 :func:`relpos_tf32_route`) to the 3xTF32 wgmma kernel of
 ``csrc/relpos_attention_tf32.cu``, counted as
 ``flash_attention_relpos_tf32``; its bf16 calls at head dims 144 to 256 in
@@ -954,24 +954,27 @@ def relpos_wgmma_fragment(kind: int, warp: int, lane: int, tile: int, s: int = 1
 
 # csrc/relpos_attention_tf32.cu: K4's 64-key tiles (one grid row of kw =
 # 64; in the narrow and straddling modes, kw < 64, and the streamed mode,
-# kw > 64, 64 keys across grid rows), K5's 40-key tiles over a 14 x 14
+# kw > 64, 64 keys across grid rows; 32 keys at head dims 112 and 128,
+# RELPOS_TF32_TILE_LARGE), K5's 40-key tiles over a 14 x 14
 # window's 196 keys (200 with the masked ones), 128-row blocks (K4) and
 # rounds (K5) of two 64-row consumer warpgroups, the smallest grid height K4
 # takes (and any larger one), the narrow mode's smallest width (its widths
 # are multiples of 8) and the straddling mode's (every other width below
 # 64)
 RELPOS_TF32_TILE = 64
+RELPOS_TF32_TILE_LARGE = 32
 RELPOS_TF32_WINDOW_TILE = 40
 RELPOS_TF32_BLOCK_Q = 128
 RELPOS_TF32_MIN_GRID_H = 1
 RELPOS_TF32_MIN_GRID_W = 8
 RELPOS_TF32_MIN_STRADDLE_W = 1
-# the head dims each takes: K4 (kind 0) SAM ViT-L/B's 64, ViT-H's 80 and 96, K5 80
-RELPOS_TF32_HEAD_DIMS = {0: (64, 80, 96), 1: (80,)}
+# the head dims each takes: K4 (kind 0) the multiples of 16 from 32 to 128
+# (SAM ViT-L/B's 64, ViT-H's 80), K5 80
+RELPOS_TF32_HEAD_DIMS = {0: (32, 48, 64, 80, 96, 112, 128), 1: (80,)}
 # K4's head dims whose scores are summed from zero, bias_w added in f32
-# after the products (kBiasAfter96): at 96 the tensor cores' sums would
-# carry the factors' magnitude through 36 k-steps
-RELPOS_TF32_BIAS_AFTER = (96,)
+# after the products (kBiasAfter96, kBiasAfter128): from 96 on the tensor
+# cores' sums would carry the factors' magnitude through 36 to 48 k-steps
+RELPOS_TF32_BIAS_AFTER = (96, 112, 128)
 _WIN, _WIN_S = 14, 196
 
 
@@ -985,9 +988,9 @@ def relpos_tf32_route(kind: int, dtype: int, d: int, s: int, rows: int, cols: in
     pointers of q, k, v, the output, bias_h and bias_w. Taken: f32, any kh
     from ``RELPOS_TF32_MIN_GRID_H`` with kw = 64, kw a multiple of 8 from
     ``RELPOS_TF32_MIN_GRID_W`` to 56 (the narrow mode) or any other kw from
-    ``RELPOS_TF32_MIN_STRADDLE_W`` to 63 (the straddling mode) at head dim
-    64, 80 or 96 (K4; the window entry asks so, kind 0, for its windows past
-    256 tokens), or 14 x 14 windows at head dim 80 (K5), a positive finite
+    ``RELPOS_TF32_MIN_STRADDLE_W`` to 63 (the straddling mode) at head dims
+    32 to 128 in steps of 16 (K4; the window entry asks so, kind 0, for its
+    windows past 256 tokens), or 14 x 14 windows at head dim 80 (K5), a positive finite
     scale (rounded to f32 as the call passes it) and every pointer 16-byte
     aligned. Grids wider than 64 are :func:`relpos_tf32_streamed_route`'s."""
     f32 = ctypes.c_float(scale).value
@@ -1009,8 +1012,8 @@ def relpos_tf32_streamed_route(kind: int, dtype: int, d: int, s: int, rows: int,
     (kind 0, a ``rows`` x ``cols`` = kh x kw grid; the window entry asks so
     for its windows past 256 tokens) take ``csrc/relpos_attention_tf32.cu``'s
     3xTF32 kernel in its streamed mode (counted as
-    ``flash_attention_relpos_tf32_streamed``): f32 at head dim 64, 80 or 96,
-    any kh >= 1 and kw past 64, a positive finite scale (rounded to f32 as
+    ``flash_attention_relpos_tf32_streamed``): f32 at head dims 32 to 128 in
+    steps of 16, any kh >= 1 and kw past 64, a positive finite scale (rounded to f32 as
     the call passes it) and every pointer 16-byte aligned."""
     f32 = ctypes.c_float(scale).value
     shape = kind == 0 and rows >= 1 and cols > 64 and s == rows * cols
@@ -1039,13 +1042,21 @@ def relpos_tf32_straddle_ld(kw: int) -> int:
     return kw + (19 - kw % 16) % 16
 
 
+def relpos_tf32_tile(d: int) -> int:
+    """The keys of a K4 tile at head dim ``d`` on the 3xTF32 kernel
+    (``K4Cfg<D>::kBN``): 64, and 32 at head dims 112 and 128, where a 64-key
+    stage's images beside Q's pass the block's shared memory."""
+    return RELPOS_TF32_TILE_LARGE if d > 96 else RELPOS_TF32_TILE
+
+
 def relpos_tf32_scratch_floats(bh: int, s: int, d: int) -> int:
     """The mirror of ``bff_relpos_tf32_scratch_floats``: the floats of scratch
-    a K4 call at head dim ``d`` on the 3xTF32 kernel needs, each 64-key
-    tile's K hi, K lo, V^T hi and V^T lo images, 4 BH Sp D with Sp = S
-    rounded up to 64 keys (S = 64 kh is whole tiles; a narrow grid's last
-    tile is padded)."""
-    return 4 * bh * (-(-s // RELPOS_TF32_TILE) * RELPOS_TF32_TILE) * d
+    a K4 call at head dim ``d`` on the 3xTF32 kernel needs, each tile's
+    (:func:`relpos_tf32_tile`) K hi, K lo, V^T hi and V^T lo images, 4 BH Sp
+    D with Sp = S rounded up to the tile (S = 64 kh is whole tiles; a narrow
+    grid's last tile is padded)."""
+    tile = relpos_tf32_tile(d)
+    return 4 * bh * (-(-s // tile) * tile) * d
 
 
 def relpos_counter(kind: int, dtype: int, d: int, s: int, rows: int, cols: int, scale: float,
@@ -1057,8 +1068,8 @@ def relpos_counter(kind: int, dtype: int, d: int, s: int, rows: int, cols: int, 
     ``window_attention_relpos`` (kind 1); K5's windows that
     :func:`window_on_flash` sends to K4's kernels count as
     ``flash_attention_relpos``, or as K4's 3xTF32 kernel where it takes them
-    (f32 at head dims 64, 80 and 96: ``flash_attention_relpos_tf32``, and past
-    64 grid columns ``flash_attention_relpos_tf32_streamed``,
+    (f32 at head dims 32 to 128 in steps of 16: ``flash_attention_relpos_tf32``,
+    and past 64 grid columns ``flash_attention_relpos_tf32_streamed``,
     :func:`relpos_tf32_streamed_route`, as K4's own calls there); past the
     factor table, the tile with
     streamed factors (:func:`relpos_streamed_route`) as
@@ -1107,7 +1118,7 @@ def relpos_tf32_schedule(kind: int, n: int, s: int, sms: int = 132):
 
 
 def relpos_tf32_fragment(kind: int, warp: int, lane: int, tile: int, s: int = 196,
-                         kw: int = 64):
+                         kw: int = 64, d: int = 80):
     """The mirror of ``csrc/relpos_attention_tf32.cu``'s score index
     arithmetic: for lane ``lane`` of warp ``warp`` (0..3) of a consumer
     warpgroup and key tile ``tile``, one tuple per score register i, (i,
@@ -1116,11 +1127,13 @@ def relpos_tf32_fragment(kind: int, warp: int, lane: int, tile: int, s: int = 19
     masked). Register 4 j + e holds row 16 warp + lane / 4 + 8 (e / 2),
     column 8 j + 2 (lane % 4) + e % 2 of the m64nN tile.
 
-    K4 (kind 0, 64-key tiles of a grid ``kw`` wide, ``s`` keys): key 64
-    tile + column. At kw = 64, ky = tile (bias_h, a row shift), kx = the
-    column (bias_w, the initial value, from the table row of the warpgroup
-    row). In the narrow mode (kw < 64, a multiple of 8) n8 group j's keys
-    lie in one grid row: ky = (64 tile + 8 j) / kw (bias_h, the group's
+    K4 (kind 0, n-key tiles of a grid ``kw`` wide at head dim ``d``, n =
+    :func:`relpos_tf32_tile`, ``s`` keys; 64 in what follows): key 64 tile +
+    column. At kw = 64, ky = tile (bias_h, a row shift), kx = the column
+    (bias_w, the initial value, from the table row of the warpgroup row);
+    at 32-key tiles ky = tile / 2 and kx = 32 (tile % 2) + the column. In
+    the narrow mode (kw < 64, a multiple of 8) n8 group j's keys lie in one
+    grid row: ky = (64 tile + 8 j) / kw (bias_h, the group's
     shift), kx = (64 tile + 8 j) % kw + 2 (lane % 4) + e % 2 (bias_w, the
     initial value), the kernel's running (ky, kx) advanced by 8 keys a
     group without a division; keys >= ``s`` are masked. In the straddling
@@ -1138,7 +1151,7 @@ def relpos_tf32_fragment(kind: int, warp: int, lane: int, tile: int, s: int = 19
     pair c = key - e % 2 gives ky = c / 14 and kx = c % 14 + e % 2 (one
     bias_h read and one 8-byte bias_w read a pair); keys >= ``s`` are
     masked."""
-    n = RELPOS_TF32_TILE if kind == 0 else RELPOS_TF32_WINDOW_TILE
+    n = relpos_tf32_tile(d) if kind == 0 else RELPOS_TF32_WINDOW_TILE
     quad = lane % 4
     out = []
     if kind == 0 and relpos_tf32_mode(kw) == "streamed":
@@ -1192,7 +1205,7 @@ def relpos_tf32_fragment(kind: int, warp: int, lane: int, tile: int, s: int = 19
             out.append((i, row, key, gy, gx + 2 * quad + e % 2) if n * tile + 8 * j < s
                        else (i, row, key, None, None))
         elif kind == 0:
-            out.append((i, row, key, tile, col))
+            out.append((i, row, key, *divmod(key, 64)))
         else:
             c = key - e % 2
             out.append((i, row, key, c // _WIN, c % _WIN + e % 2) if c < s
@@ -1200,13 +1213,14 @@ def relpos_tf32_fragment(kind: int, warp: int, lane: int, tile: int, s: int = 19
     return out
 
 
-def relpos_tf32_bw_slot(r: int, c: int) -> int:
+def relpos_tf32_bw_slot(r: int, c: int, n: int = 64) -> int:
     """The mirror of the streamed mode's bias_w slot in
     ``csrc/relpos_attention_tf32.cu`` (one a K stage, filled by the
     producer warpgroup's other three warps): the float at which it holds
-    column ``c`` (0..63) of the tile's run for the block's row ``r``
-    (0..127): 64 floats a row, 8-column group g stored at g ^ (r % 8)."""
-    return r * 64 + ((c // 8) ^ (r % 8)) * 8 + c % 8
+    column ``c`` (0..n - 1) of the tile's run for the block's row ``r``
+    (0..127), at ``n``-key tiles (:func:`relpos_tf32_tile`): n floats a row,
+    8-column group g stored at g ^ (r % (n / 8))."""
+    return r * n + ((c // 8) ^ (r % (n // 8))) * 8 + c % 8
 
 
 def relpos_tf32_mirror(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -1214,7 +1228,7 @@ def relpos_tf32_mirror(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        scale: Optional[float] = None) -> torch.Tensor:
     """The arithmetic of ``csrc/relpos_attention_tf32.cu`` in PyTorch on the
     CPU, block by block of :func:`relpos_tf32_schedule`, in f32. K4 (kind 0;
-    q, k, v (BH, S, D) with D 64, 80 or 96, S = kh kw, bias_h (BH, S, kh),
+    q, k, v (BH, S, D) with D 32 to 128 in steps of 16, S = kh kw, bias_h (BH, S, kh),
     bias_w (BH, S, kw), kw = 64 or, in the narrow mode, a multiple of 8
     below it, or in the straddling mode any other width below it, or in the
     streamed mode any width past it) or K5
@@ -1222,8 +1236,9 @@ def relpos_tf32_mirror(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     K and V split into TF32 hi and lo (:func:`tf32_split`; V^T with each
     8-key group in ``TF32_KEY_ORDER``); per 64-row warpgroup tile, Q
     multiplied by the scale and split; per key tile (64 keys, one grid row,
-    for K4 at kw = 64; 64 keys across rows in the narrow mode and 40 for K5,
-    keys past S zero), the scores' accumulators start at the bias (K4:
+    for K4 at kw = 64, half a row at head dims 112 and 128's 32-key tiles;
+    64 (32) keys across rows in the narrow mode and 40 for K5, keys past S
+    zero), the scores' accumulators start at the bias (K4:
     bias_w; K5: bias_h + bias_w; -inf for keys past S) and take lo(Q)
     hi(K)^T + hi(Q) lo(K)^T, then hi(Q) hi(K)^T (K4 at the head dims of
     ``RELPOS_TF32_BIAS_AFTER``: the products from zero, the bias added
@@ -1235,8 +1250,8 @@ def relpos_tf32_mirror(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     2^(s log2 e + shift - m) (one rounding); the denominator summed from
     the f32 p; the output rescaled, P split in the fragment order, the
     tile's (lo(P) hi(V) + hi(P) lo(V)) + hi(P) hi(V) summed apart and added
-    to O in f32 (the kernels' kFold; K4 at head dim 96 sums and adds it in
-    two 48-column halves, the same sums column by column); the output
+    to O in f32 (the kernels' kFold; K4 at head dims 96, 112 and 128 sums
+    and adds it in column parts, the same sums column by column); the output
     divided once; rows past S not written (left 0). Every word handed to
     the products is rna-rounded TF32, so the hardware's truncation is not
     modelled."""
@@ -1244,7 +1259,7 @@ def relpos_tf32_mirror(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scale = d ** -0.5 if scale is None else scale
     l2e = float(torch.tensor(1.4426950408889634, dtype=torch.float32))
     sc = float(torch.tensor(scale, dtype=torch.float32))
-    tile = RELPOS_TF32_TILE if kind == 0 else RELPOS_TF32_WINDOW_TILE
+    tile = relpos_tf32_tile(d) if kind == 0 else RELPOS_TF32_WINDOW_TILE
     kw = bias_w.shape[-1] if kind == 0 else _WIN
     # the straddling and streamed modes: the whole bias after the products
     straddle = kind == 0 and relpos_tf32_mode(kw) in ("straddle", "streamed")
@@ -1277,8 +1292,9 @@ def relpos_tf32_mirror(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 init = torch.zeros(64, tile)
                 shift = torch.zeros(64, tile)  # log2 units, a row's (or a key's) shift
                 if kind == 0 and kw == RELPOS_TF32_TILE:
-                    init[live] = bw_f[h, rows[live]]
-                    shift[live] = (bh_f[h, rows[live], t] * l2e)[:, None]
+                    ky, kx0 = divmod(t * tile, kw)
+                    init[live] = bw_f[h, rows[live], kx0:kx0 + tile]
+                    shift[live] = (bh_f[h, rows[live], ky] * l2e)[:, None]
                 else:
                     inside = keys < s
                     ky, kx = keys[inside] // kw, keys[inside] % kw

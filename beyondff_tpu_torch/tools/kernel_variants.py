@@ -507,6 +507,34 @@ VARIANTS = {
     # and at DP 256 in four 64-column parts (shipped: eight of 32)
     "relpos_wide_tf32_fold_64": (K45, ((RWT, "DP == 256 ? 32 : DP == 224 ? 56 : DP / 2;",
                                         "DP == 256 ? 64 : DP == 224 ? 56 : DP / 2;"),)),
+    # 3xTF32 K4 at head dims 112 and 128, plan (b): the wide 3xTF32 kernel
+    # of relpos_attention_wide_tf32.cu at a padded DP of 128 (one 64-row
+    # consumer, 255 registers, K and V split on the chip) instead of
+    # K4Cfg<112> and <128> (shipped: 32-key tiles, two 64-row consumers)
+    "k4_tf32_plan_b": (K45, (
+        (RT32, "constexpr int kMinK4D = 32, kMaxK4D = 128;",
+         "constexpr int kMinK4D = 32, kMaxK4D = 96;"),
+        (RWT, "constexpr int kMinD = 144, kMaxD = 256;", "constexpr int kMinD = 112, kMaxD = 256;"),
+        (RWT, "DP % kDStep == 0 && DP >= 160 && DP <= kMaxD",
+         "DP % kDStep == 0 && DP >= 128 && DP <= kMaxD"),
+        (RWT, "    case 160:\n",
+         "    case 128:\n      return launch<128, kKeyMask>(q, k, v, bias_h, bias_w, img, o, "
+         "BH, S, D, kh, kw, keys, scale, st);\n    case 160:\n"))),
+    # 3xTF32 K4 at head dims 112 and 128: the scores' accumulators start at
+    # bias_w (shipped: the products from zero, the bias added after them)
+    "k4_tf32_d128_bias_start": (K45, ((RT32, "constexpr bool kBiasAfter128 = true;",
+                                       "constexpr bool kBiasAfter128 = false;"),)),
+    # 3xTF32 K4 at head dim 128: each tile's P V folded in two 64-column
+    # parts (shipped: four of 32; two spill 16-48 bytes more)
+    "k4_tf32_d128_fold_2": (K45, (
+        (RT32, "constexpr int kFoldParts112 = 2, kFoldParts128 = 4;",
+         "constexpr int kFoldParts112 = 2, kFoldParts128 = 2;"),)),
+    # 3xTF32 K4 at head dims 32 and 48: two K stages and one V stage, or one
+    # of each (shipped: two of each)
+    "k4_tf32_d32_stages_2_1": (K45, ((RT32, "constexpr int kKStages32 = 2, kVStages32 = 2;",
+                                      "constexpr int kKStages32 = 2, kVStages32 = 1;"),)),
+    "k4_tf32_d32_stages_1_1": (K45, ((RT32, "constexpr int kKStages32 = 2, kVStages32 = 2;",
+                                      "constexpr int kKStages32 = 1, kVStages32 = 1;"),)),
     "k5_two_blocks": (K45, (
         (RWG, "constexpr int kWConsumers = 2;", "constexpr int kWConsumers = 1;"),
         (RWG, "constexpr int kWStages = 2;", "constexpr int kWStages = 1;"),
@@ -1280,6 +1308,30 @@ def main():
             lambda: relpos_f32_case(16, (72, 72), False, 80, 1.0, 3.0),
         "relpos_f32 grids window 17x17 (256, 289, 80)":
             lambda: relpos_f32_case(256, (17, 17), True),
+        # K4 in f32 at head dims 32, 48, 112 and 128 (no configured model
+        # calls them) on the 3xTF32 kernel's four modes, beside the FMA kernel
+        # they displace (the entry ``fma``; a tree from before them runs it
+        # through the entry) and SDPA in f32; ``k4_tf32_plan_b`` the other
+        # plan at 112 and 128; peaked rows and large factors
+        **{f"relpos_f32 dims {kh}x{kw} d{d} ({g}, {kh * kw}, {d})":
+           (lambda g=g, kh=kh, kw=kw, d=d: relpos_f32_case(g, (kh, kw), False, d))
+           for d in (128, 112, 48, 32)
+           for g, kh, kw in ((16, 64, 64), (16, 64, 36), (16, 64, 32), (16, 64, 128),
+                             (16, 2, 255))},
+        **{f"relpos_f32 dims {what} d{d} (16, 4096, {d})":
+           (lambda d=d, sp=sp, fs=fs: relpos_f32_case(16, (64, 64), False, d, sp, fs))
+           for d in (128, 112, 48, 32)
+           for what, sp, fs in (("spread 3", 3.0, 0.1), ("factors 3", 1.0, 3.0))},
+        # and at those head dims where the pre-pass and latency weigh most,
+        # beside the FMA kernel (the entry ``fma``): the lines of K4's
+        # predicates (kMinGridH, kMinGridW, kMinStraddleW) on short wide
+        # grids, the narrowest widths of the narrow and straddling modes and
+        # one streamed row
+        **{f"relpos_f32 small dims {kh}x{kw} d{d} (16, {kh * kw}, {d})":
+           (lambda kh=kh, kw=kw, d=d: relpos_f32_case(16, (kh, kw), False, d))
+           for d in (128, 112, 48, 32)
+           for kh, kw in ((1, 64), (2, 64), (4, 64), (8, 64), (1, 8), (8, 8), (1, 65),
+                          *((64, w) for w in range(1, 8)))},
         # YOLO-World-L's NMS over the batch of 4: 8 400 anchors, top_k 100;
         # the large mode at the same frames (what staging the boxes buys) and
         # at frames past the staged kernel's 90 112 boxes

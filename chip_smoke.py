@@ -190,7 +190,10 @@ displaced, which it must beat, and at spread 3 within 1e-4, SAM ViT-H's
 global-attention block in f32 (dim 1280, 16 heads, batch 1) on 80 x 64 and
 64 x 128 grids under ``BFF_SAM_RELPOS_FLASH=1`` on those two routes within
 1e-4 of the output's largest magnitude of the same block on plain
-attention, K4 at head dim 128 and K5 at SAM ViT-L's head dim 64 on the FMA
+attention, K4 at head dims 32, 48, 112 and 128 (16 heads of 64 x 64, and
+64 x 128 at 128 on the streamed mode) on the 3xTF32 kernel's new instances,
+each beside the FMA kernel it displaced, which it must beat, and at spread 3
+within 1e-4, K4 at head dim 72 and K5 at SAM ViT-L's head dim 64 on the FMA
 kernels (``flash_attention_relpos``,
 ``window_attention_relpos``), the mma.sync tile at (32, 1024, 64) with keys
 masked, the shapes past the port's old limits (``past_limits``: K2/K3 at
@@ -354,6 +357,13 @@ RELPOS_TF32_STREAMED_DESIGN = (
     "shared-memory slot by 4-byte cp.async once it has read the current one, bias_h two reads "
     "a row a tile; the scores' products summed from zero and each score's whole bias added in "
     "f32 once they are in; otherwise the narrow mode's kernel")
+# csrc/relpos_attention_tf32.cu: what K4's instances at head dims 112 and
+# 128 change in every mode
+RELPOS_TF32_32_KEY_DESIGN = (
+    ", at head dims 112 and 128 32-key tiles (S = Q K^T m64n32k8; Q's images, a 64-key K and "
+    "V stage and the table would pass the block's shared memory), each tile's P V summed "
+    "in column parts (two at 112, four at 128), the scores' products from zero and the bias added in f32 after "
+    "them")
 # csrc/flash_attention.cu, csrc/relpos_attention.cu: head dims past 128
 WIDE_WGMMA_DESIGN = ("bf16 wgmma holding the whole head dim (144-256, rounded up to 32, the "
                      "TMA zero-filling the rest): TMA boxes of 64 columns (128-byte swizzle) "
@@ -683,7 +693,9 @@ def relpos_case(torch, fa, wa, sam_mod, name, g, grid, dtype, dev, d=80, fma=Fal
               + (SLICED_DESIGN if d > fa.HEAD_DIM_SLICE and not wide else "")
               + ("" if fa.relpos_factor_table(hh, ww)
                  or routed.endswith(("_tf32", "_wgmma", "_streamed"))
-                 else ", each score's factors read from device memory (kh + kw past 256)"))
+                 else ", each score's factors read from device memory (kh + kw past 256)")
+              + (RELPOS_TF32_32_KEY_DESIGN if routed.startswith("flash_attention_relpos_tf32")
+                 and fa.relpos_tf32_tile(d) != fa.RELPOS_TF32_TILE else ""))
     extra = {"design": (RELPOS_WIDE_TF32_DESIGN if wide else
                         RELPOS_TF32_STREAMED_DESIGN if routed.endswith("_tf32_streamed") else
                         (RELPOS_TF32_STRADDLE_DESIGN if k4_call and ww % 8 else
@@ -3986,9 +3998,29 @@ def main() -> int:
     for grid, want in (((80, 64), "flash_attention_relpos_tf32"),
                        ((64, 128), "flash_attention_relpos_tf32_streamed")):
         sam_block_case(torch, (sam_mod, fa, dispatch), dev, grid, want)
-    # outside every f32 route, on the FMA kernels: K4 at head dim 128 (the
-    # 3xTF32 kernel takes 64, 80 and 96) and K5 at SAM ViT-L's head dim 64
-    for key, name, g, grid, d in (("relpos_global_fma", "d128_global", 4, (64, 64), 128),
+    # K4 in f32 at head dims 32, 48, 112 and 128 (no configured model calls
+    # them), 16 heads: the 3xTF32 kernel's new instances on 64 x 64 (the wide
+    # mode) and at 128 on 64 x 128 (the streamed mode), each beside the FMA
+    # kernel it displaced, which it must beat, and at spread 3
+    for key, name, batch, grid, d in (("relpos_d128", "d128_global", FRAME_BATCH, (64, 64), 128),
+                                      ("relpos_d112", "d112_global", 1, (64, 64), 112),
+                                      ("relpos_d48", "d48_global", 1, (64, 64), 48),
+                                      ("relpos_d32", "d32_global", 1, (64, 64), 32),
+                                      ("relpos_kw128_d128", "kh64_kw128_d128_global", 1,
+                                       (64, 128), 128)):
+        cases[(key, "float32", batch)] = rec = relpos_case(
+            torch, fa, wa, sam_mod, name, 16, grid, torch.float32, dev, d=d, fma=True,
+            spread3=True)
+        want = ("flash_attention_relpos_tf32_streamed" if grid[1] > 64
+                else "flash_attention_relpos_tf32")
+        check(rec["kernel"] == want, f"f32 K4 {name}: on {rec['kernel']}, not {want}")
+        check(rec["device_ms"] < rec["fma_device_ms"],
+              f"f32 K4 {name}: the 3xTF32 kernel ({rec['device_ms']} ms) loses to the FMA "
+              f"kernel ({rec['fma_device_ms']} ms)")
+    # outside every f32 route, on the FMA kernels: K4 at head dim 72 (the
+    # 3xTF32 kernel takes the multiples of 16 from 32 to 128) and K5 at SAM
+    # ViT-L's head dim 64
+    for key, name, g, grid, d in (("relpos_global_fma", "d72_global", 4, (64, 64), 72),
                                   ("relpos_window_fma", "window_sam_vit_l", 400, (14, 14), 64)):
         cases[(key, "float32", FRAME_BATCH)] = rec = relpos_case(
             torch, fa, wa, sam_mod, name, g * FRAME_BATCH, grid, torch.float32, dev, d=d)
@@ -4319,6 +4351,14 @@ def main() -> int:
              "beyondff_tpu/kernels/flash_attention.py:193"),
             (("relpos_kw128", "float32", 1), "beyondff_tpu_torch/csrc/relpos_attention_tf32.cu",
              "beyondff_tpu/kernels/flash_attention.py:193"),
+            # K4 f32 at head dims 32, 48, 112 and 128 on the 3xTF32 kernel
+            # (no configured model reaches them)
+            (("relpos_d128", "float32", FRAME_BATCH),
+             "beyondff_tpu_torch/csrc/relpos_attention_tf32.cu",
+             "beyondff_tpu/kernels/flash_attention.py:193"),
+            *(((key, "float32", 1), "beyondff_tpu_torch/csrc/relpos_attention_tf32.cu",
+               "beyondff_tpu/kernels/flash_attention.py:193")
+              for key in ("relpos_d112", "relpos_d48", "relpos_d32", "relpos_kw128_d128")),
             (("relpos_global_fma", "float32", FRAME_BATCH),
              "beyondff_tpu_torch/csrc/relpos_attention.cu",
              "beyondff_tpu/kernels/flash_attention.py:193"),

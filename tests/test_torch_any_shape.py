@@ -277,7 +277,7 @@ _OLD_RELPOS = [
     ((0, 1, 64, 4096, 64, 64), "flash_attention_relpos"),
     ((1, 1, 64, 196, 14, 14), "window_attention_relpos"),
     ((1, 0, 64, 196, 14, 14), "window_attention_relpos"),
-    ((0, 0, 112, 4096, 64, 64), "flash_attention_relpos"),
+    ((0, 0, 112, 4096, 64, 64), "flash_attention_relpos_tf32"),
     ((0, 0, 80, 8192, 128, 64), "flash_attention_relpos_tf32"),
     ((1, 0, 80, 256, 16, 16), "window_attention_relpos"),
     ((1, 1, 16, 20, 4, 5), "window_attention_relpos"),
@@ -290,7 +290,7 @@ _NEW_RELPOS = [
     ((0, 1, 64, 510, 2, 255), "flash_attention_relpos_streamed"),
     ((1, 1, 32, 257, 1, 257), "flash_attention_relpos_streamed"),
     ((0, 1, 160, 510, 2, 255), "flash_attention_relpos_wide_wgmma"),
-    ((0, 0, 32, 510, 2, 255), "flash_attention_relpos"),
+    ((0, 0, 32, 510, 2, 255), "flash_attention_relpos_tf32_streamed"),
     ((1, 0, 80, 289, 17, 17), "flash_attention_relpos_tf32"),
     ((1, 1, 80, 289, 17, 17), "flash_attention_relpos"),
     ((1, 1, 160, 196, 14, 14), "flash_attention_relpos_wide_wgmma"),

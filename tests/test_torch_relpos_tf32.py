@@ -122,7 +122,7 @@ def _sam_factors(jx, rows, cols, g, d, spread):
     ((0, 0, 64, 4096, 64, 64, 0.125, 0, 0, 0, 0, 0, 4), False),  # bias_w off 16 bytes
     ((1, 0, 64, 196, 14, 14, 0.125, *_A), False),  # K5 at head dim 64: the FMA kernel
     ((0, 0, 96, 4096, 64, 64, 96 ** -0.5, *_A), True),  # head dim 96: a swizzled table
-    ((0, 0, 128, 4096, 64, 64, 128 ** -0.5, *_A), False),
+    ((0, 0, 136, 4096, 64, 64, 136 ** -0.5, *_A), False),  # head dim 136: the FMA kernel
     ((0, 0, 80, 4096, 128, 32, _S80, *_A), True),  # kw 32 with kh past 64
     ((0, 0, 80, 8192, 128, 64, _S80, *_A), True),  # kh past 64
     ((0, 0, 80, 4095, 64, 64, _S80, *_A), False),  # S off the grid
@@ -147,8 +147,8 @@ def _sam_factors(jx, rows, cols, g, d, spread):
     ((0, 0, 96, 2048, 64, 32, 96 ** -0.5, 4, 0, 0, 0, 0, 0), False),  # narrow, q off 16 bytes
     ((0, 1, 96, 4096, 64, 64, 96 ** -0.5, *_A), False),  # bf16 at head dim 96: the tile
     ((1, 0, 96, 196, 14, 14, 96 ** -0.5, *_A), False),  # K5 at head dim 96: the FMA kernel
-    ((0, 0, 112, 4096, 64, 64, 112 ** -0.5, *_A), False),  # head dim 112
-    ((0, 0, 112, 2048, 64, 32, 112 ** -0.5, *_A), False),
+    ((0, 0, 72, 4096, 64, 64, 72 ** -0.5, *_A), False),  # head dim 72: no multiple of 16
+    ((0, 0, 40, 2048, 64, 32, 40 ** -0.5, *_A), False),
     # the straddling mode: widths below 64 that are no multiple of 8
     ((0, 0, 80, 256, 64, 4, _S80, *_A), True),  # kw 4: an n8 group spans two grid rows
     ((0, 0, 80, 768, 64, 12, _S80, *_A), True),  # kw 12
@@ -158,7 +158,7 @@ def _sam_factors(jx, rows, cols, g, d, spread):
     ((0, 0, 80, 4032, 64, 63, _S80, *_A), True),  # kw 63, the widest
     ((0, 0, 80, 7, 1, 7, _S80, *_A), True),  # one grid row of 7: one padded tile
     ((0, 1, 80, 2304, 64, 36, _S80, *_A), False),  # bf16 at kw 36: the tile
-    ((0, 0, 112, 2304, 64, 36, 112 ** -0.5, *_A), False),  # head dim 112 at kw 36
+    ((0, 0, 120, 2304, 64, 36, 120 ** -0.5, *_A), False),  # head dim 120 at kw 36
     ((0, 0, 80, 2304, 64, 36, _S80, 0, 0, 0, 0, 0, 4), False),  # kw 36, bias_w off 16 bytes
 ])
 def test_relpos_tf32_route_pins_the_predicate(args, takes):
@@ -702,19 +702,19 @@ def test_k5_tf32_matches_plain_on_card(cuda_device, g, scale, spread):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["d112", "kw36_d128", "kw36_d48", "kw4_d32", "kw36_d112",
+@pytest.mark.parametrize("case", ["d72", "kw36_d136", "kw36_d40", "kw4_d16", "kw36_d120",
                                   "misaligned", "window_d64", "window_16"])
 def test_other_f32_relpos_calls_keep_the_fma_kernels_on_card(cuda_device, case):
-    """f32 calls outside the predicates (head dim 112 on a 64-wide grid, a
-    36-wide grid 65 rows tall at head dims 128, 48 and 112 and a 4-wide one
-    at 32 (at 64, 80 and 96 the straddling mode takes these grids at any
-    height), an input off 16 bytes, head-dim-64 and 16 x 16 windows) stay
+    """f32 calls outside the predicates (head dim 72 on a 64-wide grid, a
+    36-wide grid 65 rows tall at head dims 136, 40 and 120 and a 4-wide one
+    at 16 (at the multiples of 16 from 32 to 128 the straddling mode takes
+    these grids at any height), an input off 16 bytes, head-dim-64 and 16 x 16 windows) stay
     on the FMA kernels, counted as ``flash_attention_relpos`` or
     ``window_attention_relpos``, within 1e-4."""
     window = case.startswith("window")
     rows, cols = ((16, 16) if case == "window_16" else (14, 14)) if window else (
-        (65, 36) if case.startswith("kw36") else (65, 4) if case == "kw4_d32" else (16, 64))
-    d = {"d112": 112, "kw36_d128": 128, "kw36_d112": 112, "kw36_d48": 48, "kw4_d32": 32,
+        (65, 36) if case.startswith("kw36") else (65, 4) if case == "kw4_d16" else (16, 64))
+    d = {"d72": 72, "kw36_d136": 136, "kw36_d120": 120, "kw36_d40": 40, "kw4_d16": 16,
          "window_d64": 64}.get(case, 80)
     q, k, v, bias_h, bias_w = _card_inputs(cuda_device, 3, rows, cols, d=d)
     if case == "misaligned":

@@ -96,9 +96,9 @@ def _inputs(seed, g, rows, cols, d=80, spread=1.0, bias_scale=0.5):
     ((0, 0, 80, 65, 1, 65), False, True),  # the narrowest streamed width: one padded tile
     # neither: another dtype, head dim, scale, alignment, S off the grid
     ((0, 1, 80, 510, 2, 255), False, False),  # bf16: the tile with streamed factors
-    ((0, 0, 32, 510, 2, 255), False, False),  # head dim 32: the FMA kernel
-    ((0, 0, 128, 4608, 72, 64), False, False),  # head dim 128
-    ((0, 0, 112, 8192, 64, 128), False, False),
+    ((0, 0, 16, 510, 2, 255), False, False),  # head dim 16: the FMA kernel
+    ((0, 0, 136, 4608, 72, 64), False, False),  # head dim 136
+    ((0, 0, 40, 8192, 64, 128), False, False),
     ((0, 0, 160, 510, 2, 255), False, False),  # the wide 3xTF32 kernel's head dim
     ((0, 0, 80, 8191, 64, 128), False, False),  # S off the grid
     ((0, 0, 80, 4607, 72, 64), False, False),
@@ -138,7 +138,7 @@ def test_routes_need_every_pointer_on_16_bytes(ptrs, grid):
     (0, 96, 32, 64, ROUTE1),
     (0, 64, 2, 129, ROUTE2),  # a window wider than 64: route 2
     (0, 80, 1, 257, ROUTE2),
-    (0, 32, 1, 257, "flash_attention_relpos"),  # head dim 32: the FMA kernel
+    (0, 16, 1, 257, "flash_attention_relpos"),  # head dim 16: the FMA kernel
     (1, 80, 17, 17, "flash_attention_relpos"),  # bf16: the tile
     (1, 64, 2, 129, "flash_attention_relpos"),
     (0, 80, 14, 14, "window_attention_relpos_tf32"),  # 196 tokens: K5's own kernels
@@ -378,9 +378,9 @@ def test_route2_matches_plain_on_card(cuda_device, d, g, rows, cols, spread, fac
 @pytest.mark.cuda
 @pytest.mark.parametrize("d,g,wh,ww,counter", [(80, 16, 17, 17, ROUTE1), (64, 4, 20, 30, ROUTE1),
                                                (64, 4, 2, 129, ROUTE2),
-                                               (32, 4, 17, 17, "flash_attention_relpos")])
+                                               (16, 4, 17, 17, "flash_attention_relpos")])
 def test_f32_windows_past_256_tokens_on_card(cuda_device, d, g, wh, ww, counter):
-    """K5's f32 windows past 256 tokens on K4's 3xTF32 routes (head dim 32
+    """K5's f32 windows past 256 tokens on K4's 3xTF32 routes (head dim 16
     on the FMA kernel), within 1e-4 of the window's plain version."""
     q, k, v, bias_h, bias_w = _card(cuda_device, g, wh, ww, d)
     before = dict(dispatch.launch_counts)
@@ -392,7 +392,7 @@ def test_f32_windows_past_256_tokens_on_card(cuda_device, d, g, wh, ww, counter)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d,rows,cols", [(32, 2, 255), (128, 72, 36), (48, 80, 64)])
+@pytest.mark.parametrize("d,rows,cols", [(16, 2, 255), (72, 72, 36), (40, 80, 64)])
 def test_other_f32_grids_keep_the_fma_kernel_on_card(cuda_device, d, rows, cols):
     """f32 grids past 64 at head dims neither route takes stay on the FMA
     kernel, counted as ``flash_attention_relpos``, within 1e-4."""

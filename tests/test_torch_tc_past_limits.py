@@ -364,10 +364,11 @@ def test_past_the_table_outside_the_route_keeps_fma_on_card(cuda_device, case):
     kernel reading the factors from device memory (``flash_attention_relpos``):
     bf16 at head dim 168 (160 takes the wide wgmma kernel,
     tests/test_torch_relpos_wide.py), bf16 factors off 4 bytes, f32 at head
-    dim 32 (at 64, 80 and 96 the 3xTF32 kernel's streamed mode takes it,
-    tests/test_torch_relpos_tf32_grids.py)."""
+    dim 16 (at the multiples of 16 from 32 to 128 the 3xTF32 kernel's
+    streamed mode takes it, tests/test_torch_relpos_tf32_grids.py and
+    tests/test_torch_relpos_tf32_dims.py)."""
     dtype = torch.float32 if case == "f32" else torch.bfloat16
-    d = 168 if case == "d168" else 32 if case == "f32" else 64
+    d = 168 if case == "d168" else 16 if case == "f32" else 64
     q, k, v, bias_h, bias_w = _relpos_card(cuda_device, 1, 2, 255, d, dtype)
     if case == "factors_off_4_bytes":
         buf = torch.empty(bias_h.numel() + 1, dtype=dtype, device=cuda_device)
